@@ -1,0 +1,4 @@
+"""Layers of the port (counterpart of `paddle_tpu/nn/layer/`)."""
+from .norm import LayerNorm
+
+__all__ = ["LayerNorm"]

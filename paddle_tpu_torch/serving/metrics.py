@@ -1,0 +1,176 @@
+"""Serving telemetry (counterpart of `paddle_tpu/serving/metrics.py`,
+cut to what the engine records in this slice): time to first token,
+inter-token latency, tokens/s over the busy window, step wall time,
+packed tokens per step and pool use. Times are seconds on the engine's
+clock. Per-step and per-request spans go through
+`torch.profiler.record_function` in the engine, so a `torch.profiler`
+trace of a serving run shows them next to the kernels.
+
+The Prometheus rendering, per-priority/per-adapter labels and the
+feature counters of the JAX package are not ported yet.
+"""
+from __future__ import annotations
+
+import math
+import threading
+from collections import deque
+from typing import Optional
+
+__all__ = ["Histogram", "ServingMetrics"]
+
+
+class Histogram:
+    """Running count/sum/min/max over all observations, percentiles
+    over the most recent `maxlen`."""
+
+    def __init__(self, maxlen: int = 8192):
+        self.count = 0
+        self.total = 0.0
+        self.min: Optional[float] = None
+        self.max: Optional[float] = None
+        self._recent = deque(maxlen=maxlen)
+
+    def record(self, v: float):
+        v = float(v)
+        self.count += 1
+        self.total += v
+        self.min = v if self.min is None else min(self.min, v)
+        self.max = v if self.max is None else max(self.max, v)
+        self._recent.append(v)
+
+    def percentile(self, q: float) -> Optional[float]:
+        if not self._recent:
+            return None
+        xs = sorted(self._recent)
+        idx = min(len(xs) - 1, max(0, math.ceil(q / 100.0 * len(xs)) - 1))
+        return xs[idx]
+
+    def snapshot(self) -> dict:
+        return {"count": self.count, "sum": self.total,
+                "mean": (self.total / self.count) if self.count else None,
+                "min": self.min, "max": self.max,
+                "p50": self.percentile(50), "p90": self.percentile(90),
+                "p99": self.percentile(99)}
+
+
+class ServingMetrics:
+    """Engine-owned counters and histograms; one lock covers every hook
+    and `snapshot()`, so a reader on another thread never sees a torn
+    record."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.requests_received = 0
+        self.requests_admitted = 0
+        self.requests_completed = 0
+        self.requests_cancelled = 0
+        self.requests_timeout = 0
+        self.requests_aborted = 0
+        self.tokens_generated = 0
+        self.prompt_tokens = 0
+        self.unified_steps = 0
+        self.packed_prefill_tokens = 0
+        self.packed_decode_tokens = 0
+        self.pool_pages_used = 0
+        self.pool_pages_cached = 0
+        self.pool_pages_total = 0
+        self.queue_depth = 0
+        self.ttft_s = Histogram()
+        self.inter_token_s = Histogram()
+        self.queue_wait_s = Histogram()
+        self.step_s = Histogram()
+        self.packed_tokens = Histogram()
+        self._first_admit_t: Optional[float] = None
+        self._last_token_t: Optional[float] = None
+
+    def on_submit(self, req):
+        with self._lock:
+            self.requests_received += 1
+
+    def on_admit(self, req, now: float):
+        with self._lock:
+            self.requests_admitted += 1
+            self.prompt_tokens += int(req.prompt_ids.size)
+            self.queue_wait_s.record(now - req.arrival_t)
+            if self._first_admit_t is None:
+                self._first_admit_t = now
+
+    def on_token(self, req, now: float):
+        with self._lock:
+            self.tokens_generated += 1
+            self._last_token_t = now
+            if len(req.output_tokens) == 1:
+                self.ttft_s.record(now - req.arrival_t)
+
+    def on_inter_token(self, dt: float):
+        with self._lock:
+            self.inter_token_s.record(dt)
+
+    def on_finish(self, req, now: float):
+        with self._lock:
+            reason = req.finish_reason
+            if reason in ("stop", "length"):
+                self.requests_completed += 1
+            elif reason == "cancelled":
+                self.requests_cancelled += 1
+            elif reason == "timeout":
+                self.requests_timeout += 1
+            else:
+                self.requests_aborted += 1
+
+    def on_unified_step(self, prefill_tokens: int, decode_tokens: int,
+                        wall_s: float):
+        """One unified step ran `prefill_tokens` prompt tokens next to
+        `decode_tokens` decode tokens in `wall_s` seconds (host clock
+        around a step that ends in a device synchronisation)."""
+        with self._lock:
+            self.unified_steps += 1
+            self.packed_prefill_tokens += int(prefill_tokens)
+            self.packed_decode_tokens += int(decode_tokens)
+            self.packed_tokens.record(int(prefill_tokens)
+                                      + int(decode_tokens))
+            self.step_s.record(wall_s)
+
+    def on_step(self, queue_depth: int, pages_used: int, pages_cached: int,
+                pages_total: int):
+        with self._lock:
+            self.queue_depth = queue_depth
+            self.pool_pages_used = pages_used
+            self.pool_pages_cached = pages_cached
+            self.pool_pages_total = pages_total
+
+    def tokens_per_s(self) -> Optional[float]:
+        """Generated tokens over the busy window (first admission to
+        the last emitted token)."""
+        with self._lock:
+            if self._first_admit_t is None or self._last_token_t is None:
+                return None
+            span = self._last_token_t - self._first_admit_t
+            return self.tokens_generated / span if span > 0 else None
+
+    def snapshot(self) -> dict:
+        tps = self.tokens_per_s()
+        with self._lock:
+            return {
+                "requests": {"received": self.requests_received,
+                             "admitted": self.requests_admitted,
+                             "completed": self.requests_completed,
+                             "cancelled": self.requests_cancelled,
+                             "timeout": self.requests_timeout,
+                             "aborted": self.requests_aborted},
+                "tokens_generated": self.tokens_generated,
+                "prompt_tokens": self.prompt_tokens,
+                "tokens_per_s": tps,
+                "unified_steps": self.unified_steps,
+                "packed_prefill_tokens": self.packed_prefill_tokens,
+                "packed_decode_tokens": self.packed_decode_tokens,
+                "ttft_s": self.ttft_s.snapshot(),
+                "inter_token_s": self.inter_token_s.snapshot(),
+                "queue_wait_s": self.queue_wait_s.snapshot(),
+                "step_s": self.step_s.snapshot(),
+                "packed_tokens_per_step": self.packed_tokens.snapshot(),
+                "pool": {"pages_used": self.pool_pages_used,
+                         "pages_cached": self.pool_pages_cached,
+                         "pages_total": self.pool_pages_total},
+                "queue_depth": self.queue_depth,
+            }

@@ -1,0 +1,336 @@
+"""Automatic prefix cache: a token-id radix tree over the paged KV pool
+(counterpart of `paddle_tpu/serving/prefix.py`; the host spill tier,
+session pins, adapter namespaces, the grouped-walk operands and the
+fleet-fabric transfers are not ported yet).
+
+The KV written for position p is a function of tokens[0..p] alone, so
+two requests whose token ids agree on [0, L) can point their page
+tables at the same physical pages for those positions and skip
+prefilling them.
+
+Each tree edge is one FULL page: `page_size` token ids mapped to one
+page id; children are keyed by the next page's token bytes. Leaves may
+also carry PARTIAL pages (the tail of a finished request). A prompt
+that matches into a partial page or the head of a full page gets it
+COPY-ON-WRITE: the engine copies the shared page into a fresh private
+one before prefill writes past the match. A shared page is never
+written through.
+
+- `acquire(prompt, max_new)` — admission: longest-prefix match,
+  refcount++ on the matched full pages, fresh tail pages (evicting LRU
+  unreferenced leaves under pressure), a `PrefixGrant`. Refusal has no
+  side effects.
+- `insert(tokens, pages, valid)` — a normally finished request's pages
+  become tree nodes; duplicates free; all its references drop and pages
+  at refcount 0 PARK as cache-resident.
+- `release(pages)` — any other retirement: refcount--, tree pages park,
+  private pages free.
+- `evict(need)` — leaf-to-root LRU over unreferenced pages only.
+"""
+from __future__ import annotations
+
+import heapq
+import itertools
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .paging import PagePool, pages_needed
+
+__all__ = ["RadixPrefixCache", "PrefixGrant"]
+
+
+class _Node:
+    """One radix edge: a full page of `page_size` token ids."""
+
+    __slots__ = ("tokens", "page", "parent", "children", "partials",
+                 "last_used")
+
+    def __init__(self, tokens: Optional[np.ndarray], page: Optional[int],
+                 parent: Optional["_Node"]):
+        self.tokens = tokens          # int64 [page_size]; None at root
+        self.page = page              # pool page id; None at root
+        self.parent = parent
+        self.children: Dict[bytes, "_Node"] = {}
+        self.partials: List["_Partial"] = []
+        self.last_used = 0
+
+
+class _Partial:
+    """A leaf-only partially filled page: positions [0, len(tokens))
+    of `page` hold valid KV for `tokens`."""
+
+    __slots__ = ("tokens", "page", "last_used")
+
+    def __init__(self, tokens: np.ndarray, page: int):
+        self.tokens = tokens
+        self.page = page
+        self.last_used = 0
+
+
+@dataclass
+class PrefixGrant:
+    """`pages` in page-table order (shared fulls, then fresh pages — the
+    first of which is the COW copy, if any), the prefill start
+    (`cached_len`) and the pending single-page COW copy. `cow_src` stays
+    refcount-protected until the engine reports the copy done via
+    `RadixPrefixCache.cow_done`."""
+
+    pages: List[int]
+    cached_len: int
+    cow_src: Optional[int] = None
+    cow_dst: Optional[int] = None
+    matched_full_pages: int = 0
+    fresh_pages: List[int] = field(default_factory=list)
+
+
+def _tok(seq) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(seq).reshape(-1),
+                                dtype=np.int64)
+
+
+def _common_prefix(a: np.ndarray, b: np.ndarray) -> int:
+    n = min(a.size, b.size)
+    if n == 0:
+        return 0
+    neq = np.nonzero(a[:n] != b[:n])[0]
+    return int(neq[0]) if neq.size else n
+
+
+class RadixPrefixCache:
+    """Radix-tree prefix cache over one engine's `PagePool`. Called
+    only between engine steps, from the engine's thread."""
+
+    def __init__(self, pool: PagePool, page_size: int):
+        self.pool = pool
+        self.page_size = int(page_size)
+        self.root = _Node(None, None, None)
+        # page id -> owning _Node/_Partial ("is this page tree-resident")
+        self._owner: Dict[int, object] = {}
+        self._tick = itertools.count(1)
+        self.lookups = 0
+        self.hits = 0
+        self.cached_tokens_total = 0
+        self.evicted_pages_total = 0
+        self.cow_copies_total = 0
+        self.inserted_pages_total = 0
+
+    @property
+    def tree_pages(self) -> int:
+        return len(self._owner)
+
+    def stats(self) -> dict:
+        return {
+            "lookups": self.lookups,
+            "hits": self.hits,
+            "cached_tokens": self.cached_tokens_total,
+            "evicted_pages": self.evicted_pages_total,
+            "cow_copies": self.cow_copies_total,
+            "inserted_pages": self.inserted_pages_total,
+            "tree_pages": self.tree_pages,
+            "resident_pages": self.pool.cached_pages,
+            "hit_rate": (self.hits / self.lookups) if self.lookups
+            else None,
+        }
+
+    def _touch(self, obj):
+        obj.last_used = next(self._tick)
+
+    # -- matching ----------------------------------------------------------
+    def _match_full(self, tok: np.ndarray, limit: int
+                    ) -> Tuple[_Node, List[int], int]:
+        """Walk full-page edges: (last node, matched page ids, matched
+        token count), capped at `limit` so at least one prompt token
+        always prefills (its logits start decoding). Each matched page
+        is retained as it is walked."""
+        ps = self.page_size
+        node, pages, depth = self.root, [], 0
+        while depth + ps <= limit:
+            child = node.children.get(tok[depth:depth + ps].tobytes())
+            if child is None:
+                break
+            node = child
+            self.pool.retain([child.page])
+            pages.append(child.page)
+            depth += ps
+            self._touch(child)
+        return node, pages, depth
+
+    def _best_tail(self, node: _Node, tail: np.ndarray
+                   ) -> Tuple[int, Optional[int]]:
+        """Best copy-on-write source below `node` for the remaining
+        sub-page prompt tokens: (matched token count, source page)."""
+        best_k, best_page, best_obj = 0, None, None
+        for part in node.partials:
+            k = _common_prefix(tail, part.tokens)
+            if k > best_k:
+                best_k, best_page, best_obj = k, part.page, part
+        for child in node.children.values():
+            k = _common_prefix(tail, child.tokens)
+            if k > best_k:
+                best_k, best_page, best_obj = k, child.page, child
+        if best_obj is not None:
+            self._touch(best_obj)
+        return best_k, best_page
+
+    # -- admission ---------------------------------------------------------
+    def acquire(self, prompt, max_new_tokens: int
+                ) -> Optional[PrefixGrant]:
+        """Longest-prefix match + page reservation for one request. On
+        success every granted page holds one reference for the request
+        (and the COW source an extra one until `cow_done`). On refusal
+        nothing changed."""
+        ps = self.page_size
+        tok = _tok(prompt)
+        plen = tok.size
+        self.lookups += 1
+        limit = plen - 1        # >= 1 token must prefill for logits
+        node, shared, depth = self._match_full(tok, limit)
+        cow_k, cow_src = self._best_tail(node, tok[depth:limit])
+        need_fresh = pages_needed(plen, max_new_tokens, ps) - len(shared)
+        if cow_src is not None:
+            self.pool.retain([cow_src])
+        fresh = self.pool.alloc(need_fresh)
+        if fresh is None:
+            self.evict(need_fresh - self.pool.free_pages)
+            fresh = self.pool.alloc(need_fresh)
+        if fresh is None and cow_src is not None:
+            # the retained COW source may be the very page blocking
+            # admission: forfeit the partial-page match, admit with the
+            # full-page match alone
+            self.release([cow_src])
+            cow_src, cow_k = None, 0
+            self.evict(need_fresh - self.pool.free_pages)
+            fresh = self.pool.alloc(need_fresh)
+        if fresh is None:
+            self.release(shared)     # roll back the match
+            return None
+        cached = depth + cow_k
+        if cached:
+            self.hits += 1
+            self.cached_tokens_total += cached
+        grant = PrefixGrant(pages=shared + fresh, cached_len=cached,
+                            matched_full_pages=len(shared),
+                            fresh_pages=fresh)
+        if cow_src is not None:
+            self.cow_copies_total += 1
+            grant.cow_src = cow_src
+            grant.cow_dst = fresh[0]
+        return grant
+
+    def cow_done(self, grant: PrefixGrant):
+        """The engine copied the COW page: drop the source's protection
+        reference."""
+        if grant.cow_src is not None:
+            self.release([grant.cow_src])
+            grant.cow_src = None
+
+    # -- retirement --------------------------------------------------------
+    def release(self, pages: List[int]):
+        """Drop one reference per page; pages at refcount 0 park
+        (tree-resident) or free (private)."""
+        zeroed = self.pool.release(pages)
+        park = [p for p in zeroed if p in self._owner]
+        if park:
+            self.pool.park(park)
+        gone = [p for p in zeroed if p not in self._owner]
+        if gone:
+            self.pool.free(gone)
+
+    def insert(self, tokens, pages: List[int], valid: int):
+        """Index a finished request's pages: `tokens` is its prompt +
+        generated ids, `valid` how many positions hold KV. Duplicates
+        free (the tree keeps its original); then all of the request's
+        references drop."""
+        ps = self.page_size
+        tok = _tok(tokens)
+        valid = int(valid)
+        if valid > tok.size or valid > len(pages) * ps:
+            raise ValueError(
+                f"valid={valid} exceeds tokens ({tok.size}) or page "
+                f"capacity ({len(pages) * ps})")
+        node = self.root
+        n_full = valid // ps
+        for i in range(n_full):
+            span = tok[i * ps:(i + 1) * ps]
+            key = span.tobytes()
+            child = node.children.get(key)
+            if child is None:
+                child = _Node(np.array(span), pages[i], node)
+                node.children[key] = child
+                self._owner[pages[i]] = child
+                self.inserted_pages_total += 1
+            node = child
+            self._touch(node)
+        rem = valid - n_full * ps
+        if rem > 0:
+            ptoks = np.array(tok[n_full * ps:valid])
+            page = pages[n_full]
+            if page not in self._owner and self._tail_is_new(node, ptoks):
+                part = _Partial(ptoks, page)
+                node.partials.append(part)
+                self._owner[page] = part
+                self.inserted_pages_total += 1
+                self._touch(part)
+        self.release(pages)
+
+    def _tail_is_new(self, node: _Node, ptoks: np.ndarray) -> bool:
+        """Keep a partial tail only if no resident page already covers
+        it."""
+        for part in node.partials:
+            if part.tokens.size >= ptoks.size and \
+                    _common_prefix(part.tokens, ptoks) == ptoks.size:
+                return False
+        for child in node.children.values():
+            if _common_prefix(child.tokens, ptoks) == ptoks.size:
+                return False
+        return True
+
+    # -- eviction ----------------------------------------------------------
+    def _evictable(self, obj) -> bool:
+        if isinstance(obj, _Partial):
+            return self.pool.refcount(obj.page) == 0
+        if obj.children or obj.partials:
+            return False
+        return self.pool.refcount(obj.page) == 0
+
+    def evict(self, need: int) -> int:
+        """Free at least `need` unreferenced cached pages, LRU leaves
+        first, walking leaf-to-root as parents become childless.
+        Returns the number of pages freed."""
+        if need <= 0:
+            return 0
+        heap = []
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            for part in node.partials:
+                heapq.heappush(heap, (part.last_used, id(part), part, node))
+            if node.tokens is not None and self._evictable(node):
+                heapq.heappush(heap, (node.last_used, id(node), node,
+                                      node.parent))
+        freed = 0
+        while freed < need and heap:
+            _, _, obj, parent = heapq.heappop(heap)
+            if isinstance(obj, _Partial):
+                if obj not in parent.partials or \
+                        self.pool.refcount(obj.page) != 0:
+                    continue
+                parent.partials.remove(obj)
+            else:
+                key = obj.tokens.tobytes()
+                if obj.parent is None or not self._evictable(obj) or \
+                        parent.children.get(key) is not obj:
+                    continue
+                del parent.children[key]
+                obj.parent = None
+            del self._owner[obj.page]
+            self.pool.free([obj.page])
+            self.evicted_pages_total += 1
+            freed += 1
+            if parent.tokens is not None and self._evictable(parent):
+                heapq.heappush(heap, (parent.last_used, id(parent),
+                                      parent, parent.parent))
+        return freed

@@ -1,0 +1,149 @@
+"""Request/response surface of the serving engine (counterpart of
+`paddle_tpu/serving/request.py`).
+
+A `Request` moves through QUEUED -> PREFILL -> DECODE -> FINISHED |
+CANCELLED. PREFILL spans as many engine steps as the prompt needs
+chunks; states advance only at step boundaries. The preemption state,
+adapters, grammar, embeddings and sessions are not ported yet
+(ROADMAP.md, queue 1, item 10).
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from enum import Enum
+from typing import Callable, List, Optional
+
+import numpy as np
+
+__all__ = ["RequestState", "SamplingParams", "Request", "RequestOutput"]
+
+
+class RequestState(Enum):
+    QUEUED = 0
+    PREFILL = 1
+    DECODE = 2
+    FINISHED = 3
+    CANCELLED = 4
+
+
+@dataclass
+class SamplingParams:
+    """Per-request decode knobs. greedy=True (default) is first-
+    occurrence argmax decoding; setting top_k or top_p (or greedy=False)
+    samples with this request's own temperature/top-k/top-p from the
+    engine's seeded generator. Lower `priority` is admitted first."""
+
+    max_new_tokens: int = 16
+    temperature: float = 1.0
+    top_k: Optional[int] = None
+    top_p: Optional[float] = None
+    greedy: bool = True
+    eos_token_id: Optional[int] = None
+    timeout_s: Optional[float] = None
+    priority: int = 0
+
+    def __post_init__(self):
+        if self.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if self.temperature <= 0:
+            raise ValueError("temperature must be > 0")
+        if self.top_k is not None and self.top_k < 1:
+            raise ValueError("top_k must be >= 1")
+        if self.top_p is not None and not (0.0 < self.top_p <= 1.0):
+            raise ValueError("top_p must be in (0, 1]")
+        if self.top_k is not None or self.top_p is not None:
+            self.greedy = False
+
+
+
+class Request:
+    """One queued/running generation job, created by
+    `ServingEngine.add_request`. Its tokens arrive through the
+    `on_token(request, token)` callback and in the final `output()`;
+    the blocking stream API comes with the HTTP layer."""
+
+    def __init__(self, request_id: str, prompt_ids,
+                 sampling: SamplingParams,
+                 on_token: Optional[Callable] = None,
+                 arrival_t: Optional[float] = None):
+        self.request_id = request_id
+        self.prompt_ids = np.asarray(prompt_ids).reshape(-1)
+        if self.prompt_ids.size == 0:
+            raise ValueError("empty prompt")
+        self.sampling = sampling
+        self.on_token = on_token
+        self.state = RequestState.QUEUED
+        self.output_tokens: List[int] = []
+        # stop | length | cancelled | timeout | aborted
+        self.finish_reason: Optional[str] = None
+        self.slot: Optional[int] = None
+        # KV pages granted at admission; None while queued
+        self.pages: Optional[List[int]] = None
+        # prompt tokens served from cached prefix pages (0 on a miss)
+        self.cached_tokens: int = 0
+        self._prefix_grant = None
+        self.arrival_t = time.monotonic() if arrival_t is None else arrival_t
+        self.admitted_t: Optional[float] = None
+        self.first_token_t: Optional[float] = None
+        self.finished_t: Optional[float] = None
+        self._last_token_t: Optional[float] = None
+
+    # -- engine-side transitions ------------------------------------------
+    def _emit(self, token: int, now: float):
+        self.output_tokens.append(token)
+        if self.first_token_t is None:
+            self.first_token_t = now
+        self._last_token_t = now
+        if self.on_token is not None:
+            self.on_token(self, token)
+
+    def _finish(self, reason: str, now: float):
+        self.finish_reason = reason
+        self.finished_t = now
+        self.state = (RequestState.CANCELLED if reason == "cancelled"
+                      else RequestState.FINISHED)
+
+    @property
+    def deadline(self) -> Optional[float]:
+        if self.sampling.timeout_s is None:
+            return None
+        return self.arrival_t + self.sampling.timeout_s
+
+    # -- user-facing ------------------------------------------------------
+    @property
+    def finished(self) -> bool:
+        return self.state in (RequestState.FINISHED, RequestState.CANCELLED)
+
+    def output(self) -> "RequestOutput":
+        return RequestOutput(
+            request_id=self.request_id,
+            prompt_token_ids=self.prompt_ids.tolist(),
+            token_ids=list(self.output_tokens),
+            finish_reason=self.finish_reason,
+            cached_tokens=self.cached_tokens,
+            ttft_s=(None if self.first_token_t is None
+                    else self.first_token_t - self.arrival_t),
+            queue_wait_s=(None if self.admitted_t is None
+                          else self.admitted_t - self.arrival_t),
+            e2e_s=(None if self.finished_t is None
+                   else self.finished_t - self.arrival_t))
+
+    def __repr__(self):
+        return (f"Request({self.request_id!r}, state={self.state.name}, "
+                f"prompt_len={self.prompt_ids.size}, "
+                f"generated={len(self.output_tokens)})")
+
+
+@dataclass
+class RequestOutput:
+    """Final result handed back when a request leaves the engine."""
+
+    request_id: str
+    prompt_token_ids: List[int]
+    token_ids: List[int]
+    finish_reason: Optional[str]
+    cached_tokens: int = 0
+    ttft_s: Optional[float] = None
+    queue_wait_s: Optional[float] = None
+    e2e_s: Optional[float] = None
