@@ -6,7 +6,12 @@ beside it slice by slice, and imports neither JAX nor anything of
 `nlp.generation` (the paged decode cache), `serving` (the continuous-
 batching engine with its unified ragged step, paged KV pool and radix
 prefix cache) and the two hand-written Hopper kernels that path runs,
-`ops.cuda.layer_norm` (K1) and `ops.cuda.paged_attention` (K6).
+`ops.cuda.layer_norm` (K1) and `ops.cuda.paged_attention` (K6). The
+second is GPT training: the model's training forward, `nn.functional`
+(layer_norm, scaled_dot_product_attention, cross_entropy, dropout),
+`optimizer` (Adam, AdamW), `jit.compile_train_step`, and the kernels
+of its backward and attention, K2 (`ops.cuda.layer_norm`) and K3-K5
+(`ops.cuda.flash_attention`).
 
 Entry points run on the GPU unless the caller passes device="cpu".
 """

@@ -1,24 +1,32 @@
 """GPT: decoder-only transformer LM, as `nn.Module`s.
 
 Counterpart of `paddle_tpu/nlp/gpt.py` (GPTConfig, GPTModel,
-GPTForCausalLM) for inference over the paged decode cache:
+GPTForCausalLM), for training and for inference over the paged decode
+cache:
 
-- pre-LN decoder layers; every LayerNorm runs through K1's wrapper
-  (`nn.LayerNorm` of this package);
+- pre-LN decoder layers; every LayerNorm runs through `nn.LayerNorm`
+  of this package: K1 forward and K2 backward on the card;
 - the fused QKV projection is reshaped to [b, l, H, 3 * D] and split, so
   q, k and v are interleaved PER HEAD as in the JAX package
   (gpt.py:101-103);
-- attention is the paged ragged step of `nlp.generation`, which runs
-  ragged paged attention (K6). A forward without caches builds a
-  one-shot paged cache, so plain causal attention goes through K6 too;
-- position ids are per row, pos[b] + i (gpt.py:231-239), clamped to
-  the table: a padding column of the serving step can sit past the last
-  position, and its output is never used;
-- the LM head is tied: logits = h @ E^T (gpt.py:311-312).
+- without caches (training, and a plain forward) attention is
+  `F.scaled_dot_product_attention(..., is_causal=True)`, so flash
+  attention K3 forward and K4/K5 backward on the card (gpt.py:150-152);
+  the embedding dropout and each layer's dropout1/dropout2
+  (upscale_in_train) run in training mode, drawn from a model-owned
+  generator;
+- with caches, attention is the paged ragged step of `nlp.generation`,
+  which runs ragged paged attention (K6); position ids are per row,
+  pos[b] + i (gpt.py:231-239), clamped to the table: a padding column
+  of the serving step can sit past the last position, and its output is
+  never used. That path applies no dropout;
+- the LM head is tied: logits = h @ E^T (gpt.py:311-312); with labels
+  the forward returns cross_entropy(logits, labels), labels aligned
+  with logits position for position (no shift, gpt.py:313-315).
 
 Linear layers are `torch.nn.Linear` ([out, in] weights; `convert.py`
-transposes the JAX package's [in, out]). Dropout, recompute, tensor and
-sequence parallelism and the training path are not ported yet.
+transposes the JAX package's [in, out]). Recompute and tensor and
+sequence parallelism are not ported yet.
 """
 from __future__ import annotations
 
@@ -30,12 +38,10 @@ from torch.nn import functional as F
 
 from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nn import LayerNorm
+from ..nn import functional as PF
 from .generation import DecodeCache, update_and_attend
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM"]
-
-# page size of the one-shot cache a forward without caches builds
-_ONE_SHOT_PAGE = 16
 
 
 class GPTConfig:
@@ -62,18 +68,26 @@ class GPTAttention(nn.Module):
         self.num_heads = config.num_attention_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
         self.hidden_size = config.hidden_size
+        self.dropout = config.attention_probs_dropout_prob
         self.qkv_proj = nn.Linear(config.hidden_size,
                                   3 * config.hidden_size, **factory)
         self.out_proj = nn.Linear(config.hidden_size, config.hidden_size,
                                   **factory)
 
-    def forward(self, x: torch.Tensor, cache: DecodeCache
-                ) -> Tuple[torch.Tensor, DecodeCache]:
+    def forward(self, x: torch.Tensor, cache: Optional[DecodeCache] = None,
+                generator: Optional[torch.Generator] = None):
+        """Without a cache: causal attention over x -> [b, l, h]. With
+        one: (output, advanced cache) through the paged step."""
         b, l, h = x.shape
         qkv = self.qkv_proj(x).view(b, l, self.num_heads, 3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
-        out, cache = update_and_attend(q, k, v, cache)
-        return self.out_proj(out.reshape(b, l, h)), cache
+        if cache is not None:
+            out, cache = update_and_attend(q, k, v, cache)
+            return self.out_proj(out.reshape(b, l, h)), cache
+        out = PF.scaled_dot_product_attention(
+            q, k, v, dropout_p=self.dropout, is_causal=True,
+            training=self.training, generator=generator)
+        return self.out_proj(out.reshape(b, l, h))
 
 
 class GPTMLP(nn.Module):
@@ -89,7 +103,8 @@ class GPTMLP(nn.Module):
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN block: x + attn(ln1(x)), then + mlp(ln2(x))."""
+    """Pre-LN block: x + dropout1(attn(ln1(x))), then
+    + dropout2(mlp(ln2(x)))."""
 
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -98,12 +113,21 @@ class GPTDecoderLayer(nn.Module):
         self.attn = GPTAttention(config, **factory)
         self.ln2 = LayerNorm(config.hidden_size, epsilon=eps, **factory)
         self.mlp = GPTMLP(config, **factory)
+        self.hidden_dropout = config.hidden_dropout_prob
 
-    def forward(self, x: torch.Tensor, cache: DecodeCache
-                ) -> Tuple[torch.Tensor, DecodeCache]:
-        h, cache = self.attn(self.ln1(x), cache)
-        x = x + h
-        return x + self.mlp(self.ln2(x)), cache
+    def _dropout(self, x, generator):
+        return PF.dropout(x, self.hidden_dropout, self.training,
+                          generator=generator)
+
+    def forward(self, x: torch.Tensor, cache: Optional[DecodeCache] = None,
+                generator: Optional[torch.Generator] = None):
+        if cache is not None:
+            h, cache = self.attn(self.ln1(x), cache)
+            x = x + h
+            return x + self.mlp(self.ln2(x)), cache
+        x = x + self._dropout(self.attn(self.ln1(x), generator=generator),
+                              generator)
+        return x + self._dropout(self.mlp(self.ln2(x)), generator)
 
 
 class GPTEmbeddings(nn.Module):
@@ -114,15 +138,27 @@ class GPTEmbeddings(nn.Module):
                                             config.hidden_size, **factory)
         self.position_embeddings = nn.Embedding(
             config.max_position_embeddings, config.hidden_size, **factory)
+        self.dropout = config.hidden_dropout_prob
 
-    def forward(self, input_ids: torch.Tensor, pos: torch.Tensor
-                ) -> torch.Tensor:
-        l = input_ids.shape[1]
-        ids = pos.to(torch.int64)[:, None] + torch.arange(
-            l, dtype=torch.int64, device=input_ids.device)[None, :]
-        ids = torch.clamp(ids, max=self.max_position - 1)
+    def embed(self, input_ids: torch.Tensor, position_ids: torch.Tensor
+              ) -> torch.Tensor:
+        """Word plus position embeddings, without dropout (the paged
+        step's input)."""
         return self.word_embeddings(input_ids) + \
-            self.position_embeddings(ids)
+            self.position_embeddings(position_ids)
+
+    def forward(self, input_ids: torch.Tensor, position_ids: torch.Tensor,
+                generator: Optional[torch.Generator] = None
+                ) -> torch.Tensor:
+        return PF.dropout(self.embed(input_ids, position_ids), self.dropout,
+                          self.training, generator=generator)
+
+    def cached_position_ids(self, pos: torch.Tensor, l: int) -> torch.Tensor:
+        """[b, l] ids pos[b] + i of the paged step, clamped to the
+        table."""
+        ids = pos.to(torch.int64)[:, None] + torch.arange(
+            l, dtype=torch.int64, device=pos.device)[None, :]
+        return torch.clamp(ids, max=self.max_position - 1)
 
 
 class GPTModel(nn.Module):
@@ -136,29 +172,49 @@ class GPTModel(nn.Module):
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_epsilon, **factory)
 
-    def forward(self, input_ids: torch.Tensor, caches: List[DecodeCache]
-                ) -> Tuple[torch.Tensor, List[DecodeCache]]:
-        x = self.embeddings(input_ids, caches[0].pos)
-        new_caches = []
-        for layer, cache in zip(self.layers, caches):
-            x, cache = layer(x, cache)
-            new_caches.append(cache)
-        return self.ln_f(x), new_caches
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                caches: Optional[List[DecodeCache]] = None,
+                generator: Optional[torch.Generator] = None):
+        """Without caches: the final hidden states [b, l, h], positions
+        0..l-1 unless given. With caches: (hidden states, advanced
+        caches) of the paged step."""
+        if caches is not None:
+            if position_ids is None:
+                position_ids = self.embeddings.cached_position_ids(
+                    caches[0].pos, input_ids.shape[1])
+            x = self.embeddings.embed(input_ids, position_ids)
+            new_caches = []
+            for layer, cache in zip(self.layers, caches):
+                x, cache = layer(x, cache)
+                new_caches.append(cache)
+            return self.ln_f(x), new_caches
+        if position_ids is None:
+            position_ids = torch.arange(input_ids.shape[1],
+                                        device=input_ids.device)
+        x = self.embeddings(input_ids, position_ids, generator)
+        for layer in self.layers:
+            x = layer(x, generator=generator)
+        return self.ln_f(x)
 
 
 class GPTForCausalLM(nn.Module):
     """GPT with the tied LM head. Built on `device` (default "cuda",
     which raises without CUDA) and initialised from `seed` as the JAX
     package does: N(0, initializer_range) for Linear weights and
-    embeddings, zero biases, LayerNorm weight 1 and bias 0."""
+    embeddings, zero biases, LayerNorm weight 1 and bias 0. Dropout
+    (training mode only) draws from a generator on the model's device
+    seeded from seed + 1, so its stream is not the weights'."""
 
     def __init__(self, config: GPTConfig, device: DeviceLike = None,
                  dtype: Optional[torch.dtype] = None, seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
+        self.seed = int(seed)
         self.gpt = GPTModel(config, device=dev, dtype=dtype)
         self.init_weights(seed)
+        self._generator = make_generator(self.seed + 1, dev)
 
     @torch.no_grad()
     def init_weights(self, seed: int):
@@ -184,31 +240,31 @@ class GPTForCausalLM(nn.Module):
     def lm_head(self, h: torch.Tensor) -> torch.Tensor:
         return F.linear(h, self.gpt.embeddings.word_embeddings.weight)
 
-    def forward(self, input_ids: torch.Tensor,
-                caches: Optional[List[DecodeCache]] = None):
-        """input_ids [b, l] -> logits [b, l, V]; with `caches`, returns
-        (logits, advanced caches). Without caches every row starts at
-        position 0 with all l tokens live, in a fresh one-shot cache."""
-        if caches is None:
-            h, _ = self.gpt(input_ids, self._one_shot_caches(*input_ids.shape))
-            return self.lm_head(h)
-        h, caches = self.gpt(input_ids, caches)
-        return self.lm_head(h), caches
+    @property
+    def generator(self) -> torch.Generator:
+        """The dropout generator, re-made on the model's device if the
+        model moved."""
+        if self._generator.device != self.device:
+            self._generator = make_generator(self.seed + 1, self.device)
+        return self._generator
 
-    def _one_shot_caches(self, b: int, l: int) -> List[DecodeCache]:
-        n_layers, n_kv, hd = self._decode_cache_spec()
-        ps = _ONE_SHOT_PAGE
-        mp = -(-l // ps)
-        dev = self.device
-        table = (1 + torch.arange(b * mp, dtype=torch.int32, device=dev)
-                 ).view(b, mp)
-        pos = torch.zeros(b, dtype=torch.int32, device=dev)
-        q_len = torch.full((b,), l, dtype=torch.int32, device=dev)
-        shape = (1 + b * mp, ps, n_kv, hd)
-        return [DecodeCache(torch.zeros(shape, dtype=self.dtype, device=dev),
-                            torch.zeros(shape, dtype=self.dtype, device=dev),
-                            pos, table, q_len)
-                for _ in range(n_layers)]
+    def forward(self, input_ids: torch.Tensor,
+                position_ids: Optional[torch.Tensor] = None,
+                labels: Optional[torch.Tensor] = None,
+                caches: Optional[List[DecodeCache]] = None):
+        """input_ids [b, l] -> logits [b, l, V]; with `labels` [b, l],
+        the mean cross entropy instead; with `caches`, (logits, advanced
+        caches) of the paged step."""
+        if caches is not None:
+            h, caches = self.gpt(input_ids, position_ids, caches=caches)
+        else:
+            h = self.gpt(input_ids, position_ids, generator=self.generator)
+        logits = self.lm_head(h)
+        if labels is not None:
+            return PF.cross_entropy(logits, labels)
+        if caches is not None:
+            return logits, caches
+        return logits
 
     def _decode_cache_spec(self) -> Tuple[int, int, int]:
         cfg = self.config

@@ -10,8 +10,10 @@ kernel rebuilds, an unchanged one loads from disk. `build()` starts one
 `nvcc` per source, all at once, and waits for every one of them.
 
 Pointers and the stream cross as `ctypes.c_void_p`, integers as
-`ctypes.c_int`. Every C entry returns `cudaGetLastError()` after its
-launch; `check()` turns a non-zero code into a `RuntimeError`.
+`ctypes.c_int`; a library may hold several C entries (`KERNELS`
+maps each library to all of them). Every C entry returns
+`cudaGetLastError()` after its launch; `check()` turns a non-zero code
+into a `RuntimeError`.
 """
 from __future__ import annotations
 
@@ -33,14 +35,24 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# kernel library -> its C entry's argument types (restype is c_int)
+# kernel library -> {C entry: its argument types} (restype is c_int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the flash entries take a pointer to their Params struct, the dtype,
+# the device and the stream
+_FLASH = [_P, _I, _I, _P]
 KERNELS = {
-    "layer_norm": ("ptt_layer_norm_fwd",
-                   [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P]),
-    "ragged_paged_attention": ("ptt_ragged_paged_attention",
-                               [_P, _P, _P, _P, _P, _P, _P] + [_I] * 10
-                               + [_P]),
+    "layer_norm": {
+        "ptt_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
+        "ptt_layer_norm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
+    },
+    "ragged_paged_attention": {
+        "ptt_ragged_paged_attention": [_P] * 7 + [_I] * 10 + [_P],
+    },
+    "flash_attention": {
+        "ptt_flash_fwd": _FLASH,
+        "ptt_flash_dq": _FLASH,
+        "ptt_flash_dkv": _FLASH,
+    },
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
@@ -99,8 +111,9 @@ def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel `name`, building it first if its
-    hashed target is missing."""
+    """The loaded library of kernel `name`, with every C entry that
+    `KERNELS[name]` lists bound, building it first if its hashed target
+    is missing."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
@@ -108,10 +121,10 @@ def load(name: str) -> ctypes.CDLL:
     if not target.exists():
         build([name])
     lib = ctypes.CDLL(str(target))
-    entry, argtypes = KERNELS[name]
-    fn = getattr(lib, entry)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    for entry, argtypes in KERNELS[name].items():
+        fn = getattr(lib, entry)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     lib.ptt_error_string.argtypes = [ctypes.c_int]
     lib.ptt_error_string.restype = ctypes.c_char_p
     _LIBS[name] = lib

@@ -112,7 +112,7 @@ def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     column 0, a prefill row's from its last live column, a dead row's
     unchanged. Only those rows go through the LM head."""
     caches = _unpack_caches(pools, pos, page_table, q_len)
-    h, _ = model.gpt(tokens, caches)
+    h, _ = model.gpt(tokens, caches=caches)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = torch.where(is_decode, torch.zeros_like(q_len),
                        torch.clamp(q_len - 1, min=0)).to(torch.int64)

@@ -14,7 +14,10 @@ import pytest
 import torch
 
 import paddle_tpu_torch
+from paddle_tpu_torch import jit as tjit
+from paddle_tpu_torch import optimizer as topt
 from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import layer_norm as tln
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
 from paddle_tpu_torch.serving import ServingEngine
@@ -35,6 +38,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch, paddle_tpu_torch.convert\n"
         "import paddle_tpu_torch.serving, paddle_tpu_torch.nlp\n"
         "import paddle_tpu_torch.ops.cuda._build\n"
+        "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.jit\n"
+        "import paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.ops.cuda.flash_attention\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n")
@@ -81,6 +87,27 @@ def test_wrappers_never_fall_back_off_the_cpu():
     i = torch.zeros(1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
         tpa.ragged_paged_attention(q, pool, pool, i.view(1, 1), i, i)
+    with pytest.raises(ValueError, match="no kernel"):
+        tln.layer_norm_bwd(x, x, w)
+    q4 = torch.zeros(1, 4, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention_fwd(q4, q4, q4, causal=True)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa.flash_attention_bwd(q4, q4, q4, q4, torch.zeros(2, 4), q4)
+
+
+def test_training_defaults_to_cuda_and_raises_without_it(no_cuda):
+    """The training model is built on the card unless told otherwise;
+    built on the CPU on request, one train step runs there."""
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GPTForCausalLM(GPTConfig(**SMALL))
+    model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
+    opt = topt.AdamW(learning_rate=1e-3, parameters=model.parameters())
+    step = tjit.compile_train_step(
+        lambda ids, labels: model(ids, labels=labels), model, opt)
+    ids = torch.randint(0, SMALL["vocab_size"], (2, 8))
+    loss = step(ids, ids)
+    assert loss.device.type == "cpu" and torch.isfinite(loss)
 
 
 @pytest.mark.parametrize("option,value", [
