@@ -10,24 +10,43 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 1. build every kernel library from `paddle_tpu_torch/ops/cuda/csrc/`
    (layer_norm.cu: K1, K2; ragged_paged_attention.cu: K6;
-   flash_attention.cu: K3, K4, K5; one nvcc per source, all at once)
-   and print the build time and the card's name and power limit;
+   grouped_paged_attention.cu: K10a, K10b; flash_attention.cu: K3, K4,
+   K5; one nvcc per source, all at once) and print the build time and
+   the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
-   and the training step's, K6 at the serving step's, K2-K5 at the
-   training step's; f32 outputs to 1e-5 x (1 + max|ref|), bf16 outputs
+   and the training step's, K6 and K10 at the serving step's, K2-K5 at
+   the training step's; f32 outputs to 1e-5 x (1 + max|ref|), bf16 outputs
    element by element to 2 ulps — and time the kernel, the plain version
    and one PyTorch library call computing the same function
    (`F.layer_norm`, `native_layer_norm_backward`, SDPA and its
-   backward), beside the bound from `bound()`;
+   backward), beside the bound from `bound()`. K10 runs on batches
+   built like phase 3's grouped steps (16 rows, seven sharing 16 pages;
+   and again at rep 4, D 128): its phase-1 partials against the plain
+   partials, its output against the plain output, and its output
+   against K6's on the same operands, bit for bit; K10a, K10b and K6 are
+   timed on the same operands;
 3. serve GPT-124M at full width (bench.py's configuration: vocab 50304,
    hidden 768, 12 layers, 12 heads, 1024 positions) in bf16 with random
    weights from a seed: 24 requests of 32-700 prompt tokens, a third of
    them behind one shared 256-token system prompt, 64 greedy tokens
-   each. Checks that every request finishes, that the step launched K6
-   12 and K1 25 times per step, and that the held logits of one
-   recorded step match a rerun of that step through the plain versions
-   (on the CPU, in f32). Prints tokens/s, the step time and the TTFT;
+   each, four times — with the engine's defaults (grouped walk,
+   preemption, host tier), with grouped=False, with grouped=False and
+   with the defaults. Checks that every request finishes, that a step
+   launched K1 25 times and K10a and K10b 12 times each (K6 not at all)
+   with the defaults and K6 12 times with grouped=False, that groups of
+   two or more rows formed, that the four runs' tokens are identical,
+   and that the held logits of one recorded step of the first run match
+   a rerun of that step through the plain versions (on the CPU, in
+   f32). Prints tokens/s, the step time, the TTFT, the modeled page
+   reads and the reads the grouped walk saved, and a profile of each
+   arm (16 more requests on the warm engine, half of them behind the
+   shared prompt). Then a preemption run: 16 slots over a pool of 16 x 40 + 1
+   pages filled with priority-5 requests; once they decode, a priority-0
+   burst that only preemption admits. Checks that requests were
+   preempted and swapped to the host tier, that every request's tokens
+   equal those of a run that never preempts, and that the pool is
+   quiesced after `drain()`; prints the swap-in time;
 4. train GPT-124M in bf16 as bench.py does (B 16 x L 1024, AdamW lr 1e-4,
    weight decay 0.01, dropout 0, ids and labels from
    `np.random.RandomState(0)`): 2 warm-up steps and 5 timed steps
@@ -41,17 +60,19 @@ Phases, each reported on its own line; any failure exits non-zero:
    profiled step.
 
 The second-to-last line is a JSON object with one record per kernel:
-`launches` counts the launches on the path (`path`, serving or
+`launches` counts the launches on the path (`path`: serving, the
+default engine's run; serving_ungrouped, the grouped=False run; or
 training) whose shapes the record was measured at, and
-`launches_by_path` those on each path. The last line is
-`{"ok": true, "device": {...}}`. Without CUDA the script prints no
-result and exits 1.
+`launches_by_path` those on each path, each counted from 0 just before
+its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
+the script prints no result and exits 1.
 """
 from __future__ import annotations
 
 import copy
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -70,6 +91,10 @@ GPT124M = dict(vocab_size=50304, hidden_size=768, num_hidden_layers=12,
 ENGINE = dict(num_slots=16, page_size=16, chunk_len=32, max_len=992)
 N_REQUESTS, NEW_TOKENS, SHARED_PREFIX = 24, 64, 256
 RECORD_STEP = 6          # the step whose held logits are re-run plain
+# phase 3's preemption run: a pool of 40 pages a slot, 16 priority-5
+# requests of 560 prompt tokens (39 pages each with their 64 new tokens),
+# then a burst of 4 priority-0 requests of the same size
+PREEMPT_PAGES, PREEMPT_PROMPT, PREEMPT_BURST = 16 * 40 + 1, 560, 4
 # kernel vs plain version on the card; both compute in f32 from the same
 # inputs. An f32 output: max error <= F32_TOL x (1 + max|ref|) (summation
 # order). A bf16 output, element by element: <= BF16_ULPS ulps of the
@@ -380,28 +405,18 @@ def check_paged_attention(dev, tpa, time_ms):
     q, k, v, table, pos, q_len = args            # bf16, GPT-124M heads
     ms = time_ms(lambda: tpa.ragged_paged_attention(*args))
     plain_ms = time_ms(lambda: tpa.ragged_attention_reference(*args))
-    # library yardstick: SDPA over the gathered dense view, ragged mask
+    lib_ms = time_ms(sdpa_yardstick(*args))
     b, lq, h, d = q.shape
-    ps, mp = k.shape[1], table.shape[1]
-    kd = k[table.long()].reshape(b, mp * ps, h, d).transpose(1, 2)
-    vd = v[table.long()].reshape(b, mp * ps, h, d).transpose(1, 2)
-    qd = q.transpose(1, 2)
-    i = torch.arange(lq, device=dev)[:, None]
-    j = torch.arange(mp * ps, device=dev)[None, :]
-    mask = (j <= pos[:, None, None] + i)[:, None]
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask))
-    # what this batch needs: live queries, every row's live K/V pages
     ql, ps_ = q_len.cpu().numpy(), pos.cpu().numpy()
     item = q.element_size()
-    pages = sum(min(mp, (int(p) + int(n) - 1) // ps + 1)
-                for p, n in zip(ps_, ql) if n > 0)
+    flat, _, _ = tpa.count_page_block_reads(
+        table.cpu().numpy(), ps_, ql, page_size=k.shape[1])
+    # what this batch needs: live queries, every row's live K/V pages
     n_bytes = (2 * int(ql.sum()) * h * d * item        # q in, out
-               + 2 * pages * ps * k.shape[2] * d * item
+               + flat * k.shape[2] * page_block_bytes(k)
                + table.numel() * 4 + 2 * b * 4)
-    keys = sum(int(p) * int(n) + int(n) * (int(n) + 1) // 2
-               for p, n in zip(ps_, ql))
-    bound_ms, bound_by = bound(n_bytes, 4 * keys * h * d, BF16_FLOPS)
+    bound_ms, bound_by = bound(n_bytes, 4 * attended_keys(ps_, ql) * h * d,
+                               BF16_FLOPS)
     log(f"  K6 bf16 [16, 32, 12, 64]: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, SDPA (gathered, masked) {lib_ms:.4f} ms, "
         f"bound {bound_ms:.5f} ms ({bound_by})")
@@ -409,9 +424,170 @@ def check_paged_attention(dev, tpa, time_ms):
                 source="paddle_tpu_torch/ops/cuda/csrc/"
                        "ragged_paged_attention.cu",
                 replaces="paddle_tpu/ops/pallas/paged_attention.py:375",
-                path="serving", max_abs_err=errs[torch.bfloat16], ms=ms,
-                plain_ms=plain_ms,
+                path="serving_ungrouped", max_abs_err=errs[torch.bfloat16],
+                ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+
+
+def sdpa_yardstick(q, k, v, table, pos, q_len):
+    """K6's and K10's library yardstick: SDPA over the gathered dense
+    K/V view under the ragged causal mask (one call; its gather is
+    done here, outside the timed call)."""
+    b, lq, h, d = q.shape
+    ps, mp = k.shape[1], table.shape[1]
+    rep = h // k.shape[2]
+    kd = k[table.long()].reshape(b, mp * ps, -1, d).repeat_interleave(
+        rep, dim=2).transpose(1, 2)
+    vd = v[table.long()].reshape(b, mp * ps, -1, d).repeat_interleave(
+        rep, dim=2).transpose(1, 2)
+    qd = q.transpose(1, 2)
+    i = torch.arange(lq, device=q.device)[:, None]
+    j = torch.arange(mp * ps, device=q.device)[None, :]
+    mask = (j <= pos[:, None, None] + i)[:, None]
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qd, kd, vd, attn_mask=mask)
+
+
+def page_block_bytes(pool) -> int:
+    """Bytes of one page block of one kv head, K and V."""
+    return 2 * pool.shape[1] * pool.shape[3] * pool.element_size()
+
+
+def attended_keys(pos, q_len, span=None) -> int:
+    """(query, key) pairs the live queries attend: query i of row b sees
+    keys 0 .. pos[b] + i, or with `span` [B] only those below it."""
+    n = 0
+    for b, (p, ql) in enumerate(zip(pos, q_len)):
+        seen = int(p) + 1 + np.arange(int(ql))
+        n += int(np.minimum(seen, span[b]).sum() if span is not None
+                 else seen.sum())
+    return n
+
+
+def shared_spans(table, pos, q_len, gid, gcnt, ps):
+    """Per row, the key count of the shared span its group reads once
+    (0 outside a sharing group), with the span of each group as
+    `count_page_block_reads` counts it; and the spans' page-block reads
+    per kv head."""
+    live = q_len > 0
+    row_pages = np.where(live, (pos + np.maximum(q_len, 1) - 1) // ps + 1, 0)
+    keys = np.zeros(len(q_len), np.int64)
+    reads = 0
+    for g in np.unique(gid[live]):
+        members = np.nonzero(live & (gid == g))[0]
+        shared = min(int(gcnt[g]), int(row_pages[members].min()))
+        if members.size >= 2 and shared > 0:
+            keys[members] = shared * ps
+            reads += shared
+    return keys, reads
+
+
+def wall_ms(fn, iters: int = 2) -> float:
+    """Time per call of `fn` from events around `iters` calls after a
+    warm-up, host gaps included: for a plain version whose enqueue
+    outlasts DeviceTimer's sleep."""
+    fn()
+    torch.cuda.synchronize()
+    return DeviceTimer._events(lambda: [fn() for _ in range(iters)]) / iters
+
+
+def check_grouped_attention(dev, tpa, time_ms):
+    """K10 on batches built like phase 3's grouped steps: 16 rows, seven
+    of them sharing 16 pages, q_len 1-32 (`launch_check.grouped_batch`),
+    H = H_kv = 12, D 64 in f32 and bf16, and H 16, H_kv 4, D 128 in bf16.
+    K10a's partials against the plain phase-1 partials (member rows of
+    live queries), K10b's output against the plain output (live
+    queries), and the output against K6's, bit for bit. Then K10a, K10b,
+    both, K6, the plain version (with `wall_ms`) and SDPA are timed on
+    the bf16 H 12 batch."""
+    from paddle_tpu_torch.ops.cuda.launch_check import grouped_batch
+    errs, part_errs, batches = {}, {}, {}
+    for dtype, (h, hkv, d) in ((torch.float32, (12, 12, 64)),
+                               (torch.bfloat16, (12, 12, 64)),
+                               (torch.bfloat16, (16, 4, 128))):
+        ops, grp = grouped_batch(dev, dtype, h, hkv, d, SEED)
+        batches[dtype, h] = ops, grp
+        tag = f"H={h} H_kv={hkv} D={d} {dtype}"
+        partials = tpa.grouped_phase1(*ops, *grp)
+        out = tpa.grouped_phase2(*ops, *grp, partials)
+        k6 = tpa.ragged_paged_attention(*ops)
+        torch.cuda.synchronize()
+        same = torch.equal(out, k6)
+        log(f"  K10 {tag}: {int((grp[2] > 0).sum())} sharing group(s), "
+            f"{int(grp[2].max())} shared pages; output equals K6's bit "
+            f"for bit: {same}")
+        if not same:
+            raise AssertionError(f"K10 {tag} differs from K6")
+        if not torch.isfinite(out.float()).all():
+            raise AssertionError("K10 wrote a non-finite dead query")
+        ref, (m, l, acc, written) = tpa.grouped_attention_reference(
+            *ops, *grp, return_partials=True)
+        sel = written & (m > tpa.NEG_INF / 2)     # member rows, live queries
+        part_errs[dtype, h] = max(
+            check_close(f"K10a partial {n} {tag}", got[sel], want[sel])
+            for n, got, want in zip(("m", "l", "acc"), partials, (m, l, acc)))
+        live = (torch.arange(out.shape[1], device=dev)[None, :]
+                < ops[5][:, None])
+        errs[dtype, h] = check_close(f"K10b output {tag}", out, ref,
+                                     mask=live)
+        del ref, m, l, acc
+    ops, grp = batches[torch.bfloat16, 12]
+    args = tpa._grouped_check(*ops, *grp)
+    partials = tpa.grouped_phase1(*args)
+    ms_a = time_ms(lambda: tpa.grouped_phase1(*args))
+    ms_b = time_ms(lambda: tpa.grouped_phase2(*args, partials))
+    ms_both = time_ms(lambda: tpa.ragged_paged_attention_grouped(*ops, *grp))
+    ms_k6 = time_ms(lambda: tpa.ragged_paged_attention(*ops))
+    plain_ms = wall_ms(lambda: tpa.grouped_attention_reference(*ops, *grp))
+    lib_ms = time_ms(sdpa_yardstick(*ops))
+    q, k, v, table, pos, q_len = ops
+    b, lq, h, d = q.shape
+    hkv, ps = k.shape[2], k.shape[1]
+    tab, p_, ql = (t.cpu().numpy() for t in (table, pos, q_len))
+    gid, gcn = grp[0].cpu().numpy(), grp[2].cpu().numpy()
+    flat, reads, sizes = tpa.count_page_block_reads(tab, p_, ql, gid, gcn,
+                                                    page_size=ps)
+    span_keys, span_reads = shared_spans(tab, p_, ql, gid, gcn, ps)
+    item = q.element_size()
+    member = span_keys > 0
+    q_member = int(ql[member].sum()) * h * d * item
+    q_live = int(ql.sum()) * h * d * item
+    # partials of member rows: m, l and acc, written by K10a, read by K10b
+    part_bytes = sum(int(q_len_b) for q_len_b in ql[member]) * h * \
+        (d + 2) * 4
+    keys_a = attended_keys(p_, ql, span_keys)
+    keys_all = attended_keys(p_, ql)
+    blk = hkv * page_block_bytes(k)
+    bound_a = bound(span_reads * blk + q_member + part_bytes,
+                    4 * keys_a * h * d, BF16_FLOPS)
+    bound_b = bound((reads - span_reads) * blk + 2 * q_live + part_bytes,
+                    4 * (keys_all - keys_a) * h * d, BF16_FLOPS)
+    log(f"  K10 bf16 [16, 32, 12, 64], group sizes {sizes}: page-block "
+        f"reads {reads} grouped vs {flat} per row (per kv head); K10a "
+        f"{ms_a:.4f} ms (bound {bound_a[0]:.5f}, {bound_a[1]}), K10b "
+        f"{ms_b:.4f} ms (bound {bound_b[0]:.5f}, {bound_b[1]}), both "
+        f"{ms_both:.4f} ms vs K6 {ms_k6:.4f} ms on the same operands; "
+        f"plain (both phases) {plain_ms:.4f} ms, SDPA (gathered, masked) "
+        f"{lib_ms:.4f} ms")
+    common = dict(route="cuda", path="serving",
+                  source="paddle_tpu_torch/ops/cuda/csrc/"
+                         "grouped_paged_attention.cu",
+                  plain_ms=plain_ms,
+                  plain_timing="both phases, events around whole calls",
+                  k10_ms=ms_both, k6_ms_same_operands=ms_k6,
+                  page_block_reads={"grouped": reads, "per_row": flat})
+    return (dict(name="K10a grouped_phase1",
+                 replaces="paddle_tpu/ops/pallas/paged_attention.py:562",
+                 max_abs_err=part_errs[torch.bfloat16, 12], ms=ms_a,
+                 bound_ms=bound_a[0], bound_by=bound_a[1], library_ms=None,
+                 max_abs_err_rep4=part_errs[torch.bfloat16, 16], **common),
+            dict(name="K10b grouped_phase2",
+                 replaces="paddle_tpu/ops/pallas/paged_attention.py:663",
+                 max_abs_err=errs[torch.bfloat16, 12], ms=ms_b,
+                 bound_ms=bound_b[0], bound_by=bound_b[1], library_ms=lib_ms,
+                 library_call="SDPA over the gathered, masked K/V: the "
+                              "output of K10a and K10b together",
+                 max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
 
 
 # -- phase 3: serve GPT-124M -------------------------------------------------
@@ -439,8 +615,17 @@ def make_traffic():
     return [p.astype(np.int64) for p in prompts]
 
 
-def serve(dev, tln, tpa):
-    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+def launch_counts_serving(tln, tpa) -> dict:
+    return {"K1": tln.LAUNCHES, "K6": tpa.LAUNCHES,
+            "K10a": tpa.GROUPED_LAUNCHES["phase1"],
+            "K10b": tpa.GROUPED_LAUNCHES["phase2"]}
+
+
+def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
+          profile: bool = False):
+    """One run of phase 3's traffic on a fresh engine: the defaults
+    (grouped walk, preemption, host tier) or grouped=False. Returns the
+    launches, the stats and every request's tokens."""
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
                                           unified_forward)
 
@@ -449,9 +634,11 @@ def serve(dev, tln, tpa):
         recorded = None
 
         def _forward(self, *args):
-            if self.metrics.unified_steps != RECORD_STEP:
+            if not record or self.metrics.unified_steps != RECORD_STEP:
                 return super()._forward(*args)
-            snap = lambda t: t.to("cpu", copy=True)
+            snap = lambda t: (None if t is None else
+                              tuple(map(snap, t)) if isinstance(t, tuple)
+                              else t.to("cpu", copy=True))
             before = ([snap(a) for a in args],
                       [(snap(k), snap(v)) for k, v in self._pools],
                       snap(self._last_logits))
@@ -459,9 +646,11 @@ def serve(dev, tln, tpa):
             self.recorded = before + (out.cpu(),)
             return out
 
-    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
-                           dtype=torch.bfloat16, seed=SEED).eval()
-    eng = RecordingEngine(model, device=dev, seed=SEED, **ENGINE)
+    arm = "defaults" if grouped else "grouped=False"
+    eng = RecordingEngine(model, device=dev, seed=SEED,
+                          **({} if grouped else {"grouped": False}), **ENGINE)
+    if eng.grouped != grouped or not eng.preempt:
+        raise AssertionError(f"engine gates {eng.grouped, eng.preempt}")
     prompts = make_traffic()
     t0 = time.perf_counter()
     tln.reset_launches()
@@ -471,22 +660,32 @@ def serve(dev, tln, tpa):
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": tln.LAUNCHES, "K6": tpa.LAUNCHES}
+    launches = launch_counts_serving(tln, tpa)
     steps = eng.metrics.unified_steps
     snap = eng.metrics.snapshot()
-    log(f"  served {len(reqs)} requests in {steps} steps, {wall:.3f} s: "
-        f"{snap['tokens_generated']} tokens, {snap['tokens_per_s']:.1f} "
-        f"tokens/s; step p50 {snap['step_s']['p50'] * 1e3:.3f} ms, p90 "
+    log(f"  [{arm}] served {len(reqs)} requests in {steps} steps, "
+        f"{wall:.3f} s: {snap['tokens_generated']} tokens, "
+        f"{snap['tokens_per_s']:.1f} tokens/s; step p50 "
+        f"{snap['step_s']['p50'] * 1e3:.3f} ms, p90 "
         f"{snap['step_s']['p90'] * 1e3:.3f} ms; TTFT p50 "
         f"{snap['ttft_s']['p50'] * 1e3:.1f} ms, p90 "
         f"{snap['ttft_s']['p90'] * 1e3:.1f} ms")
     pc = eng.prefix_cache.stats()
-    log(f"  prefix cache: {pc['hits']} hits of {pc['lookups']}, "
-        f"{pc['cached_tokens']} cached tokens, {pc['cow_copies']} COW copies")
+    sizes = snap["group_size_per_step"]
+    log(f"  [{arm}] prefix cache: {pc['hits']} hits of {pc['lookups']}, "
+        f"{pc['cached_tokens']} cached tokens, {pc['cow_copies']} COW "
+        f"copies; modeled page-block reads {snap['page_block_reads_total']}"
+        f" (per kv head and layer, summed over steps), "
+        f"{snap['shared_page_reads_saved_total']} saved by the grouped "
+        f"walk; sharing groups in {sizes['count']} step(s), largest "
+        f"{sizes['max']}")
     n_layers = GPT124M["num_hidden_layers"]
-    want = {"K1": (2 * n_layers + 1) * steps, "K6": n_layers * steps}
-    log(f"  launches: K1 {launches['K1']} ({2 * n_layers + 1} x {steps}), "
-        f"K6 {launches['K6']} ({n_layers} x {steps})")
+    per_step = {"K1": 2 * n_layers + 1,
+                "K6": 0 if grouped else n_layers,
+                "K10a": n_layers if grouped else 0,
+                "K10b": n_layers if grouped else 0}
+    want = {k: n * steps for k, n in per_step.items()}
+    log(f"  [{arm}] launches: {launches} (per step {per_step})")
     if any(r.finish_reason != "length" or len(r.output_tokens) != NEW_TOKENS
            for r in reqs):
         raise AssertionError("a request did not finish with its 64 tokens")
@@ -497,31 +696,156 @@ def serve(dev, tln, tpa):
         raise AssertionError(f"kernel launches {launches} != {want}")
     if pc["hits"] < 1 or pc["cow_copies"] < 1:
         raise AssertionError("the traffic did not exercise attach and COW")
+    if grouped and not (sizes["max"] or 0) >= 2:
+        raise AssertionError("no step formed a group of two or more rows")
     eng.pool.assert_quiesced()
+    stats = {"tokens_per_s": snap["tokens_per_s"],
+             "step_ms_p50": snap["step_s"]["p50"] * 1e3,
+             "ttft_ms_p50": snap["ttft_s"]["p50"] * 1e3,
+             "steps": steps, "wall_s": wall,
+             "page_block_reads": snap["page_block_reads_total"],
+             "page_reads_saved": snap["shared_page_reads_saved_total"],
+             "largest_group": sizes["max"]}
+    if record:
+        stats["held"] = rerun_recorded(eng, model, unified_forward)
+    if profile:
+        # the eight shared-prefix prompts and eight others, so that the
+        # profiled steps form sharing groups
+        stats["profile"] = profile_steps(eng, prompts[:8] + prompts[16:])
+    return launches, stats, [list(r.output_tokens) for r in reqs]
 
-    # rerun the recorded step through the plain versions (CPU, f32)
+
+def rerun_recorded(eng, model, unified_forward) -> dict:
+    """Rerun the recorded step through the plain versions (CPU, f32) and
+    hold its logits against the card's."""
     if eng.recorded is None:
         raise AssertionError(f"step {RECORD_STEP} never ran")
-    (toks, pos, table, q_len, is_decode), pools, last, held = eng.recorded
+    (toks, pos, table, q_len, is_decode, group), pools, last, held = \
+        eng.recorded
     plain_model = copy.deepcopy(model).float().cpu()
     pools = [(k.float(), v.float()) for k, v in pools]
     with torch.no_grad():
         plain = unified_forward(plain_model, pools, toks, pos, table, q_len,
-                                is_decode, last)
+                                is_decode, last, group)
     live = q_len > 0
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
     log(f"  step {RECORD_STEP} ({int(q_len.sum())} tokens, "
-        f"{int(live.sum())} live rows): held logits vs plain f32 rerun "
-        f"max_abs_err={err:.4f} (tolerance {HELD_LOGITS_TOL}), argmax "
-        f"agreement {agree.item():.3f}")
+        f"{int(live.sum())} live rows, grouped walk "
+        f"{'on' if group is not None else 'off'}): held logits vs plain "
+        f"f32 rerun max_abs_err={err:.4f} (tolerance {HELD_LOGITS_TOL}), "
+        f"argmax agreement {agree.item():.3f}")
     if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
         raise AssertionError("held logits disagree with the plain rerun")
-    return launches, {"tokens_per_s": snap["tokens_per_s"],
-                      "step_ms_p50": snap["step_s"]["p50"] * 1e3,
-                      "ttft_ms_p50": snap["ttft_s"]["p50"] * 1e3,
-                      "steps": steps, "wall_s": wall,
-                      "profile": profile_steps(eng, prompts[:16])}
+    return {"max_abs_err": err, "argmax_agreement": agree.item()}
+
+
+def serving(dev, tln, tpa):
+    """Phase 3's four runs, defaults / grouped=False / grouped=False /
+    defaults, on one model: launches of the first run of each arm (its
+    path), their stats, and the tokens of all four, which must agree."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                           dtype=torch.bfloat16, seed=SEED).eval()
+    on, on_stats, on_tokens = serve(dev, tln, tpa, model, True, record=True,
+                                    profile=True)
+    off, off_stats, off_tokens = serve(dev, tln, tpa, model, False,
+                                       profile=True)
+    _, off2, off2_tokens = serve(dev, tln, tpa, model, False)
+    _, on2, on2_tokens = serve(dev, tln, tpa, model, True)
+    same = on_tokens == off_tokens == off2_tokens == on2_tokens
+    log(f"  tokens of the four runs identical: {same}; tokens/s defaults "
+        f"{on_stats['tokens_per_s']:.1f}, {on2['tokens_per_s']:.1f}; "
+        f"grouped=False {off_stats['tokens_per_s']:.1f}, "
+        f"{off2['tokens_per_s']:.1f}")
+    if not same:
+        raise AssertionError("grouped and ungrouped runs gave other tokens")
+    return ({"serving": on, "serving_ungrouped": off},
+            {"defaults": [on_stats, on2], "grouped_off": [off_stats, off2]},
+            model)
+
+
+def preemption(dev, model) -> dict:
+    """Full-width preemption: 16 priority-5 requests fill 16 slots and a
+    pool of PREEMPT_PAGES pages; once all decode, a priority-0 burst of
+    PREEMPT_BURST arrives that only preemption admits. Every request's
+    tokens must equal those of a run that never preempts (preempt=False,
+    the default pool), and the pool must be quiesced after drain()."""
+    from paddle_tpu_torch.serving import (RequestState, SamplingParams,
+                                          ServingEngine)
+
+    class SwapTimedEngine(ServingEngine):
+        """Times each resume's swap-in, device work included."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.swap_in = []       # (pages restored, ms) per resume
+
+        def _apply_swap_in(self, req):
+            n = len(req._swap.restores)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            super()._apply_swap_in(req)
+            torch.cuda.synchronize()
+            self.swap_in.append((n, (time.perf_counter() - t0) * 1e3))
+
+    rs = np.random.RandomState(SEED + 1)
+    vocab = GPT124M["vocab_size"]
+    low = [rs.randint(0, vocab, size=PREEMPT_PROMPT) for _ in range(16)]
+    burst = [rs.randint(0, vocab, size=PREEMPT_PROMPT)
+             for _ in range(PREEMPT_BURST)]
+
+    def drive(eng):
+        lo = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS,
+                                                priority=5)) for p in low]
+        while not all(r.state is RequestState.DECODE and r.output_tokens
+                      for r in lo):
+            eng.step()
+        hi = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS,
+                                                priority=0)) for p in burst]
+        eng.run()
+        eng.drain()              # checks that the pool is quiesced
+        reqs = lo + hi
+        if any(r.finish_reason != "length" for r in reqs):
+            raise AssertionError("a request did not finish")
+        return [list(r.output_tokens) for r in reqs], reqs
+
+    t0 = time.perf_counter()
+    eng = SwapTimedEngine(model, device=dev, seed=SEED,
+                          num_pages=PREEMPT_PAGES, **ENGINE)
+    tokens, reqs = drive(eng)
+    wall = time.perf_counter() - t0
+    m = eng.metrics
+    ref = ServingEngine(model, device=dev, seed=SEED, preempt=False,
+                        **ENGINE)
+    want, _ = drive(ref)
+    restored = sum(n for n, _ in eng.swap_in)
+    swap_ms = [ms for _, ms in eng.swap_in]
+    pc = eng.prefix_cache.stats()
+    out = {"preemptions": m.preemptions,
+           "preempted_requests": sum(r.preemptions > 0 for r in reqs),
+           "swapped_out_pages": m.swapped_out_pages,
+           "swapped_in_pages": m.swapped_in_pages,
+           "spilled_pages": pc["spilled_pages"],
+           "restored_pages": pc["restored_pages"],
+           "resumes": len(swap_ms), "resume_pages": restored,
+           "swap_in_ms": swap_ms, "wall_s": wall,
+           "reference_preemptions": ref.metrics.preemptions}
+    log(f"  preemption: {m.preemptions} preemptions of "
+        f"{out['preempted_requests']} requests, {m.swapped_out_pages} pages "
+        f"swapped out and {m.swapped_in_pages} in ({pc['spilled_pages']} "
+        f"prefix pages spilled, {pc['restored_pages']} restored); "
+        f"{len(swap_ms)} resumes restored {restored} pages in "
+        f"{sum(swap_ms):.3f} ms ({max(swap_ms, default=0):.3f} ms the "
+        f"longest, synchronised host clock); {wall:.2f} s; tokens equal "
+        f"the never-preempted run's: {tokens == want}")
+    if m.preemptions < 1 or m.swapped_out_pages < 1 or not swap_ms:
+        raise AssertionError("the burst did not preempt and swap")
+    if ref.metrics.preemptions:
+        raise AssertionError("the reference run preempted")
+    if tokens != want:
+        raise AssertionError("preempted requests' tokens differ")
+    return out
 
 
 def profile_steps(eng, prompts) -> dict:
@@ -750,9 +1074,10 @@ def main() -> int:
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for "
         f"{sorted(build_logs)}; card: {smi}")
     for name, text in build_logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
+        spills = re.findall(r"(\d+) bytes spill stores", text)
+        log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
+            f"registers, {sum(int(n) > 0 for n in spills)} with spill stores")
 
     log("phase 2 kernels vs plain versions:")
     timer = DeviceTimer()
@@ -761,22 +1086,27 @@ def main() -> int:
     kernels.update(zip(("K3", "K4", "K5"),
                        check_flash_attention(dev, tfa, timer)))
     kernels["K6"] = check_paged_attention(dev, tpa, timer)
+    kernels["K10a"], kernels["K10b"] = check_grouped_attention(
+        dev, tpa, timer)
     torch.cuda.empty_cache()
 
     log("phase 3 serve GPT-124M (bf16, random weights):")
-    served, serving = serve(dev, tln, tpa)
-    log(f"  serving: {json.dumps(serving)}")
+    by_path, serving_stats, model = serving(dev, tln, tpa)
+    log(f"  serving: {json.dumps(serving_stats)}")
+    preempted = preemption(dev, model)
+    log(f"  preemption: {json.dumps(preempted)}")
+    del model
     torch.cuda.empty_cache()
 
     log("phase 4 train GPT-124M (bf16, random weights, bench.py's step):")
-    trained, training = train(dev, tln, tfa, tpa)
+    by_path["training"], training = train(dev, tln, tfa, tpa)
     log(f"  training: {json.dumps(training)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at
     for name, rec in kernels.items():
-        rec["launches_by_path"] = {"serving": served.get(name, 0),
-                                   "training": trained.get(name, 0)}
+        rec["launches_by_path"] = {path: counts.get(name, 0)
+                                   for path, counts in by_path.items()}
         rec["launches"] = rec["launches_by_path"][rec["path"]]
 
     print(smi)

@@ -7,11 +7,14 @@
   dk/dv (`paddle_tpu/ops/pallas/flash_attention.py::_fa_kernel`,
   `_fa_dq_kernel`, `_fa_dkv_kernel`), joined by `flash_attention_blhd`;
 - `paged_attention` — K6, ragged paged attention
-  (`paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel`).
+  (`paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel`), and K10,
+  its grouped two-phase walk (`_grouped_phase1_kernel`,
+  `_grouped_phase2_kernel`).
 
 A wrapper takes its plain version only for a CPU tensor; on a CUDA
 tensor it launches the kernel (built on first use by `_build`) or
-raises. Each wrapper module counts its launches in `LAUNCHES`.
+raises. Each wrapper module counts its launches (`LAUNCHES`, and
+`GROUPED_LAUNCHES` for K10's two phases).
 """
 from . import flash_attention, layer_norm, paged_attention
 

@@ -48,6 +48,10 @@ KERNELS = {
     "ragged_paged_attention": {
         "ptt_ragged_paged_attention": [_P] * 7 + [_I] * 10 + [_P],
     },
+    "grouped_paged_attention": {
+        "ptt_grouped_phase1": [_P] * 12 + [_I] * 10 + [_P],
+        "ptt_grouped_phase2": [_P] * 12 + [_I] * 10 + [_P],
+    },
     "flash_attention": {
         "ptt_flash_fwd": _FLASH,
         "ptt_flash_dq": _FLASH,

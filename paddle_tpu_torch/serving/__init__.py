@@ -2,20 +2,23 @@
 paged KV pool (counterpart of `paddle_tpu.serving`).
 
 `ServingEngine` runs the unified ragged prefill+decode step with the
-radix prefix cache; see `serving/engine.py` for what is and is not
-ported yet. The port's defaults differ from the JAX engine's until the
-grouped walk (K10) and the host swap tier land: grouped=False and
-preempt=False.
+JAX engine's defaults: the radix prefix cache, the grouped walk (K10),
+overload preemption and a host tier of `num_pages - 1` pages, under the
+same gates (`PADDLE_TPU_GROUPED_ATTN`, `PADDLE_TPU_PREEMPT`). See
+`serving/engine.py` for what is not ported yet.
 """
-from .engine import ServingEngine, unified_forward
-from .errors import QueueFull, ServingError
+from .engine import (ServingEngine, resolve_grouped_flag,
+                     resolve_preempt_flag, unified_forward)
+from .errors import DeadlineExceeded, EngineClosed, QueueFull, ServingError
 from .metrics import ServingMetrics
-from .paging import PagePool, TRASH_PAGE, pages_needed
-from .prefix import PrefixGrant, RadixPrefixCache
+from .paging import HostPagePool, PagePool, TRASH_PAGE, pages_needed
+from .prefix import PrefixGrant, RadixPrefixCache, shared_prefix_groups
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
 
-__all__ = ["ServingEngine", "unified_forward", "QueueFull", "ServingError", "ServingMetrics",
-           "PagePool", "TRASH_PAGE", "pages_needed", "PrefixGrant",
-           "RadixPrefixCache", "Request", "RequestOutput", "RequestState",
-           "SamplingParams", "Scheduler"]
+__all__ = ["ServingEngine", "unified_forward", "resolve_grouped_flag",
+           "resolve_preempt_flag", "QueueFull", "ServingError",
+           "EngineClosed", "DeadlineExceeded", "ServingMetrics", "PagePool",
+           "HostPagePool", "TRASH_PAGE", "pages_needed", "PrefixGrant",
+           "RadixPrefixCache", "shared_prefix_groups", "Request",
+           "RequestOutput", "RequestState", "SamplingParams", "Scheduler"]

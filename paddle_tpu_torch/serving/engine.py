@@ -1,22 +1,32 @@
 """ServingEngine: continuous batching over a paged KV pool.
 
 Counterpart of `paddle_tpu/serving/engine.py` on its unified path
-(`_build_unified` :1077, driven by `_unified_step` :2534). The engine
-owns, per layer, one shared K/V pool [num_pages, page_size, H_kv, D]
-(zero-initialised: trash-page keys are masked, never skipped, so they
-must be finite), a page table [num_slots, max_pages] and one write
-position per slot. A request admitted into a slot allocates the pages
-its prompt plus output budget needs.
+(`_build_unified` :1077, driven by `_unified_step` :2534), with the JAX
+engine's defaults: `ServingEngine(model)` means the same engine in both
+packages — prefix cache, grouped walk, preemption and a host tier of
+`num_pages - 1` pages all on. The engine owns, per layer, one shared K/V
+pool [num_pages, page_size, H_kv, D] (zero-initialised: trash-page keys
+are masked, never skipped, so they must be finite), a page table
+[num_slots, max_pages] and one write position per slot. A request
+admitted into a slot allocates the pages its prompt plus output budget
+needs.
 
 Every step runs ONE fixed-shape [num_slots, chunk_len] forward in which
 each row carries its own live query count `q_len`: decoding rows feed
 the token sampled from their held logits at q_len 1, mid-prefill rows
 feed up to chunk_len prompt tokens, idle rows ride dead at q_len 0
 (`Scheduler.pack_tokens` decides the packing under `token_budget`).
-Attention is ragged paged attention (K6), every LayerNorm the fused
-kernel (K1): 2 * n_layers + 1 LayerNorm launches and n_layers attention
-launches per step. The step runs eagerly; capturing it in a CUDA graph
-is later work.
+Every LayerNorm is the fused kernel (K1), 2 * n_layers + 1 launches per
+step. Attention is the grouped walk (K10, `grouped=None`/on, gate
+`PADDLE_TPU_GROUPED_ATTN=on|off`): each step the host partitions the
+live rows into groups whose page tables share physical pages
+(`shared_prefix_groups`) and uploads them with the step's other
+operands, and both phases launch once per layer — n_layers launches of
+each. With `grouped=False` attention is ragged paged attention (K6),
+n_layers launches. The output is the same bit for bit; only the page
+reads differ, and `count_page_block_reads` feeds the modeled reads of
+both walks into the metrics. The step runs eagerly; capturing it in a
+CUDA graph is later work.
 
 The radix prefix cache (`serving.prefix`, on by default) attaches
 cached prefix pages at admission; a mid-page match is copied into a
@@ -24,16 +34,30 @@ private page first (copy-on-write), so a shared page is never written
 through. Greedy decoding is a first-occurrence argmax over the held
 logits; sampled rows use the engine's seeded `torch.Generator`.
 
+Overload (`preempt=None`/on, gate `PADDLE_TPU_PREEMPT=on|off`): when the
+ordered queue's head is still blocked after admission and a resident of
+a strictly lower priority class exists, that resident is PREEMPTED — its
+emitted tokens banked, its private committed KV pages copied to the host
+tier (`host_pages`, default num_pages - 1; 0 disables it), its shared
+prefix pages released, its slot freed — and requeued by its original
+key. It resumes through swap-in: its committed sequence is matched
+against the radix tree again, the host pages restored into fresh device
+pages, and one re-prefilled token regenerates its held logits, so its
+greedy tokens are those of a run that never preempted it. Where the
+host tier is full the tail recomputes instead. The same host tier takes
+parked prefix-cache pages under page pressure (spill) and restores them
+on a later match. Swaps are plain tensor copies of whole pages of every
+layer's pools.
+
 Not ported yet, and refused at construction with the ROADMAP item
-(queue 1, item 10): the legacy alternating step (`unified=False`), the
-grouped prefix walk (K10, the JAX engine's default), preemption and the
-host swap tier (also on by default there), int8/fp8 KV, speculative
-decoding, grammar, adapters, tensor parallelism, the megakernel, and
-the observability and SLO layers.
+(queue 1, item 10): the legacy alternating step (`unified=False`),
+int8/fp8 KV, speculative decoding, grammar, adapters, tensor
+parallelism, the megakernel, and the observability and SLO layers.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -43,22 +67,21 @@ from torch.profiler import record_function
 
 from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nlp.generation import _top_p_filter, _unpack_caches
+from ..ops.cuda.paged_attention import count_page_block_reads
+from .errors import DeadlineExceeded, EngineClosed
 from .metrics import ServingMetrics
-from .paging import PagePool, TRASH_PAGE, pages_needed
-from .prefix import RadixPrefixCache
+from .paging import HostPagePool, PagePool, TRASH_PAGE, pages_needed
+from .prefix import RadixPrefixCache, shared_prefix_groups
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
 
-__all__ = ["ServingEngine", "unified_forward"]
+__all__ = ["ServingEngine", "unified_forward", "resolve_grouped_flag",
+           "resolve_preempt_flag"]
 
 # option -> (values that mean "off", where the port stands)
 _UNPORTED = {
     "unified": ((None, True), "the legacy alternating step and K9 "
                 "(ROADMAP.md queue 1 item 10, queue 2 K9)"),
-    "grouped": ((None, False), "the prefix-grouped walk "
-                "(ROADMAP.md queue 2 K10, next slice)"),
-    "preempt": ((None, False), "preemption and the host swap tier "
-                "(ROADMAP.md queue 1 item 10)"),
     "kv_dtype": ((None, "fp"), "int8/fp8 KV lanes "
                  "(ROADMAP.md queue 1 item 10, queue 2 K7)"),
     "spec": ((None, False), "speculative decoding "
@@ -76,6 +99,48 @@ _UNPORTED = {
     "slo": ((None, False), "the SLO tracker "
             "(ROADMAP.md queue 1 item 10)"),
 }
+
+
+def _resolve_on_off(override, env: str) -> bool:
+    if override is not None:
+        return bool(override)
+    v = os.environ.get(env, "on")
+    if v not in ("on", "off"):
+        raise ValueError(f"{env} must be one of ('on', 'off'), got {v!r}")
+    return v == "on"
+
+
+def resolve_grouped_flag(override=None) -> bool:
+    """Whether the unified step runs the grouped (prefix-sharing) page
+    walk, K10 (default on): an explicit override wins, otherwise
+    PADDLE_TPU_GROUPED_ATTN=on|off, read at engine construction. Outputs
+    are bit-identical either way; groups are per-step operand data."""
+    return _resolve_on_off(override, "PADDLE_TPU_GROUPED_ATTN")
+
+
+def resolve_preempt_flag(override=None) -> bool:
+    """Whether overload preempts a strictly lower-priority resident
+    instead of only holding the queue head back (default on): an
+    explicit override wins, otherwise PADDLE_TPU_PREEMPT=on|off, read at
+    engine construction."""
+    return _resolve_on_off(override, "PADDLE_TPU_PREEMPT")
+
+
+class _SwapHandle:
+    """A preempted request's claim on the host tier: `host_slots[j]`
+    holds the KV of the page at page-table index `base + j`; `kv_len` is
+    how many leading positions of the committed sequence hold valid KV.
+    `restores`/`drops` are filled by the resume reservation (which host
+    pages swap back in, and which a fresh prefix match made redundant)."""
+
+    __slots__ = ("host_slots", "base", "kv_len", "restores", "drops")
+
+    def __init__(self, host_slots, base, kv_len):
+        self.host_slots = list(host_slots)
+        self.base = int(base)
+        self.kv_len = int(kv_len)
+        self.restores = []      # [(host_slot, dst_page), ...]
+        self.drops = []         # host slots made redundant by a match
 
 
 def _sample_rows(logits: torch.Tensor, generator: torch.Generator,
@@ -104,14 +169,16 @@ def _sample_rows(logits: torch.Tensor, generator: torch.Generator,
 
 def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                     page_table: torch.Tensor, q_len: torch.Tensor,
-                    is_decode: torch.Tensor,
-                    last_logits: torch.Tensor) -> torch.Tensor:
+                    is_decode: torch.Tensor, last_logits: torch.Tensor,
+                    group=None) -> torch.Tensor:
     """The model half of one unified step: run tokens [S, W] through the
     model over the per-layer (k, v) `pools` (written in place) and
     return the new held logits [S, V] f32 — a decode row's from its
     column 0, a prefill row's from its last live column, a dead row's
-    unchanged. Only those rows go through the LM head."""
-    caches = _unpack_caches(pools, pos, page_table, q_len)
+    unchanged. Only those rows go through the LM head. `group`, the
+    step's (group_id, group_leader, group_cnt), routes attention through
+    the grouped walk."""
+    caches = _unpack_caches(pools, pos, page_table, q_len, group)
     h, _ = model.gpt(tokens, caches=caches)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = torch.where(is_decode, torch.zeros_like(q_len),
@@ -123,22 +190,24 @@ def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
 class ServingEngine:
     """Online inference engine: submit requests at any time, pump
     `step()` (or call `run()`/`generate()`); requests join free slots
-    when their page budget fits the pool, prefill chunk by chunk,
-    decode together in the one unified step, and retire on EOS,
-    max-tokens, timeout or cancellation."""
+    when their page budget fits the pool (or by preempting a less
+    important resident), prefill chunk by chunk, decode together in the
+    one unified step, and retire on EOS, max-tokens, timeout,
+    placement deadline or cancellation. `drain()` shuts down
+    gracefully."""
 
     def __init__(self, model, *, num_slots: int = 8, max_len: int = 256,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  chunk_len: int = 32, max_queue: Optional[int] = None,
                  prefix_cache: bool = True, device: DeviceLike = None,
-                 seed: int = 0,
-                 unified=None, grouped=None, preempt=None, kv_dtype=None,
-                 spec=None, grammar=None, adapters=None, mesh=None,
-                 megakernel=None, obs=None, slo=None):
-        options = dict(unified=unified, grouped=grouped, preempt=preempt,
-                       kv_dtype=kv_dtype, spec=spec, grammar=grammar,
-                       adapters=adapters, mesh=mesh, megakernel=megakernel,
-                       obs=obs, slo=slo)
+                 seed: int = 0, clock=time.monotonic, grouped=None,
+                 preempt=None, host_pages: Optional[int] = None,
+                 unified=None, kv_dtype=None, spec=None, grammar=None,
+                 adapters=None, mesh=None, megakernel=None, obs=None,
+                 slo=None):
+        options = dict(unified=unified, kv_dtype=kv_dtype, spec=spec,
+                       grammar=grammar, adapters=adapters, mesh=mesh,
+                       megakernel=megakernel, obs=obs, slo=slo)
         for name, value in options.items():
             off, what = _UNPORTED[name]
             if not any(value is o or value == o for o in off):
@@ -171,8 +240,11 @@ class ServingEngine:
         # every step may pack the full [num_slots, chunk_len] shape
         self.token_budget = self.num_slots * self.chunk_len
         self.scheduler = Scheduler(self.num_slots, max_queue=max_queue)
+        self.grouped = resolve_grouped_flag(grouped)
+        self.preempt = resolve_preempt_flag(preempt)
         self.metrics = ServingMetrics()
-        self._clock = time.monotonic
+        self.metrics.grouped = self.grouped
+        self._clock = clock
         self._id_counter = itertools.count()
         self._requests: Dict[str, Request] = {}
         self._generator = make_generator(seed, self.device)
@@ -190,6 +262,15 @@ class ServingEngine:
         self.pool = PagePool(self.num_pages)
         self.prefix_cache = (RadixPrefixCache(self.pool, self.page_size)
                              if prefix_cache else None)
+        # the host tier: preempted residents' KV and spilled prefix pages
+        self.host_pages = (self.num_pages - 1 if host_pages is None
+                           else int(host_pages))
+        self.host_pool = HostPagePool(self.host_pages)
+        self.metrics.host_pages_total = self.host_pages
+        if self.prefix_cache is not None and self.host_pages > 0:
+            self.prefix_cache.set_host_tier(self._host_store_page,
+                                            self._host_load_page,
+                                            self._host_drop_page)
         self._slot_pages: Dict[int, List[int]] = {}
         self._prefill_cursor: Dict[str, int] = {}
         self._pt_host = np.full((self.num_slots, self.max_pages),
@@ -197,11 +278,15 @@ class ServingEngine:
         self._pt_dev: Optional[torch.Tensor] = None   # None = re-upload
         self._vec_dev: Optional[tuple] = None          # None = re-upload
         self._all_greedy = True
+        self._closed = False     # drain() flips it; add_request refuses
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams]
                     = None, request_id: Optional[str] = None,
                     on_token=None) -> Request:
+        if self._closed:
+            raise EngineClosed(
+                "engine is draining/closed; no new requests admitted")
         sampling = sampling or SamplingParams()
         if isinstance(prompt_ids, torch.Tensor):
             prompt_ids = prompt_ids.cpu().numpy()
@@ -232,12 +317,13 @@ class ServingEngine:
         return req
 
     def cancel(self, request_id: str) -> bool:
-        """Cancel a request: a queued one drops now, a running one is
-        evicted at the next step boundary and its pages return."""
+        """Cancel a request: a queued or preempted one drops now (a
+        preempted one's host pages with it), a running one is evicted at
+        the next step boundary and its pages return."""
         req = self._requests.get(request_id)
         if req is None or req.finished:
             return False
-        if req.state is RequestState.QUEUED:
+        if req.state in (RequestState.QUEUED, RequestState.PREEMPTED):
             self.scheduler.drop_queued(req)
             self._finish_and_free(req, "cancelled", self._clock(), [])
             return True
@@ -245,19 +331,23 @@ class ServingEngine:
         return True
 
     # -- step boundary: retire / admit -------------------------------------
+    def _free_slot(self, slot: int):
+        self.scheduler.retire(slot)
+        self._vec_dev = None
+        self._pt_host[slot, :] = TRASH_PAGE
+        self._pt_dev = None
+
     def _finish_and_free(self, req: Request, reason: str, now: float,
                          finished: List[RequestOutput]):
         if req.slot is not None:
             slot = req.slot
-            self.scheduler.retire(slot)
-            self._vec_dev = None
+            self._free_slot(slot)
             pages = self._slot_pages.pop(slot, None)
             if pages:
                 self._retire_pages(req, reason, pages)
             req.pages = None
             req._prefix_grant = None
-            self._pt_host[slot, :] = TRASH_PAGE
-            self._pt_dev = None
+        self._release_swap(req)   # preempted and never resumed
         self._prefill_cursor.pop(req.request_id, None)
         self._requests.pop(req.request_id, None)
         req._finish(reason, now)
@@ -280,8 +370,15 @@ class ServingEngine:
             self.prefix_cache.release(pages)
 
     def _evict(self, now: float, finished: List[RequestOutput]):
+        # a queued request past its placement deadline fails fast
+        for req in self.scheduler.deadline_expired(now):
+            self.scheduler.drop_queued(req)
+            req.error = DeadlineExceeded(
+                f"request {req.request_id} missed its placement deadline "
+                f"({req.sampling.deadline_s}s) while queued")
+            self._finish_and_free(req, "deadline", now, finished)
         for req in self.scheduler.expired(now):
-            if req.state is RequestState.QUEUED:
+            if req.state in (RequestState.QUEUED, RequestState.PREEMPTED):
                 self.scheduler.drop_queued(req)
             self._finish_and_free(req, "timeout", now, finished)
         for req in self.scheduler.cancelled_running():
@@ -290,7 +387,11 @@ class ServingEngine:
     def _reserve(self, req: Request) -> bool:
         """Page-aware admission: grant the slot only if the request's
         whole page budget is available now (match-then-reserve with the
-        prefix cache)."""
+        prefix cache, which spills and evicts parked pages before it
+        refuses). A preempted request re-admits through
+        `_reserve_resume`."""
+        if req._swap is not None:
+            return self._reserve_resume(req)
         if self.prefix_cache is None:
             pages = self.pool.alloc(pages_needed(
                 req.prompt_ids.size, req.sampling.max_new_tokens,
@@ -308,6 +409,96 @@ class ServingEngine:
         req._prefix_grant = grant
         return True
 
+    def _reserve_resume(self, req: Request) -> bool:
+        """Re-admission of a PREEMPTED request: allocate the page budget
+        of its committed sequence (prefix-matched against the radix tree
+        when the cache is on: the prefix released at preemption usually
+        re-attaches), then plan which host pages swap back into which
+        page-table positions (`_apply_swap_in` runs the copies). A
+        refusal leaves the host copy and the queue position as they
+        were."""
+        swap = req._swap
+        seq = req.prefill_ids
+        remaining = req.sampling.max_new_tokens - len(req.output_tokens)
+        ps = self.page_size
+        if self.prefix_cache is not None:
+            grant = self.prefix_cache.acquire(seq, remaining)
+            if grant is None:
+                return False
+            pages = grant.pages
+            m_full = grant.matched_full_pages
+            match_cov = grant.cached_len
+        else:
+            pages = self.pool.alloc(pages_needed(seq.size, remaining, ps))
+            if pages is None:
+                return False
+            grant, m_full, match_cov = None, 0, 0
+        # host slot j holds page-table index swap.base + j. Indices below
+        # the fresh match are shared tree pages that already hold the
+        # same KV (drop the host copy, never write through them); the
+        # rest restore into the grant's private pages. The window only
+        # extends coverage when it is contiguous with the match.
+        swap.restores, swap.drops = [], []
+        cov = match_cov
+        if m_full >= swap.base:
+            end = min(swap.kv_len, (swap.base + len(swap.host_slots)) * ps)
+            for j, host_slot in enumerate(swap.host_slots):
+                idx = swap.base + j
+                if idx < m_full:
+                    swap.drops.append(host_slot)
+                else:
+                    swap.restores.append((host_slot, pages[idx]))
+            if swap.restores and end > m_full * ps:
+                # restored pages supersede a partial-page COW planned at
+                # index m_full: cancel the copy (its content is a prefix
+                # of the restored page)
+                if grant is not None and grant.cow_src is not None:
+                    self.prefix_cache.cow_done(grant)
+                    grant.cow_dst = None
+                    cov = max(m_full * ps, end)
+                else:
+                    cov = max(match_cov, end)
+        else:
+            swap.drops = list(swap.host_slots)
+        req.pages = pages
+        req._prefix_grant = grant
+        req.cached_tokens = min(cov, seq.size - 1)
+        return True
+
+    def _release_swap(self, req: Request):
+        """Discard a preempted request's host-tier KV (it died before
+        resuming: cancel, timeout, abort)."""
+        swap = req._swap
+        if swap is None:
+            return
+        for host_slot in swap.host_slots:
+            self.host_pool.free(host_slot)
+        if swap.host_slots:
+            self.pool.drop_swapped(len(swap.host_slots))
+        req._swap = None
+
+    def _apply_swap_in(self, req: Request):
+        """Run the restore plan `_reserve_resume` made: copy each
+        surviving host page into its fresh device page and release the
+        redundant ones."""
+        swap = req._swap
+        t0 = time.perf_counter()
+        if swap.restores:
+            self._restore_pages(
+                [self.host_pool.load(host_slot)
+                 for host_slot, _ in swap.restores],
+                [dst for _, dst in swap.restores])
+            for host_slot, _ in swap.restores:
+                self.host_pool.free(host_slot)
+            self.pool.swapped_restored(len(swap.restores))
+        for host_slot in swap.drops:
+            self.host_pool.free(host_slot)
+        if swap.drops:
+            self.pool.drop_swapped(len(swap.drops))
+        req._swap = None
+        self.metrics.on_swap_in(len(swap.restores),
+                                time.perf_counter() - t0)
+
     def _admit(self, now: float):
         for slot, req in self.scheduler.assign(reserve=self._reserve):
             req.state = RequestState.PREFILL
@@ -317,6 +508,10 @@ class ServingEngine:
             self._pt_host[slot, :len(req.pages)] = req.pages
             self._pt_dev = None
             self._vec_dev = None
+            # a resumed request's banked KV comes back from the host
+            # tier before any prefill touches the slot
+            if req._swap is not None:
+                self._apply_swap_in(req)
             # prefill starts at the first uncached token
             self._pos[slot] = req.cached_tokens
             grant = req._prefix_grant
@@ -326,12 +521,141 @@ class ServingEngine:
             self._prefill_cursor[req.request_id] = req.cached_tokens
             self.metrics.on_admit(req, self._clock())
 
+    # -- preemption --------------------------------------------------------
+    def _preempt(self, slot: int, req: Request, now: float):
+        """Preempt one resident: bank its committed tokens, copy its
+        private committed KV pages to the host tier (the tail recomputes
+        where the tier is full), release its shared prefix pages, free
+        the slot and requeue it by its original key."""
+        pages = self._slot_pages.pop(slot)
+        self._free_slot(slot)
+        # committed KV: a decode row holds prompt + every emitted token,
+        # a mid-prefill row exactly its prefill cursor
+        if req.state is RequestState.DECODE:
+            kv_len = int(req.prompt_ids.size) + len(req.output_tokens)
+        else:
+            kv_len = int(self._prefill_cursor.get(req.request_id, 0))
+        self._prefill_cursor.pop(req.request_id, None)
+        grant = req._prefix_grant
+        base = grant.matched_full_pages if grant is not None else 0
+        shared, private = pages[:base], pages[base:]
+        if shared:
+            self.prefix_cache.release(shared)
+        n_kv = -(-kv_len // self.page_size)
+        # the committed private pages the host tier has room for; where
+        # it is full, the tail recomputes
+        n_keep = max(0, min(n_kv - base, len(private),
+                            self.host_pool.free_pages))
+        host_slots = [self.host_pool.store(data) for data in
+                      self._extract_pages(private[:n_keep])]
+        kept = private[:n_keep]
+        if kept:
+            self.pool.swap_out(kept)
+        rest = private[len(host_slots):]
+        if rest:
+            self.pool.free(rest)
+        req._swap = _SwapHandle(host_slots, base, kv_len)
+        req._resume_ids = np.concatenate(
+            [req.prompt_ids.astype(np.int64),
+             np.asarray(req.output_tokens, np.int64)])
+        req.pages = None
+        req._prefix_grant = None
+        req.state = RequestState.PREEMPTED
+        req.preemptions += 1
+        self.scheduler.requeue(req)
+        self.metrics.on_preempt(len(kept))
+
+    def _preempt_for_overload(self, now: float):
+        """After admission, a still-queued head means backpressure —
+        unless a strictly lower-priority resident exists: preempt the
+        least important one, admit again, and repeat while the head
+        keeps outranking someone."""
+        if not self.preempt:
+            return
+        for _ in range(self.num_slots):
+            head = self.scheduler.peek_queued()
+            if head is None:
+                break
+            victim = self.scheduler.preemption_victim(head)
+            if victim is None:
+                break
+            self._preempt(victim[0], victim[1], now)
+            self._admit(now)
+
+    # -- page copies: COW and the host tier --------------------------------
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write: one page of every layer's K and V pool."""
         with record_function(f"serving::cow_copy[{src}->{dst}]"):
             for k, v in self._pools:
                 k[dst].copy_(k[src])
                 v[dst].copy_(v[src])
+
+    def _extract_pages(self, pages: List[int]) -> List[torch.Tensor]:
+        """Device -> host: each page of every layer's K and V, as CPU
+        tensors [n_layers, 2, page_size, H_kv, D] (views of one tensor
+        allocated here), gathered with one index_select per pool. From
+        the card the copy lands in pinned memory without blocking the
+        host; the stream orders it before any later write of the pages
+        and before the copies that restore them."""
+        if not pages:
+            return []
+        with record_function(f"serving::swap_out[{len(pages)}]"):
+            idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
+            block = torch.stack([torch.stack((k.index_select(0, idx),
+                                              v.index_select(0, idx)), 1)
+                                 for k, v in self._pools], 1)
+            return list(block.to("cpu", non_blocking=True).unbind(0))
+
+    def _restore_pages(self, payloads: List[torch.Tensor], dsts: List[int]):
+        """Host -> device: write payloads of `_extract_pages` into device
+        pages `dsts` of every layer's pools, one index_copy_ per pool."""
+        with record_function(f"serving::swap_in[{len(dsts)}]"):
+            idx = torch.tensor(dsts, dtype=torch.int64, device=self.device)
+            block = torch.stack([data.to(self.device, non_blocking=True)
+                                 for data in payloads])
+            for i, (k, v) in enumerate(self._pools):
+                k.index_copy_(0, idx, block[:, i, 0])
+                v.index_copy_(0, idx, block[:, i, 1])
+
+    def _extract_page(self, src: int) -> torch.Tensor:
+        """One page of `_extract_pages`."""
+        return self._extract_pages([src])[0]
+
+    def _restore_page(self, data: torch.Tensor, dst: int):
+        """One page of `_restore_pages`."""
+        self._restore_pages([data], [dst])
+
+    def _host_store_page(self, page: int) -> Optional[int]:
+        """Prefix spill: copy a parked page to the host tier; its host
+        slot (the cache then swaps the device page out), or None when
+        the tier is full."""
+        if self.host_pool.free_pages == 0:
+            return None
+        return self.host_pool.store(self._extract_page(page))
+
+    def _host_load_page(self, host_slot: int) -> Optional[int]:
+        """Prefix restore: copy a spilled page into a fresh device page,
+        handed back PARKED. Under pressure another parked page spills to
+        make room (the match in progress is retained, so it is never
+        the one displaced); None when no page can be freed — the match
+        stops and the tail prefills."""
+        pages = self.pool.alloc(1)
+        if pages is None and self.prefix_cache.spill(1) >= 1:
+            pages = self.pool.alloc(1)
+        if pages is None:
+            return None
+        self._restore_page(self.host_pool.load(host_slot), pages[0])
+        self.host_pool.free(host_slot)
+        self.pool.swapped_restored(1, spill=True)
+        self.pool.release(pages)
+        self.pool.park(pages)
+        self.metrics.on_swap_in(1, 0.0)
+        return pages[0]
+
+    def _host_drop_page(self, host_slot: int):
+        """A spilled page was evicted from the tree while on the host."""
+        self.host_pool.free(host_slot)
+        self.pool.drop_swapped(1, spill=True)
 
     # -- the unified step --------------------------------------------------
     def _page_table(self) -> torch.Tensor:
@@ -358,10 +682,11 @@ class ServingEngine:
                                   for a in (temps, topk, topp, greedy))
         return self._vec_dev
 
-    def _forward(self, tokens, pos, page_table, q_len, is_decode):
+    def _forward(self, tokens, pos, page_table, q_len, is_decode,
+                 group=None):
         return unified_forward(self.model, self._pools, tokens, pos,
                                page_table, q_len, is_decode,
-                               self._last_logits)
+                               self._last_logits, group)
 
     @torch.no_grad()
     def _unified_step(self, finished: List[RequestOutput]):
@@ -370,7 +695,7 @@ class ServingEngine:
             return
         W = self.chunk_len
         remaining = {
-            slot: int(req.prompt_ids.size)
+            slot: int(req.prefill_ids.size)
             - self._prefill_cursor[req.request_id]
             for slot, req in running.items()
             if req.state is RequestState.PREFILL}
@@ -386,14 +711,28 @@ class ServingEngine:
         for slot, take in grants.items():
             req = running[slot]
             cur = self._prefill_cursor[req.request_id]
-            tokens[slot, :take] = req.prompt_ids[cur:cur + take]
+            tokens[slot, :take] = req.prefill_ids[cur:cur + take]
             q_len[slot] = take
+        # prefix-sharing groups of this step's walk, and the page-block
+        # reads both walks would issue (per kv head and layer)
+        groups = None
+        if self.grouped:
+            groups = shared_prefix_groups(self._pt_host, q_len)
+            flat, reads, sizes = count_page_block_reads(
+                self._pt_host, self._pos, q_len, groups[0], groups[2],
+                page_size=self.page_size)
+        else:
+            flat, reads, sizes = count_page_block_reads(
+                self._pt_host, self._pos, q_len, page_size=self.page_size)
+        self.metrics.on_grouped_step(flat, reads, sizes)
         temps, topk, topp, greedy = self._sampling_vectors()
         t0 = time.perf_counter()
         with record_function("serving::unified_step"):
             dev = self.device
             isd = torch.from_numpy(is_decode).to(dev)
             ql = torch.from_numpy(q_len).to(dev)
+            group = (None if groups is None else
+                     torch.from_numpy(np.stack(groups)).to(dev).unbind(0))
             if self._all_greedy:
                 nxt = torch.argmax(self._last_logits, dim=-1)
             else:
@@ -403,7 +742,7 @@ class ServingEngine:
             toks[:, 0] = torch.where(isd, nxt, toks[:, 0])
             self._last_logits = self._forward(
                 toks, torch.from_numpy(self._pos).to(dev),
-                self._page_table(), ql, isd)
+                self._page_table(), ql, isd, group)
             nxt = nxt.cpu().numpy()      # sync: the host sees the tokens
         wall = time.perf_counter() - t0
         self._pos += q_len
@@ -414,9 +753,9 @@ class ServingEngine:
             req = running[slot]
             cur = self._prefill_cursor[req.request_id] + take
             self._prefill_cursor[req.request_id] = cur
-            if cur >= req.prompt_ids.size:
-                # the last prompt token's logits are held: the row
-                # samples its first token next step
+            if cur >= req.prefill_ids.size:
+                # the last prefilled token's logits are held: the row
+                # samples its next token next step
                 self._prefill_cursor.pop(req.request_id, None)
                 req.state = RequestState.DECODE
         for slot in decode_slots:
@@ -436,17 +775,49 @@ class ServingEngine:
                 self._finish_and_free(req, "length", now, finished)
 
     def step(self) -> List[RequestOutput]:
-        """One scheduler round: evict (timeout / cancel), admit queued
-        requests whose pages fit, then run the unified step. Returns
-        the requests that finished this round."""
+        """One scheduler round: evict (timeout / cancel / expired
+        placement deadline), admit queued requests whose pages fit,
+        preempt for a strictly more important blocked head, then run the
+        unified step. Returns the requests that finished this round."""
         finished: List[RequestOutput] = []
         now = self._clock()
         self._evict(now, finished)
         self._admit(now)
+        self._preempt_for_overload(now)
         self._unified_step(finished)
         self.metrics.on_step(self.scheduler.queue_depth,
                              self.pool.used_pages, self.pool.cached_pages,
-                             self.num_pages - 1)
+                             self.num_pages - 1,
+                             pages_swapped=self.pool.swapped_pages,
+                             host_pages_used=self.host_pool.used_pages,
+                             host_pages_total=self.host_pages)
+        return finished
+
+    # -- shutdown ----------------------------------------------------------
+    @property
+    def closed(self) -> bool:
+        return self._closed
+
+    def drain(self) -> List[RequestOutput]:
+        """Graceful shutdown: stop admitting (add_request raises
+        EngineClosed), abort still-queued requests that never started
+        (reason "aborted"), but let PREEMPTED ones resume and finish,
+        then run until idle and check that every page is free or
+        cache-resident with nothing stranded in the host tier.
+        Idempotent."""
+        self._closed = True
+        finished: List[RequestOutput] = []
+        now = self._clock()
+        resume: List[Request] = []
+        for req in self.scheduler.pop_queued():
+            if req.state is RequestState.PREEMPTED:
+                resume.append(req)
+            else:
+                self._finish_and_free(req, "aborted", now, finished)
+        for req in resume:
+            self.scheduler.requeue(req)
+        finished.extend(self.run())
+        self.pool.assert_quiesced()
         return finished
 
     # -- conveniences ------------------------------------------------------

@@ -3,13 +3,16 @@
 codes is not ported yet).
 
 - `QueueFull` — admission queue at max_queue: shed load, retry later.
+- `EngineClosed` — the engine is draining (`drain()`): no new requests.
+- `DeadlineExceeded` — a request's placement deadline (`deadline_s`)
+  passed while it was still queued; it never started.
 
-It subclasses `ServingError(RuntimeError)`; the engine's other typed
+All subclass `ServingError(RuntimeError)`; the engine's other typed
 errors come with the features that raise them.
 """
 from __future__ import annotations
 
-__all__ = ["ServingError", "QueueFull"]
+__all__ = ["ServingError", "QueueFull", "EngineClosed", "DeadlineExceeded"]
 
 
 class ServingError(RuntimeError):
@@ -24,3 +27,15 @@ class QueueFull(ServingError):
         super().__init__(message)
         self.retry_after_s = float(retry_after_s)
 
+
+class EngineClosed(ServingError):
+    """The engine began shutdown (`drain()`): no new requests are
+    admitted; residents and preempted requests run to completion."""
+
+
+class DeadlineExceeded(ServingError):
+    """The request's placement deadline (`deadline_s`) expired while it
+    was still QUEUED: it never reached a slot, emitted nothing, and is
+    failed fast (finish reason "deadline"). A request that already
+    started is never deadline-failed; runtime limits are `timeout_s`'s
+    job."""

@@ -1,13 +1,15 @@
 """Serving telemetry (counterpart of `paddle_tpu/serving/metrics.py`,
 cut to what the engine records in this slice): time to first token,
 inter-token latency, tokens/s over the busy window, step wall time,
-packed tokens per step and pool use. Times are seconds on the engine's
-clock. Per-step and per-request spans go through
+packed tokens per step, pool and host-tier use, preemptions and swap
+traffic, and the grouped walk's modeled page-block reads (the JAX
+engine's `page_block_reads` and `shared_page_reads_saved` totals and
+group-size histogram). Times are seconds on the engine's clock. Per-step and per-request spans go through
 `torch.profiler.record_function` in the engine, so a `torch.profiler`
 trace of a serving run shows them next to the kernels.
 
 The Prometheus rendering, per-priority/per-adapter labels and the
-feature counters of the JAX package are not ported yet.
+other feature counters of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
@@ -65,6 +67,7 @@ class ServingMetrics:
         self.requests_completed = 0
         self.requests_cancelled = 0
         self.requests_timeout = 0
+        self.requests_deadline = 0
         self.requests_aborted = 0
         self.tokens_generated = 0
         self.prompt_tokens = 0
@@ -74,7 +77,21 @@ class ServingMetrics:
         self.pool_pages_used = 0
         self.pool_pages_cached = 0
         self.pool_pages_total = 0
+        self.pool_pages_swapped = 0
+        self.host_pages_used = 0
+        self.host_pages_total = 0
         self.queue_depth = 0
+        # overload preemption and the host tier
+        self.preemptions = 0
+        self.swapped_out_pages = 0
+        self.swapped_in_pages = 0
+        self.swap_in_s = Histogram()
+        # the grouped walk: whether it is on, and the modeled page-block
+        # reads of one (kv head, layer) walk summed over steps
+        self.grouped: Optional[bool] = None
+        self.page_block_reads = 0
+        self.shared_page_reads_saved = 0
+        self.group_size_hist = Histogram()
         self.ttft_s = Histogram()
         self.inter_token_s = Histogram()
         self.queue_wait_s = Histogram()
@@ -115,6 +132,8 @@ class ServingMetrics:
                 self.requests_cancelled += 1
             elif reason == "timeout":
                 self.requests_timeout += 1
+            elif reason == "deadline":
+                self.requests_deadline += 1
             else:
                 self.requests_aborted += 1
 
@@ -131,13 +150,45 @@ class ServingMetrics:
                                       + int(decode_tokens))
             self.step_s.record(wall_s)
 
+    def on_grouped_step(self, flat_reads: int, actual_reads: int,
+                        group_sizes):
+        """One unified step's modeled page-block reads: the per-row walk
+        would issue `flat_reads`, the step issued `actual_reads` (equal
+        with grouping off); `group_sizes` lists the member count of
+        every group that shared at least one page read."""
+        with self._lock:
+            self.page_block_reads += int(actual_reads)
+            self.shared_page_reads_saved += \
+                int(flat_reads) - int(actual_reads)
+            for n in group_sizes:
+                self.group_size_hist.record(int(n))
+
+    def on_preempt(self, pages_out: int):
+        """One resident was preempted: `pages_out` of its KV pages went
+        to the host tier (0 = recompute on resume)."""
+        with self._lock:
+            self.preemptions += 1
+            self.swapped_out_pages += int(pages_out)
+
+    def on_swap_in(self, pages_in: int, wall_s: float):
+        """Host -> device restore: a resumed request's pages, or one
+        prefix-cache spill restore."""
+        with self._lock:
+            self.swapped_in_pages += int(pages_in)
+            if pages_in and wall_s > 0:
+                self.swap_in_s.record(wall_s)
+
     def on_step(self, queue_depth: int, pages_used: int, pages_cached: int,
-                pages_total: int):
+                pages_total: int, pages_swapped: int = 0,
+                host_pages_used: int = 0, host_pages_total: int = 0):
         with self._lock:
             self.queue_depth = queue_depth
             self.pool_pages_used = pages_used
             self.pool_pages_cached = pages_cached
             self.pool_pages_total = pages_total
+            self.pool_pages_swapped = pages_swapped
+            self.host_pages_used = host_pages_used
+            self.host_pages_total = host_pages_total
 
     def tokens_per_s(self) -> Optional[float]:
         """Generated tokens over the busy window (first admission to
@@ -157,6 +208,7 @@ class ServingMetrics:
                              "completed": self.requests_completed,
                              "cancelled": self.requests_cancelled,
                              "timeout": self.requests_timeout,
+                             "deadline": self.requests_deadline,
                              "aborted": self.requests_aborted},
                 "tokens_generated": self.tokens_generated,
                 "prompt_tokens": self.prompt_tokens,
@@ -171,6 +223,18 @@ class ServingMetrics:
                 "packed_tokens_per_step": self.packed_tokens.snapshot(),
                 "pool": {"pages_used": self.pool_pages_used,
                          "pages_cached": self.pool_pages_cached,
-                         "pages_total": self.pool_pages_total},
+                         "pages_total": self.pool_pages_total,
+                         "pages_swapped": self.pool_pages_swapped},
+                "host_pool": {"pages_used": self.host_pages_used,
+                              "pages_total": self.host_pages_total},
                 "queue_depth": self.queue_depth,
+                "preemptions": self.preemptions,
+                "swapped_out_pages": self.swapped_out_pages,
+                "swapped_in_pages": self.swapped_in_pages,
+                "swap_in_s": self.swap_in_s.snapshot(),
+                "grouped": self.grouped,
+                "page_block_reads_total": self.page_block_reads,
+                "shared_page_reads_saved_total":
+                    self.shared_page_reads_saved,
+                "group_size_per_step": self.group_size_hist.snapshot(),
             }

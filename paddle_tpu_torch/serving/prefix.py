@@ -1,7 +1,7 @@
-"""Automatic prefix cache: a token-id radix tree over the paged KV pool
-(counterpart of `paddle_tpu/serving/prefix.py`; the host spill tier,
-session pins, adapter namespaces, the grouped-walk operands and the
-fleet-fabric transfers are not ported yet).
+"""Automatic prefix cache: a token-id radix tree over the paged KV pool,
+its host spill tier, and the grouped walk's prefix groups (counterpart
+of `paddle_tpu/serving/prefix.py`; session pins, adapter namespaces and
+the fleet-fabric transfers are not ported yet).
 
 The KV written for position p is a function of tokens[0..p] alone, so
 two requests whose token ids agree on [0, L) can point their page
@@ -25,7 +25,16 @@ written through.
   at refcount 0 PARK as cache-resident.
 - `release(pages)` — any other retirement: refcount--, tree pages park,
   private pages free.
-- `evict(need)` — leaf-to-root LRU over unreferenced pages only.
+- `spill(need)` — the host tier: under page pressure unreferenced
+  parked full pages move to host memory before anything is dropped; the
+  node stays in the tree with a host slot and a later match restores it
+  into a fresh device page. Wired by the engine (`set_host_tier`);
+  without it spill is a no-op.
+- `evict(need)` — leaf-to-root LRU over unreferenced pages only (a
+  spilled leaf drops its host copy).
+
+`shared_prefix_groups` partitions one step's rows into the groups whose
+page tables share a physical-page prefix: the grouped walk's operands.
 """
 from __future__ import annotations
 
@@ -36,25 +45,113 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .paging import PagePool, pages_needed
+from .paging import TRASH_PAGE, PagePool, pages_needed
 
-__all__ = ["RadixPrefixCache", "PrefixGrant"]
+__all__ = ["RadixPrefixCache", "PrefixGrant", "shared_prefix_groups"]
+
+
+def shared_prefix_groups(page_tables, q_len):
+    """Prefix-sharing groups for one engine step (the operands of
+    `ragged_paged_attention_grouped`), a copy of the JAX package's
+    function: rows whose page tables carry identical page ids for a
+    leading span attend the same physical pages, and the kernel streams
+    that span once per group.
+
+    `page_tables` is the host page table [S, max_pages] int32 (trash page
+    0 marks unallocated entries), `q_len` [S] the step's live query
+    counts (rows at q_len 0 are never grouped). Rows are partitioned by
+    recursive refinement: all rows sharing page 0, split at the first
+    column where they diverge, keeping whichever of "one group closed
+    here" and "split deeper" saves more page reads. Returns
+    (group_id [S], group_leader [S], group_cnt [S]) int32 — row -> group,
+    group -> representative row, group -> shared page count (0 for
+    singletons; group ids are compact)."""
+    pt = np.asarray(page_tables)
+    q_len = np.asarray(q_len)
+    S, mp = pt.shape
+    group_id = np.arange(S, dtype=np.int32)
+    group_leader = np.zeros(S, dtype=np.int32)
+    group_cnt = np.zeros(S, dtype=np.int32)
+    next_gid = [0]
+
+    def close(rows, depth):
+        g = next_gid[0]
+        next_gid[0] += 1
+        for r in rows:
+            group_id[r] = g
+        group_leader[g] = rows[0]
+        group_cnt[g] = depth if len(rows) >= 2 else 0
+
+    def best(rows, depth):
+        """Best grouping of `rows`, which share pages [0, depth):
+        (page reads saved, [(rows, span), ...])."""
+        if len(rows) == 1:
+            return 0, [(rows, 0)]
+        if depth >= mp:
+            return (len(rows) - 1) * depth, [(rows, depth)]
+        buckets: Dict[int, List[int]] = {}
+        for r in rows:
+            buckets.setdefault(int(pt[r, depth]), []).append(r)
+        if len(buckets) == 1:
+            page = next(iter(buckets))
+            if page != TRASH_PAGE:
+                return best(rows, depth + 1)   # still together
+            return (len(rows) - 1) * depth, [(rows, depth)]
+        keep = (len(rows) - 1) * depth         # one group, close here
+        split_sav, split_plan = 0, []
+        for page, sub in sorted(buckets.items()):
+            if page == TRASH_PAGE:
+                s, p = ((len(sub) - 1) * depth, [(sub, depth)])
+            elif len(sub) == 1:
+                s, p = 0, [(sub, 0)]
+            else:
+                s, p = best(sub, depth + 1)
+            split_sav += s
+            split_plan.extend(p)
+        if keep >= split_sav:
+            return keep, [(rows, depth)]
+        return split_sav, split_plan
+
+    live = [r for r in range(S)
+            if q_len[r] > 0 and pt[r, 0] != TRASH_PAGE]
+    buckets: Dict[int, List[int]] = {}
+    for r in live:
+        buckets.setdefault(int(pt[r, 0]), []).append(r)
+    for page, rows in sorted(buckets.items()):
+        if len(rows) == 1:
+            close(rows, 0)
+        else:
+            _, plan = best(rows, 1)
+            for sub, span in plan:
+                close(sub, span)
+    live_set = set(live)
+    for r in range(S):
+        if r not in live_set:
+            g = next_gid[0]
+            next_gid[0] += 1
+            group_id[r] = g
+            group_leader[g] = r
+            group_cnt[g] = 0
+    return group_id, group_leader, group_cnt
 
 
 class _Node:
-    """One radix edge: a full page of `page_size` token ids."""
+    """One radix edge: a full page of `page_size` token ids. A node whose
+    page was spilled to the host tier has `page` None and a `host` slot
+    until a match restores it."""
 
     __slots__ = ("tokens", "page", "parent", "children", "partials",
-                 "last_used")
+                 "last_used", "host")
 
     def __init__(self, tokens: Optional[np.ndarray], page: Optional[int],
                  parent: Optional["_Node"]):
         self.tokens = tokens          # int64 [page_size]; None at root
-        self.page = page              # pool page id; None at root
+        self.page = page              # pool page id; None at root/spilled
         self.parent = parent
         self.children: Dict[bytes, "_Node"] = {}
         self.partials: List["_Partial"] = []
         self.last_used = 0
+        self.host = None              # host-tier slot id when spilled
 
 
 class _Partial:
@@ -115,10 +212,35 @@ class RadixPrefixCache:
         self.evicted_pages_total = 0
         self.cow_copies_total = 0
         self.inserted_pages_total = 0
+        self.spilled_pages_total = 0
+        self.restored_pages_total = 0
+        # host tier callbacks (engine-wired; None = no host tier):
+        # _host_store(page) -> host slot or None (copies the device page
+        # to host memory; the cache then swap_out's it), _host_load(slot)
+        # -> a fresh device page holding it, handed back PARKED, or None,
+        # _host_drop(slot) discards a spilled page's host copy
+        self._host_store = None
+        self._host_load = None
+        self._host_drop = None
+        self._n_spilled = 0
 
     @property
     def tree_pages(self) -> int:
         return len(self._owner)
+
+    @property
+    def spilled_nodes(self) -> int:
+        """Tree nodes whose page lives in the host tier."""
+        return self._n_spilled
+
+    def set_host_tier(self, store, load, drop):
+        """Wire the host tier (engine callbacks, see `__init__`): page
+        pressure then spills parked pages before evicting, and a match
+        on a spilled node restores it instead of falling back to
+        prefill."""
+        self._host_store = store
+        self._host_load = load
+        self._host_drop = drop
 
     def stats(self) -> dict:
         return {
@@ -128,6 +250,9 @@ class RadixPrefixCache:
             "evicted_pages": self.evicted_pages_total,
             "cow_copies": self.cow_copies_total,
             "inserted_pages": self.inserted_pages_total,
+            "spilled_pages": self.spilled_pages_total,
+            "restored_pages": self.restored_pages_total,
+            "spilled_nodes": self._n_spilled,
             "tree_pages": self.tree_pages,
             "resident_pages": self.pool.cached_pages,
             "hit_rate": (self.hits / self.lookups) if self.lookups
@@ -143,12 +268,17 @@ class RadixPrefixCache:
         """Walk full-page edges: (last node, matched page ids, matched
         token count), capped at `limit` so at least one prompt token
         always prefills (its logits start decoding). Each matched page
-        is retained as it is walked."""
+        is retained as it is walked, so the restore and spill below can
+        never touch the match in progress; a spilled node on the path is
+        restored from the host tier, and where that fails the walk stops
+        and the tail prefills."""
         ps = self.page_size
         node, pages, depth = self.root, [], 0
         while depth + ps <= limit:
             child = node.children.get(tok[depth:depth + ps].tobytes())
             if child is None:
+                break
+            if child.page is None and not self._restore(child):
                 break
             node = child
             self.pool.retain([child.page])
@@ -156,6 +286,22 @@ class RadixPrefixCache:
             depth += ps
             self._touch(child)
         return node, pages, depth
+
+    def _restore(self, node: _Node) -> bool:
+        """Swap a spilled node's page back in: the engine's load callback
+        returns the restored device page PARKED, so the caller's retain
+        treats it like any other tree page."""
+        if self._host_load is None:
+            return False
+        page = self._host_load(node.host)
+        if page is None:
+            return False
+        node.page = page
+        node.host = None
+        self._owner[page] = node
+        self._n_spilled -= 1
+        self.restored_pages_total += 1
+        return True
 
     def _best_tail(self, node: _Node, tail: np.ndarray
                    ) -> Tuple[int, Optional[int]]:
@@ -167,6 +313,8 @@ class RadixPrefixCache:
             if k > best_k:
                 best_k, best_page, best_obj = k, part.page, part
         for child in node.children.values():
+            if child.page is None:
+                continue      # spilled: not a COW source on the device
             k = _common_prefix(tail, child.tokens)
             if k > best_k:
                 best_k, best_page, best_obj = k, child.page, child
@@ -193,7 +341,9 @@ class RadixPrefixCache:
             self.pool.retain([cow_src])
         fresh = self.pool.alloc(need_fresh)
         if fresh is None:
-            self.evict(need_fresh - self.pool.free_pages)
+            # page pressure: spill parked pages to the host tier first
+            # (a later match restores them), then evict what remains
+            self._make_room(need_fresh)
             fresh = self.pool.alloc(need_fresh)
         if fresh is None and cow_src is not None:
             # the retained COW source may be the very page blocking
@@ -201,7 +351,7 @@ class RadixPrefixCache:
             # full-page match alone
             self.release([cow_src])
             cow_src, cow_k = None, 0
-            self.evict(need_fresh - self.pool.free_pages)
+            self._make_room(need_fresh)
             fresh = self.pool.alloc(need_fresh)
         if fresh is None:
             self.release(shared)     # roll back the match
@@ -218,6 +368,14 @@ class RadixPrefixCache:
             grant.cow_src = cow_src
             grant.cow_dst = fresh[0]
         return grant
+
+    def _make_room(self, need: int):
+        """Free pages until `need` are free: spill parked pages to the
+        host tier first, evict what is still short."""
+        short = need - self.pool.free_pages
+        short -= self.spill(short)
+        if short > 0:
+            self.evict(short)
 
     def cow_done(self, grant: PrefixGrant):
         """The engine copied the COW page: drop the source's protection
@@ -287,12 +445,48 @@ class RadixPrefixCache:
                 return False
         return True
 
+    # -- spill (host tier) -------------------------------------------------
+    def spill(self, need: int) -> int:
+        """Move up to `need` unreferenced parked FULL pages to the host
+        tier, LRU first: the device page frees (PagePool.swap_out), the
+        node stays walkable with a host slot. Any node, leaf or interior,
+        may spill. Returns the device pages freed (0 without a host
+        tier)."""
+        if need <= 0 or self._host_store is None:
+            return 0
+        heap = []
+        stack = [self.root]
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if (node.tokens is not None and node.page is not None
+                    and self.pool.refcount(node.page) == 0):
+                heapq.heappush(heap, (node.last_used, id(node), node))
+        spilled = 0
+        while spilled < need and heap:
+            _, _, node = heapq.heappop(heap)
+            if node.page is None or self.pool.refcount(node.page) != 0:
+                continue
+            slot = self._host_store(node.page)
+            if slot is None:
+                break                       # host tier full
+            self.pool.swap_out([node.page], spill=True)
+            del self._owner[node.page]
+            node.host = slot
+            node.page = None
+            self._n_spilled += 1
+            self.spilled_pages_total += 1
+            spilled += 1
+        return spilled
+
     # -- eviction ----------------------------------------------------------
     def _evictable(self, obj) -> bool:
         if isinstance(obj, _Partial):
             return self.pool.refcount(obj.page) == 0
         if obj.children or obj.partials:
             return False
+        if obj.page is None:
+            return True       # spilled leaf: only a host copy to drop
         return self.pool.refcount(obj.page) == 0
 
     def evict(self, need: int) -> int:
@@ -326,10 +520,17 @@ class RadixPrefixCache:
                     continue
                 del parent.children[key]
                 obj.parent = None
-            del self._owner[obj.page]
-            self.pool.free([obj.page])
-            self.evicted_pages_total += 1
-            freed += 1
+            if obj.page is None:
+                # spilled node: drop its host copy. Frees no device page,
+                # but may make the parent a leaf
+                self._host_drop(obj.host)
+                obj.host = None
+                self._n_spilled -= 1
+            else:
+                del self._owner[obj.page]
+                self.pool.free([obj.page])
+                self.evicted_pages_total += 1
+                freed += 1
             if parent.tokens is not None and self._evictable(parent):
                 heapq.heappush(heap, (parent.last_used, id(parent),
                                       parent, parent.parent))

@@ -1,11 +1,16 @@
 """Request/response surface of the serving engine (counterpart of
 `paddle_tpu/serving/request.py`).
 
-A `Request` moves through QUEUED -> PREFILL -> DECODE -> FINISHED |
-CANCELLED. PREFILL spans as many engine steps as the prompt needs
-chunks; states advance only at step boundaries. The preemption state,
-adapters, grammar, embeddings and sessions are not ported yet
-(ROADMAP.md, queue 1, item 10).
+A `Request` moves through
+
+    QUEUED -> PREFILL -> DECODE -> FINISHED | CANCELLED
+                 ^          |
+                 +- PREEMPTED (overload: tokens banked, KV pages swapped
+                    to the host tier, re-queued; resumes via swap-in)
+
+PREFILL spans as many engine steps as the prompt needs chunks; states
+advance only at step boundaries. Adapters, grammar, embeddings and
+sessions are not ported yet (ROADMAP.md, queue 1, item 10).
 """
 from __future__ import annotations
 
@@ -25,6 +30,9 @@ class RequestState(Enum):
     DECODE = 2
     FINISHED = 3
     CANCELLED = 4
+    # preempted under overload: emitted tokens banked, KV pages swapped
+    # to the host tier, waiting in the queue to resume
+    PREEMPTED = 5
 
 
 @dataclass
@@ -32,7 +40,12 @@ class SamplingParams:
     """Per-request decode knobs. greedy=True (default) is first-
     occurrence argmax decoding; setting top_k or top_p (or greedy=False)
     samples with this request's own temperature/top-k/top-p from the
-    engine's seeded generator. Lower `priority` is admitted first."""
+    engine's seeded generator. The queue orders by (priority, deadline,
+    arrival): lower `priority` is more important, and a blocked request
+    may preempt a resident of strictly higher `priority` value.
+    `deadline_s` is a placement deadline from arrival: a request still
+    queued when it passes fails fast as "deadline"; `timeout_s` bounds
+    the whole request."""
 
     max_new_tokens: int = 16
     temperature: float = 1.0
@@ -42,10 +55,13 @@ class SamplingParams:
     eos_token_id: Optional[int] = None
     timeout_s: Optional[float] = None
     priority: int = 0
+    deadline_s: Optional[float] = None
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.deadline_s is not None and self.deadline_s <= 0:
+            raise ValueError("deadline_s must be > 0")
         if self.temperature <= 0:
             raise ValueError("temperature must be > 0")
         if self.top_k is not None and self.top_k < 1:
@@ -75,14 +91,25 @@ class Request:
         self.on_token = on_token
         self.state = RequestState.QUEUED
         self.output_tokens: List[int] = []
-        # stop | length | cancelled | timeout | aborted
+        # stop | length | cancelled | timeout | deadline | aborted
         self.finish_reason: Optional[str] = None
+        # typed terminal error, when the finish reason carries one
+        # (DeadlineExceeded)
+        self.error: Optional[BaseException] = None
         self.slot: Optional[int] = None
         # KV pages granted at admission; None while queued
         self.pages: Optional[List[int]] = None
         # prompt tokens served from cached prefix pages (0 on a miss)
         self.cached_tokens: int = 0
         self._prefix_grant = None
+        # times this request was preempted (banked, swapped, resumed)
+        self.preemptions: int = 0
+        # preemption swap handle (engine-owned) while the request waits
+        # to resume with KV in the host tier
+        self._swap = None
+        # committed sequence (prompt + emitted tokens) frozen at the last
+        # preemption: what the resume prefills; None until preempted
+        self._resume_ids: Optional[np.ndarray] = None
         self.arrival_t = time.monotonic() if arrival_t is None else arrival_t
         self.admitted_t: Optional[float] = None
         self.first_token_t: Optional[float] = None
@@ -110,6 +137,22 @@ class Request:
             return None
         return self.arrival_t + self.sampling.timeout_s
 
+    @property
+    def place_deadline(self) -> Optional[float]:
+        """Absolute time by which the request must have been admitted
+        (`deadline_s` from arrival); None without a placement deadline."""
+        if self.sampling.deadline_s is None:
+            return None
+        return self.arrival_t + self.sampling.deadline_s
+
+    @property
+    def prefill_ids(self) -> np.ndarray:
+        """The sequence the engine prefills: the prompt or, after a
+        preemption, the committed sequence frozen then (prompt + banked
+        tokens), so the resume regenerates the state the slot held."""
+        return (self._resume_ids if self._resume_ids is not None
+                else self.prompt_ids)
+
     # -- user-facing ------------------------------------------------------
     @property
     def finished(self) -> bool:
@@ -122,6 +165,7 @@ class Request:
             token_ids=list(self.output_tokens),
             finish_reason=self.finish_reason,
             cached_tokens=self.cached_tokens,
+            preemptions=self.preemptions,
             ttft_s=(None if self.first_token_t is None
                     else self.first_token_t - self.arrival_t),
             queue_wait_s=(None if self.admitted_t is None
@@ -144,6 +188,8 @@ class RequestOutput:
     token_ids: List[int]
     finish_reason: Optional[str]
     cached_tokens: int = 0
+    # times the request was preempted under overload and resumed
+    preemptions: int = 0
     ttft_s: Optional[float] = None
     queue_wait_s: Optional[float] = None
     e2e_s: Optional[float] = None

@@ -3,18 +3,23 @@
 
 The scheduler owns WHICH request occupies WHICH slot; the engine owns
 the device state. Membership changes happen between engine steps only.
-The queue is ordered by (priority, arrival): lower `priority` goes
-first, FIFO within a class. A freed slot is refilled by the queue head
-at the next step boundary, subject to the engine's resource check
-(`assign(reserve=...)`): the request's whole page budget must fit, and
-when the head's pages do not fit nothing behind it is admitted either
-(head-of-line backpressure). Preemption, placement deadlines and draft
-packing are not ported yet (ROADMAP.md, queue 1, item 10).
+The queue is ordered by (priority, deadline, arrival): lower `priority`
+goes first, within a class an earlier placement deadline, then FIFO. A
+freed slot is refilled by the queue head at the next step boundary,
+subject to the engine's resource check (`assign(reserve=...)`): the
+request's whole page budget must fit, and when the head's pages do not
+fit nothing behind it is admitted either (head-of-line backpressure). A
+blocked head may then PREEMPT the least important resident of a
+strictly lower class (`preemption_victim`); the engine banks it, swaps
+its KV to the host tier and `requeue`s it by its original key, past
+max_queue. Draft packing is not ported yet (ROADMAP.md, queue 1, item
+10).
 """
 from __future__ import annotations
 
 import bisect
 import itertools
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .errors import QueueFull
@@ -29,34 +34,54 @@ class Scheduler:
             raise ValueError("num_slots must be >= 1")
         self.num_slots = num_slots
         self.max_queue = max_queue
-        # the queue, and beside it each entry's (priority, arrival, seq)
-        # sort key
+        # ordered by _queue_key: (priority, deadline, arrival, seq)
         self._queue: List[Request] = []
-        self._keys: List[Tuple] = []
         self._seq = itertools.count()
         self.running: Dict[int, Request] = {}   # slot -> request
 
     # -- queue side -------------------------------------------------------
+    @staticmethod
+    def _queue_key(req: Request) -> Tuple:
+        dl = req.place_deadline
+        return (req.sampling.priority, math.inf if dl is None else dl,
+                req.arrival_t, getattr(req, "_queue_seq", 0))
+
+    def _insert(self, req: Request):
+        if not hasattr(req, "_queue_seq"):
+            req._queue_seq = next(self._seq)
+        bisect.insort(self._queue, req, key=self._queue_key)
+
     def submit(self, req: Request):
         if self.max_queue is not None and len(self._queue) >= self.max_queue:
             raise QueueFull(
                 f"admission queue full ({self.max_queue}); shed load or "
                 "raise max_queue")
-        key = (req.sampling.priority, req.arrival_t, next(self._seq))
-        i = bisect.bisect(self._keys, key)
-        self._keys.insert(i, key)
-        self._queue.insert(i, req)
+        self._insert(req)
 
-    def _pop(self, i: int = 0) -> Request:
-        del self._keys[i]
-        return self._queue.pop(i)
+    def requeue(self, req: Request):
+        """Put a preempted resident back in line, past max_queue (banked
+        progress is never shed) and by its original ordering key."""
+        self._insert(req)
 
     def drop_queued(self, req: Request) -> bool:
-        for i, r in enumerate(self._queue):
-            if r is req:
-                self._pop(i)
-                return True
-        return False
+        try:
+            self._queue.remove(req)
+            return True
+        except ValueError:
+            return False
+
+    def pop_queued(self) -> List[Request]:
+        """Remove and return every queued request (the drain path)."""
+        out = list(self._queue)
+        self._queue.clear()
+        return out
+
+    def peek_queued(self) -> Optional[Request]:
+        """The first non-cancelled queued request, left in place."""
+        for req in self._queue:
+            if req.state is not RequestState.CANCELLED:
+                return req
+        return None
 
     @property
     def queue_depth(self) -> int:
@@ -80,17 +105,34 @@ class Scheduler:
         for slot in self.free_slots():
             while self._queue and \
                     self._queue[0].state is RequestState.CANCELLED:
-                self._pop()      # cancel raced admission
+                self._queue.pop(0)      # cancel raced admission
             if not self._queue:
                 break
             req = self._queue[0]
             if reserve is not None and not reserve(req):
                 break
-            self._pop()
+            self._queue.pop(0)
             req.slot = slot
             self.running[slot] = req
             grants.append((slot, req))
         return grants
+
+    def preemption_victim(self, than: Request
+                          ) -> Optional[Tuple[int, Request]]:
+        """The least important resident STRICTLY below `than`'s priority
+        class, or None: highest priority value, then latest (or no)
+        placement deadline, then latest arrival — the mirror of the
+        admission order. Equal-priority traffic never preempts itself."""
+        victim = None
+        for slot, req in self.running.items():
+            if req.sampling.priority <= than.sampling.priority:
+                continue
+            if req.state not in (RequestState.PREFILL, RequestState.DECODE):
+                continue
+            key = self._queue_key(req)
+            if victim is None or key > victim[2]:
+                victim = (slot, req, key)
+        return None if victim is None else (victim[0], victim[1])
 
     def pack_tokens(self, budget: int, width: int,
                     prefill_remaining: Dict[int, int]
@@ -128,6 +170,16 @@ class Scheduler:
         out += [r for r in self.running.values()
                 if r.deadline is not None and now >= r.deadline]
         return out
+
+    def deadline_expired(self, now: float) -> List[Request]:
+        """Queued, never-admitted requests past their placement deadline
+        (`deadline_s`). A preempted request waiting to resume met its
+        placement deadline and is never in this list."""
+        return [r for r in self._queue
+                if r.admitted_t is None
+                and r.place_deadline is not None
+                and now >= r.place_deadline
+                and r.state is not RequestState.CANCELLED]
 
     def cancelled_running(self) -> List[Request]:
         return [r for r in self.running.values()

@@ -11,6 +11,7 @@ from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import layer_norm as tln
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
+from paddle_tpu_torch.ops.cuda.launch_check import grouped_batch
 from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -83,6 +84,9 @@ def test_ragged_paged_attention_kernel(cuda, dtype, h, hkv):
 
 
 def test_engine_tokens_on_the_card_equal_the_cpu(cuda):
+    """The engine at its defaults (grouped walk on): the same greedy
+    tokens on the card as on the CPU, K10's two phases and K1 launched
+    the number of times each step needs, K6 not at all."""
     cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                     num_attention_heads=4, max_position_embeddings=128)
     rs = np.random.RandomState(5)
@@ -100,9 +104,101 @@ def test_engine_tokens_on_the_card_equal_the_cpu(cuda):
         tokens[str(dev)] = [r.token_ids for r in res]
         if dev is cuda:
             steps = eng.metrics.unified_steps
-            assert tpa.LAUNCHES == 2 * steps
+            assert tpa.GROUPED_LAUNCHES == {"phase1": 2 * steps,
+                                            "phase2": 2 * steps}
+            assert tpa.LAUNCHES == 0
             assert tln.LAUNCHES == 5 * steps
     assert tokens["cpu"] == tokens[str(cuda)]
+
+
+# K10's batches: two prefix groups (rows 1-3 share 4 pages, rows 4-5 two)
+_GROUPS = ((1, 3, 4), (4, 2, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(12, 12, 64), (16, 4, 128)])
+def test_grouped_paged_attention_kernel(cuda, dtype, h, hkv, d):
+    """K10 against its plain version: the output on live queries, and
+    the phase-1 partials of every row phase 1 folds (its only writes)."""
+    ops, grp = grouped_batch(cuda, dtype, h, hkv, d, rows=6, mp=8,
+                             groups=_GROUPS)
+    assert int(grp[2].max()) == 4
+    before = dict(tpa.GROUPED_LAUNCHES)
+    out = tpa.ragged_paged_attention_grouped(*ops, *grp)
+    torch.cuda.synchronize()
+    assert {n: tpa.GROUPED_LAUNCHES[n] - before[n] for n in before} == \
+        {"phase1": 1, "phase2": 1}
+    ref, (m, l, acc, written) = tpa.grouped_attention_reference(
+        *ops, *grp, return_partials=True)
+    live = torch.arange(out.shape[1], device=cuda)[None, :] \
+        < ops[5][:, None]
+    assert torch.isfinite(out.float()).all()
+    _close(out[live], ref[live])
+    # the kernel's partials, from a phase-1 launch of their own
+    partials = tpa.grouped_phase1(*ops, *grp)
+    torch.cuda.synchronize()
+    sel = written & (m > tpa.NEG_INF / 2)      # member rows, live queries
+    assert sel.any()
+    for got, want in zip(partials, (m, l, acc)):
+        _close(got[sel], want[sel])
+
+
+def test_paged_walks_are_bit_reproducible(cuda):
+    """K6 and K10 give the same bits on every run: a race between the
+    threads of a block would show as run-to-run differences."""
+    ops, grp = grouped_batch(cuda, torch.bfloat16, 12, 12, 64)
+    first = (tpa.ragged_paged_attention(*ops),
+             tpa.ragged_paged_attention_grouped(*ops, *grp))
+    for _ in range(20):
+        assert torch.equal(tpa.ragged_paged_attention(*ops), first[0])
+        assert torch.equal(tpa.ragged_paged_attention_grouped(*ops, *grp),
+                           first[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(12, 12, 64), (16, 4, 128)],
+                         ids=["rep1", "rep4"])
+def test_grouped_walk_equals_k6_bit_for_bit(cuda, dtype, h, hkv, d):
+    """K10 walks every row's pages in K6's order with K6's arithmetic:
+    the outputs are the same bits, dead queries included, at the serving
+    step's geometry (seven rows sharing 16 pages)."""
+    ops, grp = grouped_batch(cuda, dtype, h, hkv, d)
+    assert int(grp[2].max()) == 16
+    out = tpa.ragged_paged_attention_grouped(*ops, *grp)
+    want = tpa.ragged_paged_attention(*ops)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_engine_tokens_grouped_on_and_off_identical_on_the_card(cuda):
+    """Shared-prefix traffic through the engine on the card with the
+    grouped walk on and off: the same greedy tokens, K10 on one arm and
+    K6 on the other, and groups of two or more rows formed."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128)
+    rs = np.random.RandomState(6)
+    system = rs.randint(0, 256, size=20)
+    prompts = [np.concatenate([system, rs.randint(0, 256, size=n)])
+               for n in (3, 9, 5, 12, 7)]
+    model = GPTForCausalLM(cfg, device="cpu").to(cuda)
+    tokens = {}
+    for grouped in (True, False):
+        eng = ServingEngine(model, device=cuda, num_slots=4, max_len=64,
+                            page_size=8, chunk_len=8, grouped=grouped)
+        eng.generate(prompts[:1], SamplingParams(max_new_tokens=4))
+        tpa.reset_launches()
+        steps = -eng.metrics.unified_steps
+        res = eng.generate(prompts[1:], SamplingParams(max_new_tokens=8))
+        tokens[grouped] = [r.token_ids for r in res]
+        steps += eng.metrics.unified_steps
+        if grouped:
+            assert tpa.GROUPED_LAUNCHES["phase2"] == 2 * steps
+            assert tpa.LAUNCHES == 0
+            assert eng.metrics.group_size_hist.max >= 2
+        else:
+            assert tpa.LAUNCHES == 2 * steps
+            assert tpa.GROUPED_LAUNCHES["phase2"] == 0
+    assert tokens[True] == tokens[False]
 
 
 def _bf16_ulp(x):

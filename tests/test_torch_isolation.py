@@ -88,6 +88,9 @@ def test_wrappers_never_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="no kernel"):
         tpa.ragged_paged_attention(q, pool, pool, i.view(1, 1), i, i)
     with pytest.raises(ValueError, match="no kernel"):
+        tpa.ragged_paged_attention_grouped(q, pool, pool, i.view(1, 1), i,
+                                           i, i, i, i)
+    with pytest.raises(ValueError, match="no kernel"):
         tln.layer_norm_bwd(x, x, w)
     q4 = torch.zeros(1, 4, 2, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -111,8 +114,7 @@ def test_training_defaults_to_cuda_and_raises_without_it(no_cuda):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("grouped", True), ("preempt", True), ("kv_dtype", "int8"),
-    ("kv_dtype", "fp8"), ("unified", False), ("mesh", "dp1mp2"),
+    ("kv_dtype", "int8"), ("kv_dtype", "fp8"), ("unified", False), ("mesh", "dp1mp2"),
     ("spec", "ngram"), ("megakernel", True)])
 def test_unported_engine_options_raise(option, value):
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
