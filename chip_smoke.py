@@ -9,23 +9,30 @@ sm_90a card), CUDA's `nvcc` and PyTorch built for CUDA:
 Phases, each reported on its own line; any failure exits non-zero:
 
 1. build every kernel library from `paddle_tpu_torch/ops/cuda/csrc/`
-   (layer_norm.cu: K1, K2; ragged_paged_attention.cu: K6;
-   grouped_paged_attention.cu: K10a, K10b; flash_attention.cu: K3, K4,
+   (layer_norm.cu: K1, K2; ragged_paged_attention.cu: K6 and its fp8
+   lane, K7; grouped_paged_attention.cu: K10a, K10b in the fp, fp8 and
+   q8 lanes; paged_scatter.cu: K8, K8-q8; flash_attention.cu: K3, K4,
    K5; one nvcc per source, all at once) and print the build time and
    the card's name and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
-   and the training step's, K6 and K10 at the serving step's, K2-K5 at
+   and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
    the training step's; f32 outputs to 1e-5 x (1 + max|ref|), bf16 outputs
    element by element to 2 ulps — and time the kernel, the plain version
    and one PyTorch library call computing the same function
    (`F.layer_norm`, `native_layer_norm_backward`, SDPA and its
-   backward), beside the bound from `bound()`. K10 runs on batches
-   built like phase 3's grouped steps (16 rows, seven sharing 16 pages;
-   and again at rep 4, D 128): its phase-1 partials against the plain
+   backward), beside the bound from `bound()`. The attention walks run
+   in each pool lane: fp; fp8 (e4m3 pools: K6's fp8 lane, K10's); q8
+   (int8 pools with f32 scales: K7, K10's q8 lane), on the same pools
+   in the kernel and in the plain version. K10 runs on batches built
+   like phase 3's grouped steps (16 rows, seven sharing 16 pages; and
+   again at rep 4, D 128): its phase-1 partials against the plain
    partials, its output against the plain output, and its output
-   against K6's on the same operands, bit for bit; K10a, K10b and K6 are
-   timed on the same operands;
+   against K6's (K7's) in the same lane on the same operands, bit for
+   bit; K10a, K10b and K6 are timed on the same operands. K8 and K8-q8
+   write the serving step's [16, 32, 12, 64] K rows (and again at 300x
+   the scale, past +-448) and must equal their plain versions bit for
+   bit outside the trash page;
 3. serve GPT-124M at full width (bench.py's configuration: vocab 50304,
    hidden 768, 12 layers, 12 heads, 1024 positions) in bf16 with random
    weights from a seed: 24 requests of 32-700 prompt tokens, a third of
@@ -41,7 +48,16 @@ Phases, each reported on its own line; any failure exits non-zero:
    f32). Prints tokens/s, the step time, the TTFT, the modeled page
    reads and the reads the grouped walk saved, and a profile of each
    arm (16 more requests on the warm engine, half of them behind the
-   shared prompt). Then a preemption run: 16 slots over a pool of 16 x 40 + 1
+   shared prompt). Then the same traffic over int8 and fp8 KV pools,
+   each with the defaults and with grouped=False: per step K1 25, the
+   lane's write (K8-q8 or K8) 24 and K10a, K10b 12 each (K7 or K6's fp8
+   lane 12 with grouped=False); identical tokens in both arms of a
+   dtype; a recorded step of each defaults run held against a plain f32
+   rerun over the same quantized pools; a page costing exactly 68/128
+   (int8) and 64/128 (fp8) of a bf16 page. Printed, not checked: the
+   share of tokens equal to the bf16 run's, tokens/s and the device's
+   busy share. Then two preemption runs, bf16 and int8: 16 slots over a
+   pool of 16 x 40 + 1
    pages filled with priority-5 requests; once they decode, a priority-0
    burst that only preemption admits. Checks that requests were
    preempted and swapped to the host tier, that every request's tokens
@@ -61,8 +77,10 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
-default engine's run; serving_ungrouped, the grouped=False run; or
-training) whose shapes the record was measured at, and
+default engine's run; serving_ungrouped, the grouped=False run; the
+same over int8 or fp8 pools, serving_int8[_ungrouped] and
+serving_fp8[_ungrouped]; or training) whose shapes the record was
+measured at, and
 `launches_by_path` those on each path, each counted from 0 just before
 its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
@@ -385,27 +403,57 @@ def ragged_batch(dev, dtype, h, hkv, seed):
             *(torch.from_numpy(a).to(dev) for a in (table, pos, q_len)))
 
 
-def check_paged_attention(dev, tpa, time_ms):
+# the walk kernels' records by (kernel, pool lane): the kernels-line key,
+# its name, and the serving path (phase 3 arm) whose launches it counts
+WALKS = {
+    ("K6", "fp"): ("K6", "K6 ragged_paged_attention", "serving_ungrouped"),
+    ("K6", "fp8"): ("K6-fp8", "K6-fp8 ragged_paged_attention (e4m3 pools)",
+                    "serving_fp8_ungrouped"),
+    ("K6", "q8"): ("K7", "K7 ragged_paged_attention_q8",
+                   "serving_int8_ungrouped"),
+    ("K10a", "fp"): ("K10a", "K10a grouped_phase1", "serving"),
+    ("K10b", "fp"): ("K10b", "K10b grouped_phase2", "serving"),
+    ("K10a", "fp8"): ("K10a-fp8", "K10a-fp8 grouped_phase1 (e4m3 pools)",
+                      "serving_fp8"),
+    ("K10b", "fp8"): ("K10b-fp8", "K10b-fp8 grouped_phase2 (e4m3 pools)",
+                      "serving_fp8"),
+    ("K10a", "q8"): ("K10a-q8", "K10a-q8 grouped_phase1 (int8 pools)",
+                     "serving_int8"),
+    ("K10b", "q8"): ("K10b-q8", "K10b-q8 grouped_phase2 (int8 pools)",
+                     "serving_int8"),
+}
+LANE_NAMES = {"fp": "fp lane", "fp8": "fp8 lane (e4m3 pools)",
+              "q8": "q8 lane (int8 pools + f32 scales)"}
+
+
+def check_paged_attention(dev, tpa, time_ms, lane="fp"):
+    """K6 in pool lane `lane` (fp: K6; fp8: its e4m3 lane; q8: K7) on
+    the serving batches of `ragged_batch` — f32 rep 1, bf16 rep 2 and
+    rep 1 — against its plain version on the same pools (live queries);
+    then the bf16 rep-1 batch is timed: the kernel, the plain version
+    and SDPA over the gathered (dequantized) K/V."""
+    from paddle_tpu_torch.ops.cuda.launch_check import (lane_batch, ragged,
+                                                        ragged_reference)
+    key, name, path = WALKS["K6", lane]
     errs = {}
     for dtype, (h, hkv) in ((torch.float32, (12, 12)),
                             (torch.bfloat16, (12, 6)),
                             (torch.bfloat16, (12, 12))):
-        args = ragged_batch(dev, dtype, h, hkv, SEED)
-        out = tpa.ragged_paged_attention(*args)
+        ops, scales = lane_batch(ragged_batch(dev, dtype, h, hkv, SEED), lane)
+        out = ragged(ops, scales)
         torch.cuda.synchronize()
-        ref = tpa.ragged_attention_reference(*args)
-        q_len = args[5]
+        ref = ragged_reference(ops, scales)
+        q_len = ops[5]
         live = (torch.arange(out.shape[1], device=dev)[None, :]
                 < q_len[:, None])
         if not torch.isfinite(out.float()).all():
-            raise AssertionError("K6 wrote a non-finite dead query")
-        errs[dtype] = check_close(
-            f"K6 ragged_paged_attention H={h} H_kv={hkv} {dtype}", out, ref,
-            mask=live)
-    q, k, v, table, pos, q_len = args            # bf16, GPT-124M heads
-    ms = time_ms(lambda: tpa.ragged_paged_attention(*args))
-    plain_ms = time_ms(lambda: tpa.ragged_attention_reference(*args))
-    lib_ms = time_ms(sdpa_yardstick(*args))
+            raise AssertionError(f"{key} wrote a non-finite dead query")
+        errs[dtype] = check_close(f"{key} H={h} H_kv={hkv} {dtype}", out,
+                                  ref, mask=live)
+    q, k, v, table, pos, q_len = ops             # bf16, GPT-124M heads
+    ms = time_ms(lambda: ragged(ops, scales))
+    plain_ms = time_ms(lambda: ragged_reference(ops, scales))
+    lib_ms = time_ms(sdpa_yardstick(*ops, **scales))
     b, lq, h, d = q.shape
     ql, ps_ = q_len.cpu().numpy(), pos.cpu().numpy()
     item = q.element_size()
@@ -413,33 +461,36 @@ def check_paged_attention(dev, tpa, time_ms):
         table.cpu().numpy(), ps_, ql, page_size=k.shape[1])
     # what this batch needs: live queries, every row's live K/V pages
     n_bytes = (2 * int(ql.sum()) * h * d * item        # q in, out
-               + flat * k.shape[2] * page_block_bytes(k)
+               + flat * k.shape[2] * page_block_bytes(k, scales)
                + table.numel() * 4 + 2 * b * 4)
     bound_ms, bound_by = bound(n_bytes, 4 * attended_keys(ps_, ql) * h * d,
                                BF16_FLOPS)
-    log(f"  K6 bf16 [16, 32, 12, 64]: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, SDPA (gathered, masked) {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
-    return dict(name="K6 ragged_paged_attention", route="cuda",
+    log(f"  {key} bf16 [16, 32, 12, 64], {LANE_NAMES[lane]}: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (gathered, "
+        f"{'dequantized, ' if lane != 'fp' else ''}masked) {lib_ms:.4f} "
+        f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(name=name, route="cuda",
                 source="paddle_tpu_torch/ops/cuda/csrc/"
                        "ragged_paged_attention.cu",
                 replaces="paddle_tpu/ops/pallas/paged_attention.py:375",
-                path="serving_ungrouped", max_abs_err=errs[torch.bfloat16],
+                path=path, max_abs_err=errs[torch.bfloat16],
                 ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
-def sdpa_yardstick(q, k, v, table, pos, q_len):
-    """K6's and K10's library yardstick: SDPA over the gathered dense
-    K/V view under the ragged causal mask (one call; its gather is
-    done here, outside the timed call)."""
+def sdpa_yardstick(q, k, v, table, pos, q_len, k_scale=None, v_scale=None):
+    """K6's, K7's and K10's library yardstick: SDPA over the gathered
+    dense K/V view — dequantized to q's dtype for the 1-byte lanes —
+    under the ragged causal mask (one call; its gather is done here,
+    outside the timed call)."""
+    from paddle_tpu_torch.ops.cuda.paged_attention import _pages_f32
     b, lq, h, d = q.shape
     ps, mp = k.shape[1], table.shape[1]
     rep = h // k.shape[2]
-    kd = k[table.long()].reshape(b, mp * ps, -1, d).repeat_interleave(
+    dense = lambda pool, sc: _pages_f32(pool, sc, table.long()).to(
+        q.dtype).reshape(b, mp * ps, -1, d).repeat_interleave(
         rep, dim=2).transpose(1, 2)
-    vd = v[table.long()].reshape(b, mp * ps, -1, d).repeat_interleave(
-        rep, dim=2).transpose(1, 2)
+    kd, vd = dense(k, k_scale), dense(v, v_scale)
     qd = q.transpose(1, 2)
     i = torch.arange(lq, device=q.device)[:, None]
     j = torch.arange(mp * ps, device=q.device)[None, :]
@@ -448,9 +499,11 @@ def sdpa_yardstick(q, k, v, table, pos, q_len):
         qd, kd, vd, attn_mask=mask)
 
 
-def page_block_bytes(pool) -> int:
-    """Bytes of one page block of one kv head, K and V."""
-    return 2 * pool.shape[1] * pool.shape[3] * pool.element_size()
+def page_block_bytes(pool, scales=None) -> int:
+    """Bytes of one page block of one kv head, K and V: the pool's
+    elements, plus an f32 scale per key for an int8 pool."""
+    scale = 4 if scales else 0
+    return 2 * pool.shape[1] * (pool.shape[3] * pool.element_size() + scale)
 
 
 def attended_keys(pos, q_len, span=None) -> int:
@@ -491,55 +544,63 @@ def wall_ms(fn, iters: int = 2) -> float:
     return DeviceTimer._events(lambda: [fn() for _ in range(iters)]) / iters
 
 
-def check_grouped_attention(dev, tpa, time_ms):
-    """K10 on batches built like phase 3's grouped steps: 16 rows, seven
-    of them sharing 16 pages, q_len 1-32 (`launch_check.grouped_batch`),
-    H = H_kv = 12, D 64 in f32 and bf16, and H 16, H_kv 4, D 128 in bf16.
-    K10a's partials against the plain phase-1 partials (member rows of
-    live queries), K10b's output against the plain output (live
-    queries), and the output against K6's, bit for bit. Then K10a, K10b,
-    both, K6, the plain version (with `wall_ms`) and SDPA are timed on
-    the bf16 H 12 batch."""
-    from paddle_tpu_torch.ops.cuda.launch_check import grouped_batch
+def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
+    """K10 in pool lane `lane` on batches built like phase 3's grouped
+    steps: 16 rows, seven of them sharing 16 pages, q_len 1-32
+    (`launch_check.grouped_batch`), H = H_kv = 12, D 64 in f32 and bf16,
+    and H 16, H_kv 4, D 128 in bf16, over the lane's pools. K10a's
+    partials against the plain phase-1 partials (member rows of live
+    queries), K10b's output against the plain output (live queries), and
+    the output against K6's in the same lane (K7 for q8), bit for bit.
+    Then K10a, K10b, both, K6, the plain version (with `wall_ms`) and
+    SDPA are timed on the bf16 H 12 batch."""
+    from paddle_tpu_torch.ops.cuda.launch_check import (grouped_batch,
+                                                        grouped, lane_batch,
+                                                        ragged)
+    key_a, name_a, path = WALKS["K10a", lane]
+    key_b, name_b, _ = WALKS["K10b", lane]
+    key6 = WALKS["K6", lane][0]
     errs, part_errs, batches = {}, {}, {}
     for dtype, (h, hkv, d) in ((torch.float32, (12, 12, 64)),
                                (torch.bfloat16, (12, 12, 64)),
                                (torch.bfloat16, (16, 4, 128))):
         ops, grp = grouped_batch(dev, dtype, h, hkv, d, SEED)
-        batches[dtype, h] = ops, grp
-        tag = f"H={h} H_kv={hkv} D={d} {dtype}"
-        partials = tpa.grouped_phase1(*ops, *grp)
-        out = tpa.grouped_phase2(*ops, *grp, partials)
-        k6 = tpa.ragged_paged_attention(*ops)
+        ops, scales = lane_batch(ops, lane)
+        batches[dtype, h] = ops, grp, scales
+        tag = f"H={h} H_kv={hkv} D={d} {dtype}, {LANE_NAMES[lane]}"
+        partials = tpa.grouped_phase1(*ops, *grp, **scales)
+        out = tpa.grouped_phase2(*ops, *grp, partials, **scales)
+        k6 = ragged(ops, scales)
         torch.cuda.synchronize()
         same = torch.equal(out, k6)
         log(f"  K10 {tag}: {int((grp[2] > 0).sum())} sharing group(s), "
-            f"{int(grp[2].max())} shared pages; output equals K6's bit "
+            f"{int(grp[2].max())} shared pages; output equals {key6}'s bit "
             f"for bit: {same}")
         if not same:
-            raise AssertionError(f"K10 {tag} differs from K6")
+            raise AssertionError(f"K10 {tag} differs from {key6}")
         if not torch.isfinite(out.float()).all():
             raise AssertionError("K10 wrote a non-finite dead query")
         ref, (m, l, acc, written) = tpa.grouped_attention_reference(
-            *ops, *grp, return_partials=True)
+            *ops, *grp, return_partials=True, **scales)
         sel = written & (m > tpa.NEG_INF / 2)     # member rows, live queries
         part_errs[dtype, h] = max(
-            check_close(f"K10a partial {n} {tag}", got[sel], want[sel])
+            check_close(f"{key_a} partial {n} {tag}", got[sel], want[sel])
             for n, got, want in zip(("m", "l", "acc"), partials, (m, l, acc)))
         live = (torch.arange(out.shape[1], device=dev)[None, :]
                 < ops[5][:, None])
-        errs[dtype, h] = check_close(f"K10b output {tag}", out, ref,
+        errs[dtype, h] = check_close(f"{key_b} output {tag}", out, ref,
                                      mask=live)
         del ref, m, l, acc
-    ops, grp = batches[torch.bfloat16, 12]
-    args = tpa._grouped_check(*ops, *grp)
-    partials = tpa.grouped_phase1(*args)
-    ms_a = time_ms(lambda: tpa.grouped_phase1(*args))
-    ms_b = time_ms(lambda: tpa.grouped_phase2(*args, partials))
-    ms_both = time_ms(lambda: tpa.ragged_paged_attention_grouped(*ops, *grp))
-    ms_k6 = time_ms(lambda: tpa.ragged_paged_attention(*ops))
-    plain_ms = wall_ms(lambda: tpa.grouped_attention_reference(*ops, *grp))
-    lib_ms = time_ms(sdpa_yardstick(*ops))
+    ops, grp, scales = batches[torch.bfloat16, 12]
+    args = tpa._grouped_check(*ops, *grp, **scales)
+    partials = tpa.grouped_phase1(*args, **scales)
+    ms_a = time_ms(lambda: tpa.grouped_phase1(*args, **scales))
+    ms_b = time_ms(lambda: tpa.grouped_phase2(*args, partials, **scales))
+    ms_both = time_ms(lambda: grouped(ops, grp, scales))
+    ms_k6 = time_ms(lambda: ragged(ops, scales))
+    plain_ms = wall_ms(lambda: tpa.grouped_attention_reference(
+        *ops, *grp, **scales))
+    lib_ms = time_ms(sdpa_yardstick(*ops, **scales))
     q, k, v, table, pos, q_len = ops
     b, lq, h, d = q.shape
     hkv, ps = k.shape[2], k.shape[1]
@@ -557,37 +618,124 @@ def check_grouped_attention(dev, tpa, time_ms):
         (d + 2) * 4
     keys_a = attended_keys(p_, ql, span_keys)
     keys_all = attended_keys(p_, ql)
-    blk = hkv * page_block_bytes(k)
+    blk = hkv * page_block_bytes(k, scales)
     bound_a = bound(span_reads * blk + q_member + part_bytes,
                     4 * keys_a * h * d, BF16_FLOPS)
     bound_b = bound((reads - span_reads) * blk + 2 * q_live + part_bytes,
                     4 * (keys_all - keys_a) * h * d, BF16_FLOPS)
-    log(f"  K10 bf16 [16, 32, 12, 64], group sizes {sizes}: page-block "
-        f"reads {reads} grouped vs {flat} per row (per kv head); K10a "
-        f"{ms_a:.4f} ms (bound {bound_a[0]:.5f}, {bound_a[1]}), K10b "
-        f"{ms_b:.4f} ms (bound {bound_b[0]:.5f}, {bound_b[1]}), both "
-        f"{ms_both:.4f} ms vs K6 {ms_k6:.4f} ms on the same operands; "
-        f"plain (both phases) {plain_ms:.4f} ms, SDPA (gathered, masked) "
-        f"{lib_ms:.4f} ms")
-    common = dict(route="cuda", path="serving",
+    log(f"  K10 bf16 [16, 32, 12, 64], {LANE_NAMES[lane]}, group sizes "
+        f"{sizes}: page-block reads {reads} grouped vs {flat} per row (per "
+        f"kv head); {key_a} {ms_a:.4f} ms (bound {bound_a[0]:.5f}, "
+        f"{bound_a[1]}), {key_b} {ms_b:.4f} ms (bound {bound_b[0]:.5f}, "
+        f"{bound_b[1]}), both {ms_both:.4f} ms vs {key6} {ms_k6:.4f} ms on "
+        f"the same operands; plain (both phases) {plain_ms:.4f} ms, SDPA "
+        f"(gathered, masked) {lib_ms:.4f} ms")
+    common = dict(route="cuda", path=path,
                   source="paddle_tpu_torch/ops/cuda/csrc/"
                          "grouped_paged_attention.cu",
                   plain_ms=plain_ms,
                   plain_timing="both phases, events around whole calls",
                   k10_ms=ms_both, k6_ms_same_operands=ms_k6,
                   page_block_reads={"grouped": reads, "per_row": flat})
-    return (dict(name="K10a grouped_phase1",
+    return (dict(name=name_a,
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:562",
                  max_abs_err=part_errs[torch.bfloat16, 12], ms=ms_a,
                  bound_ms=bound_a[0], bound_by=bound_a[1], library_ms=None,
                  max_abs_err_rep4=part_errs[torch.bfloat16, 16], **common),
-            dict(name="K10b grouped_phase2",
+            dict(name=name_b,
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:663",
                  max_abs_err=errs[torch.bfloat16, 12], ms=ms_b,
                  bound_ms=bound_b[0], bound_by=bound_b[1], library_ms=lib_ms,
                  library_call="SDPA over the gathered, masked K/V: the "
                               "output of K10a and K10b together",
                  max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
+
+
+def check_paged_scatter(dev, tpa, time_ms):
+    """K8 (into e4m3 pools) and K8-q8 (into int8 + scale pools) at the
+    serving step's write: the [16, 32, 12, 64] bf16 K rows of
+    `ragged_batch`'s q, at its positions and tables (tokens past a row's
+    window go to the trash page), and again at 300x the scale, with
+    about 13 % of the values then beyond +-448. The pools' bytes must
+    equal the plain versions' bit for bit outside page 0. Then both kernels, the
+    plain versions and, for K8, one `index_copy_` of the converted bytes
+    to the same slots are timed."""
+    q, k, _, table, pos, _ = ragged_batch(dev, torch.bfloat16, 12, 12, SEED)
+    shape = k.shape
+    fp8_zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
+                                    device=dev).view(tpa.FP8_DTYPE)
+    q8_zeros = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.zeros(shape[:3], device=dev))
+    errs = {"K8": 0.0, "K8-q8": 0.0}
+    for mult in (1.0, 300.0):
+        upd = (q.float() * mult).to(torch.bfloat16)
+        got8 = tpa.paged_scatter(fp8_zeros(), upd, pos, table)
+        codes, scales = tpa.paged_scatter_q8(*q8_zeros(), upd, pos, table)
+        torch.cuda.synchronize()
+        want8 = tpa.paged_scatter_reference(fp8_zeros(), upd, pos, table)
+        wantc, wants = tpa.paged_scatter_q8_reference(*q8_zeros(), upd, pos,
+                                                      table)
+        same = {
+            "K8": torch.equal(got8.view(torch.uint8)[1:],
+                              want8.view(torch.uint8)[1:]),
+            "K8-q8": torch.equal(codes[1:], wantc[1:]) and torch.equal(
+                scales[1:].view(torch.int32), wants[1:].view(torch.int32))}
+        errs["K8"] = max(errs["K8"], (got8[1:].float() - want8[1:].float()
+                                      ).abs().max().item())
+        errs["K8-q8"] = max(errs["K8-q8"], (codes[1:].float() - wantc[1:]
+                                            ).abs().max().item(),
+                            (scales[1:] - wants[1:]).abs().max().item())
+        finite = bool(torch.isfinite(got8.float()).all()
+                      and torch.isfinite(scales).all())
+        beyond = (upd.float().abs() > tpa.FP8_MAX).float().mean().item()
+        log(f"  K8 / K8-q8 bf16 {list(upd.shape)} x{mult:g} ({beyond:.3f} "
+            f"of the values beyond +-448): bit for bit outside page 0 "
+            f"{same}; every written value finite: {finite}")
+        if not all(same.values()) or not finite:
+            raise AssertionError("K8 / K8-q8 disagree with their plain "
+                                 "versions")
+    upd = q
+    pool8, (pc, ps_) = fp8_zeros(), q8_zeros()
+    ms8 = time_ms(lambda: tpa.paged_scatter(pool8, upd, pos, table))
+    msq = time_ms(lambda: tpa.paged_scatter_q8(pc, ps_, upd, pos, table))
+    # the plain writes enqueue ~3 ms of small launches each: few calls,
+    # so the enqueue stays inside the timer's sleep
+    plain8 = time_ms(lambda: tpa.paged_scatter_reference(pool8, upd, pos,
+                                                         table), iters=5)
+    plainq = time_ms(lambda: tpa.paged_scatter_q8_reference(pc, ps_, upd,
+                                                            pos, table),
+                     iters=5)
+    flat = tpa._paged_flat_slots(shape[1], pos, table, upd.shape[1]
+                                 ).reshape(-1)
+    rows = upd.float().clamp(-tpa.FP8_MAX, tpa.FP8_MAX).to(
+        tpa.FP8_DTYPE).view(torch.uint8).reshape(-1, *shape[2:])
+    dst = pool8.view(torch.uint8).view(-1, *shape[2:])
+    lib8 = time_ms(lambda: dst.index_copy_(0, flat, rows))
+    n = upd.numel()
+    # upd read once, the pools written once; the tables and positions
+    io = table.numel() * 4 + pos.numel() * 4
+    b8 = bound(n * upd.element_size() + n + io, 4 * n, F32_FLOPS)
+    bq = bound(n * upd.element_size() + n + n // shape[3] * 4 + io, 6 * n,
+               F32_FLOPS)
+    log(f"  K8 bf16 {list(upd.shape)} -> e4m3: kernel {ms8:.4f} ms, plain "
+        f"{plain8:.4f} ms, index_copy_ of the converted bytes {lib8:.4f} "
+        f"ms, bound {b8[0]:.5f} ms ({b8[1]}); K8-q8 -> int8 + scales: "
+        f"kernel {msq:.4f} ms, plain {plainq:.4f} ms, bound {bq[0]:.5f} ms "
+        f"({bq[1]})")
+    common = dict(route="cuda",
+                  source="paddle_tpu_torch/ops/cuda/csrc/paged_scatter.cu")
+    return (dict(name="K8 paged_scatter (e4m3 pools)", path="serving_fp8",
+                 max_abs_err=errs["K8"],
+                 replaces="paddle_tpu/ops/pallas/paged_attention.py:1294",
+                 ms=ms8, plain_ms=plain8, bound_ms=b8[0], bound_by=b8[1],
+                 library_ms=lib8,
+                 library_call="index_copy_ of the converted e4m3 bytes to "
+                              "the same slots", **common),
+            dict(name="K8-q8 paged_scatter_q8", path="serving_int8",
+                 max_abs_err=errs["K8-q8"],
+                 replaces="paddle_tpu/ops/pallas/paged_attention.py:1343",
+                 ms=msq, plain_ms=plainq, bound_ms=bq[0], bound_by=bq[1],
+                 library_ms=None, **common))
 
 
 # -- phase 3: serve GPT-124M -------------------------------------------------
@@ -618,14 +766,43 @@ def make_traffic():
 def launch_counts_serving(tln, tpa) -> dict:
     return {"K1": tln.LAUNCHES, "K6": tpa.LAUNCHES,
             "K10a": tpa.GROUPED_LAUNCHES["phase1"],
-            "K10b": tpa.GROUPED_LAUNCHES["phase2"]}
+            "K10b": tpa.GROUPED_LAUNCHES["phase2"], **tpa.QUANT_LAUNCHES}
+
+
+# the serving step's launches per layer by KV dtype: the write (K8 or
+# K8-q8 for K and for V; a float pool's write is index_copy_), and the
+# walk with the defaults (K10's two phases) or with grouped=False (K6)
+LANE_OF = {"fp": "fp", "fp8": "fp8", "int8": "q8"}
+WRITE_OF = {"fp": None, "fp8": "K8", "int8": "K8-q8"}
+
+
+def per_step_launches(tpa, grouped: bool, kv_dtype: str) -> dict:
+    n_layers = GPT124M["num_hidden_layers"]
+    want = dict.fromkeys(["K6", "K10a", "K10b", *tpa.QUANT_LAUNCHES], 0)
+    want["K1"] = 2 * n_layers + 1
+    lane = LANE_OF[kv_dtype]
+    for walk in (("K10a", "K10b") if grouped else ("K6",)):
+        want[WALKS[walk, lane][0]] = n_layers
+    if WRITE_OF[kv_dtype]:
+        want[WRITE_OF[kv_dtype]] = 2 * n_layers
+    return want
+
+
+def snap_cpu(t):
+    """A CPU copy of a tensor (None stays None; e4m3 moves as bytes)."""
+    if t is None:
+        return None
+    if t.dtype == torch.float8_e4m3fn:
+        return t.view(torch.uint8).to("cpu", copy=True).view(t.dtype)
+    return t.to("cpu", copy=True)
 
 
 def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
-          profile: bool = False):
+          profile: bool = False, kv_dtype: str = "fp"):
     """One run of phase 3's traffic on a fresh engine: the defaults
-    (grouped walk, preemption, host tier) or grouped=False. Returns the
-    launches, the stats and every request's tokens."""
+    (grouped walk, preemption, host tier) or grouped=False, over pools of
+    `kv_dtype`. Returns the launches, the stats and every request's
+    tokens."""
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
                                           unified_forward)
 
@@ -636,21 +813,24 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         def _forward(self, *args):
             if not record or self.metrics.unified_steps != RECORD_STEP:
                 return super()._forward(*args)
-            snap = lambda t: (None if t is None else
-                              tuple(map(snap, t)) if isinstance(t, tuple)
-                              else t.to("cpu", copy=True))
+            snap = lambda t: (tuple(map(snap, t)) if isinstance(t, tuple)
+                              else snap_cpu(t))
             before = ([snap(a) for a in args],
-                      [(snap(k), snap(v)) for k, v in self._pools],
+                      [snap(layer) for layer in self._pools],
                       snap(self._last_logits))
             out = super()._forward(*args)
             self.recorded = before + (out.cpu(),)
             return out
 
-    arm = "defaults" if grouped else "grouped=False"
+    arm = f"{kv_dtype} {'defaults' if grouped else 'grouped=False'}"
     eng = RecordingEngine(model, device=dev, seed=SEED,
-                          **({} if grouped else {"grouped": False}), **ENGINE)
-    if eng.grouped != grouped or not eng.preempt:
-        raise AssertionError(f"engine gates {eng.grouped, eng.preempt}")
+                          **({} if grouped else {"grouped": False}),
+                          **({} if kv_dtype == "fp" else
+                             {"kv_dtype": kv_dtype}), **ENGINE)
+    if (eng.grouped, eng.preempt, eng.kv_dtype) != (grouped, True,
+                                                    kv_dtype):
+        raise AssertionError(f"engine gates {eng.grouped, eng.preempt}, "
+                             f"kv_dtype {eng.kv_dtype}")
     prompts = make_traffic()
     t0 = time.perf_counter()
     tln.reset_launches()
@@ -679,13 +859,10 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         f"{snap['shared_page_reads_saved_total']} saved by the grouped "
         f"walk; sharing groups in {sizes['count']} step(s), largest "
         f"{sizes['max']}")
-    n_layers = GPT124M["num_hidden_layers"]
-    per_step = {"K1": 2 * n_layers + 1,
-                "K6": 0 if grouped else n_layers,
-                "K10a": n_layers if grouped else 0,
-                "K10b": n_layers if grouped else 0}
+    per_step = per_step_launches(tpa, grouped, kv_dtype)
     want = {k: n * steps for k, n in per_step.items()}
-    log(f"  [{arm}] launches: {launches} (per step {per_step})")
+    log(f"  [{arm}] launches: { {k: n for k, n in launches.items() if n} } "
+        f"(per step { {k: n for k, n in per_step.items() if n} })")
     if any(r.finish_reason != "length" or len(r.output_tokens) != NEW_TOKENS
            for r in reqs):
         raise AssertionError("a request did not finish with its 64 tokens")
@@ -705,7 +882,7 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
              "steps": steps, "wall_s": wall,
              "page_block_reads": snap["page_block_reads_total"],
              "page_reads_saved": snap["shared_page_reads_saved_total"],
-             "largest_group": sizes["max"]}
+             "largest_group": sizes["max"], "page_bytes": eng.page_bytes}
     if record:
         stats["held"] = rerun_recorded(eng, model, unified_forward)
     if profile:
@@ -723,15 +900,18 @@ def rerun_recorded(eng, model, unified_forward) -> dict:
     (toks, pos, table, q_len, is_decode, group), pools, last, held = \
         eng.recorded
     plain_model = copy.deepcopy(model).float().cpu()
-    pools = [(k.float(), v.float()) for k, v in pools]
+    # bf16 pools to f32; int8 codes, their scales and e4m3 pools as they
+    # are: the rerun reads the same quantized pages
+    pools = [tuple(t.float() if t is not None and t.dtype == torch.bfloat16
+                   else t for t in layer) for layer in pools]
     with torch.no_grad():
         plain = unified_forward(plain_model, pools, toks, pos, table, q_len,
                                 is_decode, last, group)
     live = q_len > 0
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
-    log(f"  step {RECORD_STEP} ({int(q_len.sum())} tokens, "
-        f"{int(live.sum())} live rows, grouped walk "
+    log(f"  [{eng.kv_dtype}] step {RECORD_STEP} ({int(q_len.sum())} "
+        f"tokens, {int(live.sum())} live rows, grouped walk "
         f"{'on' if group is not None else 'off'}): held logits vs plain "
         f"f32 rerun max_abs_err={err:.4f} (tolerance {HELD_LOGITS_TOL}), "
         f"argmax agreement {agree.item():.3f}")
@@ -762,15 +942,63 @@ def serving(dev, tln, tpa):
         raise AssertionError("grouped and ungrouped runs gave other tokens")
     return ({"serving": on, "serving_ungrouped": off},
             {"defaults": [on_stats, on2], "grouped_off": [off_stats, off2]},
-            model)
+            model, on_tokens)
 
 
-def preemption(dev, model) -> dict:
-    """Full-width preemption: 16 priority-5 requests fill 16 slots and a
-    pool of PREEMPT_PAGES pages; once all decode, a priority-0 burst of
-    PREEMPT_BURST arrives that only preemption admits. Every request's
-    tokens must equal those of a run that never preempts (preempt=False,
-    the default pool), and the pool must be quiesced after drain()."""
+def serving_quantized(dev, tln, tpa, model, fp_tokens, fp_stats) -> tuple:
+    """Phase 3's quantized runs on the same model and traffic: for int8
+    and fp8 KV, the defaults (with a recorded step rerun plain over the
+    same quantized pools, and a profile) and grouped=False, whose tokens
+    must be identical. Checks that a page costs 68/128 (int8) and 64/128
+    (fp8) of a bf16 page; prints, without gating, the share of greedy
+    tokens equal to the bf16 arm's (random weights leave small margins),
+    tokens/s and the device's busy share. Returns the launches of each
+    run (its path) and the stats."""
+    by_path, stats = {}, {}
+    ratios = {"int8": (68, 128), "fp8": (64, 128)}
+    for kv in ("int8", "fp8"):
+        on, on_stats, on_tokens = serve(dev, tln, tpa, model, True,
+                                        record=True, profile=True,
+                                        kv_dtype=kv)
+        off, off_stats, off_tokens = serve(dev, tln, tpa, model, False,
+                                           kv_dtype=kv)
+        name = "int8" if kv == "int8" else "fp8"
+        by_path[f"serving_{name}"] = on
+        by_path[f"serving_{name}_ungrouped"] = off
+        pairs = [(a, b) for got, want in zip(on_tokens, fp_tokens)
+                 for a, b in zip(got, want)]
+        agree = sum(a == b for a, b in pairs) / len(pairs)
+        whole = sum(got == want for got, want in zip(on_tokens, fp_tokens))
+        ratio = on_stats["page_bytes"] / fp_stats["page_bytes"]
+        num, den = ratios[kv]
+        log(f"  [{kv}] defaults and grouped=False tokens identical: "
+            f"{on_tokens == off_tokens}; tokens equal to the bf16 arm's at "
+            f"{agree:.4f} of positions, {whole} of {len(fp_tokens)} requests "
+            f"whole; tokens/s {on_stats['tokens_per_s']:.1f} (defaults), "
+            f"{off_stats['tokens_per_s']:.1f} (grouped=False); page bytes "
+            f"{on_stats['page_bytes']} vs bf16 {fp_stats['page_bytes']} "
+            f"({ratio:.4f}, want {num}/{den}); device busy "
+            f"{on_stats['profile']['device_busy_share']}")
+        if on_tokens != off_tokens:
+            raise AssertionError(f"{kv}: grouped and ungrouped runs gave "
+                                 "other tokens")
+        if on_stats["page_bytes"] * den != fp_stats["page_bytes"] * num:
+            raise AssertionError(f"{kv}: page bytes {on_stats['page_bytes']}"
+                                 f" are not {num}/{den} of bf16's")
+        stats[kv] = {"defaults": on_stats, "grouped_off": off_stats,
+                     "agreement_with_bf16": agree,
+                     "requests_equal_to_bf16": whole,
+                     "page_bytes_ratio": ratio}
+    return by_path, stats
+
+
+def preemption(dev, model, kv_dtype: str = "fp") -> dict:
+    """Full-width preemption over pools of `kv_dtype`: 16 priority-5
+    requests fill 16 slots and a pool of PREEMPT_PAGES pages; once all
+    decode, a priority-0 burst of PREEMPT_BURST arrives that only
+    preemption admits. Every request's tokens must equal those of a run
+    that never preempts (preempt=False, the default pool), and the pool
+    must be quiesced after drain()."""
     from paddle_tpu_torch.serving import (RequestState, SamplingParams,
                                           ServingEngine)
 
@@ -811,13 +1039,13 @@ def preemption(dev, model) -> dict:
         return [list(r.output_tokens) for r in reqs], reqs
 
     t0 = time.perf_counter()
-    eng = SwapTimedEngine(model, device=dev, seed=SEED,
+    eng = SwapTimedEngine(model, device=dev, seed=SEED, kv_dtype=kv_dtype,
                           num_pages=PREEMPT_PAGES, **ENGINE)
     tokens, reqs = drive(eng)
     wall = time.perf_counter() - t0
     m = eng.metrics
     ref = ServingEngine(model, device=dev, seed=SEED, preempt=False,
-                        **ENGINE)
+                        kv_dtype=kv_dtype, **ENGINE)
     want, _ = drive(ref)
     restored = sum(n for n, _ in eng.swap_in)
     swap_ms = [ms for _, ms in eng.swap_in]
@@ -831,7 +1059,7 @@ def preemption(dev, model) -> dict:
            "resumes": len(swap_ms), "resume_pages": restored,
            "swap_in_ms": swap_ms, "wall_s": wall,
            "reference_preemptions": ref.metrics.preemptions}
-    log(f"  preemption: {m.preemptions} preemptions of "
+    log(f"  [{kv_dtype}] preemption: {m.preemptions} preemptions of "
         f"{out['preempted_requests']} requests, {m.swapped_out_pages} pages "
         f"swapped out and {m.swapped_in_pages} in ({pc['spilled_pages']} "
         f"prefix pages spilled, {pc['restored_pages']} restored); "
@@ -1085,16 +1313,25 @@ def main() -> int:
                "K2": check_layer_norm_bwd(dev, tln, timer)}
     kernels.update(zip(("K3", "K4", "K5"),
                        check_flash_attention(dev, tfa, timer)))
-    kernels["K6"] = check_paged_attention(dev, tpa, timer)
-    kernels["K10a"], kernels["K10b"] = check_grouped_attention(
-        dev, tpa, timer)
+    for lane in ("fp", "fp8", "q8"):
+        kernels[WALKS["K6", lane][0]] = check_paged_attention(
+            dev, tpa, timer, lane)
+        (kernels[WALKS["K10a", lane][0]],
+         kernels[WALKS["K10b", lane][0]]) = check_grouped_attention(
+            dev, tpa, timer, lane)
+    kernels["K8"], kernels["K8-q8"] = check_paged_scatter(dev, tpa, timer)
     torch.cuda.empty_cache()
 
     log("phase 3 serve GPT-124M (bf16, random weights):")
-    by_path, serving_stats, model = serving(dev, tln, tpa)
+    by_path, serving_stats, model, fp_tokens = serving(dev, tln, tpa)
     log(f"  serving: {json.dumps(serving_stats)}")
-    preempted = preemption(dev, model)
-    log(f"  preemption: {json.dumps(preempted)}")
+    quant_paths, serving_stats["quantized"] = serving_quantized(
+        dev, tln, tpa, model, fp_tokens, serving_stats["defaults"][0])
+    by_path.update(quant_paths)
+    log(f"  serving, quantized KV: "
+        f"{json.dumps(serving_stats['quantized'])}")
+    for kv in ("fp", "int8"):
+        log(f"  preemption ({kv}): {json.dumps(preemption(dev, model, kv))}")
     del model
     torch.cuda.empty_cache()
 

@@ -7,14 +7,17 @@
   dk/dv (`paddle_tpu/ops/pallas/flash_attention.py::_fa_kernel`,
   `_fa_dq_kernel`, `_fa_dkv_kernel`), joined by `flash_attention_blhd`;
 - `paged_attention` — K6, ragged paged attention
-  (`paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel`), and K10,
-  its grouped two-phase walk (`_grouped_phase1_kernel`,
-  `_grouped_phase2_kernel`).
+  (`paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel`), with its
+  fp8 lane and its q8 lane K7, and K10, its grouped two-phase walk
+  (`_grouped_phase1_kernel`, `_grouped_phase2_kernel`) in the same three
+  lanes; K8 and K8-q8, the paged KV writes into e4m3 and int8 pools
+  (`_scatter_write_kernel`, `_scatter_q8_write_kernel`).
 
 A wrapper takes its plain version only for a CPU tensor; on a CUDA
 tensor it launches the kernel (built on first use by `_build`) or
 raises. Each wrapper module counts its launches (`LAUNCHES`, and
-`GROUPED_LAUNCHES` for K10's two phases).
+`GROUPED_LAUNCHES` for K10's two phases, `QUANT_LAUNCHES` for the
+quantized lanes and the writes).
 """
 from . import flash_attention, layer_norm, paged_attention
 

@@ -27,8 +27,8 @@ from typing import Dict, Iterable, List
 
 import torch
 
-__all__ = ["KERNELS", "BUILD_DIR", "CSRC", "build", "load", "check",
-           "dtype_code", "stream_ptr"]
+__all__ = ["KERNELS", "POOL_CODES", "BUILD_DIR", "CSRC", "build", "load",
+           "check", "dtype_code", "stream_ptr"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/paddle_tpu_torch (the package sits at <repo>/paddle_tpu_torch)
@@ -46,11 +46,16 @@ KERNELS = {
         "ptt_layer_norm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
     },
     "ragged_paged_attention": {
-        "ptt_ragged_paged_attention": [_P] * 7 + [_I] * 10 + [_P],
+        "ptt_ragged_paged_attention": [_P] * 9 + [_I] * 11 + [_P],
     },
     "grouped_paged_attention": {
-        "ptt_grouped_phase1": [_P] * 12 + [_I] * 10 + [_P],
-        "ptt_grouped_phase2": [_P] * 12 + [_I] * 10 + [_P],
+        "ptt_grouped_phase1": [_P] * 14 + [_I] * 11 + [_P],
+        "ptt_grouped_phase2": [_P] * 14 + [_I] * 11 + [_P],
+    },
+    "paged_scatter": {
+        "ptt_paged_scatter_e4m3": [_P] * 4 + [_I] * 9 + [_P],
+        "ptt_paged_scatter_q8": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 2
+                                + [_P],
     },
     "flash_attention": {
         "ptt_flash_fwd": _FLASH,
@@ -59,6 +64,9 @@ KERNELS = {
     },
 }
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the paged KV pools' element codes (csrc/common.cuh `Pool`): q's own
+# dtype, int8 codes with f32 scale pools, float8 e4m3
+POOL_CODES = {"q": 0, "int8": 1, "e4m3": 2}
 
 # name -> loaded library (a process loads each library once)
 _LIBS: Dict[str, ctypes.CDLL] = {}

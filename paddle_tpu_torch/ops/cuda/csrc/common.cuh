@@ -9,6 +9,7 @@
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -16,6 +17,9 @@ namespace ptt {
 
 // dtype codes shared with the Python wrappers (ops/cuda/_build.py)
 enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+// paged KV pool codes (_build.POOL_CODES): pools of q's own dtype, int8
+// codes with f32 rowwise scale pools, or float8 e4m3 values
+enum Pool : int { kPoolQ = 0, kPoolI8 = 1, kPoolE4M3 = 2 };
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
@@ -30,6 +34,15 @@ __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 v) {
 template <>
 __device__ __forceinline__ float to_f32<__half>(__half v) {
   return __half2float(v);
+}
+// the 1-byte pool elements; both conversions are exact
+template <>
+__device__ __forceinline__ float to_f32<int8_t>(int8_t v) {
+  return static_cast<float>(v);
+}
+template <>
+__device__ __forceinline__ float to_f32<__nv_fp8_e4m3>(__nv_fp8_e4m3 v) {
+  return static_cast<float>(v);
 }
 
 template <typename T>

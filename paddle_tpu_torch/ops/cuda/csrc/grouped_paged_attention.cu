@@ -3,8 +3,10 @@
 //
 // Replaces paddle_tpu/ops/pallas/paged_attention.py::_grouped_phase1_kernel
 // (K10a) and ::_grouped_phase2_kernel (K10b), both launched from
-// _grouped_attention_kernel (public ragged_paged_attention_grouped, fp
-// lane). It computes what K6 computes (ragged paged attention, see
+// _grouped_attention_kernel (public ragged_paged_attention_grouped and, in
+// the q8 lane — `has_scale`, scale specs ks1/ks2 — ragged_paged_attention_
+// grouped_q8; the fp8 lane is the `fp8` flag), in all three pool lanes
+// (paged_walk.cuh). It computes what K6 computes (ragged paged attention, see
 // ragged_paged_attention.cu), for a batch whose rows declare prefix
 // groups: rows of group g share the physical pages at table indices
 // [0, group_cnt[g]); group_leader[g] names a member whose table phase 1
@@ -63,8 +65,6 @@ __global__ void __launch_bounds__(kThreads) phase1_kernel(const Args a) {
   const int cnt = a.group_cnt[grp];
   if (cnt <= 0) return;
   const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ kpool = static_cast<const T*>(a.k);
-  const T* __restrict__ vpool = static_cast<const T*>(a.v);
   const int D = a.D, ps = a.ps, H = a.H, lq = a.lq, cap = a.cap;
   const int rep = H / a.Hkv;
   const int nrows = a.qblk * rep;
@@ -122,7 +122,7 @@ __global__ void __launch_bounds__(kThreads) phase1_kernel(const Args a) {
       int page = a.page_table[(size_t)leader * a.mp + sp];
       page = min(max(page, 0), a.num_pages - 1);
       __syncthreads();  // previous tile fully consumed (and init visible)
-      load_page<T>(kpool, vpool, page, g, a.Hkv, D, ps, sK, sV);
+      load_pool_page<T>(a, page, g, sK, sV);
       __syncthreads();
       for (int R = warp; R < rows; R += kWarps) {
         const int m = R / nrows;
@@ -177,23 +177,25 @@ struct Phase1 {
 
 }  // namespace
 
-// K10a. q: [B, lq, H, D]; k, v: [num_pages, ps, Hkv, D]; page_table
-// [B, mp]; pos, q_len, group_id, group_leader, group_cnt [B] int32;
-// m, l: f32 [Hkv, nqb, B * qblk * rep]; acc: f32 [.., D], with
-// qblk = min(lq, 8), nqb = ceil(lq / qblk), rep = H / Hkv. Writes the
-// partials of member rows of sharing groups only.
+// K10a. q: [B, lq, H, D]; k, v: [num_pages, ps, Hkv, D] of the pool code
+// `pool`; k_scale, v_scale: f32 [num_pages, ps, Hkv] for the int8 pool,
+// else null; page_table [B, mp]; pos, q_len, group_id, group_leader,
+// group_cnt [B] int32; m, l: f32 [Hkv, nqb, B * qblk * rep]; acc: f32
+// [.., D], with qblk = min(lq, 8), nqb = ceil(lq / qblk), rep = H / Hkv.
+// Writes the partials of member rows of sharing groups only.
 extern "C" int ptt_grouped_phase1(
-    const void* q, const void* k, const void* v, const void* page_table,
-    const void* pos, const void* q_len, const void* group_id,
-    const void* group_leader, const void* group_cnt, void* m, void* l,
-    void* acc, int B, int lq, int H, int Hkv, int D, int ps, int mp,
-    int num_pages, int dtype, int device, void* stream) {
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* page_table, const void* pos,
+    const void* q_len, const void* group_id, const void* group_leader,
+    const void* group_cnt, void* m, void* l, void* acc, int B, int lq, int H,
+    int Hkv, int D, int ps, int mp, int num_pages, int dtype, int pool,
+    int device, void* stream) {
   using namespace ptt::walk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || lq == 0) return 0;
-  Args a = make_args(q, k, v, page_table, pos, q_len, B, lq, H, Hkv, D, ps,
-                     mp, num_pages);
+  Args a = make_args(q, k, v, k_scale, v_scale, page_table, pos, q_len, B,
+                     lq, H, Hkv, D, ps, mp, num_pages, pool);
   a.group_id = static_cast<const int*>(group_id);
   a.group_leader = static_cast<const int*>(group_leader);
   a.group_cnt = static_cast<const int*>(group_cnt);
@@ -211,17 +213,18 @@ extern "C" int ptt_grouped_phase1(
 // K10b. The operands of K10a plus out [B, lq, H, D]; reads the partials
 // K10a wrote.
 extern "C" int ptt_grouped_phase2(
-    const void* q, const void* k, const void* v, const void* page_table,
-    const void* pos, const void* q_len, const void* group_id,
-    const void* group_cnt, const void* m, const void* l, const void* acc,
-    void* out, int B, int lq, int H, int Hkv, int D, int ps, int mp,
-    int num_pages, int dtype, int device, void* stream) {
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* page_table, const void* pos,
+    const void* q_len, const void* group_id, const void* group_cnt,
+    const void* m, const void* l, const void* acc, void* out, int B, int lq,
+    int H, int Hkv, int D, int ps, int mp, int num_pages, int dtype,
+    int pool, int device, void* stream) {
   using namespace ptt::walk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || lq == 0) return 0;
-  Args a = make_args(q, k, v, page_table, pos, q_len, B, lq, H, Hkv, D, ps,
-                     mp, num_pages);
+  Args a = make_args(q, k, v, k_scale, v_scale, page_table, pos, q_len, B,
+                     lq, H, Hkv, D, ps, mp, num_pages, pool);
   a.group_id = static_cast<const int*>(group_id);
   a.group_cnt = static_cast<const int*>(group_cnt);
   a.pm = static_cast<float*>(const_cast<void*>(m));

@@ -1,5 +1,5 @@
-// The paged K/V walk shared by K6 (ragged_paged_attention.cu) and K10
-// (grouped_paged_attention.cu).
+// The paged K/V walk shared by K6 and K7 (ragged_paged_attention.cu) and
+// K10 (grouped_paged_attention.cu), in all three pool lanes.
 //
 // One online-softmax arithmetic serves all three kernels: `attend_row`
 // folds one staged page into one query row's (m, l, acc), and every
@@ -9,8 +9,15 @@
 // the phases as exact f32 values in device memory, so K10's output
 // equals K6's bit for bit on the same operands.
 //
+// The pools hold q's dtype (the fp lane), int8 codes with f32 rowwise
+// scale pools (the q8 lane: K7 and K10's q8 lane) or float8 e4m3 values
+// (the fp8 lane). Only the page loader differs: it writes the same f32
+// shared tiles from each, so every lane walks with the one `attend_row`,
+// and K10's q8 and fp8 lanes equal K7 and K6's fp8 lane bit for bit.
+//
 // Layout shared with the Python wrappers: q, out [B, lq, H, D]; pools
-// [num_pages, ps, Hkv, D]; page_table [B, mp]; pos, q_len, group_id,
+// [num_pages, ps, Hkv, D]; scale pools [num_pages, ps, Hkv]; page_table
+// [B, mp]; pos, q_len, group_id,
 // group_leader, group_cnt [B] int32. A block owns (query block t of
 // qblk <= 8 queries, kv head g): its rows r = 0 .. qblk*rep-1 are query
 // t*qblk + r/rep, head g*rep + r%rep. The phase-1 partials are f32
@@ -37,6 +44,8 @@ struct Args {
   const void* q;
   const void* k;
   const void* v;
+  const float* k_scale;     // the q8 lane only
+  const float* v_scale;
   const int* page_table;
   const int* pos;
   const int* q_len;
@@ -48,17 +57,22 @@ struct Args {
   float* pacc;
   void* out;
   int B, lq, H, Hkv, D, ps, mp, num_pages, qblk, nqb, cap;
+  int pool;                 // Pool code
   float scale;
 };
 
 inline Args make_args(const void* q, const void* k, const void* v,
+                      const void* k_scale, const void* v_scale,
                       const void* page_table, const void* pos,
                       const void* q_len, int B, int lq, int H, int Hkv,
-                      int D, int ps, int mp, int num_pages) {
+                      int D, int ps, int mp, int num_pages, int pool) {
   Args a{};
   a.q = q;
   a.k = k;
   a.v = v;
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.pool = pool;
   a.page_table = static_cast<const int*>(page_table);
   a.pos = static_cast<const int*>(pos);
   a.q_len = static_cast<const int*>(q_len);
@@ -76,6 +90,21 @@ inline Args make_args(const void* q, const void* k, const void* v,
   return a;
 }
 
+// A pool code the loaders know, with scale pools exactly in the q8 lane.
+inline bool pools_valid(const Args& a) {
+  const bool scaled = a.k_scale != nullptr && a.v_scale != nullptr;
+  const bool unscaled = a.k_scale == nullptr && a.v_scale == nullptr;
+  switch (a.pool) {
+    case kPoolQ:
+    case kPoolE4M3:
+      return unscaled;
+    case kPoolI8:
+      return scaled;
+    default:
+      return false;
+  }
+}
+
 inline size_t tile_floats(int D, int ps) {
   return (size_t)ps * (D + 1) + (size_t)ps * D;
 }
@@ -90,27 +119,68 @@ __device__ __forceinline__ int block_pages(int pos_b, int qlen_b, int q0,
 
 // Stage page `page` of kv head g into shared memory as f32: K [ps][D + 1]
 // (padded by one float, so a warp's per-key dot products hit distinct
-// banks) and V [ps][D], from 16-byte vector loads.
-template <typename T>
-__device__ __forceinline__ void load_page(const T* __restrict__ kpool,
-                                          const T* __restrict__ vpool,
+// banks) and V [ps][D], from 16-byte vector loads of pool elements P
+// (D a multiple of 16 / sizeof(P)). kScaled (the q8 lane): each element
+// is code x the f32 scale of its (position, kv head), one multiply, as in
+// the plain version's dequantization; the other conversions are exact.
+template <typename P, bool kScaled>
+__device__ __forceinline__ void load_page(const void* kpool_,
+                                          const void* vpool_,
+                                          const float* __restrict__ kscale,
+                                          const float* __restrict__ vscale,
                                           int page, int g, int Hkv, int D,
                                           int ps, float* sK, float* sV) {
-  constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
+  const P* __restrict__ kpool = static_cast<const P*>(kpool_);
+  const P* __restrict__ vpool = static_cast<const P*>(vpool_);
+  constexpr int E = 16 / sizeof(P);  // elements per 16-byte vector
   const int nvec = D / E;
   const int kstride = D + 1;
   for (int idx = threadIdx.x; idx < ps * nvec; idx += kThreads) {
     const int j = idx / nvec, c = idx - j * nvec;
-    const size_t src = (((size_t)page * ps + j) * Hkv + g) * D + c * E;
+    const size_t row = ((size_t)page * ps + j) * Hkv + g;
+    const size_t src = row * D + c * E;
     const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kpool + src));
     const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vpool + src));
-    const T* ke = reinterpret_cast<const T*>(&kr);
-    const T* ve = reinterpret_cast<const T*>(&vr);
+    const P* ke = reinterpret_cast<const P*>(&kr);
+    const P* ve = reinterpret_cast<const P*>(&vr);
+    float ks = 1.f, vs = 1.f;
+    if (kScaled) {
+      ks = __ldg(kscale + row);
+      vs = __ldg(vscale + row);
+    }
 #pragma unroll
     for (int e = 0; e < E; ++e) {
-      sK[j * kstride + c * E + e] = to_f32<T>(ke[e]);
-      sV[j * D + c * E + e] = to_f32<T>(ve[e]);
+      float kf = to_f32<P>(ke[e]);
+      float vf = to_f32<P>(ve[e]);
+      if (kScaled) {
+        kf *= ks;
+        vf *= vs;
+      }
+      sK[j * kstride + c * E + e] = kf;
+      sV[j * D + c * E + e] = vf;
     }
+  }
+}
+
+// The loader of the launch's pool type: q's own T, int8 with scales, or
+// e4m3. The pool code is the same for every block of a launch, so the
+// switch costs one uniform branch a page; making it a template parameter
+// instead would triple the kernels' instantiations and their build time.
+template <typename T>
+__device__ __forceinline__ void load_pool_page(const Args& a, int page,
+                                               int g, float* sK, float* sV) {
+  switch (a.pool) {
+    case kPoolI8:
+      load_page<int8_t, true>(a.k, a.v, a.k_scale, a.v_scale, page, g,
+                              a.Hkv, a.D, a.ps, sK, sV);
+      break;
+    case kPoolE4M3:
+      load_page<__nv_fp8_e4m3, false>(a.k, a.v, nullptr, nullptr, page, g,
+                                      a.Hkv, a.D, a.ps, sK, sV);
+      break;
+    default:
+      load_page<T, false>(a.k, a.v, nullptr, nullptr, page, g, a.Hkv, a.D,
+                          a.ps, sK, sV);
   }
 }
 
@@ -197,8 +267,6 @@ template <typename T, int DV, int PJ, bool kGrouped>
 __global__ void __launch_bounds__(kThreads) row_walk_kernel(const Args a) {
   extern __shared__ float smem[];
   const T* __restrict__ q = static_cast<const T*>(a.q);
-  const T* __restrict__ kpool = static_cast<const T*>(a.k);
-  const T* __restrict__ vpool = static_cast<const T*>(a.v);
   T* __restrict__ out = static_cast<T*>(a.out);
   const int t = blockIdx.x;
   const int g = blockIdx.y;
@@ -263,7 +331,7 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const Args a) {
     int page = a.page_table[(size_t)b * a.mp + p];
     page = min(max(page, 0), a.num_pages - 1);
     __syncthreads();  // previous tile fully consumed (and init visible)
-    load_page<T>(kpool, vpool, page, g, a.Hkv, D, ps, sK, sV);
+    load_pool_page<T>(a, page, g, sK, sV);
     __syncthreads();
     for (int r = warp; r < nrows; r += kWarps) {
       const int qi = q0 + r / rep;
@@ -307,8 +375,8 @@ struct RowWalk {
   }
 };
 
-// Instantiate launcher L for the dtype code and the (DV, PJ) that D and ps
-// need.
+// Instantiate launcher L for q's dtype code and the (DV, PJ) that D and
+// ps need; the pool code rides in Args (`load_pool_page`).
 template <class L, typename T, int DV>
 int dispatch_pj(const Args& a, cudaStream_t s) {
   if (a.ps <= 32) return L::template run<T, DV, 1>(a, s);
@@ -328,6 +396,7 @@ int dispatch_dv(const Args& a, cudaStream_t s) {
 
 template <class L>
 int dispatch(int dtype, const Args& a, cudaStream_t s) {
+  if (!pools_valid(a)) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case kF32:
       return dispatch_dv<L, float>(a, s);

@@ -1,8 +1,11 @@
-// K6: ragged paged attention for Hopper (sm_90a).
+// K6 and K7: ragged paged attention for Hopper (sm_90a).
 //
-// Replaces paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel
-// (fp lane; launched from _ragged_attention_kernel, public
-// ragged_paged_attention). One call serves a mixed batch of decode rows
+// Replaces paddle_tpu/ops/pallas/paged_attention.py::_ragged_kernel,
+// launched from _ragged_attention_kernel, in its three pool lanes: the fp
+// lane (K6, public ragged_paged_attention), the fp8 lane (`fp8=True`: e4m3
+// pools upconverted, the same public op) and the q8 lane (K7,
+// `has_scale`: int8 code pools times f32 rowwise scale pools, public
+// ragged_paged_attention_q8). One call serves a mixed batch of decode rows
 // (q_len 1) and mid-prefill rows (q_len up to the step width) against a
 // shared paged KV pool:
 //
@@ -17,7 +20,10 @@
 // What bounds it: at serving shapes, bytes. Every live K/V page is
 // streamed from device memory and meets only the few queries of one row,
 // so the work per byte is a few flops per element for a decode row and
-// at most 2 * qblk * rep flops per element for a prefill block.
+// at most 2 * qblk * rep flops per element for a prefill block. The 1-byte
+// lanes halve those bytes (plus 4 bytes of scale per key and head for
+// int8); the walk itself, which the measurements show is what the time
+// goes to, is the same in every lane.
 //
 // Design. The TPU kernel carried (m, l, acc) from one grid step to the
 // next along a sequential page axis; blocks here run in no order, so
@@ -33,23 +39,28 @@
 // column d (and d + 32, ...) with the probabilities broadcast by shuffles.
 // m, l and acc live in shared memory in f32 for the whole walk. Dead
 // query blocks write zeros and read nothing. Page ids are clamped into
-// the pool, so a bad table reads the wrong page instead of faulting.
+// the pool, so a bad table reads the wrong page instead of faulting. The
+// quantized lanes differ only in the page loader (`load_pool_page`), which
+// dequantizes into the same f32 tiles: the TPU kernel's in-VMEM dequant.
 #include "paged_walk.cuh"
 
-// q, out: [B, lq, H, D]; k, v: [num_pages, ps, Hkv, D]; page_table
-// [B, mp]; pos, q_len [B]. All contiguous; q, k, v, out of one dtype;
-// D a multiple of the 16-byte vector width; H a multiple of Hkv.
+// q, out: [B, lq, H, D]; k, v: [num_pages, ps, Hkv, D], of q's dtype
+// (pool code 0), int8 (1) or e4m3 (2); k_scale, v_scale: f32
+// [num_pages, ps, Hkv] for int8, else null; page_table [B, mp]; pos,
+// q_len [B]. All contiguous; D a multiple of the pool's 16-byte vector
+// width; H a multiple of Hkv.
 extern "C" int ptt_ragged_paged_attention(
-    const void* q, const void* k, const void* v, const void* page_table,
-    const void* pos, const void* q_len, void* out, int B, int lq, int H,
-    int Hkv, int D, int ps, int mp, int num_pages, int dtype, int device,
+    const void* q, const void* k, const void* v, const void* k_scale,
+    const void* v_scale, const void* page_table, const void* pos,
+    const void* q_len, void* out, int B, int lq, int H, int Hkv, int D,
+    int ps, int mp, int num_pages, int dtype, int pool, int device,
     void* stream) {
   using namespace ptt::walk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || lq == 0) return 0;
-  Args a = make_args(q, k, v, page_table, pos, q_len, B, lq, H, Hkv, D, ps,
-                     mp, num_pages);
+  Args a = make_args(q, k, v, k_scale, v_scale, page_table, pos, q_len, B,
+                     lq, H, Hkv, D, ps, mp, num_pages, pool);
   a.out = out;
   return dispatch<RowWalk<false>>(dtype, a, static_cast<cudaStream_t>(stream));
 }

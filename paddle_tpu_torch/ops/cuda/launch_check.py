@@ -5,16 +5,19 @@ program to run under `compute-sanitizer`.
     compute-sanitizer --tool memcheck python -m paddle_tpu_torch.ops.cuda.launch_check --quick
     (and --tool racecheck, --tool initcheck)
 
-It builds the kernel libraries, then launches K1 on [512, 768] and K6
-and K10 (both phases) on `grouped_batch`'s operands at the serving
-geometry of `chip_smoke.py` phase 3 (16 rows of up to 32 queries, 12
-heads of 64, pools of 993 pages of 16, seven rows sharing 16 pages),
-in bf16 and f32, and at rep 4, D 128 in bf16 (`--quick`: the bf16
-rep-1 batch only); synchronises; and checks
-that K10's output equals K6's bit for bit, that K1 matches its plain
+It builds the kernel libraries, then launches K1 on [512, 768]; K6
+and K10 (both phases) in each pool lane — fp, fp8 (e4m3 pools) and q8
+(K7 and K10's q8 lane, int8 pools with scales) — on `grouped_batch`'s
+operands at the serving geometry of `chip_smoke.py` phase 3 (16 rows of
+up to 32 queries, 12 heads of 64, pools of 993 pages of 16, seven rows
+sharing 16 pages), in bf16 and f32, and at rep 4, D 128 in bf16
+(`--quick`: the bf16 rep-1 batch only); and K8 and K8-q8 writing 512
+K/V rows into those pools; synchronises; and checks that K10's output
+equals K6's bit for bit in every lane, that K8 and K8-q8 equal their
+plain versions outside the trash page, that K1 matches its plain
 version, and that every output is finite. Exits 0 when all hold.
-`grouped_batch` also builds the grouped batches of `chip_smoke.py`
-phase 2 and of the card tests.
+`grouped_batch` and `lane_batch` also build the batches of
+`chip_smoke.py` phase 2 and of the card tests.
 """
 from __future__ import annotations
 
@@ -24,7 +27,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["grouped_batch", "main"]
+__all__ = ["grouped_batch", "lane_batch", "ragged", "ragged_reference",
+           "grouped", "main"]
 
 
 def grouped_batch(dev, dtype, h: int, hkv: int, d: int, seed: int = 0,
@@ -65,6 +69,61 @@ def grouped_batch(dev, dtype, h: int, hkv: int, d: int, seed: int = 0,
     return ops, tuple(torch.from_numpy(a).to(dev) for a in grp)
 
 
+def lane_batch(ops, lane: str):
+    """A batch `ops` = (q, k_pool, v_pool, page_table, pos, q_len) with
+    float pools, in pool lane `lane`: "fp" as is, "fp8" with the pools
+    clipped to +-448 and converted to e4m3, "q8" with the pools quantized
+    by `quantize_kv_rowwise`. Returns (ops, scales): scales holds the
+    `k_scale`/`v_scale` keyword arguments (empty outside q8)."""
+    from . import paged_attention as tpa
+
+    q, k, v, table, pos, q_len = ops
+    if lane == "fp":
+        return ops, {}
+    if lane == "fp8":
+        k, v = (t.float().clamp(-tpa.FP8_MAX, tpa.FP8_MAX).to(tpa.FP8_DTYPE)
+                for t in (k, v))
+        return (q, k, v, table, pos, q_len), {}
+    (k, ks), (v, vs) = (tpa.quantize_kv_rowwise(t) for t in (k, v))
+    return (q, k, v, table, pos, q_len), {"k_scale": ks, "v_scale": vs}
+
+
+def ragged(ops, scales):
+    """K6 in the batch's lane: K6, its fp8 lane or K7."""
+    from . import paged_attention as tpa
+
+    if not scales:
+        return tpa.ragged_paged_attention(*ops)
+    q, k, v, table, pos, q_len = ops
+    return tpa.ragged_paged_attention_q8(q, k, v, scales["k_scale"],
+                                         scales["v_scale"], table, pos,
+                                         q_len)
+
+
+def ragged_reference(ops, scales):
+    """The plain version of `ragged` in the batch's lane."""
+    from . import paged_attention as tpa
+
+    if not scales:
+        return tpa.ragged_attention_reference(*ops)
+    q, k, v, table, pos, q_len = ops
+    return tpa.ragged_attention_reference_q8(q, k, v, scales["k_scale"],
+                                             scales["v_scale"], table, pos,
+                                             q_len)
+
+
+def grouped(ops, grp, scales):
+    """K10 (both phases) in the batch's lane."""
+    from . import paged_attention as tpa
+
+    if not scales:
+        return tpa.ragged_paged_attention_grouped(*ops, *grp)
+    q, k, v, table, pos, q_len = ops
+    return tpa.ragged_paged_attention_grouped_q8(
+        q, k, v, scales["k_scale"], scales["v_scale"], table, pos, q_len,
+        *grp)
+
+
 def main(argv=None) -> int:
     quick = "--quick" in (sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
@@ -90,17 +149,43 @@ def main(argv=None) -> int:
     cases = ((torch.bfloat16, 12, 12, 64), (torch.float32, 12, 12, 64),
              (torch.bfloat16, 16, 4, 128))
     for dtype, h, hkv, d in cases[:1] if quick else cases:
-        ops, grp = grouped_batch(dev, dtype, h, hkv, d)
-        o6 = tpa.ragged_paged_attention(*ops)
-        o10 = tpa.ragged_paged_attention_grouped(*ops, *grp)
+        base, grp = grouped_batch(dev, dtype, h, hkv, d)
+        for lane in ("fp", "fp8", "q8"):
+            ops, scales = lane_batch(base, lane)
+            o6 = ragged(ops, scales)
+            o10 = grouped(ops, grp, scales)
+            torch.cuda.synchronize()
+            same = torch.equal(o6, o10)
+            finite = bool(torch.isfinite(o10.float()).all())
+            print(f"{lane} lane, K6 / K10 H={h} H_kv={hkv} D={d} {dtype}: "
+                  f"group sizes {np.bincount(grp[0].cpu().numpy()).max()}, "
+                  f"shared pages {int(grp[2].max())}; K10 == K6 bit for "
+                  f"bit: {same}; finite: {finite}")
+            ok &= same and finite
+        # the writes: the batch's K/V rows into its pools, at its
+        # positions (past a row's window into the trash page)
+        q, k, v, table, pos, q_len = base
+        upd = k[1:1 + q.shape[0] * q.shape[1] // k.shape[1]].reshape(
+            q.shape[0], q.shape[1], hkv, d)
+        fp8 = torch.zeros(k.shape, dtype=torch.uint8,
+                          device=dev).view(tpa.FP8_DTYPE)
+        codes = torch.zeros(k.shape, dtype=torch.int8, device=dev)
+        sc = torch.zeros(k.shape[:3], device=dev)
+        tpa.paged_scatter(fp8, upd, pos, table)
+        tpa.paged_scatter_q8(codes, sc, upd, pos, table)
         torch.cuda.synchronize()
-        same = torch.equal(o6, o10)
-        finite = bool(torch.isfinite(o10.float()).all())
-        print(f"K6 / K10 H={h} H_kv={hkv} D={d} {dtype}: group sizes "
-              f"{np.bincount(grp[0].cpu().numpy()).max()}, shared pages "
-              f"{int(grp[2].max())}; K10 == K6 bit for bit: {same}; "
-              f"finite: {finite}")
-        ok &= same and finite
+        want8 = tpa.paged_scatter_reference(
+            torch.zeros_like(fp8.view(torch.uint8)).view(tpa.FP8_DTYPE), upd,
+            pos, table)
+        wantc, wants = tpa.paged_scatter_q8_reference(
+            torch.zeros_like(codes), torch.zeros_like(sc), upd, pos, table)
+        same = (torch.equal(fp8.view(torch.uint8)[1:],
+                            want8.view(torch.uint8)[1:])
+                and torch.equal(codes[1:], wantc[1:])
+                and torch.equal(sc[1:], wants[1:]))
+        print(f"K8 / K8-q8 [{tuple(upd.shape)}] {dtype}: equal to the plain "
+              f"versions outside page 0: {same}")
+        ok &= same
     print("launch_check:", "ok" if ok else "FAILED")
     return 0 if ok else 1
 

@@ -1,25 +1,37 @@
-"""K6 and K10: ragged paged attention and its grouped two-phase walk —
-CUDA kernels, plain versions, wrappers — plus the paged KV write they
-read from and the host model of their page reads.
+"""K6, K7 and K10: ragged paged attention, its int8 lane and its grouped
+two-phase walk — CUDA kernels, plain versions, wrappers — plus the paged
+KV writes they read from (K8, K8-q8) and the host model of their page
+reads.
 
 Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`:
-`ragged_paged_attention` (public, :1069) and its TPU kernel
-`_ragged_kernel` (:375, fp lane, launched from
-`_ragged_attention_kernel`), whose kernel here is
-`csrc/ragged_paged_attention.cu`; `ragged_paged_attention_grouped`
-(:1147) and its two TPU kernels `_grouped_phase1_kernel` (:562) and
-`_grouped_phase2_kernel` (:663), launched from
-`_grouped_attention_kernel`, whose kernels here are
-`csrc/grouped_paged_attention.cu`; `count_page_block_reads` (:1621).
+`ragged_paged_attention` (public, :1069) and
+`ragged_paged_attention_q8` (:1101), whose TPU kernel `_ragged_kernel`
+(:375, launched from `_ragged_attention_kernel`) has three lanes — the
+fp lane (K6), the fp8 lane (`fp8=True`, e4m3 pools upconverted) and the
+q8 lane (K7, `has_scale`: int8 code pools times f32 rowwise scale
+pools) — all in `csrc/ragged_paged_attention.cu`;
+`ragged_paged_attention_grouped` (:1147) and
+`ragged_paged_attention_grouped_q8` (:1175), whose two TPU kernels
+`_grouped_phase1_kernel` (:562) and `_grouped_phase2_kernel` (:663),
+launched from `_grouped_attention_kernel`, are
+`csrc/grouped_paged_attention.cu` in the same three lanes;
+`quantize_kv_rowwise` (:1208), `paged_scatter` (:1251) and
+`paged_scatter_q8` (:1272), whose TPU kernels `_scatter_write_kernel`
+(:1294, K8) and `_scatter_q8_write_kernel` (:1343, K8-q8) are
+`csrc/paged_scatter.cu`; `dequantize_paged_q8` (:1040) and the
+references (:1018, :1057); `count_page_block_reads` (:1621).
 
-Semantics (shared by the kernel and `ragged_attention_reference`):
-q [B, lq, H, D]; pools [P, ps, H_kv, D]; page_table [B, mp] int32;
-pos, q_len [B] int32. Query i of row b sits at position pos[b] + i and
-attends keys j <= pos[b] + i, read through page_table[b, j // ps]; a
-query at i >= q_len[b] is dead and its output is only finite.
-rep = H / H_kv query heads share one K/V stream. Masked keys get
-probability exactly 0, so stale slots in a page are harmless as long as
-they are finite — the serving engine zero-initialises its pools.
+Semantics (shared by the kernels and the plain versions): q
+[B, lq, H, D]; pools [P, ps, H_kv, D] of q's dtype, of float8 e4m3
+(FP8_DTYPE: each value is the number), or of int8 codes with f32 scale
+pools [P, ps, H_kv] (a key's value is code x the scale of its
+(position, kv head)); page_table [B, mp]; pos, q_len [B] int32. Query i
+of row b sits at position pos[b] + i and attends keys j <= pos[b] + i,
+read through page_table[b, j // ps]; a query at i >= q_len[b] is dead
+and its output is only finite. rep = H / H_kv query heads share one K/V
+stream. Masked keys get probability exactly 0, so stale slots in a page
+are harmless as long as they are finite — the serving engine
+zero-initialises its pools and scale pools.
 
 The grouped op computes the same output. Rows whose page tables share a
 physical-page prefix declare it: `group_id` [B] (row -> group),
@@ -29,11 +41,16 @@ physical-page prefix declare it: `group_id` [B] (row -> group),
 table, into the online-softmax partials (m, l, acc) of every member row;
 phase 2 (K10b) continues each row from its partials over its private
 tail. Both walk a row's pages in K6's order with K6's arithmetic, so on
-the card K10's output equals K6's bit for bit.
+the card K10's output equals K6's bit for bit, lane for lane.
 
-The KV write is `paged_scatter`: XLA's scatter in the JAX package
-(`paged_scatter` :1251, address map `_paged_flat_slots` :1232), here an
-in-place `index_copy_` on the flattened pool.
+The KV write goes to the slots `_paged_flat_slots` gives (past a row's
+window: the trash page 0). Into a pool of q's dtype it is an in-place
+`index_copy_` on the flattened pool (XLA's scatter in the JAX package);
+into an e4m3 pool it is K8 (clip to +-448, round to nearest even), into
+an int8 pool K8-q8 (rowwise quantize, then codes and scales to the same
+slots). Moves of e4m3 bytes go through `view(torch.uint8)`: PyTorch's
+float8 coverage of indexing and copies is patchy, and the bytes are the
+value.
 """
 from __future__ import annotations
 
@@ -45,23 +62,66 @@ import torch
 
 from . import _build
 
-__all__ = ["ragged_paged_attention", "ragged_attention_reference",
-           "ragged_paged_attention_grouped", "grouped_attention_reference",
-           "grouped_phase1", "grouped_phase2",
-           "count_page_block_reads", "paged_scatter", "_paged_flat_slots",
-           "LAUNCHES", "GROUPED_LAUNCHES", "reset_launches", "NEG_INF"]
+__all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
+           "ragged_attention_reference", "ragged_attention_reference_q8",
+           "dequantize_paged_q8", "ragged_paged_attention_grouped",
+           "ragged_paged_attention_grouped_q8",
+           "grouped_attention_reference", "grouped_phase1", "grouped_phase2",
+           "count_page_block_reads", "quantize_kv_rowwise", "paged_scatter",
+           "paged_scatter_reference", "paged_scatter_q8",
+           "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
+           "LAUNCHES", "GROUPED_LAUNCHES", "QUANT_LAUNCHES",
+           "reset_launches", "NEG_INF"]
+
+FP8_DTYPE = torch.float8_e4m3fn
+FP8_MAX = 448.0    # the largest finite e4m3 value: the write's clip
+# quantize_kv_rowwise's constants as f32 (the JAX package's
+# jnp.float32(1e-8) and jnp.float32(1.0 / 127.0)); K8-q8 is handed the
+# same bit patterns
+Q8_EPS = np.float32(1e-8)
+Q8_RECIP = np.float32(1.0 / 127.0)
 
 LAUNCHES = 0                                   # K6
 GROUPED_LAUNCHES = {"phase1": 0, "phase2": 0}  # K10a, K10b
+# the 1-byte pool lanes, by kernel: K6 and K10 over e4m3 pools (fp8), K7
+# and K10 over int8 code + f32 scale pools (q8), and their writes
+QUANT_LAUNCHES = {"K6-fp8": 0, "K7": 0, "K10a-fp8": 0, "K10b-fp8": 0,
+                  "K10a-q8": 0, "K10b-q8": 0, "K8": 0, "K8-q8": 0}
 NEG_INF = -1e30    # the masked score, as in the TPU kernel
 QBLK = 8           # queries per kernel block (the partials' row blocks)
+# (walk kernel, pool lane) -> its QUANT_LAUNCHES key
+_LANE_KERNEL = {("K6", "fp8"): "K6-fp8", ("K6", "q8"): "K7",
+                ("K10a", "fp8"): "K10a-fp8", ("K10b", "fp8"): "K10b-fp8",
+                ("K10a", "q8"): "K10a-q8", ("K10b", "q8"): "K10b-q8"}
+_POOL_CODE = {"fp": _build.POOL_CODES["q"], "fp8": _build.POOL_CODES["e4m3"],
+              "q8": _build.POOL_CODES["int8"]}
 
 
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
-    for phase in GROUPED_LAUNCHES:
-        GROUPED_LAUNCHES[phase] = 0
+    for counts in (GROUPED_LAUNCHES, QUANT_LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def _lane(pool: torch.Tensor) -> str:
+    """The pool lane of a K/V pool: "q8" (int8 codes), "fp8" (e4m3) or
+    "fp" (a float pool of q's dtype)."""
+    if pool.dtype == torch.int8:
+        return "q8"
+    return "fp8" if pool.dtype == FP8_DTYPE else "fp"
+
+
+def _count_walk(kernel: str, lane: str):
+    """One launch of walk kernel "K6", "K10a" or "K10b" in `lane`."""
+    global LAUNCHES
+    if lane != "fp":
+        QUANT_LAUNCHES[_LANE_KERNEL[kernel, lane]] += 1
+    elif kernel == "K6":
+        LAUNCHES += 1
+    else:
+        GROUPED_LAUNCHES["phase1" if kernel == "K10a" else "phase2"] += 1
 
 
 def _paged_flat_slots(ps: int, pos: torch.Tensor, page_table: torch.Tensor,
@@ -80,35 +140,186 @@ def _paged_flat_slots(ps: int, pos: torch.Tensor, page_table: torch.Tensor,
     return torch.where(p < mp * ps, flat, p % ps)
 
 
-def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
-                  page_table: torch.Tensor) -> torch.Tensor:
-    """Write upd [B, l, H, D] into pool [P, ps, H, D] IN PLACE at the
-    slots `_paged_flat_slots` gives, and return the pool. Several writes
-    may land on one trash slot; which of them stays there is
-    unspecified (trash keys are always masked)."""
+# -- the writes: K8, K8-q8 and their plain versions ---------------------------
+def quantize_kv_rowwise(u: torch.Tensor):
+    """Rowwise int8 quantization of K/V values [..., D] (the JAX
+    function): scale = max(max |u|, 1e-8) * f32(1/127) per leading row,
+    written as a multiply as there, and codes = clamp(round(u / scale),
+    -127, 127), `torch.round` rounding half to even as `jnp.round` does.
+    Returns (codes int8 of u's shape, scales f32 u.shape[:-1])."""
+    uf = u.float()
+    amax = uf.abs().amax(dim=-1)
+    # f32 tensor x Python float multiplies in f32, by the float's f32 value
+    scale = torch.clamp(amax, min=float(Q8_EPS)) * float(Q8_RECIP)
+    codes = torch.clamp(torch.round(uf / scale[..., None]), -127, 127)
+    return codes.to(torch.int8), scale
+
+
+def _as_bytes(t: torch.Tensor) -> torch.Tensor:
+    """An e4m3 tensor as its bytes (a view); any other tensor as is."""
+    return t.view(torch.uint8) if t.dtype == FP8_DTYPE else t
+
+
+def paged_scatter_reference(pool: torch.Tensor, upd: torch.Tensor,
+                            pos: torch.Tensor, page_table: torch.Tensor
+                            ) -> torch.Tensor:
+    """Plain version of the paged write (the JAX `paged_scatter`): upd
+    [B, l, H, D] goes IN PLACE into pool [P, ps, H, D] at the slots
+    `_paged_flat_slots` gives, one `index_copy_` on the flattened pool,
+    converted to the pool's dtype — into an e4m3 pool clipped to +-448
+    first and rounded to nearest even, written through the pool's bytes.
+    Returns the pool. Several writes may land on one trash slot; which
+    of them stays there is unspecified (trash keys are always masked)."""
     ps, l = pool.shape[1], upd.shape[1]
     flat = _paged_flat_slots(ps, pos, page_table, l).reshape(-1)
-    pool.view(-1, *pool.shape[2:]).index_copy_(
-        0, flat, upd.reshape(-1, *upd.shape[2:]).to(pool.dtype))
+    rows = upd.reshape(-1, *upd.shape[2:])
+    if pool.dtype == FP8_DTYPE:
+        rows = rows.float().clamp(-FP8_MAX, FP8_MAX).to(FP8_DTYPE)
+    else:
+        rows = rows.to(pool.dtype)
+    _as_bytes(pool).view(-1, *pool.shape[2:]).index_copy_(
+        0, flat, _as_bytes(rows))
     return pool
 
 
-def ragged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
-                               v_pool: torch.Tensor,
-                               page_table: torch.Tensor, pos: torch.Tensor,
-                               q_len: torch.Tensor) -> torch.Tensor:
-    """Plain PyTorch version: gather every row's pages into the dense
-    logical view and run a grouped softmax in f32 under the ragged
-    causal window (the JAX package's `ragged_attention_reference` →
-    `_ragged_mask_attend` → `gqa_attend_reference`)."""
+def paged_scatter_q8_reference(pool: torch.Tensor, scale_pool: torch.Tensor,
+                               upd: torch.Tensor, pos: torch.Tensor,
+                               page_table: torch.Tensor):
+    """Plain version of the quantized write (the JAX `paged_scatter_q8`):
+    upd [B, l, H, D] is quantized by `quantize_kv_rowwise`; its codes go
+    IN PLACE into the int8 pool [P, ps, H, D] and its scales into the
+    same slots of scale_pool [P, ps, H]. Returns (pool, scale_pool)."""
+    ps, l = pool.shape[1], upd.shape[1]
+    flat = _paged_flat_slots(ps, pos, page_table, l).reshape(-1)
+    codes, scales = quantize_kv_rowwise(upd)
+    pool.view(-1, *pool.shape[2:]).index_copy_(
+        0, flat, codes.reshape(-1, *codes.shape[2:]))
+    scale_pool.view(-1, scale_pool.shape[2]).index_copy_(
+        0, flat, scales.reshape(-1, scales.shape[2]))
+    return pool, scale_pool
+
+
+def _scatter_check(name, pool, upd, pos, page_table, scale_pool=None):
+    if upd.dim() != 4 or pool.dim() != 4 or pool.shape[2:] != upd.shape[2:]:
+        raise ValueError(f"{name}: upd [B, l, H_kv, D] must fit the pool "
+                         f"[P, ps, H_kv, D], got {tuple(upd.shape)} and "
+                         f"{tuple(pool.shape)}")
+    b = upd.shape[0]
+    if page_table.dim() != 2 or page_table.shape[0] != b or \
+            pos.shape != (b,):
+        raise ValueError(f"{name}: page_table [B, mp] and pos [B] must "
+                         f"match upd's batch")
+    for what, t in (("page_table", page_table), ("pos", pos)):
+        if t.dtype != torch.int32:
+            raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
+    if scale_pool is not None and (scale_pool.shape != pool.shape[:3]
+                                   or scale_pool.dtype != torch.float32):
+        raise TypeError(f"{name}: the scale pool must be f32 "
+                        f"{tuple(pool.shape[:3])}, got {scale_pool.dtype} "
+                        f"{tuple(scale_pool.shape)}")
+    ts = (pool, upd, pos, page_table) + (
+        () if scale_pool is None else (scale_pool,))
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: tensors on {devs}")
+    return tuple(t.contiguous() for t in (upd, pos, page_table))
+
+
+def _scatter_geometry(pool, upd, page_table):
+    b, l, hkv, d = upd.shape
+    return (b, l, hkv, d, pool.shape[1], page_table.shape[1], pool.shape[0])
+
+
+def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
+                  page_table: torch.Tensor) -> torch.Tensor:
+    """The paged KV write, IN PLACE, returning the pool (see
+    `paged_scatter_reference` for what it writes). An e4m3 pool on the
+    card is written by K8; any other pool, and every pool on the CPU,
+    by the plain version (for a float pool that is the JAX main path's
+    scatter: an `index_copy_`). The pool must be contiguous."""
+    if pool.dtype != FP8_DTYPE or pool.device.type == "cpu":
+        return paged_scatter_reference(pool, upd, pos, page_table)
+    if pool.device.type != "cuda":
+        raise ValueError(f"paged_scatter: no kernel for device {pool.device}")
+    upd, pos, page_table = _scatter_check("paged_scatter", pool, upd, pos,
+                                          page_table)
+    if not pool.is_contiguous():
+        raise ValueError("paged_scatter: the pool must be contiguous")
+    lib = _build.load("paged_scatter")
+    err = lib.ptt_paged_scatter_e4m3(
+        upd.data_ptr(), pool.data_ptr(), page_table.data_ptr(),
+        pos.data_ptr(), *_scatter_geometry(pool, upd, page_table),
+        _build.dtype_code(upd.dtype), pool.device.index,
+        _build.stream_ptr(pool.device))
+    _build.check(lib, err, "paged scatter (e4m3) kernel launch")
+    QUANT_LAUNCHES["K8"] += 1
+    return pool
+
+
+def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
+                     upd: torch.Tensor, pos: torch.Tensor,
+                     page_table: torch.Tensor):
+    """The quantized paged KV write, IN PLACE, returning (pool,
+    scale_pool) (see `paged_scatter_q8_reference`): K8-q8 on the card,
+    the plain version on the CPU. Both pools must be contiguous."""
+    if pool.device.type == "cpu":
+        return paged_scatter_q8_reference(pool, scale_pool, upd, pos,
+                                          page_table)
+    if pool.device.type != "cuda":
+        raise ValueError(
+            f"paged_scatter_q8: no kernel for device {pool.device}")
+    if pool.dtype != torch.int8:
+        raise TypeError(f"paged_scatter_q8: the pool must be int8, got "
+                        f"{pool.dtype}")
+    upd, pos, page_table = _scatter_check("paged_scatter_q8", pool, upd, pos,
+                                          page_table, scale_pool)
+    if not (pool.is_contiguous() and scale_pool.is_contiguous()):
+        raise ValueError("paged_scatter_q8: the pools must be contiguous")
+    lib = _build.load("paged_scatter")
+    err = lib.ptt_paged_scatter_q8(
+        upd.data_ptr(), pool.data_ptr(), scale_pool.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(),
+        *_scatter_geometry(pool, upd, page_table), float(Q8_EPS),
+        float(Q8_RECIP), _build.dtype_code(upd.dtype), pool.device.index,
+        _build.stream_ptr(pool.device))
+    _build.check(lib, err, "paged scatter (int8) kernel launch")
+    QUANT_LAUNCHES["K8-q8"] += 1
+    return pool, scale_pool
+
+
+# -- K6 and K7: the per-row walk ----------------------------------------------
+def _pages_f32(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
+               idx: torch.Tensor) -> torch.Tensor:
+    """Pages `idx` (int64, any shape) of a pool as f32
+    [*idx.shape, ps, H_kv, D]: an e4m3 pool upconverted (gathered
+    through its bytes), an int8 pool times its scales (the JAX
+    `dequantize_paged_q8` expression), a float pool as is."""
+    if pool.dtype == FP8_DTYPE:
+        return pool.view(torch.uint8)[idx].view(FP8_DTYPE).float()
+    if scale_pool is not None:
+        return pool[idx].float() * scale_pool[idx][..., None]
+    return pool[idx].float()
+
+
+def dequantize_paged_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
+                        page_table: torch.Tensor) -> torch.Tensor:
+    """int8 code pool [P, ps, H_kv, D] and scale pool [P, ps, H_kv] ->
+    each row's dequantized f32 logical view [B, mp * ps, H_kv, D] (the
+    JAX function)."""
+    b, mp = page_table.shape
+    _, ps, hkv, d = pool.shape
+    return _pages_f32(pool, scale_pool, page_table.to(torch.int64)).reshape(
+        b, mp * ps, hkv, d)
+
+
+def _ragged_attend(q, kf, vf, pos, q_len):
+    """The references' shared tail (the JAX `_ragged_mask_attend` →
+    `gqa_attend_reference`): a grouped softmax in f32 over the dense f32
+    logical views kf, vf [B, lmax, H_kv, D] under the ragged causal
+    window."""
     b, lq, h, d = q.shape
-    _, ps, hkv, _ = k_pool.shape
-    mp = page_table.shape[1]
-    lmax = mp * ps
+    lmax, hkv = kf.shape[1], kf.shape[2]
     rep = h // hkv
-    tab = page_table.to(torch.int64)
-    kf = k_pool[tab].reshape(b, lmax, hkv, d).float()
-    vf = v_pool[tab].reshape(b, lmax, hkv, d).float()
     i = torch.arange(lq, device=q.device)[None, :, None]
     j = torch.arange(lmax, device=q.device)[None, None, :]
     live = (i < q_len.to(torch.int64)[:, None, None]) & \
@@ -121,7 +332,41 @@ def ragged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     return out.reshape(b, lq, h, d).to(q.dtype)
 
 
-def _check(q, k_pool, v_pool, page_table, pos, q_len):
+def ragged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                               v_pool: torch.Tensor,
+                               page_table: torch.Tensor, pos: torch.Tensor,
+                               q_len: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K6 and its fp8 lane: gather every row's
+    pages into the dense logical view (e4m3 pools upconverted) and run a
+    grouped softmax in f32 under the ragged causal window (the JAX
+    package's `ragged_attention_reference`)."""
+    b, _, _, d = q.shape
+    _, ps, hkv, _ = k_pool.shape
+    lmax = page_table.shape[1] * ps
+    tab = page_table.to(torch.int64)
+    kf = _pages_f32(k_pool, None, tab).reshape(b, lmax, hkv, d)
+    vf = _pages_f32(v_pool, None, tab).reshape(b, lmax, hkv, d)
+    return _ragged_attend(q, kf, vf, pos, q_len)
+
+
+def ragged_attention_reference_q8(q: torch.Tensor, k_pool: torch.Tensor,
+                                  v_pool: torch.Tensor,
+                                  k_scale: torch.Tensor,
+                                  v_scale: torch.Tensor,
+                                  page_table: torch.Tensor,
+                                  pos: torch.Tensor,
+                                  q_len: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K7 (the JAX
+    `ragged_attention_reference_q8`): dequantize the rows' code and
+    scale pages (`dequantize_paged_q8`) and attend as the fp reference
+    does."""
+    kf = dequantize_paged_q8(k_pool, k_scale, page_table)
+    vf = dequantize_paged_q8(v_pool, v_scale, page_table)
+    return _ragged_attend(q, kf, vf, pos, q_len)
+
+
+def _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale=None,
+           v_scale=None):
     b, lq, h, d = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError("ragged_paged_attention: k/v pools must both be "
@@ -134,23 +379,100 @@ def _check(q, k_pool, v_pool, page_table, pos, q_len):
     if page_table.shape[0] != b or pos.shape != (b,) or q_len.shape != (b,):
         raise ValueError("ragged_paged_attention: page_table [B, mp], pos "
                          "and q_len [B] must match q's batch")
-    if not (q.dtype == k_pool.dtype == v_pool.dtype):
-        raise TypeError("ragged_paged_attention kernel: q and the pools "
-                        f"must share a dtype, got {q.dtype}, "
+    lane = _lane(k_pool)
+    if v_pool.dtype != k_pool.dtype or (lane == "fp"
+                                        and q.dtype != k_pool.dtype):
+        raise TypeError("ragged_paged_attention kernel: the pools must "
+                        "share q's dtype, or both be int8 (with scale "
+                        f"pools) or float8_e4m3fn; got q {q.dtype}, pools "
                         f"{k_pool.dtype}, {v_pool.dtype}")
+    _build.dtype_code(q.dtype)     # q: f32, bf16 or f16 in every lane
+    scales = [t for t in (k_scale, v_scale) if t is not None]
+    if lane == "q8":
+        if len(scales) != 2 or any(t.shape != k_pool.shape[:3]
+                                   or t.dtype != torch.float32
+                                   for t in scales):
+            raise TypeError("ragged_paged_attention kernel: int8 pools "
+                            "need f32 scale pools [P, ps, H_kv]")
+    elif scales:
+        raise TypeError("ragged_paged_attention kernel: scale pools ride "
+                        "int8 pools only")
     for name, t in (("page_table", page_table), ("pos", pos),
                     ("q_len", q_len)):
         if t.dtype != torch.int32:
             raise TypeError(f"ragged_paged_attention: {name} must be "
                             f"int32, got {t.dtype}")
-    devs = {t.device for t in (q, k_pool, v_pool, page_table, pos, q_len)}
+    devs = {t.device for t in (q, k_pool, v_pool, page_table, pos, q_len,
+                               *scales)}
     if len(devs) != 1:
         raise ValueError(f"ragged_paged_attention: tensors on {devs}")
-    vec = 16 // q.element_size()
+    vec = 16 // k_pool.element_size()
     if d % vec or d > 256 or ps > 128:
         raise ValueError(f"ragged_paged_attention kernel: head dim {d} "
                          f"must be a multiple of {vec} and <= 256, page "
                          f"size {ps} <= 128")
+
+
+def _contiguous(*ts):
+    return tuple(None if t is None else t.contiguous() for t in ts)
+
+
+def _check_aligned(k_pool, v_pool):
+    """The kernels read pool rows with 16-byte vector loads."""
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("ragged_paged_attention kernel: the pools must "
+                         "start on a 16-byte boundary")
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _geometry(q, k_pool, page_table):
+    b, lq, h, d = q.shape
+    n_pages, ps, hkv, _ = k_pool.shape
+    return (b, lq, h, hkv, d, ps, page_table.shape[1], n_pages,
+            _build.dtype_code(q.dtype), _POOL_CODE[_lane(k_pool)],
+            q.device.index, _build.stream_ptr(q.device))
+
+
+def _no_user_mask(mask, name):
+    if mask is not None:
+        raise NotImplementedError(
+            f"{name}: the user attention mask is not ported "
+            "(ROADMAP.md, queue 2, K6)")
+
+
+def _not_int8(k_pool, name):
+    if k_pool.dtype == torch.int8:
+        raise TypeError(f"{name}: int8 pools need their scale pools: use "
+                        f"{name}_q8")
+
+
+def _ragged(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len):
+    if q.device.type == "cpu":
+        if k_scale is None:
+            return ragged_attention_reference(q, k_pool, v_pool, page_table,
+                                              pos, q_len)
+        return ragged_attention_reference_q8(q, k_pool, v_pool, k_scale,
+                                             v_scale, page_table, pos, q_len)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"ragged_paged_attention: no kernel for device {q.device}")
+    _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale, v_scale)
+    q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len = \
+        _contiguous(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
+                    q_len)
+    _check_aligned(k_pool, v_pool)
+    out = torch.empty_like(q)
+    lib = _build.load("ragged_paged_attention")
+    err = lib.ptt_ragged_paged_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale), page_table.data_ptr(), pos.data_ptr(),
+        q_len.data_ptr(), out.data_ptr(), *_geometry(q, k_pool, page_table))
+    _build.check(lib, err, "ragged_paged_attention kernel launch")
+    _count_walk("K6", _lane(k_pool))
+    return out
 
 
 def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
@@ -158,38 +480,31 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            pos: torch.Tensor, q_len: torch.Tensor,
                            mask: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Ragged paged attention (see the module doc). The optional
-    additive user mask of the JAX op is not ported: the serving engine
-    never passes one, and a mask raises here."""
-    if mask is not None:
-        raise NotImplementedError(
-            "ragged_paged_attention: the user attention mask is not ported "
-            "(ROADMAP.md, queue 2, K6)")
-    if q.device.type == "cpu":
-        return ragged_attention_reference(q, k_pool, v_pool, page_table,
-                                          pos, q_len)
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"ragged_paged_attention: no kernel for device {q.device}")
-    global LAUNCHES
-    _check(q, k_pool, v_pool, page_table, pos, q_len)
-    q = q.contiguous()
-    k_pool, v_pool = k_pool.contiguous(), v_pool.contiguous()
-    page_table = page_table.contiguous()
-    pos, q_len = pos.contiguous(), q_len.contiguous()
-    b, lq, h, d = q.shape
-    n_pages, ps, hkv, _ = k_pool.shape
-    out = torch.empty_like(q)
-    lib = _build.load("ragged_paged_attention")
-    err = lib.ptt_ragged_paged_attention(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-        page_table.data_ptr(), pos.data_ptr(), q_len.data_ptr(),
-        out.data_ptr(), b, lq, h, hkv, d, ps, page_table.shape[1], n_pages,
-        _build.dtype_code(q.dtype), q.device.index,
-        _build.stream_ptr(q.device))
-    _build.check(lib, err, "ragged_paged_attention kernel launch")
-    LAUNCHES += 1
-    return out
+    """Ragged paged attention (see the module doc) over pools of q's
+    dtype (K6) or e4m3 pools (K6's fp8 lane). The optional additive user
+    mask of the JAX op is not ported: the serving engine never passes
+    one, and a mask raises here."""
+    _no_user_mask(mask, "ragged_paged_attention")
+    _not_int8(k_pool, "ragged_paged_attention")
+    return _ragged(q, k_pool, v_pool, None, None, page_table, pos, q_len)
+
+
+def ragged_paged_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, k_scale: torch.Tensor,
+                              v_scale: torch.Tensor,
+                              page_table: torch.Tensor, pos: torch.Tensor,
+                              q_len: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Ragged paged attention over int8 code pools with their f32 scale
+    pools [P, ps, H_kv] (K7): the output of `ragged_paged_attention` over
+    the dequantized pools. A user mask raises, as K6's wrapper does."""
+    _no_user_mask(mask, "ragged_paged_attention_q8")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError("ragged_paged_attention_q8: the pools must be int8, "
+                        f"got {k_pool.dtype}, {v_pool.dtype}")
+    return _ragged(q, k_pool, v_pool, k_scale.float(), v_scale.float(),
+                   page_table, pos, q_len)
 
 
 # -- K10: the grouped walk ----------------------------------------------------
@@ -250,10 +565,14 @@ def grouped_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                 q_len: torch.Tensor, group_id: torch.Tensor,
                                 group_leader: torch.Tensor,
                                 group_cnt: torch.Tensor,
-                                return_partials: bool = False):
+                                return_partials: bool = False,
+                                k_scale: Optional[torch.Tensor] = None,
+                                v_scale: Optional[torch.Tensor] = None):
     """Plain PyTorch version of K10: the two-phase online softmax in f32,
     one page at a time, with the kernels' blocking (queries in blocks of
     QBLK; a block reads pages through its last live query's position).
+    A page is read as the kernels stage it: e4m3 upconverted, int8 times
+    `k_scale`/`v_scale` (the q8 lane), a float pool as is.
 
     Phase 1 folds each sharing group's pages [0, group_cnt) — read
     through the leader's table — into the partials (m, l, acc) of its
@@ -308,8 +627,8 @@ def grouped_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
     def fold(p, page_ids, active):
         nonlocal m, l, acc
         page_ids = page_ids.clamp(0, k_pool.shape[0] - 1)
-        kk = k_pool[page_ids].float()                      # [B, ps, hkv, d]
-        vv = v_pool[page_ids].float()
+        kk = _pages_f32(k_pool, k_scale, page_ids)         # [B, ps, hkv, d]
+        vv = _pages_f32(v_pool, v_scale, page_ids)
         s = torch.einsum("bigrd,bjgd->bigrj", qf, kk) * scale
         live = qlive[..., None] & (p * ps + kpos <= qmax[..., None])
         s = torch.where(live[:, :, None, None, :], s,
@@ -350,6 +669,22 @@ def grouped_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                  kernel_layout(written))
 
 
+def _grouped(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len,
+             group_id, group_leader, group_cnt):
+    b = q.shape[0]
+    ops = (q, k_pool, v_pool, page_table, *_grouped_operands(
+        b, pos, q_len, group_id, group_leader, group_cnt))
+    scales = dict(k_scale=k_scale, v_scale=v_scale)
+    if q.device.type == "cpu":
+        return grouped_attention_reference(*ops, **scales)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"ragged_paged_attention_grouped: no kernel for device "
+            f"{q.device}")
+    ops = _grouped_check(*ops, **scales)
+    return grouped_phase2(*ops, grouped_phase1(*ops, **scales), **scales)
+
+
 def ragged_paged_attention_grouped(q: torch.Tensor, k_pool: torch.Tensor,
                                    v_pool: torch.Tensor,
                                    page_table: torch.Tensor,
@@ -361,33 +696,49 @@ def ragged_paged_attention_grouped(q: torch.Tensor, k_pool: torch.Tensor,
                                    ) -> torch.Tensor:
     """Prefix-sharing-aware ragged paged attention (see the module doc):
     the output of `ragged_paged_attention`, with each group's shared
-    pages read once per group. Operand contract (the serving engine's
-    `shared_prefix_groups` keeps it): rows of one group carry identical
-    page-table entries for indices [0, group_cnt), and those pages hold
-    committed KV at or below every member's pos. On the card both phases
-    launch on every call (`grouped_phase1`, `grouped_phase2`), each
-    counted in GROUPED_LAUNCHES. A user mask raises, as K6's wrapper
-    does."""
-    if mask is not None:
-        raise NotImplementedError(
-            "ragged_paged_attention_grouped: the user attention mask is "
-            "not ported (ROADMAP.md, queue 2, K6)")
-    b = q.shape[0]
-    ops = (q, k_pool, v_pool, page_table, *_grouped_operands(
-        b, pos, q_len, group_id, group_leader, group_cnt))
-    if q.device.type == "cpu":
-        return grouped_attention_reference(*ops)
-    if q.device.type != "cuda":
-        raise ValueError(
-            f"ragged_paged_attention_grouped: no kernel for device "
-            f"{q.device}")
-    ops = _grouped_check(*ops)
-    return grouped_phase2(*ops, grouped_phase1(*ops))
+    pages read once per group, over pools of q's dtype or e4m3 pools.
+    Operand contract (the serving engine's `shared_prefix_groups` keeps
+    it): rows of one group carry identical page-table entries for
+    indices [0, group_cnt), and those pages hold committed KV at or below
+    every member's pos. On the card both phases launch on every call
+    (`grouped_phase1`, `grouped_phase2`), each counted in
+    GROUPED_LAUNCHES (QUANT_LAUNCHES for e4m3 pools). A user mask raises,
+    as K6's wrapper does."""
+    _no_user_mask(mask, "ragged_paged_attention_grouped")
+    _not_int8(k_pool, "ragged_paged_attention_grouped")
+    return _grouped(q, k_pool, v_pool, None, None, page_table, pos, q_len,
+                    group_id, group_leader, group_cnt)
+
+
+def ragged_paged_attention_grouped_q8(q: torch.Tensor, k_pool: torch.Tensor,
+                                      v_pool: torch.Tensor,
+                                      k_scale: torch.Tensor,
+                                      v_scale: torch.Tensor,
+                                      page_table: torch.Tensor,
+                                      pos: torch.Tensor, q_len: torch.Tensor,
+                                      group_id: torch.Tensor,
+                                      group_leader: torch.Tensor,
+                                      group_cnt: torch.Tensor,
+                                      mask: Optional[torch.Tensor] = None
+                                      ) -> torch.Tensor:
+    """K10's q8 lane: the grouped walk over int8 code pools, each page's
+    scales staged with its codes, with the output of
+    `ragged_paged_attention_q8` (on the card, the same bits)."""
+    _no_user_mask(mask, "ragged_paged_attention_grouped_q8")
+    if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
+        raise TypeError("ragged_paged_attention_grouped_q8: the pools must "
+                        f"be int8, got {k_pool.dtype}, {v_pool.dtype}")
+    return _grouped(q, k_pool, v_pool, k_scale.float(), v_scale.float(),
+                    page_table, pos, q_len, group_id, group_leader,
+                    group_cnt)
 
 
 def _grouped_check(q, k_pool, v_pool, page_table, pos, q_len, group_id,
-                   group_leader, group_cnt):
-    _check(q, k_pool, v_pool, page_table, pos, q_len)
+                   group_leader, group_cnt, k_scale=None, v_scale=None):
+    """Check the grouped op's operands for the kernels and return the
+    first nine contiguous (the scale pools are made contiguous where
+    they are passed)."""
+    _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale, v_scale)
     b = q.shape[0]
     for name, t in (("group_id", group_id), ("group_leader", group_leader),
                     ("group_cnt", group_cnt)):
@@ -395,25 +746,19 @@ def _grouped_check(q, k_pool, v_pool, page_table, pos, q_len, group_id,
                 t.device != q.device:
             raise ValueError(f"ragged_paged_attention_grouped: {name} must "
                              f"be int32 [B] on {q.device}")
-    return tuple(t.contiguous() for t in (
-        q, k_pool, v_pool, page_table, pos, q_len, group_id, group_leader,
-        group_cnt))
-
-
-def _geometry(q, k_pool, page_table):
-    b, lq, h, d = q.shape
-    n_pages, ps, hkv, _ = k_pool.shape
-    return (b, lq, h, hkv, d, ps, page_table.shape[1], n_pages,
-            _build.dtype_code(q.dtype), q.device.index,
-            _build.stream_ptr(q.device))
+    ops = _contiguous(q, k_pool, v_pool, page_table, pos, q_len, group_id,
+                      group_leader, group_cnt)
+    _check_aligned(ops[1], ops[2])
+    return ops
 
 
 def grouped_phase1(q, k_pool, v_pool, page_table, pos, q_len, group_id,
-                   group_leader, group_cnt):
-    """K10a alone, on checked contiguous CUDA operands: launch phase 1
-    and return the partials (m, l, acc), f32 [H_kv, nqb, B*QBLK*rep]
-    (acc with a last axis D), allocated here with torch.empty; only the
-    rows phase 1 folds are written."""
+                   group_leader, group_cnt, k_scale=None, v_scale=None):
+    """K10a alone, on checked contiguous CUDA operands (and the scale
+    pools of an int8 pool): launch phase 1 and return the partials
+    (m, l, acc), f32 [H_kv, nqb, B*QBLK*rep] (acc with a last axis D),
+    allocated here with torch.empty; only the rows phase 1 folds are
+    written."""
     b, lq, h, d = q.shape
     hkv = k_pool.shape[2]
     qblk = min(lq, QBLK)
@@ -422,27 +767,33 @@ def grouped_phase1(q, k_pool, v_pool, page_table, pos, q_len, group_id,
                     device=q.device)
     l = torch.empty_like(m)
     acc = torch.empty((*m.shape, d), dtype=torch.float32, device=q.device)
+    k_scale, v_scale = _contiguous(k_scale, v_scale)
     lib = _build.load("grouped_paged_attention")
     err = lib.ptt_grouped_phase1(
-        *(t.data_ptr() for t in (q, k_pool, v_pool, page_table, pos, q_len,
-                                 group_id, group_leader, group_cnt, m, l,
-                                 acc)),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale),
+        *(t.data_ptr() for t in (page_table, pos, q_len, group_id,
+                                 group_leader, group_cnt, m, l, acc)),
         *_geometry(q, k_pool, page_table))
     _build.check(lib, err, "grouped paged attention phase 1 launch")
-    GROUPED_LAUNCHES["phase1"] += 1
+    _count_walk("K10a", _lane(k_pool))
     return m, l, acc
 
 
 def grouped_phase2(q, k_pool, v_pool, page_table, pos, q_len, group_id,
-                   group_leader, group_cnt, partials):
+                   group_leader, group_cnt, partials, k_scale=None,
+                   v_scale=None):
     """K10b alone: launch phase 2 from phase 1's `partials` and return
     the output [B, lq, H, D]."""
     out = torch.empty_like(q)
+    k_scale, v_scale = _contiguous(k_scale, v_scale)
     lib = _build.load("grouped_paged_attention")
     err = lib.ptt_grouped_phase2(
-        *(t.data_ptr() for t in (q, k_pool, v_pool, page_table, pos, q_len,
-                                 group_id, group_cnt, *partials, out)),
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
+        _ptr(v_scale),
+        *(t.data_ptr() for t in (page_table, pos, q_len, group_id,
+                                 group_cnt, *partials, out)),
         *_geometry(q, k_pool, page_table))
     _build.check(lib, err, "grouped paged attention phase 2 launch")
-    GROUPED_LAUNCHES["phase2"] += 1
+    _count_walk("K10b", _lane(k_pool))
     return out

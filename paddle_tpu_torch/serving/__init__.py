@@ -5,10 +5,12 @@ paged KV pool (counterpart of `paddle_tpu.serving`).
 JAX engine's defaults: the radix prefix cache, the grouped walk (K10),
 overload preemption and a host tier of `num_pages - 1` pages, under the
 same gates (`PADDLE_TPU_GROUPED_ATTN`, `PADDLE_TPU_PREEMPT`). See
-`serving/engine.py` for what is not ported yet.
+`serving/engine.py` for what is not ported yet. The pools hold the
+model's dtype, int8 codes with scales or float8 e4m3 (`kv_dtype`, gate
+`PADDLE_TPU_KV_DTYPE`, `resolve_kv_dtype`).
 """
-from .engine import (ServingEngine, resolve_grouped_flag,
-                     resolve_preempt_flag, unified_forward)
+from .engine import (KV_DTYPE_MODES, ServingEngine, resolve_grouped_flag,
+                     resolve_kv_dtype, resolve_preempt_flag, unified_forward)
 from .errors import DeadlineExceeded, EngineClosed, QueueFull, ServingError
 from .metrics import ServingMetrics
 from .paging import HostPagePool, PagePool, TRASH_PAGE, pages_needed
@@ -17,8 +19,9 @@ from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
 
 __all__ = ["ServingEngine", "unified_forward", "resolve_grouped_flag",
-           "resolve_preempt_flag", "QueueFull", "ServingError",
-           "EngineClosed", "DeadlineExceeded", "ServingMetrics", "PagePool",
-           "HostPagePool", "TRASH_PAGE", "pages_needed", "PrefixGrant",
-           "RadixPrefixCache", "shared_prefix_groups", "Request",
-           "RequestOutput", "RequestState", "SamplingParams", "Scheduler"]
+           "resolve_preempt_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
+           "QueueFull", "ServingError", "EngineClosed", "DeadlineExceeded",
+           "ServingMetrics", "PagePool", "HostPagePool", "TRASH_PAGE",
+           "pages_needed", "PrefixGrant", "RadixPrefixCache",
+           "shared_prefix_groups", "Request", "RequestOutput",
+           "RequestState", "SamplingParams", "Scheduler"]

@@ -49,10 +49,21 @@ parked prefix-cache pages under page pressure (spill) and restores them
 on a later match. Swaps are plain tensor copies of whole pages of every
 layer's pools.
 
+Quantized KV (`kv_dtype=None`/"fp", gate `PADDLE_TPU_KV_DTYPE=fp|int8|fp8`,
+read at construction, as in the JAX engine): "int8" keeps each layer's
+K and V as int8 code pools plus f32 rowwise scale pools
+[num_pages, page_size, H_kv] (written by K8-q8, read by K7 and K10's q8
+lane), "fp8" as float8 e4m3 pools (written by K8, read by the fp8 lanes
+of K6 and K10). A page costs `page_bytes` (the JAX formula): at page 16
+an int8 page 68/128 and an fp8 page 64/128 of a bf16 page, so the same
+memory holds about twice the residents. Every whole-page move — COW,
+swap-out and swap-in, prefix spill and restore — carries a page's codes
+and scales as one unit, and moves e4m3 pages through their bytes.
+
 Not ported yet, and refused at construction with the ROADMAP item
 (queue 1, item 10): the legacy alternating step (`unified=False`),
-int8/fp8 KV, speculative decoding, grammar, adapters, tensor
-parallelism, the megakernel, and the observability and SLO layers.
+speculative decoding, grammar, adapters, tensor parallelism, the
+megakernel, and the observability and SLO layers.
 """
 from __future__ import annotations
 
@@ -67,7 +78,8 @@ from torch.profiler import record_function
 
 from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nlp.generation import _top_p_filter, _unpack_caches
-from ..ops.cuda.paged_attention import count_page_block_reads
+from ..ops.cuda.paged_attention import (FP8_DTYPE, _as_bytes,
+                                        count_page_block_reads)
 from .errors import DeadlineExceeded, EngineClosed
 from .metrics import ServingMetrics
 from .paging import HostPagePool, PagePool, TRASH_PAGE, pages_needed
@@ -76,14 +88,14 @@ from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
 
 __all__ = ["ServingEngine", "unified_forward", "resolve_grouped_flag",
-           "resolve_preempt_flag"]
+           "resolve_preempt_flag", "resolve_kv_dtype", "KV_DTYPE_MODES"]
+
+KV_DTYPE_MODES = ("fp", "int8", "fp8")
 
 # option -> (values that mean "off", where the port stands)
 _UNPORTED = {
     "unified": ((None, True), "the legacy alternating step and K9 "
                 "(ROADMAP.md queue 1 item 10, queue 2 K9)"),
-    "kv_dtype": ((None, "fp"), "int8/fp8 KV lanes "
-                 "(ROADMAP.md queue 1 item 10, queue 2 K7)"),
     "spec": ((None, False), "speculative decoding "
              "(ROADMAP.md queue 1 item 10)"),
     "grammar": ((None, False), "grammar-constrained decoding "
@@ -93,7 +105,7 @@ _UNPORTED = {
     "mesh": ((None,), "tensor-parallel serving "
              "(ROADMAP.md queue 1 item 10)"),
     "megakernel": ((None, False), "the decode megakernel "
-                   "(ROADMAP.md queue 2 K8, K12, K13)"),
+                   "(ROADMAP.md queue 2 K11-K13)"),
     "obs": ((None, False), "the flight recorder and request tracer "
             "(ROADMAP.md queue 1 item 10)"),
     "slo": ((None, False), "the SLO tracker "
@@ -124,6 +136,24 @@ def resolve_preempt_flag(override=None) -> bool:
     explicit override wins, otherwise PADDLE_TPU_PREEMPT=on|off, read at
     engine construction."""
     return _resolve_on_off(override, "PADDLE_TPU_PREEMPT")
+
+
+def resolve_kv_dtype(override=None) -> str:
+    """Which dtype the paged KV pools hold: "fp" (the model's float
+    dtype, the default), "int8" (rowwise-quantized code pools plus f32
+    scale pools) or "fp8" (float8 e4m3 pools, no scales; writes clip to
+    +-448 and round to nearest even). Quantization is lossy: int8 and
+    fp8 tokens need not equal fp's, but every serving feature stays
+    deterministic at either. An explicit override wins; otherwise
+    PADDLE_TPU_KV_DTYPE=fp|int8|fp8, read at engine construction.
+    Anything else raises ValueError."""
+    v = override or os.environ.get("PADDLE_TPU_KV_DTYPE", "fp")
+    if v not in KV_DTYPE_MODES:
+        raise ValueError(
+            f"kv_dtype must be one of {KV_DTYPE_MODES} "
+            f"(PADDLE_TPU_KV_DTYPE / ServingEngine(kv_dtype=...)), "
+            f"got {v!r}")
+    return v
 
 
 class _SwapHandle:
@@ -205,9 +235,9 @@ class ServingEngine:
                  unified=None, kv_dtype=None, spec=None, grammar=None,
                  adapters=None, mesh=None, megakernel=None, obs=None,
                  slo=None):
-        options = dict(unified=unified, kv_dtype=kv_dtype, spec=spec,
-                       grammar=grammar, adapters=adapters, mesh=mesh,
-                       megakernel=megakernel, obs=obs, slo=slo)
+        options = dict(unified=unified, spec=spec, grammar=grammar,
+                       adapters=adapters, mesh=mesh, megakernel=megakernel,
+                       obs=obs, slo=slo)
         for name, value in options.items():
             off, what = _UNPORTED[name]
             if not any(value is o or value == o for o in off):
@@ -248,12 +278,28 @@ class ServingEngine:
         self._id_counter = itertools.count()
         self._requests: Dict[str, Request] = {}
         self._generator = make_generator(seed, self.device)
-        # device state: per-layer K/V pools, per-slot held logits
-        shape = (self.num_pages, self.page_size, self.n_kv, self.head_dim)
-        self._pools = [
-            (torch.zeros(shape, dtype=model.dtype, device=self.device),
-             torch.zeros(shape, dtype=model.dtype, device=self.device))
-            for _ in range(self.n_layers)]
+        # device state: per-layer (k, v, k_scale | None, v_scale | None)
+        # pools, per-slot held logits. Every pool is zero-initialised,
+        # scale pools too: the trash page dequantizes to exactly 0
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        self._pools = [self._new_pools() for _ in range(self.n_layers)]
+        # the tensors a whole-page move carries, as per-layer (k, v)
+        # pairs of one shape: the pools (e4m3 ones as their bytes) and,
+        # for int8, the scale pools — a page and its scales are one unit
+        self._planes = [[(_as_bytes(k), _as_bytes(v))
+                         for k, v, _, _ in self._pools]]
+        if self.kv_dtype == "int8":
+            self._planes.append([(ks, vs) for _, _, ks, vs in self._pools])
+        # device bytes one page costs across all layers, K and V (codes
+        # and scales for int8; fp8 one byte an element): the JAX engine's
+        # formula, the unit of the byte gauges
+        kv_item = (1 if self.kv_dtype in ("int8", "fp8")
+                   else model.dtype.itemsize)
+        scale_bytes = 4 if self.kv_dtype == "int8" else 0
+        self.page_bytes = (self.n_layers * 2 * self.page_size * self.n_kv
+                           * (self.head_dim * kv_item + scale_bytes))
+        self.metrics.kv_dtype = self.kv_dtype
+        self.metrics.pool_bytes_per_page = self.page_bytes
         self._last_logits = torch.zeros(
             (self.num_slots, model.config.vocab_size), dtype=torch.float32,
             device=self.device)
@@ -279,6 +325,20 @@ class ServingEngine:
         self._vec_dev: Optional[tuple] = None          # None = re-upload
         self._all_greedy = True
         self._closed = False     # drain() flips it; add_request refuses
+
+    def _new_pools(self) -> tuple:
+        """One layer's zeroed (k, v, k_scale | None, v_scale | None)."""
+        shape = (self.num_pages, self.page_size, self.n_kv, self.head_dim)
+        zeros = lambda shp, dt: torch.zeros(shp, dtype=dt, device=self.device)
+        if self.kv_dtype == "int8":
+            return (zeros(shape, torch.int8), zeros(shape, torch.int8),
+                    zeros(shape[:3], torch.float32),
+                    zeros(shape[:3], torch.float32))
+        if self.kv_dtype == "fp8":
+            return (zeros(shape, torch.uint8).view(FP8_DTYPE),
+                    zeros(shape, torch.uint8).view(FP8_DTYPE), None, None)
+        return (zeros(shape, self.model.dtype),
+                zeros(shape, self.model.dtype), None, None)
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams]
@@ -584,44 +644,52 @@ class ServingEngine:
 
     # -- page copies: COW and the host tier --------------------------------
     def _copy_page(self, src: int, dst: int):
-        """Copy-on-write: one page of every layer's K and V pool."""
+        """Copy-on-write: one page of every layer's K and V pool (and,
+        for int8, of its scale pools)."""
         with record_function(f"serving::cow_copy[{src}->{dst}]"):
-            for k, v in self._pools:
-                k[dst].copy_(k[src])
-                v[dst].copy_(v[src])
+            for plane in self._planes:
+                for k, v in plane:
+                    k[dst].copy_(k[src])
+                    v[dst].copy_(v[src])
 
-    def _extract_pages(self, pages: List[int]) -> List[torch.Tensor]:
-        """Device -> host: each page of every layer's K and V, as CPU
-        tensors [n_layers, 2, page_size, H_kv, D] (views of one tensor
-        allocated here), gathered with one index_select per pool. From
-        the card the copy lands in pinned memory without blocking the
-        host; the stream orders it before any later write of the pages
-        and before the copies that restore them."""
+    def _extract_pages(self, pages: List[int]) -> List[tuple]:
+        """Device -> host: each page of every layer's K and V, as a tuple
+        of CPU tensors (views of tensors allocated here): the codes
+        [n_layers, 2, page_size, H_kv, D] (e4m3 ones as bytes) and, for
+        int8, the scales [n_layers, 2, page_size, H_kv], gathered with
+        one index_select per pool. From the card the copy lands in pinned
+        memory without blocking the host; the stream orders it before any
+        later write of the pages and before the copies that restore
+        them."""
         if not pages:
             return []
         with record_function(f"serving::swap_out[{len(pages)}]"):
             idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
-            block = torch.stack([torch.stack((k.index_select(0, idx),
-                                              v.index_select(0, idx)), 1)
-                                 for k, v in self._pools], 1)
-            return list(block.to("cpu", non_blocking=True).unbind(0))
+            blocks = [torch.stack([torch.stack((k.index_select(0, idx),
+                                                v.index_select(0, idx)), 1)
+                                   for k, v in plane], 1)
+                      .to("cpu", non_blocking=True).unbind(0)
+                      for plane in self._planes]
+            return list(zip(*blocks))
 
-    def _restore_pages(self, payloads: List[torch.Tensor], dsts: List[int]):
+    def _restore_pages(self, payloads: List[tuple], dsts: List[int]):
         """Host -> device: write payloads of `_extract_pages` into device
         pages `dsts` of every layer's pools, one index_copy_ per pool."""
         with record_function(f"serving::swap_in[{len(dsts)}]"):
             idx = torch.tensor(dsts, dtype=torch.int64, device=self.device)
-            block = torch.stack([data.to(self.device, non_blocking=True)
-                                 for data in payloads])
-            for i, (k, v) in enumerate(self._pools):
-                k.index_copy_(0, idx, block[:, i, 0])
-                v.index_copy_(0, idx, block[:, i, 1])
+            for p, plane in enumerate(self._planes):
+                block = torch.stack([data[p].to(self.device,
+                                                non_blocking=True)
+                                     for data in payloads])
+                for i, (k, v) in enumerate(plane):
+                    k.index_copy_(0, idx, block[:, i, 0])
+                    v.index_copy_(0, idx, block[:, i, 1])
 
-    def _extract_page(self, src: int) -> torch.Tensor:
+    def _extract_page(self, src: int) -> tuple:
         """One page of `_extract_pages`."""
         return self._extract_pages([src])[0]
 
-    def _restore_page(self, data: torch.Tensor, dst: int):
+    def _restore_page(self, data: tuple, dst: int):
         """One page of `_restore_pages`."""
         self._restore_pages([data], [dst])
 

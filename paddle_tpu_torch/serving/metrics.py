@@ -1,8 +1,11 @@
 """Serving telemetry (counterpart of `paddle_tpu/serving/metrics.py`,
 cut to what the engine records in this slice): time to first token,
 inter-token latency, tokens/s over the busy window, step wall time,
-packed tokens per step, pool and host-tier use, preemptions and swap
-traffic, and the grouped walk's modeled page-block reads (the JAX
+packed tokens per step, pool and host-tier use (pages, and bytes by the
+engine's `page_bytes`: the JAX engine's `pool.bytes_per_page` and
+`host_pool.bytes_total` gauges, with the pools' `kv_dtype`),
+preemptions and swap traffic, and the grouped walk's modeled
+page-block reads (the JAX
 engine's `page_block_reads` and `shared_page_reads_saved` totals and
 group-size histogram). Times are seconds on the engine's clock. Per-step and per-request spans go through
 `torch.profiler.record_function` in the engine, so a `torch.profiler`
@@ -80,6 +83,10 @@ class ServingMetrics:
         self.pool_pages_swapped = 0
         self.host_pages_used = 0
         self.host_pages_total = 0
+        # the pools' dtype ("fp", "int8", "fp8") and the device bytes one
+        # page costs across all layers (set by the engine)
+        self.kv_dtype: Optional[str] = None
+        self.pool_bytes_per_page = 0
         self.queue_depth = 0
         # overload preemption and the host tier
         self.preemptions = 0
@@ -221,12 +228,18 @@ class ServingMetrics:
                 "queue_wait_s": self.queue_wait_s.snapshot(),
                 "step_s": self.step_s.snapshot(),
                 "packed_tokens_per_step": self.packed_tokens.snapshot(),
+                "kv_dtype": self.kv_dtype,
                 "pool": {"pages_used": self.pool_pages_used,
                          "pages_cached": self.pool_pages_cached,
                          "pages_total": self.pool_pages_total,
-                         "pages_swapped": self.pool_pages_swapped},
+                         "pages_swapped": self.pool_pages_swapped,
+                         "bytes_per_page": self.pool_bytes_per_page},
                 "host_pool": {"pages_used": self.host_pages_used,
-                              "pages_total": self.host_pages_total},
+                              "pages_total": self.host_pages_total,
+                              "bytes_used": (self.host_pages_used
+                                             * self.pool_bytes_per_page),
+                              "bytes_total": (self.host_pages_total
+                                              * self.pool_bytes_per_page)},
                 "queue_depth": self.queue_depth,
                 "preemptions": self.preemptions,
                 "swapped_out_pages": self.swapped_out_pages,

@@ -11,7 +11,9 @@ from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import layer_norm as tln
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
-from paddle_tpu_torch.ops.cuda.launch_check import grouped_batch
+from paddle_tpu_torch.ops.cuda.launch_check import (grouped, grouped_batch,
+                                                    lane_batch, ragged,
+                                                    ragged_reference)
 from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
 pytestmark = pytest.mark.cuda
@@ -411,3 +413,153 @@ def test_gpt_train_steps_on_the_card_equal_the_cpu(cuda):
     # f32 on both; summation order differs between the kernels and the
     # CPU's plain versions, and Adam passes it on
     np.testing.assert_allclose(losses[str(cuda)], losses["cpu"], rtol=1e-5)
+
+
+# -- the quantized lanes: K6's fp8 lane, K7, K10's q8 and fp8 lanes, K8 ----
+_LANE_KERNELS = {"fp8": ("K6-fp8", "K10a-fp8", "K10b-fp8"),
+                 "q8": ("K7", "K10a-q8", "K10b-q8")}
+
+
+def _launches():
+    return dict(tpa.QUANT_LAUNCHES)
+
+
+def _delta(before):
+    return {n: c - before[n] for n, c in tpa.QUANT_LAUNCHES.items()
+            if c != before[n]}
+
+
+@pytest.mark.parametrize("lane", ["fp8", "q8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(12, 12, 64), (16, 4, 128)],
+                         ids=["rep1", "rep4"])
+def test_quantized_walks_against_their_plain_versions(cuda, lane, dtype, h,
+                                                      hkv, d):
+    """K7 / K6's fp8 lane and K10 in the same lane against their plain
+    versions on the same quantized pools: the outputs on live queries,
+    and K10a's partials on the rows it folds."""
+    base, grp = grouped_batch(cuda, dtype, h, hkv, d, rows=6, mp=8,
+                              groups=_GROUPS)
+    ops, scales = lane_batch(base, lane)
+    before = _launches()
+    out6 = ragged(ops, scales)
+    out10 = grouped(ops, grp, scales)
+    torch.cuda.synchronize()
+    k6, k10a, k10b = _LANE_KERNELS[lane]
+    assert _delta(before) == {k6: 1, k10a: 1, k10b: 1}
+    live = torch.arange(out6.shape[1], device=cuda)[None, :] \
+        < ops[5][:, None]
+    assert torch.isfinite(out6.float()).all()
+    assert torch.isfinite(out10.float()).all()
+    _close(out6[live], ragged_reference(ops, scales)[live])
+    ref, (m, l, acc, written) = tpa.grouped_attention_reference(
+        *ops, *grp, return_partials=True, **scales)
+    _close(out10[live], ref[live])
+    partials = tpa.grouped_phase1(*tpa._grouped_check(*ops, *grp, **scales),
+                                  **scales)
+    torch.cuda.synchronize()
+    sel = written & (m > tpa.NEG_INF / 2)
+    assert sel.any()
+    for got, want in zip(partials, (m, l, acc)):
+        _close(got[sel], want[sel])
+
+
+@pytest.mark.parametrize("lane", ["fp8", "q8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(12, 12, 64), (16, 4, 128)],
+                         ids=["rep1", "rep4"])
+def test_quantized_grouped_walk_equals_the_ungrouped_bit_for_bit(
+        cuda, lane, dtype, h, hkv, d):
+    """K10's q8 lane equals K7 and its fp8 lane K6's fp8 lane, bit for
+    bit, at the serving step's geometry (seven rows sharing 16 pages)."""
+    base, grp = grouped_batch(cuda, dtype, h, hkv, d)
+    ops, scales = lane_batch(base, lane)
+    out = grouped(ops, grp, scales)
+    want = ragged(ops, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_quantized_walks_are_bit_reproducible(cuda):
+    base, grp = grouped_batch(cuda, torch.bfloat16, 12, 12, 64)
+    for lane in ("q8", "fp8"):
+        ops, scales = lane_batch(base, lane)
+        first = (ragged(ops, scales), grouped(ops, grp, scales))
+        for _ in range(20):
+            assert torch.equal(ragged(ops, scales), first[0])
+            assert torch.equal(grouped(ops, grp, scales), first[1])
+
+
+def _fp8_zeros(shape, dev):
+    return torch.zeros(shape, dtype=torch.uint8, device=dev).view(
+        tpa.FP8_DTYPE)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("scale", [1.0, 300.0])
+def test_paged_scatter_kernels_equal_their_plain_versions(cuda, dtype,
+                                                          scale):
+    """K8's e4m3 bytes and K8-q8's codes and scales equal the plain
+    versions' bit for bit outside the trash page 0; at scale 300 most
+    of the values lie beyond +-448 and are clipped. Every written value is
+    finite, the trash page's too."""
+    rs = np.random.RandomState(11)
+    b, l, hkv, d, ps, mp = 6, 32, 4, 64, 16, 5
+    n_pages = b * mp + 1
+    table = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = torch.from_numpy(table.reshape(b, mp)).to(cuda)
+    pos = torch.tensor([0, 1, 15, 40, mp * ps - 3, 70], dtype=torch.int32,
+                       device=cuda)
+    upd = (torch.from_numpy(rs.randn(b, l, hkv, d).astype(np.float32))
+           * scale).to(cuda, dtype)
+    upd[0, 0, 0] = 0.0                       # a row at the 1e-8 floor
+    shape = (n_pages, ps, hkv, d)
+    before = _launches()
+    fp8 = tpa.paged_scatter(_fp8_zeros(shape, cuda), upd, pos, table)
+    codes, sc = tpa.paged_scatter_q8(
+        torch.zeros(shape, dtype=torch.int8, device=cuda),
+        torch.zeros(shape[:3], device=cuda), upd, pos, table)
+    torch.cuda.synchronize()
+    assert _delta(before) == {"K8": 1, "K8-q8": 1}
+    want8 = tpa.paged_scatter_reference(_fp8_zeros(shape, cuda), upd, pos,
+                                        table)
+    wantc, wants = tpa.paged_scatter_q8_reference(
+        torch.zeros(shape, dtype=torch.int8, device=cuda),
+        torch.zeros(shape[:3], device=cuda), upd, pos, table)
+    assert torch.equal(fp8.view(torch.uint8)[1:], want8.view(torch.uint8)[1:])
+    assert torch.equal(codes[1:], wantc[1:])
+    assert torch.equal(sc[1:].view(torch.int32), wants[1:].view(torch.int32))
+    assert torch.isfinite(fp8.float()).all() and torch.isfinite(sc).all()
+    assert (sc[1:] > 0).sum() < b * l * hkv     # some went to the trash
+
+
+@pytest.mark.parametrize("kv", ["int8", "fp8"])
+def test_quantized_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
+    """The engine at its defaults over int8 or e4m3 pools: the same
+    greedy tokens on the card as on the CPU, with each step launching
+    the lane's write twice a layer and K10's two phases once a layer."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128)
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, 256, size=n).astype(np.int64)
+               for n in (5, 11, 17, 8)]
+    tokens = {}
+    write, phase1, phase2 = {"int8": ("K8-q8", "K10a-q8", "K10b-q8"),
+                             "fp8": ("K8", "K10a-fp8", "K10b-fp8")}[kv]
+    for dev in ("cpu", cuda):
+        model = GPTForCausalLM(cfg, device="cpu")
+        model.to(dev)
+        eng = ServingEngine(model, device=dev, num_slots=4, max_len=64,
+                            page_size=8, chunk_len=8, kv_dtype=kv)
+        tln.reset_launches()
+        tpa.reset_launches()
+        res = eng.generate(prompts, SamplingParams(max_new_tokens=8))
+        tokens[str(dev)] = [r.token_ids for r in res]
+        if dev is cuda:
+            steps = eng.metrics.unified_steps
+            assert {n: c for n, c in tpa.QUANT_LAUNCHES.items() if c} == \
+                {write: 4 * steps, phase1: 2 * steps, phase2: 2 * steps}
+            assert tpa.LAUNCHES == 0
+            assert tpa.GROUPED_LAUNCHES == {"phase1": 0, "phase2": 0}
+            assert tln.LAUNCHES == 5 * steps
+    assert tokens["cpu"] == tokens[str(cuda)]
