@@ -11,9 +11,10 @@ Phases, each reported on its own line; any failure exits non-zero:
 1. build every kernel library from `paddle_tpu_torch/ops/cuda/csrc/`
    (layer_norm.cu: K1, K2; ragged_paged_attention.cu: K6 and its fp8
    lane, K7; grouped_paged_attention.cu: K10a, K10b in the fp, fp8 and
-   q8 lanes; paged_scatter.cu: K8, K8-q8; flash_attention.cu: K3, K4,
-   K5; one nvcc per source, all at once) and print the build time and
-   the card's name and power limit;
+   q8 lanes; paged_scatter.cu: K8, K8-q8; paged_decode_attention.cu:
+   K9 and its fp8 lane; flash_attention.cu: K3, K4, K5; one nvcc per
+   source, all at once) and print the build time and the card's name
+   and power limit;
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
    and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
@@ -32,7 +33,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    bit; K10a, K10b and K6 are timed on the same operands. K8 and K8-q8
    write the serving step's [16, 32, 12, 64] K rows (and again at 300x
    the scale, past +-448) and must equal their plain versions bit for
-   bit outside the trash page;
+   bit outside the trash page. K9 runs in its fp and fp8 lanes on the
+   legacy decode step's batch (16 rows, q [16, 1, 12, 64], pools
+   [993, 16, 12, 64], pos over 65-763; again at rep 4, D 128) without a
+   mask, with a random additive mask and with a bool mask that hides
+   all but key 0, against its plain version, and without a mask against
+   K6 at q_len 1 bit for bit; it is timed without and with the mask
+   beside its plain version and SDPA over the gathered, masked view.
+   K3 runs at every shape the serving paths give it: the legacy prefill
+   chunks (Lq 8, 16, 32 over 992 keys, the window mask as its bias),
+   the gather arm's step (q [16, 32, 12, 64], a per-row bias) and
+   generate()'s prefill and decode step (the window as a kvec at Lq 1),
+   against `_sdpa_ref` (f32) and its plain version (bf16);
 3. serve GPT-124M at full width (bench.py's configuration: vocab 50304,
    hidden 768, 12 layers, 12 heads, 1024 positions) in bf16 with random
    weights from a seed: 24 requests of 32-700 prompt tokens, a third of
@@ -62,7 +74,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    burst that only preemption admits. Checks that requests were
    preempted and swapped to the host tier, that every request's tokens
    equal those of a run that never preempts, and that the pool is
-   quiesced after `drain()`; prints the swap-in time;
+   quiesced after `drain()`; prints the swap-in time. Then the legacy
+   alternating step (`unified=False`) on the same traffic: in bf16
+   twice (identical tokens; per decode step K1 25 and K9 12, per
+   prefill chunk K1 25 and K3 12, K6 and K10 never; a recorded decode
+   step's held logits against a plain f32 rerun over the same pools;
+   a profile), over fp8 pools (K8 24 and K9-fp8 12 per decode step) and
+   over int8 pools (K8-q8 24 and K7 12); the prefill buckets run stay in
+   {32, 16, 8}; and the unified step's gather arm (`attn_impl="gather"`,
+   K3 12 per step, no K6/K10; a recorded step's held logits against a
+   plain f32 rerun). Printed, not checked: tokens/s, step
+   p50/p90, TTFT, the buckets and the share of tokens equal to the
+   unified defaults arm's;
 4. train GPT-124M in bf16 as bench.py does (B 16 x L 1024, AdamW lr 1e-4,
    weight decay 0.01, dropout 0, ids and labels from
    `np.random.RandomState(0)`): 2 warm-up steps and 5 timed steps
@@ -73,14 +96,21 @@ Phases, each reported on its own line; any failure exits non-zero:
    plain path's on the card, and the bf16 kernel loss against the f32
    plain loss. Prints tokens/s, the step time, the MFU by bench.py's
    formula against 989 TFLOP/s, and the device's busy share of a
-   profiled step.
+   profiled step;
+5. `GPTForCausalLM.generate` on GPT-124M bf16 (a fresh model from the
+   same seed): batch 8 x prompt 128, 32 new tokens, greedy twice and a
+   seeded top-k 50 sampling run twice (each pair identical), K1 25 and
+   K3 12 launches per decoded token, and the prefill's and the first
+   decode step's logits against a plain f32 rerun on the CPU (0.1).
+   Prints tokens/s.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
 default engine's run; serving_ungrouped, the grouped=False run; the
 same over int8 or fp8 pools, serving_int8[_ungrouped] and
-serving_fp8[_ungrouped]; or training) whose shapes the record was
-measured at, and
+serving_fp8[_ungrouped]; the legacy step, serving_legacy[_fp8|_int8];
+the gather arm, serving_gather; training; or generate) whose shapes
+the record was measured at, and
 `launches_by_path` those on each path, each counted from 0 just before
 its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
@@ -133,6 +163,8 @@ TRAIN = dict(batch=16, seq=1024, lr=1e-4, weight_decay=0.01, warmup=2,
 # kernel loss against the f32 plain loss to 0.05 (bf16 weights and
 # activations through 12 layers)
 HELD_LOSS_RTOL, HELD_GRAD_TOL, HELD_BF16_LOSS_TOL = 1e-5, 2e-5, 0.05
+# phase 5: GPTForCausalLM.generate
+GENERATE = dict(batch=8, prompt=128, new=32)
 
 
 def log(msg: str):
@@ -651,6 +683,158 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
                  max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
 
 
+def decode_bytes(q, k, table, pos, masked: bool) -> int:
+    """What one K9 call needs to move: q in and out once, each row's live
+    K/V pages (min(pos // ps, mp - 1) + 1 of them, every kv head), its
+    table entries and pos, and, with a mask, the f32 mask entries of its
+    live keys (every head)."""
+    b, _, h, d = q.shape
+    ps, hkv, mp = k.shape[1], k.shape[2], table.shape[1]
+    pos_ = pos.cpu().numpy().astype(np.int64)
+    pages = np.minimum(pos_ // ps, mp - 1) + 1
+    n = (2 * b * h * d * q.element_size()
+         + int(pages.sum()) * hkv * page_block_bytes(k)
+         + int(pages.sum()) * 4 + b * 4)
+    if masked:
+        n += int(np.minimum(pos_ + 1, mp * ps).sum()) * h * 4
+    return n
+
+
+def check_paged_decode(dev, tpa, time_ms, lane="fp"):
+    """K9 in pool lane `lane` (fp, or fp8 over e4m3 pools) on the legacy
+    decode step's batch (`launch_check.decode_batch`: 16 rows, q
+    [16, 1, 12, 64], pools [993, 16, 12, 64], table [16, 62], pos over
+    65-763) in f32 and bf16, and again at rep 4, D 128 in bf16: against
+    its plain version without a mask, with a random additive f32 mask and
+    with a bool mask that hides all but key 0; and without a mask against
+    K6 (its fp8 lane) at q_len 1, bit for bit. Then the bf16 rep-1 batch
+    is timed without and with the additive mask: the kernel, the plain
+    version and SDPA over the gathered, masked view."""
+    from paddle_tpu_torch.ops.cuda.launch_check import (decode, decode_batch,
+                                                        lane_batch, ragged)
+    key = "K9" if lane == "fp" else "K9-fp8"
+    errs = {}
+    for dtype, (h, hkv, d) in ((torch.float32, (12, 12, 64)),
+                               (torch.bfloat16, (12, 12, 64)),
+                               (torch.bfloat16, (16, 4, 128))):
+        ops, _ = lane_batch(decode_batch(dev, dtype, h, hkv, d, SEED), lane)
+        q, k, v, table, pos, _ = ops
+        b, lmax = q.shape[0], table.shape[1] * k.shape[1]
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        hide = torch.zeros(b, 1, 1, lmax, dtype=torch.bool, device=dev)
+        hide[..., 0] = True
+        masks = {"no mask": None,
+                 "additive mask": torch.randn(b, h, 1, lmax, generator=g,
+                                              device=dev) * 2,
+                 "bool mask (key 0 only)": hide}
+        tag = f"H={h} H_kv={hkv} D={d} {dtype}, {LANE_NAMES[lane]}"
+        for what, m in masks.items():
+            out = decode(ops, m)
+            torch.cuda.synchronize()
+            add = None if m is None else tpa._mask_to_additive(m, b, h, lmax)
+            err = check_close(f"{key} {what} {tag}", out,
+                              tpa.paged_attention_reference(*ops[:5], add))
+            errs[dtype, h, what] = err
+        same = torch.equal(decode(ops), ragged(ops, {}))
+        torch.cuda.synchronize()
+        log(f"  {key} {tag}: equals K6{'-fp8' if lane != 'fp' else ''} at "
+            f"q_len 1 bit for bit: {same}")
+        if not same:
+            raise AssertionError(f"{key} {tag} differs from K6 at q_len 1")
+    ops, _ = lane_batch(decode_batch(dev, torch.bfloat16, 12, 12, 64, SEED),
+                        lane)
+    q, k, v, table, pos, _ = ops
+    b, _, h, d = q.shape
+    lmax = table.shape[1] * k.shape[1]
+    mask = torch.randn(b, h, 1, lmax, generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev)
+    ms = time_ms(lambda: decode(ops))
+    masked_ms = time_ms(lambda: decode(ops, mask))
+    plain_ms = time_ms(lambda: tpa.paged_attention_reference(*ops[:5]),
+                       iters=5)
+    lib_ms = time_ms(sdpa_yardstick(*ops))
+    keys = attended_keys(pos.cpu().numpy(), np.ones(b, np.int64))
+    bound_ms, bound_by = bound(decode_bytes(q, k, table, pos, False),
+                               4 * keys * h * d, BF16_FLOPS)
+    mbound_ms, mbound_by = bound(decode_bytes(q, k, table, pos, True),
+                                 4 * keys * h * d + keys * h, BF16_FLOPS)
+    log(f"  {key} bf16 [16, 1, 12, 64] over [993, 16, 12, 64], "
+        f"{LANE_NAMES[lane]}: kernel {ms:.4f} ms (with the additive mask "
+        f"{masked_ms:.4f} ms, bound {mbound_ms:.5f}), plain {plain_ms:.4f} "
+        f"ms, SDPA (gathered, {'upconverted, ' if lane != 'fp' else ''}"
+        f"masked) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(name=("K9 paged_decode_attention" if lane == "fp" else
+                      "K9-fp8 paged_decode_attention (e4m3 pools)"),
+                route="cuda",
+                source="paddle_tpu_torch/ops/cuda/csrc/"
+                       "paged_decode_attention.cu",
+                replaces="paddle_tpu/ops/pallas/paged_attention.py:243",
+                path="serving_legacy" if lane == "fp" else
+                     "serving_legacy_fp8",
+                max_abs_err=errs[torch.bfloat16, 12, "no mask"], ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms,
+                library_call="SDPA over the gathered, masked K/V",
+                masked_ms=masked_ms, masked_bound_ms=mbound_ms,
+                max_abs_err_masked=max(
+                    e for (dt, hh, what), e in errs.items() if what !=
+                    "no mask"),
+                max_abs_err_rep4=errs[torch.bfloat16, 16, "no mask"])
+
+
+def check_flash_serving(dev, tfa):
+    """K3 at every shape the serving paths give it
+    (`launch_check.FLASH_SERVING_CASES`): the legacy prefill chunks (Lq
+    8, 16, 32 over the gathered 992 keys, the window as a broadcast
+    [1, 1, Lq, 992] bias), the gather arm's unified step (q
+    [16, 32, 12, 64], a per-row [16, 1, 32, 992] bias), generate()'s
+    prefill ([8, 128] over 160, a broadcast bias) and its decode step (q
+    [8, 1, 12, 64] over the dense [8, 160, 12, 64] cache, the window as
+    an [8, 160] kvec). Each through the model's SDPA, which must launch
+    K3 once with the operand form named; f32 against the plain
+    `_sdpa_ref` (the JAX package's form) by the f32 rule, bf16 against
+    the plain `flash_attention_reference` on the same operand by the
+    bf16 rule (`_sdpa_ref` rounds its probabilities to bf16). Returns
+    each case's bf16 error."""
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.nn.functional.attention import (
+        _mask_to_kernel_operands, _sdpa_ref)
+    from paddle_tpu_torch.ops.cuda.launch_check import (FLASH_SERVING_CASES,
+                                                        flash_serving_batch)
+    forms = {"gather arm step": ("bias", (16, 1, 32, 992)),
+             "generate prefill": ("bias", (1, 1, 128, 160)),
+             "generate decode": ("kvec", (8, 160))}
+    errs = {}
+    for case, (b, lq, lk, _) in FLASH_SERVING_CASES.items():
+        want_form = forms.get(case, ("bias", (1, 1, lq, lk)))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, mask = flash_serving_batch(dev, dtype, case, SEED)
+            h = q.shape[2]
+            form, operand = _mask_to_kernel_operands(mask, b, h, lq, lk)
+            if (form, tuple(operand.shape)) != want_form:
+                raise AssertionError(f"K3 {case}: the mask took {form} "
+                                     f"{tuple(operand.shape)}, not "
+                                     f"{want_form}")
+            before = tfa.LAUNCHES["fwd"]
+            out = PF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  training=False)
+            torch.cuda.synchronize()
+            if tfa.LAUNCHES["fwd"] != before + 1:
+                raise AssertionError(f"K3 {case}: the SDPA did not launch "
+                                     "K3")
+            tag = (f"K3 {case} [{b}, {lq}, {h}, 64] over {lk} keys, "
+                   f"{form} {tuple(operand.shape)}, {dtype}")
+            if dtype == torch.float32:
+                check_close(f"{tag} vs _sdpa_ref", out, _sdpa_ref(
+                    q, k, v, mask, False, 0.125, 0.0, None))
+            else:
+                errs[case] = check_close(
+                    f"{tag} vs flash_attention_reference", out,
+                    tfa.flash_attention_reference(
+                        q, k, v, **{form: operand})[0])
+    return errs
+
+
 def check_paged_scatter(dev, tpa, time_ms):
     """K8 (into e4m3 pools) and K8-q8 (into int8 + scale pools) at the
     serving step's write: the [16, 32, 12, 64] bf16 K rows of
@@ -763,10 +947,11 @@ def make_traffic():
     return [p.astype(np.int64) for p in prompts]
 
 
-def launch_counts_serving(tln, tpa) -> dict:
-    return {"K1": tln.LAUNCHES, "K6": tpa.LAUNCHES,
-            "K10a": tpa.GROUPED_LAUNCHES["phase1"],
-            "K10b": tpa.GROUPED_LAUNCHES["phase2"], **tpa.QUANT_LAUNCHES}
+def launch_counts_serving(tln, tpa, tfa) -> dict:
+    return {"K1": tln.LAUNCHES, "K3": tfa.LAUNCHES["fwd"],
+            "K6": tpa.LAUNCHES, "K10a": tpa.GROUPED_LAUNCHES["phase1"],
+            "K10b": tpa.GROUPED_LAUNCHES["phase2"], **tpa.QUANT_LAUNCHES,
+            **tpa.DECODE_LAUNCHES}
 
 
 # the serving step's launches per layer by KV dtype: the write (K8 or
@@ -776,16 +961,49 @@ LANE_OF = {"fp": "fp", "fp8": "fp8", "int8": "q8"}
 WRITE_OF = {"fp": None, "fp8": "K8", "int8": "K8-q8"}
 
 
-def per_step_launches(tpa, grouped: bool, kv_dtype: str) -> dict:
+# the legacy decode step's walk per layer by KV dtype: K9 in its lanes,
+# and K7 at q_len 1 over int8 pools
+DECODE_WALK_OF = {"fp": "K9", "fp8": "K9-fp8", "int8": "K7"}
+
+
+def _no_launches(tpa) -> dict:
+    return dict.fromkeys(["K1", "K3", "K6", "K10a", "K10b",
+                          *tpa.QUANT_LAUNCHES, *tpa.DECODE_LAUNCHES], 0)
+
+
+def per_step_launches(tpa, grouped: bool, kv_dtype: str,
+                      attn_impl: str = "kernel") -> dict:
+    """One unified step's launches: K1 2L + 1; the walk per layer (K10's
+    two phases, or K6, in the pools' lane), or K3 per layer under the
+    gather arm; the lane's write (K8 / K8-q8) for K and V per layer."""
     n_layers = GPT124M["num_hidden_layers"]
-    want = dict.fromkeys(["K6", "K10a", "K10b", *tpa.QUANT_LAUNCHES], 0)
+    want = _no_launches(tpa)
     want["K1"] = 2 * n_layers + 1
     lane = LANE_OF[kv_dtype]
-    for walk in (("K10a", "K10b") if grouped else ("K6",)):
-        want[WALKS[walk, lane][0]] = n_layers
+    if attn_impl == "gather":
+        want["K3"] = n_layers
+    else:
+        for walk in (("K10a", "K10b") if grouped else ("K6",)):
+            want[WALKS[walk, lane][0]] = n_layers
     if WRITE_OF[kv_dtype]:
         want[WRITE_OF[kv_dtype]] = 2 * n_layers
     return want
+
+
+def legacy_launches(tpa, kv_dtype: str):
+    """The legacy step's launches (per decode step, per prefill chunk):
+    K1 2L + 1 in each; the decode step's walk (K9, K9-fp8 or K7) and a
+    chunk's K3 per layer; the lane's write for K and V per layer in
+    each."""
+    n_layers = GPT124M["num_hidden_layers"]
+    per_decode, per_chunk = _no_launches(tpa), _no_launches(tpa)
+    for want in (per_decode, per_chunk):
+        want["K1"] = 2 * n_layers + 1
+        if WRITE_OF[kv_dtype]:
+            want[WRITE_OF[kv_dtype]] = 2 * n_layers
+    per_decode[DECODE_WALK_OF[kv_dtype]] = n_layers
+    per_chunk["K3"] = n_layers
+    return per_decode, per_chunk
 
 
 def snap_cpu(t):
@@ -798,23 +1016,29 @@ def snap_cpu(t):
 
 
 def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
-          profile: bool = False, kv_dtype: str = "fp"):
+          profile: bool = False, kv_dtype: str = "fp", unified: bool = True,
+          attn_impl: str = "kernel"):
     """One run of phase 3's traffic on a fresh engine: the defaults
     (grouped walk, preemption, host tier) or grouped=False, over pools of
-    `kv_dtype`. Returns the launches, the stats and every request's
-    tokens."""
+    `kv_dtype`; or the legacy alternating step (unified=False), or the
+    gather arm (attn_impl="gather"), where the grouped walk drops.
+    Returns the launches, the stats and every request's tokens."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
-                                          unified_forward)
+                                          legacy_forward, unified_forward)
+
+    snap = lambda t: (tuple(map(snap, t)) if isinstance(t, tuple)
+                      else snap_cpu(t))
 
     class RecordingEngine(ServingEngine):
-        """Keeps the inputs and held logits of step RECORD_STEP."""
+        """Keeps the inputs and held logits of unified step, or legacy
+        decode step, RECORD_STEP."""
         recorded = None
+        decodes = 0
 
         def _forward(self, *args):
             if not record or self.metrics.unified_steps != RECORD_STEP:
                 return super()._forward(*args)
-            snap = lambda t: (tuple(map(snap, t)) if isinstance(t, tuple)
-                              else snap_cpu(t))
             before = ([snap(a) for a in args],
                       [snap(layer) for layer in self._pools],
                       snap(self._last_logits))
@@ -822,32 +1046,57 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
             self.recorded = before + (out.cpu(),)
             return out
 
-    arm = f"{kv_dtype} {'defaults' if grouped else 'grouped=False'}"
+        def _decode_forward(self, *args):
+            self.decodes += 1
+            if not record or self.decodes != RECORD_STEP + 1:
+                return super()._decode_forward(*args)
+            before = ([snap(a) for a in args],
+                      [snap(layer) for layer in self._pools])
+            out = super()._decode_forward(*args)
+            self.recorded = before + (out.cpu(),)
+            return out
+
+    if unified:
+        arm = (f"{kv_dtype} {'defaults' if grouped else 'grouped=False'}"
+               f"{', gather' if attn_impl == 'gather' else ''}")
+    else:
+        arm = f"{kv_dtype} legacy"
     eng = RecordingEngine(model, device=dev, seed=SEED,
                           **({} if grouped else {"grouped": False}),
                           **({} if kv_dtype == "fp" else
-                             {"kv_dtype": kv_dtype}), **ENGINE)
-    if (eng.grouped, eng.preempt, eng.kv_dtype) != (grouped, True,
-                                                    kv_dtype):
+                             {"kv_dtype": kv_dtype}),
+                          **({} if unified else {"unified": False}),
+                          **({} if attn_impl == "kernel" else
+                             {"attn_impl": attn_impl}), **ENGINE)
+    want_gates = (grouped and unified and attn_impl == "kernel", True,
+                  kv_dtype, unified, attn_impl)
+    if (eng.grouped, eng.preempt, eng.kv_dtype, eng.unified,
+            eng.attn_impl) != want_gates:
         raise AssertionError(f"engine gates {eng.grouped, eng.preempt}, "
-                             f"kv_dtype {eng.kv_dtype}")
+                             f"kv_dtype {eng.kv_dtype}, unified "
+                             f"{eng.unified}, attn_impl {eng.attn_impl}")
     prompts = make_traffic()
     t0 = time.perf_counter()
-    tln.reset_launches()
-    tpa.reset_launches()
+    reset_counts(tln, tfa, tpa)
     reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
             for p in prompts]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = launch_counts_serving(tln, tpa)
-    steps = eng.metrics.unified_steps
+    launches = launch_counts_serving(tln, tpa, tfa)
     snap = eng.metrics.snapshot()
-    log(f"  [{arm}] served {len(reqs)} requests in {steps} steps, "
+    steps = (eng.metrics.unified_steps if unified
+             else snap["decode_step_s"]["count"])
+    chunks = snap["prefill_chunks"]
+    step_s = snap["step_s" if unified else "decode_step_s"]
+    log(f"  [{arm}] served {len(reqs)} requests in {steps} "
+        f"{'steps' if unified else 'decode steps and ' + str(chunks)}"
+        f"{'' if unified else ' prefill chunks'}, "
         f"{wall:.3f} s: {snap['tokens_generated']} tokens, "
-        f"{snap['tokens_per_s']:.1f} tokens/s; step p50 "
-        f"{snap['step_s']['p50'] * 1e3:.3f} ms, p90 "
-        f"{snap['step_s']['p90'] * 1e3:.3f} ms; TTFT p50 "
+        f"{snap['tokens_per_s']:.1f} tokens/s; "
+        f"{'step' if unified else 'decode step'} p50 "
+        f"{step_s['p50'] * 1e3:.3f} ms, p90 "
+        f"{step_s['p90'] * 1e3:.3f} ms; TTFT p50 "
         f"{snap['ttft_s']['p50'] * 1e3:.1f} ms, p90 "
         f"{snap['ttft_s']['p90'] * 1e3:.1f} ms")
     pc = eng.prefix_cache.stats()
@@ -859,10 +1108,29 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         f"{snap['shared_page_reads_saved_total']} saved by the grouped "
         f"walk; sharing groups in {sizes['count']} step(s), largest "
         f"{sizes['max']}")
-    per_step = per_step_launches(tpa, grouped, kv_dtype)
-    want = {k: n * steps for k, n in per_step.items()}
-    log(f"  [{arm}] launches: { {k: n for k, n in launches.items() if n} } "
-        f"(per step { {k: n for k, n in per_step.items() if n} })")
+    if unified:
+        per_step = per_step_launches(tpa, grouped, kv_dtype, attn_impl)
+        want = {k: n * steps for k, n in per_step.items()}
+        log(f"  [{arm}] launches: "
+            f"{ {k: n for k, n in launches.items() if n} } (per step "
+            f"{ {k: n for k, n in per_step.items() if n} })")
+    else:
+        per_step, per_chunk = legacy_launches(tpa, kv_dtype)
+        want = {k: n * steps + per_chunk[k] * chunks
+                for k, n in per_step.items()}
+        buckets = sorted(eng.prefill_buckets)
+        allowed = {ENGINE["chunk_len"]} | {
+            8 * 2 ** i for i in range(8) if 8 * 2 ** i <= ENGINE["chunk_len"]}
+        log(f"  [{arm}] launches: "
+            f"{ {k: n for k, n in launches.items() if n} } (per decode step "
+            f"{ {k: n for k, n in per_step.items() if n} }, per prefill "
+            f"chunk { {k: n for k, n in per_chunk.items() if n} }); prefill "
+            f"buckets run {buckets}; host time to issue a prefill chunk "
+            f"p50 {snap['prefill_chunk_s']['p50'] * 1e3:.3f} ms, p90 "
+            f"{snap['prefill_chunk_s']['p90'] * 1e3:.3f} ms")
+        if not set(buckets) <= allowed:
+            raise AssertionError(f"prefill buckets {buckets} outside "
+                                 f"{sorted(allowed)}")
     if any(r.finish_reason != "length" or len(r.output_tokens) != NEW_TOKENS
            for r in reqs):
         raise AssertionError("a request did not finish with its 64 tokens")
@@ -873,18 +1141,28 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         raise AssertionError(f"kernel launches {launches} != {want}")
     if pc["hits"] < 1 or pc["cow_copies"] < 1:
         raise AssertionError("the traffic did not exercise attach and COW")
-    if grouped and not (sizes["max"] or 0) >= 2:
+    if eng.grouped and not (sizes["max"] or 0) >= 2:
         raise AssertionError("no step formed a group of two or more rows")
     eng.pool.assert_quiesced()
     stats = {"tokens_per_s": snap["tokens_per_s"],
-             "step_ms_p50": snap["step_s"]["p50"] * 1e3,
+             "step_ms_p50": step_s["p50"] * 1e3,
+             "step_ms_p90": step_s["p90"] * 1e3,
              "ttft_ms_p50": snap["ttft_s"]["p50"] * 1e3,
+             "ttft_ms_p90": snap["ttft_s"]["p90"] * 1e3,
              "steps": steps, "wall_s": wall,
              "page_block_reads": snap["page_block_reads_total"],
              "page_reads_saved": snap["shared_page_reads_saved_total"],
              "largest_group": sizes["max"], "page_bytes": eng.page_bytes}
-    if record:
+    if not unified:
+        pcs = snap["prefill_chunk_s"]
+        stats.update(prefill_chunks=chunks,
+                     prefill_buckets=sorted(eng.prefill_buckets),
+                     prefill_chunk_host_ms_p50=pcs["p50"] * 1e3,
+                     prefill_chunk_host_ms_p90=pcs["p90"] * 1e3)
+    if record and unified:
         stats["held"] = rerun_recorded(eng, model, unified_forward)
+    elif record:
+        stats["held"] = rerun_recorded_legacy(eng, model, legacy_forward)
     if profile:
         # the eight shared-prefix prompts and eight others, so that the
         # profiled steps form sharing groups
@@ -894,7 +1172,10 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
 
 def rerun_recorded(eng, model, unified_forward) -> dict:
     """Rerun the recorded step through the plain versions (CPU, f32) and
-    hold its logits against the card's."""
+    hold its logits against the card's. The rerun takes the paged walk's
+    plain version whatever the engine's `attn_impl`, so the gather arm's
+    step (K3 over the gathered view) is held against an independent
+    reference."""
     if eng.recorded is None:
         raise AssertionError(f"step {RECORD_STEP} never ran")
     (toks, pos, table, q_len, is_decode, group), pools, last, held = \
@@ -910,13 +1191,41 @@ def rerun_recorded(eng, model, unified_forward) -> dict:
     live = q_len > 0
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
-    log(f"  [{eng.kv_dtype}] step {RECORD_STEP} ({int(q_len.sum())} "
+    arm = eng.kv_dtype + (", gather" if eng.attn_impl == "gather" else "")
+    log(f"  [{arm}] step {RECORD_STEP} ({int(q_len.sum())} "
         f"tokens, {int(live.sum())} live rows, grouped walk "
         f"{'on' if group is not None else 'off'}): held logits vs plain "
         f"f32 rerun max_abs_err={err:.4f} (tolerance {HELD_LOGITS_TOL}), "
         f"argmax agreement {agree.item():.3f}")
     if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
         raise AssertionError("held logits disagree with the plain rerun")
+    return {"max_abs_err": err, "argmax_agreement": agree.item()}
+
+
+def rerun_recorded_legacy(eng, model, legacy_forward) -> dict:
+    """Rerun the recorded legacy decode step through the plain versions
+    (CPU, f32) over the same pools and hold its logits against the
+    card's, on the rows that decoded (a table row not all trash)."""
+    if eng.recorded is None:
+        raise AssertionError(f"decode step {RECORD_STEP} never ran")
+    (toks, pos, table), pools, held = eng.recorded
+    plain_model = copy.deepcopy(model).float().cpu()
+    pools = [tuple(t.float() if t is not None and t.dtype == torch.bfloat16
+                   else t for t in layer) for layer in pools]
+    with torch.no_grad():
+        plain = legacy_forward(plain_model, pools, toks, pos, table,
+                               torch.zeros(toks.shape[0], dtype=torch.int64),
+                               eng.attn_impl)
+    live = (table != 0).any(1)
+    err = (held[live] - plain[live]).abs().max().item()
+    agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
+    log(f"  [{eng.kv_dtype} legacy] decode step {RECORD_STEP} "
+        f"({int(live.sum())} decoding rows of {toks.shape[0]}): held logits "
+        f"vs plain f32 rerun max_abs_err={err:.4f} (tolerance "
+        f"{HELD_LOGITS_TOL}), argmax agreement {agree.item():.3f}")
+    if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
+        raise AssertionError("legacy held logits disagree with the plain "
+                             "rerun")
     return {"max_abs_err": err, "argmax_agreement": agree.item()}
 
 
@@ -990,6 +1299,119 @@ def serving_quantized(dev, tln, tpa, model, fp_tokens, fp_stats) -> tuple:
                      "requests_equal_to_bf16": whole,
                      "page_bytes_ratio": ratio}
     return by_path, stats
+
+
+def serving_legacy(dev, tln, tpa, model, fp_tokens) -> tuple:
+    """Phase 3's legacy and gather arms on the same model and traffic:
+    the legacy alternating step in bf16 twice (the first with a recorded
+    decode step rerun plain, and a profile), over fp8 and over int8 pools
+    once each, and the unified step's gather arm in bf16 once (with a
+    recorded step rerun plain). The two
+    bf16 legacy runs' tokens must be identical; printed, not checked:
+    the share of tokens equal to the unified defaults arm's. Returns the
+    launches of each run (its path) and the stats."""
+    by_path, stats = {}, {}
+    runs = (("serving_legacy", dict(unified=False, record=True,
+                                    profile=True)),
+            ("serving_legacy_again", dict(unified=False)),
+            ("serving_legacy_fp8", dict(unified=False, kv_dtype="fp8")),
+            ("serving_legacy_int8", dict(unified=False, kv_dtype="int8")),
+            ("serving_gather", dict(attn_impl="gather", record=True)))
+    tokens = {}
+    for path, opts in runs:
+        launches, st, tokens[path] = serve(dev, tln, tpa, model, True,
+                                           **opts)
+        pairs = [(a, b) for got, want in zip(tokens[path], fp_tokens)
+                 for a, b in zip(got, want)]
+        st["agreement_with_unified"] = sum(a == b for a, b in pairs) / len(
+            pairs)
+        log(f"  [{path}] tokens equal to the unified defaults arm's at "
+            f"{st['agreement_with_unified']:.4f} of positions")
+        if path != "serving_legacy_again":
+            by_path[path] = launches
+        stats[path] = st
+    same = tokens["serving_legacy"] == tokens["serving_legacy_again"]
+    log(f"  the two bf16 legacy runs' tokens identical: {same}")
+    if not same:
+        raise AssertionError("two legacy runs gave other tokens")
+    return by_path, stats
+
+
+def generate_phase(dev, tln, tpa, model) -> tuple:
+    """Phase 5: `GPTForCausalLM.generate` on GPT-124M bf16, batch 8 x
+    prompt 128, 32 new tokens: greedy twice (identical tokens), then a
+    seeded top-k 50 sampling run twice (identical tokens); K1 25 and K3
+    12 launches per decoded token (the prefill forward and one forward
+    per later token); the prefill's last logits, and those of the decode
+    step after it (K3 at Lq 1 over the dense cache, the window as its
+    kvec), against a plain f32 rerun on the CPU. Returns the launches of
+    the first greedy run and the stats."""
+    from paddle_tpu_torch.nlp.generation import (decode_model_step,
+                                                 init_decode_caches)
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    rs = np.random.RandomState(SEED + 2)
+    batch, plen, new = GENERATE["batch"], GENERATE["prompt"], GENERATE["new"]
+    ids = torch.from_numpy(rs.randint(0, GPT124M["vocab_size"],
+                                      (batch, plen))).to(dev)
+    model.generate(ids, max_new_tokens=2)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    t0 = time.perf_counter()
+    greedy = model.generate(ids, max_new_tokens=new)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts_serving(tln, tpa, tfa)
+    n_layers = GPT124M["num_hidden_layers"]
+    want = _no_launches(tpa)
+    want.update(K1=(2 * n_layers + 1) * new, K3=n_layers * new)
+    again = model.generate(ids, max_new_tokens=new)
+    sample = lambda: model.generate(
+        ids, max_new_tokens=new, decode_strategy="sampling", top_k=50,
+        generator=torch.Generator(device=dev).manual_seed(SEED))
+    s1, s2 = sample(), sample()
+    with torch.no_grad():
+        caches = init_decode_caches(n_layers, batch, plen + new,
+                                    GPT124M["num_attention_heads"],
+                                    GPT124M["hidden_size"]
+                                    // GPT124M["num_attention_heads"],
+                                    dtype=model.dtype, device=dev)
+        first, caches = decode_model_step(model, ids, caches)
+        nxt = first.argmax(-1)[:, None]
+        before = tfa.LAUNCHES["fwd"]
+        second, _ = decode_model_step(model, nxt, caches)
+        torch.cuda.synchronize()
+        step_k3 = tfa.LAUNCHES["fwd"] - before
+        plain = copy.deepcopy(model).float().cpu()
+        want_logits = plain(torch.cat([ids, nxt], 1).cpu())[:, -2:].float()
+    err = (first.cpu() - want_logits[:, 0]).abs().max().item()
+    err_step = (second.cpu() - want_logits[:, 1]).abs().max().item()
+    tok_s = batch * new / wall
+    log(f"  generate [{batch}, {plen}] + {new} tokens: {wall:.3f} s, "
+        f"{tok_s:.1f} tokens/s; launches { {k: n for k, n in launches.items() if n} }"
+        f" (per decoded token K1 {2 * n_layers + 1}, K3 {n_layers}); greedy "
+        f"twice identical: {torch.equal(greedy, again)}; seeded top-k 50 "
+        f"sampling twice identical: {torch.equal(s1, s2)}, equal to greedy "
+        f"at {(s1[:, plen:] == greedy[:, plen:]).float().mean().item():.3f} "
+        f"of positions; vs plain f32 rerun: prefill logits max_abs_err="
+        f"{err:.4f}, first decode step's max_abs_err={err_step:.4f} "
+        f"({step_k3} K3 launches; tolerance {HELD_LOGITS_TOL})")
+    if launches != want:
+        raise AssertionError(f"generate launches {launches} != {want}")
+    if not (torch.equal(greedy, again) and torch.equal(s1, s2)):
+        raise AssertionError("generate is not reproducible")
+    if greedy.shape != (batch, plen + new) or not torch.equal(
+            greedy[:, :plen], ids):
+        raise AssertionError("generate returned the wrong sequence")
+    if not torch.isfinite(first).all() or err > HELD_LOGITS_TOL:
+        raise AssertionError("generate's first logits disagree with the "
+                             "plain rerun")
+    if step_k3 != n_layers or not torch.isfinite(second).all() \
+            or err_step > HELD_LOGITS_TOL:
+        raise AssertionError("generate's decode step disagrees with the "
+                             "plain rerun")
+    return launches, {"tokens_per_s": tok_s, "wall_s": wall,
+                      "first_logits_max_abs_err": err,
+                      "decode_step_logits_max_abs_err": err_step}
 
 
 def preemption(dev, model, kv_dtype: str = "fp") -> dict:
@@ -1084,7 +1506,9 @@ def profile_steps(eng, prompts) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving import SamplingParams
-    steps0 = eng.metrics.unified_steps
+    count = lambda: (eng.metrics.unified_steps if eng.unified
+                     else eng.metrics.decode_steps)
+    steps0 = count()
     for p in prompts:
         eng.add_request(p, SamplingParams(max_new_tokens=16))
     torch.cuda.synchronize()
@@ -1095,7 +1519,7 @@ def profile_steps(eng, prompts) -> dict:
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.pool.assert_quiesced()
-    return dict(steps=eng.metrics.unified_steps - steps0,
+    return dict(steps=count() - steps0,
                 **device_busy(prof, wall_us))
 
 
@@ -1320,6 +1744,11 @@ def main() -> int:
          kernels[WALKS["K10b", lane][0]]) = check_grouped_attention(
             dev, tpa, timer, lane)
     kernels["K8"], kernels["K8-q8"] = check_paged_scatter(dev, tpa, timer)
+    for lane in ("fp", "fp8"):
+        kernels["K9" if lane == "fp" else "K9-fp8"] = check_paged_decode(
+            dev, tpa, timer, lane)
+    kernels["K3"]["max_abs_err_serving_shapes"] = check_flash_serving(
+        dev, tfa)
     torch.cuda.empty_cache()
 
     log("phase 3 serve GPT-124M (bf16, random weights):")
@@ -1332,12 +1761,27 @@ def main() -> int:
         f"{json.dumps(serving_stats['quantized'])}")
     for kv in ("fp", "int8"):
         log(f"  preemption ({kv}): {json.dumps(preemption(dev, model, kv))}")
+    legacy_paths, serving_stats["legacy"] = serving_legacy(
+        dev, tln, tpa, model, fp_tokens)
+    by_path.update(legacy_paths)
+    log(f"  serving, legacy and gather arms: "
+        f"{json.dumps(serving_stats['legacy'])}")
     del model
     torch.cuda.empty_cache()
 
     log("phase 4 train GPT-124M (bf16, random weights, bench.py's step):")
     by_path["training"], training = train(dev, tln, tfa, tpa)
     log(f"  training: {json.dumps(training)}")
+    torch.cuda.empty_cache()
+
+    log("phase 5 GPTForCausalLM.generate on GPT-124M (bf16, random "
+        "weights):")
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                           dtype=torch.bfloat16, seed=SEED).eval()
+    by_path["generate"], generation = generate_phase(dev, tln, tpa, model)
+    log(f"  generate: {json.dumps(generation)}")
+    del model
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

@@ -1,110 +1,382 @@
-"""Paged decode cache and its attend step.
+"""Decode caches, their attend step, sampling and `CompiledGenerator`.
 
-Counterpart of `paddle_tpu/nlp/generation.py`, cut to the serving
-engine's unified ragged branch: `DecodeCache` in paged ragged mode, the
-branch of `update_and_attend` that scatters the new K/V into the shared
-pool and attends through ragged paged attention (K6), its paged int8
-branch (quantize-then-scatter through K8-q8, attend through K7),
-`_unpack_caches`, and `_top_p_filter`. With prefix-sharing groups
-attached (`DecodeCache.group`, the serving engine's grouped walk) the
-attend goes through the grouped op (K10) instead, in the same lane. An
-e4m3 pool (the fp8 lane) takes the fp branch: its write is K8 and its
-walks are K6's and K10's fp8 lanes, all chosen by the pool's dtype. The
-dense caches, LoRA and the megakernel are not ported yet (ROADMAP.md,
-queue 1).
+Counterpart of `paddle_tpu/nlp/generation.py`. A `DecodeCache` is one
+attention layer's cache in one of three modes, and `update_and_attend`
+writes the new K/V and attends in the mode's way:
 
-PyTorch runs eagerly, so the pools are updated IN PLACE: a
-`DecodeCache` holds the engine's pools, and the cache that
-`update_and_attend` returns shares them. The JAX package's
-`_pack_caches`, which handed the updated pools back out of a jitted
-step, has no counterpart: the engine keeps its per-layer pools and they
-are already up to date.
+- dense (`page_table` None): k/v [B, max_len, H_kv, D] with a scalar
+  `pos` (`init_decode_caches`, the cache of `GPTForCausalLM.generate`).
+  The write is `kv_cache_update`; attention is the window-causal mask
+  plus `F.scaled_dot_product_attention`, flash attention K3 on the card
+  (the grouped `gqa_decode_attend` at one token with GQA).
+- paged (`page_table` set, `q_len` None): shared pools
+  [num_pages, page_size, H_kv, D], a per-row `pos` [B] (a scalar is
+  broadcast), the serving engine's legacy alternating step. The write
+  goes to the pool (`index_copy_`; K8 into e4m3 pools, K8-q8 into int8
+  pools with their f32 scale pools). A single token attends through
+  paged decode attention K9 (float and e4m3 pools) or, over int8 pools,
+  K7 at q_len 1; a multi-token chunk, and every call under
+  `attn_impl="gather"`, gathers the rows' pages into the dense view
+  (`paged_kv_gather[_q8]`) and attends as the dense mode does.
+- ragged (`q_len` set), the unified step: per-row live query counts;
+  ragged paged attention K6 (K7 for int8 pools), or with prefix-sharing
+  groups attached (`DecodeCache.group`) the grouped walk K10, in the
+  pool's lane. Under `attn_impl="gather"` it takes the gather branch.
+
+`attn_impl` ("kernel" | "gather", `resolve_paged_attn_impl`) chooses
+between the kernel branches and the gather branch. An optional user
+`attn_mask` over the cache axis composes with the window: into K9's
+mask operand, or into the gather branch's additive mask; the ragged
+kernel branch raises on one (ROADMAP.md, queue 2, K6's user mask).
+
+PyTorch runs eagerly, so caches are updated IN PLACE: the cache that
+`update_and_attend` returns shares the buffers it was given. The JAX
+package's `_pack_caches`, which carried the buffers through a jitted
+loop, has no counterpart. The dense int8 cache (`kv_scales`), beam
+search, LoRA and the megakernel are not ported (ROADMAP.md, queue 1).
+
+Mixed types in the gather branch: e4m3 and int8 pages gather to f32
+while q may be bf16. The JAX reference promotes inside its einsums and
+returns f32 there; flash attention takes one dtype, so the port attends
+such a chunk with q upconverted to f32 (the logits the JAX einsum forms)
+and returns the output in q's dtype, the model's.
 """
 from __future__ import annotations
 
+import dataclasses
+import math
+import os
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import torch
 
-from ..ops.cuda.paged_attention import (paged_scatter, paged_scatter_q8,
+from ..nn.functional import scaled_dot_product_attention
+from ..ops.cuda.paged_attention import (FP8_DTYPE, NEG_INF,
+                                        dequantize_paged_q8,
+                                        paged_decode_attention,
+                                        paged_scatter, paged_scatter_q8,
                                         ragged_paged_attention,
                                         ragged_paged_attention_grouped,
                                         ragged_paged_attention_grouped_q8,
                                         ragged_paged_attention_q8)
 
-__all__ = ["DecodeCache", "update_and_attend", "_unpack_caches",
-           "_top_p_filter"]
+__all__ = ["DecodeCache", "init_decode_caches", "update_and_attend",
+           "kv_cache_update", "paged_kv_gather", "paged_kv_gather_q8",
+           "window_causal_mask", "decode_merge_mask", "gqa_decode_attend",
+           "decode_model_step", "sample_logits", "CompiledGenerator",
+           "resolve_paged_attn_impl", "PAGED_ATTN_IMPLS", "_unpack_caches",
+           "_top_p_filter", "_categorical"]
+
+PAGED_ATTN_IMPLS = ("kernel", "gather")
+_ROADMAP_GEN = "ROADMAP.md, queue 1, item 7"
+
+
+def resolve_paged_attn_impl(override=None) -> str:
+    """Which implementation the paged attend uses: "kernel" (default: K9
+    for one token, K6/K7/K10 for ragged rows) or "gather" (gather the
+    rows' pages into the dense view and attend through flash attention,
+    the A/B cross-check path). An explicit override wins; otherwise
+    PADDLE_TPU_PAGED_ATTN. Anything else raises ValueError."""
+    impl = override or os.environ.get("PADDLE_TPU_PAGED_ATTN", "kernel")
+    if impl not in PAGED_ATTN_IMPLS:
+        raise ValueError(
+            f"paged attention impl must be one of {PAGED_ATTN_IMPLS} "
+            f"(PADDLE_TPU_PAGED_ATTN / attn_impl), got {impl!r}")
+    return impl
 
 
 @dataclass
 class DecodeCache:
-    """One attention layer's paged ragged cache: shared pools k/v
-    [num_pages, page_size, H_kv, D], per-row write position `pos` [B]
-    int32, page table [B, max_pages] int32 and live query count `q_len`
-    [B] int32 — row b's tokens occupy positions pos[b] ..
-    pos[b] + q_len[b] - 1 of a width-l padded batch. Page 0 is the
-    trash page: free rows point every entry at it and writes past a
-    row's window land there. `group`, when set, is the
-    (group_id, group_leader, group_cnt) triple of [B] int32 tensors
-    declaring which rows share a physical-page prefix (the JAX
-    `DecodeCache.group`): the attend then takes the grouped walk, with
-    the same output. `k_scale`/`v_scale`, when set, are the f32 rowwise
-    scale pools [num_pages, page_size, H_kv] of int8 code pools k/v (the
-    q8 lane): a page and its scales are one unit."""
+    """One attention layer's cache (see the module doc for the modes).
+    k/v: dense buffers [B, max_len, H_kv, D] or shared pools
+    [num_pages, page_size, H_kv, D]; `pos`: the positions already
+    written — a Python int or 0-dim tensor (dense, or one position for
+    every paged row) or an int32 [B] tensor; `page_table` [B, max_pages]
+    int32 (paged modes; page 0 is the trash page: free rows point every
+    entry at it and writes past a row's window land there); `q_len` [B]
+    int32 (ragged mode: row b's tokens occupy positions pos[b] ..
+    pos[b] + q_len[b] - 1 of a width-l padded batch). `group`, when set,
+    is the (group_id, group_leader, group_cnt) triple of [B] int32
+    tensors declaring which rows share a physical-page prefix (the
+    grouped walk). `k_scale`/`v_scale`, when set, are the f32 rowwise
+    scale pools [num_pages, page_size, H_kv] of int8 code pools (the q8
+    lane: a page and its scales are one unit). `attn_impl` pins
+    "kernel" or "gather" (None: `resolve_paged_attn_impl`)."""
 
     k: torch.Tensor
     v: torch.Tensor
-    pos: torch.Tensor
-    page_table: torch.Tensor
-    q_len: torch.Tensor
+    pos: Union[int, torch.Tensor]
+    page_table: Optional[torch.Tensor] = None
+    q_len: Optional[torch.Tensor] = None
     group: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    attn_impl: Optional[str] = None
+
+
+def init_decode_caches(n_layers: int, batch_size: int, max_len: int,
+                       n_kv_heads: int, head_dim: int,
+                       dtype: torch.dtype = torch.float32,
+                       device=None, kv_scales=None) -> List[DecodeCache]:
+    """Fresh zeroed dense caches, one per layer, at pos 0. The JAX
+    package's int8 form (`kv_scales`, calibrated per-head constants) is
+    not ported and raises."""
+    if kv_scales is not None:
+        raise NotImplementedError(
+            f"the dense int8 decode cache (kv_scales) is not ported "
+            f"({_ROADMAP_GEN})")
+    shape = (batch_size, max_len, n_kv_heads, head_dim)
+    return [DecodeCache(torch.zeros(shape, dtype=dtype, device=device),
+                        torch.zeros(shape, dtype=dtype, device=device), 0)
+            for _ in range(n_layers)]
+
+
+def _as_int(pos) -> int:
+    return int(pos.item()) if torch.is_tensor(pos) else int(pos)
+
+
+def kv_cache_update(buf: torch.Tensor, upd: torch.Tensor, pos
+                    ) -> torch.Tensor:
+    """Write upd [B, l, H, D] into the dense buffer [B, max_len, H, D]
+    IN PLACE at position pos (a scalar: every row; an int32 [B] tensor:
+    row b at pos[b]) and return it. As the JAX `dynamic_update_slice`
+    does, a start is clamped to [0, max_len - l]."""
+    b, l = upd.shape[:2]
+    top = buf.shape[1] - l
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        start = torch.clamp(pos.to(torch.int64), 0, top)
+        idx = start[:, None] + torch.arange(l, device=buf.device)[None, :]
+        rows = torch.arange(b, device=buf.device)[:, None]
+        buf[rows, idx] = upd.to(buf.dtype)
+        return buf
+    p = min(max(_as_int(pos), 0), top)
+    buf[:, p:p + l] = upd.to(buf.dtype)
+    return buf
+
+
+def paged_kv_gather(pool: torch.Tensor, page_table: torch.Tensor
+                    ) -> torch.Tensor:
+    """Each row's pages in its dense logical view: pool
+    [P, ps, H, D] + page_table [B, mp] -> [B, mp * ps, H, D] (the JAX
+    `_paged_gather_fwd`). An e4m3 pool's view is upconverted to f32 (the
+    gather is its dequantization); rows of the view past a row's window
+    show trash, which the window mask hides."""
+    b, mp = page_table.shape
+    tab = page_table.to(torch.int64)
+    if pool.dtype == FP8_DTYPE:
+        g = pool.view(torch.uint8)[tab].view(FP8_DTYPE).float()
+    else:
+        g = pool[tab]
+    return g.reshape(b, mp * pool.shape[1], *pool.shape[2:])
+
+
+def paged_kv_gather_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
+                       page_table: torch.Tensor) -> torch.Tensor:
+    """The dequantizing gather of an int8 code pool and its f32 scale
+    pool: the dense f32 logical view [B, mp * ps, H_kv, D]."""
+    return dequantize_paged_q8(pool, scale_pool, page_table)
+
+
+def window_causal_mask(pos, l: int, lmax: int, device=None) -> torch.Tensor:
+    """Bool mask: key j visible to query i iff j <= pos + i. A scalar
+    pos gives [1, 1, l, lmax]; a per-row pos [B] gives [B, 1, l, lmax].
+    The mask lies on pos's device, or on `device` for a Python int."""
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        dev = pos.device
+        i = torch.arange(l, device=dev)[:, None]
+        j = torch.arange(lmax, device=dev)[None, :]
+        return (j[None] <= i[None] + pos.to(torch.int64)[:, None, None]
+                )[:, None]
+    dev = pos.device if torch.is_tensor(pos) else device
+    i = torch.arange(l, device=dev)[:, None]
+    j = torch.arange(lmax, device=dev)[None, :]
+    return (j <= i + _as_int(pos))[None, None]
+
+
+def decode_merge_mask(window: torch.Tensor, user: torch.Tensor
+                      ) -> torch.Tensor:
+    """A bool window mask and a user mask (bool, or additive float, its
+    last axis the cache axis) -> one additive f32 mask: 0 / -1e30 for
+    the window plus the user mask's additive form."""
+    add = torch.where(window, torch.zeros((), device=window.device),
+                      torch.full((), NEG_INF, device=window.device))
+    if user.dtype == torch.bool:
+        return add + torch.where(user, torch.zeros((), device=user.device),
+                                 torch.full((), NEG_INF,
+                                            device=user.device))
+    return add + user.float()
+
+
+def gqa_decode_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      mask: torch.Tensor) -> torch.Tensor:
+    """Grouped-query attention over un-repeated K/V (the JAX
+    `gqa_attend_reference`): q [B, l, H, D] against k/v
+    [B, lmax, H_kv, D], mask bool or additive float broadcastable to
+    [B|1, 1|H, l, lmax]. Unrolled over the rep = H / H_kv members of a
+    group, each an einsum of the repeated path's shape; the logits are
+    f32, the probabilities are cast to q's dtype, and the output takes
+    the promoted dtype of q and v, as in the JAX function."""
+    b, l, h, d = q.shape
+    hkv = k.shape[2]
+    rep = h // hkv
+    ct = torch.promote_types(q.dtype, k.dtype)
+    qg = q.to(ct).reshape(b, l, hkv, rep, d)
+    scale = 1.0 / math.sqrt(d)
+    outs = []
+    for r in range(rep):
+        mh = mask if mask.shape[1] == 1 else mask[:, r::rep]
+        s = (torch.einsum("blgd,bmgd->bglm", qg[:, :, :, r], k.to(ct))
+             * scale).float()
+        if mask.dtype == torch.bool:
+            s = torch.where(mh, s, torch.full((), NEG_INF, device=s.device))
+        else:
+            s = s + mh.float()
+        a = torch.softmax(s, dim=-1).to(q.dtype)
+        pt = torch.promote_types(a.dtype, v.dtype)
+        outs.append(torch.einsum("bglm,bmgd->blgd", a.to(pt), v.to(pt)))
+    return torch.stack(outs, dim=3).reshape(b, l, h, d)
+
+
+def _row_pos(pos, b: int, device) -> torch.Tensor:
+    """A paged cache's positions as an int32 [B] tensor (a scalar is
+    broadcast to every row)."""
+    p = pos if torch.is_tensor(pos) else torch.tensor(pos, device=device)
+    p = p.to(device=device, dtype=torch.int32)
+    return p.reshape(1).expand(b).contiguous() if p.dim() == 0 else p
+
+
+def _user_mask(attn_mask, lmax: int, c: DecodeCache) -> torch.Tensor:
+    """The user mask with the JAX package's checks, as a 4-axis tensor."""
+    if attn_mask.shape[-1] != lmax:
+        if c.page_table is not None:
+            raise ValueError(
+                f"decode attn_mask last dim {attn_mask.shape[-1]} does not "
+                f"match the PAGED cache's logical view: page_table width "
+                f"{c.page_table.shape[1]} pages x page_size "
+                f"{c.k.shape[1]} = {lmax} slots. A mask sized for the "
+                "dense max_len must be padded to the page-aligned width "
+                "(padding positions are hidden by the positional window "
+                "anyway)")
+        raise ValueError(
+            f"decode attn_mask last dim {attn_mask.shape[-1]} must equal "
+            f"the cache max_len {lmax} (mask indexes cache slots)")
+    m = attn_mask
+    while m.dim() < 4:
+        m = m.unsqueeze(0)
+    return m
 
 
 def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
-                      v_new: torch.Tensor, cache: DecodeCache
+                      v_new: torch.Tensor, cache: DecodeCache,
+                      attn_mask: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, DecodeCache]:
-    """Write k_new/v_new [B, l, H_kv, D] at pos[b] + t (every column,
-    padding included: a dead column's K/V lands past pos + q_len, where
-    it is masked until overwritten), then attend q [B, l, H, D] through
-    ragged paged attention — the grouped walk (K10) when the cache
-    carries groups, K6 otherwise. Over int8 pools (the cache carries
-    scale pools) the write quantizes (K8-q8) and the attend takes the q8
-    ops (K7, K10's q8 lane), as the JAX branch at generation.py:544-563
-    and :649-653 does. Returns (out [B, l, H, D], the cache with pos
-    advanced by q_len)."""
+    """Write k_new/v_new [B, l, H_kv, D] at the cache's positions (every
+    column, padding included: a dead column's K/V lands past the live
+    window, where it is masked until overwritten), then attend q
+    [B, l, H, D] over each row's valid prefix — the branch the cache's
+    mode and `attn_impl` choose (module doc). Returns (out [B, l, H, D]
+    in q's dtype, the cache with pos advanced by q_len, or by l)."""
     c = cache
-    if c.k_scale is not None:
-        paged_scatter_q8(c.k, c.k_scale, k_new, c.pos, c.page_table)
-        paged_scatter_q8(c.v, c.v_scale, v_new, c.pos, c.page_table)
-        args = (q, c.k, c.v, c.k_scale, c.v_scale, c.page_table, c.pos,
-                c.q_len)
-        if c.group is not None:
-            out = ragged_paged_attention_grouped_q8(*args, *c.group)
+    b, l = q.shape[:2]
+    quant = c.k_scale is not None
+    paged = c.page_table is not None
+    impl = resolve_paged_attn_impl(c.attn_impl)
+    if paged:
+        pos_rows = _row_pos(c.pos, b, q.device)
+        if quant:
+            paged_scatter_q8(c.k, c.k_scale, k_new, pos_rows, c.page_table)
+            paged_scatter_q8(c.v, c.v_scale, v_new, pos_rows, c.page_table)
         else:
-            out = ragged_paged_attention_q8(*args)
+            paged_scatter(c.k, k_new, pos_rows, c.page_table)
+            paged_scatter(c.v, v_new, pos_rows, c.page_table)
+        lmax = c.page_table.shape[1] * c.k.shape[1]
     else:
-        paged_scatter(c.k, k_new, c.pos, c.page_table)
-        paged_scatter(c.v, v_new, c.pos, c.page_table)
-        args = (q, c.k, c.v, c.page_table, c.pos, c.q_len)
-        if c.group is not None:
-            out = ragged_paged_attention_grouped(*args, *c.group)
+        if quant:
+            raise NotImplementedError(
+                f"the dense int8 decode cache is not ported ({_ROADMAP_GEN})")
+        kv_cache_update(c.k, k_new, c.pos)
+        kv_cache_update(c.v, v_new, c.pos)
+        lmax = c.k.shape[1]
+    user_m = None if attn_mask is None else _user_mask(attn_mask, lmax, c)
+    new_cache = dataclasses.replace(
+        c, pos=c.pos + (c.q_len if c.q_len is not None else l))
+    if paged and impl == "kernel" and c.q_len is None and l == 1:
+        if quant:
+            # the q8 lane of the ragged walk at q_len 1 (K7): the same
+            # window, query 0 sees keys j <= pos
+            ones = torch.ones(b, dtype=torch.int32, device=q.device)
+            out = ragged_paged_attention_q8(q, c.k, c.v, c.k_scale,
+                                            c.v_scale, c.page_table,
+                                            pos_rows, ones, mask=user_m)
         else:
-            out = ragged_paged_attention(*args)
-    return out, DecodeCache(c.k, c.v, c.pos + c.q_len, c.page_table,
-                            c.q_len, c.group, c.k_scale, c.v_scale)
+            out = paged_decode_attention(q, c.k, c.v, c.page_table,
+                                         pos_rows, user_m)
+        return out, new_cache
+    if paged and impl == "kernel" and c.q_len is not None:
+        if quant:
+            args = (q, c.k, c.v, c.k_scale, c.v_scale, c.page_table,
+                    pos_rows, c.q_len)
+            if c.group is not None:
+                out = ragged_paged_attention_grouped_q8(*args, *c.group,
+                                                        mask=user_m)
+            else:
+                out = ragged_paged_attention_q8(*args, mask=user_m)
+        else:
+            args = (q, c.k, c.v, c.page_table, pos_rows, c.q_len)
+            if c.group is not None:
+                out = ragged_paged_attention_grouped(*args, *c.group,
+                                                     mask=user_m)
+            else:
+                out = ragged_paged_attention(*args, mask=user_m)
+        return out, new_cache
+    # the gather branch (paged chunks, attn_impl="gather") and the dense
+    # cache: window mask (+ user mask) over the dense logical view. A
+    # ragged row's dead queries get outputs the engine drops
+    mask = window_causal_mask(pos_rows if paged else c.pos, l, lmax,
+                              q.device)
+    if user_m is not None:
+        mask = decode_merge_mask(mask, user_m)
+    if paged and quant:
+        kf = paged_kv_gather_q8(c.k, c.k_scale, c.page_table)
+        vf = paged_kv_gather_q8(c.v, c.v_scale, c.page_table)
+    elif paged:
+        kf = paged_kv_gather(c.k, c.page_table)
+        vf = paged_kv_gather(c.v, c.page_table)
+    else:
+        kf, vf = c.k, c.v
+    n_rep = q.shape[2] // kf.shape[2]
+    if n_rep > 1 and l == 1:
+        return gqa_decode_attend(q, kf, vf, mask).to(q.dtype), new_cache
+    if n_rep > 1:
+        kf = kf.repeat_interleave(n_rep, dim=2)
+        vf = vf.repeat_interleave(n_rep, dim=2)
+    qx = q.to(kf.dtype) if kf.dtype != q.dtype else q
+    out = scaled_dot_product_attention(qx, kf, vf, attn_mask=mask,
+                                       is_causal=False, training=False)
+    return out.to(q.dtype), new_cache
 
 
-def _unpack_caches(pools, pos: torch.Tensor, page_table: torch.Tensor,
-                   q_len: torch.Tensor, group=None) -> List[DecodeCache]:
+def _unpack_caches(pools, pos, page_table: Optional[torch.Tensor] = None,
+                   q_len: Optional[torch.Tensor] = None, group=None,
+                   attn_impl: Optional[str] = None) -> List[DecodeCache]:
     """Per-layer (k, v, k_scale | None, v_scale | None) pools (the JAX
-    engine's `_ct`) -> DecodeCache list sharing one pos/page_table/q_len
-    and, optionally, one (group_id, group_leader, group_cnt) triple (a
-    page id addresses the same page in every layer's pool)."""
-    return [DecodeCache(k, v, pos, page_table, q_len, group, ks, vs)
+    engine's `_ct`) -> DecodeCache list sharing one pos, page_table and
+    q_len, optionally one (group_id, group_leader, group_cnt) triple,
+    and the attend implementation (a page id addresses the same page in
+    every layer's pool)."""
+    return [DecodeCache(k, v, pos, page_table, q_len, group, ks, vs,
+                        attn_impl)
             for k, v, ks, vs in pools]
+
+
+def decode_model_step(model, tokens: torch.Tensor, caches):
+    """One decode step, shared by `CompiledGenerator`'s loop and the
+    serving engine's legacy step: feed tokens [B, l] through the model
+    against the caches and return (the last position's logits as f32
+    [B, V], the advanced caches)."""
+    logits, caches = model(tokens, caches=caches)
+    return logits[:, -1, :].float(), caches
 
 
 def _top_p_filter(logits: torch.Tensor, p) -> torch.Tensor:
@@ -120,3 +392,154 @@ def _top_p_filter(logits: torch.Tensor, p) -> torch.Tensor:
     thresh = torch.where(keep, sorted_desc, inf).amin(dim=-1, keepdim=True)
     return torch.where(logits < thresh,
                        torch.full_like(logits, -1e30), logits)
+
+
+def _categorical(logits: torch.Tensor, generator: torch.Generator
+                 ) -> torch.Tensor:
+    """One draw per row from softmax(logits), by the Gumbel-max trick on
+    uniforms from `generator` (also the serving engine's draw)."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
+    return torch.argmax(logits + gumbel, dim=-1)
+
+
+def sample_logits(logits: torch.Tensor, generator: torch.Generator,
+                  temperature: float = 1.0, top_k=None, top_p=None,
+                  strategy=None) -> torch.Tensor:
+    """Next-token selection over f32 logits [B, V] (the JAX function,
+    with an explicit generator in place of its key). "greedy" is the
+    first-occurrence argmax; otherwise the logits are divided by the
+    temperature, top-k and top-p filter them (-1e30 outside), and the
+    token is drawn when the strategy is "sampling" or a filter is set,
+    else taken by argmax (None keeps the legacy rule)."""
+    if strategy == "greedy":
+        return torch.argmax(logits, dim=-1)
+    if temperature != 1.0:
+        logits = logits / temperature
+    stochastic = (strategy == "sampling") or top_k or top_p
+    if top_k:
+        kth = torch.topk(logits, int(top_k), dim=-1).values[:, -1:]
+        logits = torch.where(logits < kth, torch.full_like(logits, -1e30),
+                             logits)
+    if top_p:
+        logits = _top_p_filter(logits, float(top_p))
+    if stochastic:
+        return _categorical(logits, generator)
+    return torch.argmax(logits, dim=-1)
+
+
+class CompiledGenerator:
+    """`generate()` over a static dense cache (the JAX class of the
+    same name). The JAX package traces prefill and the token loop into
+    one XLA program; PyTorch runs eagerly, so here they are a Python loop
+    over one dense cache of prompt_len + max_new positions per layer,
+    and the name is kept for the API. Each decode step feeds one token
+    per row through the model: K1 for every LayerNorm and flash attention
+    K3 over the cache with the window mask as its key-vector operand.
+
+    decode_strategy: None (argmax, or sampling as soon as top_k/top_p is
+    set), "greedy" ("greedy_search" accepted) or "sampling"; beam search
+    and the int8 cache raise NotImplementedError. With `eos_token_id`, a
+    row that emitted it emits `pad_token_id` from then on, and the loop
+    stops when every row has. Sampling draws from `generator` when a
+    call passes one, else from the generator's own, seeded at
+    construction. `num_beams` and `length_penalty` belong to beam search
+    and are only checked."""
+
+    def __init__(self, model, cache_spec, temperature=1.0, top_k=None,
+                 eos_token_id=None, pad_token_id=0, top_p=None,
+                 decode_strategy=None, num_beams=4, length_penalty=0.0,
+                 num_return_sequences=1, kv_cache_dtype=None, seed=0):
+        self.model = model
+        self.n_layers, self.n_kv, self.head_dim = cache_spec
+        if kv_cache_dtype not in (None, "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be None (model dtype) or 'int8', "
+                f"got {kv_cache_dtype!r}")
+        if decode_strategy == "greedy_search":  # reference spelling
+            decode_strategy = "greedy"
+        if decode_strategy not in (None, "greedy", "sampling",
+                                   "beam_search"):
+            raise ValueError(
+                f"unknown decode_strategy {decode_strategy!r}; expected "
+                "'greedy'/'greedy_search', 'sampling' or 'beam_search'")
+        self.num_return_sequences = int(num_return_sequences)
+        if decode_strategy == "beam_search" and \
+                self.num_return_sequences > int(num_beams):
+            raise ValueError(
+                f"num_return_sequences {self.num_return_sequences} > "
+                f"num_beams {int(num_beams)}")
+        if decode_strategy == "beam_search":
+            raise NotImplementedError(
+                f"decode_strategy='beam_search' is not ported "
+                f"({_ROADMAP_GEN})")
+        if kv_cache_dtype == "int8":
+            raise NotImplementedError(
+                f"kv_cache_dtype='int8' (the dense int8 cache) is not "
+                f"ported ({_ROADMAP_GEN})")
+        self.decode_strategy = decode_strategy
+        self.temperature = float(temperature)
+        self.top_k = top_k
+        self.top_p = top_p
+        self.eos_token_id = eos_token_id
+        self.pad_token_id = int(pad_token_id)
+        self.generator = torch.Generator(device=model.device)
+        self.generator.manual_seed(int(seed))
+
+    def _sample(self, logits, generator):
+        return sample_logits(logits, generator, self.temperature,
+                             self.top_k, self.top_p, self.decode_strategy)
+
+    @torch.no_grad()
+    def __call__(self, input_ids, max_new_tokens: int = 16,
+                 return_scores: bool = False,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """input_ids [B, L] -> [B * n, L + max_new_tokens]: the prompt
+        and the new tokens (n = num_return_sequences, whose rows sample
+        independently)."""
+        if return_scores:
+            raise ValueError("return_scores is only available with "
+                             "decode_strategy='beam_search'")
+        model = self.model
+        ids = torch.as_tensor(input_ids, device=model.device)
+        if ids.dim() == 1:
+            ids = ids[None]
+        ids = ids.to(torch.int64)
+        nret = self.num_return_sequences
+        if nret > 1:
+            if self.decode_strategy == "greedy" or not (
+                    self.decode_strategy == "sampling" or self.top_k
+                    or self.top_p):
+                raise ValueError(
+                    "num_return_sequences > 1 needs a stochastic "
+                    "strategy (sampling/top_k/top_p) or beam_search")
+            ids = ids.repeat_interleave(nret, dim=0)
+        gen = self.generator if generator is None else generator
+        batch, prompt_len = ids.shape
+        max_new = int(max_new_tokens)
+        eos, pad = self.eos_token_id, self.pad_token_id
+        was_training = model.training
+        model.eval()
+        try:
+            caches = init_decode_caches(
+                self.n_layers, batch, prompt_len + max_new, self.n_kv,
+                self.head_dim, dtype=model.dtype, device=model.device)
+            last, caches = decode_model_step(model, ids, caches)
+            out = torch.full((batch, max_new), pad, dtype=ids.dtype,
+                             device=ids.device)
+            done = torch.zeros(batch, dtype=torch.bool, device=ids.device)
+            for i in range(max_new):
+                nxt = self._sample(last, gen).to(ids.dtype)
+                if eos is not None:
+                    nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
+                    done = done | (nxt == eos)
+                out[:, i] = nxt
+                if i + 1 == max_new or (eos is not None
+                                        and bool(done.all())):
+                    break       # the next logits would go unused
+                last, caches = decode_model_step(model, nxt[:, None],
+                                                 caches)
+        finally:
+            model.train(was_training)
+        return torch.cat([ids, out], dim=1)

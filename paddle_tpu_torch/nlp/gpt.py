@@ -15,14 +15,19 @@ cache:
   the embedding dropout and each layer's dropout1/dropout2
   (upscale_in_train) run in training mode, drawn from a model-owned
   generator;
-- with caches, attention is the paged ragged step of `nlp.generation`,
-  which runs ragged paged attention (K6); position ids are per row,
-  pos[b] + i (gpt.py:231-239), clamped to the table: a padding column
-  of the serving step can sit past the last position, and its output is
-  never used. That path applies no dropout;
+- with caches, attention is `nlp.generation.update_and_attend` in the
+  caches' mode: the unified step's ragged walk (K6/K7/K10), the legacy
+  step's paged decode (K9, or K7 over int8 pools) and gathered chunks
+  (K3), or the dense cache of `generate()` (K3); position ids are
+  pos[b] + i for a per-row pos and pos + i for a scalar one
+  (gpt.py:231-239), clamped to the table: a padding column of the
+  serving step can sit past the last position, and its output is never
+  used. That path applies no dropout;
 - the LM head is tied: logits = h @ E^T (gpt.py:311-312); with labels
   the forward returns cross_entropy(logits, labels), labels aligned
-  with logits position for position (no shift, gpt.py:313-315).
+  with logits position for position (no shift, gpt.py:313-315);
+- `generate()` (gpt.py:355) decodes through `CompiledGenerator` over a
+  static dense cache.
 
 Linear layers are `torch.nn.Linear` ([out, in] weights; `convert.py`
 transposes the JAX package's [in, out]). Recompute and tensor and
@@ -39,7 +44,7 @@ from torch.nn import functional as F
 from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nn import LayerNorm
 from ..nn import functional as PF
-from .generation import DecodeCache, update_and_attend
+from .generation import CompiledGenerator, DecodeCache, update_and_attend
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM"]
 
@@ -153,11 +158,18 @@ class GPTEmbeddings(nn.Module):
         return PF.dropout(self.embed(input_ids, position_ids), self.dropout,
                           self.training, generator=generator)
 
-    def cached_position_ids(self, pos: torch.Tensor, l: int) -> torch.Tensor:
-        """[b, l] ids pos[b] + i of the paged step, clamped to the
-        table."""
-        ids = pos.to(torch.int64)[:, None] + torch.arange(
-            l, dtype=torch.int64, device=pos.device)[None, :]
+    def cached_position_ids(self, pos, l: int, b: int,
+                            device: torch.device) -> torch.Tensor:
+        """[b, l] ids of a cached step, clamped to the table: pos[b] + i
+        for a per-row pos [b], pos + i for a scalar pos (an int or a
+        0-dim tensor: the dense cache, and the legacy prefill chunk)."""
+        ar = torch.arange(l, dtype=torch.int64, device=device)
+        if torch.is_tensor(pos) and pos.dim() == 1:
+            ids = pos.to(device=device, dtype=torch.int64)[:, None] + ar
+        else:
+            ids = (ar + (pos.to(device=device, dtype=torch.int64)
+                         if torch.is_tensor(pos) else int(pos))
+                   ).expand(b, l)
         return torch.clamp(ids, max=self.max_position - 1)
 
 
@@ -182,7 +194,8 @@ class GPTModel(nn.Module):
         if caches is not None:
             if position_ids is None:
                 position_ids = self.embeddings.cached_position_ids(
-                    caches[0].pos, input_ids.shape[1])
+                    caches[0].pos, input_ids.shape[1], input_ids.shape[0],
+                    input_ids.device)
             x = self.embeddings.embed(input_ids, position_ids)
             new_caches = []
             for layer, cache in zip(self.layers, caches):
@@ -270,3 +283,37 @@ class GPTForCausalLM(nn.Module):
         cfg = self.config
         return (cfg.num_hidden_layers, cfg.num_attention_heads,
                 cfg.hidden_size // cfg.num_attention_heads)
+
+    def generate(self, input_ids, max_new_tokens: int = 16,
+                 temperature: float = 1.0, top_k=None, top_p=None,
+                 eos_token_id=None, pad_token_id: int = 0,
+                 decode_strategy=None, num_beams: int = 4,
+                 length_penalty: float = 0.0, num_return_sequences: int = 1,
+                 use_compiled: bool = True, kv_cache_dtype=None,
+                 generator: Optional[torch.Generator] = None
+                 ) -> torch.Tensor:
+        """Autoregressive decoding over a static dense KV cache
+        (`CompiledGenerator`): input_ids [B, L] -> [B, L + max_new_tokens]
+        (the JAX method's arguments and errors). use_compiled=False, the
+        JAX package's eager debug loop, runs the same loop here and keeps
+        that loop's argument checks. Sampling draws from `generator`
+        when given, else from the model's own (`self.generator`)."""
+        if decode_strategy == "greedy_search":   # reference spelling
+            decode_strategy = "greedy"
+        if not use_compiled and (decode_strategy not in (None, "greedy")
+                                 or int(num_return_sequences) != 1
+                                 or top_p is not None):
+            raise NotImplementedError(
+                "the eager debug loop supports greedy/top-k decoding "
+                "only; beam_search/sampling/top_p/num_return_sequences "
+                "need the compiled path (use_compiled=True)")
+        gen = CompiledGenerator(
+            self, self._decode_cache_spec(), temperature=temperature,
+            top_k=top_k, top_p=top_p, eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id, decode_strategy=decode_strategy,
+            num_beams=num_beams, length_penalty=length_penalty,
+            num_return_sequences=num_return_sequences,
+            kv_cache_dtype=kv_cache_dtype)
+        return gen(input_ids, max_new_tokens,
+                   generator=self.generator if generator is None
+                   else generator)

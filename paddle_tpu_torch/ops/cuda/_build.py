@@ -48,6 +48,9 @@ KERNELS = {
     "ragged_paged_attention": {
         "ptt_ragged_paged_attention": [_P] * 9 + [_I] * 11 + [_P],
     },
+    "paged_decode_attention": {
+        "ptt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
+    },
     "grouped_paged_attention": {
         "ptt_grouped_phase1": [_P] * 14 + [_I] * 11 + [_P],
         "ptt_grouped_phase2": [_P] * 14 + [_I] * 11 + [_P],

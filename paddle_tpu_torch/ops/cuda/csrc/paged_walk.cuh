@@ -1,5 +1,6 @@
-// The paged K/V walk shared by K6 and K7 (ragged_paged_attention.cu) and
-// K10 (grouped_paged_attention.cu), in all three pool lanes.
+// The paged K/V walk shared by K6 and K7 (ragged_paged_attention.cu), K10
+// (grouped_paged_attention.cu) and K9 (paged_decode_attention.cu), in all
+// their pool lanes.
 //
 // One online-softmax arithmetic serves all three kernels: `attend_row`
 // folds one staged page into one query row's (m, l, acc), and every
@@ -52,6 +53,7 @@ struct Args {
   const int* group_id;      // K10 only
   const int* group_leader;  // K10 phase 1 only
   const int* group_cnt;     // K10 only
+  const float* mask;        // K9 only: additive f32 [B, H, mp * ps]
   float* pm;                // K10 partials
   float* pl;
   float* pacc;
@@ -190,13 +192,17 @@ __device__ __forceinline__ void load_pool_page(const Args& a, int page,
 // column d (and d + 32, ...) with the probabilities broadcast by shuffles.
 // Key kp is live iff the query is (qlive) and kp <= qmax (= pos + i).
 // DV: output columns per lane (D <= 32 * DV); PJ: keys per lane
-// (ps <= 32 * PJ).
-template <int DV, int PJ>
+// (ps <= 32 * PJ). kMasked (K9's user mask): the additive f32 mask row
+// `mrow` (indexed by key position) is added to each key's score after
+// the window mask, as the TPU kernel adds it; it is a template flag, so
+// the unmasked instantiations K6, K7 and K10 use are the code they were.
+template <int DV, int PJ, bool kMasked = false>
 __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
                                            const float* sV, int D, int ps,
                                            int kbase, bool qlive, int qmax,
                                            float scale, float* m, float* l,
-                                           float* acc, int lane) {
+                                           float* acc, int lane,
+                                           const float* mrow = nullptr) {
   const int kstride = D + 1;
   float s[PJ];
   float mcur = -CUDART_INF_F;
@@ -210,6 +216,8 @@ __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
       const bool live = qlive && (kbase + j <= qmax);
       s[i] = live ? dot * scale : kNegInf;
+      // __fadd_rn: never contracted into an FMA with the product above
+      if (kMasked) s[i] = __fadd_rn(s[i], __ldg(mrow + kbase + j));
       mcur = fmaxf(mcur, s[i]);
     }
   }

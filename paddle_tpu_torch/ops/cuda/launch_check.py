@@ -11,12 +11,16 @@ and K10 (both phases) in each pool lane — fp, fp8 (e4m3 pools) and q8
 operands at the serving geometry of `chip_smoke.py` phase 3 (16 rows of
 up to 32 queries, 12 heads of 64, pools of 993 pages of 16, seven rows
 sharing 16 pages), in bf16 and f32, and at rep 4, D 128 in bf16
-(`--quick`: the bf16 rep-1 batch only); and K8 and K8-q8 writing 512
-K/V rows into those pools; synchronises; and checks that K10's output
-equals K6's bit for bit in every lane, that K8 and K8-q8 equal their
-plain versions outside the trash page, that K1 matches its plain
-version, and that every output is finite. Exits 0 when all hold.
-`grouped_batch` and `lane_batch` also build the batches of
+(`--quick`: the bf16 rep-1 batch only); K9 in its fp and fp8 lanes on
+`decode_batch`'s legacy decode step (16 rows at q_len 1, two of them
+trash rows), without and with an additive mask; and K8 and K8-q8
+writing 512 K/V rows into those pools; synchronises; and checks that
+K10's output equals K6's bit for bit in every lane, that K9's unmasked
+output equals K6's at q_len 1 bit for bit, that K9's masked output
+matches its plain version, that K8 and K8-q8 equal their plain versions
+outside the trash page, that K1 matches its plain version, and that
+every output is finite. Exits 0 when all hold. `grouped_batch`,
+`decode_batch` and `lane_batch` also build the batches of
 `chip_smoke.py` phase 2 and of the card tests.
 """
 from __future__ import annotations
@@ -27,8 +31,24 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["grouped_batch", "lane_batch", "ragged", "ragged_reference",
-           "grouped", "main"]
+__all__ = ["grouped_batch", "decode_batch", "lane_batch", "ragged",
+           "ragged_reference", "grouped", "decode", "FLASH_SERVING_CASES",
+           "flash_serving_batch", "main"]
+
+# K3's inputs on the serving paths at GPT-124M's width (12 heads of 64):
+# case -> (batch, Lq, Lk, pos), pos a scalar cursor or None for per-row
+# positions. The legacy step's batch-1 prefill chunks over the gathered
+# view of 992 keys; the gather arm's unified step (16 rows of 32 queries,
+# per-row window); generate()'s prefill and its decode steps over the
+# dense cache of prompt 128 + 32 new tokens
+FLASH_SERVING_CASES = {
+    "legacy prefill Lq 8": (1, 8, 992, 500),
+    "legacy prefill Lq 16": (1, 16, 992, 500),
+    "legacy prefill Lq 32": (1, 32, 992, 500),
+    "gather arm step": (16, 32, 992, None),
+    "generate prefill": (8, 128, 160, 0),
+    "generate decode": (8, 1, 160, 140),
+}
 
 
 def grouped_batch(dev, dtype, h: int, hkv: int, d: int, seed: int = 0,
@@ -67,6 +87,59 @@ def grouped_batch(dev, dtype, h: int, hkv: int, d: int, seed: int = 0,
            mk(n_pages, ps, hkv, d),
            *(torch.from_numpy(a).to(dev) for a in (table, pos, q_len)))
     return ops, tuple(torch.from_numpy(a).to(dev) for a in grp)
+
+
+def decode_batch(dev, dtype, h: int, hkv: int, d: int, seed: int = 0,
+                 rows: int = 16, ps: int = 16, mp: int = 62,
+                 trash: int = 0):
+    """The legacy decode step's batch: q [rows, 1, h, d], pools of
+    rows * mp + 1 pages of `ps` with page tables in shuffled page order,
+    pos spread over 65-763 (phase 3's decode rows) and q_len 1 (for K6
+    at q_len 1). The last `trash` rows are idle rows of that step: an
+    all-trash table and a frozen pos near the end of the window. Returns
+    (q, k_pool, v_pool, page_table, pos, q_len)."""
+    rs = np.random.RandomState(seed)
+    n_pages = rows * mp + 1
+    table = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = table.reshape(rows, mp)
+    pos = rs.randint(65, 764, size=rows).astype(np.int32)
+    if trash:
+        table[rows - trash:] = 0
+        pos[rows - trash:] = mp * ps - 3
+    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(
+        dev, dtype)
+    return (mk(rows, 1, h, d), mk(n_pages, ps, hkv, d),
+            mk(n_pages, ps, hkv, d),
+            *(torch.from_numpy(a).to(dev) for a in (
+                table, pos, np.ones(rows, np.int32))))
+
+
+def flash_serving_batch(dev, dtype, case: str, seed: int = 0,
+                        h: int = 12, d: int = 64):
+    """K3's inputs for `case` of FLASH_SERVING_CASES: q [b, Lq, h, d],
+    k and v [b, Lk, h, d], and the bool window mask the decode cache
+    builds (`window_causal_mask`: [1, 1, Lq, Lk] for a scalar cursor,
+    [b, 1, Lq, Lk] for per-row positions drawn so every window fits)."""
+    from ...nlp.generation import window_causal_mask
+
+    b, lq, lk, pos = FLASH_SERVING_CASES[case]
+    rs = np.random.RandomState(seed)
+    mk = lambda n: torch.from_numpy(rs.randn(b, n, h, d).astype(
+        np.float32)).to(dev, dtype)
+    q, k, v = mk(lq), mk(lk), mk(lk)
+    if pos is None:
+        pos = torch.from_numpy(rs.randint(0, lk - lq + 1, size=b).astype(
+            np.int32)).to(dev)
+    return q, k, v, window_causal_mask(pos, lq, lk, dev)
+
+
+def decode(ops, mask=None):
+    """K9 on a `decode_batch` (its q_len unused): the fp lane, or the fp8
+    lane over e4m3 pools."""
+    from . import paged_attention as tpa
+
+    q, k, v, table, pos, _ = ops
+    return tpa.paged_decode_attention(q, k, v, table, pos, mask)
 
 
 def lane_batch(ops, lane: str):
@@ -186,6 +259,24 @@ def main(argv=None) -> int:
         print(f"K8 / K8-q8 [{tuple(upd.shape)}] {dtype}: equal to the plain "
               f"versions outside page 0: {same}")
         ok &= same
+        base = decode_batch(dev, dtype, h, hkv, d, trash=2)
+        lmax = base[3].shape[1] * base[1].shape[1]
+        mask = torch.randn(base[0].shape[0], h, 1, lmax, generator=g,
+                           device=dev)
+        for lane in ("fp", "fp8"):
+            ops, _ = lane_batch(base, lane)
+            o9, o9m, o6 = decode(ops), decode(ops, mask), ragged(ops, {})
+            torch.cuda.synchronize()
+            same = torch.equal(o9, o6)
+            err = (o9m.float() - tpa.paged_attention_reference(
+                *ops[:5], tpa._mask_to_additive(mask, *mask.shape[:2], lmax)
+            ).float()).abs().max().item()
+            finite = bool(torch.isfinite(o9.float()).all()
+                          and torch.isfinite(o9m.float()).all())
+            print(f"{lane} lane, K9 H={h} H_kv={hkv} D={d} {dtype}: K9 == "
+                  f"K6 at q_len 1 bit for bit: {same}; masked vs plain "
+                  f"max_abs_err {err:.3e}; finite: {finite}")
+            ok &= same and finite and err < 0.05
     print("launch_check:", "ok" if ok else "FAILED")
     return 0 if ok else 1
 

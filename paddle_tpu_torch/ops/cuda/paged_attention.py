@@ -1,7 +1,7 @@
-"""K6, K7 and K10: ragged paged attention, its int8 lane and its grouped
-two-phase walk — CUDA kernels, plain versions, wrappers — plus the paged
-KV writes they read from (K8, K8-q8) and the host model of their page
-reads.
+"""K6, K7, K9 and K10: ragged paged attention, its int8 lane, the
+single-token paged decode attention and the grouped two-phase walk —
+CUDA kernels, plain versions, wrappers — plus the paged KV writes they
+read from (K8, K8-q8) and the host model of their page reads.
 
 Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`:
 `ragged_paged_attention` (public, :1069) and
@@ -18,8 +18,12 @@ launched from `_grouped_attention_kernel`, are
 `quantize_kv_rowwise` (:1208), `paged_scatter` (:1251) and
 `paged_scatter_q8` (:1272), whose TPU kernels `_scatter_write_kernel`
 (:1294, K8) and `_scatter_q8_write_kernel` (:1343, K8-q8) are
-`csrc/paged_scatter.cu`; `dequantize_paged_q8` (:1040) and the
-references (:1018, :1057); `count_page_block_reads` (:1621).
+`csrc/paged_scatter.cu`; `paged_decode_attention` (:971), whose TPU
+kernel `_pa_kernel` (:243, launched from `_paged_attention_kernel`
+:310) is `csrc/paged_decode_attention.cu` (K9) in its fp and fp8 lanes,
+with `paged_attention_reference` (:943) and `_mask_to_additive` (:232);
+`dequantize_paged_q8` (:1040) and the references (:1018, :1057);
+`count_page_block_reads` (:1621).
 
 Semantics (shared by the kernels and the plain versions): q
 [B, lq, H, D]; pools [P, ps, H_kv, D] of q's dtype, of float8 e4m3
@@ -32,6 +36,12 @@ and its output is only finite. rep = H / H_kv query heads share one K/V
 stream. Masked keys get probability exactly 0, so stale slots in a page
 are harmless as long as they are finite — the serving engine
 zero-initialises its pools and scale pools.
+
+K9 is the q_len 1 case with an optional additive user mask
+[B, H, mp * ps], added to the scores after the window mask: without a
+mask its output equals K6's at q_len 1 (on the card bit for bit; the
+plain versions are one function). int8 pools have no K9 lane: the
+decode step sends them to K7 at q_len 1.
 
 The grouped op computes the same output. Rows whose page tables share a
 physical-page prefix declare it: `group_id` [B] (row -> group),
@@ -70,8 +80,10 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "count_page_block_reads", "quantize_kv_rowwise", "paged_scatter",
            "paged_scatter_reference", "paged_scatter_q8",
            "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
-           "LAUNCHES", "GROUPED_LAUNCHES", "QUANT_LAUNCHES",
-           "reset_launches", "NEG_INF"]
+           "paged_decode_attention", "paged_attention_reference",
+           "_mask_to_additive", "LAUNCHES", "GROUPED_LAUNCHES",
+           "QUANT_LAUNCHES", "DECODE_LAUNCHES", "reset_launches",
+           "NEG_INF"]
 
 FP8_DTYPE = torch.float8_e4m3fn
 FP8_MAX = 448.0    # the largest finite e4m3 value: the write's clip
@@ -87,6 +99,8 @@ GROUPED_LAUNCHES = {"phase1": 0, "phase2": 0}  # K10a, K10b
 # and K10 over int8 code + f32 scale pools (q8), and their writes
 QUANT_LAUNCHES = {"K6-fp8": 0, "K7": 0, "K10a-fp8": 0, "K10b-fp8": 0,
                   "K10a-q8": 0, "K10b-q8": 0, "K8": 0, "K8-q8": 0}
+# K9, the single-token decode walk, over pools of q's dtype and e4m3 pools
+DECODE_LAUNCHES = {"K9": 0, "K9-fp8": 0}
 NEG_INF = -1e30    # the masked score, as in the TPU kernel
 QBLK = 8           # queries per kernel block (the partials' row blocks)
 # (walk kernel, pool lane) -> its QUANT_LAUNCHES key
@@ -100,7 +114,7 @@ _POOL_CODE = {"fp": _build.POOL_CODES["q"], "fp8": _build.POOL_CODES["e4m3"],
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (GROUPED_LAUNCHES, QUANT_LAUNCHES):
+    for counts in (GROUPED_LAUNCHES, QUANT_LAUNCHES, DECODE_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -312,11 +326,12 @@ def dequantize_paged_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
         b, mp * ps, hkv, d)
 
 
-def _ragged_attend(q, kf, vf, pos, q_len):
+def _ragged_attend(q, kf, vf, pos, q_len, mask=None):
     """The references' shared tail (the JAX `_ragged_mask_attend` →
     `gqa_attend_reference`): a grouped softmax in f32 over the dense f32
     logical views kf, vf [B, lmax, H_kv, D] under the ragged causal
-    window."""
+    window, plus the additive f32 `mask` [B, H, lq, lmax] when given
+    (added after the window mask, as the kernels add it)."""
     b, lq, h, d = q.shape
     lmax, hkv = kf.shape[1], kf.shape[2]
     rep = h // hkv
@@ -327,6 +342,8 @@ def _ragged_attend(q, kf, vf, pos, q_len):
     qg = q.float().reshape(b, lq, hkv, rep, d)
     s = torch.einsum("blgrd,bmgd->bgrlm", qg, kf) * (1.0 / math.sqrt(d))
     s = torch.where(live[:, None, None], s, torch.full_like(s, NEG_INF))
+    if mask is not None:                     # heads h = g * rep + r
+        s = s + mask.float().reshape(b, hkv, rep, lq, lmax)
     a = torch.softmax(s, dim=-1)
     out = torch.einsum("bgrlm,bmgd->blgrd", a, vf)
     return out.reshape(b, lq, h, d).to(q.dtype)
@@ -366,23 +383,23 @@ def ragged_attention_reference_q8(q: torch.Tensor, k_pool: torch.Tensor,
 
 
 def _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale=None,
-           v_scale=None):
+           v_scale=None, name="ragged_paged_attention"):
     b, lq, h, d = q.shape
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
-        raise ValueError("ragged_paged_attention: k/v pools must both be "
+        raise ValueError(f"{name}: k/v pools must both be "
                          f"[P, ps, H_kv, D], got {tuple(k_pool.shape)} "
                          f"and {tuple(v_pool.shape)}")
     _, ps, hkv, dk = k_pool.shape
     if dk != d or h % hkv:
-        raise ValueError(f"ragged_paged_attention: q heads {h} x dim {d} "
+        raise ValueError(f"{name}: q heads {h} x dim {d} "
                          f"do not fit pools of {hkv} heads x dim {dk}")
     if page_table.shape[0] != b or pos.shape != (b,) or q_len.shape != (b,):
-        raise ValueError("ragged_paged_attention: page_table [B, mp], pos "
+        raise ValueError(f"{name}: page_table [B, mp], pos "
                          "and q_len [B] must match q's batch")
     lane = _lane(k_pool)
     if v_pool.dtype != k_pool.dtype or (lane == "fp"
                                         and q.dtype != k_pool.dtype):
-        raise TypeError("ragged_paged_attention kernel: the pools must "
+        raise TypeError(f"{name} kernel: the pools must "
                         "share q's dtype, or both be int8 (with scale "
                         f"pools) or float8_e4m3fn; got q {q.dtype}, pools "
                         f"{k_pool.dtype}, {v_pool.dtype}")
@@ -392,23 +409,22 @@ def _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale=None,
         if len(scales) != 2 or any(t.shape != k_pool.shape[:3]
                                    or t.dtype != torch.float32
                                    for t in scales):
-            raise TypeError("ragged_paged_attention kernel: int8 pools "
+            raise TypeError(f"{name} kernel: int8 pools "
                             "need f32 scale pools [P, ps, H_kv]")
     elif scales:
-        raise TypeError("ragged_paged_attention kernel: scale pools ride "
+        raise TypeError(f"{name} kernel: scale pools ride "
                         "int8 pools only")
-    for name, t in (("page_table", page_table), ("pos", pos),
+    for what, t in (("page_table", page_table), ("pos", pos),
                     ("q_len", q_len)):
         if t.dtype != torch.int32:
-            raise TypeError(f"ragged_paged_attention: {name} must be "
-                            f"int32, got {t.dtype}")
+            raise TypeError(f"{name}: {what} must be int32, got {t.dtype}")
     devs = {t.device for t in (q, k_pool, v_pool, page_table, pos, q_len,
                                *scales)}
     if len(devs) != 1:
-        raise ValueError(f"ragged_paged_attention: tensors on {devs}")
+        raise ValueError(f"{name}: tensors on {devs}")
     vec = 16 // k_pool.element_size()
     if d % vec or d > 256 or ps > 128:
-        raise ValueError(f"ragged_paged_attention kernel: head dim {d} "
+        raise ValueError(f"{name} kernel: head dim {d} "
                          f"must be a multiple of {vec} and <= 256, page "
                          f"size {ps} <= 128")
 
@@ -505,6 +521,103 @@ def ragged_paged_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
                         f"got {k_pool.dtype}, {v_pool.dtype}")
     return _ragged(q, k_pool, v_pool, k_scale.float(), v_scale.float(),
                    page_table, pos, q_len)
+
+
+# -- K9: the single-token decode walk ----------------------------------------
+def _mask_to_additive(mask: torch.Tensor, b: int, h: int, lmax: int
+                      ) -> torch.Tensor:
+    """User attn_mask (bool, or additive float), broadcastable to
+    [B, H, 1, lmax] -> additive f32 [B, H, lmax], contiguous: a bool mask
+    becomes 0 where True and -1e30 where False (the JAX function)."""
+    if mask.dtype == torch.bool:
+        mask = torch.where(mask, torch.zeros((), device=mask.device),
+                           torch.full((), NEG_INF, device=mask.device))
+    out = torch.broadcast_to(mask.float(), (b, h, 1, lmax))
+    return out.reshape(b, h, lmax).contiguous()
+
+
+def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
+                              v_pool: torch.Tensor, page_table: torch.Tensor,
+                              pos: torch.Tensor,
+                              mask: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """Plain PyTorch version of K9 (the JAX function): gather every row's
+    pages into the dense logical view (e4m3 pools upconverted), then a
+    grouped softmax in f32 over keys j <= pos[b] with the additive f32
+    `mask` [B, H, mp * ps] added after the window mask. It is
+    `ragged_attention_reference` at q_len 1, mask added; the output is in
+    q's dtype."""
+    b, _, h, d = q.shape
+    _, ps, hkv, _ = k_pool.shape
+    lmax = page_table.shape[1] * ps
+    tab = page_table.to(torch.int64)
+    kf = _pages_f32(k_pool, None, tab).reshape(b, lmax, hkv, d)
+    vf = _pages_f32(v_pool, None, tab).reshape(b, lmax, hkv, d)
+    ones = torch.ones(b, dtype=torch.int32, device=q.device)
+    return _ragged_attend(q, kf, vf, pos, ones,
+                          None if mask is None else mask.reshape(b, h, 1,
+                                                                 lmax))
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor, page_table: torch.Tensor,
+                           pos: torch.Tensor,
+                           mask: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
+    """Single-token paged decode attention (the JAX op): q [B, 1, H, D]
+    over pools [P, ps, H_kv, D] of q's dtype or float8 e4m3; row b
+    attends positions 0 .. pos[b] (pos [B], or a scalar for every row:
+    the new token's K/V was just written at pos). `mask`, optional: a
+    user attention mask, bool or additive float, broadcastable to
+    [B, H, 1, mp * ps], composed with the window in the kernel. On the
+    card this is K9 (counted in DECODE_LAUNCHES: "K9", or "K9-fp8" for
+    e4m3 pools); int8 pools, D not a multiple of the pool's 16-byte
+    vector, or tensors on several devices raise there. On the CPU it is
+    `paged_attention_reference`."""
+    b, l, h, d = q.shape
+    if l != 1:
+        raise ValueError(
+            f"paged_decode_attention is a single-token decode kernel; got "
+            f"l={l} (chunked prefill stays on the gather path)")
+    lmax = page_table.shape[1] * k_pool.shape[1]
+    posv = pos.to(torch.int32) if torch.is_tensor(pos) else torch.tensor(
+        pos, dtype=torch.int32, device=q.device)
+    if posv.dim() == 0:
+        posv = posv.reshape(1).expand(b)
+    if mask is not None:
+        mask = _mask_to_additive(mask, b, h, lmax)
+    if q.device.type == "cpu":
+        return paged_attention_reference(q, k_pool, v_pool, page_table,
+                                         posv, mask)
+    if q.device.type != "cuda":
+        raise ValueError(
+            f"paged_decode_attention: no kernel for device {q.device}")
+    if k_pool.dtype == torch.int8:
+        raise TypeError("paged_decode_attention kernel: int8 pools have no "
+                        "K9 lane; attend them with ragged_paged_attention_q8"
+                        " at q_len 1 (K7)")
+    posv = posv.contiguous()
+    _check(q, k_pool, v_pool, page_table, posv, posv,
+           name="paged_decode_attention")
+    if mask is not None and mask.device != q.device:
+        raise ValueError(f"paged_decode_attention: mask on {mask.device}, "
+                         f"q on {q.device}")
+    q, k_pool, v_pool, page_table = _contiguous(q, k_pool, v_pool,
+                                                page_table)
+    _check_aligned(k_pool, v_pool)
+    out = torch.empty_like(q)
+    n_pages, ps, hkv, _ = k_pool.shape
+    lane = _lane(k_pool)
+    lib = _build.load("paged_decode_attention")
+    err = lib.ptt_paged_decode_attention(
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        page_table.data_ptr(), posv.data_ptr(), _ptr(mask), out.data_ptr(),
+        b, h, hkv, d, ps, page_table.shape[1], n_pages,
+        _build.dtype_code(q.dtype), _POOL_CODE[lane], q.device.index,
+        _build.stream_ptr(q.device))
+    _build.check(lib, err, "paged_decode_attention kernel launch")
+    DECODE_LAUNCHES["K9" if lane == "fp" else "K9-fp8"] += 1
+    return out
 
 
 # -- K10: the grouped walk ----------------------------------------------------

@@ -1,8 +1,9 @@
 """ServingEngine: continuous batching over a paged KV pool.
 
 Counterpart of `paddle_tpu/serving/engine.py` on its unified path
-(`_build_unified` :1077, driven by `_unified_step` :2534), with the JAX
-engine's defaults: `ServingEngine(model)` means the same engine in both
+(`_build_unified` :1077, driven by `_unified_step` :2534) and its legacy
+alternating path (`_advance_prefills` :2183, `_decode` :2254), with the
+JAX engine's defaults: `ServingEngine(model)` means the same engine in both
 packages — prefix cache, grouped walk, preemption and a host tier of
 `num_pages - 1` pages all on. The engine owns, per layer, one shared K/V
 pool [num_pages, page_size, H_kv, D] (zero-initialised: trash-page keys
@@ -11,7 +12,8 @@ are masked, never skipped, so they must be finite), a page table
 admitted into a slot allocates the pages its prompt plus output budget
 needs.
 
-Every step runs ONE fixed-shape [num_slots, chunk_len] forward in which
+The unified step (`unified=None`/on, gate `PADDLE_TPU_UNIFIED_STEP=on|off`)
+runs ONE fixed-shape [num_slots, chunk_len] forward in which
 each row carries its own live query count `q_len`: decoding rows feed
 the token sampled from their held logits at q_len 1, mid-prefill rows
 feed up to chunk_len prompt tokens, idle rows ride dead at q_len 0
@@ -27,6 +29,31 @@ n_layers launches. The output is the same bit for bit; only the page
 reads differ, and `count_page_block_reads` feeds the modeled reads of
 both walks into the metrics. The step runs eagerly; capturing it in a
 CUDA graph is later work.
+
+The legacy alternating step (`unified=False`, or
+PADDLE_TPU_UNIFIED_STEP=off) is the JAX engine's A/B control: each round
+first runs ONE prefill chunk for every mid-prefill slot, a batch-1
+forward of `chunk_bucket` tokens (full `chunk_len` chunks, then one
+power-of-two tail bucket of at least `MIN_CHUNK`; the padding's K/V
+lands past the prompt or on the trash page) that holds the logits of
+its last real token, then ONE decode forward over every slot: rows in
+DECODE feed the token sampled from their held logits, every other row
+feeds token 0 through a page table that points it at the trash page,
+and only DECODE rows advance. Per layer a chunk runs K1 twice and
+attends the gathered pages through flash attention (K3) under the
+window mask; the decode forward attends through paged decode attention
+(K9; K7 at q_len 1 over int8 pools, whose writes are K8-q8; e4m3 pools
+take K9's fp8 lane and K8). No program is built per bucket: the distinct
+buckets run are kept in `prefill_buckets`. Prefix cache, copy-on-write,
+preemption with the host tier, the quantized pools and `drain()` work
+there as on the unified step.
+
+`attn_impl` ("kernel" default, or "gather"; gate PADDLE_TPU_PAGED_ATTN)
+switches every paged attend to the gather branch: the rows' pages are
+gathered into the dense view and attended through K3 under the window
+mask. The grouped walk exists only on the unified kernel path: with
+`unified=False` or `attn_impl="gather"` it is dropped silently, as in the
+JAX engine.
 
 The radix prefix cache (`serving.prefix`, on by default) attaches
 cached prefix pages at admission; a mid-page match is copied into a
@@ -61,9 +88,9 @@ swap-out and swap-in, prefix spill and restore — carries a page's codes
 and scales as one unit, and moves e4m3 pages through their bytes.
 
 Not ported yet, and refused at construction with the ROADMAP item
-(queue 1, item 10): the legacy alternating step (`unified=False`),
-speculative decoding, grammar, adapters, tensor parallelism, the
-megakernel, and the observability and SLO layers.
+(queue 1, item 10): speculative decoding, grammar, adapters, tensor
+parallelism, the megakernel, and the observability and SLO layers. The
+JAX engine's poison quarantine (`suppress`) belongs to the faults item.
 """
 from __future__ import annotations
 
@@ -77,25 +104,26 @@ import torch
 from torch.profiler import record_function
 
 from ..core.device import DeviceLike, make_generator, resolve_device
-from ..nlp.generation import _top_p_filter, _unpack_caches
+from ..nlp.generation import (_categorical, _top_p_filter, _unpack_caches,
+                              resolve_paged_attn_impl)
 from ..ops.cuda.paged_attention import (FP8_DTYPE, _as_bytes,
                                         count_page_block_reads)
 from .errors import DeadlineExceeded, EngineClosed
 from .metrics import ServingMetrics
-from .paging import HostPagePool, PagePool, TRASH_PAGE, pages_needed
+from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
+                     pages_needed)
 from .prefix import RadixPrefixCache, shared_prefix_groups
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
 
-__all__ = ["ServingEngine", "unified_forward", "resolve_grouped_flag",
-           "resolve_preempt_flag", "resolve_kv_dtype", "KV_DTYPE_MODES"]
+__all__ = ["ServingEngine", "unified_forward", "legacy_forward",
+           "resolve_grouped_flag", "resolve_preempt_flag",
+           "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES"]
 
 KV_DTYPE_MODES = ("fp", "int8", "fp8")
 
 # option -> (values that mean "off", where the port stands)
 _UNPORTED = {
-    "unified": ((None, True), "the legacy alternating step and K9 "
-                "(ROADMAP.md queue 1 item 10, queue 2 K9)"),
     "spec": ((None, False), "speculative decoding "
              "(ROADMAP.md queue 1 item 10)"),
     "grammar": ((None, False), "grammar-constrained decoding "
@@ -128,6 +156,14 @@ def resolve_grouped_flag(override=None) -> bool:
     PADDLE_TPU_GROUPED_ATTN=on|off, read at engine construction. Outputs
     are bit-identical either way; groups are per-step operand data."""
     return _resolve_on_off(override, "PADDLE_TPU_GROUPED_ATTN")
+
+
+def resolve_unified_flag(override=None) -> bool:
+    """Whether the engine runs the unified ragged step (default on) or
+    the legacy alternating prefill-chunk / decode step: an explicit
+    override wins, otherwise PADDLE_TPU_UNIFIED_STEP=on|off, read at
+    engine construction."""
+    return _resolve_on_off(override, "PADDLE_TPU_UNIFIED_STEP")
 
 
 def resolve_preempt_flag(override=None) -> bool:
@@ -192,23 +228,23 @@ def _sample_rows(logits: torch.Tensor, generator: torch.Generator,
                     torch.full_like(l, -1e30), l)
     l = torch.where((top_p < 1.0)[:, None], _top_p_filter(l, top_p[:, None]),
                     l)
-    u = torch.rand(l.shape, generator=generator, device=l.device)
-    gumbel = -torch.log(-torch.log(torch.clamp(u, min=1e-20)))
-    return torch.where(greedy, g, torch.argmax(l + gumbel, dim=-1))
+    return torch.where(greedy, g, _categorical(l, generator))
 
 
 def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                     page_table: torch.Tensor, q_len: torch.Tensor,
                     is_decode: torch.Tensor, last_logits: torch.Tensor,
-                    group=None) -> torch.Tensor:
+                    group=None, attn_impl: Optional[str] = None
+                    ) -> torch.Tensor:
     """The model half of one unified step: run tokens [S, W] through the
     model over the per-layer (k, v) `pools` (written in place) and
     return the new held logits [S, V] f32 — a decode row's from its
     column 0, a prefill row's from its last live column, a dead row's
     unchanged. Only those rows go through the LM head. `group`, the
     step's (group_id, group_leader, group_cnt), routes attention through
-    the grouped walk."""
-    caches = _unpack_caches(pools, pos, page_table, q_len, group)
+    the grouped walk; `attn_impl` pins the paged attend ("kernel" or
+    "gather")."""
+    caches = _unpack_caches(pools, pos, page_table, q_len, group, attn_impl)
     h, _ = model.gpt(tokens, caches=caches)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = torch.where(is_decode, torch.zeros_like(q_len),
@@ -217,14 +253,31 @@ def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     return torch.where((q_len > 0)[:, None], row_last, last_logits)
 
 
+def legacy_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
+                   page_table: torch.Tensor, last: torch.Tensor,
+                   attn_impl: Optional[str] = None) -> torch.Tensor:
+    """The model half of one legacy program: run tokens [B, l] through
+    the model over the per-layer pools (written in place) at per-row
+    positions pos [B] int32 through page_table [B, mp], and return the
+    logits of column last[b] of each row, f32 [B, V]. A prefill chunk is
+    B = 1 (the slot's table row) with last = its last real token; the
+    decode step is every slot at l = 1."""
+    caches = _unpack_caches(pools, pos, page_table, attn_impl=attn_impl)
+    h, _ = model.gpt(tokens, caches=caches)
+    rows = torch.arange(tokens.shape[0], device=tokens.device)
+    return model.lm_head(h[rows, last]).float()
+
+
 class ServingEngine:
     """Online inference engine: submit requests at any time, pump
     `step()` (or call `run()`/`generate()`); requests join free slots
     when their page budget fits the pool (or by preempting a less
     important resident), prefill chunk by chunk, decode together in the
-    one unified step, and retire on EOS, max-tokens, timeout,
-    placement deadline or cancellation. `drain()` shuts down
-    gracefully."""
+    one unified step (or alternate prefill chunks with one decode step,
+    `unified=False`), and retire on EOS, max-tokens, timeout, placement
+    deadline or cancellation. `drain()` shuts down gracefully."""
+
+    MIN_CHUNK = 8     # the legacy step's smallest prefill bucket
 
     def __init__(self, model, *, num_slots: int = 8, max_len: int = 256,
                  page_size: int = 16, num_pages: Optional[int] = None,
@@ -232,12 +285,11 @@ class ServingEngine:
                  prefix_cache: bool = True, device: DeviceLike = None,
                  seed: int = 0, clock=time.monotonic, grouped=None,
                  preempt=None, host_pages: Optional[int] = None,
-                 unified=None, kv_dtype=None, spec=None, grammar=None,
-                 adapters=None, mesh=None, megakernel=None, obs=None,
-                 slo=None):
-        options = dict(unified=unified, spec=spec, grammar=grammar,
-                       adapters=adapters, mesh=mesh, megakernel=megakernel,
-                       obs=obs, slo=slo)
+                 unified=None, attn_impl: Optional[str] = None,
+                 kv_dtype=None, spec=None, grammar=None, adapters=None,
+                 mesh=None, megakernel=None, obs=None, slo=None):
+        options = dict(spec=spec, grammar=grammar, adapters=adapters,
+                       mesh=mesh, megakernel=megakernel, obs=obs, slo=slo)
         for name, value in options.items():
             off, what = _UNPORTED[name]
             if not any(value is o or value == o for o in off):
@@ -265,15 +317,26 @@ class ServingEngine:
         self.num_pages = (self.num_slots * self.max_pages + 1
                           if num_pages is None else int(num_pages))
         self.chunk_len = int(chunk_len)
-        if self.chunk_len < 1:
-            raise ValueError("chunk_len must be >= 1")
+        self.unified = resolve_unified_flag(unified)
+        # the legacy step's prefill buckets start at MIN_CHUNK
+        min_chunk = 1 if self.unified else self.MIN_CHUNK
+        if self.chunk_len < min_chunk:
+            raise ValueError(f"chunk_len must be >= {min_chunk}")
+        self.attn_impl = resolve_paged_attn_impl(attn_impl)
         # every step may pack the full [num_slots, chunk_len] shape
         self.token_budget = self.num_slots * self.chunk_len
         self.scheduler = Scheduler(self.num_slots, max_queue=max_queue)
-        self.grouped = resolve_grouped_flag(grouped)
+        # only the unified kernel step has a grouped walk: elsewhere the
+        # flag drops silently (the JAX engine's rule)
+        self.grouped = (resolve_grouped_flag(grouped) and self.unified
+                        and self.attn_impl == "kernel")
         self.preempt = resolve_preempt_flag(preempt)
         self.metrics = ServingMetrics()
         self.metrics.grouped = self.grouped
+        self.metrics.unified = self.unified
+        self.metrics.attn_impl = self.attn_impl
+        # the distinct prefill buckets the legacy step has run
+        self.prefill_buckets = set()
         self._clock = clock
         self._id_counter = itertools.count()
         self._requests: Dict[str, Request] = {}
@@ -754,7 +817,39 @@ class ServingEngine:
                  group=None):
         return unified_forward(self.model, self._pools, tokens, pos,
                                page_table, q_len, is_decode,
-                               self._last_logits, group)
+                               self._last_logits, group, self.attn_impl)
+
+    def _sample_next(self) -> torch.Tensor:
+        """Every slot's next token from its held logits: argmax when all
+        residents decode greedily, else per-slot sampling."""
+        temps, topk, topp, greedy = self._sampling_vectors()
+        if self._all_greedy:
+            return torch.argmax(self._last_logits, dim=-1)
+        return _sample_rows(self._last_logits, self._generator, temps, topk,
+                            topp, greedy)
+
+    def _emit_tokens(self, slots, nxt: np.ndarray,
+                     finished: List[RequestOutput]):
+        """Emit slot s's sampled token nxt[s] for every slot of `slots`
+        still in DECODE, and retire the rows that hit EOS or their
+        budget."""
+        running = self.scheduler.running
+        now = self._clock()
+        for slot in slots:
+            req = running.get(slot)
+            if req is None or req.state is not RequestState.DECODE:
+                continue
+            tok = int(nxt[slot])
+            prev_t = req._last_token_t
+            req._emit(tok, now)
+            self.metrics.on_token(req, now)
+            if prev_t is not None:
+                self.metrics.on_inter_token(now - prev_t)
+            sp = req.sampling
+            if sp.eos_token_id is not None and tok == sp.eos_token_id:
+                self._finish_and_free(req, "stop", now, finished)
+            elif len(req.output_tokens) >= sp.max_new_tokens:
+                self._finish_and_free(req, "length", now, finished)
 
     @torch.no_grad()
     def _unified_step(self, finished: List[RequestOutput]):
@@ -793,7 +888,7 @@ class ServingEngine:
             flat, reads, sizes = count_page_block_reads(
                 self._pt_host, self._pos, q_len, page_size=self.page_size)
         self.metrics.on_grouped_step(flat, reads, sizes)
-        temps, topk, topp, greedy = self._sampling_vectors()
+        self._sampling_vectors()     # host-to-device rebuild, untimed
         t0 = time.perf_counter()
         with record_function("serving::unified_step"):
             dev = self.device
@@ -801,11 +896,7 @@ class ServingEngine:
             ql = torch.from_numpy(q_len).to(dev)
             group = (None if groups is None else
                      torch.from_numpy(np.stack(groups)).to(dev).unbind(0))
-            if self._all_greedy:
-                nxt = torch.argmax(self._last_logits, dim=-1)
-            else:
-                nxt = _sample_rows(self._last_logits, self._generator,
-                                   temps, topk, topp, greedy)
+            nxt = self._sample_next()
             toks = torch.from_numpy(tokens).to(dev)
             toks[:, 0] = torch.where(isd, nxt, toks[:, 0])
             self._last_logits = self._forward(
@@ -816,7 +907,6 @@ class ServingEngine:
         self._pos += q_len
         n_prefill = int(sum(grants.values()))
         self.metrics.on_unified_step(n_prefill, len(decode_slots), wall)
-        now = self._clock()
         for slot, take in grants.items():
             req = running[slot]
             cur = self._prefill_cursor[req.request_id] + take
@@ -826,39 +916,124 @@ class ServingEngine:
                 # samples its next token next step
                 self._prefill_cursor.pop(req.request_id, None)
                 req.state = RequestState.DECODE
-        for slot in decode_slots:
-            req = running.get(slot)
-            if req is None or req.state is not RequestState.DECODE:
+        self._emit_tokens(decode_slots, nxt, finished)
+
+    # -- the legacy alternating step -----------------------------------------
+    def _prefill_forward(self, tokens, pos, page_table, last):
+        """One prefill chunk's forward (batch 1): its held-logits row."""
+        return legacy_forward(self.model, self._pools, tokens, pos,
+                              page_table, last, self.attn_impl)
+
+    def _decode_forward(self, tokens, pos, page_table):
+        """The decode step's forward over every slot: new logits [S, V]."""
+        return legacy_forward(self.model, self._pools, tokens, pos,
+                              page_table, torch.zeros_like(pos,
+                                                           dtype=torch.int64),
+                              self.attn_impl)
+
+    @torch.no_grad()
+    def _prefill_chunk(self, slot: int, req: Request):
+        """One batch-1 chunk of `req`'s prompt from its cursor, padded to
+        its `chunk_bucket`: the K/V of its tokens go into the slot's
+        pages, the logits of its last real token into the slot's held
+        row, and the slot's position to cursor + real."""
+        plen = int(req.prefill_ids.size)
+        cursor = self._prefill_cursor[req.request_id]
+        bucket = chunk_bucket(plen - cursor, self.chunk_len, self.MIN_CHUNK)
+        real = min(plen - cursor, bucket)
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :real] = req.prefill_ids[cursor:cursor + real]
+        self.prefill_buckets.add(bucket)
+        dev = self.device
+        t0 = time.perf_counter()
+        with record_function(f"serving::prefill[{req.request_id}"
+                             f"@{cursor}+{bucket}]"):
+            row = self._prefill_forward(
+                torch.from_numpy(tokens).to(dev),
+                torch.tensor([cursor], dtype=torch.int32, device=dev),
+                self._page_table()[slot:slot + 1],
+                torch.tensor([real - 1], device=dev))
+            self._last_logits[slot] = row[0]
+        self._pos[slot] = cursor + real
+        self._prefill_cursor[req.request_id] = cursor + real
+        self.metrics.on_prefill_chunk(real, time.perf_counter() - t0)
+
+    def _advance_prefills(self) -> int:
+        """One chunk for EACH mid-prefill slot, in slot order; a slot
+        whose prompt is done turns to DECODE. Returns the chunks run."""
+        chunks = 0
+        for slot, req in sorted(self.scheduler.running.items()):
+            if req.state is not RequestState.PREFILL:
                 continue
-            tok = int(nxt[slot])
-            prev_t = req._last_token_t
-            req._emit(tok, now)
-            self.metrics.on_token(req, now)
-            if prev_t is not None:
-                self.metrics.on_inter_token(now - prev_t)
-            sp = req.sampling
-            if sp.eos_token_id is not None and tok == sp.eos_token_id:
-                self._finish_and_free(req, "stop", now, finished)
-            elif len(req.output_tokens) >= sp.max_new_tokens:
-                self._finish_and_free(req, "length", now, finished)
+            self._prefill_chunk(slot, req)
+            chunks += 1
+            if self._prefill_cursor[req.request_id] >= req.prefill_ids.size:
+                self._prefill_cursor.pop(req.request_id, None)
+                req.state = RequestState.DECODE
+        return chunks
+
+    @torch.no_grad()
+    def _decode(self, finished: List[RequestOutput]):
+        """The fixed-shape decode step over every slot: sample each
+        slot's token from its held logits (token 0 for rows not in
+        DECODE), forward all slots one position through a page table
+        that points every non-DECODE row at the trash page, keep the new
+        logits of DECODE rows and advance only their positions."""
+        running = self.scheduler.running
+        active = np.zeros((self.num_slots,), bool)
+        for slot, req in running.items():
+            active[slot] = req.state is RequestState.DECODE
+        if not active.any():
+            return
+        dev = self.device
+        self._sampling_vectors()     # host-to-device rebuild, untimed
+        t0 = time.perf_counter()
+        with record_function("serving::decode_step"):
+            act = torch.from_numpy(active).to(dev)
+            table = torch.from_numpy(np.where(
+                active[:, None], self._pt_host, TRASH_PAGE).astype(
+                    np.int32)).to(dev)
+            nxt = torch.where(act, self._sample_next(), 0)
+            new = self._decode_forward(
+                nxt[:, None], torch.from_numpy(self._pos).to(dev), table)
+            self._last_logits = torch.where(act[:, None], new,
+                                            self._last_logits)
+            nxt = nxt.cpu().numpy()      # sync: the host sees the tokens
+        wall = time.perf_counter() - t0
+        self._pos += active.astype(np.int32)
+        self.metrics.on_decode_step(wall)
+        self._emit_tokens(np.nonzero(active)[0], nxt, finished)
+
+    def _run_round(self, finished: List[RequestOutput]) -> int:
+        """One round's model work: the unified step, or the legacy
+        prefill chunks then the decode step. Returns the prefill chunks
+        run ahead of the decode (legacy only)."""
+        if self.unified:
+            self._unified_step(finished)
+            return 0
+        chunks = self._advance_prefills()
+        self._decode(finished)
+        return chunks
 
     def step(self) -> List[RequestOutput]:
         """One scheduler round: evict (timeout / cancel / expired
         placement deadline), admit queued requests whose pages fit,
         preempt for a strictly more important blocked head, then run the
-        unified step. Returns the requests that finished this round."""
+        round's model work (`_run_round`). Returns the requests that
+        finished this round."""
         finished: List[RequestOutput] = []
         now = self._clock()
         self._evict(now, finished)
         self._admit(now)
         self._preempt_for_overload(now)
-        self._unified_step(finished)
+        chunks = self._run_round(finished)
         self.metrics.on_step(self.scheduler.queue_depth,
                              self.pool.used_pages, self.pool.cached_pages,
                              self.num_pages - 1,
                              pages_swapped=self.pool.swapped_pages,
                              host_pages_used=self.host_pool.used_pages,
-                             host_pages_total=self.host_pages)
+                             host_pages_total=self.host_pages,
+                             stall_chunks=chunks)
         return finished
 
     # -- shutdown ----------------------------------------------------------

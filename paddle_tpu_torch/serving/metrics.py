@@ -1,7 +1,11 @@
 """Serving telemetry (counterpart of `paddle_tpu/serving/metrics.py`,
 cut to what the engine records in this slice): time to first token,
 inter-token latency, tokens/s over the busy window, step wall time,
-packed tokens per step, pool and host-tier use (pages, and bytes by the
+packed tokens per step, the legacy step's prefill chunks (and the host
+time to issue each, `prefill_chunk_s`), the wall
+time of every decode program (`decode_step_s`: the legacy decode step,
+or a unified step, as in the JAX package), the `unified` and
+`attn_impl` tags, pool and host-tier use (pages, and bytes by the
 engine's `page_bytes`: the JAX engine's `pool.bytes_per_page` and
 `host_pool.bytes_total` gauges, with the pools' `kv_dtype`),
 preemptions and swap traffic, and the grouped walk's modeled
@@ -75,6 +79,17 @@ class ServingMetrics:
         self.tokens_generated = 0
         self.prompt_tokens = 0
         self.unified_steps = 0
+        # engine rounds (`on_step`), and the legacy step's prefill chunks
+        # and the rounds in which chunks ran ahead of the decode step
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+        self.prefill_chunk_tokens = 0
+        self.prefill_stall_steps = 0
+        # which step the engine runs (unified or the legacy alternating
+        # one) and which paged attend ("kernel" | "gather"); set by the
+        # engine at construction
+        self.unified: Optional[bool] = None
+        self.attn_impl: Optional[str] = None
         self.packed_prefill_tokens = 0
         self.packed_decode_tokens = 0
         self.pool_pages_used = 0
@@ -103,6 +118,11 @@ class ServingMetrics:
         self.inter_token_s = Histogram()
         self.queue_wait_s = Histogram()
         self.step_s = Histogram()
+        # synchronised wall time of one decode program: the legacy decode
+        # step, or a unified step (the same histogram, for the A/B)
+        self.decode_step_s = Histogram()
+        # host time to issue one legacy prefill chunk
+        self.prefill_chunk_s = Histogram()
         self.packed_tokens = Histogram()
         self._first_admit_t: Optional[float] = None
         self._last_token_t: Optional[float] = None
@@ -156,6 +176,23 @@ class ServingMetrics:
             self.packed_tokens.record(int(prefill_tokens)
                                       + int(decode_tokens))
             self.step_s.record(wall_s)
+            self.decode_step_s.record(wall_s)
+
+    def on_prefill_chunk(self, n_tokens: int, wall_s: float):
+        """The legacy step ran one prefill chunk of `n_tokens` real
+        prompt tokens, issued in `wall_s` seconds (host clock, no device
+        synchronisation: the host's cost of the chunk)."""
+        with self._lock:
+            self.prefill_chunks += 1
+            self.prefill_chunk_tokens += int(n_tokens)
+            self.prefill_chunk_s.record(wall_s)
+
+    def on_decode_step(self, wall_s: float):
+        """The legacy step ran one decode program in `wall_s` seconds
+        (host clock around a step that ends in a device
+        synchronisation)."""
+        with self._lock:
+            self.decode_step_s.record(wall_s)
 
     def on_grouped_step(self, flat_reads: int, actual_reads: int,
                         group_sizes):
@@ -187,8 +224,14 @@ class ServingMetrics:
 
     def on_step(self, queue_depth: int, pages_used: int, pages_cached: int,
                 pages_total: int, pages_swapped: int = 0,
-                host_pages_used: int = 0, host_pages_total: int = 0):
+                host_pages_used: int = 0, host_pages_total: int = 0,
+                stall_chunks: int = 0):
+        """One engine round ended; `stall_chunks` prefill chunks of the
+        legacy step ran ahead of its decode program."""
         with self._lock:
+            self.decode_steps += 1
+            if stall_chunks:
+                self.prefill_stall_steps += 1
             self.queue_depth = queue_depth
             self.pool_pages_used = pages_used
             self.pool_pages_cached = pages_cached
@@ -220,7 +263,15 @@ class ServingMetrics:
                 "tokens_generated": self.tokens_generated,
                 "prompt_tokens": self.prompt_tokens,
                 "tokens_per_s": tps,
+                "unified": self.unified,
+                "attn_impl": self.attn_impl,
                 "unified_steps": self.unified_steps,
+                "decode_steps": self.decode_steps,
+                "prefill_chunks": self.prefill_chunks,
+                "prefill_chunk_tokens": self.prefill_chunk_tokens,
+                "prefill_chunk_s": self.prefill_chunk_s.snapshot(),
+                "prefill_stall_steps": self.prefill_stall_steps,
+                "decode_step_s": self.decode_step_s.snapshot(),
                 "packed_prefill_tokens": self.packed_prefill_tokens,
                 "packed_decode_tokens": self.packed_decode_tokens,
                 "ttft_s": self.ttft_s.snapshot(),

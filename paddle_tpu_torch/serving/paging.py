@@ -32,7 +32,8 @@ from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional
 
-__all__ = ["PagePool", "HostPagePool", "TRASH_PAGE", "pages_needed"]
+__all__ = ["PagePool", "HostPagePool", "TRASH_PAGE", "pages_needed",
+           "chunk_bucket"]
 
 TRASH_PAGE = 0      # reserved: never allocated, absorbs masked writes
 
@@ -300,3 +301,20 @@ def pages_needed(prompt_len: int, max_new_tokens: int,
     """Admission budget: pages covering every position the request can
     occupy (prompt + full output allowance)."""
     return -(-(int(prompt_len) + int(max_new_tokens)) // int(page_size))
+
+
+def chunk_bucket(remaining: int, chunk_len: int, min_chunk: int = 8
+                 ) -> int:
+    """Length of the legacy step's next prefill chunk: full `chunk_len`
+    chunks while the remainder is large, then ONE power-of-two bucket
+    >= the tail, clamped to [min_chunk, chunk_len] (the JAX function).
+    Over all prompts the buckets are {chunk_len} and the
+    min_chunk * 2**i <= chunk_len."""
+    if remaining <= 0:
+        raise ValueError("remaining must be > 0")
+    if remaining >= chunk_len:
+        return chunk_len
+    b = min_chunk
+    while b < remaining:
+        b *= 2
+    return min(b, chunk_len)

@@ -11,7 +11,13 @@ from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import layer_norm as tln
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
-from paddle_tpu_torch.ops.cuda.launch_check import (grouped, grouped_batch,
+from paddle_tpu_torch.nn import functional as PF
+from paddle_tpu_torch.nn.functional.attention import (_mask_to_kernel_operands,
+                                                      _sdpa_ref)
+from paddle_tpu_torch.ops.cuda.launch_check import (FLASH_SERVING_CASES,
+                                                    decode, decode_batch,
+                                                    flash_serving_batch,
+                                                    grouped, grouped_batch,
                                                     lane_batch, ragged,
                                                     ragged_reference)
 from paddle_tpu_torch.serving import SamplingParams, ServingEngine
@@ -563,3 +569,184 @@ def test_quantized_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
             assert tpa.GROUPED_LAUNCHES == {"phase1": 0, "phase2": 0}
             assert tln.LAUNCHES == 5 * steps
     assert tokens["cpu"] == tokens[str(cuda)]
+
+
+# -- K9: the legacy step's decode walk ---------------------------------------
+def _decode_mask(kind, ops, h, seed=0):
+    """None, a random additive f32 [B, H, 1, lmax] mask, or a bool
+    [B, 1, 1, lmax] mask that hides all but key 0."""
+    q, k, _, table = ops[:4]
+    b, lmax = q.shape[0], table.shape[1] * k.shape[1]
+    if kind is None:
+        return None
+    if kind == "additive":
+        g = torch.Generator(device=q.device).manual_seed(seed)
+        return torch.randn(b, h, 1, lmax, generator=g, device=q.device) * 2
+    m = torch.zeros(b, 1, 1, lmax, dtype=torch.bool, device=q.device)
+    m[..., 0] = True
+    return m
+
+
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+@pytest.mark.parametrize("lane", ["fp", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(12, 12, 64), (16, 4, 128)],
+                         ids=["rep1", "rep4"])
+def test_paged_decode_attention_kernel(cuda, dtype, lane, mask, h, hkv, d):
+    """K9 against its plain version at the legacy decode step's geometry
+    (two trash rows among 16), in both lanes, without and with a mask;
+    every launch counted in its lane."""
+    ops, _ = lane_batch(decode_batch(cuda, dtype, h, hkv, d, trash=2), lane)
+    m = _decode_mask(mask, ops, h)
+    key = "K9" if lane == "fp" else "K9-fp8"
+    before = dict(tpa.DECODE_LAUNCHES)
+    out = decode(ops, m)
+    torch.cuda.synchronize()
+    assert {n: tpa.DECODE_LAUNCHES[n] - before[n] for n in before} == \
+        {n: int(n == key) for n in before}
+    assert out.dtype == dtype and torch.isfinite(out.float()).all()
+    add = None if m is None else tpa._mask_to_additive(
+        m, out.shape[0], h, ops[3].shape[1] * ops[1].shape[1])
+    _close(out, tpa.paged_attention_reference(*ops[:5], add))
+
+
+@pytest.mark.parametrize("lane", ["fp", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv,d", [(12, 12, 64), (16, 4, 128)],
+                         ids=["rep1", "rep4"])
+def test_paged_decode_attention_equals_k6_at_q_len_1(cuda, dtype, lane, h,
+                                                     hkv, d):
+    """K9 without a mask folds each page with K6's `attend_row` in K6's
+    order: the same bits as K6 at q_len 1, trash rows included."""
+    ops, _ = lane_batch(decode_batch(cuda, dtype, h, hkv, d, trash=2), lane)
+    out, want = decode(ops), ragged(ops, {})
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+def test_paged_decode_attention_is_bit_reproducible(cuda):
+    ops = decode_batch(cuda, torch.bfloat16, 12, 12, 64, trash=2)
+    m = _decode_mask("additive", ops, 12)
+    first = (decode(ops), decode(ops, m))
+    for _ in range(20):
+        assert torch.equal(decode(ops), first[0])
+        assert torch.equal(decode(ops, m), first[1])
+
+
+def test_paged_decode_attention_raises_what_the_kernel_cannot_take(cuda):
+    """No plain fallback on the card: int8 pools (those take K7), a head
+    dim the vector loads cannot read, and tensors on two devices raise."""
+    ops, scales = lane_batch(decode_batch(cuda, torch.bfloat16, 12, 12, 64),
+                             "q8")
+    q, k, v, table, pos, _ = ops
+    with pytest.raises(TypeError, match="int8 pools"):
+        tpa.paged_decode_attention(q, k, v, table, pos)
+    q, k, v, table, pos, _ = decode_batch(cuda, torch.bfloat16, 4, 4, 12,
+                                          rows=2, mp=4)
+    with pytest.raises(ValueError, match="multiple of"):
+        tpa.paged_decode_attention(q, k, v, table, pos)
+    q, k, v, table, pos, _ = decode_batch(cuda, torch.bfloat16, 4, 4, 64,
+                                          rows=2, mp=4)
+    with pytest.raises(ValueError, match="tensors on"):
+        tpa.paged_decode_attention(q, k, v, table.cpu(), pos)
+    with pytest.raises(ValueError, match="mask on"):
+        tpa.paged_decode_attention(q, k, v, table, pos,
+                                   torch.zeros(2, 4, 1, 64))
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8", "fp8"])
+def test_legacy_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
+    """The legacy step (f32 model; float, int8 and e4m3 pools): the same
+    greedy tokens on the card as on the CPU; per decode step K1 5 and
+    the lane's walk 2 (K9, K7 or K9's fp8 lane), with K8/K8-q8 4 in the
+    1-byte lanes; per prefill chunk K1 5 and K3 2; K6 and K10 never.
+    Head dim 64: the prefill chunk attends through K3, which holds 64
+    and 128."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, max_position_embeddings=128)
+    rs = np.random.RandomState(7)
+    system = rs.randint(0, 256, size=20)
+    prompts = [np.concatenate([system, rs.randint(0, 256, size=n)])
+               for n in (3, 9, 5, 12, 7)]
+    walk = {"fp": "K9", "int8": "K7", "fp8": "K9-fp8"}[kv]
+    write = {"fp": None, "int8": "K8-q8", "fp8": "K8"}[kv]
+    tokens = {}
+    for dev in ("cpu", cuda):
+        model = GPTForCausalLM(cfg, device="cpu").to(dev)
+        eng = ServingEngine(model, device=dev, unified=False, kv_dtype=kv,
+                            num_slots=4, max_len=64, page_size=8,
+                            chunk_len=16)
+        for mod in (tln, tpa, tfa):
+            mod.reset_launches()
+        res = eng.generate(prompts, SamplingParams(max_new_tokens=8))
+        tokens[str(dev)] = [r.token_ids for r in res]
+        if dev is cuda:
+            snap = eng.metrics.snapshot()
+            steps = snap["decode_step_s"]["count"]
+            chunks = snap["prefill_chunks"]
+            got = {"K1": tln.LAUNCHES, "K3": tfa.LAUNCHES["fwd"],
+                   "K6": tpa.LAUNCHES, **tpa.GROUPED_LAUNCHES,
+                   **tpa.QUANT_LAUNCHES, **tpa.DECODE_LAUNCHES}
+            want = dict.fromkeys(got, 0)
+            want.update(K1=5 * (steps + chunks), K3=2 * chunks)
+            want[walk] = 2 * steps
+            if write:
+                want[write] = 4 * (steps + chunks)
+            assert got == want
+    assert tokens["cpu"] == tokens[str(cuda)]
+
+
+
+# -- K3 on the serving paths, the gather arm and generate() ------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", list(FLASH_SERVING_CASES))
+def test_flash_attention_at_the_serving_shapes(cuda, case, dtype):
+    """K3 through the model's SDPA at every shape the serving paths give
+    it: the legacy prefill chunks, the gather arm's step (a per-row
+    window bias) and generate()'s prefill and decode step (the window as
+    a kvec at Lq 1). One launch; f32 against `_sdpa_ref`, bf16 against
+    `flash_attention_reference` on the same operand."""
+    q, k, v, mask = flash_serving_batch(cuda, dtype, case)
+    b, lq, h, _ = q.shape
+    form, operand = _mask_to_kernel_operands(mask, b, h, lq, k.shape[1])
+    assert form == ("kvec" if lq == 1 else "bias")
+    before = tfa.LAUNCHES["fwd"]
+    out = PF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          training=False)
+    torch.cuda.synchronize()
+    assert tfa.LAUNCHES["fwd"] == before + 1
+    if dtype == torch.float32:
+        _close(out, _sdpa_ref(q, k, v, mask, False, 0.125, 0.0, None))
+    else:
+        _close(out, tfa.flash_attention_reference(
+            q, k, v, **{form: operand})[0])
+
+
+def test_gather_arm_and_generate_tokens_on_the_card_equal_the_cpu(cuda):
+    """The unified step's gather arm (f32 model) and generate() greedy:
+    the same tokens on the card as on the CPU, the gather arm launching
+    K3 2 per step and no paged walk."""
+    cfg = GPTConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
+                    num_attention_heads=2, max_position_embeddings=128)
+    rs = np.random.RandomState(8)
+    prompts = [rs.randint(0, 256, size=n) for n in (3, 19, 7, 12)]
+    ids = torch.from_numpy(rs.randint(0, 256, size=(3, 9)))
+    served, generated = {}, {}
+    for dev in ("cpu", cuda):
+        model = GPTForCausalLM(cfg, device="cpu").to(dev)
+        eng = ServingEngine(model, device=dev, attn_impl="gather",
+                            num_slots=4, max_len=64, page_size=8,
+                            chunk_len=16)
+        for mod in (tln, tpa, tfa):
+            mod.reset_launches()
+        res = eng.generate(prompts, SamplingParams(max_new_tokens=8))
+        served[str(dev)] = [r.token_ids for r in res]
+        if dev is cuda:
+            steps = eng.metrics.unified_steps
+            assert tfa.LAUNCHES["fwd"] == 2 * steps
+            assert tpa.LAUNCHES == 0
+            assert tpa.GROUPED_LAUNCHES == {"phase1": 0, "phase2": 0}
+        generated[str(dev)] = model.generate(
+            ids.to(dev), max_new_tokens=6).cpu()
+    assert served["cpu"] == served[str(cuda)]
+    assert torch.equal(generated["cpu"], generated[str(cuda)])

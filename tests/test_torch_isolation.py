@@ -41,6 +41,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.jit\n"
         "import paddle_tpu_torch.optimizer\n"
         "import paddle_tpu_torch.ops.cuda.flash_attention\n"
+        "import paddle_tpu_torch.ops.cuda.paged_attention\n"
+        "import paddle_tpu_torch.nlp.generation\n"
+        "import paddle_tpu_torch.serving.engine\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n")
@@ -91,6 +94,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
         tpa.ragged_paged_attention_grouped(q, pool, pool, i.view(1, 1), i,
                                            i, i, i, i)
     with pytest.raises(ValueError, match="no kernel"):
+        tpa.paged_decode_attention(q, pool, pool, i.view(1, 1), i)
+    with pytest.raises(ValueError, match="no kernel"):
         tln.layer_norm_bwd(x, x, w)
     q4 = torch.zeros(1, 4, 2, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -116,7 +121,8 @@ def test_training_defaults_to_cuda_and_raises_without_it(no_cuda):
 # options that have been ported since these cases were written: the
 # engine now builds them (the pools' dtype and the scale pools' dtype)
 _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
-           ("kv_dtype", "fp8"): (tpa.FP8_DTYPE, None)}
+           ("kv_dtype", "fp8"): (tpa.FP8_DTYPE, None),
+           ("unified", False): (torch.float32, None)}
 
 
 @pytest.mark.parametrize("option,value", [
@@ -124,13 +130,14 @@ _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
     ("spec", "ngram"), ("megakernel", True)])
 def test_unported_engine_options_raise(option, value):
     """An option not ported yet raises at construction, naming its
-    ROADMAP item; a ported one (int8 and fp8 KV) builds its pools."""
+    ROADMAP item; a ported one (int8 and fp8 KV, the legacy step) builds
+    its pools."""
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
     if (option, value) in _PORTED:
         pool_dtype, scale_dtype = _PORTED[option, value]
         eng = ServingEngine(model, device="cpu", max_len=16, page_size=4,
-                            chunk_len=4, **{option: value})
-        assert eng.kv_dtype == value and len(eng._pools) == 1
+                            chunk_len=8, **{option: value})
+        assert getattr(eng, option) == value and len(eng._pools) == 1
         for k, v, ks, vs in eng._pools:
             assert k.dtype == v.dtype == pool_dtype
             assert k.shape == (eng.num_pages, eng.page_size, eng.n_kv,
