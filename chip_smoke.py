@@ -10,11 +10,13 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 1. build every kernel library from `paddle_tpu_torch/ops/cuda/csrc/`
    (layer_norm.cu: K1, K2; ragged_paged_attention.cu: K6 and its fp8
-   lane, K7; grouped_paged_attention.cu: K10a, K10b in the fp, fp8 and
-   q8 lanes; paged_scatter.cu: K8, K8-q8; paged_decode_attention.cu:
-   K9 and its fp8 lane; flash_attention.cu: K3, K4, K5; one nvcc per
-   source, all at once) and print the build time and the card's name
-   and power limit;
+   lane, K7, each with its user-mask lane; grouped_paged_attention.cu:
+   K10a, K10b in the fp, fp8 and q8 lanes; paged_scatter.cu: K8 in its
+   float and fp8 lanes, K8-q8; paged_decode_attention.cu: K9 and its fp8
+   lane; flash_attention.cu: K3, K4, K5 at head dims 64, 128 and 256;
+   lora_paged.cu: K11; greedy_argmax.cu: K12; one nvcc per source, all
+   at once) and print the build time and the card's name and power
+   limit;
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
    and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
@@ -44,7 +46,17 @@ Phases, each reported on its own line; any failure exits non-zero:
    chunks (Lq 8, 16, 32 over 992 keys, the window mask as its bias),
    the gather arm's step (q [16, 32, 12, 64], a per-row bias) and
    generate()'s prefill and decode step (the window as a kvec at Lq 1),
-   against `_sdpa_ref` (f32) and its plain version (bf16);
+   against `_sdpa_ref` (f32) and its plain version (bf16). K3-K5 again
+   at head dim 256 ([2, 1024, 4, 256], phase 6's step). The user-mask
+   lane of K6 and K7 on the ragged serving batches (rep 1 and 2, an
+   additive and a bool mask) against the plain versions, timed with
+   the mask's bytes in the bound. K11 at the serving step's LoRA shapes
+   (x [16, 32, 768], 9 adapter pages of rank 8) in f32 and bf16 (the
+   bf16 rule allows one bf16 ulp of t carried through B), base-page
+   rows exactly 0, 20 repeats bit-identical; K12 on [16, 50304] f32
+   logits with ties, NaNs and an all -inf row, equal to torch.argmax
+   bit for bit over 20 repeats; K8's float lane equal to index_copy_
+   bit for bit outside page 0;
 3. serve GPT-124M at full width (bench.py's configuration: vocab 50304,
    hidden 768, 12 layers, 12 heads, 1024 positions) in bf16 with random
    weights from a seed: 24 requests of 32-700 prompt tokens, a third of
@@ -85,7 +97,14 @@ Phases, each reported on its own line; any failure exits non-zero:
    K3 12 per step, no K6/K10; a recorded step's held logits against a
    plain f32 rerun). Printed, not checked: tokens/s, step
    p50/p90, TTFT, the buckets and the share of tokens equal to the
-   unified defaults arm's;
+   unified defaults arm's. Then the decode megakernel and adapter arms:
+   the megakernel on over bf16 and over int8 pools (tokens identical to
+   the gate-off defaults arms'; per step K8's lane 24 and K12 1 on top
+   of the walk), the LORA adapters (4 of rank 4, tenants zipf over
+   {base, 1..4}) with the megakernel off and on (a recorded step's held
+   logits against a plain f32 rerun; K11 48 a step with the gate on),
+   with 2 adapter pages (the pool must spill or evict and reload), and
+   over int8 pools; exact launches per step in every arm;
 4. train GPT-124M in bf16 as bench.py does (B 16 x L 1024, AdamW lr 1e-4,
    weight decay 0.01, dropout 0, ids and labels from
    `np.random.RandomState(0)`): 2 warm-up steps and 5 timed steps
@@ -102,14 +121,21 @@ Phases, each reported on its own line; any failure exits non-zero:
    seeded top-k 50 sampling run twice (each pair identical), K1 25 and
    K3 12 launches per decoded token, and the prefill's and the first
    decode step's logits against a plain f32 rerun on the CPU (0.1).
-   Prints tokens/s.
+   Prints tokens/s;
+6. 2-layer GPTs (bf16) at head dim 256 (K3-K5 with 32-row tiles) and at
+   head dim 32 (the plain `_sdpa_ref` route, as the JAX package takes
+   it): the legacy step and the gather arm serve 8 prompts, generate()
+   decodes, one train step runs; the route is checked by the launches
+   and the prefill logits against a plain f32 rerun (0.1).
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
 default engine's run; serving_ungrouped, the grouped=False run; the
 same over int8 or fp8 pools, serving_int8[_ungrouped] and
 serving_fp8[_ungrouped]; the legacy step, serving_legacy[_fp8|_int8];
-the gather arm, serving_gather; training; or generate) whose shapes
+the gather arm, serving_gather; the megakernel and adapter arms,
+serving_[int8_]megakernel, serving_adapters[_megakernel[_2pages]] and
+serving_int8_adapters_megakernel; training; or generate) whose shapes
 the record was measured at, and
 `launches_by_path` those on each path, each counted from 0 just before
 its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
@@ -165,6 +191,19 @@ TRAIN = dict(batch=16, seq=1024, lr=1e-4, weight_decay=0.01, warmup=2,
 HELD_LOSS_RTOL, HELD_GRAD_TOL, HELD_BF16_LOSS_TOL = 1e-5, 2e-5, 0.05
 # phase 5: GPTForCausalLM.generate
 GENERATE = dict(batch=8, prompt=128, new=32)
+# phase 3's adapter arms: scripts/serving_bench.py --lora-ab's defaults
+# (4 adapters of rank 4, numpy seed 0; tenants zipf over {base, 1..4},
+# the first four requests one per adapter) at amplitude 0.05
+LORA = dict(adapters=4, rank=4, amp=0.05)
+# phase 6: 2-layer GPTs at head dims the flash kernels take (256: 32-row
+# tiles) and do not take (32: the plain `_sdpa_ref` route), bf16
+HEAD_DIM_GPTS = {
+    256: dict(vocab_size=50304, hidden_size=1024, num_hidden_layers=2,
+              num_attention_heads=4, max_position_embeddings=1024),
+    32: dict(vocab_size=50304, hidden_size=768, num_hidden_layers=2,
+             num_attention_heads=24, max_position_embeddings=1024)}
+# K3-K5 at head dim 256 in phase 2: phase 6's train step, [B, L, H, D]
+D256_FLASH = (2, 1024, 4, 256)
 
 
 def log(msg: str):
@@ -231,13 +270,15 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x == 0, torch.zeros_like(x), ulp)
 
 
-def check_close(name, got, want, mask=None):
+def check_close(name, got, want, mask=None, extra=None, extra_rule=""):
     """Kernel output `got` against its plain version `want` by the rule
-    of F32_TOL / BF16_ULPS above; returns the max abs error."""
+    of F32_TOL / BF16_ULPS above (plus, per element, `extra` where a
+    kernel states a further allowance); returns the max abs error."""
     dtype = got.dtype
     got, want = got.float(), want.float()
     if mask is not None:
         got, want = got[mask], want[mask]
+        extra = None if extra is None else extra[mask]
     diff = (got - want).abs()
     err = diff.max().item()
     ref_max = want.abs().max().item()
@@ -247,6 +288,9 @@ def check_close(name, got, want, mask=None):
     else:
         allowed = torch.full_like(want, F32_TOL * (1.0 + ref_max))
         rule = f"{F32_TOL} x (1 + max|ref|)"
+    if extra is not None:
+        allowed = allowed + extra
+        rule = f"{rule} {extra_rule}"
     worst = (diff / allowed).max().item()
     ok = bool(torch.isfinite(got).all()) and bool((diff <= allowed).all())
     log(f"  {name}: max_abs_err={err:.3e}, worst err/allowed {worst:.3f} "
@@ -333,12 +377,15 @@ def check_layer_norm_bwd(dev, tln, time_ms):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
-def check_flash_attention(dev, tfa, time_ms):
-    """K3, K4 and K5 at the training step's shapes, causal: each against
-    its plain version in f32 and bf16, then timed in bf16."""
+def check_flash_attention(dev, tfa, time_ms, shape=None):
+    """K3, K4 and K5 at the training step's shapes (or `shape`, [B, L, H,
+    D]), causal: each against its plain version in f32 and bf16, then
+    timed in bf16."""
     b, l = TRAIN["batch"], TRAIN["seq"]
     h = GPT124M["num_attention_heads"]
     d = GPT124M["hidden_size"] // h
+    if shape is not None:
+        b, l, h, d = shape
     g = torch.Generator(device=dev).manual_seed(SEED)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -510,10 +557,12 @@ def check_paged_attention(dev, tpa, time_ms, lane="fp"):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
-def sdpa_yardstick(q, k, v, table, pos, q_len, k_scale=None, v_scale=None):
+def sdpa_yardstick(q, k, v, table, pos, q_len, k_scale=None, v_scale=None,
+                   mask=None):
     """K6's, K7's and K10's library yardstick: SDPA over the gathered
     dense K/V view — dequantized to q's dtype for the 1-byte lanes —
-    under the ragged causal mask (one call; its gather is done here,
+    under the ragged causal mask, with an additive user `mask` [B, H, lq,
+    lmax] added when given (one call; its gather and mask are made here,
     outside the timed call)."""
     from paddle_tpu_torch.ops.cuda.paged_attention import _pages_f32
     b, lq, h, d = q.shape
@@ -526,9 +575,12 @@ def sdpa_yardstick(q, k, v, table, pos, q_len, k_scale=None, v_scale=None):
     qd = q.transpose(1, 2)
     i = torch.arange(lq, device=q.device)[:, None]
     j = torch.arange(mp * ps, device=q.device)[None, :]
-    mask = (j <= pos[:, None, None] + i)[:, None]
+    window = (j <= pos[:, None, None] + i)[:, None]
+    if mask is not None:
+        window = torch.where(window, mask, torch.full_like(mask, -1e30)).to(
+            q.dtype)
     return lambda: torch.nn.functional.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask)
+        qd, kd, vd, attn_mask=window)
 
 
 def page_block_bytes(pool, scales=None) -> int:
@@ -836,14 +888,16 @@ def check_flash_serving(dev, tfa):
 
 
 def check_paged_scatter(dev, tpa, time_ms):
-    """K8 (into e4m3 pools) and K8-q8 (into int8 + scale pools) at the
-    serving step's write: the [16, 32, 12, 64] bf16 K rows of
-    `ragged_batch`'s q, at its positions and tables (tokens past a row's
-    window go to the trash page), and again at 300x the scale, with
-    about 13 % of the values then beyond +-448. The pools' bytes must
-    equal the plain versions' bit for bit outside page 0. Then both kernels, the
-    plain versions and, for K8, one `index_copy_` of the converted bytes
-    to the same slots are timed."""
+    """K8 (into e4m3 pools, and in its float lane into bf16 and f32
+    pools) and K8-q8 (into int8 + scale pools) at the serving step's
+    write: the [16, 32, 12, 64] bf16 K rows of `ragged_batch`'s q, at its
+    positions and tables (tokens past a row's window go to the trash
+    page), and again at 300x the scale, with about 13 % of the values
+    then beyond +-448. The pools' bytes must equal the plain versions'
+    bit for bit outside page 0 (the float lane's plain version is the
+    unfused write, `index_copy_`). Then the kernels, the plain versions
+    and, for K8, one `index_copy_` of the converted bytes to the same
+    slots are timed."""
     q, k, _, table, pos, _ = ragged_batch(dev, torch.bfloat16, 12, 12, SEED)
     shape = k.shape
     fp8_zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
@@ -878,8 +932,26 @@ def check_paged_scatter(dev, tpa, time_ms):
         if not all(same.values()) or not finite:
             raise AssertionError("K8 / K8-q8 disagree with their plain "
                                  "versions")
+    fl_err = 0.0
+    for pool_dtype in (torch.bfloat16, torch.float32):
+        got = tpa.paged_scatter_kernel(torch.zeros(shape, dtype=pool_dtype,
+                                                   device=dev), q, pos, table)
+        torch.cuda.synchronize()
+        want = tpa.paged_scatter_reference(
+            torch.zeros(shape, dtype=pool_dtype, device=dev), q, pos, table)
+        same = torch.equal(got[1:], want[1:])
+        fl_err = max(fl_err, (got[1:].float() - want[1:].float()).abs()
+                     .max().item())
+        log(f"  K8 float lane bf16 {list(q.shape)} -> {pool_dtype} pool: "
+            f"equal to index_copy_ bit for bit outside page 0: {same}")
+        if not same:
+            raise AssertionError("K8's float lane disagrees with index_copy_")
     upd = q
     pool8, (pc, ps_) = fp8_zeros(), q8_zeros()
+    poolf = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
+    msf = time_ms(lambda: tpa.paged_scatter_kernel(poolf, upd, pos, table))
+    plainf = time_ms(lambda: tpa.paged_scatter_reference(poolf, upd, pos,
+                                                         table), iters=5)
     ms8 = time_ms(lambda: tpa.paged_scatter(pool8, upd, pos, table))
     msq = time_ms(lambda: tpa.paged_scatter_q8(pc, ps_, upd, pos, table))
     # the plain writes enqueue ~3 ms of small launches each: few calls,
@@ -895,17 +967,23 @@ def check_paged_scatter(dev, tpa, time_ms):
         tpa.FP8_DTYPE).view(torch.uint8).reshape(-1, *shape[2:])
     dst = pool8.view(torch.uint8).view(-1, *shape[2:])
     lib8 = time_ms(lambda: dst.index_copy_(0, flat, rows))
+    rowsf = upd.reshape(-1, *shape[2:])
+    dstf = poolf.view(-1, *shape[2:])
+    libf = time_ms(lambda: dstf.index_copy_(0, flat, rowsf))
     n = upd.numel()
     # upd read once, the pools written once; the tables and positions
     io = table.numel() * 4 + pos.numel() * 4
     b8 = bound(n * upd.element_size() + n + io, 4 * n, F32_FLOPS)
     bq = bound(n * upd.element_size() + n + n // shape[3] * 4 + io, 6 * n,
                F32_FLOPS)
+    bf = bound(2 * n * upd.element_size() + io, n, F32_FLOPS)
     log(f"  K8 bf16 {list(upd.shape)} -> e4m3: kernel {ms8:.4f} ms, plain "
         f"{plain8:.4f} ms, index_copy_ of the converted bytes {lib8:.4f} "
         f"ms, bound {b8[0]:.5f} ms ({b8[1]}); K8-q8 -> int8 + scales: "
         f"kernel {msq:.4f} ms, plain {plainq:.4f} ms, bound {bq[0]:.5f} ms "
-        f"({bq[1]})")
+        f"({bq[1]}); K8 float lane -> bf16: kernel {msf:.4f} ms, plain "
+        f"{plainf:.4f} ms, index_copy_ {libf:.4f} ms, bound {bf[0]:.5f} ms "
+        f"({bf[1]})")
     common = dict(route="cuda",
                   source="paddle_tpu_torch/ops/cuda/csrc/paged_scatter.cu")
     return (dict(name="K8 paged_scatter (e4m3 pools)", path="serving_fp8",
@@ -919,7 +997,192 @@ def check_paged_scatter(dev, tpa, time_ms):
                  max_abs_err=errs["K8-q8"],
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:1343",
                  ms=msq, plain_ms=plainq, bound_ms=bq[0], bound_by=bq[1],
-                 library_ms=None, **common))
+                 library_ms=None, **common),
+            dict(name="K8-float paged_scatter_kernel (float pools)",
+                 path="serving_megakernel", max_abs_err=fl_err,
+                 replaces="paddle_tpu/ops/pallas/paged_attention.py:1328",
+                 ms=msf, plain_ms=plainf, bound_ms=bf[0], bound_by=bf[1],
+                 library_ms=libf,
+                 library_call="index_copy_ of the rows to the same slots",
+                 **common))
+
+
+def check_lora_paged(dev, tpa, time_ms):
+    """K11 at the serving step's shapes: x [16, 32, 768] (the layer input
+    of a unified step), adapter pools of 9 pages at rank 8 (page 0 the
+    zero page), every row at its own page (rows on page 0 or at scale 0
+    must give exactly 0), in f32 (the f32 rule) and bf16 — where t = x . A
+    is rounded to bf16 between the products, so a t element whose f32
+    sums (kernel and plain add in other orders) straddle a rounding
+    point moves by one bf16 ulp: the rule adds that ulp carried through
+    B and the scale to the 2 ulps of the element. 20 repeats give the
+    same bits. Timed: the kernel, the plain version (gather +
+    `lora_delta`) and two `torch.bmm` over the gathered pages."""
+    rs = np.random.RandomState(SEED + 3)
+    b, w, hid = ENGINE["num_slots"], ENGINE["chunk_len"], \
+        GPT124M["hidden_size"]
+    n_pages, r = 9, 8
+    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev)
+    a_pool, b_pool = mk(n_pages, hid, r) * 0.05, mk(n_pages, r, hid) * 0.05
+    a_pool[0] = 0.0
+    b_pool[0] = 0.0
+    apage = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3, 0, 4, 5, 6],
+                         dtype=torch.int32, device=dev)
+    ascale = torch.from_numpy(rs.rand(b).astype(np.float32)).to(dev)
+    ascale[3] = 0.0
+    zero = (apage == 0) | (ascale == 0)
+    x32 = mk(b, w, hid)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x, A, B = (t.to(dtype) for t in (x32, a_pool, b_pool))
+        out = tpa.lora_delta_paged(x, A, B, apage, ascale)
+        torch.cuda.synchronize()
+        ref = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
+        if out[zero].any():
+            raise AssertionError("K11: a base-page or zero-scale row is "
+                                 "not exactly 0")
+        tag = f"K11 lora_delta_paged [{b}, {w}, {hid}] rank {r} {dtype}"
+        if dtype == torch.float32:
+            errs[dtype] = check_close(tag, out, ref)
+        else:
+            ap = apage.long()
+            t = torch.bmm(x.float(), A[ap].float()).to(dtype).float()
+            s = ascale.to(dtype).float()[:, None, None]
+            flip = torch.bmm(bf16_ulp(t), B[ap].float().abs()) * s
+            errs[dtype] = check_close(tag, out, ref, extra=flip,
+                                      extra_rule="+ one bf16 ulp of t "
+                                      "through B and the scale")
+        for _ in range(20):
+            if not torch.equal(tpa.lora_delta_paged(x, A, B, apage, ascale),
+                               out):
+                raise AssertionError("K11 is not bit-reproducible")
+    log("  K11: 20 repeats bit-identical in f32 and bf16")
+    ms = time_ms(lambda: tpa.lora_delta_paged(x, A, B, apage, ascale))
+    plain_ms = time_ms(lambda: tpa.lora_delta_paged_reference(
+        x, A, B, apage, ascale))
+    Ag, Bg = A[apage.long()], B[apage.long()]
+    lib_ms = time_ms(lambda: torch.bmm(torch.bmm(x, Ag), Bg))
+    item = x.element_size()
+    pages = len(set(apage.tolist()))
+    n_bytes = (2 * x.numel() * item + pages * 2 * hid * r * item
+               + apage.numel() * 4 + ascale.numel() * 4)
+    bound_ms, bound_by = bound(n_bytes, 2 * b * w * r * 2 * hid, BF16_FLOPS)
+    log(f"  K11 bf16 [{b}, {w}, {hid}] rank {r}, {pages} pages: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm over the "
+        f"gathered pages {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
+        f"({bound_by})")
+    return dict(name="K11 lora_delta_paged", route="cuda",
+                source="paddle_tpu_torch/ops/cuda/csrc/lora_paged.cu",
+                replaces="paddle_tpu/ops/pallas/paged_attention.py:1465",
+                path="serving_adapters_megakernel",
+                max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                library_call="torch.bmm(torch.bmm(x, A[apage]), B[apage])")
+
+
+def check_greedy_argmax(dev, tpa, time_ms):
+    """K12 on the held logits of a unified step, [16, 50304] f32, with a
+    row whose maximum is tied three ways, a row holding NaNs, an all
+    -inf row and a row of equal values: equal to `torch.argmax` bit for
+    bit, and the same over 20 repeats. Timed: the kernel, its plain
+    version (`torch.argmax` then the int32 cast) and `torch.argmax`."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    b, v = ENGINE["num_slots"], GPT124M["vocab_size"]
+    logits = torch.randn(b, v, generator=g, device=dev)
+    logits[1, [7, 30000, 50303]] = 9.0
+    logits[2, [777, 40000]] = float("nan")
+    logits[3] = float("-inf")
+    logits[4] = 0.5
+    got = tpa.decode_greedy_argmax(logits)
+    torch.cuda.synchronize()
+    want = torch.argmax(logits, dim=-1)
+    same = torch.equal(got.long(), want) and got.dtype == torch.int32
+    repeat = all(torch.equal(tpa.decode_greedy_argmax(logits), got)
+                 for _ in range(20))
+    log(f"  K12 decode_greedy_argmax [{b}, {v}] f32 (a 3-way tie, NaNs, an "
+        f"all -inf row, an all-equal row): equal to torch.argmax bit for "
+        f"bit {same}, {got[1:5].tolist()}; 20 repeats identical {repeat}")
+    if not (same and repeat):
+        raise AssertionError("K12 disagrees with torch.argmax")
+    ms = time_ms(lambda: tpa.decode_greedy_argmax(logits))
+    plain_ms = time_ms(lambda: torch.argmax(logits, dim=-1).to(torch.int32))
+    lib_ms = time_ms(lambda: torch.argmax(logits, dim=-1))
+    bound_ms, bound_by = bound(logits.numel() * 4 + b * 4, logits.numel(),
+                               F32_FLOPS)
+    log(f"  K12: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.argmax "
+        f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    return dict(name="K12 decode_greedy_argmax", route="cuda",
+                source="paddle_tpu_torch/ops/cuda/csrc/greedy_argmax.cu",
+                replaces="paddle_tpu/ops/pallas/paged_attention.py:1586",
+                path="serving_megakernel", max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=lib_ms, library_call="torch.argmax(dim=-1)")
+
+
+def check_paged_attention_masked(dev, tpa, time_ms):
+    """The user-mask lane of K6 and K7 on the serving batches of
+    `ragged_batch` — f32 rep 1, bf16 rep 2 and rep 1 — with an additive
+    N(0, 1) mask [B, H, lq, lmax] and a bool mask hiding 30 % of the keys
+    (key 0 always kept), against the plain versions with the same
+    mask (live queries). Then the bf16 rep-1 batch with the additive
+    mask is timed in each lane: the kernel, the plain version, and SDPA
+    over the gathered view with the mask added to the window; the bound
+    counts the mask's f32 values of the live (query, key) pairs. Returns
+    {"K6": ..., "K7": ...}: the masked lane's numbers, kept in those
+    kernels' records (the engine passes no mask, so no serving path
+    launches the lane)."""
+    from paddle_tpu_torch.ops.cuda.launch_check import (lane_batch, ragged,
+                                                        ragged_reference)
+    out_recs = {}
+    for lane, key in (("fp", "K6"), ("q8", "K7")):
+        errs = {}
+        for dtype, (h, hkv) in ((torch.float32, (12, 12)),
+                                (torch.bfloat16, (12, 6)),
+                                (torch.bfloat16, (12, 12))):
+            ops, scales = lane_batch(ragged_batch(dev, dtype, h, hkv, SEED),
+                                     lane)
+            q, k, _, table, pos, q_len = ops
+            b, lq = q.shape[:2]
+            lmax = table.shape[1] * k.shape[1]
+            g = torch.Generator(device=dev).manual_seed(SEED + 1)
+            add = torch.randn(b, h, lq, lmax, generator=g, device=dev)
+            keep = torch.rand(b, 1, 1, lmax, generator=g, device=dev) < 0.7
+            keep[..., 0] = True
+            live = (torch.arange(lq, device=dev)[None, :] < q_len[:, None])
+            for name, m in (("additive", add), ("bool", keep)):
+                got = ragged(ops, scales, mask=m)
+                torch.cuda.synchronize()
+                ref = ragged_reference(ops, scales, mask=tpa._mask_to_additive(
+                    m, b, h, lmax, lq))
+                if not torch.isfinite(got.float()).all():
+                    raise AssertionError(f"{key} masked wrote a non-finite "
+                                         "value")
+                errs[dtype, name, h // hkv] = check_close(
+                    f"{key} masked ({name}) H={h} H_kv={hkv} {dtype}", got,
+                    ref, mask=live)
+        # the bf16 rep-1 batch with the additive mask
+        ms = time_ms(lambda: ragged(ops, scales, mask=add))
+        plain_ms = time_ms(lambda: ragged_reference(
+            ops, scales, mask=add), iters=5)
+        lib_ms = time_ms(sdpa_yardstick(*ops, **scales, mask=add))
+        ql, ps_ = q_len.cpu().numpy(), pos.cpu().numpy()
+        flat, _, _ = tpa.count_page_block_reads(
+            table.cpu().numpy(), ps_, ql, page_size=k.shape[1])
+        keys = attended_keys(ps_, ql)
+        n_bytes = (2 * int(ql.sum()) * h * q.shape[3] * q.element_size()
+                   + flat * k.shape[2] * page_block_bytes(k, scales)
+                   + keys * h * 4 + table.numel() * 4 + 2 * b * 4)
+        bound_ms, bound_by = bound(n_bytes, 4 * keys * h * q.shape[3],
+                                   BF16_FLOPS)
+        log(f"  {key} masked bf16 [16, 32, 12, 64], {LANE_NAMES[lane]}: "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (gathered, "
+            f"masked) {lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+        out_recs[key] = dict(
+            max_abs_err=max(e for (dt, _, _), e in errs.items()
+                            if dt == torch.bfloat16),
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by)
+    return out_recs
 
 
 # -- phase 3: serve GPT-124M -------------------------------------------------
@@ -951,7 +1214,7 @@ def launch_counts_serving(tln, tpa, tfa) -> dict:
     return {"K1": tln.LAUNCHES, "K3": tfa.LAUNCHES["fwd"],
             "K6": tpa.LAUNCHES, "K10a": tpa.GROUPED_LAUNCHES["phase1"],
             "K10b": tpa.GROUPED_LAUNCHES["phase2"], **tpa.QUANT_LAUNCHES,
-            **tpa.DECODE_LAUNCHES}
+            **tpa.DECODE_LAUNCHES, **tpa.MEGA_LAUNCHES}
 
 
 # the serving step's launches per layer by KV dtype: the write (K8 or
@@ -968,14 +1231,20 @@ DECODE_WALK_OF = {"fp": "K9", "fp8": "K9-fp8", "int8": "K7"}
 
 def _no_launches(tpa) -> dict:
     return dict.fromkeys(["K1", "K3", "K6", "K10a", "K10b",
-                          *tpa.QUANT_LAUNCHES, *tpa.DECODE_LAUNCHES], 0)
+                          *tpa.QUANT_LAUNCHES, *tpa.DECODE_LAUNCHES,
+                          *tpa.MEGA_LAUNCHES], 0)
 
 
 def per_step_launches(tpa, grouped: bool, kv_dtype: str,
-                      attn_impl: str = "kernel") -> dict:
+                      attn_impl: str = "kernel", megakernel: bool = False,
+                      adapters: bool = False) -> dict:
     """One unified step's launches: K1 2L + 1; the walk per layer (K10's
     two phases, or K6, in the pools' lane), or K3 per layer under the
-    gather arm; the lane's write (K8 / K8-q8) for K and V per layer."""
+    gather arm; the lane's write (K8 / K8-q8) for K and V per layer — a
+    float pool's unfused write is index_copy_, under the megakernel K8's
+    float lane. Under the megakernel, K12 once a step and, with
+    adapters, K11 four times a layer (the q, k and v prologue and the
+    o-delta); without it the adapters' deltas are library products."""
     n_layers = GPT124M["num_hidden_layers"]
     want = _no_launches(tpa)
     want["K1"] = 2 * n_layers + 1
@@ -985,8 +1254,13 @@ def per_step_launches(tpa, grouped: bool, kv_dtype: str,
     else:
         for walk in (("K10a", "K10b") if grouped else ("K6",)):
             want[WALKS[walk, lane][0]] = n_layers
-    if WRITE_OF[kv_dtype]:
-        want[WRITE_OF[kv_dtype]] = 2 * n_layers
+    write = WRITE_OF[kv_dtype] or ("K8-float" if megakernel else None)
+    if write:
+        want[write] = 2 * n_layers
+    if megakernel:
+        want["K12"] = 1
+        if adapters:
+            want["K11"] = 4 * n_layers
     return want
 
 
@@ -1017,11 +1291,15 @@ def snap_cpu(t):
 
 def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
           profile: bool = False, kv_dtype: str = "fp", unified: bool = True,
-          attn_impl: str = "kernel"):
+          attn_impl: str = "kernel", megakernel: bool = False,
+          adapter_pages=None):
     """One run of phase 3's traffic on a fresh engine: the defaults
     (grouped walk, preemption, host tier) or grouped=False, over pools of
     `kv_dtype`; or the legacy alternating step (unified=False), or the
-    gather arm (attn_impl="gather"), where the grouped walk drops.
+    gather arm (attn_impl="gather"), where the grouped walk drops; with
+    the decode megakernel (`megakernel`); with `adapter_pages` set, the
+    LORA adapters registered in an adapter pool of that many pages and
+    the requests spread over the tenants of `adapter_traffic`.
     Returns the launches, the stats and every request's tokens."""
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
@@ -1056,30 +1334,50 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
             self.recorded = before + (out.cpu(),)
             return out
 
+    adapters = adapter_pages is not None
     if unified:
         arm = (f"{kv_dtype} {'defaults' if grouped else 'grouped=False'}"
-               f"{', gather' if attn_impl == 'gather' else ''}")
+               f"{', gather' if attn_impl == 'gather' else ''}"
+               f"{', megakernel' if megakernel else ''}"
+               f"{f', adapters ({adapter_pages} pages)' if adapters else ''}")
     else:
         arm = f"{kv_dtype} legacy"
+    extra = {}
+    if megakernel:
+        extra["megakernel"] = True
+    if adapters:
+        extra.update(adapters=True, adapter_pages=adapter_pages,
+                     adapter_ranks=(2, 4, 8))
     eng = RecordingEngine(model, device=dev, seed=SEED,
                           **({} if grouped else {"grouped": False}),
                           **({} if kv_dtype == "fp" else
                              {"kv_dtype": kv_dtype}),
                           **({} if unified else {"unified": False}),
                           **({} if attn_impl == "kernel" else
-                             {"attn_impl": attn_impl}), **ENGINE)
+                             {"attn_impl": attn_impl}), **extra, **ENGINE)
     want_gates = (grouped and unified and attn_impl == "kernel", True,
-                  kv_dtype, unified, attn_impl)
+                  kv_dtype, unified, attn_impl, megakernel, adapters)
     if (eng.grouped, eng.preempt, eng.kv_dtype, eng.unified,
-            eng.attn_impl) != want_gates:
+            eng.attn_impl, eng.megakernel,
+            eng.adapters is not None) != want_gates:
         raise AssertionError(f"engine gates {eng.grouped, eng.preempt}, "
                              f"kv_dtype {eng.kv_dtype}, unified "
-                             f"{eng.unified}, attn_impl {eng.attn_impl}")
+                             f"{eng.unified}, attn_impl {eng.attn_impl}, "
+                             f"megakernel {eng.megakernel}, adapters "
+                             f"{eng.adapters is not None}")
     prompts = make_traffic()
+    tenants = [0] * len(prompts)
+    if adapters:
+        loras, tenants = adapter_traffic()
+        ids = [eng.adapters.register(f"tenant{i}", w)
+               for i, w in enumerate(loras)]
+        if ids != list(range(1, len(loras) + 1)):
+            raise AssertionError(f"adapter ids {ids}")
     t0 = time.perf_counter()
     reset_counts(tln, tfa, tpa)
-    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
-            for p in prompts]
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS,
+                                              adapter_id=a))
+            for p, a in zip(prompts, tenants)]
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1109,7 +1407,8 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         f"walk; sharing groups in {sizes['count']} step(s), largest "
         f"{sizes['max']}")
     if unified:
-        per_step = per_step_launches(tpa, grouped, kv_dtype, attn_impl)
+        per_step = per_step_launches(tpa, grouped, kv_dtype, attn_impl,
+                                     megakernel, adapters)
         want = {k: n * steps for k, n in per_step.items()}
         log(f"  [{arm}] launches: "
             f"{ {k: n for k, n in launches.items() if n} } (per step "
@@ -1139,9 +1438,11 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         raise AssertionError("a token id outside the vocabulary")
     if launches != want or steps == 0:
         raise AssertionError(f"kernel launches {launches} != {want}")
-    if pc["hits"] < 1 or pc["cow_copies"] < 1:
+    # with adapters the prefix cache keeps a namespace per tenant, so the
+    # shared prompt is shared only among requests of one tenant
+    if not adapters and (pc["hits"] < 1 or pc["cow_copies"] < 1):
         raise AssertionError("the traffic did not exercise attach and COW")
-    if eng.grouped and not (sizes["max"] or 0) >= 2:
+    if eng.grouped and not adapters and not (sizes["max"] or 0) >= 2:
         raise AssertionError("no step formed a group of two or more rows")
     eng.pool.assert_quiesced()
     stats = {"tokens_per_s": snap["tokens_per_s"],
@@ -1153,6 +1454,11 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
              "page_block_reads": snap["page_block_reads_total"],
              "page_reads_saved": snap["shared_page_reads_saved_total"],
              "largest_group": sizes["max"], "page_bytes": eng.page_bytes}
+    if adapters:
+        stats["adapter_pool"] = eng.adapters.stats()
+        log(f"  [{arm}] adapter pool: {stats['adapter_pool']}; requests by "
+            f"adapter {snap['adapters']['requests_by_adapter']}")
+        eng.adapters.assert_quiesced()
     if not unified:
         pcs = snap["prefill_chunk_s"]
         stats.update(prefill_chunks=chunks,
@@ -1178,20 +1484,28 @@ def rerun_recorded(eng, model, unified_forward) -> dict:
     reference."""
     if eng.recorded is None:
         raise AssertionError(f"step {RECORD_STEP} never ran")
-    (toks, pos, table, q_len, is_decode, group), pools, last, held = \
+    (toks, pos, table, q_len, is_decode, group, lora), pools, last, held = \
         eng.recorded
     plain_model = copy.deepcopy(model).float().cpu()
     # bf16 pools to f32; int8 codes, their scales and e4m3 pools as they
     # are: the rerun reads the same quantized pages
-    pools = [tuple(t.float() if t is not None and t.dtype == torch.bfloat16
-                   else t for t in layer) for layer in pools]
+    f32 = lambda t: (t.float() if t is not None and t.dtype == torch.bfloat16
+                     else t)
+    pools = [tuple(map(f32, layer)) for layer in pools]
+    if lora is not None:
+        # the adapter pools to f32; the rerun gathers each row's pairs
+        # (the unfused path) whatever the engine's megakernel gate
+        lora = (tuple(tuple(map(f32, layer)) for layer in lora[0]),
+                *lora[1:])
     with torch.no_grad():
         plain = unified_forward(plain_model, pools, toks, pos, table, q_len,
-                                is_decode, last, group)
+                                is_decode, last, group, lora=lora)
     live = q_len > 0
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
-    arm = eng.kv_dtype + (", gather" if eng.attn_impl == "gather" else "")
+    arm = (eng.kv_dtype + (", gather" if eng.attn_impl == "gather" else "")
+           + (", megakernel" if eng.megakernel else "")
+           + (", adapters" if eng.adapters is not None else ""))
     log(f"  [{arm}] step {RECORD_STEP} ({int(q_len.sum())} "
         f"tokens, {int(live.sum())} live rows, grouped walk "
         f"{'on' if group is not None else 'off'}): held logits vs plain "
@@ -1263,7 +1577,7 @@ def serving_quantized(dev, tln, tpa, model, fp_tokens, fp_stats) -> tuple:
     tokens equal to the bf16 arm's (random weights leave small margins),
     tokens/s and the device's busy share. Returns the launches of each
     run (its path) and the stats."""
-    by_path, stats = {}, {}
+    by_path, stats, tokens = {}, {}, {}
     ratios = {"int8": (68, 128), "fp8": (64, 128)}
     for kv in ("int8", "fp8"):
         on, on_stats, on_tokens = serve(dev, tln, tpa, model, True,
@@ -1298,6 +1612,93 @@ def serving_quantized(dev, tln, tpa, model, fp_tokens, fp_stats) -> tuple:
                      "agreement_with_bf16": agree,
                      "requests_equal_to_bf16": whole,
                      "page_bytes_ratio": ratio}
+        tokens[kv] = on_tokens
+    return by_path, stats, tokens
+
+
+def adapter_traffic():
+    """The LORA adapters for GPT-124M (`make_random_lora` from numpy seed
+    0, drawn in order) and phase 3's requests' tenants: the first four
+    one per adapter, the rest zipf over {base, 1..4} (weight 1/(i+1)),
+    numpy seed 0 — scripts/serving_bench.py's `lora_trace` rule."""
+    from paddle_tpu_torch.serving import make_random_lora
+    k, h = LORA["adapters"], GPT124M["hidden_size"]
+    rng = np.random.RandomState(SEED)
+    loras = [make_random_lora(GPT124M["num_hidden_layers"], h, h, h,
+                              rank=LORA["rank"], rng=rng, amp=LORA["amp"])
+             for _ in range(k)]
+    zipf = np.array([1.0 / (i + 1) for i in range(k + 1)])
+    zipf /= zipf.sum()
+    trs = np.random.RandomState(SEED)
+    tenants = [1 + i % k if i < k else int(trs.choice(k + 1, p=zipf))
+               for i in range(N_REQUESTS)]
+    return loras, tenants
+
+
+def serving_megakernel(dev, tln, tpa, model, fp_tokens, int8_tokens) -> tuple:
+    """Phase 3's megakernel and adapter arms on the same model and
+    traffic, at the default engine geometry: the megakernel on, no
+    adapters, over bf16 and over int8 pools, each run twice in turns
+    with a gate-off run, whose tokens must all equal the megakernel-off
+    defaults arms' (K8's float write equals index_copy_, K12 equals
+    torch.argmax, bit for bit); the LORA adapters with the
+    megakernel off and on (a recorded step's held logits against a plain
+    f32 rerun each; the share of equal tokens printed, not checked);
+    adapters and the megakernel with 2 adapter pages (the pool spills,
+    evicts and restores: checked), and over int8 pools. Every arm checks
+    its exact launches per step. Returns the launches of each run (its
+    path) and the stats."""
+    by_path, stats = {}, {}
+    # the gate-off and gate-on arms in turns after the defaults arms
+    # (off, on, off, on): host time varies between runs of one call
+    runs = (("serving_megakernel", "fp", fp_tokens,
+             dict(megakernel=True, profile=True)),
+            ("serving_megakernel_off_again", "fp", fp_tokens, dict()),
+            ("serving_megakernel_again", "fp", fp_tokens,
+             dict(megakernel=True)),
+            ("serving_int8_megakernel", "int8", int8_tokens,
+             dict(megakernel=True, kv_dtype="int8")),
+            ("serving_int8_megakernel_off_again", "int8", int8_tokens,
+             dict(kv_dtype="int8")),
+            ("serving_int8_megakernel_again", "int8", int8_tokens,
+             dict(megakernel=True, kv_dtype="int8")),
+            ("serving_adapters", "fp", None,
+             dict(adapter_pages=8, record=True, profile=True)),
+            ("serving_adapters_megakernel", "fp", None,
+             dict(adapter_pages=8, megakernel=True, record=True,
+                  profile=True)),
+            ("serving_adapters_megakernel_2pages", "fp", None,
+             dict(adapter_pages=2, megakernel=True)),
+            ("serving_int8_adapters_megakernel", "int8", None,
+             dict(adapter_pages=8, megakernel=True, kv_dtype="int8",
+                  record=True)))
+    tokens = {}
+    for path, kv, want, opts in runs:
+        launches, st, tokens[path] = serve(dev, tln, tpa, model, True,
+                                           **opts)
+        if not path.endswith("again"):
+            by_path[path] = launches
+        if want is not None:
+            same = tokens[path] == want
+            log(f"  [{path}] tokens identical to the megakernel-off "
+                f"{kv} defaults arm's: {same}")
+            if not same:
+                raise AssertionError(f"{path}: the megakernel changed the "
+                                     "tokens")
+        stats[path] = st
+    off = tokens["serving_adapters"]
+    for path in ("serving_adapters_megakernel",
+                 "serving_adapters_megakernel_2pages"):
+        pairs = [(a, b) for got, w in zip(tokens[path], off)
+                 for a, b in zip(got, w)]
+        share = sum(a == b for a, b in pairs) / len(pairs)
+        stats[path]["agreement_with_megakernel_off"] = share
+        log(f"  [{path}] tokens equal to the megakernel-off adapters arm's "
+            f"at {share:.4f} of positions")
+    pool = stats["serving_adapters_megakernel_2pages"]["adapter_pool"]
+    if pool["spills_total"] + pool["evictions_total"] < 1 or \
+            pool["restores_total"] + pool["loads_total"] <= LORA["adapters"]:
+        raise AssertionError(f"2 adapter pages did not churn: {pool}")
     return by_path, stats
 
 
@@ -1701,6 +2102,80 @@ def held_step(dev, cfg, state, ids, labels, tln, tfa) -> dict:
     return out
 
 
+# -- phase 6: head dims off and on the flash kernels' set ---------------------
+def head_dim_phase(dev, tln, tfa, tpa, d: int) -> dict:
+    """A 2-layer GPT at head dim `d` (HEAD_DIM_GPTS), bf16, random weights
+    from the seed: the legacy step and the gather arm serve 8 of phase 3's
+    prompts (16 new tokens each), `generate()` decodes [4, 64] + 16 tokens
+    and one bench-style train step runs on [2, 1024]. At head dim 256 K3
+    runs on the legacy chunks, the gather arm and generate() and K3-K5 in
+    the train step; at 32 the route is the plain `_sdpa_ref` and no flash
+    kernel launches. The prefill logits of a forward are held against a
+    plain f32 rerun on the CPU (0.1). Returns the route and the stats."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.nn.functional.attention import uses_flash_kernel
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    cfg = GPTConfig(**HEAD_DIM_GPTS[d], hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    flash = uses_flash_kernel(d)
+    route = "flash attention (K3-K5)" if flash else "_sdpa_ref (plain)"
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                           seed=SEED).eval()
+    prompts = make_traffic()[:8]
+    stats = {"route": route}
+    reset_counts(tln, tfa, tpa)
+    for name, opts in (("legacy", dict(unified=False)),
+                       ("gather", dict(attn_impl="gather"))):
+        eng = ServingEngine(model, device=dev, seed=SEED, **opts, **ENGINE)
+        t0 = time.perf_counter()
+        res = eng.generate(prompts, SamplingParams(max_new_tokens=16))
+        torch.cuda.synchronize()
+        stats[name + "_wall_s"] = time.perf_counter() - t0
+        if any(len(r.token_ids) != 16 for r in res):
+            raise AssertionError(f"head dim {d} {name}: a request did not "
+                                 "finish")
+    rs = np.random.RandomState(SEED + 4)
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size, (4, 64))).to(dev)
+    out = model.generate(ids, max_new_tokens=16)
+    serving = dict(launch_counts_serving(tln, tpa, tfa))
+    with torch.no_grad():
+        logits = model(ids[:1]).float()
+        plain = copy.deepcopy(model).float().cpu()(ids[:1].cpu()).float()
+    err = (logits.cpu() - plain).abs().max().item()
+    model.train()
+    opt = optimizer.AdamW(learning_rate=TRAIN["lr"],
+                          parameters=model.named_parameters(),
+                          weight_decay=TRAIN["weight_decay"])
+    step = jit.compile_train_step(
+        lambda i, lab: model(i, labels=lab), model, opt)
+    tr = torch.from_numpy(rs.randint(0, cfg.vocab_size, (2, 1024))).to(dev)
+    reset_counts(tln, tfa, tpa)
+    loss = step(tr, tr).item()
+    torch.cuda.synchronize()
+    train = launch_counts(tln, tfa)
+    n_layers = cfg.num_hidden_layers
+    want_train = {"K1": 2 * n_layers + 1, "K2": 2 * n_layers + 1,
+                  "K3": n_layers if flash else 0,
+                  "K4": n_layers if flash else 0,
+                  "K5": n_layers if flash else 0}
+    stats.update(serving_launches={k: n for k, n in serving.items() if n},
+                 train_launches=train, train_loss=loss,
+                 prefill_logits_max_abs_err=err)
+    log(f"  head dim {d} ({cfg.num_attention_heads} heads of {d}, 2 layers, "
+        f"bf16): route {route}; legacy, gather arm and generate() launches "
+        f"{stats['serving_launches']}; train step launches {train}, loss "
+        f"{loss:.4f}; prefill logits vs plain f32 rerun max_abs_err="
+        f"{err:.4f} (tolerance {HELD_LOGITS_TOL})")
+    if (serving["K3"] > 0) is not flash or train != want_train:
+        raise AssertionError(f"head dim {d} took the wrong route: "
+                             f"{serving}, {train}")
+    if out.shape != (4, 80) or not math.isfinite(loss) or \
+            err > HELD_LOGITS_TOL:
+        raise AssertionError(f"head dim {d}: wrong output")
+    return stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -1711,6 +2186,7 @@ def main() -> int:
     from paddle_tpu_torch.ops.cuda import layer_norm as tln
     from paddle_tpu_torch.ops.cuda import paged_attention as tpa
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1737,28 +2213,46 @@ def main() -> int:
                "K2": check_layer_norm_bwd(dev, tln, timer)}
     kernels.update(zip(("K3", "K4", "K5"),
                        check_flash_attention(dev, tfa, timer)))
+    # head dim 256 (32-row tiles): the shapes of phase 6's GPT step
+    for key, rec in zip(("K3", "K4", "K5"), check_flash_attention(
+            dev, tfa, timer, shape=D256_FLASH)):
+        kernels[key]["head_dim_256"] = {
+            k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                "bound_by", "library_ms")}
+    torch.cuda.empty_cache()
     for lane in ("fp", "fp8", "q8"):
         kernels[WALKS["K6", lane][0]] = check_paged_attention(
             dev, tpa, timer, lane)
         (kernels[WALKS["K10a", lane][0]],
          kernels[WALKS["K10b", lane][0]]) = check_grouped_attention(
             dev, tpa, timer, lane)
-    kernels["K8"], kernels["K8-q8"] = check_paged_scatter(dev, tpa, timer)
+    kernels["K8"], kernels["K8-q8"], kernels["K8-float"] = \
+        check_paged_scatter(dev, tpa, timer)
     for lane in ("fp", "fp8"):
         kernels["K9" if lane == "fp" else "K9-fp8"] = check_paged_decode(
             dev, tpa, timer, lane)
     kernels["K3"]["max_abs_err_serving_shapes"] = check_flash_serving(
         dev, tfa)
+    masked = check_paged_attention_masked(dev, tpa, timer)
+    kernels["K6"]["user_mask"] = masked["K6"]
+    kernels["K7"]["user_mask"] = masked["K7"]
+    kernels["K11"] = check_lora_paged(dev, tpa, timer)
+    kernels["K12"] = check_greedy_argmax(dev, tpa, timer)
     torch.cuda.empty_cache()
 
     log("phase 3 serve GPT-124M (bf16, random weights):")
     by_path, serving_stats, model, fp_tokens = serving(dev, tln, tpa)
     log(f"  serving: {json.dumps(serving_stats)}")
-    quant_paths, serving_stats["quantized"] = serving_quantized(
+    quant_paths, serving_stats["quantized"], quant_tokens = serving_quantized(
         dev, tln, tpa, model, fp_tokens, serving_stats["defaults"][0])
     by_path.update(quant_paths)
     log(f"  serving, quantized KV: "
         f"{json.dumps(serving_stats['quantized'])}")
+    mega_paths, serving_stats["megakernel"] = serving_megakernel(
+        dev, tln, tpa, model, fp_tokens, quant_tokens["int8"])
+    by_path.update(mega_paths)
+    log(f"  serving, megakernel and adapter arms: "
+        f"{json.dumps(serving_stats['megakernel'])}")
     for kv in ("fp", "int8"):
         log(f"  preemption ({kv}): {json.dumps(preemption(dev, model, kv))}")
     legacy_paths, serving_stats["legacy"] = serving_legacy(
@@ -1782,6 +2276,13 @@ def main() -> int:
     by_path["generate"], generation = generate_phase(dev, tln, tpa, model)
     log(f"  generate: {json.dumps(generation)}")
     del model
+    torch.cuda.empty_cache()
+
+    log("phase 6 GPT at head dims 256 and 32 (2 layers, bf16, random "
+        "weights):")
+    head_dims = {d: head_dim_phase(dev, tln, tfa, tpa, d)
+                 for d in HEAD_DIM_GPTS}
+    log(f"  head dims: {json.dumps(head_dims)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at
@@ -1790,6 +2291,8 @@ def main() -> int:
                                    for path, counts in by_path.items()}
         rec["launches"] = rec["launches_by_path"][rec["path"]]
 
+    log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
+        f"build included")
     print(smi)
     print(json.dumps({"kernels": list(kernels.values())}))
     print(json.dumps({"ok": True, "device": {

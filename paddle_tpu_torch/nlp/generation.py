@@ -26,20 +26,31 @@ writes the new K/V and attends in the mode's way:
 `attn_impl` ("kernel" | "gather", `resolve_paged_attn_impl`) chooses
 between the kernel branches and the gather branch. An optional user
 `attn_mask` over the cache axis composes with the window: into K9's
-mask operand, or into the gather branch's additive mask; the ragged
-kernel branch raises on one (ROADMAP.md, queue 2, K6's user mask).
+mask operand, into the mask lane of K6/K7 (the ragged branch and the
+int8 single-token branch; the grouped walk falls back to K6/K7 under a
+mask, as the JAX op does), or into the gather branch's additive mask.
+
+The unified step's megakernel (`DecodeCache.megakernel`, the engine's
+PADDLE_TPU_MEGAKERNEL gate): with q_len set, the kernel impl and no user
+mask, the write and the walk go through `megakernel_decode[_q8]` (K8 or
+K8-q8, then K6, K7 or K10) as one op, the JAX branch's composition;
+with `lora_paged` set it also adds the rows' paged q/k/v LoRA deltas
+from `lora_x` (K11) before the write. The unfused LoRA path
+(`DecodeCache.lora`, per-row gathered pairs) is applied by the model
+around `update_and_attend` (nlp/gpt.py).
 
 PyTorch runs eagerly, so caches are updated IN PLACE: the cache that
 `update_and_attend` returns shares the buffers it was given. The JAX
 package's `_pack_caches`, which carried the buffers through a jitted
-loop, has no counterpart. The dense int8 cache (`kv_scales`), beam
-search, LoRA and the megakernel are not ported (ROADMAP.md, queue 1).
+loop, has no counterpart. The dense int8 cache (`kv_scales`) and beam
+search are not ported (ROADMAP.md, queue 1).
 
 Mixed types in the gather branch: e4m3 and int8 pages gather to f32
 while q may be bf16. The JAX reference promotes inside its einsums and
-returns f32 there; flash attention takes one dtype, so the port attends
-such a chunk with q upconverted to f32 (the logits the JAX einsum forms)
-and returns the output in q's dtype, the model's.
+returns f32 there, and so does the port: the chunk attends with q
+upconverted to f32 (the logits the JAX einsum forms) and the output is
+f32. Downstream the model follows jnp's promotion (nlp/gpt.py): a bf16
+layer fed f32 computes in f32 with its weights upcast.
 """
 from __future__ import annotations
 
@@ -54,6 +65,8 @@ import torch
 from ..nn.functional import scaled_dot_product_attention
 from ..ops.cuda.paged_attention import (FP8_DTYPE, NEG_INF,
                                         dequantize_paged_q8,
+                                        megakernel_decode,
+                                        megakernel_decode_q8,
                                         paged_decode_attention,
                                         paged_scatter, paged_scatter_q8,
                                         ragged_paged_attention,
@@ -102,7 +115,18 @@ class DecodeCache:
     grouped walk). `k_scale`/`v_scale`, when set, are the f32 rowwise
     scale pools [num_pages, page_size, H_kv] of int8 code pools (the q8
     lane: a page and its scales are one unit). `attn_impl` pins
-    "kernel" or "gather" (None: `resolve_paged_attn_impl`)."""
+    "kernel" or "gather" (None: `resolve_paged_attn_impl`).
+
+    Multi-tenant LoRA (serving/adapters.py): `lora`, this layer's
+    per-row gathered pairs (Aq [B, h, R], Bq [B, R, Hq*D], Ak, Bk, Av,
+    Bv, Ao [B, Hq*D, R], Bo [B, R, h], scale [B]), which the attention
+    module adds to its projections through `lora_delta`; or, in
+    megakernel mode, `lora_paged`, the layer's whole adapter pools (Aq
+    [P, h, R], ... Bo [P, R, h]) plus the rows' page ids apage [B] int32
+    and scales ascale [B] f32, gathered inside the fused op (K11). A row
+    at page 0 / scale 0 sees an exactly-zero delta. `megakernel` routes
+    the unified step's write and walk through `megakernel_decode[_q8]`
+    (see the module doc)."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -113,6 +137,9 @@ class DecodeCache:
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
     attn_impl: Optional[str] = None
+    lora: Optional[tuple] = None
+    lora_paged: Optional[tuple] = None
+    megakernel: bool = False
 
 
 def init_decode_caches(n_layers: int, batch_size: int, max_len: int,
@@ -269,19 +296,42 @@ def _user_mask(attn_mask, lmax: int, c: DecodeCache) -> torch.Tensor:
 
 def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
                       v_new: torch.Tensor, cache: DecodeCache,
-                      attn_mask: Optional[torch.Tensor] = None
+                      attn_mask: Optional[torch.Tensor] = None,
+                      lora_x: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor, DecodeCache]:
     """Write k_new/v_new [B, l, H_kv, D] at the cache's positions (every
     column, padding included: a dead column's K/V lands past the live
     window, where it is masked until overwritten), then attend q
     [B, l, H, D] over each row's valid prefix — the branch the cache's
-    mode and `attn_impl` choose (module doc). Returns (out [B, l, H, D]
-    in q's dtype, the cache with pos advanced by q_len, or by l)."""
+    mode and `attn_impl` choose (module doc). Returns (out [B, l, H, D],
+    the cache with pos advanced by q_len, or by l). The output is in q's
+    dtype, except on the gather branch over 1-byte pools, where it is
+    f32 as in the JAX package. `lora_x`, the attention input [B, l, h],
+    feeds the megakernel's LoRA prologue when `cache.lora_paged` is set
+    (q/k_new/v_new then carry the base projections only)."""
     c = cache
     b, l = q.shape[:2]
     quant = c.k_scale is not None
     paged = c.page_table is not None
     impl = resolve_paged_attn_impl(c.attn_impl)
+    if (paged and c.megakernel and c.q_len is not None
+            and attn_mask is None and impl == "kernel"):
+        pos_rows = _row_pos(c.pos, b, q.device)
+        rest = list(c.group) if c.group is not None else []
+        lora = c.lora_paged is not None and lora_x is not None
+        if lora:
+            aq, bq, ak, bk, av, bv = c.lora_paged[:6]
+            rest += [lora_x, aq, bq, ak, bk, av, bv, c.lora_paged[8],
+                     c.lora_paged[9]]
+        opts = dict(grouped=c.group is not None, lora=lora)
+        if quant:
+            out = megakernel_decode_q8(q, k_new, v_new, c.k, c.v, c.k_scale,
+                                       c.v_scale, c.page_table, pos_rows,
+                                       c.q_len, *rest, **opts)[0]
+        else:
+            out = megakernel_decode(q, k_new, v_new, c.k, c.v, c.page_table,
+                                    pos_rows, c.q_len, *rest, **opts)[0]
+        return out, dataclasses.replace(c, pos=c.pos + c.q_len)
     if paged:
         pos_rows = _row_pos(c.pos, b, q.device)
         if quant:
@@ -347,27 +397,37 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
         kf, vf = c.k, c.v
     n_rep = q.shape[2] // kf.shape[2]
     if n_rep > 1 and l == 1:
-        return gqa_decode_attend(q, kf, vf, mask).to(q.dtype), new_cache
+        return gqa_decode_attend(q, kf, vf, mask), new_cache
     if n_rep > 1:
         kf = kf.repeat_interleave(n_rep, dim=2)
         vf = vf.repeat_interleave(n_rep, dim=2)
-    qx = q.to(kf.dtype) if kf.dtype != q.dtype else q
-    out = scaled_dot_product_attention(qx, kf, vf, attn_mask=mask,
-                                       is_causal=False, training=False)
-    return out.to(q.dtype), new_cache
+    # 1-byte pools gather to f32: attend in the promoted dtype and
+    # return it, as the JAX einsums do
+    ct = torch.promote_types(q.dtype, kf.dtype)
+    out = scaled_dot_product_attention(q.to(ct), kf.to(ct), vf.to(ct),
+                                       attn_mask=mask, is_causal=False,
+                                       training=False)
+    return out, new_cache
 
 
 def _unpack_caches(pools, pos, page_table: Optional[torch.Tensor] = None,
                    q_len: Optional[torch.Tensor] = None, group=None,
-                   attn_impl: Optional[str] = None) -> List[DecodeCache]:
+                   attn_impl: Optional[str] = None, lora=None,
+                   lora_paged=None, megakernel: bool = False
+                   ) -> List[DecodeCache]:
     """Per-layer (k, v, k_scale | None, v_scale | None) pools (the JAX
     engine's `_ct`) -> DecodeCache list sharing one pos, page_table and
     q_len, optionally one (group_id, group_leader, group_cnt) triple,
     and the attend implementation (a page id addresses the same page in
-    every layer's pool)."""
+    every layer's pool). `lora` / `lora_paged`, one entry per layer (see
+    DecodeCache), attach the layers' adapter operands; `megakernel`
+    routes every layer's unified attend through the fused op."""
+    n = len(pools)
+    lora = [None] * n if lora is None else list(lora)
+    lora_paged = [None] * n if lora_paged is None else list(lora_paged)
     return [DecodeCache(k, v, pos, page_table, q_len, group, ks, vs,
-                        attn_impl)
-            for k, v, ks, vs in pools]
+                        attn_impl, lo, lp, megakernel)
+            for (k, v, ks, vs), lo, lp in zip(pools, lora, lora_paged)]
 
 
 def decode_model_step(model, tokens: torch.Tensor, caches):

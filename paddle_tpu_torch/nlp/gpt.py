@@ -26,8 +26,19 @@ cache:
 - the LM head is tied: logits = h @ E^T (gpt.py:311-312); with labels
   the forward returns cross_entropy(logits, labels), labels aligned
   with logits position for position (no shift, gpt.py:313-315);
+- multi-tenant LoRA on the cached path (gpt.py:105-133): with
+  `cache.lora` the per-row q/k/v deltas (`lora_delta`) add after the
+  fused-QKV split and the o-delta after the output projection; with
+  `cache.lora_paged` (megakernel mode) the attention input goes to the
+  fused op as `lora_x` for the q/k/v deltas and the o-delta is
+  `lora_delta_paged` (K11);
+- mixed dtypes follow jnp's promotion, as the JAX layers do: a layer
+  fed a wider dtype than its weights (the gather branch over 1-byte
+  pools returns f32 to a bf16 model) computes its projections and
+  LayerNorms in the wider dtype, the weights upcast;
 - `generate()` (gpt.py:355) decodes through `CompiledGenerator` over a
-  static dense cache.
+  static dense cache; `use_compiled=False` runs the same loop as the
+  JAX eager debug loop (gpt.py:398-423) does, which never stops at eos.
 
 Linear layers are `torch.nn.Linear` ([out, in] weights; `convert.py`
 transposes the JAX package's [in, out]). Recompute and tensor and
@@ -44,6 +55,7 @@ from torch.nn import functional as F
 from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nn import LayerNorm
 from ..nn import functional as PF
+from ..ops.cuda.paged_attention import lora_delta, lora_delta_paged
 from .generation import CompiledGenerator, DecodeCache, update_and_attend
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM"]
@@ -67,6 +79,17 @@ class GPTConfig:
         self.layer_norm_epsilon = layer_norm_epsilon
 
 
+def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """mod(x), in the promoted dtype of x and the weights when they
+    differ (jnp's promotion: the weights upcast exactly)."""
+    w = mod.weight
+    if x.dtype == w.dtype:
+        return mod(x)
+    ct = torch.promote_types(x.dtype, w.dtype)
+    return F.linear(x.to(ct), w.to(ct),
+                    None if mod.bias is None else mod.bias.to(ct))
+
+
 class GPTAttention(nn.Module):
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
@@ -82,13 +105,29 @@ class GPTAttention(nn.Module):
     def forward(self, x: torch.Tensor, cache: Optional[DecodeCache] = None,
                 generator: Optional[torch.Generator] = None):
         """Without a cache: causal attention over x -> [b, l, h]. With
-        one: (output, advanced cache) through the paged step."""
+        one: (output, advanced cache) through the paged step, with the
+        cache's LoRA deltas (module doc)."""
         b, l, h = x.shape
-        qkv = self.qkv_proj(x).view(b, l, self.num_heads, 3 * self.head_dim)
+        qkv = _linear(self.qkv_proj, x).view(b, l, self.num_heads,
+                                             3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
         if cache is not None:
-            out, cache = update_and_attend(q, k, v, cache)
-            return self.out_proj(out.reshape(b, l, h)), cache
+            lora, lora_paged = cache.lora, cache.lora_paged
+            if lora is not None:
+                aq, bq, ak, bk, av, bv, ao, bo, sc = lora
+                q = q + lora_delta(x, aq, bq, sc).reshape(q.shape)
+                k = k + lora_delta(x, ak, bk, sc).reshape(k.shape)
+                v = v + lora_delta(x, av, bv, sc).reshape(v.shape)
+            out, cache = update_and_attend(
+                q, k, v, cache,
+                lora_x=x if lora_paged is not None else None)
+            out = out.reshape(b, l, h)
+            o = _linear(self.out_proj, out)
+            if lora is not None:
+                o = o + lora_delta(out, ao, bo, sc)
+            elif lora_paged is not None:
+                o = o + lora_delta_paged(out, *lora_paged[6:10])
+            return o, cache
         out = PF.scaled_dot_product_attention(
             q, k, v, dropout_p=self.dropout, is_causal=True,
             training=self.training, generator=generator)
@@ -104,7 +143,8 @@ class GPTMLP(nn.Module):
                              **factory)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x), approximate="tanh"))
+        return _linear(self.fc2, F.gelu(_linear(self.fc1, x),
+                                        approximate="tanh"))
 
 
 class GPTDecoderLayer(nn.Module):
@@ -251,7 +291,9 @@ class GPTForCausalLM(nn.Module):
         return self.gpt.embeddings.word_embeddings.weight.dtype
 
     def lm_head(self, h: torch.Tensor) -> torch.Tensor:
-        return F.linear(h, self.gpt.embeddings.word_embeddings.weight)
+        w = self.gpt.embeddings.word_embeddings.weight
+        ct = torch.promote_types(h.dtype, w.dtype)
+        return F.linear(h.to(ct), w.to(ct))
 
     @property
     def generator(self) -> torch.Generator:
@@ -295,9 +337,11 @@ class GPTForCausalLM(nn.Module):
         """Autoregressive decoding over a static dense KV cache
         (`CompiledGenerator`): input_ids [B, L] -> [B, L + max_new_tokens]
         (the JAX method's arguments and errors). use_compiled=False, the
-        JAX package's eager debug loop, runs the same loop here and keeps
-        that loop's argument checks. Sampling draws from `generator`
-        when given, else from the model's own (`self.generator`)."""
+        JAX package's eager debug loop, runs the same loop here with that
+        loop's argument checks and its rule for eos: it never stops early
+        and never pads, every row decodes max_new_tokens tokens. Sampling
+        draws from `generator` when given, else from the model's own
+        (`self.generator`)."""
         if decode_strategy == "greedy_search":   # reference spelling
             decode_strategy = "greedy"
         if not use_compiled and (decode_strategy not in (None, "greedy")
@@ -309,7 +353,8 @@ class GPTForCausalLM(nn.Module):
                 "need the compiled path (use_compiled=True)")
         gen = CompiledGenerator(
             self, self._decode_cache_spec(), temperature=temperature,
-            top_k=top_k, top_p=top_p, eos_token_id=eos_token_id,
+            top_k=top_k, top_p=top_p,
+            eos_token_id=eos_token_id if use_compiled else None,
             pad_token_id=pad_token_id, decode_strategy=decode_strategy,
             num_beams=num_beams, length_penalty=length_penalty,
             num_return_sequences=num_return_sequences,

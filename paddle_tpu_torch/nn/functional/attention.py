@@ -3,14 +3,20 @@
 `_sdpa_impl`, `_sdpa_ref` and `_mask_to_kernel_operands`).
 
 Inputs are [batch, seq, heads, head_dim] (paddle's layout). The route
-mirrors `_sdpa_impl`: everything goes to the flash attention op
-(`ops.cuda.flash_attention.flash_attention_blhd`, K3-K5 on the card,
-their plain versions on the CPU) — padding masks and additive biases as
-its kvec/bias operands, dropout as its position hash seeded from an
-int32[2] drawn from `generator` — except a trainable mask, which takes
-the plain `_sdpa_ref` (the kernels give no bias gradient). Unlike the
-TPU kernel's block-padded bias, the kernels here broadcast a per-head
-key mask [*, H, 1, Lk] over the queries, so it rides the bias operand.
+mirrors `_sdpa_impl`: at the head dims the kernels take (`HEAD_DIMS`:
+64, 128 and 256, the JAX `_use_pallas` set) everything goes to the
+flash attention op (`ops.cuda.flash_attention.flash_attention_blhd`,
+K3-K5 on the card, their plain versions on the CPU) — padding masks and
+additive biases as its kvec/bias operands, dropout as its position hash
+seeded from an int32[2] drawn from `generator` — and a trainable mask,
+or any other head dim, takes the plain `_sdpa_ref`, on the card too
+(the kernels give no bias gradient, and have no other tile). The route
+is chosen by head dim before any launch, never by catching a failed
+one. The JAX predicate also asks for q_len >= 128, a TPU tiling limit:
+here K3 serves short queries (decode steps, prefill chunks) as well.
+Unlike the TPU kernel's block-padded bias, the kernels here broadcast a
+per-head key mask [*, H, 1, Lk] over the queries, so it rides the bias
+operand.
 """
 from __future__ import annotations
 
@@ -19,9 +25,9 @@ from typing import Optional
 
 import torch
 
-from ...ops.cuda.flash_attention import flash_attention_blhd
+from ...ops.cuda.flash_attention import HEAD_DIMS, flash_attention_blhd
 
-__all__ = ["scaled_dot_product_attention"]
+__all__ = ["scaled_dot_product_attention", "uses_flash_kernel"]
 
 _NEG = -1e30
 
@@ -77,6 +83,13 @@ def _mask_to_kernel_operands(mask, b, h, lq, lk):
     return ("bias", add)
 
 
+def uses_flash_kernel(head_dim: int) -> bool:
+    """Whether attention at this head dim takes the flash attention op
+    (K3-K5 on the card) or the plain `_sdpa_ref`: the JAX `_use_pallas`
+    head-dim set."""
+    return int(head_dim) in HEAD_DIMS
+
+
 def _dropout_seeds(generator, device):
     """int32[2] seeds for the kernels' hash, drawn on `device` from
     `generator` (the default generator of the device when None)."""
@@ -98,10 +111,11 @@ def scaled_dot_product_attention(query: torch.Tensor, key: torch.Tensor,
     scale = 1.0 / math.sqrt(d)
     p = float(dropout_p) if training else 0.0
     bias = kvec = None
+    if not uses_flash_kernel(d) or (attn_mask is not None
+                                    and attn_mask.requires_grad):
+        return _sdpa_ref(query, key, value, attn_mask, is_causal, scale, p,
+                         generator)
     if attn_mask is not None:
-        if attn_mask.requires_grad:
-            return _sdpa_ref(query, key, value, attn_mask, is_causal, scale,
-                             p, generator)
         mapped = _mask_to_kernel_operands(attn_mask, b, h, lq, lk)
         if mapped[0] == "kvec":
             kvec = mapped[1]

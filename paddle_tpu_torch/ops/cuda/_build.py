@@ -46,7 +46,7 @@ KERNELS = {
         "ptt_layer_norm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
     },
     "ragged_paged_attention": {
-        "ptt_ragged_paged_attention": [_P] * 9 + [_I] * 11 + [_P],
+        "ptt_ragged_paged_attention": [_P] * 10 + [_I] * 11 + [_P],
     },
     "paged_decode_attention": {
         "ptt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
@@ -56,9 +56,16 @@ KERNELS = {
         "ptt_grouped_phase2": [_P] * 14 + [_I] * 11 + [_P],
     },
     "paged_scatter": {
+        "ptt_paged_scatter_float": [_P] * 4 + [_I] * 10 + [_P],
         "ptt_paged_scatter_e4m3": [_P] * 4 + [_I] * 9 + [_P],
         "ptt_paged_scatter_q8": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 2
                                 + [_P],
+    },
+    "lora_paged": {
+        "ptt_lora_delta_paged": [_P] * 6 + [_I] * 8 + [_P],
+    },
+    "greedy_argmax": {
+        "ptt_greedy_argmax": [_P, _P, _I, _I, _I, _P],
     },
     "flash_attention": {
         "ptt_flash_fwd": _FLASH,

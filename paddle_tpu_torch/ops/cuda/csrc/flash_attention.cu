@@ -24,12 +24,17 @@
 // for the forward, 6 and 8 for dq and dk/dv) on the tensor cores; this
 // first version does its products on the CUDA cores in f32, so it sits
 // far above that bound. Design (simple and right first): each block of
-// 256 threads owns one 64-row tile — (bh, q-block) for K3 and K4,
+// 256 threads owns one tile of TM rows — (bh, q-block) for K3 and K4,
 // (bh, k-block) for K5 — holds it in shared memory as f32 and loops
-// sequentially over the other axis, staging 64-row K/V (or Q/dO) tiles
-// with plain 16-byte loads. Each thread computes a 4 x 4 patch of the
-// 64 x 64 logit tile (rows ty + 16 i, columns tx + 16 j), so the row
-// reductions of the online softmax are shuffles inside a half-warp.
+// sequentially over the other axis, staging TM-row K/V (or Q/dO) tiles
+// with plain 16-byte loads. TM is 64 at head dims 64 and 128, and 32 at
+// head dim 256, where four 64-row f32 tiles of 257 floats a row (dq,
+// dk/dv: about 280 and 296 KB) exceed the 227 KB a block may use; at
+// 32 rows K3 takes about 103 KB, K4 136 KB and K5 140 KB. Each thread
+// computes a P x P patch (P = TM / 16) of the TM x TM logit tile (rows
+// ty + 16 i, columns tx + 16 j), so the row reductions of the online
+// softmax are shuffles inside a half-warp. The 64-row instantiations
+// are the code they were before the 32-row tile existed.
 // Blocks walk their own axis, so no kernel needs atomics. k-blocks past
 // the causal diagonal are skipped. Shared rows are padded to D + 1 floats
 // so the strided reads hit distinct banks.
@@ -39,9 +44,16 @@
 
 namespace {
 
-constexpr int kTile = 64;     // rows of every Q/K/V/dO tile
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x 4 patch each
-constexpr int kPS = kTile + 1;  // padded row of a 64 x 64 f32 tile
+constexpr int kThreads = 256;  // 16 x 16 threads, a P x P patch each
+
+// Rows of every Q/K/V/dO tile at head dim D (see the design note), the
+// patch side P of each thread, and the padded row of a TM x TM f32 tile.
+template <int D>
+struct Tile {
+  static constexpr int TM = D > 128 ? 32 : 64;
+  static constexpr int P = TM / 16;
+  static constexpr int PS = TM + 1;
+};
 
 struct Params {
   const void* q;
@@ -103,8 +115,8 @@ __device__ __forceinline__ float half_sum(float v) {
   return v;
 }
 
-// Stage rows [row0, row0 + 64) of a strided [B, L, H, D] operand at (b, h)
-// into shared f32 [64][D + 1]; rows past L are zero.
+// Stage rows [row0, row0 + TM) of a strided [B, L, H, D] operand at
+// (b, h) into shared f32 [TM][D + 1]; rows past L are zero.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
                                           int h, int row0, int L,
@@ -112,8 +124,9 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
                                           long long sh) {
   constexpr int E = 16 / sizeof(T);
   constexpr int VPR = D / E;  // 16-byte vectors per row
+  constexpr int TM = Tile<D>::TM;
   const T* base = src + b * sb + h * sh;
-  for (int i = threadIdx.x; i < kTile * VPR; i += kThreads) {
+  for (int i = threadIdx.x; i < TM * VPR; i += kThreads) {
     const int r = i / VPR, c = (i - r * VPR) * E;
     float* out = dst + r * (D + 1) + c;
     if (row0 + r < L) {
@@ -130,29 +143,30 @@ __device__ __forceinline__ void load_tile(float* dst, const T* src, int b,
 }
 
 // acc[i][j] += sum_d A[ty + 16 i][d] * Bm[tx + 16 j][d] over shared
-// [64][D + 1] tiles: one 4 x 4 patch of A . B^T.
-template <int D>
-__device__ __forceinline__ void patch_abt(float (&acc)[4][4], const float* A,
+// [TM][D + 1] tiles: one P x P patch of A . B^T.
+template <int D, int P>
+__device__ __forceinline__ void patch_abt(float (&acc)[P][P], const float* A,
                                           const float* Bm, int ty, int tx) {
 #pragma unroll 4
   for (int d = 0; d < D; ++d) {
-    float a[4], bv[4];
+    float a[P], bv[P];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
+    for (int i = 0; i < P; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + d];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = Bm[(tx + 16 * j) * (D + 1) + d];
+    for (int j = 0; j < P; ++j) bv[j] = Bm[(tx + 16 * j) * (D + 1) + d];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
+      for (int j = 0; j < P; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
   }
 }
 
 // The logits of the thread's patch, with bias/kvec added and mask applied:
 // valid[i][j] says whether (query q0 + ty + 16 i, key k0 + tx + 16 j) is
 // seen. s[i][j] holds q . k on entry.
-__device__ __forceinline__ void finish_logits(float (&s)[4][4],
-                                              bool (&valid)[4][4],
+template <int P>
+__device__ __forceinline__ void finish_logits(float (&s)[P][P],
+                                              bool (&valid)[P][P],
                                               const Params& p, int b, int h,
                                               int q0, int k0, int ty,
                                               int tx) {
@@ -161,10 +175,10 @@ __device__ __forceinline__ void finish_logits(float (&s)[4][4],
                              : nullptr;
   const float* kv = p.kvec ? p.kvec + b * p.kvec_sb : nullptr;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < P; ++i) {
     const int q = q0 + ty + 16 * i;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < P; ++j) {
       const int k = k0 + tx + 16 * j;
       bool ok = q < p.Lq && k < p.Lk;
       if (p.causal) ok = ok && k <= q + offset;
@@ -179,84 +193,86 @@ __device__ __forceinline__ void finish_logits(float (&s)[4][4],
   }
 }
 
-// number of k-blocks a q-block [q0, q0 + 64) has to visit
+// number of k-blocks a q-block [q0, q0 + TM) has to visit
+template <int TM>
 __device__ __forceinline__ int kblocks_for(const Params& p, int q0) {
   int nk = p.Lk;
   if (p.causal) {
-    const int q_last = min(q0 + kTile, p.Lq) - 1;
+    const int q_last = min(q0 + TM, p.Lq) - 1;
     nk = min(nk, q_last + (p.Lk - p.Lq) + 1);
   }
-  return nk <= 0 ? 0 : (nk + kTile - 1) / kTile;
+  return nk <= 0 ? 0 : (nk + TM - 1) / TM;
 }
 
 // ---------------------------------------------------------------- K3
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(Params p) {
   constexpr int DP = D + 1, NJ = D / 16;
+  constexpr int TM = Tile<D>::TM, P = Tile<D>::P, PS = Tile<D>::PS;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sK = sQ + kTile * DP;
-  float* sV = sK + kTile * DP;
-  float* sP = sV + kTile * DP;  // [64][kPS]
-  const int nq = (p.Lq + kTile - 1) / kTile;
+  float* sK = sQ + TM * DP;
+  float* sV = sK + TM * DP;
+  float* sP = sV + TM * DP;  // [TM][PS]
+  const int nq = (p.Lq + TM - 1) / TM;
   const int bh = blockIdx.x / nq;
   const int qb = nq - 1 - (blockIdx.x - bh * nq);  // longest rows first
   const int b = bh / p.H, h = bh - b * p.H;
-  const int q0 = qb * kTile;
+  const int q0 = qb * TM;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const T* q = static_cast<const T*>(p.q);
   const T* k = static_cast<const T*>(p.k);
   const T* v = static_cast<const T*>(p.v);
-  uint32_t s0 = 0, s1 = 0, hq[4];
+  uint32_t s0 = 0, s1 = 0, hq[P];
   if (p.dropout) {
     s0 = static_cast<uint32_t>(p.seeds[0]);
     s1 = static_cast<uint32_t>(p.seeds[1]);
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) hq[i] = hash_q(s0, q0 + ty + 16 * i);
+  for (int i = 0; i < P; ++i) hq[i] = hash_q(s0, q0 + ty + 16 * i);
   const uint32_t bhm = static_cast<uint32_t>(bh) * 0x9E3779B9u;
 
   load_tile<T, D>(sQ, q, b, h, q0, p.Lq, p.q_sb, p.q_sl, p.q_sh);
-  float m[4], l[4], acc[4][NJ];
+  float m[P], l[P], acc[P][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < P; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
-  const int nkb = kblocks_for(p, q0);
+  const int nkb = kblocks_for<TM>(p, q0);
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
+    const int k0 = kb * TM;
     __syncthreads();  // the previous tile's readers are done
     load_tile<T, D>(sK, k, b, h, k0, p.Lk, p.k_sb, p.k_sl, p.k_sh);
     load_tile<T, D>(sV, v, b, h, k0, p.Lk, p.v_sb, p.v_sl, p.v_sh);
     __syncthreads();
-    float s[4][4] = {};
-    bool valid[4][4];
+    float s[P][P] = {};
+    bool valid[P][P];
     patch_abt<D>(s, sQ, sK, ty, tx);
     finish_logits(s, valid, p, b, h, q0, k0, ty, tx);
-    uint32_t hk[4];
+    uint32_t hk[P];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) hk[j] = hash_k(s1, k0 + tx + 16 * j);
+    for (int j = 0; j < P; ++j) hk[j] = hash_k(s1, k0 + tx + 16 * j);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < P; ++i) {
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < P; ++j)
         if (valid[i][j]) mx = fmaxf(mx, s[i][j]);
       const float m_new = fmaxf(m[i], half_max(mx));
       // m_new = -inf: no key seen yet, nothing to rescale or add
       const float alpha = m_new == -INFINITY ? 1.f : expf(m[i] - m_new);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < P; ++j) {
         const float pr = valid[i][j] ? expf(s[i][j] - m_new) : 0.f;
         rs += pr;
         float pe = pr;
         if (p.dropout)
           pe = keep(hq[i], hk[j], bhm, p.thresh) ? pr * p.inv_keep : 0.f;
-        sP[(ty + 16 * i) * kPS + tx + 16 * j] = pe;
+        sP[(ty + 16 * i) * PS + tx + 16 * j] = pe;
       }
       l[i] = alpha * l[i] + half_sum(rs);
       m[i] = m_new;
@@ -265,13 +281,13 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(Params p) {
     }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
+    for (int c = 0; c < TM; ++c) {
       float vv[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) vv[j] = sV[c * DP + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pc = sP[(ty + 16 * i) * kPS + c];
+      for (int i = 0; i < P; ++i) {
+        const float pc = sP[(ty + 16 * i) * PS + c];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pc, vv[j], acc[i][j]);
       }
@@ -280,7 +296,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(Params p) {
   T* o = static_cast<T*>(p.out0);
   float* lse = static_cast<float*>(p.out1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < P; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.Lq) continue;
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
@@ -298,26 +314,27 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(Params p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) fa_dq_kernel(Params p) {
   constexpr int DP = D + 1, NJ = D / 16;
+  constexpr int TM = Tile<D>::TM, P = Tile<D>::P, PS = Tile<D>::PS;
   extern __shared__ float smem[];
   float* sQ = smem;
-  float* sDO = sQ + kTile * DP;
-  float* sK = sDO + kTile * DP;
-  float* sV = sK + kTile * DP;
-  float* sDS = sV + kTile * DP;  // [64][kPS]
-  const int nq = (p.Lq + kTile - 1) / kTile;
+  float* sDO = sQ + TM * DP;
+  float* sK = sDO + TM * DP;
+  float* sV = sK + TM * DP;
+  float* sDS = sV + TM * DP;  // [TM][PS]
+  const int nq = (p.Lq + TM - 1) / TM;
   const int bh = blockIdx.x / nq;
   const int qb = nq - 1 - (blockIdx.x - bh * nq);
   const int b = bh / p.H, h = bh - b * p.H;
-  const int q0 = qb * kTile;
+  const int q0 = qb * TM;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  uint32_t s0 = 0, s1 = 0, hq[4];
+  uint32_t s0 = 0, s1 = 0, hq[P];
   if (p.dropout) {
     s0 = static_cast<uint32_t>(p.seeds[0]);
     s1 = static_cast<uint32_t>(p.seeds[1]);
   }
-  float lse[4], di[4];
+  float lse[P], di[P];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < P; ++i) {
     const int qi = q0 + ty + 16 * i;
     hq[i] = hash_q(s0, qi);
     lse[i] = qi < p.Lq ? p.lse[(long long)bh * p.Lq + qi] : 0.f;
@@ -328,47 +345,47 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(Params p) {
                   p.q_sl, p.q_sh);
   load_tile<T, D>(sDO, static_cast<const T*>(p.dout), b, h, q0, p.Lq,
                   p.do_sb, p.do_sl, p.do_sh);
-  float acc[4][NJ];
+  float acc[P][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const int nkb = kblocks_for(p, q0);
+  const int nkb = kblocks_for<TM>(p, q0);
   for (int kb = 0; kb < nkb; ++kb) {
-    const int k0 = kb * kTile;
+    const int k0 = kb * TM;
     __syncthreads();
     load_tile<T, D>(sK, static_cast<const T*>(p.k), b, h, k0, p.Lk, p.k_sb,
                     p.k_sl, p.k_sh);
     load_tile<T, D>(sV, static_cast<const T*>(p.v), b, h, k0, p.Lk, p.v_sb,
                     p.v_sl, p.v_sh);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    bool valid[4][4];
+    float s[P][P] = {}, dp[P][P] = {};
+    bool valid[P][P];
     patch_abt<D>(s, sQ, sK, ty, tx);
     patch_abt<D>(dp, sDO, sV, ty, tx);
     finish_logits(s, valid, p, b, h, q0, k0, ty, tx);
-    uint32_t hk[4];
+    uint32_t hk[P];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) hk[j] = hash_k(s1, k0 + tx + 16 * j);
+    for (int j = 0; j < P; ++j) hk[j] = hash_k(s1, k0 + tx + 16 * j);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < P; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < P; ++j) {
         const float pr = valid[i][j] ? expf(s[i][j] - lse[i]) : 0.f;
         float d = dp[i][j];
         if (p.dropout)
           d = keep(hq[i], hk[j], bhm, p.thresh) ? d * p.inv_keep : 0.f;
-        sDS[(ty + 16 * i) * kPS + tx + 16 * j] = pr * (d - di[i]) * p.scale;
+        sDS[(ty + 16 * i) * PS + tx + 16 * j] = pr * (d - di[i]) * p.scale;
       }
     __syncthreads();
 #pragma unroll 4
-    for (int c = 0; c < kTile; ++c) {
+    for (int c = 0; c < TM; ++c) {
       float kk[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) kk[j] = sK[c * DP + tx + 16 * j];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float dsc = sDS[(ty + 16 * i) * kPS + c];
+      for (int i = 0; i < P; ++i) {
+        const float dsc = sDS[(ty + 16 * i) * PS + c];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(dsc, kk[j], acc[i][j]);
       }
@@ -376,7 +393,7 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(Params p) {
   }
   T* dq = static_cast<T*>(p.out0);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < P; ++i) {
     const int qi = q0 + ty + 16 * i;
     if (qi >= p.Lq) continue;
     T* row = dq + (((long long)b * p.Lq + qi) * p.H + h) * D;
@@ -389,65 +406,66 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(Params p) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(Params p) {
   constexpr int DP = D + 1, NJ = D / 16;
+  constexpr int TM = Tile<D>::TM, P = Tile<D>::P, PS = Tile<D>::PS;
   extern __shared__ float smem[];
   float* sK = smem;
-  float* sV = sK + kTile * DP;
-  float* sQ = sV + kTile * DP;
-  float* sDO = sQ + kTile * DP;
-  float* sP = sDO + kTile * DP;  // p_eff [q][k], [64][kPS]
-  float* sDS = sP + kTile * kPS;  // ds [q][k]
-  const int nk = (p.Lk + kTile - 1) / kTile;
-  const int nq = (p.Lq + kTile - 1) / kTile;
+  float* sV = sK + TM * DP;
+  float* sQ = sV + TM * DP;
+  float* sDO = sQ + TM * DP;
+  float* sP = sDO + TM * DP;  // p_eff [q][k], [TM][PS]
+  float* sDS = sP + TM * PS;  // ds [q][k]
+  const int nk = (p.Lk + TM - 1) / TM;
+  const int nq = (p.Lq + TM - 1) / TM;
   const int bh = blockIdx.x / nk;
   const int kb = blockIdx.x - bh * nk;  // in causal, low k-blocks do most
   const int b = bh / p.H, h = bh - b * p.H;
-  const int k0 = kb * kTile;
+  const int k0 = kb * TM;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  uint32_t s0 = 0, s1 = 0, hk[4];
+  uint32_t s0 = 0, s1 = 0, hk[P];
   if (p.dropout) {
     s0 = static_cast<uint32_t>(p.seeds[0]);
     s1 = static_cast<uint32_t>(p.seeds[1]);
   }
 #pragma unroll
-  for (int j = 0; j < 4; ++j) hk[j] = hash_k(s1, k0 + tx + 16 * j);
+  for (int j = 0; j < P; ++j) hk[j] = hash_k(s1, k0 + tx + 16 * j);
   const uint32_t bhm = static_cast<uint32_t>(bh) * 0x9E3779B9u;
   load_tile<T, D>(sK, static_cast<const T*>(p.k), b, h, k0, p.Lk, p.k_sb,
                   p.k_sl, p.k_sh);
   load_tile<T, D>(sV, static_cast<const T*>(p.v), b, h, k0, p.Lk, p.v_sb,
                   p.v_sl, p.v_sh);
-  float dk[4][NJ], dv[4][NJ];
+  float dk[P][NJ], dv[P][NJ];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) dk[i][j] = dv[i][j] = 0.f;
   // first q-block with a query that sees key k0: q + (Lk - Lq) >= k0
   int qb0 = 0;
   if (p.causal) {
     const int first_q = k0 - (p.Lk - p.Lq);
-    qb0 = first_q <= 0 ? 0 : first_q / kTile;
+    qb0 = first_q <= 0 ? 0 : first_q / TM;
   }
   for (int qb = qb0; qb < nq; ++qb) {
-    const int q0 = qb * kTile;
+    const int q0 = qb * TM;
     __syncthreads();
     load_tile<T, D>(sQ, static_cast<const T*>(p.q), b, h, q0, p.Lq, p.q_sb,
                     p.q_sl, p.q_sh);
     load_tile<T, D>(sDO, static_cast<const T*>(p.dout), b, h, q0, p.Lq,
                     p.do_sb, p.do_sl, p.do_sh);
     __syncthreads();
-    float s[4][4] = {}, dp[4][4] = {};
-    bool valid[4][4];
+    float s[P][P] = {}, dp[P][P] = {};
+    bool valid[P][P];
     patch_abt<D>(s, sQ, sK, ty, tx);   // rows: queries, columns: keys
     patch_abt<D>(dp, sDO, sV, ty, tx);
     finish_logits(s, valid, p, b, h, q0, k0, ty, tx);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < P; ++i) {
       const int qi = q0 + ty + 16 * i;
       const bool live = qi < p.Lq;
       const float lse = live ? p.lse[(long long)bh * p.Lq + qi] : 0.f;
       const float di = live ? p.di[(long long)bh * p.Lq + qi] : 0.f;
       const uint32_t hq = hash_q(s0, qi);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < P; ++j) {
         const float pr = valid[i][j] ? expf(s[i][j] - lse) : 0.f;
         float pe = pr, d = dp[i][j];
         if (p.dropout) {
@@ -455,14 +473,14 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(Params p) {
           pe = kp ? pr * p.inv_keep : 0.f;
           d = kp ? d * p.inv_keep : 0.f;
         }
-        sP[(ty + 16 * i) * kPS + tx + 16 * j] = pe;
-        sDS[(ty + 16 * i) * kPS + tx + 16 * j] = pr * (d - di) * p.scale;
+        sP[(ty + 16 * i) * PS + tx + 16 * j] = pe;
+        sDS[(ty + 16 * i) * PS + tx + 16 * j] = pr * (d - di) * p.scale;
       }
     }
     __syncthreads();
     // thread now owns keys ty + 16 i and head columns tx + 16 j
 #pragma unroll 4
-    for (int r = 0; r < kTile; ++r) {
+    for (int r = 0; r < TM; ++r) {
       float dov[NJ], qv[NJ];
 #pragma unroll
       for (int j = 0; j < NJ; ++j) {
@@ -470,9 +488,9 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(Params p) {
         qv[j] = sQ[r * DP + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pe = sP[r * kPS + ty + 16 * i];
-        const float ds = sDS[r * kPS + ty + 16 * i];
+      for (int i = 0; i < P; ++i) {
+        const float pe = sP[r * PS + ty + 16 * i];
+        const float ds = sDS[r * PS + ty + 16 * i];
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           dv[i][j] = fmaf(pe, dov[j], dv[i][j]);
@@ -484,7 +502,7 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(Params p) {
   T* dkp = static_cast<T*>(p.out0);
   T* dvp = static_cast<T*>(p.out1);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < P; ++i) {
     const int kj = k0 + ty + 16 * i;
     if (kj >= p.Lk) continue;
     const long long off = (((long long)b * p.Lk + kj) * p.H + h) * D;
@@ -501,23 +519,24 @@ enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
 template <typename T, int D>
 int launch(const Params& p, int which, cudaStream_t stream) {
   constexpr int DP = D + 1;
-  const int nq = (p.Lq + kTile - 1) / kTile;
-  const int nk = (p.Lk + kTile - 1) / kTile;
+  constexpr int TM = Tile<D>::TM, PS = Tile<D>::PS;
+  const int nq = (p.Lq + TM - 1) / TM;
+  const int nk = (p.Lk + TM - 1) / TM;
   const long long bh = (long long)p.B * p.H;
   void (*kern)(Params);
   size_t smem;
   long long blocks;
   if (which == kFwd) {
     kern = fa_fwd_kernel<T, D>;
-    smem = (3 * kTile * DP + kTile * kPS) * sizeof(float);
+    smem = (3 * TM * DP + TM * PS) * sizeof(float);
     blocks = bh * nq;
   } else if (which == kDq) {
     kern = fa_dq_kernel<T, D>;
-    smem = (4 * kTile * DP + kTile * kPS) * sizeof(float);
+    smem = (4 * TM * DP + TM * PS) * sizeof(float);
     blocks = bh * nq;
   } else {
     kern = fa_dkv_kernel<T, D>;
-    smem = (4 * kTile * DP + 2 * kTile * kPS) * sizeof(float);
+    smem = (4 * TM * DP + 2 * TM * PS) * sizeof(float);
     blocks = bh * nk;
   }
   if (blocks == 0) return 0;
@@ -535,6 +554,7 @@ int dispatch_d(const Params& p, int which, cudaStream_t s) {
   switch (p.D) {
     case 64: return launch<T, 64>(p, which, s);
     case 128: return launch<T, 128>(p, which, s);
+    case 256: return launch<T, 256>(p, which, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,9 +1,9 @@
-// K8 and K8-q8: the paged KV write of the 1-byte pool lanes, for Hopper
-// (sm_90a).
+// K8 and K8-q8: the paged KV write, for Hopper (sm_90a).
 //
 // Replaces paddle_tpu/ops/pallas/paged_attention.py::_scatter_write_kernel
-// (K8, launched from _paged_scatter_kernel; the fp8 form of the public
-// paged_scatter) and ::_scatter_q8_write_kernel (K8-q8, launched from
+// (K8, launched from _paged_scatter_kernel: the megakernel's write stage,
+// the public paged_scatter's kernel form) in its float lane and its fp8
+// lane, and ::_scatter_q8_write_kernel (K8-q8, launched from
 // _paged_scatter_q8_kernel; public paged_scatter_q8). The new K/V
 // upd [B, l, Hkv, D] (f32, bf16 or f16) of row b's token t lands at
 // logical position p = pos[b] + t, i.e. pool slot
@@ -11,7 +11,11 @@
 // position past the row's window (p >= mp * ps) goes to slot p % ps of
 // the trash page 0, so the write never branches around a live page.
 //
-//   K8 (ptt_paged_scatter_e4m3): each value is clipped to +-448 and
+//   K8, float lane (ptt_paged_scatter_float): each value is cast to the
+//     pool's dtype (f32, bf16 or f16; round to nearest even), as
+//     `upd.astype(pool.dtype)` does; into a pool of upd's own dtype the
+//     write is a copy, so the pool equals `index_copy_`'s bit for bit.
+//   K8, fp8 lane (ptt_paged_scatter_e4m3): each value is clipped to +-448 and
 //     converted to float8 e4m3 with round-to-nearest-even (saturating),
 //     as the JAX write does before XLA's convert (which gives NaN past the
 //     range).
@@ -24,7 +28,7 @@
 //     the same slot of the f32 scale pool [num_pages, ps, Hkv].
 //
 // What bounds it: bytes (a few operations per element). Design: one warp
-// per (token, kv head) row; lane i takes elements i, i + 32, ... (so a
+// per (token, kv head) row, in every lane; lane i takes elements i, i + 32, ... (so a
 // warp's loads and stores are contiguous), the row's amax is a warp
 // reduction, and lane 0 writes the scale. Several tokens may write the
 // same trash slot; which one stays is unspecified, and a trash slot's
@@ -107,6 +111,52 @@ __global__ void __launch_bounds__(kThreads)
   if (lane == 0) scales[slot * geo.Hkv + g] = scale;
 }
 
+template <typename T, typename P>
+__global__ void __launch_bounds__(kThreads)
+    scatter_cast_kernel(const T* __restrict__ upd, P* __restrict__ pool,
+                        const int* __restrict__ table,
+                        const int* __restrict__ pos, const Geometry geo) {
+  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);  // (b, t, g)
+  const int lane = threadIdx.x & 31;
+  if (row >= geo.B * geo.l * geo.Hkv) return;
+  const int g = row % geo.Hkv;
+  const int bt = row / geo.Hkv;
+  const size_t slot = flat_slot(table, pos, bt / geo.l, bt % geo.l, geo.ps,
+                                geo.mp, geo.num_pages);
+  const T* src = upd + (size_t)row * geo.D;
+  P* dst = pool + (slot * geo.Hkv + g) * geo.D;
+  // through f32: exact from bf16 and f16, one rounding into the pool
+  for (int d = lane; d < geo.D; d += 32)
+    dst[d] = ptt::from_f32<P>(ptt::to_f32<T>(src[d]));
+}
+
+template <typename T, typename P>
+int launch_cast(const void* upd, void* pool, const int* table, const int* pos,
+                const Geometry& geo, cudaStream_t stream) {
+  const int rows = geo.B * geo.l * geo.Hkv;
+  scatter_cast_kernel<T, P><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
+                              stream>>>(static_cast<const T*>(upd),
+                                        static_cast<P*>(pool), table, pos,
+                                        geo);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_cast_to(const void* upd, void* pool, const int* table,
+                   const int* pos, const Geometry& geo, int pool_dtype,
+                   cudaStream_t s) {
+  switch (pool_dtype) {
+    case ptt::kF32:
+      return launch_cast<T, float>(upd, pool, table, pos, geo, s);
+    case ptt::kBF16:
+      return launch_cast<T, __nv_bfloat16>(upd, pool, table, pos, geo, s);
+    case ptt::kF16:
+      return launch_cast<T, __half>(upd, pool, table, pos, geo, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 template <typename T>
 int launch_e4m3(const void* upd, void* pool, const int* table,
                 const int* pos, const Geometry& geo, cudaStream_t stream) {
@@ -132,7 +182,37 @@ int launch_q8(const void* upd, void* codes, void* scales, const int* table,
 
 }  // namespace
 
-// K8. upd: [B, l, Hkv, D] of `dtype`; pool: e4m3 [num_pages, ps, Hkv, D],
+// K8, float lane. upd: [B, l, Hkv, D] of `dtype`; pool: [num_pages, ps,
+// Hkv, D] of `pool_dtype` (f32, bf16 or f16), written in place;
+// page_table [B, mp]; pos [B] int32. All contiguous.
+extern "C" int ptt_paged_scatter_float(const void* upd, void* pool,
+                                       const void* page_table,
+                                       const void* pos, int B, int l,
+                                       int Hkv, int D, int ps, int mp,
+                                       int num_pages, int dtype,
+                                       int pool_dtype, int device,
+                                       void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (B == 0 || l == 0 || Hkv == 0) return 0;
+  const Geometry geo{B, l, Hkv, D, ps, mp, num_pages};
+  const int* tab = static_cast<const int*>(page_table);
+  const int* p = static_cast<const int*>(pos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ptt::kF32:
+      return launch_cast_to<float>(upd, pool, tab, p, geo, pool_dtype, s);
+    case ptt::kBF16:
+      return launch_cast_to<__nv_bfloat16>(upd, pool, tab, p, geo,
+                                           pool_dtype, s);
+    case ptt::kF16:
+      return launch_cast_to<__half>(upd, pool, tab, p, geo, pool_dtype, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K8, fp8 lane. upd: [B, l, Hkv, D] of `dtype`; pool: e4m3 [num_pages, ps, Hkv, D],
 // written in place; page_table [B, mp]; pos [B] int32. All contiguous.
 extern "C" int ptt_paged_scatter_e4m3(const void* upd, void* pool,
                                       const void* page_table,

@@ -53,7 +53,9 @@ struct Args {
   const int* group_id;      // K10 only
   const int* group_leader;  // K10 phase 1 only
   const int* group_cnt;     // K10 only
-  const float* mask;        // K9 only: additive f32 [B, H, mp * ps]
+  const float* mask;        // the user mask, additive f32: K9's
+                            // [B, H, mp * ps], K6's and K7's
+                            // [B, H, lq, mp * ps]
   float* pm;                // K10 partials
   float* pl;
   float* pacc;
@@ -192,10 +194,11 @@ __device__ __forceinline__ void load_pool_page(const Args& a, int page,
 // column d (and d + 32, ...) with the probabilities broadcast by shuffles.
 // Key kp is live iff the query is (qlive) and kp <= qmax (= pos + i).
 // DV: output columns per lane (D <= 32 * DV); PJ: keys per lane
-// (ps <= 32 * PJ). kMasked (K9's user mask): the additive f32 mask row
-// `mrow` (indexed by key position) is added to each key's score after
-// the window mask, as the TPU kernel adds it; it is a template flag, so
-// the unmasked instantiations K6, K7 and K10 use are the code they were.
+// (ps <= 32 * PJ). kMasked (the user mask of K9, K6 and K7): the additive
+// f32 mask row `mrow` (indexed by key position) is added to each key's
+// score after the window mask, as the TPU kernel adds it; it is a
+// template flag, so the unmasked instantiations K6, K7 and K10 use are
+// the code they were.
 template <int DV, int PJ, bool kMasked = false>
 __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
                                            const float* sV, int D, int ps,
@@ -267,11 +270,16 @@ __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
 
 // The per-row walk: K6 (kGrouped false) and K10 phase 2 (kGrouped true).
 // Grid (nqb, Hkv, B). A dead query block writes zeros and reads nothing.
+// kMasked (K6/K7 only; under a mask the grouped op takes K6, as the JAX
+// op falls back to its ungrouped kernel): query qi of head h adds the
+// mask row [b, h, qi, :] to its scores, read straight from device memory
+// by each lane for its key; a padding query past lq (dead) reads row
+// lq - 1, so no read leaves the mask.
 // Phase 2 differs in one place: a row whose group shares pages
 // (group_cnt[group_id[b]] > 0) starts from its phase-1 partials at page
 // min(cnt, last + 1) instead of from (-1e30, 0, 0) at page 0; phase 1 wrote
 // exactly those rows' partials, so no unwritten entry is read.
-template <typename T, int DV, int PJ, bool kGrouped>
+template <typename T, int DV, int PJ, bool kGrouped, bool kMasked = false>
 __global__ void __launch_bounds__(kThreads) row_walk_kernel(const Args a) {
   extern __shared__ float smem[];
   const T* __restrict__ q = static_cast<const T*>(a.q);
@@ -343,9 +351,15 @@ __global__ void __launch_bounds__(kThreads) row_walk_kernel(const Args a) {
     __syncthreads();
     for (int r = warp; r < nrows; r += kWarps) {
       const int qi = q0 + r / rep;
-      attend_row<DV, PJ>(sQ + r * D, sK, sV, D, ps, p * ps, qi < qlen_b,
-                         pos_b + qi, a.scale, sM + r, sL + r, sAcc + r * D,
-                         lane);
+      const float* mrow = nullptr;
+      if (kMasked) {
+        const int h = g * rep + r % rep;
+        mrow = a.mask + (((size_t)b * H + h) * lq + min(qi, lq - 1)) *
+                            ((size_t)a.mp * ps);
+      }
+      attend_row<DV, PJ, kMasked>(sQ + r * D, sK, sV, D, ps, p * ps,
+                                  qi < qlen_b, pos_b + qi, a.scale, sM + r,
+                                  sL + r, sAcc + r * D, lane, mrow);
     }
   }
   __syncthreads();
@@ -367,12 +381,12 @@ inline size_t row_walk_smem(const Args& a) {
          (tile_floats(a.D, a.ps) + 2 * nrows * a.D + 2 * nrows);
 }
 
-template <bool kGrouped>
+template <bool kGrouped, bool kMasked = false>
 struct RowWalk {
   template <typename T, int DV, int PJ>
   static int run(const Args& a, cudaStream_t stream) {
     const size_t smem = row_walk_smem(a);
-    auto kernel = row_walk_kernel<T, DV, PJ, kGrouped>;
+    auto kernel = row_walk_kernel<T, DV, PJ, kGrouped, kMasked>;
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

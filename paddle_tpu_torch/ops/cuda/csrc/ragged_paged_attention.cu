@@ -42,25 +42,39 @@
 // the pool, so a bad table reads the wrong page instead of faulting. The
 // quantized lanes differ only in the page loader (`load_pool_page`), which
 // dequantizes into the same f32 tiles: the TPU kernel's in-VMEM dequant.
+//
+// The user-mask lane (the TPU kernel's `has_mask`): an additive f32 mask
+// [B, H, lq, mp * ps] (the wrapper turns a bool mask into 0 / -1e30 and
+// broadcasts) is added to each key's score after the window mask, inside
+// the same online softmax, in the masked instantiation of the same walk
+// (`attend_row`'s kMasked, with __fadd_rn so the add never contracts into
+// an FMA). The TPU kernel pads the mask to its query block and splits it
+// per kv head; here each row indexes [b, h = g * rep + r, qi, key]
+// directly. The unmasked launches run the instantiations they ran
+// before, so their bits, and K10 = K6, are unchanged.
 #include "paged_walk.cuh"
 
 // q, out: [B, lq, H, D]; k, v: [num_pages, ps, Hkv, D], of q's dtype
 // (pool code 0), int8 (1) or e4m3 (2); k_scale, v_scale: f32
 // [num_pages, ps, Hkv] for int8, else null; page_table [B, mp]; pos,
-// q_len [B]. All contiguous; D a multiple of the pool's 16-byte vector
-// width; H a multiple of Hkv.
+// q_len [B]; mask null or additive f32 [B, H, lq, mp * ps]. All
+// contiguous; D a multiple of the pool's 16-byte vector width; H a
+// multiple of Hkv.
 extern "C" int ptt_ragged_paged_attention(
     const void* q, const void* k, const void* v, const void* k_scale,
     const void* v_scale, const void* page_table, const void* pos,
-    const void* q_len, void* out, int B, int lq, int H, int Hkv, int D,
-    int ps, int mp, int num_pages, int dtype, int pool, int device,
-    void* stream) {
+    const void* q_len, const void* mask, void* out, int B, int lq, int H,
+    int Hkv, int D, int ps, int mp, int num_pages, int dtype, int pool,
+    int device, void* stream) {
   using namespace ptt::walk;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || lq == 0) return 0;
   Args a = make_args(q, k, v, k_scale, v_scale, page_table, pos, q_len, B,
                      lq, H, Hkv, D, ps, mp, num_pages, pool);
+  a.mask = static_cast<const float*>(mask);
   a.out = out;
-  return dispatch<RowWalk<false>>(dtype, a, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask != nullptr) return dispatch<RowWalk<false, true>>(dtype, a, s);
+  return dispatch<RowWalk<false>>(dtype, a, s);
 }

@@ -53,8 +53,9 @@ __all__ = ["flash_attention_blhd", "FlashAttentionBLHD",
 
 # launches since the last reset_launches(), per kernel
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
-# head dims the kernels are instantiated for
-HEAD_DIMS = (64, 128)
+# head dims the kernels are instantiated for: the JAX route's
+# (`_use_pallas`); 64-row tiles at 64 and 128, 32-row tiles at 256
+HEAD_DIMS = (64, 128, 256)
 _M32 = 0xFFFFFFFF
 
 

@@ -161,28 +161,30 @@ def lane_batch(ops, lane: str):
     return (q, k, v, table, pos, q_len), {"k_scale": ks, "v_scale": vs}
 
 
-def ragged(ops, scales):
-    """K6 in the batch's lane: K6, its fp8 lane or K7."""
+def ragged(ops, scales, mask=None):
+    """K6 in the batch's lane: K6, its fp8 lane or K7, with a user mask
+    when given (the mask lane)."""
     from . import paged_attention as tpa
 
     if not scales:
-        return tpa.ragged_paged_attention(*ops)
+        return tpa.ragged_paged_attention(*ops, mask=mask)
     q, k, v, table, pos, q_len = ops
     return tpa.ragged_paged_attention_q8(q, k, v, scales["k_scale"],
                                          scales["v_scale"], table, pos,
-                                         q_len)
+                                         q_len, mask=mask)
 
 
-def ragged_reference(ops, scales):
-    """The plain version of `ragged` in the batch's lane."""
+def ragged_reference(ops, scales, mask=None):
+    """The plain version of `ragged` in the batch's lane (`mask`: the
+    additive f32 [B, H, lq, lmax] form)."""
     from . import paged_attention as tpa
 
     if not scales:
-        return tpa.ragged_attention_reference(*ops)
+        return tpa.ragged_attention_reference(*ops, mask=mask)
     q, k, v, table, pos, q_len = ops
     return tpa.ragged_attention_reference_q8(q, k, v, scales["k_scale"],
                                              scales["v_scale"], table, pos,
-                                             q_len)
+                                             q_len, mask=mask)
 
 
 def grouped(ops, grp, scales):

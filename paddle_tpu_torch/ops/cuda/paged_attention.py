@@ -1,7 +1,9 @@
 """K6, K7, K9 and K10: ragged paged attention, its int8 lane, the
 single-token paged decode attention and the grouped two-phase walk —
 CUDA kernels, plain versions, wrappers — plus the paged KV writes they
-read from (K8, K8-q8) and the host model of their page reads.
+read from (K8, K8-q8), the host model of their page reads, and the
+decode megakernel's parts: the paged LoRA delta (K11), the greedy
+argmax (K12) and their composition `megakernel_decode[_q8]` (K13).
 
 Counterpart of `paddle_tpu/ops/pallas/paged_attention.py`:
 `ragged_paged_attention` (public, :1069) and
@@ -23,7 +25,13 @@ kernel `_pa_kernel` (:243, launched from `_paged_attention_kernel`
 :310) is `csrc/paged_decode_attention.cu` (K9) in its fp and fp8 lanes,
 with `paged_attention_reference` (:943) and `_mask_to_additive` (:232);
 `dequantize_paged_q8` (:1040) and the references (:1018, :1057);
-`count_page_block_reads` (:1621).
+`count_page_block_reads` (:1621); `resolve_megakernel_flag` (:213),
+`lora_delta` (:1400), `lora_delta_paged` (:1429, whose TPU kernel
+`_lora_paged_kernel` :1414 is K11, `csrc/lora_paged.cu`),
+`megakernel_decode` (:1491) and `megakernel_decode_q8` (:1525),
+`decode_greedy_argmax` (:1575, whose TPU kernel
+`_argmax_epilogue_kernel` :1561 is K12, `csrc/greedy_argmax.cu`) and
+`spec_verify_accept` (:1599).
 
 Semantics (shared by the kernels and the plain versions): q
 [B, lq, H, D]; pools [P, ps, H_kv, D] of q's dtype, of float8 e4m3
@@ -37,8 +45,12 @@ stream. Masked keys get probability exactly 0, so stale slots in a page
 are harmless as long as they are finite — the serving engine
 zero-initialises its pools and scale pools.
 
-K9 is the q_len 1 case with an optional additive user mask
-[B, H, mp * ps], added to the scores after the window mask: without a
+An optional user mask (bool, or additive float, broadcastable to
+[B, H, lq, mp * ps]) becomes an additive f32 mask (`_mask_to_additive`:
+0 / -1e30 for a bool mask) added to the scores after the window mask,
+inside the same online softmax: K6's and K7's mask lane. Under a mask
+the grouped op runs K6/K7, as the JAX op falls back to its ungrouped
+kernel. K9 is the q_len 1 case with its mask [B, H, mp * ps]: without a
 mask its output equals K6's at q_len 1 (on the card bit for bit; the
 plain versions are one function). int8 pools have no K9 lane: the
 decode step sends them to K7 at q_len 1.
@@ -54,17 +66,29 @@ tail. Both walk a row's pages in K6's order with K6's arithmetic, so on
 the card K10's output equals K6's bit for bit, lane for lane.
 
 The KV write goes to the slots `_paged_flat_slots` gives (past a row's
-window: the trash page 0). Into a pool of q's dtype it is an in-place
-`index_copy_` on the flattened pool (XLA's scatter in the JAX package);
-into an e4m3 pool it is K8 (clip to +-448, round to nearest even), into
-an int8 pool K8-q8 (rowwise quantize, then codes and scales to the same
-slots). Moves of e4m3 bytes go through `view(torch.uint8)`: PyTorch's
-float8 coverage of indexing and copies is patchy, and the bytes are the
-value.
+window: the trash page 0). On the unfused path (`paged_scatter`), into a
+pool of q's dtype it is an in-place `index_copy_` on the flattened pool
+(XLA's scatter in the JAX package); into an e4m3 pool it is K8 (clip to
++-448, round to nearest even), into an int8 pool K8-q8 (rowwise
+quantize, then codes and scales to the same slots). The megakernel's
+write stage (`paged_scatter_kernel`) is K8 for every float and e4m3
+pool, as the JAX megakernel runs its Pallas scatter: a float pool's
+write through K8 equals `index_copy_`'s bit for bit. Moves of e4m3
+bytes go through `view(torch.uint8)`: PyTorch's float8 coverage of
+indexing and copies is patchy, and the bytes are the value.
+
+The megakernel (`megakernel_decode[_q8]`, gate `resolve_megakernel_flag`
+/ PADDLE_TPU_MEGAKERNEL, default off) composes the decode layer as the
+JAX op does: the LoRA prologue (K11 for q, k and v, from the rows'
+adapter pages), the write (K8 or K8-q8), then the ragged or grouped walk
+(K6, K7, K10) over the updated pools; the o-projection's delta is K11
+outside it. It is no launch of its own: one fused launch is later work.
+Greedy sampling under the gate takes K12 (`decode_greedy_argmax`).
 """
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import numpy as np
@@ -82,8 +106,12 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
            "paged_decode_attention", "paged_attention_reference",
            "_mask_to_additive", "LAUNCHES", "GROUPED_LAUNCHES",
-           "QUANT_LAUNCHES", "DECODE_LAUNCHES", "reset_launches",
-           "NEG_INF"]
+           "QUANT_LAUNCHES", "DECODE_LAUNCHES", "MEGA_LAUNCHES",
+           "reset_launches", "NEG_INF", "paged_scatter_kernel",
+           "lora_delta", "lora_delta_paged", "lora_delta_paged_reference",
+           "decode_greedy_argmax", "spec_verify_accept",
+           "resolve_megakernel_flag", "MEGAKERNEL_ENV", "megakernel_decode",
+           "megakernel_decode_q8"]
 
 FP8_DTYPE = torch.float8_e4m3fn
 FP8_MAX = 448.0    # the largest finite e4m3 value: the write's clip
@@ -101,6 +129,10 @@ QUANT_LAUNCHES = {"K6-fp8": 0, "K7": 0, "K10a-fp8": 0, "K10b-fp8": 0,
                   "K10a-q8": 0, "K10b-q8": 0, "K8": 0, "K8-q8": 0}
 # K9, the single-token decode walk, over pools of q's dtype and e4m3 pools
 DECODE_LAUNCHES = {"K9": 0, "K9-fp8": 0}
+# the megakernel's own kernels: K8's float lane (its write stage into a
+# pool of a float dtype), K11 (the paged LoRA delta) and K12 (the greedy
+# argmax)
+MEGA_LAUNCHES = {"K8-float": 0, "K11": 0, "K12": 0}
 NEG_INF = -1e30    # the masked score, as in the TPU kernel
 QBLK = 8           # queries per kernel block (the partials' row blocks)
 # (walk kernel, pool lane) -> its QUANT_LAUNCHES key
@@ -114,7 +146,8 @@ _POOL_CODE = {"fp": _build.POOL_CODES["q"], "fp8": _build.POOL_CODES["e4m3"],
 def reset_launches():
     global LAUNCHES
     LAUNCHES = 0
-    for counts in (GROUPED_LAUNCHES, QUANT_LAUNCHES, DECODE_LAUNCHES):
+    for counts in (GROUPED_LAUNCHES, QUANT_LAUNCHES, DECODE_LAUNCHES,
+                   MEGA_LAUNCHES):
         for name in counts:
             counts[name] = 0
 
@@ -270,6 +303,37 @@ def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
     return pool
 
 
+def paged_scatter_kernel(pool: torch.Tensor, upd: torch.Tensor,
+                         pos: torch.Tensor, page_table: torch.Tensor
+                         ) -> torch.Tensor:
+    """The megakernel's write stage (the JAX `_paged_scatter_kernel`):
+    what `paged_scatter` writes, IN PLACE, returning the pool — on the
+    card K8 for every pool it takes, a float pool (the float lane: each
+    value cast to the pool's dtype, so a pool of upd's dtype equals
+    `index_copy_`'s bits) or an e4m3 pool; on the CPU the plain version.
+    The pool must be contiguous."""
+    if pool.device.type == "cpu":
+        return paged_scatter_reference(pool, upd, pos, page_table)
+    if pool.dtype == FP8_DTYPE:
+        return paged_scatter(pool, upd, pos, page_table)
+    if pool.device.type != "cuda":
+        raise ValueError(
+            f"paged_scatter_kernel: no kernel for device {pool.device}")
+    upd, pos, page_table = _scatter_check("paged_scatter_kernel", pool, upd,
+                                          pos, page_table)
+    if not pool.is_contiguous():
+        raise ValueError("paged_scatter_kernel: the pool must be contiguous")
+    lib = _build.load("paged_scatter")
+    err = lib.ptt_paged_scatter_float(
+        upd.data_ptr(), pool.data_ptr(), page_table.data_ptr(),
+        pos.data_ptr(), *_scatter_geometry(pool, upd, page_table),
+        _build.dtype_code(upd.dtype), _build.dtype_code(pool.dtype),
+        pool.device.index, _build.stream_ptr(pool.device))
+    _build.check(lib, err, "paged scatter (float) kernel launch")
+    MEGA_LAUNCHES["K8-float"] += 1
+    return pool
+
+
 def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
                      upd: torch.Tensor, pos: torch.Tensor,
                      page_table: torch.Tensor):
@@ -352,18 +416,21 @@ def _ragged_attend(q, kf, vf, pos, q_len, mask=None):
 def ragged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                v_pool: torch.Tensor,
                                page_table: torch.Tensor, pos: torch.Tensor,
-                               q_len: torch.Tensor) -> torch.Tensor:
+                               q_len: torch.Tensor,
+                               mask: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
     """Plain PyTorch version of K6 and its fp8 lane: gather every row's
     pages into the dense logical view (e4m3 pools upconverted) and run a
-    grouped softmax in f32 under the ragged causal window (the JAX
-    package's `ragged_attention_reference`)."""
+    grouped softmax in f32 under the ragged causal window, plus the
+    additive f32 `mask` [B, H, lq, lmax] when given (the JAX package's
+    `ragged_attention_reference` through `_ragged_mask_attend`)."""
     b, _, _, d = q.shape
     _, ps, hkv, _ = k_pool.shape
     lmax = page_table.shape[1] * ps
     tab = page_table.to(torch.int64)
     kf = _pages_f32(k_pool, None, tab).reshape(b, lmax, hkv, d)
     vf = _pages_f32(v_pool, None, tab).reshape(b, lmax, hkv, d)
-    return _ragged_attend(q, kf, vf, pos, q_len)
+    return _ragged_attend(q, kf, vf, pos, q_len, mask)
 
 
 def ragged_attention_reference_q8(q: torch.Tensor, k_pool: torch.Tensor,
@@ -372,14 +439,16 @@ def ragged_attention_reference_q8(q: torch.Tensor, k_pool: torch.Tensor,
                                   v_scale: torch.Tensor,
                                   page_table: torch.Tensor,
                                   pos: torch.Tensor,
-                                  q_len: torch.Tensor) -> torch.Tensor:
+                                  q_len: torch.Tensor,
+                                  mask: Optional[torch.Tensor] = None
+                                  ) -> torch.Tensor:
     """Plain PyTorch version of K7 (the JAX
     `ragged_attention_reference_q8`): dequantize the rows' code and
     scale pages (`dequantize_paged_q8`) and attend as the fp reference
-    does."""
+    does, the additive `mask` included."""
     kf = dequantize_paged_q8(k_pool, k_scale, page_table)
     vf = dequantize_paged_q8(v_pool, v_scale, page_table)
-    return _ragged_attend(q, kf, vf, pos, q_len)
+    return _ragged_attend(q, kf, vf, pos, q_len, mask)
 
 
 def _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale=None,
@@ -452,40 +521,59 @@ def _geometry(q, k_pool, page_table):
             q.device.index, _build.stream_ptr(q.device))
 
 
-def _no_user_mask(mask, name):
-    if mask is not None:
-        raise NotImplementedError(
-            f"{name}: the user attention mask is not ported "
-            "(ROADMAP.md, queue 2, K6)")
-
-
 def _not_int8(k_pool, name):
     if k_pool.dtype == torch.int8:
         raise TypeError(f"{name}: int8 pools need their scale pools: use "
                         f"{name}_q8")
 
 
-def _ragged(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len):
+def _ragged_operands(q, k_pool, page_table, pos, q_len, mask):
+    """pos and q_len as int32 [B] (a 0-dim one broadcast) and the user
+    mask as the additive f32 [B, H, lq, lmax] the walks take (None
+    stays None)."""
+    b, lq, h, _ = q.shape
+    out = []
+    for v in (pos, q_len):
+        v = v.to(torch.int32)
+        out.append(v.reshape(1).expand(b).contiguous() if v.dim() == 0
+                   else v)
+    if mask is not None:
+        lmax = page_table.shape[1] * k_pool.shape[1]
+        mask = _mask_to_additive(mask, b, h, lmax, lq)
+        if lq == 1:
+            mask = mask.reshape(b, h, 1, lmax)
+    return out[0], out[1], mask
+
+
+def _ragged(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len,
+            mask=None):
+    pos, q_len, mask = _ragged_operands(q, k_pool, page_table, pos, q_len,
+                                        mask)
     if q.device.type == "cpu":
         if k_scale is None:
             return ragged_attention_reference(q, k_pool, v_pool, page_table,
-                                              pos, q_len)
+                                              pos, q_len, mask)
         return ragged_attention_reference_q8(q, k_pool, v_pool, k_scale,
-                                             v_scale, page_table, pos, q_len)
+                                             v_scale, page_table, pos, q_len,
+                                             mask)
     if q.device.type != "cuda":
         raise ValueError(
             f"ragged_paged_attention: no kernel for device {q.device}")
     _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale, v_scale)
-    q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len = \
+    if mask is not None and mask.device != q.device:
+        raise ValueError(f"ragged_paged_attention: mask on {mask.device}, "
+                         f"q on {q.device}")
+    q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len, mask = \
         _contiguous(q, k_pool, v_pool, k_scale, v_scale, page_table, pos,
-                    q_len)
+                    q_len, mask)
     _check_aligned(k_pool, v_pool)
     out = torch.empty_like(q)
     lib = _build.load("ragged_paged_attention")
     err = lib.ptt_ragged_paged_attention(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), _ptr(k_scale),
         _ptr(v_scale), page_table.data_ptr(), pos.data_ptr(),
-        q_len.data_ptr(), out.data_ptr(), *_geometry(q, k_pool, page_table))
+        q_len.data_ptr(), _ptr(mask), out.data_ptr(),
+        *_geometry(q, k_pool, page_table))
     _build.check(lib, err, "ragged_paged_attention kernel launch")
     _count_walk("K6", _lane(k_pool))
     return out
@@ -497,12 +585,13 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            mask: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
     """Ragged paged attention (see the module doc) over pools of q's
-    dtype (K6) or e4m3 pools (K6's fp8 lane). The optional additive user
-    mask of the JAX op is not ported: the serving engine never passes
-    one, and a mask raises here."""
-    _no_user_mask(mask, "ragged_paged_attention")
+    dtype (K6) or e4m3 pools (K6's fp8 lane). pos and q_len are [B] (a
+    scalar is broadcast). `mask`, optional: a user attention mask, bool
+    or additive float, broadcastable to [B, H, lq, mp * ps], composed
+    with the ragged window in the kernel (its mask lane)."""
     _not_int8(k_pool, "ragged_paged_attention")
-    return _ragged(q, k_pool, v_pool, None, None, page_table, pos, q_len)
+    return _ragged(q, k_pool, v_pool, None, None, page_table, pos, q_len,
+                   mask)
 
 
 def ragged_paged_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
@@ -514,26 +603,27 @@ def ragged_paged_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
                               ) -> torch.Tensor:
     """Ragged paged attention over int8 code pools with their f32 scale
     pools [P, ps, H_kv] (K7): the output of `ragged_paged_attention` over
-    the dequantized pools. A user mask raises, as K6's wrapper does."""
-    _no_user_mask(mask, "ragged_paged_attention_q8")
+    the dequantized pools, the user mask as there."""
     if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
         raise TypeError("ragged_paged_attention_q8: the pools must be int8, "
                         f"got {k_pool.dtype}, {v_pool.dtype}")
     return _ragged(q, k_pool, v_pool, k_scale.float(), v_scale.float(),
-                   page_table, pos, q_len)
+                   page_table, pos, q_len, mask)
 
 
 # -- K9: the single-token decode walk ----------------------------------------
-def _mask_to_additive(mask: torch.Tensor, b: int, h: int, lmax: int
-                      ) -> torch.Tensor:
+def _mask_to_additive(mask: torch.Tensor, b: int, h: int, lmax: int,
+                      lq: int = 1) -> torch.Tensor:
     """User attn_mask (bool, or additive float), broadcastable to
-    [B, H, 1, lmax] -> additive f32 [B, H, lmax], contiguous: a bool mask
-    becomes 0 where True and -1e30 where False (the JAX function)."""
+    [B, H, lq, lmax] -> additive f32 [B, H, lq, lmax], contiguous
+    (squeezed to [B, H, lmax] for the single-token kernel, lq 1): a bool
+    mask becomes 0 where True and -1e30 where False (the JAX
+    function)."""
     if mask.dtype == torch.bool:
         mask = torch.where(mask, torch.zeros((), device=mask.device),
                            torch.full((), NEG_INF, device=mask.device))
-    out = torch.broadcast_to(mask.float(), (b, h, 1, lmax))
-    return out.reshape(b, h, lmax).contiguous()
+    out = torch.broadcast_to(mask.float(), (b, h, lq, lmax))
+    return (out.reshape(b, h, lmax) if lq == 1 else out).contiguous()
 
 
 def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
@@ -815,10 +905,14 @@ def ragged_paged_attention_grouped(q: torch.Tensor, k_pool: torch.Tensor,
     indices [0, group_cnt), and those pages hold committed KV at or below
     every member's pos. On the card both phases launch on every call
     (`grouped_phase1`, `grouped_phase2`), each counted in
-    GROUPED_LAUNCHES (QUANT_LAUNCHES for e4m3 pools). A user mask raises,
-    as K6's wrapper does."""
-    _no_user_mask(mask, "ragged_paged_attention_grouped")
+    GROUPED_LAUNCHES (QUANT_LAUNCHES for e4m3 pools). Under a user mask
+    the op runs `ragged_paged_attention` with it (K6's mask lane), as the
+    JAX op falls back to its ungrouped kernel: the output is the same,
+    only the walk differs."""
     _not_int8(k_pool, "ragged_paged_attention_grouped")
+    if mask is not None:
+        return ragged_paged_attention(q, k_pool, v_pool, page_table, pos,
+                                      q_len, mask)
     return _grouped(q, k_pool, v_pool, None, None, page_table, pos, q_len,
                     group_id, group_leader, group_cnt)
 
@@ -836,11 +930,15 @@ def ragged_paged_attention_grouped_q8(q: torch.Tensor, k_pool: torch.Tensor,
                                       ) -> torch.Tensor:
     """K10's q8 lane: the grouped walk over int8 code pools, each page's
     scales staged with its codes, with the output of
-    `ragged_paged_attention_q8` (on the card, the same bits)."""
-    _no_user_mask(mask, "ragged_paged_attention_grouped_q8")
+    `ragged_paged_attention_q8` (on the card, the same bits); under a
+    user mask, `ragged_paged_attention_q8` with it (K7's mask lane)."""
     if k_pool.dtype != torch.int8 or v_pool.dtype != torch.int8:
         raise TypeError("ragged_paged_attention_grouped_q8: the pools must "
                         f"be int8, got {k_pool.dtype}, {v_pool.dtype}")
+    if mask is not None:
+        return ragged_paged_attention_q8(q, k_pool, v_pool, k_scale,
+                                         v_scale, page_table, pos, q_len,
+                                         mask)
     return _grouped(q, k_pool, v_pool, k_scale.float(), v_scale.float(),
                     page_table, pos, q_len, group_id, group_leader,
                     group_cnt)
@@ -910,3 +1008,222 @@ def grouped_phase2(q, k_pool, v_pool, page_table, pos, q_len, group_id,
     _build.check(lib, err, "grouped paged attention phase 2 launch")
     _count_walk("K10b", _lane(k_pool))
     return out
+
+
+# -- the decode megakernel: K11, K12 and their composition (K13) --------------
+MEGAKERNEL_ENV = "PADDLE_TPU_MEGAKERNEL"
+
+
+def resolve_megakernel_flag(override=None) -> bool:
+    """The decode-megakernel gate (the JAX function): an explicit
+    override wins, else PADDLE_TPU_MEGAKERNEL (on|off and their spellings
+    1/true/yes, 0/false/no; default off). Anything else raises
+    ValueError."""
+    if override is not None:
+        if isinstance(override, bool):
+            return override
+        flag = str(override)
+    else:
+        flag = os.environ.get(MEGAKERNEL_ENV, "off")
+    low = flag.strip().lower()
+    if low in ("on", "1", "true", "yes"):
+        return True
+    if low in ("off", "0", "false", "no"):
+        return False
+    raise ValueError(
+        f"{MEGAKERNEL_ENV} / megakernel must be on|off, got {flag!r}")
+
+
+def lora_delta(x: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
+               scale: torch.Tensor) -> torch.Tensor:
+    """Per-row LoRA delta (the JAX `lora_delta`): x [B, W, in], a
+    [B, in, R] and b [B, R, out] the rows' own low-rank pairs, scale [B]
+    the rows' LoRA scaling -> (x . a) . b * scale in x's dtype, rounded
+    to x's dtype where the JAX function rounds: after each product and
+    after the scale (in x's dtype). The products are f32 batched matmuls
+    (the JAX package leaves this op to XLA, outside any kernel). A zero
+    page or a zero scale gives exactly 0."""
+    dt = x.dtype
+    t = torch.bmm(x.float(), a.float()).to(dt)
+    d = torch.bmm(t.float(), b.float()).to(dt)
+    s = scale.to(dt).float()[:, None, None]
+    return (d.float() * s).to(dt)
+
+
+def lora_delta_paged_reference(x: torch.Tensor, a_pool: torch.Tensor,
+                               b_pool: torch.Tensor, apage: torch.Tensor,
+                               ascale: torch.Tensor) -> torch.Tensor:
+    """Plain version of K11 (the JAX `lora_delta_paged` off the TPU):
+    gather each row's adapter page from the pools, then `lora_delta`."""
+    ap = apage.to(torch.int64)
+    return lora_delta(x, a_pool[ap], b_pool[ap],
+                      ascale.to(torch.float32))
+
+
+def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
+                     b_pool: torch.Tensor, apage: torch.Tensor,
+                     ascale: torch.Tensor) -> torch.Tensor:
+    """Per-row PAGED LoRA delta: `lora_delta` with each row's A/B pair
+    taken from the whole pools a_pool [P, in, R] / b_pool [P, R, out] at
+    page apage[b] (int32 [B]; page 0 is the all-zero base page), scaled
+    by ascale[b] (f32 [B]). On the card K11 (counted in MEGA_LAUNCHES),
+    the pools of x's dtype and every tensor on x's device; on the CPU
+    `lora_delta_paged_reference`."""
+    if x.device.type == "cpu":
+        return lora_delta_paged_reference(x, a_pool, b_pool, apage, ascale)
+    if x.device.type != "cuda":
+        raise ValueError(f"lora_delta_paged: no kernel for device {x.device}")
+    if x.dim() != 3 or a_pool.dim() != 3 or b_pool.dim() != 3:
+        raise ValueError("lora_delta_paged: x [B, W, in], a_pool [P, in, R] "
+                         "and b_pool [P, R, out]")
+    bsz, w, cin = x.shape
+    n_pages, _, r = a_pool.shape
+    cout = b_pool.shape[2]
+    if a_pool.shape[1] != cin or tuple(b_pool.shape[:2]) != (n_pages, r):
+        raise ValueError(f"lora_delta_paged: pools {tuple(a_pool.shape)}, "
+                         f"{tuple(b_pool.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    if not (a_pool.dtype == b_pool.dtype == x.dtype):
+        raise TypeError(f"lora_delta_paged kernel: the pools must share x's "
+                        f"dtype, got {x.dtype}, {a_pool.dtype}, "
+                        f"{b_pool.dtype}")
+    if not 1 <= r <= 16 or (cin * r + w * r) * 4 > 227 * 1024:
+        raise ValueError(f"lora_delta_paged kernel: rank {r} must be in "
+                         f"[1, 16] and the page [{cin}, {r}] fit shared "
+                         f"memory")
+    apage = apage.to(torch.int32).contiguous()
+    ascale = ascale.to(torch.float32).contiguous()
+    if apage.shape != (bsz,) or ascale.shape != (bsz,):
+        raise ValueError("lora_delta_paged: apage and ascale must be [B]")
+    devs = {t.device for t in (x, a_pool, b_pool, apage, ascale)}
+    if len(devs) != 1:
+        raise ValueError(f"lora_delta_paged: tensors on {devs}")
+    x, a_pool, b_pool = _contiguous(x, a_pool, b_pool)
+    out = torch.empty((bsz, w, cout), dtype=x.dtype, device=x.device)
+    lib = _build.load("lora_paged")
+    err = lib.ptt_lora_delta_paged(
+        x.data_ptr(), a_pool.data_ptr(), b_pool.data_ptr(), apage.data_ptr(),
+        ascale.data_ptr(), out.data_ptr(), bsz, w, cin, r, cout, n_pages,
+        _build.dtype_code(x.dtype), x.device.index,
+        _build.stream_ptr(x.device))
+    _build.check(lib, err, "lora_delta_paged kernel launch")
+    MEGA_LAUNCHES["K11"] += 1
+    return out
+
+
+def decode_greedy_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy sampling over logits [B, V] -> int32 [B], the first-
+    occurrence argmax of each row (a NaN counts as the largest value, as
+    in torch.argmax and jnp.argmax). On the card K12 over the f32 logits
+    (counted in MEGA_LAUNCHES); on the CPU its plain version,
+    torch.argmax."""
+    if logits.device.type == "cpu":
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    if logits.device.type != "cuda":
+        raise ValueError(
+            f"decode_greedy_argmax: no kernel for device {logits.device}")
+    if logits.dim() != 2 or logits.shape[1] < 1:
+        raise ValueError(f"decode_greedy_argmax: logits [B, V], got "
+                         f"{tuple(logits.shape)}")
+    x = logits.to(torch.float32).contiguous()
+    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    lib = _build.load("greedy_argmax")
+    err = lib.ptt_greedy_argmax(x.data_ptr(), out.data_ptr(), x.shape[0],
+                                x.shape[1], x.device.index,
+                                _build.stream_ptr(x.device))
+    _build.check(lib, err, "decode_greedy_argmax kernel launch")
+    MEGA_LAUNCHES["K12"] += 1
+    return out
+
+
+def spec_verify_accept(logits_v: torch.Tensor, toks: torch.Tensor,
+                       q_len: torch.Tensor, is_decode: torch.Tensor
+                       ) -> torch.Tensor:
+    """Speculative decoding's greedy acceptance (the JAX function):
+    logits_v [B, W, V] of the verify columns, toks [B, W] the packed
+    draft tokens, q_len [B], is_decode [B] bool -> int32 [B], the length
+    of the longest prefix of draft columns 1 .. q_len - 1 that matches
+    the argmax chain (column i's argmax, by `decode_greedy_argmax`, is
+    the token decoding would commit after column i); 0 for rows that do
+    not decode."""
+    b, w, v = logits_v.shape
+    preds = decode_greedy_argmax(logits_v.reshape(b * w, v)).reshape(b, w)
+    match = toks[:, 1:] == preds[:, :-1].to(toks.dtype)
+    dcol = torch.arange(w - 1, device=toks.device)[None, :]
+    valid = dcol < (q_len.to(torch.int64) - 1)[:, None]
+    accept = torch.cumprod((match & valid).to(torch.int32), dim=1).sum(
+        dim=1).to(torch.int32)
+    return torch.where(is_decode, accept, torch.zeros_like(accept))
+
+
+def _megakernel_lora_prologue(q, k_new, v_new, rest):
+    """Add the rows' paged q/k/v LoRA deltas to the base projections (the
+    JAX prologue): each delta on the flat [B, W, out] view, reshaped —
+    an elementwise add commutes with the reshape, so this equals the
+    unfused path that adds before the head split."""
+    x, aq, bq, ak, bk, av, bv, apage, ascale = rest
+    q = q + lora_delta_paged(x, aq, bq, apage, ascale).reshape(q.shape)
+    k_new = k_new + lora_delta_paged(x, ak, bk, apage,
+                                     ascale).reshape(k_new.shape)
+    v_new = v_new + lora_delta_paged(x, av, bv, apage,
+                                     ascale).reshape(v_new.shape)
+    return q, k_new, v_new
+
+
+def _megakernel_split(rest, grouped, lora):
+    rest = list(rest)
+    group = None
+    if grouped:
+        group, rest = rest[:3], rest[3:]
+    if lora and len(rest) != 9:
+        raise ValueError("megakernel_decode(lora=True) needs (x, aq, bq, ak, "
+                         "bk, av, bv, apage, ascale) after the groups")
+    return group, rest
+
+
+def megakernel_decode(q, k_new, v_new, k_pool, v_pool, page_table, pos,
+                      q_len, *rest, grouped: bool = False,
+                      lora: bool = False):
+    """The decode layer of the unified step over float or e4m3 pools (the
+    JAX op, K13 as a composition): with `lora`, the LoRA prologue (K11
+    for q, k and v; `rest` carries (x, aq, bq, ak, bk, av, bv, apage,
+    ascale) after the group triple); the write of k_new/v_new
+    [B, W, H_kv, D] at pos (`paged_scatter_kernel`: K8 in the pool's
+    lane); then the ragged walk over the updated pools (K6), or with
+    `grouped` the grouped walk (K10; `rest` leads with (group_id,
+    group_leader, group_cnt)). The pools are written IN PLACE. Returns
+    (out, k_pool, v_pool). On the CPU every stage is the unfused ops'
+    plain version, so the gate changes no output."""
+    group, rest = _megakernel_split(rest, grouped, lora)
+    if lora:
+        q, k_new, v_new = _megakernel_lora_prologue(q, k_new, v_new, rest)
+    paged_scatter_kernel(k_pool, k_new, pos, page_table)
+    paged_scatter_kernel(v_pool, v_new, pos, page_table)
+    if grouped:
+        out = ragged_paged_attention_grouped(q, k_pool, v_pool, page_table,
+                                             pos, q_len, *group)
+    else:
+        out = ragged_paged_attention(q, k_pool, v_pool, page_table, pos,
+                                     q_len)
+    return out, k_pool, v_pool
+
+
+def megakernel_decode_q8(q, k_new, v_new, k_pool, v_pool, k_scale_pool,
+                         v_scale_pool, page_table, pos, q_len, *rest,
+                         grouped: bool = False, lora: bool = False):
+    """The int8 lane of `megakernel_decode`: the LoRA prologue, the
+    quantizing write (K8-q8: codes and rowwise scales), then K7 or K10's
+    q8 lane. `rest` as there. Returns (out, k_pool, v_pool, k_scale_pool,
+    v_scale_pool), the pools written IN PLACE."""
+    group, rest = _megakernel_split(rest, grouped, lora)
+    if lora:
+        q, k_new, v_new = _megakernel_lora_prologue(q, k_new, v_new, rest)
+    paged_scatter_q8(k_pool, k_scale_pool, k_new, pos, page_table)
+    paged_scatter_q8(v_pool, v_scale_pool, v_new, pos, page_table)
+    args = (q, k_pool, v_pool, k_scale_pool, v_scale_pool, page_table, pos,
+            q_len)
+    if grouped:
+        out = ragged_paged_attention_grouped_q8(*args, *group)
+    else:
+        out = ragged_paged_attention_q8(*args)
+    return out, k_pool, v_pool, k_scale_pool, v_scale_pool

@@ -87,15 +87,49 @@ memory holds about twice the residents. Every whole-page move — COW,
 swap-out and swap-in, prefix spill and restore — carries a page's codes
 and scales as one unit, and moves e4m3 pages through their bytes.
 
-Not ported yet, and refused at construction with the ROADMAP item
-(queue 1, item 10): speculative decoding, grammar, adapters, tensor
-parallelism, the megakernel, and the observability and SLO layers. The
-JAX engine's poison quarantine (`suppress`) belongs to the faults item.
+Multi-tenant LoRA adapters (`adapters=True` or an `AdapterStore`, gate
+`PADDLE_TPU_ADAPTERS=on|off`, default off; unified step only, as in the
+JAX engine): registered adapters live in a paged adapter pool
+(`serving.adapters`, `adapter_pages` pages plus the zero page, ranks
+padded to the largest of `adapter_ranks`). A request names its adapter
+by `SamplingParams.adapter_id`; admission acquires the adapter first
+(upload, or restore from the adapter host tier, under LRU spill and
+eviction) and releases it at retirement and at preemption (resume
+acquires again). Each slot carries its adapter page and scale as step
+operands, and each layer adds the rows' low-rank deltas to its q/k/v/o
+projections: gathered per row through `lora_delta`, or with the
+megakernel through K11 from the whole pools. The prefix cache keeps one
+namespace per adapter.
+
+The decode megakernel (`megakernel=True`, gate
+`PADDLE_TPU_MEGAKERNEL=on|off`, default off; on only for the unified
+kernel step, dropped silently elsewhere as in the JAX engine): every
+layer's write and walk (and, with adapters, the q/k/v deltas) go through
+`megakernel_decode[_q8]` — K11, then K8 (K8-q8), then K6/K7/K10 — and
+the greedy argmax of the sampling epilogue is K12. Tokens are the same
+with the gate on or off: K8's float write equals `index_copy_` and K12
+equals `torch.argmax` bit for bit. The spec-decode acceptance epilogue
+(`spec_verify_accept`) waits for speculative decoding: without it the
+JAX step's acceptance is 0 for every row, and the port computes the LM
+head for each row's last column only.
+
+Gates are resolved at construction as the JAX engine resolves them
+(`prefix_cache=None` follows PADDLE_TPU_PREFIX_CACHE, default on). The
+gates of features not ported yet — `mesh` (PADDLE_TPU_MESH), `spec`
+(PADDLE_TPU_SPEC_DECODE), `grammar` (PADDLE_TPU_GRAMMAR), `obs`
+(PADDLE_TPU_OBS), `slo` (PADDLE_TPU_SLO) and `cost_census`
+(PADDLE_TPU_COST_CENSUS) — are parsed with the JAX package's rules (a
+bad spelling raises ValueError) and raise NotImplementedError, naming
+the ROADMAP item, when a keyword or an environment variable turns one
+on. Left unset, the observability, SLO and census layers (on by default
+in the JAX engine) are simply absent here. The JAX engine's poison
+quarantine (`suppress`) belongs to the faults item.
 """
 from __future__ import annotations
 
 import itertools
 import os
+import re
 import time
 from typing import Dict, List, Optional, Sequence
 
@@ -107,38 +141,178 @@ from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nlp.generation import (_categorical, _top_p_filter, _unpack_caches,
                               resolve_paged_attn_impl)
 from ..ops.cuda.paged_attention import (FP8_DTYPE, _as_bytes,
-                                        count_page_block_reads)
+                                        count_page_block_reads,
+                                        decode_greedy_argmax,
+                                        resolve_megakernel_flag)
+from .adapters import BASE_ADAPTER, AdapterStore, resolve_adapters_flag
 from .errors import DeadlineExceeded, EngineClosed
 from .metrics import ServingMetrics
 from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
                      pages_needed)
-from .prefix import RadixPrefixCache, shared_prefix_groups
+from .prefix import (RadixPrefixCache, resolve_prefix_cache_flag,
+                     shared_prefix_groups)
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
 
 __all__ = ["ServingEngine", "unified_forward", "legacy_forward",
            "resolve_grouped_flag", "resolve_preempt_flag",
-           "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES"]
+           "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
+           "resolve_unported_gates"]
 
 KV_DTYPE_MODES = ("fp", "int8", "fp8")
+_ROADMAP_SERVING = "ROADMAP.md, queue 1, item 9"
+_MESH_RE = re.compile(r"^dp(\d+)x?mp(\d+)$")
+_SPEC_MODES = ("off", "ngram", "model")
+_SLO_KEYS = ("ttft_p99", "itl_p99", "goodput", "fast", "slow", "warn",
+             "page", "min_events")
+_COST_CENSUS_MODES = ("off", "model", "lowered", "xla")
 
-# option -> (values that mean "off", where the port stands)
-_UNPORTED = {
-    "spec": ((None, False), "speculative decoding "
-             "(ROADMAP.md queue 1 item 10)"),
-    "grammar": ((None, False), "grammar-constrained decoding "
-                "(ROADMAP.md queue 1 item 10)"),
-    "adapters": ((None, False), "LoRA adapters "
-                 "(ROADMAP.md queue 1 item 10, queue 2 K11)"),
-    "mesh": ((None,), "tensor-parallel serving "
-             "(ROADMAP.md queue 1 item 10)"),
-    "megakernel": ((None, False), "the decode megakernel "
-                   "(ROADMAP.md queue 2 K11-K13)"),
-    "obs": ((None, False), "the flight recorder and request tracer "
-            "(ROADMAP.md queue 1 item 10)"),
-    "slo": ((None, False), "the SLO tracker "
-            "(ROADMAP.md queue 1 item 10)"),
+
+def _grammar_on(override) -> bool:
+    """PADDLE_TPU_GRAMMAR / grammar= (the JAX `resolve_grammar_flag`):
+    on|off and their spellings, default off."""
+    flag = override if override is not None else \
+        os.environ.get("PADDLE_TPU_GRAMMAR", "off")
+    low = str(flag).strip().lower()
+    if low in ("on", "1", "true", "yes"):
+        return True
+    if low in ("off", "0", "false", "no"):
+        return False
+    raise ValueError(f"PADDLE_TPU_GRAMMAR / grammar must be on|off, got "
+                     f"{flag!r}")
+
+
+def _mesh_on(override) -> bool:
+    """PADDLE_TPU_MESH / mesh= (the JAX `resolve_serving_mesh`): '' or
+    'off' (the default) or False is single-device; a 'dpXmpY' spec, a
+    (dp, mp) pair or a mesh object turns tensor parallelism on."""
+    if override is False:
+        return False
+    spec = override if override is not None else \
+        os.environ.get("PADDLE_TPU_MESH", "off")
+    if not isinstance(spec, str):
+        return True
+    spec = spec.strip()
+    if override is None and spec in ("", "off"):
+        return False
+    m = _MESH_RE.match(spec.lower())
+    if m is None or int(m.group(1)) < 1 or int(m.group(2)) < 1:
+        raise ValueError(f"mesh spec must look like 'dp2mp4' "
+                         f"(PADDLE_TPU_MESH / ServingEngine(mesh=...)), got "
+                         f"{spec!r}")
+    return True
+
+
+def _spec_on(override) -> bool:
+    """PADDLE_TPU_SPEC_DECODE / spec= (the JAX `resolve_spec_config`):
+    off | ngram[:k] | model[:k], default off; True is ngram."""
+    if isinstance(override, bool):
+        return override
+    if override is not None and not isinstance(override, str):
+        return True         # a SpecConfig
+    spec = override if override is not None else \
+        os.environ.get("PADDLE_TPU_SPEC_DECODE", "off")
+    mode, sep, knob = spec.partition(":")
+    legal = "legal forms: off, ngram, ngram:K, model, model:K (K >= 1)"
+    if mode not in _SPEC_MODES:
+        raise ValueError(f"invalid PADDLE_TPU_SPEC_DECODE spec {spec!r}: "
+                         f"unknown mode {mode!r}; {legal}")
+    if mode == "off":
+        if sep:
+            raise ValueError(f"invalid PADDLE_TPU_SPEC_DECODE spec {spec!r}: "
+                             f"'off' takes no ':k' suffix; {legal}")
+        return False
+    if sep and not (knob.isdigit() and int(knob) >= 1):
+        raise ValueError(f"invalid PADDLE_TPU_SPEC_DECODE spec {spec!r}: the "
+                         f"':k' suffix must be an integer >= 1; {legal}")
+    return True
+
+
+def _obs_on(override) -> bool:
+    """PADDLE_TPU_OBS / obs= (the JAX `resolve_obs_flag`): on|off."""
+    if override is not None:
+        return bool(override)
+    v = os.environ.get("PADDLE_TPU_OBS")
+    if v is None:
+        return False        # the JAX default (on) is absent here
+    if v not in ("on", "off"):
+        raise ValueError(f"PADDLE_TPU_OBS must be one of ('on', 'off'), "
+                         f"got {v!r}")
+    return v == "on"
+
+
+def _slo_on(override) -> bool:
+    """PADDLE_TPU_SLO / slo= (the JAX `resolve_slo_config`): "off", or
+    "on" / "" / a comma-separated k=v list over the SLO keys."""
+    if override is False:
+        return False
+    if override is not None and not isinstance(override, str):
+        return True         # True or an SLOConfig
+    spec = override if override is not None else \
+        os.environ.get("PADDLE_TPU_SLO")
+    if spec is None:
+        return False        # the JAX default (on) is absent here
+    spec = spec.strip()
+    if spec == "off":
+        return False
+    if spec not in ("", "on"):
+        for part in spec.split(","):
+            k, eq, v = part.partition("=")
+            if not eq:
+                raise ValueError(f"PADDLE_TPU_SLO: expected k=v, got "
+                                 f"{part!r} in {spec!r}")
+            if k.strip() not in _SLO_KEYS:
+                raise ValueError(f"PADDLE_TPU_SLO: unknown key {k!r} "
+                                 f"(known: {', '.join(_SLO_KEYS)})")
+            float(v)
+    return True
+
+
+def _cost_census_on(override) -> bool:
+    """PADDLE_TPU_COST_CENSUS / cost_census= (the JAX
+    `resolve_cost_census`): off|model|lowered|xla."""
+    if override is False:
+        return False
+    if override is True:
+        return True
+    v = override if override is not None else \
+        os.environ.get("PADDLE_TPU_COST_CENSUS")
+    if v is None:
+        return False        # the JAX default ("model") is absent here
+    if v not in _COST_CENSUS_MODES:
+        raise ValueError(f"PADDLE_TPU_COST_CENSUS must be one of "
+                         f"{_COST_CENSUS_MODES}, got {v!r}")
+    return v != "off"
+
+
+# gate -> (its resolver, what it serves)
+_UNPORTED_GATES = {
+    "mesh": (_mesh_on, "tensor-parallel serving (PADDLE_TPU_MESH)"),
+    "spec": (_spec_on, "speculative decoding (PADDLE_TPU_SPEC_DECODE)"),
+    "grammar": (_grammar_on,
+                "grammar-constrained decoding (PADDLE_TPU_GRAMMAR)"),
+    "obs": (_obs_on, "the flight recorder and request tracer "
+                     "(PADDLE_TPU_OBS)"),
+    "slo": (_slo_on, "the SLO tracker (PADDLE_TPU_SLO)"),
+    "cost_census": (_cost_census_on,
+                    "the compiled-step cost census (PADDLE_TPU_COST_CENSUS)"),
 }
+
+
+def resolve_unported_gates(**overrides):
+    """Resolve the JAX engine's gates of features the port lacks (mesh,
+    spec, grammar, obs, slo, cost_census), each from its keyword or,
+    when that is None, its environment variable, by the JAX rules: a bad
+    spelling raises ValueError, and a gate that comes out on raises
+    NotImplementedError naming the ROADMAP item."""
+    for name, (resolve, what) in _UNPORTED_GATES.items():
+        value = overrides.get(name)
+        if resolve(value):
+            source = (f"ServingEngine({name}={value!r})" if value is not None
+                      else "its environment variable")
+            raise NotImplementedError(
+                f"{what} is not ported yet ({_ROADMAP_SERVING}); "
+                f"{source} turns it on")
 
 
 def _resolve_on_off(override, env: str) -> bool:
@@ -211,15 +385,16 @@ class _SwapHandle:
 
 def _sample_rows(logits: torch.Tensor, generator: torch.Generator,
                  temps: torch.Tensor, top_k: torch.Tensor,
-                 top_p: torch.Tensor, greedy: torch.Tensor
-                 ) -> torch.Tensor:
+                 top_p: torch.Tensor, greedy: torch.Tensor,
+                 argmax: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-slot sampling over f32 logits [S, V] (the JAX engine's
     `_sample_rows`): greedy rows take the first-occurrence argmax of the
-    raw logits; the others apply their own temperature, top-k (0 = off)
-    and top-p (1.0 = off), then draw with the Gumbel-max trick from
+    raw logits (`argmax` when given: the megakernel's K12 result); the
+    others apply their own temperature, top-k (0 = off) and top-p
+    (1.0 = off), then draw with the Gumbel-max trick from
     `generator`."""
     v = logits.shape[-1]
-    g = torch.argmax(logits, dim=-1)
+    g = torch.argmax(logits, dim=-1) if argmax is None else argmax.long()
     l = logits / temps[:, None]
     sorted_desc = torch.sort(l, dim=-1, descending=True).values
     kidx = (torch.clamp(top_k, 1, v) - 1).to(torch.int64)
@@ -234,8 +409,8 @@ def _sample_rows(logits: torch.Tensor, generator: torch.Generator,
 def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                     page_table: torch.Tensor, q_len: torch.Tensor,
                     is_decode: torch.Tensor, last_logits: torch.Tensor,
-                    group=None, attn_impl: Optional[str] = None
-                    ) -> torch.Tensor:
+                    group=None, attn_impl: Optional[str] = None, lora=None,
+                    megakernel: bool = False) -> torch.Tensor:
     """The model half of one unified step: run tokens [S, W] through the
     model over the per-layer (k, v) `pools` (written in place) and
     return the new held logits [S, V] f32 — a decode row's from its
@@ -243,8 +418,21 @@ def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     unchanged. Only those rows go through the LM head. `group`, the
     step's (group_id, group_leader, group_cnt), routes attention through
     the grouped walk; `attn_impl` pins the paged attend ("kernel" or
-    "gather")."""
-    caches = _unpack_caches(pools, pos, page_table, q_len, group, attn_impl)
+    "gather"). `lora`, (per-layer adapter pools, apage [S] int32, ascale
+    [S] f32), adds the rows' LoRA deltas: each layer's pairs gathered
+    per row, or with `megakernel` the whole pools handed to the fused op
+    (K11); `megakernel` routes every layer's write and walk through it."""
+    lora_layers = lora_paged = None
+    if lora is not None:
+        apools, apage, ascale = lora
+        if megakernel:
+            lora_paged = [tuple(layer) + (apage, ascale) for layer in apools]
+        else:
+            idx = apage.long()
+            lora_layers = [tuple(t[idx] for t in layer) + (ascale,)
+                           for layer in apools]
+    caches = _unpack_caches(pools, pos, page_table, q_len, group, attn_impl,
+                            lora_layers, lora_paged, megakernel)
     h, _ = model.gpt(tokens, caches=caches)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = torch.where(is_decode, torch.zeros_like(q_len),
@@ -277,25 +465,22 @@ class ServingEngine:
     `unified=False`), and retire on EOS, max-tokens, timeout, placement
     deadline or cancellation. `drain()` shuts down gracefully."""
 
-    MIN_CHUNK = 8     # the legacy step's smallest prefill bucket
+    MIN_CHUNK = 8     # the smallest chunk (and legacy prefill bucket)
 
     def __init__(self, model, *, num_slots: int = 8, max_len: int = 256,
                  page_size: int = 16, num_pages: Optional[int] = None,
                  chunk_len: int = 32, max_queue: Optional[int] = None,
-                 prefix_cache: bool = True, device: DeviceLike = None,
+                 prefix_cache=None, device: DeviceLike = None,
                  seed: int = 0, clock=time.monotonic, grouped=None,
                  preempt=None, host_pages: Optional[int] = None,
                  unified=None, attn_impl: Optional[str] = None,
                  kv_dtype=None, spec=None, grammar=None, adapters=None,
-                 mesh=None, megakernel=None, obs=None, slo=None):
-        options = dict(spec=spec, grammar=grammar, adapters=adapters,
-                       mesh=mesh, megakernel=megakernel, obs=obs, slo=slo)
-        for name, value in options.items():
-            off, what = _UNPORTED[name]
-            if not any(value is o or value == o for o in off):
-                raise NotImplementedError(
-                    f"ServingEngine({name}={value!r}) is not ported yet: "
-                    f"{what}")
+                 adapter_pages: Optional[int] = None,
+                 adapter_ranks: Optional[Sequence[int]] = None,
+                 mesh=None, megakernel=None, obs=None, slo=None,
+                 cost_census=None):
+        resolve_unported_gates(mesh=mesh, spec=spec, grammar=grammar,
+                               obs=obs, slo=slo, cost_census=cost_census)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -317,11 +502,9 @@ class ServingEngine:
         self.num_pages = (self.num_slots * self.max_pages + 1
                           if num_pages is None else int(num_pages))
         self.chunk_len = int(chunk_len)
+        if self.chunk_len < self.MIN_CHUNK:
+            raise ValueError(f"chunk_len must be >= {self.MIN_CHUNK}")
         self.unified = resolve_unified_flag(unified)
-        # the legacy step's prefill buckets start at MIN_CHUNK
-        min_chunk = 1 if self.unified else self.MIN_CHUNK
-        if self.chunk_len < min_chunk:
-            raise ValueError(f"chunk_len must be >= {min_chunk}")
         self.attn_impl = resolve_paged_attn_impl(attn_impl)
         # every step may pack the full [num_slots, chunk_len] shape
         self.token_budget = self.num_slots * self.chunk_len
@@ -331,8 +514,13 @@ class ServingEngine:
         self.grouped = (resolve_grouped_flag(grouped) and self.unified
                         and self.attn_impl == "kernel")
         self.preempt = resolve_preempt_flag(preempt)
+        # the decode megakernel: the unified kernel step only, dropped
+        # silently elsewhere (the JAX engine's rule)
+        self.megakernel = (resolve_megakernel_flag(megakernel)
+                           and self.unified and self.attn_impl == "kernel")
         self.metrics = ServingMetrics()
         self.metrics.grouped = self.grouped
+        self.metrics.megakernel = self.megakernel
         self.metrics.unified = self.unified
         self.metrics.attn_impl = self.attn_impl
         # the distinct prefill buckets the legacy step has run
@@ -368,9 +556,41 @@ class ServingEngine:
             device=self.device)
         # host state: positions, page tables, sampling vectors
         self._pos = np.zeros((self.num_slots,), np.int32)
+        # multi-tenant adapters: a paged adapter pool beside the KV pool
+        adapters_on = (isinstance(adapters, AdapterStore)
+                       or resolve_adapters_flag(adapters))
+        if adapters_on and not self.unified:
+            raise ValueError(
+                "multi-tenant adapters require the unified ragged step: "
+                "the per-row LoRA delta rides the unified step (set "
+                "unified=True / PADDLE_TPU_UNIFIED_STEP=on or drop "
+                "adapters)")
+        if isinstance(adapters, AdapterStore):
+            self.adapters: Optional[AdapterStore] = adapters
+        elif adapters_on:
+            cfg = model.config
+            self.adapters = AdapterStore(
+                self.n_layers, cfg.hidden_size,
+                cfg.num_attention_heads * self.head_dim,
+                self.n_kv * self.head_dim,
+                num_pages=(8 if adapter_pages is None
+                           else int(adapter_pages)) + 1,
+                rank_buckets=adapter_ranks or (2, 4, 8), dtype=model.dtype,
+                device=self.device)
+        else:
+            self.adapters = None
+        # per-slot adapter operands: pool page and LoRA scale (page 0 and
+        # scale 0 for base-model and idle rows)
+        self._apage = np.zeros((self.num_slots,), np.int32)
+        self._ascale = np.zeros((self.num_slots,), np.float32)
+        self._adp_dev: Optional[tuple] = None          # None = re-upload
+        self.metrics.adapters_enabled = self.adapters is not None
+        if self.adapters is not None:
+            self.metrics.adapter_stats = self.adapters.stats()
         self.pool = PagePool(self.num_pages)
         self.prefix_cache = (RadixPrefixCache(self.pool, self.page_size)
-                             if prefix_cache else None)
+                             if resolve_prefix_cache_flag(prefix_cache)
+                             else None)
         # the host tier: preempted residents' KV and spilled prefix pages
         self.host_pages = (self.num_pages - 1 if host_pages is None
                            else int(host_pages))
@@ -428,6 +648,19 @@ class ServingEngine:
             raise ValueError(
                 f"request needs {need} pages but the pool only has "
                 f"{self.num_pages - 1} allocatable pages")
+        aid = sampling.adapter_id
+        if aid != BASE_ADAPTER:
+            if self.adapters is None:
+                raise ValueError(
+                    f"request carries adapter_id {aid} but this engine has "
+                    "no adapter subsystem (enable it via "
+                    "ServingEngine(adapters=True) / PADDLE_TPU_ADAPTERS=on "
+                    "and register the adapter first)")
+            if not self.adapters.known(aid):
+                raise ValueError(
+                    f"unknown adapter_id {aid}: register the adapter on "
+                    "this engine's AdapterStore before submitting requests "
+                    "under it")
         if request_id is None:
             request_id = f"req-{next(self._id_counter)}"
         if request_id in self._requests:
@@ -437,6 +670,8 @@ class ServingEngine:
         self.scheduler.submit(req)
         self._requests[request_id] = req
         self.metrics.on_submit(req)
+        if self.adapters is not None:
+            self.metrics.on_adapter_request(aid)
         return req
 
     def cancel(self, request_id: str) -> bool:
@@ -459,6 +694,16 @@ class ServingEngine:
         self._vec_dev = None
         self._pt_host[slot, :] = TRASH_PAGE
         self._pt_dev = None
+        self._apage[slot] = 0
+        self._ascale[slot] = 0.0
+        self._adp_dev = None
+
+    def _release_adapter(self, req: Request):
+        """Drop the request's reference on its adapter's page (an
+        adapter nobody uses parks hot)."""
+        if req._adapter_held:
+            self.adapters.release(req.sampling.adapter_id)
+            req._adapter_held = False
 
     def _finish_and_free(self, req: Request, reason: str, now: float,
                          finished: List[RequestOutput]):
@@ -470,6 +715,7 @@ class ServingEngine:
                 self._retire_pages(req, reason, pages)
             req.pages = None
             req._prefix_grant = None
+        self._release_adapter(req)
         self._release_swap(req)   # preempted and never resumed
         self._prefill_cursor.pop(req.request_id, None)
         self._requests.pop(req.request_id, None)
@@ -488,7 +734,8 @@ class ServingEngine:
             # sampled it, so prompt + output positions are valid
             seq = np.concatenate([req.prompt_ids.astype(np.int64),
                                   np.asarray(req.output_tokens, np.int64)])
-            self.prefix_cache.insert(seq, pages, seq.size)
+            self.prefix_cache.insert(seq, pages, seq.size,
+                                     adapter_id=req.sampling.adapter_id)
         else:
             self.prefix_cache.release(pages)
 
@@ -512,9 +759,24 @@ class ServingEngine:
         whole page budget is available now (match-then-reserve with the
         prefix cache, which spills and evicts parked pages before it
         refuses). A preempted request re-admits through
-        `_reserve_resume`."""
-        if req._swap is not None:
-            return self._reserve_resume(req)
+        `_reserve_resume`. With adapters on, the request's adapter is
+        claimed first (made device-resident, one reference taken); an
+        adapter pool full of referenced adapters refuses like KV page
+        pressure, and a KV refusal releases the claim."""
+        if self.adapters is not None:
+            binding = self.adapters.acquire(req.sampling.adapter_id)
+            if binding is None:
+                return False     # every adapter page is referenced
+            req._adapter_binding = binding
+            req._adapter_held = True
+        ok = (self._reserve_resume(req) if req._swap is not None
+              else self._reserve_kv(req))
+        if not ok:
+            self._release_adapter(req)
+        return ok
+
+    def _reserve_kv(self, req: Request) -> bool:
+        """The KV-page half of `_reserve` (fresh admission)."""
         if self.prefix_cache is None:
             pages = self.pool.alloc(pages_needed(
                 req.prompt_ids.size, req.sampling.max_new_tokens,
@@ -524,7 +786,8 @@ class ServingEngine:
             req.pages = pages
             return True
         grant = self.prefix_cache.acquire(req.prompt_ids,
-                                          req.sampling.max_new_tokens)
+                                          req.sampling.max_new_tokens,
+                                          adapter_id=req.sampling.adapter_id)
         if grant is None:
             return False
         req.pages = grant.pages
@@ -545,7 +808,8 @@ class ServingEngine:
         remaining = req.sampling.max_new_tokens - len(req.output_tokens)
         ps = self.page_size
         if self.prefix_cache is not None:
-            grant = self.prefix_cache.acquire(seq, remaining)
+            grant = self.prefix_cache.acquire(
+                seq, remaining, adapter_id=req.sampling.adapter_id)
             if grant is None:
                 return False
             pages = grant.pages
@@ -631,6 +895,10 @@ class ServingEngine:
             self._pt_host[slot, :len(req.pages)] = req.pages
             self._pt_dev = None
             self._vec_dev = None
+            if self.adapters is not None:
+                # the page is stable while the slot holds its reference
+                self._apage[slot], self._ascale[slot] = req._adapter_binding
+                self._adp_dev = None
             # a resumed request's banked KV comes back from the host
             # tier before any prefill touches the slot
             if req._swap is not None:
@@ -652,6 +920,9 @@ class ServingEngine:
         the slot and requeue it by its original key."""
         pages = self._slot_pages.pop(slot)
         self._free_slot(slot)
+        # the adapter reference drops with the slot (the adapter may spill
+        # or be evicted while the request waits); resume acquires again
+        self._release_adapter(req)
         # committed KV: a decode row holds prompt + every emitted token,
         # a mid-prefill row exactly its prefill cursor
         if req.state is RequestState.DECODE:
@@ -813,20 +1084,37 @@ class ServingEngine:
                                   for a in (temps, topk, topp, greedy))
         return self._vec_dev
 
+    def _adapter_operands(self) -> Optional[tuple]:
+        """(adapter pools, apage [S] int32, ascale [S] f32) for the step,
+        the vectors rebuilt when membership changed; None without
+        adapters."""
+        if self.adapters is None:
+            return None
+        if self._adp_dev is None:
+            self._adp_dev = (torch.from_numpy(self._apage).to(self.device),
+                             torch.from_numpy(self._ascale).to(self.device))
+        return (self.adapters.pools, *self._adp_dev)
+
     def _forward(self, tokens, pos, page_table, q_len, is_decode,
-                 group=None):
+                 group=None, lora=None):
         return unified_forward(self.model, self._pools, tokens, pos,
                                page_table, q_len, is_decode,
-                               self._last_logits, group, self.attn_impl)
+                               self._last_logits, group, self.attn_impl,
+                               lora, self.megakernel)
 
     def _sample_next(self) -> torch.Tensor:
         """Every slot's next token from its held logits: argmax when all
-        residents decode greedily, else per-slot sampling."""
+        residents decode greedily, else per-slot sampling. Under the
+        megakernel the argmax is K12 (`decode_greedy_argmax`), one launch
+        a step, handed to the sampler for its greedy rows."""
         temps, topk, topp, greedy = self._sampling_vectors()
+        g = (decode_greedy_argmax(self._last_logits) if self.megakernel
+             else None)
         if self._all_greedy:
-            return torch.argmax(self._last_logits, dim=-1)
+            return (torch.argmax(self._last_logits, dim=-1) if g is None
+                    else g.long())
         return _sample_rows(self._last_logits, self._generator, temps, topk,
-                            topp, greedy)
+                            topp, greedy, argmax=g)
 
     def _emit_tokens(self, slots, nxt: np.ndarray,
                      finished: List[RequestOutput]):
@@ -888,7 +1176,8 @@ class ServingEngine:
             flat, reads, sizes = count_page_block_reads(
                 self._pt_host, self._pos, q_len, page_size=self.page_size)
         self.metrics.on_grouped_step(flat, reads, sizes)
-        self._sampling_vectors()     # host-to-device rebuild, untimed
+        self._sampling_vectors()     # host-to-device rebuilds, untimed
+        lora = self._adapter_operands()
         t0 = time.perf_counter()
         with record_function("serving::unified_step"):
             dev = self.device
@@ -901,7 +1190,7 @@ class ServingEngine:
             toks[:, 0] = torch.where(isd, nxt, toks[:, 0])
             self._last_logits = self._forward(
                 toks, torch.from_numpy(self._pos).to(dev),
-                self._page_table(), ql, isd, group)
+                self._page_table(), ql, isd, group, lora)
             nxt = nxt.cpu().numpy()      # sync: the host sees the tokens
         wall = time.perf_counter() - t0
         self._pos += q_len
@@ -1033,7 +1322,9 @@ class ServingEngine:
                              pages_swapped=self.pool.swapped_pages,
                              host_pages_used=self.host_pool.used_pages,
                              host_pages_total=self.host_pages,
-                             stall_chunks=chunks)
+                             stall_chunks=chunks,
+                             adapter_stats=(None if self.adapters is None
+                                            else self.adapters.stats()))
         return finished
 
     # -- shutdown ----------------------------------------------------------
@@ -1061,6 +1352,8 @@ class ServingEngine:
             self.scheduler.requeue(req)
         finished.extend(self.run())
         self.pool.assert_quiesced()
+        if self.adapters is not None:
+            self.adapters.assert_quiesced()
         return finished
 
     # -- conveniences ------------------------------------------------------

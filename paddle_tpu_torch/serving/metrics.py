@@ -15,8 +15,12 @@ group-size histogram). Times are seconds on the engine's clock. Per-step and per
 `torch.profiler.record_function` in the engine, so a `torch.profiler`
 trace of a serving run shows them next to the kernels.
 
-The Prometheus rendering, per-priority/per-adapter labels and the
-other feature counters of the JAX package are not ported yet.
+With adapters on, the adapter pool's occupancy and traffic
+(`adapter_stats`, `AdapterStore.stats()` refreshed each step) and the
+requests submitted per adapter id; the `adapters_enabled` and
+`megakernel` tags. The Prometheus rendering, per-priority labels, the
+per-adapter latency classes and the other feature counters of the JAX
+package are not ported yet.
 """
 from __future__ import annotations
 
@@ -124,12 +128,26 @@ class ServingMetrics:
         # host time to issue one legacy prefill chunk
         self.prefill_chunk_s = Histogram()
         self.packed_tokens = Histogram()
+        # the decode megakernel gate, and the adapter subsystem: whether
+        # it is on, the adapter pool's stats (refreshed each step) and
+        # the requests submitted per adapter id
+        self.megakernel: Optional[bool] = None
+        self.adapters_enabled: Optional[bool] = None
+        self.adapter_stats: Optional[dict] = None
+        self._by_adapter: dict = {}
         self._first_admit_t: Optional[float] = None
         self._last_token_t: Optional[float] = None
 
     def on_submit(self, req):
         with self._lock:
             self.requests_received += 1
+
+    def on_adapter_request(self, adapter_id: int):
+        """One request submitted under `adapter_id` (0: the base
+        model)."""
+        with self._lock:
+            key = str(int(adapter_id))
+            self._by_adapter[key] = self._by_adapter.get(key, 0) + 1
 
     def on_admit(self, req, now: float):
         with self._lock:
@@ -225,10 +243,13 @@ class ServingMetrics:
     def on_step(self, queue_depth: int, pages_used: int, pages_cached: int,
                 pages_total: int, pages_swapped: int = 0,
                 host_pages_used: int = 0, host_pages_total: int = 0,
-                stall_chunks: int = 0):
+                stall_chunks: int = 0,
+                adapter_stats: Optional[dict] = None):
         """One engine round ended; `stall_chunks` prefill chunks of the
         legacy step ran ahead of its decode program."""
         with self._lock:
+            if adapter_stats is not None:
+                self.adapter_stats = dict(adapter_stats)
             self.decode_steps += 1
             if stall_chunks:
                 self.prefill_stall_steps += 1
@@ -301,4 +322,10 @@ class ServingMetrics:
                 "shared_page_reads_saved_total":
                     self.shared_page_reads_saved,
                 "group_size_per_step": self.group_size_hist.snapshot(),
+                "megakernel": self.megakernel,
+                "adapters_enabled": self.adapters_enabled,
+                "adapters": (None if self.adapter_stats is None else {
+                    **self.adapter_stats,
+                    "requests_by_adapter": dict(
+                        sorted(self._by_adapter.items()))}),
             }

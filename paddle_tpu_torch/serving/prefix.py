@@ -1,12 +1,15 @@
 """Automatic prefix cache: a token-id radix tree over the paged KV pool,
 its host spill tier, and the grouped walk's prefix groups (counterpart
-of `paddle_tpu/serving/prefix.py`; session pins, adapter namespaces and
-the fleet-fabric transfers are not ported yet).
+of `paddle_tpu/serving/prefix.py`; session pins and the fleet-fabric
+transfers are not ported yet).
 
-The KV written for position p is a function of tokens[0..p] alone, so
-two requests whose token ids agree on [0, L) can point their page
-tables at the same physical pages for those positions and skip
-prefilling them.
+The KV written for position p is a function of tokens[0..p] alone (and
+of the request's LoRA adapter), so two requests of one adapter whose
+token ids agree on [0, L) can point their page tables at the same
+physical pages for those positions and skip prefilling them. Each
+adapter id has its own tree root (`acquire`/`insert` take
+`adapter_id`, 0 the base model): a prompt under adapter j misses
+adapter i's pages. Spill and eviction walk every root.
 
 Each tree edge is one FULL page: `page_size` token ids mapped to one
 page id; children are keyed by the next page's token bytes. Leaves may
@@ -40,6 +43,7 @@ from __future__ import annotations
 
 import heapq
 import itertools
+import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -47,7 +51,29 @@ import numpy as np
 
 from .paging import TRASH_PAGE, PagePool, pages_needed
 
-__all__ = ["RadixPrefixCache", "PrefixGrant", "shared_prefix_groups"]
+__all__ = ["RadixPrefixCache", "PrefixGrant", "shared_prefix_groups",
+           "resolve_prefix_cache_flag"]
+
+
+def resolve_prefix_cache_flag(override=None) -> bool:
+    """Whether the engine runs the prefix cache (the JAX function): an
+    explicit `ServingEngine(prefix_cache=...)` wins — a bool, or a
+    spelling of on/off (on, 1, true, yes; off, 0, false, no) — otherwise
+    PADDLE_TPU_PREFIX_CACHE (default on). Anything else raises
+    ValueError."""
+    if override is not None:
+        if isinstance(override, bool):
+            return override
+        flag = str(override)
+    else:
+        flag = os.environ.get("PADDLE_TPU_PREFIX_CACHE", "on")
+    low = flag.strip().lower()
+    if low in ("on", "1", "true", "yes"):
+        return True
+    if low in ("off", "0", "false", "no"):
+        return False
+    raise ValueError("PADDLE_TPU_PREFIX_CACHE / prefix_cache must be on|off, "
+                     f"got {flag!r}")
 
 
 def shared_prefix_groups(page_tables, q_len):
@@ -202,7 +228,11 @@ class RadixPrefixCache:
     def __init__(self, pool: PagePool, page_size: int):
         self.pool = pool
         self.page_size = int(page_size)
+        # one namespace root per adapter id: KV written under adapter i is
+        # a function of its weights too, so the same prompt under adapter
+        # j must miss it. Adapter 0 (the base model) is `root`
         self.root = _Node(None, None, None)
+        self._roots: Dict[int, _Node] = {0: self.root}
         # page id -> owning _Node/_Partial ("is this page tree-resident")
         self._owner: Dict[int, object] = {}
         self._tick = itertools.count(1)
@@ -262,8 +292,15 @@ class RadixPrefixCache:
     def _touch(self, obj):
         obj.last_used = next(self._tick)
 
+    def _root_for(self, adapter_id: int) -> _Node:
+        """The adapter's namespace root, made on first use."""
+        root = self._roots.get(int(adapter_id))
+        if root is None:
+            root = self._roots[int(adapter_id)] = _Node(None, None, None)
+        return root
+
     # -- matching ----------------------------------------------------------
-    def _match_full(self, tok: np.ndarray, limit: int
+    def _match_full(self, tok: np.ndarray, limit: int, root: _Node
                     ) -> Tuple[_Node, List[int], int]:
         """Walk full-page edges: (last node, matched page ids, matched
         token count), capped at `limit` so at least one prompt token
@@ -273,7 +310,7 @@ class RadixPrefixCache:
         restored from the host tier, and where that fails the walk stops
         and the tail prefills."""
         ps = self.page_size
-        node, pages, depth = self.root, [], 0
+        node, pages, depth = root, [], 0
         while depth + ps <= limit:
             child = node.children.get(tok[depth:depth + ps].tobytes())
             if child is None:
@@ -323,18 +360,19 @@ class RadixPrefixCache:
         return best_k, best_page
 
     # -- admission ---------------------------------------------------------
-    def acquire(self, prompt, max_new_tokens: int
+    def acquire(self, prompt, max_new_tokens: int, adapter_id: int = 0
                 ) -> Optional[PrefixGrant]:
-        """Longest-prefix match + page reservation for one request. On
-        success every granted page holds one reference for the request
-        (and the COW source an extra one until `cow_done`). On refusal
-        nothing changed."""
+        """Longest-prefix match + page reservation for one request, within
+        `adapter_id`'s namespace. On success every granted page holds one
+        reference for the request (and the COW source an extra one until
+        `cow_done`). On refusal nothing changed."""
         ps = self.page_size
         tok = _tok(prompt)
         plen = tok.size
         self.lookups += 1
         limit = plen - 1        # >= 1 token must prefill for logits
-        node, shared, depth = self._match_full(tok, limit)
+        node, shared, depth = self._match_full(
+            tok, limit, self._root_for(adapter_id))
         cow_k, cow_src = self._best_tail(node, tok[depth:limit])
         need_fresh = pages_needed(plen, max_new_tokens, ps) - len(shared)
         if cow_src is not None:
@@ -396,11 +434,12 @@ class RadixPrefixCache:
         if gone:
             self.pool.free(gone)
 
-    def insert(self, tokens, pages: List[int], valid: int):
-        """Index a finished request's pages: `tokens` is its prompt +
-        generated ids, `valid` how many positions hold KV. Duplicates
-        free (the tree keeps its original); then all of the request's
-        references drop."""
+    def insert(self, tokens, pages: List[int], valid: int,
+               adapter_id: int = 0):
+        """Index a finished request's pages under `adapter_id`'s
+        namespace: `tokens` is its prompt + generated ids, `valid` how
+        many positions hold KV. Duplicates free (the tree keeps its
+        original); then all of the request's references drop."""
         ps = self.page_size
         tok = _tok(tokens)
         valid = int(valid)
@@ -408,7 +447,7 @@ class RadixPrefixCache:
             raise ValueError(
                 f"valid={valid} exceeds tokens ({tok.size}) or page "
                 f"capacity ({len(pages) * ps})")
-        node = self.root
+        node = self._root_for(adapter_id)
         n_full = valid // ps
         for i in range(n_full):
             span = tok[i * ps:(i + 1) * ps]
@@ -455,7 +494,7 @@ class RadixPrefixCache:
         if need <= 0 or self._host_store is None:
             return 0
         heap = []
-        stack = [self.root]
+        stack = list(self._roots.values())
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())
@@ -496,7 +535,7 @@ class RadixPrefixCache:
         if need <= 0:
             return 0
         heap = []
-        stack = [self.root]
+        stack = list(self._roots.values())
         while stack:
             node = stack.pop()
             stack.extend(node.children.values())

@@ -9,8 +9,10 @@ A `Request` moves through
                     to the host tier, re-queued; resumes via swap-in)
 
 PREFILL spans as many engine steps as the prompt needs chunks; states
-advance only at step boundaries. Adapters, grammar, embeddings and
-sessions are not ported yet (ROADMAP.md, queue 1, item 10).
+advance only at step boundaries. A request names its LoRA adapter by
+`SamplingParams.adapter_id` (0, the default, is the base model).
+Grammar, embeddings and sessions are not ported yet (ROADMAP.md, queue
+1, item 9).
 """
 from __future__ import annotations
 
@@ -45,7 +47,10 @@ class SamplingParams:
     may preempt a resident of strictly higher `priority` value.
     `deadline_s` is a placement deadline from arrival: a request still
     queued when it passes fails fast as "deadline"; `timeout_s` bounds
-    the whole request."""
+    the whole request. `adapter_id` names the registered LoRA adapter
+    the request decodes under (0: the base model); riding on the
+    sampling parameters, it stays with the request through preemption
+    and resume."""
 
     max_new_tokens: int = 16
     temperature: float = 1.0
@@ -56,10 +61,13 @@ class SamplingParams:
     timeout_s: Optional[float] = None
     priority: int = 0
     deadline_s: Optional[float] = None
+    adapter_id: int = 0
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if self.adapter_id < 0:
+            raise ValueError("adapter_id must be >= 0")
         if self.deadline_s is not None and self.deadline_s <= 0:
             raise ValueError("deadline_s must be > 0")
         if self.temperature <= 0:
@@ -104,6 +112,12 @@ class Request:
         self._prefix_grant = None
         # times this request was preempted (banked, swapped, resumed)
         self.preemptions: int = 0
+        # the adapter claim (engine-owned): the (pool page, LoRA scale)
+        # granted at reserve time, and whether the request holds a
+        # reference on its adapter's page (dropped at retirement and at
+        # preemption)
+        self._adapter_binding = (0, 0.0)
+        self._adapter_held = False
         # preemption swap handle (engine-owned) while the request waits
         # to resume with KV in the host tier
         self._swap = None

@@ -750,3 +750,224 @@ def test_gather_arm_and_generate_tokens_on_the_card_equal_the_cpu(cuda):
             ids.to(dev), max_new_tokens=6).cpu()
     assert served["cpu"] == served[str(cuda)]
     assert torch.equal(generated["cpu"], generated[str(cuda)])
+
+
+# -- K11, K12, K8's float lane, the mask lane of K6/K7, K3-K5 at D 256 -----
+def _lora_case(cuda, dtype, b, w, cin, cout, r=8, pages=9, seed=0):
+    rs = np.random.RandomState(seed)
+    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(cuda)
+    a_pool, b_pool = mk(pages, cin, r) * 0.05, mk(pages, r, cout) * 0.05
+    a_pool[0] = 0.0
+    b_pool[0] = 0.0
+    apage = torch.from_numpy((np.arange(b) % pages).astype(np.int32)).to(cuda)
+    ascale = torch.from_numpy(rs.rand(b).astype(np.float32)).to(cuda)
+    ascale[-1] = 0.0
+    return (mk(b, w, cin).to(dtype), a_pool.to(dtype), b_pool.to(dtype),
+            apage, ascale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,w,cin,cout", [(16, 32, 768, 768), (5, 3, 96, 40)])
+def test_lora_delta_paged_kernel(cuda, dtype, b, w, cin, cout):
+    """K11 against its plain version; base-page and zero-scale rows are
+    exactly 0. In bf16 a t element (rounded to bf16 between the products)
+    whose f32 sums straddle a rounding point may move one bf16 ulp: the
+    allowance carries that ulp through B and the scale."""
+    x, A, B, apage, ascale = _lora_case(cuda, dtype, b, w, cin, cout)
+    before = tpa.MEGA_LAUNCHES["K11"]
+    out = tpa.lora_delta_paged(x, A, B, apage, ascale)
+    torch.cuda.synchronize()
+    assert tpa.MEGA_LAUNCHES["K11"] == before + 1
+    assert out.dtype == dtype and out.shape == (b, w, cout)
+    zero = (apage == 0) | (ascale == 0)
+    assert not out[zero].any()
+    want = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
+    if dtype == torch.float32:
+        _close(out, want)
+        return
+    ap = apage.long()
+    t = torch.bmm(x.float(), A[ap].float()).to(dtype).float()
+    flip = torch.bmm(_bf16_ulp(t), B[ap].float().abs()) * \
+        ascale.to(dtype).float()[:, None, None]
+    diff = (out.float() - want.float()).abs()
+    allowed = BF16_ULPS * _bf16_ulp(want.float()) + flip + \
+        F32_TOL * want.float().abs().max()
+    assert (diff <= allowed).all(), (diff / allowed).max().item()
+
+
+def test_lora_delta_paged_kernel_is_bit_reproducible(cuda):
+    args = _lora_case(cuda, torch.bfloat16, 16, 32, 768, 768)
+    first = tpa.lora_delta_paged(*args)
+    for _ in range(20):
+        assert torch.equal(tpa.lora_delta_paged(*args), first)
+
+
+@pytest.mark.parametrize("b,v", [(16, 50304), (3, 97), (2, 1), (5, 4097)])
+def test_greedy_argmax_kernel_equals_torch_argmax(cuda, b, v):
+    """K12 against torch.argmax bit for bit, with a tie, NaNs and an all
+    -inf row; 20 repeats give the same answer."""
+    g = torch.Generator(device=cuda).manual_seed(v)
+    logits = torch.randn(b, v, generator=g, device=cuda)
+    if v > 3 and b > 2:
+        logits[0, [v // 3, v - 1]] = 1e4
+        logits[1, [1, v // 2]] = float("nan")
+        logits[2] = float("-inf")
+    before = tpa.MEGA_LAUNCHES["K12"]
+    got = tpa.decode_greedy_argmax(logits)
+    torch.cuda.synchronize()
+    assert tpa.MEGA_LAUNCHES["K12"] == before + 1
+    assert got.dtype == torch.int32
+    assert torch.equal(got.long(), torch.argmax(logits, dim=-1))
+    for _ in range(20):
+        assert torch.equal(tpa.decode_greedy_argmax(logits), got)
+
+
+@pytest.mark.parametrize("upd_dtype,pool_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_paged_scatter_float_lane_equals_index_copy(cuda, upd_dtype,
+                                                    pool_dtype):
+    """K8's float lane writes what the unfused write (`index_copy_` of
+    the cast rows) writes, bit for bit outside the trash page."""
+    q, k, _, table, pos, _ = _mixed_batch(cuda, upd_dtype, 4, 4)
+    shape = (k.shape[0], k.shape[1], 4, q.shape[3])
+    got = tpa.paged_scatter_kernel(torch.zeros(shape, dtype=pool_dtype,
+                                               device=cuda), q, pos, table)
+    torch.cuda.synchronize()
+    want = tpa.paged_scatter_reference(torch.zeros(
+        shape, dtype=pool_dtype, device=cuda), q, pos, table)
+    assert torch.equal(got[1:], want[1:])
+
+
+@pytest.mark.parametrize("kind", ["additive", "bool"])
+@pytest.mark.parametrize("lane", ["fp", "fp8", "q8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,hkv", [(12, 12), (12, 6)])
+def test_ragged_mask_lane_kernel(cuda, dtype, lane, kind, h, hkv):
+    """K6 (and its fp8 lane, K7) with a user mask against the plain
+    versions with the same additive mask, on the live queries."""
+    ops, scales = lane_batch(_mixed_batch(cuda, dtype, h, hkv), lane)
+    q, k, _, table, pos, q_len = ops
+    b, lq = q.shape[:2]
+    lmax = table.shape[1] * k.shape[1]
+    g = torch.Generator(device=cuda).manual_seed(3)
+    if kind == "additive":
+        m = torch.randn(b, h, lq, lmax, generator=g, device=cuda)
+    else:
+        m = torch.rand(b, 1, 1, lmax, generator=g, device=cuda) < 0.7
+        m[..., 0] = True
+    out = ragged(ops, scales, mask=m)
+    torch.cuda.synchronize()
+    ref = ragged_reference(ops, scales,
+                           mask=tpa._mask_to_additive(m, b, h, lmax, lq))
+    live = torch.arange(lq, device=cuda)[None, :] < q_len[:, None]
+    assert torch.isfinite(out.float()).all()
+    _close(out[live], ref[live])
+
+
+def test_unmasked_k6_is_untouched_by_the_mask_lane(cuda):
+    """A zero additive mask gives K6's unmasked output to the f32
+    rounding of the added zeros: the same bits."""
+    args = _mixed_batch(cuda, torch.bfloat16, 12, 6)
+    plain = tpa.ragged_paged_attention(*args)
+    zero = torch.zeros(1, device=cuda)
+    assert torch.equal(tpa.ragged_paged_attention(*args, mask=zero), plain)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk,masks", [(200, 200, False), (70, 130, True)])
+def test_flash_attention_kernels_at_head_dim_256(cuda, dtype, causal, lq, lk,
+                                                 masks):
+    """K3-K5 at head dim 256 (32-row tiles) against their plain
+    versions, with dropout."""
+    q, k, v, do, bias, kvec, seeds = _attn_case(cuda, dtype, 256, lq, lk,
+                                                masks)
+    args = (bias, kvec, seeds, causal, None, 0.2)
+    before = dict(tfa.LAUNCHES)
+    o, lse = tfa.flash_attention_fwd(q, k, v, *args)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, *args)
+    _close(o, o_ref)
+    _close(lse, lse_ref)
+    for got, want in zip((dq, dk, dv),
+                         tfa.flash_bwd_reference(q, k, v, o, lse, do, *args)):
+        _close(got, want)
+
+
+@pytest.mark.parametrize("kv", ["fp", "int8"])
+def test_megakernel_engine_on_the_card(cuda, kv):
+    """The engine with the megakernel: the same tokens as with the gate
+    off on the card and as on the CPU; with adapters (K11 for the q/k/v
+    prologue and the o-delta) the tokens the CPU gives. Launches per
+    step: K8's lane 4, K12 1, K11 8 with adapters (2 layers)."""
+    from paddle_tpu_torch.serving import make_random_lora
+    cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
+                    num_attention_heads=4, max_position_embeddings=128)
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(0, 256, size=n).astype(np.int64)
+               for n in (5, 11, 17, 8)]
+    loras = [make_random_lora(2, 64, 64, 64, rank=4,
+                              rng=np.random.RandomState(i), amp=0.25)
+             for i in range(2)]
+    write = "K8-q8" if kv == "int8" else "K8-float"
+    tokens = {}
+    for dev in ("cpu", cuda):
+        model = GPTForCausalLM(cfg, device="cpu").to(dev)
+        for mega, lora in ((False, False), (True, False), (True, True)):
+            eng = ServingEngine(model, device=dev, num_slots=4, max_len=64,
+                                page_size=8, chunk_len=8, kv_dtype=kv,
+                                grouped=False, megakernel=mega,
+                                adapters=lora or None)
+            tenants = [0] * 4
+            if lora:
+                for i, w in enumerate(loras):
+                    eng.adapters.register(f"t{i}", w)
+                tenants = [1, 0, 2, 1]
+            for mod in (tln, tpa, tfa):
+                mod.reset_launches()
+            res = eng.generate(prompts, [SamplingParams(
+                max_new_tokens=8, adapter_id=a) for a in tenants])
+            tokens[str(dev), mega, lora] = [r.token_ids for r in res]
+            if dev is cuda and mega:
+                steps = eng.metrics.unified_steps
+                counts = dict(tpa.MEGA_LAUNCHES, **{
+                    "K8-q8": tpa.QUANT_LAUNCHES["K8-q8"]})
+                assert counts[write] == 4 * steps
+                assert counts["K12"] == steps
+                assert counts["K11"] == (8 * steps if lora else 0)
+    for key in ((False, False), (True, False), (True, True)):
+        assert tokens["cpu", *key] == tokens[str(cuda), *key]
+    assert tokens[str(cuda), True, False] == tokens[str(cuda), False, False]
+
+
+@pytest.mark.parametrize("d", [32, 256])
+def test_head_dim_routes_on_the_card(cuda, d):
+    """A GPT at head dim 32 takes `_sdpa_ref` on the card (no flash
+    launch) on the legacy step, the gather arm and generate(); at head
+    dim 256 K3 runs there. Tokens equal the CPU's."""
+    heads = 256 // d if d == 32 else 1
+    cfg = GPTConfig(vocab_size=256, hidden_size=d * heads,
+                    num_hidden_layers=2, num_attention_heads=heads,
+                    max_position_embeddings=128)
+    rs = np.random.RandomState(10)
+    prompts = [rs.randint(0, 256, size=n) for n in (3, 19, 12)]
+    ids = torch.from_numpy(rs.randint(0, 256, size=(2, 9)))
+    out = {}
+    for dev in ("cpu", cuda):
+        model = GPTForCausalLM(cfg, device="cpu").to(dev)
+        tfa.reset_launches()
+        for opts in (dict(unified=False), dict(attn_impl="gather")):
+            eng = ServingEngine(model, device=dev, num_slots=4, max_len=64,
+                                page_size=8, chunk_len=16, **opts)
+            res = eng.generate(prompts, SamplingParams(max_new_tokens=6))
+            out[str(dev), str(opts)] = [r.token_ids for r in res]
+        out[str(dev), "generate"] = model.generate(
+            ids.to(dev), max_new_tokens=6).cpu().tolist()
+        if dev is cuda:
+            assert (tfa.LAUNCHES["fwd"] > 0) is (d == 256)
+    for key in [k[1] for k in out if k[0] == "cpu"]:
+        assert out["cpu", key] == out[str(cuda), key]

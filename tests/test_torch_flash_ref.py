@@ -223,10 +223,12 @@ def test_flash_attention_blhd_gradcheck_f64(dropout_p):
 
 
 def test_sdpa_routes_and_raises_like_the_jax_package():
-    """A frozen mask goes to the flash op's operands, whatever its
-    broadcast shape; a trainable one to the plain `_sdpa_ref` (the
-    kernels give no bias gradient); dropout outside training is off."""
-    q, k, v, _ = _case(6, 6, seed=7)
+    """At a head dim the kernels take (64 here), a frozen mask goes to
+    the flash op's operands, whatever its broadcast shape; a trainable
+    one to the plain `_sdpa_ref` (the kernels give no bias gradient);
+    dropout outside training is off. (Other head dims take `_sdpa_ref`:
+    test_torch_head_dims.py.)"""
+    q, k, v, _ = _case(6, 6, d=64, seed=7)
     tq, tk, tv = _t(q, k, v)
     calls = []
     orig = PF.attention.flash_attention_blhd

@@ -4,7 +4,9 @@ At the geometry of `__graft_entry__.entry()` (vocab 1024, hidden 256, 4
 layers, 8 heads, 256 positions; a [2, 64] prompt), with the JAX model's
 weights moved by `convert.py`: greedy tokens equal the JAX compiled
 `generate`, with and without `eos_token_id`/`pad_token_id`, and every
-emitted token wins its step by a clear margin; the argument errors are
+emitted token wins its step by a clear margin; with `use_compiled=False`
+and `eos_token_id` set, the tokens of the JAX eager loop, which never
+stops at eos and never pads; the argument errors are
 the JAX package's; a seeded sampling run is reproducible and stays
 inside its top-k / top-p set; beam search and the int8 cache raise
 NotImplementedError naming ROADMAP.md.
@@ -122,6 +124,21 @@ def test_eos_and_pad_match_jax(models, jax_greedy):
     np.testing.assert_array_equal(got.numpy(), want)
     first = int(np.argmax(want[0, 64:] == eos))
     assert (want[0, 64 + first + 1:] == 7).all() and first <= 4
+
+
+def test_eager_loop_with_eos_matches_jax(models, jax_greedy):
+    """ROADMAP queue 3's F6 input: `use_compiled=False` with eos set is
+    the JAX eager debug loop — row 0 goes on past its eos and no row is
+    padded — where the compiled loop pads."""
+    eos = int(jax_greedy[0, 64 + 4])
+    kw = dict(max_new_tokens=NEW, eos_token_id=eos, pad_token_id=7)
+    want = _jax_generate(models[0], _ids(), use_compiled=False, **kw)
+    got = models[1].generate(torch.from_numpy(_ids()), use_compiled=False,
+                             **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), jax_greedy)
+    padded = models[1].generate(torch.from_numpy(_ids()), **kw)
+    assert (padded.numpy()[0, 64 + 5:] == 7).all()
 
 
 @pytest.mark.parametrize("kw", [

@@ -221,16 +221,22 @@ def test_logits_without_labels_match_and_take_the_sdpa_route(
     ids = batch[0]
     want = np.asarray(jm(paddle.to_tensor(ids)).numpy())
     calls = []
-    orig = tattn.flash_attention_blhd
+    # head dim 32: the JAX route's `_sdpa_ref`, not the flash op, which
+    # takes 64, 128 and 256 (test_torch_head_dims.py)
+    orig = tattn._sdpa_ref
 
     def spy(*args, **kw):
-        calls.append(kw["causal"])
+        calls.append(args[4])           # causal
         return orig(*args, **kw)
+
+    def no_flash(*args, **kw):
+        raise AssertionError("head dim 32 took the flash op")
 
     def no_paged_step(*args, **kw):
         raise AssertionError("a forward without caches took the paged step")
 
-    monkeypatch.setattr(tattn, "flash_attention_blhd", spy)
+    monkeypatch.setattr(tattn, "_sdpa_ref", spy)
+    monkeypatch.setattr(tattn, "flash_attention_blhd", no_flash)
     monkeypatch.setattr("paddle_tpu_torch.nlp.gpt.update_and_attend",
                         no_paged_step)
     with torch.no_grad():

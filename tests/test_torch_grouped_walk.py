@@ -144,8 +144,9 @@ def test_grouped_reference_matches_jax(rep, ps):
 
 
 def test_grouped_op_on_the_cpu_is_the_plain_version():
-    """The wrapper takes the plain version for CPU tensors, broadcasts
-    0-dim operands, and refuses a user mask, as K6's wrapper does."""
+    """The wrapper takes the plain version for CPU tensors and broadcasts
+    0-dim operands; under a user mask it is K6's wrapper with that mask
+    (the JAX op's fallback to its ungrouped kernel)."""
     ops, grp = _grouped_case(2, 8, seed=3)
     t = [torch.from_numpy(a) for a in ops + grp]
     out = tpa.ragged_paged_attention_grouped(*t)
@@ -157,5 +158,6 @@ def test_grouped_op_on_the_cpu_is_the_plain_version():
     live = torch.arange(out.shape[1])[None, :] < t[5][:, None]
     torch.testing.assert_close(singles[live], out[live], rtol=0,
                                atol=TOL * (1 + out.abs().max().item()))
-    with pytest.raises(NotImplementedError, match="mask"):
-        tpa.ragged_paged_attention_grouped(*t, mask=torch.zeros(1))
+    masked = tpa.ragged_paged_attention_grouped(*t, mask=torch.zeros(1))
+    assert torch.equal(masked, tpa.ragged_paged_attention(
+        *t[:6], mask=torch.zeros(1)))

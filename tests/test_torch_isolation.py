@@ -44,6 +44,8 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch.ops.cuda.paged_attention\n"
         "import paddle_tpu_torch.nlp.generation\n"
         "import paddle_tpu_torch.serving.engine\n"
+        "import paddle_tpu_torch.serving.adapters\n"
+        "import paddle_tpu_torch.serving.prefix\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n")
@@ -74,8 +76,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(no_cuda):
         GPTForCausalLM(GPTConfig(**SMALL))
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        ServingEngine(model, max_len=16, page_size=4, chunk_len=4)
-    eng = ServingEngine(model, max_len=16, page_size=4, chunk_len=4,
+        ServingEngine(model, max_len=16, page_size=4, chunk_len=8)
+    eng = ServingEngine(model, max_len=16, page_size=4, chunk_len=8,
                         device="cpu")
     assert eng.device.type == "cpu"
 
@@ -102,6 +104,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
         tfa.flash_attention_fwd(q4, q4, q4, causal=True)
     with pytest.raises(ValueError, match="no kernel"):
         tfa.flash_attention_bwd(q4, q4, q4, q4, torch.zeros(2, 4), q4)
+    x = torch.zeros(2, 4, 64, device="meta")
+    a = torch.zeros(3, 64, 8, device="meta")
+    bp = torch.zeros(3, 8, 64, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        tpa.lora_delta_paged(x, a, bp, i.expand(2), i.float().expand(2))
+    with pytest.raises(ValueError, match="no kernel"):
+        tpa.decode_greedy_argmax(torch.zeros(2, 64, device="meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        tpa.paged_scatter_kernel(pool, pool[:1], i, i.view(1, 1))
 
 
 def test_training_defaults_to_cuda_and_raises_without_it(no_cuda):
@@ -122,7 +133,8 @@ def test_training_defaults_to_cuda_and_raises_without_it(no_cuda):
 # engine now builds them (the pools' dtype and the scale pools' dtype)
 _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
            ("kv_dtype", "fp8"): (tpa.FP8_DTYPE, None),
-           ("unified", False): (torch.float32, None)}
+           ("unified", False): (torch.float32, None),
+           ("megakernel", True): (torch.float32, None)}
 
 
 @pytest.mark.parametrize("option,value", [
@@ -130,8 +142,8 @@ _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
     ("spec", "ngram"), ("megakernel", True)])
 def test_unported_engine_options_raise(option, value):
     """An option not ported yet raises at construction, naming its
-    ROADMAP item; a ported one (int8 and fp8 KV, the legacy step) builds
-    its pools."""
+    ROADMAP item; a ported one (int8 and fp8 KV, the legacy step, the
+    megakernel) builds its pools."""
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
     if (option, value) in _PORTED:
         pool_dtype, scale_dtype = _PORTED[option, value]

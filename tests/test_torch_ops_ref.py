@@ -127,8 +127,12 @@ def test_ragged_attention_wrapper_takes_plain_version_on_cpu():
     assert tpa.LAUNCHES == before
     torch.testing.assert_close(out, tpa.ragged_attention_reference(*args),
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="mask"):
-        tpa.ragged_paged_attention(*args, mask=torch.zeros(1))
+    # a zero additive mask changes nothing; the mask lane is the plain
+    # version's too, on the CPU
+    torch.testing.assert_close(
+        tpa.ragged_paged_attention(*args, mask=torch.zeros(1)), out, rtol=0,
+        atol=0)
+    assert tpa.LAUNCHES == before
 
 
 # -- the paged KV write ----------------------------------------------------

@@ -438,8 +438,9 @@ def test_update_and_attend_matches_jax(jax_jnp, mode, impl, mask):
 
 def test_update_and_attend_mask_errors(jax_jnp):
     """A mask whose last axis is not the cache axis raises the JAX
-    package's ValueError; on the ragged kernel branch a mask raises
-    NotImplementedError naming ROADMAP's K6 item."""
+    package's ValueError; on the ragged kernel branch a mask of the cache
+    axis composes with the window as on the gather branch (K6's mask
+    lane, test_torch_paged_mask.py holds it against the JAX package)."""
     from paddle_tpu.core.tensor import Tensor as JT
     q, kn, vn, k, v, table, pos = _attend_case(23, True, 1)
     bad = np.ones((3, 1, 1, 30), bool)
@@ -458,7 +459,10 @@ def test_update_and_attend_mask_errors(jax_jnp):
         tgen.update_and_attend(*args, cache(),
                                attn_mask=torch.from_numpy(bad))
     assert str(got.value) == str(want.value)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*K6"):
-        tgen.update_and_attend(
-            *args, cache(q_len=torch.ones(3, dtype=torch.int32)),
-            attn_mask=torch.ones(3, 1, 1, 32, dtype=torch.bool))
+    keep = torch.ones(3, 1, 1, 32, dtype=torch.bool)
+    keep[..., 1] = False
+    outs = [tgen.update_and_attend(
+        *args, cache(q_len=torch.ones(3, dtype=torch.int32),
+                     attn_impl=impl), attn_mask=keep)[0]
+        for impl in ("kernel", "gather")]
+    torch.testing.assert_close(outs[0], outs[1], rtol=RTOL, atol=ATOL)
