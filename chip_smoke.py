@@ -46,8 +46,14 @@ Phases, each reported on its own line; any failure exits non-zero:
    chunks (Lq 8, 16, 32 over 992 keys, the window mask as its bias),
    the gather arm's step (q [16, 32, 12, 64], a per-row bias) and
    generate()'s prefill and decode step (the window as a kvec at Lq 1),
-   against `_sdpa_ref` (f32) and its plain version (bf16). K3-K5 again
-   at head dim 256 ([2, 1024, 4, 256], phase 6's step). The user-mask
+   against `_sdpa_ref` (f32) and its plain version (bf16, f16). K3-K5 again
+   at head dim 256 ([2, 1024, 4, 256], phase 6's step). K3-K5 run in
+   f32, bf16 and f16: in bf16 and f16 K3 (every head dim) and K5 (head
+   dims 64 and 128) take the tensor-core design (wgmma on TMA-fed tiles,
+   `tfa.kernel_design`, printed and recorded as `design`), held with one
+   rounding of each P_eff and dS to the operand dtype carried through
+   the second product on top of the ulp rule, and 20 repeats in bf16
+   must be bit-identical (at every serving shape too). The user-mask
    lane of K6 and K7 on the ragged serving batches (rep 1 and 2, an
    additive and a bool mask) against the plain versions, timed with
    the mask's bytes in the bound. K11 at the serving step's LoRA shapes
@@ -173,8 +179,17 @@ PREEMPT_PAGES, PREEMPT_PROMPT, PREEMPT_BURST = 16 * 40 + 1, 560, 4
 # inputs. An f32 output: max error <= F32_TOL x (1 + max|ref|) (summation
 # order). A bf16 output, element by element: <= BF16_ULPS ulps of the
 # reference element plus F32_TOL x max|ref| (both round f32 values that
-# differ by their summation order, so mostly 0 or 1 ulp apart)
+# differ by their summation order, so mostly 0 or 1 ulp apart); an f16
+# output: BF16_ULPS f16 ulps plus the f32 rule's F32_TOL x (1 + max|ref|)
+# (f16 keeps three more bits, so an output that is what is left of a
+# cancellation can carry more than two ulps of f32 noise). The
+# tensor-core flash kernels (K3, K5 in bf16 and f16) round P_eff and dS
+# to the operand dtype before their second product, as the TPU kernel
+# does: their check adds, per element, one such rounding carried through
+# that product (`tfa.fwd_rounding_allowance`, `tfa.dkv_rounding_allowance`)
 F32_TOL, BF16_ULPS = 1e-5, 2
+# the flash kernels' bit-repeat check: runs that must equal the first
+FLASH_REPEATS = 20
 # held logits, bf16 path on the card vs the f32 plain rerun on the CPU:
 # bf16 activations through 12 layers against f32 (logits have std ~0.5;
 # the first H100 run measured 0.026)
@@ -263,10 +278,13 @@ def bound(n_bytes: float, n_ops: float, peak_ops: float):
                                        else "operations")
 
 
-def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
-    """The spacing of bf16 values at |x| (0 at 0)."""
+def bf16_ulp(x: torch.Tensor, dtype=torch.bfloat16) -> torch.Tensor:
+    """The spacing of bf16 (or f16) values at |x| (0 at 0)."""
     _, e = torch.frexp(x.abs())
-    ulp = torch.ldexp(torch.ones_like(x), e - 8)
+    bits = 8 if dtype == torch.bfloat16 else 11
+    ulp = torch.ldexp(torch.ones_like(x), e - bits)
+    if dtype == torch.float16:   # subnormals: a fixed spacing
+        ulp = torch.clamp(ulp, min=2.0 ** -24)
     return torch.where(x == 0, torch.zeros_like(x), ulp)
 
 
@@ -285,6 +303,10 @@ def check_close(name, got, want, mask=None, extra=None, extra_rule=""):
     if dtype == torch.bfloat16:
         allowed = BF16_ULPS * bf16_ulp(want) + F32_TOL * ref_max
         rule = f"{BF16_ULPS} bf16 ulps + {F32_TOL} x max|ref| per element"
+    elif dtype == torch.float16:
+        allowed = BF16_ULPS * bf16_ulp(want, dtype) + F32_TOL * (1 + ref_max)
+        rule = (f"{BF16_ULPS} f16 ulps + {F32_TOL} x (1 + max|ref|) per "
+                "element")
     else:
         allowed = torch.full_like(want, F32_TOL * (1.0 + ref_max))
         rule = f"{F32_TOL} x (1 + max|ref|)"
@@ -377,9 +399,28 @@ def check_layer_norm_bwd(dev, tln, time_ms):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
 
 
+def same_bits(name, fn, n=FLASH_REPEATS):
+    """Call fn() n times: every output must equal the first call's bit
+    for bit."""
+    first = fn()
+    for i in range(1, n):
+        again = fn()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"{name}: run {i + 1} differs from run 1")
+    torch.cuda.synchronize()
+    log(f"  {name}: {n} runs bit-identical")
+
+
+FLASH_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+ROUNDING_RULE = ("+ one rounding of each {} to the operand dtype, carried "
+                 "through {}")
+
+
 def check_flash_attention(dev, tfa, time_ms, shape=None):
     """K3, K4 and K5 at the training step's shapes (or `shape`, [B, L, H,
-    D]), causal: each against its plain version in f32 and bf16, then
+    D]), causal: each against its plain version in f32, bf16 and f16 (K3
+    and K5 in bf16 and f16 with the tensor-core design's rounding
+    allowance), K3 and K5 FLASH_REPEATS times in bf16 bit for bit, then
     timed in bf16."""
     b, l = TRAIN["batch"], TRAIN["seq"]
     h = GPT124M["num_attention_heads"]
@@ -387,15 +428,23 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
     if shape is not None:
         b, l, h, d = shape
     g = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    errs, designs = {}, {}
+    for dtype in FLASH_DTYPES:
         q, k, v, do = (torch.randn(b, l, h, d, generator=g, device=dev
                                    ).to(dtype) for _ in range(4))
         tag = f"[{b}, {l}, {h}, {d}] causal {dtype}"
+        designs[str(dtype)[6:]] = design = tfa.kernel_design(dtype, d)
+        log(f"  K3-K5 {tag}: K3 on the {design['fwd']}, K4 on the "
+            f"{design['dq']}, K5 on the {design['dkv']}")
+        rounds = dtype != torch.float32
         o, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
         torch.cuda.synchronize()
         o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, causal=True)
-        e3 = check_close(f"K3 flash fwd o {tag}", o, o_ref)
+        e3 = check_close(
+            f"K3 flash fwd o {tag}", o, o_ref,
+            extra=tfa.fwd_rounding_allowance(q, k, v, causal=True)
+            if rounds else None,
+            extra_rule=ROUNDING_RULE.format("P_eff", "P_eff . V / l"))
         check_close(f"K3 flash fwd lse {tag}", lse, lse_ref)
         del o_ref, lse_ref
         di = (o.float() * do.float()).sum(-1).transpose(1, 2).reshape(
@@ -408,11 +457,24 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
         dk, dv = tfa.flash_attention_dkv(*args, causal=True)
         torch.cuda.synchronize()
         dk_ref, dv_ref = tfa.flash_dkv_reference(*args, causal=True)
-        e5 = max(check_close(f"K5 flash dk {tag}", dk, dk_ref),
-                 check_close(f"K5 flash dv {tag}", dv, dv_ref))
-        del dk_ref, dv_ref
+        ek, ev = (tfa.dkv_rounding_allowance(*args, causal=True)
+                  if rounds else (None, None))
+        e5 = max(check_close(f"K5 flash dk {tag}", dk, dk_ref, extra=ek,
+                             extra_rule=ROUNDING_RULE.format("dS",
+                                                             "dS^T . Q")),
+                 check_close(f"K5 flash dv {tag}", dv, dv_ref, extra=ev,
+                             extra_rule=ROUNDING_RULE.format(
+                                 "P_eff", "P_eff^T . dO")))
+        del dk_ref, dv_ref, ek, ev
+        if dtype == torch.bfloat16:
+            same_bits(f"K3 {tag}", lambda: tfa.flash_attention_fwd(
+                q, k, v, causal=True))
+            same_bits(f"K5 {tag}", lambda: tfa.flash_attention_dkv(
+                *args, causal=True))
+            timed = (q, k, v, do, args)
         errs[dtype] = (e3, e4, e5)
         torch.cuda.empty_cache()
+    q, k, v, do, args = timed
     # timing in bf16; the library yardstick is SDPA on [B, H, L, D]
     fwd = lambda: tfa.flash_attention_fwd(q, k, v, causal=True)
     dq_k = lambda: tfa.flash_attention_dq(*args, causal=True)
@@ -449,6 +511,8 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
             f"{lib[i]:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
         recs.append(dict(
             name=name, route="cuda", path="training",
+            design={t: ds[("fwd", "dq", "dkv")[i]]
+                    for t, ds in designs.items()},
             source="paddle_tpu_torch/ops/cuda/csrc/flash_attention.cu",
             replaces=f"paddle_tpu/ops/pallas/flash_attention.py:{lines[i]}",
             max_abs_err=errs[torch.bfloat16][i], ms=ms[i],
@@ -846,8 +910,10 @@ def check_flash_serving(dev, tfa):
     K3 once with the operand form named; f32 against the plain
     `_sdpa_ref` (the JAX package's form) by the f32 rule, bf16 against
     the plain `flash_attention_reference` on the same operand by the
-    bf16 rule (`_sdpa_ref` rounds its probabilities to bf16). Returns
-    each case's bf16 error."""
+    bf16 rule (`_sdpa_ref` rounds its probabilities to bf16), f16 by the
+    same rule in f16 ulps, both with the tensor-core design's rounding
+    allowance; bf16 FLASH_REPEATS times bit for bit. Returns each case's
+    bf16 error."""
     from paddle_tpu_torch.nn import functional as PF
     from paddle_tpu_torch.nn.functional.attention import (
         _mask_to_kernel_operands, _sdpa_ref)
@@ -859,7 +925,7 @@ def check_flash_serving(dev, tfa):
     errs = {}
     for case, (b, lq, lk, _) in FLASH_SERVING_CASES.items():
         want_form = forms.get(case, ("bias", (1, 1, lq, lk)))
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in FLASH_DTYPES:
             q, k, v, mask = flash_serving_batch(dev, dtype, case, SEED)
             h = q.shape[2]
             form, operand = _mask_to_kernel_operands(mask, b, h, lq, lk)
@@ -879,11 +945,17 @@ def check_flash_serving(dev, tfa):
             if dtype == torch.float32:
                 check_close(f"{tag} vs _sdpa_ref", out, _sdpa_ref(
                     q, k, v, mask, False, 0.125, 0.0, None))
-            else:
-                errs[case] = check_close(
-                    f"{tag} vs flash_attention_reference", out,
-                    tfa.flash_attention_reference(
-                        q, k, v, **{form: operand})[0])
+                continue
+            err = check_close(
+                f"{tag} vs flash_attention_reference", out,
+                tfa.flash_attention_reference(q, k, v, **{form: operand})[0],
+                extra=tfa.fwd_rounding_allowance(q, k, v, **{form: operand}),
+                extra_rule=ROUNDING_RULE.format("P_eff", "P_eff . V / l"))
+            if dtype == torch.bfloat16:
+                errs[case] = err
+                same_bits(f"K3 {case} {dtype}",
+                          lambda: tfa.flash_attention_fwd(
+                              q, k, v, **{form: operand}))
     return errs
 
 
@@ -1052,11 +1124,8 @@ def check_lora_paged(dev, tpa, time_ms):
             errs[dtype] = check_close(tag, out, ref, extra=flip,
                                       extra_rule="+ one bf16 ulp of t "
                                       "through B and the scale")
-        for _ in range(20):
-            if not torch.equal(tpa.lora_delta_paged(x, A, B, apage, ascale),
-                               out):
-                raise AssertionError("K11 is not bit-reproducible")
-    log("  K11: 20 repeats bit-identical in f32 and bf16")
+        same_bits(f"K11 {dtype}", lambda: (tpa.lora_delta_paged(
+            x, A, B, apage, ascale),))
     ms = time_ms(lambda: tpa.lora_delta_paged(x, A, B, apage, ascale))
     plain_ms = time_ms(lambda: tpa.lora_delta_paged_reference(
         x, A, B, apage, ascale))

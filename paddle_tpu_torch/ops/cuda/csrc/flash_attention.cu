@@ -2,10 +2,11 @@
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py:
 //   K3 _fa_kernel     (forward + per-row logsumexp, launched from
-//                      _flash_fwd_bhld),
-//   K4 _fa_dq_kernel  (dq by recompute, launched from _flash_bwd_bhld),
+//                      _flash_fwd_bhld, :495),
+//   K4 _fa_dq_kernel  (dq by recompute, launched from _flash_bwd_bhld,
+//                      :570),
 //   K5 _fa_dkv_kernel (dk, dv by recompute, launched from
-//                      _flash_bwd_bhld).
+//                      _flash_bwd_bhld, :605).
 //
 // Semantics, shared with the plain versions in ops/cuda/flash_attention.py:
 // q [B, Lq, H, D], k/v [B, Lk, H, D] (any strides with a unit last one),
@@ -20,26 +21,88 @@
 // in f32. The backward takes di = rowsum(o * dO) [BH, Lq] from the host.
 //
 // What bounds them: at GPT-124M's training shapes (B 16, L 1024, H 12,
-// D 64, causal) the three are bound by operations (4 L^2 D / 2 per head
-// for the forward, 6 and 8 for dq and dk/dv) on the tensor cores; this
-// first version does its products on the CUDA cores in f32, so it sits
-// far above that bound. Design (simple and right first): each block of
-// 256 threads owns one tile of TM rows — (bh, q-block) for K3 and K4,
-// (bh, k-block) for K5 — holds it in shared memory as f32 and loops
-// sequentially over the other axis, staging TM-row K/V (or Q/dO) tiles
-// with plain 16-byte loads. TM is 64 at head dims 64 and 128, and 32 at
-// head dim 256, where four 64-row f32 tiles of 257 floats a row (dq,
-// dk/dv: about 280 and 296 KB) exceed the 227 KB a block may use; at
-// 32 rows K3 takes about 103 KB, K4 136 KB and K5 140 KB. Each thread
-// computes a P x P patch (P = TM / 16) of the TM x TM logit tile (rows
-// ty + 16 i, columns tx + 16 j), so the row reductions of the online
-// softmax are shuffles inside a half-warp. The 64-row instantiations
-// are the code they were before the 32-row tile existed.
-// Blocks walk their own axis, so no kernel needs atomics. k-blocks past
-// the causal diagonal are skipped. Shared rows are padded to D + 1 floats
-// so the strided reads hit distinct banks.
+// D 64, causal) all three are bound by operations on the tensor cores:
+// 4 d per visible (query, key) pair for the forward (0.026 ms at 989
+// TFLOP/s), 6 d and 8 d for dq and dk/dv; their bytes (q, k, v, o, dO
+// once) take about a third of that at 3.35 TB/s. Two designs, chosen by
+// the wrapper (`kernel_design`, passed as Params::design):
+//
+// The tensor-core design (K3 at head dims 64, 128, 256 and K5 at 64 and
+// 128, bf16 and f16). Every product is a wgmma with f32 accumulators in
+// registers, on tiles that TMA copies into 128-byte-swizzled shared
+// memory and completes on mbarriers; one thread of a producer
+// warpgroup keeps the copies in flight while two consumer warpgroups (64
+// rows each) compute, so the copies overlap the products and the
+// softmax. The producer hands most
+// of its registers to the consumers (setmaxnreg: 24 and 240 a thread).
+// The per-element code is branch-free: a branch per element (masks,
+// bias, dropout) cost more than the products, so the masks run only on
+// a tile that crosses an edge or carries a bias or kvec, and dropout in
+// a pass of its own, each chosen once per tile.
+// - K3: a block owns 128 query rows of one (b, h) (64 when Lq <= 64, one
+//   warpgroup: the serving shapes) and walks the key tiles (128 keys; 64
+//   at head dim 256, where o takes 128 registers a thread) through a
+//   ring of 4, 3 or 2 K/V tiles (head dims 64, 128, 256); k-tiles past
+//   the diagonal skipped. The q tiles of one (b, h) are neighbours in
+//   the grid, longest rows first, so they run together and read its K/V
+//   from L2: with the heads spread over the grid instead, each K/V tile
+//   came from device memory once per q tile and the copies, not the
+//   products, set the pace. S = Q K^T from shared memory (Q and K
+//   K-major); the online softmax in registers, in natural units as the
+//   plain version, each exp taken as exp2((x - m) log2 e). log2 e is not
+//   folded into the logits: a -1e30 mask must cancel exactly against the
+//   row max and lse (a row that sees only masked keys weighs them
+//   evenly), and the folded products round the two sides apart. P_eff
+//   rounded to q's dtype in registers is the register A operand of O +=
+//   P_eff V, V the MN-major B operand read in place. Masks (causal, ragged
+//   edges, bias, kvec by __ldg at each accumulator element) only on
+//   tiles that cross an edge. o is staged through the warpgroup's own
+//   rows of the Q tile and leaves in 16-byte stores.
+// - K5: a block owns 128 keys of one (b, h) (a warpgroup of 64 keys
+//   each), K and V loaded once, and walks the query tiles (64 queries;
+//   32 at head dim 128) from the first one the causal mask lets see its
+//   keys, through a 4-stage ring of Q/dO tiles (the key tiles of one
+//   (b, h) neighbours in the grid, low tiles first, as K3's q tiles); the
+//   lanes of the producer's first warp put each tile's lse and di into
+//   shared memory.
+//   S^T = K Q^T and dP^T = V dO^T from shared memory; P^T, P_eff^T and
+//   dS^T = P^T (dP_eff^T - di) scale in registers; dV += P_eff^T dO and
+//   dK += dS^T Q with P_eff^T and dS^T rounded to the operand dtype as
+//   register A operands and dO, Q as MN-major B operands. dK and dV stay
+//   in registers to the epilogue; no atomics, so the result is
+//   bit-reproducible.
+// Rounding P_eff and dS to the operand dtype before the second product
+// is what the TPU kernel does (`p_eff.astype(v.dtype)` :218,
+// `p_eff.astype(do.dtype)` :383, `ds.astype(q.dtype)` :394); K3 rounds P
+// relative to the running max. The card checks allow one such rounding
+// per element, carried through the second product.
+//
+// The CUDA-core design (f32 at every head dim: on the tensor cores f32
+// would be TF32, not the "highest" f32 the checks hold; K4 in every
+// dtype; K5 at head dim 256, whose dK and dV accumulators of 64 keys x
+// 256 columns exceed a thread's registers): each block of 256 threads
+// owns one tile of TM rows — (bh, q-block) for K3 and K4, (bh, k-block)
+// for K5 — holds it in shared memory as f32 and loops sequentially over
+// the other axis, staging TM-row K/V (or Q/dO) tiles with plain 16-byte
+// loads, every product a scalar FMA. TM is 64 at head dims 64 and 128,
+// and 32 at head dim 256, where four 64-row f32 tiles of 257 floats a
+// row (dq, dk/dv: about 280 and 296 KB) exceed the 227 KB a block may
+// use. Each thread computes a P x P patch (P = TM / 16) of the TM x TM
+// logit tile (rows ty + 16 i, columns tx + 16 j), so the row reductions
+// of the online softmax are shuffles inside a half-warp. Blocks walk
+// their own axis, so no kernel needs atomics. k-blocks past the causal
+// diagonal are skipped. Shared rows are padded to D + 1 floats so the
+// strided reads hit distinct banks.
+//
+// The TMA maps are built on the host in each C entry with the driver's
+// cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint (no
+// -lcuda): a 4-D map over the strided [B, L, H, D] view, whose strides
+// the wrapper keeps to multiples of 16 bytes, passed as a
+// __grid_constant__ parameter.
 #include "common.cuh"
+#include "wgmma.cuh"
 
+#include <cuda.h>
 #include <math.h>
 
 namespace {
@@ -79,6 +142,7 @@ struct Params {
   unsigned int thresh;  // drop iff hash < thresh
   float inv_keep;
   float scale;
+  int design;           // Design below: kCudaCores or kTensorCores
 };
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
@@ -193,15 +257,15 @@ __device__ __forceinline__ void finish_logits(float (&s)[P][P],
   }
 }
 
-// number of k-blocks a q-block [q0, q0 + TM) has to visit
-template <int TM>
-__device__ __forceinline__ int kblocks_for(const Params& p, int q0) {
+// number of key tiles of `bn` keys that queries [q0, q0 + rows) visit
+__device__ __forceinline__ int key_tiles(const Params& p, int q0, int rows,
+                                         int bn) {
   int nk = p.Lk;
   if (p.causal) {
-    const int q_last = min(q0 + TM, p.Lq) - 1;
+    const int q_last = min(q0 + rows, p.Lq) - 1;
     nk = min(nk, q_last + (p.Lk - p.Lq) + 1);
   }
-  return nk <= 0 ? 0 : (nk + TM - 1) / TM;
+  return nk <= 0 ? 0 : (nk + bn - 1) / bn;
 }
 
 // ---------------------------------------------------------------- K3
@@ -241,7 +305,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd_kernel(Params p) {
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
   }
-  const int nkb = kblocks_for<TM>(p, q0);
+  const int nkb = key_tiles(p, q0, TM, TM);
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * TM;
     __syncthreads();  // the previous tile's readers are done
@@ -350,7 +414,7 @@ __global__ void __launch_bounds__(kThreads) fa_dq_kernel(Params p) {
   for (int i = 0; i < P; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-  const int nkb = kblocks_for<TM>(p, q0);
+  const int nkb = key_tiles(p, q0, TM, TM);
   for (int kb = 0; kb < nkb; ++kb) {
     const int k0 = kb * TM;
     __syncthreads();
@@ -514,10 +578,743 @@ __global__ void __launch_bounds__(kThreads) fa_dkv_kernel(Params p) {
   }
 }
 
-enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+// ======================================== the tensor-core design (K3, K5)
+// bf16 and f16 only: wgmma on tiles that TMA brings into a ring of
+// 128-byte-swizzled shared-memory tiles (see the header note).
+namespace tc {
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// wait until the phase of parity `parity` of the barrier has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred done;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@done bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// one box of a 4-D tensor map, coordinates innermost first
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma matrix descriptor of a 128-byte-swizzled tile at `ptr`: lbo and
+// sbo in bytes (K-major: sbo = 1024, the stride of 8-row groups, lbo
+// unused; MN-major: lbo = the stride of 64-column chunks, sbo = 1024)
+__device__ __forceinline__ uint64_t desc(const void* ptr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((smem_u32(ptr) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads of wgmma registers across a wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Registers a thread of a warpgroup may hold: a block of two consumer
+// warpgroups and a producer warpgroup starts at 168 (65536 / 384); the
+// producer gives most of its share to the consumers' accumulators.
+constexpr int kProducerRegs = 24, kConsumerRegs = 240;
+template <bool INC, int N>
+__device__ __forceinline__ void set_max_regs() {
+  if (INC)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+  else
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi);
+template <>
+__device__ __forceinline__ uint32_t pack2<__nv_bfloat16>(float lo,
+                                                         float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+template <>
+__device__ __forceinline__ uint32_t pack2<__half>(float lo, float hi) {
+  __half2 v = __floats2half2_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// byte offset of 16-bit element (row, col) in a tile of `rows` rows kept
+// as D / 64 chunks of rows x 128 bytes, 128-byte swizzled: the layout
+// CU_TENSOR_MAP_SWIZZLE_128B gives each TMA box
+__device__ __forceinline__ uint32_t sw128(int row, int col, int rows) {
+  return (col >> 6) * rows * 128 + row * 128 +
+         ((((col & 63) >> 3) ^ (row & 7)) << 4) + ((col & 7) << 1);
+}
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  const uint32_t a = smem_u32(p);
+  return p + ((1024 - (a & 1023)) & 1023);
+}
+
+// Element i of an m64nN f32 accumulator of thread t (0..127) of a
+// warpgroup sits at row 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2),
+// column 8 (i / 4) + 2 (t % 4) + i % 2. Two consecutive elements (i
+// even) are one row's neighbours, and the eight elements 8c..8c+7 are
+// the m64k16 register fragment of columns 16c..16c+15 when packed in
+// pairs (pack2): P and dS feed the next product straight from registers.
+__device__ __forceinline__ int acc_row(int i, int t) {
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i, int t) {
+  return 8 * (i >> 2) + 2 * (t & 3) + (i & 1);
+}
+
+// A warpgroup's 64 x D accumulator, row r scaled by mul[(r / 8) % 2], as
+// T into rows [r0, r0 + 64) of a swizzled tile of `rows` rows, then
+// those rows out to rows [g0, g0 + 64) of the contiguous [B, L, H, D]
+// tensor `out` (rows past L are not written), 16 bytes a thread.
+template <typename T, int D>
+__device__ __forceinline__ void store_rows(const float (&acc)[D / 2],
+                                           const float (&mul)[2],
+                                           uint8_t* tile, int rows, int r0,
+                                           int wg, T* out, int b, int g0,
+                                           int L, int H, int h) {
+  const int t = threadIdx.x & 127;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = r0 + acc_row(i, t);
+    const float s = mul[(i >> 1) & 1];
+    *reinterpret_cast<uint32_t*>(tile + sw128(r, acc_col(i, t), rows)) =
+        pack2<T>(acc[i] * s, acc[i + 1] * s);
+  }
+  named_sync(1 + wg, 128);
+  constexpr int CPR = D / 8;  // 16-byte chunks in a row
+  for (int idx = t; idx < 64 * CPR; idx += 128) {
+    const int r = idx / CPR, c = (idx - r * CPR) * 8;
+    if (g0 + r >= L) break;  // rows ascend with idx
+    const uint4 v =
+        *reinterpret_cast<const uint4*>(tile + sw128(r0 + r, c, rows));
+    *reinterpret_cast<uint4*>(out + (((long long)b * L + g0 + r) * H + h) *
+                                        D + c) = v;
+  }
+}
+
+// ------------------------------------------------------- K3, forward
+// BM = 64 NWG query rows a block (a warpgroup of 64 rows each), BN keys
+// a tile (128; 64 at head dim 256), a ring of STAGES K/V tiles: as many
+// as shared memory holds (4, 3, 2 at head dims 64, 128, 256), so the
+// copies run ahead of a tile's products by more than a copy's latency.
+template <int D, int NWG>
+struct Fwd {
+  static constexpr int BM = 64 * NWG;
+  static constexpr int BN = D > 128 ? 64 : 128;
+  static constexpr int STAGES = D == 64 ? 4 : D == 128 ? 3 : 2;
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;  // one of K, V
+  static constexpr int THREADS = (NWG + 1) * 128;
+  static constexpr int SMEM =
+      1024 + Q_BYTES + STAGES * 2 * KV_BYTES + 8 * (1 + 2 * STAGES);
+};
+
+template <typename T, int D, int NWG>
+__global__ void __launch_bounds__(Fwd<D, NWG>::THREADS, 1)
+    fa_fwd_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const Params p) {
+  using C = Fwd<D, NWG>;
+  constexpr int BM = C::BM, BN = C::BN, S = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sQ = align1024(smem_raw);
+  uint8_t* sKV = sQ + C::Q_BYTES;  // stage s: K, then V
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sKV + S * 2 * C::KV_BYTES);
+  uint64_t* q_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + S;
+
+  // the q tiles of one (b, h) are neighbours in the grid, longest rows
+  // first: they run together and read its K/V tiles from L2
+  const int nq = (p.Lq + BM - 1) / BM;
+  const int bh = blockIdx.x / nq;
+  const int q0 = (nq - 1 - static_cast<int>(blockIdx.x - bh * nq)) * BM;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int nkt = key_tiles(p, q0, BM, BN);
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(empty + s, NWG * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == NWG) {  // the producer warpgroup: one thread issues every copy
+    if (NWG == 2) set_max_regs<false, kProducerRegs>();
+    if (threadIdx.x == NWG * 128) {
+      mbar_expect_tx(q_full, C::Q_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        tma_load(sQ + c * BM * 128, &tm_q, q_full, 64 * c, h, q0, b);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % S;
+        mbar_wait(empty + s, ((kt / S) & 1) ^ 1);
+        mbar_expect_tx(full + s, 2 * C::KV_BYTES);
+        uint8_t* sk = sKV + s * 2 * C::KV_BYTES;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sk + c * BN * 128, &tm_k, full + s, 64 * c, h, kt * BN,
+                   b);
+          tma_load(sk + C::KV_BYTES + c * BN * 128, &tm_v, full + s, 64 * c,
+                   h, kt * BN, b);
+        }
+      }
+    }
+    return;
+  }
+  if (NWG == 2) set_max_regs<true, kConsumerRegs>();
+  const int t = threadIdx.x & 127;
+  const int qw = q0 + 64 * wg;  // the warpgroup's first query
+  const int row_a = qw + acc_row(0, t);  // the thread's rows: +0 and +8
+  const int nkt_wg = qw < p.Lq ? key_tiles(p, qw, 64, BN) : 0;
+  const int off = p.Lk - p.Lq;
+  const float* brow =
+      p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const float* kv = p.kvec ? p.kvec + b * p.kvec_sb : nullptr;
+  uint32_t s0 = 0, s1 = 0;
+  if (p.dropout) {
+    s0 = static_cast<uint32_t>(p.seeds[0]);
+    s1 = static_cast<uint32_t>(p.seeds[1]);
+  }
+  const uint32_t hq[2] = {hash_q(s0, row_a), hash_q(s0, row_a + 8)};
+  const uint32_t bhm = static_cast<uint32_t>(bh) * 0x9E3779B9u;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+  for (int kt = 0; kt < nkt; ++kt) {
+    const int s = kt % S;
+    mbar_wait(full + s, (kt / S) & 1);
+    if (kt < nkt_wg) {
+      const uint8_t* sk = sKV + s * 2 * C::KV_BYTES;
+      const uint8_t* sv = sk + C::KV_BYTES;
+      float acc[BN / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk >> 2, ob = (kk & 3) * 32;
+        ptt::wg::SS<T, BN, 0>::run(
+            acc, desc(sQ + c * BM * 128 + wg * 64 * 128 + ob, 16, 1024),
+            desc(sk + c * BN * 128 + ob, 16, 1024), kk);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      // logits; -inf where masked. The per-element code
+      // is branch-free (a branch per element costs more than the rest);
+      // the masks run only on a tile that crosses an edge or carries a
+      // bias or kvec, a condition uniform over the warpgroup.
+      const int k0 = kt * BN;
+      const bool edge = k0 + BN > p.Lk || qw + 64 > p.Lq ||
+                        (p.causal && k0 + BN - 1 > qw + off);
+      if (edge || brow || kv) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int q = row_a + 8 * ((i >> 1) & 1);
+          const int k = k0 + acc_col(i, t);
+          const bool ok = q < p.Lq && k < p.Lk && (!p.causal || k <= q + off);
+          // clamped indices: every load is in bounds, masked ones unused
+          const int qc = min(q, p.Lq - 1), kc = min(k, p.Lk - 1);
+          float x = acc[i] * p.scale;
+          if (brow) x += __ldg(brow + qc * p.bias_sl + kc);
+          if (kv) x += __ldg(kv + kc);
+          acc[i] = ok ? x : -INFINITY;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] *= p.scale;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i)
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], acc[i]);
+      float mu[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(ptt::kFullMask, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(ptt::kFullMask, mx[r], 2));
+        const float mn = fmaxf(m[r], mx[r]);
+        mu[r] = mn == -INFINITY ? 0.f : mn;  // no key seen yet: p = 0
+        alpha[r] = exp2f((m[r] - mu[r]) * kLog2e);
+        m[r] = mn;
+      }
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) {
+        acc[i] = exp2f((acc[i] - mu[(i >> 1) & 1]) * kLog2e);
+        rs[(i >> 1) & 1] += acc[i];
+      }
+      if (p.dropout) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const bool kp = keep(hq[(i >> 1) & 1], hash_k(s1, k0 + acc_col(i, t)),
+                               bhm, p.thresh);
+          acc[i] = kp ? acc[i] * p.inv_keep : 0.f;
+        }
+      }
+      uint32_t pa[BN / 16][4];  // P_eff rounded to T
+#pragma unroll
+      for (int i = 0; i < BN / 2; i += 2)
+        pa[i >> 3][(i >> 1) & 3] = pack2<T>(acc[i], acc[i + 1]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BN / 16; ++kc)
+        ptt::wg::RS<T, D, 1>::run(o, pa[kc],
+                             desc(sv + kc * 16 * 128, BN * 128, 1024), 1);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(o);
+      fence_regs(pa);
+    }
+    mbar_arrive(empty + s);
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {  // l was summed over the thread's columns
+    l[r] += __shfl_xor_sync(ptt::kFullMask, l[r], 1);
+    l[r] += __shfl_xor_sync(ptt::kFullMask, l[r], 2);
+    inv[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+  if ((t & 3) == 0) {
+    float* lse = static_cast<float*>(p.out1) + (long long)bh * p.Lq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int q = row_a + 8 * r;
+      if (q < p.Lq)
+        lse[q] = m[r] == -INFINITY ? -INFINITY
+                                   : m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
+  }
+  // sQ's rows of this warpgroup are read by no one now: stage o there
+  store_rows<T, D>(o, inv, sQ, BM, 64 * wg, wg, static_cast<T*>(p.out0), b,
+                   qw, p.Lq, p.H, h);
+}
+
+// ------------------------------------------------------ K5, dk and dv
+// BK = 128 keys a block (two warpgroups of 64), BQ queries a tile (64;
+// 32 at head dim 128, where dK and dV take 128 registers a thread), a
+// ring of STAGES Q/dO tiles with their lse and di.
+template <int D>
+struct Dkv {
+  static constexpr int BK = 128;
+  static constexpr int BQ = D > 64 ? 32 : 64;
+  static constexpr int STAGES = 4;
+  static constexpr int KV_BYTES = BK * D * 2;  // one of K, V
+  static constexpr int QD_BYTES = BQ * D * 2;  // one of Q, dO
+  static constexpr int THREADS = 3 * 128;
+  static constexpr int SMEM = 1024 + 2 * KV_BYTES +
+                              STAGES * (2 * QD_BYTES + 2 * BQ * 4) +
+                              8 * (1 + 2 * STAGES);
+};
 
 template <typename T, int D>
-int launch(const Params& p, int which, cudaStream_t stream) {
+__global__ void __launch_bounds__(Dkv<D>::THREADS, 1)
+    fa_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do,
+                     const Params p) {
+  using C = Dkv<D>;
+  constexpr int BK = C::BK, BQ = C::BQ, S = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sK = align1024(smem_raw);
+  uint8_t* sV = sK + C::KV_BYTES;
+  uint8_t* sQD = sV + C::KV_BYTES;  // stage s: Q, then dO
+  float* sL = reinterpret_cast<float*>(sQD + S * 2 * C::QD_BYTES);  // [S][BQ]
+  float* sDi = sL + S * BQ;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(sDi + S * BQ);
+  uint64_t* kv_full = bars;
+  uint64_t* full = bars + 1;
+  uint64_t* empty = bars + 1 + S;
+
+  // the key tiles of one (b, h) are neighbours in the grid, low tiles
+  // (the most q tiles) first: they read its Q/dO tiles from L2
+  const int nkb = (p.Lk + BK - 1) / BK;
+  const int bh = blockIdx.x / nkb;
+  const int k0 = static_cast<int>(blockIdx.x - bh * nkb) * BK;
+  const int b = bh / p.H, h = bh - b * p.H;
+  const int nqt = (p.Lq + BQ - 1) / BQ;
+  const int off = p.Lk - p.Lq;
+  // the first q tile with a query that sees key k0: q + off >= k0
+  const int qt_first = p.causal && k0 - off > 0 ? (k0 - off) / BQ : 0;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + s, 32);
+      mbar_init(empty + s, 2 * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const int wg = threadIdx.x >> 7;
+  if (wg == 2) {  // the producer warpgroup's first warp: lse and di by its
+                  // lanes, every copy by one thread
+    set_max_regs<false, kProducerRegs>();
+    if (threadIdx.x >= 2 * 128 + 32) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_expect_tx(kv_full, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        tma_load(sK + c * BK * 128, &tm_k, kv_full, 64 * c, h, k0, b);
+        tma_load(sV + c * BK * 128, &tm_v, kv_full, 64 * c, h, k0, b);
+      }
+    }
+    for (int it = 0, qt = qt_first; qt < nqt; ++it, ++qt) {
+      const int s = it % S, q0 = qt * BQ;
+      mbar_wait(empty + s, ((it / S) & 1) ^ 1);
+      for (int j = lane; j < BQ; j += 32) {
+        const bool live = q0 + j < p.Lq;
+        const long long at = (long long)bh * p.Lq + q0 + j;
+        sL[s * BQ + j] = live ? p.lse[at] : 0.f;
+        sDi[s * BQ + j] = live ? p.di[at] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect_tx(full + s, 2 * C::QD_BYTES);
+        uint8_t* sq = sQD + s * 2 * C::QD_BYTES;
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          tma_load(sq + c * BQ * 128, &tm_q, full + s, 64 * c, h, q0, b);
+          tma_load(sq + C::QD_BYTES + c * BQ * 128, &tm_do, full + s,
+                   64 * c, h, q0, b);
+        }
+      } else {
+        mbar_arrive(full + s);
+      }
+    }
+    return;
+  }
+  set_max_regs<true, kConsumerRegs>();
+  const int t = threadIdx.x & 127;
+  const int kw = k0 + 64 * wg;  // the warpgroup's first key
+  const int key_a = kw + acc_row(0, t);  // the thread's keys: +0 and +8
+  // the first q tile that sees key kw; none when kw is past the keys
+  const int qt_wg = kw >= p.Lk ? nqt
+                               : (p.causal && kw - off > 0 ? (kw - off) / BQ
+                                                           : 0);
+  const float* brow =
+      p.bias ? p.bias + b * p.bias_sb + h * p.bias_sh : nullptr;
+  const float* kv = p.kvec ? p.kvec + b * p.kvec_sb : nullptr;
+  uint32_t s0 = 0, s1 = 0;
+  if (p.dropout) {
+    s0 = static_cast<uint32_t>(p.seeds[0]);
+    s1 = static_cast<uint32_t>(p.seeds[1]);
+  }
+  const uint32_t hk[2] = {hash_k(s1, key_a), hash_k(s1, key_a + 8)};
+  const uint32_t bhm = static_cast<uint32_t>(bh) * 0x9E3779B9u;
+  // kvec per key: the thread's two keys
+  float kvk[2] = {0.f, 0.f};
+  if (kv) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      kvk[r] = key_a + 8 * r < p.Lk ? __ldg(kv + key_a + 8 * r) : 0.f;
+  }
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(kv_full, 0);
+  for (int it = 0, qt = qt_first; qt < nqt; ++it, ++qt) {
+    const int s = it % S;
+    mbar_wait(full + s, (it / S) & 1);
+    if (qt >= qt_wg) {
+      const uint8_t* sq = sQD + s * 2 * C::QD_BYTES;
+      const uint8_t* sdo = sq + C::QD_BYTES;
+      float st[BQ / 2], dp[BQ / 2];  // S^T, dP^T: rows keys, columns queries
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk >> 2, ob = (kk & 3) * 32;
+        ptt::wg::SS<T, BQ, 0>::run(
+            st, desc(sK + c * BK * 128 + wg * 64 * 128 + ob, 16, 1024),
+            desc(sq + c * BQ * 128 + ob, 16, 1024), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int c = kk >> 2, ob = (kk & 3) * 32;
+        ptt::wg::SS<T, BQ, 0>::run(
+            dp, desc(sV + c * BK * 128 + wg * 64 * 128 + ob, 16, 1024),
+            desc(sdo + c * BQ * 128 + ob, 16, 1024), kk);
+      }
+      wg_commit();
+      wg_wait_all();
+      fence_regs(st);
+      fence_regs(dp);
+      const int q0 = qt * BQ;
+      const bool edge = kw + 64 > p.Lk || q0 + BQ > p.Lq ||
+                        (p.causal && kw + 63 > q0 + off);
+      const float* lse = sL + s * BQ;
+      const float* di = sDi + s * BQ;
+      // S^T -> P^T in place, branch-free per element (see K3); the masks
+      // only on a tile that crosses an edge or carries a bias
+      if (edge || brow) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int r = (i >> 1) & 1, key = key_a + 8 * r;
+          const int j = acc_col(i, t), q = q0 + j;
+          const bool ok = q < p.Lq && key < p.Lk &&
+                          (!p.causal || key <= q + off);
+          const int qc = min(q, p.Lq - 1), kc = min(key, p.Lk - 1);
+          float x = st[i] * p.scale + kvk[r];
+          if (brow) x += __ldg(brow + qc * p.bias_sl + kc);
+          st[i] = ok ? exp2f((x - lse[j]) * kLog2e) : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i)
+          st[i] = exp2f((st[i] * p.scale + kvk[(i >> 1) & 1] -
+                         lse[acc_col(i, t)]) * kLog2e);
+      }
+      // dS^T = P^T (dP_eff^T - di) scale into dp, P_eff^T into st
+      if (p.dropout) {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i) {
+          const int j = acc_col(i, t);
+          const bool kp = keep(hash_q(s0, q0 + j), hk[(i >> 1) & 1], bhm,
+                               p.thresh);
+          const float d = kp ? dp[i] * p.inv_keep : 0.f;
+          dp[i] = st[i] * (d - di[j]) * p.scale;
+          st[i] = kp ? st[i] * p.inv_keep : 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < BQ / 2; ++i)
+          dp[i] = st[i] * (dp[i] - di[acc_col(i, t)]) * p.scale;
+      }
+      // P_eff^T and dS^T rounded to T, the A operands of dV and dK
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int i = 0; i < BQ / 2; i += 2) {
+        pa[i >> 3][(i >> 1) & 3] = pack2<T>(st[i], st[i + 1]);
+        da[i >> 3][(i >> 1) & 3] = pack2<T>(dp[i], dp[i + 1]);
+      }
+      wg_fence();
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        ptt::wg::RS<T, D, 1>::run(dv, pa[kc],
+                             desc(sdo + kc * 16 * 128, BQ * 128, 1024), 1);
+#pragma unroll
+      for (int kc = 0; kc < BQ / 16; ++kc)
+        ptt::wg::RS<T, D, 1>::run(dk, da[kc],
+                             desc(sq + kc * 16 * 128, BQ * 128, 1024), 1);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+    }
+    mbar_arrive(empty + s);
+  }
+  // this warpgroup's rows of sK and sV are read by no one now
+  const float one[2] = {1.f, 1.f};
+  store_rows<T, D>(dk, one, sK, BK, 64 * wg, wg, static_cast<T*>(p.out0), b,
+                   kw, p.Lk, p.H, h);
+  store_rows<T, D>(dv, one, sV, BK, 64 * wg, wg, static_cast<T*>(p.out1), b,
+                   kw, p.Lk, p.H, h);
+}
+
+// ------------------------------------------------------------- host
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// the driver's cuTensorMapEncodeTiled, found at run time (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+template <typename T>
+CUtensorMapDataType map_type();
+template <>
+CUtensorMapDataType map_type<__nv_bfloat16>() {
+  return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+}
+template <>
+CUtensorMapDataType map_type<__half>() {
+  return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+}
+
+// A 4-D map over the strided [B, L, H, D] operand at `ptr` (dims
+// innermost first: D, H, L, B), boxes of 64 columns x `rows` rows of one
+// (b, h), 128-byte swizzled; rows past L read as zeros. The stride of an
+// axis of size 1 is never used and is replaced by a valid one.
+template <typename T>
+int make_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
+             long long sb, long long sl, long long sh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  L = L > 0 ? L : 1;  // an empty operand is never read
+  if (H == 1) sh = D;
+  if (L == 1) sl = (long long)H * sh;
+  if (B == 1) sb = (long long)L * sl;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(L),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh * 2),
+                                 static_cast<cuuint64_t>(sl * 2),
+                                 static_cast<cuuint64_t>(sb * 2)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, map_type<T>(), 4, const_cast<void*>(ptr), dims, strides, box,
+         unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename K>
+int prepare(K kern, int smem) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+}
+
+template <typename T, int D, int NWG>
+int launch_fwd(const Params& p, cudaStream_t stream) {
+  using C = Fwd<D, NWG>;
+  const long long blocks =
+      (long long)p.B * p.H * ((p.Lq + C::BM - 1) / C::BM);
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv;
+  int err = make_map<T>(&mq, p.q, p.B, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh,
+                        C::BM);
+  if (!err)
+    err = make_map<T>(&mk, p.k, p.B, p.Lk, p.H, D, p.k_sb, p.k_sl, p.k_sh,
+                      C::BN);
+  if (!err)
+    err = make_map<T>(&mv, p.v, p.B, p.Lk, p.H, D, p.v_sb, p.v_sl, p.v_sh,
+                      C::BN);
+  if (!err) err = prepare(fa_fwd_tc_kernel<T, D, NWG>, C::SMEM);
+  if (err) return err;
+  fa_fwd_tc_kernel<T, D, NWG>
+      <<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
+          mq, mk, mv, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int D>
+int launch_dkv(const Params& p, cudaStream_t stream) {
+  using C = Dkv<D>;
+  const long long blocks =
+      (long long)p.B * p.H * ((p.Lk + C::BK - 1) / C::BK);
+  if (blocks == 0) return 0;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap mq, mk, mv, mdo;
+  int err = make_map<T>(&mq, p.q, p.B, p.Lq, p.H, D, p.q_sb, p.q_sl, p.q_sh,
+                        C::BQ);
+  if (!err)
+    err = make_map<T>(&mdo, p.dout, p.B, p.Lq, p.H, D, p.do_sb, p.do_sl,
+                      p.do_sh, C::BQ);
+  if (!err)
+    err = make_map<T>(&mk, p.k, p.B, p.Lk, p.H, D, p.k_sb, p.k_sl, p.k_sh,
+                      C::BK);
+  if (!err)
+    err = make_map<T>(&mv, p.v, p.B, p.Lk, p.H, D, p.v_sb, p.v_sl, p.v_sh,
+                      C::BK);
+  if (!err) err = prepare(fa_dkv_tc_kernel<T, D>, C::SMEM);
+  if (err) return err;
+  fa_dkv_tc_kernel<T, D>
+      <<<static_cast<unsigned>(blocks), C::THREADS, C::SMEM, stream>>>(
+          mq, mk, mv, mdo, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+enum Which { kFwd = 0, kDq = 1, kDkv = 2 };
+// Params::design (the wrapper's `kernel_design`)
+enum Design { kCudaCores = 0, kTensorCores = 1 };
+
+// the CUDA-core design: f32 at every head dim, and K4 (and K5 at head
+// dim 256) in bf16 and f16
+template <typename T, int D, int W>
+int launch_cc(const Params& p, cudaStream_t stream) {
   constexpr int DP = D + 1;
   constexpr int TM = Tile<D>::TM, PS = Tile<D>::PS;
   const int nq = (p.Lq + TM - 1) / TM;
@@ -526,11 +1323,11 @@ int launch(const Params& p, int which, cudaStream_t stream) {
   void (*kern)(Params);
   size_t smem;
   long long blocks;
-  if (which == kFwd) {
+  if (W == kFwd) {
     kern = fa_fwd_kernel<T, D>;
     smem = (3 * TM * DP + TM * PS) * sizeof(float);
     blocks = bh * nq;
-  } else if (which == kDq) {
+  } else if (W == kDq) {
     kern = fa_dq_kernel<T, D>;
     smem = (4 * TM * DP + TM * PS) * sizeof(float);
     blocks = bh * nq;
@@ -549,14 +1346,55 @@ int launch(const Params& p, int which, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_d(const Params& p, int which, cudaStream_t s) {
+template <int W>
+int cc_f32(const Params& p, cudaStream_t s) {
   switch (p.D) {
-    case 64: return launch<T, 64>(p, which, s);
-    case 128: return launch<T, 128>(p, which, s);
-    case 256: return launch<T, 256>(p, which, s);
+    case 64: return launch_cc<float, 64, W>(p, s);
+    case 128: return launch_cc<float, 128, W>(p, s);
+    case 256: return launch_cc<float, 256, W>(p, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// bf16/f16 on the CUDA cores: K4 at every head dim, K5 at 256
+template <typename T>
+int cc_16(const Params& p, int which, cudaStream_t s) {
+  if (which == kDkv)
+    return p.D == 256 ? launch_cc<T, 256, kDkv>(p, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
+  if (which != kDq) return static_cast<int>(cudaErrorInvalidValue);
+  switch (p.D) {
+    case 64: return launch_cc<T, 64, kDq>(p, s);
+    case 128: return launch_cc<T, 128, kDq>(p, s);
+    case 256: return launch_cc<T, 256, kDq>(p, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// bf16/f16 on the tensor cores: K3 at head dims 64, 128, 256 (64-row
+// blocks when Lq <= 64), K5 at 64 and 128
+template <typename T>
+int tc_16(const Params& p, int which, cudaStream_t s) {
+  if (which == kFwd) {
+    const bool one = p.Lq <= 64;
+    switch (p.D) {
+      case 64: return one ? tc::launch_fwd<T, 64, 1>(p, s)
+                          : tc::launch_fwd<T, 64, 2>(p, s);
+      case 128: return one ? tc::launch_fwd<T, 128, 1>(p, s)
+                           : tc::launch_fwd<T, 128, 2>(p, s);
+      case 256: return one ? tc::launch_fwd<T, 256, 1>(p, s)
+                           : tc::launch_fwd<T, 256, 2>(p, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (which == kDkv) {
+    switch (p.D) {
+      case 64: return tc::launch_dkv<T, 64>(p, s);
+      case 128: return tc::launch_dkv<T, 128>(p, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int run(const void* params, int which, int dtype, int device,
@@ -565,10 +1403,18 @@ int run(const void* params, int which, int dtype, int device,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Params& p = *static_cast<const Params*>(params);
+  const bool tensor = p.design == kTensorCores;
   switch (dtype) {
-    case ptt::kF32: return dispatch_d<float>(p, which, s);
-    case ptt::kBF16: return dispatch_d<__nv_bfloat16>(p, which, s);
-    case ptt::kF16: return dispatch_d<__half>(p, which, s);
+    case ptt::kF32:
+      if (tensor) return static_cast<int>(cudaErrorInvalidValue);
+      return which == kFwd  ? cc_f32<kFwd>(p, s)
+             : which == kDq ? cc_f32<kDq>(p, s)
+                            : cc_f32<kDkv>(p, s);
+    case ptt::kBF16:
+      return tensor ? tc_16<__nv_bfloat16>(p, which, s)
+                    : cc_16<__nv_bfloat16>(p, which, s);
+    case ptt::kF16:
+      return tensor ? tc_16<__half>(p, which, s) : cc_16<__half>(p, which, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -577,6 +1423,8 @@ int run(const void* params, int which, int dtype, int device,
 
 // The three entries take a pointer to one Params (mirrored by a ctypes
 // Structure in ops/cuda/flash_attention.py); every output is contiguous.
+// A (dtype, head dim, kernel, design) that is not instantiated returns
+// cudaErrorInvalidValue.
 extern "C" int ptt_flash_fwd(const void* p, int dtype, int device,
                              void* stream) {
   return run(p, kFwd, dtype, device, stream);

@@ -29,7 +29,11 @@ Semantics, shared by the kernels and the plain versions:
 - lse = m + log(max(l, 1e-30)) per row, f32 [BH, Lq] (the TPU kernel's
   128-lane broadcast is a layout artefact and is not kept).
 - f32 arithmetic throughout; o, dq, dk, dv come back in the inputs'
-  dtype.
+  dtype. On the card's tensor-core design (`kernel_design`: K3 and K5
+  in bf16 and f16) P_eff, and K5's dS, are rounded to the inputs' dtype
+  before the second product, as the TPU kernel rounds them
+  (`flash_attention.py:218,383,394`); `fwd_rounding_allowance` and
+  `dkv_rounding_allowance` bound what that rounding can move.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. Each kernel counts its launches.
@@ -49,19 +53,40 @@ __all__ = ["flash_attention_blhd", "FlashAttentionBLHD",
            "flash_attention_bwd", "flash_attention_reference",
            "flash_dq_reference", "flash_dkv_reference", "flash_bwd_reference",
            "dropout_keep", "drop_threshold", "LAUNCHES", "reset_launches",
-           "HEAD_DIMS"]
+           "HEAD_DIMS", "TENSOR_CORES", "CUDA_CORES", "kernel_design",
+           "rounding_bound", "fwd_rounding_allowance",
+           "dkv_rounding_allowance"]
 
 # launches since the last reset_launches(), per kernel
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
 # head dims the kernels are instantiated for: the JAX route's
-# (`_use_pallas`); 64-row tiles at 64 and 128, 32-row tiles at 256
+# (`_use_pallas`)
 HEAD_DIMS = (64, 128, 256)
 _M32 = 0xFFFFFFFF
+# the two designs of csrc/flash_attention.cu (its `Design` enum):
+# wgmma on TMA-fed tiles, or scalar FMAs on f32 tiles
+TENSOR_CORES, CUDA_CORES = "tensor cores (wgmma, TMA)", "CUDA cores (f32)"
+_DESIGN_CODES = {CUDA_CORES: 0, TENSOR_CORES: 1}
 
 
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def kernel_design(dtype: torch.dtype, d: int) -> dict:
+    """{"fwd", "dq", "dkv": the design each kernel runs at this dtype and
+    head dim}. bf16 and f16 take the tensor cores for K3 (head dims 64,
+    128, 256) and K5 (64, 128); f32 stays on the CUDA cores (TF32 would
+    break its "highest" semantics), as do K4 and K5 at head dim 256
+    (whose dK and dV accumulators exceed a thread's registers)."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel: head dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if dtype not in (torch.bfloat16, torch.float16):
+        return dict.fromkeys(("fwd", "dq", "dkv"), CUDA_CORES)
+    return {"fwd": TENSOR_CORES, "dq": CUDA_CORES,
+            "dkv": TENSOR_CORES if d <= 128 else CUDA_CORES}
 
 
 # -- the dropout hash -------------------------------------------------------
@@ -214,6 +239,63 @@ def flash_bwd_reference(q, k, v, o, lse, do, bias=None, kvec=None,
     return (flash_dq_reference(*args), *flash_dkv_reference(*args))
 
 
+# -- what the tensor-core design's rounding may move ------------------------
+# unit roundoff and half the smallest subnormal of each operand dtype:
+# rounding x to the nearest value moves it by at most max(u |x|, eta)
+_ROUNDING = {torch.bfloat16: (2.0 ** -8, 2.0 ** -134),
+             torch.float16: (2.0 ** -11, 2.0 ** -25)}
+
+
+def rounding_bound(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per element, the most that one rounding of the values x to
+    `dtype` can move them: max(u |x|, eta), 0 where x is 0; 0 everywhere
+    for a dtype the kernels do not round to (f32)."""
+    if dtype not in _ROUNDING:
+        return torch.zeros_like(x)
+    u, eta = _ROUNDING[dtype]
+    return torch.where(x == 0, torch.zeros_like(x),
+                       torch.clamp(x.abs() * u, min=eta))
+
+
+def fwd_rounding_allowance(q, k, v, bias=None, kvec=None, seeds=None,
+                           causal=False, scale=None, dropout_p=0.0
+                           ) -> torch.Tensor:
+    """The per-element allowance of K3's o for rounding each P_eff to q's
+    dtype before P_eff . V: (rounding_bound(P_eff) @ |V|) / l, in f32
+    [B, Lq, H, D]; zeros in f32. P_eff relative to the final row max
+    bounds the kernel's rounding relative to a running max, which is
+    then scaled down by exp(m_run - m)."""
+    b, lq, h, d = q.shape
+    if q.dtype not in _ROUNDING:
+        return torch.zeros((b, lq, h, d), dtype=torch.float32,
+                           device=q.device)
+    s = _logits(q, k, bias, kvec, causal, _scale(q, scale))
+    m = _finite_or_zero(s.amax(dim=-1, keepdim=True))
+    p = torch.exp(s - m)
+    l1 = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    e = rounding_bound(_dropped(p, seeds, dropout_p), q.dtype) / l1
+    return torch.einsum("bhlm,bmhd->blhd", e, v.to(e.dtype).abs())
+
+
+def dkv_rounding_allowance(q, k, v, lse, di, do, bias=None, kvec=None,
+                           seeds=None, causal=False, scale=None,
+                           dropout_p=0.0) -> Tuple[torch.Tensor,
+                                                   torch.Tensor]:
+    """The per-element allowances of K5's (dk, dv) for rounding each dS
+    and P_eff to the operand dtype before dS^T . Q and P_eff^T . dO:
+    rounding_bound(dS)^T @ |Q| and rounding_bound(P_eff)^T @ |dO|, in
+    f32 [B, Lk, H, D]; zeros in f32."""
+    if q.dtype not in _ROUNDING:
+        z = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        return z, z.clone()
+    p, ds, dof = _recompute(q, k, v, lse, di, do, bias, kvec, seeds, causal,
+                            scale, dropout_p)
+    pe = rounding_bound(_dropped(p, seeds, dropout_p), q.dtype)
+    dk = torch.einsum("bhlm,blhd->bmhd", rounding_bound(ds, q.dtype),
+                      q.to(ds.dtype).abs())
+    return dk, torch.einsum("bhlm,blhd->bmhd", pe, dof.abs())
+
+
 # -- the kernels --------------------------------------------------------------
 class _Params(ctypes.Structure):
     """Mirror of `Params` in csrc/flash_attention.cu."""
@@ -227,7 +309,7 @@ class _Params(ctypes.Structure):
         + [(n, ctypes.c_int) for n in (
             "B", "H", "Lq", "Lk", "D", "causal", "dropout")]
         + [("thresh", ctypes.c_uint), ("inv_keep", ctypes.c_float),
-           ("scale", ctypes.c_float)])
+           ("scale", ctypes.c_float), ("design", ctypes.c_int)])
 
 
 def _strided(t: torch.Tensor) -> torch.Tensor:
@@ -307,6 +389,9 @@ def _params(q, k, v, bias, kvec, seeds, causal, scale, dropout_p):
 
 
 def _launch(entry: str, p: _Params, dev: torch.device, dtype):
+    which = {"ptt_flash_fwd": "fwd", "ptt_flash_dq": "dq",
+             "ptt_flash_dkv": "dkv"}[entry]
+    p.design = _DESIGN_CODES[kernel_design(dtype, p.D)[which]]
     lib = _build.load("flash_attention")
     err = getattr(lib, entry)(ctypes.addressof(p), _build.dtype_code(dtype),
                               dev.index, _build.stream_ptr(dev))

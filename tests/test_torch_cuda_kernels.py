@@ -32,7 +32,16 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # the other kernels against their plain versions, both computing in f32
 # from the same inputs: an f32 output within F32_TOL x (1 + max|ref|)
 # (summation order); a bf16 output, element by element, within BF16_ULPS
-# ulps of the reference element plus F32_TOL x max|ref|
+# ulps of the reference element plus F32_TOL x max|ref|; an f16 output
+# within BF16_ULPS f16 ulps plus the f32 rule's F32_TOL x (1 + max|ref|)
+# (f16 keeps three more bits than bf16, so where an output is what is
+# left of a cancellation, as dq with one key, the f32 summation noise of
+# the cancelled terms can pass two of its ulps). The tensor-core flash
+# kernels (K3, K5 in bf16 and f16) round P_eff and dS to the operand dtype
+# before their second product, as the TPU kernel does: their checks add,
+# per element, one such rounding carried through that product
+# (`tfa.fwd_rounding_allowance`, `tfa.dkv_rounding_allowance`; see
+# `_flash_extras`)
 F32_TOL, BF16_ULPS = 1e-5, 2
 
 
@@ -209,23 +218,32 @@ def test_engine_tokens_grouped_on_and_off_identical_on_the_card(cuda):
     assert tokens[True] == tokens[False]
 
 
-def _bf16_ulp(x):
+def _bf16_ulp(x, dtype=torch.bfloat16):
+    """The spacing of bf16 (or f16) values at |x| (0 at 0)."""
     _, e = torch.frexp(x.abs())
-    return torch.where(x == 0, torch.zeros_like(x),
-                       torch.ldexp(torch.ones_like(x), e - 8))
+    ulp = torch.ldexp(torch.ones_like(x), e - (8 if dtype == torch.bfloat16
+                                               else 11))
+    if dtype == torch.float16:   # subnormals: a fixed spacing
+        ulp = torch.clamp(ulp, min=2.0 ** -24)
+    return torch.where(x == 0, torch.zeros_like(x), ulp)
 
 
-def _close(got, want):
+def _close(got, want, extra=None):
     """got within F32_TOL / BF16_ULPS of want (see above), by got's
-    dtype."""
+    dtype, plus `extra` per element where a kernel states an
+    allowance."""
     dtype = got.dtype
     got, want = got.float(), want.float()
     assert torch.isfinite(got).all()
     ref_max = want.abs().max().item()
     if dtype == torch.bfloat16:
         allowed = BF16_ULPS * _bf16_ulp(want) + F32_TOL * ref_max
+    elif dtype == torch.float16:
+        allowed = BF16_ULPS * _bf16_ulp(want, dtype) + F32_TOL * (1 + ref_max)
     else:
         allowed = torch.full_like(want, F32_TOL * (1.0 + ref_max))
+    if extra is not None:
+        allowed = allowed + extra
     diff = (got - want).abs()
     assert (diff <= allowed).all(), (diff / allowed).max().item()
 
@@ -319,7 +337,53 @@ def _attn_case(cuda, dtype, d, lq, lk, masks, seed=0):
     return q, k, v, do, bias, kvec, seeds
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _flash_extras(q, k, v, o, lse, do, args):
+    """The tensor-core design's per-element allowances of (o, dq, dk,
+    dv) for rounding P_eff and dS to the operand dtype; None for a kernel
+    that runs on the CUDA cores at this dtype and head dim."""
+    design = tfa.kernel_design(q.dtype, q.shape[-1])
+    tc = {n: design[n] == tfa.TENSOR_CORES for n in design}
+    eo = tfa.fwd_rounding_allowance(q, k, v, *args) if tc["fwd"] else None
+    ek = ev = None
+    if tc["dkv"]:
+        ek, ev = tfa.dkv_rounding_allowance(q, k, v, lse, tfa._row_dot(o, do),
+                                            do, *args)
+    return eo, None, ek, ev
+
+
+def _close_lse(got, want):
+    """lse: -inf exactly where the plain version has it (a query that
+    sees no key), the f32 rule elsewhere."""
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isneginf(got), ~fin)
+    _close(got[fin], want[fin])
+
+
+def _check_flash(q, k, v, do, args):
+    """K3, K4 and K5 once each against their plain versions, with the
+    tensor-core allowances; returns (o, lse)."""
+    before = dict(tfa.LAUNCHES)
+    o, lse = tfa.flash_attention_fwd(q, k, v, *args)
+    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, *args)
+    torch.cuda.synchronize()
+    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == \
+        {"fwd": 1, "dq": 1, "dkv": 1}
+    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, *args)
+    eo, eq, ek, ev = _flash_extras(q, k, v, o, lse, do, args)
+    _close(o, o_ref, eo)
+    _close_lse(lse, lse_ref)
+    for got, want, extra in zip(
+            (dq, dk, dv), tfa.flash_bwd_reference(q, k, v, o, lse, do, *args),
+            (eq, ek, ev)):
+        assert got.dtype == q.dtype
+        _close(got, want, extra)
+    return o, lse, dq
+
+
+_FLASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
@@ -329,20 +393,66 @@ def test_flash_attention_kernels(cuda, dtype, d, causal, dropout_p, lq, lk,
                                  masks):
     q, k, v, do, bias, kvec, seeds = _attn_case(cuda, dtype, d, lq, lk,
                                                 masks)
-    args = (bias, kvec, seeds, causal, None, dropout_p)
-    before = dict(tfa.LAUNCHES)
+    _check_flash(q, k, v, do, (bias, kvec, seeds, causal, None, dropout_p))
+
+
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("lq,lk", [(1, 1), (1, 63), (63, 65), (65, 63),
+                                   (127, 129), (129, 127), (1024, 1024),
+                                   (129, 65)])
+def test_flash_attention_kernels_around_the_tile_heights(cuda, dtype, d,
+                                                         causal, lq, lk):
+    """Lq and Lk on either side of the 64-row warpgroup and the 128-row
+    block and key tiles; with Lq > Lk causal the first Lq - Lk queries
+    see no key: o 0, lse -inf and no gradient."""
+    q, k, v, do, _, _, seeds = _attn_case(cuda, dtype, d, lq, lk, False,
+                                          seed=lq + lk)
+    o, lse, dq = _check_flash(q, k, v, do, (None, None, seeds, causal,
+                                            None, 0.2))
+    if causal and lq > lk:
+        blind = slice(0, lq - lk)
+        assert not o[:, blind].any() and not dq[:, blind].any()
+        assert torch.isneginf(lse.view(2, 3, lq)[:, :, blind]).all()
+
+
+@pytest.mark.parametrize("d", [64, 128, 256])
+def test_tensor_core_flash_is_bit_reproducible(cuda, d):
+    """K3 and K5 in bf16 20 times on the same inputs: bit for bit the
+    same (K5's blocks own their keys: no atomics)."""
+    q, k, v, do, bias, kvec, seeds = _attn_case(cuda, torch.bfloat16, d, 300,
+                                                300, True)
+    args = (bias, kvec, seeds, True, None, 0.2)
     o, lse = tfa.flash_attention_fwd(q, k, v, *args)
-    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, *args)
-    torch.cuda.synchronize()
-    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
-    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, *args)
-    _close(o, o_ref)
-    _close(lse, lse_ref)
-    for got, want in zip((dq, dk, dv),
-                         tfa.flash_bwd_reference(q, k, v, o, lse, do, *args)):
-        assert got.dtype == dtype
-        _close(got, want)
+    di = tfa._row_dot(o, do)
+    dk, dv = tfa.flash_attention_dkv(q, k, v, lse, di, do, *args)
+    for _ in range(19):
+        o2, lse2 = tfa.flash_attention_fwd(q, k, v, *args)
+        dk2, dv2 = tfa.flash_attention_dkv(q, k, v, lse, di, do, *args)
+        assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
+
+
+def test_f32_flash_keeps_the_cuda_core_design(cuda):
+    """f32 runs the CUDA-core kernels, and the library refuses a
+    tensor-core launch in f32 (TF32 would break its "highest"
+    semantics): there is no other way to an f32 tensor-core launch."""
+    for d in tfa.HEAD_DIMS:
+        assert set(tfa.kernel_design(torch.float32, d).values()) == {
+            tfa.CUDA_CORES}
+    q, k, v, _, _, _, _ = _attn_case(cuda, torch.float32, 64, 70, 70, False)
+    p, keep = tfa._params(q, k, v, None, None, None, True, 0.125, 0.0)
+    o = torch.empty_like(q)
+    lse = torch.empty(6, 70, device=cuda)
+    p.out0, p.out1 = o.data_ptr(), lse.data_ptr()
+    p.design = tfa._DESIGN_CODES[tfa.TENSOR_CORES]
+    lib = tfa._build.load("flash_attention")
+    err = lib.ptt_flash_fwd(tfa.ctypes.addressof(p), 0, cuda.index,
+                            tfa._build.stream_ptr(cuda))
+    assert err != 0
+    _check_flash(q, k, v, torch.randn_like(q),
+                 (None, None, None, True, None, 0.0))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -367,25 +477,31 @@ def test_sdpa_sends_a_per_head_key_mask_to_the_kernels(cuda, dtype):
     bias = torch.where(mask, 0.0, -1e30).expand(b, h, l, l)
     o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, bias,
                                                    causal=True)
-    _close(out, o_ref)
+    args = (bias, None, None, True, None, 0.0)
+    extras = _flash_extras(q, k, v, out.detach(), lse_ref, do, args)
+    _close(out, o_ref, extras[0])
     want = tfa.flash_bwd_reference(q, k, v, out.detach(), lse_ref, do, bias,
                                    causal=True)
-    for leaf, w in zip(leaves, want):
-        _close(leaf.grad, w)
+    for leaf, w, extra in zip(leaves, want, extras[1:]):
+        _close(leaf.grad, w, extra)
 
 
-def test_flash_attention_reads_strided_views_in_place(cuda):
-    """GPT's q, k, v are per-head interleaved views of one QKV tensor:
-    the kernels read them through their strides and agree with the
-    contiguous copies."""
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_reads_strided_views_in_place(cuda, dtype, d):
+    """GPT's q, k, v are per-head interleaved views of one QKV tensor
+    (l stride 3 H D): the kernels read them through their strides (the
+    TMA maps of the tensor-core design included) and agree with the
+    contiguous copies bit for bit."""
     g = torch.Generator(device=cuda).manual_seed(3)
-    qkv = torch.randn(2, 130, 4, 3 * 64, generator=g, device=cuda
-                      ).to(torch.bfloat16).requires_grad_(True)
-    q, k, v = qkv.split(64, dim=-1)
+    qkv = torch.randn(2, 130, 4, 3 * d, generator=g, device=cuda
+                      ).to(dtype).requires_grad_(True)
+    q, k, v = qkv.split(d, dim=-1)
+    assert q.stride(1) == 3 * 4 * d and not q.is_contiguous()
     out = tfa.flash_attention_blhd(q, k, v, causal=True)
     out.float().square().sum().backward()
     qkv2 = qkv.detach().clone().requires_grad_(True)
-    q2, k2, v2 = (t.contiguous() for t in qkv2.split(64, dim=-1))
+    q2, k2, v2 = (t.contiguous() for t in qkv2.split(d, dim=-1))
     out2 = tfa.flash_attention_blhd(q2, k2, v2, causal=True)
     out2.float().square().sum().backward()
     torch.testing.assert_close(out, out2, rtol=0, atol=0)
@@ -698,14 +814,15 @@ def test_legacy_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
 
 
 # -- K3 on the serving paths, the gather arm and generate() ------------------
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
 @pytest.mark.parametrize("case", list(FLASH_SERVING_CASES))
 def test_flash_attention_at_the_serving_shapes(cuda, case, dtype):
     """K3 through the model's SDPA at every shape the serving paths give
     it: the legacy prefill chunks, the gather arm's step (a per-row
     window bias) and generate()'s prefill and decode step (the window as
-    a kvec at Lq 1). One launch; f32 against `_sdpa_ref`, bf16 against
-    `flash_attention_reference` on the same operand."""
+    a kvec at Lq 1). One launch; f32 against `_sdpa_ref`, bf16 and f16
+    against `flash_attention_reference` on the same operand with the
+    tensor-core allowance, and 20 runs bit for bit."""
     q, k, v, mask = flash_serving_batch(cuda, dtype, case)
     b, lq, h, _ = q.shape
     form, operand = _mask_to_kernel_operands(mask, b, h, lq, k.shape[1])
@@ -717,9 +834,13 @@ def test_flash_attention_at_the_serving_shapes(cuda, case, dtype):
     assert tfa.LAUNCHES["fwd"] == before + 1
     if dtype == torch.float32:
         _close(out, _sdpa_ref(q, k, v, mask, False, 0.125, 0.0, None))
-    else:
-        _close(out, tfa.flash_attention_reference(
-            q, k, v, **{form: operand})[0])
+        return
+    _close(out, tfa.flash_attention_reference(q, k, v, **{form: operand})[0],
+           tfa.fwd_rounding_allowance(q, k, v, **{form: operand}))
+    for _ in range(19):
+        again = PF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                training=False)
+        assert torch.equal(out, again)
 
 
 def test_gather_arm_and_generate_tokens_on_the_card_equal_the_cpu(cuda):
@@ -874,28 +995,17 @@ def test_unmasked_k6_is_untouched_by_the_mask_lane(cuda):
     assert torch.equal(tpa.ragged_paged_attention(*args, mask=zero), plain)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("lq,lk,masks", [(200, 200, False), (70, 130, True)])
 def test_flash_attention_kernels_at_head_dim_256(cuda, dtype, causal, lq, lk,
                                                  masks):
-    """K3-K5 at head dim 256 (32-row tiles) against their plain
-    versions, with dropout."""
+    """K3-K5 at head dim 256 against their plain versions, with dropout:
+    K3 on the tensor cores in bf16 and f16, K4 and K5 on the CUDA cores
+    (32-row tiles)."""
     q, k, v, do, bias, kvec, seeds = _attn_case(cuda, dtype, 256, lq, lk,
                                                 masks)
-    args = (bias, kvec, seeds, causal, None, 0.2)
-    before = dict(tfa.LAUNCHES)
-    o, lse = tfa.flash_attention_fwd(q, k, v, *args)
-    dq, dk, dv = tfa.flash_attention_bwd(q, k, v, o, lse, do, *args)
-    torch.cuda.synchronize()
-    assert {n: tfa.LAUNCHES[n] - before[n] for n in before} == \
-        {"fwd": 1, "dq": 1, "dkv": 1}
-    o_ref, lse_ref = tfa.flash_attention_reference(q, k, v, *args)
-    _close(o, o_ref)
-    _close(lse, lse_ref)
-    for got, want in zip((dq, dk, dv),
-                         tfa.flash_bwd_reference(q, k, v, o, lse, do, *args)):
-        _close(got, want)
+    _check_flash(q, k, v, do, (bias, kvec, seeds, causal, None, 0.2))
 
 
 @pytest.mark.parametrize("kv", ["fp", "int8"])
