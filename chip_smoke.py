@@ -15,8 +15,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    float and fp8 lanes, K8-q8; paged_decode_attention.cu: K9 and its fp8
    lane; flash_attention.cu: K3, K4, K5 at head dims 64, 128 and 256;
    lora_paged.cu: K11; greedy_argmax.cu: K12; one nvcc per source, all
-   at once) and print the build time and the card's name and power
-   limit;
+   at once) and print the build time, the card's name and power limit,
+   each library's register and spill report and each tensor-core flash
+   kernel's registers and spill stores;
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
    and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
@@ -48,12 +49,15 @@ Phases, each reported on its own line; any failure exits non-zero:
    generate()'s prefill and decode step (the window as a kvec at Lq 1),
    against `_sdpa_ref` (f32) and its plain version (bf16, f16). K3-K5 again
    at head dim 256 ([2, 1024, 4, 256], phase 6's step). K3-K5 run in
-   f32, bf16 and f16: in bf16 and f16 K3 (every head dim) and K5 (head
-   dims 64 and 128) take the tensor-core design (wgmma on TMA-fed tiles,
-   `tfa.kernel_design`, printed and recorded as `design`), held with one
-   rounding of each P_eff and dS to the operand dtype carried through
-   the second product on top of the ulp rule, and 20 repeats in bf16
-   must be bit-identical (at every serving shape too). The user-mask
+   f32, bf16 and f16: in bf16 and f16 all three take the tensor-core
+   design at every head dim (wgmma on TMA-fed tiles, K5 at head dim 256
+   in its split lane; `tfa.kernel_design`, printed and recorded as
+   `design`), held with one rounding of each P_eff and dS to the operand
+   dtype carried through the second product on top of the ulp rule, and
+   20 repeats of each in bf16 must be bit-identical (K3 at every serving
+   shape too); f32 stays on the CUDA cores. The backward's sum (K4 + K5
+   + the di row sum, a torch op) is timed beside SDPA's whole backward
+   (`backward_sum` in K4's record). The user-mask
    lane of K6 and K7 on the ragged serving batches (rep 1 and 2, an
    additive and a bool mask) against the plain versions, timed with
    the mask's bytes in the bound. K11 at the serving step's LoRA shapes
@@ -128,7 +132,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    K3 12 launches per decoded token, and the prefill's and the first
    decode step's logits against a plain f32 rerun on the CPU (0.1).
    Prints tokens/s;
-6. 2-layer GPTs (bf16) at head dim 256 (K3-K5 with 32-row tiles) and at
+6. 2-layer GPTs (bf16) at head dim 256 (K3-K5 on the tensor cores) and at
    head dim 32 (the plain `_sdpa_ref` route, as the JAX package takes
    it): the legacy step and the gather arm serve 8 prompts, generate()
    decodes, one train step runs; the route is checked by the launches
@@ -183,10 +187,11 @@ PREEMPT_PAGES, PREEMPT_PROMPT, PREEMPT_BURST = 16 * 40 + 1, 560, 4
 # output: BF16_ULPS f16 ulps plus the f32 rule's F32_TOL x (1 + max|ref|)
 # (f16 keeps three more bits, so an output that is what is left of a
 # cancellation can carry more than two ulps of f32 noise). The
-# tensor-core flash kernels (K3, K5 in bf16 and f16) round P_eff and dS
-# to the operand dtype before their second product, as the TPU kernel
+# tensor-core flash kernels (K3, K4, K5 in bf16 and f16) round P_eff and
+# dS to the operand dtype before their second product, as the TPU kernel
 # does: their check adds, per element, one such rounding carried through
-# that product (`tfa.fwd_rounding_allowance`, `tfa.dkv_rounding_allowance`)
+# that product (`tfa.fwd_rounding_allowance`, `tfa.dq_rounding_allowance`,
+# `tfa.dkv_rounding_allowance`)
 F32_TOL, BF16_ULPS = 1e-5, 2
 # the flash kernels' bit-repeat check: runs that must equal the first
 FLASH_REPEATS = 20
@@ -210,8 +215,8 @@ GENERATE = dict(batch=8, prompt=128, new=32)
 # (4 adapters of rank 4, numpy seed 0; tenants zipf over {base, 1..4},
 # the first four requests one per adapter) at amplitude 0.05
 LORA = dict(adapters=4, rank=4, amp=0.05)
-# phase 6: 2-layer GPTs at head dims the flash kernels take (256: 32-row
-# tiles) and do not take (32: the plain `_sdpa_ref` route), bf16
+# phase 6: 2-layer GPTs at head dims the flash kernels take (256) and do
+# not take (32: the plain `_sdpa_ref` route), bf16
 HEAD_DIM_GPTS = {
     256: dict(vocab_size=50304, hidden_size=1024, num_hidden_layers=2,
               num_attention_heads=4, max_position_embeddings=1024),
@@ -270,6 +275,33 @@ class DeviceTimer:
             raise AssertionError(f"enqueue took {host[0]:.1f} ms, longer "
                                  f"than the {self.sleep_ms:.1f} ms sleep")
         return ms / iters
+
+
+def tensor_core_ptxas(text: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each tensor-core flash
+    instantiation in the `-Xptxas -v` log of flash_attention.cu, named
+    like `fa_dq_tc_kernel<bf16, 64>` (K3's with its warpgroup count)."""
+    rows, cur = [], None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            cur = m.group(1) if "_tc_kernel" in m.group(1) else None
+            spill = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if cur and m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m and spill is not None:
+            kind = re.search(r"(fa_\w+?_tc_kernel)I(\w+?)Li(\d+)E(?:Li(\d)E)?",
+                             cur)
+            dtype = "bf16" if "bfloat16" in kind.group(2) else "f16"
+            args = [dtype, kind.group(3)] + ([kind.group(4)] if kind.group(4)
+                                             else [])
+            rows.append((f"{kind.group(1)}<{', '.join(args)}>",
+                         int(m.group(1)), spill))
+            cur = None
+    return rows
 
 
 def bound(n_bytes: float, n_ops: float, peak_ops: float):
@@ -418,10 +450,11 @@ ROUNDING_RULE = ("+ one rounding of each {} to the operand dtype, carried "
 
 def check_flash_attention(dev, tfa, time_ms, shape=None):
     """K3, K4 and K5 at the training step's shapes (or `shape`, [B, L, H,
-    D]), causal: each against its plain version in f32, bf16 and f16 (K3
-    and K5 in bf16 and f16 with the tensor-core design's rounding
-    allowance), K3 and K5 FLASH_REPEATS times in bf16 bit for bit, then
-    timed in bf16."""
+    D]), causal: each against its plain version in f32, bf16 and f16 (in
+    bf16 and f16 with the tensor-core design's rounding allowance), each
+    FLASH_REPEATS times in bf16 bit for bit, then timed in bf16, with
+    the backward's sum (K4 + K5 + the di row sum) beside SDPA's whole
+    backward."""
     b, l = TRAIN["batch"], TRAIN["seq"]
     h = GPT124M["num_attention_heads"]
     d = GPT124M["hidden_size"] // h
@@ -453,7 +486,10 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
         dq = tfa.flash_attention_dq(*args, causal=True)
         torch.cuda.synchronize()
         e4 = check_close(f"K4 flash dq {tag}", dq,
-                         tfa.flash_dq_reference(*args, causal=True))
+                         tfa.flash_dq_reference(*args, causal=True),
+                         extra=tfa.dq_rounding_allowance(*args, causal=True)
+                         if rounds else None,
+                         extra_rule=ROUNDING_RULE.format("dS", "dS . K"))
         dk, dv = tfa.flash_attention_dkv(*args, causal=True)
         torch.cuda.synchronize()
         dk_ref, dv_ref = tfa.flash_dkv_reference(*args, causal=True)
@@ -469,17 +505,20 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
         if dtype == torch.bfloat16:
             same_bits(f"K3 {tag}", lambda: tfa.flash_attention_fwd(
                 q, k, v, causal=True))
+            same_bits(f"K4 {tag}", lambda: (tfa.flash_attention_dq(
+                *args, causal=True),))
             same_bits(f"K5 {tag}", lambda: tfa.flash_attention_dkv(
                 *args, causal=True))
-            timed = (q, k, v, do, args)
+            timed = (q, k, v, o, do, args)
         errs[dtype] = (e3, e4, e5)
         torch.cuda.empty_cache()
-    q, k, v, do, args = timed
+    q, k, v, o, do, args = timed
     # timing in bf16; the library yardstick is SDPA on [B, H, L, D]
     fwd = lambda: tfa.flash_attention_fwd(q, k, v, causal=True)
     dq_k = lambda: tfa.flash_attention_dq(*args, causal=True)
     dkv_k = lambda: tfa.flash_attention_dkv(*args, causal=True)
     ms = [time_ms(f, iters=5) for f in (fwd, dq_k, dkv_k)]
+    di_ms = time_ms(lambda: tfa._row_dot(o, do), iters=5)
     plain_ms = [time_ms(f, iters=3) for f in (
         lambda: tfa.flash_attention_reference(q, k, v, causal=True),
         lambda: tfa.flash_dq_reference(*args, causal=True),
@@ -520,6 +559,14 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
             library_ms=lib[i],
             library_call=("F.scaled_dot_product_attention(is_causal=True)"
                           if i == 0 else "its backward: dq, dk, dv")))
+    # SDPA's backward computes dq, dk and dv together: the fair match is
+    # the port's whole backward, di = rowsum(o * dO) (a torch op) and K4, K5
+    total = ms[1] + ms[2] + di_ms
+    recs[1]["backward_sum"] = dict(K4=ms[1], K5=ms[2], di=di_ms, sum=total,
+                                   sdpa_backward=lib_bwd)
+    log(f"  backward bf16 [{b}, {l}, {h}, {d}] causal: K4 {ms[1]:.4f} + K5 "
+        f"{ms[2]:.4f} + di row sum {di_ms:.4f} = {total:.4f} ms against "
+        f"SDPA backward {lib_bwd:.4f} ms")
     return recs
 
 
@@ -2275,6 +2322,10 @@ def main() -> int:
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers, {sum(int(n) > 0 for n in spills)} with spill stores")
+        if name == "flash_attention":
+            for kernel, n_regs, spill in tensor_core_ptxas(text):
+                log(f"    {kernel}: {n_regs} registers at launch, {spill} "
+                    "bytes of spill stores")
 
     log("phase 2 kernels vs plain versions:")
     timer = DeviceTimer()
@@ -2282,12 +2333,13 @@ def main() -> int:
                "K2": check_layer_norm_bwd(dev, tln, timer)}
     kernels.update(zip(("K3", "K4", "K5"),
                        check_flash_attention(dev, tfa, timer)))
-    # head dim 256 (32-row tiles): the shapes of phase 6's GPT step
+    # head dim 256: the shapes of phase 6's GPT step
     for key, rec in zip(("K3", "K4", "K5"), check_flash_attention(
             dev, tfa, timer, shape=D256_FLASH)):
         kernels[key]["head_dim_256"] = {
             k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms")}
+                                "bound_by", "library_ms", "backward_sum")
+            if k in rec}
     torch.cuda.empty_cache()
     for lane in ("fp", "fp8", "q8"):
         kernels[WALKS["K6", lane][0]] = check_paged_attention(

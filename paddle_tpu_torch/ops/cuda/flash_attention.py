@@ -29,11 +29,12 @@ Semantics, shared by the kernels and the plain versions:
 - lse = m + log(max(l, 1e-30)) per row, f32 [BH, Lq] (the TPU kernel's
   128-lane broadcast is a layout artefact and is not kept).
 - f32 arithmetic throughout; o, dq, dk, dv come back in the inputs'
-  dtype. On the card's tensor-core design (`kernel_design`: K3 and K5
-  in bf16 and f16) P_eff, and K5's dS, are rounded to the inputs' dtype
+  dtype. On the card's tensor-core design (`kernel_design`: K3, K4 and
+  K5 in bf16 and f16) P_eff and dS are rounded to the inputs' dtype
   before the second product, as the TPU kernel rounds them
-  (`flash_attention.py:218,383,394`); `fwd_rounding_allowance` and
-  `dkv_rounding_allowance` bound what that rounding can move.
+  (`flash_attention.py:218,304,383,394`); `fwd_rounding_allowance`,
+  `dq_rounding_allowance` and `dkv_rounding_allowance` bound what that
+  rounding can move.
 
 A CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises. Each kernel counts its launches.
@@ -55,7 +56,7 @@ __all__ = ["flash_attention_blhd", "FlashAttentionBLHD",
            "dropout_keep", "drop_threshold", "LAUNCHES", "reset_launches",
            "HEAD_DIMS", "TENSOR_CORES", "CUDA_CORES", "kernel_design",
            "rounding_bound", "fwd_rounding_allowance",
-           "dkv_rounding_allowance"]
+           "dq_rounding_allowance", "dkv_rounding_allowance"]
 
 # launches since the last reset_launches(), per kernel
 LAUNCHES = {"fwd": 0, "dq": 0, "dkv": 0}
@@ -76,17 +77,16 @@ def reset_launches():
 
 def kernel_design(dtype: torch.dtype, d: int) -> dict:
     """{"fwd", "dq", "dkv": the design each kernel runs at this dtype and
-    head dim}. bf16 and f16 take the tensor cores for K3 (head dims 64,
-    128, 256) and K5 (64, 128); f32 stays on the CUDA cores (TF32 would
-    break its "highest" semantics), as do K4 and K5 at head dim 256
-    (whose dK and dV accumulators exceed a thread's registers)."""
+    head dim}. bf16 and f16 take the tensor cores in K3, K4 and K5 at
+    every head dim; f32 stays on the CUDA cores (TF32 would break its
+    "highest" semantics). The library has no other instantiation: a
+    launch with another design fails, it is never rerouted."""
     if d not in HEAD_DIMS:
         raise ValueError(f"flash attention kernel: head dim {d} not in "
                          f"{HEAD_DIMS}")
-    if dtype not in (torch.bfloat16, torch.float16):
-        return dict.fromkeys(("fwd", "dq", "dkv"), CUDA_CORES)
-    return {"fwd": TENSOR_CORES, "dq": CUDA_CORES,
-            "dkv": TENSOR_CORES if d <= 128 else CUDA_CORES}
+    design = (TENSOR_CORES if dtype in (torch.bfloat16, torch.float16)
+              else CUDA_CORES)
+    return dict.fromkeys(("fwd", "dq", "dkv"), design)
 
 
 # -- the dropout hash -------------------------------------------------------
@@ -275,6 +275,20 @@ def fwd_rounding_allowance(q, k, v, bias=None, kvec=None, seeds=None,
     l1 = torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
     e = rounding_bound(_dropped(p, seeds, dropout_p), q.dtype) / l1
     return torch.einsum("bhlm,bmhd->blhd", e, v.to(e.dtype).abs())
+
+
+def dq_rounding_allowance(q, k, v, lse, di, do, bias=None, kvec=None,
+                          seeds=None, causal=False, scale=None,
+                          dropout_p=0.0) -> torch.Tensor:
+    """The per-element allowance of K4's dq for rounding each dS to the
+    operand dtype before dS . K: rounding_bound(dS) @ |K|, in f32
+    [B, Lq, H, D]; zeros in f32."""
+    if q.dtype not in _ROUNDING:
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    _, ds, _ = _recompute(q, k, v, lse, di, do, bias, kvec, seeds, causal,
+                          scale, dropout_p)
+    return torch.einsum("bhlm,bmhd->blhd", rounding_bound(ds, q.dtype),
+                        k.to(ds.dtype).abs())
 
 
 def dkv_rounding_allowance(q, k, v, lse, di, do, bias=None, kvec=None,

@@ -37,11 +37,11 @@ TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5),
 # (f16 keeps three more bits than bf16, so where an output is what is
 # left of a cancellation, as dq with one key, the f32 summation noise of
 # the cancelled terms can pass two of its ulps). The tensor-core flash
-# kernels (K3, K5 in bf16 and f16) round P_eff and dS to the operand dtype
-# before their second product, as the TPU kernel does: their checks add,
-# per element, one such rounding carried through that product
-# (`tfa.fwd_rounding_allowance`, `tfa.dkv_rounding_allowance`; see
-# `_flash_extras`)
+# kernels (K3, K4, K5 in bf16 and f16) round P_eff and dS to the operand
+# dtype before their second product, as the TPU kernel does: their checks
+# add, per element, one such rounding carried through that product
+# (`tfa.fwd_rounding_allowance`, `tfa.dq_rounding_allowance`,
+# `tfa.dkv_rounding_allowance`; see `_flash_extras`)
 F32_TOL, BF16_ULPS = 1e-5, 2
 
 
@@ -344,11 +344,12 @@ def _flash_extras(q, k, v, o, lse, do, args):
     design = tfa.kernel_design(q.dtype, q.shape[-1])
     tc = {n: design[n] == tfa.TENSOR_CORES for n in design}
     eo = tfa.fwd_rounding_allowance(q, k, v, *args) if tc["fwd"] else None
+    bwd = (q, k, v, lse, tfa._row_dot(o, do), do, *args)
+    eq = tfa.dq_rounding_allowance(*bwd) if tc["dq"] else None
     ek = ev = None
     if tc["dkv"]:
-        ek, ev = tfa.dkv_rounding_allowance(q, k, v, lse, tfa._row_dot(o, do),
-                                            do, *args)
-    return eo, None, ek, ev
+        ek, ev = tfa.dkv_rounding_allowance(*bwd)
+    return eo, eq, ek, ev
 
 
 def _close_lse(got, want):
@@ -384,7 +385,7 @@ _FLASH_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
 @pytest.mark.parametrize("dtype", _FLASH_DTYPES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("dropout_p", [0.0, 0.2])
 @pytest.mark.parametrize("lq,lk,masks", [(200, 200, False), (70, 130, False),
@@ -397,16 +398,16 @@ def test_flash_attention_kernels(cuda, dtype, d, causal, dropout_p, lq, lk,
 
 
 @pytest.mark.parametrize("dtype", _FLASH_DTYPES)
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 256])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("lq,lk", [(1, 1), (1, 63), (63, 65), (65, 63),
                                    (127, 129), (129, 127), (1024, 1024),
                                    (129, 65)])
 def test_flash_attention_kernels_around_the_tile_heights(cuda, dtype, d,
                                                          causal, lq, lk):
-    """Lq and Lk on either side of the 64-row warpgroup and the 128-row
-    block and key tiles; with Lq > Lk causal the first Lq - Lk queries
-    see no key: o 0, lse -inf and no gradient."""
+    """Lq and Lk on either side of the 64-row warpgroup and the 64- and
+    128-row blocks and key tiles; with Lq > Lk causal the first Lq - Lk
+    queries see no key: o 0, lse -inf and no gradient."""
     q, k, v, do, _, _, seeds = _attn_case(cuda, dtype, d, lq, lk, False,
                                           seed=lq + lk)
     o, lse, dq = _check_flash(q, k, v, do, (None, None, seeds, causal,
@@ -419,18 +420,22 @@ def test_flash_attention_kernels_around_the_tile_heights(cuda, dtype, d,
 
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_tensor_core_flash_is_bit_reproducible(cuda, d):
-    """K3 and K5 in bf16 20 times on the same inputs: bit for bit the
-    same (K5's blocks own their keys: no atomics)."""
+    """K3, K4 and K5 in bf16 20 times on the same inputs: bit for bit the
+    same (K4's blocks own their queries and K5's their keys: no
+    atomics)."""
     q, k, v, do, bias, kvec, seeds = _attn_case(cuda, torch.bfloat16, d, 300,
                                                 300, True)
     args = (bias, kvec, seeds, True, None, 0.2)
     o, lse = tfa.flash_attention_fwd(q, k, v, *args)
     di = tfa._row_dot(o, do)
+    dq = tfa.flash_attention_dq(q, k, v, lse, di, do, *args)
     dk, dv = tfa.flash_attention_dkv(q, k, v, lse, di, do, *args)
     for _ in range(19):
         o2, lse2 = tfa.flash_attention_fwd(q, k, v, *args)
+        dq2 = tfa.flash_attention_dq(q, k, v, lse, di, do, *args)
         dk2, dv2 = tfa.flash_attention_dkv(q, k, v, lse, di, do, *args)
         assert torch.equal(o, o2) and torch.equal(lse, lse2)
+        assert torch.equal(dq, dq2)
         assert torch.equal(dk, dk2) and torch.equal(dv, dv2)
 
 
@@ -453,6 +458,25 @@ def test_f32_flash_keeps_the_cuda_core_design(cuda):
     assert err != 0
     _check_flash(q, k, v, torch.randn_like(q),
                  (None, None, None, True, None, 0.0))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_16_bit_flash_has_no_cuda_core_lane(cuda, dtype):
+    """bf16 and f16 have no CUDA-core instantiation left: a launch that
+    asks for one is refused by every entry, never rerouted."""
+    q, k, v, do, _, _, _ = _attn_case(cuda, dtype, 64, 70, 70, False)
+    lse = torch.zeros(6, 70, device=cuda)
+    p, keep = tfa._bwd_params(q, k, v, lse, lse, do, None, None, None, True,
+                              0.125, 0.0)
+    out0, out1 = torch.empty_like(q), torch.empty_like(q)
+    p.out0, p.out1 = out0.data_ptr(), out1.data_ptr()
+    p.design = tfa._DESIGN_CODES[tfa.CUDA_CORES]
+    lib = tfa._build.load("flash_attention")
+    for entry in ("ptt_flash_fwd", "ptt_flash_dq", "ptt_flash_dkv"):
+        err = getattr(lib, entry)(tfa.ctypes.addressof(p),
+                                  tfa._build.dtype_code(dtype), cuda.index,
+                                  tfa._build.stream_ptr(cuda))
+        assert err != 0, entry
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1001,8 +1025,8 @@ def test_unmasked_k6_is_untouched_by_the_mask_lane(cuda):
 def test_flash_attention_kernels_at_head_dim_256(cuda, dtype, causal, lq, lk,
                                                  masks):
     """K3-K5 at head dim 256 against their plain versions, with dropout:
-    K3 on the tensor cores in bf16 and f16, K4 and K5 on the CUDA cores
-    (32-row tiles)."""
+    on the tensor cores in bf16 and f16 (K4 in 64-row blocks, K5's split
+    lane), on the CUDA cores in f32 (32-row tiles)."""
     q, k, v, do, bias, kvec, seeds = _attn_case(cuda, dtype, 256, lq, lk,
                                                 masks)
     _check_flash(q, k, v, do, (bias, kvec, seeds, causal, None, 0.2))

@@ -19,13 +19,9 @@ CU = (_build.CSRC / "flash_attention.cu").read_text()
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [64, 128, 256])
 def test_16_bit_flash_takes_the_tensor_cores(dtype, d):
-    design = tfa.kernel_design(dtype, d)
-    assert design["fwd"] == tfa.TENSOR_CORES
-    # K5's dK and dV accumulators of 64 keys x 256 exceed a thread's
-    # registers: head dim 256 keeps the CUDA-core K5
-    assert design["dkv"] == (tfa.TENSOR_CORES if d <= 128
-                             else tfa.CUDA_CORES)
-    assert design["dq"] == tfa.CUDA_CORES   # K4 is not redesigned
+    # K3, K4 and K5 at every head dim (K5's split lane at 256)
+    assert tfa.kernel_design(dtype, d) == dict.fromkeys(
+        ("fwd", "dq", "dkv"), tfa.TENSOR_CORES)
 
 
 @pytest.mark.parametrize("d", [64, 128, 256])
@@ -75,10 +71,10 @@ def test_design_codes_match_the_cu_enum():
 
 
 @pytest.mark.parametrize("dtype,d,want", [
-    (torch.bfloat16, 64, {"ptt_flash_fwd": 1, "ptt_flash_dq": 0,
+    (torch.bfloat16, 64, {"ptt_flash_fwd": 1, "ptt_flash_dq": 1,
                           "ptt_flash_dkv": 1}),
-    (torch.float16, 256, {"ptt_flash_fwd": 1, "ptt_flash_dq": 0,
-                          "ptt_flash_dkv": 0}),
+    (torch.float16, 256, {"ptt_flash_fwd": 1, "ptt_flash_dq": 1,
+                          "ptt_flash_dkv": 1}),
     (torch.float32, 64, {"ptt_flash_fwd": 0, "ptt_flash_dq": 0,
                          "ptt_flash_dkv": 0})])
 def test_the_wrapper_passes_its_design_to_each_entry(monkeypatch, dtype, d,
@@ -115,6 +111,8 @@ def test_rounding_allowance_is_zero_in_f32():
     di = tfa._row_dot(o, do)
     for a in tfa.dkv_rounding_allowance(q, k, v, lse, di, do, causal=True):
         assert a.shape == k.shape and not a.any()
+    eq = tfa.dq_rounding_allowance(q, k, v, lse, di, do, causal=True)
+    assert eq.shape == q.shape and not eq.any()
     assert not tfa.rounding_bound(torch.randn(5), torch.float32).any()
 
 
@@ -193,4 +191,78 @@ def test_dkv_allowance_bounds_rounding_p_and_ds(dtype, causal):
                              (dv_round, dv_exact, ev)):
         diff = (got - want).abs()
         assert (diff <= extra + 1e-6 * want.abs().max()).all()
+        assert diff.max() > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dq_allowance_bounds_rounding_ds(dtype, causal):
+    """K4 on the tensor cores rounds dS to the operand dtype before
+    dS . K: the allowance bounds a hand rounding of dS, which does move
+    dq."""
+    q, k, v, do = _case(dtype, 30, 24, seed=4)
+    o, lse = tfa.flash_attention_reference(q, k, v, causal=causal)
+    di = tfa._row_dot(o, do)
+    args = (q, k, v, lse, di, do, None, None, None, causal, None, 0.0)
+    _, ds, _ = tfa._recompute(*args)
+    exact = torch.einsum("bhlm,bmhd->blhd", ds, k.float())
+    rounded = torch.einsum("bhlm,bmhd->blhd", ds.to(dtype).float(),
+                           k.float())
+    extra = tfa.dq_rounding_allowance(*args)
+    assert extra.shape == q.shape and extra.dtype == torch.float32
+    diff = (rounded - exact).abs()
+    assert (diff <= extra + 1e-6 * exact.abs().max()).all()
+    assert diff.max() > 0     # the rounding did move dq
+
+
+def _emulated_k5_split(q, k, v, lse, di, do, causal, bq, dropout_p=0.0,
+                       seeds=None):
+    """The split lane of K5 (head dim 256) in f32, query tile by query
+    tile of `bq` queries: P^T in f32 (what warpgroup 0 hands over), dS^T
+    and P_eff^T rounded to q's dtype before dK += dS^T Q and dV +=
+    P_eff^T dO, summed over the tiles."""
+    b, lq, h, d = q.shape
+    scale = 1.0 / d ** 0.5
+    s = tfa._logits(q, k, None, None, causal, scale)
+    fin = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.exp(s - fin.view(b, h, lq, 1))           # masked: 0
+    dp = torch.einsum("blhd,bmhd->bhlm", do.float(), v.float())
+    dp_eff = tfa._dropped(dp, seeds, dropout_p)
+    p_eff = tfa._dropped(p, seeds, dropout_p)
+    ds = p * (dp_eff - di.view(b, h, lq, 1)) * scale
+    dk = torch.zeros(b, k.shape[1], h, d)
+    dv = torch.zeros_like(dk)
+    for q0 in range(0, lq, bq):
+        rows = slice(q0, q0 + bq)
+        dk += torch.einsum("bhlm,blhd->bmhd", ds[:, :, rows].to(q.dtype)
+                           .float(), q[:, rows].float())
+        dv += torch.einsum("bhlm,blhd->bmhd", p_eff[:, :, rows].to(q.dtype)
+                           .float(), do[:, rows].float())
+    return dk, dv
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal,dropout_p", [(False, 0.0), (True, 0.0),
+                                              (True, 0.2)])
+def test_k5_split_lane_within_the_dkv_allowance(dtype, causal, dropout_p):
+    """K5's head-dim-256 design, emulated on the CPU (P in f32, dS and
+    P_eff rounded per query tile), agrees with flash_dkv_reference within
+    dkv_rounding_allowance; with Lq > Lk causal the blind queries add
+    nothing."""
+    q, k, v, do = _case(dtype, 70, 50, seed=5, d=256, h=1)
+    seeds = torch.tensor([-123456789, 987654321], dtype=torch.int32)
+    o, lse = tfa.flash_attention_reference(q, k, v, None, None, seeds,
+                                           causal, None, dropout_p)
+    di = tfa._row_dot(o, do)
+    args = (q, k, v, lse, di, do, None, None, seeds, causal, None,
+            dropout_p)
+    exact = [t.float() for t in tfa.flash_dkv_reference(
+        q.float(), k.float(), v.float(), lse, di, do.float(),
+        *args[6:])]
+    allow = tfa.dkv_rounding_allowance(*args)
+    got = _emulated_k5_split(q, k, v, lse, di, do, causal, bq=32,
+                             dropout_p=dropout_p, seeds=seeds)
+    for g, want, extra in zip(got, exact, allow):
+        diff = (g - want).abs()
+        assert (diff <= extra + 1e-5 * want.abs().max()).all()
         assert diff.max() > 0
