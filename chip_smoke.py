@@ -16,8 +16,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    lane; flash_attention.cu: K3, K4, K5 at head dims 64, 128 and 256;
    lora_paged.cu: K11; greedy_argmax.cu: K12; one nvcc per source, all
    at once) and print the build time, the card's name and power limit,
-   each library's register and spill report and each tensor-core flash
-   kernel's registers and spill stores;
+   each library's register and spill report, each tensor-core flash
+   kernel's registers and spill stores, and K10's ring kernels' (the
+   serving step's bf16 head-dim-64 instantiation of each phase, and the
+   largest register count and the spilling ones among all);
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
    and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
@@ -29,11 +31,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    in each pool lane: fp; fp8 (e4m3 pools: K6's fp8 lane, K10's); q8
    (int8 pools with f32 scales: K7, K10's q8 lane), on the same pools
    in the kernel and in the plain version. K10 runs on batches built
-   like phase 3's grouped steps (16 rows, seven sharing 16 pages; and
-   again at rep 4, D 128): its phase-1 partials against the plain
-   partials, its output against the plain output, and its output
-   against K6's (K7's) in the same lane on the same operands, bit for
-   bit; K10a, K10b and K6 are timed on the same operands. K8 and K8-q8
+   like phase 3's grouped steps (16 rows, seven sharing 16 pages, in
+   f32, bf16 and f16; and again at rep 4, D 128): its phase-1 partials
+   against the plain partials, its output against the plain output, and
+   its output against K6's (K7's) in the same lane on the same operands,
+   bit for bit, and 20 reruns of both phases bit for bit; K10a, K10b and
+   K6 are timed on the same operands and K10's launch (`grouped_plan`:
+   feeder, shared memory, grid) recorded. K8 and K8-q8
    write the serving step's [16, 32, 12, 64] K rows (and again at 300x
    the scale, past +-448) and must equal their plain versions bit for
    bit outside the trash page. K9 runs in its fp and fp8 lanes on the
@@ -742,13 +746,16 @@ def wall_ms(fn, iters: int = 2) -> float:
 def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
     """K10 in pool lane `lane` on batches built like phase 3's grouped
     steps: 16 rows, seven of them sharing 16 pages, q_len 1-32
-    (`launch_check.grouped_batch`), H = H_kv = 12, D 64 in f32 and bf16,
-    and H 16, H_kv 4, D 128 in bf16, over the lane's pools. K10a's
+    (`launch_check.grouped_batch`), H = H_kv = 12, D 64 in f32, bf16 and
+    f16, and H 16, H_kv 4, D 128 in bf16, over the lane's pools. K10a's
     partials against the plain phase-1 partials (member rows of live
     queries), K10b's output against the plain output (live queries), and
-    the output against K6's in the same lane (K7 for q8), bit for bit.
-    Then K10a, K10b, both, K6, the plain version (with `wall_ms`) and
-    SDPA are timed on the bf16 H 12 batch."""
+    the output against K6's in the same lane (K7 for q8), bit for bit;
+    on the bf16 H 12 batch 20 more runs of both phases must repeat the
+    first one's partials and output bit for bit. Then K10a, K10b, both,
+    K6, the plain version (with `wall_ms`) and SDPA are timed on the bf16
+    H 12 batch, and the launch the library makes there (`tpa.grouped_plan`:
+    ring stages, tiles, shared memory, grid) is recorded."""
     from paddle_tpu_torch.ops.cuda.launch_check import (grouped_batch,
                                                         grouped, lane_batch,
                                                         ragged)
@@ -758,6 +765,7 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
     errs, part_errs, batches = {}, {}, {}
     for dtype, (h, hkv, d) in ((torch.float32, (12, 12, 64)),
                                (torch.bfloat16, (12, 12, 64)),
+                               (torch.float16, (12, 12, 64)),
                                (torch.bfloat16, (16, 4, 128))):
         ops, grp = grouped_batch(dev, dtype, h, hkv, d, SEED)
         ops, scales = lane_batch(ops, lane)
@@ -778,6 +786,16 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
         ref, (m, l, acc, written) = tpa.grouped_attention_reference(
             *ops, *grp, return_partials=True, **scales)
         sel = written & (m > tpa.NEG_INF / 2)     # member rows, live queries
+        if (dtype, h) == (torch.bfloat16, 12):
+            for _ in range(FLASH_REPEATS):
+                again = tpa.grouped_phase1(*ops, *grp, **scales)
+                if not all(torch.equal(x[sel], y[sel])
+                           for x, y in zip(again, partials)) or \
+                        not torch.equal(tpa.grouped_phase2(
+                            *ops, *grp, again, **scales), out):
+                    raise AssertionError(f"K10 {tag}: a rerun differs")
+            log(f"  K10 {tag}: {FLASH_REPEATS} reruns of both phases "
+                "repeat the partials and the output bit for bit")
         part_errs[dtype, h] = max(
             check_close(f"{key_a} partial {n} {tag}", got[sel], want[sel])
             for n, got, want in zip(("m", "l", "acc"), partials, (m, l, acc)))
@@ -818,20 +836,25 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
                     4 * keys_a * h * d, BF16_FLOPS)
     bound_b = bound((reads - span_reads) * blk + 2 * q_live + part_bytes,
                     4 * (keys_all - keys_a) * h * d, BF16_FLOPS)
+    plan = tpa.grouped_plan(q, k)
     log(f"  K10 bf16 [16, 32, 12, 64], {LANE_NAMES[lane]}, group sizes "
         f"{sizes}: page-block reads {reads} grouped vs {flat} per row (per "
         f"kv head); {key_a} {ms_a:.4f} ms (bound {bound_a[0]:.5f}, "
         f"{bound_a[1]}), {key_b} {ms_b:.4f} ms (bound {bound_b[0]:.5f}, "
         f"{bound_b[1]}), both {ms_both:.4f} ms vs {key6} {ms_k6:.4f} ms on "
         f"the same operands; plain (both phases) {plain_ms:.4f} ms, SDPA "
-        f"(gathered, masked) {lib_ms:.4f} ms")
+        f"(gathered, masked) {lib_ms:.4f} ms; ring {plan['stages']} stages, "
+        f"{plan['tiles']} f32 tiles, {plan['smem']} bytes of shared memory; "
+        f"grid {plan['grid']} blocks of {plan['threads']} threads, "
+        f"{plan['rows']} rows a block, two a warp: {bool(plan['paired'])}")
     common = dict(route="cuda", path=path,
                   source="paddle_tpu_torch/ops/cuda/csrc/"
                          "grouped_paged_attention.cu",
                   plain_ms=plain_ms,
                   plain_timing="both phases, events around whole calls",
                   k10_ms=ms_both, k6_ms_same_operands=ms_k6,
-                  page_block_reads={"grouped": reads, "per_row": flat})
+                  page_block_reads={"grouped": reads, "per_row": flat},
+                  launch=plan)
     return (dict(name=name_a,
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:562",
                  max_abs_err=part_errs[torch.bfloat16, 12], ms=ms_a,
@@ -844,6 +867,36 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
                  library_call="SDPA over the gathered, masked K/V: the "
                               "output of K10a and K10b together",
                  max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
+
+
+def ring_ptxas(text: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each K10 ring
+    instantiation in the `-Xptxas -v` log of grouped_paged_attention.cu,
+    named like `K10b<bf16, D 64, ps 16>` (D and ps 0: the run-time
+    instantiation of that DV, PJ)."""
+    rows, cur = [], None
+    names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\w+)", line)
+        if m:
+            cur = m.group(1) if "ring_walk_kernel" in m.group(1) else None
+            spill = None
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if cur and m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if cur and m and spill is not None:
+            k = re.search(r"ring_walk_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
+                          r"ELi(\d+)ELb([01])E", cur)
+            dtype, dv, pj, d, ps, p1 = k.groups()
+            shape = (f"D {d}, ps {ps}" if d != "0"
+                     else f"DV {dv}, PJ {pj}")
+            rows.append((f"{'K10a' if p1 == '1' else 'K10b'}"
+                         f"<{names.get(dtype, dtype)}, {shape}>",
+                         int(m.group(1)), spill))
+            cur = None
+    return rows
 
 
 def decode_bytes(q, k, table, pos, masked: bool) -> int:
@@ -2326,6 +2379,16 @@ def main() -> int:
             for kernel, n_regs, spill in tensor_core_ptxas(text):
                 log(f"    {kernel}: {n_regs} registers at launch, {spill} "
                     "bytes of spill stores")
+        if name == "grouped_paged_attention" and text:
+            rows = ring_ptxas(text)
+            for kernel, n_regs, spill in rows:
+                if "bf16, D 64, ps 16" in kernel:   # the serving step's
+                    log(f"    {kernel}: {n_regs} registers, {spill} bytes "
+                        "of spill stores")
+            spilled = [r[0] for r in rows if r[2]]
+            log(f"    K10 ring: {len(rows)} instantiations, at most "
+                f"{max(r[1] for r in rows)} registers, {len(spilled)} with "
+                f"spill stores {spilled}")
 
     log("phase 2 kernels vs plain versions:")
     timer = DeviceTimer()

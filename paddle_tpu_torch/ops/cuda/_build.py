@@ -54,6 +54,7 @@ KERNELS = {
     "grouped_paged_attention": {
         "ptt_grouped_phase1": [_P] * 14 + [_I] * 11 + [_P],
         "ptt_grouped_phase2": [_P] * 14 + [_I] * 11 + [_P],
+        "ptt_grouped_plan": [_I] * 8 + [_P],
     },
     "paged_scatter": {
         "ptt_paged_scatter_float": [_P] * 4 + [_I] * 10 + [_P],

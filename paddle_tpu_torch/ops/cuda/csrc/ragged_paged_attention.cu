@@ -30,7 +30,7 @@
 // there is no grid-order carry. Each CUDA block owns (row b, kv head g,
 // query block of <= 8 queries x rep heads), reads its own pos, q_len and
 // page-table entries, and loops over its live pages itself
-// (`row_walk_kernel` in paged_walk.cuh, which K10's phase 2 shares). Each
+// (`row_walk_kernel` in paged_walk.cuh). Each
 // loop step stages one page's K and V tile [ps, D] in shared memory (16-byte
 // vector loads, converted to f32; K rows padded by one float so the
 // per-key dot products of a warp hit distinct banks), then each warp
@@ -75,6 +75,6 @@ extern "C" int ptt_ragged_paged_attention(
   a.mask = static_cast<const float*>(mask);
   a.out = out;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mask != nullptr) return dispatch<RowWalk<false, true>>(dtype, a, s);
-  return dispatch<RowWalk<false>>(dtype, a, s);
+  if (mask != nullptr) return dispatch<RowWalk<true>>(dtype, a, s);
+  return dispatch<RowWalk<>>(dtype, a, s);
 }

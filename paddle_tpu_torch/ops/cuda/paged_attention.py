@@ -63,7 +63,12 @@ physical-page prefix declare it: `group_id` [B] (row -> group),
 table, into the online-softmax partials (m, l, acc) of every member row;
 phase 2 (K10b) continues each row from its partials over its private
 tail. Both walk a row's pages in K6's order with K6's arithmetic, so on
-the card K10's output equals K6's bit for bit, lane for lane.
+the card K10's output equals K6's bit for bit, lane for lane. On the card
+both phases run on a ring of cp.async page copies (or, where the ring
+does not fit shared memory, load each page straight into one tile), one
+block per (query block, row, kv head) in an order the kernels rank on
+the device, longest walk first; `grouped_plan` reports the launch the
+library chooses for a batch's shapes.
 
 The KV write goes to the slots `_paged_flat_slots` gives (past a row's
 window: the trash page 0). On the unfused path (`paged_scatter`), into a
@@ -87,6 +92,7 @@ Greedy sampling under the gate takes K12 (`decode_greedy_argmax`).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 from typing import Optional
@@ -101,6 +107,7 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "dequantize_paged_q8", "ragged_paged_attention_grouped",
            "ragged_paged_attention_grouped_q8",
            "grouped_attention_reference", "grouped_phase1", "grouped_phase2",
+           "grouped_plan",
            "count_page_block_reads", "quantize_kv_rowwise", "paged_scatter",
            "paged_scatter_reference", "paged_scatter_q8",
            "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
@@ -961,6 +968,31 @@ def _grouped_check(q, k_pool, v_pool, page_table, pos, q_len, group_id,
                       group_leader, group_cnt)
     _check_aligned(ops[1], ops[2])
     return ops
+
+
+def grouped_plan(q, k_pool) -> dict:
+    """The launch both K10 entries make for q [B, lq, H, D] over pools
+    like `k_pool` (any device: only shapes and dtypes are read), as the
+    library chooses it (`ptt_grouped_plan`): "stages" (raw page stages
+    of the cp.async ring; 0 where the ring does not fit and each page is
+    loaded straight into one tile), "tiles" (f32 working tiles), "smem"
+    (dynamic shared memory bytes a block), "paired" (two query rows a
+    warp), "grid" (blocks), "threads" (a block) and "rows" (query rows a
+    block). Raises ValueError where the kernels take no launch: the
+    wrappers' launch would fail there."""
+    b, lq, h, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    lib = _build.load("grouped_paged_attention")
+    out = (ctypes.c_int * 7)()
+    err = lib.ptt_grouped_plan(b, lq, h, hkv, d, ps,
+                               _build.dtype_code(q.dtype),
+                               _POOL_CODE[_lane(k_pool)], out)
+    if err:
+        raise ValueError(f"ragged_paged_attention_grouped kernel: no launch "
+                         f"for q {tuple(q.shape)} {q.dtype} over "
+                         f"{_lane(k_pool)} pools of page size {ps}")
+    return dict(zip(("stages", "tiles", "smem", "paired", "grid", "threads",
+                     "rows"), (int(x) for x in out)))
 
 
 def grouped_phase1(q, k_pool, v_pool, page_table, pos, q_len, group_id,

@@ -218,6 +218,102 @@ def test_engine_tokens_grouped_on_and_off_identical_on_the_card(cuda):
     assert tokens[True] == tokens[False]
 
 
+# -- K10's ring walk over the card-test shapes ------------------------------
+def _k10_case(cuda, dtype, rep, d, ps, seed=0, mp=6):
+    """Fourteen rows of up to 17 queries over pools of page size `ps`, 2
+    kv heads, `mp` table entries a row: row 0 idle on the trash page;
+    rows 1-12 one group sharing 3 pages, declared by hand (more members
+    than the 8 warps of a block have rows for at rep 1), with q_len 0-17
+    so their live query blocks differ, one member idle and one whose
+    first query block ends inside the span; row 13 alone."""
+    rs = np.random.RandomState(seed)
+    b, lq, hkv = 14, 17, 2
+    n_pages = b * mp + 1
+    table = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = table.reshape(b, mp)
+    table[0] = 0
+    table[1:13, :3] = table[1, :3]
+    q_len = np.array([0, 17, 1, 5, 0, 9, 3, 1, 17, 8, 1, 16, 2, 4], np.int32)
+    pos = np.array([rs.randint(3 * ps, mp * ps - max(ql, 1) + 1)
+                    for ql in q_len], np.int32)
+    pos[0] = 0
+    pos[3] = ps                       # block 0 ends on page 1 of the 3
+    gid = np.array([0] + [1] * 12 + [2], np.int32)
+    leader = np.zeros(b, np.int32)
+    leader[1], leader[2] = 6, 13
+    cnt = np.zeros(b, np.int32)
+    cnt[1] = 3
+    mk = lambda *sh: torch.from_numpy(rs.randn(*sh).astype(np.float32)).to(
+        cuda, dtype)
+    ops = (mk(b, lq, hkv * rep, d), mk(n_pages, ps, hkv, d),
+           mk(n_pages, ps, hkv, d),
+           *(torch.from_numpy(a).to(cuda) for a in (table, pos, q_len)))
+    return ops, tuple(torch.from_numpy(a).to(cuda) for a in (gid, leader,
+                                                              cnt))
+
+
+def _check_k10(ops, grp, scales):
+    """K10's output equals K6's (K7's) bit for bit, its partials match
+    the plain partials on the rows phase 1 folds, and 20 reruns repeat
+    both bit for bit. Returns the launch `grouped_plan` reports."""
+    plan = tpa.grouped_plan(ops[0], ops[1])
+    assert plan["stages"] in (0, 2) and plan["tiles"] == (2 if plan[
+        "stages"] else 1)
+    assert plan["smem"] <= 232448 - 2064 and plan["threads"] == 256
+    args = tpa._grouped_check(*ops, *grp, **scales)
+    part = tpa.grouped_phase1(*args, **scales)
+    out = tpa.grouped_phase2(*args, part, **scales)
+    want = ragged(ops, scales)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    _, (m, l, acc, written) = tpa.grouped_attention_reference(
+        *ops, *grp, return_partials=True, **scales)
+    sel = written & (m > tpa.NEG_INF / 2)
+    assert sel.any()
+    for got, ref in zip(part, (m, l, acc)):
+        _close(got[sel], ref[sel])
+    for _ in range(20):
+        again = tpa.grouped_phase1(*args, **scales)
+        assert all(torch.equal(x[sel], y[sel]) for x, y in zip(again, part))
+        assert torch.equal(tpa.grouped_phase2(*args, again, **scales), out)
+    return plan
+
+
+@pytest.mark.parametrize("rep", [1, 2, 4])
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+def test_grouped_ring_walk_over_shapes(cuda, ps, d, rep):
+    """K10 in every lane and dtype at page size `ps`, head dim `d` and
+    rep `rep` (`_check_k10`): every one of these shapes takes a launch,
+    the ring where it fits shared memory, else direct page loads."""
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        base, grp = _k10_case(cuda, dtype, rep, d, ps)
+        for lane in ("fp", "fp8", "q8"):
+            ops, scales = lane_batch(base, lane)
+            plan = _check_k10(ops, grp, scales)
+            assert plan["paired"] == (ps == 16), (dtype, lane)
+
+
+@pytest.mark.parametrize("dtype,d,ps,rep,mp", [
+    (torch.float32, 256, 64, 1, 6), (torch.float32, 256, 64, 4, 6),
+    (torch.float32, 128, 128, 1, 6), (torch.float32, 128, 128, 8, 6),
+    (torch.float32, 256, 16, 8, 300), (torch.bfloat16, 256, 64, 2, 6),
+    (torch.float16, 256, 64, 4, 6)])
+def test_grouped_walk_takes_every_shape_k6_takes(cuda, dtype, d, ps, rep,
+                                                 mp):
+    """Shapes where two f32 tiles and the ring's stages do not fit shared
+    memory beside the block's rows (large pages, head dim 256, rep 8, a
+    page table of 300 entries), which K6 and the grouped walk took before
+    the ring: K10 loads those pages straight into one tile and still
+    equals K6 (K7) bit for bit (`_check_k10`)."""
+    base, grp = _k10_case(cuda, dtype, rep, d, ps, mp=mp)
+    stages = []
+    for lane in ("fp", "fp8", "q8"):
+        ops, scales = lane_batch(base, lane)
+        stages.append(_check_k10(ops, grp, scales)["stages"])
+    assert stages[0] == 0, stages      # the fp lane cannot take the ring
+
+
 def _bf16_ulp(x, dtype=torch.bfloat16):
     """The spacing of bf16 (or f16) values at |x| (0 at 0)."""
     _, e = torch.frexp(x.abs())
