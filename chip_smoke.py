@@ -17,9 +17,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    lora_paged.cu: K11; greedy_argmax.cu: K12; one nvcc per source, all
    at once) and print the build time, the card's name and power limit,
    each library's register and spill report, each tensor-core flash
-   kernel's registers and spill stores, and K10's ring kernels' (the
-   serving step's bf16 head-dim-64 instantiation of each phase, and the
-   largest register count and the spilling ones among all);
+   kernel's registers and spill stores, and those of K10's ring kernels,
+   K9's and K11's (the serving step's bf16 head-dim-64 instantiation of
+   each K10 phase and of K9 without and with a mask, K11 in each dtype,
+   and the largest register count and the spilling ones among all; K9's
+   and K11's go into their records);
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
    and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
@@ -65,9 +67,10 @@ Phases, each reported on its own line; any failure exits non-zero:
    lane of K6 and K7 on the ragged serving batches (rep 1 and 2, an
    additive and a bool mask) against the plain versions, timed with
    the mask's bytes in the bound. K11 at the serving step's LoRA shapes
-   (x [16, 32, 768], 9 adapter pages of rank 8) in f32 and bf16 (the
-   bf16 rule allows one bf16 ulp of t carried through B), base-page
-   rows exactly 0, 20 repeats bit-identical; K12 on [16, 50304] f32
+   (x [16, 32, 768], 9 adapter pages of rank 8) in f32, bf16 and f16 (the
+   16-bit rule allows one ulp of t carried through B), base-page rows
+   exactly 0, 20 repeats bit-identical, its launch (`lora_plan`) and K9's
+   (`decode_plan`: the feeder) recorded; K12 on [16, 50304] f32
    logits with ties, NaNs and an all -inf row, equal to torch.argmax
    bit for bit over 20 repeats; K8's float lane equal to index_copy_
    bit for bit outside page 0;
@@ -118,7 +121,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    {base, 1..4}) with the megakernel off and on (a recorded step's held
    logits against a plain f32 rerun; K11 48 a step with the gate on),
    with 2 adapter pages (the pool must spill or evict and reload), and
-   over int8 pools; exact launches per step in every arm;
+   over int8 pools; exact launches per step in every arm. Each profile
+   totals K9's and K11's device time beside the device's busy time;
 4. train GPT-124M in bf16 as bench.py does (B 16 x L 1024, AdamW lr 1e-4,
    weight decay 0.01, dropout 0, ids and labels from
    `np.random.RandomState(0)`): 2 warm-up steps and 5 timed steps
@@ -281,15 +285,14 @@ class DeviceTimer:
         return ms / iters
 
 
-def tensor_core_ptxas(text: str) -> list:
-    """[(kernel, registers, spill store bytes)] of each tensor-core flash
-    instantiation in the `-Xptxas -v` log of flash_attention.cu, named
-    like `fa_dq_tc_kernel<bf16, 64>` (K3's with its warpgroup count)."""
-    rows, cur = [], None
+def ptxas_rows(text: str, symbol: str) -> list:
+    """[(mangled name, registers, spill store bytes)] of each kernel
+    whose mangled name contains `symbol`, in an `-Xptxas -v` log."""
+    rows, cur, spill = [], None, None
     for line in text.splitlines():
         m = re.search(r"Function properties for (\w+)", line)
         if m:
-            cur = m.group(1) if "_tc_kernel" in m.group(1) else None
+            cur = m.group(1) if symbol in m.group(1) else None
             spill = None
             continue
         m = re.search(r"(\d+) bytes spill stores", line)
@@ -297,14 +300,27 @@ def tensor_core_ptxas(text: str) -> list:
             spill = int(m.group(1))
         m = re.search(r"Used (\d+) registers", line)
         if cur and m and spill is not None:
-            kind = re.search(r"(fa_\w+?_tc_kernel)I(\w+?)Li(\d+)E(?:Li(\d)E)?",
-                             cur)
-            dtype = "bf16" if "bfloat16" in kind.group(2) else "f16"
-            args = [dtype, kind.group(3)] + ([kind.group(4)] if kind.group(4)
-                                             else [])
-            rows.append((f"{kind.group(1)}<{', '.join(args)}>",
-                         int(m.group(1)), spill))
+            rows.append((cur, int(m.group(1)), spill))
             cur = None
+    return rows
+
+
+# mangled element types -> names
+DTYPE_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def tensor_core_ptxas(text: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each tensor-core flash
+    instantiation in the `-Xptxas -v` log of flash_attention.cu, named
+    like `fa_dq_tc_kernel<bf16, 64>` (K3's with its warpgroup count)."""
+    rows = []
+    for name, regs, spill in ptxas_rows(text, "_tc_kernel"):
+        kind = re.search(r"(fa_\w+?_tc_kernel)I(\w+?)Li(\d+)E(?:Li(\d)E)?",
+                         name)
+        dtype = "bf16" if "bfloat16" in kind.group(2) else "f16"
+        args = [dtype, kind.group(3)] + ([kind.group(4)] if kind.group(4)
+                                         else [])
+        rows.append((f"{kind.group(1)}<{', '.join(args)}>", regs, spill))
     return rows
 
 
@@ -874,29 +890,41 @@ def ring_ptxas(text: str) -> list:
     instantiation in the `-Xptxas -v` log of grouped_paged_attention.cu,
     named like `K10b<bf16, D 64, ps 16>` (D and ps 0: the run-time
     instantiation of that DV, PJ)."""
-    rows, cur = [], None
-    names = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
-    for line in text.splitlines():
-        m = re.search(r"Function properties for (\w+)", line)
-        if m:
-            cur = m.group(1) if "ring_walk_kernel" in m.group(1) else None
-            spill = None
-            continue
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if cur and m:
-            spill = int(m.group(1))
-        m = re.search(r"Used (\d+) registers", line)
-        if cur and m and spill is not None:
-            k = re.search(r"ring_walk_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
-                          r"ELi(\d+)ELb([01])E", cur)
-            dtype, dv, pj, d, ps, p1 = k.groups()
-            shape = (f"D {d}, ps {ps}" if d != "0"
-                     else f"DV {dv}, PJ {pj}")
-            rows.append((f"{'K10a' if p1 == '1' else 'K10b'}"
-                         f"<{names.get(dtype, dtype)}, {shape}>",
-                         int(m.group(1)), spill))
-            cur = None
+    rows = []
+    for name, regs, spill in ptxas_rows(text, "ring_walk_kernel"):
+        k = re.search(r"ring_walk_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELb([01])E", name)
+        dtype, dv, pj, d, ps, p1 = k.groups()
+        shape = f"D {d}, ps {ps}" if d != "0" else f"DV {dv}, PJ {pj}"
+        rows.append((f"{'K10a' if p1 == '1' else 'K10b'}"
+                     f"<{DTYPE_NAMES.get(dtype, dtype)}, {shape}>", regs,
+                     spill))
     return rows
+
+
+def decode_ptxas(text: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each K9 instantiation
+    in the `-Xptxas -v` log of paged_decode_attention.cu, named like
+    `K9<bf16, D 64, ps 16>` or `K9 masked<...>` (D and ps 0: the run-time
+    instantiation of that DV, PJ)."""
+    rows = []
+    for name, regs, spill in ptxas_rows(text, "decode_ring_kernel"):
+        k = re.search(r"decode_ring_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
+                      r"ELi(\d+)ELb([01])E", name)
+        dtype, dv, pj, d, ps, masked = k.groups()
+        shape = f"D {d}, ps {ps}" if d != "0" else f"DV {dv}, PJ {pj}"
+        rows.append((f"K9{' masked' if masked == '1' else ''}"
+                     f"<{DTYPE_NAMES.get(dtype, dtype)}, {shape}>", regs,
+                     spill))
+    return rows
+
+
+def lora_ptxas(text: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each K11 instantiation
+    in the `-Xptxas -v` log of lora_paged.cu, named like `K11<bf16>`."""
+    return [(f"K11<{DTYPE_NAMES.get(m.group(1), m.group(1))}>", regs, spill)
+            for name, regs, spill in ptxas_rows(text, "lora_paged_kernel")
+            for m in [re.search(r"lora_paged_kernelI(\w+?)Lb[01]E", name)]]
 
 
 def decode_bytes(q, k, table, pos, masked: bool) -> int:
@@ -974,6 +1002,9 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
                                4 * keys * h * d, BF16_FLOPS)
     mbound_ms, mbound_by = bound(decode_bytes(q, k, table, pos, True),
                                  4 * keys * h * d + keys * h, BF16_FLOPS)
+    plan = tpa.decode_plan(q, k)
+    plan_masked = tpa.decode_plan(q, k, masked=True)
+    log(f"  {key} launch: {plan}; with a mask: {plan_masked}")
     log(f"  {key} bf16 [16, 1, 12, 64] over [993, 16, 12, 64], "
         f"{LANE_NAMES[lane]}: kernel {ms:.4f} ms (with the additive mask "
         f"{masked_ms:.4f} ms, bound {mbound_ms:.5f}), plain {plain_ms:.4f} "
@@ -995,7 +1026,8 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
                 max_abs_err_masked=max(
                     e for (dt, hh, what), e in errs.items() if what !=
                     "no mask"),
-                max_abs_err_rep4=errs[torch.bfloat16, 16, "no mask"])
+                max_abs_err_rep4=errs[torch.bfloat16, 16, "no mask"],
+                plan=plan, plan_masked=plan_masked)
 
 
 def check_flash_serving(dev, tfa):
@@ -1180,33 +1212,25 @@ def check_paged_scatter(dev, tpa, time_ms):
 
 
 def check_lora_paged(dev, tpa, time_ms):
-    """K11 at the serving step's shapes: x [16, 32, 768] (the layer input
-    of a unified step), adapter pools of 9 pages at rank 8 (page 0 the
-    zero page), every row at its own page (rows on page 0 or at scale 0
-    must give exactly 0), in f32 (the f32 rule) and bf16 — where t = x . A
-    is rounded to bf16 between the products, so a t element whose f32
-    sums (kernel and plain add in other orders) straddle a rounding
-    point moves by one bf16 ulp: the rule adds that ulp carried through
-    B and the scale to the 2 ulps of the element. 20 repeats give the
-    same bits. Timed: the kernel, the plain version (gather +
-    `lora_delta`) and two `torch.bmm` over the gathered pages."""
-    rs = np.random.RandomState(SEED + 3)
-    b, w, hid = ENGINE["num_slots"], ENGINE["chunk_len"], \
-        GPT124M["hidden_size"]
-    n_pages, r = 9, 8
-    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev)
-    a_pool, b_pool = mk(n_pages, hid, r) * 0.05, mk(n_pages, r, hid) * 0.05
-    a_pool[0] = 0.0
-    b_pool[0] = 0.0
-    apage = torch.tensor([0, 1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3, 0, 4, 5, 6],
-                         dtype=torch.int32, device=dev)
-    ascale = torch.from_numpy(rs.rand(b).astype(np.float32)).to(dev)
-    ascale[3] = 0.0
-    zero = (apage == 0) | (ascale == 0)
-    x32 = mk(b, w, hid)
+    """K11 at the serving step's shapes (`launch_check.lora_batch`): x
+    [16, 32, 768] (the layer input of a unified step), adapter pools of 9
+    pages at rank 8 (page 0 the zero page), every row at its own page
+    (rows on page 0 or at scale 0 must give exactly 0), in f32 (the f32
+    rule), bf16 and f16 — where t = x . A is rounded to the dtype between
+    the products, so a t element whose f32 sums (kernel and plain add in
+    other orders) straddle a rounding point moves by one ulp: the rule
+    adds that ulp carried through B and the scale to the element's 2
+    ulps. 20 repeats give the same bits. The launch (`lora_plan`:
+    cluster, slices, grid) is recorded. Timed in bf16: the kernel, the
+    plain version (gather + `lora_delta`) and two `torch.bmm` over the
+    gathered pages."""
+    from paddle_tpu_torch.ops.cuda.launch_check import lora_batch
     errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        x, A, B = (t.to(dtype) for t in (x32, a_pool, b_pool))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        x, A, B, apage, ascale = lora_batch(dev, dtype, seed=SEED + 3)
+        b, w, hid = x.shape
+        r = A.shape[2]
+        zero = (apage == 0) | (ascale == 0)
         out = tpa.lora_delta_paged(x, A, B, apage, ascale)
         torch.cuda.synchronize()
         ref = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
@@ -1220,12 +1244,16 @@ def check_lora_paged(dev, tpa, time_ms):
             ap = apage.long()
             t = torch.bmm(x.float(), A[ap].float()).to(dtype).float()
             s = ascale.to(dtype).float()[:, None, None]
-            flip = torch.bmm(bf16_ulp(t), B[ap].float().abs()) * s
+            flip = torch.bmm(bf16_ulp(t, dtype), B[ap].float().abs()) * s
             errs[dtype] = check_close(tag, out, ref, extra=flip,
-                                      extra_rule="+ one bf16 ulp of t "
+                                      extra_rule="+ one ulp of t "
                                       "through B and the scale")
         same_bits(f"K11 {dtype}", lambda: (tpa.lora_delta_paged(
             x, A, B, apage, ascale),))
+    x, A, B, apage, ascale = lora_batch(dev, torch.bfloat16, seed=SEED + 3)
+    b, w, hid = x.shape
+    r = A.shape[2]
+    plan = tpa.lora_plan(x, A, B)
     ms = time_ms(lambda: tpa.lora_delta_paged(x, A, B, apage, ascale))
     plain_ms = time_ms(lambda: tpa.lora_delta_paged_reference(
         x, A, B, apage, ascale))
@@ -1239,14 +1267,16 @@ def check_lora_paged(dev, tpa, time_ms):
     log(f"  K11 bf16 [{b}, {w}, {hid}] rank {r}, {pages} pages: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm over the "
         f"gathered pages {lib_ms:.4f} ms, bound {bound_ms:.5f} ms "
-        f"({bound_by})")
+        f"({bound_by}); launch {plan}")
     return dict(name="K11 lora_delta_paged", route="cuda",
                 source="paddle_tpu_torch/ops/cuda/csrc/lora_paged.cu",
                 replaces="paddle_tpu/ops/pallas/paged_attention.py:1465",
                 path="serving_adapters_megakernel",
                 max_abs_err=errs[torch.bfloat16], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
-                library_call="torch.bmm(torch.bmm(x, A[apage]), B[apage])")
+                library_call="torch.bmm(torch.bmm(x, A[apage]), B[apage])",
+                max_abs_err_f32=errs[torch.float32],
+                max_abs_err_f16=errs[torch.float16], plan=plan)
 
 
 def check_greedy_argmax(dev, tpa, time_ms):
@@ -2093,9 +2123,15 @@ def profile_steps(eng, prompts) -> dict:
                 **device_busy(prof, wall_us))
 
 
+# kernels whose device time a profile totals, by a part of their symbol:
+# K9's walk (paged_decode_attention.cu) and K11 (lora_paged.cu)
+PROFILED_KERNELS = {"K9": "decode_ring_kernel", "K11": "lora_paged_kernel"}
+
+
 def device_busy(prof, wall_us: float) -> dict:
-    """The device's busy time and share of `wall_us` in a profile, and
-    the kernels that took the most device time. Device-side events,
+    """The device's busy time and share of `wall_us` in a profile, the
+    kernels that took the most device time and the totals (calls, ms) of
+    PROFILED_KERNELS. Device-side events,
     less the GPU mirrors of the engine's own record_function ranges
     (serving::...), which are spans, not work."""
     kernels = [e for e in prof.key_averages()
@@ -2103,12 +2139,21 @@ def device_busy(prof, wall_us: float) -> dict:
                and not e.key.startswith("serving::")]
     busy_us = sum(e.self_device_time_total for e in kernels)
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+    totals = {name: [0, 0.0] for name in PROFILED_KERNELS}
+    for e in kernels:
+        for name, symbol in PROFILED_KERNELS.items():
+            if symbol in e.key:
+                totals[name][0] += e.count
+                totals[name][1] += e.self_device_time_total / 1e3
     out = {"wall_ms": wall_us / 1e3, "device_busy_ms": busy_us / 1e3,
            "device_busy_share": busy_us / wall_us if busy_us else None,
            "top_kernels": [[e.key[:70], e.count,
-                            e.self_device_time_total / 1e3] for e in top]}
+                            e.self_device_time_total / 1e3] for e in top],
+           "kernel_totals": totals}
     log(f"  profiled: device busy {out['device_busy_ms']:.2f} of "
-        f"{out['wall_ms']:.2f} ms wall")
+        f"{out['wall_ms']:.2f} ms wall; K9 {totals['K9'][1]:.3f} ms in "
+        f"{totals['K9'][0]} calls, K11 {totals['K11'][1]:.3f} ms in "
+        f"{totals['K11'][0]} calls")
     for name, count, ms in out["top_kernels"]:
         log(f"    {ms:9.3f} ms  x{count:<5d} {name}")
     return out
@@ -2368,6 +2413,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_logs = _build.build()
+    ptxas = {}    # K9's, K10's and K11's instantiations, by `parse`
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for "
         f"{sorted(build_logs)}; card: {smi}")
     for name, text in build_logs.items():
@@ -2379,16 +2425,27 @@ def main() -> int:
             for kernel, n_regs, spill in tensor_core_ptxas(text):
                 log(f"    {kernel}: {n_regs} registers at launch, {spill} "
                     "bytes of spill stores")
-        if name == "grouped_paged_attention" and text:
-            rows = ring_ptxas(text)
+        parse = {"grouped_paged_attention": ("K10 ring", ring_ptxas),
+                 "paged_decode_attention": ("K9", decode_ptxas),
+                 "lora_paged": ("K11", lora_ptxas)}.get(name)
+        if parse and text:
+            rows = parse[1](text)
             for kernel, n_regs, spill in rows:
-                if "bf16, D 64, ps 16" in kernel:   # the serving step's
+                # the serving step's
+                if "bf16, D 64, ps 16" in kernel or kernel.startswith("K11"):
                     log(f"    {kernel}: {n_regs} registers, {spill} bytes "
                         "of spill stores")
             spilled = [r[0] for r in rows if r[2]]
-            log(f"    K10 ring: {len(rows)} instantiations, at most "
+            log(f"    {parse[0]}: {len(rows)} instantiations, at most "
                 f"{max(r[1] for r in rows)} registers, {len(spilled)} with "
                 f"spill stores {spilled}")
+            ptxas[parse[0]] = {
+                "instantiations": len(rows),
+                "max_registers": max(r[1] for r in rows),
+                "spilling": spilled,
+                "serving": {r[0]: [r[1], r[2]] for r in rows
+                            if "bf16, D 64, ps 16" in r[0]
+                            or r[0].startswith("K11")}}
 
     log("phase 2 kernels vs plain versions:")
     timer = DeviceTimer()
@@ -2421,6 +2478,8 @@ def main() -> int:
     kernels["K6"]["user_mask"] = masked["K6"]
     kernels["K7"]["user_mask"] = masked["K7"]
     kernels["K11"] = check_lora_paged(dev, tpa, timer)
+    for key, lib in (("K9", "K9"), ("K9-fp8", "K9"), ("K11", "K11")):
+        kernels[key]["ptxas"] = ptxas.get(lib)
     kernels["K12"] = check_greedy_argmax(dev, tpa, timer)
     torch.cuda.empty_cache()
 

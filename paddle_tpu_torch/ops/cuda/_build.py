@@ -50,6 +50,7 @@ KERNELS = {
     },
     "paged_decode_attention": {
         "ptt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
+        "ptt_decode_plan": [_I] * 8 + [_P],
     },
     "grouped_paged_attention": {
         "ptt_grouped_phase1": [_P] * 14 + [_I] * 11 + [_P],
@@ -64,6 +65,7 @@ KERNELS = {
     },
     "lora_paged": {
         "ptt_lora_delta_paged": [_P] * 6 + [_I] * 8 + [_P],
+        "ptt_lora_plan": [_I] * 6 + [_P],
     },
     "greedy_argmax": {
         "ptt_greedy_argmax": [_P, _P, _I, _I, _I, _P],

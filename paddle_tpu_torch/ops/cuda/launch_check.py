@@ -31,7 +31,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["grouped_batch", "decode_batch", "lane_batch", "ragged",
+__all__ = ["grouped_batch", "decode_batch", "lora_batch", "lane_batch",
+           "ragged",
            "ragged_reference", "grouped", "decode", "FLASH_SERVING_CASES",
            "flash_serving_batch", "main"]
 
@@ -112,6 +113,28 @@ def decode_batch(dev, dtype, h: int, hkv: int, d: int, seed: int = 0,
             mk(n_pages, ps, hkv, d),
             *(torch.from_numpy(a).to(dev) for a in (
                 table, pos, np.ones(rows, np.int32))))
+
+
+def lora_batch(dev, dtype, seed: int = 3, b: int = 16, w: int = 32,
+               cin: int = 768, cout: int = 768, r: int = 8, pages: int = 9):
+    """K11's operands at the serving step's LoRA shapes by default (x
+    [16, 32, 768], adapter pools of 9 pages at rank 8): x [b, w, cin],
+    a_pool [pages, cin, r] and b_pool [pages, r, cout] (amplitude 0.05,
+    page 0 the zero page) in `dtype`, apage int32 [b] (rows on pages
+    0-8, then 1, 2, 3, 0, 4, 5, 6, ...), ascale f32 [b] (row 3 at scale
+    0). Returns (x, a_pool, b_pool, apage, ascale)."""
+    rs = np.random.RandomState(seed)
+    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32)).to(dev)
+    a_pool, b_pool = mk(pages, cin, r) * 0.05, mk(pages, r, cout) * 0.05
+    a_pool[0] = 0.0
+    b_pool[0] = 0.0
+    order = [0, 1, 2, 3, 4, 5, 6, 7, 8, 1, 2, 3, 0, 4, 5, 6]
+    apage = torch.tensor([order[i % 16] % pages for i in range(b)],
+                         dtype=torch.int32, device=dev)
+    ascale = torch.from_numpy(rs.rand(b).astype(np.float32)).to(dev)
+    ascale[min(3, b - 1)] = 0.0
+    x = mk(b, w, cin)
+    return (x.to(dtype), a_pool.to(dtype), b_pool.to(dtype), apage, ascale)
 
 
 def flash_serving_batch(dev, dtype, case: str, seed: int = 0,

@@ -52,8 +52,9 @@ inside the same online softmax: K6's and K7's mask lane. Under a mask
 the grouped op runs K6/K7, as the JAX op falls back to its ungrouped
 kernel. K9 is the q_len 1 case with its mask [B, H, mp * ps]: without a
 mask its output equals K6's at q_len 1 (on the card bit for bit; the
-plain versions are one function). int8 pools have no K9 lane: the
-decode step sends them to K7 at q_len 1.
+plain versions are one function). On the card it walks K10's ring below,
+a block per (kv head, row); `decode_plan` reports its launch. int8 pools
+have no K9 lane: the decode step sends them to K7 at q_len 1.
 
 The grouped op computes the same output. Rows whose page tables share a
 physical-page prefix declare it: `group_id` [B] (row -> group),
@@ -87,7 +88,8 @@ The megakernel (`megakernel_decode[_q8]`, gate `resolve_megakernel_flag`
 JAX op does: the LoRA prologue (K11 for q, k and v, from the rows'
 adapter pages), the write (K8 or K8-q8), then the ragged or grouped walk
 (K6, K7, K10) over the updated pools; the o-projection's delta is K11
-outside it. It is no launch of its own: one fused launch is later work.
+outside it. On the card K11 computes t = x . A once per row over a
+thread-block cluster (`lora_plan` reports the launch). It is no launch of its own: one fused launch is later work.
 Greedy sampling under the gate takes K12 (`decode_greedy_argmax`).
 """
 from __future__ import annotations
@@ -112,6 +114,7 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "paged_scatter_reference", "paged_scatter_q8",
            "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
            "paged_decode_attention", "paged_attention_reference",
+           "decode_plan", "lora_plan",
            "_mask_to_additive", "LAUNCHES", "GROUPED_LAUNCHES",
            "QUANT_LAUNCHES", "DECODE_LAUNCHES", "MEGA_LAUNCHES",
            "reset_launches", "NEG_INF", "paged_scatter_kernel",
@@ -717,6 +720,29 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
+def decode_plan(q: torch.Tensor, k_pool: torch.Tensor,
+                masked: bool = False) -> dict:
+    """The launch K9 makes for q [B, 1, H, D] over pools like `k_pool`
+    (any device: only shapes and dtypes are read), without or with a user
+    mask, as the library chooses it (`ptt_decode_plan`): "stages" (raw
+    page stages of the cp.async ring; 0 where the ring does not fit and
+    each page is loaded straight into one tile), "tiles" (f32 working
+    tiles), "smem" (dynamic shared memory bytes a block), "paired" (two
+    query rows a warp), "grid" (blocks), "threads" (a block) and "rows"
+    (query rows a block). Raises ValueError where K9 takes no launch."""
+    b, _, h, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    lib = _build.load("paged_decode_attention")
+    out = (ctypes.c_int * 7)()
+    if lib.ptt_decode_plan(b, h, hkv, d, ps, _build.dtype_code(q.dtype),
+                           _POOL_CODE[_lane(k_pool)], int(masked), out):
+        raise ValueError(f"paged_decode_attention kernel: no launch for q "
+                         f"{tuple(q.shape)} {q.dtype} over {k_pool.dtype} "
+                         f"pools of page size {ps}")
+    return dict(zip(("stages", "tiles", "smem", "paired", "grid", "threads",
+                     "rows"), (int(x) for x in out)))
+
+
 # -- K10: the grouped walk ----------------------------------------------------
 def count_page_block_reads(page_table, pos, q_len, group_id=None,
                            group_cnt=None, *, page_size):
@@ -1092,6 +1118,31 @@ def lora_delta_paged_reference(x: torch.Tensor, a_pool: torch.Tensor,
                       ascale.to(torch.float32))
 
 
+def lora_plan(x: torch.Tensor, a_pool: torch.Tensor,
+              b_pool: torch.Tensor) -> dict:
+    """The launch K11 makes for x [B, W, in] over pools like `a_pool`
+    [P, in, R] and `b_pool` [P, R, out] (any device: only shapes and the
+    dtype are read), as the library chooses it (`ptt_lora_plan`):
+    "cluster" (blocks of one thread-block cluster, which share a row's
+    t = x . A over distributed shared memory), "clusters_per_row" (each
+    over up to 64 positions), "in_slice" and "out_tile" (the IN slice a
+    block sums t over, the OUT columns it writes), "smem" (dynamic shared
+    memory bytes a block), "grid" (blocks), "threads" (a block) and
+    "tensor_cores" (1 where both products run on mma.sync: bf16, f16).
+    Raises ValueError for a rank or dtype the kernel does not take."""
+    bsz, w, cin = x.shape
+    r, cout = a_pool.shape[2], b_pool.shape[2]
+    lib = _build.load("lora_paged")
+    out = (ctypes.c_int * 8)()
+    if lib.ptt_lora_plan(bsz, w, cin, r, cout, _build.dtype_code(x.dtype),
+                         out):
+        raise ValueError(f"lora_delta_paged kernel: no launch for x "
+                         f"{tuple(x.shape)} {x.dtype} at rank {r}")
+    return dict(zip(("cluster", "clusters_per_row", "in_slice", "out_tile",
+                     "smem", "grid", "threads", "tensor_cores"),
+                    (int(v) for v in out)))
+
+
 def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
                      b_pool: torch.Tensor, apage: torch.Tensor,
                      ascale: torch.Tensor) -> torch.Tensor:
@@ -1119,10 +1170,9 @@ def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
         raise TypeError(f"lora_delta_paged kernel: the pools must share x's "
                         f"dtype, got {x.dtype}, {a_pool.dtype}, "
                         f"{b_pool.dtype}")
-    if not 1 <= r <= 16 or (cin * r + w * r) * 4 > 227 * 1024:
+    if not 1 <= r <= 16:
         raise ValueError(f"lora_delta_paged kernel: rank {r} must be in "
-                         f"[1, 16] and the page [{cin}, {r}] fit shared "
-                         f"memory")
+                         f"[1, 16]")
     apage = apage.to(torch.int32).contiguous()
     ascale = ascale.to(torch.float32).contiguous()
     if apage.shape != (bsz,) or ascale.shape != (bsz,):

@@ -18,7 +18,8 @@ from paddle_tpu_torch.ops.cuda.launch_check import (FLASH_SERVING_CASES,
                                                     decode, decode_batch,
                                                     flash_serving_batch,
                                                     grouped, grouped_batch,
-                                                    lane_batch, ragged,
+                                                    lane_batch, lora_batch,
+                                                    ragged,
                                                     ragged_reference)
 from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
@@ -1007,6 +1008,25 @@ def _lora_case(cuda, dtype, b, w, cin, cout, r=8, pages=9, seed=0):
             apage, ascale)
 
 
+def _check_lora(out, x, A, B, apage, ascale):
+    """K11's rule (chip_smoke.py's): base-page and zero-scale rows are
+    exactly 0; f32 within F32_TOL; bf16/f16 within BF16_ULPS of the
+    output's dtype plus one ulp of t (rounded to that dtype between the
+    products, whose f32 sums the kernel and the plain version add in
+    other orders) carried through B and the scale."""
+    zero = (apage == 0) | (ascale == 0)
+    assert not out[zero].any()
+    want = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
+    if out.dtype == torch.float32:
+        _close(out, want)
+        return
+    ap = apage.long()
+    t = torch.bmm(x.float(), A[ap].float()).to(out.dtype).float()
+    flip = torch.bmm(_bf16_ulp(t, out.dtype), B[ap].float().abs()) * \
+        ascale.to(out.dtype).float()[:, None, None]
+    _close(out, want, extra=flip)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,w,cin,cout", [(16, 32, 768, 768), (5, 3, 96, 40)])
 def test_lora_delta_paged_kernel(cuda, dtype, b, w, cin, cout):
@@ -1020,20 +1040,7 @@ def test_lora_delta_paged_kernel(cuda, dtype, b, w, cin, cout):
     torch.cuda.synchronize()
     assert tpa.MEGA_LAUNCHES["K11"] == before + 1
     assert out.dtype == dtype and out.shape == (b, w, cout)
-    zero = (apage == 0) | (ascale == 0)
-    assert not out[zero].any()
-    want = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
-    if dtype == torch.float32:
-        _close(out, want)
-        return
-    ap = apage.long()
-    t = torch.bmm(x.float(), A[ap].float()).to(dtype).float()
-    flip = torch.bmm(_bf16_ulp(t), B[ap].float().abs()) * \
-        ascale.to(dtype).float()[:, None, None]
-    diff = (out.float() - want.float()).abs()
-    allowed = BF16_ULPS * _bf16_ulp(want.float()) + flip + \
-        F32_TOL * want.float().abs().max()
-    assert (diff <= allowed).all(), (diff / allowed).max().item()
+    _check_lora(out, x, A, B, apage, ascale)
 
 
 def test_lora_delta_paged_kernel_is_bit_reproducible(cuda):
@@ -1201,3 +1208,106 @@ def test_head_dim_routes_on_the_card(cuda, d):
             assert (tfa.LAUNCHES["fwd"] > 0) is (d == 256)
     for key in [k[1] for k in out if k[0] == "cpu"]:
         assert out["cpu", key] == out[str(cuda), key]
+
+
+# -- K11 with t once per row on the tensor cores, K9 on the ring -----------
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
+@pytest.mark.parametrize("r", [1, 4, 8, 16])
+def test_lora_kernel_at_every_rank(cuda, dtype, r):
+    """K11 at the serving step's shapes (x [16, 32, 768], 9 pages) at
+    ranks 1-16 in f32, bf16 and f16: the rule, and 20 repeats give the
+    same bits (t's partials combined in a fixed order, no atomics)."""
+    args = lora_batch(cuda, dtype, r=r)
+    before = tpa.MEGA_LAUNCHES["K11"]
+    out = tpa.lora_delta_paged(*args)
+    torch.cuda.synchronize()
+    assert tpa.MEGA_LAUNCHES["K11"] == before + 1
+    assert out.dtype == dtype and out.shape == (16, 32, 768)
+    _check_lora(out, *args)
+    for _ in range(20):
+        assert torch.equal(tpa.lora_delta_paged(*args), out)
+
+
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
+@pytest.mark.parametrize("b,w,cin,cout", [
+    (5, 1, 768, 768), (5, 5, 200, 328), (16, 32, 328, 200),
+    (5, 33, 768, 768), (3, 33, 100, 36), (5, 70, 1000, 600),
+    (16, 3, 4096, 2064)])
+def test_lora_kernel_at_ragged_shapes(cuda, dtype, b, w, cin, cout):
+    """K11 where W, IN and OUT are not multiples of its tiles: W of 1, 5,
+    33 and 70 (two clusters a row), IN and OUT of 200 and 328, 100 and 36
+    (rows not 16-byte aligned in bf16: element loads), and IN and OUT
+    larger than one staged piece (4096, 2064)."""
+    args = lora_batch(cuda, dtype, b=b, w=w, cin=cin, cout=cout)
+    out = tpa.lora_delta_paged(*args)
+    torch.cuda.synchronize()
+    assert out.shape == (b, w, cout)
+    _check_lora(out, *args)
+    assert torch.equal(tpa.lora_delta_paged(*args), out)
+
+
+def test_lora_plan_reports_the_launch(cuda):
+    """At the serving step's shapes K11 runs clusters of 8 blocks a row
+    (128 blocks for 16 rows), both products on the tensor cores in bf16
+    and f16, f32 on the CUDA cores; a rank over 16 takes no launch."""
+    for dtype in _FLASH_DTYPES:
+        x, A, B, _, _ = lora_batch(cuda, dtype)
+        plan = tpa.lora_plan(x, A, B)
+        assert plan["cluster"] == 8 and plan["grid"] == 128, plan
+        assert plan["in_slice"] == 96 and plan["out_tile"] == 96, plan
+        assert plan["tensor_cores"] == int(dtype != torch.float32)
+        assert plan["smem"] <= 232448 and plan["threads"] == 256
+    x, A, B, _, _ = lora_batch(cuda, torch.bfloat16, r=16)
+    with pytest.raises(ValueError, match="no launch"):
+        tpa.lora_plan(x, A.repeat(1, 1, 2), B)
+
+
+_DECODE_DIRECT = [
+    (torch.float32, 4, 4, 256, 64, 6), (torch.float32, 16, 4, 256, 64, 6),
+    (torch.float32, 2, 2, 128, 128, 6), (torch.float32, 16, 2, 128, 128, 6),
+    (torch.float32, 16, 2, 256, 16, 300), (torch.bfloat16, 8, 4, 256, 64, 6),
+    (torch.float16, 16, 4, 256, 64, 6)]
+
+
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+@pytest.mark.parametrize("lane", ["fp", "fp8"])
+@pytest.mark.parametrize("dtype,h,hkv,d,ps,mp", _DECODE_DIRECT)
+def test_paged_decode_attention_takes_every_shape(cuda, dtype, h, hkv, d,
+                                                  ps, mp, lane, mask):
+    """K9 where the ring's stages and two f32 tiles do not fit shared
+    memory beside the rows (f32 at head dim 256 with pages of 64, pages
+    of 128, rep 8) and at a 300-entry table: without a mask equal to K6
+    at q_len 1 bit for bit, with one within its plain version's rule."""
+    ops, _ = lane_batch(decode_batch(cuda, dtype, h, hkv, d, rows=6, ps=ps,
+                                     mp=mp, trash=1), lane)
+    m = _decode_mask(mask, ops, h)
+    out = decode(ops, m)
+    torch.cuda.synchronize()
+    if m is None:
+        assert torch.equal(out, ragged(ops, {}))
+    else:
+        add = tpa._mask_to_additive(m, out.shape[0], h, mp * ps)
+        _close(out, tpa.paged_attention_reference(*ops[:5], add))
+
+
+def test_decode_plan_reports_the_feeder(cuda):
+    """The legacy step's shapes take the ring (two stages, two tiles), two
+    rows a warp without a mask and a row a warp with one; the shapes the
+    ring does not fit take direct page loads in the fp lane; int8 pools
+    take no K9 launch."""
+    q, k = decode_batch(cuda, torch.bfloat16, 12, 12, 64)[:2]
+    plan = tpa.decode_plan(q, k)
+    assert (plan["stages"], plan["tiles"], plan["paired"]) == (2, 2, 1)
+    assert plan["grid"] == 16 * 12 and plan["threads"] == 256
+    assert tpa.decode_plan(q, k, masked=True)["paired"] == 0
+    assert tpa.decode_plan(q, k, masked=True)["stages"] == 2
+    for dtype, h, hkv, d, ps, mp in _DECODE_DIRECT:
+        q, k = decode_batch(cuda, dtype, h, hkv, d, rows=2, ps=ps, mp=mp)[:2]
+        plan = tpa.decode_plan(q, k)
+        assert plan["smem"] <= 232448 and plan["rows"] == h // hkv
+        if ps >= 64 and dtype == torch.float32:
+            assert (plan["stages"], plan["tiles"]) == (0, 1), plan
+    q, k = decode_batch(cuda, torch.bfloat16, 12, 12, 64)[:2]
+    with pytest.raises(ValueError, match="no launch"):
+        tpa.decode_plan(q, lane_batch((q, k, k, None, None, None),
+                                      "q8")[0][1])

@@ -230,6 +230,56 @@ def test_trash_rows_are_finite_and_isolated():
     assert not torch.equal(base[2], got[2])
 
 
+# the card tests' shapes where K9 loads each page straight into one tile
+# (f32 at head dim 256 with pages of 64, pages of 128, rep 8) and a
+# 300-entry table: (heads, kv heads, head dim, page size, table entries)
+_CARD_SHAPES = {"d256_ps64_rep1": (4, 4, 256, 64, 6),
+                "d256_ps64_rep4": (16, 4, 256, 64, 6),
+                "d128_ps128_rep1": (2, 2, 128, 128, 6),
+                "d128_ps128_rep8": (16, 2, 128, 128, 6),
+                "d256_ps16_rep8_mp300": (16, 2, 256, 16, 300),
+                "d256_ps64_rep2": (8, 4, 256, 64, 6)}
+
+
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+@pytest.mark.parametrize("shape", list(_CARD_SHAPES))
+def test_reference_matches_jax_at_the_card_shapes(jax_jnp, shape, mask):
+    """K9's plain version against the JAX op (jnp path) at the shapes the
+    card tests hold K9 to K6 on, with and without a user mask: three rows
+    whose pos lands on a partial page, on the last table entry, and on a
+    trash row's frozen window."""
+    h, hkv, d, ps, mp = _CARD_SHAPES[shape]
+    rs = np.random.RandomState(sum(_CARD_SHAPES[shape]))
+    b, n_pages = 3, 3 * mp + 1
+    table = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = table.reshape(b, mp)
+    table[2] = 0                      # an idle row on the trash page
+    pos = np.array([ps + 3, mp * ps - 1, mp * ps - 3], np.int32)
+    q = rs.randn(b, 1, h, d).astype(np.float32)
+    kp, vp = (rs.randn(n_pages, ps, hkv, d).astype(np.float32)
+              for _ in range(2))
+    m = None
+    if mask == "additive":
+        m = (rs.randn(b, h, 1, mp * ps) * 2).astype(np.float32)
+    elif mask == "bool":
+        m = rs.rand(b, 1, 1, mp * ps) < 0.7
+        m[..., 0] = True
+    want = jpa.paged_decode_attention(
+        *(jnp.asarray(a) for a in (q, kp, vp, table, pos)),
+        None if m is None else jnp.asarray(m))
+    args = [torch.from_numpy(a) for a in (q, kp, vp, table, pos)]
+    got = tpa.paged_decode_attention(
+        *args, None if m is None else torch.from_numpy(m))
+    # f32 on both sides, the softmax summed in other orders over windows
+    # of up to 4800 keys: the kernels' f32 rule, 1e-5 x (1 + max|ref|)
+    want = np.asarray(want)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-5 * (1 + np.abs(want).max()))
+    if m is None:
+        ones = torch.ones(b, dtype=torch.int32)
+        assert torch.equal(got, tpa.ragged_attention_reference(*args, ones))
+
+
 def test_decode_attention_refuses_a_chunk():
     _, q, kp, vp, table, pos = _case(1, [3, 4])
     q2 = torch.from_numpy(np.concatenate([q, q], 1))
