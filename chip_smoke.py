@@ -17,11 +17,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    lora_paged.cu: K11; greedy_argmax.cu: K12; one nvcc per source, all
    at once) and print the build time, the card's name and power limit,
    each library's register and spill report, each tensor-core flash
-   kernel's registers and spill stores, and those of K10's ring kernels,
-   K9's and K11's (the serving step's bf16 head-dim-64 instantiation of
-   each K10 phase and of K9 without and with a mask, K11 in each dtype,
-   and the largest register count and the spilling ones among all; K9's
-   and K11's go into their records);
+   kernel's registers and spill stores, and those of the walk (K6/K7,
+   K9 and K10 are one kernel, `ring_walk_kernel`, built into each of
+   their libraries) and K11 (the serving step's bf16 head-dim-64
+   instantiation of each K10 phase and of K6 and K9 without and with a
+   mask, K11 in each dtype, and the largest register count and the
+   spilling ones among all; K6's, K9's and K11's go into their records);
 2. hold each kernel against its plain PyTorch version on the card, at
    the shapes each path gives it, in bf16 and f32 — K1 at the serving
    and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
@@ -69,8 +70,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    the mask's bytes in the bound. K11 at the serving step's LoRA shapes
    (x [16, 32, 768], 9 adapter pages of rank 8) in f32, bf16 and f16 (the
    16-bit rule allows one ulp of t carried through B), base-page rows
-   exactly 0, 20 repeats bit-identical, its launch (`lora_plan`) and K9's
-   (`decode_plan`: the feeder) recorded; K12 on [16, 50304] f32
+   exactly 0, 20 repeats bit-identical, and again at ranks 32 and 64
+   (t summed a group of ranks at a time, d over R in k-steps of 16),
+   timed beside two `torch.bmm`; its launch (`lora_plan`), K6's
+   (`ragged_plan`) and K9's (`decode_plan`: the feeder) recorded; K12 on
+   [16, 50304] f32
    logits with ties, NaNs and an all -inf row, equal to torch.argmax
    bit for bit over 20 repeats; K8's float lane equal to index_copy_
    bit for bit outside page 0;
@@ -89,7 +93,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    f32). Prints tokens/s, the step time, the TTFT, the modeled page
    reads and the reads the grouped walk saved, and a profile of each
    arm (16 more requests on the warm engine, half of them behind the
-   shared prompt). Then the same traffic over int8 and fp8 KV pools,
+   shared prompt). A fifth run takes the defaults with pages of 256
+   keys (every walk folds a page in two pieces of 128): launches per
+   step, a recorded step's held logits against a plain f32 rerun, the
+   share of tokens equal to the page-16 run's printed. Then the same
+   traffic over int8 and fp8 KV pools,
    each with the defaults and with grouped=False: per step K1 25, the
    lane's write (K8-q8 or K8) 24 and K10a, K10b 12 each (K7 or K6's fp8
    lane 12 with grouped=False); identical tokens in both arms of a
@@ -120,9 +128,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    of the walk), the LORA adapters (4 of rank 4, tenants zipf over
    {base, 1..4}) with the megakernel off and on (a recorded step's held
    logits against a plain f32 rerun; K11 48 a step with the gate on),
-   with 2 adapter pages (the pool must spill or evict and reload), and
-   over int8 pools; exact launches per step in every arm. Each profile
-   totals K9's and K11's device time beside the device's busy time;
+   with 2 adapter pages (the pool must spill or evict and reload), in
+   rank buckets (8, 32) with the megakernel on (a pool of rank 32, K11
+   past one k-step of 16; a recorded step held against a plain rerun),
+   and over int8 pools; exact launches per step in every arm. Each
+   profile totals the walk's and K11's device time beside the device's
+   busy time;
 4. train GPT-124M in bf16 as bench.py does (B 16 x L 1024, AdamW lr 1e-4,
    weight decay 0.01, dropout 0, ids and labels from
    `np.random.RandomState(0)`): 2 warm-up steps and 5 timed steps
@@ -148,12 +159,14 @@ Phases, each reported on its own line; any failure exits non-zero:
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
-default engine's run; serving_ungrouped, the grouped=False run; the
-same over int8 or fp8 pools, serving_int8[_ungrouped] and
+default engine's run; serving_ungrouped, the grouped=False run;
+serving_page256, the defaults with pages of 256; the same over int8 or
+fp8 pools, serving_int8[_ungrouped] and
 serving_fp8[_ungrouped]; the legacy step, serving_legacy[_fp8|_int8];
 the gather arm, serving_gather; the megakernel and adapter arms,
-serving_[int8_]megakernel, serving_adapters[_megakernel[_2pages]] and
-serving_int8_adapters_megakernel; training; or generate) whose shapes
+serving_[int8_]megakernel, serving_adapters[_megakernel[_2pages]],
+serving_adapters_r32_megakernel and serving_int8_adapters_megakernel;
+training; or generate) whose shapes
 the record was measured at, and
 `launches_by_path` those on each path, each counted from 0 just before
 its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
@@ -223,6 +236,10 @@ GENERATE = dict(batch=8, prompt=128, new=32)
 # (4 adapters of rank 4, numpy seed 0; tenants zipf over {base, 1..4},
 # the first four requests one per adapter) at amplitude 0.05
 LORA = dict(adapters=4, rank=4, amp=0.05)
+# K11's ranks past one k-step of d, checked and timed in phase 2; and the
+# rank buckets of phase 3's arm whose adapter pool has rank 32
+LORA_LARGE_RANKS = (32, 64)
+LORA_RANK32_BUCKETS = (8, 32)
 # phase 6: 2-layer GPTs at head dims the flash kernels take (256) and do
 # not take (32: the plain `_sdpa_ref` route), bf16
 HEAD_DIM_GPTS = {
@@ -675,17 +692,23 @@ def check_paged_attention(dev, tpa, time_ms, lane="fp"):
                + table.numel() * 4 + 2 * b * 4)
     bound_ms, bound_by = bound(n_bytes, 4 * attended_keys(ps_, ql) * h * d,
                                BF16_FLOPS)
+    plan = tpa.ragged_plan(q, k)
     log(f"  {key} bf16 [16, 32, 12, 64], {LANE_NAMES[lane]}: kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA (gathered, "
         f"{'dequantized, ' if lane != 'fp' else ''}masked) {lib_ms:.4f} "
-        f"ms, bound {bound_ms:.5f} ms ({bound_by})")
+        f"ms, bound {bound_ms:.5f} ms ({bound_by}); ring {plan['stages']} "
+        f"stages, {plan['tiles']} f32 tiles, {plan['smem']} bytes of shared "
+        f"memory; grid {plan['grid']} blocks of {plan['threads']} threads, "
+        f"{plan['rows']} rows a block, two a warp: {bool(plan['paired'])}; "
+        f"pieces of {plan['piece']} keys, {plan['copy']}-byte copies")
     return dict(name=name, route="cuda",
                 source="paddle_tpu_torch/ops/cuda/csrc/"
                        "ragged_paged_attention.cu",
                 replaces="paddle_tpu/ops/pallas/paged_attention.py:375",
                 path=path, max_abs_err=errs[torch.bfloat16],
                 ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
+                launch=plan)
 
 
 def sdpa_yardstick(q, k, v, table, pos, q_len, k_scale=None, v_scale=None,
@@ -885,46 +908,38 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
                  max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
 
 
-def ring_ptxas(text: str) -> list:
-    """[(kernel, registers, spill store bytes)] of each K10 ring
-    instantiation in the `-Xptxas -v` log of grouped_paged_attention.cu,
-    named like `K10b<bf16, D 64, ps 16>` (D and ps 0: the run-time
-    instantiation of that DV, PJ)."""
+def ring_ptxas(text: str, kernel: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each instantiation of
+    the walk (`ring_walk_kernel`) in the `-Xptxas -v` log of the library
+    of `kernel` ("K6": ragged_paged_attention.cu, "K9":
+    paged_decode_attention.cu, "K10": grouped_paged_attention.cu), named
+    like `K10b<bf16, D 64, ps 16>` or `K6 masked<...>` (D and ps 0: the
+    run-time instantiation of that DV, PJ)."""
     rows = []
     for name, regs, spill in ptxas_rows(text, "ring_walk_kernel"):
         k = re.search(r"ring_walk_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d+)ELb([01])E", name)
-        dtype, dv, pj, d, ps, p1 = k.groups()
+                      r"ELi(\d+)ELb([01])ELb([01])E", name)
+        dtype, dv, pj, d, ps, p1, masked = k.groups()
         shape = f"D {d}, ps {ps}" if d != "0" else f"DV {dv}, PJ {pj}"
-        rows.append((f"{'K10a' if p1 == '1' else 'K10b'}"
-                     f"<{DTYPE_NAMES.get(dtype, dtype)}, {shape}>", regs,
-                     spill))
-    return rows
-
-
-def decode_ptxas(text: str) -> list:
-    """[(kernel, registers, spill store bytes)] of each K9 instantiation
-    in the `-Xptxas -v` log of paged_decode_attention.cu, named like
-    `K9<bf16, D 64, ps 16>` or `K9 masked<...>` (D and ps 0: the run-time
-    instantiation of that DV, PJ)."""
-    rows = []
-    for name, regs, spill in ptxas_rows(text, "decode_ring_kernel"):
-        k = re.search(r"decode_ring_kernelI(\w+?)Li(\d+)ELi(\d+)ELi(\d+)"
-                      r"ELi(\d+)ELb([01])E", name)
-        dtype, dv, pj, d, ps, masked = k.groups()
-        shape = f"D {d}, ps {ps}" if d != "0" else f"DV {dv}, PJ {pj}"
-        rows.append((f"K9{' masked' if masked == '1' else ''}"
-                     f"<{DTYPE_NAMES.get(dtype, dtype)}, {shape}>", regs,
-                     spill))
+        label = (("K10a" if p1 == "1" else "K10b") if kernel == "K10" else
+                 kernel + (" masked" if masked == "1" else ""))
+        rows.append((f"{label}<{DTYPE_NAMES.get(dtype, dtype)}, {shape}>",
+                     regs, spill))
     return rows
 
 
 def lora_ptxas(text: str) -> list:
     """[(kernel, registers, spill store bytes)] of each K11 instantiation
-    in the `-Xptxas -v` log of lora_paged.cu, named like `K11<bf16>`."""
-    return [(f"K11<{DTYPE_NAMES.get(m.group(1), m.group(1))}>", regs, spill)
+    in the `-Xptxas -v` log of lora_paged.cu, named like `K11<bf16, kU
+    1, R16>` (kU: the warp tasks a thread carries, 4 where a group of t's
+    ranks needs more than a warp's task; R16: ranks up to 16, the serving
+    step's launch)."""
+    return [(f"K11<{DTYPE_NAMES.get(m.group(1), m.group(1))}, kU "
+             f"{m.group(2)}{', R16' if m.group(3) == '1' else ''}>", regs,
+             spill)
             for name, regs, spill in ptxas_rows(text, "lora_paged_kernel")
-            for m in [re.search(r"lora_paged_kernelI(\w+?)Lb[01]E", name)]]
+            for m in [re.search(r"lora_paged_kernelI(\w+?)Lb[01]ELi(\d+)"
+                                r"ELb([01])E", name)]]
 
 
 def decode_bytes(q, k, table, pos, masked: bool) -> int:
@@ -1003,8 +1018,7 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
     mbound_ms, mbound_by = bound(decode_bytes(q, k, table, pos, True),
                                  4 * keys * h * d + keys * h, BF16_FLOPS)
     plan = tpa.decode_plan(q, k)
-    plan_masked = tpa.decode_plan(q, k, masked=True)
-    log(f"  {key} launch: {plan}; with a mask: {plan_masked}")
+    log(f"  {key} launch (with or without a mask): {plan}")
     log(f"  {key} bf16 [16, 1, 12, 64] over [993, 16, 12, 64], "
         f"{LANE_NAMES[lane]}: kernel {ms:.4f} ms (with the additive mask "
         f"{masked_ms:.4f} ms, bound {mbound_ms:.5f}), plain {plain_ms:.4f} "
@@ -1027,7 +1041,7 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
                     e for (dt, hh, what), e in errs.items() if what !=
                     "no mask"),
                 max_abs_err_rep4=errs[torch.bfloat16, 16, "no mask"],
-                plan=plan, plan_masked=plan_masked)
+                plan=plan)
 
 
 def check_flash_serving(dev, tfa):
@@ -1230,24 +1244,11 @@ def check_lora_paged(dev, tpa, time_ms):
         x, A, B, apage, ascale = lora_batch(dev, dtype, seed=SEED + 3)
         b, w, hid = x.shape
         r = A.shape[2]
-        zero = (apage == 0) | (ascale == 0)
         out = tpa.lora_delta_paged(x, A, B, apage, ascale)
         torch.cuda.synchronize()
-        ref = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
-        if out[zero].any():
-            raise AssertionError("K11: a base-page or zero-scale row is "
-                                 "not exactly 0")
-        tag = f"K11 lora_delta_paged [{b}, {w}, {hid}] rank {r} {dtype}"
-        if dtype == torch.float32:
-            errs[dtype] = check_close(tag, out, ref)
-        else:
-            ap = apage.long()
-            t = torch.bmm(x.float(), A[ap].float()).to(dtype).float()
-            s = ascale.to(dtype).float()[:, None, None]
-            flip = torch.bmm(bf16_ulp(t, dtype), B[ap].float().abs()) * s
-            errs[dtype] = check_close(tag, out, ref, extra=flip,
-                                      extra_rule="+ one ulp of t "
-                                      "through B and the scale")
+        errs[dtype] = lora_within_rule(
+            tpa, f"K11 lora_delta_paged [{b}, {w}, {hid}] rank {r} {dtype}",
+            out, x, A, B, apage, ascale)
         same_bits(f"K11 {dtype}", lambda: (tpa.lora_delta_paged(
             x, A, B, apage, ascale),))
     x, A, B, apage, ascale = lora_batch(dev, torch.bfloat16, seed=SEED + 3)
@@ -1276,7 +1277,68 @@ def check_lora_paged(dev, tpa, time_ms):
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms,
                 library_call="torch.bmm(torch.bmm(x, A[apage]), B[apage])",
                 max_abs_err_f32=errs[torch.float32],
-                max_abs_err_f16=errs[torch.float16], plan=plan)
+                max_abs_err_f16=errs[torch.float16], plan=plan,
+                ranks={rk: check_lora_rank(dev, tpa, time_ms, rk)
+                       for rk in LORA_LARGE_RANKS})
+
+
+def check_lora_rank(dev, tpa, time_ms, r: int) -> dict:
+    """K11 at rank `r` over 16 (t summed a group of ranks at a time, d
+    over R in k-steps of 16) at the serving step's shapes, in f32, bf16
+    and f16, under the rank-8 rule (`lora_within_rule`), base-page rows
+    exactly 0, 20 repeats bit-identical; timed in bf16 beside its plain
+    version and two `torch.bmm` over the gathered pages. Returns its
+    numbers and launch."""
+    from paddle_tpu_torch.ops.cuda.launch_check import lora_batch
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        args = lora_batch(dev, dtype, seed=SEED + 3, r=r)
+        out = tpa.lora_delta_paged(*args)
+        torch.cuda.synchronize()
+        errs[str(dtype)] = lora_within_rule(
+            tpa, f"K11 lora_delta_paged [16, 32, 768] rank {r} {dtype}",
+            out, *args)
+        same_bits(f"K11 rank {r} {dtype}",
+                  lambda: (tpa.lora_delta_paged(*args),))
+    x, A, B, apage, ascale = lora_batch(dev, torch.bfloat16, seed=SEED + 3,
+                                        r=r)
+    b, w, hid = x.shape
+    plan = tpa.lora_plan(x, A, B)
+    ms = time_ms(lambda: tpa.lora_delta_paged(x, A, B, apage, ascale))
+    plain_ms = time_ms(lambda: tpa.lora_delta_paged_reference(
+        x, A, B, apage, ascale))
+    Ag, Bg = A[apage.long()], B[apage.long()]
+    lib_ms = time_ms(lambda: torch.bmm(torch.bmm(x, Ag), Bg))
+    item = x.element_size()
+    pages = len(set(apage.tolist()))
+    bound_ms, bound_by = bound(
+        2 * x.numel() * item + pages * 2 * hid * r * item + b * 8,
+        2 * b * w * r * 2 * hid, BF16_FLOPS)
+    log(f"  K11 bf16 [{b}, {w}, {hid}] rank {r}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, two torch.bmm {lib_ms:.4f} ms, bound "
+        f"{bound_ms:.5f} ms ({bound_by}); launch {plan}")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by, max_abs_err=errs,
+                plan=plan)
+
+
+def lora_within_rule(tpa, tag, out, x, A, B, apage, ascale) -> float:
+    """K11's rule (`check_lora_paged`'s): base-page and zero-scale rows
+    exactly 0; f32 within the f32 rule, bf16/f16 within 2 ulps plus one
+    ulp of t carried through B and the scale. Returns the max error."""
+    zero = (apage == 0) | (ascale == 0)
+    if out[zero].any():
+        raise AssertionError(f"{tag}: a base-page or zero-scale row is not "
+                             "exactly 0")
+    ref = tpa.lora_delta_paged_reference(x, A, B, apage, ascale)
+    if out.dtype == torch.float32:
+        return check_close(tag, out, ref)
+    ap = apage.long()
+    t = torch.bmm(x.float(), A[ap].float()).to(out.dtype).float()
+    s = ascale.to(out.dtype).float()[:, None, None]
+    flip = torch.bmm(bf16_ulp(t, out.dtype), B[ap].float().abs()) * s
+    return check_close(tag, out, ref, extra=flip,
+                       extra_rule="+ one ulp of t through B and the scale")
 
 
 def check_greedy_argmax(dev, tpa, time_ms):
@@ -1491,14 +1553,16 @@ def snap_cpu(t):
 def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
           profile: bool = False, kv_dtype: str = "fp", unified: bool = True,
           attn_impl: str = "kernel", megakernel: bool = False,
-          adapter_pages=None):
+          adapter_pages=None, adapter_ranks=(2, 4, 8), page_size=None):
     """One run of phase 3's traffic on a fresh engine: the defaults
     (grouped walk, preemption, host tier) or grouped=False, over pools of
     `kv_dtype`; or the legacy alternating step (unified=False), or the
     gather arm (attn_impl="gather"), where the grouped walk drops; with
     the decode megakernel (`megakernel`); with `adapter_pages` set, the
-    LORA adapters registered in an adapter pool of that many pages and
-    the requests spread over the tenants of `adapter_traffic`.
+    LORA adapters registered in an adapter pool of that many pages (rank
+    buckets `adapter_ranks`, the pool's rank their largest) and the
+    requests spread over the tenants of `adapter_traffic`; with
+    `page_size`, pages of that many keys in place of ENGINE's.
     Returns the launches, the stats and every request's tokens."""
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
@@ -1538,7 +1602,9 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         arm = (f"{kv_dtype} {'defaults' if grouped else 'grouped=False'}"
                f"{', gather' if attn_impl == 'gather' else ''}"
                f"{', megakernel' if megakernel else ''}"
-               f"{f', adapters ({adapter_pages} pages)' if adapters else ''}")
+               f"{f', adapters ({adapter_pages} pages)' if adapters else ''}"
+               f"{f', rank buckets {adapter_ranks}' if adapters else ''}"
+               f"{f', pages of {page_size}' if page_size else ''}")
     else:
         arm = f"{kv_dtype} legacy"
     extra = {}
@@ -1546,14 +1612,16 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         extra["megakernel"] = True
     if adapters:
         extra.update(adapters=True, adapter_pages=adapter_pages,
-                     adapter_ranks=(2, 4, 8))
+                     adapter_ranks=adapter_ranks)
     eng = RecordingEngine(model, device=dev, seed=SEED,
                           **({} if grouped else {"grouped": False}),
                           **({} if kv_dtype == "fp" else
                              {"kv_dtype": kv_dtype}),
                           **({} if unified else {"unified": False}),
                           **({} if attn_impl == "kernel" else
-                             {"attn_impl": attn_impl}), **extra, **ENGINE)
+                             {"attn_impl": attn_impl}), **extra,
+                          **{**ENGINE, **({"page_size": page_size}
+                                          if page_size else {})})
     want_gates = (grouped and unified and attn_impl == "kernel", True,
                   kv_dtype, unified, attn_impl, megakernel, adapters)
     if (eng.grouped, eng.preempt, eng.kv_dtype, eng.unified,
@@ -1762,8 +1830,19 @@ def serving(dev, tln, tpa):
         f"{off2['tokens_per_s']:.1f}")
     if not same:
         raise AssertionError("grouped and ungrouped runs gave other tokens")
-    return ({"serving": on, "serving_ungrouped": off},
-            {"defaults": [on_stats, on2], "grouped_off": [off_stats, off2]},
+    # pages of 256 keys: the walks fold each page in two pieces of 128
+    big, big_stats, big_tokens = serve(dev, tln, tpa, model, True,
+                                       record=True, page_size=256)
+    pairs = [(a, b) for got, w in zip(big_tokens, on_tokens)
+             for a, b in zip(got, w)]
+    big_stats["agreement_with_page_16"] = sum(
+        a == b for a, b in pairs) / len(pairs)
+    log(f"  [page 256] tokens equal to the page-16 defaults arm's at "
+        f"{big_stats['agreement_with_page_16']:.4f} of positions")
+    return ({"serving": on, "serving_ungrouped": off,
+             "serving_page256": big},
+            {"defaults": [on_stats, on2], "grouped_off": [off_stats, off2],
+             "page_256": big_stats},
             model, on_tokens)
 
 
@@ -1868,6 +1947,9 @@ def serving_megakernel(dev, tln, tpa, model, fp_tokens, int8_tokens) -> tuple:
                   profile=True)),
             ("serving_adapters_megakernel_2pages", "fp", None,
              dict(adapter_pages=2, megakernel=True)),
+            ("serving_adapters_r32_megakernel", "fp", None,
+             dict(adapter_pages=8, megakernel=True,
+                  adapter_ranks=LORA_RANK32_BUCKETS, record=True)),
             ("serving_int8_adapters_megakernel", "int8", None,
              dict(adapter_pages=8, megakernel=True, kv_dtype="int8",
                   record=True)))
@@ -1887,7 +1969,8 @@ def serving_megakernel(dev, tln, tpa, model, fp_tokens, int8_tokens) -> tuple:
         stats[path] = st
     off = tokens["serving_adapters"]
     for path in ("serving_adapters_megakernel",
-                 "serving_adapters_megakernel_2pages"):
+                 "serving_adapters_megakernel_2pages",
+                 "serving_adapters_r32_megakernel"):
         pairs = [(a, b) for got, w in zip(tokens[path], off)
                  for a, b in zip(got, w)]
         share = sum(a == b for a, b in pairs) / len(pairs)
@@ -2124,8 +2207,9 @@ def profile_steps(eng, prompts) -> dict:
 
 
 # kernels whose device time a profile totals, by a part of their symbol:
-# K9's walk (paged_decode_attention.cu) and K11 (lora_paged.cu)
-PROFILED_KERNELS = {"K9": "decode_ring_kernel", "K11": "lora_paged_kernel"}
+# the walk (K6, K7, K9 and both phases of K10: one kernel, whichever the
+# arm launches) and K11 (lora_paged.cu)
+PROFILED_KERNELS = {"walk": "ring_walk_kernel", "K11": "lora_paged_kernel"}
 
 
 def device_busy(prof, wall_us: float) -> dict:
@@ -2151,8 +2235,8 @@ def device_busy(prof, wall_us: float) -> dict:
                             e.self_device_time_total / 1e3] for e in top],
            "kernel_totals": totals}
     log(f"  profiled: device busy {out['device_busy_ms']:.2f} of "
-        f"{out['wall_ms']:.2f} ms wall; K9 {totals['K9'][1]:.3f} ms in "
-        f"{totals['K9'][0]} calls, K11 {totals['K11'][1]:.3f} ms in "
+        f"{out['wall_ms']:.2f} ms wall; the walk {totals['walk'][1]:.3f} "
+        f"ms in {totals['walk'][0]} calls, K11 {totals['K11'][1]:.3f} ms in "
         f"{totals['K11'][0]} calls")
     for name, count, ms in out["top_kernels"]:
         log(f"    {ms:9.3f} ms  x{count:<5d} {name}")
@@ -2413,7 +2497,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     build_logs = _build.build()
-    ptxas = {}    # K9's, K10's and K11's instantiations, by `parse`
+    ptxas = {}    # K6's, K9's, K10's and K11's instantiations, by `parse`
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for "
         f"{sorted(build_logs)}; card: {smi}")
     for name, text in build_logs.items():
@@ -2425,8 +2509,12 @@ def main() -> int:
             for kernel, n_regs, spill in tensor_core_ptxas(text):
                 log(f"    {kernel}: {n_regs} registers at launch, {spill} "
                     "bytes of spill stores")
-        parse = {"grouped_paged_attention": ("K10 ring", ring_ptxas),
-                 "paged_decode_attention": ("K9", decode_ptxas),
+        parse = {"grouped_paged_attention": (
+                     "K10 ring", lambda t: ring_ptxas(t, "K10")),
+                 "ragged_paged_attention": (
+                     "K6 ring", lambda t: ring_ptxas(t, "K6")),
+                 "paged_decode_attention": (
+                     "K9", lambda t: ring_ptxas(t, "K9")),
                  "lora_paged": ("K11", lora_ptxas)}.get(name)
         if parse and text:
             rows = parse[1](text)
@@ -2478,7 +2566,9 @@ def main() -> int:
     kernels["K6"]["user_mask"] = masked["K6"]
     kernels["K7"]["user_mask"] = masked["K7"]
     kernels["K11"] = check_lora_paged(dev, tpa, timer)
-    for key, lib in (("K9", "K9"), ("K9-fp8", "K9"), ("K11", "K11")):
+    for key, lib in (("K9", "K9"), ("K9-fp8", "K9"), ("K11", "K11"),
+                     ("K6", "K6 ring"), ("K6-fp8", "K6 ring"),
+                     ("K7", "K6 ring")):
         kernels[key]["ptxas"] = ptxas.get(lib)
     kernels["K12"] = check_greedy_argmax(dev, tpa, timer)
     torch.cuda.empty_cache()

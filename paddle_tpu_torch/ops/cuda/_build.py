@@ -47,10 +47,11 @@ KERNELS = {
     },
     "ragged_paged_attention": {
         "ptt_ragged_paged_attention": [_P] * 10 + [_I] * 11 + [_P],
+        "ptt_ragged_plan": [_I] * 8 + [_P],
     },
     "paged_decode_attention": {
         "ptt_paged_decode_attention": [_P] * 7 + [_I] * 10 + [_P],
-        "ptt_decode_plan": [_I] * 8 + [_P],
+        "ptt_decode_plan": [_I] * 7 + [_P],
     },
     "grouped_paged_attention": {
         "ptt_grouped_phase1": [_P] * 14 + [_I] * 11 + [_P],

@@ -40,15 +40,23 @@
 // - In bf16/f16 both products run on the tensor cores with mma.sync
 //   m16n8k16 (f32 accumulators): t is [W x IN] . [IN x R], d is
 //   [W x R] . [R x OUT]. Not wgmma: its tiles are 64 rows, and W <= 32
-//   at the serving step; R <= 16 is one k-step of d. R < 16 and the
-//   ragged edges of W, IN and OUT are padded with zeros in shared
-//   memory, and zeros add exactly nothing. The x and B tiles feed
-//   ldmatrix (A page and B slab transposed on the load), with rows padded
-//   to an odd number of 16-byte units so a load hits distinct banks.
+//   at the serving step. R is walked in pieces of 16, as IN and OUT are
+//   walked in pieces of 256: t's columns are summed a group of ranks at a
+//   time (all of R in one group up to 64 ranks at 64 positions; each
+//   column's sums in the same order whatever the group), and d sums over
+//   R in k-steps of 16, one mma after another into its f32 accumulator,
+//   in rank order; at R <= 16 that is one k-step, the launch of ranks
+//   1-16. R past a multiple of 16 and the ragged edges of W, IN and OUT
+//   are padded with zeros in shared memory, and zeros add exactly
+//   nothing. Where a large rank's tiles would not fit shared memory, a
+//   cluster takes fewer positions, then smaller pieces of IN and OUT,
+//   then fewer blocks (`make_plan`). The x and B tiles feed ldmatrix (A
+//   page and B slab transposed on the load), with rows padded to an odd
+//   number of 16-byte units so a load hits distinct banks.
 // - The f32 lane keeps f32 FMAs on the CUDA cores (no TF32: its rule is
 //   1e-5): the same cluster, slices and rank-order combine; a thread per
-//   (position, rank) sums its slice in order, a thread per four output
-//   columns sums over the ranks in order.
+//   (position, rank) of a group sums its slice in order, a thread per four
+//   output columns sums over all the ranks in order.
 // - Every tile comes in by cp.async, 16 bytes a thread, where the rows
 //   are 16-byte aligned (IN, OUT and, for the A page, R a multiple of the
 //   16-byte vector); the x and A tiles and the B tile are two commit
@@ -59,8 +67,9 @@
 //   to T, then __fmul_rn by T(scale) rounded to T (__float2bfloat16, as
 //   layer_norm.cu rounds), so no FMA contracts across a rounding point.
 // IN and OUT larger than one tile (256) are walked in pieces, so any
-// shape the JAX op takes fits shared memory. The page id is clamped into
-// the pool.
+// shape the JAX op takes fits shared memory, at every rank up to about
+// 1,400 (f32; 1,536 in bf16/f16 at IN = OUT = 768). The page id is
+// clamped into the pool.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -75,7 +84,10 @@ constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kSMs = 132;        // blocks wanted in flight
 constexpr int kMaxRows = 64;     // positions a cluster
 constexpr int kPiece = 256;      // IN (OUT) elements a staged tile
-constexpr int kRankPad = 16;     // t's columns: one k-step of d
+constexpr int kRankStep = 16;    // one k-step of d: R is walked in these
+constexpr int kTasksMax = 32;    // t's warp tasks of a group: 4 a warp
+constexpr int kSumsMax = 4;      // t's f32 sums of a group a thread carries
+constexpr size_t kSmemMax = 232448;  // dynamic shared memory a block
 
 __host__ __device__ constexpr int cdiv(int a, int b) {
   return (a + b - 1) / b;
@@ -91,54 +103,87 @@ __host__ __device__ inline int odd_units(int n) {
 
 // A launch's geometry and shared memory, computed on the host for the
 // launch (which passes it to the kernel) and for `ptt_lora_plan`. mma:
-// the bf16/f16 lane.
+// the bf16/f16 lane. R is padded to rp, a multiple of kRankStep; t's
+// partial is computed a group of gr ranks at a time (all of R in one group
+// up to 64 ranks at 64 positions), so a warp carries at most four
+// fragments (a thread at most four f32 sums). Where the tiles do not fit
+// shared memory the positions a cluster takes (wc) shrink first, then the
+// staged pieces of IN and OUT, then the cluster; never the rank.
 struct Plan {
   int nc;        // blocks a cluster
   int wc, nwc;   // positions a cluster (a multiple of 16), clusters a row
   int ks, ct;    // IN slice and OUT tile of one block
   int kt, ctt;   // staged piece of the slice and of the tile
   int xs, bs;    // row strides (elements) of the x/out and B tiles
-  int nt;        // 8-wide rank tiles of t (mma lane)
+  int rp, gr;    // R padded to k-steps of d; ranks of a group of t
+  int ts;        // row stride (elements) of t
+  int ku;        // warp tasks (mma) or sums (f32) a thread carries
   size_t x_off, a_off, b_off, p_off, t_off, bar_off, total;  // bytes
 };
 
 __host__ __device__ inline Plan make_plan(bool mma, int elem, int B, int W,
                                           int IN, int R, int OUT) {
   Plan p;
-  p.wc = imin(kMaxRows, cdiv(imax(W, 1), 16) * 16);
-  p.nwc = cdiv(W, p.wc);
+  p.rp = cdiv(imax(R, 1), kRankStep) * kRankStep;
   const int nk = imax(1, cdiv(IN, 16)), nn = imax(1, cdiv(OUT, 8));
-  const int want = cdiv(kSMs, imax(1, B * p.nwc));
-  p.nc = imin(imin(kMaxCluster, imax(1, want)), imin(nk, nn));
-  p.ks = cdiv(nk, p.nc) * 16;
-  p.ct = cdiv(nn, p.nc) * 8;
-  p.kt = imin(p.ks, kPiece);
-  p.ctt = imin(p.ct, kPiece);
-  p.nt = cdiv(R, 8);
-  size_t xb, ab, bb, tb;
-  if (mma) {
-    p.xs = odd_units(imax(p.kt, p.ctt));   // x tile, then the out tile
-    p.bs = odd_units(p.ctt);
-    xb = (size_t)p.wc * p.xs * elem;
-    ab = (size_t)p.nt * p.kt * 8 * elem;  // [nt][kt][8]
-    bb = (size_t)kRankPad * p.bs * elem;  // [16][bs]
-    tb = (size_t)p.wc * 24 * elem;        // [wc][24]: t in T
-  } else {
-    p.xs = p.kt + 4;
-    p.bs = p.ctt;
-    xb = (size_t)p.wc * p.xs * 4;
-    ab = (size_t)p.kt * kRankPad * 4;     // [kt][16]
-    bb = (size_t)kRankPad * p.bs * 4;
-    tb = (size_t)p.wc * kRankPad * 4;     // t in f32
+  int wc = imin(kMaxRows, cdiv(imax(W, 1), 16) * 16);
+  int kcap = kPiece, ccap = kPiece, ncap = kMaxCluster;
+  for (;;) {
+    p.wc = wc;
+    p.nwc = cdiv(W, p.wc);
+    const int want = cdiv(kSMs, imax(1, B * p.nwc));
+    p.nc = imin(imin(ncap, imax(1, want)), imin(nk, nn));
+    p.ks = cdiv(nk, p.nc) * 16;
+    p.ct = cdiv(nn, p.nc) * 8;
+    p.kt = imin(p.ks, kcap);
+    p.ctt = imin(p.ct, ccap);
+    const int mts = p.wc / 16;
+    size_t xb, ab, bb, tb;
+    if (mma) {
+      // (m-tile, 8-rank tile) warp tasks of one group: at most kTasksMax
+      p.gr = imin(p.rp, imax(kRankStep,
+                             kTasksMax / mts * 8 / kRankStep * kRankStep));
+      p.ku = mts * cdiv(imin(p.gr, R), 8) <= kWarps ? 1 : kTasksMax / kWarps;
+      p.xs = odd_units(imax(p.kt, p.ctt));  // x tile, then the out tile
+      p.bs = odd_units(p.ctt);
+      p.ts = p.rp + 8;
+      xb = (size_t)p.wc * p.xs * elem;
+      ab = (size_t)cdiv(imin(p.gr, R), 8) * p.kt * 8 * elem;  // [nt][kt][8]
+      bb = (size_t)p.rp * p.bs * elem;                        // [rp][bs]
+      tb = (size_t)p.wc * p.ts * elem;                        // t in T
+    } else {
+      // (position, rank) sums of one group: at most four a thread
+      p.gr = imin(p.rp, imax(kRankStep, kSumsMax * kThreads / p.wc /
+                                            kRankStep * kRankStep));
+      p.ku = kSumsMax;
+      p.xs = p.kt + 4;
+      p.bs = p.ctt;
+      p.ts = p.rp;
+      xb = (size_t)p.wc * p.xs * 4;
+      ab = (size_t)p.kt * p.gr * 4;     // [kt][gr]
+      bb = (size_t)p.rp * p.bs * 4;     // [rp][bs]
+      tb = (size_t)p.wc * p.ts * 4;     // t in f32
+    }
+    p.x_off = 0;
+    p.a_off = round16(xb);
+    p.b_off = p.a_off + round16(ab);
+    p.p_off = p.b_off + round16(bb);
+    // every block's partial, [nc][wc][rp] f32
+    p.t_off = p.p_off + round16((size_t)p.nc * p.wc * p.rp * 4);
+    p.bar_off = p.t_off + round16(tb);
+    p.total = p.bar_off + 16;
+    if (p.total <= kSmemMax) break;
+    if (wc > 16) {
+      wc -= 16;
+    } else if (kcap > 16 || ccap > 8) {
+      kcap = imax(16, kcap / 2);
+      ccap = imax(8, ccap / 2);
+    } else if (ncap > 1) {
+      ncap /= 2;  // fewer partials: the last resort, as it costs SMs
+    } else {
+      break;  // too large a rank: total > kSmemMax, the launch refuses
+    }
   }
-  p.x_off = 0;
-  p.a_off = round16(xb);
-  p.b_off = p.a_off + round16(ab);
-  p.p_off = p.b_off + round16(bb);
-  // every block's partial, [nc][wc][16] f32
-  p.t_off = p.p_off + round16((size_t)p.nc * p.wc * kRankPad * 4);
-  p.bar_off = p.t_off + round16(tb);
-  p.total = p.bar_off + 16;
   return p;
 }
 
@@ -271,29 +316,32 @@ __device__ void stage_x(const Args& a, const Plan& p, int b, int w0, int i0,
   }
 }
 
-// Stage the A page's rows i0 .. i0 + kt - 1 (zero past iend and past R):
-// bf16/f16 as [nt][kt][8] (rank tile h holds ranks 8h .. 8h + 7), f32 as
-// [kt][16].
+// Stage the A page's rows i0 .. i0 + kt - 1, ranks r0 .. r0 + gr - 1
+// (zero past iend and past R): bf16/f16 as [nt][kt][8] (rank tile h holds
+// ranks r0 + 8h .. r0 + 8h + 7, nt tiles through min(R, r0 + gr)), f32
+// as [kt][gr].
 template <typename T, bool kMma>
 __device__ void stage_a(const Args& a, const Plan& p, const T* A, int i0,
-                        int iend, T* sa) {
+                        int iend, int r0, int gr, T* sa) {
   constexpr int E = 16 / sizeof(T);
   const int R = a.R;
-  const int cols = kMma ? 8 : kRankPad;   // a staged row's width
-  const int groups = kMma ? p.nt : kRankPad / E;
+  const int nt = cdiv(imin(gr, R - r0), 8);
+  const int cols = kMma ? 8 : gr;   // a staged row's width
+  const int groups = kMma ? nt : gr / E;
   if (a.avec) {  // R a multiple of E: whole 16-byte chunks of a row
     for (int idx = threadIdx.x; idx < p.kt * groups; idx += kThreads) {
       const int k = idx / groups, h = idx - k * groups;
-      const bool ok = i0 + k < iend && h * E < R;
+      const bool ok = i0 + k < iend && r0 + h * E < R;
       T* dst = kMma ? sa + ((size_t)h * p.kt + k) * 8 : sa + k * cols + h * E;
-      cp16(dst, ok ? A + (size_t)(i0 + k) * R + h * E : A, ok);
+      cp16(dst, ok ? A + (size_t)(i0 + k) * R + r0 + h * E : A, ok);
     }
   } else {
-    const int per = kMma ? p.nt * 8 : kRankPad;
+    const int per = kMma ? nt * 8 : gr;
     for (int idx = threadIdx.x; idx < p.kt * per; idx += kThreads) {
       const int k = idx / per, r = idx - k * per;
-      const bool ok = i0 + k < iend && r < R;
-      const T v = ok ? A[(size_t)(i0 + k) * R + r] : ptt::from_f32<T>(0.f);
+      const bool ok = i0 + k < iend && r0 + r < R;
+      const T v =
+          ok ? A[(size_t)(i0 + k) * R + r0 + r] : ptt::from_f32<T>(0.f);
       if (kMma)
         sa[((size_t)(r / 8) * p.kt + k) * 8 + r % 8] = v;
       else
@@ -303,21 +351,21 @@ __device__ void stage_a(const Args& a, const Plan& p, const T* A, int i0,
 }
 
 // Stage the B page's columns c0 .. c0 + ctt - 1 (zero past cend and in
-// rows R .. 15) into the [16][bs] tile.
+// rows R .. rp - 1) into the [rp][bs] tile.
 template <typename T>
 __device__ void stage_b(const Args& a, const Plan& p, const T* Bm, int c0,
-                        int cend, T* sb) {
+                        int cend, int rp, T* sb) {
   constexpr int E = 16 / sizeof(T);
   if (a.vec) {
     const int nch = p.ctt / E;
-    for (int idx = threadIdx.x; idx < kRankPad * nch; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < rp * nch; idx += kThreads) {
       const int r = idx / nch, c = (idx - r * nch) * E;
       const bool ok = r < a.R && c0 + c < cend;
       cp16(sb + r * p.bs + c, ok ? Bm + (size_t)r * a.OUT + c0 + c : Bm,
            ok);
     }
   } else {
-    for (int idx = threadIdx.x; idx < kRankPad * p.ctt; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < rp * p.ctt; idx += kThreads) {
       const int r = idx / p.ctt, c = idx - r * p.ctt;
       const bool ok = r < a.R && c0 + c < cend;
       sb[r * p.bs + c] =
@@ -395,9 +443,15 @@ __device__ __forceinline__ void t_piece_mma(const Plan& p, const T* sx,
   }
 }
 
-template <typename T, bool kMma>
+// kU: the warp tasks (mma) or sums (f32) a thread carries through one
+// group of t's ranks (Plan::ku). kR16: R <= 16, one group of t's ranks and
+// one k-step of d, the plan's rank geometry as compile-time constants.
+template <typename T, bool kMma, int kU, bool kR16>
 __global__ void __launch_bounds__(kThreads)
     lora_paged_kernel(const Args a, const Plan p) {
+  const int rp = kR16 ? kRankStep : p.rp;
+  const int gr = kR16 ? kRankStep : p.gr;
+  const int ts = kR16 ? (kMma ? kRankStep + 8 : kRankStep) : p.ts;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int c = static_cast<int>(cluster.block_rank());
@@ -412,7 +466,7 @@ __global__ void __launch_bounds__(kThreads)
   T* sx = reinterpret_cast<T*>(smem + p.x_off);
   T* sa = reinterpret_cast<T*>(smem + p.a_off);
   T* sb = reinterpret_cast<T*>(smem + p.b_off);
-  // every block's partial of t: [nc][wc][16] f32, row c from block c
+  // every block's partial of t: [nc][wc][rp] f32, row c from block c
   float* sp = reinterpret_cast<float*>(smem + p.p_off);
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem + p.bar_off);
   const int i_lo = min(a.IN, c * p.ks), i_hi = min(a.IN, (c + 1) * p.ks);
@@ -421,8 +475,8 @@ __global__ void __launch_bounds__(kThreads)
   // The partials cross by push: every block stores its partial into each
   // block's `sp` with st.async, whose bytes complete the transaction of
   // the receiving block's mbarrier. `pushed`: the bytes one block sends
-  // to each (every block of the cluster sends the same).
-  const unsigned pushed = kMma ? mts * p.nt * 32 * 4 * sizeof(float)
+  // to each (every block of the cluster sends the same), over all groups.
+  const unsigned pushed = kMma ? mts * cdiv(a.R, 8) * 32 * 4 * sizeof(float)
                                : rows * a.R * sizeof(float);
   if (tid == 0) {
     mbar_init(bar);
@@ -433,74 +487,81 @@ __global__ void __launch_bounds__(kThreads)
   // group 0: the slice's first x and A piece; group 1: the tile's first
   // B piece, landing while t is computed
   stage_x<T>(a, p, b, w0, i_lo, i_hi, sx);
-  stage_a<T, kMma>(a, p, A, i_lo, i_hi, sa);
+  stage_a<T, kMma>(a, p, A, i_lo, i_hi, 0, gr, sa);
   cp_commit();
-  stage_b<T>(a, p, Bm, c_lo, c_hi, sb);
+  stage_b<T>(a, p, Bm, c_lo, c_hi, rp, sb);
   cp_commit();
 
-  // ---- t's partial over this block's slice of IN ----
-  constexpr int kTasks = 4 * 2;  // at most 4 m-tiles x 2 rank tiles
-  constexpr int kU =
-      kMma ? cdiv(kTasks, kWarps) : kMaxRows * kRankPad / kThreads;
-  float acc[kU][4] = {};  // mma: a fragment a task; f32: acc[u][0]
+  // ---- t's partial over this block's slice of IN, gr ranks at a time:
+  // the steps (group gi, piece pc) in order ----
   const int n_pieces = max(1, cdiv(i_hi - i_lo, p.kt));
-  for (int pc = 0; pc < n_pieces; ++pc) {
-    if (pc == 0)
-      cp_wait<1>();
-    else
-      cp_wait<0>();
-    __syncthreads();
+  const int n_groups = kR16 ? 1 : cdiv(a.R, gr);
+  for (int gi = 0; gi < n_groups; ++gi) {
+    const int r0 = gi * gr;
+    const int grn = min(gr, a.R - r0);  // ranks of this group
+    const int nt = cdiv(grn, 8);        // their 8-rank tiles
+    float acc[kU][4] = {};  // mma: a fragment a task; f32: acc[u][0]
+    for (int pc = 0; pc < n_pieces; ++pc) {
+      if (gi == 0 && pc == 0)
+        cp_wait<1>();
+      else
+        cp_wait<0>();
+      __syncthreads();
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if constexpr (kMma) {
-        // warp task (m-tile, rank tile) = (task / nt, task % nt)
-        const int task = warp + u * kWarps;
-        const int mt = task / p.nt, h = task - mt * p.nt;
-        if (mt < mts) t_piece_mma<T>(p, sx, sa, mt, h, acc[u], lane);
-      } else {
-        // a thread per (position, rank), the slice's terms in order
-        const int idx = u * kThreads + tid;
-        if (idx < rows * a.R) {
-          const int w = idx / a.R, r = idx - w * a.R;
-          const float* xr = reinterpret_cast<const float*>(sx) + w * p.xs;
-          const float* ar = reinterpret_cast<const float*>(sa) + r;
-          float v = acc[u][0];
-          for (int k = 0; k < p.kt; ++k)
-            v = fmaf(xr[k], ar[k * kRankPad], v);
-          acc[u][0] = v;
+      for (int u = 0; u < kU; ++u) {
+        if constexpr (kMma) {
+          // warp task (m-tile, rank tile) = (task / nt, task % nt)
+          const int task = warp + u * kWarps;
+          const int mt = task / nt, h = task - mt * nt;
+          if (mt < mts) t_piece_mma<T>(p, sx, sa, mt, h, acc[u], lane);
+        } else {
+          // a thread per (position, rank), the slice's terms in order
+          const int idx = u * kThreads + tid;
+          if (idx < rows * grn) {
+            const int w = idx / grn, r = idx - w * grn;
+            const float* xr = reinterpret_cast<const float*>(sx) + w * p.xs;
+            const float* ar = reinterpret_cast<const float*>(sa) + r;
+            float v = acc[u][0];
+            for (int k = 0; k < p.kt; ++k)
+              v = fmaf(xr[k], ar[k * gr], v);
+            acc[u][0] = v;
+          }
         }
       }
+      // the next step's tiles: the next piece, or the next group's first
+      const bool last = pc + 1 == n_pieces;
+      if (!last || gi + 1 < n_groups) {
+        __syncthreads();  // every warp is done with this step's tiles
+        const int i0 = i_lo + (last ? 0 : pc + 1) * p.kt;
+        if (n_pieces > 1) stage_x<T>(a, p, b, w0, i0, i_hi, sx);
+        stage_a<T, kMma>(a, p, A, i0, i_hi, last ? r0 + gr : r0, gr,
+                         sa);
+        cp_commit();
+      }
     }
-    if (pc + 1 < n_pieces) {
-      __syncthreads();  // every warp is done with this piece
-      const int i0 = i_lo + (pc + 1) * p.kt;
-      stage_x<T>(a, p, b, w0, i0, i_hi, sx);
-      stage_a<T, kMma>(a, p, A, i0, i_hi, sa);
-      cp_commit();
-    }
-  }
-  // ---- the partials pushed to every block of the cluster ----
-  cluster_wait();  // every block's barrier is initialised
-  for (int k = 0; k < p.nc; ++k) {
-    const unsigned rbar = cluster_addr(bar, k);
-    float* mine = sp + (size_t)c * p.wc * kRankPad;  // row c of [nc]
+    // ---- this group's partials pushed to every block of the cluster ----
+    if (gi == 0) cluster_wait();  // every block's barrier is initialised
+    for (int k = 0; k < p.nc; ++k) {
+      const unsigned rbar = cluster_addr(bar, k);
+      float* mine = sp + (size_t)c * p.wc * rp;  // row c of [nc]
 #pragma unroll
-    for (int u = 0; u < kU; ++u) {
-      if constexpr (kMma) {
-        const int g = lane >> 2, q = lane & 3;
-        const int task = warp + u * kWarps;
-        const int mt = task / p.nt, h = task - mt * p.nt;
-        if (mt < mts) {
-          const float* r0 = mine + (mt * 16 + g) * kRankPad + h * 8 + 2 * q;
-          st_push<2>(cluster_addr(r0, k), acc[u], rbar);
-          st_push<2>(cluster_addr(r0 + 8 * kRankPad, k), acc[u] + 2, rbar);
-        }
-      } else {
-        const int idx = u * kThreads + tid;
-        if (idx < rows * a.R) {
-          const int w = idx / a.R, r = idx - w * a.R;
-          st_push<1>(cluster_addr(mine + w * kRankPad + r, k), acc[u],
-                     rbar);
+      for (int u = 0; u < kU; ++u) {
+        if constexpr (kMma) {
+          const int g = lane >> 2, q = lane & 3;
+          const int task = warp + u * kWarps;
+          const int mt = task / nt, h = task - mt * nt;
+          if (mt < mts) {
+            const float* t0 = mine + (mt * 16 + g) * rp + r0 + h * 8 + 2 * q;
+            st_push<2>(cluster_addr(t0, k), acc[u], rbar);
+            st_push<2>(cluster_addr(t0 + 8 * rp, k), acc[u] + 2, rbar);
+          }
+        } else {
+          const int idx = u * kThreads + tid;
+          if (idx < rows * grn) {
+            const int w = idx / grn, r = idx - w * grn;
+            st_push<1>(cluster_addr(mine + w * rp + r0 + r, k), acc[u],
+                       rbar);
+          }
         }
       }
     }
@@ -510,23 +571,22 @@ __global__ void __launch_bounds__(kThreads)
   // ---- t: the partials added in rank order, rounded to T ----
   // (entries no block pushed, past R or past the live m-tiles, are never
   // read as t: ranks >= R are set to 0, and d runs on the live m-tiles)
-  for (int idx = tid; idx < p.wc * kRankPad / 4; idx += kThreads) {
+  for (int idx = tid; idx < p.wc * rp / 4; idx += kThreads) {
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int k = 0; k < p.nc; ++k) {
       const float4 pk = reinterpret_cast<const float4*>(
-          sp + (size_t)k * p.wc * kRankPad)[idx];
+          sp + (size_t)k * p.wc * rp)[idx];
       v = make_float4(v.x + pk.x, v.y + pk.y, v.z + pk.z, v.w + pk.w);
     }
-    const int w = idx / (kRankPad / 4), r = (idx % (kRankPad / 4)) * 4;
+    const int w = idx / (rp / 4), r = (idx % (rp / 4)) * 4;
     const float vv[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      if constexpr (kMma)   // [wc][24] in T, ranks >= R exactly 0
-        reinterpret_cast<T*>(smem + p.t_off)[w * 24 + r + e] =
+      if constexpr (kMma)   // [wc][ts] in T, ranks >= R exactly 0
+        reinterpret_cast<T*>(smem + p.t_off)[w * ts + r + e] =
             ptt::from_f32<T>(r + e < a.R ? vv[e] : 0.f);
-      else                  // [wc][16] in f32
-        reinterpret_cast<float*>(smem + p.t_off)[w * kRankPad + r + e] =
-            vv[e];
+      else                  // [wc][rp] in f32
+        reinterpret_cast<float*>(smem + p.t_off)[w * ts + r + e] = vv[e];
     }
   }
   __syncthreads();
@@ -539,7 +599,7 @@ __global__ void __launch_bounds__(kThreads)
     const int c0 = c_lo + pc * p.ctt;
     if (pc > 0) {
       __syncthreads();  // the previous piece's B and out tiles are read
-      stage_b<T>(a, p, Bm, c0, c_hi, sb);
+      stage_b<T>(a, p, Bm, c0, c_hi, rp, sb);
       cp_commit();
     }
     cp_wait<0>();
@@ -552,15 +612,19 @@ __global__ void __launch_bounds__(kThreads)
       const int nts = cdiv(ncols, 8);
       for (int task = warp; task < mts * nts; task += kWarps) {
         const int mt = task / nts, nt = task - mt * nts;
-        const T* t0 = st + (mt * 16 + g) * 24 + 2 * q;
-        unsigned af[4] = {*reinterpret_cast<const unsigned*>(t0),
-                          *reinterpret_cast<const unsigned*>(t0 + 8 * 24),
-                          *reinterpret_cast<const unsigned*>(t0 + 8),
-                          *reinterpret_cast<const unsigned*>(t0 + 8 * 24 + 8)};
-        unsigned bf[2];
-        ldsm_x2_trans(bf, sb + (lane & 15) * p.bs + nt * 8);
+        // d sums over R in k-steps of 16, in rank order
         float d[4] = {0.f, 0.f, 0.f, 0.f};
-        mma16816<T>(d, af, bf);
+        for (int r0 = 0; r0 < rp; r0 += kRankStep) {
+          const T* t0 = st + (mt * 16 + g) * ts + r0 + 2 * q;
+          unsigned af[4] = {
+              *reinterpret_cast<const unsigned*>(t0),
+              *reinterpret_cast<const unsigned*>(t0 + 8 * ts),
+              *reinterpret_cast<const unsigned*>(t0 + 8),
+              *reinterpret_cast<const unsigned*>(t0 + 8 * ts + 8)};
+          unsigned bf[2];
+          ldsm_x2_trans(bf, sb + (r0 + (lane & 15)) * p.bs + nt * 8);
+          mma16816<T>(d, af, bf);
+        }
         // d rounded to T, times the scale in T, the product rounded to T
         T* o0 = so + (mt * 16 + g) * p.xs + nt * 8 + 2 * q;
         *reinterpret_cast<unsigned*>(o0) =
@@ -595,7 +659,7 @@ __global__ void __launch_bounds__(kThreads)
         const int w = idx / n4, k = (idx - w * n4) * 4;
         float4 d = make_float4(0.f, 0.f, 0.f, 0.f);
         for (int r = 0; r < a.R; ++r) {
-          const float tv = st[w * kRankPad + r];
+          const float tv = st[w * ts + r];
           const float4 bv =
               *reinterpret_cast<const float4*>(sbf + r * p.bs + k);
           d.x = fmaf(tv, bv.x, d.x);
@@ -618,10 +682,9 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool kMma>
-int launch(const Args& a, cudaStream_t stream) {
-  const Plan p = make_plan(kMma, sizeof(T), a.B, a.W, a.IN, a.R, a.OUT);
-  auto kernel = lora_paged_kernel<T, kMma>;
+template <typename T, bool kMma, int kU, bool kR16>
+int launch(const Args& a, const Plan& p, cudaStream_t stream) {
+  auto kernel = lora_paged_kernel<T, kMma, kU, kR16>;
   if (p.total > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.total);
@@ -644,33 +707,51 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// The plan for dtype T, and the launch of the instantiation it needs.
+template <typename T, bool kMma>
+int launch(const Args& a, cudaStream_t stream) {
+  const Plan p = make_plan(kMma, sizeof(T), a.B, a.W, a.IN, a.R, a.OUT);
+  if (p.total > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kU = kMma ? kTasksMax / kWarps : kSumsMax;
+  if (p.rp == kRankStep)  // one group, one k-step; a thread's share of
+                          // t fits one task (mma) or four sums (f32)
+    return launch<T, kMma, kMma ? 1 : kSumsMax, true>(a, p, stream);
+  if constexpr (kMma)
+    if (p.ku == 1) return launch<T, kMma, 1, false>(a, p, stream);
+  return launch<T, kMma, kU, false>(a, p, stream);
+}
+
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0;
 }
 
 }  // namespace
 
-// The launch K11 makes for these shapes, written to out[8]: blocks a
+// The launch K11 makes for these shapes, written to out[10]: blocks a
 // cluster, clusters a row (each over up to 64 positions), the IN slice and
 // the OUT tile of one block, dynamic shared memory bytes, the grid's
-// blocks, threads a block, 1 if both products run on the tensor cores.
-// Returns cudaErrorInvalidValue for a dtype or rank the kernel does not
-// take.
+// blocks, threads a block, 1 if both products run on the tensor cores,
+// the positions a cluster takes and the ranks of one group of t's
+// partial. Returns cudaErrorInvalidValue for a dtype the kernel does not
+// take, or a rank so large that no plan fits shared memory (past about
+// 1,400).
 extern "C" int ptt_lora_plan(int B, int W, int IN, int R, int OUT, int dtype,
                              int* out) {
-  if (B < 1 || W < 1 || IN < 0 || OUT < 1 || R < 1 || R > kRankPad ||
-      dtype < ptt::kF32 || dtype > ptt::kF16)
+  if (B < 1 || W < 1 || IN < 0 || OUT < 1 || R < 1 || dtype < ptt::kF32 ||
+      dtype > ptt::kF16)
     return static_cast<int>(cudaErrorInvalidValue);
   const bool mma = dtype != ptt::kF32;
   const Plan p = make_plan(mma, mma ? 2 : 4, B, W, IN, R, OUT);
-  const int vals[8] = {p.nc, p.nwc, p.ks, p.ct, static_cast<int>(p.total),
-                       p.nc * p.nwc * B, kThreads, mma ? 1 : 0};
-  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  if (p.total > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const int vals[10] = {p.nc, p.nwc, p.ks, p.ct, static_cast<int>(p.total),
+                        p.nc * p.nwc * B, kThreads, mma ? 1 : 0, p.wc,
+                        p.gr};
+  for (int i = 0; i < 10; ++i) out[i] = vals[i];
   return 0;
 }
 
 // x [B, W, IN], a_pool [P, IN, R], b_pool [P, R, OUT], out [B, W, OUT], all
-// of `dtype` and contiguous; apage [B] int32; ascale [B] f32; 1 <= R <= 16.
+// of `dtype` and contiguous; apage [B] int32; ascale [B] f32; R >= 1.
 extern "C" int ptt_lora_delta_paged(const void* x, const void* a_pool,
                                     const void* b_pool, const void* apage,
                                     const void* ascale, void* out, int B,
@@ -680,7 +761,7 @@ extern "C" int ptt_lora_delta_paged(const void* x, const void* a_pool,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (B == 0 || W == 0 || OUT == 0) return 0;
-  if (R < 1 || R > kRankPad || num_pages < 1 || IN < 0)
+  if (R < 1 || num_pages < 1 || IN < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.x = x;

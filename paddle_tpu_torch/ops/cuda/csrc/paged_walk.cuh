@@ -1,46 +1,47 @@
-// The paged K/V walk shared by K6 and K7 (ragged_paged_attention.cu), K10
-// (grouped_paged_attention.cu) and K9 (paged_decode_attention.cu), in all
-// their pool lanes.
+// The paged K/V walk of K6 and K7 (ragged_paged_attention.cu), K9
+// (paged_decode_attention.cu) and K10 (grouped_paged_attention.cu), in all
+// their pool lanes: one kernel, `ring_walk_kernel`, whose entries differ
+// only in what they hand it.
 //
 // One online-softmax arithmetic serves all of them: `attend_row` folds one
-// staged page into one query row's (m, l, acc), and every kernel walks a
-// row's pages in the same order, 0 .. last. K10 splits that order at the
-// group's shared span (phase 1 takes pages 0 .. cnt-1, phase 2 continues
-// at cnt), and the partials cross between the phases as exact f32 values
-// in device memory, so K10's output equals K6's bit for bit on the same
-// operands.
-//
-// Two feeders stage the pages for the fold. K6, K7 and K9 walk with
-// `row_walk_kernel` (and K9's decode walk): load a page with 16-byte
-// vector loads, convert it into the f32 tile, fold it, one page at a time
-// (`load_pool_page`). K10's two phases walk with the ring below
-// (`ring_issue`, `ring_convert`): cp.async copies of the next pages into
-// raw stages, each thread converting the chunks it copied itself, so
-// neither the copy nor the conversion waits on another thread; where the
-// ring does not fit shared memory, `ring_convert` loads each page straight
-// from the pools, as `load_pool_page` does. Either way the converted
-// values are the loader's, bit for bit. K10 folds with `attend_row` too,
-// or, at page size 16, with `attend_pair`, which folds two rows a warp and
+// staged piece of a page into one query row's (m, l, acc), and every walk
+// folds a row's pages in the same order, 0 .. last, each page in the same
+// pieces (`piece_rows`). K10 splits that order at the group's shared span
+// (phase 1 takes pages 0 .. cnt-1, phase 2 continues at cnt), and the
+// partials cross between the phases as exact f32 values in device memory,
+// so K10's output equals K6's bit for bit on the same operands; K6 is the
+// walk with no groups, K9 the walk at q_len 1. At page size 16 and head
+// dims 32-256 the walk folds two rows a warp with `attend_pair`, which
 // gives every value attend_row's operations in the same order (its note
-// says why).
+// says why), with or without a user mask.
+//
+// The feeder: a ring of kRingStages raw page stages in shared memory,
+// filled by cp.async (`ring_issue`), each thread converting the chunks it
+// copied itself into an f32 working tile (`ring_convert`), so neither the
+// copy nor the conversion waits on another thread; where the ring does not
+// fit shared memory, or a pool row is not a multiple of 4 bytes (cp.async
+// copies 4, 8 or 16), each piece is loaded straight from the pools into
+// one tile. The copies are the widest of 16, 8 or 4 bytes that divides a
+// pool row (`copy_bytes`), else one element. Either way the converted
+// values are the same bits.
 //
 // The pools hold q's dtype (the fp lane), int8 codes with f32 rowwise
 // scale pools (the q8 lane: K7 and K10's q8 lane) or float8 e4m3 values
-// (the fp8 lane). Only the page loader differs: it writes the same f32
-// shared tiles from each, so every lane walks with the one `attend_row`,
-// and K10's q8 and fp8 lanes equal K7 and K6's fp8 lane bit for bit.
+// (the fp8 lane). Only the conversion differs: it writes the same f32
+// tiles from each, so every lane folds with the one `attend_row`.
 //
 // Layout shared with the Python wrappers: q, out [B, lq, H, D]; pools
 // [num_pages, ps, Hkv, D]; scale pools [num_pages, ps, Hkv]; page_table
-// [B, mp]; pos, q_len, group_id,
-// group_leader, group_cnt [B] int32. A block owns (query block t of
-// qblk <= 8 queries, kv head g): its rows r = 0 .. qblk*rep-1 are query
-// t*qblk + r/rep, head g*rep + r%rep. The phase-1 partials are f32
-// m, l [Hkv, nqb, B*qblk*rep] and acc [Hkv, nqb, B*qblk*rep, D], row
-// b*qblk*rep + r.
+// [B, mp]; pos, q_len, group_id, group_leader, group_cnt [B] int32. A
+// block owns (query block t of qblk <= 8 queries, kv head g): its rows
+// r = 0 .. qblk*rep-1 are query t*qblk + r/rep, head g*rep + r%rep. The
+// phase-1 partials are f32 m, l [Hkv, nqb, B*qblk*rep] and acc
+// [Hkv, nqb, B*qblk*rep, D], row b*qblk*rep + r.
 #pragma once
 
 #include <math_constants.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -51,6 +52,27 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;     // the masked score, as on the TPU
 constexpr int kQBlk = 8;              // queries per block
+// raw page stages in flight ahead of the conversion
+constexpr int kRingStages = 2;
+// the most dynamic shared memory one block may take on the H100
+constexpr size_t kSmemMax = 232448;
+// launches with at most this many (query block, row) items schedule them
+// longest walk first
+constexpr int kSortMax = 512;
+// the dynamic shared memory a block may take beside the static schedule
+// keys (sKey, sItem: 2064 bytes as ptxas lays them out)
+constexpr size_t kDynSmemMax = kSmemMax - sizeof(int) * (kSortMax + 4);
+// the most keys one piece of a page holds (PJ 4: four keys a lane)
+constexpr int kPieceMax = 128;
+// With a compile-time head dim up to 64 a folding half-warp keeps its
+// query row in registers (PTT_WALK_Q_REGS 1, K6/K7 and K10: blocks of up
+// to 8 row pairs, where reading q once pays), or reads it from shared
+// memory at each fold (0: K9's blocks of rep rows, whose registers are
+// worth more to the rest of the walk). A library sets it before it
+// includes this header; the bits are the same either way.
+#ifndef PTT_WALK_Q_REGS
+#define PTT_WALK_Q_REGS 1
+#endif
 
 struct Args {
   const void* q;
@@ -60,8 +82,8 @@ struct Args {
   const float* v_scale;
   const int* page_table;
   const int* pos;
-  const int* q_len;
-  const int* group_id;      // K10 only
+  const int* q_len;         // null: every row at q_len 1 (K9)
+  const int* group_id;      // K10 only (null: no groups, K6 and K9)
   const int* group_leader;  // K10 phase 1 only
   const int* group_cnt;     // K10 only
   const float* mask;        // the user mask, additive f32: K9's
@@ -120,10 +142,6 @@ inline bool pools_valid(const Args& a) {
   }
 }
 
-inline size_t tile_floats(int D, int ps) {
-  return (size_t)ps * (D + 1) + (size_t)ps * D;
-}
-
 // Pages row b's query block [q0, q0 + qblk) reads: through the last live
 // query's position, at most mp.
 __device__ __forceinline__ int block_pages(int pos_b, int qlen_b, int q0,
@@ -132,84 +150,61 @@ __device__ __forceinline__ int block_pages(int pos_b, int qlen_b, int q0,
   return min(mp, (pos_b + last_qi) / ps + 1);
 }
 
-// Stage page `page` of kv head g into shared memory as f32: K [ps][D + 1]
-// (padded by one float, so a warp's per-key dot products hit distinct
-// banks) and V [ps][D], from 16-byte vector loads of pool elements P
-// (D a multiple of 16 / sizeof(P)). kScaled (the q8 lane): each element
-// is code x the f32 scale of its (position, kv head), one multiply, as in
-// the plain version's dequantization; the other conversions are exact.
-template <typename P, bool kScaled>
-__device__ __forceinline__ void load_page(const void* kpool_,
-                                          const void* vpool_,
-                                          const float* __restrict__ kscale,
-                                          const float* __restrict__ vscale,
-                                          int page, int g, int Hkv, int D,
-                                          int ps, float* sK, float* sV) {
-  const P* __restrict__ kpool = static_cast<const P*>(kpool_);
-  const P* __restrict__ vpool = static_cast<const P*>(vpool_);
-  constexpr int E = 16 / sizeof(P);  // elements per 16-byte vector
-  const int nvec = D / E;
-  const int kstride = D + 1;
-  for (int idx = threadIdx.x; idx < ps * nvec; idx += kThreads) {
-    const int j = idx / nvec, c = idx - j * nvec;
-    const size_t row = ((size_t)page * ps + j) * Hkv + g;
-    const size_t src = row * D + c * E;
-    const uint4 kr = __ldg(reinterpret_cast<const uint4*>(kpool + src));
-    const uint4 vr = __ldg(reinterpret_cast<const uint4*>(vpool + src));
-    const P* ke = reinterpret_cast<const P*>(&kr);
-    const P* ve = reinterpret_cast<const P*>(&vr);
-    float ks = 1.f, vs = 1.f;
-    if (kScaled) {
-      ks = __ldg(kscale + row);
-      vs = __ldg(vscale + row);
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      float kf = to_f32<P>(ke[e]);
-      float vf = to_f32<P>(ve[e]);
-      if (kScaled) {
-        kf *= ks;
-        vf *= vs;
-      }
-      sK[j * kstride + c * E + e] = kf;
-      sV[j * D + c * E + e] = vf;
-    }
-  }
+// The keys of one piece: a page is folded in pieces of at most
+// kPieceMax rows, so a piece's scores fit four a lane (PJ 4). A whole page
+// up to 128 keys where its f32 tile fits shared memory beside the state of
+// kQBlk rows (every page size the walks took before pieces, so those folds
+// are unchanged); at head dims over 256 a tile of at most 64 KB, leaving
+// room for the rows' state. A longer page is cut into equal pieces (the
+// last may be shorter). A function of D and ps only, so that every walk
+// (K6, K7, K9, K10a, K10b) folds the same pieces in the same order, which
+// keeps K10 = K6 and K9 = K6 bit for bit.
+__host__ __device__ inline int piece_rows(int D, int ps) {
+  const int tile = 2 * D + 1;  // floats a key takes: K [D + 1], V [D]
+  const int budget = D <= 256
+                         ? static_cast<int>(kSmemMax / 4) - kQBlk * (2 * D + 2)
+                         : 16384;
+  int cap = budget / tile;
+  cap = cap < kPieceMax ? cap : kPieceMax;
+  cap = cap > 1 ? cap : 1;
+  if (ps <= cap) return ps;
+  const int pieces = (ps + cap - 1) / cap;
+  return (ps + pieces - 1) / pieces;
 }
 
-// The loader of the launch's pool type: q's own T, int8 with scales, or
-// e4m3. The pool code is the same for every block of a launch, so the
-// switch costs one uniform branch a page; making it a template parameter
-// instead would triple the kernels' instantiations and their build time.
+// Bytes of one copy: the widest of 16, 8 or 4 that divides a pool row of
+// D elements of `elem` bytes, else one element (no cp.async: direct loads).
+__host__ __device__ inline int copy_bytes(int D, int elem) {
+  const int row = D * elem;
+  if (row % 16 == 0) return 16;
+  if (row % 8 == 0) return 8;
+  if (row % 4 == 0) return 4;
+  return elem;
+}
+
+// bytes of one pool element: q's dtype in the fp lane, else 1
 template <typename T>
-__device__ __forceinline__ void load_pool_page(const Args& a, int page,
-                                               int g, float* sK, float* sV) {
-  switch (a.pool) {
-    case kPoolI8:
-      load_page<int8_t, true>(a.k, a.v, a.k_scale, a.v_scale, page, g,
-                              a.Hkv, a.D, a.ps, sK, sV);
-      break;
-    case kPoolE4M3:
-      load_page<__nv_fp8_e4m3, false>(a.k, a.v, nullptr, nullptr, page, g,
-                                      a.Hkv, a.D, a.ps, sK, sV);
-      break;
-    default:
-      load_page<T, false>(a.k, a.v, nullptr, nullptr, page, g, a.Hkv, a.D,
-                          a.ps, sK, sV);
-  }
+__host__ __device__ inline int pool_elem(int pool) {
+  return pool == kPoolQ ? static_cast<int>(sizeof(T)) : 1;
 }
 
-// Fold one staged page (keys kbase .. kbase + ps - 1) into one query row's
-// online softmax, by one warp: lane j scores key j (and j + 32, ...), the
-// page's max and sum are warp reductions, and lane d accumulates output
-// column d (and d + 32, ...) with the probabilities broadcast by shuffles.
-// Key kp is live iff the query is (qlive) and kp <= qmax (= pos + i).
-// DV: output columns per lane (D <= 32 * DV); PJ: keys per lane
+// the shapes of the compile-time, two-rows-a-warp instantiations
+__host__ __device__ inline bool ring_paired(int D, int ps) {
+  return ps == 16 && (D == 32 || D == 64 || D == 128 || D == 256);
+}
+
+// Fold one staged piece (keys kbase .. kbase + ps - 1) into one query
+// row's online softmax, by one warp: lane j scores key j (and j + 32, ...),
+// the piece's max and sum are warp reductions, and lane d accumulates
+// output column d (and d + 32, ...) with the probabilities broadcast by
+// shuffles. Key kp is live iff the query is (qlive) and kp <= qmax
+// (= pos + i). DV: output columns per lane and column piece; the columns
+// are walked in pieces of 32 * DV (one piece unless D > 256), each column
+// getting the same operations in the same order. PJ: keys per lane
 // (ps <= 32 * PJ). kMasked (the user mask of K9, K6 and K7): the additive
 // f32 mask row `mrow` (indexed by key position) is added to each key's
 // score after the window mask, as the TPU kernel adds it; it is a
-// template flag, so the unmasked instantiations K6, K7 and K10 use are
-// the code they were.
+// template flag, so the unmasked instantiations are the code they were.
 template <int DV, int PJ, bool kMasked = false>
 __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
                                            const float* sV, int D, int ps,
@@ -247,30 +242,32 @@ __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
     psum += pj[i];
   }
   psum = warp_sum(psum);
-  float a[DV];
+  for (int c0 = 0; c0 < D; c0 += 32 * DV) {
+    float a[DV];
 #pragma unroll
-  for (int u = 0; u < DV; ++u) {
-    const int d = lane + 32 * u;
-    a[u] = d < D ? acc[d] * alpha : 0.f;
-  }
+    for (int u = 0; u < DV; ++u) {
+      const int d = c0 + lane + 32 * u;
+      a[u] = d < D ? acc[d] * alpha : 0.f;
+    }
 #pragma unroll
-  for (int i = 0; i < PJ; ++i) {
-    for (int jj = 0; jj < 32; ++jj) {
-      const int j = 32 * i + jj;
-      if (j >= ps) break;  // uniform across the warp
-      const float pv = __shfl_sync(kFullMask, pj[i], jj);
-      const float* vr = sV + j * D;
+    for (int i = 0; i < PJ; ++i) {
+      for (int jj = 0; jj < 32; ++jj) {
+        const int j = 32 * i + jj;
+        if (j >= ps) break;  // uniform across the warp
+        const float pv = __shfl_sync(kFullMask, pj[i], jj);
+        const float* vr = sV + j * D;
 #pragma unroll
-      for (int u = 0; u < DV; ++u) {
-        const int d = lane + 32 * u;
-        if (d < D) a[u] = fmaf(pv, vr[d], a[u]);
+        for (int u = 0; u < DV; ++u) {
+          const int d = c0 + lane + 32 * u;
+          if (d < D) a[u] = fmaf(pv, vr[d], a[u]);
+        }
       }
     }
-  }
 #pragma unroll
-  for (int u = 0; u < DV; ++u) {
-    const int d = lane + 32 * u;
-    if (d < D) acc[d] = a[u];
+    for (int u = 0; u < DV; ++u) {
+      const int d = c0 + lane + 32 * u;
+      if (d < D) acc[d] = a[u];
+    }
   }
   __syncwarp();  // every lane has read *m and *l
   if (lane == 0) {
@@ -294,12 +291,15 @@ __device__ __forceinline__ void attend_row(const float* qr, const float* sK,
 // the pools and queries are finite.) `owner` false: this half computes on
 // a copy of the other half's row and writes nothing. kQRegs: q holds the
 // row in registers (kD <= 64), else it points at the row in shared memory.
-template <int kD, bool kQRegs>
+// kMasked: the row's mask entry for key j is added to its score after the
+// window mask with __fadd_rn, as attend_row adds it.
+template <int kD, bool kQRegs, bool kMasked = false>
 __device__ __forceinline__ void attend_pair(const float* q, const float* sK,
                                             const float* sV, int kbase,
                                             bool qlive, int qmax, float scale,
                                             float* m, float* l, float* acc,
-                                            int lane, bool owner) {
+                                            int lane, bool owner,
+                                            const float* mrow = nullptr) {
   constexpr int kPS = 16;
   constexpr int kKStride = kD + 4;
   constexpr int U = kD >= 64 ? kD / 64 : 1;  // 64-column groups
@@ -318,7 +318,9 @@ __device__ __forceinline__ void attend_pair(const float* q, const float* sK,
     dot = fmaf(q4.w, k4.w, dot);
   }
   const bool live = qlive && (kbase + j <= qmax);
-  const float s = live ? dot * scale : kNegInf;
+  float s = live ? dot * scale : kNegInf;
+  // __fadd_rn: never contracted into an FMA with the product above
+  if (kMasked) s = __fadd_rn(s, __ldg(mrow + kbase + j));
   float mcur = -CUDART_INF_F;
   mcur = fmaxf(mcur, s);
 #pragma unroll
@@ -368,134 +370,21 @@ __device__ __forceinline__ void attend_pair(const float* q, const float* sK,
   }
 }
 
-// The per-row walk: K6 and K7. Grid (nqb, Hkv, B). A dead query block
-// writes zeros and reads nothing.
-// kMasked (K6/K7 only; under a mask the grouped op takes K6, as the JAX
-// op falls back to its ungrouped kernel): query qi of head h adds the
-// mask row [b, h, qi, :] to its scores, read straight from device memory
-// by each lane for its key; a padding query past lq (dead) reads row
-// lq - 1, so no read leaves the mask.
-template <typename T, int DV, int PJ, bool kMasked = false>
-__global__ void __launch_bounds__(kThreads) row_walk_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const T* __restrict__ q = static_cast<const T*>(a.q);
-  T* __restrict__ out = static_cast<T*>(a.out);
-  const int t = blockIdx.x;
-  const int g = blockIdx.y;
-  const int b = blockIdx.z;
-  const int D = a.D, ps = a.ps, H = a.H, lq = a.lq;
-  const int rep = H / a.Hkv;
-  const int nrows = a.qblk * rep;
-  float* sK = smem;                   // [ps][D + 1]
-  float* sV = sK + ps * (D + 1);      // [ps][D]
-  float* sQ = sV + ps * D;            // [nrows][D]
-  float* sAcc = sQ + nrows * D;       // [nrows][D]
-  float* sM = sAcc + nrows * D;       // [nrows]
-  float* sL = sM + nrows;             // [nrows]
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int pos_b = a.pos[b];
-  const int qlen_b = a.q_len[b];
-  const int q0 = t * a.qblk;
-
-  if (q0 >= qlen_b) {  // dead query block: zeros, no page traffic
-    for (int idx = tid; idx < nrows * D; idx += kThreads) {
-      const int r = idx / D, d = idx - r * D;
-      const int qi = q0 + r / rep;
-      if (qi < lq) {
-        const int h = g * rep + r % rep;
-        out[(((size_t)b * lq + qi) * H + h) * D + d] = from_f32<T>(0.f);
-      }
-    }
-    return;
-  }
-  const int n_pages = block_pages(pos_b, qlen_b, q0, a.qblk, ps, a.mp);
-  for (int idx = tid; idx < nrows * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qi = q0 + r / rep;
-    const int h = g * rep + r % rep;
-    sQ[idx] = qi < lq ? to_f32<T>(q[(((size_t)b * lq + qi) * H + h) * D + d])
-                      : 0.f;
-    sAcc[idx] = 0.f;
-  }
-  for (int r = tid; r < nrows; r += kThreads) {
-    sM[r] = kNegInf;
-    sL[r] = 0.f;
-  }
-
-  for (int p = 0; p < n_pages; ++p) {
-    int page = a.page_table[(size_t)b * a.mp + p];
-    page = min(max(page, 0), a.num_pages - 1);
-    __syncthreads();  // previous tile fully consumed (and init visible)
-    load_pool_page<T>(a, page, g, sK, sV);
-    __syncthreads();
-    for (int r = warp; r < nrows; r += kWarps) {
-      const int qi = q0 + r / rep;
-      const float* mrow = nullptr;
-      if (kMasked) {
-        const int h = g * rep + r % rep;
-        mrow = a.mask + (((size_t)b * H + h) * lq + min(qi, lq - 1)) *
-                            ((size_t)a.mp * ps);
-      }
-      attend_row<DV, PJ, kMasked>(sQ + r * D, sK, sV, D, ps, p * ps,
-                                  qi < qlen_b, pos_b + qi, a.scale, sM + r,
-                                  sL + r, sAcc + r * D, lane, mrow);
-    }
-  }
-  __syncthreads();
-  for (int idx = tid; idx < nrows * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qi = q0 + r / rep;
-    if (qi < lq) {
-      const int h = g * rep + r % rep;
-      const float l = fmaxf(sL[r], 1e-30f);
-      out[(((size_t)b * lq + qi) * H + h) * D + d] =
-          from_f32<T>(sAcc[idx] / l);
-    }
-  }
-}
-
-inline size_t row_walk_smem(const Args& a) {
-  const size_t nrows = (size_t)a.qblk * (a.H / a.Hkv);
-  return sizeof(float) *
-         (tile_floats(a.D, a.ps) + 2 * nrows * a.D + 2 * nrows);
-}
-
-template <bool kMasked = false>
-struct RowWalk {
-  template <typename T, int DV, int PJ>
-  static int run(const Args& a, cudaStream_t stream) {
-    const size_t smem = row_walk_smem(a);
-    auto kernel = row_walk_kernel<T, DV, PJ, kMasked>;
-    if (smem > 48 * 1024) {
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    kernel<<<dim3(a.nqb, a.Hkv, a.B), kThreads, smem, stream>>>(a);
-    return static_cast<int>(cudaGetLastError());
-  }
-};
-
-// ---- K10's ring of asynchronous page copies -------------------------------
-// raw page stages in flight ahead of the conversion
-constexpr int kRingStages = 2;
-// the most dynamic shared memory one block may take on the H100
-constexpr size_t kSmemMax = 232448;
-
+// ---- the ring of asynchronous page copies ---------------------------------
 __host__ __device__ inline size_t round16(size_t n) {
   return (n + 15) & ~static_cast<size_t>(15);
 }
 
-// Byte layout of a ring walk block's dynamic shared memory: `stages` raw
-// stages, each one page of one kv head as the pool holds it — K's 16-byte
-// chunks, then V's, row by row — plus, in the q8 lane, one f32 scale slot
-// per chunk; `nbuf` f32 working tiles (K [ps][kstride], padded to 16
-// bytes, then V [ps][D]); the rows' queries and acc [nrows][D], m and l
-// [nrows]. kstride is D + 1 for `attend_row`, D + 4 for `attend_pair`.
+// Byte layout of a walk block's dynamic shared memory: `stages` raw
+// stages, each one piece of a page of one kv head as the pool holds it —
+// K's copy chunks, then V's, row by row — plus, in the q8 lane, one f32
+// scale slot per chunk; `nbuf` f32 working tiles (K [rows][kstride],
+// padded to 16 bytes, then V [rows][D]); the rows' queries and acc
+// [nrows][D], m and l [nrows]. kstride is D + 1 for `attend_row`, D + 4
+// for `attend_pair`. rows: the keys of a piece (`piece_rows`); width: the
+// bytes of one copy (`copy_bytes`).
 struct RingLayout {
-  int stages, nbuf;
+  int stages, nbuf, rows, width;
   size_t stage;     // bytes of one stage
   size_t kfloats;   // floats of a tile's K part
   size_t tile;      // floats of one working tile
@@ -503,16 +392,18 @@ struct RingLayout {
 };
 
 __host__ __device__ inline RingLayout ring_layout(int elem, bool scaled,
-                                                 int D, int ps, int kstride,
-                                                 int nrows, int stages,
-                                                 int nbuf) {
+                                                 int D, int rows, int width,
+                                                 int kstride, int nrows,
+                                                 int stages, int nbuf) {
   RingLayout L;
   L.stages = stages;
   L.nbuf = nbuf;
-  const size_t nch = (size_t)ps * (D * elem / 16);  // chunks of K (of V)
-  L.stage = round16(2 * nch * 16 + (scaled ? 2 * nch * sizeof(float) : 0));
-  L.kfloats = ((size_t)ps * kstride + 3) & ~static_cast<size_t>(3);
-  L.tile = L.kfloats + (size_t)ps * D;
+  L.rows = rows;
+  L.width = width;
+  const size_t nch = (size_t)rows * (D * elem / width);  // chunks of K
+  L.stage = round16(2 * nch * width + (scaled ? 2 * nch * sizeof(float) : 0));
+  L.kfloats = ((size_t)rows * kstride + 3) & ~static_cast<size_t>(3);
+  L.tile = L.kfloats + (size_t)rows * D;
   L.tiles = (size_t)stages * L.stage;
   L.q = L.tiles + (size_t)nbuf * L.tile * sizeof(float);
   L.acc = L.q + (size_t)nrows * D * sizeof(float);
@@ -522,24 +413,46 @@ __host__ __device__ inline RingLayout ring_layout(int elem, bool scaled,
   return L;
 }
 
-// bytes of one pool element: q's dtype in the fp lane, else 1
+// A launch's feeder and shared memory: the ring (kRingStages stages, two
+// f32 tiles) where a pool row takes cp.async copies and the ring fits
+// kDynSmemMax beside the rows' state, else one tile that each piece is
+// loaded into straight from the pools (stages 0); where even that does
+// not fit, total exceeds kDynSmemMax. The kernel, its launcher and the
+// plan entries all call this, so the launch and the report agree.
+__host__ __device__ inline RingLayout walk_layout(int elem, bool scaled,
+                                                 int D, int ps, int nrows,
+                                                 bool paired) {
+  const int kstride = paired ? D + 4 : D + 1;
+  const int rows = piece_rows(D, ps);
+  const int width = copy_bytes(D, elem);
+  if (width >= 4) {
+    const RingLayout L = ring_layout(elem, scaled, D, rows, width, kstride,
+                                     nrows, kRingStages, 2);
+    if (L.total <= kDynSmemMax) return L;
+  }
+  return ring_layout(elem, scaled, D, rows, width, kstride, nrows, 0, 1);
+}
+
 template <typename T>
-__host__ __device__ inline int pool_elem(int pool) {
-  return pool == kPoolQ ? static_cast<int>(sizeof(T)) : 1;
+__host__ __device__ inline RingLayout walk_layout(const Args& a, int D,
+                                                 int ps, bool paired) {
+  return walk_layout(pool_elem<T>(a.pool), a.pool == kPoolI8, D, ps,
+                     a.qblk * (a.H / a.Hkv), paired);
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+// One copy of W bytes, shared <- global: cp.async takes 16 (bypassing L1),
+// 8 and 4.
+template <int W>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
+  if constexpr (W == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+                 "l"(src)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+                 "l"(src), "n"(W)
+                 : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -552,16 +465,40 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// One pool lane's page geometry for the ring: pool elements P, E of them
-// in a 16-byte chunk, nvec chunks a pool row, nch chunks a page of K (and
-// of V). Chunk c < nch is K's, c >= nch V's: the v-th 16 bytes of row j
+// the register type of one W-byte chunk
+template <int W>
+struct RawOf;
+template <>
+struct RawOf<16> {
+  using type = uint4;
+};
+template <>
+struct RawOf<8> {
+  using type = uint2;
+};
+template <>
+struct RawOf<4> {
+  using type = unsigned;
+};
+template <>
+struct RawOf<2> {
+  using type = unsigned short;
+};
+template <>
+struct RawOf<1> {
+  using type = unsigned char;
+};
+
+// One pool lane's piece geometry: pool elements P, E of them in a W-byte
+// chunk, nvec chunks a pool row, nch chunks a piece of K (and of V). Chunk
+// c < nch is K's, c >= nch V's: the v-th chunk of the piece's row j
 // (`at`). With a compile-time D the divisions are shifts.
-template <typename P>
+template <typename P, int W>
 struct RingChunks {
-  static constexpr int E = 16 / sizeof(P);
+  static constexpr int E = W / static_cast<int>(sizeof(P));
   int nvec, nch;
-  __device__ __forceinline__ RingChunks(int D, int ps)
-      : nvec(D / E), nch(ps * (D / E)) {}
+  __device__ __forceinline__ RingChunks(int D, int rows)
+      : nvec(D / E), nch(rows * (D / E)) {}
   __device__ __forceinline__ void at(int c, bool* isv, int* j,
                                      int* v) const {
     *isv = c >= nch;
@@ -571,61 +508,69 @@ struct RingChunks {
   }
 };
 
-// Start copying page `page` of kv head g into `stage`: chunk c to bytes
-// [16c, 16c + 16) and, in the q8 lane (kScaled), its row's scale to slot
-// c. Producer thread pt of nprod owns chunks pt, pt + nprod, ... here and
-// in `ring_convert_lane`, so a thread only ever reads copies it waited
-// for itself.
-template <typename P, bool kScaled>
+// Start copying keys row0 .. row0 + rows - 1 of page `page` of kv head g
+// into `stage`: chunk c to bytes [Wc, Wc + W) and, in the q8 lane
+// (kScaled), its row's scale to slot c, the slots after the chunks of a
+// whole piece of `prows` keys (so a shorter last piece moves no slot onto
+// another thread's chunks). Producer thread pt of nprod owns chunks pt,
+// pt + nprod, ... here and in `ring_convert_lane`, so a thread only ever
+// reads and overwrites copies it waited for itself.
+template <typename P, bool kScaled, int W>
 __device__ __forceinline__ void ring_issue_lane(const Args& a, int D, int ps,
-                                                int page, int g,
+                                                int page, int row0, int rows,
+                                                int prows, int g,
                                                 unsigned char* stage, int pt,
                                                 int nprod) {
-  const RingChunks<P> ch(D, ps);
+  const RingChunks<P, W> ch(D, rows);
   const P* __restrict__ kpool = static_cast<const P*>(a.k);
   const P* __restrict__ vpool = static_cast<const P*>(a.v);
-  float* slots = reinterpret_cast<float*>(stage + 2 * (size_t)ch.nch * 16);
+  float* slots = reinterpret_cast<float*>(
+      stage + 2 * (size_t)prows * ch.nvec * W);
   for (int c = pt; c < 2 * ch.nch; c += nprod) {
     bool isv;
     int j, v;
     ch.at(c, &isv, &j, &v);
-    const size_t row = ((size_t)page * ps + j) * a.Hkv + g;
-    cp_async16(stage + (size_t)c * 16,
-               (isv ? vpool : kpool) + row * D + v * ch.E);
-    if (kScaled) cp_async4(slots + c, (isv ? a.v_scale : a.k_scale) + row);
+    const size_t row = ((size_t)page * ps + row0 + j) * a.Hkv + g;
+    cp_async<W>(stage + (size_t)c * W,
+                (isv ? vpool : kpool) + row * D + v * ch.E);
+    if (kScaled) cp_async<4>(slots + c, (isv ? a.v_scale : a.k_scale) + row);
   }
 }
 
-// Convert this thread's chunks of page `page` of kv head g into the f32
-// working tile, exactly as `load_page` converts them: each element to f32
-// (exact from bf16, f16 and e4m3), times its row's scale in the q8 lane
-// (one f32 multiply). The chunks come from a landed `stage`, or, with
-// stage null, straight from the pools (16-byte loads, as `load_page`
-// reads them). K rows go to the padded [ps][kstride] part (16-byte stores
-// when kstride is a multiple of 4: kVecK), V rows to [ps][D] with 16-byte
-// stores.
-template <typename P, bool kScaled, bool kVecK>
+// Convert this thread's chunks of the piece (keys row0 .. row0 + rows - 1
+// of page `page`, kv head g) into the f32 working tile: each element to
+// f32 (exact from bf16, f16 and e4m3), times its row's scale in the q8
+// lane (one f32 multiply, as the plain version dequantizes). The chunks
+// come from a landed `stage`, or, with stage null, straight from the
+// pools. K rows go to the padded [rows][kstride] part (16-byte stores
+// when kstride is a multiple of 4: kVecK), V rows to [rows][D] (16-byte
+// stores where a chunk is four floats and D a multiple of 4).
+template <typename P, bool kScaled, bool kVecK, int W>
 __device__ __forceinline__ void ring_convert_lane(
-    const Args& a, const unsigned char* stage, int page, int g, int D,
-    int ps, int kstride, float* sK, float* sV, int pt, int nprod) {
-  const RingChunks<P> ch(D, ps);
-  constexpr int E = RingChunks<P>::E;
+    const Args& a, const unsigned char* stage, int page, int row0, int rows,
+    int prows, int g, int D, int ps, int kstride, float* sK, float* sV,
+    int pt, int nprod) {
+  using Raw = typename RawOf<W>::type;
+  const RingChunks<P, W> ch(D, rows);
+  constexpr int E = RingChunks<P, W>::E;
   const P* __restrict__ kpool = static_cast<const P*>(a.k);
   const P* __restrict__ vpool = static_cast<const P*>(a.v);
-  const size_t slots = 2 * (size_t)ch.nch * 16;  // the scale slots' offset
+  // the scale slots' offset: after a whole piece's chunks
+  const size_t slots = 2 * (size_t)prows * ch.nvec * W;
+  const bool vec_v = E % 4 == 0 && D % 4 == 0;
   for (int c = pt; c < 2 * ch.nch; c += nprod) {
     bool isv;
     int j, v;
     ch.at(c, &isv, &j, &v);
-    uint4 raw;
+    Raw raw;
     float s = 1.f;
     if (stage != nullptr) {
-      raw = *reinterpret_cast<const uint4*>(stage + (size_t)c * 16);
+      raw = *reinterpret_cast<const Raw*>(stage + (size_t)c * W);
       if (kScaled) s = reinterpret_cast<const float*>(stage + slots)[c];
     } else {
-      const size_t row = ((size_t)page * ps + j) * a.Hkv + g;
-      raw = __ldg(reinterpret_cast<const uint4*>((isv ? vpool : kpool) +
-                                                 row * D + v * E));
+      const size_t row = ((size_t)page * ps + row0 + j) * a.Hkv + g;
+      raw = __ldg(reinterpret_cast<const Raw*>((isv ? vpool : kpool) +
+                                               row * D + v * E));
       if (kScaled) s = __ldg((isv ? a.v_scale : a.k_scale) + row);
     }
     const P* e = reinterpret_cast<const P*>(&raw);
@@ -635,70 +580,433 @@ __device__ __forceinline__ void ring_convert_lane(
       f[i] = to_f32<P>(e[i]);
       if (kScaled) f[i] *= s;
     }
-    if (!isv && !kVecK) {
-      float* dst = sK + j * kstride + v * E;
-#pragma unroll
-      for (int i = 0; i < E; ++i) dst[i] = f[i];
-    } else {
-      float4* dst = reinterpret_cast<float4*>(
-          isv ? sV + j * D + v * E : sK + j * kstride + v * E);
+    float* dst = isv ? sV + j * D + v * E : sK + j * kstride + v * E;
+    if (E % 4 == 0 && (isv ? vec_v : kVecK)) {
 #pragma unroll
       for (int i = 0; i < E / 4; ++i)
-        dst[i] = make_float4(f[4 * i], f[4 * i + 1], f[4 * i + 2],
-                             f[4 * i + 3]);
+        reinterpret_cast<float4*>(dst)[i] = make_float4(
+            f[4 * i], f[4 * i + 1], f[4 * i + 2], f[4 * i + 3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < E; ++i) dst[i] = f[i];
+    }
+  }
+}
+
+// Call f(std::integral_constant<int, W>{}) for the copy width W (bytes)
+// of pool elements P: 16, 8 or 4, or one element below 4. kW: a
+// compile-time width (the compile-time head dims: always 16), or 0 to
+// switch on W.
+template <int W>
+using Width = std::integral_constant<int, W>;
+
+template <typename P, int kW, typename F>
+__device__ __forceinline__ void with_width(int W, F&& f) {
+  if constexpr (kW > 0) {
+    f(Width<kW>{});
+  } else {
+    switch (W) {
+      case 16:
+        f(Width<16>{});
+        break;
+      case 8:
+        f(Width<8>{});
+        break;
+      case 4:
+        f(Width<4>{});
+        break;
+      default:
+        if constexpr (sizeof(P) < 4) f(Width<static_cast<int>(sizeof(P))>{});
     }
   }
 }
 
 // The copy and the conversion of the launch's pool type: q's own T, int8
-// with scales, or e4m3 (a uniform switch, as in `load_pool_page`).
-template <typename T>
-__device__ __forceinline__ void ring_issue(const Args& a, int D, int ps,
-                                           int page, int g,
+// with scales, or e4m3. The pool code and the width are the same for every
+// block of a launch, so the switches cost uniform branches; making them
+// template parameters instead would multiply the instantiations and their
+// build time.
+template <typename T, int kW>
+__device__ __forceinline__ void ring_issue(const Args& a, int W, int D,
+                                           int ps, int page, int row0,
+                                           int rows, int prows, int g,
                                            unsigned char* stage, int pt,
                                            int nprod) {
+  auto lane = [&](auto tag, auto scaled) {
+    using P = decltype(tag);
+    with_width<P, kW>(W, [&](auto width) {
+      constexpr int kWidth = decltype(width)::value;
+      if constexpr (kWidth >= 4)  // narrower rows never take the ring
+        ring_issue_lane<P, std::decay_t<decltype(scaled)>::value, kWidth>(
+            a, D, ps, page, row0, rows, prows, g, stage, pt, nprod);
+    });
+  };
   switch (a.pool) {
     case kPoolI8:
-      ring_issue_lane<int8_t, true>(a, D, ps, page, g, stage, pt, nprod);
+      lane(int8_t{}, std::true_type{});
       break;
     case kPoolE4M3:
-      ring_issue_lane<__nv_fp8_e4m3, false>(a, D, ps, page, g, stage, pt,
-                                            nprod);
+      lane(__nv_fp8_e4m3{}, std::false_type{});
       break;
     default:
-      ring_issue_lane<T, false>(a, D, ps, page, g, stage, pt, nprod);
+      lane(T{}, std::false_type{});
   }
 }
 
-template <typename T, bool kVecK>
-__device__ __forceinline__ void ring_convert(const Args& a,
+template <typename T, bool kVecK, int kW>
+__device__ __forceinline__ void ring_convert(const Args& a, int W,
                                              const unsigned char* stage,
-                                             int page, int g, int D, int ps,
+                                             int page, int row0, int rows,
+                                             int prows, int g, int D, int ps,
                                              int kstride, float* sK,
                                              float* sV, int pt, int nprod) {
+  auto lane = [&](auto tag, auto scaled) {
+    using P = decltype(tag);
+    with_width<P, kW>(W, [&](auto width) {
+      ring_convert_lane<P, std::decay_t<decltype(scaled)>::value, kVecK,
+                        decltype(width)::value>(a, stage, page, row0, rows,
+                                                prows, g, D, ps, kstride, sK,
+                                                sV, pt, nprod);
+    });
+  };
   switch (a.pool) {
     case kPoolI8:
-      ring_convert_lane<int8_t, true, kVecK>(a, stage, page, g, D, ps,
-                                             kstride, sK, sV, pt, nprod);
+      lane(int8_t{}, std::true_type{});
       break;
     case kPoolE4M3:
-      ring_convert_lane<__nv_fp8_e4m3, false, kVecK>(
-          a, stage, page, g, D, ps, kstride, sK, sV, pt, nprod);
+      lane(__nv_fp8_e4m3{}, std::false_type{});
       break;
     default:
-      ring_convert_lane<T, false, kVecK>(a, stage, page, g, D, ps, kstride,
-                                         sK, sV, pt, nprod);
+      lane(T{}, std::false_type{});
   }
 }
 
+// The work items of a launch are its (query block t, row b) pairs, item
+// i = b * nqb + t, each walked once per kv head. `group_count`: the shared
+// page count of row b's group (0 for a singleton, a group id outside
+// [0, B), or a launch without groups).
+__device__ __forceinline__ int group_count(const Args& a, int b) {
+  if (a.group_id == nullptr) return 0;
+  const int gid = a.group_id[b];
+  return (gid >= 0 && gid < a.B) ? a.group_cnt[gid] : 0;
+}
+
+__device__ __forceinline__ int row_qlen(const Args& a, int b) {
+  return a.q_len != nullptr ? a.q_len[b] : 1;
+}
+
+// An item's place in the schedule: 0 for an item with nothing to fold (a
+// dead query block; in phase 1 also a row outside every sharing group),
+// else 1 plus its walk's page count in this phase, so that longer walks
+// start first.
+template <bool kPhase1>
+__device__ __forceinline__ int item_key(const Args& a, int i, int ps) {
+  const int b = i / a.nqb, t = i - b * a.nqb;
+  const int q0 = t * a.qblk;
+  const int qlen_b = row_qlen(a, b);
+  if (q0 >= qlen_b) return 0;
+  const int n_pages = block_pages(a.pos[b], qlen_b, q0, a.qblk, ps, a.mp);
+  const int cnt = group_count(a, b);
+  const int span = cnt > 0 ? min(cnt, n_pages) : 0;
+  if (kPhase1) return span > 0 ? span + 1 : 0;
+  return n_pages - span + 1;
+}
+
+// The walk: K10a (kPhase1), and K10b, K6, K7 and K9 (phase 2). kD, kPS:
+// the head dim and page size as compile-time constants, or 0 for the
+// run-time a.D, a.ps. kMasked (phase 2): the user mask.
+// One-dimensional grid of nqb * B * Hkv blocks: block x walks kv head
+// x % Hkv of the item ranked x / Hkv in the schedule.
+//   Phase 1: an item whose row is a member of a sharing group and whose
+// query block is live walks the shared span, pages [0, min(cnt, last + 1))
+// read through the leader's table, from (-1e30, 0, 0), and writes its
+// rows' partials (m, l, acc); no other item folds anything.
+//   Phase 2: every live item walks its row's pages [p0, last + 1), where
+// p0 = min(cnt, last + 1) for a member (starting from its phase-1
+// partials) and 0 for any other row (every row of K6, K7 and K9), and
+// writes the output; a dead query block writes zeros. Under a mask query
+// qi of head h adds the mask row [b, h, qi, :] to its scores, read
+// straight from device memory by each lane for its key; a padding query
+// past lq (dead) reads row lq - 1, so no read leaves the mask.
+template <typename T, int DV, int PJ, int kD, int kPS, bool kPhase1,
+          bool kMasked>
+__global__ void __launch_bounds__(kThreads, 2)
+    ring_walk_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned char sbuf[];
+  __shared__ int sKey[kSortMax];
+  __shared__ int sItem;
+  const T* __restrict__ q = static_cast<const T*>(a.q);
+  const int D = kD > 0 ? kD : a.D;
+  const int ps = kPS > 0 ? kPS : a.ps;
+  const int H = a.H, lq = a.lq;
+  const int rep = H / a.Hkv;
+  const int nrows = a.qblk * rep;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = blockIdx.x % a.Hkv;
+  const int rank = blockIdx.x / a.Hkv;
+
+  // The schedule, built alike by every block: items by descending key,
+  // ties by index (every rank is some item's). A launch with more than
+  // kSortMax items walks them in index order.
+  const int n_items = a.nqb * a.B;
+  int item = rank;
+  if (n_items <= kSortMax) {
+    for (int i = tid; i < n_items; i += kThreads)
+      sKey[i] = item_key<kPhase1>(a, i, ps);
+    __syncthreads();
+    for (int i = tid; i < n_items; i += kThreads) {
+      const int ki = sKey[i];
+      int r = 0;
+      for (int j = 0; j < n_items; ++j) {
+        const int kj = sKey[j];
+        r += (kj > ki) || (kj == ki && j < i);
+      }
+      if (r == rank) sItem = i;
+    }
+    __syncthreads();
+    item = sItem;
+  }
+  const int b = item / a.nqb;
+  const int t = item - b * a.nqb;
+  const int pos_b = a.pos[b];
+  const int qlen_b = row_qlen(a, b);
+  const int q0 = t * a.qblk;
+
+  if (q0 >= qlen_b) {  // dead query block: no pages; phase 2 writes zeros
+    if (!kPhase1) {
+      T* __restrict__ out = static_cast<T*>(a.out);
+      for (int idx = tid; idx < nrows * D; idx += kThreads) {
+        const int r = idx / D, d = idx - r * D;
+        const int qi = q0 + r / rep;
+        if (qi < lq) {
+          const int h = g * rep + r % rep;
+          out[(((size_t)b * lq + qi) * H + h) * D + d] = from_f32<T>(0.f);
+        }
+      }
+    }
+    return;
+  }
+  const int n_pages = block_pages(pos_b, qlen_b, q0, a.qblk, ps, a.mp);
+  const int cnt = group_count(a, b);
+  const int span = cnt > 0 ? min(cnt, n_pages) : 0;
+  if (kPhase1 && span == 0) return;  // not a member: nothing to fold
+  const int p0 = kPhase1 ? 0 : span;
+  const int trow =
+      kPhase1 ? min(max(a.group_leader[a.group_id[b]], 0), a.B - 1) : b;
+  const bool resume = !kPhase1 && span > 0;
+  // The walk's units are the pieces of its pages, page by page: unit u is
+  // piece u % npc of the walk's page u / npc (one piece a page at the
+  // compile-time page size)
+  const int pc = kPS > 0 ? kPS : piece_rows(D, ps);
+  const int npc = kPS > 0 ? 1 : (ps + pc - 1) / pc;
+  const int n = ((kPhase1 ? span : n_pages) - p0) * npc;
+  // the page id of the walk's i-th page, from the walked row's table
+  const int* __restrict__ table = a.page_table + (size_t)trow * a.mp + p0;
+  auto page_id = [&](int i) {
+    return min(max(table[i], 0), a.num_pages - 1);
+  };
+
+  // the compile-time page size 16 folds two rows a warp (`attend_pair`)
+  constexpr bool kPair = kPS == 16;
+  const int kstride = kPair ? D + 4 : D + 1;
+  const RingLayout L = walk_layout<T>(a, D, ps, kPair);
+  const bool ring = L.stages > 0;
+  // the copy width: 16 bytes at every compile-time head dim
+  constexpr int kW = kD > 0 ? 16 : 0;
+  const int W = kW > 0 ? kW : L.width;
+  float* tiles = reinterpret_cast<float*>(sbuf + L.tiles);
+  float* sQ = reinterpret_cast<float*>(sbuf + L.q);      // [nrows][D]
+  float* sAcc = reinterpret_cast<float*>(sbuf + L.acc);  // [nrows][D]
+  float* sM = reinterpret_cast<float*>(sbuf + L.m);      // [nrows]
+  float* sL = reinterpret_cast<float*>(sbuf + L.l);      // [nrows]
+  // this block's rows in the partials
+  const size_t part =
+      ((size_t)g * a.nqb + t) * ((size_t)a.B * nrows) + (size_t)b * nrows;
+
+  for (int idx = tid; idx < nrows * D; idx += kThreads) {
+    const int r = idx / D, d = idx - r * D;
+    const int qi = q0 + r / rep;
+    const int h = g * rep + r % rep;
+    sQ[idx] = qi < lq ? to_f32<T>(q[(((size_t)b * lq + qi) * H + h) * D + d])
+                      : 0.f;
+    sAcc[idx] = resume ? a.pacc[part * D + idx] : 0.f;
+  }
+  for (int r = tid; r < nrows; r += kThreads) {
+    sM[r] = resume ? a.pm[part + r] : kNegInf;
+    sL[r] = resume ? a.pl[part + r] : 0.f;
+  }
+
+  // With a compile-time head dim up to 64 a half-warp's query row sits in
+  // registers: read once for the walk when the warp has one pair of rows,
+  // else before each fold.
+  constexpr bool kQRegs = PTT_WALK_Q_REGS && kPair && kD <= 64;
+  float qreg[kQRegs ? kD : 1];
+  const bool one_pair = nrows <= 2 * kWarps;
+  // Roles: the first `folders` warps fold (one warp per row pair, or per
+  // row); on the ring, when that leaves warps over, those are the
+  // producers that copy and convert the pieces, so converting unit i + 1
+  // overlaps folding unit i; else every warp does both, folding first.
+  const int units = kPair ? (nrows + 1) / 2 : nrows;
+  const int folders = min(units, kWarps);
+  const int first_prod = ring && folders < kWarps ? folders : 0;
+  const bool producer = warp >= first_prod;
+  const int pt = tid - first_prod * 32, nprod = kThreads - first_prod * 32;
+  // unit u's page id, first key within its page and key count
+  auto unit_page = [&](int u) { return page_id(npc == 1 ? u : u / npc); };
+  auto unit_row0 = [&](int u) { return npc == 1 ? 0 : (u % npc) * pc; };
+  auto unit_rows = [&](int u) {
+    return npc == 1 ? ps : min(pc, ps - unit_row0(u));
+  };
+  // the ring's first kRingStages units, one commit group each; `next`:
+  // the page id of the unit the ring takes next, read a unit ahead
+  int next = 0;
+  if (ring && producer) {
+#pragma unroll
+    for (int i = 0; i < kRingStages; ++i) {
+      if (i < n)
+        ring_issue<T, kW>(a, W, D, ps, unit_page(i), unit_row0(i),
+                          unit_rows(i), pc, g, sbuf + (size_t)i * L.stage,
+                          pt, nprod);
+      cp_async_commit();
+    }
+    if (kRingStages < n) next = unit_page(kRingStages);
+  }
+  // Fill unit u's tile: on the ring, convert its stage (u % kRingStages;
+  // this thread waited for its own chunks only), then refill the stage
+  // with unit u + kRingStages; else load it from the pools.
+  auto produce = [&](int u) {
+    float* sK = tiles + (size_t)(u & (L.nbuf - 1)) * L.tile;
+    if (!ring) {
+      ring_convert<T, kPair, kW>(a, W, nullptr, unit_page(u), unit_row0(u),
+                                 unit_rows(u), pc, g, D, ps, kstride, sK,
+                                 sK + L.kfloats, pt, nprod);
+      return;
+    }
+    unsigned char* stage = sbuf + (size_t)(u % kRingStages) * L.stage;
+    cp_async_wait<kRingStages - 1>();
+    ring_convert<T, kPair, kW>(a, W, stage, 0, 0, unit_rows(u), pc, g, D,
+                               ps, kstride, sK, sK + L.kfloats, pt, nprod);
+    const int un = u + kRingStages;
+    if (un < n)
+      ring_issue<T, kW>(a, W, D, ps, next, unit_row0(un), unit_rows(un), pc,
+                        g, stage, pt, nprod);
+    cp_async_commit();
+    if (un + 1 < n) next = unit_page(un + 1);
+  };
+  if (producer && n > 0) produce(0);
+  __syncthreads();  // unit 0's tile, the queries and the partials visible
+  const size_t lmax = (size_t)a.mp * ps;
+  for (int i = 0; i < n; ++i) {
+    const float* sK = tiles + (size_t)(i & (L.nbuf - 1)) * L.tile;
+    const float* sV = sK + L.kfloats;
+    const int pi = npc == 1 ? i : i / npc;
+    const int kbase = (p0 + pi) * ps + unit_row0(i);
+    if (warp < folders) {
+      if constexpr (kPair) {
+        // warp w folds row pairs (2p, 2p + 1) for p = w, w + 8, ...
+        for (int p = warp; 2 * p < nrows; p += kWarps) {
+          const int r = 2 * p + (lane >> 4);
+          const bool owner = r < nrows;
+          const int rr = owner ? r : 2 * p;
+          const int qi = q0 + rr / rep;
+          const float* qrow = sQ + (size_t)rr * kD;
+          if constexpr (kQRegs) {
+            if (i == 0 || !one_pair) {
+#pragma unroll
+              for (int k = 0; k < kD / 4; ++k) {
+                const float4 x = reinterpret_cast<const float4*>(qrow)[k];
+                qreg[4 * k] = x.x;
+                qreg[4 * k + 1] = x.y;
+                qreg[4 * k + 2] = x.z;
+                qreg[4 * k + 3] = x.w;
+              }
+            }
+            qrow = qreg;
+          }
+          const float* mrow = nullptr;
+          if (kMasked) {
+            const int h = g * rep + rr % rep;
+            mrow = a.mask + (((size_t)b * H + h) * lq + min(qi, lq - 1)) *
+                                lmax;
+          }
+          attend_pair<kD, kQRegs, kMasked>(
+              qrow, sK, sV, kbase, qi < qlen_b, pos_b + qi, a.scale, sM + rr,
+              sL + rr, sAcc + (size_t)rr * kD, lane, owner, mrow);
+        }
+      } else {
+        const int rows = unit_rows(i);
+        for (int r = warp; r < nrows; r += kWarps) {
+          const int qi = q0 + r / rep;
+          const float* mrow = nullptr;
+          if (kMasked) {
+            const int h = g * rep + r % rep;
+            mrow = a.mask + (((size_t)b * H + h) * lq + min(qi, lq - 1)) *
+                                lmax;
+          }
+          attend_row<DV, PJ, kMasked>(sQ + (size_t)r * D, sK, sV, D, rows,
+                                      kbase, qi < qlen_b, pos_b + qi,
+                                      a.scale, sM + r, sL + r,
+                                      sAcc + (size_t)r * D, lane, mrow);
+        }
+      }
+    }
+    if (i + 1 < n) {
+      // two tiles: unit i + 1 goes to the other one while unit i is
+      // folded; one tile: after every fold of unit i
+      if (L.nbuf == 1) __syncthreads();
+      if (producer) produce(i + 1);
+    }
+    __syncthreads();  // unit i + 1's tile is whole, unit i's folds done
+  }
+  if (kPhase1) {
+    for (int idx = tid; idx < nrows * D; idx += kThreads)
+      a.pacc[part * D + idx] = sAcc[idx];
+    for (int r = tid; r < nrows; r += kThreads) {
+      a.pm[part + r] = sM[r];
+      a.pl[part + r] = sL[r];
+    }
+    return;
+  }
+  T* __restrict__ out = static_cast<T*>(a.out);
+  for (int idx = tid; idx < nrows * D; idx += kThreads) {
+    const int r = idx / D, d = idx - r * D;
+    const int qi = q0 + r / rep;
+    if (qi < lq) {
+      const int h = g * rep + r % rep;
+      const float l = fmaxf(sL[r], 1e-30f);
+      out[(((size_t)b * lq + qi) * H + h) * D + d] =
+          from_f32<T>(sAcc[idx] / l);
+    }
+  }
+}
+
+template <bool kPhase1, bool kMasked, int kD, int kPS>
+struct RingWalk {
+  template <typename T, int DV, int PJ>
+  static int run(const Args& a, cudaStream_t stream) {
+    const size_t smem = walk_layout<T>(a, a.D, a.ps, kPS == 16).total;
+    if (smem > kDynSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+    auto kernel = ring_walk_kernel<T, DV, PJ, kD, kPS, kPhase1, kMasked>;
+    if (smem > 48 * 1024) {
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    kernel<<<a.nqb * a.B * a.Hkv, kThreads, smem, stream>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
 // Instantiate launcher L for q's dtype code and the (DV, PJ) that D and
-// ps need; the pool code rides in Args (`load_pool_page`).
+// the piece length need; the pool code rides in Args.
 template <class L, typename T, int DV>
 int dispatch_pj(const Args& a, cudaStream_t s) {
-  if (a.ps <= 32) return L::template run<T, DV, 1>(a, s);
-  if (a.ps <= 64) return L::template run<T, DV, 2>(a, s);
-  if (a.ps <= 128) return L::template run<T, DV, 4>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int pc = piece_rows(a.D, a.ps);
+  if (pc <= 32) return L::template run<T, DV, 1>(a, s);
+  if (pc <= 64) return L::template run<T, DV, 2>(a, s);
+  return L::template run<T, DV, 4>(a, s);
 }
 
 template <class L, typename T>
@@ -706,23 +1014,93 @@ int dispatch_dv(const Args& a, cudaStream_t s) {
   if (a.D <= 32) return dispatch_pj<L, T, 1>(a, s);
   if (a.D <= 64) return dispatch_pj<L, T, 2>(a, s);
   if (a.D <= 128) return dispatch_pj<L, T, 4>(a, s);
-  if (a.D <= 256) return dispatch_pj<L, T, 8>(a, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch_pj<L, T, 8>(a, s);  // over 256: columns in pieces
 }
 
-template <class L>
-int dispatch(int dtype, const Args& a, cudaStream_t s) {
-  if (!pools_valid(a)) return static_cast<int>(cudaErrorInvalidValue);
+template <class L, int DV>
+int dispatch_exact(int dtype, const Args& a, cudaStream_t s) {
   switch (dtype) {
     case kF32:
-      return dispatch_dv<L, float>(a, s);
+      return L::template run<float, DV, 1>(a, s);
     case kBF16:
-      return dispatch_dv<L, __nv_bfloat16>(a, s);
+      return L::template run<__nv_bfloat16, DV, 1>(a, s);
     case kF16:
-      return dispatch_dv<L, __half>(a, s);
+      return L::template run<__half, DV, 1>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// Page size 16 at head dims 32-256: the compile-time instantiations, two
+// rows a warp; any other shape: run-time D and ps, a row a warp.
+template <bool kPhase1, bool kMasked>
+int ring_dispatch(int dtype, const Args& a, cudaStream_t s) {
+  if (!pools_valid(a) || a.D < 1 || a.ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ring_paired(a.D, a.ps)) {
+    switch (a.D) {
+      case 32:
+        return dispatch_exact<RingWalk<kPhase1, kMasked, 32, 16>, 1>(dtype,
+                                                                    a, s);
+      case 64:
+        return dispatch_exact<RingWalk<kPhase1, kMasked, 64, 16>, 2>(dtype,
+                                                                    a, s);
+      case 128:
+        return dispatch_exact<RingWalk<kPhase1, kMasked, 128, 16>, 4>(
+            dtype, a, s);
+      case 256:
+        return dispatch_exact<RingWalk<kPhase1, kMasked, 256, 16>, 8>(
+            dtype, a, s);
+      default:
+        break;
+    }
+  }
+  switch (dtype) {
+    case kF32:
+      return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, float>(a, s);
+    case kBF16:
+      return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, __nv_bfloat16>(
+          a, s);
+    case kF16:
+      return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, __half>(a, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The launch a walk makes for these shapes, written to out[9]: raw stages
+// (kRingStages on the ring; 0: each piece loaded straight into one tile),
+// f32 tiles, dynamic shared memory bytes, 1 if two rows share a warp
+// (`attend_pair`), the grid's blocks, threads a block, query rows a block,
+// the keys of a piece (`piece_rows`) and the bytes of one copy
+// (`copy_bytes`); a launch with a user mask takes the same plan. Returns
+// cudaErrorInvalidValue, as the launch would, for a dtype or pool code the
+// kernels do not take or shared memory over the limit.
+inline int walk_plan(int B, int lq, int H, int Hkv, int D, int ps, int dtype,
+                     int pool, int* out) {
+  if (B < 1 || lq < 1 || Hkv < 1 || H < Hkv || H % Hkv || D < 1 ||
+      ps < 1 || dtype < kF32 || dtype > kF16 || pool < kPoolQ ||
+      pool > kPoolE4M3)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int elem =
+      pool != kPoolQ ? 1 : dtype == kF32 ? 4 : 2;  // bytes a pool element
+  const int qblk = lq < kQBlk ? lq : kQBlk;
+  const int nrows = qblk * (H / Hkv);
+  const bool paired = ring_paired(D, ps);
+  const RingLayout L =
+      walk_layout(elem, pool == kPoolI8, D, ps, nrows, paired);
+  if (L.total > kDynSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const int vals[9] = {L.stages,
+                       L.nbuf,
+                       static_cast<int>(L.total),
+                       paired ? 1 : 0,
+                       (lq + qblk - 1) / qblk * B * Hkv,
+                       kThreads,
+                       nrows,
+                       L.rows,
+                       L.width};
+  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  return 0;
 }
 
 }  // namespace walk

@@ -39,11 +39,13 @@ from .launch_check import decode, decode_batch, lane_batch, lora_batch, ragged
 _ENTRIES = {"paged_decode_attention": "ptt_paged_decode_attention",
             "lora_paged": "ptt_lora_delta_paged"}
 # the serving instantiations, mangled: K9's bf16 head-dim-64 page-16
-# kernel without a mask, K11's bf16 kernel
-SERVING = {"K9": re.compile(r"decode_ring_kernelI13__nv_bfloat16Li2ELi1E"
-                            r"Li64ELi16ELb0E"),
-           "K9 masked": re.compile(r"decode_ring_kernelI13__nv_bfloat16Li2E"
-                                   r"Li1ELi64ELi16ELb1E"),
+# kernel without a mask and with one (the walk's phase-2 instantiations,
+# or before the walk was shared `decode_ring_kernel`), K11's bf16 kernel
+SERVING = {"K9": re.compile(r"(ring_walk_kernel|decode_ring_kernel)I13__nv_"
+                            r"bfloat16Li2ELi1ELi64ELi16E(Lb0ELb0E|Lb0EEv)"),
+           "K9 masked": re.compile(r"(ring_walk_kernel|decode_ring_kernel)I13"
+                                   r"__nv_bfloat16Li2ELi1ELi64ELi16E"
+                                   r"(Lb0ELb1E|Lb1EEv)"),
            "K11": re.compile(r"lora_paged_kernelI13__nv_bfloat16Lb1E")}
 
 

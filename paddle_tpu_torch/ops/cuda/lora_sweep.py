@@ -18,9 +18,10 @@ scale). The variants:
 - `threads128`, `threads512`: 128 or 512 threads a block (the built
   library takes 256);
 - `stop_start`, `stop_loads`, `stop_t`, `stop_combine`: the kernel
-  returns at its start, after its first tiles land, after t's partial,
-  after the cluster's partials are pushed and added (the output is then
-  not K11's and is not checked): the time of each step, by difference.
+  returns at its start, after its first tiles land, after t's partial
+  (of its first group of ranks: all of them at rank 8), after the
+  cluster's partials are pushed and added (the output is then not K11's
+  and is not checked): the time of each step, by difference.
 
 Prints the card's name and power limit and K11's device time per call
 (ms, behind a GPU sleep so the host's enqueue is not timed). Needs CUDA
@@ -44,8 +45,9 @@ _THREADS = "constexpr int kThreads = 256;"
 # where the kernel stops in the `stop_*` variants, and what it leaves in
 # out so that nothing before is dead code
 _C = "  const int c = static_cast<int>(cluster.block_rank());"
-_T = "  // ---- t's partial over this block's slice of IN ----"
-_P = "  // ---- the partials pushed to every block of the cluster ----"
+_T = "  // ---- t's partial over this block's slice of IN, gr ranks at a time:"
+_P = ("    // ---- this group's partials pushed to every block of the "
+      "cluster ----")
 _D = "  // ---- d = t . B, the scale, out: the tile of OUT in pieces ----"
 _KEEP = ("  if (threadIdx.x == 0)\n    reinterpret_cast<float*>(a.out)"
          "[blockIdx.z * 8 + c] = {};\n  return;\n")

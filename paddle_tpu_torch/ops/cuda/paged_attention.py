@@ -51,10 +51,9 @@ An optional user mask (bool, or additive float, broadcastable to
 inside the same online softmax: K6's and K7's mask lane. Under a mask
 the grouped op runs K6/K7, as the JAX op falls back to its ungrouped
 kernel. K9 is the q_len 1 case with its mask [B, H, mp * ps]: without a
-mask its output equals K6's at q_len 1 (on the card bit for bit; the
-plain versions are one function). On the card it walks K10's ring below,
-a block per (kv head, row); `decode_plan` reports its launch. int8 pools
-have no K9 lane: the decode step sends them to K7 at q_len 1.
+mask its output equals K6's at q_len 1 (on the card bit for bit, as it
+is K6's walk launched at q_len 1; the plain versions are one function).
+int8 pools have no K9 lane: the decode step sends them to K7 at q_len 1.
 
 The grouped op computes the same output. Rows whose page tables share a
 physical-page prefix declare it: `group_id` [B] (row -> group),
@@ -64,11 +63,15 @@ physical-page prefix declare it: `group_id` [B] (row -> group),
 table, into the online-softmax partials (m, l, acc) of every member row;
 phase 2 (K10b) continues each row from its partials over its private
 tail. Both walk a row's pages in K6's order with K6's arithmetic, so on
-the card K10's output equals K6's bit for bit, lane for lane. On the card
-both phases run on a ring of cp.async page copies (or, where the ring
-does not fit shared memory, load each page straight into one tile), one
-block per (query block, row, kv head) in an order the kernels rank on
-the device, longest walk first; `grouped_plan` reports the launch the
+the card K10's output equals K6's bit for bit, lane for lane.
+
+On the card K6, K7, K9 and both phases of K10 are one kernel (the walk
+of `csrc/paged_walk.cuh`): a ring of cp.async page copies (or, where the
+ring does not fit shared memory, each page loaded straight into one
+tile), one block per (query block, row, kv head) in an order the kernel
+ranks on the device, longest walk first. Pages over 128 keys are folded
+in pieces, the same in every walk; any head dim and page size is taken.
+`ragged_plan`, `decode_plan` and `grouped_plan` report the launch the
 library chooses for a batch's shapes.
 
 The KV write goes to the slots `_paged_flat_slots` gives (past a row's
@@ -114,7 +117,7 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "paged_scatter_reference", "paged_scatter_q8",
            "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
            "paged_decode_attention", "paged_attention_reference",
-           "decode_plan", "lora_plan",
+           "decode_plan", "ragged_plan", "lora_plan", "piece_rows",
            "_mask_to_additive", "LAUNCHES", "GROUPED_LAUNCHES",
            "QUANT_LAUNCHES", "DECODE_LAUNCHES", "MEGA_LAUNCHES",
            "reset_launches", "NEG_INF", "paged_scatter_kernel",
@@ -461,6 +464,21 @@ def ragged_attention_reference_q8(q: torch.Tensor, k_pool: torch.Tensor,
     return _ragged_attend(q, kf, vf, pos, q_len, mask)
 
 
+def piece_rows(d: int, ps: int) -> int:
+    """The keys a walk folds at a time at head dim `d` and page size `ps`
+    (`piece_rows` in csrc/paged_walk.cuh, mirrored for the plain
+    emulations and the tests): the whole page up to 128 keys where its
+    f32 tile fits shared memory beside 8 rows' state (at head dims over
+    256, where it fits 64 KB), else equal pieces of at most that many
+    keys (the last may be shorter)."""
+    budget = (232448 // 4 - 8 * (2 * d + 2)) if d <= 256 else 16384
+    cap = max(1, min(128, budget // (2 * d + 1)))
+    if ps <= cap:
+        return ps
+    pieces = -(-ps // cap)
+    return -(-ps // pieces)
+
+
 def _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale=None,
            v_scale=None, name="ragged_paged_attention"):
     b, lq, h, d = q.shape
@@ -501,11 +519,6 @@ def _check(q, k_pool, v_pool, page_table, pos, q_len, k_scale=None,
                                *scales)}
     if len(devs) != 1:
         raise ValueError(f"{name}: tensors on {devs}")
-    vec = 16 // k_pool.element_size()
-    if d % vec or d > 256 or ps > 128:
-        raise ValueError(f"{name} kernel: head dim {d} "
-                         f"must be a multiple of {vec} and <= 256, page "
-                         f"size {ps} <= 128")
 
 
 def _contiguous(*ts):
@@ -513,7 +526,7 @@ def _contiguous(*ts):
 
 
 def _check_aligned(k_pool, v_pool):
-    """The kernels read pool rows with 16-byte vector loads."""
+    """The kernels read pool rows with copies of up to 16 bytes."""
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("ragged_paged_attention kernel: the pools must "
                          "start on a 16-byte boundary")
@@ -671,8 +684,8 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     user attention mask, bool or additive float, broadcastable to
     [B, H, 1, mp * ps], composed with the window in the kernel. On the
     card this is K9 (counted in DECODE_LAUNCHES: "K9", or "K9-fp8" for
-    e4m3 pools); int8 pools, D not a multiple of the pool's 16-byte
-    vector, or tensors on several devices raise there. On the CPU it is
+    e4m3 pools); int8 pools, or tensors on several devices, raise there.
+    On the CPU it is
     `paged_attention_reference`."""
     b, l, h, d = q.shape
     if l != 1:
@@ -720,27 +733,55 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
     return out
 
 
-def decode_plan(q: torch.Tensor, k_pool: torch.Tensor,
-                masked: bool = False) -> dict:
+# the keys of a walk's launch report (`walk_plan` in csrc/paged_walk.cuh)
+_WALK_PLAN = ("stages", "tiles", "smem", "paired", "grid", "threads",
+              "rows", "piece", "copy")
+
+
+def _walk_plan(lib, entry, args, what):
+    out = (ctypes.c_int * len(_WALK_PLAN))()
+    if getattr(lib, entry)(*args, out):
+        raise ValueError(f"{what} kernel: no launch for these shapes")
+    return dict(zip(_WALK_PLAN, (int(x) for x in out)))
+
+
+def decode_plan(q: torch.Tensor, k_pool: torch.Tensor) -> dict:
     """The launch K9 makes for q [B, 1, H, D] over pools like `k_pool`
-    (any device: only shapes and dtypes are read), without or with a user
+    (any device: only shapes and dtypes are read), with or without a user
     mask, as the library chooses it (`ptt_decode_plan`): "stages" (raw
-    page stages of the cp.async ring; 0 where the ring does not fit and
-    each page is loaded straight into one tile), "tiles" (f32 working
-    tiles), "smem" (dynamic shared memory bytes a block), "paired" (two
-    query rows a warp), "grid" (blocks), "threads" (a block) and "rows"
-    (query rows a block). Raises ValueError where K9 takes no launch."""
+    page stages of the cp.async ring; 0 where the ring does not fit, or a
+    pool row is not a multiple of 4 bytes, and each page is loaded
+    straight into one tile), "tiles" (f32 working tiles), "smem" (dynamic
+    shared memory bytes a block), "paired" (two query rows a warp),
+    "grid" (blocks), "threads" (a block), "rows" (query rows a block),
+    "piece" (the keys a page is folded in at a time: the page size up to
+    128) and "copy" (the bytes of one copy: 16, 8 or 4, or one element).
+    Raises ValueError where K9 takes no launch."""
     b, _, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    lib = _build.load("paged_decode_attention")
-    out = (ctypes.c_int * 7)()
-    if lib.ptt_decode_plan(b, h, hkv, d, ps, _build.dtype_code(q.dtype),
-                           _POOL_CODE[_lane(k_pool)], int(masked), out):
-        raise ValueError(f"paged_decode_attention kernel: no launch for q "
-                         f"{tuple(q.shape)} {q.dtype} over {k_pool.dtype} "
-                         f"pools of page size {ps}")
-    return dict(zip(("stages", "tiles", "smem", "paired", "grid", "threads",
-                     "rows"), (int(x) for x in out)))
+    return _walk_plan(_build.load("paged_decode_attention"),
+                      "ptt_decode_plan",
+                      (b, h, hkv, d, ps, _build.dtype_code(q.dtype),
+                       _POOL_CODE[_lane(k_pool)]),
+                      f"paged_decode_attention (q {tuple(q.shape)} "
+                      f"{q.dtype} over {k_pool.dtype} pools of page size "
+                      f"{ps})")
+
+
+def ragged_plan(q: torch.Tensor, k_pool: torch.Tensor) -> dict:
+    """The launch K6 (K7 over int8 pools) makes for q [B, lq, H, D] over
+    pools like `k_pool`, with or without a user mask, as the library
+    chooses it (`ptt_ragged_plan`); the keys as `decode_plan`'s. Raises
+    ValueError where the kernel takes no launch."""
+    b, lq, h, d = q.shape
+    ps, hkv = k_pool.shape[1], k_pool.shape[2]
+    return _walk_plan(_build.load("ragged_paged_attention"),
+                      "ptt_ragged_plan",
+                      (b, lq, h, hkv, d, ps, _build.dtype_code(q.dtype),
+                       _POOL_CODE[_lane(k_pool)]),
+                      f"ragged_paged_attention (q {tuple(q.shape)} "
+                      f"{q.dtype} over {_lane(k_pool)} pools of page size "
+                      f"{ps})")
 
 
 # -- K10: the grouped walk ----------------------------------------------------
@@ -999,26 +1040,18 @@ def _grouped_check(q, k_pool, v_pool, page_table, pos, q_len, group_id,
 def grouped_plan(q, k_pool) -> dict:
     """The launch both K10 entries make for q [B, lq, H, D] over pools
     like `k_pool` (any device: only shapes and dtypes are read), as the
-    library chooses it (`ptt_grouped_plan`): "stages" (raw page stages
-    of the cp.async ring; 0 where the ring does not fit and each page is
-    loaded straight into one tile), "tiles" (f32 working tiles), "smem"
-    (dynamic shared memory bytes a block), "paired" (two query rows a
-    warp), "grid" (blocks), "threads" (a block) and "rows" (query rows a
-    block). Raises ValueError where the kernels take no launch: the
-    wrappers' launch would fail there."""
+    library chooses it (`ptt_grouped_plan`); the keys as `decode_plan`'s.
+    Raises ValueError where the kernels take no launch: the wrappers'
+    launch would fail there."""
     b, lq, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
-    lib = _build.load("grouped_paged_attention")
-    out = (ctypes.c_int * 7)()
-    err = lib.ptt_grouped_plan(b, lq, h, hkv, d, ps,
-                               _build.dtype_code(q.dtype),
-                               _POOL_CODE[_lane(k_pool)], out)
-    if err:
-        raise ValueError(f"ragged_paged_attention_grouped kernel: no launch "
-                         f"for q {tuple(q.shape)} {q.dtype} over "
-                         f"{_lane(k_pool)} pools of page size {ps}")
-    return dict(zip(("stages", "tiles", "smem", "paired", "grid", "threads",
-                     "rows"), (int(x) for x in out)))
+    return _walk_plan(_build.load("grouped_paged_attention"),
+                      "ptt_grouped_plan",
+                      (b, lq, h, hkv, d, ps, _build.dtype_code(q.dtype),
+                       _POOL_CODE[_lane(k_pool)]),
+                      f"ragged_paged_attention_grouped (q {tuple(q.shape)} "
+                      f"{q.dtype} over {_lane(k_pool)} pools of page size "
+                      f"{ps})")
 
 
 def grouped_phase1(q, k_pool, v_pool, page_table, pos, q_len, group_id,
@@ -1127,20 +1160,24 @@ def lora_plan(x: torch.Tensor, a_pool: torch.Tensor,
     t = x . A over distributed shared memory), "clusters_per_row" (each
     over up to 64 positions), "in_slice" and "out_tile" (the IN slice a
     block sums t over, the OUT columns it writes), "smem" (dynamic shared
-    memory bytes a block), "grid" (blocks), "threads" (a block) and
-    "tensor_cores" (1 where both products run on mma.sync: bf16, f16).
-    Raises ValueError for a rank or dtype the kernel does not take."""
+    memory bytes a block), "grid" (blocks), "threads" (a block),
+    "tensor_cores" (1 where both products run on mma.sync: bf16, f16),
+    "positions" (a cluster's positions, fewer where a large rank's tiles
+    would not fit shared memory) and "rank_group" (the ranks of t summed
+    at a time; d sums over all of R in k-steps of 16). Raises ValueError
+    for a dtype the kernel does not take, or a rank so large that no
+    plan fits shared memory."""
     bsz, w, cin = x.shape
     r, cout = a_pool.shape[2], b_pool.shape[2]
     lib = _build.load("lora_paged")
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 10)()
     if lib.ptt_lora_plan(bsz, w, cin, r, cout, _build.dtype_code(x.dtype),
                          out):
         raise ValueError(f"lora_delta_paged kernel: no launch for x "
                          f"{tuple(x.shape)} {x.dtype} at rank {r}")
     return dict(zip(("cluster", "clusters_per_row", "in_slice", "out_tile",
-                     "smem", "grid", "threads", "tensor_cores"),
-                    (int(v) for v in out)))
+                     "smem", "grid", "threads", "tensor_cores", "positions",
+                     "rank_group"), (int(v) for v in out)))
 
 
 def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
@@ -1170,9 +1207,8 @@ def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
         raise TypeError(f"lora_delta_paged kernel: the pools must share x's "
                         f"dtype, got {x.dtype}, {a_pool.dtype}, "
                         f"{b_pool.dtype}")
-    if not 1 <= r <= 16:
-        raise ValueError(f"lora_delta_paged kernel: rank {r} must be in "
-                         f"[1, 16]")
+    if r < 1:
+        raise ValueError(f"lora_delta_paged kernel: rank {r} must be >= 1")
     apage = apage.to(torch.int32).contiguous()
     ascale = ascale.to(torch.float32).contiguous()
     if apage.shape != (bsz,) or ascale.shape != (bsz,):

@@ -1,5 +1,6 @@
 """Hold K6 as built from other checkouts against K6 as built here: its
-machine code and its time on the card, in turns on the same inputs.
+machine code, its outputs in every lane and its time on the card, in
+turns on the same inputs.
 
     python -m paddle_tpu_torch.ops.cuda.walk_control OTHER [OTHER ...]
 
@@ -7,17 +8,21 @@ OTHER is the root of another checkout of this repo (for example the
 parent commit, unpacked with `git archive`). Each checkout's
 `csrc/ragged_paged_attention.cu` is compiled with this build's flags
 into the build directory, and so is this checkout's (all `nvcc`
-processes started together). For
-K6's serving instantiation (`row_walk_kernel` in bf16 at DV 2, PJ 1,
-unmasked) it prints, per library, ptxas's register and spill report and
-the SASS (`cuobjdump -sass`) held against this build's, instruction by
-instruction with addresses, encodings and the kernel's name left out.
-Then K6 runs on `launch_check.grouped_batch`'s bf16 serving batch (16
-rows of up to 32 queries, 12 heads of 64, pages of 16) on each library
-in turn (this, the others, the others reversed, this), behind a GPU
-sleep (`flash_tile_sweep.device_ms`); every output must equal this
-build's bit for bit. Prints the card's name and power limit. Needs CUDA,
-nvcc and cuobjdump.
+processes started together). For K6's serving instantiation — the
+walk's (`ring_walk_kernel` in bf16 at DV 2, PJ 1, D 64, page size 16,
+phase 2, unmasked; a checkout from before the ring names it
+`row_walk_kernel`) — it prints, per library, ptxas's register and spill
+report and the SASS (`cuobjdump -sass`) held against this build's,
+instruction by instruction with addresses, encodings and the kernel's
+name left out. Then K6 runs on `launch_check.grouped_batch`'s serving
+batch (16 rows of up to 32 queries, 12 heads of 64, pages of 16) in f32
+and bf16, in its fp, fp8 and q8 (K7) lanes, without a mask and with an
+additive and a bool user mask: every other library's output must equal
+this build's bit for bit, and 20 reruns here must repeat it. Each lane
+is timed on the bf16 batch on each library in turn (this, the others,
+the others reversed, this), behind a GPU sleep
+(`flash_tile_sweep.device_ms`). Prints the card's name and power limit.
+Needs CUDA, nvcc and cuobjdump.
 """
 from __future__ import annotations
 
@@ -32,12 +37,18 @@ import torch
 
 from . import _build
 from .flash_tile_sweep import device_ms
-from .launch_check import grouped_batch, ragged
+from .launch_check import grouped_batch, lane_batch, ragged
 
 _LIB = "ragged_paged_attention"
-# K6's serving instantiation, mangled: T bf16, DV 2, PJ 1, every bool
-# template flag false
-_K6 = re.compile(r"row_walk_kernelI13__nv_bfloat16Li2ELi1E(Lb0E)+E")
+# K6's serving instantiation, mangled: the walk's (T bf16, DV 2, PJ 1,
+# D 64, page size 16, phase 2, unmasked), or before the ring the row
+# walk's (T bf16, DV 2, PJ 1, every bool template flag false)
+_K6 = re.compile(r"ring_walk_kernelI13__nv_bfloat16Li2ELi1ELi64ELi16ELb0ELb0E"
+                 r"|row_walk_kernelI13__nv_bfloat16Li2ELi1E(Lb0E)+E")
+# the lanes and masks K6 is compared in: (lane, mask kind or None)
+CASES = [(lane, mask) for lane in ("fp", "fp8", "q8")
+         for mask in (None, "additive", "bool")]
+REPEATS = 20
 
 
 def build_others(roots) -> dict:
@@ -86,12 +97,67 @@ def k6_ptxas(log: str) -> list:
 
 def _load(path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(path))
-    for entry, argtypes in _build.KERNELS[_LIB].items():
-        fn = getattr(lib, entry)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+    entry = "ptt_ragged_paged_attention"
+    fn = getattr(lib, entry)
+    fn.argtypes, fn.restype = _build.KERNELS[_LIB][entry], ctypes.c_int
     lib.ptt_error_string.argtypes = [ctypes.c_int]
     lib.ptt_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def k6_cases(dev, dtype) -> dict:
+    """{(lane, mask kind): (ops, scales, mask)} on the serving batch."""
+    base, _ = grouped_batch(dev, dtype, 12, 12, 64)
+    q, k = base[0], base[1]
+    b, lq, h = q.shape[:3]
+    lmax = base[3].shape[1] * k.shape[1]
+    g = torch.Generator(device=dev).manual_seed(1)
+    masks = {None: None,
+             "additive": torch.randn(b, h, lq, lmax, generator=g,
+                                     device=dev),
+             "bool": torch.rand(b, 1, 1, lmax, generator=g, device=dev)
+             < 0.7}
+    masks["bool"][..., 0] = True
+    out = {}
+    for lane, kind in CASES:
+        ops, scales = lane_batch(base, lane)
+        out[lane, kind] = ops, scales, masks[kind]
+    return out
+
+
+def compare(libs: dict, dev, time_it: bool = True) -> dict:
+    """Run K6 from each loaded library of `libs` ({name: CDLL}, "this"
+    first) on every case of `k6_cases` in f32 and bf16; raise if another
+    library's output differs from this build's or a rerun here differs.
+    Returns {case: {name: [ms, ...]}} of the bf16 cases' times in turns
+    (empty without `time_it`)."""
+    names = [n for n in libs if n != "this"]
+    times = {}
+    try:
+        for dtype in (torch.float32, torch.bfloat16):
+            for (lane, kind), (ops, scales, mask) in k6_cases(
+                    dev, dtype).items():
+                tag = f"{lane} lane, mask {kind}, {dtype}"
+                _build._LIBS[_LIB] = libs["this"]
+                want = ragged(ops, scales, mask)
+                for _ in range(REPEATS):
+                    if not torch.equal(ragged(ops, scales, mask), want):
+                        raise AssertionError(f"K6 {tag}: a rerun differs")
+                for name in names:
+                    _build._LIBS[_LIB] = libs[name]
+                    if not torch.equal(ragged(ops, scales, mask), want):
+                        raise AssertionError(
+                            f"K6 {tag}: {name} differs from this build")
+                if not time_it or dtype != torch.bfloat16:
+                    continue
+                for name in ("this", *names, *reversed(names), "this"):
+                    _build._LIBS[_LIB] = libs[name]
+                    times.setdefault(f"{lane}/{kind}", {}).setdefault(
+                        name, []).append(round(device_ms(
+                            lambda: ragged(ops, scales, mask)), 4))
+    finally:
+        _build._LIBS[_LIB] = libs["this"]
+    return times
 
 
 def main(argv=None) -> int:
@@ -116,23 +182,12 @@ def main(argv=None) -> int:
         for d in diff[:40]:
             print("   ", d)
     dev = torch.device("cuda", 0)
-    ops, _ = grouped_batch(dev, torch.bfloat16, 12, 12, 64)
     loaded = {name: _load(path) for name, (path, _) in libs.items()}
-    _build._LIBS[_LIB] = loaded["this"]
-    want = ragged(ops, {})
-    order = ("this", *roots, *reversed(roots), "this")
-    times = {}
-    try:
-        for name in order:
-            _build._LIBS[_LIB] = loaded[name]
-            if not torch.equal(ragged(ops, {}), want):
-                raise AssertionError(f"K6 of {name} differs from this build")
-            times.setdefault(name, []).append(round(device_ms(
-                lambda: ragged(ops, {})), 4))
-    finally:
-        _build._LIBS[_LIB] = loaded["this"]
-    print(f"K6 bf16 [16, 32, 12, 64] grouped batch, ms per call in turns: "
-          f"{times}")
+    times = compare(loaded, dev)
+    print(f"K6 equals every other build's bit for bit in {len(CASES)} "
+          f"lane/mask cases, f32 and bf16, {REPEATS} reruns each")
+    print(f"K6 bf16 [16, 32, 12, 64] grouped batch, ms per call in turns "
+          f"(lane/mask: library: times): {times}")
     return 0
 
 

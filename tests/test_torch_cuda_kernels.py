@@ -871,17 +871,26 @@ def test_paged_decode_attention_is_bit_reproducible(cuda):
 
 
 def test_paged_decode_attention_raises_what_the_kernel_cannot_take(cuda):
-    """No plain fallback on the card: int8 pools (those take K7), a head
-    dim the vector loads cannot read, and tensors on two devices raise."""
+    """No plain fallback on the card: int8 pools (those take K7) and
+    tensors on two devices raise. A head dim whose pool rows are not a
+    multiple of 16 bytes (12 in bf16: 24 bytes) launches K9, read in
+    8-byte copies, and equals K6 at q_len 1 bit for bit."""
     ops, scales = lane_batch(decode_batch(cuda, torch.bfloat16, 12, 12, 64),
                              "q8")
     q, k, v, table, pos, _ = ops
     with pytest.raises(TypeError, match="int8 pools"):
         tpa.paged_decode_attention(q, k, v, table, pos)
-    q, k, v, table, pos, _ = decode_batch(cuda, torch.bfloat16, 4, 4, 12,
+    ops = decode_batch(cuda, torch.bfloat16, 4, 4, 12, rows=2, mp=64)
+    q, k, v, table, pos, _ = ops
+    before = tpa.DECODE_LAUNCHES["K9"]
+    out = tpa.paged_decode_attention(q, k, v, table, pos)
+    torch.cuda.synchronize()
+    assert tpa.DECODE_LAUNCHES["K9"] == before + 1
+    assert tpa.decode_plan(q, k)["copy"] == 8
+    assert torch.equal(out, ragged(ops, {}))
+    _close(out, tpa.paged_attention_reference(q, k, v, table, pos))
+    q, k, v, table, pos, _ = decode_batch(cuda, torch.bfloat16, 4, 4, 64,
                                           rows=2, mp=4)
-    with pytest.raises(ValueError, match="multiple of"):
-        tpa.paged_decode_attention(q, k, v, table, pos)
     q, k, v, table, pos, _ = decode_batch(cuda, torch.bfloat16, 4, 4, 64,
                                           rows=2, mp=4)
     with pytest.raises(ValueError, match="tensors on"):
@@ -1249,7 +1258,9 @@ def test_lora_kernel_at_ragged_shapes(cuda, dtype, b, w, cin, cout):
 def test_lora_plan_reports_the_launch(cuda):
     """At the serving step's shapes K11 runs clusters of 8 blocks a row
     (128 blocks for 16 rows), both products on the tensor cores in bf16
-    and f16, f32 on the CUDA cores; a rank over 16 takes no launch."""
+    and f16, f32 on the CUDA cores; a rank over 16 takes the same launch,
+    its t summed in groups of ranks (all 32 at once on the tensor cores)
+    and d over R in k-steps of 16."""
     for dtype in _FLASH_DTYPES:
         x, A, B, _, _ = lora_batch(cuda, dtype)
         plan = tpa.lora_plan(x, A, B)
@@ -1257,9 +1268,11 @@ def test_lora_plan_reports_the_launch(cuda):
         assert plan["in_slice"] == 96 and plan["out_tile"] == 96, plan
         assert plan["tensor_cores"] == int(dtype != torch.float32)
         assert plan["smem"] <= 232448 and plan["threads"] == 256
+        assert plan["positions"] == 32 and plan["rank_group"] == 16, plan
     x, A, B, _, _ = lora_batch(cuda, torch.bfloat16, r=16)
-    with pytest.raises(ValueError, match="no launch"):
-        tpa.lora_plan(x, A.repeat(1, 1, 2), B)
+    plan = tpa.lora_plan(x, A.repeat(1, 1, 2), B.repeat(1, 2, 1))
+    assert plan["cluster"] == 8 and plan["grid"] == 128, plan
+    assert plan["rank_group"] == 32 and plan["smem"] <= 232448, plan
 
 
 _DECODE_DIRECT = [
@@ -1292,15 +1305,13 @@ def test_paged_decode_attention_takes_every_shape(cuda, dtype, h, hkv, d,
 
 def test_decode_plan_reports_the_feeder(cuda):
     """The legacy step's shapes take the ring (two stages, two tiles), two
-    rows a warp without a mask and a row a warp with one; the shapes the
-    ring does not fit take direct page loads in the fp lane; int8 pools
-    take no K9 launch."""
+    rows a warp with or without a mask; the shapes the ring does not fit
+    take direct page loads in the fp lane; int8 pools take no K9
+    launch."""
     q, k = decode_batch(cuda, torch.bfloat16, 12, 12, 64)[:2]
     plan = tpa.decode_plan(q, k)
     assert (plan["stages"], plan["tiles"], plan["paired"]) == (2, 2, 1)
     assert plan["grid"] == 16 * 12 and plan["threads"] == 256
-    assert tpa.decode_plan(q, k, masked=True)["paired"] == 0
-    assert tpa.decode_plan(q, k, masked=True)["stages"] == 2
     for dtype, h, hkv, d, ps, mp in _DECODE_DIRECT:
         q, k = decode_batch(cuda, dtype, h, hkv, d, rows=2, ps=ps, mp=mp)[:2]
         plan = tpa.decode_plan(q, k)
@@ -1311,3 +1322,114 @@ def test_decode_plan_reports_the_feeder(cuda):
     with pytest.raises(ValueError, match="no launch"):
         tpa.decode_plan(q, lane_batch((q, k, k, None, None, None),
                                       "q8")[0][1])
+
+
+# -- F8: K11 at any rank; F9: the walks at every page size and head dim;
+# K6 on the ring ------------------------------------------------------------
+@pytest.mark.parametrize("dtype", _FLASH_DTYPES)
+@pytest.mark.parametrize("r", [24, 32, 64])
+def test_lora_kernel_at_large_ranks(cuda, dtype, r):
+    """K11 at ranks over 16 (t summed a group of ranks at a time, d over
+    R in k-steps of 16) at the serving step's shapes and at ragged ones,
+    in f32, bf16 and f16: the rule, and 20 repeats give the same bits."""
+    for shape in (dict(), dict(b=5, w=70, cin=1000, cout=600)):
+        args = lora_batch(cuda, dtype, r=r, **shape)
+        before = tpa.MEGA_LAUNCHES["K11"]
+        out = tpa.lora_delta_paged(*args)
+        torch.cuda.synchronize()
+        assert tpa.MEGA_LAUNCHES["K11"] == before + 1
+        _check_lora(out, *args)
+        for _ in range(20):
+            assert torch.equal(tpa.lora_delta_paged(*args), out)
+
+
+# (page size, head dim): pages over 128 keys (folded in pieces), head
+# dims over 256 (acc's columns in pieces), and pool rows that are not a
+# multiple of 16 bytes (12 and 40: 8-byte copies in bf16, int8 and fp8,
+# 4-byte ones for 12 in the 1-byte lanes; 13: single elements)
+_NEW_SHAPES = [(256, 64), (256, 12), (16, 12), (16, 40), (256, 40),
+               (16, 512), (256, 512), (32, 13)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ps,d", _NEW_SHAPES)
+def test_walks_at_every_page_size_and_head_dim(cuda, ps, d, dtype):
+    """K6, K7 and K10 (every lane) at shapes the walks refused before:
+    K10 equals K6 (K7) bit for bit with its partials against the plain
+    ones and 20 reruns the same (`_check_k10`), and K6 within its rule of
+    the plain version on the live queries."""
+    base, grp = _k10_case(cuda, dtype, 2, d, ps, mp=6 if ps < 256 else 4)
+    for lane in ("fp", "fp8", "q8"):
+        ops, scales = lane_batch(base, lane)
+        plan = _check_k10(ops, grp, scales)
+        assert plan["piece"] == tpa.piece_rows(d, ps) <= 128
+        out = ragged(ops, scales)
+        torch.cuda.synchronize()
+        live = (torch.arange(out.shape[1], device=cuda)[None, :]
+                < ops[5][:, None])
+        _close(out[live], ragged_reference(ops, scales)[live])
+
+
+@pytest.mark.parametrize("mask", [None, "additive", "bool"])
+@pytest.mark.parametrize("lane", ["fp", "fp8"])
+@pytest.mark.parametrize("ps,d", _NEW_SHAPES)
+def test_paged_decode_attention_at_every_page_size_and_head_dim(cuda, ps, d,
+                                                               lane, mask):
+    """K9 at the same shapes, bf16: without a mask equal to K6 at q_len
+    1 bit for bit, with one within its plain version's rule."""
+    mp = max(4, 800 // ps + 1)
+    ops, _ = lane_batch(decode_batch(cuda, torch.bfloat16, 4, 2, d, rows=6,
+                                     ps=ps, mp=mp, trash=1), lane)
+    m = _decode_mask(mask, ops, 4)
+    out = decode(ops, m)
+    torch.cuda.synchronize()
+    if m is None:
+        assert torch.equal(out, ragged(ops, {}))
+    add = None if m is None else tpa._mask_to_additive(m, 6, 4, mp * ps)
+    _close(out, tpa.paged_attention_reference(*ops[:5], add))
+
+
+def test_walk_plans_report_pieces_and_copies(cuda):
+    """The serving step's K6 launch is the ring (two stages, two tiles,
+    two rows a warp, with or without a mask); a page of 256 keys is
+    folded in two pieces of 128 by every walk; pool rows of 24, 40 and
+    26 bytes are copied 8, 8 and 2 bytes at a time (the last without
+    the ring)."""
+    q, k = grouped_batch(cuda, torch.bfloat16, 12, 12, 64)[0][:2]
+    plan = tpa.ragged_plan(q, k)
+    assert (plan["stages"], plan["tiles"], plan["paired"]) == (2, 2, 1)
+    assert (plan["piece"], plan["copy"], plan["rows"]) == (16, 16, 8)
+    assert plan["grid"] == 16 * 4 * 12 and plan["threads"] == 256
+    for ps, d, dtype, copy in ((256, 64, torch.bfloat16, 16),
+                               (16, 12, torch.bfloat16, 8),
+                               (16, 40, torch.int8, 8),
+                               (16, 13, torch.bfloat16, 2)):
+        q = torch.empty(2, 8, 4, d, dtype=torch.bfloat16, device=cuda)
+        k = torch.empty(9, ps, 2, d, dtype=dtype, device=cuda)
+        for plan in (tpa.ragged_plan(q, k), tpa.grouped_plan(q, k)):
+            assert plan["piece"] == min(ps, 128), (ps, d, plan)
+            assert plan["copy"] == copy, (ps, d, plan)
+            assert plan["stages"] == (0 if copy < 4 else 2), plan
+        if dtype != torch.int8:
+            assert tpa.decode_plan(q[:, :1], k)["piece"] == min(ps, 128)
+
+
+def test_ring_k6_equals_another_build(cuda):
+    """K6 on the ring against K6 as another checkout builds it (the
+    parent, unpacked with `git archive`, named by
+    PADDLE_TPU_TORCH_OTHER): the same bits in every lane, without a mask
+    and with an additive and a bool one, in f32 and bf16, on the serving
+    batch, and 20 reruns the same (`walk_control.compare`)."""
+    import os
+
+    from paddle_tpu_torch.ops.cuda import walk_control
+
+    other = os.environ.get("PADDLE_TPU_TORCH_OTHER")
+    if not other:
+        pytest.skip("needs another checkout in PADDLE_TPU_TORCH_OTHER")
+    here = str(walk_control.Path(walk_control.__file__).resolve().parents[3])
+    built = walk_control.build_others([here, other])
+    libs = {"this": walk_control._load(built[here][0]),
+            "other": walk_control._load(built[other][0])}
+    walk_control.compare(libs, cuda, time_it=False)
+

@@ -260,9 +260,10 @@ def test_kernel_checks_refuse_what_the_kernels_cannot_take():
         tpa._check(q, pool.float(), pool.float(), table, i, i)
     with pytest.raises(TypeError, match="share q's dtype"):
         tpa._check(q, pool, fp8, table, i, i, scale, scale)
+    # head dim 40 over int8 pools: rows of 40 bytes, which the walks copy
+    # 8 bytes at a time, so the checks pass them
     q, pool, scale, table, i = _meta_case(torch.int8, d=40)
-    with pytest.raises(ValueError, match="multiple of 16"):
-        tpa._check(q, pool, pool, table, i, i, scale, scale)
+    tpa._check(q, pool, pool, table, i, i, scale, scale)
     # the fp wrappers refuse int8 pools: those need their scales
     with pytest.raises(TypeError, match="_q8"):
         tpa.ragged_paged_attention(q, pool, pool, table, i, i)
