@@ -40,10 +40,18 @@ Phases, each reported on its own line; any failure exits non-zero:
    its output against K6's (K7's) in the same lane on the same operands,
    bit for bit, and 20 reruns of both phases bit for bit; K10a, K10b and
    K6 are timed on the same operands and K10's launch (`grouped_plan`:
-   feeder, shared memory, grid) recorded. K8 and K8-q8
+   feeder, shared memory, grid) recorded. F10: K6, K7 and K10 again at
+   rep 32 / head dim 128 and 71 heads of 64 over one kv head (16 rows of
+   up to 32 queries: an item's rows split over blocks, `split` in the
+   plans), K10 = K6 (K7) bit for bit, against the plain versions, timed;
+   K9 there and at rep 128 / head dim 256 equal to K6 at q_len 1. K2 at
+   [16384, 768] in bf16, f32 and f16 and at [512, 768] in bf16, 20
+   reruns bit for bit, each timed beside its bound. K8 and K8-q8
    write the serving step's [16, 32, 12, 64] K rows (and again at 300x
    the scale, past +-448) and must equal their plain versions bit for
-   bit outside the trash page. K9 runs in its fp and fp8 lanes on the
+   bit outside the trash page; K8 writes K and V in one launch too, in
+   both lanes (equal to two single launches), timed beside two
+   `index_copy_` calls. K9 runs in its fp and fp8 lanes on the
    legacy decode step's batch (16 rows, q [16, 1, 12, 64], pools
    [993, 16, 12, 64], pos over 65-763; again at rep 4, D 128) without a
    mask, with a random additive mask and with a bool mask that hides
@@ -99,7 +107,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    share of tokens equal to the page-16 run's printed. Then the same
    traffic over int8 and fp8 KV pools,
    each with the defaults and with grouped=False: per step K1 25, the
-   lane's write (K8-q8 or K8) 24 and K10a, K10b 12 each (K7 or K6's fp8
+   lane's write (K8-q8 24, or K8 12: K and V in one launch) and K10a,
+   K10b 12 each (K7 or K6's fp8
    lane 12 with grouped=False); identical tokens in both arms of a
    dtype; a recorded step of each defaults run held against a plain f32
    rerun over the same quantized pools; a page costing exactly 68/128
@@ -116,7 +125,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    twice (identical tokens; per decode step K1 25 and K9 12, per
    prefill chunk K1 25 and K3 12, K6 and K10 never; a recorded decode
    step's held logits against a plain f32 rerun over the same pools;
-   a profile), over fp8 pools (K8 24 and K9-fp8 12 per decode step) and
+   a profile), over fp8 pools (K8 12 and K9-fp8 12 per decode step) and
    over int8 pools (K8-q8 24 and K7 12); the prefill buckets run stay in
    {32, 16, 8}; and the unified step's gather arm (`attn_impl="gather"`,
    K3 12 per step, no K6/K10; a recorded step's held logits against a
@@ -124,7 +133,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    p50/p90, TTFT, the buckets and the share of tokens equal to the
    unified defaults arm's. Then the decode megakernel and adapter arms:
    the megakernel on over bf16 and over int8 pools (tokens identical to
-   the gate-off defaults arms'; per step K8's lane 24 and K12 1 on top
+   the gate-off defaults arms'; per step K8's float lane 12 (K and V in
+   one launch) or K8-q8 24, and K12 1, on top
    of the walk), the LORA adapters (4 of rank 4, tenants zipf over
    {base, 1..4}) with the megakernel off and on (a recorded step's held
    logits against a plain f32 rerun; K11 48 a step with the gate on),
@@ -432,40 +442,66 @@ def check_layer_norm(dev, tln, time_ms):
                 training_shape=times["training"])
 
 
+# K2's shapes in phase 2: (rows, dtype), the first the record's: the
+# training step's [16384, 768] in bf16, f32 and f16, and the serving
+# width's [512, 768]
+LN_BWD_SHAPES = ((16384, torch.bfloat16), (512, torch.bfloat16),
+                 (16384, torch.float32), (16384, torch.float16))
+
+
 def check_layer_norm_bwd(dev, tln, time_ms):
-    rows, cols = TRAIN["batch"] * TRAIN["seq"], GPT124M["hidden_size"]
+    """K2 at LN_BWD_SHAPES (768 columns): dx, dw and db against the
+    plain version, FLASH_REPEATS runs bit for bit (dw and db are summed
+    in a fixed order across the card), each timed beside its bound and
+    its launch (`layer_norm_bwd_plan`) recorded; at [16384, 768] bf16
+    also the plain version and `native_layer_norm_backward`. The record's
+    numbers are bf16 [16384, 768]'s, the others under `shapes`."""
+    cols = GPT124M["hidden_size"]
     g = torch.Generator(device=dev).manual_seed(SEED)
-    errs = {}
-    for dtype in (torch.float32, torch.bfloat16):
+    shapes = {}
+    for rows, dtype in LN_BWD_SHAPES:
         mk = lambda *s: torch.randn(*s, generator=g, device=dev)
         x, dy = (mk(rows, cols) * 2 + 1).to(dtype), mk(rows, cols).to(dtype)
         w = mk(cols).to(dtype)
+        tag = f"[{rows}, {cols}] {dtype}"
         got = tln.layer_norm_bwd(dy, x, w, 1e-5)
         torch.cuda.synchronize()
         want = tln.layer_norm_bwd_reference(dy, x, w, 1e-5)
-        errs[dtype] = max(
-            check_close(f"K2 layer_norm_bwd {n} [{rows}, {cols}] {dtype}",
-                        a, b)
-            for n, a, b in zip(("dx", "dw", "db"), got, want))
-    ms = time_ms(lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
+        err = max(check_close(f"K2 layer_norm_bwd {n} {tag}", a, b)
+                  for n, a, b in zip(("dx", "dw", "db"), got, want))
+        same_bits(f"K2 dx, dw, db {tag}",
+                  lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
+        ms = time_ms(lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
+        item = x.element_size()
+        # dy, x in and dx out once, w in and dw, db out once
+        n_bytes = 3 * rows * cols * item + 3 * cols * item
+        bound_ms, bound_by = bound(n_bytes, 16 * rows * cols, F32_FLOPS)
+        plan = tln.layer_norm_bwd_plan(rows, cols, dtype, dev)
+        log(f"  K2 {tag}: kernel {ms:.4f} ms, bound {bound_ms:.5f} ms "
+            f"({bound_by}, {bound_ms / ms:.3f} of it); launch {plan}")
+        shapes[f"{rows}x{cols} {str(dtype)[6:]}"] = dict(
+            ms=ms, bound_ms=bound_ms, bound_by=bound_by, max_abs_err=err,
+            launch=plan)
+        if (rows, dtype) == LN_BWD_SHAPES[0]:
+            main = x, dy, w
+    x, dy, w = main
+    rows = x.shape[0]
     plain_ms = time_ms(lambda: tln.layer_norm_bwd_reference(dy, x, w, 1e-5))
     b = torch.zeros_like(w)
     _, mean, rstd = torch.ops.aten.native_layer_norm(x, [cols], w, b, 1e-5)
     lib_ms = time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
         dy, x, [cols], mean, rstd, w, b, [True, True, True]))
-    item = x.element_size()
-    # dy, x in and dx out once, w in and dw, db out once
-    n_bytes = 3 * rows * cols * item + 3 * cols * item
-    bound_ms, bound_by = bound(n_bytes, 16 * rows * cols, F32_FLOPS)
-    log(f"  K2 bf16 [{rows}, {cols}]: kernel {ms:.4f} ms, plain "
+    rec = shapes[f"{rows}x{cols} bfloat16"]
+    log(f"  K2 bf16 [{rows}, {cols}]: kernel {rec['ms']:.4f} ms, plain "
         f"{plain_ms:.4f} ms, native_layer_norm_backward {lib_ms:.4f} ms, "
-        f"bound {bound_ms:.5f} ms ({bound_by})")
+        f"bound {rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return dict(name="K2 layer_norm_bwd", route="cuda",
                 source="paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
                 replaces="paddle_tpu/ops/pallas/layer_norm.py:68",
-                path="training", max_abs_err=errs[torch.bfloat16], ms=ms,
-                plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=lib_ms)
+                path="training", max_abs_err=rec["max_abs_err"],
+                ms=rec["ms"], plain_ms=plain_ms, bound_ms=rec["bound_ms"],
+                bound_by=rec["bound_by"], library_ms=lib_ms,
+                launch=rec["launch"], shapes=shapes)
 
 
 def same_bits(name, fn, n=FLASH_REPEATS):
@@ -908,6 +944,97 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
                  max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
 
 
+# F10: (query heads over one kv head, head dim) whose 8 queries x rep rows
+# pass a walk block's shared memory: rep 32 at head dim 128, and 71 heads
+# of 64 (multi-query attention as Falcon-7B lays it out). K9 also at rep
+# 128, head dim 256, where even one query's rows pass it
+SPLIT_SHAPES = ((32, 128), (71, 64))
+SPLIT_DECODE = SPLIT_SHAPES + ((128, 256),)
+
+
+def check_split_walks(dev, tpa, time_ms) -> dict:
+    """F10: K6, K7 and K10 (both phases) in every lane, bf16, on batches
+    built like phase 3's grouped steps (16 rows of up to 32 queries, seven
+    sharing 16 pages; `launch_check.grouped_batch`) at SPLIT_SHAPES:
+    each plan must split an item's rows over blocks; K10's output must
+    equal K6's (K7's) bit for bit, K10a's partials and K6's output match
+    the plain versions (live queries); K6 and both K10 phases are timed.
+    K9 in its fp and fp8 lanes on the legacy decode batch at
+    SPLIT_DECODE: equal to K6 at q_len 1 bit for bit, within the rule of
+    its plain version, timed. Returns {case: record}."""
+    from paddle_tpu_torch.ops.cuda.launch_check import (
+        decode, decode_batch, grouped_batch, lane_batch, ragged,
+        ragged_reference)
+    out = {}
+    for h, d in SPLIT_SHAPES:
+        base, grp = grouped_batch(dev, torch.bfloat16, h, 1, d, SEED)
+        for lane in ("fp", "fp8", "q8"):
+            ops, scales = lane_batch(base, lane)
+            key6 = WALKS["K6", lane][0]
+            tag = f"H={h} H_kv=1 D={d} bf16, {LANE_NAMES[lane]}"
+            plan = tpa.ragged_plan(ops[0], ops[1])
+            if plan["split"] < 2 or tpa.grouped_plan(ops[0], ops[1]) != plan:
+                raise AssertionError(f"{tag}: the walks do not split "
+                                     f"({plan})")
+            args = tpa._grouped_check(*ops, *grp, **scales)
+            part = tpa.grouped_phase1(*args, **scales)
+            k10 = tpa.grouped_phase2(*args, part, **scales)
+            k6 = ragged(ops, scales)
+            torch.cuda.synchronize()
+            if not torch.equal(k10, k6):
+                raise AssertionError(f"K10 {tag} differs from {key6}")
+            ref, (m, l, acc, written) = tpa.grouped_attention_reference(
+                *ops, *grp, return_partials=True, **scales)
+            sel = written & (m > tpa.NEG_INF / 2)
+            part_err = max(
+                check_close(f"K10a partial {n} {tag}", got[sel], want[sel])
+                for n, got, want in zip(("m", "l", "acc"), part,
+                                        (m, l, acc)))
+            live = (torch.arange(k6.shape[1], device=dev)[None, :]
+                    < ops[5][:, None])
+            err = check_close(f"{key6} {tag}", k6,
+                              ragged_reference(ops, scales), mask=live)
+            del ref, m, l, acc
+            rec = dict(split=plan["split"], rows=plan["rows"],
+                       smem=plan["smem"], stages=plan["stages"],
+                       max_abs_err=err, max_abs_err_partials=part_err,
+                       k10_equals_k6=True,
+                       ms=time_ms(lambda: ragged(ops, scales)),
+                       k10a_ms=time_ms(lambda: tpa.grouped_phase1(
+                           *args, **scales)),
+                       k10b_ms=time_ms(lambda: tpa.grouped_phase2(
+                           *args, part, **scales)))
+            log(f"  F10 {tag}: rows split over {plan['split']} blocks of "
+                f"<= {plan['rows']} rows ({plan['smem']} bytes, "
+                f"{plan['stages']} ring stages); K10 = {key6} bit for bit; "
+                f"{key6} {rec['ms']:.4f} ms, K10a {rec['k10a_ms']:.4f}, "
+                f"K10b {rec['k10b_ms']:.4f}")
+            out[f"{key6} H{h} D{d}"] = rec
+    for h, d in SPLIT_DECODE:
+        for lane in ("fp", "fp8"):
+            ops, _ = lane_batch(decode_batch(dev, torch.bfloat16, h, 1, d,
+                                             SEED), lane)
+            key = "K9" if lane == "fp" else "K9-fp8"
+            tag = f"H={h} H_kv=1 D={d} bf16, {LANE_NAMES[lane]}"
+            plan = tpa.decode_plan(ops[0], ops[1])
+            k9 = decode(ops)
+            same = torch.equal(k9, ragged(ops, {}))
+            torch.cuda.synchronize()
+            if not same:
+                raise AssertionError(f"{key} {tag} differs from K6 at q_len 1")
+            err = check_close(f"{key} {tag}", k9,
+                              tpa.paged_attention_reference(*ops[:5]))
+            rec = dict(split=plan["split"], rows=plan["rows"],
+                       smem=plan["smem"], max_abs_err=err,
+                       equals_k6_q_len_1=True,
+                       ms=time_ms(lambda: decode(ops)))
+            log(f"  F10 {key} {tag}: rows split over {plan['split']} "
+                f"block(s); equals K6 at q_len 1 bit for bit; {rec['ms']:.4f}"
+                " ms")
+            out[f"{key} H{h} D{d}"] = rec
+    return out
+
+
 def ring_ptxas(text: str, kernel: str) -> list:
     """[(kernel, registers, spill store bytes)] of each instantiation of
     the walk (`ring_walk_kernel`) in the `-Xptxas -v` log of the library
@@ -1113,9 +1240,12 @@ def check_paged_scatter(dev, tpa, time_ms):
     page), and again at 300x the scale, with about 13 % of the values
     then beyond +-448. The pools' bytes must equal the plain versions'
     bit for bit outside page 0 (the float lane's plain version is the
-    unfused write, `index_copy_`). Then the kernels, the plain versions
-    and, for K8, one `index_copy_` of the converted bytes to the same
-    slots are timed."""
+    unfused write, `index_copy_`). K8 then writes K and V (a second
+    update of the same shape) in one launch, in both lanes, and each
+    pool must equal a single launch's and the plain version's bytes.
+    Then the kernels, the plain versions and, for K8, one `index_copy_`
+    of the converted bytes to the same slots are timed, and the pair
+    beside two `index_copy_`s."""
     q, k, _, table, pos, _ = ragged_batch(dev, torch.bfloat16, 12, 12, SEED)
     shape = k.shape
     fp8_zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
@@ -1164,6 +1294,30 @@ def check_paged_scatter(dev, tpa, time_ms):
             f"equal to index_copy_ bit for bit outside page 0: {same}")
         if not same:
             raise AssertionError("K8's float lane disagrees with index_copy_")
+    v_upd = ragged_batch(dev, torch.bfloat16, 12, 12, SEED + 1)[0]
+    zeros = {"e4m3": fp8_zeros,
+             "bf16": lambda: torch.zeros(shape, dtype=torch.bfloat16,
+                                         device=dev),
+             "f32": lambda: torch.zeros(shape, device=dev)}
+    bits = lambda t: t.view(torch.uint8) if t.dtype == tpa.FP8_DTYPE else t
+    for lane, mk in zeros.items():
+        before = (tpa.QUANT_LAUNCHES["K8"], tpa.MEGA_LAUNCHES["K8-float"])
+        pair = tpa.paged_scatter_kernel_pair(mk(), mk(), q, v_upd, pos,
+                                             table)
+        torch.cuda.synchronize()
+        launched = (tpa.QUANT_LAUNCHES["K8"] - before[0],
+                    tpa.MEGA_LAUNCHES["K8-float"] - before[1])
+        same = launched == ((1, 0) if lane == "e4m3" else (0, 1))
+        for got, upd in zip(pair, (q, v_upd)):
+            one = tpa.paged_scatter_kernel(mk(), upd, pos, table)
+            want = tpa.paged_scatter_reference(mk(), upd, pos, table)
+            same = same and torch.equal(bits(got)[1:], bits(one)[1:]) and \
+                torch.equal(bits(got)[1:], bits(want)[1:])
+        log(f"  K8 pair bf16 K and V {list(q.shape)} -> {lane} pools in one "
+            f"launch: equal to two single launches and the plain version "
+            f"bit for bit outside page 0: {same}")
+        if not same:
+            raise AssertionError(f"K8's pair ({lane}) disagrees")
     upd = q
     pool8, (pc, ps_) = fp8_zeros(), q8_zeros()
     poolf = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
@@ -1188,6 +1342,21 @@ def check_paged_scatter(dev, tpa, time_ms):
     rowsf = upd.reshape(-1, *shape[2:])
     dstf = poolf.view(-1, *shape[2:])
     libf = time_ms(lambda: dstf.index_copy_(0, flat, rowsf))
+    # the pair: K and V in one launch, beside two index_copy_ calls
+    pool8v, poolfv = fp8_zeros(), torch.zeros_like(poolf)
+    pair8 = time_ms(lambda: tpa.paged_scatter_kernel_pair(
+        pool8, pool8v, upd, v_upd, pos, table))
+    pairf = time_ms(lambda: tpa.paged_scatter_kernel_pair(
+        poolf, poolfv, upd, v_upd, pos, table))
+    rows8v = v_upd.float().clamp(-tpa.FP8_MAX, tpa.FP8_MAX).to(
+        tpa.FP8_DTYPE).view(torch.uint8).reshape(-1, *shape[2:])
+    dst8v = pool8v.view(torch.uint8).view(-1, *shape[2:])
+    rowsfv = v_upd.reshape(-1, *shape[2:])
+    dstfv = poolfv.view(-1, *shape[2:])
+    lib8x2 = time_ms(lambda: (dst.index_copy_(0, flat, rows),
+                              dst8v.index_copy_(0, flat, rows8v)))
+    libfx2 = time_ms(lambda: (dstf.index_copy_(0, flat, rowsf),
+                              dstfv.index_copy_(0, flat, rowsfv)))
     n = upd.numel()
     # upd read once, the pools written once; the tables and positions
     io = table.numel() * 4 + pos.numel() * 4
@@ -1195,6 +1364,12 @@ def check_paged_scatter(dev, tpa, time_ms):
     bq = bound(n * upd.element_size() + n + n // shape[3] * 4 + io, 6 * n,
                F32_FLOPS)
     bf = bound(2 * n * upd.element_size() + io, n, F32_FLOPS)
+    b8x2 = bound(2 * (n * upd.element_size() + n) + io, 8 * n, F32_FLOPS)
+    bfx2 = bound(4 * n * upd.element_size() + io, 2 * n, F32_FLOPS)
+    log(f"  K8 pair bf16 K and V {list(upd.shape)}: -> e4m3 {pair8:.4f} ms "
+        f"(two index_copy_ {lib8x2:.4f} ms, bound {b8x2[0]:.5f}), -> bf16 "
+        f"{pairf:.4f} ms (two index_copy_ {libfx2:.4f} ms, bound "
+        f"{bfx2[0]:.5f})")
     log(f"  K8 bf16 {list(upd.shape)} -> e4m3: kernel {ms8:.4f} ms, plain "
         f"{plain8:.4f} ms, index_copy_ of the converted bytes {lib8:.4f} "
         f"ms, bound {b8[0]:.5f} ms ({b8[1]}); K8-q8 -> int8 + scales: "
@@ -1210,7 +1385,11 @@ def check_paged_scatter(dev, tpa, time_ms):
                  ms=ms8, plain_ms=plain8, bound_ms=b8[0], bound_by=b8[1],
                  library_ms=lib8,
                  library_call="index_copy_ of the converted e4m3 bytes to "
-                              "the same slots", **common),
+                              "the same slots",
+                 pair=dict(ms=pair8, library_ms=lib8x2, bound_ms=b8x2[0],
+                           bound_by=b8x2[1],
+                           library_call="two index_copy_ calls (K, V)"),
+                 **common),
             dict(name="K8-q8 paged_scatter_q8", path="serving_int8",
                  max_abs_err=errs["K8-q8"],
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:1343",
@@ -1222,6 +1401,9 @@ def check_paged_scatter(dev, tpa, time_ms):
                  ms=msf, plain_ms=plainf, bound_ms=bf[0], bound_by=bf[1],
                  library_ms=libf,
                  library_call="index_copy_ of the rows to the same slots",
+                 pair=dict(ms=pairf, library_ms=libfx2, bound_ms=bfx2[0],
+                           bound_by=bfx2[1],
+                           library_call="two index_copy_ calls (K, V)"),
                  **common))
 
 
@@ -1478,8 +1660,9 @@ def launch_counts_serving(tln, tpa, tfa) -> dict:
             **tpa.DECODE_LAUNCHES, **tpa.MEGA_LAUNCHES}
 
 
-# the serving step's launches per layer by KV dtype: the write (K8 or
-# K8-q8 for K and for V; a float pool's write is index_copy_), and the
+# the serving step's launches per layer by KV dtype: the write (K8 for K
+# and V in one launch, K8-q8 for each; a float pool's write is
+# index_copy_), and the
 # walk with the defaults (K10's two phases) or with grouped=False (K6)
 LANE_OF = {"fp": "fp", "fp8": "fp8", "int8": "q8"}
 WRITE_OF = {"fp": None, "fp8": "K8", "int8": "K8-q8"}
@@ -1501,8 +1684,9 @@ def per_step_launches(tpa, grouped: bool, kv_dtype: str,
                       adapters: bool = False) -> dict:
     """One unified step's launches: K1 2L + 1; the walk per layer (K10's
     two phases, or K6, in the pools' lane), or K3 per layer under the
-    gather arm; the lane's write (K8 / K8-q8) for K and V per layer — a
-    float pool's unfused write is index_copy_, under the megakernel K8's
+    gather arm; the lane's write per layer (K8 once for K and V, K8-q8
+    for each) — a float pool's unfused write is index_copy_, under the
+    megakernel K8's
     float lane. Under the megakernel, K12 once a step and, with
     adapters, K11 four times a layer (the q, k and v prologue and the
     o-delta); without it the adapters' deltas are library products."""
@@ -1517,12 +1701,18 @@ def per_step_launches(tpa, grouped: bool, kv_dtype: str,
             want[WALKS[walk, lane][0]] = n_layers
     write = WRITE_OF[kv_dtype] or ("K8-float" if megakernel else None)
     if write:
-        want[write] = 2 * n_layers
+        want[write] = writes_per_layer(write) * n_layers
     if megakernel:
         want["K12"] = 1
         if adapters:
             want["K11"] = 4 * n_layers
     return want
+
+
+def writes_per_layer(write: str) -> int:
+    """Launches of a layer's K/V write: K8 writes K and V in one launch
+    (both lanes), K8-q8 each in its own."""
+    return 2 if write == "K8-q8" else 1
 
 
 def legacy_launches(tpa, kv_dtype: str):
@@ -1535,7 +1725,8 @@ def legacy_launches(tpa, kv_dtype: str):
     for want in (per_decode, per_chunk):
         want["K1"] = 2 * n_layers + 1
         if WRITE_OF[kv_dtype]:
-            want[WRITE_OF[kv_dtype]] = 2 * n_layers
+            want[WRITE_OF[kv_dtype]] = writes_per_layer(
+                WRITE_OF[kv_dtype]) * n_layers
     per_decode[DECODE_WALK_OF[kv_dtype]] = n_layers
     per_chunk["K3"] = n_layers
     return per_decode, per_chunk
@@ -2208,8 +2399,10 @@ def profile_steps(eng, prompts) -> dict:
 
 # kernels whose device time a profile totals, by a part of their symbol:
 # the walk (K6, K7, K9 and both phases of K10: one kernel, whichever the
-# arm launches) and K11 (lora_paged.cu)
-PROFILED_KERNELS = {"walk": "ring_walk_kernel", "K11": "lora_paged_kernel"}
+# arm launches), K11 (lora_paged.cu), K8 (paged_scatter.cu's float and
+# e4m3 lanes) and K2 (the training step's LayerNorm backward)
+PROFILED_KERNELS = {"walk": "ring_walk_kernel", "K11": "lora_paged_kernel",
+                    "K8": "scatter_tile_kernel", "K2": "ln_bwd_kernel"}
 
 
 def device_busy(prof, wall_us: float) -> dict:
@@ -2235,9 +2428,9 @@ def device_busy(prof, wall_us: float) -> dict:
                             e.self_device_time_total / 1e3] for e in top],
            "kernel_totals": totals}
     log(f"  profiled: device busy {out['device_busy_ms']:.2f} of "
-        f"{out['wall_ms']:.2f} ms wall; the walk {totals['walk'][1]:.3f} "
-        f"ms in {totals['walk'][0]} calls, K11 {totals['K11'][1]:.3f} ms in "
-        f"{totals['K11'][0]} calls")
+        f"{out['wall_ms']:.2f} ms wall; " + ", ".join(
+            f"{name} {ms:.3f} ms in {calls} calls"
+            for name, (calls, ms) in totals.items()))
     for name, count, ms in out["top_kernels"]:
         log(f"    {ms:9.3f} ms  x{count:<5d} {name}")
     return out
@@ -2505,6 +2698,16 @@ def main() -> int:
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers, {sum(int(n) > 0 for n in spills)} with spill stores")
+        if name in ("layer_norm", "paged_scatter") and text:
+            for kernel, n_regs, spill in ptxas_rows(
+                    text, "ln_bwd_kernel" if name == "layer_norm" else
+                    "scatter_tile_kernel"):
+                k = re.search(r"ln_bwd_kernelI(\w+?)Li(\d+)E", kernel)
+                short = (f"K2<{DTYPE_NAMES.get(k.group(1), k.group(1))}, "
+                         f"NV {k.group(2)}>" if k else kernel[:60])
+                if name == "layer_norm" or spill:
+                    log(f"    {short}: {n_regs} registers, {spill} bytes "
+                        "of spill stores")
         if name == "flash_attention":
             for kernel, n_regs, spill in tensor_core_ptxas(text):
                 log(f"    {kernel}: {n_regs} registers at launch, {spill} "
@@ -2555,6 +2758,7 @@ def main() -> int:
         (kernels[WALKS["K10a", lane][0]],
          kernels[WALKS["K10b", lane][0]]) = check_grouped_attention(
             dev, tpa, timer, lane)
+    split = check_split_walks(dev, tpa, timer)
     kernels["K8"], kernels["K8-q8"], kernels["K8-float"] = \
         check_paged_scatter(dev, tpa, timer)
     for lane in ("fp", "fp8"):
@@ -2565,6 +2769,12 @@ def main() -> int:
     masked = check_paged_attention_masked(dev, tpa, timer)
     kernels["K6"]["user_mask"] = masked["K6"]
     kernels["K7"]["user_mask"] = masked["K7"]
+    # F10: each walk's records at the shapes whose rows it splits (K10's
+    # times ride on K6's and K7's, whose bits it equals there)
+    for key in ("K6", "K6-fp8", "K7", "K9", "K9-fp8"):
+        kernels[key]["split_rows"] = {case: rec for case, rec in
+                                      split.items()
+                                      if case.split()[0] == key}
     kernels["K11"] = check_lora_paged(dev, tpa, timer)
     for key, lib in (("K9", "K9"), ("K9-fp8", "K9"), ("K11", "K11"),
                      ("K6", "K6 ring"), ("K6-fp8", "K6 ring"),

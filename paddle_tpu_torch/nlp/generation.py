@@ -68,7 +68,7 @@ from ..ops.cuda.paged_attention import (FP8_DTYPE, NEG_INF,
                                         megakernel_decode,
                                         megakernel_decode_q8,
                                         paged_decode_attention,
-                                        paged_scatter, paged_scatter_q8,
+                                        paged_scatter_pair, paged_scatter_q8,
                                         ragged_paged_attention,
                                         ragged_paged_attention_grouped,
                                         ragged_paged_attention_grouped_q8,
@@ -338,8 +338,8 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
             paged_scatter_q8(c.k, c.k_scale, k_new, pos_rows, c.page_table)
             paged_scatter_q8(c.v, c.v_scale, v_new, pos_rows, c.page_table)
         else:
-            paged_scatter(c.k, k_new, pos_rows, c.page_table)
-            paged_scatter(c.v, v_new, pos_rows, c.page_table)
+            paged_scatter_pair(c.k, c.v, k_new, v_new, pos_rows,
+                               c.page_table)
         lmax = c.page_table.shape[1] * c.k.shape[1]
     else:
         if quant:

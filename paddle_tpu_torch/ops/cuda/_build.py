@@ -43,7 +43,8 @@ _FLASH = [_P, _I, _I, _P]
 KERNELS = {
     "layer_norm": {
         "ptt_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-        "ptt_layer_norm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
+        "ptt_layer_norm_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+        "ptt_layer_norm_bwd_plan": [_I] * 4 + [_P],
     },
     "ragged_paged_attention": {
         "ptt_ragged_paged_attention": [_P] * 10 + [_I] * 11 + [_P],
@@ -59,8 +60,8 @@ KERNELS = {
         "ptt_grouped_plan": [_I] * 8 + [_P],
     },
     "paged_scatter": {
-        "ptt_paged_scatter_float": [_P] * 4 + [_I] * 10 + [_P],
-        "ptt_paged_scatter_e4m3": [_P] * 4 + [_I] * 9 + [_P],
+        "ptt_paged_scatter_float": [_P] * 6 + [_I] * 10 + [_P],
+        "ptt_paged_scatter_e4m3": [_P] * 6 + [_I] * 9 + [_P],
         "ptt_paged_scatter_q8": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 2
                                 + [_P],
     },

@@ -75,9 +75,11 @@
 //   at run-time D and ps.
 // - The schedule: every block ranks the launch's items by descending
 //   walk length (`item_key`; up to 512 items, else index order), and
-//   block x takes kv head x % Hkv of the item ranked x / Hkv, so the
-//   longest walks start first on distinct SMs and the blocks of dead
-//   items come last. Two blocks fit an SM (`__launch_bounds__(256, 2)`):
+//   block x takes kv head x % Hkv of the item ranked x / Hkv (with the
+//   rows split over s blocks, `walk_split`: the (kv head, run of rows)
+//   pair x % (Hkv * s) of the item ranked x / (Hkv * s)), so the longest
+//   walks start first on distinct SMs and the blocks of dead items come
+//   last. Two blocks fit an SM (`__launch_bounds__(256, 2)`):
 //   at one, the grid ran in waves and the dead items' blocks queued
 //   behind the live ones.
 #include "paged_walk.cuh"
@@ -105,11 +107,12 @@ Args grouped_args(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// The launch both K10 entries make for these shapes, written to out[9]
-// (`walk_plan`: the feeder, shared memory, grid, rows, piece length and
-// copy width). Returns cudaErrorInvalidValue, as the launch would, for a
-// dtype or pool code the kernels do not take, or shared memory over the
-// limit.
+// The launch both K10 entries make for these shapes, written to
+// out[kPlanLen] (`walk_plan`: the feeder, shared memory, grid, rows,
+// piece length, copy width and the split of an item's rows). Returns
+// cudaErrorInvalidValue, as the launch would, for a dtype or pool code the
+// kernels do not take, or where not even one query row fits shared
+// memory (out[2]: the bytes it would need).
 extern "C" int ptt_grouped_plan(int B, int lq, int H, int Hkv, int D, int ps,
                                 int dtype, int pool, int* out) {
   return walk_plan(B, lq, H, Hkv, D, ps, dtype, pool, out);

@@ -24,7 +24,8 @@
 // (`ring_walk_kernel`, phase 2 with no groups) launched with lq 1 and
 // no q_len operand (every row at q_len 1), so its output equals K6's at
 // q_len 1 bit for bit by construction, at every shape. One block owns
-// (kv head g, row b) and its rep query rows, two blocks an SM, rows
+// (kv head g, row b) and its rep query rows (split over blocks only where
+// rep rows pass shared memory, as in every walk), two blocks an SM, rows
 // ranked by page count on the device; the ring of cp.async page stages
 // with spare warps converting page i + 1 while page i folds; page size 16
 // at head dims 32-256 folds two rows a warp (`attend_pair`), with or
@@ -43,12 +44,12 @@ using namespace ptt;
 using namespace ptt::walk;
 
 // The launch K9 makes for these shapes, with or without a user mask,
-// written to out[9] (`walk_plan`:
-// raw stages, f32 tiles, dynamic shared memory bytes, two rows a warp,
-// grid blocks, threads a block, query rows a block, the keys of a piece,
-// the bytes of one copy). Returns cudaErrorInvalidValue, as the launch
-// would, for a dtype or pool code K9 does not take (int8 pools take K7) or
-// where no launch fits.
+// written to out[kPlanLen] (`walk_plan`: raw stages, f32 tiles, dynamic
+// shared memory bytes, two rows a warp, grid blocks, threads a block,
+// query rows a block, the keys of a piece, the bytes of one copy, the
+// split of a row's heads over blocks). Returns cudaErrorInvalidValue, as
+// the launch would, for a dtype or pool code K9 does not take (int8 pools
+// take K7) or where not even one query row fits (out[2]: its bytes).
 extern "C" int ptt_decode_plan(int B, int H, int Hkv, int D, int ps,
                                int dtype, int pool, int* out) {
   if (pool != kPoolQ && pool != kPoolE4M3)

@@ -32,9 +32,12 @@
 //
 // Layout shared with the Python wrappers: q, out [B, lq, H, D]; pools
 // [num_pages, ps, Hkv, D]; scale pools [num_pages, ps, Hkv]; page_table
-// [B, mp]; pos, q_len, group_id, group_leader, group_cnt [B] int32. A
-// block owns (query block t of qblk <= 8 queries, kv head g): its rows
-// r = 0 .. qblk*rep-1 are query t*qblk + r/rep, head g*rep + r%rep. The
+// [B, mp]; pos, q_len, group_id, group_leader, group_cnt [B] int32. An
+// item (query block t of qblk <= 8 queries, row b) has, for kv head g,
+// the rows r = 0 .. qblk*rep-1: query t*qblk + r/rep, head g*rep + r%rep.
+// A block walks a contiguous run of at most ceil(qblk*rep / split) of
+// them (`walk_split`: 1 wherever the whole item fits shared memory, so a
+// block then owns all of them), reading the item's pages itself. The
 // phase-1 partials are f32 m, l [Hkv, nqb, B*qblk*rep] and acc
 // [Hkv, nqb, B*qblk*rep, D], row b*qblk*rep + r.
 #pragma once
@@ -96,6 +99,7 @@ struct Args {
   int B, lq, H, Hkv, D, ps, mp, num_pages, qblk, nqb;
   int pool;                 // Pool code
   float scale;
+  int split;                // blocks an item's rows are split over
 };
 
 inline Args make_args(const void* q, const void* k, const void* v,
@@ -124,6 +128,7 @@ inline Args make_args(const void* q, const void* k, const void* v,
   a.qblk = lq < kQBlk ? lq : kQBlk;
   a.nqb = (lq + a.qblk - 1) / a.qblk;
   a.scale = 1.0f / sqrtf((float)D);
+  a.split = 1;
   return a;
 }
 
@@ -433,11 +438,32 @@ __host__ __device__ inline RingLayout walk_layout(int elem, bool scaled,
   return ring_layout(elem, scaled, D, rows, width, kstride, nrows, 0, 1);
 }
 
+// The fewest blocks an item's nrows query rows can be split over, each
+// block a contiguous run of at most ceil(nrows / split) of them, so that
+// a block's `walk_layout` fits kDynSmemMax: 1 wherever the whole item
+// fits (every launch that fitted before keeps its grid and its bits); 0
+// where not even one row fits. A row's fold does not depend on the
+// split, only which block owns it. With the smallest split no block is
+// left without rows.
+__host__ __device__ inline int walk_split(int elem, bool scaled, int D,
+                                          int ps, int nrows, bool paired) {
+  for (int s = 1; s <= nrows; ++s)
+    if (walk_layout(elem, scaled, D, ps, (nrows + s - 1) / s, paired)
+            .total <= kDynSmemMax)
+      return s;
+  return 0;
+}
+
+// the most query rows one block of the launch holds
+__host__ __device__ inline int block_rows(const Args& a) {
+  return (a.qblk * (a.H / a.Hkv) + a.split - 1) / a.split;
+}
+
 template <typename T>
 __host__ __device__ inline RingLayout walk_layout(const Args& a, int D,
                                                  int ps, bool paired) {
   return walk_layout(pool_elem<T>(a.pool), a.pool == kPoolI8, D, ps,
-                     a.qblk * (a.H / a.Hkv), paired);
+                     block_rows(a), paired);
 }
 
 // One copy of W bytes, shared <- global: cp.async takes 16 (bypassing L1),
@@ -715,8 +741,11 @@ __device__ __forceinline__ int item_key(const Args& a, int i, int ps) {
 // The walk: K10a (kPhase1), and K10b, K6, K7 and K9 (phase 2). kD, kPS:
 // the head dim and page size as compile-time constants, or 0 for the
 // run-time a.D, a.ps. kMasked (phase 2): the user mask.
-// One-dimensional grid of nqb * B * Hkv blocks: block x walks kv head
-// x % Hkv of the item ranked x / Hkv in the schedule.
+// One-dimensional grid of nqb * B * Hkv * split blocks: block x walks the
+// (kv head, split) pair x % (Hkv * split) — kv head pair % Hkv, the
+// pair / Hkv-th run of the item's rows — of the item ranked
+// x / (Hkv * split) in the schedule. Below, "its rows" are the block's
+// own run.
 //   Phase 1: an item whose row is a member of a sharing group and whose
 // query block is live walks the shared span, pages [0, min(cnt, last + 1))
 // read through the leader's table, from (-1e30, 0, 0), and writes its
@@ -740,12 +769,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ps = kPS > 0 ? kPS : a.ps;
   const int H = a.H, lq = a.lq;
   const int rep = H / a.Hkv;
-  const int nrows = a.qblk * rep;
+  const int item_rows = a.qblk * rep;
+  const int brows = block_rows(a);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int g = blockIdx.x % a.Hkv;
-  const int rank = blockIdx.x / a.Hkv;
+  const int pair = blockIdx.x % (a.Hkv * a.split);
+  const int g = pair % a.Hkv;
+  // this block's rows are the item's r0 .. r0 + nrows - 1: local row r is
+  // the item's row r0 + r
+  const int r0 = (pair / a.Hkv) * brows;
+  const int nrows = min(brows, item_rows - r0);
+  const int rank = blockIdx.x / (a.Hkv * a.split);
 
   // The schedule, built alike by every block: items by descending key,
   // ties by index (every rank is some item's). A launch with more than
@@ -778,7 +813,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (!kPhase1) {
       T* __restrict__ out = static_cast<T*>(a.out);
       for (int idx = tid; idx < nrows * D; idx += kThreads) {
-        const int r = idx / D, d = idx - r * D;
+        const int r = r0 + idx / D, d = idx % D;
         const int qi = q0 + r / rep;
         if (qi < lq) {
           const int h = g * rep + r % rep;
@@ -822,11 +857,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* sM = reinterpret_cast<float*>(sbuf + L.m);      // [nrows]
   float* sL = reinterpret_cast<float*>(sbuf + L.l);      // [nrows]
   // this block's rows in the partials
-  const size_t part =
-      ((size_t)g * a.nqb + t) * ((size_t)a.B * nrows) + (size_t)b * nrows;
+  const size_t part = ((size_t)g * a.nqb + t) * ((size_t)a.B * item_rows) +
+                      (size_t)b * item_rows + r0;
 
   for (int idx = tid; idx < nrows * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
+    const int r = r0 + idx / D, d = idx % D;
     const int qi = q0 + r / rep;
     const int h = g * rep + r % rep;
     sQ[idx] = qi < lq ? to_f32<T>(q[(((size_t)b * lq + qi) * H + h) * D + d])
@@ -910,7 +945,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           const int r = 2 * p + (lane >> 4);
           const bool owner = r < nrows;
           const int rr = owner ? r : 2 * p;
-          const int qi = q0 + rr / rep;
+          const int qi = q0 + (r0 + rr) / rep;
           const float* qrow = sQ + (size_t)rr * kD;
           if constexpr (kQRegs) {
             if (i == 0 || !one_pair) {
@@ -927,7 +962,7 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
           const float* mrow = nullptr;
           if (kMasked) {
-            const int h = g * rep + rr % rep;
+            const int h = g * rep + (r0 + rr) % rep;
             mrow = a.mask + (((size_t)b * H + h) * lq + min(qi, lq - 1)) *
                                 lmax;
           }
@@ -938,10 +973,10 @@ __global__ void __launch_bounds__(kThreads, 2)
       } else {
         const int rows = unit_rows(i);
         for (int r = warp; r < nrows; r += kWarps) {
-          const int qi = q0 + r / rep;
+          const int qi = q0 + (r0 + r) / rep;
           const float* mrow = nullptr;
           if (kMasked) {
-            const int h = g * rep + r % rep;
+            const int h = g * rep + (r0 + r) % rep;
             mrow = a.mask + (((size_t)b * H + h) * lq + min(qi, lq - 1)) *
                                 lmax;
           }
@@ -971,10 +1006,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   T* __restrict__ out = static_cast<T*>(a.out);
   for (int idx = tid; idx < nrows * D; idx += kThreads) {
-    const int r = idx / D, d = idx - r * D;
-    const int qi = q0 + r / rep;
+    const int r = idx / D, d = idx % D;
+    const int qi = q0 + (r0 + r) / rep;
     if (qi < lq) {
-      const int h = g * rep + r % rep;
+      const int h = g * rep + (r0 + r) % rep;
       const float l = fmaxf(sL[r], 1e-30f);
       out[(((size_t)b * lq + qi) * H + h) * D + d] =
           from_f32<T>(sAcc[idx] / l);
@@ -985,16 +1020,19 @@ __global__ void __launch_bounds__(kThreads, 2)
 template <bool kPhase1, bool kMasked, int kD, int kPS>
 struct RingWalk {
   template <typename T, int DV, int PJ>
-  static int run(const Args& a, cudaStream_t stream) {
+  static int run(const Args& args, cudaStream_t stream) {
+    Args a = args;
+    a.split = walk_split(pool_elem<T>(a.pool), a.pool == kPoolI8, a.D, a.ps,
+                         a.qblk * (a.H / a.Hkv), kPS == 16);
+    if (a.split == 0) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = walk_layout<T>(a, a.D, a.ps, kPS == 16).total;
-    if (smem > kDynSmemMax) return static_cast<int>(cudaErrorInvalidValue);
     auto kernel = ring_walk_kernel<T, DV, PJ, kD, kPS, kPhase1, kMasked>;
     if (smem > 48 * 1024) {
       cudaError_t err = cudaFuncSetAttribute(
           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
       if (err != cudaSuccess) return static_cast<int>(err);
     }
-    kernel<<<a.nqb * a.B * a.Hkv, kThreads, smem, stream>>>(a);
+    kernel<<<a.nqb * a.B * a.Hkv * a.split, kThreads, smem, stream>>>(a);
     return static_cast<int>(cudaGetLastError());
   }
 };
@@ -1068,38 +1106,52 @@ int ring_dispatch(int dtype, const Args& a, cudaStream_t s) {
   }
 }
 
-// The launch a walk makes for these shapes, written to out[9]: raw stages
-// (kRingStages on the ring; 0: each piece loaded straight into one tile),
-// f32 tiles, dynamic shared memory bytes, 1 if two rows share a warp
-// (`attend_pair`), the grid's blocks, threads a block, query rows a block,
-// the keys of a piece (`piece_rows`) and the bytes of one copy
-// (`copy_bytes`); a launch with a user mask takes the same plan. Returns
+// Entries of a walk's launch report (`walk_plan`).
+constexpr int kPlanLen = 10;
+
+// The launch a walk makes for these shapes, written to out[kPlanLen]: raw
+// stages (kRingStages on the ring; 0: each piece loaded straight into one
+// tile), f32 tiles, dynamic shared memory bytes, 1 if two rows share a
+// warp (`attend_pair`), the grid's blocks, threads a block, query rows a
+// block (at most), the keys of a piece (`piece_rows`), the bytes of one
+// copy (`copy_bytes`) and the blocks an item's rows are split over
+// (`walk_split`); a launch with a user mask takes the same plan. Returns
 // cudaErrorInvalidValue, as the launch would, for a dtype or pool code the
-// kernels do not take or shared memory over the limit.
+// kernels do not take, or where not even one query row fits shared
+// memory; then out[2] holds the bytes one row's block would need (0 for
+// a bad code) and the rest is 0.
 inline int walk_plan(int B, int lq, int H, int Hkv, int D, int ps, int dtype,
                      int pool, int* out) {
+  for (int i = 0; i < kPlanLen; ++i) out[i] = 0;
   if (B < 1 || lq < 1 || Hkv < 1 || H < Hkv || H % Hkv || D < 1 ||
       ps < 1 || dtype < kF32 || dtype > kF16 || pool < kPoolQ ||
       pool > kPoolE4M3)
     return static_cast<int>(cudaErrorInvalidValue);
   const int elem =
       pool != kPoolQ ? 1 : dtype == kF32 ? 4 : 2;  // bytes a pool element
+  const bool scaled = pool == kPoolI8;
   const int qblk = lq < kQBlk ? lq : kQBlk;
   const int nrows = qblk * (H / Hkv);
   const bool paired = ring_paired(D, ps);
-  const RingLayout L =
-      walk_layout(elem, pool == kPoolI8, D, ps, nrows, paired);
-  if (L.total > kDynSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  const int vals[9] = {L.stages,
-                       L.nbuf,
-                       static_cast<int>(L.total),
-                       paired ? 1 : 0,
-                       (lq + qblk - 1) / qblk * B * Hkv,
-                       kThreads,
-                       nrows,
-                       L.rows,
-                       L.width};
-  for (int i = 0; i < 9; ++i) out[i] = vals[i];
+  const int split = walk_split(elem, scaled, D, ps, nrows, paired);
+  if (split == 0) {
+    out[2] = static_cast<int>(
+        walk_layout(elem, scaled, D, ps, 1, paired).total);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = (nrows + split - 1) / split;
+  const RingLayout L = walk_layout(elem, scaled, D, ps, rows, paired);
+  const int vals[kPlanLen] = {L.stages,
+                              L.nbuf,
+                              static_cast<int>(L.total),
+                              paired ? 1 : 0,
+                              (lq + qblk - 1) / qblk * B * Hkv * split,
+                              kThreads,
+                              rows,
+                              L.rows,
+                              L.width,
+                              split};
+  for (int i = 0; i < kPlanLen; ++i) out[i] = vals[i];
   return 0;
 }
 

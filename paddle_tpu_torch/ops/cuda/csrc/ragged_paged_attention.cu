@@ -34,7 +34,11 @@
 // next along a sequential page axis; here a block owns (query block of
 // <= 8 queries x rep heads, row b, kv head g), loops over the row's live
 // pages itself and keeps m, l and acc in shared memory in f32 for the
-// whole walk. The parts the ring gives it:
+// whole walk. Where those 8 x rep rows do not fit shared memory beside
+// the tiles (rep 32 at head dim 128, 71 heads of 64 on one kv head), the
+// rows are split over the fewest blocks that fit (`walk_split`), each
+// reading the row's pages itself; every row folds as before, so the
+// split moves no bit. The parts the ring gives it:
 // - kRingStages cp.async page stages, two pages ahead, each thread
 //   converting the chunks it copied itself into f32 (the 1-byte lanes
 //   dequantize there: the TPU kernel's in-VMEM dequant), into two f32
@@ -97,10 +101,12 @@ extern "C" int ptt_ragged_paged_attention(
 }
 
 // The launch K6 (K7) makes for these shapes, with or without a user mask,
-// written to out[9] (`walk_plan`: raw stages, f32 tiles, dynamic shared
-// memory bytes, two rows a warp, grid blocks, threads a block, query rows
-// a block, the keys of a piece, the bytes of one copy). Returns
-// cudaErrorInvalidValue, as the launch would, where no launch fits.
+// written to out[kPlanLen] (`walk_plan`: raw stages, f32 tiles, dynamic
+// shared memory bytes, two rows a warp, grid blocks, threads a block,
+// query rows a block, the keys of a piece, the bytes of one copy, the
+// split of an item's rows over blocks). Returns cudaErrorInvalidValue, as
+// the launch would, where not even one query row fits (out[2]: the bytes
+// it would need).
 extern "C" int ptt_ragged_plan(int B, int lq, int H, int Hkv, int D, int ps,
                                int dtype, int pool, int* out) {
   return walk_plan(B, lq, H, Hkv, D, ps, dtype, pool, out);

@@ -10,20 +10,26 @@ Both kernels are in `csrc/layer_norm.cu`.
 `layer_norm(x, w, b, eps)` normalises over the last axis with f32
 statistics (two passes: the mean, then the mean of the centred
 squares) and returns x's dtype. `layer_norm_bwd(dy, x, w, eps)` returns
-(dx, dw, db): dx in x's dtype, dw and db in w's. A CPU tensor takes the
-plain versions; a CUDA tensor launches the kernels or raises.
+(dx, dw, db): dx in x's dtype, dw and db in w's. On the card K2 sums
+dw and db across its blocks in a fixed order (clusters of 8 blocks, then
+the clusters in order; `layer_norm_bwd_plan` reports the launch), so they
+are the same bits on every run. A CPU tensor takes the plain versions; a
+CUDA tensor launches the kernels or raises.
 `LayerNormFunction` is the differentiable op: forward through K1,
 backward through K2, saving (x, w) as the JAX VJP does.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from . import _build
 
 __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd",
-           "layer_norm_bwd_reference", "LayerNormFunction", "LAUNCHES",
-           "BWD_LAUNCHES", "reset_launches", "MAX_COLS"]
+           "layer_norm_bwd_reference", "layer_norm_bwd_plan",
+           "LayerNormFunction", "LAUNCHES", "BWD_LAUNCHES", "reset_launches",
+           "MAX_COLS"]
 
 # kernel launches since the last reset_launches() (the main path's
 # proof that it went through the kernels): K1 and K2
@@ -31,11 +37,12 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 # widest row the kernels hold in registers: 16 vectors of 16 bytes per lane
 MAX_COLS = {torch.float32: 2048, torch.bfloat16: 4096, torch.float16: 4096}
-# K2: rows per block (kBwdWarps in csrc/layer_norm.cu), and blocks per
-# SM of its grid-stride row walk; they size the grid and its f32
-# partials, and any values are correct
-_BWD_WARPS = 8
-_BWD_BLOCKS_PER_SM = 2
+# K2's launch by (rows, cols, dtype, device): the library's plan
+_BWD_PLANS = {}
+# K2's tickets by device: kCluster int32 counters, zero between launches
+_BWD_TICKETS = {}
+_BWD_PLAN = ("grid", "cluster", "resident_clusters", "per_lane", "ring",
+             "partials")
 
 
 def reset_launches():
@@ -127,6 +134,29 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y
 
 
+def layer_norm_bwd_plan(rows: int, cols: int, dtype: torch.dtype,
+                        device) -> dict:
+    """The launch K2 makes for [rows, cols] of `dtype` on CUDA `device`,
+    as the library chooses it (`ptt_layer_norm_bwd_plan`): "grid" (blocks,
+    whole clusters), "cluster" (blocks a cluster), "resident_clusters"
+    (the clusters the card holds at once, by the occupancy calculator),
+    "per_lane" (16-byte vectors of a row a lane), "ring" (1: each warp's
+    next rows come through a ring of cp.async copies in shared memory)
+    and "partials" (the f32 cluster partials of dw and db)."""
+    device = torch.device(device)
+    key = (rows, cols, dtype, device.index)
+    plan = _BWD_PLANS.get(key)
+    if plan is None:
+        out = (ctypes.c_int * len(_BWD_PLAN))()
+        lib = _build.load("layer_norm")
+        err = lib.ptt_layer_norm_bwd_plan(rows, cols,
+                                          _build.dtype_code(dtype),
+                                          device.index, out)
+        _build.check(lib, err, "layer_norm_bwd plan")
+        plan = _BWD_PLANS[key] = dict(zip(_BWD_PLAN, map(int, out)))
+    return plan
+
+
 def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
                    eps: float = 1e-5):
     """K2: (dx, dw, db) of `layer_norm` at (x, w) for the output
@@ -143,19 +173,22 @@ def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     x2, dy2, w = x.contiguous(), dy.contiguous(), w.contiguous()
     cols = x2.shape[-1]
     rows = x2.numel() // cols
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    groups = max(1, min(-(-rows // _BWD_WARPS), _BWD_BLOCKS_PER_SM * sms))
+    plan = layer_norm_bwd_plan(rows, cols, x2.dtype, x2.device)
+    tickets = _BWD_TICKETS.get(x2.device.index)
+    if tickets is None:
+        tickets = _BWD_TICKETS[x2.device.index] = torch.zeros(
+            plan["cluster"], dtype=torch.int32, device=x2.device)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
     db = torch.empty_like(w)
-    part = torch.empty((2, groups, cols), dtype=torch.float32,
+    part = torch.empty(plan["partials"], dtype=torch.float32,
                        device=x2.device)
     lib = _build.load("layer_norm")
     err = lib.ptt_layer_norm_bwd(
         dy2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), part.data_ptr(), rows, cols, groups,
-        float(eps), _build.dtype_code(x2.dtype), x2.device.index,
-        _build.stream_ptr(x2.device))
+        dw.data_ptr(), db.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+        rows, cols, plan["grid"], float(eps), _build.dtype_code(x2.dtype),
+        x2.device.index, _build.stream_ptr(x2.device))
     _build.check(lib, err, "layer_norm_bwd kernel launch")
     BWD_LAUNCHES += 1
     return dx, dw, db

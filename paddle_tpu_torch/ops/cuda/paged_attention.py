@@ -69,8 +69,12 @@ On the card K6, K7, K9 and both phases of K10 are one kernel (the walk
 of `csrc/paged_walk.cuh`): a ring of cp.async page copies (or, where the
 ring does not fit shared memory, each page loaded straight into one
 tile), one block per (query block, row, kv head) in an order the kernel
-ranks on the device, longest walk first. Pages over 128 keys are folded
-in pieces, the same in every walk; any head dim and page size is taken.
+ranks on the device, longest walk first; where a block's 8 x rep query
+rows do not fit shared memory (rep 32 at head dim 128, 71 heads of 64
+over one kv head), they are split over the fewest blocks that fit, each
+reading the pages itself, with the same bits. Pages over 128 keys are
+folded in pieces, the same in every walk; any head dim and page size is
+taken.
 `ragged_plan`, `decode_plan` and `grouped_plan` report the launch the
 library chooses for a batch's shapes.
 
@@ -82,7 +86,10 @@ pool of q's dtype it is an in-place `index_copy_` on the flattened pool
 quantize, then codes and scales to the same slots). The megakernel's
 write stage (`paged_scatter_kernel`) is K8 for every float and e4m3
 pool, as the JAX megakernel runs its Pallas scatter: a float pool's
-write through K8 equals `index_copy_`'s bit for bit. Moves of e4m3
+write through K8 equals `index_copy_`'s bit for bit. K and V at the
+same positions go through K8 in one launch (`paged_scatter_pair`,
+`paged_scatter_kernel_pair`), where the JAX package makes two
+scatters. Moves of e4m3
 bytes go through `view(torch.uint8)`: PyTorch's float8 coverage of
 indexing and copies is patchy, and the bytes are the value.
 
@@ -115,6 +122,7 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "grouped_plan",
            "count_page_block_reads", "quantize_kv_rowwise", "paged_scatter",
            "paged_scatter_reference", "paged_scatter_q8",
+           "paged_scatter_pair", "paged_scatter_kernel_pair",
            "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
            "paged_decode_attention", "paged_attention_reference",
            "decode_plan", "ragged_plan", "lora_plan", "piece_rows",
@@ -290,6 +298,44 @@ def _scatter_geometry(pool, upd, page_table):
     return (b, l, hkv, d, pool.shape[1], page_table.shape[1], pool.shape[0])
 
 
+def _k8(name, writes, pos, page_table):
+    """Launch K8 on the card for `writes`, one (pool, upd) pair or two
+    (K and V: one launch, one slot lookup per token for both), into
+    float pools (the float lane, counted in MEGA_LAUNCHES["K8-float"]) or
+    e4m3 pools (the fp8 lane, QUANT_LAUNCHES["K8"]). The pools must be
+    contiguous and share their dtype, the updates their dtype and
+    shape."""
+    checked = []
+    for pool, upd in writes:
+        upd, pos_c, table = _scatter_check(name, pool, upd, pos, page_table)
+        if not pool.is_contiguous():
+            raise ValueError(f"{name}: the pool must be contiguous")
+        checked.append((pool, upd))
+    (k_pool, k_upd), *rest = checked
+    v_pool, v_upd = rest[0] if rest else (None, None)
+    if rest and (v_pool.dtype != k_pool.dtype or v_upd.dtype != k_upd.dtype
+                 or v_upd.shape != k_upd.shape
+                 or v_pool.shape != k_pool.shape
+                 or v_pool.device != k_pool.device):
+        raise ValueError(f"{name}: K and V must share their pools' and "
+                         "updates' dtypes, shapes and device")
+    lib = _build.load("paged_scatter")
+    ptrs = (k_upd.data_ptr(), k_pool.data_ptr(), _ptr(v_upd), _ptr(v_pool),
+            table.data_ptr(), pos_c.data_ptr(),
+            *_scatter_geometry(k_pool, k_upd, table),
+            _build.dtype_code(k_upd.dtype))
+    where = (k_pool.device.index, _build.stream_ptr(k_pool.device))
+    if k_pool.dtype == FP8_DTYPE:
+        err = lib.ptt_paged_scatter_e4m3(*ptrs, *where)
+        _build.check(lib, err, "paged scatter (e4m3) kernel launch")
+        QUANT_LAUNCHES["K8"] += 1
+    else:
+        err = lib.ptt_paged_scatter_float(
+            *ptrs, _build.dtype_code(k_pool.dtype), *where)
+        _build.check(lib, err, "paged scatter (float) kernel launch")
+        MEGA_LAUNCHES["K8-float"] += 1
+
+
 def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
                   page_table: torch.Tensor) -> torch.Tensor:
     """The paged KV write, IN PLACE, returning the pool (see
@@ -301,19 +347,27 @@ def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
         return paged_scatter_reference(pool, upd, pos, page_table)
     if pool.device.type != "cuda":
         raise ValueError(f"paged_scatter: no kernel for device {pool.device}")
-    upd, pos, page_table = _scatter_check("paged_scatter", pool, upd, pos,
-                                          page_table)
-    if not pool.is_contiguous():
-        raise ValueError("paged_scatter: the pool must be contiguous")
-    lib = _build.load("paged_scatter")
-    err = lib.ptt_paged_scatter_e4m3(
-        upd.data_ptr(), pool.data_ptr(), page_table.data_ptr(),
-        pos.data_ptr(), *_scatter_geometry(pool, upd, page_table),
-        _build.dtype_code(upd.dtype), pool.device.index,
-        _build.stream_ptr(pool.device))
-    _build.check(lib, err, "paged scatter (e4m3) kernel launch")
-    QUANT_LAUNCHES["K8"] += 1
+    _k8("paged_scatter", [(pool, upd)], pos, page_table)
     return pool
+
+
+def paged_scatter_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                       k_upd: torch.Tensor, v_upd: torch.Tensor,
+                       pos: torch.Tensor, page_table: torch.Tensor):
+    """`paged_scatter` of K and V at the same positions, IN PLACE,
+    returning (k_pool, v_pool): e4m3 pools on the card in one K8 launch
+    (the JAX package makes two scatters; one launch computes the same
+    two writes), any other pool, and every pool on the CPU, by the plain
+    version, one write each."""
+    if k_pool.dtype != FP8_DTYPE or k_pool.device.type == "cpu":
+        return (paged_scatter_reference(k_pool, k_upd, pos, page_table),
+                paged_scatter_reference(v_pool, v_upd, pos, page_table))
+    if k_pool.device.type != "cuda":
+        raise ValueError(
+            f"paged_scatter_pair: no kernel for device {k_pool.device}")
+    _k8("paged_scatter_pair", [(k_pool, k_upd), (v_pool, v_upd)], pos,
+        page_table)
+    return k_pool, v_pool
 
 
 def paged_scatter_kernel(pool: torch.Tensor, upd: torch.Tensor,
@@ -327,24 +381,30 @@ def paged_scatter_kernel(pool: torch.Tensor, upd: torch.Tensor,
     The pool must be contiguous."""
     if pool.device.type == "cpu":
         return paged_scatter_reference(pool, upd, pos, page_table)
-    if pool.dtype == FP8_DTYPE:
-        return paged_scatter(pool, upd, pos, page_table)
     if pool.device.type != "cuda":
         raise ValueError(
             f"paged_scatter_kernel: no kernel for device {pool.device}")
-    upd, pos, page_table = _scatter_check("paged_scatter_kernel", pool, upd,
-                                          pos, page_table)
-    if not pool.is_contiguous():
-        raise ValueError("paged_scatter_kernel: the pool must be contiguous")
-    lib = _build.load("paged_scatter")
-    err = lib.ptt_paged_scatter_float(
-        upd.data_ptr(), pool.data_ptr(), page_table.data_ptr(),
-        pos.data_ptr(), *_scatter_geometry(pool, upd, page_table),
-        _build.dtype_code(upd.dtype), _build.dtype_code(pool.dtype),
-        pool.device.index, _build.stream_ptr(pool.device))
-    _build.check(lib, err, "paged scatter (float) kernel launch")
-    MEGA_LAUNCHES["K8-float"] += 1
+    _k8("paged_scatter_kernel", [(pool, upd)], pos, page_table)
     return pool
+
+
+def paged_scatter_kernel_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                              k_upd: torch.Tensor, v_upd: torch.Tensor,
+                              pos: torch.Tensor, page_table: torch.Tensor):
+    """`paged_scatter_kernel` of K and V at the same positions in ONE K8
+    launch on the card (float or e4m3 pools; the JAX megakernel runs its
+    scatter twice, and one launch computes the same two writes), IN
+    PLACE, returning (k_pool, v_pool); on the CPU the plain version, one
+    write each."""
+    if k_pool.device.type == "cpu":
+        return (paged_scatter_reference(k_pool, k_upd, pos, page_table),
+                paged_scatter_reference(v_pool, v_upd, pos, page_table))
+    if k_pool.device.type != "cuda":
+        raise ValueError(f"paged_scatter_kernel_pair: no kernel for device "
+                         f"{k_pool.device}")
+    _k8("paged_scatter_kernel_pair", [(k_pool, k_upd), (v_pool, v_upd)],
+        pos, page_table)
+    return k_pool, v_pool
 
 
 def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
@@ -597,7 +657,8 @@ def _ragged(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len,
         _ptr(v_scale), page_table.data_ptr(), pos.data_ptr(),
         q_len.data_ptr(), _ptr(mask), out.data_ptr(),
         *_geometry(q, k_pool, page_table))
-    _build.check(lib, err, "ragged_paged_attention kernel launch")
+    _check_walk(lib, err, "ragged_paged_attention kernel launch",
+                lambda: ragged_plan(q, k_pool))
     _count_walk("K6", _lane(k_pool))
     return out
 
@@ -728,21 +789,39 @@ def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
         b, h, hkv, d, ps, page_table.shape[1], n_pages,
         _build.dtype_code(q.dtype), _POOL_CODE[lane], q.device.index,
         _build.stream_ptr(q.device))
-    _build.check(lib, err, "paged_decode_attention kernel launch")
+    _check_walk(lib, err, "paged_decode_attention kernel launch",
+                lambda: decode_plan(q, k_pool))
     DECODE_LAUNCHES["K9" if lane == "fp" else "K9-fp8"] += 1
     return out
 
 
 # the keys of a walk's launch report (`walk_plan` in csrc/paged_walk.cuh)
 _WALK_PLAN = ("stages", "tiles", "smem", "paired", "grid", "threads",
-              "rows", "piece", "copy")
+              "rows", "piece", "copy", "split")
+# the dynamic shared memory a walk block may take (kDynSmemMax there)
+_WALK_SMEM = 232448 - 4 * (512 + 4)
 
 
 def _walk_plan(lib, entry, args, what):
     out = (ctypes.c_int * len(_WALK_PLAN))()
     if getattr(lib, entry)(*args, out):
+        need = int(out[2])
+        if need:
+            raise ValueError(
+                f"{what} kernel: no launch for these shapes: a block of "
+                f"one query row needs {need} bytes of shared memory, over "
+                f"the {_WALK_SMEM} a walk block may take")
         raise ValueError(f"{what} kernel: no launch for these shapes")
     return dict(zip(_WALK_PLAN, (int(x) for x in out)))
+
+
+def _check_walk(lib, err, what, plan):
+    """Raise if a walk's C entry failed: where not even one query row
+    fits a block, with the bytes it needs (`plan()` raises that), else
+    with the CUDA error."""
+    if err:
+        plan()
+    _build.check(lib, err, what)
 
 
 def decode_plan(q: torch.Tensor, k_pool: torch.Tensor) -> dict:
@@ -753,10 +832,14 @@ def decode_plan(q: torch.Tensor, k_pool: torch.Tensor) -> dict:
     pool row is not a multiple of 4 bytes, and each page is loaded
     straight into one tile), "tiles" (f32 working tiles), "smem" (dynamic
     shared memory bytes a block), "paired" (two query rows a warp),
-    "grid" (blocks), "threads" (a block), "rows" (query rows a block),
-    "piece" (the keys a page is folded in at a time: the page size up to
-    128) and "copy" (the bytes of one copy: 16, 8 or 4, or one element).
-    Raises ValueError where K9 takes no launch."""
+    "grid" (blocks), "threads" (a block), "rows" (query rows a block, at
+    most), "piece" (the keys a page is folded in at a time: the page size
+    up to 128), "copy" (the bytes of one copy: 16, 8 or 4, or one
+    element) and "split" (the blocks a row's query rows are split over:
+    1 unless they pass shared memory beside the tiles). Raises ValueError
+    where K9 takes no launch: a pool lane it does not take, or a shape
+    where not even one query row fits a block (the message gives the
+    bytes)."""
     b, _, h, d = q.shape
     ps, hkv = k_pool.shape[1], k_pool.shape[2]
     return _walk_plan(_build.load("paged_decode_attention"),
@@ -1077,7 +1160,8 @@ def grouped_phase1(q, k_pool, v_pool, page_table, pos, q_len, group_id,
         *(t.data_ptr() for t in (page_table, pos, q_len, group_id,
                                  group_leader, group_cnt, m, l, acc)),
         *_geometry(q, k_pool, page_table))
-    _build.check(lib, err, "grouped paged attention phase 1 launch")
+    _check_walk(lib, err, "grouped paged attention phase 1 launch",
+                lambda: grouped_plan(q, k_pool))
     _count_walk("K10a", _lane(k_pool))
     return m, l, acc
 
@@ -1096,7 +1180,8 @@ def grouped_phase2(q, k_pool, v_pool, page_table, pos, q_len, group_id,
         *(t.data_ptr() for t in (page_table, pos, q_len, group_id,
                                  group_cnt, *partials, out)),
         *_geometry(q, k_pool, page_table))
-    _build.check(lib, err, "grouped paged attention phase 2 launch")
+    _check_walk(lib, err, "grouped paged attention phase 2 launch",
+                lambda: grouped_plan(q, k_pool))
     _count_walk("K10b", _lane(k_pool))
     return out
 
@@ -1306,8 +1391,8 @@ def megakernel_decode(q, k_new, v_new, k_pool, v_pool, page_table, pos,
     JAX op, K13 as a composition): with `lora`, the LoRA prologue (K11
     for q, k and v; `rest` carries (x, aq, bq, ak, bk, av, bv, apage,
     ascale) after the group triple); the write of k_new/v_new
-    [B, W, H_kv, D] at pos (`paged_scatter_kernel`: K8 in the pool's
-    lane); then the ragged walk over the updated pools (K6), or with
+    [B, W, H_kv, D] at pos (`paged_scatter_kernel_pair`: one K8 launch
+    in the pools' lane); then the ragged walk over the updated pools (K6), or with
     `grouped` the grouped walk (K10; `rest` leads with (group_id,
     group_leader, group_cnt)). The pools are written IN PLACE. Returns
     (out, k_pool, v_pool). On the CPU every stage is the unfused ops'
@@ -1315,8 +1400,7 @@ def megakernel_decode(q, k_new, v_new, k_pool, v_pool, page_table, pos,
     group, rest = _megakernel_split(rest, grouped, lora)
     if lora:
         q, k_new, v_new = _megakernel_lora_prologue(q, k_new, v_new, rest)
-    paged_scatter_kernel(k_pool, k_new, pos, page_table)
-    paged_scatter_kernel(v_pool, v_new, pos, page_table)
+    paged_scatter_kernel_pair(k_pool, v_pool, k_new, v_new, pos, page_table)
     if grouped:
         out = ragged_paged_attention_grouped(q, k_pool, v_pool, page_table,
                                              pos, q_len, *group)

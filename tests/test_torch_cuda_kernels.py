@@ -780,7 +780,8 @@ def test_paged_scatter_kernels_equal_their_plain_versions(cuda, dtype,
 def test_quantized_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
     """The engine at its defaults over int8 or e4m3 pools: the same
     greedy tokens on the card as on the CPU, with each step launching
-    the lane's write twice a layer and K10's two phases once a layer."""
+    the lane's write once a layer (K8: K and V in one launch) or twice
+    (K8-q8) and K10's two phases once a layer."""
     cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                     num_attention_heads=4, max_position_embeddings=128)
     rs = np.random.RandomState(5)
@@ -800,8 +801,10 @@ def test_quantized_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
         tokens[str(dev)] = [r.token_ids for r in res]
         if dev is cuda:
             steps = eng.metrics.unified_steps
+            writes = 4 if kv == "int8" else 2
             assert {n: c for n, c in tpa.QUANT_LAUNCHES.items() if c} == \
-                {write: 4 * steps, phase1: 2 * steps, phase2: 2 * steps}
+                {write: writes * steps, phase1: 2 * steps,
+                 phase2: 2 * steps}
             assert tpa.LAUNCHES == 0
             assert tpa.GROUPED_LAUNCHES == {"phase1": 0, "phase2": 0}
             assert tln.LAUNCHES == 5 * steps
@@ -904,8 +907,9 @@ def test_paged_decode_attention_raises_what_the_kernel_cannot_take(cuda):
 def test_legacy_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
     """The legacy step (f32 model; float, int8 and e4m3 pools): the same
     greedy tokens on the card as on the CPU; per decode step K1 5 and
-    the lane's walk 2 (K9, K7 or K9's fp8 lane), with K8/K8-q8 4 in the
-    1-byte lanes; per prefill chunk K1 5 and K3 2; K6 and K10 never.
+    the lane's walk 2 (K9, K7 or K9's fp8 lane), with K8 2 (K and V in
+    one launch) or K8-q8 4 in the 1-byte lanes; per prefill chunk K1 5
+    and K3 2; K6 and K10 never.
     Head dim 64: the prefill chunk attends through K3, which holds 64
     and 128."""
     cfg = GPTConfig(vocab_size=256, hidden_size=128, num_hidden_layers=2,
@@ -937,7 +941,7 @@ def test_legacy_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
             want.update(K1=5 * (steps + chunks), K3=2 * chunks)
             want[walk] = 2 * steps
             if write:
-                want[write] = 4 * (steps + chunks)
+                want[write] = (4 if kv == "int8" else 2) * (steps + chunks)
             assert got == want
     assert tokens["cpu"] == tokens[str(cuda)]
 
@@ -1149,7 +1153,8 @@ def test_megakernel_engine_on_the_card(cuda, kv):
     """The engine with the megakernel: the same tokens as with the gate
     off on the card and as on the CPU; with adapters (K11 for the q/k/v
     prologue and the o-delta) the tokens the CPU gives. Launches per
-    step: K8's lane 4, K12 1, K11 8 with adapters (2 layers)."""
+    step: K8-q8 4, or K8's float lane 2 (K and V in one launch), K12 1,
+    K11 8 with adapters (2 layers)."""
     from paddle_tpu_torch.serving import make_random_lora
     cfg = GPTConfig(vocab_size=256, hidden_size=64, num_hidden_layers=2,
                     num_attention_heads=4, max_position_embeddings=128)
@@ -1182,7 +1187,7 @@ def test_megakernel_engine_on_the_card(cuda, kv):
                 steps = eng.metrics.unified_steps
                 counts = dict(tpa.MEGA_LAUNCHES, **{
                     "K8-q8": tpa.QUANT_LAUNCHES["K8-q8"]})
-                assert counts[write] == 4 * steps
+                assert counts[write] == (4 if kv == "int8" else 2) * steps
                 assert counts["K12"] == steps
                 assert counts["K11"] == (8 * steps if lora else 0)
     for key in ((False, False), (True, False), (True, True)):
@@ -1433,3 +1438,218 @@ def test_ring_k6_equals_another_build(cuda):
             "other": walk_control._load(built[other][0])}
     walk_control.compare(libs, cuda, time_it=False)
 
+
+
+# -- F10: a block's query rows split over blocks; K8 redesigned; K2
+# redesigned -----------------------------------------------------------------
+# (rep, head dim) where 8 queries x rep rows pass a block's shared memory:
+# rep 32 at head dim 128, 71 heads of 64 over one kv head (multi-query)
+_SPLIT_SHAPES = [(32, 128), (71, 64)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rep,d", _SPLIT_SHAPES)
+def test_walks_split_rows_that_pass_shared_memory(cuda, rep, d, dtype):
+    """K6, K7 and K10 (every lane) at rep 32 / head dim 128 and rep 71 /
+    head dim 64 over pages of 16, q_len up to 17: every plan splits an
+    item's rows over blocks, K10 equals K6 (K7) bit for bit with its
+    partials against the plain ones and 20 reruns the same
+    (`_check_k10`), and K6 within its rule of the plain version on the
+    live queries."""
+    base, grp = _k10_case(cuda, dtype, rep, d, 16)
+    for lane in ("fp", "fp8", "q8"):
+        ops, scales = lane_batch(base, lane)
+        for plan in (tpa.ragged_plan(ops[0], ops[1]),
+                     tpa.grouped_plan(ops[0], ops[1])):
+            assert plan["split"] > 1, (lane, plan)
+            assert plan["rows"] * plan["split"] >= 8 * rep, plan
+            assert plan["grid"] == -(-17 // 8) * 14 * 2 * plan["split"]
+        _check_k10(ops, grp, scales)
+        out = ragged(ops, scales)
+        torch.cuda.synchronize()
+        live = (torch.arange(out.shape[1], device=cuda)[None, :]
+                < ops[5][:, None])
+        _close(out[live], ragged_reference(ops, scales)[live])
+
+
+@pytest.mark.parametrize("lane", ["fp", "fp8"])
+@pytest.mark.parametrize("h,d", [(32, 128), (71, 64), (128, 256)])
+def test_decode_walk_at_the_split_shapes(cuda, h, d, lane):
+    """K9 over one kv head of h heads, bf16: equal to K6 at q_len 1 bit
+    for bit and within its rule of the plain version. Its rep rows fit a
+    block at rep 32 and 71; rep 128 at head dim 256 passes shared memory
+    even at one query, and K9's rows split there as every walk's do."""
+    ops, _ = lane_batch(decode_batch(cuda, torch.bfloat16, h, 1, d, rows=6,
+                                     mp=50, trash=1), lane)
+    plan = tpa.decode_plan(ops[0], ops[1])
+    assert (plan["split"] > 1) == (h == 128), plan
+    assert plan == tpa.ragged_plan(ops[0], ops[1])
+    out = decode(ops)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ragged(ops, {}))
+    _close(out, tpa.paged_attention_reference(*ops[:5]))
+
+
+def test_walk_plans_the_parent_launched_keep_one_block(cuda):
+    """Every shape the walks launched before the split reports a split of
+    1, the same grid as before (one block per query block, row and kv
+    head) and all of an item's rows in its block: the serving batches,
+    the card tests' K10 shapes, the direct-load shapes and the page sizes
+    and head dims of F9."""
+    cases = [(torch.bfloat16, 16, 32, 12, 12, 64, 16),
+             (torch.bfloat16, 16, 32, 16, 4, 128, 16)]
+    cases += [(dt, 14, 17, 2 * rep, 2, d, ps)
+              for dt in (torch.float32, torch.bfloat16, torch.float16)
+              for rep in (1, 2, 4) for d in (32, 64, 128, 256)
+              for ps in (8, 16, 32, 64)]
+    cases += [(dt, 14, 17, 2 * rep, 2, d, ps) for dt, d, ps, rep, _ in (
+        (torch.float32, 256, 64, 1, 6), (torch.float32, 256, 64, 4, 6),
+        (torch.float32, 128, 128, 1, 6), (torch.float32, 128, 128, 8, 6),
+        (torch.float32, 256, 16, 8, 300), (torch.bfloat16, 256, 64, 2, 6),
+        (torch.float16, 256, 64, 4, 6))]
+    cases += [(dt, 14, 17, 4, 2, d, ps) for dt in (torch.float32,
+                                                   torch.bfloat16)
+              for ps, d in _NEW_SHAPES]
+    for dt, b, lq, h, hkv, d, ps in cases:
+        q = torch.empty(b, lq, h, d, dtype=dt, device=cuda)
+        for pool in (dt, torch.int8, tpa.FP8_DTYPE):
+            k = torch.empty(4, ps, hkv, d, dtype=pool, device=cuda)
+            for plan in (tpa.ragged_plan(q, k), tpa.grouped_plan(q, k)):
+                assert plan["split"] == 1, (dt, b, lq, h, d, ps, pool, plan)
+                assert plan["rows"] == min(lq, 8) * h // hkv
+                assert plan["grid"] == -(-lq // 8) * b * hkv
+            if pool != torch.int8:
+                assert tpa.decode_plan(q[:, :1], k)["split"] == 1
+    for dtype, h, hkv, d, ps, mp in _DECODE_DIRECT:
+        q, k = decode_batch(cuda, dtype, h, hkv, d, rows=2, ps=ps, mp=mp)[:2]
+        assert tpa.decode_plan(q, k)["split"] == 1
+
+
+def test_walk_refuses_only_what_one_row_cannot_fit(cuda):
+    """A head dim whose single query row with its tile passes shared
+    memory is refused by the plan and the launch alike, in bytes."""
+    q = torch.zeros(1, 1, 1, 40000, device=cuda)
+    k = torch.zeros(2, 16, 1, 40000, device=cuda)
+    with pytest.raises(ValueError, match="one query row needs"):
+        tpa.ragged_plan(q, k)
+    table = torch.ones(1, 1, dtype=torch.int32, device=cuda)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one query row needs"):
+        tpa.ragged_paged_attention(q, k, k, table, pos, pos + 1)
+
+
+def _scatter_case(cuda, dtype, b=6, l=32, hkv=4, d=64, ps=16, mp=5, seed=11,
+                  scale=1.0):
+    rs = np.random.RandomState(seed)
+    n_pages = b * mp + 1
+    table = rs.permutation(np.arange(1, n_pages)).astype(np.int32)
+    table = torch.from_numpy(table.reshape(b, mp)).to(cuda)
+    pos = torch.tensor([0, 1, 15, 40, mp * ps - 3, 70][:b],
+                       dtype=torch.int32, device=cuda)
+    upd = [(torch.from_numpy(rs.randn(b, l, hkv, d).astype(np.float32))
+            * scale).to(cuda, dtype) for _ in range(2)]
+    return upd, pos, table, (n_pages, ps, hkv, d)
+
+
+def _zeros(shape, dtype, cuda):
+    if dtype == tpa.FP8_DTYPE:
+        return _fp8_zeros(shape, cuda)
+    return torch.zeros(shape, dtype=dtype, device=cuda)
+
+
+def _bits(pool):
+    return pool.view(torch.uint8) if pool.dtype == tpa.FP8_DTYPE else pool
+
+
+@pytest.mark.parametrize("upd_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("pool_dtype", [torch.float32, torch.bfloat16,
+                                        torch.float16, tpa.FP8_DTYPE])
+def test_paged_scatter_pair_equals_two_single_writes(cuda, upd_dtype,
+                                                     pool_dtype):
+    """K8 writing K and V in one launch: each pool equals what a single
+    K8 launch writes into it and what the plain version writes, bit for
+    bit outside the trash page (at 300x the scale, past +-448 for the
+    e4m3 lane); one launch is counted for the pair."""
+    (ku, vu), pos, table, shape = _scatter_case(cuda, upd_dtype, scale=300.0)
+    key = "K8" if pool_dtype == tpa.FP8_DTYPE else "K8-float"
+    count = tpa.QUANT_LAUNCHES if key == "K8" else tpa.MEGA_LAUNCHES
+    before = count[key]
+    kp, vp = tpa.paged_scatter_kernel_pair(
+        _zeros(shape, pool_dtype, cuda), _zeros(shape, pool_dtype, cuda), ku,
+        vu, pos, table)
+    torch.cuda.synchronize()
+    assert count[key] == before + 1
+    for got, upd in ((kp, ku), (vp, vu)):
+        one = tpa.paged_scatter_kernel(_zeros(shape, pool_dtype, cuda), upd,
+                                       pos, table)
+        want = tpa.paged_scatter_reference(_zeros(shape, pool_dtype, cuda),
+                                           upd, pos, table)
+        assert torch.equal(_bits(got)[1:], _bits(one)[1:])
+        assert torch.equal(_bits(got)[1:], _bits(want)[1:])
+    if pool_dtype == tpa.FP8_DTYPE:
+        before = tpa.QUANT_LAUNCHES["K8"]
+        kq, vq = tpa.paged_scatter_pair(_zeros(shape, pool_dtype, cuda),
+                                        _zeros(shape, pool_dtype, cuda), ku,
+                                        vu, pos, table)
+        torch.cuda.synchronize()
+        assert tpa.QUANT_LAUNCHES["K8"] == before + 1
+        assert torch.equal(_bits(kq)[1:], _bits(kp)[1:])
+        assert torch.equal(_bits(vq)[1:], _bits(vp)[1:])
+
+
+@pytest.mark.parametrize("pool_dtype", [torch.bfloat16, tpa.FP8_DTYPE])
+@pytest.mark.parametrize("hkv,d,offset", [(3, 5, 0), (2, 12, 0), (4, 64, 1),
+                                          (1, 40, 2), (12, 64, 0)])
+def test_paged_scatter_takes_every_tile(cuda, pool_dtype, hkv, d, offset):
+    """K8 at tiles that are not a multiple of 16 bytes and at update rows
+    that start off a 16-byte boundary (a view `offset` elements into its
+    storage): narrower chunks, down to one element, the same bits as the
+    plain version outside the trash page, single and paired."""
+    (ku, vu), pos, table, shape = _scatter_case(cuda, torch.bfloat16,
+                                                hkv=hkv, d=d)
+    n = ku.numel()
+    ku = torch.cat([ku.new_zeros(offset), ku.reshape(-1)])[offset:].view(
+        ku.shape)
+    assert ku.data_ptr() % 16 == 2 * offset % 16 and n == ku.numel()
+    want = [tpa.paged_scatter_reference(_zeros(shape, pool_dtype, cuda), u,
+                                        pos, table) for u in (ku, vu)]
+    one = tpa.paged_scatter_kernel(_zeros(shape, pool_dtype, cuda), ku, pos,
+                                   table)
+    kp, vp = tpa.paged_scatter_kernel_pair(
+        _zeros(shape, pool_dtype, cuda), _zeros(shape, pool_dtype, cuda), ku,
+        vu, pos, table)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(one)[1:], _bits(want[0])[1:])
+    assert torch.equal(_bits(kp)[1:], _bits(want[0])[1:])
+    assert torch.equal(_bits(vp)[1:], _bits(want[1])[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,cols", [(16384, 768), (512, 768), (8, 4096),
+                                       (300, 2048), (1, 8)])
+def test_layer_norm_bwd_kernel_over_widths(cuda, dtype, rows, cols):
+    """K2 in every dtype from one row to the training step's 16384, at
+    widths from 8 to the widest each dtype takes (4096 columns are f32's
+    2048): dx, dw and db within the rule of the plain version; dw and db
+    the same bits over 20 reruns; its launch whole clusters of 8
+    blocks."""
+    cols = min(cols, tln.MAX_COLS[dtype])
+    g = torch.Generator(device=cuda).manual_seed(2)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    x, dy = (mk(rows, cols) * 2 + 1).to(dtype), mk(rows, cols).to(dtype)
+    w = mk(cols).to(dtype)
+    plan = tln.layer_norm_bwd_plan(rows, cols, dtype, cuda)
+    assert plan["grid"] % plan["cluster"] == 0 and plan["cluster"] == 8
+    assert plan["grid"] <= max(8, -(-rows // 8) + 7), plan
+    got = tln.layer_norm_bwd(dy, x, w, 1e-5)
+    torch.cuda.synchronize()
+    for a, b in zip(got, tln.layer_norm_bwd_reference(dy, x, w, 1e-5)):
+        assert a.dtype == dtype
+        _close(a, b)
+    for _ in range(20):
+        again = tln.layer_norm_bwd(dy, x, w, 1e-5)
+        assert torch.equal(again[1], got[1]) and torch.equal(again[2],
+                                                             got[2])
+        assert torch.equal(again[0], got[0])
