@@ -24,8 +24,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    mask, K11 in each dtype, and the largest register count and the
    spilling ones among all; K6's, K9's and K11's go into their records);
 2. hold each kernel against its plain PyTorch version on the card, at
-   the shapes each path gives it, in bf16 and f32 — K1 at the serving
-   and the training step's, K6, K7 and K10 at the serving step's, K2-K5 at
+   the shapes each path gives it, in bf16 and f32 — K1 at the serving,
+   the legacy decode and the training step's (20 reruns bit for bit,
+   its launch recorded), K6, K7 and K10 at the serving step's, K2-K5 at
    the training step's; f32 outputs to 1e-5 x (1 + max|ref|), bf16 outputs
    element by element to 2 ulps — and time the kernel, the plain version
    and one PyTorch library call computing the same function
@@ -46,12 +47,19 @@ Phases, each reported on its own line; any failure exits non-zero:
    plans), K10 = K6 (K7) bit for bit, against the plain versions, timed;
    K9 there and at rep 128 / head dim 256 equal to K6 at q_len 1. K2 at
    [16384, 768] in bf16, f32 and f16 and at [512, 768] in bf16, 20
-   reruns bit for bit, each timed beside its bound. K8 and K8-q8
+   reruns bit for bit, each timed beside its bound. F11: K1 and K2 at
+   GPT-3's widths (2560 and 4096 in f32, 5120 in bf16: the wide lanes)
+   and at 65536 columns, and with f32 weights under bf16 activations,
+   against their plain versions, dx, dw and db 20 reruns bit for bit,
+   timed beside their bounds; the functional LayerNorm at width 100 in
+   bf16 launches nothing and equals the port of the JAX jnp branch on
+   the CPU. K8 and K8-q8
    write the serving step's [16, 32, 12, 64] K rows (and again at 300x
    the scale, past +-448) and must equal their plain versions bit for
-   bit outside the trash page; K8 writes K and V in one launch too, in
-   both lanes (equal to two single launches), timed beside two
-   `index_copy_` calls. K9 runs in its fp and fp8 lanes on the
+   bit outside the trash page; both write K and V in one launch too, in
+   every lane (equal to two single launches; K8-q8's pair over 20
+   reruns), K8's pair timed beside two `index_copy_` calls, K8-q8's
+   beside its bound. K9 runs in its fp and fp8 lanes on the
    legacy decode step's batch (16 rows, q [16, 1, 12, 64], pools
    [993, 16, 12, 64], pos over 65-763; again at rep 4, D 128) without a
    mask, with a random additive mask and with a bool mask that hides
@@ -107,7 +115,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    share of tokens equal to the page-16 run's printed. Then the same
    traffic over int8 and fp8 KV pools,
    each with the defaults and with grouped=False: per step K1 25, the
-   lane's write (K8-q8 24, or K8 12: K and V in one launch) and K10a,
+   lane's write (K8-q8 or K8 12: K and V in one launch) and K10a,
    K10b 12 each (K7 or K6's fp8
    lane 12 with grouped=False); identical tokens in both arms of a
    dtype; a recorded step of each defaults run held against a plain f32
@@ -126,7 +134,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    prefill chunk K1 25 and K3 12, K6 and K10 never; a recorded decode
    step's held logits against a plain f32 rerun over the same pools;
    a profile), over fp8 pools (K8 12 and K9-fp8 12 per decode step) and
-   over int8 pools (K8-q8 24 and K7 12); the prefill buckets run stay in
+   over int8 pools (K8-q8 12 and K7 12); the prefill buckets run stay in
    {32, 16, 8}; and the unified step's gather arm (`attn_impl="gather"`,
    K3 12 per step, no K6/K10; a recorded step's held logits against a
    plain f32 rerun). Printed, not checked: tokens/s, step
@@ -134,7 +142,7 @@ Phases, each reported on its own line; any failure exits non-zero:
    unified defaults arm's. Then the decode megakernel and adapter arms:
    the megakernel on over bf16 and over int8 pools (tokens identical to
    the gate-off defaults arms'; per step K8's float lane 12 (K and V in
-   one launch) or K8-q8 24, and K12 1, on top
+   one launch) or K8-q8 12, and K12 1, on top
    of the walk), the LORA adapters (4 of rank 4, tenants zipf over
    {base, 1..4}) with the megakernel off and on (a recorded step's held
    logits against a plain f32 rerun; K11 48 a step with the gate on),
@@ -165,7 +173,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    head dim 32 (the plain `_sdpa_ref` route, as the JAX package takes
    it): the legacy step and the gather arm serve 8 prompts, generate()
    decodes, one train step runs; the route is checked by the launches
-   and the prefill logits against a plain f32 rerun (0.1).
+   and the prefill logits against a plain f32 rerun (0.1);
+7. one decoder layer at GPT-3 13B's width (hidden 5120, 40 heads of 128;
+   bf16, cut in depth only): two train steps on [2, 1024] (K1 and K2 3
+   each a step, in their wide lanes; K3-K5 once), then the held step on
+   [1, 1024] in f32, kernel path against plain path.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -176,7 +188,8 @@ serving_fp8[_ungrouped]; the legacy step, serving_legacy[_fp8|_int8];
 the gather arm, serving_gather; the megakernel and adapter arms,
 serving_[int8_]megakernel, serving_adapters[_megakernel[_2pages]],
 serving_adapters_r32_megakernel and serving_int8_adapters_megakernel;
-training; or generate) whose shapes
+training; training_gpt3_width, phase 7's step; or generate) whose
+shapes
 the record was measured at, and
 `launches_by_path` those on each path, each counted from 0 just before
 its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
@@ -403,15 +416,18 @@ def check_close(name, got, want, mask=None, extra=None, extra_rule=""):
 
 # -- phase 2: kernels against their plain versions ------------------------
 def check_layer_norm(dev, tln, time_ms):
-    """K1 at the training step's shape [B * L, 768] and the serving
-    step's [slots * chunk, 768], f32 and bf16, each timed in bf16. The
-    record's times are the serving step's (K1's first path); the
-    training step's are under `training_shape`."""
+    """K1 at the training step's shape [B * L, 768], the serving step's
+    [slots * chunk, 768] and the legacy decode step's [slots, 768], f32
+    and bf16, each timed in bf16 with its launch (`layer_norm_plan`)
+    recorded, and 20 reruns bit for bit. The record's times are the
+    serving step's (K1's first path); the others under `training_shape`
+    and `decode_shape`."""
     cols = GPT124M["hidden_size"]
     g = torch.Generator(device=dev).manual_seed(SEED)
     errs, times = {}, {}
     for path, rows in (("training", TRAIN["batch"] * TRAIN["seq"]),
-                       ("serving", ENGINE["num_slots"] * ENGINE["chunk_len"])):
+                       ("serving", ENGINE["num_slots"] * ENGINE["chunk_len"]),
+                       ("decode", ENGINE["num_slots"])):
         for dtype in (torch.float32, torch.bfloat16):
             x = (torch.randn(rows, cols, generator=g, device=dev) * 2 + 1
                  ).to(dtype)
@@ -422,6 +438,8 @@ def check_layer_norm(dev, tln, time_ms):
             errs[path, dtype] = check_close(
                 f"K1 layer_norm [{rows}, {cols}] {dtype}", y,
                 tln.layer_norm_reference(x, w, b, 1e-5))
+        same_bits(f"K1 y [{rows}, {cols}] bf16",
+                  lambda: (tln.layer_norm(x, w, b, 1e-5),))
         ms = time_ms(lambda: tln.layer_norm(x, w, b, 1e-5))
         plain_ms = time_ms(lambda: tln.layer_norm_reference(x, w, b, 1e-5))
         lib_ms = time_ms(lambda: torch.nn.functional.layer_norm(
@@ -429,17 +447,105 @@ def check_layer_norm(dev, tln, time_ms):
         n_bytes = 2 * rows * cols * x.element_size() + \
             2 * cols * w.element_size()
         bound_ms, bound_by = bound(n_bytes, 8 * rows * cols, F32_FLOPS)
+        plan = tln.layer_norm_plan(rows, cols, x.dtype, dev)
         log(f"  K1 bf16 [{rows}, {cols}]: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, F.layer_norm {lib_ms:.4f} ms, bound "
-            f"{bound_ms:.5f} ms ({bound_by})")
+            f"{bound_ms:.5f} ms ({bound_by}); launch {plan}")
         times[path] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                            bound_by=bound_by, library_ms=lib_ms,
-                           max_abs_err=errs[path, torch.bfloat16])
+                           max_abs_err=errs[path, torch.bfloat16],
+                           launch=plan)
     return dict(name="K1 layer_norm_fwd", route="cuda",
                 source="paddle_tpu_torch/ops/cuda/csrc/layer_norm.cu",
                 replaces="paddle_tpu/ops/pallas/layer_norm.py:60",
                 path="serving", **times["serving"],
-                training_shape=times["training"])
+                training_shape=times["training"],
+                decode_shape=times["decode"])
+
+
+# F11's shapes in phase 2: (rows, cols, x's dtype, w's dtype): GPT-3
+# 2.7B's and 6.7B's widths in f32 and 13B's in bf16 (Brown et al. 2020,
+# Table 2.1), the widest row the kernels take, and f32 weights under bf16
+# activations at GPT-124M's and GPT-3 13B's widths
+LN_F11_SHAPES = ((64, 2560, torch.float32, torch.float32),
+                 (64, 4096, torch.float32, torch.float32),
+                 (64, 5120, torch.bfloat16, torch.bfloat16),
+                 (8, 65536, torch.bfloat16, torch.bfloat16),
+                 (512, 768, torch.bfloat16, torch.float32),
+                 (64, 5120, torch.bfloat16, torch.float32))
+# the width F11's jnp branch is checked at: 200 bytes in bf16
+LN_JNP_WIDTH = 100
+
+
+def check_layer_norm_f11(dev, tln, time_ms):
+    """F11: K1 and K2 at LN_F11_SHAPES against their plain versions (the
+    rows past the register lanes take the wide lanes; w and b of another
+    dtype than x are converted to f32 in the kernels), dx, dw and db 20
+    reruns bit for bit, each timed beside its bound with its lane; and
+    the functional LayerNorm at width LN_JNP_WIDTH in bf16, which the
+    kernels do not take: no launch, the port of the JAX jnp branch on the
+    card against the same function on the CPU. Returns ({shape: K1's
+    record}, {shape: K2's record})."""
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.nn.functional.norm import _ln_jnp
+    g = torch.Generator(device=dev).manual_seed(SEED + 13)
+    fwd, bwd = {}, {}
+    for rows, cols, dtype, wdtype in LN_F11_SHAPES:
+        mk = lambda *s: torch.randn(*s, generator=g, device=dev)
+        x, dy = (mk(rows, cols) * 2 + 1).to(dtype), mk(rows, cols).to(dtype)
+        w, b = mk(cols).to(wdtype), mk(cols).to(wdtype)
+        tag = (f"[{rows}, {cols}] {str(dtype)[6:]}"
+               + (f", w {str(wdtype)[6:]}" if wdtype != dtype else ""))
+        y = tln.layer_norm(x, w, b, 1e-5)
+        got = tln.layer_norm_bwd(dy, x, w, 1e-5)
+        torch.cuda.synchronize()
+        err1 = check_close(f"K1 {tag}", y,
+                           tln.layer_norm_reference(x, w, b, 1e-5))
+        want = tln.layer_norm_bwd_reference(dy, x, w, 1e-5)
+        err2 = max(check_close(f"K2 {n} {tag}", a, r)
+                   for n, a, r in zip(("dx", "dw", "db"), got, want))
+        if not (y.dtype == got[0].dtype == dtype
+                and got[1].dtype == got[2].dtype == wdtype):
+            raise AssertionError(f"LayerNorm {tag}: output dtypes")
+        same_bits(f"K2 dx, dw, db {tag}",
+                  lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
+        ms1 = time_ms(lambda: tln.layer_norm(x, w, b, 1e-5))
+        ms2 = time_ms(lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
+        xs, ws = x.element_size(), w.element_size()
+        b1 = bound(2 * rows * cols * xs + 2 * cols * ws, 8 * rows * cols,
+                   F32_FLOPS)
+        b2 = bound(3 * rows * cols * xs + 3 * cols * ws, 16 * rows * cols,
+                   F32_FLOPS)
+        p1 = tln.layer_norm_plan(rows, cols, dtype, dev, wdtype)
+        p2 = tln.layer_norm_bwd_plan(rows, cols, dtype, dev, wdtype)
+        lane = "wide" if p1["wide"] else "register"
+        log(f"  F11 {tag} ({lane} lane): K1 {ms1:.4f} ms (bound "
+            f"{b1[0]:.5f}), K2 {ms2:.4f} ms (bound {b2[0]:.5f}); launches "
+            f"{p1}, {p2}")
+        fwd[tag] = dict(ms=ms1, bound_ms=b1[0], bound_by=b1[1],
+                        max_abs_err=err1, launch=p1)
+        bwd[tag] = dict(ms=ms2, bound_ms=b2[0], bound_by=b2[1],
+                        max_abs_err=err2, launch=p2)
+    cols = LN_JNP_WIDTH
+    x = (torch.randn(64, cols, generator=g, device=dev) * 2 + 1).to(
+        torch.bfloat16).requires_grad_(True)
+    w, b = (torch.randn(cols, generator=g, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    before = (tln.LAUNCHES, tln.BWD_LAUNCHES)
+    y = PF.layer_norm(x, cols, w, b)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    xc = x.detach().cpu().requires_grad_(True)
+    want = _ln_jnp(xc, w.cpu(), b.cpu(), 1, 1e-5)
+    want.sum().backward()
+    if (tln.LAUNCHES, tln.BWD_LAUNCHES) != before:
+        raise AssertionError(f"LayerNorm at width {cols}: a kernel launched")
+    err = max(check_close(f"F11 jnp branch [64, {cols}] bf16 {n}", a, r)
+              for n, a, r in (("y", y.cpu(), want), ("dx", x.grad.cpu(),
+                                                     xc.grad)))
+    fwd[f"jnp branch [64, {cols}] bf16"] = dict(max_abs_err=err,
+                                                launches=0)
+    return fwd, bwd
 
 
 # K2's shapes in phase 2: (rows, dtype), the first the record's: the
@@ -1240,13 +1346,15 @@ def check_paged_scatter(dev, tpa, time_ms):
     page), and again at 300x the scale, with about 13 % of the values
     then beyond +-448. The pools' bytes must equal the plain versions'
     bit for bit outside page 0 (the float lane's plain version is the
-    unfused write, `index_copy_`). K8 then writes K and V (a second
-    update of the same shape) in one launch, in both lanes, and each
-    pool must equal a single launch's and the plain version's bytes.
-    Then the kernels, the plain versions and, for K8, one `index_copy_`
-    of the converted bytes to the same slots are timed, and the pair
-    beside two `index_copy_`s."""
+    unfused write, `index_copy_`). K8 and K8-q8 then write K and V (a
+    second update of the same shape) in one launch, in every lane, and
+    each pool must equal a single launch's and the plain version's bytes
+    (K8-q8's pair also over 20 reruns). Then the kernels, the plain
+    versions and, for K8, one `index_copy_` of the converted bytes to the
+    same slots are timed, and the pairs beside two `index_copy_`s (K8)
+    and their bounds."""
     q, k, _, table, pos, _ = ragged_batch(dev, torch.bfloat16, 12, 12, SEED)
+    v_upd = ragged_batch(dev, torch.bfloat16, 12, 12, SEED + 1)[0]
     shape = k.shape
     fp8_zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
                                     device=dev).view(tpa.FP8_DTYPE)
@@ -1280,6 +1388,27 @@ def check_paged_scatter(dev, tpa, time_ms):
         if not all(same.values()) or not finite:
             raise AssertionError("K8 / K8-q8 disagree with their plain "
                                  "versions")
+        # K8-q8's pair: K and V in one launch, equal to the single writes
+        v_mult = (v_upd.float() * mult).to(torch.bfloat16)
+        before = tpa.QUANT_LAUNCHES["K8-q8"]
+        pair = tpa.paged_scatter_q8_pair(*q8_zeros()[:1], *q8_zeros()[:1],
+                                         *q8_zeros()[1:], *q8_zeros()[1:],
+                                         upd, v_mult, pos, table)
+        torch.cuda.synchronize()
+        one_v = tpa.paged_scatter_q8(*q8_zeros(), v_mult, pos, table)
+        torch.cuda.synchronize()
+        pair_same = tpa.QUANT_LAUNCHES["K8-q8"] == before + 2 and all(
+            torch.equal(a[1:].view(torch.uint8), b[1:].view(torch.uint8))
+            for a, b in zip(pair, (codes, one_v[0], scales, one_v[1])))
+        log(f"  K8-q8 pair bf16 K and V x{mult:g} in one launch: equal to "
+            f"two single launches (and so to the plain version) bit for "
+            f"bit outside page 0: {pair_same}")
+        if not pair_same:
+            raise AssertionError("K8-q8's pair disagrees")
+        same_bits(f"K8-q8 pair x{mult:g}", lambda: [t[1:] for t in (
+            tpa.paged_scatter_q8_pair(*q8_zeros()[:1], *q8_zeros()[:1],
+                                      *q8_zeros()[1:], *q8_zeros()[1:], upd,
+                                      v_mult, pos, table))])
     fl_err = 0.0
     for pool_dtype in (torch.bfloat16, torch.float32):
         got = tpa.paged_scatter_kernel(torch.zeros(shape, dtype=pool_dtype,
@@ -1294,7 +1423,6 @@ def check_paged_scatter(dev, tpa, time_ms):
             f"equal to index_copy_ bit for bit outside page 0: {same}")
         if not same:
             raise AssertionError("K8's float lane disagrees with index_copy_")
-    v_upd = ragged_batch(dev, torch.bfloat16, 12, 12, SEED + 1)[0]
     zeros = {"e4m3": fp8_zeros,
              "bf16": lambda: torch.zeros(shape, dtype=torch.bfloat16,
                                          device=dev),
@@ -1355,6 +1483,9 @@ def check_paged_scatter(dev, tpa, time_ms):
     dstfv = poolfv.view(-1, *shape[2:])
     lib8x2 = time_ms(lambda: (dst.index_copy_(0, flat, rows),
                               dst8v.index_copy_(0, flat, rows8v)))
+    pcv, psv = q8_zeros()
+    pairq = time_ms(lambda: tpa.paged_scatter_q8_pair(pc, pcv, ps_, psv, upd,
+                                                      v_upd, pos, table))
     libfx2 = time_ms(lambda: (dstf.index_copy_(0, flat, rowsf),
                               dstfv.index_copy_(0, flat, rowsfv)))
     n = upd.numel()
@@ -1366,10 +1497,13 @@ def check_paged_scatter(dev, tpa, time_ms):
     bf = bound(2 * n * upd.element_size() + io, n, F32_FLOPS)
     b8x2 = bound(2 * (n * upd.element_size() + n) + io, 8 * n, F32_FLOPS)
     bfx2 = bound(4 * n * upd.element_size() + io, 2 * n, F32_FLOPS)
+    bqx2 = bound(2 * (n * upd.element_size() + n + n // shape[3] * 4) + io,
+                 12 * n, F32_FLOPS)
     log(f"  K8 pair bf16 K and V {list(upd.shape)}: -> e4m3 {pair8:.4f} ms "
         f"(two index_copy_ {lib8x2:.4f} ms, bound {b8x2[0]:.5f}), -> bf16 "
         f"{pairf:.4f} ms (two index_copy_ {libfx2:.4f} ms, bound "
-        f"{bfx2[0]:.5f})")
+        f"{bfx2[0]:.5f}); K8-q8 pair -> int8 + scales {pairq:.4f} ms (bound "
+        f"{bqx2[0]:.5f})")
     log(f"  K8 bf16 {list(upd.shape)} -> e4m3: kernel {ms8:.4f} ms, plain "
         f"{plain8:.4f} ms, index_copy_ of the converted bytes {lib8:.4f} "
         f"ms, bound {b8[0]:.5f} ms ({b8[1]}); K8-q8 -> int8 + scales: "
@@ -1394,7 +1528,10 @@ def check_paged_scatter(dev, tpa, time_ms):
                  max_abs_err=errs["K8-q8"],
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:1343",
                  ms=msq, plain_ms=plainq, bound_ms=bq[0], bound_by=bq[1],
-                 library_ms=None, **common),
+                 library_ms=None,
+                 pair=dict(ms=pairq, bound_ms=bqx2[0], bound_by=bqx2[1],
+                           library_ms=None),
+                 **common),
             dict(name="K8-float paged_scatter_kernel (float pools)",
                  path="serving_megakernel", max_abs_err=fl_err,
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:1328",
@@ -1660,9 +1797,9 @@ def launch_counts_serving(tln, tpa, tfa) -> dict:
             **tpa.DECODE_LAUNCHES, **tpa.MEGA_LAUNCHES}
 
 
-# the serving step's launches per layer by KV dtype: the write (K8 for K
-# and V in one launch, K8-q8 for each; a float pool's write is
-# index_copy_), and the
+# the serving step's launches per layer by KV dtype: the write (K8 or
+# K8-q8, K and V in one launch; a float pool's write is index_copy_), and
+# the
 # walk with the defaults (K10's two phases) or with grouped=False (K6)
 LANE_OF = {"fp": "fp", "fp8": "fp8", "int8": "q8"}
 WRITE_OF = {"fp": None, "fp8": "K8", "int8": "K8-q8"}
@@ -1684,10 +1821,9 @@ def per_step_launches(tpa, grouped: bool, kv_dtype: str,
                       adapters: bool = False) -> dict:
     """One unified step's launches: K1 2L + 1; the walk per layer (K10's
     two phases, or K6, in the pools' lane), or K3 per layer under the
-    gather arm; the lane's write per layer (K8 once for K and V, K8-q8
-    for each) — a float pool's unfused write is index_copy_, under the
-    megakernel K8's
-    float lane. Under the megakernel, K12 once a step and, with
+    gather arm; the lane's write per layer (K8 or K8-q8 once for K and
+    V) — a float pool's unfused write is index_copy_, under the
+    megakernel K8's float lane. Under the megakernel, K12 once a step and, with
     adapters, K11 four times a layer (the q, k and v prologue and the
     o-delta); without it the adapters' deltas are library products."""
     n_layers = GPT124M["num_hidden_layers"]
@@ -1701,18 +1837,12 @@ def per_step_launches(tpa, grouped: bool, kv_dtype: str,
             want[WALKS[walk, lane][0]] = n_layers
     write = WRITE_OF[kv_dtype] or ("K8-float" if megakernel else None)
     if write:
-        want[write] = writes_per_layer(write) * n_layers
+        want[write] = n_layers
     if megakernel:
         want["K12"] = 1
         if adapters:
             want["K11"] = 4 * n_layers
     return want
-
-
-def writes_per_layer(write: str) -> int:
-    """Launches of a layer's K/V write: K8 writes K and V in one launch
-    (both lanes), K8-q8 each in its own."""
-    return 2 if write == "K8-q8" else 1
 
 
 def legacy_launches(tpa, kv_dtype: str):
@@ -1725,8 +1855,7 @@ def legacy_launches(tpa, kv_dtype: str):
     for want in (per_decode, per_chunk):
         want["K1"] = 2 * n_layers + 1
         if WRITE_OF[kv_dtype]:
-            want[WRITE_OF[kv_dtype]] = writes_per_layer(
-                WRITE_OF[kv_dtype]) * n_layers
+            want[WRITE_OF[kv_dtype]] = n_layers
     per_decode[DECODE_WALK_OF[kv_dtype]] = n_layers
     per_chunk["K3"] = n_layers
     return per_decode, per_chunk
@@ -2444,9 +2573,9 @@ def launch_counts(tln, tfa) -> dict:
 
 
 def reset_counts(tln, tfa, tpa):
-    tln.reset_launches()
-    tfa.reset_launches()
-    tpa.reset_launches()
+    for mod in (tln, tfa, tpa):
+        if mod is not None:
+            mod.reset_launches()
 
 
 def train(dev, tln, tfa, tpa):
@@ -2667,6 +2796,73 @@ def head_dim_phase(dev, tln, tfa, tpa, d: int) -> dict:
     return stats
 
 
+# phase 7: one decoder layer of GPT-3 13B's width (Brown et al. 2020,
+# Table 2.1: hidden 5120, 40 heads of 128, 2048 positions), cut in depth
+# only, bf16: its LayerNorms take the wide lanes of K1 and K2
+GPT3_WIDTH = dict(vocab_size=50304, hidden_size=5120, num_hidden_layers=1,
+                  num_attention_heads=40, max_position_embeddings=2048)
+GPT3_TRAIN = dict(batch=2, seq=1024, held_batch=1)
+
+
+def gpt3_width_phase(dev, tln, tfa) -> tuple:
+    """A 1-layer GPT at GPT3_WIDTH in bf16, random weights from the
+    seed: two bench-style train steps on [2, 1024] through
+    `jit.compile_train_step` (K1 and K2 through their wide lanes, 3 each a
+    step, and K3-K5 once each; the first loss near what random weights
+    give), then the held step on [1, 1024]: the kernel path's f32 loss and gradients
+    against the plain path's on the card. Returns (the second step's
+    launches, stats)."""
+    from paddle_tpu_torch import jit, optimizer
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    cfg = GPTConfig(**GPT3_WIDTH, hidden_dropout_prob=0.0,
+                    attention_probs_dropout_prob=0.0)
+    rows = GPT3_TRAIN["batch"] * GPT3_TRAIN["seq"]
+    lanes = (tln.layer_norm_plan(rows, cfg.hidden_size, torch.bfloat16, dev),
+             tln.layer_norm_bwd_plan(rows, cfg.hidden_size, torch.bfloat16,
+                                     dev))
+    if not all(p["wide"] for p in lanes):
+        raise AssertionError(f"GPT-3 width: LayerNorm not in the wide lanes "
+                             f"{lanes}")
+    model = GPTForCausalLM(cfg, device=dev, dtype=torch.bfloat16, seed=SEED)
+    opt = optimizer.AdamW(learning_rate=TRAIN["lr"],
+                          parameters=model.named_parameters(),
+                          weight_decay=TRAIN["weight_decay"])
+    step = jit.compile_train_step(
+        lambda ids, labels: model(ids, labels=labels), model, opt)
+    rs = np.random.RandomState(SEED + 7)
+    shape = (GPT3_TRAIN["batch"], GPT3_TRAIN["seq"])
+    ids, labels = (torch.from_numpy(rs.randint(0, cfg.vocab_size, shape)
+                                    ).to(dev) for _ in range(2))
+    first = step(ids, labels).item()
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, None)
+    t0 = time.perf_counter()
+    loss = step(ids, labels).item()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(tln, tfa)
+    want = {"K1": 3, "K2": 3, "K3": 1, "K4": 1, "K5": 1}
+    # random weights: logits of variance hidden x range^2 about a
+    # uniform guess, so the first loss is near ln V + that / 2 (11.85 at
+    # this width; GPT-124M's 10.98, its first loss)
+    lnv = math.log(cfg.vocab_size) + \
+        cfg.hidden_size * cfg.initializer_range ** 2 / 2
+    log(f"  GPT-3 13B width, 1 layer, bf16, [{shape[0]}, {shape[1]}]: "
+        f"losses {first:.4f}, {loss:.4f}; step {wall * 1e3:.2f} ms; "
+        f"launches {launches} (want {want}); LayerNorm lanes {lanes}")
+    if launches != want:
+        raise AssertionError(f"GPT-3 width: launches {launches} != {want}")
+    if not (math.isfinite(loss) and abs(first - lnv) <= 0.5):
+        raise AssertionError(f"GPT-3 width: loss {first} not near {lnv:.3f}")
+    state = {k: v.float() for k, v in model.state_dict().items()}
+    del model, opt, step
+    torch.cuda.empty_cache()
+    n = GPT3_TRAIN["held_batch"]
+    held = held_step(dev, cfg, state, ids[:n], labels[:n], tln, tfa)
+    return launches, {"losses": [first, loss], "step_ms": wall * 1e3,
+                      "lanes": lanes, "held": held}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -2742,6 +2938,8 @@ def main() -> int:
     timer = DeviceTimer()
     kernels = {"K1": check_layer_norm(dev, tln, timer),
                "K2": check_layer_norm_bwd(dev, tln, timer)}
+    kernels["K1"]["f11"], kernels["K2"]["f11"] = check_layer_norm_f11(
+        dev, tln, timer)
     kernels.update(zip(("K3", "K4", "K5"),
                        check_flash_attention(dev, tfa, timer)))
     # head dim 256: the shapes of phase 6's GPT step
@@ -2826,6 +3024,11 @@ def main() -> int:
     head_dims = {d: head_dim_phase(dev, tln, tfa, tpa, d)
                  for d in HEAD_DIM_GPTS}
     log(f"  head dims: {json.dumps(head_dims)}")
+    torch.cuda.empty_cache()
+
+    log("phase 7 a GPT-3 13B-width layer (1 layer, bf16, random weights):")
+    by_path["training_gpt3_width"], gpt3 = gpt3_width_phase(dev, tln, tfa)
+    log(f"  GPT-3 width: {json.dumps(gpt3)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

@@ -13,9 +13,10 @@ writes the new K/V and attends in the mode's way:
   [num_pages, page_size, H_kv, D], a per-row `pos` [B] (a scalar is
   broadcast), the serving engine's legacy alternating step. The write
   goes to the pool (`index_copy_`; K8 into e4m3 pools, K8-q8 into int8
-  pools with their f32 scale pools). A single token attends through
-  paged decode attention K9 (float and e4m3 pools) or, over int8 pools,
-  K7 at q_len 1; a multi-token chunk, and every call under
+  pools with their f32 scale pools, K and V in one launch). A single
+  token attends through paged decode attention K9 (float and e4m3
+  pools) or, over int8 pools, K7 at q_len 1; a multi-token chunk, and
+  every call under
   `attn_impl="gather"`, gathers the rows' pages into the dense view
   (`paged_kv_gather[_q8]`) and attends as the dense mode does.
 - ragged (`q_len` set), the unified step: per-row live query counts;
@@ -68,7 +69,8 @@ from ..ops.cuda.paged_attention import (FP8_DTYPE, NEG_INF,
                                         megakernel_decode,
                                         megakernel_decode_q8,
                                         paged_decode_attention,
-                                        paged_scatter_pair, paged_scatter_q8,
+                                        paged_scatter_pair,
+                                        paged_scatter_q8_pair,
                                         ragged_paged_attention,
                                         ragged_paged_attention_grouped,
                                         ragged_paged_attention_grouped_q8,
@@ -335,8 +337,8 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
     if paged:
         pos_rows = _row_pos(c.pos, b, q.device)
         if quant:
-            paged_scatter_q8(c.k, c.k_scale, k_new, pos_rows, c.page_table)
-            paged_scatter_q8(c.v, c.v_scale, v_new, pos_rows, c.page_table)
+            paged_scatter_q8_pair(c.k, c.v, c.k_scale, c.v_scale, k_new,
+                                  v_new, pos_rows, c.page_table)
         else:
             paged_scatter_pair(c.k, c.v, k_new, v_new, pos_rows,
                                c.page_table)

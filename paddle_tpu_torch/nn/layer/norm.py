@@ -15,8 +15,10 @@ class LayerNorm(nn.Module):
     """Affine LayerNorm over the last axis through `F.layer_norm`: K1
     forward and K2 backward for a CUDA tensor, their plain versions for
     a CPU one. Paddle spells the epsilon `epsilon`; weight starts at 1,
-    bias at 0. An input of another dtype than the weights normalises in
-    the promoted dtype and returns the input's (the JAX `_ln_fwd`)."""
+    bias at 0. An input of another dtype than the weights normalises
+    with the weights converted to f32 and returns the input's dtype, the
+    weights' gradients in theirs (the JAX layer, which hands both to
+    `_ln_fwd` as they are)."""
 
     def __init__(self, normalized_shape: int, epsilon: float = 1e-5,
                  device=None, dtype=None):
@@ -29,9 +31,5 @@ class LayerNorm(nn.Module):
                                              device=device, dtype=dtype))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w, b = self.weight, self.bias
-        if x.dtype != w.dtype:
-            ct = torch.promote_types(x.dtype, w.dtype)
-            return layer_norm(x.to(ct), self.normalized_shape, w.to(ct),
-                              b.to(ct), self.epsilon).to(x.dtype)
-        return layer_norm(x, self.normalized_shape, w, b, self.epsilon)
+        return layer_norm(x, self.normalized_shape, self.weight, self.bias,
+                          self.epsilon)

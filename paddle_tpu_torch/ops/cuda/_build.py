@@ -42,9 +42,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _FLASH = [_P, _I, _I, _P]
 KERNELS = {
     "layer_norm": {
-        "ptt_layer_norm_fwd": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _P],
-        "ptt_layer_norm_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
-        "ptt_layer_norm_bwd_plan": [_I] * 4 + [_P],
+        "ptt_layer_norm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _I, _P],
+        "ptt_layer_norm_fwd_plan": [_I] * 5 + [_P],
+        "ptt_layer_norm_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _I, _P],
+        "ptt_layer_norm_bwd_plan": [_I] * 5 + [_P],
     },
     "ragged_paged_attention": {
         "ptt_ragged_paged_attention": [_P] * 10 + [_I] * 11 + [_P],
@@ -64,6 +65,8 @@ KERNELS = {
         "ptt_paged_scatter_e4m3": [_P] * 6 + [_I] * 9 + [_P],
         "ptt_paged_scatter_q8": [_P] * 5 + [_I] * 7 + [_F, _F] + [_I] * 2
                                 + [_P],
+        "ptt_paged_scatter_q8_pair": [_P] * 8 + [_I] * 7 + [_F, _F]
+                                     + [_I] * 2 + [_P],
     },
     "lora_paged": {
         "ptt_lora_delta_paged": [_P] * 6 + [_I] * 8 + [_P],

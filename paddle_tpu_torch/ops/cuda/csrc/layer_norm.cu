@@ -1,5 +1,13 @@
 // K1 and K2: fused LayerNorm forward and backward for Hopper (sm_90a).
 //
+// Both take x (and dy) of type T and w, b of type W, each f32, bf16 or
+// f16 whatever the other is: w and b are read and converted to f32 in
+// the kernel, as the TPU kernels cast them in their bodies. y and dx
+// come out in T, dw and db in W. Rows are `cols` wide, a multiple of
+// the 16-byte vector of T, up to 65536 columns (the JAX package's
+// limit); the wrapper routes every other width to plain torch, as the
+// JAX package routes it to jnp.
+//
 // K1 (forward):
 // Replaces paddle_tpu/ops/pallas/layer_norm.py::_ln_fwd_kernel (launched
 // from _fwd_call): y = (x - mean) * rstd * w + b over the last axis,
@@ -9,13 +17,37 @@
 //
 // What bounds it: bytes. Each row is read once and written once
 // (2 * R * C * itemsize bytes, plus w and b), against a handful of
-// flops per element, far below the card's flops-per-byte balance.
-// Design: one warp per row. The row is read straight into registers as
-// 16-byte vector loads (lane i takes vectors i, i + 32, ...), so both
-// statistics come from registers through two warp-shuffle reductions
-// and the row crosses device memory exactly once each way. Four rows
-// (four warps) per block keep blocks small so a [512, 768] input
-// already spreads over 128 SMs.
+// flops per element, far below the card's flops-per-byte balance. At
+// the serving step's [512, 768] in bf16 that is 0.00047 ms, so the
+// call's fixed costs, its chain of dependent waits, are most of it.
+// Design (the register lane, up to 16 vectors a lane): one warp per
+// row. The row is read straight into registers as 16-byte vector loads
+// (lane i takes vectors i, i + 32, ...), so both statistics come from
+// registers through two warp-shuffle reductions and the row crosses
+// device memory exactly once each way. Where the grid is at most two
+// blocks an SM (the serving steps: [512, 768] is 128 blocks), the lane's
+// w and b vectors are loaded with the row's, before the first reduction,
+// so one trip to memory feeds the whole row; on a larger grid (the
+// training step's 4096 blocks) they load after the statistics, as
+// before: held through the row's loads they cost the occupancy the
+// stream needs (0.0218 against 0.0194 ms at [16384, 768] in turns on an
+// H100). Each vector count a lane (NV) up to 16 has its instantiation
+// where a common width lands (3 at 768 columns in bf16, 6 in f32), so no
+// dead iteration holds registers. Four rows (four warps) per block. On
+// an H100 a launch that does nothing takes 0.0019 ms back to back and
+// K1 at [16, 768] 0.0026, so at serving sizes the launch and one trip
+// to memory are the call. Blocks of one warp, a grid capped at one wave
+// with a warp looping over rows, the next row's loads issued before a
+// row folds, and x held as raw vectors (72 registers; 3 % slower at the
+// training shape) were each timed against these in turns and were no
+// faster (`ln_scatter_turns`). The per-lane sum order and the shuffle
+// tree are those of every earlier version, so y keeps its bits at every
+// width the kernel took.
+// The wide lane (rows past 16 vectors a lane, up to 65536 columns): a
+// block of 512 threads a row, thread t taking vectors t, t + 512, ...;
+// the row is staged in shared memory where it fits (65536 bf16 columns
+// are 128 KB) and re-read from L2 where it does not; each statistic is
+// every warp's shuffle tree, then the warps in order.
 //
 // K2 (backward):
 // Replaces paddle_tpu/ops/pallas/layer_norm.py::_ln_bwd_kernel (launched
@@ -55,24 +87,123 @@
 //     atomic, reset by that block for the next launch) sums the
 //     clusters' partials of the slice in cluster order and rounds once
 //     to w's dtype.
+// The wide lane (rows past 16 vectors a lane): persistent blocks of 512
+// threads, a block a row at a time (block k takes rows k, k + blocks,
+// ...), x and dy staged in shared memory where both fit; the four row
+// statistics are block sums in a fixed order (each warp's shuffle tree,
+// then the warps in order). Thread t owns the columns of vectors t,
+// t + 512, ... and adds each row's dy * xhat and dy into its block's f32
+// partials in device memory, row after row; the last block to finish
+// (one ticket) sums the blocks' partials column by column in block order
+// and rounds once to w's dtype, so dw and db are the same bits on every
+// run here too.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
+// ---- shared pieces ----------------------------------------------------------
 
-template <typename T, int NV>
+// the register word of N bytes (N = 8 or 16)
+template <int N>
+struct Word;
+template <>
+struct Word<16> {
+  using type = uint4;
+};
+template <>
+struct Word<8> {
+  using type = uint2;
+};
+
+// E values of w (or b) of type W in registers, as raw words: a lane's
+// share beside one 16-byte vector of E values of x. With W = T this is
+// one 16-byte vector; f32 weights beside bf16 x take two, bf16 weights
+// beside f32 x one of 8 bytes.
+template <typename W, int E>
+struct WVec {
+  static constexpr int kBytes = E * static_cast<int>(sizeof(W));
+  static constexpr int kWord = kBytes < 16 ? kBytes : 16;
+  using Type = typename Word<kWord>::type;
+  Type w[kBytes / kWord];
+
+  // from p, aligned to kWord bytes (the vector's place in w or b)
+  __device__ __forceinline__ void load(const W* p) {
+#pragma unroll
+    for (int i = 0; i < kBytes / kWord; ++i)
+      w[i] = __ldg(reinterpret_cast<const Type*>(p) + i);
+  }
+  __device__ __forceinline__ float at(int k) const {
+    return ptt::to_f32<W>(reinterpret_cast<const W*>(w)[k]);
+  }
+};
+
+// the wide lanes' block size
+constexpr int kWideThreads = 512;
+constexpr int kWideWarps = kWideThreads / 32;
+
+// the block's sums of a[0..N) (every thread gets them), in a fixed order:
+// each warp's shuffle tree, then the warps in order. red: [N][kWideWarps]
+// f32 in shared memory, free when called and free again on return.
+template <int N>
+__device__ __forceinline__ void block_sums(float (&a)[N], float* red) {
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int n = 0; n < N; ++n) a[n] = ptt::warp_sum(a[n]);
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) red[n * kWideWarps + warp] = a[n];
+  }
+  __syncthreads();
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float s = 0.f;
+    for (int k = 0; k < kWideWarps; ++k) s += red[n * kWideWarps + k];
+    a[n] = s;
+  }
+  __syncthreads();  // red is free for the next call
+}
+
+// the largest dynamic shared memory a block may opt into on `device`,
+// less the wide kernels' static shared memory
+inline int wide_smem_limit(int device) {
+  int optin = 0;
+  if (cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return 0;
+  return optin - 1024;
+}
+
+// ---- K1 ---------------------------------------------------------------------
+
+constexpr int kWarps = 4;  // the register lane's warps a block, at most
+
+// K1's register lane: NV 16-byte vectors of x a lane. kEarly: w and b
+// are loaded with x, before the statistics (the latency of a small
+// grid); else after them, holding fewer registers through the loads
+// (the throughput of a large one)
+template <typename T, typename W, int NV, bool kEarly>
 __global__ void __launch_bounds__(kWarps * 32)
-    ln_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                  const T* __restrict__ b, T* __restrict__ y, int rows,
+    ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                  const W* __restrict__ b, T* __restrict__ y, int rows,
                   int cols, float eps) {
   constexpr int E = 16 / sizeof(T);  // elements per 16-byte vector
   const int lane = threadIdx.x & 31;
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int nvec = cols / E;
+  WVec<W, E> wv[NV], bv[NV];
+  if constexpr (kEarly) {  // issued before x's: one trip to memory
+#pragma unroll
+    for (int i = 0; i < NV; ++i) {
+      const int c = lane + 32 * i;
+      if (c < nvec) {
+        wv[i].load(w + (size_t)c * E);
+        bv[i].load(b + (size_t)c * E);
+      }
+    }
+  }
   const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * cols);
   float v[NV][E];
   float sum = 0.f;
@@ -105,23 +236,23 @@ __global__ void __launch_bounds__(kWarps * 32)
     }
   }
   const float rstd = rsqrtf(ptt::warp_sum(sq) / cols + eps);
-  const uint4* wr = reinterpret_cast<const uint4*>(w);
-  const uint4* br = reinterpret_cast<const uint4*>(b);
   uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * cols);
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
     if (c < nvec) {
-      const uint4 wraw = __ldg(wr + c);
-      const uint4 braw = __ldg(br + c);
-      const T* we = reinterpret_cast<const T*>(&wraw);
-      const T* be = reinterpret_cast<const T*>(&braw);
+      WVec<W, E> wl, bl;  // after the statistics: fewer registers held
+      if constexpr (!kEarly) {
+        wl.load(w + (size_t)c * E);
+        bl.load(b + (size_t)c * E);
+      }
+      const WVec<W, E>& wi = kEarly ? wv[i] : wl;
+      const WVec<W, E>& bi = kEarly ? bv[i] : bl;
       uint4 out;
       T* oe = reinterpret_cast<T*>(&out);
 #pragma unroll
       for (int k = 0; k < E; ++k) {
-        const float yv = (v[i][k] - mean) * rstd * ptt::to_f32<T>(we[k]) +
-                         ptt::to_f32<T>(be[k]);
+        const float yv = (v[i][k] - mean) * rstd * wi.at(k) + bi.at(k);
         oe[k] = ptt::from_f32<T>(yv);
       }
       yr[c] = out;
@@ -129,30 +260,166 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* b, void* y, int rows,
-           int cols, float eps, cudaStream_t stream) {
+// K1's wide lane: a block a row; `stage`: the row is kept in dynamic
+// shared memory between its passes (else re-read, from L2)
+template <typename T, typename W>
+__global__ void __launch_bounds__(kWideThreads)
+    ln_fwd_wide_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                       const W* __restrict__ b, T* __restrict__ y, int rows,
+                       int cols, float eps, int stage) {
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint4* srow = reinterpret_cast<uint4*>(smem);
+  __shared__ float red[kWideWarps];
+  const int nvec = cols / E;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * cols);
+    // each thread re-reads only the vectors it staged: no barrier needed
+    auto vec = [&](int c) { return stage ? srow[c] : __ldg(xr + c); };
+    float s[1] = {0.f};
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 raw = __ldg(xr + c);
+      if (stage) srow[c] = raw;
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < E; ++k) s[0] += ptt::to_f32<T>(e[k]);
+    }
+    block_sums(s, red);
+    const float mean = s[0] / cols;
+    s[0] = 0.f;
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 raw = vec(c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float d = ptt::to_f32<T>(e[k]) - mean;
+        s[0] += d * d;
+      }
+    }
+    block_sums(s, red);
+    const float rstd = rsqrtf(s[0] / cols + eps);
+    uint4* yr = reinterpret_cast<uint4*>(y + (size_t)row * cols);
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 raw = vec(c);
+      WVec<W, E> wv, bv;
+      wv.load(w + (size_t)c * E);
+      bv.load(b + (size_t)c * E);
+      const T* e = reinterpret_cast<const T*>(&raw);
+      uint4 out;
+      T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float yv =
+            (ptt::to_f32<T>(e[k]) - mean) * rstd * wv.at(k) + bv.at(k);
+        oe[k] = ptt::from_f32<T>(yv);
+      }
+      yr[c] = out;
+    }
+  }
+}
+
+// K1's launch for [rows, cols] of T with weights of W on `device`: the
+// kernel and its grid
+struct FwdLaunch {
+  const void* fn;
+  int grid, threads, per_lane, wide, early, smem;
+  cudaError_t err;
+};
+
+// blocks of `threads` (with `smem` dynamic bytes) of fn an SM holds
+inline cudaError_t resident_blocks(const void* fn, int threads, int smem,
+                                   int device, int* out) {
+  int sms = 0, per_sm = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  *out = sms * (per_sm > 0 ? per_sm : 1);
+  return cudaSuccess;
+}
+
+// w and b load early where the grid is at most this many blocks an SM
+constexpr int kEarlyBlocksPerSm = 2;
+
+template <typename T, typename W, int NV>
+FwdLaunch fwd_launch_nv(int rows, int device) {
+  int sms = 0;
+  const cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  const int blocks = (rows + kWarps - 1) / kWarps;
+  const bool early = blocks <= kEarlyBlocksPerSm * sms;
+  const void* fn =
+      early ? reinterpret_cast<const void*>(ln_fwd_kernel<T, W, NV, true>)
+            : reinterpret_cast<const void*>(ln_fwd_kernel<T, W, NV, false>);
+  return FwdLaunch{fn, blocks > 0 ? blocks : 1, kWarps * 32, NV, 0,
+                   early ? 1 : 0, 0, err};
+}
+
+template <typename T, typename W>
+FwdLaunch fwd_launch_wide(int rows, int cols, int device) {
+  const void* fn = reinterpret_cast<const void*>(ln_fwd_wide_kernel<T, W>);
+  const int limit = wide_smem_limit(device);
+  // the most any row takes: raise the limit once
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (attr != cudaSuccess) return FwdLaunch{fn, 0, 0, 0, 1, 0, 0, attr};
+  const int bytes = cols * static_cast<int>(sizeof(T));
+  const int smem = bytes <= limit ? bytes : 0;
+  int resident = 0;
+  const cudaError_t err =
+      resident_blocks(fn, kWideThreads, smem, device, &resident);
+  const int grid = rows < resident ? rows : resident;
+  return FwdLaunch{fn, grid > 0 ? grid : 1, kWideThreads, 0, 1, 0, smem,
+                   err};
+}
+
+template <typename T, typename W>
+FwdLaunch fwd_launch(int rows, int cols, int device) {
   constexpr int E = 16 / sizeof(T);
   const int per_lane = (cols / E + 31) / 32;
-  const dim3 grid((rows + kWarps - 1) / kWarps), block(kWarps * 32);
-  const T* xp = static_cast<const T*>(x);
-  const T* wp = static_cast<const T*>(w);
-  const T* bp = static_cast<const T*>(b);
-  T* yp = static_cast<T*>(y);
-  if (per_lane <= 1)
-    ln_fwd_kernel<T, 1><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, cols, eps);
-  else if (per_lane <= 2)
-    ln_fwd_kernel<T, 2><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, cols, eps);
-  else if (per_lane <= 4)
-    ln_fwd_kernel<T, 4><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, cols, eps);
-  else if (per_lane <= 8)
-    ln_fwd_kernel<T, 8><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, cols, eps);
-  else if (per_lane <= 16)
-    ln_fwd_kernel<T, 16><<<grid, block, 0, stream>>>(xp, wp, bp, yp, rows, cols, eps);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  if (per_lane <= 1) return fwd_launch_nv<T, W, 1>(rows, device);
+  if (per_lane <= 2) return fwd_launch_nv<T, W, 2>(rows, device);
+  if (per_lane <= 3) return fwd_launch_nv<T, W, 3>(rows, device);
+  if (per_lane <= 4) return fwd_launch_nv<T, W, 4>(rows, device);
+  if (per_lane <= 6) return fwd_launch_nv<T, W, 6>(rows, device);
+  if (per_lane <= 8) return fwd_launch_nv<T, W, 8>(rows, device);
+  if (per_lane <= 12) return fwd_launch_nv<T, W, 12>(rows, device);
+  if (per_lane <= 16) return fwd_launch_nv<T, W, 16>(rows, device);
+  return fwd_launch_wide<T, W>(rows, cols, device);
 }
+
+// the launch of x's dtype T against each weight dtype
+template <typename T>
+FwdLaunch fwd_launch_w(int wdtype, int rows, int cols, int device) {
+  switch (wdtype) {
+    case ptt::kF32:
+      return fwd_launch<T, float>(rows, cols, device);
+    case ptt::kBF16:
+      return fwd_launch<T, __nv_bfloat16>(rows, cols, device);
+    case ptt::kF16:
+      return fwd_launch<T, __half>(rows, cols, device);
+    default:
+      return FwdLaunch{nullptr, 0, 0, 0, 0, 0, 0, cudaErrorInvalidValue};
+  }
+}
+
+FwdLaunch fwd_launch_of(int dtype, int wdtype, int rows, int cols,
+                        int device) {
+  switch (dtype) {
+    case ptt::kF32:
+      return fwd_launch_w<float>(wdtype, rows, cols, device);
+    case ptt::kBF16:
+      return fwd_launch_w<__nv_bfloat16>(wdtype, rows, cols, device);
+    case ptt::kF16:
+      return fwd_launch_w<__half>(wdtype, rows, cols, device);
+    default:
+      return FwdLaunch{nullptr, 0, 0, 0, 0, 0, 0, cudaErrorInvalidValue};
+  }
+}
+
+// ---- K2 ---------------------------------------------------------------------
 
 constexpr int kBwdWarps = 8;
 // blocks of a cluster: the first cross-block stage of the column sums
@@ -198,12 +465,12 @@ __host__ __device__ inline size_t bwd_smem(int cols, int nv, bool ring) {
 // only what it copied, so no barrier stands between a copy and its use
 // (up to six vectors: a 768-wide row in f32; wider rows load straight
 // into registers). kMinBlocks: blocks an SM the registers must allow.
-template <typename T, int NV, bool kRing, int kMinBlocks>
+template <typename T, typename W, int NV, bool kRing, int kMinBlocks>
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kBwdWarps * 32, kMinBlocks)
     ln_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ x,
-                  const T* __restrict__ w, T* __restrict__ dx,
-                  T* __restrict__ dw, T* __restrict__ db,
+                  const W* __restrict__ w, T* __restrict__ dx,
+                  W* __restrict__ dw, W* __restrict__ db,
                   float* __restrict__ part, int* __restrict__ tickets,
                   int rows, int cols, float eps) {
   namespace cg = cooperative_groups;
@@ -216,11 +483,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nvec = cols / E;
-  uint4 wv[NV];  // this lane's w vectors
+  WVec<W, E> wv[NV];  // this lane's w beside its x vectors
 #pragma unroll
   for (int i = 0; i < NV; ++i) {
     const int c = lane + 32 * i;
-    if (c < nvec) wv[i] = __ldg(reinterpret_cast<const uint4*>(w) + c);
+    if (c < nvec) wv[i].load(w + (size_t)c * E);
   }
   float dwacc[NV][E], dbacc[NV][E];
 #pragma unroll
@@ -310,14 +577,13 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       if (lane + 32 * i < nvec) {
-        const T* we = reinterpret_cast<const T*>(&wv[i]);
         const T* xe = reinterpret_cast<const T*>(&xv[i]);
         const T* de = reinterpret_cast<const T*>(&dyv[i]);
 #pragma unroll
         for (int k = 0; k < E; ++k) {
           const float g = ptt::to_f32<T>(de[k]);
           const float xhat = (ptt::to_f32<T>(xe[k]) - mean) * rstd;
-          const float a = g * ptt::to_f32<T>(we[k]);
+          const float a = g * wv[i].at(k);
           s1 += a;
           s2 += a * xhat;
           dwacc[i][k] += g * xhat;
@@ -332,7 +598,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
     for (int i = 0; i < NV; ++i) {
       const int c = lane + 32 * i;
       if (c < nvec) {
-        const T* we = reinterpret_cast<const T*>(&wv[i]);
         const T* xe = reinterpret_cast<const T*>(&xv[i]);
         const T* de = reinterpret_cast<const T*>(&dyv[i]);
         uint4 out;
@@ -340,7 +605,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
 #pragma unroll
         for (int k = 0; k < E; ++k) {
           const float xhat = (ptt::to_f32<T>(xe[k]) - mean) * rstd;
-          const float a = ptt::to_f32<T>(de[k]) * ptt::to_f32<T>(we[k]);
+          const float a = ptt::to_f32<T>(de[k]) * wv[i].at(k);
           oe[k] = ptt::from_f32<T>(rstd * (a - m1 - xhat * m2));
         }
         dxr[c] = out;
@@ -424,143 +689,374 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
         if (k0 + u < nc) s += v[u];
     }
     const int c = lo + j;
-    (c < cols ? dw[c] : db[c - cols]) = ptt::from_f32<T>(s);
+    (c < cols ? dw[c] : db[c - cols]) = ptt::from_f32<W>(s);
   }
   if (threadIdx.x == 0) tickets[r] = 0;  // ready for the next launch
 }
 
-// the kernel for rows of cols elements of T, and what its launch needs
+// K2's wide lane: a block a row (see the top). part: [gridDim.x][2 *
+// cols] f32, this block's dw then db partials; tickets[0]: zero between
+// launches, left zero
+template <typename T, typename W>
+__global__ void __launch_bounds__(kWideThreads)
+    ln_bwd_wide_kernel(const T* __restrict__ dy, const T* __restrict__ x,
+                       const W* __restrict__ w, T* __restrict__ dx,
+                       W* __restrict__ dw, W* __restrict__ db,
+                       float* __restrict__ part, int* __restrict__ tickets,
+                       int rows, int cols, float eps, int stage) {
+  constexpr int E = 16 / sizeof(T);
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2 * kWideWarps];
+  __shared__ bool last;
+  const int nvec = cols / E;
+  uint4* sx = reinterpret_cast<uint4*>(smem);
+  uint4* sdy = sx + nvec;
+  float* mine = part + (size_t)blockIdx.x * 2 * cols;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x) {
+    const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * cols);
+    const uint4* dyr =
+        reinterpret_cast<const uint4*>(dy + (size_t)row * cols);
+    // each thread re-reads only the vectors it staged: no barrier needed
+    auto xvec = [&](int c) { return stage ? sx[c] : __ldg(xr + c); };
+    auto dyvec = [&](int c) { return stage ? sdy[c] : __ldg(dyr + c); };
+    float s[2] = {0.f, 0.f};
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 raw = __ldg(xr + c);
+      if (stage) {
+        sx[c] = raw;
+        sdy[c] = __ldg(dyr + c);
+      }
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < E; ++k) s[0] += ptt::to_f32<T>(e[k]);
+    }
+    float m[1] = {s[0]};
+    block_sums(m, red);
+    const float mean = m[0] / cols;
+    m[0] = 0.f;
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 raw = xvec(c);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float d = ptt::to_f32<T>(e[k]) - mean;
+        m[0] += d * d;
+      }
+    }
+    block_sums(m, red);
+    const float rstd = rsqrtf(m[0] / cols + eps);
+    const bool first = row == static_cast<int>(blockIdx.x);
+    s[0] = s[1] = 0.f;
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 xraw = xvec(c), draw = dyvec(c);
+      WVec<W, E> wv;
+      wv.load(w + (size_t)c * E);
+      const T* xe = reinterpret_cast<const T*>(&xraw);
+      const T* de = reinterpret_cast<const T*>(&draw);
+      float pw[E], pb[E];
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float g = ptt::to_f32<T>(de[k]);
+        const float xhat = (ptt::to_f32<T>(xe[k]) - mean) * rstd;
+        const float a = g * wv.at(k);
+        s[0] += a;
+        s[1] += a * xhat;
+        pw[k] = g * xhat;
+        pb[k] = g;
+      }
+      // this block's partials of the vector's columns: its rows in order
+      float4* rw = reinterpret_cast<float4*>(mine + (size_t)c * E);
+      float4* rb = reinterpret_cast<float4*>(mine + cols + (size_t)c * E);
+#pragma unroll
+      for (int f = 0; f < E / 4; ++f) {
+        float4 sw = make_float4(0.f, 0.f, 0.f, 0.f), sb = sw;
+        if (!first) {
+          sw = rw[f];
+          sb = rb[f];
+        }
+        sw.x += pw[4 * f];
+        sw.y += pw[4 * f + 1];
+        sw.z += pw[4 * f + 2];
+        sw.w += pw[4 * f + 3];
+        sb.x += pb[4 * f];
+        sb.y += pb[4 * f + 1];
+        sb.z += pb[4 * f + 2];
+        sb.w += pb[4 * f + 3];
+        rw[f] = sw;
+        rb[f] = sb;
+      }
+    }
+    block_sums(s, red);
+    const float m1 = s[0] / cols;
+    const float m2 = s[1] / cols;
+    uint4* dxr = reinterpret_cast<uint4*>(dx + (size_t)row * cols);
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 xraw = xvec(c), draw = dyvec(c);
+      WVec<W, E> wv;
+      wv.load(w + (size_t)c * E);
+      const T* xe = reinterpret_cast<const T*>(&xraw);
+      const T* de = reinterpret_cast<const T*>(&draw);
+      uint4 out;
+      T* oe = reinterpret_cast<T*>(&out);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float xhat = (ptt::to_f32<T>(xe[k]) - mean) * rstd;
+        const float a = ptt::to_f32<T>(de[k]) * wv.at(k);
+        oe[k] = ptt::from_f32<T>(rstd * (a - m1 - xhat * m2));
+      }
+      dxr[c] = out;
+    }
+  }
+  if (static_cast<int>(blockIdx.x) >= rows) {  // a block without rows
+    for (int j = threadIdx.x; j < 2 * cols; j += kWideThreads) mine[j] = 0.f;
+  }
+  // the last block to finish sums the blocks' partials in block order
+  __threadfence();
+  __syncthreads();
+  const int nb = gridDim.x;
+  if (threadIdx.x == 0) last = atomicAdd(tickets, 1) == nb - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int j = threadIdx.x; j < 2 * cols; j += kWideThreads) {
+    const float* p = part + j;
+    float s = 0.f;
+    // 32 blocks' partials loaded together, then added in block order
+    for (int k0 = 0; k0 < nb; k0 += 32) {
+      float v[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        v[u] = k0 + u < nb ? __ldcg(p + (size_t)(k0 + u) * 2 * cols) : 0.f;
+#pragma unroll
+      for (int u = 0; u < 32; ++u)
+        if (k0 + u < nb) s += v[u];
+    }
+    (j < cols ? dw[j] : db[j - cols]) = ptt::from_f32<W>(s);
+  }
+  if (threadIdx.x == 0) tickets[0] = 0;  // ready for the next launch
+}
+
+// the kernel for rows of cols elements of T with weights of W, and what
+// its launch needs
 struct BwdKernel {
   const void* fn;
-  int per_lane, ring;
+  int per_lane, ring, wide;
   cudaError_t attr;  // of raising its dynamic shared memory limit
 };
 
-template <typename T, int NV>
+template <typename T, typename W, int NV>
 BwdKernel bwd_kernel_nv() {
   constexpr int E = 16 / sizeof(T);
   constexpr bool kRing = NV <= 6;
-  // 32-bit registers the row walk holds: w, dy and x and the f32 sums;
+  // 32-bit registers the row walk holds: dy and x, w and the f32 sums;
   // two blocks an SM where that leaves room
-  constexpr int regs = NV * 4 * 3 + 2 * NV * E;
+  constexpr int regs =
+      NV * (4 * 2 + static_cast<int>(sizeof(WVec<W, E>)) / 4) + 2 * NV * E;
   constexpr int kMin = regs <= 112 ? 2 : 1;
   const void* fn =
-      reinterpret_cast<const void*>(ln_bwd_kernel<T, NV, kRing, kMin>);
+      reinterpret_cast<const void*>(ln_bwd_kernel<T, W, NV, kRing, kMin>);
   // the most this instantiation takes: its widest row (32 NV vectors)
   static const cudaError_t attr = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bwd_smem(32 * NV * E, NV, kRing)));
-  return BwdKernel{fn, NV, kRing, attr};
+  return BwdKernel{fn, NV, kRing, 0, attr};
 }
 
-template <typename T>
-BwdKernel bwd_kernel(int cols) {
+template <typename T, typename W>
+BwdKernel bwd_kernel_wide(int device) {
+  const void* fn = reinterpret_cast<const void*>(ln_bwd_wide_kernel<T, W>);
+  static const cudaError_t attr =
+      cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           wide_smem_limit(device));
+  return BwdKernel{fn, 0, 0, 1, attr};
+}
+
+template <typename T, typename W>
+BwdKernel bwd_kernel(int cols, int device) {
   constexpr int E = 16 / sizeof(T);
   const int per_lane = (cols / E + 31) / 32;
   // 3 and 6: a 768-wide row in bf16 and f32 (GPT-124M) without
   // registers for vectors it never loads
-  if (per_lane <= 1) return bwd_kernel_nv<T, 1>();
-  if (per_lane <= 2) return bwd_kernel_nv<T, 2>();
-  if (per_lane <= 3) return bwd_kernel_nv<T, 3>();
-  if (per_lane <= 4) return bwd_kernel_nv<T, 4>();
-  if (per_lane <= 6) return bwd_kernel_nv<T, 6>();
-  if (per_lane <= 8) return bwd_kernel_nv<T, 8>();
-  if (per_lane <= 16) return bwd_kernel_nv<T, 16>();
-  return BwdKernel{nullptr, 0, 0, cudaSuccess};
+  if (per_lane <= 1) return bwd_kernel_nv<T, W, 1>();
+  if (per_lane <= 2) return bwd_kernel_nv<T, W, 2>();
+  if (per_lane <= 3) return bwd_kernel_nv<T, W, 3>();
+  if (per_lane <= 4) return bwd_kernel_nv<T, W, 4>();
+  if (per_lane <= 6) return bwd_kernel_nv<T, W, 6>();
+  if (per_lane <= 8) return bwd_kernel_nv<T, W, 8>();
+  if (per_lane <= 16) return bwd_kernel_nv<T, W, 16>();
+  return bwd_kernel_wide<T, W>(device);
 }
 
-BwdKernel bwd_kernel_of(int dtype, int cols) {
-  switch (dtype) {
+template <typename T>
+BwdKernel bwd_kernel_w(int wdtype, int cols, int device) {
+  switch (wdtype) {
     case ptt::kF32:
-      return bwd_kernel<float>(cols);
+      return bwd_kernel<T, float>(cols, device);
     case ptt::kBF16:
-      return bwd_kernel<__nv_bfloat16>(cols);
+      return bwd_kernel<T, __nv_bfloat16>(cols, device);
     case ptt::kF16:
-      return bwd_kernel<__half>(cols);
+      return bwd_kernel<T, __half>(cols, device);
     default:
-      return BwdKernel{nullptr, 0, 0, cudaSuccess};
+      return BwdKernel{nullptr, 0, 0, 0, cudaSuccess};
   }
 }
+
+BwdKernel bwd_kernel_of(int dtype, int wdtype, int cols, int device) {
+  switch (dtype) {
+    case ptt::kF32:
+      return bwd_kernel_w<float>(wdtype, cols, device);
+    case ptt::kBF16:
+      return bwd_kernel_w<__nv_bfloat16>(wdtype, cols, device);
+    case ptt::kF16:
+      return bwd_kernel_w<__half>(wdtype, cols, device);
+    default:
+      return BwdKernel{nullptr, 0, 0, 0, cudaSuccess};
+  }
+}
+
+// the wide lane's dynamic shared memory: x and dy of a row where both fit
+int bwd_wide_smem(int cols, int itemsize, int device) {
+  const long long bytes = 2LL * cols * itemsize;
+  return bytes <= wide_smem_limit(device) ? static_cast<int>(bytes) : 0;
+}
+
+// the wide lane's f32 partials stay under this many bytes (a cap on its
+// blocks at the widest rows)
+constexpr long long kWidePartialBytes = 32LL << 20;
+
+int itemsize_of(int dtype) { return dtype == ptt::kF32 ? 4 : 2; }
 
 }  // namespace
 
-// x, y: [rows, cols] contiguous; w, b: [cols]; all of one dtype.
-// cols must be a multiple of the 16-byte vector width (the wrapper
-// checks this and the maximum width).
-extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
-                                  void* y, int rows, int cols, float eps,
-                                  int dtype, int device, void* stream) {
+// K1's launch for [rows, cols] of `dtype` with weights of `wdtype` on
+// `device`, written to out[6]: the grid's blocks, threads a block, 16-byte
+// vectors a lane (the register lane's instantiation; 0 in the wide lane),
+// 1 for the wide lane, 1 where w and b load with x (the register lane at
+// up to kEarlyBlocksPerSm blocks an SM), and the wide lane's dynamic
+// shared memory (the staged row, 0 where the row is re-read). Returns
+// cudaErrorInvalidValue for a dtype the kernel does not take.
+extern "C" int ptt_layer_norm_fwd_plan(int rows, int cols, int dtype,
+                                       int wdtype, int device, int* out) {
+  if (cols < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ptt::kF32:
-      return launch<float>(x, w, b, y, rows, cols, eps, s);
-    case ptt::kBF16:
-      return launch<__nv_bfloat16>(x, w, b, y, rows, cols, eps, s);
-    case ptt::kF16:
-      return launch<__half>(x, w, b, y, rows, cols, eps, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-// K2's launch for [rows, cols] rows of `dtype` on `device`, written to
-// out[6]: the grid's blocks (whole clusters), blocks a cluster, the
-// clusters the card holds at once (the occupancy calculator's), 16-byte
-// vectors a lane, 1 if rows come through the cp.async ring, and the f32
-// partials the launch needs (2 * cols a cluster). Returns
-// cudaErrorInvalidValue for a dtype or width the kernel does not take.
-extern "C" int ptt_layer_norm_bwd_plan(int rows, int cols, int dtype,
-                                       int device, int* out) {
-  const BwdKernel k = bwd_kernel_of(dtype, cols);
-  if (k.fn == nullptr || cols < 1 || rows < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (k.attr != cudaSuccess) return static_cast<int>(k.attr);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster);
-  cfg.blockDim = dim3(kBwdWarps * 32);
-  cfg.dynamicSmemBytes = bwd_smem(cols, k.per_lane, k.ring);
-  int resident = 0;
-  err = cudaOccupancyMaxActiveClusters(&resident, k.fn, &cfg);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // persistent blocks: the clusters the card holds at once, no more than
-  // the rows need
-  const long long need =
-      ((long long)rows + kBwdWarps * kCluster - 1) / (kBwdWarps * kCluster);
-  long long clusters = resident > 0 ? resident : 1;
-  if (need < clusters) clusters = need > 0 ? need : 1;
-  const int nc = static_cast<int>(clusters);
-  const int vals[6] = {nc * kCluster, kCluster, resident, k.per_lane,
-                       k.ring, nc * 2 * cols};
+  const FwdLaunch l = fwd_launch_of(dtype, wdtype, rows, cols, device);
+  if (l.fn == nullptr || l.err != cudaSuccess)
+    return static_cast<int>(l.fn == nullptr ? cudaErrorInvalidValue : l.err);
+  const int vals[6] = {l.grid, l.threads, l.per_lane, l.wide, l.early,
+                       l.smem};
   for (int i = 0; i < 6; ++i) out[i] = vals[i];
   return 0;
 }
 
-// dy, x, dx: [rows, cols] contiguous; w, dw, db: [cols]; all of one
-// dtype; cols as for the forward. grid: the plan's blocks (a multiple of
-// kCluster); part: f32 scratch of grid / kCluster * 2 * cols; tickets:
-// kCluster int32 counters, zero before the first launch and left zero by
-// every launch (K2 launches on one stream at a time share them).
+// x, y: [rows, cols] contiguous of `dtype`; w, b: [cols] of `wdtype`.
+// cols must be a multiple of the 16-byte vector of `dtype` and at most
+// 65536 (the wrapper checks both); every pointer 16-byte aligned.
+extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
+                                  void* y, int rows, int cols, float eps,
+                                  int dtype, int wdtype, int device,
+                                  void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows == 0) return 0;
+  const FwdLaunch l = fwd_launch_of(dtype, wdtype, rows, cols, device);
+  if (l.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (l.err != cudaSuccess) return static_cast<int>(l.err);
+  int stage = l.smem > 0;
+  void* args[] = {&x, &w, &b, &y, &rows, &cols, &eps, &stage};
+  err = cudaLaunchKernel(l.fn, dim3(l.grid), dim3(l.threads), args, l.smem,
+                         static_cast<cudaStream_t>(stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2's launch for [rows, cols] rows of `dtype` with weights of `wdtype`
+// on `device`, written to out[7]: the grid's blocks (whole clusters in
+// the register lane), blocks a cluster (1 in the wide lane), the
+// clusters (wide lane: blocks) the card holds at once (the occupancy
+// calculator's), 16-byte vectors a lane (0 in the wide lane), 1 if rows
+// come through the cp.async ring, the f32 partials the launch needs, and
+// 1 for the wide lane. Returns cudaErrorInvalidValue for a dtype or
+// width the kernel does not take.
+extern "C" int ptt_layer_norm_bwd_plan(int rows, int cols, int dtype,
+                                       int wdtype, int device, int* out) {
+  if (cols < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const BwdKernel k = bwd_kernel_of(dtype, wdtype, cols, device);
+  if (k.fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  if (k.attr != cudaSuccess) return static_cast<int>(k.attr);
+  int vals[7];
+  if (k.wide) {
+    int resident = 0;
+    err = resident_blocks(k.fn, kWideThreads,
+                          bwd_wide_smem(cols, itemsize_of(dtype), device),
+                          device, &resident);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    long long blocks = rows < resident ? rows : resident;
+    const long long cap = kWidePartialBytes / (8LL * cols);
+    if (blocks > cap) blocks = cap;
+    if (blocks < 1) blocks = 1;
+    const int nb = static_cast<int>(blocks);
+    const int v[7] = {nb, 1, resident, 0, 0, nb * 2 * cols, 1};
+    for (int i = 0; i < 7; ++i) vals[i] = v[i];
+  } else {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kCluster);
+    cfg.blockDim = dim3(kBwdWarps * 32);
+    cfg.dynamicSmemBytes = bwd_smem(cols, k.per_lane, k.ring);
+    int resident = 0;
+    err = cudaOccupancyMaxActiveClusters(&resident, k.fn, &cfg);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    // persistent blocks: the clusters the card holds at once, no more
+    // than the rows need
+    const long long need =
+        ((long long)rows + kBwdWarps * kCluster - 1) / (kBwdWarps * kCluster);
+    long long clusters = resident > 0 ? resident : 1;
+    if (need < clusters) clusters = need > 0 ? need : 1;
+    const int nc = static_cast<int>(clusters);
+    const int r[7] = {nc * kCluster, kCluster, resident, k.per_lane,
+                      k.ring, nc * 2 * cols, 0};
+    for (int i = 0; i < 7; ++i) vals[i] = r[i];
+  }
+  for (int i = 0; i < 7; ++i) out[i] = vals[i];
+  return 0;
+}
+
+// dy, x, dx: [rows, cols] contiguous of `dtype`; w, dw, db: [cols] of
+// `wdtype`; cols as for the forward. grid: the plan's blocks (a multiple
+// of kCluster in the register lane); part: f32 scratch of the plan's
+// partials; tickets: kCluster int32 counters, zero before the first launch
+// and left zero by every launch (K2 launches on one stream at a time
+// share them).
 extern "C" int ptt_layer_norm_bwd(const void* dy, const void* x,
                                   const void* w, void* dx, void* dw,
                                   void* db, void* part, void* tickets,
                                   int rows, int cols, int grid, float eps,
-                                  int dtype, int device, void* stream) {
+                                  int dtype, int wdtype, int device,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const BwdKernel k = bwd_kernel_of(dtype, cols);
-  if (k.fn == nullptr || grid < kCluster || grid % kCluster || rows < 0)
+  const BwdKernel k = bwd_kernel_of(dtype, wdtype, cols, device);
+  if (k.fn == nullptr || rows < 0 || grid < 1 ||
+      (!k.wide && (grid < kCluster || grid % kCluster)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (k.attr != cudaSuccess) return static_cast<int>(k.attr);
-  const size_t smem = bwd_smem(cols, k.per_lane, k.ring);
-  void* args[] = {&dy, &x, &w, &dx, &dw, &db, &part, &tickets, &rows,
-                  &cols, &eps};
-  err = cudaLaunchKernel(k.fn, dim3(grid), dim3(kBwdWarps * 32), args, smem,
-                         static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k.wide) {
+    const int smem = bwd_wide_smem(cols, itemsize_of(dtype), device);
+    int stage = smem > 0;
+    void* args[] = {&dy, &x, &w, &dx, &dw, &db, &part, &tickets, &rows,
+                    &cols, &eps, &stage};
+    err = cudaLaunchKernel(k.fn, dim3(grid), dim3(kWideThreads), args, smem,
+                           s);
+  } else {
+    const size_t smem = bwd_smem(cols, k.per_lane, k.ring);
+    void* args[] = {&dy, &x, &w, &dx, &dw, &db, &part, &tickets, &rows,
+                    &cols, &eps};
+    err = cudaLaunchKernel(k.fn, dim3(grid), dim3(kBwdWarps * 32), args, smem,
+                           s);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

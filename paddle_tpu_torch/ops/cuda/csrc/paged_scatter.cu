@@ -19,8 +19,8 @@
 //     converted to float8 e4m3 with round-to-nearest-even (saturating),
 //     as the JAX write does before XLA's convert (which gives NaN past the
 //     range).
-//   K8-q8 (ptt_paged_scatter_q8): each (token, kv head) row of D values is
-//     quantized as `quantize_kv_rowwise` does it: amax = max |u|,
+//   K8-q8 (ptt_paged_scatter_q8[_pair]): each (token, kv head) row of D
+//     values is quantized as `quantize_kv_rowwise` does it: amax = max |u|,
 //     scale = max(amax, eps) * recip (eps = f32(1e-8), recip = f32(1/127),
 //     both passed in as the plain version's bit patterns), codes =
 //     clamp(rint(u / scale), -127, 127) with IEEE division and
@@ -52,9 +52,29 @@
 // then a block walks further runs). The float lane into a pool of upd's
 // own dtype moves the bits as they are.
 //
-// K8-q8: one warp per (token, kv head) row; lane i takes elements i,
-// i + 32, ... (so a warp's loads and stores are contiguous), the row's
-// amax is a warp reduction, and lane 0 writes the scale.
+// Design of K8-q8 (K8's, carried over to a row's amax): a (token, kv
+// head) row of D values goes to a group of lanes, one 16-byte vector of
+// upd a lane (8 lanes at D 64 in bf16, 16 at D 64 in f32; up to four
+// vectors a lane past 32 lanes, and wider rows read twice from L1/L2),
+// so the row is read once into registers. The row's amax is a shuffle
+// within the group (a max is exact in any order, so the scale keeps its
+// bits), each lane packs its codes into one store (8 bytes from 8 bf16
+// values) and the group's first lane writes the scale. A row that is not
+// a multiple of 16 bytes, or a pointer off their boundary, takes the
+// widest vector that divides both, down to one element. As in K8, each
+// thread issues its loads first, the block's first threads load its
+// tokens' positions, every lane computes its codes while those are in
+// flight, and then the first threads look up the tokens' pages once
+// each into shared memory; the stores follow one barrier.
+// `ptt_paged_scatter_q8_pair` writes K and V in one launch (one lookup a
+// token serves both: the unified and legacy steps' and the megakernel's
+// int8 write), or one of them (`ptt_paged_scatter_q8`). The codes stay
+// clamp(rint(u / scale), -127, 127) with IEEE division (`__fdiv_rn`) and
+// round-half-to-even, and the scale fmaxf(amax, eps) * recip, so every
+// code and scale is the plain version's bits. On an H100 a launch that
+// does nothing takes 0.0019 ms back to back, K8 0.0034 and K8-q8 0.0042
+// at the serving step's write: the launch, the slot lookup's two
+// dependent loads and the row's division chain are the call.
 //
 // Several tokens may write the same trash slot; which one stays is
 // unspecified, and a trash slot's codes and scale may come from
@@ -71,12 +91,10 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// The pool slot of row b's token t (see above).
-__device__ __forceinline__ size_t flat_slot(const int* __restrict__ table,
-                                            const int* __restrict__ pos,
-                                            int b, int t, int ps, int mp,
-                                            int num_pages) {
-  const long long p = (long long)pos[b] + t;
+// The pool slot of row b's logical position p (see above).
+__device__ __forceinline__ size_t slot_at(const int* __restrict__ table,
+                                          long long p, int b, int ps, int mp,
+                                          int num_pages) {
   const int off = (int)(((p % ps) + ps) % ps);
   if (p < 0 || p >= (long long)mp * ps) return (size_t)off;
   const int page = table[(size_t)b * mp + p / ps];
@@ -84,37 +102,17 @@ __device__ __forceinline__ size_t flat_slot(const int* __restrict__ table,
   return (size_t)page * ps + off;
 }
 
+// The pool slot of row b's token t.
+__device__ __forceinline__ size_t flat_slot(const int* __restrict__ table,
+                                            const int* __restrict__ pos,
+                                            int b, int t, int ps, int mp,
+                                            int num_pages) {
+  return slot_at(table, (long long)pos[b] + t, b, ps, mp, num_pages);
+}
+
 struct Geometry {
   int B, l, Hkv, D, ps, mp, num_pages;
 };
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    scatter_q8_kernel(const T* __restrict__ upd, int8_t* __restrict__ codes,
-                      float* __restrict__ scales,
-                      const int* __restrict__ table,
-                      const int* __restrict__ pos, const Geometry geo,
-                      float eps, float recip) {
-  const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);  // (b, t, g)
-  const int lane = threadIdx.x & 31;
-  if (row >= geo.B * geo.l * geo.Hkv) return;  // uniform across the warp
-  const int g = row % geo.Hkv;
-  const int bt = row / geo.Hkv;
-  const size_t slot = flat_slot(table, pos, bt / geo.l, bt % geo.l, geo.ps,
-                                geo.mp, geo.num_pages);
-  const T* src = upd + (size_t)row * geo.D;
-  float amax = 0.f;
-  for (int d = lane; d < geo.D; d += 32)
-    amax = fmaxf(amax, fabsf(ptt::to_f32<T>(src[d])));
-  amax = ptt::warp_max(amax);
-  const float scale = fmaxf(amax, eps) * recip;
-  int8_t* dst = codes + (slot * geo.Hkv + g) * geo.D;
-  for (int d = lane; d < geo.D; d += 32) {
-    const float q = rintf(ptt::to_f32<T>(src[d]) / scale);
-    dst[d] = static_cast<int8_t>(fminf(fmaxf(q, -127.f), 127.f));
-  }
-  if (lane == 0) scales[slot * geo.Hkv + g] = scale;
-}
 
 // ---- K8: a token's [Hkv, D] tile in chunks of E elements ----------------
 // the pool element of the e4m3 lane (its bytes)
@@ -312,16 +310,223 @@ int launch_from(int dtype, const Write& k, const Write& v, const int* table,
   }
 }
 
-template <typename T>
-int launch_q8(const void* upd, void* codes, void* scales, const int* table,
-              const int* pos, const Geometry& geo, float eps, float recip,
-              cudaStream_t stream) {
+// ---- K8-q8: a (token, kv head) row in a group of lanes -------------------
+// one quantizing write: upd [B, l, Hkv, D] into codes [num_pages, ps, Hkv,
+// D] and scales [num_pages, ps, Hkv]
+struct Q8Write {
+  const void* upd;
+  int8_t* codes;
+  float* scales;
+};
+
+// the max of v over the L lanes of this lane's group (L a power of two
+// up to 32, groups aligned within the warp); every lane of the warp calls
+__device__ __forceinline__ float group_max(float v, int L) {
+  for (int o = L >> 1; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(ptt::kFullMask, v, o));
+  return v;
+}
+
+// A lane's share of one row: vectors j = g, g + L, ... of E values, NV of
+// them held in registers (NV 0: any number, read twice).
+template <typename T, int E, int NV>
+struct Q8Row {
+  static constexpr int kHeld = NV > 0 ? NV : 1;
+  Chunk<E * static_cast<int>(sizeof(T))> v[kHeld];
+  const T* src;  // the row in upd
+  int g, L, nvec;
+  bool live;
+
+  __device__ __forceinline__ void load() {
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (live && g + L * i < nvec) v[i].load(src + (g + L * i) * E);
+    }
+  }
+  template <typename F>
+  __device__ __forceinline__ void each(F&& f) const {
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (live && g + L * i < nvec) f(g + L * i, v[i]);
+    } else {
+      for (int j = g; live && j < nvec; j += L) {
+        Chunk<E * static_cast<int>(sizeof(T))> c;
+        c.load(src + j * E);
+        f(j, c);
+      }
+    }
+  }
+  float scale;
+  typename Word<E>::type q[kHeld];  // a held row's codes, packed
+
+  // E values' codes at this row's scale, packed into one word
+  __device__ __forceinline__ typename Word<E>::type codes_of(
+      const Chunk<E * static_cast<int>(sizeof(T))>& c) const {
+    const T* e = reinterpret_cast<const T*>(c.w);
+    typename Word<E>::type out;
+    int8_t* o = reinterpret_cast<int8_t*>(&out);
+#pragma unroll
+    for (int k = 0; k < E; ++k) {
+      const float f = rintf(__fdiv_rn(ptt::to_f32<T>(e[k]), scale));
+      o[k] = static_cast<int8_t>(fminf(fmaxf(f, -127.f), 127.f));
+    }
+    return out;
+  }
+  // the row's scale and, where it is held, its codes, before its slot is
+  // known (every lane of the warp calls)
+  __device__ __forceinline__ void quantize(float eps, float recip) {
+    using Vec = Chunk<E * static_cast<int>(sizeof(T))>;
+    float amax = 0.f;
+    each([&](int, const Vec& c) {
+      const T* e = reinterpret_cast<const T*>(c.w);
+#pragma unroll
+      for (int k = 0; k < E; ++k)
+        amax = fmaxf(amax, fabsf(ptt::to_f32<T>(e[k])));
+    });
+    scale = fmaxf(group_max(amax, L), eps) * recip;
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (live && g + L * i < nvec) q[i] = codes_of(v[i]);
+    }
+  }
+  // the codes and the scale into the row's place `at` in w
+  __device__ __forceinline__ void store(const Q8Write& w, size_t at) const {
+    using Vec = Chunk<E * static_cast<int>(sizeof(T))>;
+    auto* dst = reinterpret_cast<typename Word<E>::type*>(
+        w.codes + at * nvec * E);
+    if constexpr (NV > 0) {
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+        if (live && g + L * i < nvec) dst[g + L * i] = q[i];
+    } else {
+      each([&](int j, const Vec& c) { dst[j] = codes_of(c); });
+    }
+    if (live && g == 0) w.scales[at] = scale;
+  }
+};
+
+template <typename T, int E, int NV>
+__global__ void __launch_bounds__(kThreads)
+    scatter_q8_kernel(const Q8Write k, const Q8Write v,
+                      const int* __restrict__ table,
+                      const int* __restrict__ pos, const Geometry geo, int L,
+                      float eps, float recip) {
+  __shared__ size_t sSlot[kThreads];  // the slots of a run's tokens
+  const int per_block = kThreads / L;  // rows (token, kv head) a block
   const int rows = geo.B * geo.l * geo.Hkv;
-  scatter_q8_kernel<T><<<(rows + kWarps - 1) / kWarps, kThreads, 0,
-                         stream>>>(
-      static_cast<const T*>(upd), static_cast<int8_t*>(codes),
-      static_cast<float*>(scales), table, pos, geo, eps, recip);
+  const bool pair = v.upd != nullptr;
+  const int tid = threadIdx.x;
+  for (int base = blockIdx.x * per_block; base < rows;
+       base += gridDim.x * per_block) {
+    const int row = base + tid / L;
+    Q8Row<T, E, NV> kr{{}, static_cast<const T*>(k.upd) + (size_t)row * geo.D,
+                       tid % L, L, geo.D / E, row < rows, 0.f, {}};
+    Q8Row<T, E, NV> vr = kr;
+    // the loads first, so that they are in flight through the lookup
+    kr.load();
+    if (pair) {
+      vr.src = static_cast<const T*>(v.upd) + (size_t)row * geo.D;
+      vr.load();
+    }
+    // one lookup per token of this run: its position now, so that the
+    // codes are computed while the load is in flight, then its page
+    const int tok0 = base / geo.Hkv;
+    const int ntok = (min(rows, base + per_block) - 1) / geo.Hkv - tok0 + 1;
+    const int bt = tok0 + tid;
+    const long long p =
+        tid < ntok ? (long long)pos[bt / geo.l] + bt % geo.l : 0;
+    kr.quantize(eps, recip);
+    if (pair) vr.quantize(eps, recip);
+    if (tid < ntok)
+      sSlot[tid] = slot_at(table, p, bt / geo.l, geo.ps, geo.mp,
+                           geo.num_pages);
+    __syncthreads();
+    // the row's place: its token's slot, its kv head
+    const int tok = row / geo.Hkv;
+    const size_t at = kr.live ? sSlot[tok - tok0] * geo.Hkv +
+                                    (row - tok * geo.Hkv)
+                              : 0;
+    kr.store(k, at);
+    if (pair) vr.store(v, at);
+    __syncthreads();  // every sSlot read before the next run writes it
+  }
+}
+
+// K8-q8's vector: E elements of T, the widest (up to 16 bytes) that
+// divides the row and keeps every upd pointer aligned to its bytes and
+// every codes pointer to E
+template <typename T>
+int q8_elems(int D, const Q8Write& k, const Q8Write& v) {
+  int e = 16 / static_cast<int>(sizeof(T));
+  auto aligned = [](const void* p, int bytes) {
+    return p == nullptr || reinterpret_cast<uintptr_t>(p) % bytes == 0;
+  };
+  while (e > 1 && (D % e || !aligned(k.upd, e * sizeof(T)) ||
+                   !aligned(v.upd, e * sizeof(T)) || !aligned(k.codes, e) ||
+                   !aligned(v.codes, e)))
+    e /= 2;
+  return e;
+}
+
+template <typename T, int E, int NV>
+int launch_q8_nv(const Q8Write& k, const Q8Write& v, const int* table,
+                 const int* pos, const Geometry& geo, int L, float eps,
+                 float recip, int device, cudaStream_t stream) {
+  int sms = 0;
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int per_block = kThreads / L;
+  const int rows = geo.B * geo.l * geo.Hkv;
+  const int need = (rows + per_block - 1) / per_block;
+  // one wave: at most 8 blocks of kThreads an SM (2,048 threads)
+  const int blocks = need < 8 * sms ? need : 8 * sms;
+  scatter_q8_kernel<T, E, NV><<<blocks, kThreads, 0, stream>>>(
+      k, v, table, pos, geo, L, eps, recip);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the group size L (lanes a row) and the vectors a lane holds for rows of
+// nvec vectors: one vector a lane up to 32 vectors, then 2 and 4 in 32
+// lanes, past 128 vectors re-read
+template <typename T, int E>
+int launch_q8_e(const Q8Write& k, const Q8Write& v, const int* table,
+                const int* pos, const Geometry& geo, float eps, float recip,
+                int device, cudaStream_t s) {
+  const int nvec = geo.D / E;
+  int L = 1;
+  while (L < nvec && L < 32) L *= 2;
+  const auto go = [&](auto nv) {
+    return launch_q8_nv<T, E, decltype(nv)::value>(k, v, table, pos, geo, L,
+                                                   eps, recip, device, s);
+  };
+  if (nvec <= 32) return go(std::integral_constant<int, 1>{});
+  if (nvec <= 64) return go(std::integral_constant<int, 2>{});
+  if (nvec <= 128) return go(std::integral_constant<int, 4>{});
+  return go(std::integral_constant<int, 0>{});
+}
+
+template <typename T>
+int launch_q8(const Q8Write& k, const Q8Write& v, const int* table,
+              const int* pos, const Geometry& geo, float eps, float recip,
+              int device, cudaStream_t s) {
+  switch (q8_elems<T>(geo.D, k, v)) {
+    case 8:
+      if constexpr (sizeof(T) == 2)
+        return launch_q8_e<T, 8>(k, v, table, pos, geo, eps, recip, device,
+                                 s);
+      break;
+    case 4:
+      return launch_q8_e<T, 4>(k, v, table, pos, geo, eps, recip, device, s);
+    case 2:
+      return launch_q8_e<T, 2>(k, v, table, pos, geo, eps, recip, device, s);
+    default:
+      return launch_q8_e<T, 1>(k, v, table, pos, geo, eps, recip, device, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -386,7 +591,47 @@ extern "C" int ptt_paged_scatter_e4m3(const void* k_upd, void* k_pool,
                            static_cast<cudaStream_t>(stream));
 }
 
-// K8-q8. upd as K8's; codes: int8 [num_pages, ps, Hkv, D] and scales: f32
+// K8-q8. k_upd (and v_upd, or null): [B, l, Hkv, D] of `dtype`; k_codes
+// (and v_codes, null with v_upd): int8 [num_pages, ps, Hkv, D] and
+// k_scales (v_scales): f32 [num_pages, ps, Hkv], all written in place;
+// page_table [B, mp]; pos [B] int32; eps and recip as above. All
+// contiguous; K and V share their shapes and dtypes.
+extern "C" int ptt_paged_scatter_q8_pair(
+    const void* k_upd, void* k_codes, void* k_scales, const void* v_upd,
+    void* v_codes, void* v_scales, const void* page_table, const void* pos,
+    int B, int l, int Hkv, int D, int ps, int mp, int num_pages, float eps,
+    float recip, int dtype, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if ((v_upd == nullptr) != (v_codes == nullptr) ||
+      (v_codes == nullptr) != (v_scales == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (B == 0 || l == 0 || Hkv == 0 || D == 0) return 0;
+  if ((long long)B * l * Hkv > INT_MAX / 2)  // rows count in int
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Geometry geo{B, l, Hkv, D, ps, mp, num_pages};
+  const Q8Write k{k_upd, static_cast<int8_t*>(k_codes),
+                  static_cast<float*>(k_scales)};
+  const Q8Write v{v_upd, static_cast<int8_t*>(v_codes),
+                  static_cast<float*>(v_scales)};
+  const int* tab = static_cast<const int*>(page_table);
+  const int* p = static_cast<const int*>(pos);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case ptt::kF32:
+      return launch_q8<float>(k, v, tab, p, geo, eps, recip, device, s);
+    case ptt::kBF16:
+      return launch_q8<__nv_bfloat16>(k, v, tab, p, geo, eps, recip, device,
+                                      s);
+    case ptt::kF16:
+      return launch_q8<__half>(k, v, tab, p, geo, eps, recip, device, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// K8-q8, one write (the entry's signature since K8-q8 was ported): upd
+// as K8's; codes: int8 [num_pages, ps, Hkv, D] and scales: f32
 // [num_pages, ps, Hkv], both written in place; eps and recip as above.
 extern "C" int ptt_paged_scatter_q8(const void* upd, void* codes,
                                     void* scales, const void* page_table,
@@ -394,23 +639,8 @@ extern "C" int ptt_paged_scatter_q8(const void* upd, void* codes,
                                     int D, int ps, int mp, int num_pages,
                                     float eps, float recip, int dtype,
                                     int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (B == 0 || l == 0 || Hkv == 0) return 0;
-  const Geometry geo{B, l, Hkv, D, ps, mp, num_pages};
-  const int* tab = static_cast<const int*>(page_table);
-  const int* p = static_cast<const int*>(pos);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case ptt::kF32:
-      return launch_q8<float>(upd, codes, scales, tab, p, geo, eps, recip, s);
-    case ptt::kBF16:
-      return launch_q8<__nv_bfloat16>(upd, codes, scales, tab, p, geo, eps,
-                                      recip, s);
-    case ptt::kF16:
-      return launch_q8<__half>(upd, codes, scales, tab, p, geo, eps, recip,
-                               s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return ptt_paged_scatter_q8_pair(upd, codes, scales, nullptr, nullptr,
+                                   nullptr, page_table, pos, B, l, Hkv, D,
+                                   ps, mp, num_pages, eps, recip, dtype,
+                                   device, stream);
 }

@@ -10,11 +10,17 @@ Both kernels are in `csrc/layer_norm.cu`.
 `layer_norm(x, w, b, eps)` normalises over the last axis with f32
 statistics (two passes: the mean, then the mean of the centred
 squares) and returns x's dtype. `layer_norm_bwd(dy, x, w, eps)` returns
-(dx, dw, db): dx in x's dtype, dw and db in w's. On the card K2 sums
-dw and db across its blocks in a fixed order (clusters of 8 blocks, then
-the clusters in order; `layer_norm_bwd_plan` reports the launch), so they
-are the same bits on every run. A CPU tensor takes the plain versions; a
-CUDA tensor launches the kernels or raises.
+(dx, dw, db): dx in x's dtype, dw and db in w's. x and w may differ in
+dtype (f32, bf16 or f16 each): the kernels read w and b and convert them
+to f32, as the TPU kernels cast them. `supported` says which LayerNorms
+the kernels take (`nn/functional/norm.py` routes the rest to plain
+torch, as the JAX package routes them to jnp): rows whose width is a
+multiple of 16 bytes, up to the JAX package's 65536 columns; rows past
+`REGISTER_COLS` take each kernel's wide lane (a block a row). On the
+card K2 sums dw and db across its blocks in a fixed order
+(`layer_norm_bwd_plan` reports the launch, `layer_norm_plan` K1's), so
+they are the same bits on every run. A CPU tensor takes the plain
+versions; a CUDA tensor launches the kernels or raises.
 `LayerNormFunction` is the differentiable op: forward through K1,
 backward through K2, saving (x, w) as the JAX VJP does.
 """
@@ -27,22 +33,34 @@ import torch
 from . import _build
 
 __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd",
-           "layer_norm_bwd_reference", "layer_norm_bwd_plan",
-           "LayerNormFunction", "LAUNCHES", "BWD_LAUNCHES", "reset_launches",
-           "MAX_COLS"]
+           "layer_norm_bwd_reference", "layer_norm_plan",
+           "layer_norm_bwd_plan", "supported", "LayerNormFunction",
+           "LAUNCHES", "BWD_LAUNCHES", "reset_launches", "MAX_COLS",
+           "REGISTER_COLS"]
 
 # kernel launches since the last reset_launches() (the main path's
 # proof that it went through the kernels): K1 and K2
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# widest row the kernels hold in registers: 16 vectors of 16 bytes per lane
-MAX_COLS = {torch.float32: 2048, torch.bfloat16: 4096, torch.float16: 4096}
-# K2's launch by (rows, cols, dtype, device): the library's plan
+# the dtypes the kernels take, for x and for w and b alike
+DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# the widest row the kernels take: the JAX package's limit for its Pallas
+# pair (`supported`: _BWD_BUFFERS * 4 * 8 * c within its 12 MiB budget)
+MAX_COLS = 65536
+# the widest row of the kernels' register lanes (16 vectors of 16 bytes a
+# lane); wider rows take the wide lanes
+REGISTER_COLS = {torch.float32: 2048, torch.bfloat16: 4096,
+                 torch.float16: 4096}
+# K1's and K2's launches by (rows, cols, dtype, wdtype, device): the
+# library's plans
+_PLANS = {}
 _BWD_PLANS = {}
-# K2's tickets by device: kCluster int32 counters, zero between launches
+# K2's tickets by device: int32 counters, zero between launches
 _BWD_TICKETS = {}
-_BWD_PLAN = ("grid", "cluster", "resident_clusters", "per_lane", "ring",
-             "partials")
+_N_TICKETS = 8
+_PLAN = ("grid", "threads", "per_lane", "wide", "early", "smem")
+_BWD_PLAN = ("grid", "cluster", "resident", "per_lane", "ring",
+             "partials", "wide")
 
 
 def reset_launches():
@@ -90,26 +108,83 @@ def layer_norm_bwd_reference(dy: torch.Tensor, x: torch.Tensor,
     return dx.to(x.dtype), dw.to(w.dtype), db.to(w.dtype)
 
 
+def supported(x: torch.Tensor, w, b, n_norm_axes: int = 1) -> bool:
+    """Whether the kernels take this LayerNorm (the port's copy of the
+    JAX `supported`): over the last axis only, with w and b of shape
+    [c], every dtype f32, bf16 or f16, and c a multiple of the 16-byte
+    vector of x's dtype, up to MAX_COLS. JAX's rule asks for a multiple
+    of 128 columns; the kernels also take the 16-byte multiples between
+    (K1 always has), which JAX leaves to jnp. Decided by shape and dtype
+    alone, before any launch."""
+    if n_norm_axes != 1 or w is None or b is None or x.dim() < 1:
+        return False
+    c = x.shape[-1]
+    if tuple(w.shape) != (c,) or tuple(b.shape) != (c,):
+        return False
+    if not all(t.dtype in DTYPES for t in (x, w, b)):
+        return False
+    return c % (16 // x.element_size()) == 0 and 0 < c <= MAX_COLS
+
+
 def _check(x, w, b):
     c = x.shape[-1]
     if w.shape != (c,) or b.shape != (c,):
         raise ValueError(f"layer_norm: w and b must be [{c}], got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
-    if not (w.dtype == b.dtype == x.dtype):
-        raise TypeError(f"layer_norm kernel: x, w, b must share a dtype, "
-                        f"got {x.dtype}, {w.dtype}, {b.dtype}")
+    if w.dtype != b.dtype or not all(t.dtype in DTYPES for t in (x, w)):
+        raise TypeError(f"layer_norm kernel: x and w, b must be f32, bf16 "
+                        f"or f16 (w and b alike), got {x.dtype}, {w.dtype}, "
+                        f"{b.dtype}")
     if not (w.device == b.device == x.device):
         raise ValueError("layer_norm: x, w, b on different devices")
     vec = 16 // x.element_size()
-    if c % vec or c > MAX_COLS.get(x.dtype, 0):
+    if c % vec or c > MAX_COLS:
         raise ValueError(
             f"layer_norm kernel: last dim {c} must be a multiple of {vec} "
-            f"and at most {MAX_COLS.get(x.dtype)} for {x.dtype}")
+            f"and at most {MAX_COLS} for {x.dtype}")
 
 
 def _no_kernel(name, dev):
     if dev.type != "cuda":
         raise ValueError(f"{name}: no kernel for device {dev}")
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t contiguous, on a 16-byte boundary (the kernels' vector loads): a
+    view that starts off one is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _plan(cache, entry, names, rows, cols, dtype, wdtype, device):
+    device = torch.device(device)
+    wdtype = dtype if wdtype is None else wdtype
+    key = (rows, cols, dtype, wdtype, device.index)
+    plan = cache.get(key)
+    if plan is None:
+        out = (ctypes.c_int * len(names))()
+        lib = _build.load("layer_norm")
+        err = getattr(lib, entry)(rows, cols, _build.dtype_code(dtype),
+                                  _build.dtype_code(wdtype), device.index,
+                                  out)
+        _build.check(lib, err, entry)
+        plan = cache[key] = dict(zip(names, map(int, out)))
+    return plan
+
+
+def layer_norm_plan(rows: int, cols: int, dtype: torch.dtype, device,
+                    wdtype: torch.dtype = None) -> dict:
+    """The launch K1 makes for [rows, cols] of `dtype` with weights of
+    `wdtype` (default: `dtype`) on CUDA `device`, as the library chooses
+    it (`ptt_layer_norm_fwd_plan`): "grid" (blocks), "threads" (a
+    block's: 128 in the register lane, a warp a row; 512 in the wide
+    lane, a block a row), "per_lane" (the register
+    lane's 16-byte vectors a lane; 0 in the wide lane), "wide" (1 for
+    the wide lane), "early" (1 where the register lane loads w and b
+    with x: grids of up to two blocks an SM) and "smem" (the wide lane's
+    staged row in bytes; 0 where it is re-read)."""
+    return _plan(_PLANS, "ptt_layer_norm_fwd_plan", _PLAN, rows, cols, dtype,
+                 wdtype, device)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -120,41 +195,33 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _no_kernel("layer_norm", x.device)
     global LAUNCHES
     _check(x, w, b)
-    x2 = x.contiguous()
-    w, b = w.contiguous(), b.contiguous()
+    x2, w, b = _aligned(x), _aligned(w), _aligned(b)
     y = torch.empty_like(x2)
     rows = x2.numel() // x2.shape[-1]
     lib = _build.load("layer_norm")
     err = lib.ptt_layer_norm_fwd(
         x2.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), rows,
         x2.shape[-1], float(eps), _build.dtype_code(x2.dtype),
-        x2.device.index, _build.stream_ptr(x2.device))
+        _build.dtype_code(w.dtype), x2.device.index,
+        _build.stream_ptr(x2.device))
     _build.check(lib, err, "layer_norm kernel launch")
     LAUNCHES += 1
     return y
 
 
 def layer_norm_bwd_plan(rows: int, cols: int, dtype: torch.dtype,
-                        device) -> dict:
-    """The launch K2 makes for [rows, cols] of `dtype` on CUDA `device`,
-    as the library chooses it (`ptt_layer_norm_bwd_plan`): "grid" (blocks,
-    whole clusters), "cluster" (blocks a cluster), "resident_clusters"
-    (the clusters the card holds at once, by the occupancy calculator),
-    "per_lane" (16-byte vectors of a row a lane), "ring" (1: each warp's
-    next rows come through a ring of cp.async copies in shared memory)
-    and "partials" (the f32 cluster partials of dw and db)."""
-    device = torch.device(device)
-    key = (rows, cols, dtype, device.index)
-    plan = _BWD_PLANS.get(key)
-    if plan is None:
-        out = (ctypes.c_int * len(_BWD_PLAN))()
-        lib = _build.load("layer_norm")
-        err = lib.ptt_layer_norm_bwd_plan(rows, cols,
-                                          _build.dtype_code(dtype),
-                                          device.index, out)
-        _build.check(lib, err, "layer_norm_bwd plan")
-        plan = _BWD_PLANS[key] = dict(zip(_BWD_PLAN, map(int, out)))
-    return plan
+                        device, wdtype: torch.dtype = None) -> dict:
+    """The launch K2 makes for [rows, cols] of `dtype` with weights of
+    `wdtype` (default: `dtype`) on CUDA `device`, as the library chooses
+    it (`ptt_layer_norm_bwd_plan`): "grid" (blocks: whole clusters in the
+    register lane), "cluster" (blocks a cluster; 1 in the wide lane),
+    "resident" (the clusters, in the wide lane the blocks, the card holds
+    at once, by the occupancy calculator), "per_lane" (16-byte vectors of
+    a row a lane; 0 in the wide lane), "ring" (1: each warp's next rows
+    come through a ring of cp.async copies in shared memory), "partials"
+    (the f32 partials of dw and db) and "wide" (1 for the wide lane)."""
+    return _plan(_BWD_PLANS, "ptt_layer_norm_bwd_plan", _BWD_PLAN, rows,
+                 cols, dtype, wdtype, device)
 
 
 def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
@@ -170,14 +237,14 @@ def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"must match x {tuple(x.shape)} {x.dtype}")
-    x2, dy2, w = x.contiguous(), dy.contiguous(), w.contiguous()
+    x2, dy2, w = _aligned(x), _aligned(dy), _aligned(w)
     cols = x2.shape[-1]
     rows = x2.numel() // cols
-    plan = layer_norm_bwd_plan(rows, cols, x2.dtype, x2.device)
+    plan = layer_norm_bwd_plan(rows, cols, x2.dtype, x2.device, w.dtype)
     tickets = _BWD_TICKETS.get(x2.device.index)
     if tickets is None:
         tickets = _BWD_TICKETS[x2.device.index] = torch.zeros(
-            plan["cluster"], dtype=torch.int32, device=x2.device)
+            _N_TICKETS, dtype=torch.int32, device=x2.device)
     dx = torch.empty_like(x2)
     dw = torch.empty_like(w)
     db = torch.empty_like(w)
@@ -188,7 +255,8 @@ def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         dy2.data_ptr(), x2.data_ptr(), w.data_ptr(), dx.data_ptr(),
         dw.data_ptr(), db.data_ptr(), part.data_ptr(), tickets.data_ptr(),
         rows, cols, plan["grid"], float(eps), _build.dtype_code(x2.dtype),
-        x2.device.index, _build.stream_ptr(x2.device))
+        _build.dtype_code(w.dtype), x2.device.index,
+        _build.stream_ptr(x2.device))
     _build.check(lib, err, "layer_norm_bwd kernel launch")
     BWD_LAUNCHES += 1
     return dx, dw, db

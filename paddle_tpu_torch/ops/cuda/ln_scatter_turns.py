@@ -1,6 +1,7 @@
-"""Hold K2 (LayerNorm backward) and K8 (the paged KV write) as built here
-against the same kernels as built from other checkouts, in turns on the
-same inputs and the same card.
+"""Hold K1 and K2 (LayerNorm forward and backward), K8 (the paged KV
+write) and K8-q8 (the int8 paged KV write) as built here against the
+same kernels as built from other checkouts, in turns on the same inputs
+and the same card.
 
     python -m paddle_tpu_torch.ops.cuda.ln_scatter_turns OTHER [OTHER ...]
 
@@ -9,26 +10,30 @@ parent commit, unpacked with `git archive`). Each checkout's
 `csrc/layer_norm.cu` and `csrc/paged_scatter.cu` are compiled with this
 build's flags into the build directory, and so are this checkout's (all
 `nvcc` processes started together). A checkout whose libraries have this
-build's C entries is called through the wrappers; one from before K2's
-cluster plan and K8's paired entry through those entries' earlier
-signatures (K2 with its own grid of min(rows / 8, 2 x SMs) blocks and
-f32 partials [2, grid, cols]; K8 one write a call). Then, on each build
-in turn (this, the others, the others reversed, this), behind a GPU
-sleep (`flash_tile_sweep.device_ms`):
+build's C entries is called through the wrappers; one from before the
+weight dtype joined K1's and K2's entries (and K1's plan entry) through
+those entries' earlier signatures (`_EARLIER`), and one without K8-q8's
+paired entry writes K and V one call each (K8-q8's single write is
+called through its entry, whose signature every build shares). Then, on
+each build in turn (this, the others, the others reversed, this), behind
+a GPU sleep (`flash_tile_sweep.device_ms`):
 
+- K1 at [512, 768] (the serving step), [16, 768] (the legacy decode
+  step) and [16384, 768] (the training step) in bf16: y must equal this
+  build's bit for bit;
 - K2 at [16384, 768] and [512, 768] in bf16 and at [16384, 768] in f32:
-  dx must equal this build's bit for bit (its per-row arithmetic is
-  unchanged); dw and db are reported as equal or not (their order of
-  summation changed);
+  dx, dw and db must equal this build's bit for bit;
 - K8 at the serving step's write (`launch_check.grouped_batch`'s bf16
   q [16, 32, 12, 64] as K, a second draw as V, its positions and
-  tables) into e4m3 and bf16 pools: each build's pools must equal this
-  build's bytes outside the trash page 0; K and V written one call each,
-  and here also in one paired launch.
+  tables) into e4m3 and bf16 pools, and K8-q8 into int8 code and f32
+  scale pools: each build's pools must equal this build's bytes outside
+  the trash page 0; K and V written one call each, and here also in one
+  paired launch.
 
 Prints the card's name and power limit, this build's ptxas report for
-K2's and K8's serving instantiations and the ms per call of each case
-on each build. Needs CUDA and nvcc.
+the serving instantiations of K1, K2, K8 and K8-q8, the ms per call of
+each case on each build, and of a launch that does nothing (the floor
+of every case). Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
@@ -48,19 +53,23 @@ from .launch_check import grouped_batch
 
 _LIBS = ("layer_norm", "paged_scatter")
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the entries' signatures before K2's cluster plan and K8's paired entry
-_EARLIER = {"ptt_layer_norm_bwd": [_P] * 7 + [_I, _I, _I, _F, _I, _I, _P],
-            "ptt_paged_scatter_float": [_P] * 4 + [_I] * 10 + [_P],
-            "ptt_paged_scatter_e4m3": [_P] * 4 + [_I] * 9 + [_P]}
-# the serving instantiations, mangled: K2 in bf16 at 3 vectors a lane
-# (768 columns), K8 bf16 into e4m3 and into bf16 (16 and 8 elements a
-# chunk); before the redesign `ln_bwd_kernel<bf16, 3>` and the warp-a-row
-# `scatter_e4m3_kernel<bf16>` / `scatter_cast_kernel<bf16, bf16>`
-SERVING = {"K2": re.compile(r"ln_bwd_kernelI13__nv_bfloat16Li3E"),
-           "K8 e4m3": re.compile(r"scatter_tile_kernelI13__nv_bfloat16hLi16E"
-                                 r"|scatter_e4m3_kernelI13__nv_bfloat16E"),
+# K1's and K2's entries before they took the weight dtype
+_EARLIER = {"ptt_layer_norm_fwd": [_P] * 4 + [_I, _I, _F, _I, _I, _P],
+            "ptt_layer_norm_bwd": [_P] * 8 + [_I, _I, _I, _F, _I, _I, _P],
+            "ptt_layer_norm_bwd_plan": [_I] * 4 + [_P]}
+# the serving instantiations, mangled: K1 and K2 in bf16 at 3 vectors a
+# lane (768 columns; K1 at 4 before its exact counts), K8 bf16 into e4m3
+# and into bf16 (16 and 8 elements a chunk), K8-q8 bf16 at 8 elements a
+# vector, one a lane (before the redesign the warp-a-row
+# `scatter_q8_kernel<bf16>`)
+SERVING = {"K1": re.compile(r"ln_fwd_kernelI13__nv_bfloat16(S\w+_)?Li3E"
+                           r"|ln_fwd_kernelI13__nv_bfloat16Li4E"),
+           "K2": re.compile(r"ln_bwd_kernelI13__nv_bfloat16(S\w+_)?Li3E"),
+           "K8 e4m3": re.compile(r"scatter_tile_kernelI13__nv_bfloat16hLi16E"),
            "K8 bf16": re.compile(r"scatter_tile_kernelI13__nv_bfloat16S\w+"
-                                 r"Li8E|scatter_cast_kernelI13__nv_bfloat16S")}
+                                 r"Li8E"),
+           "K8-q8": re.compile(r"scatter_q8_kernelI13__nv_bfloat16"
+                               r"(Li8ELi1E)?EEv")}
 
 
 def build_all(roots) -> dict:
@@ -93,9 +102,10 @@ def ptxas_report(log: str, pattern) -> str:
     return "not found"
 
 
-# a mark of this build's C entries in a checkout's source: K2's plan
-# entry, K8's paired entry (V's operands)
-_MARKS = {"layer_norm": "ptt_layer_norm_bwd_plan", "paged_scatter": "v_upd"}
+# a mark of this build's C entries in a checkout's source: K1's plan
+# entry (with the weight dtype), K8-q8's paired entry
+_MARKS = {"layer_norm": "ptt_layer_norm_fwd_plan",
+          "paged_scatter": "ptt_paged_scatter_q8_pair"}
 
 
 def _current(root, lib) -> bool:
@@ -105,48 +115,64 @@ def _current(root, lib) -> bool:
 
 def _load(path, lib, current):
     """The library at `path`, its entries bound by this build's
-    signatures (`current`) or by the earlier ones."""
+    signatures (`current`, or where an entry kept its signature) or by
+    the earlier ones."""
     so = ctypes.CDLL(str(path))
-    table = _build.KERNELS[lib] if current else {
-        k: v for k, v in _EARLIER.items() if hasattr(so, k)}
+    table = dict(_build.KERNELS[lib])
+    if not current:
+        table.update(_EARLIER)
     for entry, argtypes in table.items():
-        fn = getattr(so, entry)
-        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        if hasattr(so, entry):
+            fn = getattr(so, entry)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
     so.ptt_error_string.argtypes = [ctypes.c_int]
     so.ptt_error_string.restype = ctypes.c_char_p
     return so, current
 
 
-def _k2_earlier(so, dy, x, w):
-    """K2 through the earlier entry: its own grid and partials."""
+def _where(t):
+    return _build.dtype_code(t.dtype), t.device.index, _build.stream_ptr(
+        t.device)
+
+
+def _k1_earlier(so, x, w, b):
+    """K1 through the earlier entry (x, w and b of one dtype)."""
+    y = torch.empty_like(x)
+    err = so.ptt_layer_norm_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                y.data_ptr(), x.shape[0], x.shape[1], 1e-5,
+                                *_where(x))
+    _build.check(so, err, "earlier K1")
+    return (y,)
+
+
+def _k2_earlier(so, dy, x, w, tickets):
+    """K2 through the earlier entries: its plan (six ints), then the
+    launch with its grid and partials."""
     rows, cols = x.shape
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    groups = max(1, min(-(-rows // 8), 2 * sms))
+    plan = (ctypes.c_int * 6)()
+    code, dev, _ = _where(x)
+    _build.check(so, so.ptt_layer_norm_bwd_plan(rows, cols, code, dev, plan),
+                 "earlier K2 plan")
     dx, dw, db = torch.empty_like(x), torch.empty_like(w), torch.empty_like(w)
-    part = torch.empty((2, groups, cols), dtype=torch.float32,
-                       device=x.device)
+    part = torch.empty(plan[5], dtype=torch.float32, device=x.device)
     err = so.ptt_layer_norm_bwd(
         dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
-        dw.data_ptr(), db.data_ptr(), part.data_ptr(), rows, cols, groups,
-        1e-5, _build.dtype_code(x.dtype), x.device.index,
-        _build.stream_ptr(x.device))
+        dw.data_ptr(), db.data_ptr(), part.data_ptr(), tickets.data_ptr(),
+        rows, cols, plan[0], 1e-5, *_where(x))
     _build.check(so, err, "earlier K2")
     return dx, dw, db
 
 
-def _k8_earlier(so, pool, upd, pos, table):
-    """One K8 write through the earlier entries."""
-    geo = tpa._scatter_geometry(pool, upd, table)
-    head = (upd.data_ptr(), pool.data_ptr(), table.data_ptr(),
-            pos.data_ptr(), *geo, _build.dtype_code(upd.dtype))
-    tail = (pool.device.index, _build.stream_ptr(pool.device))
-    if pool.dtype == tpa.FP8_DTYPE:
-        err = so.ptt_paged_scatter_e4m3(*head, *tail)
-    else:
-        err = so.ptt_paged_scatter_float(*head, _build.dtype_code(pool.dtype),
-                                         *tail)
-    _build.check(so, err, "earlier K8")
-    return pool
+def _q8_one(so, codes, scales, upd, pos, table):
+    """One K8-q8 write through the single-write entry (its signature is
+    the same in every build)."""
+    err = so.ptt_paged_scatter_q8(
+        upd.data_ptr(), codes.data_ptr(), scales.data_ptr(),
+        table.data_ptr(), pos.data_ptr(),
+        *tpa._scatter_geometry(codes, upd, table), float(tpa.Q8_EPS),
+        float(tpa.Q8_RECIP), *_where(upd))
+    _build.check(so, err, "K8-q8")
+    return codes, scales
 
 
 def main(argv=None) -> int:
@@ -161,7 +187,7 @@ def main(argv=None) -> int:
     here = str(Path(__file__).resolve().parents[3])   # this checkout
     built = build_all([here, *roots])
     for name, pat in SERVING.items():
-        lib = "layer_norm" if name == "K2" else "paged_scatter"
+        lib = "layer_norm" if name in ("K1", "K2") else "paged_scatter"
         print(f"this build, {name} serving instantiation: "
               f"{ptxas_report(built[here, lib][1], pat)}")
     names = {here: "this", **{r: r for r in roots}}
@@ -169,13 +195,18 @@ def main(argv=None) -> int:
               for (root, lib), (path, _) in built.items()}
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    ln_cases = {}
+    mk = lambda *s: torch.randn(*s, generator=g, device=dev)
+    k1_cases = {f"K1 [{rows}, 768] bf16": tuple(
+        t.to(torch.bfloat16) for t in (mk(rows, 768) * 2 + 1, mk(768),
+                                       mk(768)))
+        for rows in (512, 16, 16384)}
+    k2_cases = {}
     for rows, dtype in ((16384, torch.bfloat16), (512, torch.bfloat16),
                         (16384, torch.float32)):
-        mk = lambda *s: torch.randn(*s, generator=g, device=dev)
-        ln_cases[f"K2 [{rows}, 768] {str(dtype)[6:]}"] = (
+        k2_cases[f"K2 [{rows}, 768] {str(dtype)[6:]}"] = (
             mk(rows, 768).to(dtype), (mk(rows, 768) * 2 + 1).to(dtype),
             mk(768).to(dtype))
+    tickets = torch.zeros(8, dtype=torch.int32, device=dev)
     base, _ = grouped_batch(dev, torch.bfloat16, 12, 12, 64)
     v_base, _ = grouped_batch(dev, torch.bfloat16, 12, 12, 64, seed=1)
     k_upd, v_upd, table, pos = base[0], v_base[0], base[3], base[4]
@@ -184,6 +215,8 @@ def main(argv=None) -> int:
                                          device=dev).view(tpa.FP8_DTYPE),
              "bf16": lambda: torch.zeros(shape, dtype=torch.bfloat16,
                                          device=dev)}
+    q8_pools = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
+                        torch.zeros(shape[:3], device=dev))
     order = ("this", *roots, *reversed(roots), "this")
     saved = {lib: _build._LIBS.get(lib) for lib in _LIBS}
     times, same, ref = {}, {}, {}
@@ -193,11 +226,16 @@ def main(argv=None) -> int:
                 for t in out]
         ref.setdefault(case, bits)
         eq = [torch.equal(a, b) for a, b in zip(bits, ref[case])]
-        if must_equal and not all(eq[i] for i in must_equal):
+        if not all(eq[i] for i in must_equal):
             raise AssertionError(f"{case}: {name} differs from this build")
         same[name, case] = eq
         times.setdefault(case, {}).setdefault(name, []).append(
-            round(device_ms(fn, iters=20), 4))
+            round(device_ms(fn, iters=20), 5))
+
+    def run(case, name, fn, cut, must_equal):
+        out = [t[1:] if cut else t for t in fn()]
+        torch.cuda.synchronize()
+        record(case, name, out, fn, must_equal)
 
     try:
         for name in order:
@@ -205,34 +243,38 @@ def main(argv=None) -> int:
                                                 for lib in _LIBS)
             _build._LIBS["layer_norm"], _build._LIBS["paged_scatter"] = \
                 ln_so, sc_so
-            for case, (dy, x, w) in ln_cases.items():
+            for case, (x, w, b) in k1_cases.items():
+                fn = ((lambda: (tln.layer_norm(x, w, b, 1e-5),)) if ln_new
+                      else (lambda: _k1_earlier(ln_so, x, w, b)))
+                run(case, name, fn, False, (0,))
+            for case, (dy, x, w) in k2_cases.items():
                 fn = ((lambda: tln.layer_norm_bwd(dy, x, w, 1e-5)) if ln_new
-                      else (lambda: _k2_earlier(ln_so, dy, x, w)))
-                out = fn()
-                torch.cuda.synchronize()
-                record(case, name, out, fn, must_equal=(0,))
-            for lane, mk in pools.items():
-                kp, vp = mk(), mk()
+                      else (lambda: _k2_earlier(ln_so, dy, x, w, tickets)))
+                run(case, name, fn, False, (0, 1, 2))
+            for lane, new in pools.items():
+                kp, vp = new(), new()
+                fn = lambda: (tpa.paged_scatter_kernel(kp, k_upd, pos, table),
+                              tpa.paged_scatter_kernel(vp, v_upd, pos, table))
+                case = f"K8 K, V -> {lane}"
+                run(case, name, fn, True, (0, 1))
                 if sc_new:
-                    fn = lambda: (tpa.paged_scatter_kernel(kp, k_upd, pos,
-                                                           table),
-                                  tpa.paged_scatter_kernel(vp, v_upd, pos,
-                                                           table))
-                else:
-                    fn = lambda: (_k8_earlier(sc_so, kp, k_upd, pos, table),
-                                  _k8_earlier(sc_so, vp, v_upd, pos, table))
-                out = [t[1:] for t in fn()]
-                torch.cuda.synchronize()
-                record(f"K8 K, V one call each -> {lane}", name, out, fn,
-                       must_equal=(0, 1))
-                if sc_new:
-                    kq, vq = mk(), mk()
+                    kq, vq = new(), new()
                     fn = lambda: tpa.paged_scatter_kernel_pair(
                         kq, vq, k_upd, v_upd, pos, table)
-                    out = [t[1:] for t in fn()]
-                    torch.cuda.synchronize()
-                    record(f"K8 K, V one call each -> {lane}", name + " pair",
-                           out, fn, must_equal=(0, 1))
+                    run(case, name + " pair", fn, True, (0, 1))
+            (kc, ks), (vc, vs) = q8_pools(), q8_pools()
+            fn = lambda: (*_q8_one(sc_so, kc, ks, k_upd, pos, table),
+                          *_q8_one(sc_so, vc, vs, v_upd, pos, table))
+            case = "K8-q8 K, V -> int8 + scales"
+            run(case, name, fn, True, (0, 1, 2, 3))
+            if sc_new:
+                (kc2, ks2), (vc2, vs2) = q8_pools(), q8_pools()
+                fn = lambda: (lambda o: (o[0], o[2], o[1], o[3]))(
+                    tpa.paged_scatter_q8_pair(kc2, vc2, ks2, vs2, k_upd,
+                                              v_upd, pos, table))
+                run(case, name + " pair", fn, True, (0, 1, 2, 3))
+            fn = lambda: _q8_one(sc_so, kc, ks, k_upd, pos, table)
+            run("K8-q8 K alone -> int8 + scales", name, fn, True, (0, 1))
     finally:
         for lib, so in saved.items():
             if so is None:
@@ -242,6 +284,11 @@ def main(argv=None) -> int:
     for case, by_lib in times.items():
         print(f"{case}: ms per call in turns {by_lib}; outputs equal to "
               f"this build's: {dict((n, same[n, case]) for n in by_lib)}")
+    # the floor under every case: a launch that does nothing, timed alike
+    floor = [round(device_ms(lambda: torch.cuda._sleep(0), iters=20), 5)
+             for _ in range(2)]
+    print(f"a launch that does nothing (torch.cuda._sleep(0)): ms per call "
+          f"{floor}")
     return 0
 
 

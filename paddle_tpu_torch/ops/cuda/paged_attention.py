@@ -88,7 +88,8 @@ write stage (`paged_scatter_kernel`) is K8 for every float and e4m3
 pool, as the JAX megakernel runs its Pallas scatter: a float pool's
 write through K8 equals `index_copy_`'s bit for bit. K and V at the
 same positions go through K8 in one launch (`paged_scatter_pair`,
-`paged_scatter_kernel_pair`), where the JAX package makes two
+`paged_scatter_kernel_pair`), and into int8 pools through K8-q8 in one
+launch (`paged_scatter_q8_pair`), where the JAX package makes two
 scatters. Moves of e4m3
 bytes go through `view(torch.uint8)`: PyTorch's float8 coverage of
 indexing and copies is patchy, and the bytes are the value.
@@ -123,7 +124,8 @@ __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "count_page_block_reads", "quantize_kv_rowwise", "paged_scatter",
            "paged_scatter_reference", "paged_scatter_q8",
            "paged_scatter_pair", "paged_scatter_kernel_pair",
-           "paged_scatter_q8_reference", "_paged_flat_slots", "FP8_DTYPE",
+           "paged_scatter_q8_reference", "paged_scatter_q8_pair",
+           "_paged_flat_slots", "FP8_DTYPE",
            "paged_decode_attention", "paged_attention_reference",
            "decode_plan", "ragged_plan", "lora_plan", "piece_rows",
            "_mask_to_additive", "LAUNCHES", "GROUPED_LAUNCHES",
@@ -407,6 +409,39 @@ def paged_scatter_kernel_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
     return k_pool, v_pool
 
 
+def _k8q8(name, writes, pos, page_table):
+    """Launch K8-q8 on the card for `writes`, one (pool, scale_pool, upd)
+    triple or two (K and V: one launch, one slot lookup per token for
+    both), counted in QUANT_LAUNCHES["K8-q8"]. The pools must be int8
+    and f32 and contiguous, the updates share their dtype and shape."""
+    checked = []
+    for pool, scale_pool, upd in writes:
+        if pool.dtype != torch.int8:
+            raise TypeError(f"{name}: the pool must be int8, got "
+                            f"{pool.dtype}")
+        upd, pos_c, table = _scatter_check(name, pool, upd, pos, page_table,
+                                           scale_pool)
+        if not (pool.is_contiguous() and scale_pool.is_contiguous()):
+            raise ValueError(f"{name}: the pools must be contiguous")
+        checked.append((pool, scale_pool, upd))
+    (k_pool, k_scale, k_upd), *rest = checked
+    v_pool, v_scale, v_upd = rest[0] if rest else (None, None, None)
+    if rest and (v_upd.dtype != k_upd.dtype or v_upd.shape != k_upd.shape
+                 or v_pool.shape != k_pool.shape
+                 or v_pool.device != k_pool.device):
+        raise ValueError(f"{name}: K and V must share their pools' and "
+                         "updates' shapes, dtypes and device")
+    lib = _build.load("paged_scatter")
+    err = lib.ptt_paged_scatter_q8_pair(
+        k_upd.data_ptr(), k_pool.data_ptr(), k_scale.data_ptr(),
+        _ptr(v_upd), _ptr(v_pool), _ptr(v_scale), table.data_ptr(),
+        pos_c.data_ptr(), *_scatter_geometry(k_pool, k_upd, table),
+        float(Q8_EPS), float(Q8_RECIP), _build.dtype_code(k_upd.dtype),
+        k_pool.device.index, _build.stream_ptr(k_pool.device))
+    _build.check(lib, err, "paged scatter (int8) kernel launch")
+    QUANT_LAUNCHES["K8-q8"] += 1
+
+
 def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
                      upd: torch.Tensor, pos: torch.Tensor,
                      page_table: torch.Tensor):
@@ -419,26 +454,35 @@ def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
     if pool.device.type != "cuda":
         raise ValueError(
             f"paged_scatter_q8: no kernel for device {pool.device}")
-    if pool.dtype != torch.int8:
-        raise TypeError(f"paged_scatter_q8: the pool must be int8, got "
-                        f"{pool.dtype}")
-    upd, pos, page_table = _scatter_check("paged_scatter_q8", pool, upd, pos,
-                                          page_table, scale_pool)
-    if not (pool.is_contiguous() and scale_pool.is_contiguous()):
-        raise ValueError("paged_scatter_q8: the pools must be contiguous")
-    lib = _build.load("paged_scatter")
-    err = lib.ptt_paged_scatter_q8(
-        upd.data_ptr(), pool.data_ptr(), scale_pool.data_ptr(),
-        page_table.data_ptr(), pos.data_ptr(),
-        *_scatter_geometry(pool, upd, page_table), float(Q8_EPS),
-        float(Q8_RECIP), _build.dtype_code(upd.dtype), pool.device.index,
-        _build.stream_ptr(pool.device))
-    _build.check(lib, err, "paged scatter (int8) kernel launch")
-    QUANT_LAUNCHES["K8-q8"] += 1
+    _k8q8("paged_scatter_q8", [(pool, scale_pool, upd)], pos, page_table)
     return pool, scale_pool
 
 
-# -- K6 and K7: the per-row walk ----------------------------------------------
+def paged_scatter_q8_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
+                          k_scale_pool: torch.Tensor,
+                          v_scale_pool: torch.Tensor, k_upd: torch.Tensor,
+                          v_upd: torch.Tensor, pos: torch.Tensor,
+                          page_table: torch.Tensor):
+    """`paged_scatter_q8` of K and V at the same positions, IN PLACE,
+    returning (k_pool, v_pool, k_scale_pool, v_scale_pool): on the card
+    one K8-q8 launch (the JAX package makes two quantized scatters; one
+    launch computes the same two writes), on the CPU the plain version,
+    one write each."""
+    if k_pool.device.type == "cpu":
+        paged_scatter_q8_reference(k_pool, k_scale_pool, k_upd, pos,
+                                   page_table)
+        paged_scatter_q8_reference(v_pool, v_scale_pool, v_upd, pos,
+                                   page_table)
+        return k_pool, v_pool, k_scale_pool, v_scale_pool
+    if k_pool.device.type != "cuda":
+        raise ValueError(
+            f"paged_scatter_q8_pair: no kernel for device {k_pool.device}")
+    _k8q8("paged_scatter_q8_pair", [(k_pool, k_scale_pool, k_upd),
+                                    (v_pool, v_scale_pool, v_upd)],
+          pos, page_table)
+    return k_pool, v_pool, k_scale_pool, v_scale_pool
+
+
 def _pages_f32(pool: torch.Tensor, scale_pool: Optional[torch.Tensor],
                idx: torch.Tensor) -> torch.Tensor:
     """Pages `idx` (int64, any shape) of a pool as f32
@@ -1414,14 +1458,15 @@ def megakernel_decode_q8(q, k_new, v_new, k_pool, v_pool, k_scale_pool,
                          v_scale_pool, page_table, pos, q_len, *rest,
                          grouped: bool = False, lora: bool = False):
     """The int8 lane of `megakernel_decode`: the LoRA prologue, the
-    quantizing write (K8-q8: codes and rowwise scales), then K7 or K10's
+    quantizing write of K and V (`paged_scatter_q8_pair`: one K8-q8
+    launch, codes and rowwise scales), then K7 or K10's
     q8 lane. `rest` as there. Returns (out, k_pool, v_pool, k_scale_pool,
     v_scale_pool), the pools written IN PLACE."""
     group, rest = _megakernel_split(rest, grouped, lora)
     if lora:
         q, k_new, v_new = _megakernel_lora_prologue(q, k_new, v_new, rest)
-    paged_scatter_q8(k_pool, k_scale_pool, k_new, pos, page_table)
-    paged_scatter_q8(v_pool, v_scale_pool, v_new, pos, page_table)
+    paged_scatter_q8_pair(k_pool, v_pool, k_scale_pool, v_scale_pool, k_new,
+                          v_new, pos, page_table)
     args = (q, k_pool, v_pool, k_scale_pool, v_scale_pool, page_table, pos,
             q_len)
     if grouped:

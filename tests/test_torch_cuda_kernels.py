@@ -377,17 +377,23 @@ def test_layer_norm_bwd_kernel_is_bit_reproducible(cuda):
 
 
 def test_layer_norm_on_the_card_raises_what_the_kernels_cannot_take(cuda):
-    """No plain fallback on the card: a bf16 input with f32 weights, or
-    a width the kernels do not hold, raises."""
+    """No plain fallback on the card: the kernels' wrapper raises for a
+    width that is not a multiple of 16 bytes, a width past MAX_COLS and
+    f64 weights, while the functional LayerNorm routes each of them, by
+    shape before any launch, to the port of the JAX jnp branch."""
     from paddle_tpu_torch.nn import functional as PF
-    x = torch.randn(4, 768, device=cuda, dtype=torch.bfloat16)
-    w, b = torch.ones(768, device=cuda), torch.zeros(768, device=cuda)
-    with pytest.raises(TypeError, match="share a dtype"):
-        PF.layer_norm(x, 768, w, b)
-    x = torch.randn(4, 8192, device=cuda)
-    w, b = torch.ones(8192, device=cuda), torch.zeros(8192, device=cuda)
-    with pytest.raises(ValueError, match="at most"):
-        PF.layer_norm(x, 8192, w, b)
+    cases = [(torch.bfloat16, 100, torch.bfloat16),
+             (torch.float32, tln.MAX_COLS + 4, torch.float32),
+             (torch.float32, 768, torch.float64)]
+    for dtype, cols, wdtype in cases:
+        x = torch.randn(4, cols, device=cuda).to(dtype)
+        w = torch.ones(cols, device=cuda, dtype=wdtype)
+        b = torch.zeros(cols, device=cuda, dtype=wdtype)
+        with pytest.raises((TypeError, ValueError)):
+            tln.layer_norm(x, w, b)
+        before = tln.LAUNCHES
+        y = PF.layer_norm(x, cols, w, b)
+        assert tln.LAUNCHES == before and y.dtype == dtype
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -801,9 +807,9 @@ def test_quantized_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
         tokens[str(dev)] = [r.token_ids for r in res]
         if dev is cuda:
             steps = eng.metrics.unified_steps
-            writes = 4 if kv == "int8" else 2
+            # K and V in one launch a layer in both lanes (K8, K8-q8)
             assert {n: c for n, c in tpa.QUANT_LAUNCHES.items() if c} == \
-                {write: writes * steps, phase1: 2 * steps,
+                {write: 2 * steps, phase1: 2 * steps,
                  phase2: 2 * steps}
             assert tpa.LAUNCHES == 0
             assert tpa.GROUPED_LAUNCHES == {"phase1": 0, "phase2": 0}
@@ -940,8 +946,8 @@ def test_legacy_engine_tokens_on_the_card_equal_the_cpu(cuda, kv):
             want = dict.fromkeys(got, 0)
             want.update(K1=5 * (steps + chunks), K3=2 * chunks)
             want[walk] = 2 * steps
-            if write:
-                want[write] = (4 if kv == "int8" else 2) * (steps + chunks)
+            if write:   # K and V in one launch a layer
+                want[write] = 2 * (steps + chunks)
             assert got == want
     assert tokens["cpu"] == tokens[str(cuda)]
 
@@ -1187,7 +1193,7 @@ def test_megakernel_engine_on_the_card(cuda, kv):
                 steps = eng.metrics.unified_steps
                 counts = dict(tpa.MEGA_LAUNCHES, **{
                     "K8-q8": tpa.QUANT_LAUNCHES["K8-q8"]})
-                assert counts[write] == (4 if kv == "int8" else 2) * steps
+                assert counts[write] == 2 * steps   # K and V in one launch
                 assert counts["K12"] == steps
                 assert counts["K11"] == (8 * steps if lora else 0)
     for key in ((False, False), (True, False), (True, True)):
@@ -1635,7 +1641,7 @@ def test_layer_norm_bwd_kernel_over_widths(cuda, dtype, rows, cols):
     2048): dx, dw and db within the rule of the plain version; dw and db
     the same bits over 20 reruns; its launch whole clusters of 8
     blocks."""
-    cols = min(cols, tln.MAX_COLS[dtype])
+    cols = min(cols, tln.REGISTER_COLS[dtype])
     g = torch.Generator(device=cuda).manual_seed(2)
     mk = lambda *s: torch.randn(*s, generator=g, device=cuda)
     x, dy = (mk(rows, cols) * 2 + 1).to(dtype), mk(rows, cols).to(dtype)
@@ -1653,3 +1659,158 @@ def test_layer_norm_bwd_kernel_over_widths(cuda, dtype, rows, cols):
         assert torch.equal(again[1], got[1]) and torch.equal(again[2],
                                                              got[2])
         assert torch.equal(again[0], got[0])
+
+
+# -- K8-q8 (one write and the pair), K1 at the serving shapes, F11 ----------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [64, 128, 40, 13, 512, 1030])
+@pytest.mark.parametrize("scale", [1.0, 300.0])
+def test_q8_scatter_single_and_pair_equal_the_plain_version(cuda, dtype, d,
+                                                            scale):
+    """K8-q8's codes and scales equal the plain version's bit for bit
+    outside the trash page 0, one write at a time and K and V in one
+    launch (each pool equal to a single write's), at head dims whose
+    rows take 16-byte vectors (64, 128), narrower ones (40 in f32: 160
+    bytes; 13: one element), more than 32 vectors (512) and more than
+    128 (1030: two elements a vector, the row read twice);
+    20 reruns of the pair bit for bit."""
+    (ku, vu), pos, table, shape = _scatter_case(cuda, dtype, d=d,
+                                                scale=scale)
+    ku[0, 0, 0] = 0.0                       # a row at the 1e-8 floor
+    zeros = lambda: (torch.zeros(shape, dtype=torch.int8, device=cuda),
+                     torch.zeros(shape[:3], device=cuda))
+    want = [tpa.paged_scatter_q8_reference(*zeros(), u, pos, table)
+            for u in (ku, vu)]
+    before = tpa.QUANT_LAUNCHES["K8-q8"]
+    one = [tpa.paged_scatter_q8(*zeros(), u, pos, table) for u in (ku, vu)]
+    (kc, ks), (vc, vs) = zeros(), zeros()
+    pair = tpa.paged_scatter_q8_pair(kc, vc, ks, vs, ku, vu, pos, table)
+    torch.cuda.synchronize()
+    assert tpa.QUANT_LAUNCHES["K8-q8"] == before + 3
+    bits = lambda c, s_: (c[1:], s_[1:].view(torch.int32))
+    for got in (one[0], pair[0::2]):
+        assert all(map(torch.equal, bits(*got), bits(*want[0])))
+    for got in (one[1], pair[1::2]):
+        assert all(map(torch.equal, bits(*got), bits(*want[1])))
+    assert torch.isfinite(ks).all() and torch.isfinite(vs).all()
+    for _ in range(20):
+        again = tpa.paged_scatter_q8_pair(*zeros()[:1], *zeros()[:1],
+                                          *zeros()[1:], *zeros()[1:], ku, vu,
+                                          pos, table)
+        assert all(torch.equal(a[1:], b[1:]) for a, b in zip(again, pair))
+
+
+def test_q8_scatter_takes_unaligned_updates(cuda):
+    """An update view off the 16-byte boundary takes a narrower vector,
+    with the plain version's bits."""
+    (ku, _), pos, table, shape = _scatter_case(cuda, torch.bfloat16)
+    ku = torch.cat([ku.new_zeros(1), ku.reshape(-1)])[1:].view(ku.shape)
+    assert ku.data_ptr() % 16 == 2
+    zeros = lambda: (torch.zeros(shape, dtype=torch.int8, device=cuda),
+                     torch.zeros(shape[:3], device=cuda))
+    got = tpa.paged_scatter_q8(*zeros(), ku, pos, table)
+    want = tpa.paged_scatter_q8_reference(*zeros(), ku, pos, table)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0][1:], want[0][1:])
+    assert torch.equal(got[1][1:], want[1][1:])
+
+
+def _ln_case(cuda, rows, cols, dtype, wdtype=None, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    mk = lambda *s: torch.randn(*s, generator=g, device=cuda)
+    wdtype = dtype if wdtype is None else wdtype
+    return ((mk(rows, cols) * 2 + 1).to(dtype), mk(cols).to(wdtype),
+            mk(cols).to(wdtype), mk(rows, cols).to(dtype))
+
+
+@pytest.mark.parametrize("rows", [512, 16, 16384])
+def test_layer_norm_kernel_at_the_serving_shapes(cuda, rows):
+    """K1 at [512, 768] (the serving step), [16, 768] (the legacy decode
+    step) and [16384, 768] (the training step) in bf16: within the rule
+    of the plain version, 20 reruns bit for bit, a warp a row in blocks
+    of four at the exact vector count a lane, w and b loaded with x up
+    to two blocks an SM (the serving shapes) and after the statistics
+    past that (the training shape)."""
+    x, w, b, _ = _ln_case(cuda, rows, 768, torch.bfloat16)
+    plan = tln.layer_norm_plan(rows, 768, torch.bfloat16, cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert plan["per_lane"] == 3 and not plan["wide"], plan
+    assert plan["threads"] == 128 and plan["grid"] == -(-rows // 4), plan
+    assert plan["early"] == (plan["grid"] <= 2 * sms), plan
+    y = tln.layer_norm(x, w, b, 1e-5)
+    torch.cuda.synchronize()
+    _close(y, tln.layer_norm_reference(x, w, b, 1e-5))
+    for _ in range(20):
+        assert torch.equal(tln.layer_norm(x, w, b, 1e-5), y)
+
+
+@pytest.mark.parametrize("dtype,rows,cols", [
+    (torch.float32, 64, 2560), (torch.float32, 64, 4096),
+    (torch.bfloat16, 64, 5120), (torch.bfloat16, 8, 65536),
+    (torch.float16, 64, 5120), (torch.float32, 4, 65536),
+    (torch.float16, 3, 40960)])
+def test_layer_norm_wide_lane(cuda, dtype, rows, cols):
+    """F11: K1 and K2 at rows past the register lanes (GPT-3's 2560 and
+    4096 in f32, 5120 in bf16 and f16, up to 65536 columns: a block a
+    row, the row staged in shared memory where it fits) within the rule
+    of the plain versions; dw and db the same bits over 20 reruns."""
+    x, w, b, dy = _ln_case(cuda, rows, cols, dtype)
+    plan = tln.layer_norm_plan(rows, cols, dtype, cuda)
+    bplan = tln.layer_norm_bwd_plan(rows, cols, dtype, cuda)
+    assert plan["wide"] == (cols > tln.REGISTER_COLS[dtype]) == bplan["wide"]
+    y = tln.layer_norm(x, w, b, 1e-5)
+    got = tln.layer_norm_bwd(dy, x, w, 1e-5)
+    torch.cuda.synchronize()
+    _close(y, tln.layer_norm_reference(x, w, b, 1e-5))
+    for a, ref in zip(got, tln.layer_norm_bwd_reference(dy, x, w, 1e-5)):
+        assert a.dtype == dtype
+        _close(a, ref)
+    for _ in range(20):
+        again = tln.layer_norm_bwd(dy, x, w, 1e-5)
+        assert all(map(torch.equal, again, got))
+
+
+@pytest.mark.parametrize("dtype,wdtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.float16, torch.float32), (torch.bfloat16, torch.float16)])
+@pytest.mark.parametrize("cols", [768, 5120])
+def test_layer_norm_weights_of_another_dtype(cuda, dtype, wdtype, cols):
+    """F11: w and b of another dtype than x: y and dx in x's dtype, dw
+    and db in w's, within the rule of the plain versions (which convert
+    w to f32 as the kernels do); the functional LayerNorm takes the
+    kernels."""
+    x, w, b, dy = _ln_case(cuda, 256, cols, dtype, wdtype, seed=3)
+    before = (tln.LAUNCHES, tln.BWD_LAUNCHES)
+    xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = PF.layer_norm(xg, cols, wg, bg)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (tln.LAUNCHES, tln.BWD_LAUNCHES) == (before[0] + 1,
+                                                before[1] + 1)
+    assert y.dtype == xg.grad.dtype == dtype
+    assert wg.grad.dtype == bg.grad.dtype == wdtype
+    _close(y, tln.layer_norm_reference(x, w, b, 1e-5))
+    for a, ref in zip((xg.grad, wg.grad, bg.grad),
+                      tln.layer_norm_bwd_reference(dy, x, w, 1e-5)):
+        _close(a, ref)
+
+
+def test_layer_norm_at_a_misaligned_width_takes_the_jnp_branch(cuda):
+    """F11: width 100 in bf16 (200 bytes) launches no kernel: the
+    functional LayerNorm is the port of the JAX jnp branch on the card,
+    equal within the rule to the same function on the CPU, with
+    gradients."""
+    from paddle_tpu_torch.nn.functional.norm import _ln_jnp
+    x, w, b, dy = _ln_case(cuda, 64, 100, torch.bfloat16, seed=5)
+    xg = x.clone().requires_grad_(True)
+    before = (tln.LAUNCHES, tln.BWD_LAUNCHES)
+    y = PF.layer_norm(xg, 100, w, b)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (tln.LAUNCHES, tln.BWD_LAUNCHES) == before
+    xc = x.cpu().requires_grad_(True)
+    want = _ln_jnp(xc, w.cpu(), b.cpu(), 1, 1e-5)
+    want.backward(dy.cpu())
+    _close(y.cpu(), want)
+    _close(xg.grad.cpu(), xc.grad)
