@@ -17,7 +17,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    lora_paged.cu: K11; greedy_argmax.cu: K12; one nvcc per source, all
    at once) and print the build time, the card's name and power limit,
    each library's register and spill report, each tensor-core flash
-   kernel's registers and spill stores, and those of the walk (K6/K7,
+   kernel's registers and spill stores, every K1 and K2 instantiation's
+   (into their records: the count, the most registers, the spilling
+   ones), and those of the walk (K6/K7,
    K9 and K10 are one kernel, `ring_walk_kernel`, built into each of
    their libraries) and K11 (the serving step's bf16 head-dim-64
    instantiation of each K10 phase and of K6 and K9 without and with a
@@ -48,10 +50,11 @@ Phases, each reported on its own line; any failure exits non-zero:
    K9 there and at rep 128 / head dim 256 equal to K6 at q_len 1. K2 at
    [16384, 768] in bf16, f32 and f16 and at [512, 768] in bf16, 20
    reruns bit for bit, each timed beside its bound. F11: K1 and K2 at
-   GPT-3's widths (2560 and 4096 in f32, 5120 in bf16: the wide lanes)
-   and at 65536 columns, and with f32 weights under bf16 activations,
-   against their plain versions, dx, dw and db 20 reruns bit for bit,
-   timed beside their bounds; the functional LayerNorm at width 100 in
+   GPT-3's widths (2560 and 4096 in f32, 5120 in bf16 at 64 rows and at
+   phase 7's 2048: the wide lanes) and at 65536 columns, and with f32
+   weights under bf16 activations, against their plain versions, dx, dw
+   and db 20 reruns bit for bit, timed beside their bounds, their plain
+   versions and the library's calls; the functional LayerNorm at width 100 in
    bf16 launches nothing and equals the port of the JAX jnp branch on
    the CPU. K8 and K8-q8
    write the serving step's [16, 32, 12, 64] K rows (and again at 300x
@@ -349,6 +352,46 @@ def ptxas_rows(text: str, symbol: str) -> list:
 DTYPE_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
+def template_args(mangled: str) -> list:
+    """The template arguments of a mangled kernel name's argument list
+    (the text after its `I`): type names, `f` for float, a substitution
+    (`S1_`: a type named before) as that type, integers as digits."""
+    args, names, i = [], [], 0
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group(0)
+            name = mangled[i + len(n):i + len(n) + int(n)]
+            names.append(name)
+            args.append(DTYPE_NAMES.get(f"{n}{name}", name))
+            i += len(n) + int(n)
+        elif mangled[i] == "L":
+            lit = re.match(r"L[a-z](\d+)E", mangled[i:])
+            args.append(lit.group(1))
+            i += len(lit.group(0))
+        elif mangled[i] == "S":
+            sub = re.match(r"S(\d*)_", mangled[i:])
+            args.append(args[0] if args else "?")
+            i += len(sub.group(0))
+        else:
+            args.append(DTYPE_NAMES.get(mangled[i], mangled[i]))
+            i += 1
+    return args
+
+
+def ln_ptxas(text: str) -> list:
+    """[(kernel, registers, spill store bytes)] of each instantiation in
+    the `-Xptxas -v` log of layer_norm.cu (K1 and K2, their wide lanes
+    and K2's column sums), named like `ln_fwd_kernel<bf16, f32, 3>` (x's
+    dtype, the weights', then the vectors a lane)."""
+    rows = []
+    for name, regs, spill in ptxas_rows(text, "ln_"):
+        kind = re.search(r"(ln_\w+?_kernel)I(\w+)", name)
+        if kind:
+            args = template_args(kind.group(2))
+            rows.append((f"{kind.group(1)}<{', '.join(args)}>", regs, spill))
+    return rows
+
+
 def tensor_core_ptxas(text: str) -> list:
     """[(kernel, registers, spill store bytes)] of each tensor-core flash
     instantiation in the `-Xptxas -v` log of flash_attention.cu, named
@@ -465,11 +508,13 @@ def check_layer_norm(dev, tln, time_ms):
 
 # F11's shapes in phase 2: (rows, cols, x's dtype, w's dtype): GPT-3
 # 2.7B's and 6.7B's widths in f32 and 13B's in bf16 (Brown et al. 2020,
-# Table 2.1), the widest row the kernels take, and f32 weights under bf16
+# Table 2.1; [2048, 5120] is phase 7's step), the widest row the kernels
+# take, and f32 weights under bf16
 # activations at GPT-124M's and GPT-3 13B's widths
 LN_F11_SHAPES = ((64, 2560, torch.float32, torch.float32),
                  (64, 4096, torch.float32, torch.float32),
                  (64, 5120, torch.bfloat16, torch.bfloat16),
+                 (2048, 5120, torch.bfloat16, torch.bfloat16),
                  (8, 65536, torch.bfloat16, torch.bfloat16),
                  (512, 768, torch.bfloat16, torch.float32),
                  (64, 5120, torch.bfloat16, torch.float32))
@@ -481,8 +526,11 @@ def check_layer_norm_f11(dev, tln, time_ms):
     """F11: K1 and K2 at LN_F11_SHAPES against their plain versions (the
     rows past the register lanes take the wide lanes; w and b of another
     dtype than x are converted to f32 in the kernels), dx, dw and db 20
-    reruns bit for bit, each timed beside its bound with its lane; and
-    the functional LayerNorm at width LN_JNP_WIDTH in bf16, which the
+    reruns bit for bit, each timed beside its bound, its plain version
+    and the library's call (`F.layer_norm`; `native_layer_norm_backward`
+    given the saved statistics, as in `check_layer_norm_bwd`; null where
+    the library refuses the dtypes) with its lane; and the functional
+    LayerNorm at width LN_JNP_WIDTH in bf16, which the
     kernels do not take: no launch, the port of the JAX jnp branch on the
     card against the same function on the CPU. Returns ({shape: K1's
     record}, {shape: K2's record})."""
@@ -511,6 +559,19 @@ def check_layer_norm_f11(dev, tln, time_ms):
                   lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
         ms1 = time_ms(lambda: tln.layer_norm(x, w, b, 1e-5))
         ms2 = time_ms(lambda: tln.layer_norm_bwd(dy, x, w, 1e-5))
+        plain1 = time_ms(lambda: tln.layer_norm_reference(x, w, b, 1e-5))
+        plain2 = time_ms(lambda: tln.layer_norm_bwd_reference(dy, x, w,
+                                                               1e-5))
+        lib1 = library_ms(time_ms, lambda: torch.nn.functional.layer_norm(
+            x, (cols,), w, b, 1e-5))
+        try:
+            _, mean, rstd = torch.ops.aten.native_layer_norm(
+                x, [cols], w, b, 1e-5)
+            lib2 = library_ms(
+                time_ms, lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [cols], mean, rstd, w, b, [True, True, True]))
+        except RuntimeError:
+            lib2 = None
         xs, ws = x.element_size(), w.element_size()
         b1 = bound(2 * rows * cols * xs + 2 * cols * ws, 8 * rows * cols,
                    F32_FLOPS)
@@ -519,13 +580,16 @@ def check_layer_norm_f11(dev, tln, time_ms):
         p1 = tln.layer_norm_plan(rows, cols, dtype, dev, wdtype)
         p2 = tln.layer_norm_bwd_plan(rows, cols, dtype, dev, wdtype)
         lane = "wide" if p1["wide"] else "register"
-        log(f"  F11 {tag} ({lane} lane): K1 {ms1:.4f} ms (bound "
-            f"{b1[0]:.5f}), K2 {ms2:.4f} ms (bound {b2[0]:.5f}); launches "
-            f"{p1}, {p2}")
-        fwd[tag] = dict(ms=ms1, bound_ms=b1[0], bound_by=b1[1],
-                        max_abs_err=err1, launch=p1)
-        bwd[tag] = dict(ms=ms2, bound_ms=b2[0], bound_by=b2[1],
-                        max_abs_err=err2, launch=p2)
+        log(f"  F11 {tag} ({lane} lane): K1 {ms1:.4f} ms (plain "
+            f"{plain1:.4f}, F.layer_norm {lib1}, bound {b1[0]:.5f}), K2 "
+            f"{ms2:.4f} ms (plain {plain2:.4f}, native_layer_norm_backward "
+            f"{lib2}, bound {b2[0]:.5f}); launches {p1}, {p2}")
+        fwd[tag] = dict(ms=ms1, plain_ms=plain1, library_ms=lib1,
+                        bound_ms=b1[0], bound_by=b1[1], max_abs_err=err1,
+                        launch=p1)
+        bwd[tag] = dict(ms=ms2, plain_ms=plain2, library_ms=lib2,
+                        bound_ms=b2[0], bound_by=b2[1], max_abs_err=err2,
+                        launch=p2)
     cols = LN_JNP_WIDTH
     x = (torch.randn(64, cols, generator=g, device=dev) * 2 + 1).to(
         torch.bfloat16).requires_grad_(True)
@@ -546,6 +610,16 @@ def check_layer_norm_f11(dev, tln, time_ms):
     fwd[f"jnp branch [64, {cols}] bf16"] = dict(max_abs_err=err,
                                                 launches=0)
     return fwd, bwd
+
+
+def library_ms(time_ms, fn):
+    """time_ms(fn), or None where the library call refuses its inputs
+    (a RuntimeError, such as a dtype pairing it does not take)."""
+    try:
+        fn()
+    except RuntimeError:
+        return None
+    return time_ms(fn)
 
 
 # K2's shapes in phase 2: (rows, dtype), the first the record's: the
@@ -2894,16 +2968,21 @@ def main() -> int:
         spills = re.findall(r"(\d+) bytes spill stores", text)
         log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
             f"registers, {sum(int(n) > 0 for n in spills)} with spill stores")
-        if name in ("layer_norm", "paged_scatter") and text:
-            for kernel, n_regs, spill in ptxas_rows(
-                    text, "ln_bwd_kernel" if name == "layer_norm" else
-                    "scatter_tile_kernel"):
-                k = re.search(r"ln_bwd_kernelI(\w+?)Li(\d+)E", kernel)
-                short = (f"K2<{DTYPE_NAMES.get(k.group(1), k.group(1))}, "
-                         f"NV {k.group(2)}>" if k else kernel[:60])
-                if name == "layer_norm" or spill:
-                    log(f"    {short}: {n_regs} registers, {spill} bytes "
-                        "of spill stores")
+        if name == "paged_scatter" and text:
+            for kernel, n_regs, spill in ptxas_rows(text,
+                                                    "scatter_tile_kernel"):
+                if spill:
+                    log(f"    {kernel[:60]}: {n_regs} registers, {spill} "
+                        "bytes of spill stores")
+        if name == "layer_norm" and text:
+            rows = ln_ptxas(text)
+            for kernel, n_regs, spill in rows:
+                log(f"    {kernel}: {n_regs} registers, {spill} bytes of "
+                    "spill stores")
+            ptxas["K1/K2"] = {
+                "instantiations": len(rows),
+                "max_registers": max(r[1] for r in rows),
+                "spilling": [r[0] for r in rows if r[2]]}
         if name == "flash_attention":
             for kernel, n_regs, spill in tensor_core_ptxas(text):
                 log(f"    {kernel}: {n_regs} registers at launch, {spill} "
@@ -2976,7 +3055,7 @@ def main() -> int:
     kernels["K11"] = check_lora_paged(dev, tpa, timer)
     for key, lib in (("K9", "K9"), ("K9-fp8", "K9"), ("K11", "K11"),
                      ("K6", "K6 ring"), ("K6-fp8", "K6 ring"),
-                     ("K7", "K6 ring")):
+                     ("K7", "K6 ring"), ("K1", "K1/K2"), ("K2", "K1/K2")):
         kernels[key]["ptxas"] = ptxas.get(lib)
     kernels["K12"] = check_greedy_argmax(dev, tpa, timer)
     torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 // K1 and K2: fused LayerNorm forward and backward for Hopper (sm_90a).
 //
-// Both take x (and dy) of type T and w, b of type W, each f32, bf16 or
-// f16 whatever the other is: w and b are read and converted to f32 in
-// the kernel, as the TPU kernels cast them in their bodies. y and dx
-// come out in T, dw and db in W. Rows are `cols` wide, a multiple of
+// Both take x (and dy) of type T and w, b of type W, T or f32: w and b
+// are read and converted to f32 in the kernel, as the TPU kernels cast
+// them in their bodies (the wrapper converts weights of any other dtype
+// to f32 first, which is exact). y and dx come out in T, dw and db in
+// W. Rows are `cols` wide, a multiple of
 // the 16-byte vector of T, up to 65536 columns (the JAX package's
 // limit); the wrapper routes every other width to plain torch, as the
 // JAX package routes it to jnp.
@@ -25,24 +26,26 @@
 // (lane i takes vectors i, i + 32, ...), so both statistics come from
 // registers through two warp-shuffle reductions and the row crosses
 // device memory exactly once each way. Where the grid is at most two
-// blocks an SM (the serving steps: [512, 768] is 128 blocks), the lane's
-// w and b vectors are loaded with the row's, before the first reduction,
-// so one trip to memory feeds the whole row; on a larger grid (the
-// training step's 4096 blocks) they load after the statistics, as
-// before: held through the row's loads they cost the occupancy the
-// stream needs (0.0218 against 0.0194 ms at [16384, 768] in turns on an
-// H100). Each vector count a lane (NV) up to 16 has its instantiation
-// where a common width lands (3 at 768 columns in bf16, 6 in f32), so no
-// dead iteration holds registers. Four rows (four warps) per block. On
-// an H100 a launch that does nothing takes 0.0019 ms back to back and
-// K1 at [16, 768] 0.0026, so at serving sizes the launch and one trip
-// to memory are the call. Blocks of one warp, a grid capped at one wave
-// with a warp looping over rows, the next row's loads issued before a
-// row folds, and x held as raw vectors (72 registers; 3 % slower at the
-// training shape) were each timed against these in turns and were no
-// faster (`ln_scatter_turns`). The per-lane sum order and the shuffle
-// tree are those of every earlier version, so y keeps its bits at every
-// width the kernel took.
+// blocks an SM (the serving steps: [512, 768] is 128 blocks) and a
+// lane's x, w and b fit 128 registers (`early_fits`: up to 8 vectors a
+// lane, 4 with f32 weights under 16-bit x), the lane's w and b vectors
+// are loaded with the row's, before the first reduction, so one trip to
+// memory feeds the whole row (0.00294 against 0.00355 ms at [512, 768]
+// bf16 in turns on an H100); on a larger grid (the training step's 4096
+// blocks) or a wider row they load after the statistics: held through
+// the row's loads they cost the occupancy the stream needs (0.0218
+// against 0.0194 ms at [16384, 768]) or spill. Each vector count a lane
+// (NV) up to 16 has its instantiation where a common width lands (3 at
+// 768 columns in bf16, 6 in f32), so no dead iteration holds registers.
+// Four rows (four warps) per block. On an H100 a launch that does
+// nothing takes 0.0019 ms back to back and K1 at [16, 768] 0.0026, so at
+// serving sizes the launch and one trip to memory are the call. Blocks
+// of one warp, a grid capped at one wave with a warp looping over rows,
+// the next row's loads issued before a row folds, and x held as raw
+// vectors (72 registers; 3 % slower at the training shape) were each
+// timed against these in turns and were no faster (`ln_scatter_turns`).
+// The per-lane sum order and the shuffle tree are those of every
+// earlier version, so y keeps its bits at every width the kernel took.
 // The wide lane (rows past 16 vectors a lane, up to 65536 columns): a
 // block of 512 threads a row, thread t taking vectors t, t + 512, ...;
 // the row is staged in shared memory where it fits (65536 bf16 columns
@@ -87,17 +90,26 @@
 //     atomic, reset by that block for the next launch) sums the
 //     clusters' partials of the slice in cluster order and rounds once
 //     to w's dtype.
-// The wide lane (rows past 16 vectors a lane): persistent blocks of 512
-// threads, a block a row at a time (block k takes rows k, k + blocks,
-// ...), x and dy staged in shared memory where both fit; the four row
-// statistics are block sums in a fixed order (each warp's shuffle tree,
-// then the warps in order). Thread t owns the columns of vectors t,
-// t + 512, ... and adds each row's dy * xhat and dy into its block's f32
-// partials in device memory, row after row; the last block to finish
-// (one ticket) sums the blocks' partials column by column in block order
-// and rounds once to w's dtype, so dw and db are the same bits on every
-// run here too.
+// The wide lane (rows past 16 vectors a lane): two launches. First,
+// persistent blocks of 512 threads (at most two an SM), a block a row at
+// a time (block k takes rows k, k + blocks, ...), x and dy staged in
+// shared memory where both fit; the row statistics are two block sums
+// in a fixed order (each warp's shuffle tree, then the warps in order):
+// the sums of x and of a = dy * w, then those of (x - mean)^2 and of
+// a * (x - mean), so mean(a * xhat) is rstd times the latter's mean and
+// a row waits on two block sums, not three; a thread's first two vectors
+// of the block's next row load while they run (`preload`; K1's wide lane
+// likewise). Thread t owns the columns of vectors t, t + 512, ... and
+// adds each row's dy * xhat and dy to the block's f32 partials of them,
+// in shared memory where they fit beside the row (18944 bf16 columns)
+// and in device memory past that, row after row, so they hold no
+// registers. Second, a grid of 2 x cols / 32
+// blocks sums the blocks' partials column by column, each warp a run of
+// blocks in block order and then the warps in order, and rounds once to
+// w's dtype, so dw and db are the same bits on every run here too.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -139,9 +151,20 @@ struct WVec {
   }
 };
 
+// the dtype code (ptt::DType) of T
+template <typename T>
+constexpr int dtype_code() {
+  return std::is_same<T, float>::value           ? ptt::kF32
+         : std::is_same<T, __nv_bfloat16>::value ? ptt::kBF16
+                                                 : ptt::kF16;
+}
+
 // the wide lanes' block size
 constexpr int kWideThreads = 512;
 constexpr int kWideWarps = kWideThreads / 32;
+// and runs at most this many blocks an SM: its partials, nb x 2 x cols
+// f32, are written once and read once by the second launch
+constexpr int kWideBlocksPerSm = 2;
 
 // the block's sums of a[0..N) (every thread gets them), in a fixed order:
 // each warp's shuffle tree, then the warps in order. red: [N][kWideWarps]
@@ -175,6 +198,25 @@ inline int wide_smem_limit(int device) {
   return optin - 1024;
 }
 
+// the wide lanes' first kPre vectors of a thread's share of a row (t,
+// t + kWideThreads, ...): each block loads its next row's into registers
+// as soon as the current row's first pass has consumed them, so the next
+// row's trip to memory overlaps the current row's block sums
+constexpr int kPre = 2;
+
+template <typename T>
+__device__ __forceinline__ void preload(uint4 (&v)[kPre],
+                                        const T* __restrict__ p, int row,
+                                        int rows, int cols, int nvec) {
+  if (row >= rows) return;
+  const uint4* r = reinterpret_cast<const uint4*>(p + (size_t)row * cols);
+#pragma unroll
+  for (int i = 0; i < kPre; ++i) {
+    const int c = threadIdx.x + i * kWideThreads;
+    if (c < nvec) v[i] = __ldg(r + c);
+  }
+}
+
 // ---- K1 ---------------------------------------------------------------------
 
 constexpr int kWarps = 4;  // the register lane's warps a block, at most
@@ -193,7 +235,7 @@ __global__ void __launch_bounds__(kWarps * 32)
   const int row = blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (row >= rows) return;
   const int nvec = cols / E;
-  WVec<W, E> wv[NV], bv[NV];
+  WVec<W, E> wv[kEarly ? NV : 1], bv[kEarly ? NV : 1];
   if constexpr (kEarly) {  // issued before x's: one trip to memory
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
@@ -272,18 +314,28 @@ __global__ void __launch_bounds__(kWideThreads)
   uint4* srow = reinterpret_cast<uint4*>(smem);
   __shared__ float red[kWideWarps];
   const int nvec = cols / E;
+  uint4 px[kPre];
+  preload(px, x, blockIdx.x, rows, cols, nvec);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * cols);
     // each thread re-reads only the vectors it staged: no barrier needed
     auto vec = [&](int c) { return stage ? srow[c] : __ldg(xr + c); };
     float s[1] = {0.f};
-    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
-      const uint4 raw = __ldg(xr + c);
+    auto load_pass = [&](int c, const uint4& raw) {
       if (stage) srow[c] = raw;
       const T* e = reinterpret_cast<const T*>(&raw);
 #pragma unroll
       for (int k = 0; k < E; ++k) s[0] += ptt::to_f32<T>(e[k]);
+    };
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      const int c = threadIdx.x + i * kWideThreads;
+      if (c < nvec) load_pass(c, px[i]);
     }
+    for (int c = threadIdx.x + kPre * kWideThreads; c < nvec;
+         c += kWideThreads)
+      load_pass(c, __ldg(xr + c));
+    preload(px, x, row + gridDim.x, rows, cols, nvec);
     block_sums(s, red);
     const float mean = s[0] / cols;
     s[0] = 0.f;
@@ -340,8 +392,19 @@ inline cudaError_t resident_blocks(const void* fn, int threads, int smem,
   return cudaSuccess;
 }
 
-// w and b load early where the grid is at most this many blocks an SM
+// w and b load early where the grid is at most this many blocks an SM,
+// and where x, w and b of a lane fit this many registers (the kEarly
+// instantiations: NV up to 8 with weights of x's dtype, 4 with f32
+// weights under bf16 or f16 x)
 constexpr int kEarlyBlocksPerSm = 2;
+constexpr int kEarlyRegs = 128;
+
+template <typename T, typename W, int NV>
+constexpr bool early_fits() {
+  constexpr int E = 16 / sizeof(T);
+  return NV * (E + 2 * static_cast<int>(sizeof(WVec<W, E>)) / 4) <=
+         kEarlyRegs;
+}
 
 template <typename T, typename W, int NV>
 FwdLaunch fwd_launch_nv(int rows, int device) {
@@ -349,10 +412,14 @@ FwdLaunch fwd_launch_nv(int rows, int device) {
   const cudaError_t err =
       cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   const int blocks = (rows + kWarps - 1) / kWarps;
-  const bool early = blocks <= kEarlyBlocksPerSm * sms;
   const void* fn =
-      early ? reinterpret_cast<const void*>(ln_fwd_kernel<T, W, NV, true>)
-            : reinterpret_cast<const void*>(ln_fwd_kernel<T, W, NV, false>);
+      reinterpret_cast<const void*>(ln_fwd_kernel<T, W, NV, false>);
+  bool early = false;
+  if constexpr (early_fits<T, W, NV>()) {
+    early = blocks <= kEarlyBlocksPerSm * sms;
+    if (early)
+      fn = reinterpret_cast<const void*>(ln_fwd_kernel<T, W, NV, true>);
+  }
   return FwdLaunch{fn, blocks > 0 ? blocks : 1, kWarps * 32, NV, 0,
                    early ? 1 : 0, 0, err};
 }
@@ -390,19 +457,12 @@ FwdLaunch fwd_launch(int rows, int cols, int device) {
   return fwd_launch_wide<T, W>(rows, cols, device);
 }
 
-// the launch of x's dtype T against each weight dtype
+// the launch of x's dtype T against its weights' dtype: T or f32
 template <typename T>
 FwdLaunch fwd_launch_w(int wdtype, int rows, int cols, int device) {
-  switch (wdtype) {
-    case ptt::kF32:
-      return fwd_launch<T, float>(rows, cols, device);
-    case ptt::kBF16:
-      return fwd_launch<T, __nv_bfloat16>(rows, cols, device);
-    case ptt::kF16:
-      return fwd_launch<T, __half>(rows, cols, device);
-    default:
-      return FwdLaunch{nullptr, 0, 0, 0, 0, 0, 0, cudaErrorInvalidValue};
-  }
+  if (wdtype == ptt::kF32) return fwd_launch<T, float>(rows, cols, device);
+  if (wdtype == dtype_code<T>()) return fwd_launch<T, T>(rows, cols, device);
+  return FwdLaunch{nullptr, 0, 0, 0, 0, 0, 0, cudaErrorInvalidValue};
 }
 
 FwdLaunch fwd_launch_of(int dtype, int wdtype, int rows, int cols,
@@ -694,24 +754,34 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   if (threadIdx.x == 0) tickets[r] = 0;  // ready for the next launch
 }
 
-// K2's wide lane: a block a row (see the top). part: [gridDim.x][2 *
-// cols] f32, this block's dw then db partials; tickets[0]: zero between
-// launches, left zero
+// K2's wide lane, its first launch: a block a row (see the top). The
+// dynamic shared memory holds x's and dy's row where `stage` (else they
+// are re-read), then this block's f32 partials of dw and db where
+// `spart` (else they live in `part` only). part: [gridDim.x][2 * cols]
+// f32, this block's dw then db partials, summed by ln_bwd_colsum_kernel.
+// Two block sums a row: (sum x, sum a) with a = dy * w, then
+// (sum (x - mean)^2, sum a * (x - mean)), so mean(a * xhat) is rstd
+// times the second's mean.
 template <typename T, typename W>
 __global__ void __launch_bounds__(kWideThreads)
     ln_bwd_wide_kernel(const T* __restrict__ dy, const T* __restrict__ x,
                        const W* __restrict__ w, T* __restrict__ dx,
-                       W* __restrict__ dw, W* __restrict__ db,
-                       float* __restrict__ part, int* __restrict__ tickets,
-                       int rows, int cols, float eps, int stage) {
+                       float* __restrict__ part, int rows, int cols,
+                       float eps, int stage, int spart) {
   constexpr int E = 16 / sizeof(T);
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float red[2 * kWideWarps];
-  __shared__ bool last;
   const int nvec = cols / E;
   uint4* sx = reinterpret_cast<uint4*>(smem);
   uint4* sdy = sx + nvec;
   float* mine = part + (size_t)blockIdx.x * 2 * cols;
+  // the partials this block adds its rows into: thread t owns the
+  // columns of its vectors there, so no barrier guards them
+  float* acc =
+      spart ? reinterpret_cast<float*>(smem + 2 * 16 * (size_t)nvec) : mine;
+  uint4 px[kPre], pd[kPre];
+  preload(px, x, blockIdx.x, rows, cols, nvec);
+  preload(pd, dy, blockIdx.x, rows, cols, nvec);
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const uint4* xr = reinterpret_cast<const uint4*>(x + (size_t)row * cols);
     const uint4* dyr =
@@ -720,32 +790,34 @@ __global__ void __launch_bounds__(kWideThreads)
     auto xvec = [&](int c) { return stage ? sx[c] : __ldg(xr + c); };
     auto dyvec = [&](int c) { return stage ? sdy[c] : __ldg(dyr + c); };
     float s[2] = {0.f, 0.f};
-    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
-      const uint4 raw = __ldg(xr + c);
+    auto load_pass = [&](int c, const uint4& xraw, const uint4& draw) {
       if (stage) {
-        sx[c] = raw;
-        sdy[c] = __ldg(dyr + c);
+        sx[c] = xraw;
+        sdy[c] = draw;
       }
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int k = 0; k < E; ++k) s[0] += ptt::to_f32<T>(e[k]);
-    }
-    float m[1] = {s[0]};
-    block_sums(m, red);
-    const float mean = m[0] / cols;
-    m[0] = 0.f;
-    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
-      const uint4 raw = xvec(c);
-      const T* e = reinterpret_cast<const T*>(&raw);
+      WVec<W, E> wv;
+      wv.load(w + (size_t)c * E);
+      const T* xe = reinterpret_cast<const T*>(&xraw);
+      const T* de = reinterpret_cast<const T*>(&draw);
 #pragma unroll
       for (int k = 0; k < E; ++k) {
-        const float d = ptt::to_f32<T>(e[k]) - mean;
-        m[0] += d * d;
+        s[0] += ptt::to_f32<T>(xe[k]);
+        s[1] += ptt::to_f32<T>(de[k]) * wv.at(k);
       }
+    };
+#pragma unroll
+    for (int i = 0; i < kPre; ++i) {
+      const int c = threadIdx.x + i * kWideThreads;
+      if (c < nvec) load_pass(c, px[i], pd[i]);
     }
-    block_sums(m, red);
-    const float rstd = rsqrtf(m[0] / cols + eps);
-    const bool first = row == static_cast<int>(blockIdx.x);
+    for (int c = threadIdx.x + kPre * kWideThreads; c < nvec;
+         c += kWideThreads)
+      load_pass(c, __ldg(xr + c), __ldg(dyr + c));
+    preload(px, x, row + gridDim.x, rows, cols, nvec);
+    preload(pd, dy, row + gridDim.x, rows, cols, nvec);
+    block_sums(s, red);
+    const float mean = s[0] / cols;
+    const float m1 = s[1] / cols;
     s[0] = s[1] = 0.f;
     for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
       const uint4 xraw = xvec(c), draw = dyvec(c);
@@ -753,20 +825,39 @@ __global__ void __launch_bounds__(kWideThreads)
       wv.load(w + (size_t)c * E);
       const T* xe = reinterpret_cast<const T*>(&xraw);
       const T* de = reinterpret_cast<const T*>(&draw);
+#pragma unroll
+      for (int k = 0; k < E; ++k) {
+        const float d = ptt::to_f32<T>(xe[k]) - mean;
+        s[0] += d * d;
+        s[1] += ptt::to_f32<T>(de[k]) * wv.at(k) * d;
+      }
+    }
+    block_sums(s, red);
+    const float rstd = rsqrtf(s[0] / cols + eps);
+    const float m2 = rstd * s[1] / cols;
+    const bool first = row == static_cast<int>(blockIdx.x);
+    uint4* dxr = reinterpret_cast<uint4*>(dx + (size_t)row * cols);
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
+      const uint4 xraw = xvec(c), draw = dyvec(c);
+      WVec<W, E> wv;
+      wv.load(w + (size_t)c * E);
+      const T* xe = reinterpret_cast<const T*>(&xraw);
+      const T* de = reinterpret_cast<const T*>(&draw);
+      uint4 out;
+      T* oe = reinterpret_cast<T*>(&out);
       float pw[E], pb[E];
 #pragma unroll
       for (int k = 0; k < E; ++k) {
         const float g = ptt::to_f32<T>(de[k]);
         const float xhat = (ptt::to_f32<T>(xe[k]) - mean) * rstd;
-        const float a = g * wv.at(k);
-        s[0] += a;
-        s[1] += a * xhat;
+        oe[k] = ptt::from_f32<T>(rstd * (g * wv.at(k) - m1 - xhat * m2));
         pw[k] = g * xhat;
         pb[k] = g;
       }
-      // this block's partials of the vector's columns: its rows in order
-      float4* rw = reinterpret_cast<float4*>(mine + (size_t)c * E);
-      float4* rb = reinterpret_cast<float4*>(mine + cols + (size_t)c * E);
+      dxr[c] = out;
+      // the vector's columns' partials: this block's rows in order
+      float4* rw = reinterpret_cast<float4*>(acc + (size_t)c * E);
+      float4* rb = reinterpret_cast<float4*>(acc + cols + (size_t)c * E);
 #pragma unroll
       for (int f = 0; f < E / 4; ++f) {
         float4 sw = make_float4(0.f, 0.f, 0.f, 0.f), sb = sw;
@@ -786,54 +877,64 @@ __global__ void __launch_bounds__(kWideThreads)
         rb[f] = sb;
       }
     }
-    block_sums(s, red);
-    const float m1 = s[0] / cols;
-    const float m2 = s[1] / cols;
-    uint4* dxr = reinterpret_cast<uint4*>(dx + (size_t)row * cols);
-    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
-      const uint4 xraw = xvec(c), draw = dyvec(c);
-      WVec<W, E> wv;
-      wv.load(w + (size_t)c * E);
-      const T* xe = reinterpret_cast<const T*>(&xraw);
-      const T* de = reinterpret_cast<const T*>(&draw);
-      uint4 out;
-      T* oe = reinterpret_cast<T*>(&out);
-#pragma unroll
-      for (int k = 0; k < E; ++k) {
-        const float xhat = (ptt::to_f32<T>(xe[k]) - mean) * rstd;
-        const float a = ptt::to_f32<T>(de[k]) * wv.at(k);
-        oe[k] = ptt::from_f32<T>(rstd * (a - m1 - xhat * m2));
-      }
-      dxr[c] = out;
-    }
   }
   if (static_cast<int>(blockIdx.x) >= rows) {  // a block without rows
     for (int j = threadIdx.x; j < 2 * cols; j += kWideThreads) mine[j] = 0.f;
-  }
-  // the last block to finish sums the blocks' partials in block order
-  __threadfence();
-  __syncthreads();
-  const int nb = gridDim.x;
-  if (threadIdx.x == 0) last = atomicAdd(tickets, 1) == nb - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  for (int j = threadIdx.x; j < 2 * cols; j += kWideThreads) {
-    const float* p = part + j;
-    float s = 0.f;
-    // 32 blocks' partials loaded together, then added in block order
-    for (int k0 = 0; k0 < nb; k0 += 32) {
-      float v[32];
+  } else if (spart) {  // each thread copies the columns it owns
+    for (int c = threadIdx.x; c < nvec; c += kWideThreads) {
 #pragma unroll
-      for (int u = 0; u < 32; ++u)
-        v[u] = k0 + u < nb ? __ldcg(p + (size_t)(k0 + u) * 2 * cols) : 0.f;
-#pragma unroll
-      for (int u = 0; u < 32; ++u)
-        if (k0 + u < nb) s += v[u];
+      for (int f = 0; f < E / 4; ++f) {
+        reinterpret_cast<float4*>(mine + (size_t)c * E)[f] =
+            reinterpret_cast<const float4*>(acc + (size_t)c * E)[f];
+        reinterpret_cast<float4*>(mine + cols + (size_t)c * E)[f] =
+            reinterpret_cast<const float4*>(acc + cols + (size_t)c * E)[f];
+      }
     }
-    (j < cols ? dw[j] : db[j - cols]) = ptt::from_f32<W>(s);
   }
-  if (threadIdx.x == 0) tickets[0] = 0;  // ready for the next launch
+}
+
+// K2's wide lane, its second launch: dw then db (column j of 2 * cols)
+// are the nb blocks' partials summed over the blocks in a fixed order
+// and rounded once to W. A block takes 32 columns: warp g sums blocks
+// [g * per, (g + 1) * per) in block order, then the warps' sums are
+// added in warp order, so the sums are spread over 2 * cols / 32 blocks
+// and are the same bits on every run.
+constexpr int kSumWarps = 8;
+
+template <typename W>
+__global__ void __launch_bounds__(kSumWarps * 32)
+    ln_bwd_colsum_kernel(const float* __restrict__ part, int nb, int cols,
+                         W* __restrict__ dw, W* __restrict__ db) {
+  __shared__ float red[kSumWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int g = threadIdx.x >> 5;
+  const int n2 = 2 * cols;
+  const int j = blockIdx.x * 32 + lane;
+  const int per = (nb + kSumWarps - 1) / kSumWarps;
+  const int lo = g * per;
+  const int hi = lo + per < nb ? lo + per : nb;
+  float s = 0.f;
+  if (j < n2) {
+    const float* p = part + j;
+    // 16 blocks' partials loaded together, then added in block order
+    for (int k0 = lo; k0 < hi; k0 += 16) {
+      float v[16];
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        v[u] = k0 + u < hi ? p[(size_t)(k0 + u) * n2] : 0.f;
+#pragma unroll
+      for (int u = 0; u < 16; ++u)
+        if (k0 + u < hi) s += v[u];
+    }
+  }
+  red[g][lane] = s;
+  __syncthreads();
+  if (g == 0 && j < n2) {
+    float t = 0.f;
+#pragma unroll
+    for (int q = 0; q < kSumWarps; ++q) t += red[q][lane];
+    (j < cols ? dw[j] : db[j - cols]) = ptt::from_f32<W>(t);
+  }
 }
 
 // the kernel for rows of cols elements of T with weights of W, and what
@@ -842,6 +943,7 @@ struct BwdKernel {
   const void* fn;
   int per_lane, ring, wide;
   cudaError_t attr;  // of raising its dynamic shared memory limit
+  const void* colsum;  // the wide lane's second launch
 };
 
 template <typename T, typename W, int NV>
@@ -859,7 +961,7 @@ BwdKernel bwd_kernel_nv() {
   static const cudaError_t attr = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(bwd_smem(32 * NV * E, NV, kRing)));
-  return BwdKernel{fn, NV, kRing, 0, attr};
+  return BwdKernel{fn, NV, kRing, 0, attr, nullptr};
 }
 
 template <typename T, typename W>
@@ -868,7 +970,8 @@ BwdKernel bwd_kernel_wide(int device) {
   static const cudaError_t attr =
       cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            wide_smem_limit(device));
-  return BwdKernel{fn, 0, 0, 1, attr};
+  return BwdKernel{fn, 0, 0, 1, attr,
+                   reinterpret_cast<const void*>(ln_bwd_colsum_kernel<W>)};
 }
 
 template <typename T, typename W>
@@ -887,18 +990,12 @@ BwdKernel bwd_kernel(int cols, int device) {
   return bwd_kernel_wide<T, W>(device);
 }
 
+// the kernel of x's dtype T against its weights' dtype: T or f32
 template <typename T>
 BwdKernel bwd_kernel_w(int wdtype, int cols, int device) {
-  switch (wdtype) {
-    case ptt::kF32:
-      return bwd_kernel<T, float>(cols, device);
-    case ptt::kBF16:
-      return bwd_kernel<T, __nv_bfloat16>(cols, device);
-    case ptt::kF16:
-      return bwd_kernel<T, __half>(cols, device);
-    default:
-      return BwdKernel{nullptr, 0, 0, 0, cudaSuccess};
-  }
+  if (wdtype == ptt::kF32) return bwd_kernel<T, float>(cols, device);
+  if (wdtype == dtype_code<T>()) return bwd_kernel<T, T>(cols, device);
+  return BwdKernel{nullptr, 0, 0, 0, cudaSuccess, nullptr};
 }
 
 BwdKernel bwd_kernel_of(int dtype, int wdtype, int cols, int device) {
@@ -910,19 +1007,24 @@ BwdKernel bwd_kernel_of(int dtype, int wdtype, int cols, int device) {
     case ptt::kF16:
       return bwd_kernel_w<__half>(wdtype, cols, device);
     default:
-      return BwdKernel{nullptr, 0, 0, 0, cudaSuccess};
+      return BwdKernel{nullptr, 0, 0, 0, cudaSuccess, nullptr};
   }
 }
 
-// the wide lane's dynamic shared memory: x and dy of a row where both fit
-int bwd_wide_smem(int cols, int itemsize, int device) {
-  const long long bytes = 2LL * cols * itemsize;
-  return bytes <= wide_smem_limit(device) ? static_cast<int>(bytes) : 0;
-}
+// K2's wide lane's dynamic shared memory: x's and dy's row where they
+// fit, then the block's f32 partials of dw and db where those fit too
+struct WideSmem {
+  int bytes, stage, spart;
+};
 
-// the wide lane's f32 partials stay under this many bytes (a cap on its
-// blocks at the widest rows)
-constexpr long long kWidePartialBytes = 32LL << 20;
+WideSmem bwd_wide_smem(int cols, int itemsize, int device) {
+  const long long limit = wide_smem_limit(device);
+  const long long row = 2LL * cols * itemsize, sums = 8LL * cols;
+  if (row + sums <= limit)
+    return WideSmem{static_cast<int>(row + sums), 1, 1};
+  if (row <= limit) return WideSmem{static_cast<int>(row), 1, 0};
+  return WideSmem{0, 0, 0};
+}
 
 int itemsize_of(int dtype) { return dtype == ptt::kF32 ? 4 : 2; }
 
@@ -932,9 +1034,10 @@ int itemsize_of(int dtype) { return dtype == ptt::kF32 ? 4 : 2; }
 // `device`, written to out[6]: the grid's blocks, threads a block, 16-byte
 // vectors a lane (the register lane's instantiation; 0 in the wide lane),
 // 1 for the wide lane, 1 where w and b load with x (the register lane at
-// up to kEarlyBlocksPerSm blocks an SM), and the wide lane's dynamic
-// shared memory (the staged row, 0 where the row is re-read). Returns
-// cudaErrorInvalidValue for a dtype the kernel does not take.
+// up to kEarlyBlocksPerSm blocks an SM, where early_fits), and the wide
+// lane's dynamic shared memory (the staged row, 0 where the row is
+// re-read). Returns cudaErrorInvalidValue
+// for a dtype the kernel does not take (`wdtype` must be `dtype` or f32).
 extern "C" int ptt_layer_norm_fwd_plan(int rows, int cols, int dtype,
                                        int wdtype, int device, int* out) {
   if (cols < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -949,9 +1052,10 @@ extern "C" int ptt_layer_norm_fwd_plan(int rows, int cols, int dtype,
   return 0;
 }
 
-// x, y: [rows, cols] contiguous of `dtype`; w, b: [cols] of `wdtype`.
-// cols must be a multiple of the 16-byte vector of `dtype` and at most
-// 65536 (the wrapper checks both); every pointer 16-byte aligned.
+// x, y: [rows, cols] contiguous of `dtype`; w, b: [cols] of `wdtype`
+// (`dtype` or f32). cols must be a multiple of the 16-byte vector of
+// `dtype` and at most 65536 (the wrapper checks both); every pointer
+// 16-byte aligned.
 extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
                                   void* y, int rows, int cols, float eps,
                                   int dtype, int wdtype, int device,
@@ -974,10 +1078,12 @@ extern "C" int ptt_layer_norm_fwd(const void* x, const void* w, const void* b,
 // on `device`, written to out[7]: the grid's blocks (whole clusters in
 // the register lane), blocks a cluster (1 in the wide lane), the
 // clusters (wide lane: blocks) the card holds at once (the occupancy
-// calculator's), 16-byte vectors a lane (0 in the wide lane), 1 if rows
-// come through the cp.async ring, the f32 partials the launch needs, and
-// 1 for the wide lane. Returns cudaErrorInvalidValue for a dtype or
-// width the kernel does not take.
+// calculator's), 16-byte vectors a lane (in the wide lane: a thread's
+// vectors whose partials it holds in registers, 0 where they go to device
+// memory row by row), 1 if rows come through the cp.async ring, the f32
+// partials the launch needs, and 1 for the wide lane. Returns
+// cudaErrorInvalidValue for a dtype the kernel does not take (`wdtype`
+// must be `dtype` or f32).
 extern "C" int ptt_layer_norm_bwd_plan(int rows, int cols, int dtype,
                                        int wdtype, int device, int* out) {
   if (cols < 1 || rows < 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -989,16 +1095,17 @@ extern "C" int ptt_layer_norm_bwd_plan(int rows, int cols, int dtype,
   int vals[7];
   if (k.wide) {
     int resident = 0;
-    err = resident_blocks(k.fn, kWideThreads,
-                          bwd_wide_smem(cols, itemsize_of(dtype), device),
-                          device, &resident);
+    const int smem = bwd_wide_smem(cols, itemsize_of(dtype), device).bytes;
+    err = resident_blocks(k.fn, kWideThreads, smem, device, &resident);
     if (err != cudaSuccess) return static_cast<int>(err);
-    long long blocks = rows < resident ? rows : resident;
-    const long long cap = kWidePartialBytes / (8LL * cols);
-    if (blocks > cap) blocks = cap;
-    if (blocks < 1) blocks = 1;
-    const int nb = static_cast<int>(blocks);
-    const int v[7] = {nb, 1, resident, 0, 0, nb * 2 * cols, 1};
+    int sms = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    int nb = rows < resident ? rows : resident;
+    if (nb > kWideBlocksPerSm * sms) nb = kWideBlocksPerSm * sms;
+    if (nb < 1) nb = 1;
+    const int v[7] = {nb, 1, resident, k.per_lane, 0, nb * 2 * cols, 1};
     for (int i = 0; i < 7; ++i) vals[i] = v[i];
   } else {
     cudaLaunchConfig_t cfg = {};
@@ -1028,7 +1135,8 @@ extern "C" int ptt_layer_norm_bwd_plan(int rows, int cols, int dtype,
 // of kCluster in the register lane); part: f32 scratch of the plan's
 // partials; tickets: kCluster int32 counters, zero before the first launch
 // and left zero by every launch (K2 launches on one stream at a time
-// share them).
+// share them; the wide lane uses none). The wide lane is two launches:
+// the rows, then the column sums.
 extern "C" int ptt_layer_norm_bwd(const void* dy, const void* x,
                                   const void* w, void* dx, void* dw,
                                   void* db, void* part, void* tickets,
@@ -1044,12 +1152,15 @@ extern "C" int ptt_layer_norm_bwd(const void* dy, const void* x,
   if (k.attr != cudaSuccess) return static_cast<int>(k.attr);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (k.wide) {
-    const int smem = bwd_wide_smem(cols, itemsize_of(dtype), device);
-    int stage = smem > 0;
-    void* args[] = {&dy, &x, &w, &dx, &dw, &db, &part, &tickets, &rows,
-                    &cols, &eps, &stage};
-    err = cudaLaunchKernel(k.fn, dim3(grid), dim3(kWideThreads), args, smem,
-                           s);
+    WideSmem m = bwd_wide_smem(cols, itemsize_of(dtype), device);
+    void* args[] = {&dy, &x, &w, &dx, &part, &rows, &cols, &eps, &m.stage,
+                    &m.spart};
+    err = cudaLaunchKernel(k.fn, dim3(grid), dim3(kWideThreads), args,
+                           m.bytes, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    void* sum_args[] = {&part, &grid, &cols, &dw, &db};
+    err = cudaLaunchKernel(k.colsum, dim3((2 * cols + 31) / 32),
+                           dim3(kSumWarps * 32), sum_args, 0, s);
   } else {
     const size_t smem = bwd_smem(cols, k.per_lane, k.ring);
     void* args[] = {&dy, &x, &w, &dx, &dw, &db, &part, &tickets, &rows,

@@ -11,16 +11,19 @@ Both kernels are in `csrc/layer_norm.cu`.
 statistics (two passes: the mean, then the mean of the centred
 squares) and returns x's dtype. `layer_norm_bwd(dy, x, w, eps)` returns
 (dx, dw, db): dx in x's dtype, dw and db in w's. x and w may differ in
-dtype (f32, bf16 or f16 each): the kernels read w and b and convert them
-to f32, as the TPU kernels cast them. `supported` says which LayerNorms
-the kernels take (`nn/functional/norm.py` routes the rest to plain
-torch, as the JAX package routes them to jnp): rows whose width is a
-multiple of 16 bytes, up to the JAX package's 65536 columns; rows past
-`REGISTER_COLS` take each kernel's wide lane (a block a row). On the
-card K2 sums dw and db across its blocks in a fixed order
-(`layer_norm_bwd_plan` reports the launch, `layer_norm_plan` K1's), so
-they are the same bits on every run. A CPU tensor takes the plain
-versions; a CUDA tensor launches the kernels or raises.
+dtype (f32, bf16 or f16 each, w and b alike or not): the kernels read w
+and b in x's dtype or in f32 and convert them to f32, as the TPU kernels
+cast them; the wrappers convert any other weights to f32 first, which
+is exact. `supported` says which LayerNorms the kernels take
+(`nn/functional/norm.py` routes the rest to plain torch, as the JAX
+package routes them to jnp): rows whose width is a multiple of 16
+bytes, up to the JAX package's 65536 columns; rows past `REGISTER_COLS`
+take each kernel's wide lane (a block a row; K2's with a second launch
+that sums dw and db). On the card K2 sums dw and db across its blocks
+in a fixed order (`layer_norm_bwd_plan` reports the launch,
+`layer_norm_plan` K1's), so they are the same bits on every run. A CPU
+tensor takes the plain versions; a CUDA tensor launches the kernels or
+raises.
 `LayerNormFunction` is the differentiable op: forward through K1,
 backward through K2, saving (x, w) as the JAX VJP does.
 """
@@ -110,13 +113,14 @@ def layer_norm_bwd_reference(dy: torch.Tensor, x: torch.Tensor,
 
 def supported(x: torch.Tensor, w, b, n_norm_axes: int = 1) -> bool:
     """Whether the kernels take this LayerNorm (the port's copy of the
-    JAX `supported`): over the last axis only, with w and b of shape
-    [c], every dtype f32, bf16 or f16, and c a multiple of the 16-byte
-    vector of x's dtype, up to MAX_COLS. JAX's rule asks for a multiple
-    of 128 columns; the kernels also take the 16-byte multiples between
-    (K1 always has), which JAX leaves to jnp. Decided by shape and dtype
+    JAX `supported`): over the last axis only of an x of two axes or
+    more, with w and b of shape [c], every dtype f32, bf16 or f16 (w and
+    b alike or not), and c a multiple of the 16-byte vector of x's
+    dtype, up to MAX_COLS. JAX's rule asks for a multiple of 128
+    columns; the kernels also take the 16-byte multiples between (K1
+    always has), which JAX leaves to jnp. Decided by shape and dtype
     alone, before any launch."""
-    if n_norm_axes != 1 or w is None or b is None or x.dim() < 1:
+    if n_norm_axes != 1 or w is None or b is None or x.dim() < 2:
         return False
     c = x.shape[-1]
     if tuple(w.shape) != (c,) or tuple(b.shape) != (c,):
@@ -131,10 +135,9 @@ def _check(x, w, b):
     if w.shape != (c,) or b.shape != (c,):
         raise ValueError(f"layer_norm: w and b must be [{c}], got "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
-    if w.dtype != b.dtype or not all(t.dtype in DTYPES for t in (x, w)):
-        raise TypeError(f"layer_norm kernel: x and w, b must be f32, bf16 "
-                        f"or f16 (w and b alike), got {x.dtype}, {w.dtype}, "
-                        f"{b.dtype}")
+    if not all(t.dtype in DTYPES for t in (x, w, b)):
+        raise TypeError(f"layer_norm kernel: x, w and b must be f32, bf16 "
+                        f"or f16, got {x.dtype}, {w.dtype}, {b.dtype}")
     if not (w.device == b.device == x.device):
         raise ValueError("layer_norm: x, w, b on different devices")
     vec = 16 // x.element_size()
@@ -142,6 +145,16 @@ def _check(x, w, b):
         raise ValueError(
             f"layer_norm kernel: last dim {c} must be a multiple of {vec} "
             f"and at most {MAX_COLS} for {x.dtype}")
+
+
+def _weights(x: torch.Tensor, *ts):
+    """w (and b) as the kernels take them: both in x's dtype or both in
+    f32; any other weights are converted to f32 (exact from bf16 and
+    f16)."""
+    if len({t.dtype for t in ts}) == 1 and ts[0].dtype in (x.dtype,
+                                                           torch.float32):
+        return ts
+    return tuple(t.float() for t in ts)
 
 
 def _no_kernel(name, dev):
@@ -158,7 +171,10 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 def _plan(cache, entry, names, rows, cols, dtype, wdtype, device):
     device = torch.device(device)
+    # the weights' dtype the kernel is given (`_weights`)
     wdtype = dtype if wdtype is None else wdtype
+    if wdtype not in (dtype, torch.float32):
+        wdtype = torch.float32
     key = (rows, cols, dtype, wdtype, device.index)
     plan = cache.get(key)
     if plan is None:
@@ -181,8 +197,9 @@ def layer_norm_plan(rows: int, cols: int, dtype: torch.dtype, device,
     lane, a block a row), "per_lane" (the register
     lane's 16-byte vectors a lane; 0 in the wide lane), "wide" (1 for
     the wide lane), "early" (1 where the register lane loads w and b
-    with x: grids of up to two blocks an SM) and "smem" (the wide lane's
-    staged row in bytes; 0 where it is re-read)."""
+    with x: grids of up to two blocks an SM, where a lane's x, w and b
+    fit 128 registers) and "smem" (the wide lane's staged row in bytes;
+    0 where it is re-read)."""
     return _plan(_PLANS, "ptt_layer_norm_fwd_plan", _PLAN, rows, cols, dtype,
                  wdtype, device)
 
@@ -195,7 +212,7 @@ def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     _no_kernel("layer_norm", x.device)
     global LAUNCHES
     _check(x, w, b)
-    x2, w, b = _aligned(x), _aligned(w), _aligned(b)
+    x2, (w, b) = _aligned(x), map(_aligned, _weights(x, w, b))
     y = torch.empty_like(x2)
     rows = x2.numel() // x2.shape[-1]
     lib = _build.load("layer_norm")
@@ -219,7 +236,9 @@ def layer_norm_bwd_plan(rows: int, cols: int, dtype: torch.dtype,
     at once, by the occupancy calculator), "per_lane" (16-byte vectors of
     a row a lane; 0 in the wide lane), "ring" (1: each warp's next rows
     come through a ring of cp.async copies in shared memory), "partials"
-    (the f32 partials of dw and db) and "wide" (1 for the wide lane)."""
+    (the f32 partials of dw and db) and "wide" (1 for the wide lane: a
+    block a row, then a second launch that sums the blocks' partials). A
+    `wdtype` other than `dtype` and f32 counts as f32."""
     return _plan(_BWD_PLANS, "ptt_layer_norm_bwd_plan", _BWD_PLAN, rows,
                  cols, dtype, wdtype, device)
 
@@ -237,7 +256,8 @@ def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"layer_norm_bwd: dy {tuple(dy.shape)} {dy.dtype} "
                          f"must match x {tuple(x.shape)} {x.dtype}")
-    x2, dy2, w = _aligned(x), _aligned(dy), _aligned(w)
+    wdtype = w.dtype
+    x2, dy2, w = _aligned(x), _aligned(dy), _aligned(_weights(x, w)[0])
     cols = x2.shape[-1]
     rows = x2.numel() // cols
     plan = layer_norm_bwd_plan(rows, cols, x2.dtype, x2.device, w.dtype)
@@ -259,7 +279,7 @@ def layer_norm_bwd(dy: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
         _build.stream_ptr(x2.device))
     _build.check(lib, err, "layer_norm_bwd kernel launch")
     BWD_LAUNCHES += 1
-    return dx, dw, db
+    return dx, dw.to(wdtype), db.to(wdtype)
 
 
 class LayerNormFunction(torch.autograd.Function):

@@ -23,6 +23,10 @@ a GPU sleep (`flash_tile_sweep.device_ms`):
   build's bit for bit;
 - K2 at [16384, 768] and [512, 768] in bf16 and at [16384, 768] in f32:
   dx, dw and db must equal this build's bit for bit;
+- on builds with the wide lanes (those with this build's entries), K1
+  and K2 at GPT-3 13B's width in bf16, [64, 5120] and [2048, 5120]: y
+  must equal this build's bit for bit (K2's wide lane may sum in another
+  order in another build: the equality of dx, dw and db is reported);
 - K8 at the serving step's write (`launch_check.grouped_batch`'s bf16
   q [16, 32, 12, 64] as K, a second draw as V, its positions and
   tables) into e4m3 and bf16 pools, and K8-q8 into int8 code and f32
@@ -206,6 +210,10 @@ def main(argv=None) -> int:
         k2_cases[f"K2 [{rows}, 768] {str(dtype)[6:]}"] = (
             mk(rows, 768).to(dtype), (mk(rows, 768) * 2 + 1).to(dtype),
             mk(768).to(dtype))
+    wide_cases = {f"K1/K2 [{rows}, 5120] bf16": tuple(
+        t.to(torch.bfloat16) for t in (mk(rows, 5120) * 2 + 1, mk(5120),
+                                       mk(5120), mk(rows, 5120)))
+        for rows in (64, 2048)}
     tickets = torch.zeros(8, dtype=torch.int32, device=dev)
     base, _ = grouped_batch(dev, torch.bfloat16, 12, 12, 64)
     v_base, _ = grouped_batch(dev, torch.bfloat16, 12, 12, 64, seed=1)
@@ -243,6 +251,8 @@ def main(argv=None) -> int:
                                                 for lib in _LIBS)
             _build._LIBS["layer_norm"], _build._LIBS["paged_scatter"] = \
                 ln_so, sc_so
+            tln._PLANS.clear()   # each build's own launches
+            tln._BWD_PLANS.clear()
             for case, (x, w, b) in k1_cases.items():
                 fn = ((lambda: (tln.layer_norm(x, w, b, 1e-5),)) if ln_new
                       else (lambda: _k1_earlier(ln_so, x, w, b)))
@@ -251,6 +261,14 @@ def main(argv=None) -> int:
                 fn = ((lambda: tln.layer_norm_bwd(dy, x, w, 1e-5)) if ln_new
                       else (lambda: _k2_earlier(ln_so, dy, x, w, tickets)))
                 run(case, name, fn, False, (0, 1, 2))
+            if ln_new:
+                for case, (x, w, b, dy) in wide_cases.items():
+                    run(case.replace("K1/K2", "K1"), name,
+                        lambda: (tln.layer_norm(x, w, b, 1e-5),), False,
+                        (0,))
+                    run(case.replace("K1/K2", "K2"), name,
+                        lambda: tln.layer_norm_bwd(dy, x, w, 1e-5), False,
+                        ())
             for lane, new in pools.items():
                 kp, vp = new(), new()
                 fn = lambda: (tpa.paged_scatter_kernel(kp, k_upd, pos, table),

@@ -1745,20 +1745,57 @@ def test_layer_norm_kernel_at_the_serving_shapes(cuda, rows):
         assert torch.equal(tln.layer_norm(x, w, b, 1e-5), y)
 
 
+@pytest.mark.parametrize("dtype,wdtype,cols,early", [
+    (torch.bfloat16, torch.bfloat16, 1024, 1),
+    (torch.bfloat16, torch.bfloat16, 2048, 1),
+    (torch.bfloat16, torch.bfloat16, 3072, 0),
+    (torch.bfloat16, torch.bfloat16, 4096, 0),
+    (torch.bfloat16, torch.float32, 1024, 1),
+    (torch.bfloat16, torch.float32, 1536, 0),
+    (torch.float32, torch.float32, 1024, 1),
+    (torch.float32, torch.float32, 1536, 0)])
+def test_layer_norm_loads_weights_early_where_registers_fit(cuda, dtype,
+                                                            wdtype, cols,
+                                                            early):
+    """On a serving-size grid ([16, cols]) K1 loads w and b with x only
+    where a lane's x, w and b fit 128 registers (up to 8 vectors a lane,
+    4 with f32 weights under bf16 x); either way y is within the rule of
+    the plain version and the same bits as on a training-size grid,
+    which loads them after the statistics."""
+    x, w, b, _ = _ln_case(cuda, 16, cols, dtype, wdtype, seed=4)
+    plan = tln.layer_norm_plan(16, cols, dtype, cuda, wdtype)
+    assert plan["early"] == early and not plan["wide"], plan
+    assert tln.layer_norm_plan(16384, cols, dtype, cuda, wdtype)[
+        "early"] == 0
+    y = tln.layer_norm(x, w, b, 1e-5)
+    big = torch.cat([x, x.new_zeros(16384 - 16, cols)])
+    torch.cuda.synchronize()
+    _close(y, tln.layer_norm_reference(x, w, b, 1e-5))
+    assert torch.equal(tln.layer_norm(big, w, b, 1e-5)[:16], y)
+
+
 @pytest.mark.parametrize("dtype,rows,cols", [
     (torch.float32, 64, 2560), (torch.float32, 64, 4096),
     (torch.bfloat16, 64, 5120), (torch.bfloat16, 8, 65536),
     (torch.float16, 64, 5120), (torch.float32, 4, 65536),
-    (torch.float16, 3, 40960)])
+    (torch.float16, 3, 40960), (torch.bfloat16, 2048, 5120),
+    (torch.bfloat16, 64, 16384), (torch.float32, 300, 8192),
+    (torch.bfloat16, 1000, 32768)])
 def test_layer_norm_wide_lane(cuda, dtype, rows, cols):
     """F11: K1 and K2 at rows past the register lanes (GPT-3's 2560 and
     4096 in f32, 5120 in bf16 and f16, up to 65536 columns: a block a
     row, the row staged in shared memory where it fits) within the rule
-    of the plain versions; dw and db the same bits over 20 reruns."""
+    of the plain versions; K2's dw/db partials in shared memory where
+    they fit beside the row (18944 bf16 columns) and in device memory
+    past that, summed by its second launch; dw and db the same bits over
+    20 reruns."""
     x, w, b, dy = _ln_case(cuda, rows, cols, dtype)
     plan = tln.layer_norm_plan(rows, cols, dtype, cuda)
     bplan = tln.layer_norm_bwd_plan(rows, cols, dtype, cuda)
     assert plan["wide"] == (cols > tln.REGISTER_COLS[dtype]) == bplan["wide"]
+    assert bplan["per_lane"] == 0 and bplan["cluster"] == 1, bplan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert bplan["grid"] <= min(rows, 2 * sms), bplan
     y = tln.layer_norm(x, w, b, 1e-5)
     got = tln.layer_norm_bwd(dy, x, w, 1e-5)
     torch.cuda.synchronize()
@@ -1793,6 +1830,32 @@ def test_layer_norm_weights_of_another_dtype(cuda, dtype, wdtype, cols):
     _close(y, tln.layer_norm_reference(x, w, b, 1e-5))
     for a, ref in zip((xg.grad, wg.grad, bg.grad),
                       tln.layer_norm_bwd_reference(dy, x, w, 1e-5)):
+        _close(a, ref)
+
+
+@pytest.mark.parametrize("dtype,wdtype,bdtype", [
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.float16),
+    (torch.float16, torch.float16, torch.float32)])
+def test_layer_norm_w_and_b_of_two_dtypes(cuda, dtype, wdtype, bdtype):
+    """w and b of two dtypes (converted to f32 by the wrappers, which is
+    exact): the functional LayerNorm takes the kernels, y and dx in x's
+    dtype, each parameter's gradient in its own dtype, within the rule
+    of the plain versions (which convert w and b to f32 alike)."""
+    x, w, _, dy = _ln_case(cuda, 256, 5120, dtype, wdtype, seed=9)
+    b = torch.randn(5120, device=cuda).to(bdtype)
+    before = (tln.LAUNCHES, tln.BWD_LAUNCHES)
+    xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = PF.layer_norm(xg, 5120, wg, bg)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    assert (tln.LAUNCHES, tln.BWD_LAUNCHES) == (before[0] + 1,
+                                                before[1] + 1)
+    assert y.dtype == xg.grad.dtype == dtype
+    assert (wg.grad.dtype, bg.grad.dtype) == (wdtype, bdtype)
+    _close(y, tln.layer_norm_reference(x, w, b, 1e-5))
+    dx, dw, db = tln.layer_norm_bwd_reference(dy, x, w, 1e-5)
+    for a, ref in ((xg.grad, dx), (wg.grad, dw), (bg.grad, db.to(bdtype))):
         _close(a, ref)
 
 

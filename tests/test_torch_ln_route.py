@@ -150,6 +150,21 @@ def test_route_is_the_jax_rule_plus_the_16_byte_widths(jln, dtype):
     w = torch.empty((256,), dtype=dtype, device="meta")
     assert not tln.supported(x, w, w, 2) and not tln.supported(x, None,
                                                                 None, 1)
+    # w and b of two dtypes: both rules take them (the kernels convert
+    # both to f32, as the JAX kernels cast each)
+    jx = jax.ShapeDtypeStruct((2, 256), _JDT[dtype])
+    for wdtype, bdtype in ((torch.float32, torch.bfloat16),
+                           (torch.float16, torch.float32)):
+        w2 = torch.empty((256,), dtype=wdtype, device="meta")
+        b2 = torch.empty((256,), dtype=bdtype, device="meta")
+        assert tln.supported(x, w2, b2, 1)
+        assert pln.supported(jx, jax.ShapeDtypeStruct((256,), _JDT[wdtype]),
+                             jax.ShapeDtypeStruct((256,), _JDT[bdtype]), 1)
+    # a 1-D x: neither rule takes it
+    x1 = torch.empty((256,), dtype=dtype, device="meta")
+    assert not tln.supported(x1, w, w, 1)
+    assert not pln.supported(jax.ShapeDtypeStruct((256,), _JDT[dtype]), w,
+                             w, 1)
     x64 = torch.empty((2, 256), dtype=torch.float64, device="meta")
     assert not tln.supported(x64, w, w, 1)
     assert not pln.supported(jax.ShapeDtypeStruct((2, 256), jnp.float64),
@@ -236,3 +251,45 @@ def test_weights_of_another_dtype_equal_the_jax_fused_path(jln, dtype,
     for g, r in zip(got, want):
         assert g.dtype == r.dtype
         _within_rule(g, r)
+
+
+@pytest.mark.parametrize("dtype,wdtype,bdtype", [
+    (torch.bfloat16, torch.float32, torch.bfloat16),
+    (torch.float32, torch.bfloat16, torch.float16)])
+def test_w_and_b_of_two_dtypes_equal_the_jax_fused_forward(jln, dtype,
+                                                           wdtype, bdtype):
+    """w and b of two dtypes take the kernels' route: the port's
+    LayerNorm equals the JAX `layer_norm_fused` forward (interpret mode,
+    which casts w and b to f32 each) within the rule, y in x's dtype, and
+    each parameter's gradient comes back in its own dtype."""
+    pln = jln[0]
+    x, w, _, dy = _case((24, 256), dtype, wdtype, seed=11)
+    b = torch.from_numpy(np.random.RandomState(12).randn(256).astype(
+        np.float32)).to(bdtype)
+    assert tln.supported(x, w, b, 1)
+    want = _torch(pln.layer_norm_fused(_jax(x), _jax(w), _jax(b), 1e-5, 8),
+                  dtype)
+    xg, wg, bg = (t.clone().requires_grad_(True) for t in (x, w, b))
+    y = PF.layer_norm(xg, 256, wg, bg)
+    y.backward(dy)
+    assert y.dtype == xg.grad.dtype == dtype
+    assert (wg.grad.dtype, bg.grad.dtype) == (wdtype, bdtype)
+    _within_rule(y.detach(), want)
+
+
+def test_one_axis_x_takes_the_jnp_branch(jln, monkeypatch):
+    """A 1-D x goes to `_ln_jnp`, as the JAX rule (x.ndim >= 2) sends it
+    to jnp, and equals the JAX `_ln_fwd` there."""
+    jnorm = jln[1]
+    monkeypatch.setenv("PADDLE_TPU_FUSED_LN", "0")
+    x, w, b, _ = _case((256,), torch.float32, seed=13)
+    assert not tln.supported(x, w, b, 1)
+    calls = []
+    real = tnorm._ln_jnp
+    monkeypatch.setattr(tnorm, "_ln_jnp",
+                        lambda *a: calls.append("jnp") or real(*a))
+    got = PF.layer_norm(x, 256, w, b)
+    assert calls == ["jnp"]
+    want = _torch(jnorm._ln_fwd(_jax(x), _jax(w), _jax(b), 1, 1e-5),
+                  torch.float32)
+    _within_rule(got, want)
