@@ -92,10 +92,13 @@ Phases, each reported on its own line; any failure exits non-zero:
    exactly 0, 20 repeats bit-identical, and again at ranks 32 and 64
    (t summed a group of ranks at a time, d over R in k-steps of 16),
    timed beside two `torch.bmm`; its launch (`lora_plan`), K6's
-   (`ragged_plan`) and K9's (`decode_plan`: the feeder) recorded; K12 on
-   [16, 50304] f32
-   logits with ties, NaNs and an all -inf row, equal to torch.argmax
-   bit for bit over 20 repeats; K8's float lane equal to index_copy_
+   (`ragged_plan`) and K9's (`decode_plan`: the feeder) recorded; K12
+   (a row split over a cluster of up to 8 blocks) on f32 logits at
+   [16|1|128, 50304], [16, 50257] and [16, 128256], and on a view whose
+   rows start off a 16-byte boundary, with ties (one across a cluster
+   slice border), NaNs in two slices, +-0, an all -inf row and an
+   all-equal row, equal to torch.argmax bit for bit over 20 repeats and
+   timed at each shape beside an empty launch; K8's float lane equal to index_copy_
    bit for bit outside page 0;
 3. serve GPT-124M at full width (bench.py's configuration: vocab 50304,
    hidden 768, 12 layers, 12 heads, 1024 positions) in bf16 with random
@@ -115,7 +118,16 @@ Phases, each reported on its own line; any failure exits non-zero:
    shared prompt). A fifth run takes the defaults with pages of 256
    keys (every walk folds a page in two pieces of 128): launches per
    step, a recorded step's held logits against a plain f32 rerun, the
-   share of tokens equal to the page-16 run's printed. Then the same
+   share of tokens equal to the page-16 run's printed. A sixth run
+   takes the defaults at `token_budget=64`: every request finishes, no
+   step packs more than 64 tokens, launches per step as the defaults',
+   `debug_state()` read after 5 steps (residents and the budget in its
+   config), and `prometheus_render` of its snapshot printed by its line
+   count with the `engine_info` series (its `kv_dtype` label); then
+   `abort_all()` on an engine loaded with the same traffic, stepped until
+   a resident has emitted a token: every request retires "aborted"
+   without another step, keeping its tokens, and the pool and the host
+   tier end quiesced. Then the same
    traffic over int8 and fp8 KV pools,
    each with the defaults and with grouped=False: per step K1 25, the
    lane's write (K8-q8 or K8 12: K and V in one launch) and K10a,
@@ -222,6 +234,9 @@ GPT124M = dict(vocab_size=50304, hidden_size=768, num_hidden_layers=12,
 ENGINE = dict(num_slots=16, page_size=16, chunk_len=32, max_len=992)
 N_REQUESTS, NEW_TOKENS, SHARED_PREFIX = 24, 64, 256
 RECORD_STEP = 6          # the step whose held logits are re-run plain
+# phase 3's budget arm: at most 64 tokens packed a step (of the 16 x 32
+# the step shape holds), `debug_state()` read after DEBUG_STEP steps
+TOKEN_BUDGET, DEBUG_STEP = 64, 5
 # phase 3's preemption run: a pool of 40 pages a slot, 16 priority-5
 # requests of 560 prompt tokens (39 pages each with their 64 new tokens),
 # then a burst of 4 priority-0 requests of the same size
@@ -1734,43 +1749,97 @@ def lora_within_rule(tpa, tag, out, x, A, B, apage, ascale) -> float:
                        extra_rule="+ one ulp of t through B and the scale")
 
 
-def check_greedy_argmax(dev, tpa, time_ms):
-    """K12 on the held logits of a unified step, [16, 50304] f32, with a
-    row whose maximum is tied three ways, a row holding NaNs, an all
-    -inf row and a row of equal values: equal to `torch.argmax` bit for
-    bit, and the same over 20 repeats. Timed: the kernel, its plain
-    version (`torch.argmax` then the int32 cast) and `torch.argmax`."""
-    g = torch.Generator(device=dev).manual_seed(SEED)
-    b, v = ENGINE["num_slots"], GPT124M["vocab_size"]
-    logits = torch.randn(b, v, generator=g, device=dev)
-    logits[1, [7, 30000, 50303]] = 9.0
-    logits[2, [777, 40000]] = float("nan")
+# K12's shapes in phase 2, the first the record's: a megakernel step's
+# 16 slots, one row, 16 slots x a verify width of 8, GPT-2's vocabulary
+# (rows off a 16-byte boundary) and Llama 3's
+ARGMAX_SHAPES = ((16, 50304), (1, 50304), (128, 50304), (16, 50257),
+                 (16, 128256))
+
+
+def argmax_rows(logits, tpa):
+    """Write K12's hard rows into logits [B, V]: a maximum tied
+    three ways, NaNs in two of the row's cluster slices (the later slice's
+    first), an all -inf row, a row of equal values, -0.0 before 0.0 as
+    the maximum, and a tie across the border of slices 0 and 1 of
+    `_argmax_slices` (the last element of slice 0 and the first of 1; in
+    row 0 alone where B < 8)."""
+    b, v = logits.shape
+    s, _ = tpa._argmax_plan(b, v, torch.cuda.get_device_properties(
+        logits.device).multi_processor_count)
+    slices = tpa._argmax_slices(v, s)
+    border = slices[1][1][0][0] if s > 1 and slices[1][1] else v // 2
+    last = slices[-1][1][-1][0] if slices[-1][1] else v - 1
+    if b < 8:
+        logits[0, [border - 1, border]] = 11.0
+        return logits
+    logits[1, [7, v // 3, v - 1]] = 9.0
+    logits[2, [last, 777]] = float("nan")
     logits[3] = float("-inf")
     logits[4] = 0.5
-    got = tpa.decode_greedy_argmax(logits)
-    torch.cuda.synchronize()
-    want = torch.argmax(logits, dim=-1)
-    same = torch.equal(got.long(), want) and got.dtype == torch.int32
-    repeat = all(torch.equal(tpa.decode_greedy_argmax(logits), got)
-                 for _ in range(20))
-    log(f"  K12 decode_greedy_argmax [{b}, {v}] f32 (a 3-way tie, NaNs, an "
-        f"all -inf row, an all-equal row): equal to torch.argmax bit for "
-        f"bit {same}, {got[1:5].tolist()}; 20 repeats identical {repeat}")
-    if not (same and repeat):
-        raise AssertionError("K12 disagrees with torch.argmax")
-    ms = time_ms(lambda: tpa.decode_greedy_argmax(logits))
-    plain_ms = time_ms(lambda: torch.argmax(logits, dim=-1).to(torch.int32))
-    lib_ms = time_ms(lambda: torch.argmax(logits, dim=-1))
-    bound_ms, bound_by = bound(logits.numel() * 4 + b * 4, logits.numel(),
-                               F32_FLOPS)
-    log(f"  K12: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.argmax "
-        f"{lib_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+    logits[5] = -1.0
+    logits[5, [v // 2, v // 2 + 1]] = torch.tensor([-0.0, 0.0],
+                                                   device=logits.device)
+    logits[6, [border - 1, border]] = 11.0
+    logits[7, [border, v - 1]] = float("nan")
+    return logits
+
+
+def check_greedy_argmax(dev, tpa, time_ms):
+    """K12 at ARGMAX_SHAPES on random f32 logits with `argmax_rows`' rows,
+    and on a view whose rows start one element past a 16-byte boundary:
+    equal to `torch.argmax` bit for bit, and the same over 20 repeats.
+    Timed at each shape: the kernel, its plain version (`torch.argmax`
+    then the int32 cast), `torch.argmax` and a launch that does nothing
+    (`torch.cuda._sleep(0)`, the floor of a small kernel); K12's launch
+    (`_argmax_plan`: blocks a row, threads a block) recorded."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    floor_ms = time_ms(lambda: torch.cuda._sleep(0))
+    shapes = {}
+    for b, v in ARGMAX_SHAPES:
+        logits = argmax_rows(torch.randn(b, v, generator=g, device=dev), tpa)
+        # the same values one element past a 16-byte boundary
+        flat = torch.empty(b * v + 4, device=dev)
+        shifted = flat[1:1 + b * v].view(b, v)
+        shifted.copy_(logits)
+        for tag, x in (("", logits), (" offset by one element", shifted)):
+            got = tpa.decode_greedy_argmax(x)
+            torch.cuda.synchronize()
+            want = torch.argmax(x, dim=-1)
+            same = torch.equal(got.long(), want) and got.dtype == torch.int32
+            repeat = all(torch.equal(tpa.decode_greedy_argmax(x), got)
+                         for _ in range(20))
+            log(f"  K12 decode_greedy_argmax [{b}, {v}] f32{tag} (ties, "
+                f"NaNs, -inf, equal, +-0 and slice-border rows): equal to "
+                f"torch.argmax bit for bit {same}, {got[1:8].tolist()}; 20 "
+                f"repeats identical {repeat}")
+            if not (same and repeat):
+                raise AssertionError(
+                    f"K12 disagrees with torch.argmax at [{b}, {v}]{tag}")
+        ms = time_ms(lambda: tpa.decode_greedy_argmax(logits))
+        plain_ms = time_ms(
+            lambda: torch.argmax(logits, dim=-1).to(torch.int32))
+        lib_ms = time_ms(lambda: torch.argmax(logits, dim=-1))
+        bound_ms, bound_by = bound(logits.numel() * 4 + b * 4,
+                                   logits.numel(), F32_FLOPS)
+        s, threads = tpa._argmax_plan(b, v, sms)
+        log(f"  K12 [{b}, {v}]: {s} blocks a row x {threads} threads; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, torch.argmax "
+            f"{lib_ms:.4f} ms, an empty launch {floor_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        shapes[f"[{b}, {v}]"] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+            bound_by=bound_by, blocks_a_row=s, threads=threads)
+    rec = shapes[f"[{ARGMAX_SHAPES[0][0]}, {ARGMAX_SHAPES[0][1]}]"]
     return dict(name="K12 decode_greedy_argmax", route="cuda",
                 source="paddle_tpu_torch/ops/cuda/csrc/greedy_argmax.cu",
                 replaces="paddle_tpu/ops/pallas/paged_attention.py:1586",
-                path="serving_megakernel", max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=lib_ms, library_call="torch.argmax(dim=-1)")
+                path="serving_megakernel", max_abs_err=0.0,
+                ms=rec["ms"], plain_ms=rec["plain_ms"],
+                bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+                library_ms=rec["library_ms"],
+                library_call="torch.argmax(dim=-1)",
+                empty_launch_ms=floor_ms, shapes=shapes)
 
 
 def check_paged_attention_masked(dev, tpa, time_ms):
@@ -1947,7 +2016,8 @@ def snap_cpu(t):
 def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
           profile: bool = False, kv_dtype: str = "fp", unified: bool = True,
           attn_impl: str = "kernel", megakernel: bool = False,
-          adapter_pages=None, adapter_ranks=(2, 4, 8), page_size=None):
+          adapter_pages=None, adapter_ranks=(2, 4, 8), page_size=None,
+          token_budget=None):
     """One run of phase 3's traffic on a fresh engine: the defaults
     (grouped walk, preemption, host tier) or grouped=False, over pools of
     `kv_dtype`; or the legacy alternating step (unified=False), or the
@@ -1956,11 +2026,15 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     LORA adapters registered in an adapter pool of that many pages (rank
     buckets `adapter_ranks`, the pool's rank their largest) and the
     requests spread over the tenants of `adapter_traffic`; with
-    `page_size`, pages of that many keys in place of ENGINE's.
-    Returns the launches, the stats and every request's tokens."""
+    `page_size`, pages of that many keys in place of ENGINE's; with
+    `token_budget`, at most that many tokens packed a step, the engine's
+    `debug_state()` read after DEBUG_STEP steps and its metrics rendered
+    by `prometheus_render`. Returns the launches, the stats and every
+    request's tokens."""
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
                                           legacy_forward, unified_forward)
+    from paddle_tpu_torch.serving.metrics import prometheus_render
 
     snap = lambda t: (tuple(map(snap, t)) if isinstance(t, tuple)
                       else snap_cpu(t))
@@ -1998,7 +2072,8 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
                f"{', megakernel' if megakernel else ''}"
                f"{f', adapters ({adapter_pages} pages)' if adapters else ''}"
                f"{f', rank buckets {adapter_ranks}' if adapters else ''}"
-               f"{f', pages of {page_size}' if page_size else ''}")
+               f"{f', pages of {page_size}' if page_size else ''}"
+               f"{f', token_budget {token_budget}' if token_budget else ''}")
     else:
         arm = f"{kv_dtype} legacy"
     extra = {}
@@ -2007,6 +2082,8 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     if adapters:
         extra.update(adapters=True, adapter_pages=adapter_pages,
                      adapter_ranks=adapter_ranks)
+    if token_budget:
+        extra["token_budget"] = token_budget
     eng = RecordingEngine(model, device=dev, seed=SEED,
                           **({} if grouped else {"grouped": False}),
                           **({} if kv_dtype == "fp" else
@@ -2039,7 +2116,12 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS,
                                               adapter_id=a))
             for p, a in zip(prompts, tenants)]
-    eng.run()
+    debug = None
+    while eng.has_work:
+        eng.step()
+        if token_budget and debug is None and \
+                eng.metrics.unified_steps == DEBUG_STEP:
+            debug = eng.debug_state()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts_serving(tln, tpa, tfa)
@@ -2052,7 +2134,7 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         f"{'steps' if unified else 'decode steps and ' + str(chunks)}"
         f"{'' if unified else ' prefill chunks'}, "
         f"{wall:.3f} s: {snap['tokens_generated']} tokens, "
-        f"{snap['tokens_per_s']:.1f} tokens/s; "
+        f"{snap['tokens_per_sec']:.1f} tokens/s; "
         f"{'step' if unified else 'decode step'} p50 "
         f"{step_s['p50'] * 1e3:.3f} ms, p90 "
         f"{step_s['p90'] * 1e3:.3f} ms; TTFT p50 "
@@ -2106,7 +2188,7 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     if eng.grouped and not adapters and not (sizes["max"] or 0) >= 2:
         raise AssertionError("no step formed a group of two or more rows")
     eng.pool.assert_quiesced()
-    stats = {"tokens_per_s": snap["tokens_per_s"],
+    stats = {"tokens_per_s": snap["tokens_per_sec"],
              "step_ms_p50": step_s["p50"] * 1e3,
              "step_ms_p90": step_s["p90"] * 1e3,
              "ttft_ms_p50": snap["ttft_s"]["p50"] * 1e3,
@@ -2115,6 +2197,28 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
              "page_block_reads": snap["page_block_reads_total"],
              "page_reads_saved": snap["shared_page_reads_saved_total"],
              "largest_group": sizes["max"], "page_bytes": eng.page_bytes}
+    if token_budget:
+        packed = snap["packed_tokens_per_step"]["max"]
+        text = prometheus_render({"r0": snap})
+        info = [ln for ln in text.splitlines()
+                if ln.startswith("paddle_serving_engine_info")]
+        log(f"  [{arm}] packed tokens a step: at most {packed}; "
+            f"debug_state() after {DEBUG_STEP} steps: step "
+            f"{debug['step'] if debug else None}, "
+            f"{len(debug['residents']) if debug else 0} residents, queue "
+            f"depth {debug['queue']['depth'] if debug else None}, config "
+            f"token_budget {debug['config']['token_budget'] if debug else None}"
+            f"; prometheus_render: {len(text.splitlines())} lines, {info}")
+        if packed is None or packed > token_budget:
+            raise AssertionError(f"a step packed {packed} tokens, over the "
+                                 f"budget of {token_budget}")
+        if (debug is None or not debug["residents"]
+                or debug["config"]["token_budget"] != token_budget):
+            raise AssertionError(f"debug_state() mid-run: {debug}")
+        if len(info) != 1 or 'kv_dtype="fp"' not in info[0]:
+            raise AssertionError(f"engine_info series: {info}")
+        stats.update(packed_max=packed, prometheus_lines=len(
+            text.splitlines()), debug_residents=len(debug["residents"]))
     if adapters:
         stats["adapter_pool"] = eng.adapters.stats()
         log(f"  [{arm}] adapter pool: {stats['adapter_pool']}; requests by "
@@ -2204,10 +2308,54 @@ def rerun_recorded_legacy(eng, model, legacy_forward) -> dict:
     return {"max_abs_err": err, "argmax_agreement": agree.item()}
 
 
+def abort_loaded(dev, model) -> dict:
+    """`abort_all()` on a loaded engine (phase 3's traffic at the
+    defaults, stepped until a resident has emitted a token: residents
+    mid-prefill and decoding, a queue behind them): every request
+    retires "aborted" without another step, keeping its tokens, the pool
+    and the host tier end quiesced, and the engine refuses new
+    requests."""
+    from paddle_tpu_torch.serving import (EngineClosed, SamplingParams,
+                                          ServingEngine)
+    eng = ServingEngine(model, device=dev, seed=SEED, **ENGINE)
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
+            for p in make_traffic()]
+    while not any(r.output_tokens for r in reqs):
+        eng.step()
+    state = eng.debug_state()
+    steps = eng.metrics.unified_steps
+    emitted = [list(r.output_tokens) for r in reqs]
+    outs = eng.abort_all()
+    torch.cuda.synchronize()
+    try:
+        eng.add_request(make_traffic()[0])
+        refused = False
+    except EngineClosed:
+        refused = True
+    ok = (len(outs) == len(reqs) and refused
+          and eng.metrics.unified_steps == steps
+          and all(r.finish_reason == "aborted" for r in reqs)
+          and [r.output_tokens for r in reqs] == emitted
+          and eng.pool.free_pages + eng.pool.cached_pages
+          == eng.num_pages - 1 and eng.pool.swapped_pages == 0
+          and eng.host_pool.used_pages == 0)
+    out = {"steps": steps, "residents": len(state["residents"]),
+           "queued": state["queue"]["depth"],
+           "pages_used_before": state["pool"]["pages_used"],
+           "emitted_before": sum(len(r.output_tokens) for r in reqs),
+           "retired": len(outs), "quiesced": ok}
+    log(f"  abort_all() on a loaded engine: {json.dumps(out)}")
+    if not ok or not state["residents"]:
+        raise AssertionError("abort_all() left work or pages behind")
+    return out
+
+
 def serving(dev, tln, tpa):
     """Phase 3's four runs, defaults / grouped=False / grouped=False /
     defaults, on one model: launches of the first run of each arm (its
-    path), their stats, and the tokens of all four, which must agree."""
+    path), their stats, and the tokens of all four, which must agree;
+    then the defaults at a token budget of 64 (its own path) and
+    `abort_all()` on a loaded engine."""
     from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
     model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
                            dtype=torch.bfloat16, seed=SEED).eval()
@@ -2224,6 +2372,16 @@ def serving(dev, tln, tpa):
         f"{off2['tokens_per_s']:.1f}")
     if not same:
         raise AssertionError("grouped and ungrouped runs gave other tokens")
+    budget, budget_stats, budget_tokens = serve(dev, tln, tpa, model, True,
+                                                token_budget=TOKEN_BUDGET)
+    pairs = [(a, b) for got, w in zip(budget_tokens, on_tokens)
+             for a, b in zip(got, w)]
+    budget_stats["agreement_with_defaults"] = sum(
+        a == b for a, b in pairs) / len(pairs)
+    budget_stats["abort_all"] = abort_loaded(dev, model)
+    log(f"  [token_budget {TOKEN_BUDGET}] tokens equal to the defaults "
+        f"arm's at {budget_stats['agreement_with_defaults']:.4f} of "
+        f"positions (other packings batch the GEMMs differently)")
     # pages of 256 keys: the walks fold each page in two pieces of 128
     big, big_stats, big_tokens = serve(dev, tln, tpa, model, True,
                                        record=True, page_size=256)
@@ -2234,9 +2392,9 @@ def serving(dev, tln, tpa):
     log(f"  [page 256] tokens equal to the page-16 defaults arm's at "
         f"{big_stats['agreement_with_page_16']:.4f} of positions")
     return ({"serving": on, "serving_ungrouped": off,
-             "serving_page256": big},
+             "serving_page256": big, "serving_budget64": budget},
             {"defaults": [on_stats, on2], "grouped_off": [off_stats, off2],
-             "page_256": big_stats},
+             "page_256": big_stats, "token_budget": budget_stats},
             model, on_tokens)
 
 

@@ -73,7 +73,7 @@ KERNELS = {
         "ptt_lora_plan": [_I] * 6 + [_P],
     },
     "greedy_argmax": {
-        "ptt_greedy_argmax": [_P, _P, _I, _I, _I, _P],
+        "ptt_greedy_argmax": [_P, _P] + [_I] * 5 + [_P],
     },
     "flash_attention": {
         "ptt_flash_fwd": _FLASH,

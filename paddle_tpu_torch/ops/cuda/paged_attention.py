@@ -1358,11 +1358,60 @@ def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
     return out
 
 
+# K12's launch: at most this many blocks a row (the portable cluster
+# size), and float4 loads in flight a thread (`kLoads` in
+# csrc/greedy_argmax.cu)
+ARGMAX_MAX_CLUSTER = 8
+ARGMAX_LOADS = 4
+
+
+def _argmax_plan(b: int, v: int, sms: int) -> tuple:
+    """K12's launch for logits [b, v] f32 on a card of `sms` SMs: (S, the
+    blocks of one row's thread-block cluster, threads a block). S fills
+    about one wave of the SMs with b x S blocks (1 where b alone fills
+    the card, never more than ARGMAX_MAX_CLUSTER); the threads are the
+    power of two, 32-1024, that gives each about ARGMAX_LOADS of its
+    block's 16-byte vectors, at most 512 in a cluster or where rows
+    outnumber the SMs: two blocks an SM then fit, and on the H100 such
+    launches of 1024-thread blocks ran slower (`argmax_turns` times every
+    cluster size and block size)."""
+    s = max(1, min(ARGMAX_MAX_CLUSTER, sms // max(1, b)))
+    per_block = -(-(v // 4) // s)
+    want = -(-per_block // ARGMAX_LOADS)
+    cap = 1024 if s == 1 and b <= sms else 512
+    threads = 32
+    while threads < want and threads < cap:
+        threads *= 2
+    return s, threads
+
+
+def _argmax_slices(v: int, s: int, offset: int = 0) -> list:
+    """The elements each of K12's S blocks reads in a row of v f32 values
+    whose first element sits `offset` elements past a 16-byte boundary
+    (the C kernel's partition): rank r takes the whole vectors [r nv / S,
+    (r + 1) nv / S) after the scalar head that reaches the first aligned
+    address; rank 0 also takes the head and the tail after the last whole
+    vector. Returns, per rank, (scalar indices, [(start, stop) of each
+    vector run])."""
+    head = min(v, (4 - offset % 4) % 4)
+    nv = (v - head) // 4
+    tail0 = head + 4 * nv
+    out = []
+    for r in range(s):
+        lo, hi = r * nv // s, (r + 1) * nv // s
+        scalars = (list(range(head)) + list(range(tail0, v))) if r == 0 \
+            else []
+        out.append((scalars, [(head + 4 * j, head + 4 * j + 4)
+                              for j in range(lo, hi)]))
+    return out
+
+
 def decode_greedy_argmax(logits: torch.Tensor) -> torch.Tensor:
     """Greedy sampling over logits [B, V] -> int32 [B], the first-
     occurrence argmax of each row (a NaN counts as the largest value, as
     in torch.argmax and jnp.argmax). On the card K12 over the f32 logits
-    (counted in MEGA_LAUNCHES); on the CPU its plain version,
+    (counted in MEGA_LAUNCHES), each row split over a thread-block
+    cluster of `_argmax_plan`'s blocks; on the CPU its plain version,
     torch.argmax."""
     if logits.device.type == "cpu":
         return torch.argmax(logits, dim=-1).to(torch.int32)
@@ -1373,10 +1422,13 @@ def decode_greedy_argmax(logits: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"decode_greedy_argmax: logits [B, V], got "
                          f"{tuple(logits.shape)}")
     x = logits.to(torch.float32).contiguous()
-    out = torch.empty(x.shape[0], dtype=torch.int32, device=x.device)
+    b, v = x.shape
+    out = torch.empty(b, dtype=torch.int32, device=x.device)
+    s, threads = _argmax_plan(b, v, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     lib = _build.load("greedy_argmax")
-    err = lib.ptt_greedy_argmax(x.data_ptr(), out.data_ptr(), x.shape[0],
-                                x.shape[1], x.device.index,
+    err = lib.ptt_greedy_argmax(x.data_ptr(), out.data_ptr(), b, v, s,
+                                threads, x.device.index,
                                 _build.stream_ptr(x.device))
     _build.check(lib, err, "decode_greedy_argmax kernel launch")
     MEGA_LAUNCHES["K12"] += 1

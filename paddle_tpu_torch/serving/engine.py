@@ -160,7 +160,7 @@ __all__ = ["ServingEngine", "unified_forward", "legacy_forward",
            "resolve_unported_gates"]
 
 KV_DTYPE_MODES = ("fp", "int8", "fp8")
-_ROADMAP_SERVING = "ROADMAP.md, queue 1, item 9"
+_ROADMAP_SERVING = "ROADMAP.md, queue 1, item 6"
 _MESH_RE = re.compile(r"^dp(\d+)x?mp(\d+)$")
 _SPEC_MODES = ("off", "ngram", "model")
 _SLO_KEYS = ("ttft_p99", "itl_p99", "goodput", "fast", "slow", "warn",
@@ -463,13 +463,24 @@ class ServingEngine:
     important resident), prefill chunk by chunk, decode together in the
     one unified step (or alternate prefill chunks with one decode step,
     `unified=False`), and retire on EOS, max-tokens, timeout, placement
-    deadline or cancellation. `drain()` shuts down gracefully."""
+    deadline or cancellation. `drain()` shuts down gracefully,
+    `abort_all()` at once; `debug_state()` reads the live state.
+
+    As in the JAX engine, `cache_spec` (n_layers, n_kv_heads, head_dim)
+    defaults to the model's `_decode_cache_spec()`, a given `scheduler`
+    (of `num_slots` slots) and `metrics` are the ones the engine uses,
+    and `token_budget` caps the tokens one unified step packs (default
+    `num_slots * chunk_len`, the full step shape)."""
 
     MIN_CHUNK = 8     # the smallest chunk (and legacy prefill bucket)
 
-    def __init__(self, model, *, num_slots: int = 8, max_len: int = 256,
-                 page_size: int = 16, num_pages: Optional[int] = None,
-                 chunk_len: int = 32, max_queue: Optional[int] = None,
+    def __init__(self, model, cache_spec=None, *, num_slots: int = 8,
+                 max_len: int = 256, page_size: int = 16,
+                 num_pages: Optional[int] = None, chunk_len: int = 32,
+                 scheduler: Optional[Scheduler] = None,
+                 metrics: Optional[ServingMetrics] = None,
+                 max_queue: Optional[int] = None,
+                 token_budget: Optional[int] = None,
                  prefix_cache=None, device: DeviceLike = None,
                  seed: int = 0, clock=time.monotonic, grouped=None,
                  preempt=None, host_pages: Optional[int] = None,
@@ -485,8 +496,15 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
                              f"{self.device}")
+        if cache_spec is None:
+            if not hasattr(model, "_decode_cache_spec"):
+                raise ValueError(
+                    "cache_spec not given and the model has no "
+                    "_decode_cache_spec(); pass (n_layers, n_kv_heads, "
+                    "head_dim) explicitly")
+            cache_spec = model._decode_cache_spec()
         self.model = model
-        self.n_layers, self.n_kv, self.head_dim = model._decode_cache_spec()
+        self.n_layers, self.n_kv, self.head_dim = cache_spec
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         max_pos = getattr(getattr(model, "config", None),
@@ -506,9 +524,17 @@ class ServingEngine:
             raise ValueError(f"chunk_len must be >= {self.MIN_CHUNK}")
         self.unified = resolve_unified_flag(unified)
         self.attn_impl = resolve_paged_attn_impl(attn_impl)
-        # every step may pack the full [num_slots, chunk_len] shape
-        self.token_budget = self.num_slots * self.chunk_len
-        self.scheduler = Scheduler(self.num_slots, max_queue=max_queue)
+        # the tokens one unified step packs: decode rows always get
+        # theirs, prefill grants share what is left. The default is the
+        # full [num_slots, chunk_len] shape
+        self.token_budget = (self.num_slots * self.chunk_len
+                             if token_budget is None else int(token_budget))
+        if self.token_budget < 1:
+            raise ValueError("token_budget must be >= 1")
+        self.scheduler = scheduler or Scheduler(self.num_slots,
+                                                max_queue=max_queue)
+        if self.scheduler.num_slots != self.num_slots:
+            raise ValueError("scheduler.num_slots != engine num_slots")
         # only the unified kernel step has a grouped walk: elsewhere the
         # flag drops silently (the JAX engine's rule)
         self.grouped = (resolve_grouped_flag(grouped) and self.unified
@@ -518,7 +544,7 @@ class ServingEngine:
         # silently elsewhere (the JAX engine's rule)
         self.megakernel = (resolve_megakernel_flag(megakernel)
                            and self.unified and self.attn_impl == "kernel")
-        self.metrics = ServingMetrics()
+        self.metrics = metrics or ServingMetrics()
         self.metrics.grouped = self.grouped
         self.metrics.megakernel = self.megakernel
         self.metrics.unified = self.unified
@@ -551,6 +577,10 @@ class ServingEngine:
                            * (self.head_dim * kv_item + scale_bytes))
         self.metrics.kv_dtype = self.kv_dtype
         self.metrics.pool_bytes_per_page = self.page_bytes
+        # one device: the JAX engine's values at mp = dp = 1
+        self.metrics.pool_shard_bytes_per_page = self.page_bytes
+        self.metrics.grammar = False
+        self.metrics.step_capacity_tokens = self.num_slots * self.chunk_len
         self._last_logits = torch.zeros(
             (self.num_slots, model.config.vocab_size), dtype=torch.float32,
             device=self.device)
@@ -608,6 +638,7 @@ class ServingEngine:
         self._vec_dev: Optional[tuple] = None          # None = re-upload
         self._all_greedy = True
         self._closed = False     # drain() flips it; add_request refuses
+        self._step_idx = 0       # engine rounds run (debug_state's step)
 
     def _new_pools(self) -> tuple:
         """One layer's zeroed (k, v, k_scale | None, v_scale | None)."""
@@ -1131,9 +1162,11 @@ class ServingEngine:
             prev_t = req._last_token_t
             req._emit(tok, now)
             self.metrics.on_token(req, now)
-            if prev_t is not None:
-                self.metrics.on_inter_token(now - prev_t)
             sp = req.sampling
+            if prev_t is not None:
+                self.metrics.on_inter_token(
+                    now - prev_t, priority=sp.priority,
+                    adapter_id=sp.adapter_id, now=now)
             if sp.eos_token_id is not None and tok == sp.eos_token_id:
                 self._finish_and_free(req, "stop", now, finished)
             elif len(req.output_tokens) >= sp.max_new_tokens:
@@ -1200,6 +1233,7 @@ class ServingEngine:
             req = running[slot]
             cur = self._prefill_cursor[req.request_id] + take
             self._prefill_cursor[req.request_id] = cur
+            self.metrics.on_prefill_chunk(take)
             if cur >= req.prefill_ids.size:
                 # the last prefilled token's logits are held: the row
                 # samples its next token next step
@@ -1245,7 +1279,7 @@ class ServingEngine:
             self._last_logits[slot] = row[0]
         self._pos[slot] = cursor + real
         self._prefill_cursor[req.request_id] = cursor + real
-        self.metrics.on_prefill_chunk(real, time.perf_counter() - t0)
+        self.metrics.on_prefill_chunk(real, wall_s=time.perf_counter() - t0)
 
     def _advance_prefills(self) -> int:
         """One chunk for EACH mid-prefill slot, in slot order; a slot
@@ -1311,18 +1345,23 @@ class ServingEngine:
         round's model work (`_run_round`). Returns the requests that
         finished this round."""
         finished: List[RequestOutput] = []
+        self._step_idx += 1
         now = self._clock()
         self._evict(now, finished)
         self._admit(now)
         self._preempt_for_overload(now)
         chunks = self._run_round(finished)
         self.metrics.on_step(self.scheduler.queue_depth,
-                             self.pool.used_pages, self.pool.cached_pages,
-                             self.num_pages - 1,
+                             self.scheduler.occupancy, self.num_slots,
+                             pages_used=self.pool.used_pages,
+                             pages_total=self.num_pages - 1,
+                             stall_chunks=chunks,
+                             pages_cached=self.pool.cached_pages,
                              pages_swapped=self.pool.swapped_pages,
                              host_pages_used=self.host_pool.used_pages,
                              host_pages_total=self.host_pages,
-                             stall_chunks=chunks,
+                             prefix_stats=(None if self.prefix_cache is None
+                                           else self.prefix_cache.stats()),
                              adapter_stats=(None if self.adapters is None
                                             else self.adapters.stats()))
         return finished
@@ -1355,6 +1394,84 @@ class ServingEngine:
         if self.adapters is not None:
             self.adapters.assert_quiesced()
         return finished
+
+    def abort_all(self, reason: str = "aborted") -> List[RequestOutput]:
+        """Forced shutdown: close the engine and retire every request,
+        queued, preempted and resident, now with `reason`, freeing its
+        pages and host-tier pages, without another step. Residents keep
+        the tokens they already emitted (a caller may pass
+        "replica_failure" to tell which are safe to retry)."""
+        self._closed = True
+        finished: List[RequestOutput] = []
+        now = self._clock()
+        for req in self.scheduler.pop_queued():
+            self._finish_and_free(req, reason, now, finished)
+        for slot in sorted(self.scheduler.running):
+            self._finish_and_free(self.scheduler.running[slot], reason, now,
+                                  finished)
+        self.pool.assert_quiesced()
+        if self.adapters is not None:
+            self.adapters.assert_quiesced()
+        return finished
+
+    # -- debug introspection -------------------------------------------------
+    def debug_state(self) -> dict:
+        """Host-side live state, with the JAX engine's keys: residents,
+        the queue's summary, the pools, the prefix cache's and the
+        adapters' stats and the engine's A/B flags. Pure reads of host
+        state, never of the device. Features the port has not ported
+        read as the JAX engine reads them with their gates off (no draft
+        pool, obs, SLO tracker, cost census or mesh; mp = dp = 1)."""
+        sched = self.scheduler
+        residents = []
+        for slot, req in sorted(sched.running.items()):
+            residents.append({
+                "slot": slot, "request_id": req.request_id,
+                "state": req.state.name,
+                "prompt_len": int(req.prompt_ids.size),
+                "emitted": len(req.output_tokens),
+                "pages": len(self._slot_pages.get(slot) or ()),
+                "cached_tokens": int(req.cached_tokens),
+                "priority": int(req.sampling.priority),
+                "adapter_id": int(req.sampling.adapter_id)})
+        return {
+            "closed": self._closed,
+            "step": self._step_idx,
+            "num_slots": self.num_slots,
+            "residents": residents,
+            "queue": sched.queue_summary(),
+            "pool": {"pages_total": self.num_pages - 1,
+                     "pages_used": self.pool.used_pages,
+                     "pages_cached": self.pool.cached_pages,
+                     "pages_swapped": self.pool.swapped_pages,
+                     "pages_free": self.pool.free_pages,
+                     "bytes_per_page": self.page_bytes},
+            "host_pool": {"pages_used": self.host_pool.used_pages,
+                          "pages_total": self.host_pages},
+            "draft_pool": None,
+            "prefix_cache": (None if self.prefix_cache is None
+                             else self.prefix_cache.stats()),
+            "adapters": (None if self.adapters is None else {
+                "pool": self.adapters.stats(),
+                "registered": self.adapters.debug()}),
+            "config": {"unified": self.unified,
+                       "grouped": self.grouped,
+                       "attn_impl": self.attn_impl,
+                       "kv_dtype": self.kv_dtype,
+                       "mesh": None, "mp": 1, "dp": 1,
+                       "preempt": self.preempt,
+                       "spec": None,
+                       "spec_draft_model": False,
+                       "grammar": False,
+                       "num_pages": self.num_pages,
+                       "page_size": self.page_size,
+                       "chunk_len": self.chunk_len,
+                       "max_len": self.max_len,
+                       "token_budget": self.token_budget},
+            "obs": None,
+            "slo": None,
+            "cost_census": None,
+        }
 
     # -- conveniences ------------------------------------------------------
     @property

@@ -283,6 +283,8 @@ class RadixPrefixCache:
             "spilled_pages": self.spilled_pages_total,
             "restored_pages": self.restored_pages_total,
             "spilled_nodes": self._n_spilled,
+            # sessions (the JAX cache's pins) are not ported: none pinned
+            "pinned_pages": 0,
             "tree_pages": self.tree_pages,
             "resident_pages": self.pool.cached_pages,
             "hit_rate": (self.hits / self.lookups) if self.lookups

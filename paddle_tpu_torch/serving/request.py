@@ -12,7 +12,7 @@ PREFILL spans as many engine steps as the prompt needs chunks; states
 advance only at step boundaries. A request names its LoRA adapter by
 `SamplingParams.adapter_id` (0, the default, is the base model).
 Grammar, embeddings and sessions are not ported yet (ROADMAP.md, queue
-1, item 9).
+1, item 6).
 """
 from __future__ import annotations
 

@@ -13,7 +13,8 @@ blocked head may then PREEMPT the least important resident of a
 strictly lower class (`preemption_victim`); the engine banks it, swaps
 its KV to the host tier and `requeue`s it by its original key, past
 max_queue. Draft packing is not ported yet (ROADMAP.md, queue 1, item
-10).
+6). `queue_summary()` is the queue's view for the engine's
+`debug_state()`.
 """
 from __future__ import annotations
 
@@ -90,6 +91,23 @@ class Scheduler:
     @property
     def occupancy(self) -> float:
         return len(self.running) / self.num_slots
+
+    def queue_summary(self, max_items: int = 16) -> dict:
+        """The ordered queue for debug introspection (the engine's
+        `debug_state()`): depth, per-priority-class counts, and the
+        first `max_items` entries in admission order."""
+        by_prio: Dict[str, int] = {}
+        head: List[dict] = []
+        for req in self._queue:
+            p = str(req.sampling.priority)
+            by_prio[p] = by_prio.get(p, 0) + 1
+            if len(head) < max_items:
+                head.append({"request_id": req.request_id,
+                             "priority": req.sampling.priority,
+                             "state": req.state.name,
+                             "deadline_s": req.sampling.deadline_s})
+        return {"depth": len(self._queue), "by_priority": by_prio,
+                "head": head}
 
     def free_slots(self) -> List[int]:
         return [s for s in range(self.num_slots) if s not in self.running]

@@ -8,6 +8,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+from paddle_tpu_torch.ops.cuda import _build
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import layer_norm as tln
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
@@ -1069,16 +1070,67 @@ def test_lora_delta_paged_kernel_is_bit_reproducible(cuda):
         assert torch.equal(tpa.lora_delta_paged(*args), first)
 
 
-@pytest.mark.parametrize("b,v", [(16, 50304), (3, 97), (2, 1), (5, 4097)])
-def test_greedy_argmax_kernel_equals_torch_argmax(cuda, b, v):
-    """K12 against torch.argmax bit for bit, with a tie, NaNs and an all
-    -inf row; 20 repeats give the same answer."""
-    g = torch.Generator(device=cuda).manual_seed(v)
-    logits = torch.randn(b, v, generator=g, device=cuda)
-    if v > 3 and b > 2:
+def _argmax_logits(cuda, b, v, offset=0):
+    """Random f32 logits [b, v] whose rows start `offset` elements past
+    a 16-byte boundary, with a tie, NaNs in two places, an all -inf row
+    and -0.0 before an equal 0.0 where b and v allow."""
+    g = torch.Generator(device=cuda).manual_seed(v + offset)
+    flat = torch.empty(b * v + 4, device=cuda)
+    logits = flat[offset:offset + b * v].view(b, v)
+    logits.copy_(torch.randn(b, v, generator=g, device=cuda))
+    if v > 3 and b > 3:
         logits[0, [v // 3, v - 1]] = 1e4
         logits[1, [1, v // 2]] = float("nan")
         logits[2] = float("-inf")
+        logits[3] = -1.0
+        logits[3, [v // 2, v - 1]] = torch.tensor([-0.0, 0.0], device=cuda)
+    return logits
+
+
+@pytest.mark.parametrize("b,v", [(16, 50304), (3, 97), (2, 1), (5, 4097),
+                                 (1, 50304), (128, 50304), (16, 50257),
+                                 (16, 128256), (300, 5), (16, 3)])
+def test_greedy_argmax_kernel_equals_torch_argmax(cuda, b, v):
+    """K12 against torch.argmax bit for bit, with a tie, NaNs, an all
+    -inf row and signed zeros, in rows aligned to 16 bytes and one
+    element past; 20 repeats give the same answer."""
+    for offset in (0, 1):
+        logits = _argmax_logits(cuda, b, v, offset)
+        _check_argmax(logits)
+
+
+@pytest.mark.parametrize("s", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("v", [1, 3, 5, 31, 50304])
+def test_greedy_argmax_kernel_at_every_cluster_size(cuda, s, v):
+    """The C entry at S blocks a row (clusters of 1-8) and 32 or 256
+    threads, V from below S x 4 up, rows off a 16-byte boundary too: the
+    answer is torch.argmax's, ties across slice borders included."""
+    lib = _build.load("greedy_argmax")
+    for offset in (0, 3):
+        logits = _argmax_logits(cuda, 6, v, offset)
+        for r, (_, runs) in enumerate(tpa._argmax_slices(v, s, offset)):
+            if r and runs:    # the last of slice r - 1 ties the first of r
+                logits[4, [runs[0][0] - 1, runs[0][0]]] = 1e5
+        want = torch.argmax(logits, dim=-1)
+        for threads in (32, 256):
+            out = torch.empty(6, dtype=torch.int32, device=cuda)
+            err = lib.ptt_greedy_argmax(logits.data_ptr(), out.data_ptr(), 6,
+                                        v, s, threads, cuda.index,
+                                        _build.stream_ptr(cuda))
+            _build.check(lib, err, "ptt_greedy_argmax")
+            torch.cuda.synchronize()
+            assert torch.equal(out.long(), want), (s, threads, offset)
+
+
+def test_greedy_argmax_plan_fills_the_card(cuda):
+    """`_argmax_plan` at the card's SM count: 16 slots of 50304 logits
+    take clusters of 8 (128 blocks), 128 or more rows a block each."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tpa._argmax_plan(16, 50304, sms)[0] == min(8, sms // 16)
+    assert tpa._argmax_plan(max(128, sms), 50304, sms)[0] == 1
+
+
+def _check_argmax(logits):
     before = tpa.MEGA_LAUNCHES["K12"]
     got = tpa.decode_greedy_argmax(logits)
     torch.cuda.synchronize()
