@@ -1761,26 +1761,33 @@ def argmax_rows(logits, tpa):
     three ways, NaNs in two of the row's cluster slices (the later slice's
     first), an all -inf row, a row of equal values, -0.0 before 0.0 as
     the maximum, and a tie across the border of slices 0 and 1 of
-    `_argmax_slices` (the last element of slice 0 and the first of 1; in
-    row 0 alone where B < 8)."""
+    `_argmax_slices` at the row's own offset from a 16-byte boundary (the
+    last element of slice 0 and the first of 1; in row 0 alone where
+    B < 8)."""
     b, v = logits.shape
     s, _ = tpa._argmax_plan(b, v, torch.cuda.get_device_properties(
         logits.device).multi_processor_count)
-    slices = tpa._argmax_slices(v, s)
-    border = slices[1][1][0][0] if s > 1 and slices[1][1] else v // 2
-    last = slices[-1][1][-1][0] if slices[-1][1] else v - 1
+
+    def slices(r):
+        return tpa._argmax_slices(v, s, logits[r].data_ptr() // 4 % 4)
+
+    def border(r):
+        sl = slices(r)
+        return sl[1][1][0][0] if s > 1 and sl[1][1] else v // 2
+
     if b < 8:
-        logits[0, [border - 1, border]] = 11.0
+        logits[0, [border(0) - 1, border(0)]] = 11.0
         return logits
+    last = slices(2)[-1][1]
     logits[1, [7, v // 3, v - 1]] = 9.0
-    logits[2, [last, 777]] = float("nan")
+    logits[2, [last[-1][0] if last else v - 1, 777]] = float("nan")
     logits[3] = float("-inf")
     logits[4] = 0.5
     logits[5] = -1.0
     logits[5, [v // 2, v // 2 + 1]] = torch.tensor([-0.0, 0.0],
                                                    device=logits.device)
-    logits[6, [border - 1, border]] = 11.0
-    logits[7, [border, v - 1]] = float("nan")
+    logits[6, [border(6) - 1, border(6)]] = 11.0
+    logits[7, [border(7), v - 1]] = float("nan")
     return logits
 
 
@@ -1797,11 +1804,12 @@ def check_greedy_argmax(dev, tpa, time_ms):
     floor_ms = time_ms(lambda: torch.cuda._sleep(0))
     shapes = {}
     for b, v in ARGMAX_SHAPES:
-        logits = argmax_rows(torch.randn(b, v, generator=g, device=dev), tpa)
-        # the same values one element past a 16-byte boundary
+        base = torch.randn(b, v, generator=g, device=dev)
+        logits = argmax_rows(base.clone(), tpa)
+        # the same random values one element past a 16-byte boundary, the
+        # hard rows placed at that view's slice borders
         flat = torch.empty(b * v + 4, device=dev)
-        shifted = flat[1:1 + b * v].view(b, v)
-        shifted.copy_(logits)
+        shifted = argmax_rows(flat[1:1 + b * v].view(b, v).copy_(base), tpa)
         for tag, x in (("", logits), (" offset by one element", shifted)):
             got = tpa.decode_greedy_argmax(x)
             torch.cuda.synchronize()

@@ -23,12 +23,13 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import torch
 
 __all__ = ["KERNELS", "POOL_CODES", "BUILD_DIR", "CSRC", "build", "load",
-           "check", "dtype_code", "stream_ptr"]
+           "check", "dtype_code", "stream_ptr", "checkout_source",
+           "build_checkouts", "load_path", "ptxas_report", "turn_order"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # <repo>/build/paddle_tpu_torch (the package sits at <repo>/paddle_tpu_torch)
@@ -150,14 +151,21 @@ def load(name: str) -> ctypes.CDLL:
     target = _target(name)
     if not target.exists():
         build([name])
-    lib = ctypes.CDLL(str(target))
-    for entry, argtypes in KERNELS[name].items():
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+    lib = _bind(ctypes.CDLL(str(target)), KERNELS[name], strict=True)
+    _LIBS[name] = lib
+    return lib
+
+
+def _bind(lib: ctypes.CDLL, table: dict, strict: bool) -> ctypes.CDLL:
+    """Bind the C entries of `table` ({entry: argument types}) in `lib`:
+    all of them (`strict`), or those `lib` has."""
+    for entry, argtypes in table.items():
+        if strict or hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     lib.ptt_error_string.argtypes = [ctypes.c_int]
     lib.ptt_error_string.restype = ctypes.c_char_p
-    _LIBS[name] = lib
     return lib
 
 
@@ -180,3 +188,61 @@ def dtype_code(dtype: torch.dtype) -> int:
 def stream_ptr(device: torch.device) -> int:
     """The raw cudaStream_t of PyTorch's current stream on `device`."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+# -- holding this build against other checkouts (the *_turns scripts) -----
+
+def checkout_source(root, name: str) -> Path:
+    """Kernel library `name`'s source in the checkout at `root`."""
+    return Path(root) / "paddle_tpu_torch/ops/cuda/csrc" / f"{name}.cu"
+
+
+def build_checkouts(roots, names, tag: str) -> dict:
+    """Compile kernel libraries `names` from each checkout in `roots`
+    with this build's flags into `BUILD_DIR/<tag>/<i>/`, one `nvcc` per
+    source, all started together. Returns {(root, name): (path, compiler
+    output)}; raises RuntimeError naming a source that failed."""
+    procs = {}
+    for i, root in enumerate(roots):
+        for name in names:
+            out = BUILD_DIR / tag / str(i) / f"lib{name}.so"
+            out.parent.mkdir(parents=True, exist_ok=True)
+            procs[root, name] = (out, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", str(out),
+                 str(checkout_source(root, name))], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for key, (out, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{tag}: {key} failed:\n{log}")
+        built[key] = (out, log)
+    return built
+
+
+def load_path(path, name: str,
+              earlier: Optional[dict] = None) -> ctypes.CDLL:
+    """The library at `path` (kernel `name` built from some checkout),
+    the entries of `KERNELS[name]` that it has bound, with `earlier`
+    ({entry: argument types}) in place of entries whose signature this
+    build changed."""
+    return _bind(ctypes.CDLL(str(path)), {**KERNELS[name], **(earlier or {})},
+                 strict=False)
+
+
+def ptxas_report(log: str, pattern) -> str:
+    """ptxas's registers and spill lines for the entry the regular
+    expression `pattern` finds in compiler output `log`."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and pattern.search(line):
+            return " / ".join(x.strip() for x in lines[i + 1:i + 4])
+    return "not found"
+
+
+def turn_order(others) -> tuple:
+    """The turns in which a build is timed against other checkouts:
+    this build, the others, the others reversed, this build again (a
+    drift of the card's clock over the turns then shows as a difference
+    between the two turns of one build)."""
+    return ("this", *others, *reversed(others), "this")

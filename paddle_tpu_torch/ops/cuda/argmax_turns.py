@@ -6,16 +6,15 @@ this build's launch at every cluster size.
 
 OTHER is the root of another checkout of this repo (for example the
 parent commit, unpacked with `git archive`). Each checkout's
-`csrc/greedy_argmax.cu` is compiled with this build's flags into the
-build directory, and so is this checkout's (all `nvcc` processes started
-together). A checkout whose entry takes the launch (blocks a row and
-threads a block) is called with `_argmax_plan`'s; one from before (a
-block of 1024 threads a row) through its earlier signature (`_EARLIER`).
-Then, at ARGMAX_SHAPES in f32 (a megakernel step's 16 slots, one row, 16
-slots x a verify width of 8, Llama 3's vocabulary, 256 rows), on each
-build in turn (this, the others, the others reversed, this; three
-rounds) behind a GPU sleep (`flash_tile_sweep.device_ms`): every build's
-answer must equal
+`csrc/greedy_argmax.cu` is compiled with this build's flags, and so is
+this checkout's (`_build.build_checkouts`). A checkout whose entry takes
+the launch (blocks a row and threads a block) is called with
+`_argmax_plan`'s; one from before (a block of 1024 threads a row)
+through its earlier signature (`_EARLIER`). Then, at ARGMAX_SHAPES in
+f32 (a megakernel step's 16 slots, one row, 16 slots x a verify width of
+8, Llama 3's vocabulary, 256 rows), on each build in turn
+(`_build.turn_order`; three rounds) behind a GPU sleep
+(`flash_tile_sweep.device_ms`): every build's answer must equal
 `torch.argmax`. Prints the card's name and power limit, this build's
 ptxas report, the ms per call of each build in each turn and their
 means, a launch that does nothing (`torch.cuda._sleep(0)`, the floor of
@@ -40,42 +39,15 @@ ARGMAX_SHAPES = ((16, 50304), (1, 50304), (128, 50304), (16, 128256),
                  (256, 50304))
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # K12's entry before it took the launch
-_EARLIER = [_P, _P, _I, _I, _I, _P]
+_EARLIER = {"ptt_greedy_argmax": [_P, _P, _I, _I, _I, _P]}
 ROUNDS = 3
 
 
-def build_all(roots) -> dict:
-    """{root: (path, compiler log)}, compiled in parallel."""
-    procs = {}
-    for i, root in enumerate(roots):
-        src = Path(root) / "paddle_tpu_torch/ops/cuda/csrc/greedy_argmax.cu"
-        out = _build.BUILD_DIR / "argmax_turns" / str(i) / \
-            "libgreedy_argmax.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        procs[root] = (out, subprocess.Popen(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(src)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for root, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"argmax_turns: {root} failed:\n{log}")
-        built[root] = (out, log)
-    return built
-
-
-def _launcher(path, current: bool):
-    """A function (x, out, plan=None) launching the library at `path`:
+def _launcher(so, current: bool):
+    """A function (x, out, plan=None) launching K12 from library `so`:
     with `plan` (blocks a row, threads) or `_argmax_plan`'s launch where
     the entry takes one (`current`), else through the earlier
     signature."""
-    so = ctypes.CDLL(str(path))
-    fn = so.ptt_greedy_argmax
-    fn.argtypes = (_build.KERNELS["greedy_argmax"]["ptt_greedy_argmax"]
-                   if current else _EARLIER)
-    fn.restype = ctypes.c_int
-    so.ptt_error_string.argtypes = [ctypes.c_int]
-    so.ptt_error_string.restype = ctypes.c_char_p
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def launch(x, out, plan=None):
@@ -83,10 +55,11 @@ def _launcher(path, current: bool):
         dev, stream = x.device.index, _build.stream_ptr(x.device)
         if current:
             s, threads = plan or tpa._argmax_plan(b, v, sms)
-            err = fn(x.data_ptr(), out.data_ptr(), b, v, s, threads, dev,
-                     stream)
+            err = so.ptt_greedy_argmax(x.data_ptr(), out.data_ptr(), b, v,
+                                       s, threads, dev, stream)
         else:
-            err = fn(x.data_ptr(), out.data_ptr(), b, v, dev, stream)
+            err = so.ptt_greedy_argmax(x.data_ptr(), out.data_ptr(), b, v,
+                                       dev, stream)
         _build.check(so, err, "K12")
     return launch
 
@@ -97,21 +70,20 @@ def main(argv=None) -> int:
         print("argmax_turns: needs CUDA", file=sys.stderr)
         return 1
     here = str(Path(__file__).resolve().parents[3])
-    roots = [here] + others
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
     print(f"card: {smi}")
-    built = build_all(roots)
-    for line in built[here][1].splitlines():
+    built = _build.build_checkouts([here, *others], ["greedy_argmax"],
+                                   "argmax_turns")
+    for line in built[here, "greedy_argmax"][1].splitlines():
         if "registers" in line or "spill" in line:
             print(f"  ptxas (this build): {line.strip()}")
     launchers = {}
-    for root in roots:
-        src = (Path(root) / "paddle_tpu_torch/ops/cuda/csrc/"
-               "greedy_argmax.cu").read_text()
-        launchers[root] = _launcher(built[root][0], "int S" in src)
-    order = [here] + others + others[::-1] + [here]
+    for (root, lib), (path, _) in built.items():
+        current = "int S" in _build.checkout_source(root, lib).read_text()
+        so = _build.load_path(path, lib, None if current else _EARLIER)
+        launchers["this" if root == here else root] = _launcher(so, current)
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -121,24 +93,24 @@ def main(argv=None) -> int:
         x = torch.randn(b, v, generator=g, device=dev)
         want = torch.argmax(x, dim=-1)
         out = torch.empty(b, dtype=torch.int32, device=dev)
-        times = {root: [] for root in roots}
+        times = {name: [] for name in launchers}
         for _ in range(ROUNDS):
-            for root in order:
-                launch = launchers[root]
+            for name in _build.turn_order(others):
+                launch = launchers[name]
                 launch(x, out)
                 torch.cuda.synchronize()
                 if not torch.equal(out.long(), want):
-                    raise AssertionError(f"{root} disagrees with "
+                    raise AssertionError(f"{name} disagrees with "
                                          f"torch.argmax at [{b}, {v}]")
-                times[root].append(device_ms(lambda: launch(x, out),
+                times[name].append(device_ms(lambda: launch(x, out),
                                              iters=20))
-        for root in roots:
-            ms = times[root]
-            print(f"[{b}, {v}] {'this' if root == here else root}: "
+        for name, ms in times.items():
+            print(f"[{b}, {v}] {name}: "
                   f"{', '.join(f'{t:.5f}' for t in ms)} ms; mean "
                   f"{sum(ms) / len(ms):.5f}")
+        # this build's kernel at every cluster size and block size
         plan = tpa._argmax_plan(b, v, sms)
-        launch = launchers[here]
+        launch = launchers["this"]
         row = []
         for s in (1, 2, 4, 8):
             for threads in (256, 512, 1024):

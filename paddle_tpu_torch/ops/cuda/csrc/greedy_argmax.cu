@@ -237,7 +237,7 @@ extern "C" int ptt_greedy_argmax(const void* logits, void* out, int B, int V,
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = S > 1 ? 1 : 0;  // a block a row: a plain launch
   err = cudaLaunchKernelEx(&cfg, argmax_kernel,
                            static_cast<const float*>(logits),
                            static_cast<int*>(out), V, S);

@@ -22,7 +22,6 @@ and the ms per call of each. Needs CUDA and nvcc.
 """
 from __future__ import annotations
 
-import ctypes
 import re
 import subprocess
 import sys
@@ -49,45 +48,6 @@ SERVING = {"K9": re.compile(r"(ring_walk_kernel|decode_ring_kernel)I13__nv_"
            "K11": re.compile(r"lora_paged_kernelI13__nv_bfloat16Lb1E")}
 
 
-def build_all(roots) -> dict:
-    """{(root, library): (path, compiler log)}, compiled in parallel."""
-    procs = {}
-    for i, root in enumerate(roots):
-        for lib in _ENTRIES:
-            src = Path(root) / "paddle_tpu_torch/ops/cuda/csrc" / f"{lib}.cu"
-            out = _build.BUILD_DIR / "turns" / str(i) / f"lib{lib}.so"
-            out.parent.mkdir(parents=True, exist_ok=True)
-            procs[root, lib] = (out, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                 str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for key, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"decode_lora_turns: {key} failed:\n{log}")
-        built[key] = (out, log)
-    return built
-
-
-def ptxas_report(log: str, pattern) -> str:
-    """ptxas's registers and spill line for the entry `pattern` names."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and pattern.search(line):
-            return " / ".join(x.strip() for x in lines[i + 1:i + 4])
-    return "not found"
-
-
-def _load(path, lib) -> ctypes.CDLL:
-    so = ctypes.CDLL(str(path))
-    fn = getattr(so, _ENTRIES[lib])
-    fn.argtypes, fn.restype = _build.KERNELS[lib][_ENTRIES[lib]], ctypes.c_int
-    so.ptt_error_string.argtypes = [ctypes.c_int]
-    so.ptt_error_string.restype = ctypes.c_char_p
-    return so
-
-
 def main(argv=None) -> int:
     roots = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
@@ -97,13 +57,13 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     here = str(Path(__file__).resolve().parents[3])   # this checkout
-    built = build_all([here, *roots])
+    built = _build.build_checkouts([here, *roots], _ENTRIES, "turns")
     for name, pat in SERVING.items():
         lib = "lora_paged" if name == "K11" else "paged_decode_attention"
         print(f"this build, {name} serving instantiation: "
-              f"{ptxas_report(built[here, lib][1], pat)}")
+              f"{_build.ptxas_report(built[here, lib][1], pat)}")
     names = {here: "this", **{r: r for r in roots}}
-    loaded = {(names[root], lib): _load(path, lib)
+    loaded = {(names[root], lib): _build.load_path(path, lib)
               for (root, lib), (path, _) in built.items()}
     dev = torch.device("cuda", 0)
     base = decode_batch(dev, torch.bfloat16, 12, 12, 64)
@@ -118,7 +78,7 @@ def main(argv=None) -> int:
              "K11 bf16 rank 8": lambda: tpa.lora_delta_paged(*lora)}
     k6 = {"K9 bf16": ragged(base, {}), "K9-fp8": ragged(fp8, {})}
     saved = {lib: _build._LIBS.get(lib) for lib in _ENTRIES}
-    order = ("this", *roots, *reversed(roots), "this")
+    order = _build.turn_order(roots)
     times, same = {}, {}
     try:
         ref = {}

@@ -76,62 +76,20 @@ SERVING = {"K1": re.compile(r"ln_fwd_kernelI13__nv_bfloat16(S\w+_)?Li3E"
                                r"(Li8ELi1E)?EEv")}
 
 
-def build_all(roots) -> dict:
-    """{(root, library): (path, compiler log)}, compiled in parallel."""
-    procs = {}
-    for i, root in enumerate(roots):
-        for lib in _LIBS:
-            src = Path(root) / "paddle_tpu_torch/ops/cuda/csrc" / f"{lib}.cu"
-            out = _build.BUILD_DIR / "ln_scatter" / str(i) / f"lib{lib}.so"
-            out.parent.mkdir(parents=True, exist_ok=True)
-            procs[root, lib] = (out, subprocess.Popen(
-                [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
-                 str(src)], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for key, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"ln_scatter_turns: {key} failed:\n{log}")
-        built[key] = (out, log)
-    return built
-
-
-def ptxas_report(log: str, pattern) -> str:
-    """ptxas's registers and spill line for the entry `pattern` names."""
-    lines = log.splitlines()
-    for i, line in enumerate(lines):
-        if "Compiling entry function" in line and pattern.search(line):
-            return " / ".join(x.strip() for x in lines[i + 1:i + 4])
-    return "not found"
-
-
 # a mark of this build's C entries in a checkout's source: K1's plan
 # entry (with the weight dtype), K8-q8's paired entry
 _MARKS = {"layer_norm": "ptt_layer_norm_fwd_plan",
           "paged_scatter": "ptt_paged_scatter_q8_pair"}
 
 
-def _current(root, lib) -> bool:
-    src = Path(root) / "paddle_tpu_torch/ops/cuda/csrc" / f"{lib}.cu"
-    return _MARKS[lib] in src.read_text()
-
-
-def _load(path, lib, current):
-    """The library at `path`, its entries bound by this build's
-    signatures (`current`, or where an entry kept its signature) or by
-    the earlier ones."""
-    so = ctypes.CDLL(str(path))
-    table = dict(_build.KERNELS[lib])
-    if not current:
-        table.update(_EARLIER)
-    for entry, argtypes in table.items():
-        if hasattr(so, entry):
-            fn = getattr(so, entry)
-            fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    so.ptt_error_string.argtypes = [ctypes.c_int]
-    so.ptt_error_string.restype = ctypes.c_char_p
-    return so, current
+def _load(root, path, lib):
+    """(the library at `path`, built from `root`, whether it has this
+    build's entries): its entries bound by this build's signatures
+    (where it has them, or where an entry kept its signature) or by the
+    earlier ones."""
+    current = _MARKS[lib] in _build.checkout_source(root, lib).read_text()
+    return (_build.load_path(path, lib, None if current else _EARLIER),
+            current)
 
 
 def _where(t):
@@ -189,13 +147,13 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
     here = str(Path(__file__).resolve().parents[3])   # this checkout
-    built = build_all([here, *roots])
+    built = _build.build_checkouts([here, *roots], _LIBS, "ln_scatter")
     for name, pat in SERVING.items():
         lib = "layer_norm" if name in ("K1", "K2") else "paged_scatter"
         print(f"this build, {name} serving instantiation: "
-              f"{ptxas_report(built[here, lib][1], pat)}")
+              f"{_build.ptxas_report(built[here, lib][1], pat)}")
     names = {here: "this", **{r: r for r in roots}}
-    loaded = {(names[root], lib): _load(path, lib, _current(root, lib))
+    loaded = {(names[root], lib): _load(root, path, lib)
               for (root, lib), (path, _) in built.items()}
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -225,7 +183,7 @@ def main(argv=None) -> int:
                                          device=dev)}
     q8_pools = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
                         torch.zeros(shape[:3], device=dev))
-    order = ("this", *roots, *reversed(roots), "this")
+    order = _build.turn_order(roots)
     saved = {lib: _build._LIBS.get(lib) for lib in _LIBS}
     times, same, ref = {}, {}, {}
 

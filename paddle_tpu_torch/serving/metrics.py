@@ -135,6 +135,30 @@ class Histogram:
         return out
 
 
+def _unported_off() -> dict:
+    """The snapshot keys of features the port has not ported (ROADMAP.md,
+    queue 1, item 6) at the values the JAX engine gives with those gates
+    off: speculative decoding and its draft-model tier, grammar-
+    constrained decoding, the KV fabric, the tensor-parallel mesh, the
+    compiled-step cost census, the SLO tracker and the JAX engine's
+    traced dispatch count. A new dict each call, so no snapshot shares
+    its subtrees with another."""
+    return {
+        "mesh": None, "mp": 1, "dp": 1,
+        "packed_draft_tokens": 0,
+        "spec": None, "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
+        "spec_tokens_per_step":
+            Histogram(buckets=SPEC_TOKEN_BUCKETS).snapshot(),
+        "grammar_requests": 0, "grammar_masked_steps": 0,
+        "grammar_masked_rows": 0, "grammar_rejected_drafts": 0,
+        "unified_dispatch_ops": None,
+        "spec_draft_model": False, "draft_pool": None,
+        "fabric": {"pages_sent": 0, "bytes_sent": 0, "pages_recv": 0,
+                   "bytes_recv": 0, "restored_pages": 0},
+        "cost_census": None, "slo": None,
+    }
+
+
 class ServingMetrics:
     """Engine-owned counters/gauges/histograms. Times are seconds on
     the engine's clock; tokens/s is measured over the busy window
@@ -161,20 +185,12 @@ class ServingMetrics:
         # failed 504 (missed = requests_deadline). The pair is the
         # "did the overload scheduler actually deliver" number.
         self.deadline_met = 0
-        # requests quarantined by poison bisection (not ported: 0)
-        self.requests_poisoned = 0
         # overload preemption: residents preempted (banked + swapped
         # to the host tier + requeued) and the whole-page traffic
         # through the device<->host swap programs
         self.preemptions = 0
         self.swapped_out_pages = 0
         self.swapped_in_pages = 0
-        # the fleet KV fabric's traffic (not ported: 0)
-        self.fabric_pages_sent = 0
-        self.fabric_bytes_sent = 0
-        self.fabric_pages_recv = 0
-        self.fabric_bytes_recv = 0
-        self.fabric_restored_pages = 0
         self.tokens_generated = 0
         self.prompt_tokens = 0
         self.prefills = 0
@@ -214,12 +230,8 @@ class ServingMetrics:
         # residents per HBM byte)
         self.kv_dtype: Optional[str] = None
         self.pool_bytes_per_page = 0
-        # the tensor-parallel mesh (not ported: single device, mp = dp =
-        # 1) and the per-chip page cost (the engine sets it to the page
-        # cost, as the JAX engine does at mp 1)
-        self.mesh: Optional[str] = None
-        self.mp = 1
-        self.dp = 1
+        # the per-chip page cost (the engine sets it to the page cost, as
+        # the JAX engine does on one device)
         self.pool_shard_bytes_per_page = 0
         # whether the engine runs the unified ragged prefill+decode
         # step (True) or the legacy alternating program families
@@ -230,7 +242,6 @@ class ServingMetrics:
         self.unified_steps = 0
         self.packed_prefill_tokens = 0
         self.packed_decode_tokens = 0
-        self.packed_draft_tokens = 0
         # prefix-sharing grouped walk (the fifth A/B tag): whether the
         # engine runs it, the modeled page-block reads the step's walk
         # issues (CPU-reference count, one (layer, kv-head) sweep per
@@ -239,24 +250,11 @@ class ServingMetrics:
         self.grouped: Optional[bool] = None
         self.page_block_reads = 0
         self.shared_page_reads_saved = 0
-        # the decode megakernel gate (the A/B tag); the JAX engine's
-        # traced dispatch count has no counterpart in an eager step
-        # (None, its value before a trace)
+        # the decode megakernel gate (the A/B tag)
         self.megakernel: Optional[bool] = None
-        self.unified_dispatch_ops: Optional[int] = None
-        # speculative decoding, its draft-model tier and grammar-
-        # constrained decoding (not ported: the tags off, counters 0)
-        self.spec: Optional[str] = None
-        self.spec_drafted_tokens = 0
-        self.spec_accepted_tokens = 0
-        self.spec_draft_model = False
-        self.draft_pool_pages_used = 0
-        self.draft_pool_pages_total = 0
+        # the grammar gate's tag: None until an engine sets it (False,
+        # grammar-constrained decoding not being ported)
         self.grammar: Optional[bool] = None
-        self.grammar_requests = 0
-        self.grammar_masked_steps = 0
-        self.grammar_masked_rows = 0
-        self.grammar_rejected_drafts = 0
         # off-path counter: engine steps where prefill chunk programs
         # ran ahead of the decode step, stalling every resident decoder
         # (the TTFT spike the unified step exists to kill; stays 0 with
@@ -277,10 +275,6 @@ class ServingMetrics:
         # draft together — the "how full is the budget" histogram)
         self.packed_tokens_hist = Histogram(
             buckets=PACKED_TOKEN_BUCKETS)
-        # tokens one decode row emitted in one step with speculation
-        # on (not ported: empty)
-        self.spec_tokens_per_step = Histogram(
-            buckets=SPEC_TOKEN_BUCKETS)
         # members per sharing group per unified step (only groups that
         # actually deduplicated >= 1 shared page read)
         self.group_size_hist = Histogram(buckets=GROUP_SIZE_BUCKETS)
@@ -313,10 +307,8 @@ class ServingMetrics:
         # capped label space with the request counters above
         self._by_adapter_lat: dict = {}
         self._adapter_labels: set = set()
-        # the compiled-step cost census (not ported: None), and the
-        # per-step achieved utilization: packed tokens over the step's
-        # capacity, num_slots * chunk_len (set by the engine)
-        self.cost_census: Optional[dict] = None
+        # the per-step achieved utilization: packed tokens over the
+        # step's capacity, num_slots * chunk_len (set by the engine)
         self.step_capacity_tokens = 0
         self.achieved_util_hist = Histogram(buckets=UTIL_BUCKETS)
         # sliding window of the last N steps' achieved utilization:
@@ -466,8 +458,6 @@ class ServingMetrics:
                 self.requests_deadline += 1
             elif req.finish_reason in ("stop", "length"):
                 self.requests_completed += 1
-            elif req.finish_reason == "poisoned":
-                self.requests_poisoned += 1
             else:                 # "aborted", "replica_failure", ...
                 self.requests_aborted += 1
             e2e = now - req.arrival_t
@@ -496,19 +486,16 @@ class ServingMetrics:
                 self.swap_in_s.record(wall_s)
 
     def on_unified_step(self, prefill_tokens: int, decode_tokens: int,
-                        wall_s: float, draft_tokens: int = 0):
+                        wall_s: float):
         """One unified ragged step ran, packing `prefill_tokens` prompt
-        tokens and `draft_tokens` speculative drafts next to
-        `decode_tokens` sampled tokens. The wall time lands in the
-        same decode_step_s histogram the alternating path records, so
-        the on/off A/B compares like for like."""
+        tokens next to `decode_tokens` sampled tokens. The wall time
+        lands in the same decode_step_s histogram the alternating path
+        records, so the on/off A/B compares like for like."""
         with self._lock:
             self.unified_steps += 1
             self.packed_prefill_tokens += int(prefill_tokens)
             self.packed_decode_tokens += int(decode_tokens)
-            self.packed_draft_tokens += int(draft_tokens)
-            packed = (int(prefill_tokens) + int(decode_tokens)
-                      + int(draft_tokens))
+            packed = int(prefill_tokens) + int(decode_tokens)
             self.packed_tokens_hist.record(packed)
             if self.step_capacity_tokens:
                 util = packed / self.step_capacity_tokens
@@ -548,8 +535,6 @@ class ServingMetrics:
                 stall_chunks: int = 0, pages_cached: int = 0,
                 pages_swapped: int = 0, host_pages_used: int = 0,
                 host_pages_total: int = 0,
-                draft_pages_used: int = 0,
-                draft_pages_total: int = 0,
                 prefix_stats: Optional[dict] = None,
                 adapter_stats: Optional[dict] = None):
         with self._lock:
@@ -567,9 +552,6 @@ class ServingMetrics:
             self.pool_pages_swapped = pages_swapped
             self.host_pages_used = host_pages_used
             self.host_pages_total = host_pages_total
-            self.draft_pool_pages_used = draft_pages_used
-            if draft_pages_total:
-                self.draft_pool_pages_total = draft_pages_total
             if prefix_stats is not None:
                 self.prefix = dict(prefix_stats)
             self.prefill_stall = stall_chunks
@@ -605,6 +587,7 @@ class ServingMetrics:
 
     def _snapshot_locked(self) -> dict:
         return {
+            **_unported_off(),
             "requests": {
                 "received": self.requests_received,
                 "admitted": self.requests_admitted,
@@ -613,7 +596,7 @@ class ServingMetrics:
                 "timeout": self.requests_timeout,
                 "deadline": self.requests_deadline,
                 "aborted": self.requests_aborted,
-                "poisoned": self.requests_poisoned,
+                "poisoned": 0,      # poison bisection is not ported
             },
             "preemptions": self.preemptions,
             "swapped_out_pages": self.swapped_out_pages,
@@ -627,31 +610,17 @@ class ServingMetrics:
             "decode_steps": self.decode_steps,
             "attn_impl": self.attn_impl,
             "kv_dtype": self.kv_dtype,
-            "mesh": self.mesh,
-            "mp": self.mp,
-            "dp": self.dp,
             "unified": self.unified,
             "unified_steps": self.unified_steps,
             "packed_prefill_tokens": self.packed_prefill_tokens,
             "packed_decode_tokens": self.packed_decode_tokens,
-            "packed_draft_tokens": self.packed_draft_tokens,
             "packed_tokens_per_step": self.packed_tokens_hist.snapshot(),
-            "spec": self.spec,
-            "spec_drafted_tokens": self.spec_drafted_tokens,
-            "spec_accepted_tokens": self.spec_accepted_tokens,
-            "spec_tokens_per_step":
-                self.spec_tokens_per_step.snapshot(),
             "grammar": self.grammar,
-            "grammar_requests": self.grammar_requests,
-            "grammar_masked_steps": self.grammar_masked_steps,
-            "grammar_masked_rows": self.grammar_masked_rows,
-            "grammar_rejected_drafts": self.grammar_rejected_drafts,
             "grouped": self.grouped,
             "page_block_reads_total": self.page_block_reads,
             "shared_page_reads_saved_total":
                 self.shared_page_reads_saved,
             "megakernel": self.megakernel,
-            "unified_dispatch_ops": self.unified_dispatch_ops,
             "group_size_per_step": self.group_size_hist.snapshot(),
             "prefill_stall_steps": self.prefill_stall_steps,
             "decode_step_s": self.decode_step_s.snapshot(),
@@ -676,23 +645,11 @@ class ServingMetrics:
                 "bytes_total": (self.host_pages_total
                                 * self.pool_bytes_per_page),
             },
-            "spec_draft_model": self.spec_draft_model,
-            "draft_pool": (None if not self.spec_draft_model else {
-                "pages_used": self.draft_pool_pages_used,
-                "pages_total": self.draft_pool_pages_total,
-            }),
             "prefix": (None if self.prefix is None else {
                 **self.prefix,
                 "cached_tokens_per_request":
                     self.prefix_cached_tokens_hist.snapshot(),
             }),
-            "fabric": {
-                "pages_sent": self.fabric_pages_sent,
-                "bytes_sent": self.fabric_bytes_sent,
-                "pages_recv": self.fabric_pages_recv,
-                "bytes_recv": self.fabric_bytes_recv,
-                "restored_pages": self.fabric_restored_pages,
-            },
             "prefill_stall": self.prefill_stall,
             "prefill_stall_hist": self.prefill_stall_hist.snapshot(),
             "ttft_s": self.ttft_s.snapshot(),
@@ -722,9 +679,6 @@ class ServingMetrics:
                       "deadline_goodput": dict(cls["goodput"])}
                 for lbl, cls in sorted(self._by_adapter_lat.items())},
             "achieved_util": self.achieved_util_hist.snapshot(),
-            "cost_census": (None if self.cost_census is None
-                            else dict(self.cost_census)),
-            "slo": None,          # the SLO tracker is not ported
         }
 
 

@@ -1078,10 +1078,11 @@ def _argmax_logits(cuda, b, v, offset=0):
     flat = torch.empty(b * v + 4, device=cuda)
     logits = flat[offset:offset + b * v].view(b, v)
     logits.copy_(torch.randn(b, v, generator=g, device=cuda))
-    if v > 3 and b > 3:
+    if v > 3 and b > 2:
         logits[0, [v // 3, v - 1]] = 1e4
         logits[1, [1, v // 2]] = float("nan")
         logits[2] = float("-inf")
+    if v > 3 and b > 3:
         logits[3] = -1.0
         logits[3, [v // 2, v - 1]] = torch.tensor([-0.0, 0.0], device=cuda)
     return logits
