@@ -180,10 +180,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    profiled step;
 5. `GPTForCausalLM.generate` on GPT-124M bf16 (a fresh model from the
    same seed): batch 8 x prompt 128, 32 new tokens, greedy twice and a
-   seeded top-k 50 sampling run twice (each pair identical), K1 25 and
-   K3 12 launches per decoded token, and the prefill's and the first
-   decode step's logits against a plain f32 rerun on the CPU (0.1).
-   Prints tokens/s;
+   seeded top-k 50 sampling run twice (each pair identical), beam search
+   (4 beams) and the dense int8 cache, K1 25 and K3 12 launches per
+   forward (the int8 run's K3 only in its calibration prefill and its
+   prefill), beam search's tie order on the card against the CPU's, and
+   the prefill's and the first decode step's logits against a plain f32
+   rerun on the CPU (0.1). Prints tokens/s;
 6. 2-layer GPTs (bf16) at head dim 256 (K3-K5 on the tensor cores) and at
    head dim 32 (the plain `_sdpa_ref` route, as the JAX package takes
    it): the legacy step and the gather arm serve 8 prompts, generate()
@@ -192,7 +194,25 @@ Phases, each reported on its own line; any failure exits non-zero:
 7. one decoder layer at GPT-3 13B's width (hidden 5120, 40 heads of 128;
    bf16, cut in depth only): two train steps on [2, 1024] (K1 and K2 3
    each a step, in their wide lanes; K3-K5 once), then the held step on
-   [1, 1024] in f32, kernel path against plain path.
+   [1, 1024] in f32, kernel path against plain path;
+8. Llama-7B (`LlamaConfig()`'s defaults, bf16, random weights from the
+   seed, 32 layers of 32 heads of 128) serves phase 3's traffic in six
+   arms: the defaults (a recorded step's held logits against a plain
+   f32 rerun on the card, 0.5, and the f32 model through the kernels
+   against it, 0.01), grouped=False, int8 pools, the legacy
+   step, the megakernel on, and the LORA adapters with the megakernel
+   on; exact launches per step (K10a and K10b 32 each, K1 0; K8-q8 32
+   over int8; K8's float lane 32 and K12 1 with the megakernel; K11 128
+   with adapters: Llama's four standalone deltas a layer), the tokens of
+   the defaults, grouped=False and megakernel arms identical, a profile
+   of each arm. Then its `generate()` as phase 5 (greedy twice, beam, the
+   int8 cache; K3 32 a forward) with the prefill, a decode step and the
+   cache-free forward (K3) held against a plain f32 rerun on the card.
+   Then a GQA model at Meta-Llama-3-8B's widths (vocab 128256, 8 kv
+   heads: rep 4; 4 of its 32 layers) serves the same traffic with the
+   defaults, grouped=False and the megakernel (K12 over 128256 columns),
+   tokens identical. Prints tokens/s and the device's busy share of each
+   arm.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -204,14 +224,17 @@ the gather arm, serving_gather; the megakernel and adapter arms,
 serving_[int8_]megakernel, serving_adapters[_megakernel[_2pages]],
 serving_adapters_r32_megakernel and serving_int8_adapters_megakernel;
 training; training_gpt3_width, phase 7's step; or generate) whose
-shapes
-the record was measured at, and
-`launches_by_path` those on each path, each counted from 0 just before
-its run. The last line is `{"ok": true, "device": {...}}`. Without CUDA
+shapes the record was measured at, and `launches_by_path` those on each
+path, each counted from 0 just before its run: besides those, phase 5's
+generate_beam and generate_int8, and phase 8's llama_serving[_ungrouped|
+_int8|_legacy|_megakernel|_adapters_megakernel], llama_generate[_beam|
+_int8] and llama3_gqa_serving[_ungrouped|_megakernel]. The last line
+is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -261,6 +284,17 @@ FLASH_REPEATS = 20
 # bf16 activations through 12 layers against f32 (logits have std ~0.5;
 # the first H100 run measured 0.026)
 HELD_LOGITS_TOL = 0.1
+# phase 8's, Llama-7B, whose untied head gives logits of std ~1.3 (0.02 x
+# sqrt(4096), 2.3x GPT-124M's tied head's). bf16 against f32: 32 layers
+# whose residual stream grows to std ~11 (each layer adds ~4 to its
+# variance), 64 bf16 roundings of it and each sublayer's compounding
+# through the later layers: a few % of the logits' std at the worst of a
+# step's ~500k logits (the first H100 run measured 0.3307, against a
+# first tolerance of 0.25). The same model in f32 through the kernels
+# against the plain versions differs only in the kernels' summation
+# order (F32_TOL relative per call), carried through 32 layers
+LLAMA_HELD_LOGITS_TOL = 0.5
+LLAMA_F32_HELD_TOL = 1e-2
 # phase 4: bench.py's train step
 TRAIN = dict(batch=16, seq=1024, lr=1e-4, weight_decay=0.01, warmup=2,
              steps=5, held_batch=2)
@@ -273,6 +307,7 @@ TRAIN = dict(batch=16, seq=1024, lr=1e-4, weight_decay=0.01, warmup=2,
 HELD_LOSS_RTOL, HELD_GRAD_TOL, HELD_BF16_LOSS_TOL = 1e-5, 2e-5, 0.05
 # phase 5: GPTForCausalLM.generate
 GENERATE = dict(batch=8, prompt=128, new=32)
+GENERATE_BEAMS = 4
 # phase 3's adapter arms: scripts/serving_bench.py --lora-ab's defaults
 # (4 adapters of rank 4, numpy seed 0; tenants zipf over {base, 1..4},
 # the first four requests one per adapter) at amplitude 0.05
@@ -290,6 +325,17 @@ HEAD_DIM_GPTS = {
              num_attention_heads=24, max_position_embeddings=1024)}
 # K3-K5 at head dim 256 in phase 2: phase 6's train step, [B, L, H, D]
 D256_FLASH = (2, 1024, 4, 256)
+# phase 8: Llama-7B, the `LlamaConfig()` defaults (BASELINE.md config
+# #5: vocab 32000, hidden 4096, 32 layers of 32 heads, intermediate
+# 11008), at full depth; and a GQA arm at Meta-Llama-3-8B's published
+# widths (its config.json: vocab 128256, 32 heads over 8 kv heads,
+# intermediate 14336, 8192 positions, eps 1e-5, theta 500000), cut to 4
+# of its 32 layers
+LLAMA7B = dict()
+LLAMA3_GQA = dict(vocab_size=128256, hidden_size=4096, num_hidden_layers=4,
+                  num_attention_heads=32, num_key_value_heads=8,
+                  intermediate_size=14336, max_position_embeddings=8192,
+                  rms_norm_eps=1e-5, rope_theta=500000.0)
 
 
 def log(msg: str):
@@ -1917,15 +1963,15 @@ def check_paged_attention_masked(dev, tpa, time_ms):
 
 
 # -- phase 3: serve GPT-124M -------------------------------------------------
-def make_traffic():
-    """24 prompts of 32-700 tokens. A third of them — the first and the
+def make_traffic(vocab: int = GPT124M["vocab_size"]):
+    """24 prompts of 32-700 tokens over a vocabulary of `vocab`. A third
+    of them — the first and the
     last seven — are one shared 256-token system prompt, a shared 4-token
     separator, then their own text. The first has the shortest prompt of
     the first 16 admitted (the others have 300-700), so it finishes first
     and the last seven, still queued, attach its cached prompt pages and
     copy-on-write the page holding the separator."""
     rs = np.random.RandomState(SEED)
-    vocab = GPT124M["vocab_size"]
     system = rs.randint(0, vocab, size=SHARED_PREFIX)
     sep = rs.randint(0, vocab, size=4)
     n_shared = N_REQUESTS // 3
@@ -1967,19 +2013,30 @@ def _no_launches(tpa) -> dict:
                           *tpa.MEGA_LAUNCHES], 0)
 
 
+def norm_launches(model) -> int:
+    """K1 launches of one forward: GPT's 2L + 1 LayerNorms; none for
+    Llama, whose RMSNorm is plain torch (jnp in the JAX package)."""
+    cfg = model.config
+    return 2 * cfg.num_hidden_layers + 1 if hasattr(model, "gpt") else 0
+
+
 def per_step_launches(tpa, grouped: bool, kv_dtype: str,
                       attn_impl: str = "kernel", megakernel: bool = False,
-                      adapters: bool = False) -> dict:
-    """One unified step's launches: K1 2L + 1; the walk per layer (K10's
+                      adapters: bool = False, n_layers: int =
+                      GPT124M["num_hidden_layers"],
+                      k1: int = 2 * GPT124M["num_hidden_layers"] + 1
+                      ) -> dict:
+    """One unified step's launches: K1 `k1` (GPT's 2L + 1, Llama's 0);
+    the walk per layer (K10's
     two phases, or K6, in the pools' lane), or K3 per layer under the
     gather arm; the lane's write per layer (K8 or K8-q8 once for K and
     V) — a float pool's unfused write is index_copy_, under the
     megakernel K8's float lane. Under the megakernel, K12 once a step and, with
     adapters, K11 four times a layer (the q, k and v prologue and the
-    o-delta); without it the adapters' deltas are library products."""
-    n_layers = GPT124M["num_hidden_layers"]
+    o-delta; in Llama the four standalone deltas); without it the
+    adapters' deltas are library products."""
     want = _no_launches(tpa)
-    want["K1"] = 2 * n_layers + 1
+    want["K1"] = k1
     lane = LANE_OF[kv_dtype]
     if attn_impl == "gather":
         want["K3"] = n_layers
@@ -1996,15 +2053,16 @@ def per_step_launches(tpa, grouped: bool, kv_dtype: str,
     return want
 
 
-def legacy_launches(tpa, kv_dtype: str):
+def legacy_launches(tpa, kv_dtype: str,
+                    n_layers: int = GPT124M["num_hidden_layers"],
+                    k1: int = 2 * GPT124M["num_hidden_layers"] + 1):
     """The legacy step's launches (per decode step, per prefill chunk):
-    K1 2L + 1 in each; the decode step's walk (K9, K9-fp8 or K7) and a
+    K1 `k1` in each; the decode step's walk (K9, K9-fp8 or K7) and a
     chunk's K3 per layer; the lane's write for K and V per layer in
     each."""
-    n_layers = GPT124M["num_hidden_layers"]
     per_decode, per_chunk = _no_launches(tpa), _no_launches(tpa)
     for want in (per_decode, per_chunk):
-        want["K1"] = 2 * n_layers + 1
+        want["K1"] = k1
         if WRITE_OF[kv_dtype]:
             want[WRITE_OF[kv_dtype]] = n_layers
     per_decode[DECODE_WALK_OF[kv_dtype]] = n_layers
@@ -2025,7 +2083,7 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
           profile: bool = False, kv_dtype: str = "fp", unified: bool = True,
           attn_impl: str = "kernel", megakernel: bool = False,
           adapter_pages=None, adapter_ranks=(2, 4, 8), page_size=None,
-          token_budget=None):
+          token_budget=None, label: str = ""):
     """One run of phase 3's traffic on a fresh engine: the defaults
     (grouped walk, preemption, host tier) or grouped=False, over pools of
     `kv_dtype`; or the legacy alternating step (unified=False), or the
@@ -2037,8 +2095,11 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     `page_size`, pages of that many keys in place of ENGINE's; with
     `token_budget`, at most that many tokens packed a step, the engine's
     `debug_state()` read after DEBUG_STEP steps and its metrics rendered
-    by `prometheus_render`. Returns the launches, the stats and every
-    request's tokens."""
+    by `prometheus_render`. The traffic, the adapters and the launches
+    follow the model (GPT or Llama: its depth, vocabulary and norms);
+    `label` names the model in the log. A recorded Llama step is rerun on
+    the card (`rerun_recorded`). Returns the launches, the stats and
+    every request's tokens."""
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
                                           legacy_forward, unified_forward)
@@ -2084,6 +2145,9 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
                f"{f', token_budget {token_budget}' if token_budget else ''}")
     else:
         arm = f"{kv_dtype} legacy"
+    arm = f"{label} {arm}" if label else arm
+    cfg = model.config
+    n_layers, k1 = cfg.num_hidden_layers, norm_launches(model)
     extra = {}
     if megakernel:
         extra["megakernel"] = True
@@ -2111,10 +2175,10 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
                              f"{eng.unified}, attn_impl {eng.attn_impl}, "
                              f"megakernel {eng.megakernel}, adapters "
                              f"{eng.adapters is not None}")
-    prompts = make_traffic()
+    prompts = make_traffic(cfg.vocab_size)
     tenants = [0] * len(prompts)
     if adapters:
-        loras, tenants = adapter_traffic()
+        loras, tenants = adapter_traffic(cfg)
         ids = [eng.adapters.register(f"tenant{i}", w)
                for i, w in enumerate(loras)]
         if ids != list(range(1, len(loras) + 1)):
@@ -2159,13 +2223,13 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
         f"{sizes['max']}")
     if unified:
         per_step = per_step_launches(tpa, grouped, kv_dtype, attn_impl,
-                                     megakernel, adapters)
+                                     megakernel, adapters, n_layers, k1)
         want = {k: n * steps for k, n in per_step.items()}
         log(f"  [{arm}] launches: "
             f"{ {k: n for k, n in launches.items() if n} } (per step "
             f"{ {k: n for k, n in per_step.items() if n} })")
     else:
-        per_step, per_chunk = legacy_launches(tpa, kv_dtype)
+        per_step, per_chunk = legacy_launches(tpa, kv_dtype, n_layers, k1)
         want = {k: n * steps + per_chunk[k] * chunks
                 for k, n in per_step.items()}
         buckets = sorted(eng.prefill_buckets)
@@ -2184,7 +2248,7 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     if any(r.finish_reason != "length" or len(r.output_tokens) != NEW_TOKENS
            for r in reqs):
         raise AssertionError("a request did not finish with its 64 tokens")
-    if any(not 0 <= t < GPT124M["vocab_size"]
+    if any(not 0 <= t < cfg.vocab_size
            for r in reqs for t in r.output_tokens):
         raise AssertionError("a token id outside the vocabulary")
     if launches != want or steps == 0:
@@ -2239,41 +2303,97 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
                      prefill_chunk_host_ms_p50=pcs["p50"] * 1e3,
                      prefill_chunk_host_ms_p90=pcs["p90"] * 1e3)
     if record and unified:
-        stats["held"] = rerun_recorded(eng, model, unified_forward)
+        stats["held"] = rerun_recorded(eng, model, unified_forward,
+                                       on_card=hasattr(model, "llama"))
     elif record:
         stats["held"] = rerun_recorded_legacy(eng, model, legacy_forward)
-    if profile:
+    if profile and hasattr(model, "llama"):
+        # three shared-prefix prompts and one other, 8 new tokens each:
+        # at Llama's 32 layers the trace's processing outlasts the steps
+        stats["profile"] = profile_steps(eng, prompts[:2] + prompts[17:19],
+                                         new=8)
+    elif profile:
         # the eight shared-prefix prompts and eight others, so that the
         # profiled steps form sharing groups
         stats["profile"] = profile_steps(eng, prompts[:8] + prompts[16:])
     return launches, stats, [list(r.output_tokens) for r in reqs]
 
 
-def rerun_recorded(eng, model, unified_forward) -> dict:
-    """Rerun the recorded step through the plain versions (CPU, f32) and
-    hold its logits against the card's. The rerun takes the paged walk's
-    plain version whatever the engine's `attn_impl`, so the gather arm's
-    step (K3 over the gathered view) is held against an independent
-    reference."""
+def f32_copy_on_card(model):
+    """An f32 copy of `model` on its device (built there, then loaded:
+    a model too large for the host's f32 copy)."""
+    plain = type(model)(model.config, device=model.device,
+                        dtype=torch.float32, seed=SEED).eval()
+    plain.load_state_dict(model.state_dict())
+    return plain
+
+
+def rerun_recorded(eng, model, unified_forward, on_card=False) -> dict:
+    """Rerun the recorded step through the plain versions in f32 and hold
+    its logits against the card's: on the CPU, or with `on_card` (a
+    model whose f32 copy the CPU could not run in time: Llama-7B) on the
+    card under `plain_serving`, where no kernel launches. The rerun
+    takes the paged walk's plain version whatever the engine's
+    `attn_impl` and its ungrouped form, so the gather arm's step (K3
+    over the gathered view) and the grouped walk's are held against an
+    independent reference."""
     if eng.recorded is None:
         raise AssertionError(f"step {RECORD_STEP} never ran")
     (toks, pos, table, q_len, is_decode, group, lora), pools, last, held = \
         eng.recorded
-    plain_model = copy.deepcopy(model).float().cpu()
+    dev = model.device if on_card else torch.device("cpu")
+    plain_model = (f32_copy_on_card(model) if on_card
+                   else copy.deepcopy(model).float().cpu())
     # bf16 pools to f32; int8 codes, their scales and e4m3 pools as they
     # are: the rerun reads the same quantized pages
-    f32 = lambda t: (t.float() if t is not None and t.dtype == torch.bfloat16
-                     else t)
+    f32 = lambda t: (None if t is None else
+                     t.to(dev).float() if t.dtype == torch.bfloat16
+                     else t.to(dev))
     pools = [tuple(map(f32, layer)) for layer in pools]
     if lora is not None:
         # the adapter pools to f32; the rerun gathers each row's pairs
         # (the unfused path) whatever the engine's megakernel gate
         lora = (tuple(tuple(map(f32, layer)) for layer in lora[0]),
-                *lora[1:])
+                *map(f32, lora[1:]))
+    toks, pos, table, q_len, is_decode, last = map(
+        f32, (toks, pos, table, q_len, is_decode, last))
+    engine_group = None if group is None else tuple(map(f32, group))
+    if on_card:
+        group = None
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.ops.cuda import layer_norm as tln
+    from paddle_tpu_torch.ops.cuda import paged_attention as tpa
+    kernel_f32 = None
     with torch.no_grad():
-        plain = unified_forward(plain_model, pools, toks, pos, table, q_len,
-                                is_decode, last, group, lora=lora)
+        if on_card:
+            # the same step in f32 through the kernels (each layer writes
+            # its K/V before it attends, so both reruns read the same
+            # pools)
+            kernel_f32 = unified_forward(plain_model, pools, toks, pos, table,
+                                         q_len, is_decode, last,
+                                         engine_group, lora=lora).cpu()
+        before = launch_counts_serving(tln, tpa, tfa)
+        with (plain_serving() if on_card else contextlib.nullcontext()):
+            plain = unified_forward(plain_model, pools, toks, pos, table,
+                                    q_len, is_decode, last, group,
+                                    lora=lora).cpu()
+        if on_card and launch_counts_serving(tln, tpa, tfa) != before:
+            raise AssertionError("the plain rerun launched a kernel")
+    del plain_model, pools
+    q_len = q_len.cpu()
     live = q_len > 0
+    out = {}
+    if kernel_f32 is not None:
+        out["f32_kernels_max_abs_err"] = err32 = (
+            kernel_f32[live] - plain[live]).abs().max().item()
+        log(f"  step {RECORD_STEP}: the f32 model through the kernels vs "
+            f"the plain versions on the card max_abs_err={err32:.6f} "
+            f"(tolerance {LLAMA_F32_HELD_TOL})")
+        if not torch.isfinite(kernel_f32).all() or err32 > LLAMA_F32_HELD_TOL:
+            raise AssertionError("the f32 kernel path disagrees with the "
+                                 "plain rerun")
+    tol = LLAMA_HELD_LOGITS_TOL if hasattr(model, "llama") \
+        else HELD_LOGITS_TOL
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
     arm = (eng.kv_dtype + (", gather" if eng.attn_impl == "gather" else "")
@@ -2281,12 +2401,12 @@ def rerun_recorded(eng, model, unified_forward) -> dict:
            + (", adapters" if eng.adapters is not None else ""))
     log(f"  [{arm}] step {RECORD_STEP} ({int(q_len.sum())} "
         f"tokens, {int(live.sum())} live rows, grouped walk "
-        f"{'on' if group is not None else 'off'}): held logits vs plain "
-        f"f32 rerun max_abs_err={err:.4f} (tolerance {HELD_LOGITS_TOL}), "
-        f"argmax agreement {agree.item():.3f}")
-    if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
+        f"{'on' if eng.grouped else 'off'}): held logits vs plain f32 rerun "
+        f"{'on the card' if on_card else 'on the CPU'} max_abs_err="
+        f"{err:.4f} (tolerance {tol}), argmax agreement {agree.item():.3f}")
+    if not torch.isfinite(held).all() or err > tol:
         raise AssertionError("held logits disagree with the plain rerun")
-    return {"max_abs_err": err, "argmax_agreement": agree.item()}
+    return {"max_abs_err": err, "argmax_agreement": agree.item(), **out}
 
 
 def rerun_recorded_legacy(eng, model, legacy_forward) -> dict:
@@ -2454,15 +2574,18 @@ def serving_quantized(dev, tln, tpa, model, fp_tokens, fp_stats) -> tuple:
     return by_path, stats, tokens
 
 
-def adapter_traffic():
-    """The LORA adapters for GPT-124M (`make_random_lora` from numpy seed
-    0, drawn in order) and phase 3's requests' tenants: the first four
-    one per adapter, the rest zipf over {base, 1..4} (weight 1/(i+1)),
-    numpy seed 0 — scripts/serving_bench.py's `lora_trace` rule."""
+def adapter_traffic(cfg):
+    """The LORA adapters for the model of config `cfg` (`make_random_lora`
+    from numpy seed 0, drawn in order; q out H * D, k and v out H_kv * D)
+    and phase 3's requests' tenants: the first four one per adapter, the
+    rest zipf over {base, 1..4} (weight 1/(i+1)), numpy seed 0 —
+    scripts/serving_bench.py's `lora_trace` rule."""
     from paddle_tpu_torch.serving import make_random_lora
-    k, h = LORA["adapters"], GPT124M["hidden_size"]
+    k, h = LORA["adapters"], cfg.hidden_size
+    kv_out = h // cfg.num_attention_heads * getattr(
+        cfg, "num_key_value_heads", cfg.num_attention_heads)
     rng = np.random.RandomState(SEED)
-    loras = [make_random_lora(GPT124M["num_hidden_layers"], h, h, h,
+    loras = [make_random_lora(cfg.num_hidden_layers, h, h, kv_out,
                               rank=LORA["rank"], rng=rng, amp=LORA["amp"])
              for _ in range(k)]
     zipf = np.array([1.0 / (i + 1) for i in range(k + 1)])
@@ -2580,43 +2703,99 @@ def serving_legacy(dev, tln, tpa, model, fp_tokens) -> tuple:
     return by_path, stats
 
 
-def generate_phase(dev, tln, tpa, model) -> tuple:
-    """Phase 5: `GPTForCausalLM.generate` on GPT-124M bf16, batch 8 x
-    prompt 128, 32 new tokens: greedy twice (identical tokens), then a
-    seeded top-k 50 sampling run twice (identical tokens); K1 25 and K3
-    12 launches per decoded token (the prefill forward and one forward
-    per later token); the prefill's last logits, and those of the decode
-    step after it (K3 at Lq 1 over the dense cache, the window as its
-    kvec), against a plain f32 rerun on the CPU. Returns the launches of
-    the first greedy run and the stats."""
+def generate_phase(dev, tln, tpa, model, label: str = "",
+                   sampling: bool = True) -> tuple:
+    """`generate()` of `model` (bf16), batch 8 x prompt 128, 32 new
+    tokens: greedy twice (identical tokens), a seeded top-k 50 sampling
+    run twice (identical tokens; with `sampling`), beam search with
+    GENERATE_BEAMS beams and the dense int8 cache (greedy). Exact
+    launches: per forward K1 `norm_launches` and K3 one a layer (the
+    prefill and one forward per later token; beam search's at batch 8 x
+    beams), the int8 run's K3 only in its calibration prefill and its
+    prefill (its decode steps attend through the plain `kv8_attend`, jnp
+    in the JAX package). The prefill's last logits, and those of the
+    decode step after it (K3 at Lq 1 over the dense cache, the window as
+    its kvec), against a plain f32 rerun: on the CPU for GPT, on the card
+    under `plain_path` for Llama (whose f32 copy the CPU could not run
+    in time), where the cache-free forward of the same tokens through K3
+    is held too. Returns the launches of the greedy, beam and int8 runs
+    (`label`generate, _beam, _int8) and the stats."""
     from paddle_tpu_torch.nlp.generation import (decode_model_step,
                                                  init_decode_caches)
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    cfg = model.config
+    llama = hasattr(model, "llama")
     rs = np.random.RandomState(SEED + 2)
     batch, plen, new = GENERATE["batch"], GENERATE["prompt"], GENERATE["new"]
-    ids = torch.from_numpy(rs.randint(0, GPT124M["vocab_size"],
+    ids = torch.from_numpy(rs.randint(0, cfg.vocab_size,
                                       (batch, plen))).to(dev)
     model.generate(ids, max_new_tokens=2)          # warm-up
     torch.cuda.synchronize()
-    reset_counts(tln, tfa, tpa)
-    t0 = time.perf_counter()
-    greedy = model.generate(ids, max_new_tokens=new)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = launch_counts_serving(tln, tpa, tfa)
-    n_layers = GPT124M["num_hidden_layers"]
-    want = _no_launches(tpa)
-    want.update(K1=(2 * n_layers + 1) * new, K3=n_layers * new)
+    n_layers, k1 = cfg.num_hidden_layers, norm_launches(model)
+    runs = {"generate": dict(), "generate_beam": dict(
+        decode_strategy="beam_search", num_beams=GENERATE_BEAMS),
+        "generate_int8": dict(kv_cache_dtype="int8")}
+    # forwards a run makes: the prefill and new - 1 decode steps; the
+    # int8 run's calibration prefill besides
+    forwards = {"generate": new, "generate_beam": new,
+                "generate_int8": new + 1}
+    k3 = {"generate": n_layers * new, "generate_beam": n_layers * new,
+          "generate_int8": 2 * n_layers}
+    by_path, out, stats = {}, {}, {}
+    for path, kw in runs.items():
+        reset_counts(tln, tfa, tpa)
+        t0 = time.perf_counter()
+        out[path] = model.generate(ids, max_new_tokens=new, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        by_path[label + path] = launches = launch_counts_serving(tln, tpa,
+                                                                 tfa)
+        want = _no_launches(tpa)
+        want.update(K1=k1 * forwards[path], K3=k3[path])
+        seq = out[path]
+        agree = (seq[:, plen:] == out["generate"][:, plen:]).float().mean()
+        stats[path] = {"tokens_per_s": batch * new / wall, "wall_s": wall,
+                       "agreement_with_greedy": agree.item()}
+        log(f"  [{label}{path}] [{batch}, {plen}] + {new} tokens: "
+            f"{wall:.3f} s, {batch * new / wall:.1f} tokens/s; launches "
+            f"{ {k: n for k, n in launches.items() if n} }; tokens equal "
+            f"to greedy at {agree.item():.3f} of positions")
+        if launches != want:
+            raise AssertionError(f"{path} launches {launches} != {want}")
+        if seq.shape != (batch, plen + new) or not torch.equal(
+                seq[:, :plen], ids) or not (
+                (seq >= 0) & (seq < cfg.vocab_size)).all():
+            raise AssertionError(f"{path} returned the wrong sequence")
+    greedy = out["generate"]
+    if not llama:
+        # beam search's order among equal candidates on the card: the
+        # lower index first (jax.lax.top_k's), as the stable sort on the
+        # CPU gives it, over rows with many exact ties
+        from paddle_tpu_torch.nlp.generation import _top_k_stable
+        ties = torch.from_numpy(np.random.RandomState(SEED).randint(
+            0, 4, (8, 4 * cfg.vocab_size)).astype(np.float32))
+        on_card = [t.cpu() for t in _top_k_stable(ties.to(dev), 16)]
+        on_cpu = _top_k_stable(ties, 16)
+        stats["beam_tie_order_equal_to_cpu"] = all(
+            torch.equal(a, b) for a, b in zip(on_card, on_cpu))
+        log(f"  beam search's top-k over [8, {4 * cfg.vocab_size}] with ties "
+            f"on the card equals the CPU's stable order: "
+            f"{stats['beam_tie_order_equal_to_cpu']}")
+        if not stats["beam_tie_order_equal_to_cpu"]:
+            raise AssertionError("beam search's tie order on the card")
     again = model.generate(ids, max_new_tokens=new)
-    sample = lambda: model.generate(
-        ids, max_new_tokens=new, decode_strategy="sampling", top_k=50,
-        generator=torch.Generator(device=dev).manual_seed(SEED))
-    s1, s2 = sample(), sample()
+    same = {"greedy": torch.equal(greedy, again)}
+    if sampling:
+        sample = lambda: model.generate(
+            ids, max_new_tokens=new, decode_strategy="sampling", top_k=50,
+            generator=torch.Generator(device=dev).manual_seed(SEED))
+        s1, s2 = sample(), sample()
+        same["sampling"] = torch.equal(s1, s2)
+        stats["sampling_agreement_with_greedy"] = (
+            s1[:, plen:] == greedy[:, plen:]).float().mean().item()
     with torch.no_grad():
         caches = init_decode_caches(n_layers, batch, plen + new,
-                                    GPT124M["num_attention_heads"],
-                                    GPT124M["hidden_size"]
-                                    // GPT124M["num_attention_heads"],
+                                    *model._decode_cache_spec()[1:],
                                     dtype=model.dtype, device=dev)
         first, caches = decode_model_step(model, ids, caches)
         nxt = first.argmax(-1)[:, None]
@@ -2624,37 +2803,70 @@ def generate_phase(dev, tln, tpa, model) -> tuple:
         second, _ = decode_model_step(model, nxt, caches)
         torch.cuda.synchronize()
         step_k3 = tfa.LAUNCHES["fwd"] - before
-        plain = copy.deepcopy(model).float().cpu()
-        want_logits = plain(torch.cat([ids, nxt], 1).cpu())[:, -2:].float()
-    err = (first.cpu() - want_logits[:, 0]).abs().max().item()
-    err_step = (second.cpu() - want_logits[:, 1]).abs().max().item()
-    tok_s = batch * new / wall
-    log(f"  generate [{batch}, {plen}] + {new} tokens: {wall:.3f} s, "
-        f"{tok_s:.1f} tokens/s; launches { {k: n for k, n in launches.items() if n} }"
-        f" (per decoded token K1 {2 * n_layers + 1}, K3 {n_layers}); greedy "
-        f"twice identical: {torch.equal(greedy, again)}; seeded top-k 50 "
-        f"sampling twice identical: {torch.equal(s1, s2)}, equal to greedy "
-        f"at {(s1[:, plen:] == greedy[:, plen:]).float().mean().item():.3f} "
-        f"of positions; vs plain f32 rerun: prefill logits max_abs_err="
-        f"{err:.4f}, first decode step's max_abs_err={err_step:.4f} "
-        f"({step_k3} K3 launches; tolerance {HELD_LOGITS_TOL})")
-    if launches != want:
-        raise AssertionError(f"generate launches {launches} != {want}")
-    if not (torch.equal(greedy, again) and torch.equal(s1, s2)):
+        seq = torch.cat([ids, nxt], 1)
+        if llama:
+            before = tfa.LAUNCHES["fwd"]
+            free = model(seq)[:, -2:].float()
+            free_k3 = tfa.LAUNCHES["fwd"] - before
+            plain = f32_copy_on_card(model)
+            # the f32 model through the kernels: the prefill, the decode
+            # step and the cache-free forward
+            caches = init_decode_caches(n_layers, batch, plen + new,
+                                        *model._decode_cache_spec()[1:],
+                                        dtype=torch.float32, device=dev)
+            first32, caches = decode_model_step(plain, ids, caches)
+            second32, _ = decode_model_step(plain, nxt, caches)
+            kernel32 = [torch.stack([first32, second32], 1),
+                        plain(seq)[:, -2:].float()]
+            before = launch_counts_serving(tln, tpa, tfa)
+            with plain_path():
+                want_logits = plain(seq)[:, -2:].float()
+            if launch_counts_serving(tln, tpa, tfa) != before:
+                raise AssertionError("the plain rerun launched a kernel")
+            err32 = max((k - want_logits).abs().max().item()
+                        for k in kernel32)
+            del plain, caches
+            torch.cuda.empty_cache()
+        else:
+            plain = copy.deepcopy(model).float().cpu()
+            want_logits = plain(seq.cpu())[:, -2:].float().to(dev)
+    tol = LLAMA_HELD_LOGITS_TOL if llama else HELD_LOGITS_TOL
+    err = (first - want_logits[:, 0]).abs().max().item()
+    err_step = (second - want_logits[:, 1]).abs().max().item()
+    stats.update(first_logits_max_abs_err=err,
+                 decode_step_logits_max_abs_err=err_step, **{
+                     f"{k}_twice_identical": v for k, v in same.items()})
+    if llama:
+        err_free = (free - want_logits).abs().max().item()
+        stats["cache_free_logits_max_abs_err"] = err_free
+        stats["f32_kernels_max_abs_err"] = err32
+        log(f"  [{label}generate] the f32 model through the kernels (the "
+            f"prefill, the decode step, the cache-free forward) vs the plain "
+            f"versions on the card: max_abs_err={err32:.6f} (tolerance "
+            f"{LLAMA_F32_HELD_TOL})")
+        if not err32 <= LLAMA_F32_HELD_TOL:
+            raise AssertionError("the f32 kernel path disagrees with the "
+                                 "plain rerun")
+    log(f"  [{label}generate] twice identical: {same}; vs plain f32 rerun "
+        f"{'on the card' if llama else 'on the CPU'}: prefill logits "
+        f"max_abs_err={err:.4f}, first decode step's max_abs_err="
+        f"{err_step:.4f} ({step_k3} K3 launches)"
+        + (f", the cache-free forward's {err_free:.4f} ({free_k3} K3 "
+           f"launches)" if llama else "") + f"; tolerance {tol}")
+    if not all(same.values()):
         raise AssertionError("generate is not reproducible")
-    if greedy.shape != (batch, plen + new) or not torch.equal(
-            greedy[:, :plen], ids):
-        raise AssertionError("generate returned the wrong sequence")
-    if not torch.isfinite(first).all() or err > HELD_LOGITS_TOL:
+    if not torch.isfinite(first).all() or err > tol:
         raise AssertionError("generate's first logits disagree with the "
                              "plain rerun")
     if step_k3 != n_layers or not torch.isfinite(second).all() \
-            or err_step > HELD_LOGITS_TOL:
+            or err_step > tol:
         raise AssertionError("generate's decode step disagrees with the "
                              "plain rerun")
-    return launches, {"tokens_per_s": tok_s, "wall_s": wall,
-                      "first_logits_max_abs_err": err,
-                      "decode_step_logits_max_abs_err": err_step}
+    if llama and (free_k3 != n_layers or not torch.isfinite(free).all()
+                  or err_free > tol):
+        raise AssertionError("the cache-free forward disagrees with the "
+                             "plain rerun")
+    return by_path, stats
 
 
 def preemption(dev, model, kv_dtype: str = "fp") -> dict:
@@ -2741,11 +2953,14 @@ def preemption(dev, model, kv_dtype: str = "fp") -> dict:
     return out
 
 
-def profile_steps(eng, prompts) -> dict:
-    """Where a serving step's time goes: run `prompts` (16 new tokens
+def profile_steps(eng, prompts, new: int = 16) -> dict:
+    """Where a serving step's time goes: run `prompts` (`new` new tokens
     each) under torch.profiler and report the device's busy share of the
-    wall time and the kernels that took the most device time. Profiling
-    slows the host, so these numbers are not the tokens/s above."""
+    wall time and the kernels that took the most device time. Only the
+    device's activity is traced: with the host's op events as well, the
+    trace of Llama-7B's 32 layers took 30-90 s an arm to process on the
+    H100 (PERF.md). Profiling still slows the host, so these numbers are
+    not the tokens/s above."""
     from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving import SamplingParams
@@ -2753,17 +2968,19 @@ def profile_steps(eng, prompts) -> dict:
                      else eng.metrics.decode_steps)
     steps0 = count()
     for p in prompts:
-        eng.add_request(p, SamplingParams(max_new_tokens=16))
+        eng.add_request(p, SamplingParams(max_new_tokens=new))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         eng.run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     eng.pool.assert_quiesced()
-    return dict(steps=count() - steps0,
-                **device_busy(prof, wall_us))
+    out = dict(steps=count() - steps0, **device_busy(prof, wall_us))
+    log(f"  profile of {out['steps']} steps: {time.perf_counter() - t_all:.1f}"
+        f" s with the trace's processing")
+    return out
 
 
 # kernels whose device time a profile totals, by a part of their symbol:
@@ -2803,6 +3020,93 @@ def device_busy(prof, wall_us: float) -> dict:
     for name, count, ms in out["top_kernels"]:
         log(f"    {ms:9.3f} ms  x{count:<5d} {name}")
     return out
+
+
+# -- phase 8: Llama ----------------------------------------------------------
+def same_share(got, want) -> float:
+    """The share of token positions at which two runs agree."""
+    pairs = [(a, b) for g, w in zip(got, want) for a, b in zip(g, w)]
+    return sum(a == b for a, b in pairs) / len(pairs)
+
+
+def llama_phase(dev, tln, tpa) -> tuple:
+    """Phase 8: Llama-7B (bf16, random weights from SEED) serves phase
+    3's traffic in six arms (the defaults with a recorded step held
+    against a plain f32 rerun on the card, grouped=False, int8 pools, the
+    legacy step, the megakernel on, LORA adapters with the megakernel on),
+    each with its exact launches per step and a profile; the defaults,
+    grouped=False and megakernel tokens must be identical. Then its
+    `generate()` (greedy twice, beam search, the int8 cache; the prefill
+    and a decode step against a plain f32 rerun on the card). Then the
+    GQA arm at Llama-3-8B's widths (4 layers, rep 4, vocab 128256): the
+    defaults, grouped=False and the megakernel on (K12 over 128256
+    columns), tokens identical. Returns the launches of each run (its
+    path) and the stats."""
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    by_path, stats, tokens = {}, {}, {}
+
+    def arms(model, label, runs):
+        for path, opts in runs:
+            t_arm = time.perf_counter()
+            by_path[path], stats[path], tokens[path] = serve(
+                dev, tln, tpa, model, opts.pop("grouped", True),
+                profile=True, label=label, **opts)
+            torch.cuda.empty_cache()
+            log(f"  [{path}] {time.perf_counter() - t_arm:.1f} s in all")
+
+    t0 = time.perf_counter()
+    model = LlamaForCausalLM(LlamaConfig(**LLAMA7B), device=dev,
+                             dtype=torch.bfloat16, seed=SEED).eval()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"  Llama-7B: {n_params} parameters, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    arms(model, "llama-7b", (
+        ("llama_serving", dict(record=True)),
+        ("llama_serving_ungrouped", dict(grouped=False)),
+        ("llama_serving_int8", dict(kv_dtype="int8")),
+        ("llama_serving_legacy", dict(unified=False)),
+        ("llama_serving_megakernel", dict(megakernel=True)),
+        ("llama_serving_adapters_megakernel",
+         dict(megakernel=True, adapter_pages=8))))
+    base = tokens["llama_serving"]
+    same = (base == tokens["llama_serving_ungrouped"]
+            == tokens["llama_serving_megakernel"])
+    for path in ("llama_serving_int8", "llama_serving_legacy",
+                 "llama_serving_adapters_megakernel"):
+        stats[path]["agreement_with_defaults"] = same_share(tokens[path],
+                                                            base)
+    log(f"  [llama-7b] defaults, grouped=False and megakernel tokens "
+        f"identical: {same}; tokens equal to the defaults arm's: " + ", ".join(
+            f"{p[14:]} {stats[p]['agreement_with_defaults']:.4f}"
+            for p in ("llama_serving_int8", "llama_serving_legacy",
+                      "llama_serving_adapters_megakernel")))
+    if not same:
+        raise AssertionError("Llama-7B: grouped=False or the megakernel "
+                             "changed the tokens")
+    gen_paths, stats["generate"] = generate_phase(
+        dev, tln, tpa, model, label="llama_", sampling=False)
+    by_path.update(gen_paths)
+    del model
+    torch.cuda.empty_cache()
+
+    model = LlamaForCausalLM(LlamaConfig(**LLAMA3_GQA), device=dev,
+                             dtype=torch.bfloat16, seed=SEED).eval()
+    arms(model, "llama-3-8b widths, 4 layers", (
+        ("llama3_gqa_serving", dict()),
+        ("llama3_gqa_serving_ungrouped", dict(grouped=False)),
+        ("llama3_gqa_serving_megakernel", dict(megakernel=True))))
+    same = (tokens["llama3_gqa_serving"]
+            == tokens["llama3_gqa_serving_ungrouped"]
+            == tokens["llama3_gqa_serving_megakernel"])
+    log(f"  [llama-3-8b widths] defaults, grouped=False and megakernel "
+        f"tokens identical: {same}")
+    if not same:
+        raise AssertionError("the GQA arm: grouped=False or the megakernel "
+                             "changed the tokens")
+    del model
+    torch.cuda.empty_cache()
+    return by_path, stats
 
 
 # -- phase 4: train GPT-124M -------------------------------------------------
@@ -2915,6 +3219,32 @@ class plain_path:
         for mod, name, value in self.saved:
             setattr(mod, name, value)
         return False
+
+
+class plain_serving(plain_path):
+    """`plain_path` plus the paged walks and the int8 write: within it a
+    unified step on the card runs the plain versions (`update_and_attend`'s
+    ungrouped branches) and launches no kernel."""
+
+    def __enter__(self):
+        super().__enter__()
+        from paddle_tpu_torch.nlp import generation
+        from paddle_tpu_torch.ops.cuda import paged_attention as tpa
+
+        def q8_pair(k_pool, v_pool, k_scale, v_scale, k_upd, v_upd, pos,
+                    table):
+            tpa.paged_scatter_q8_reference(k_pool, k_scale, k_upd, pos, table)
+            tpa.paged_scatter_q8_reference(v_pool, v_scale, v_upd, pos, table)
+            return k_pool, v_pool, k_scale, v_scale
+
+        for name, fn in (
+                ("ragged_paged_attention", tpa.ragged_attention_reference),
+                ("ragged_paged_attention_q8",
+                 tpa.ragged_attention_reference_q8),
+                ("paged_scatter_q8_pair", q8_pair)):
+            self.saved.append((generation, name, getattr(generation, name)))
+            setattr(generation, name, fn)
+        return self
 
 
 def held_step(dev, cfg, state, ids, labels, tln, tfa) -> dict:
@@ -3259,7 +3589,8 @@ def main() -> int:
     from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
     model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
                            dtype=torch.bfloat16, seed=SEED).eval()
-    by_path["generate"], generation = generate_phase(dev, tln, tpa, model)
+    gen_paths, generation = generate_phase(dev, tln, tpa, model)
+    by_path.update(gen_paths)
     log(f"  generate: {json.dumps(generation)}")
     del model
     torch.cuda.empty_cache()
@@ -3274,6 +3605,13 @@ def main() -> int:
     log("phase 7 a GPT-3 13B-width layer (1 layer, bf16, random weights):")
     by_path["training_gpt3_width"], gpt3 = gpt3_width_phase(dev, tln, tfa)
     log(f"  GPT-3 width: {json.dumps(gpt3)}")
+    torch.cuda.empty_cache()
+
+    log("phase 8 Llama-7B and a Llama-3-8B-width GQA arm (bf16, random "
+        "weights):")
+    llama_paths, llama = llama_phase(dev, tln, tpa)
+    by_path.update(llama_paths)
+    log(f"  llama: {json.dumps(llama)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

@@ -6,7 +6,8 @@ keeps (`gpt.layers.0.attn.qkv_proj.weight`, ...). Two things differ:
 
 - Linear weights are stored [in, out] there (`nn/layer/common.py:30`)
   and [out, in] by `torch.nn.Linear`: every 2-D `.weight` outside the
-  embeddings is transposed;
+  embedding tables (GPT's `embeddings.*`, Llama's `embed_tokens`) is
+  transposed;
 - bf16 arrays arrive as `ml_dtypes.bfloat16` numpy arrays, which torch
   cannot read directly: they cross as their 16-bit pattern.
 
@@ -26,9 +27,12 @@ __all__ = ["from_paddle_state_dict", "to_paddle_state_dict",
 _NAME_TABLE_KEY = "StructuredToParameterName@@"
 
 
+_EMBEDDINGS = ("embeddings", "embed_tokens")
+
+
 def _is_linear_weight(name: str, ndim: int) -> bool:
     return ndim == 2 and name.endswith(".weight") and \
-        "embeddings" not in name
+        not any(e in name for e in _EMBEDDINGS)
 
 
 def _to_numpy(value) -> np.ndarray:

@@ -5,10 +5,16 @@ attention layer's cache in one of three modes, and `update_and_attend`
 writes the new K/V and attends in the mode's way:
 
 - dense (`page_table` None): k/v [B, max_len, H_kv, D] with a scalar
-  `pos` (`init_decode_caches`, the cache of `GPTForCausalLM.generate`).
-  The write is `kv_cache_update`; attention is the window-causal mask
-  plus `F.scaled_dot_product_attention`, flash attention K3 on the card
-  (the grouped `gqa_decode_attend` at one token with GQA).
+  `pos` (`init_decode_caches`, the cache of `generate()`). The write is
+  `kv_cache_update`; attention is the window-causal mask plus
+  `F.scaled_dot_product_attention`, flash attention K3 on the card (the
+  grouped `gqa_decode_attend` at one token with GQA). The dense int8
+  form (`kv_scales`: calibrated per-head constants in k_scale/v_scale)
+  keeps int8 codes in the same layout (the JAX package lays them out
+  [B, H_kv, L, D]; the values are the same): `kv_cache_update_q8`
+  quantizes the write, a single token attends through `kv8_attend`, and
+  the one multi-token write allowed, the prefill at pos 0, attends over
+  its own float K/V through K3. Plain torch, as the JAX package's jnp.
 - paged (`page_table` set, `q_len` None): shared pools
   [num_pages, page_size, H_kv, D], a per-row `pos` [B] (a scalar is
   broadcast), the serving engine's legacy alternating step. The write
@@ -43,8 +49,7 @@ around `update_and_attend` (nlp/gpt.py).
 PyTorch runs eagerly, so caches are updated IN PLACE: the cache that
 `update_and_attend` returns shares the buffers it was given. The JAX
 package's `_pack_caches`, which carried the buffers through a jitted
-loop, has no counterpart. The dense int8 cache (`kv_scales`) and beam
-search are not ported (ROADMAP.md, queue 1).
+loop, has no counterpart.
 
 Mixed types in the gather branch: e4m3 and int8 pages gather to f32
 while q may be bf16. The JAX reference promotes inside its einsums and
@@ -77,14 +82,14 @@ from ..ops.cuda.paged_attention import (FP8_DTYPE, NEG_INF,
                                         ragged_paged_attention_q8)
 
 __all__ = ["DecodeCache", "init_decode_caches", "update_and_attend",
-           "kv_cache_update", "paged_kv_gather", "paged_kv_gather_q8",
+           "kv_cache_update", "kv_cache_update_q8", "kv8_attend",
+           "paged_kv_gather", "paged_kv_gather_q8", "generate",
            "window_causal_mask", "decode_merge_mask", "gqa_decode_attend",
            "decode_model_step", "sample_logits", "CompiledGenerator",
            "resolve_paged_attn_impl", "PAGED_ATTN_IMPLS", "_unpack_caches",
            "_top_p_filter", "_categorical"]
 
 PAGED_ATTN_IMPLS = ("kernel", "gather")
-_ROADMAP_GEN = "ROADMAP.md, queue 1, item 7"
 
 
 def resolve_paged_attn_impl(override=None) -> str:
@@ -116,7 +121,8 @@ class DecodeCache:
     tensors declaring which rows share a physical-page prefix (the
     grouped walk). `k_scale`/`v_scale`, when set, are the f32 rowwise
     scale pools [num_pages, page_size, H_kv] of int8 code pools (the q8
-    lane: a page and its scales are one unit). `attn_impl` pins
+    lane: a page and its scales are one unit), or in the dense mode the
+    per-head f32 constants [H_kv] of the int8 cache. `attn_impl` pins
     "kernel" or "gather" (None: `resolve_paged_attn_impl`).
 
     Multi-tenant LoRA (serving/adapters.py): `lora`, this layer's
@@ -148,17 +154,22 @@ def init_decode_caches(n_layers: int, batch_size: int, max_len: int,
                        n_kv_heads: int, head_dim: int,
                        dtype: torch.dtype = torch.float32,
                        device=None, kv_scales=None) -> List[DecodeCache]:
-    """Fresh zeroed dense caches, one per layer, at pos 0. The JAX
-    package's int8 form (`kv_scales`, calibrated per-head constants) is
-    not ported and raises."""
-    if kv_scales is not None:
-        raise NotImplementedError(
-            f"the dense int8 decode cache (kv_scales) is not ported "
-            f"({_ROADMAP_GEN})")
+    """Fresh zeroed dense caches, one per layer, at pos 0. With
+    `kv_scales`, per layer a (k_scale [H_kv], v_scale [H_kv]) pair of
+    calibrated constants, the caches hold int8 codes and carry the
+    scales as f32 tensors."""
     shape = (batch_size, max_len, n_kv_heads, head_dim)
-    return [DecodeCache(torch.zeros(shape, dtype=dtype, device=device),
-                        torch.zeros(shape, dtype=dtype, device=device), 0)
-            for _ in range(n_layers)]
+    if kv_scales is None:
+        return [DecodeCache(torch.zeros(shape, dtype=dtype, device=device),
+                            torch.zeros(shape, dtype=dtype, device=device),
+                            0)
+                for _ in range(n_layers)]
+    f32 = lambda s: torch.as_tensor(s, dtype=torch.float32, device=device)
+    return [DecodeCache(torch.zeros(shape, dtype=torch.int8, device=device),
+                        torch.zeros(shape, dtype=torch.int8, device=device),
+                        0, k_scale=f32(kv_scales[i][0]),
+                        v_scale=f32(kv_scales[i][1]))
+            for i in range(n_layers)]
 
 
 def _as_int(pos) -> int:
@@ -182,6 +193,41 @@ def kv_cache_update(buf: torch.Tensor, upd: torch.Tensor, pos
     p = min(max(_as_int(pos), 0), top)
     buf[:, p:p + l] = upd.to(buf.dtype)
     return buf
+
+
+def kv_cache_update_q8(buf: torch.Tensor, upd: torch.Tensor, pos,
+                      scale: torch.Tensor) -> torch.Tensor:
+    """Quantize upd [B, l, H, D] with the per-head constant scales [H]
+    (round half to even, clip to +-127) and write the codes into the
+    int8 buffer [B, max_len, H, D] IN PLACE at pos, as
+    `kv_cache_update` writes (the JAX `_kv_update_q8_fwd`)."""
+    codes = torch.clamp(torch.round(upd.float() / scale[None, None, :, None]),
+                        -127, 127).to(torch.int8)
+    return kv_cache_update(buf, codes, pos)
+
+
+def kv8_attend(q: torch.Tensor, k8: torch.Tensor, v8: torch.Tensor,
+               k_scale: torch.Tensor, v_scale: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Attention over the dense int8 cache (the JAX `_kv8_attend_fwd`):
+    q [B, l, H, D] against codes [B, L, H_kv, D] dequantized by the
+    per-head scales, query heads grouped over the kv heads; mask bool
+    or additive f32 broadcastable to [B, 1, l, L]. f32 throughout, the
+    output in q's dtype."""
+    b, l, h, d = q.shape
+    hkv = k8.shape[2]
+    rep = h // hkv
+    if mask.dtype == torch.bool:
+        mask = torch.where(mask, torch.zeros((), device=mask.device),
+                           torch.full((), NEG_INF, device=mask.device))
+    qf = q.float().permute(0, 2, 1, 3).reshape(b, hkv, rep * l, d)
+    kf = k8.float() * k_scale[None, None, :, None]
+    s = torch.einsum("bgqd,bkgd->bgqk", qf, kf) / math.sqrt(d)
+    s = s.reshape(b, h, l, -1) + mask
+    a = torch.softmax(s, dim=-1).reshape(b, hkv, rep * l, -1)
+    vf = v8.float() * v_scale[None, None, :, None]
+    o = torch.einsum("bgqk,bkgd->bgqd", a, vf)
+    return o.reshape(b, h, l, d).permute(0, 2, 1, 3).to(q.dtype)
 
 
 def paged_kv_gather(pool: torch.Tensor, page_table: torch.Tensor
@@ -336,6 +382,14 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
         return out, dataclasses.replace(c, pos=c.pos + c.q_len)
     if paged:
         pos_rows = _row_pos(c.pos, b, q.device)
+        if quant and c.k_scale.dim() != 3:
+            raise ValueError(
+                "int8 paged KV pool needs rowwise scale pools "
+                "[num_pages, page_size, n_kv_heads] in "
+                "k_scale/v_scale, one scale per (position, kv head); "
+                "got the dense cache's calibrated per-head constants "
+                "— the dense int8 mode and the paged pool cannot mix "
+                "(build pools via ServingEngine(kv_dtype='int8'))")
         if quant:
             paged_scatter_q8_pair(c.k, c.v, c.k_scale, c.v_scale, k_new,
                                   v_new, pos_rows, c.page_table)
@@ -343,10 +397,12 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
             paged_scatter_pair(c.k, c.v, k_new, v_new, pos_rows,
                                c.page_table)
         lmax = c.page_table.shape[1] * c.k.shape[1]
+    elif quant:
+        _check_dense_q8_write(c.pos, l)
+        kv_cache_update_q8(c.k, k_new, c.pos, c.k_scale)
+        kv_cache_update_q8(c.v, v_new, c.pos, c.v_scale)
+        lmax = c.k.shape[1]
     else:
-        if quant:
-            raise NotImplementedError(
-                f"the dense int8 decode cache is not ported ({_ROADMAP_GEN})")
         kv_cache_update(c.k, k_new, c.pos)
         kv_cache_update(c.v, v_new, c.pos)
         lmax = c.k.shape[1]
@@ -395,6 +451,14 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
     elif paged:
         kf = paged_kv_gather(c.k, c.page_table)
         vf = paged_kv_gather(c.v, c.page_table)
+    elif quant and l == 1:
+        return kv8_attend(q, c.k, c.v, c.k_scale, c.v_scale, mask), new_cache
+    elif quant:
+        # the prefill at pos 0 over the dense int8 cache: the cache holds
+        # nothing before this chunk, so it attends over the chunk's own
+        # float K/V (its first l slots) as the JAX package does
+        kf, vf = k_new, v_new
+        mask = mask[..., :l]
     else:
         kf, vf = c.k, c.v
     n_rep = q.shape[2] // kf.shape[2]
@@ -410,6 +474,27 @@ def update_and_attend(q: torch.Tensor, k_new: torch.Tensor,
                                        attn_mask=mask, is_causal=False,
                                        training=False)
     return out, new_cache
+
+
+def _check_dense_q8_write(pos, l: int):
+    """The JAX package's limits on the dense int8 cache's writes: a
+    per-row pos takes single tokens only, and a multi-token write only
+    lands on an empty cache (pos 0). Checked before the in-place write."""
+    if torch.is_tensor(pos) and pos.dim() == 1:
+        if l != 1:
+            raise NotImplementedError(
+                "int8 KV cache: per-row position vectors support "
+                "single-token (decode) writes only; multi-token "
+                "chunks need the dequantized read path — use the "
+                "bf16/f32 cache (or the int8 PAGED pool, which "
+                "dequantizes multi-token reads) for chunked prefill")
+    elif l != 1 and _as_int(pos) != 0:
+        raise NotImplementedError(
+            "dense int8 KV cache: multi-token writes are only "
+            "supported at pos==0 (single prefill). Chunked "
+            "prefill / multi-token continuation needs the "
+            "dequantized read path — use the bf16 cache or the "
+            "int8 PAGED pool for that call pattern.")
 
 
 def _unpack_caches(pools, pos, page_table: Optional[torch.Tensor] = None,
@@ -490,23 +575,39 @@ def sample_logits(logits: torch.Tensor, generator: torch.Generator,
     return torch.argmax(logits, dim=-1)
 
 
+def _top_k_stable(x: torch.Tensor, k: int):
+    """The k largest values along the last axis and their indices, the
+    lower index first among equal values (the order of
+    `jax.lax.top_k`, which `torch.topk` does not promise)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
 class CompiledGenerator:
     """`generate()` over a static dense cache (the JAX class of the
     same name). The JAX package traces prefill and the token loop into
     one XLA program; PyTorch runs eagerly, so here they are a Python loop
     over one dense cache of prompt_len + max_new positions per layer,
     and the name is kept for the API. Each decode step feeds one token
-    per row through the model: K1 for every LayerNorm and flash attention
-    K3 over the cache with the window mask as its key-vector operand.
+    per row through the model: flash attention K3 over the cache with
+    the window mask as its key-vector operand (and, in GPT, K1 for every
+    LayerNorm).
 
     decode_strategy: None (argmax, or sampling as soon as top_k/top_p is
-    set), "greedy" ("greedy_search" accepted) or "sampling"; beam search
-    and the int8 cache raise NotImplementedError. With `eos_token_id`, a
-    row that emitted it emits `pad_token_id` from then on, and the loop
-    stops when every row has. Sampling draws from `generator` when a
-    call passes one, else from the generator's own, seeded at
-    construction. `num_beams` and `length_penalty` belong to beam search
-    and are only checked."""
+    set), "greedy" ("greedy_search" accepted), "sampling" or
+    "beam_search" (the JAX `_build_beam`: `num_beams` beams a row, the
+    prefill at B * num_beams with all but beam 0 muted, finished beams
+    frozen on pad, caches reordered by parent each step, and the top
+    `num_return_sequences` beams a row by score / len ** length_penalty,
+    best first). With `eos_token_id`, a row (or beam) that emitted it
+    emits `pad_token_id` from then on, and the loop stops when every row
+    has. Sampling draws from `generator` when a call passes one, else
+    from the generator's own, seeded at construction.
+
+    kv_cache_dtype="int8" decodes over the dense int8 cache: per-(layer,
+    kv head) scales calibrated by one prefill of the first prompt over a
+    float cache (`_calibrate_kv_scales`), measured again when the
+    model's weights change."""
 
     def __init__(self, model, cache_spec, temperature=1.0, top_k=None,
                  eos_token_id=None, pad_token_id=0, top_p=None,
@@ -518,6 +619,9 @@ class CompiledGenerator:
             raise ValueError(
                 f"kv_cache_dtype must be None (model dtype) or 'int8', "
                 f"got {kv_cache_dtype!r}")
+        self.kv_int8 = kv_cache_dtype == "int8"
+        self._kv_scales = None      # per layer (k [H_kv], v [H_kv])
+        self._state_key = None      # the weights the scales were taken on
         if decode_strategy == "greedy_search":  # reference spelling
             decode_strategy = "greedy"
         if decode_strategy not in (None, "greedy", "sampling",
@@ -525,21 +629,15 @@ class CompiledGenerator:
             raise ValueError(
                 f"unknown decode_strategy {decode_strategy!r}; expected "
                 "'greedy'/'greedy_search', 'sampling' or 'beam_search'")
+        self.decode_strategy = decode_strategy
+        self.num_beams = int(num_beams)
+        self.length_penalty = float(length_penalty)
         self.num_return_sequences = int(num_return_sequences)
         if decode_strategy == "beam_search" and \
-                self.num_return_sequences > int(num_beams):
+                self.num_return_sequences > self.num_beams:
             raise ValueError(
                 f"num_return_sequences {self.num_return_sequences} > "
-                f"num_beams {int(num_beams)}")
-        if decode_strategy == "beam_search":
-            raise NotImplementedError(
-                f"decode_strategy='beam_search' is not ported "
-                f"({_ROADMAP_GEN})")
-        if kv_cache_dtype == "int8":
-            raise NotImplementedError(
-                f"kv_cache_dtype='int8' (the dense int8 cache) is not "
-                f"ported ({_ROADMAP_GEN})")
-        self.decode_strategy = decode_strategy
+                f"num_beams {self.num_beams}")
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
@@ -552,15 +650,44 @@ class CompiledGenerator:
         return sample_logits(logits, generator, self.temperature,
                              self.top_k, self.top_p, self.decode_strategy)
 
+    def _caches(self, batch: int, max_len: int) -> List[DecodeCache]:
+        model = self.model
+        return init_decode_caches(
+            self.n_layers, batch, max_len, self.n_kv, self.head_dim,
+            dtype=model.dtype, device=model.device,
+            kv_scales=self._kv_scales if self.kv_int8 else None)
+
+    def _weights_key(self) -> tuple:
+        """What identifies the model's weights: each parameter's and
+        buffer's storage and in-place version."""
+        return tuple((t.data_ptr(), t._version) for t in
+                     [*self.model.parameters(), *self.model.buffers()])
+
+    @torch.no_grad()
+    def _calibrate_kv_scales(self, ids: torch.Tensor) -> list:
+        """One prefill of `ids` over a float cache of the model's dtype
+        measures each (layer, kv head)'s K and V absmax; the scale is
+        max(absmax * 1.27, 1e-6) / 127 (headroom for later tokens), the
+        JAX package's rule."""
+        model = self.model
+        caches = init_decode_caches(self.n_layers, ids.shape[0],
+                                    ids.shape[1], self.n_kv, self.head_dim,
+                                    dtype=model.dtype, device=model.device)
+        model(ids, caches=caches)           # the caches fill in place
+        scale = lambda t: torch.clamp(
+            t.float().abs().amax(dim=(0, 1, 3)) * 1.27, min=1e-6) / 127.0
+        return [(scale(c.k), scale(c.v)) for c in caches]
+
     @torch.no_grad()
     def __call__(self, input_ids, max_new_tokens: int = 16,
                  return_scores: bool = False,
-                 generator: Optional[torch.Generator] = None
-                 ) -> torch.Tensor:
+                 generator: Optional[torch.Generator] = None):
         """input_ids [B, L] -> [B * n, L + max_new_tokens]: the prompt
-        and the new tokens (n = num_return_sequences, whose rows sample
-        independently)."""
-        if return_scores:
+        and the new tokens (n = num_return_sequences: rows that sample
+        independently, or a row's best beams, best first). With
+        `return_scores` (beam search only), also the [B * n] scores."""
+        beam = self.decode_strategy == "beam_search"
+        if return_scores and not beam:
             raise ValueError("return_scores is only available with "
                              "decode_strategy='beam_search'")
         model = self.model
@@ -569,7 +696,7 @@ class CompiledGenerator:
             ids = ids[None]
         ids = ids.to(torch.int64)
         nret = self.num_return_sequences
-        if nret > 1:
+        if nret > 1 and not beam:
             if self.decode_strategy == "greedy" or not (
                     self.decode_strategy == "sampling" or self.top_k
                     or self.top_p):
@@ -578,30 +705,141 @@ class CompiledGenerator:
                     "strategy (sampling/top_k/top_p) or beam_search")
             ids = ids.repeat_interleave(nret, dim=0)
         gen = self.generator if generator is None else generator
-        batch, prompt_len = ids.shape
-        max_new = int(max_new_tokens)
-        eos, pad = self.eos_token_id, self.pad_token_id
         was_training = model.training
         model.eval()
         try:
-            caches = init_decode_caches(
-                self.n_layers, batch, prompt_len + max_new, self.n_kv,
-                self.head_dim, dtype=model.dtype, device=model.device)
-            last, caches = decode_model_step(model, ids, caches)
-            out = torch.full((batch, max_new), pad, dtype=ids.dtype,
-                             device=ids.device)
-            done = torch.zeros(batch, dtype=torch.bool, device=ids.device)
-            for i in range(max_new):
-                nxt = self._sample(last, gen).to(ids.dtype)
-                if eos is not None:
-                    nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
-                    done = done | (nxt == eos)
-                out[:, i] = nxt
-                if i + 1 == max_new or (eos is not None
-                                        and bool(done.all())):
-                    break       # the next logits would go unused
-                last, caches = decode_model_step(model, nxt[:, None],
-                                                 caches)
+            key = self._weights_key()
+            if key != self._state_key:
+                self._state_key, self._kv_scales = key, None
+            if self.kv_int8 and self._kv_scales is None:
+                self._kv_scales = self._calibrate_kv_scales(ids)
+            if beam:
+                new, scores = self._beam(ids, int(max_new_tokens))
+            else:
+                new = self._decode(ids, int(max_new_tokens), gen)
         finally:
             model.train(was_training)
-        return torch.cat([ids, out], dim=1)
+        if beam and nret > 1:
+            # rows are [b0 seq0..seq(n-1), b1 ...]: repeat each prompt
+            ids = ids.repeat_interleave(nret, dim=0)
+        out = torch.cat([ids, new], dim=1)
+        return (out, scores) if return_scores else out
+
+    def _decode(self, ids: torch.Tensor, max_new: int,
+                gen: torch.Generator) -> torch.Tensor:
+        """Greedy or sampled decoding: the [B, max_new] new tokens."""
+        batch, prompt_len = ids.shape
+        eos, pad = self.eos_token_id, self.pad_token_id
+        caches = self._caches(batch, prompt_len + max_new)
+        last, caches = decode_model_step(self.model, ids, caches)
+        out = torch.full((batch, max_new), pad, dtype=ids.dtype,
+                         device=ids.device)
+        done = torch.zeros(batch, dtype=torch.bool, device=ids.device)
+        for i in range(max_new):
+            nxt = self._sample(last, gen).to(ids.dtype)
+            if eos is not None:
+                nxt = torch.where(done, torch.full_like(nxt, pad), nxt)
+                done = done | (nxt == eos)
+            out[:, i] = nxt
+            if i + 1 == max_new or (eos is not None and bool(done.all())):
+                break       # the next logits would go unused
+            last, caches = decode_model_step(self.model, nxt[:, None],
+                                             caches)
+        return out
+
+    def _beam(self, ids: torch.Tensor, max_new: int):
+        """Beam search (the JAX `_build_beam`): the [B * n, max_new] new
+        tokens of each row's n best beams and their [B * n] scores."""
+        model = self.model
+        batch, prompt_len = ids.shape
+        k = self.num_beams
+        eos, pad = self.eos_token_id, self.pad_token_id
+        dev = ids.device
+        caches = self._caches(batch * k, prompt_len + max_new)
+        last, caches = decode_model_step(
+            model, ids.repeat_interleave(k, dim=0), caches)
+        vocab = last.shape[-1]
+        # beam 0 live, beams 1..k-1 muted so that step 1 spreads over the
+        # top k tokens of the (identical) distributions
+        scores = torch.full((batch, k), -1e30, dtype=torch.float32,
+                            device=dev)
+        scores[:, 0] = 0.0
+        tokens = torch.full((batch, k, max_new), pad, dtype=ids.dtype,
+                            device=dev)
+        done = torch.zeros((batch, k), dtype=torch.bool, device=dev)
+        lens = torch.zeros((batch, k), dtype=torch.int32, device=dev)
+        # a finished beam's row: pad at log-probability 0, the rest
+        # impossible
+        pad_row = torch.full((vocab,), -math.inf, dtype=torch.float32,
+                             device=dev)
+        if 0 <= pad < vocab:
+            pad_row[pad] = 0.0
+        first_row = (torch.arange(batch, device=dev) * k)[:, None]
+        for i in range(max_new):
+            logp = torch.log_softmax(last.reshape(batch, k, vocab), dim=-1)
+            logp = torch.where(done[:, :, None], pad_row, logp)
+            total = scores[:, :, None] + logp
+            scores, top = _top_k_stable(total.reshape(batch, k * vocab), k)
+            parent = top // vocab
+            tok = (top % vocab).to(tokens.dtype)
+            tokens = tokens.gather(1, parent[:, :, None].expand(-1, -1,
+                                                                max_new))
+            tokens[:, :, i] = tok
+            done = done.gather(1, parent)
+            lens = lens.gather(1, parent) + (~done).to(torch.int32)
+            if eos is not None:
+                done = done | (tok == eos)
+            if i + 1 == max_new or (eos is not None and bool(done.all())):
+                break       # the next logits would go unused
+            # reorder every layer's cache by parent (the int8 scales are
+            # per head and stay)
+            flat = (first_row + parent).reshape(-1)
+            caches = [dataclasses.replace(c, k=c.k.index_select(0, flat),
+                                          v=c.v.index_select(0, flat))
+                      for c in caches]
+            last, caches = decode_model_step(
+                model, tok.reshape(batch * k, 1), caches)
+        norm = scores / torch.clamp(lens.float(), min=1.0) \
+            ** self.length_penalty
+        nret = self.num_return_sequences
+        best_scores, best = _top_k_stable(norm, nret)
+        out = tokens.gather(1, best[:, :, None].expand(-1, -1, max_new))
+        return (out.reshape(batch * nret, max_new),
+                best_scores.reshape(batch * nret))
+
+
+def generate(model, input_ids, max_new_tokens: int = 16,
+             temperature: float = 1.0, top_k=None, top_p=None,
+             eos_token_id=None, pad_token_id: int = 0,
+             decode_strategy=None, num_beams: int = 4,
+             length_penalty: float = 0.0, num_return_sequences: int = 1,
+             use_compiled: bool = True, kv_cache_dtype=None,
+             generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """The `generate()` of the port's causal LMs (GPT's JAX method's
+    arguments and errors): autoregressive decoding over a static dense
+    KV cache (`CompiledGenerator`), input_ids [B, L] -> [B * n, L +
+    max_new_tokens]. use_compiled=False, the JAX package's eager debug
+    loop, runs the same loop here with that loop's argument checks and
+    its rule for eos: it never stops early and never pads, every row
+    decodes max_new_tokens tokens. Sampling draws from `generator` when
+    given, else from the model's own (`model.generator`)."""
+    if decode_strategy == "greedy_search":   # reference spelling
+        decode_strategy = "greedy"
+    if not use_compiled and (decode_strategy not in (None, "greedy")
+                             or int(num_return_sequences) != 1
+                             or top_p is not None):
+        raise NotImplementedError(
+            "the eager debug loop supports greedy/top-k decoding "
+            "only; beam_search/sampling/top_p/num_return_sequences "
+            "need the compiled path (use_compiled=True)")
+    gen = CompiledGenerator(
+        model, model._decode_cache_spec(), temperature=temperature,
+        top_k=top_k, top_p=top_p,
+        eos_token_id=eos_token_id if use_compiled else None,
+        pad_token_id=pad_token_id, decode_strategy=decode_strategy,
+        num_beams=num_beams, length_penalty=length_penalty,
+        num_return_sequences=num_return_sequences,
+        kv_cache_dtype=kv_cache_dtype)
+    return gen(input_ids, max_new_tokens,
+               generator=model.generator if generator is None
+               else generator)

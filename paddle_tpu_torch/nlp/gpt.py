@@ -37,8 +37,9 @@ cache:
   pools returns f32 to a bf16 model) computes its projections and
   LayerNorms in the wider dtype, the weights upcast;
 - `generate()` (gpt.py:355) decodes through `CompiledGenerator` over a
-  static dense cache; `use_compiled=False` runs the same loop as the
-  JAX eager debug loop (gpt.py:398-423) does, which never stops at eos.
+  static dense cache (greedy, sampling, beam search; a bf16/f32 or the
+  int8 cache); `use_compiled=False` runs the same loop as the JAX eager
+  debug loop (gpt.py:398-423) does, which never stops at eos.
 
 Linear layers are `torch.nn.Linear` ([out, in] weights; `convert.py`
 transposes the JAX package's [in, out]). Recompute and tensor and
@@ -56,7 +57,7 @@ from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nn import LayerNorm
 from ..nn import functional as PF
 from ..ops.cuda.paged_attention import lora_delta, lora_delta_paged
-from .generation import CompiledGenerator, DecodeCache, update_and_attend
+from .generation import DecodeCache, generate, update_and_attend
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM"]
 
@@ -84,7 +85,7 @@ def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     differ (jnp's promotion: the weights upcast exactly)."""
     w = mod.weight
     if x.dtype == w.dtype:
-        return mod(x)
+        return F.linear(x, w, mod.bias)
     ct = torch.promote_types(x.dtype, w.dtype)
     return F.linear(x.to(ct), w.to(ct),
                     None if mod.bias is None else mod.bias.to(ct))
@@ -335,30 +336,10 @@ class GPTForCausalLM(nn.Module):
                  generator: Optional[torch.Generator] = None
                  ) -> torch.Tensor:
         """Autoregressive decoding over a static dense KV cache
-        (`CompiledGenerator`): input_ids [B, L] -> [B, L + max_new_tokens]
-        (the JAX method's arguments and errors). use_compiled=False, the
-        JAX package's eager debug loop, runs the same loop here with that
-        loop's argument checks and its rule for eos: it never stops early
-        and never pads, every row decodes max_new_tokens tokens. Sampling
-        draws from `generator` when given, else from the model's own
-        (`self.generator`)."""
-        if decode_strategy == "greedy_search":   # reference spelling
-            decode_strategy = "greedy"
-        if not use_compiled and (decode_strategy not in (None, "greedy")
-                                 or int(num_return_sequences) != 1
-                                 or top_p is not None):
-            raise NotImplementedError(
-                "the eager debug loop supports greedy/top-k decoding "
-                "only; beam_search/sampling/top_p/num_return_sequences "
-                "need the compiled path (use_compiled=True)")
-        gen = CompiledGenerator(
-            self, self._decode_cache_spec(), temperature=temperature,
-            top_k=top_k, top_p=top_p,
-            eos_token_id=eos_token_id if use_compiled else None,
-            pad_token_id=pad_token_id, decode_strategy=decode_strategy,
-            num_beams=num_beams, length_penalty=length_penalty,
-            num_return_sequences=num_return_sequences,
-            kv_cache_dtype=kv_cache_dtype)
-        return gen(input_ids, max_new_tokens,
-                   generator=self.generator if generator is None
-                   else generator)
+        (`nlp.generation.generate`, the JAX method's arguments and
+        errors): input_ids [B, L] -> [B * n, L + max_new_tokens]."""
+        return generate(self, input_ids, max_new_tokens, temperature,
+                        top_k, top_p, eos_token_id, pad_token_id,
+                        decode_strategy, num_beams, length_penalty,
+                        num_return_sequences, use_compiled, kv_cache_dtype,
+                        generator)

@@ -1,5 +1,6 @@
-"""nn counterparts GPT needs; Linear, Embedding and GELU are torch's own."""
+"""nn counterparts GPT and Llama need; Linear, Embedding and GELU are
+torch's own."""
 from . import functional
-from .layer.norm import LayerNorm
+from .layer.norm import LayerNorm, RMSNorm
 
-__all__ = ["LayerNorm", "functional"]
+__all__ = ["LayerNorm", "RMSNorm", "functional"]

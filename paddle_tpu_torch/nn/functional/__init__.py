@@ -1,9 +1,10 @@
 """Functional ops of the port (counterpart of `paddle_tpu/nn/functional/`):
-so far what GPT training needs."""
+so far what GPT training and Llama inference need."""
+from .activation import silu
 from .attention import scaled_dot_product_attention
 from .common import dropout
 from .loss import cross_entropy
-from .norm import layer_norm
+from .norm import layer_norm, rms_norm
 
 __all__ = ["scaled_dot_product_attention", "dropout", "cross_entropy",
-           "layer_norm"]
+           "layer_norm", "rms_norm", "silu"]

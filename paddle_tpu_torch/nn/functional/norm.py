@@ -1,5 +1,6 @@
-"""LayerNorm as a function (counterpart of
-`paddle_tpu/nn/functional/norm.py::layer_norm` and `_ln_fwd`).
+"""LayerNorm and RMSNorm as functions (counterpart of
+`paddle_tpu/nn/functional/norm.py::layer_norm` and `_ln_fwd`, and of
+`rms_norm` and `_rms_fwd`).
 
 The route is the JAX package's, decided by shape and dtype before any
 launch: an affine last-axis LayerNorm the kernels take (`tln.supported`:
@@ -10,6 +11,9 @@ as the JAX package routes it to its fused Pallas pair. Every other case
 (no affine parameters, several axes, a width the kernels do not take,
 another dtype) is `_ln_jnp`, a plain-torch port of the JAX package's jnp
 branch (shifted one-pass statistics), differentiated by autograd.
+
+RMSNorm is jnp in the JAX package (no Pallas kernel), so it is plain
+torch here, on the card too.
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ import torch
 from ...ops.cuda import layer_norm as tln
 from ...ops.cuda.layer_norm import LayerNormFunction
 
-__all__ = ["layer_norm"]
+__all__ = ["layer_norm", "rms_norm"]
 
 
 def _one_pass_stats(xf: torch.Tensor, axes):
@@ -67,3 +71,16 @@ def layer_norm(x: torch.Tensor, normalized_shape: Union[int, Sequence[int]],
     if tln.supported(x, weight, bias, n_axes):
         return LayerNormFunction.apply(x, weight, bias, float(epsilon))
     return _ln_jnp(x, weight, bias, n_axes, float(epsilon))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             epsilon: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * weight over the last axis, in the
+    JAX `_rms_fwd`'s order: bf16/f16 input upcast to f32 (other dtypes
+    keep theirs), the weight cast to that dtype and multiplied before
+    the one cast back to x's dtype."""
+    dt = x.dtype
+    xf = x.float() if dt in (torch.bfloat16, torch.float16) else x
+    ms = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(ms + epsilon)
+    return (y * weight.to(y.dtype)).to(dt)

@@ -1,14 +1,15 @@
-"""LayerNorm layer (counterpart of `paddle_tpu/nn/layer/norm.py`
-LayerNorm, whose affine last-axis case routes to the fused kernel pair
-K1/K2 through `nn/functional/norm.py`)."""
+"""LayerNorm and RMSNorm layers (counterpart of
+`paddle_tpu/nn/layer/norm.py` LayerNorm, whose affine last-axis case
+routes to the fused kernel pair K1/K2 through `nn/functional/norm.py`,
+and RMSNorm)."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ..functional.norm import layer_norm
+from ..functional.norm import layer_norm, rms_norm
 
-__all__ = ["LayerNorm"]
+__all__ = ["LayerNorm", "RMSNorm"]
 
 
 class LayerNorm(nn.Module):
@@ -33,3 +34,18 @@ class LayerNorm(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.normalized_shape, self.weight, self.bias,
                           self.epsilon)
+
+
+class RMSNorm(nn.Module):
+    """RMSNorm over the last axis (`F.rms_norm`, plain torch): a weight
+    that starts at 1 and no bias."""
+
+    def __init__(self, hidden_size: int, epsilon: float = 1e-6,
+                 device=None, dtype=None):
+        super().__init__()
+        self.epsilon = float(epsilon)
+        self.weight = nn.Parameter(torch.ones(hidden_size, device=device,
+                                              dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.weight, self.epsilon)

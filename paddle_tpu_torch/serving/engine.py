@@ -406,6 +406,17 @@ def _sample_rows(logits: torch.Tensor, generator: torch.Generator,
     return torch.where(greedy, g, _categorical(l, generator))
 
 
+def model_backbone(model):
+    """The hidden-state trunk under a causal-LM wrapper (GPT's `.gpt`,
+    Llama's `.llama`), else the model itself (the JAX engine's
+    `_model_backbone`). The LM head stays `model.lm_head`."""
+    for attr in ("gpt", "llama", "transformer", "backbone"):
+        core = getattr(model, attr, None)
+        if core is not None and callable(core):
+            return core
+    return model
+
+
 def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                     page_table: torch.Tensor, q_len: torch.Tensor,
                     is_decode: torch.Tensor, last_logits: torch.Tensor,
@@ -433,7 +444,7 @@ def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                            for layer in apools]
     caches = _unpack_caches(pools, pos, page_table, q_len, group, attn_impl,
                             lora_layers, lora_paged, megakernel)
-    h, _ = model.gpt(tokens, caches=caches)
+    h, _ = model_backbone(model)(tokens, caches=caches)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = torch.where(is_decode, torch.zeros_like(q_len),
                        torch.clamp(q_len - 1, min=0)).to(torch.int64)
@@ -451,7 +462,7 @@ def legacy_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     B = 1 (the slot's table row) with last = its last real token; the
     decode step is every slot at l = 1."""
     caches = _unpack_caches(pools, pos, page_table, attn_impl=attn_impl)
-    h, _ = model.gpt(tokens, caches=caches)
+    h, _ = model_backbone(model)(tokens, caches=caches)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     return model.lm_head(h[rows, last]).float()
 

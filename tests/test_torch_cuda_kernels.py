@@ -1014,6 +1014,70 @@ def test_gather_arm_and_generate_tokens_on_the_card_equal_the_cpu(cuda):
     assert torch.equal(generated["cpu"], generated[str(cuda)])
 
 
+def test_llama_engine_and_generate_on_the_card_equal_the_cpu(cuda):
+    """A small Llama (f32, 2 heads of 128 over 1 kv head): the engine at
+    its defaults (K10's two phases 2 a step, no K1: RMSNorm is plain
+    torch) and with adapters under the megakernel (K11 4 a layer a step),
+    and generate()'s greedy, beam and int8 runs, the same tokens on the
+    card as on the CPU."""
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import make_random_lora
+    cfg = LlamaConfig(vocab_size=256, hidden_size=256, num_hidden_layers=2,
+                      num_attention_heads=2, num_key_value_heads=1,
+                      intermediate_size=128, max_position_embeddings=128)
+    rs = np.random.RandomState(9)
+    prompts = [rs.randint(0, 256, size=n) for n in (3, 19, 7, 12)]
+    ids = torch.from_numpy(rs.randint(0, 256, size=(3, 9)))
+    lora = make_random_lora(2, 256, 256, 128, rank=4,
+                            rng=np.random.RandomState(1), amp=0.1)
+    got = {}
+    for dev in ("cpu", cuda):
+        model = LlamaForCausalLM(cfg, device="cpu", seed=3).eval().to(dev)
+        out = []
+        for opts in (dict(), dict(adapters=True, megakernel=True)):
+            eng = ServingEngine(model, device=dev, num_slots=4, max_len=64,
+                                page_size=8, chunk_len=16, **opts)
+            tenants = [0] * 4
+            if eng.adapters is not None:
+                eng.adapters.register("t", lora)
+                tenants = [1, 0, 1, 0]
+            for mod in (tln, tpa, tfa):
+                mod.reset_launches()
+            res = eng.generate(prompts, [SamplingParams(
+                max_new_tokens=8, adapter_id=a) for a in tenants])
+            out.append([r.token_ids for r in res])
+            if dev is cuda:
+                steps = eng.metrics.unified_steps
+                assert tpa.GROUPED_LAUNCHES == {"phase1": 2 * steps,
+                                                "phase2": 2 * steps}
+                assert tln.LAUNCHES == 0 and tpa.LAUNCHES == 0
+                assert tpa.MEGA_LAUNCHES["K11"] == (
+                    8 * steps if opts else 0)
+        for kw in (dict(), dict(decode_strategy="beam_search", num_beams=3),
+                   dict(kv_cache_dtype="int8")):
+            out.append(model.generate(ids.to(dev), max_new_tokens=6,
+                                      **kw).cpu().tolist())
+        got[str(dev)] = out
+    assert got["cpu"] == got[str(cuda)]
+
+
+@pytest.mark.parametrize("shape", [(1, 6), (8, 4 * 32000), (3, 4 * 128256)])
+def test_beam_top_k_tie_order_on_the_card(cuda, shape):
+    """Beam search's top-k: among equal values the lower index first, as
+    `jax.lax.top_k` orders them, on the card as on the CPU."""
+    from paddle_tpu_torch.nlp.generation import _top_k_stable
+    x = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 3, shape).astype(np.float32))
+    want = _top_k_stable(x, min(16, shape[1]))
+    got = _top_k_stable(x.to(cuda), min(16, shape[1]))
+    assert all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    idx = want[1]
+    vals = want[0]
+    assert ((vals[:, 1:] < vals[:, :-1])
+            | ((vals[:, 1:] == vals[:, :-1]) & (idx[:, 1:] > idx[:, :-1]))
+            ).all()
+
+
 # -- K11, K12, K8's float lane, the mask lane of K6/K7, K3-K5 at D 256 -----
 def _lora_case(cuda, dtype, b, w, cin, cout, r=8, pages=9, seed=0):
     rs = np.random.RandomState(seed)

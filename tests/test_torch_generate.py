@@ -8,8 +8,8 @@ emitted token wins its step by a clear margin; with `use_compiled=False`
 and `eos_token_id` set, the tokens of the JAX eager loop, which never
 stops at eos and never pads; the argument errors are
 the JAX package's; a seeded sampling run is reproducible and stays
-inside its top-k / top-p set; beam search and the int8 cache raise
-NotImplementedError naming ROADMAP.md.
+inside its top-k / top-p set; beam search and the int8 cache give the
+JAX package's tokens.
 """
 import sys
 
@@ -161,10 +161,15 @@ def test_argument_errors_are_the_jax_packages(models, kw):
 
 
 @pytest.mark.parametrize("kw", [dict(decode_strategy="beam_search"),
-                                dict(kv_cache_dtype="int8")])
-def test_unported_options_raise(models, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        models[1].generate(torch.from_numpy(_ids()), max_new_tokens=2, **kw)
+                                dict(kv_cache_dtype="int8")],
+                         ids=["beam_search", "int8"])
+def test_beam_and_int8_match_jax(models, kw):
+    """Beam search (4 beams) and the dense int8 cache give the JAX
+    package's tokens."""
+    want = _jax_generate(models[0], _ids(), max_new_tokens=4, **kw)
+    got = models[1].generate(torch.from_numpy(_ids()), max_new_tokens=4,
+                             **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 @pytest.mark.parametrize("kw", [dict(decode_strategy="sampling", top_k=5),

@@ -43,6 +43,7 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch.ops.cuda.flash_attention\n"
         "import paddle_tpu_torch.ops.cuda.paged_attention\n"
         "import paddle_tpu_torch.nlp.generation\n"
+        "import paddle_tpu_torch.nlp.llama\n"
         "import paddle_tpu_torch.serving.engine\n"
         "import paddle_tpu_torch.serving.adapters\n"
         "import paddle_tpu_torch.serving.prefix\n"
