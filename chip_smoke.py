@@ -38,7 +38,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    (int8 pools with f32 scales: K7, K10's q8 lane), on the same pools
    in the kernel and in the plain version. K10 runs on batches built
    like phase 3's grouped steps (16 rows, seven sharing 16 pages, in
-   f32, bf16 and f16; and again at rep 4, D 128): its phase-1 partials
+   f32, bf16 and f16; and again at rep 4, D 128 and at Llama-7B's 32
+   heads of 128, rep 1): its phase-1 partials
    against the plain partials, its output against the plain output, and
    its output against K6's (K7's) in the same lane on the same operands,
    bit for bit, and 20 reruns of both phases bit for bit; K10a, K10b and
@@ -57,14 +58,16 @@ Phases, each reported on its own line; any failure exits non-zero:
    versions and the library's calls; the functional LayerNorm at width 100 in
    bf16 launches nothing and equals the port of the JAX jnp branch on
    the CPU. K8 and K8-q8
-   write the serving step's [16, 32, 12, 64] K rows (and again at 300x
+   write the serving step's [16, 32, 12, 64] K rows, and Llama-7B's
+   [16, 32, 32, 128] (and each again at 300x
    the scale, past +-448) and must equal their plain versions bit for
    bit outside the trash page; both write K and V in one launch too, in
    every lane (equal to two single launches; K8-q8's pair over 20
    reruns), K8's pair timed beside two `index_copy_` calls, K8-q8's
    beside its bound. K9 runs in its fp and fp8 lanes on the
    legacy decode step's batch (16 rows, q [16, 1, 12, 64], pools
-   [993, 16, 12, 64], pos over 65-763; again at rep 4, D 128) without a
+   [993, 16, 12, 64], pos over 65-763; again at rep 4, D 128 and at
+   Llama-7B's 32 heads of 128) without a
    mask, with a random additive mask and with a bool mask that hides
    all but key 0, against its plain version, and without a mask against
    K6 at q_len 1 bit for bit; it is timed without and with the mask
@@ -73,7 +76,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    chunks (Lq 8, 16, 32 over 992 keys, the window mask as its bias),
    the gather arm's step (q [16, 32, 12, 64], a per-row bias) and
    generate()'s prefill and decode step (the window as a kvec at Lq 1),
-   against `_sdpa_ref` (f32) and its plain version (bf16, f16). K3-K5 again
+   and the legacy and generate() cases again at Llama-7B's 32 heads of
+   128, against `_sdpa_ref` (f32) and its plain version (bf16, f16).
+   K3-K5 again
    at head dim 256 ([2, 1024, 4, 256], phase 6's step). K3-K5 run in
    f32, bf16 and f16: in bf16 and f16 all three take the tensor-core
    design at every head dim (wgmma on TMA-fed tiles, K5 at head dim 256
@@ -91,15 +96,16 @@ Phases, each reported on its own line; any failure exits non-zero:
    16-bit rule allows one ulp of t carried through B), base-page rows
    exactly 0, 20 repeats bit-identical, and again at ranks 32 and 64
    (t summed a group of ranks at a time, d over R in k-steps of 16),
-   timed beside two `torch.bmm`; its launch (`lora_plan`), K6's
-   (`ragged_plan`) and K9's (`decode_plan`: the feeder) recorded; K12
-   (a row split over a cluster of up to 8 blocks) on f32 logits at
-   [16|1|128, 50304], [16, 50257] and [16, 128256], and on a view whose
-   rows start off a 16-byte boundary, with ties (one across a cluster
-   slice border), NaNs in two slices, +-0, an all -inf row and an
-   all-equal row, equal to torch.argmax bit for bit over 20 repeats and
-   timed at each shape beside an empty launch; K8's float lane equal to index_copy_
-   bit for bit outside page 0;
+   timed beside two `torch.bmm`, and at phase 8's shapes (x [16, 32, 4096]
+   into 4096 and 1024 columns, rank 8); its launch (`lora_plan`), K6's
+   (`ragged_plan`) and K9's (`decode_plan`: the feeder) recorded; K12 (a
+   row split over a cluster of up to 8 blocks) on f32 logits at [16|1|128,
+   50304], [16, 50257] and [16, 128256], and on a view whose rows start off
+   a 16-byte boundary, with ties (one across a cluster slice border), NaNs
+   in two slices, +-0, an all -inf row and an all-equal row, equal to
+   torch.argmax bit for bit over 20 repeats and timed at each shape beside
+   an empty launch; K8's float lane equal to index_copy_ bit for bit
+   outside page 0;
 3. serve GPT-124M at full width (bench.py's configuration: vocab 50304,
    hidden 768, 12 layers, 12 heads, 1024 positions) in bf16 with random
    weights from a seed: 24 requests of 32-700 prompt tokens, a third of
@@ -197,17 +203,23 @@ Phases, each reported on its own line; any failure exits non-zero:
    [1, 1024] in f32, kernel path against plain path;
 8. Llama-7B (`LlamaConfig()`'s defaults, bf16, random weights from the
    seed, 32 layers of 32 heads of 128) serves phase 3's traffic in six
-   arms: the defaults (a recorded step's held logits against a plain
-   f32 rerun on the card, 0.5, and the f32 model through the kernels
-   against it, 0.01), grouped=False, int8 pools, the legacy
-   step, the megakernel on, and the LORA adapters with the megakernel
-   on; exact launches per step (K10a and K10b 32 each, K1 0; K8-q8 32
-   over int8; K8's float lane 32 and K12 1 with the megakernel; K11 128
-   with adapters: Llama's four standalone deltas a layer), the tokens of
-   the defaults, grouped=False and megakernel arms identical, a profile
-   of each arm. Then its `generate()` as phase 5 (greedy twice, beam, the
+   arms: the defaults, grouped=False, int8 pools, the legacy step, the
+   megakernel on, and the LORA adapters with the megakernel on. The
+   defaults, int8, legacy (a decode step) and adapter arms each record
+   a step whose held logits are held on the card against a plain f32
+   rerun (0.5) and against the bf16 model's plain rerun (mean
+   |difference| no farther from it than it lies from the f32 rerun),
+   the f32 model through the kernels against the plain f32 rerun
+   (0.01), and a planted fault (the plain bf16 rerun with every query's
+   window one key short) is read against both and reported; exact
+   launches per step (K10a and K10b 32 each, K1 0; K8-q8 32 over int8;
+   K8's float lane 32 and K12 1 with the megakernel; K11 128 with
+   adapters: Llama's four standalone deltas a layer), the tokens of the
+   defaults, grouped=False and megakernel arms identical, a profile of
+   each arm. Then its `generate()` as phase 5 (greedy twice, beam, the
    int8 cache; K3 32 a forward) with the prefill, a decode step and the
-   cache-free forward (K3) held against a plain f32 rerun on the card.
+   cache-free forward (K3) held as the steps are, against the plain f32
+   and bf16 forwards on the card.
    Then a GQA model at Meta-Llama-3-8B's widths (vocab 128256, 8 kv
    heads: rep 4; 4 of its 32 layers) serves the same traffic with the
    defaults, grouped=False and the megakernel (K12 over 128256 columns),
@@ -234,7 +246,6 @@ the script prints no result and exits 1.
 """
 from __future__ import annotations
 
-import contextlib
 import copy
 import json
 import math
@@ -295,6 +306,18 @@ HELD_LOGITS_TOL = 0.1
 # order (F32_TOL relative per call), carried through 32 layers
 LLAMA_HELD_LOGITS_TOL = 0.5
 LLAMA_F32_HELD_TOL = 1e-2
+# and held against the bf16 model's plain rerun on the card, by the mean
+# over the live rows' logits: the kernel path's mean |difference| from it
+# at most this many times the bf16 floor, the mean |difference| of that
+# plain bf16 rerun from the plain f32 one (bf16 rounding alone). The two
+# bf16 paths share every GEMM and rounding point and differ in the
+# attention's summation order (and K3's P rounding), so they agree on
+# most logits. Not the max: the logits are bf16, so one flipped rounding
+# upstream moves a logit by an ulp of it (0.03 at 4-8), as far as bf16
+# against f32 does
+BF16_FLOOR_RATIO = 1.0
+# held steps rerun on the card past this many parameters (`reference_on_card`)
+CPU_RERUN_MAX_PARAMS = 1e9
 # phase 4: bench.py's train step
 TRAIN = dict(batch=16, seq=1024, lr=1e-4, weight_decay=0.01, warmup=2,
              steps=5, held_batch=2)
@@ -325,6 +348,12 @@ HEAD_DIM_GPTS = {
              num_attention_heads=24, max_position_embeddings=1024)}
 # K3-K5 at head dim 256 in phase 2: phase 6's train step, [B, L, H, D]
 D256_FLASH = (2, 1024, 4, 256)
+# K3's serving cases run again in phase 2 at Llama-7B's 32 heads of 128:
+# phase 8's legacy prefill chunks and its generate() (the gather arm is
+# GPT's only)
+LLAMA_FLASH_CASES = ("legacy prefill Lq 8", "legacy prefill Lq 16",
+                     "legacy prefill Lq 32", "generate prefill",
+                     "generate decode")
 # phase 8: Llama-7B, the `LlamaConfig()` defaults (BASELINE.md config
 # #5: vocab 32000, hidden 4096, 32 layers of 32 heads, intermediate
 # 11008), at full depth; and a GQA arm at Meta-Llama-3-8B's published
@@ -884,13 +913,13 @@ def check_flash_attention(dev, tfa, time_ms, shape=None):
     return recs
 
 
-def ragged_batch(dev, dtype, h, hkv, seed):
-    """A serving-step-shaped mixed batch: q [16, 32, h, 64], pools of
+def ragged_batch(dev, dtype, h, hkv, seed, d=64):
+    """A serving-step-shaped mixed batch: q [16, 32, h, d], pools of
     993 pages of 16, page tables in shuffled page order; rows idle
     (q_len 0), decoding (1), partial and full-chunk prefill, with pos
     near 0, at page ends and deep in the window."""
     rs = np.random.RandomState(seed)
-    b, lq, d = ENGINE["num_slots"], ENGINE["chunk_len"], 64
+    b, lq = ENGINE["num_slots"], ENGINE["chunk_len"]
     ps = ENGINE["page_size"]
     mp = -(-ENGINE["max_len"] // ps)
     n_pages = b * mp + 1
@@ -1063,7 +1092,8 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
     """K10 in pool lane `lane` on batches built like phase 3's grouped
     steps: 16 rows, seven of them sharing 16 pages, q_len 1-32
     (`launch_check.grouped_batch`), H = H_kv = 12, D 64 in f32, bf16 and
-    f16, and H 16, H_kv 4, D 128 in bf16, over the lane's pools. K10a's
+    f16, H 16, H_kv 4, D 128 and H = H_kv = 32, D 128 (Llama-7B's
+    heads) in bf16, over the lane's pools. K10a's
     partials against the plain phase-1 partials (member rows of live
     queries), K10b's output against the plain output (live queries), and
     the output against K6's in the same lane (K7 for q8), bit for bit;
@@ -1082,7 +1112,8 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
     for dtype, (h, hkv, d) in ((torch.float32, (12, 12, 64)),
                                (torch.bfloat16, (12, 12, 64)),
                                (torch.float16, (12, 12, 64)),
-                               (torch.bfloat16, (16, 4, 128))):
+                               (torch.bfloat16, (16, 4, 128)),
+                               (torch.bfloat16, (32, 32, 128))):
         ops, grp = grouped_batch(dev, dtype, h, hkv, d, SEED)
         ops, scales = lane_batch(ops, lane)
         batches[dtype, h] = ops, grp, scales
@@ -1120,6 +1151,8 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
         errs[dtype, h] = check_close(f"{key_b} output {tag}", out, ref,
                                      mask=live)
         del ref, m, l, acc
+        if h != 12:
+            del batches[dtype, h]
     ops, grp, scales = batches[torch.bfloat16, 12]
     args = tpa._grouped_check(*ops, *grp, **scales)
     partials = tpa.grouped_phase1(*args, **scales)
@@ -1175,14 +1208,17 @@ def check_grouped_attention(dev, tpa, time_ms, lane="fp"):
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:562",
                  max_abs_err=part_errs[torch.bfloat16, 12], ms=ms_a,
                  bound_ms=bound_a[0], bound_by=bound_a[1], library_ms=None,
-                 max_abs_err_rep4=part_errs[torch.bfloat16, 16], **common),
+                 max_abs_err_rep4=part_errs[torch.bfloat16, 16],
+                 max_abs_err_llama7b_heads=part_errs[torch.bfloat16, 32],
+                 **common),
             dict(name=name_b,
                  replaces="paddle_tpu/ops/pallas/paged_attention.py:663",
                  max_abs_err=errs[torch.bfloat16, 12], ms=ms_b,
                  bound_ms=bound_b[0], bound_by=bound_b[1], library_ms=lib_ms,
                  library_call="SDPA over the gathered, masked K/V: the "
                               "output of K10a and K10b together",
-                 max_abs_err_rep4=errs[torch.bfloat16, 16], **common))
+                 max_abs_err_rep4=errs[torch.bfloat16, 16],
+                 max_abs_err_llama7b_heads=errs[torch.bfloat16, 32], **common))
 
 
 # F10: (query heads over one kv head, head dim) whose 8 queries x rep rows
@@ -1331,7 +1367,8 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
     """K9 in pool lane `lane` (fp, or fp8 over e4m3 pools) on the legacy
     decode step's batch (`launch_check.decode_batch`: 16 rows, q
     [16, 1, 12, 64], pools [993, 16, 12, 64], table [16, 62], pos over
-    65-763) in f32 and bf16, and again at rep 4, D 128 in bf16: against
+    65-763) in f32 and bf16, and again at rep 4, D 128 and at Llama-7B's
+    32 heads of 128 (rep 1) in bf16: against
     its plain version without a mask, with a random additive f32 mask and
     with a bool mask that hides all but key 0; and without a mask against
     K6 (its fp8 lane) at q_len 1, bit for bit. Then the bf16 rep-1 batch
@@ -1343,7 +1380,8 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
     errs = {}
     for dtype, (h, hkv, d) in ((torch.float32, (12, 12, 64)),
                                (torch.bfloat16, (12, 12, 64)),
-                               (torch.bfloat16, (16, 4, 128))):
+                               (torch.bfloat16, (16, 4, 128)),
+                               (torch.bfloat16, (32, 32, 128))):
         ops, _ = lane_batch(decode_batch(dev, dtype, h, hkv, d, SEED), lane)
         q, k, v, table, pos, _ = ops
         b, lmax = q.shape[0], table.shape[1] * k.shape[1]
@@ -1409,6 +1447,7 @@ def check_paged_decode(dev, tpa, time_ms, lane="fp"):
                     e for (dt, hh, what), e in errs.items() if what !=
                     "no mask"),
                 max_abs_err_rep4=errs[torch.bfloat16, 16, "no mask"],
+                max_abs_err_llama7b_heads=errs[torch.bfloat16, 32, "no mask"],
                 plan=plan)
 
 
@@ -1420,14 +1459,16 @@ def check_flash_serving(dev, tfa):
     [16, 32, 12, 64], a per-row [16, 1, 32, 992] bias), generate()'s
     prefill ([8, 128] over 160, a broadcast bias) and its decode step (q
     [8, 1, 12, 64] over the dense [8, 160, 12, 64] cache, the window as
-    an [8, 160] kvec). Each through the model's SDPA, which must launch
+    an [8, 160] kvec); and the legacy and generate() cases again at
+    Llama-7B's 32 heads of 128 (LLAMA_FLASH_CASES). Each through the
+    model's SDPA, which must launch
     K3 once with the operand form named; f32 against the plain
     `_sdpa_ref` (the JAX package's form) by the f32 rule, bf16 against
     the plain `flash_attention_reference` on the same operand by the
     bf16 rule (`_sdpa_ref` rounds its probabilities to bf16), f16 by the
     same rule in f16 ulps, both with the tensor-core design's rounding
     allowance; bf16 FLASH_REPEATS times bit for bit. Returns each case's
-    bf16 error."""
+    bf16 error (the Llama cases' keys end in ", 32 heads of 128")."""
     from paddle_tpu_torch.nn import functional as PF
     from paddle_tpu_torch.nn.functional.attention import (
         _mask_to_kernel_operands, _sdpa_ref)
@@ -1437,11 +1478,15 @@ def check_flash_serving(dev, tfa):
              "generate prefill": ("bias", (1, 1, 128, 160)),
              "generate decode": ("kvec", (8, 160))}
     errs = {}
-    for case, (b, lq, lk, _) in FLASH_SERVING_CASES.items():
+    cases = [(case, 12, 64) for case in FLASH_SERVING_CASES] + [
+        (case, 32, 128) for case in LLAMA_FLASH_CASES]
+    for case, h, d in cases:
+        b, lq, lk, _ = FLASH_SERVING_CASES[case]
         want_form = forms.get(case, ("bias", (1, 1, lq, lk)))
+        name = case if h == 12 else f"{case}, {h} heads of {d}"
         for dtype in FLASH_DTYPES:
-            q, k, v, mask = flash_serving_batch(dev, dtype, case, SEED)
-            h = q.shape[2]
+            q, k, v, mask = flash_serving_batch(dev, dtype, case, SEED, h=h,
+                                                d=d)
             form, operand = _mask_to_kernel_operands(mask, b, h, lq, lk)
             if (form, tuple(operand.shape)) != want_form:
                 raise AssertionError(f"K3 {case}: the mask took {form} "
@@ -1454,11 +1499,11 @@ def check_flash_serving(dev, tfa):
             if tfa.LAUNCHES["fwd"] != before + 1:
                 raise AssertionError(f"K3 {case}: the SDPA did not launch "
                                      "K3")
-            tag = (f"K3 {case} [{b}, {lq}, {h}, 64] over {lk} keys, "
+            tag = (f"K3 {case} [{b}, {lq}, {h}, {d}] over {lk} keys, "
                    f"{form} {tuple(operand.shape)}, {dtype}")
             if dtype == torch.float32:
                 check_close(f"{tag} vs _sdpa_ref", out, _sdpa_ref(
-                    q, k, v, mask, False, 0.125, 0.0, None))
+                    q, k, v, mask, False, d ** -0.5, 0.0, None))
                 continue
             err = check_close(
                 f"{tag} vs flash_attention_reference", out,
@@ -1466,8 +1511,8 @@ def check_flash_serving(dev, tfa):
                 extra=tfa.fwd_rounding_allowance(q, k, v, **{form: operand}),
                 extra_rule=ROUNDING_RULE.format("P_eff", "P_eff . V / l"))
             if dtype == torch.bfloat16:
-                errs[case] = err
-                same_bits(f"K3 {case} {dtype}",
+                errs[name] = err
+                same_bits(f"K3 {name} {dtype}",
                           lambda: tfa.flash_attention_fwd(
                               q, k, v, **{form: operand}))
     return errs
@@ -1476,7 +1521,8 @@ def check_flash_serving(dev, tfa):
 def check_paged_scatter(dev, tpa, time_ms):
     """K8 (into e4m3 pools, and in its float lane into bf16 and f32
     pools) and K8-q8 (into int8 + scale pools) at the serving step's
-    write: the [16, 32, 12, 64] bf16 K rows of `ragged_batch`'s q, at its
+    write, at Llama-7B's heads and then GPT-124M's: the [16, 32, 32, 128]
+    and [16, 32, 12, 64] bf16 K rows of `ragged_batch`'s q, at its
     positions and tables (tokens past a row's window go to the trash
     page), and again at 300x the scale, with about 13 % of the values
     then beyond +-448. The pools' bytes must equal the plain versions'
@@ -1488,99 +1534,112 @@ def check_paged_scatter(dev, tpa, time_ms):
     versions and, for K8, one `index_copy_` of the converted bytes to the
     same slots are timed, and the pairs beside two `index_copy_`s (K8)
     and their bounds."""
-    q, k, _, table, pos, _ = ragged_batch(dev, torch.bfloat16, 12, 12, SEED)
-    v_upd = ragged_batch(dev, torch.bfloat16, 12, 12, SEED + 1)[0]
-    shape = k.shape
-    fp8_zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
-                                    device=dev).view(tpa.FP8_DTYPE)
-    q8_zeros = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
-                        torch.zeros(shape[:3], device=dev))
     errs = {"K8": 0.0, "K8-q8": 0.0}
-    for mult in (1.0, 300.0):
-        upd = (q.float() * mult).to(torch.bfloat16)
-        got8 = tpa.paged_scatter(fp8_zeros(), upd, pos, table)
-        codes, scales = tpa.paged_scatter_q8(*q8_zeros(), upd, pos, table)
-        torch.cuda.synchronize()
-        want8 = tpa.paged_scatter_reference(fp8_zeros(), upd, pos, table)
-        wantc, wants = tpa.paged_scatter_q8_reference(*q8_zeros(), upd, pos,
-                                                      table)
-        same = {
-            "K8": torch.equal(got8.view(torch.uint8)[1:],
-                              want8.view(torch.uint8)[1:]),
-            "K8-q8": torch.equal(codes[1:], wantc[1:]) and torch.equal(
-                scales[1:].view(torch.int32), wants[1:].view(torch.int32))}
-        errs["K8"] = max(errs["K8"], (got8[1:].float() - want8[1:].float()
-                                      ).abs().max().item())
-        errs["K8-q8"] = max(errs["K8-q8"], (codes[1:].float() - wantc[1:]
-                                            ).abs().max().item(),
-                            (scales[1:] - wants[1:]).abs().max().item())
-        finite = bool(torch.isfinite(got8.float()).all()
-                      and torch.isfinite(scales).all())
-        beyond = (upd.float().abs() > tpa.FP8_MAX).float().mean().item()
-        log(f"  K8 / K8-q8 bf16 {list(upd.shape)} x{mult:g} ({beyond:.3f} "
-            f"of the values beyond +-448): bit for bit outside page 0 "
-            f"{same}; every written value finite: {finite}")
-        if not all(same.values()) or not finite:
-            raise AssertionError("K8 / K8-q8 disagree with their plain "
-                                 "versions")
-        # K8-q8's pair: K and V in one launch, equal to the single writes
-        v_mult = (v_upd.float() * mult).to(torch.bfloat16)
-        before = tpa.QUANT_LAUNCHES["K8-q8"]
-        pair = tpa.paged_scatter_q8_pair(*q8_zeros()[:1], *q8_zeros()[:1],
-                                         *q8_zeros()[1:], *q8_zeros()[1:],
-                                         upd, v_mult, pos, table)
-        torch.cuda.synchronize()
-        one_v = tpa.paged_scatter_q8(*q8_zeros(), v_mult, pos, table)
-        torch.cuda.synchronize()
-        pair_same = tpa.QUANT_LAUNCHES["K8-q8"] == before + 2 and all(
-            torch.equal(a[1:].view(torch.uint8), b[1:].view(torch.uint8))
-            for a, b in zip(pair, (codes, one_v[0], scales, one_v[1])))
-        log(f"  K8-q8 pair bf16 K and V x{mult:g} in one launch: equal to "
-            f"two single launches (and so to the plain version) bit for "
-            f"bit outside page 0: {pair_same}")
-        if not pair_same:
-            raise AssertionError("K8-q8's pair disagrees")
-        same_bits(f"K8-q8 pair x{mult:g}", lambda: [t[1:] for t in (
-            tpa.paged_scatter_q8_pair(*q8_zeros()[:1], *q8_zeros()[:1],
-                                      *q8_zeros()[1:], *q8_zeros()[1:], upd,
-                                      v_mult, pos, table))])
     fl_err = 0.0
-    for pool_dtype in (torch.bfloat16, torch.float32):
-        got = tpa.paged_scatter_kernel(torch.zeros(shape, dtype=pool_dtype,
-                                                   device=dev), q, pos, table)
-        torch.cuda.synchronize()
-        want = tpa.paged_scatter_reference(
-            torch.zeros(shape, dtype=pool_dtype, device=dev), q, pos, table)
-        same = torch.equal(got[1:], want[1:])
-        fl_err = max(fl_err, (got[1:].float() - want[1:].float()).abs()
-                     .max().item())
-        log(f"  K8 float lane bf16 {list(q.shape)} -> {pool_dtype} pool: "
-            f"equal to index_copy_ bit for bit outside page 0: {same}")
-        if not same:
-            raise AssertionError("K8's float lane disagrees with index_copy_")
-    zeros = {"e4m3": fp8_zeros,
-             "bf16": lambda: torch.zeros(shape, dtype=torch.bfloat16,
-                                         device=dev),
-             "f32": lambda: torch.zeros(shape, device=dev)}
-    bits = lambda t: t.view(torch.uint8) if t.dtype == tpa.FP8_DTYPE else t
-    for lane, mk in zeros.items():
-        before = (tpa.QUANT_LAUNCHES["K8"], tpa.MEGA_LAUNCHES["K8-float"])
-        pair = tpa.paged_scatter_kernel_pair(mk(), mk(), q, v_upd, pos,
-                                             table)
-        torch.cuda.synchronize()
-        launched = (tpa.QUANT_LAUNCHES["K8"] - before[0],
-                    tpa.MEGA_LAUNCHES["K8-float"] - before[1])
-        same = launched == ((1, 0) if lane == "e4m3" else (0, 1))
-        for got, upd in zip(pair, (q, v_upd)):
-            one = tpa.paged_scatter_kernel(mk(), upd, pos, table)
-            want = tpa.paged_scatter_reference(mk(), upd, pos, table)
-            same = same and torch.equal(bits(got)[1:], bits(one)[1:]) and \
-                torch.equal(bits(got)[1:], bits(want)[1:])
-        log(f"  K8 pair bf16 K and V {list(q.shape)} -> {lane} pools in one "
-            f"launch: equal to two single launches and the plain version "
-            f"bit for bit outside page 0: {same}")
-        if not same:
-            raise AssertionError(f"K8's pair ({lane}) disagrees")
+    # GPT-124M's write, then Llama-7B's (32 kv heads of 128); the timing
+    # below runs at GPT-124M's
+    for h, d in ((32, 128), (12, 64)):
+        q, k, _, table, pos, _ = ragged_batch(dev, torch.bfloat16, h, h, SEED,
+                                             d=d)
+        v_upd = ragged_batch(dev, torch.bfloat16, h, h, SEED + 1,
+                             d=d)[0]
+        shape = k.shape
+        fp8_zeros = lambda: torch.zeros(shape, dtype=torch.uint8,
+                                        device=dev).view(tpa.FP8_DTYPE)
+        q8_zeros = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
+                            torch.zeros(shape[:3], device=dev))
+        for mult in (1.0, 300.0):
+            upd = (q.float() * mult).to(torch.bfloat16)
+            got8 = tpa.paged_scatter(fp8_zeros(), upd, pos, table)
+            codes, scales = tpa.paged_scatter_q8(*q8_zeros(), upd, pos,
+                                                 table)
+            torch.cuda.synchronize()
+            want8 = tpa.paged_scatter_reference(fp8_zeros(), upd, pos, table)
+            wantc, wants = tpa.paged_scatter_q8_reference(*q8_zeros(), upd,
+                                                          pos, table)
+            same = {
+                "K8": torch.equal(got8.view(torch.uint8)[1:],
+                                  want8.view(torch.uint8)[1:]),
+                "K8-q8": torch.equal(codes[1:], wantc[1:]) and torch.equal(
+                    scales[1:].view(torch.int32),
+                    wants[1:].view(torch.int32))}
+            errs["K8"] = max(errs["K8"], (got8[1:].float()
+                                          - want8[1:].float()).abs().max()
+                             .item())
+            errs["K8-q8"] = max(errs["K8-q8"], (codes[1:].float() - wantc[1:]
+                                                ).abs().max().item(),
+                                (scales[1:] - wants[1:]).abs().max().item())
+            finite = bool(torch.isfinite(got8.float()).all()
+                          and torch.isfinite(scales).all())
+            beyond = (upd.float().abs() > tpa.FP8_MAX).float().mean().item()
+            log(f"  K8 / K8-q8 bf16 {list(upd.shape)} x{mult:g} "
+                f"({beyond:.3f} of the values beyond +-448): bit for bit "
+                f"outside page 0 "
+                f"{same}; every written value finite: {finite}")
+            if not all(same.values()) or not finite:
+                raise AssertionError("K8 / K8-q8 disagree with their plain "
+                                     "versions")
+            # K8-q8's pair: K and V in one launch, equal to the single
+            # writes
+            v_mult = (v_upd.float() * mult).to(torch.bfloat16)
+            before = tpa.QUANT_LAUNCHES["K8-q8"]
+            pair = tpa.paged_scatter_q8_pair(*q8_zeros()[:1], *q8_zeros()[:1],
+                                             *q8_zeros()[1:], *q8_zeros()[1:],
+                                             upd, v_mult, pos, table)
+            torch.cuda.synchronize()
+            one_v = tpa.paged_scatter_q8(*q8_zeros(), v_mult, pos, table)
+            torch.cuda.synchronize()
+            pair_same = tpa.QUANT_LAUNCHES["K8-q8"] == before + 2 and all(
+                torch.equal(a[1:].view(torch.uint8),
+                            b[1:].view(torch.uint8))
+                for a, b in zip(pair, (codes, one_v[0], scales, one_v[1])))
+            log(f"  K8-q8 pair bf16 K and V {list(upd.shape)} x{mult:g} in "
+                f"one launch: equal to two single launches (and so to the "
+                f"plain version) bit for bit outside page 0: {pair_same}")
+            if not pair_same:
+                raise AssertionError("K8-q8's pair disagrees")
+            same_bits(f"K8-q8 pair {list(upd.shape)} x{mult:g}",
+                      lambda: [t[1:] for t in tpa.paged_scatter_q8_pair(
+                          *q8_zeros()[:1], *q8_zeros()[:1], *q8_zeros()[1:],
+                          *q8_zeros()[1:], upd, v_mult, pos, table)])
+        for pool_dtype in (torch.bfloat16, torch.float32):
+            got = tpa.paged_scatter_kernel(torch.zeros(
+                shape, dtype=pool_dtype, device=dev), q, pos, table)
+            torch.cuda.synchronize()
+            want = tpa.paged_scatter_reference(torch.zeros(
+                shape, dtype=pool_dtype, device=dev), q, pos, table)
+            same = torch.equal(got[1:], want[1:])
+            fl_err = max(fl_err, (got[1:].float() - want[1:].float()).abs()
+                         .max().item())
+            log(f"  K8 float lane bf16 {list(q.shape)} -> {pool_dtype} "
+                f"pool: equal to index_copy_ bit for bit outside page 0: "
+                f"{same}")
+            if not same:
+                raise AssertionError("K8's float lane disagrees with "
+                                     "index_copy_")
+        zeros = {"e4m3": fp8_zeros,
+                 "bf16": lambda: torch.zeros(shape, dtype=torch.bfloat16,
+                                             device=dev),
+                 "f32": lambda: torch.zeros(shape, device=dev)}
+        bits = lambda t: t.view(torch.uint8) if t.dtype == tpa.FP8_DTYPE else t
+        for lane, mk in zeros.items():
+            before = (tpa.QUANT_LAUNCHES["K8"], tpa.MEGA_LAUNCHES["K8-float"])
+            pair = tpa.paged_scatter_kernel_pair(mk(), mk(), q, v_upd, pos,
+                                                 table)
+            torch.cuda.synchronize()
+            launched = (tpa.QUANT_LAUNCHES["K8"] - before[0],
+                        tpa.MEGA_LAUNCHES["K8-float"] - before[1])
+            same = launched == ((1, 0) if lane == "e4m3" else (0, 1))
+            for got, upd in zip(pair, (q, v_upd)):
+                one = tpa.paged_scatter_kernel(mk(), upd, pos, table)
+                want = tpa.paged_scatter_reference(mk(), upd, pos, table)
+                same = same and torch.equal(bits(got)[1:], bits(one)[1:]) and \
+                    torch.equal(bits(got)[1:], bits(want)[1:])
+            log(f"  K8 pair bf16 K and V {list(q.shape)} -> {lane} pools in "
+                f"one launch: equal to two single launches and the plain "
+                f"version bit for bit outside page 0: {same}")
+            if not same:
+                raise AssertionError(f"K8's pair ({lane}) disagrees")
     upd = q
     pool8, (pc, ps_) = fp8_zeros(), q8_zeros()
     poolf = torch.zeros(shape, dtype=torch.bfloat16, device=dev)
@@ -1733,7 +1792,41 @@ def check_lora_paged(dev, tpa, time_ms):
                 max_abs_err_f32=errs[torch.float32],
                 max_abs_err_f16=errs[torch.float16], plan=plan,
                 ranks={rk: check_lora_rank(dev, tpa, time_ms, rk)
-                       for rk in LORA_LARGE_RANKS})
+                       for rk in LORA_LARGE_RANKS},
+                llama_shapes=check_lora_llama(dev, tpa, time_ms))
+
+
+def check_lora_llama(dev, tpa, time_ms) -> dict:
+    """K11 at phase 8's adapter shapes, rank 8: x [16, 32, 4096] into
+    4096 columns (Llama-7B's q, k, v and o deltas) and into 1024 (the
+    k and v deltas of the GQA arm's 8 kv heads of 128), in f32, bf16 and
+    f16 under the rank-8 rule (`lora_within_rule`), 20 repeats
+    bit-identical; timed in bf16 beside its plain version. Returns each
+    shape's errors, times and launch."""
+    from paddle_tpu_torch.ops.cuda.launch_check import lora_batch
+    out = {}
+    for cout in (4096, 1024):
+        shape = f"[16, 32, 4096] -> {cout}"
+        errs = {}
+        for dtype in (torch.float32, torch.bfloat16, torch.float16):
+            args = lora_batch(dev, dtype, seed=SEED + 3, cin=4096, cout=cout)
+            got = tpa.lora_delta_paged(*args)
+            torch.cuda.synchronize()
+            errs[str(dtype)] = lora_within_rule(
+                tpa, f"K11 lora_delta_paged {shape} rank 8 {dtype}", got,
+                *args)
+            same_bits(f"K11 {shape} {dtype}",
+                      lambda: (tpa.lora_delta_paged(*args),))
+        args = lora_batch(dev, torch.bfloat16, seed=SEED + 3, cin=4096,
+                          cout=cout)
+        ms = time_ms(lambda: tpa.lora_delta_paged(*args))
+        plain_ms = time_ms(lambda: tpa.lora_delta_paged_reference(*args))
+        plan = tpa.lora_plan(*args[:3])
+        log(f"  K11 bf16 {shape} rank 8: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms; launch {plan}")
+        out[shape] = dict(max_abs_err=errs, ms=ms, plain_ms=plain_ms,
+                          plan=plan)
+    return out
 
 
 def check_lora_rank(dev, tpa, time_ms, r: int) -> dict:
@@ -2097,16 +2190,20 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
     `debug_state()` read after DEBUG_STEP steps and its metrics rendered
     by `prometheus_render`. The traffic, the adapters and the launches
     follow the model (GPT or Llama: its depth, vocabulary and norms);
-    `label` names the model in the log. A recorded Llama step is rerun on
-    the card (`rerun_recorded`). Returns the launches, the stats and
-    every request's tokens."""
+    `label` names the model in the log. A recorded step is rerun plain
+    (`rerun_recorded`, `rerun_recorded_legacy`). Returns the launches,
+    the stats and every request's tokens."""
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
                                           legacy_forward, unified_forward)
     from paddle_tpu_torch.serving.metrics import prometheus_render
 
+    # a step rerun on the card keeps its snapshot there (a copy of
+    # Llama-7B's pools is 8.3 GB: through the host it costs seconds)
+    keep = ((lambda t: None if t is None else t.clone())
+            if reference_on_card(model) else snap_cpu)
     snap = lambda t: (tuple(map(snap, t)) if isinstance(t, tuple)
-                      else snap_cpu(t))
+                      else keep(t))
 
     class RecordingEngine(ServingEngine):
         """Keeps the inputs and held logits of unified step, or legacy
@@ -2303,8 +2400,7 @@ def serve(dev, tln, tpa, model, grouped: bool, record: bool = False,
                      prefill_chunk_host_ms_p50=pcs["p50"] * 1e3,
                      prefill_chunk_host_ms_p90=pcs["p90"] * 1e3)
     if record and unified:
-        stats["held"] = rerun_recorded(eng, model, unified_forward,
-                                       on_card=hasattr(model, "llama"))
+        stats["held"] = rerun_recorded(eng, model, unified_forward)
     elif record:
         stats["held"] = rerun_recorded_legacy(eng, model, legacy_forward)
     if profile and hasattr(model, "llama"):
@@ -2328,108 +2424,207 @@ def f32_copy_on_card(model):
     return plain
 
 
-def rerun_recorded(eng, model, unified_forward, on_card=False) -> dict:
+def reference_on_card(model) -> bool:
+    """Where a held step's plain f32 rerun runs. On the CPU for a model
+    whose f32 copy the CPU runs in seconds (GPT-124M): a witness that
+    shares no device, library or code path with the card. On the card,
+    under `plain_serving`, past CPU_RERUN_MAX_PARAMS (Llama-7B, whose
+    27 GB f32 copy through 32 layers the CPU would take minutes to run
+    a step of), where the reruns of `held_on_card` hold it."""
+    return sum(p.numel() for p in model.parameters()) > CPU_RERUN_MAX_PARAMS
+
+
+def held_on_card(tag, model, held, live, pools, run) -> dict:
+    """Hold a recorded step's logits `held` [S, V] (rows `live`) against
+    reruns of the step on the card, each over fresh copies of its
+    recorded `pools` (snapshots on the card, emptied once the last copy
+    is made: the f32 copy of the model needs the room), through `run(m,
+    move, pools, kernels)` (`move` puts a recorded tensor on the card in
+    m's dtype; `kernels`: the engine's own routing, else the plain route
+    `plain_serving` patches): the f32 copy through the plain versions,
+    the reference (held logits within LLAMA_HELD_LOGITS_TOL); the bf16
+    model through the plain versions, the bf16 floor (the held logits
+    no farther from it than BF16_FLOOR_RATIO times its own mean
+    distance from the reference: `bf16_floor_check`); the f32 copy
+    through the kernels (LLAMA_F32_HELD_TOL). A planted fault, the plain
+    bf16 rerun with every query's window one key short, is read against
+    both checks and reported, not gated."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.ops.cuda import layer_norm as tln
+    from paddle_tpu_torch.ops.cuda import paged_attention as tpa
+    dev = model.device
+
+    def mover(f32):
+        return lambda t: (None if t is None else t.to(dev).float()
+                          if f32 and t.dtype == torch.bfloat16
+                          else t.to(dev, copy=True))
+
+    def on_card(f32):
+        return [tuple(map(mover(f32), layer)) for layer in pools]
+
+    def plain(m, copies, fault=False):
+        before = launch_counts_serving(tln, tpa, tfa)
+        with plain_serving(short_window=fault):
+            out = run(m, mover(m.dtype == torch.float32), copies, False)
+        if launch_counts_serving(tln, tpa, tfa) != before:
+            raise AssertionError(f"{tag}: the plain rerun launched a kernel")
+        return out[live]
+
+    with torch.no_grad():
+        bf16 = plain(model, on_card(False))
+        fault = plain(model, on_card(False), fault=True)
+        # both f32 reruns over one copy: each layer writes its K/V before
+        # it attends, so each reads the same pages
+        copies = on_card(True)
+        pools.clear()
+        torch.cuda.empty_cache()
+        f32_model = f32_copy_on_card(model)
+        kernel32 = run(f32_model, mover(True), copies, True)[live]
+        ref = plain(f32_model, copies)
+        del f32_model, copies
+        torch.cuda.empty_cache()
+    held = held[live]
+    dist = lambda a, b: (a - b).abs().max().item()
+    out = {"max_abs_err": dist(held, ref),
+           "argmax_agreement": (held.argmax(-1) == ref.argmax(-1)).float()
+           .mean().item(),
+           "f32_kernels_max_abs_err": dist(kernel32, ref),
+           **bf16_floor_check(tag, {"held": held}, bf16, ref,
+                              {"planted_fault": fault})}
+    log(f"  {tag}: held logits vs the plain f32 rerun on the card "
+        f"max_abs_err={out['max_abs_err']:.4f} (tolerance "
+        f"{LLAMA_HELD_LOGITS_TOL}), argmax agreement "
+        f"{out['argmax_agreement']:.3f}; the f32 model through the kernels "
+        f"vs the plain f32 rerun {out['f32_kernels_max_abs_err']:.6f} "
+        f"(tolerance {LLAMA_F32_HELD_TOL})")
+    if not torch.isfinite(held).all() or \
+            out["max_abs_err"] > LLAMA_HELD_LOGITS_TOL:
+        raise AssertionError(f"{tag}: held logits disagree with the plain "
+                             "rerun")
+    if not torch.isfinite(kernel32).all() or \
+            out["f32_kernels_max_abs_err"] > LLAMA_F32_HELD_TOL:
+        raise AssertionError(f"{tag}: the f32 kernel path disagrees with "
+                             "the plain rerun")
+    return out
+
+
+def bf16_floor_check(tag, got: dict, bf16, ref, controls=None) -> dict:
+    """Hold each of `got`'s logits against `bf16`, the bf16 model's plain
+    rerun of the same tokens: its mean |difference| at most
+    BF16_FLOOR_RATIO times the bf16 floor, the mean |bf16 - ref| (`ref`
+    the plain f32 rerun). Each of `controls` (a planted fault) is read
+    the same way and against `ref`, and reported, not gated. Returns the
+    floor, each one's mean and max |difference| from `bf16` (and the
+    controls' from `ref`) and its ratio to the floor."""
+    mean = lambda a, b: (a - b).abs().mean().item()
+    dist = lambda a, b: (a - b).abs().max().item()
+    floor = mean(bf16, ref)
+    out = {"bf16_floor": {"mean_abs": floor, "max_abs": dist(bf16, ref)}}
+    for name, t in {**got, **(controls or {})}.items():
+        out[name + "_vs_plain_bf16"] = {
+            "mean_abs": mean(t, bf16), "max_abs": dist(t, bf16),
+            "ratio": mean(t, bf16) / floor}
+    for name, t in (controls or {}).items():
+        out[name + "_vs_plain_f32_max_abs"] = dist(t, ref)
+    log(f"  {tag}: vs the plain bf16 rerun, mean |difference| over the "
+        f"bf16 floor (plain bf16 vs plain f32: mean "
+        f"{floor:.6f}, max {out['bf16_floor']['max_abs']:.4f}): " + ", ".join(
+            f"{name} {out[name + '_vs_plain_bf16']['ratio']:.3f} (max "
+            f"{out[name + '_vs_plain_bf16']['max_abs']:.4f})"
+            for name in {**got, **(controls or {})})
+        + f" (at most {BF16_FLOOR_RATIO})" + "".join(
+            f"; {name} (not gated) vs the plain f32 rerun max "
+            f"{out[name + '_vs_plain_f32_max_abs']:.4f}"
+            for name in controls or {}))
+    for name in got:
+        if not out[name + "_vs_plain_bf16"]["ratio"] <= BF16_FLOOR_RATIO:
+            raise AssertionError(f"{tag}: {name} logits farther from the "
+                                 "plain bf16 rerun than bf16 rounding goes")
+    return out
+
+
+def rerun_recorded(eng, model, unified_forward) -> dict:
     """Rerun the recorded step through the plain versions in f32 and hold
-    its logits against the card's: on the CPU, or with `on_card` (a
-    model whose f32 copy the CPU could not run in time: Llama-7B) on the
-    card under `plain_serving`, where no kernel launches. The rerun
-    takes the paged walk's plain version whatever the engine's
-    `attn_impl` and its ungrouped form, so the gather arm's step (K3
-    over the gathered view) and the grouped walk's are held against an
-    independent reference."""
+    its logits against the card's: on the CPU, or past
+    CPU_RERUN_MAX_PARAMS on the card (`reference_on_card`,
+    `held_on_card`). The plain rerun takes the paged walk's plain
+    version whatever the engine's `attn_impl`, and the adapters' gathered
+    pairs (the unfused path) whatever its megakernel gate, so the gather
+    arm's step (K3 over the gathered view), the grouped walk's and the
+    megakernel's are held against an independent reference."""
     if eng.recorded is None:
         raise AssertionError(f"step {RECORD_STEP} never ran")
     (toks, pos, table, q_len, is_decode, group, lora), pools, last, held = \
         eng.recorded
-    dev = model.device if on_card else torch.device("cpu")
-    plain_model = (f32_copy_on_card(model) if on_card
-                   else copy.deepcopy(model).float().cpu())
-    # bf16 pools to f32; int8 codes, their scales and e4m3 pools as they
-    # are: the rerun reads the same quantized pages
-    f32 = lambda t: (None if t is None else
-                     t.to(dev).float() if t.dtype == torch.bfloat16
-                     else t.to(dev))
-    pools = [tuple(map(f32, layer)) for layer in pools]
-    if lora is not None:
-        # the adapter pools to f32; the rerun gathers each row's pairs
-        # (the unfused path) whatever the engine's megakernel gate
-        lora = (tuple(tuple(map(f32, layer)) for layer in lora[0]),
-                *map(f32, lora[1:]))
-    toks, pos, table, q_len, is_decode, last = map(
-        f32, (toks, pos, table, q_len, is_decode, last))
-    engine_group = None if group is None else tuple(map(f32, group))
-    if on_card:
-        group = None
-    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
-    from paddle_tpu_torch.ops.cuda import layer_norm as tln
-    from paddle_tpu_torch.ops.cuda import paged_attention as tpa
-    kernel_f32 = None
-    with torch.no_grad():
-        if on_card:
-            # the same step in f32 through the kernels (each layer writes
-            # its K/V before it attends, so both reruns read the same
-            # pools)
-            kernel_f32 = unified_forward(plain_model, pools, toks, pos, table,
-                                         q_len, is_decode, last,
-                                         engine_group, lora=lora).cpu()
-        before = launch_counts_serving(tln, tpa, tfa)
-        with (plain_serving() if on_card else contextlib.nullcontext()):
-            plain = unified_forward(plain_model, pools, toks, pos, table,
-                                    q_len, is_decode, last, group,
-                                    lora=lora).cpu()
-        if on_card and launch_counts_serving(tln, tpa, tfa) != before:
-            raise AssertionError("the plain rerun launched a kernel")
-    del plain_model, pools
-    q_len = q_len.cpu()
-    live = q_len > 0
-    out = {}
-    if kernel_f32 is not None:
-        out["f32_kernels_max_abs_err"] = err32 = (
-            kernel_f32[live] - plain[live]).abs().max().item()
-        log(f"  step {RECORD_STEP}: the f32 model through the kernels vs "
-            f"the plain versions on the card max_abs_err={err32:.6f} "
-            f"(tolerance {LLAMA_F32_HELD_TOL})")
-        if not torch.isfinite(kernel_f32).all() or err32 > LLAMA_F32_HELD_TOL:
-            raise AssertionError("the f32 kernel path disagrees with the "
-                                 "plain rerun")
-    tol = LLAMA_HELD_LOGITS_TOL if hasattr(model, "llama") \
-        else HELD_LOGITS_TOL
-    err = (held[live] - plain[live]).abs().max().item()
-    agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
+    eng.recorded = None
+    live = (q_len > 0).cpu()
     arm = (eng.kv_dtype + (", gather" if eng.attn_impl == "gather" else "")
            + (", megakernel" if eng.megakernel else "")
            + (", adapters" if eng.adapters is not None else ""))
-    log(f"  [{arm}] step {RECORD_STEP} ({int(q_len.sum())} "
-        f"tokens, {int(live.sum())} live rows, grouped walk "
-        f"{'on' if eng.grouped else 'off'}): held logits vs plain f32 rerun "
-        f"{'on the card' if on_card else 'on the CPU'} max_abs_err="
-        f"{err:.4f} (tolerance {tol}), argmax agreement {agree.item():.3f}")
-    if not torch.isfinite(held).all() or err > tol:
+    tag = (f"[{arm}] step {RECORD_STEP} ({int(q_len.sum())} tokens, "
+           f"{int(live.sum())} live rows, grouped walk "
+           f"{'on' if eng.grouped else 'off'})")
+
+    def run(m, move, pools, grouped):
+        # int8 codes, their scales and e4m3 pools move as they are: every
+        # rerun reads the same quantized pages
+        lo = None if lora is None else (
+            tuple(tuple(map(move, layer)) for layer in lora[0]),
+            *map(move, lora[1:]))
+        grp = tuple(map(move, group)) if grouped and group is not None \
+            else None
+        return unified_forward(m, pools, *map(move, (
+            toks, pos, table, q_len, is_decode, last)), grp, lora=lo).cpu()
+
+    if reference_on_card(model):
+        return held_on_card(tag, model, held, live, pools, run)
+    move = lambda t: (None if t is None else t.float()
+                      if t.dtype == torch.bfloat16 else t)
+    with torch.no_grad():
+        plain = run(copy.deepcopy(model).float().cpu(), move,
+                    [tuple(map(move, layer)) for layer in pools], True)
+    err = (held[live] - plain[live]).abs().max().item()
+    agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
+    log(f"  {tag}: held logits vs plain f32 rerun on the CPU max_abs_err="
+        f"{err:.4f} (tolerance {HELD_LOGITS_TOL}), argmax agreement "
+        f"{agree.item():.3f}")
+    if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
         raise AssertionError("held logits disagree with the plain rerun")
-    return {"max_abs_err": err, "argmax_agreement": agree.item(), **out}
+    return {"max_abs_err": err, "argmax_agreement": agree.item()}
 
 
 def rerun_recorded_legacy(eng, model, legacy_forward) -> dict:
     """Rerun the recorded legacy decode step through the plain versions
-    (CPU, f32) over the same pools and hold its logits against the
-    card's, on the rows that decoded (a table row not all trash)."""
+    in f32 over the same pools and hold its logits against the card's,
+    on the rows that decoded (a table row not all trash): on the CPU, or
+    past CPU_RERUN_MAX_PARAMS on the card (`held_on_card`)."""
     if eng.recorded is None:
         raise AssertionError(f"decode step {RECORD_STEP} never ran")
     (toks, pos, table), pools, held = eng.recorded
-    plain_model = copy.deepcopy(model).float().cpu()
-    pools = [tuple(t.float() if t is not None and t.dtype == torch.bfloat16
-                   else t for t in layer) for layer in pools]
+    eng.recorded = None
+    live = (table != 0).any(1).cpu()
+    tag = (f"[{eng.kv_dtype} legacy] decode step {RECORD_STEP} "
+           f"({int(live.sum())} decoding rows of {toks.shape[0]})")
+
+    def run(m, move, pools, kernels):
+        t = move(toks)
+        return legacy_forward(m, pools, t, move(pos), move(table),
+                              torch.zeros(t.shape[0], dtype=torch.int64,
+                                          device=t.device),
+                              eng.attn_impl).cpu()
+
+    if reference_on_card(model):
+        return held_on_card(tag, model, held, live, pools, run)
+    move = lambda t: (None if t is None else t.float()
+                      if t.dtype == torch.bfloat16 else t)
     with torch.no_grad():
-        plain = legacy_forward(plain_model, pools, toks, pos, table,
-                               torch.zeros(toks.shape[0], dtype=torch.int64),
-                               eng.attn_impl)
-    live = (table != 0).any(1)
+        plain = run(copy.deepcopy(model).float().cpu(), move,
+                    [tuple(map(move, layer)) for layer in pools], False)
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
-    log(f"  [{eng.kv_dtype} legacy] decode step {RECORD_STEP} "
-        f"({int(live.sum())} decoding rows of {toks.shape[0]}): held logits "
-        f"vs plain f32 rerun max_abs_err={err:.4f} (tolerance "
-        f"{HELD_LOGITS_TOL}), argmax agreement {agree.item():.3f}")
+    log(f"  {tag}: held logits vs plain f32 rerun max_abs_err={err:.4f} "
+        f"(tolerance {HELD_LOGITS_TOL}), argmax agreement "
+        f"{agree.item():.3f}")
     if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
         raise AssertionError("legacy held logits disagree with the plain "
                              "rerun")
@@ -2715,16 +2910,20 @@ def generate_phase(dev, tln, tpa, model, label: str = "",
     prefill (its decode steps attend through the plain `kv8_attend`, jnp
     in the JAX package). The prefill's last logits, and those of the
     decode step after it (K3 at Lq 1 over the dense cache, the window as
-    its kvec), against a plain f32 rerun: on the CPU for GPT, on the card
-    under `plain_path` for Llama (whose f32 copy the CPU could not run
-    in time), where the cache-free forward of the same tokens through K3
-    is held too. Returns the launches of the greedy, beam and int8 runs
-    (`label`generate, _beam, _int8) and the stats."""
+    its kvec), against a plain f32 rerun: on the CPU, or past
+    CPU_RERUN_MAX_PARAMS on the card under `plain_path`
+    (`reference_on_card`), where the cache-free forward of the same
+    tokens through K3 is held too, as `held_on_card` holds a step: all
+    three within LLAMA_HELD_LOGITS_TOL of the plain f32 rerun and
+    BF16_FLOOR_RATIO x the bf16 floor of the plain bf16 rerun, and the
+    f32 copy through the kernels within LLAMA_F32_HELD_TOL. Returns the
+    launches of the greedy, beam and int8 runs (`label`generate, _beam,
+    _int8) and the stats."""
     from paddle_tpu_torch.nlp.generation import (decode_model_step,
                                                  init_decode_caches)
     from paddle_tpu_torch.ops.cuda import flash_attention as tfa
     cfg = model.config
-    llama = hasattr(model, "llama")
+    on_card = reference_on_card(model)
     rs = np.random.RandomState(SEED + 2)
     batch, plen, new = GENERATE["batch"], GENERATE["prompt"], GENERATE["new"]
     ids = torch.from_numpy(rs.randint(0, cfg.vocab_size,
@@ -2767,22 +2966,21 @@ def generate_phase(dev, tln, tpa, model, label: str = "",
                 (seq >= 0) & (seq < cfg.vocab_size)).all():
             raise AssertionError(f"{path} returned the wrong sequence")
     greedy = out["generate"]
-    if not llama:
-        # beam search's order among equal candidates on the card: the
-        # lower index first (jax.lax.top_k's), as the stable sort on the
-        # CPU gives it, over rows with many exact ties
-        from paddle_tpu_torch.nlp.generation import _top_k_stable
-        ties = torch.from_numpy(np.random.RandomState(SEED).randint(
-            0, 4, (8, 4 * cfg.vocab_size)).astype(np.float32))
-        on_card = [t.cpu() for t in _top_k_stable(ties.to(dev), 16)]
-        on_cpu = _top_k_stable(ties, 16)
-        stats["beam_tie_order_equal_to_cpu"] = all(
-            torch.equal(a, b) for a, b in zip(on_card, on_cpu))
-        log(f"  beam search's top-k over [8, {4 * cfg.vocab_size}] with ties "
-            f"on the card equals the CPU's stable order: "
-            f"{stats['beam_tie_order_equal_to_cpu']}")
-        if not stats["beam_tie_order_equal_to_cpu"]:
-            raise AssertionError("beam search's tie order on the card")
+    # beam search's order among equal candidates on the card: the lower
+    # index first (jax.lax.top_k's), as the stable sort on the CPU gives
+    # it, over rows with many exact ties
+    from paddle_tpu_torch.nlp.generation import _top_k_stable
+    ties = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 4, (8, 4 * cfg.vocab_size)).astype(np.float32))
+    card_order = [t.cpu() for t in _top_k_stable(ties.to(dev), 16)]
+    stats["beam_tie_order_equal_to_cpu"] = all(
+        torch.equal(a, b) for a, b in zip(card_order,
+                                          _top_k_stable(ties, 16)))
+    log(f"  [{label}generate] beam search's top-k over [8, "
+        f"{4 * cfg.vocab_size}] with ties on the card equals the CPU's "
+        f"stable order: {stats['beam_tie_order_equal_to_cpu']}")
+    if not stats["beam_tie_order_equal_to_cpu"]:
+        raise AssertionError("beam search's tie order on the card")
     again = model.generate(ids, max_new_tokens=new)
     same = {"greedy": torch.equal(greedy, again)}
     if sampling:
@@ -2804,10 +3002,19 @@ def generate_phase(dev, tln, tpa, model, label: str = "",
         torch.cuda.synchronize()
         step_k3 = tfa.LAUNCHES["fwd"] - before
         seq = torch.cat([ids, nxt], 1)
-        if llama:
+        if on_card:
+            def plain_forward(m):
+                before = launch_counts_serving(tln, tpa, tfa)
+                with plain_path():
+                    logits = m(seq)[:, -2:].float()
+                if launch_counts_serving(tln, tpa, tfa) != before:
+                    raise AssertionError("a plain rerun launched a kernel")
+                return logits
+
             before = tfa.LAUNCHES["fwd"]
             free = model(seq)[:, -2:].float()
             free_k3 = tfa.LAUNCHES["fwd"] - before
+            want_bf16 = plain_forward(model)
             plain = f32_copy_on_card(model)
             # the f32 model through the kernels: the prefill, the decode
             # step and the cache-free forward
@@ -2818,11 +3025,7 @@ def generate_phase(dev, tln, tpa, model, label: str = "",
             second32, _ = decode_model_step(plain, nxt, caches)
             kernel32 = [torch.stack([first32, second32], 1),
                         plain(seq)[:, -2:].float()]
-            before = launch_counts_serving(tln, tpa, tfa)
-            with plain_path():
-                want_logits = plain(seq)[:, -2:].float()
-            if launch_counts_serving(tln, tpa, tfa) != before:
-                raise AssertionError("the plain rerun launched a kernel")
+            want_logits = plain_forward(plain)
             err32 = max((k - want_logits).abs().max().item()
                         for k in kernel32)
             del plain, caches
@@ -2830,29 +3033,34 @@ def generate_phase(dev, tln, tpa, model, label: str = "",
         else:
             plain = copy.deepcopy(model).float().cpu()
             want_logits = plain(seq.cpu())[:, -2:].float().to(dev)
-    tol = LLAMA_HELD_LOGITS_TOL if llama else HELD_LOGITS_TOL
-    err = (first - want_logits[:, 0]).abs().max().item()
-    err_step = (second - want_logits[:, 1]).abs().max().item()
+    tol = LLAMA_HELD_LOGITS_TOL if on_card else HELD_LOGITS_TOL
+    dist = lambda a, b: (a - b).abs().max().item()
+    err = dist(first, want_logits[:, 0])
+    err_step = dist(second, want_logits[:, 1])
     stats.update(first_logits_max_abs_err=err,
                  decode_step_logits_max_abs_err=err_step, **{
                      f"{k}_twice_identical": v for k, v in same.items()})
-    if llama:
-        err_free = (free - want_logits).abs().max().item()
-        stats["cache_free_logits_max_abs_err"] = err_free
-        stats["f32_kernels_max_abs_err"] = err32
+    if on_card:
+        err_free = dist(free, want_logits)
+        stats.update(cache_free_logits_max_abs_err=err_free,
+                     f32_kernels_max_abs_err=err32, **bf16_floor_check(
+                         f"[{label}generate]",
+                         {"prefill_and_decode_step": torch.stack(
+                             [first, second], 1).float(), "cache_free": free},
+                         want_bf16, want_logits))
         log(f"  [{label}generate] the f32 model through the kernels (the "
-            f"prefill, the decode step, the cache-free forward) vs the plain "
-            f"versions on the card: max_abs_err={err32:.6f} (tolerance "
+            f"prefill, the decode step, the cache-free forward) vs the "
+            f"plain f32 versions: max_abs_err={err32:.6f} (tolerance "
             f"{LLAMA_F32_HELD_TOL})")
         if not err32 <= LLAMA_F32_HELD_TOL:
             raise AssertionError("the f32 kernel path disagrees with the "
                                  "plain rerun")
     log(f"  [{label}generate] twice identical: {same}; vs plain f32 rerun "
-        f"{'on the card' if llama else 'on the CPU'}: prefill logits "
+        f"{'on the card' if on_card else 'on the CPU'}: prefill logits "
         f"max_abs_err={err:.4f}, first decode step's max_abs_err="
         f"{err_step:.4f} ({step_k3} K3 launches)"
         + (f", the cache-free forward's {err_free:.4f} ({free_k3} K3 "
-           f"launches)" if llama else "") + f"; tolerance {tol}")
+           f"launches)" if on_card else "") + f"; tolerance {tol}")
     if not all(same.values()):
         raise AssertionError("generate is not reproducible")
     if not torch.isfinite(first).all() or err > tol:
@@ -2862,8 +3070,8 @@ def generate_phase(dev, tln, tpa, model, label: str = "",
             or err_step > tol:
         raise AssertionError("generate's decode step disagrees with the "
                              "plain rerun")
-    if llama and (free_k3 != n_layers or not torch.isfinite(free).all()
-                  or err_free > tol):
+    if on_card and (free_k3 != n_layers or not torch.isfinite(free).all()
+                    or err_free > tol):
         raise AssertionError("the cache-free forward disagrees with the "
                              "plain rerun")
     return by_path, stats
@@ -3031,10 +3239,11 @@ def same_share(got, want) -> float:
 
 def llama_phase(dev, tln, tpa) -> tuple:
     """Phase 8: Llama-7B (bf16, random weights from SEED) serves phase
-    3's traffic in six arms (the defaults with a recorded step held
-    against a plain f32 rerun on the card, grouped=False, int8 pools, the
-    legacy step, the megakernel on, LORA adapters with the megakernel on),
-    each with its exact launches per step and a profile; the defaults,
+    3's traffic in six arms (the defaults, grouped=False, int8 pools, the
+    legacy step, the megakernel on, LORA adapters with the megakernel on;
+    the defaults, int8, legacy and adapter arms each with a recorded
+    step held on the card by `held_on_card`), each with its exact
+    launches per step and a profile; the defaults,
     grouped=False and megakernel tokens must be identical. Then its
     `generate()` (greedy twice, beam search, the int8 cache; the prefill
     and a decode step against a plain f32 rerun on the card). Then the
@@ -3064,11 +3273,11 @@ def llama_phase(dev, tln, tpa) -> tuple:
     arms(model, "llama-7b", (
         ("llama_serving", dict(record=True)),
         ("llama_serving_ungrouped", dict(grouped=False)),
-        ("llama_serving_int8", dict(kv_dtype="int8")),
-        ("llama_serving_legacy", dict(unified=False)),
+        ("llama_serving_int8", dict(kv_dtype="int8", record=True)),
+        ("llama_serving_legacy", dict(unified=False, record=True)),
         ("llama_serving_megakernel", dict(megakernel=True)),
         ("llama_serving_adapters_megakernel",
-         dict(megakernel=True, adapter_pages=8))))
+         dict(megakernel=True, adapter_pages=8, record=True))))
     base = tokens["llama_serving"]
     same = (base == tokens["llama_serving_ungrouped"]
             == tokens["llama_serving_megakernel"])
@@ -3223,8 +3432,13 @@ class plain_path:
 
 class plain_serving(plain_path):
     """`plain_path` plus the paged walks and the int8 write: within it a
-    unified step on the card runs the plain versions (`update_and_attend`'s
-    ungrouped branches) and launches no kernel."""
+    unified step, or a legacy decode step, on the card runs the plain
+    versions (`update_and_attend`'s ungrouped branches) and launches no
+    kernel. With `short_window`, a planted fault: every walk's query
+    sees one key fewer (its window ends at pos - 1 + i, pos 0 kept)."""
+
+    def __init__(self, short_window: bool = False):
+        self.short_window = short_window
 
     def __enter__(self):
         super().__enter__()
@@ -3237,10 +3451,27 @@ class plain_serving(plain_path):
             tpa.paged_scatter_q8_reference(v_pool, v_scale, v_upd, pos, table)
             return k_pool, v_pool, k_scale, v_scale
 
+        def decode(q, k_pool, v_pool, table, pos, mask=None):
+            if mask is not None:
+                mask = tpa._mask_to_additive(mask, q.shape[0], q.shape[2],
+                                             table.shape[1] * k_pool.shape[1])
+            return tpa.paged_attention_reference(q, k_pool, v_pool, table,
+                                                 pos, mask)
+
+        def walk(fn, at):
+            """`fn`, whose argument `at` is pos, or with `short_window`
+            the planted fault."""
+            if not self.short_window:
+                return fn
+            return lambda *a, **kw: fn(*a[:at], (a[at] - 1).clamp(min=0),
+                                       *a[at + 1:], **kw)
+
         for name, fn in (
-                ("ragged_paged_attention", tpa.ragged_attention_reference),
+                ("ragged_paged_attention",
+                 walk(tpa.ragged_attention_reference, 4)),
                 ("ragged_paged_attention_q8",
-                 tpa.ragged_attention_reference_q8),
+                 walk(tpa.ragged_attention_reference_q8, 6)),
+                ("paged_decode_attention", walk(decode, 4)),
                 ("paged_scatter_q8_pair", q8_pair)):
             self.saved.append((generation, name, getattr(generation, name)))
             setattr(generation, name, fn)
