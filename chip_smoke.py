@@ -79,7 +79,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    and the legacy and generate() cases again at Llama-7B's 32 heads of
    128, against `_sdpa_ref` (f32) and its plain version (bf16, f16).
    K3-K5 again
-   at head dim 256 ([2, 1024, 4, 256], phase 6's step). K3-K5 run in
+   at head dim 256 ([2, 1024, 4, 256], phase 6's step) and at one row
+   of phase 9's Llama step ([1, 2048, 32, 128], timed beside SDPA and
+   bound; `llama_training` in their records). K3-K5 run in
    f32, bf16 and f16: in bf16 and f16 all three take the tensor-core
    design at every head dim (wgmma on TMA-fed tiles, K5 at head dim 256
    in its split lane; `tfa.kernel_design`, printed and recorded as
@@ -224,7 +226,24 @@ Phases, each reported on its own line; any failure exits non-zero:
    heads: rep 4; 4 of its 32 layers) serves the same traffic with the
    defaults, grouped=False and the megakernel (K12 over 128256 columns),
    tokens identical. Prints tokens/s and the device's busy share of each
-   arm.
+   arm;
+9. Llama trained at Llama-7B's widths (bf16, random weights from the
+   seed, 4 of its 32 layers, 2048 positions, recompute) through
+   `jit.compile_train_step` under AdamW with a warm-up/cosine schedule,
+   weight decay 0.01 and `ClipGradByGlobalNorm(1.0)`: three steps on
+   [2, 2048] (the lr each step reads is the scheduler's; K3 8, K4 4, K5
+   4 a step, no K1 or K2; the first loss near ln V + h range^2 / 2), a
+   profiled step, the training forward's memory against the same model
+   without recompute (arm B: one step, K3-K5 4 each; recompute must
+   free at least half of the reckoned saved activations), one
+   accumulate_steps=2 step on [4, 2048] (arm C: K3 16, K4 8, K5 8; the
+   loss the mean of the micro-batch losses), the held f32 step on
+   [1, 2048] (kernel path against plain path, phase 7's rule) with a
+   planted fault the rule must catch, and a GQA arm at Llama-3-8B's
+   widths (2 layers, one recompute step on [1, 2048]: K3 4, K4 2, K5 2).
+   Prints the memory reckoning (weights, gradients, moments, Adam's f32
+   gradient copy, master weights), each arm's peak, step time,
+   tokens/s, MFU and the device's busy share of the profiled step.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -240,13 +259,16 @@ shapes the record was measured at, and `launches_by_path` those on each
 path, each counted from 0 just before its run: besides those, phase 5's
 generate_beam and generate_int8, and phase 8's llama_serving[_ungrouped|
 _int8|_legacy|_megakernel|_adapters_megakernel], llama_generate[_beam|
-_int8] and llama3_gqa_serving[_ungrouped|_megakernel]. The last line
+_int8] and llama3_gqa_serving[_ungrouped|_megakernel], and phase 9's
+llama_training[_no_recompute|_accumulate] and llama3_gqa_training (a
+step's launches each). The last line
 is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
 from __future__ import annotations
 
 import copy
+import gc
 import json
 import math
 import re
@@ -3406,7 +3428,14 @@ def train(dev, tln, tfa, tpa):
 class plain_path:
     """Within it, the model's LayerNorm and attention run through the
     plain versions on the card, differentiated by torch's autograd, and
-    no kernel launches: the reference of the held step."""
+    no kernel launches: the reference of the held step. With
+    `fault_module`, a planted fault: every attention call inside that
+    module (its forward and a recompute's rerun alike) masks each
+    query's own key, its last under the causal mask (query 0 keeps its
+    one key)."""
+
+    def __init__(self, fault_module=None):
+        self.fault_module = fault_module
 
     def __enter__(self):
         from paddle_tpu_torch.nn.functional import attention, norm
@@ -3416,15 +3445,35 @@ class plain_path:
         class PlainLayerNorm:
             apply = staticmethod(tln.layer_norm_reference)
 
+        inside = []
+
+        def plain_attention(q, k, v, bias=None, *a, **kw):
+            if inside:
+                lq, lk = q.shape[1], k.shape[1]
+                own = torch.eye(lq, lk, dtype=torch.bool, device=q.device)
+                own[0, 0] = False
+                fault = torch.zeros(lq, lk, device=q.device).masked_fill(
+                    own, -1e30)[None, None]
+                bias = fault if bias is None else bias + fault
+            return tfa.flash_attention_reference(q, k, v, bias, *a, **kw)[0]
+
         self.saved = [(norm, "LayerNormFunction", norm.LayerNormFunction),
                       (attention, "flash_attention_blhd",
                        attention.flash_attention_blhd)]
         norm.LayerNormFunction = PlainLayerNorm
-        attention.flash_attention_blhd = \
-            lambda *a, **kw: tfa.flash_attention_reference(*a, **kw)[0]
+        attention.flash_attention_blhd = plain_attention
+        self.hooks = []
+        if self.fault_module is not None:
+            self.hooks = [
+                self.fault_module.register_forward_pre_hook(
+                    lambda *_: inside.append(True)),
+                self.fault_module.register_forward_hook(
+                    lambda *_: inside.clear())]
         return self
 
     def __exit__(self, *exc):
+        for hook in self.hooks:
+            hook.remove()
         for mod, name, value in self.saved:
             setattr(mod, name, value)
         return False
@@ -3438,6 +3487,7 @@ class plain_serving(plain_path):
     sees one key fewer (its window ends at pos - 1 + i, pos 0 kept)."""
 
     def __init__(self, short_window: bool = False):
+        super().__init__()
         self.short_window = short_window
 
     def __enter__(self):
@@ -3478,10 +3528,14 @@ class plain_serving(plain_path):
         return self
 
 
-def held_step(dev, cfg, state, ids, labels, tln, tfa) -> dict:
-    """Loss and gradients of one [2, 1024] step in f32, through the
-    kernels and through the plain versions, on the card; and the bf16
-    kernel loss against the f32 plain loss."""
+def held_step(dev, cfg, state, ids, labels, tln, tfa, model_cls=None,
+              fault_module=None) -> dict:
+    """Loss and gradients of one step in f32, through the kernels and
+    through the plain versions, on the card; and the bf16 kernel loss
+    against the f32 plain loss. `model_cls` defaults to GPT; with
+    `fault_module(model)`, the module whose attention `plain_path`
+    faults, a third plain pass with that planted fault, which the same
+    rule must catch (reported beside the held figures)."""
     from paddle_tpu_torch.nlp import GPTForCausalLM
 
     def loss_and_grads(model):
@@ -3492,7 +3546,13 @@ def held_step(dev, cfg, state, ids, labels, tln, tfa) -> dict:
         model.zero_grad(set_to_none=True)
         return loss.item(), grads
 
-    model = GPTForCausalLM(cfg, device=dev, dtype=torch.float32, seed=SEED)
+    def worst(grads, ref):
+        return max(((grads[n] - g).abs().max().item() /
+                    max(g.abs().max().item(), 1e-30), n)
+                   for n, g in ref.items())
+
+    model = (model_cls or GPTForCausalLM)(cfg, device=dev,
+                                          dtype=torch.float32, seed=SEED)
     model.load_state_dict(state)
     loss_k, grads_k = loss_and_grads(model)
     before = launch_counts(tln, tfa)
@@ -3500,26 +3560,44 @@ def held_step(dev, cfg, state, ids, labels, tln, tfa) -> dict:
         loss_p, grads_p = loss_and_grads(model)
     if launch_counts(tln, tfa) != before:
         raise AssertionError("the plain path launched a kernel")
-    worst = max(((grads_k[n] - g).abs().max().item() /
-                 max(g.abs().max().item(), 1e-30), n)
-                for n, g in grads_p.items())
+    worst_k = worst(grads_k, grads_p)
+    fault = None
+    if fault_module is not None:
+        with plain_path(fault_module(model)):
+            loss_f, grads_f = loss_and_grads(model)
+        fw = worst(grads_f, grads_p)
+        del grads_f
+        fault = {"loss": loss_f,
+                 "loss_rel_err": abs(loss_f - loss_p) / abs(loss_p),
+                 "grad_worst_rel": fw[0], "grad_worst_param": fw[1]}
+        fault["caught"] = not (fault["loss_rel_err"] <= HELD_LOSS_RTOL
+                               and fw[0] <= HELD_GRAD_TOL)
+    del grads_k, grads_p
     with torch.no_grad():
         loss_b = model.to(torch.bfloat16)(ids, labels=labels).item()
     out = {"loss_kernel_f32": loss_k, "loss_plain_f32": loss_p,
-           "loss_kernel_bf16": loss_b, "grad_worst_rel": worst[0],
-           "grad_worst_param": worst[1]}
+           "loss_kernel_bf16": loss_b, "grad_worst_rel": worst_k[0],
+           "grad_worst_param": worst_k[1]}
     log(f"  held step [{ids.shape[0]}, {ids.shape[1]}]: f32 loss kernel "
         f"{loss_k:.6f} vs plain {loss_p:.6f} (rtol {HELD_LOSS_RTOL}); "
-        f"worst gradient error {worst[0]:.3e} of its max in {worst[1]} "
+        f"worst gradient error {worst_k[0]:.3e} of its max in {worst_k[1]} "
         f"(tolerance {HELD_GRAD_TOL}); bf16 kernel loss {loss_b:.4f} vs "
         f"f32 plain (tolerance {HELD_BF16_LOSS_TOL})")
+    if fault is not None:
+        out["planted_fault"] = fault
+        log(f"  planted fault (each query's own key masked in one layer): "
+            f"loss {fault['loss']:.6f}, rel err {fault['loss_rel_err']:.3e}"
+            f", worst gradient error {fault['grad_worst_rel']:.3e} in "
+            f"{fault['grad_worst_param']}: caught {fault['caught']}")
     if not (math.isfinite(loss_k) and abs(loss_k - loss_p) <=
             HELD_LOSS_RTOL * abs(loss_p)):
         raise AssertionError("held f32 loss: kernel path != plain path")
-    if not worst[0] <= HELD_GRAD_TOL:
-        raise AssertionError(f"held gradient of {worst[1]} disagrees")
+    if not worst_k[0] <= HELD_GRAD_TOL:
+        raise AssertionError(f"held gradient of {worst_k[1]} disagrees")
     if not abs(loss_b - loss_p) <= HELD_BF16_LOSS_TOL:
         raise AssertionError("held bf16 loss disagrees with the f32 plain")
+    if fault is not None and not fault["caught"]:
+        raise AssertionError("the held step's rule missed the planted fault")
     return out
 
 
@@ -3664,6 +3742,340 @@ def gpt3_width_phase(dev, tln, tfa) -> tuple:
                       "lanes": lanes, "held": held}
 
 
+# phase 9: Llama trained at Llama-7B's widths (`LlamaConfig()`: vocab
+# 32000, hidden 4096, 32 heads of 128, intermediate 11008) with 2048
+# positions and recompute, as scripts/scale_compile_check.py:100 builds
+# it, cut to 4 of its 32 layers (full depth needs ~81 GB before
+# activations: 6.7e9 parameters x 12 bytes); AdamW under a warm-up and
+# cosine schedule with global-norm clipping, as a pretraining run sets it
+LLAMA_TRAIN = dict(num_hidden_layers=4, max_position_embeddings=2048,
+                   use_recompute=True)
+LLAMA_TRAIN_RUN = dict(batch=2, seq=2048, steps=3, merge_batch=4,
+                       accumulate=2, held_batch=1, lr=1e-4, t_max=10,
+                       warmup=2, weight_decay=0.01, clip=1.0)
+# the GQA arm: Llama-3-8B's widths (LLAMA3_GQA) cut to 2 layers, trained
+# with recompute on [1, 2048]
+LLAMA3_GQA_TRAIN = dict(LLAMA3_GQA, num_hidden_layers=2,
+                        max_position_embeddings=2048, use_recompute=True)
+# K3-K5 in phase 2 at one row of phase 9's step, [B, L, H, D]
+LLAMA_TRAIN_FLASH = (1, 2048, 32, 128)
+
+
+def llama_optimizer(model):
+    """AdamW(LinearWarmup(CosineAnnealingDecay(lr, T_max), warmup, 0 ->
+    lr), weight_decay, grad_clip=ClipGradByGlobalNorm(clip)) over the
+    model's named parameters, and the scheduler."""
+    from paddle_tpu_torch import optimizer
+    from paddle_tpu_torch.nn.clip import ClipGradByGlobalNorm
+    run, lr = LLAMA_TRAIN_RUN, optimizer.lr
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(run["lr"],
+                                                    T_max=run["t_max"]),
+                            warmup_steps=run["warmup"], start_lr=0.0,
+                            end_lr=run["lr"])
+    opt = optimizer.AdamW(sched, parameters=model.named_parameters(),
+                          weight_decay=run["weight_decay"],
+                          grad_clip=ClipGradByGlobalNorm(run["clip"]))
+    return opt, sched
+
+
+def state_bytes(n_params: int) -> dict:
+    """What the train step holds a parameter, bf16 weights and AdamW
+    without multi_precision (no master weights): weights and gradients
+    (2 bytes each), the clip's scaled copy of the gradients (2), the f32
+    moments (8), and in the update (`optimizer/adam.py`) Adam's f32 copy
+    of every gradient (4) and, at most, 8 bytes of f32 lists at once
+    (that copy with one new moment list, then the denom and step lists)."""
+    return {"parameters": n_params, "weights": 2 * n_params,
+            "gradients": 2 * n_params, "clipped_gradients": 2 * n_params,
+            "moments": 8 * n_params, "adam_f32_gradient_copy": 4 * n_params,
+            "adam_update_peak": 8 * n_params, "master_weights": 0}
+
+
+def saved_activation_bytes(cfg, tokens: int) -> dict:
+    """The reckoning of what the decoder layers keep for the backward,
+    bf16, by the port's ops. A token a layer: each of the two RMSNorms
+    (`nn.functional.rms_norm`) keeps its f32 input and f32 normalised x
+    (8h) and rsqrt (4) and its bf16 output, the projections' input (2h);
+    rope keeps only its shared cos and sin tables; K3 keeps q, k and v as
+    it sees them (k and v repeated over the groups: 6h) and o, o_proj's
+    input (2h), and lse (4 H); SwiGLU keeps gate, silu(gate), up and
+    their product (8i): 28h + 8i + 4H + 8 bytes. With recompute a layer
+    keeps only its input (2h)."""
+    h, i = cfg.hidden_size, cfg.intermediate_size
+    per_token = 28 * h + 8 * i + 4 * cfg.num_attention_heads + 8
+    layers = cfg.num_hidden_layers
+    return {"per_token_layer": per_token,
+            "no_recompute": per_token * tokens * layers,
+            "recompute": 2 * h * tokens * layers,
+            "freed": (per_token - 2 * h) * tokens * layers}
+
+
+def activation_memory(model, ids, labels) -> int:
+    """Bytes allocated by a training forward with labels, taken after the
+    loss and before any backward (the loss is then dropped)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = model(ids, labels=labels)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - before
+    if not torch.isfinite(loss):
+        raise AssertionError(f"training forward: loss {loss.item()}")
+    del loss
+    return held
+
+
+def train_flops(cfg, n_params: int, seq: int) -> tuple:
+    """bench.py's model FLOPs a token, 6 N + 12 layers h s, and with
+    recompute the hardware's: its rerun of each layer's forward adds 2 N
+    of the layers' weights and 4 layers h s (the embedding, the final
+    norm and the head are not rerun)."""
+    layers, h = cfg.num_hidden_layers, cfg.hidden_size
+    model = 6 * n_params + 12 * layers * h * seq
+    layer_params = n_params - 2 * cfg.vocab_size * h - h
+    rerun = 2 * layer_params + 4 * layers * h * seq
+    return model, model + (rerun if cfg.use_recompute else 0)
+
+
+def timed_step(step, batch, tln, tfa) -> dict:
+    """One train step from launch counts at 0 and a fresh peak: the loss,
+    the step's host time to a device sync, its launches and the peak of
+    allocated memory over the step."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(tln, tfa, None)
+    t0 = time.perf_counter()
+    loss = step(*batch).item()
+    torch.cuda.synchronize()
+    return {"loss": loss, "ms": (time.perf_counter() - t0) * 1e3,
+            "launches": launch_counts(tln, tfa),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def llama_train_phase(dev, tln, tfa) -> tuple:
+    """Phase 9: Llama trained at Llama-7B's widths (4 layers, 2048
+    positions, recompute; bf16, random weights from SEED) through
+    `jit.compile_train_step` with `llama_optimizer`. Arm A: three steps on
+    [2, 2048], the caller stepping the scheduler (the lr each step reads
+    is the scheduler's; K3 8, K4 4, K5 4 a step and no K1 or K2; the first
+    loss near ln V + h range^2 / 2), then a profiled step. Arm B: the same
+    model without recompute, its training forward's memory against arm
+    A's (the difference at least half of `saved_activation_bytes`'s
+    freed figure) and one step (K3, K4, K5 4 each). Arm C: one
+    accumulate_steps=2 step on [4, 2048] (K3 16, K4 8, K5 8; the loss the
+    mean of the micro-batch losses). The held step: arm A's weights in
+    f32 on a fresh [1, 2048] batch (four steps on one batch memorise
+    it), kernel path against plain path by phase 7's rule, with a
+    planted fault that rule must catch. The GQA arm: Llama-3-8B's
+    widths, 2 layers, one recompute step on [1, 2048] (K3 4, K4 2, K5 2),
+    its K/V gradients through `repeat_interleave`. Each arm's model,
+    optimizer and step are freed before the next. Returns the launches
+    of each arm's (last) step, by path, and the stats."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    run = LLAMA_TRAIN_RUN
+    t_phase = time.perf_counter()
+    by_path, stats = {}, {}
+    rs = np.random.RandomState(SEED + 9)
+
+    def batch(cfg, b):
+        return tuple(torch.from_numpy(rs.randint(
+            0, cfg.vocab_size, (b, run["seq"]))).to(dev) for _ in range(2))
+
+    def build(cfg):
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=SEED).train()
+        return model, sum(p.numel() for p in model.parameters())
+
+    def near_random(cfg, loss, tag):
+        want = math.log(cfg.vocab_size) + \
+            cfg.hidden_size * cfg.initializer_range ** 2 / 2
+        if not (math.isfinite(loss) and abs(loss - want) <= 0.5):
+            raise AssertionError(f"{tag}: first loss {loss} not near "
+                                 f"{want:.3f}")
+        return want
+
+    def check_launches(tag, got, k3, k45):
+        want = {"K1": 0, "K2": 0, "K3": k3, "K4": k45, "K5": k45}
+        if got != want:
+            raise AssertionError(f"{tag}: launches {got} != {want}")
+
+    def rates(cfg, n_params, rec, tokens):
+        model_f, hw_f = train_flops(cfg, n_params, run["seq"])
+        tok_s = tokens / (rec["ms"] / 1e3)
+        return {"tokens_per_s": tok_s, "mfu": tok_s * model_f / BF16_FLOPS,
+                "hfu": tok_s * hw_f / BF16_FLOPS}
+
+    def gib(n):
+        return f"{n / 2 ** 30:.2f} GiB"
+
+    # what earlier phases left in reference cycles would count in the
+    # first arm's peak
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["allocated_before"] = torch.cuda.memory_allocated()
+
+    # -- arm A: recompute, three scheduled steps ----------------------------
+    cfg = LlamaConfig(**LLAMA_TRAIN)
+    ids, labels = batch(cfg, run["batch"])
+    model, n_params = build(cfg)
+    mem = state_bytes(n_params)
+    acts = saved_activation_bytes(cfg, run["batch"] * run["seq"])
+    log(f"  Llama-7B widths, {cfg.num_hidden_layers} layers: {n_params} "
+        f"parameters ({gib(stats['allocated_before'])} allocated before "
+        f"the phase); a step holds " + ", ".join(
+            f"{k} {gib(v)}" for k, v in mem.items() if k != "parameters") +
+        f"; saved activations by reckoning ({acts['per_token_layer']} bytes "
+        f"a token a layer): {gib(acts['no_recompute'])} without recompute, "
+        f"{gib(acts['recompute'])} with it")
+    act_a = activation_memory(model, ids, labels)
+    opt, sched = llama_optimizer(model)
+    reads = []
+    get_lr = opt.get_lr
+    opt.get_lr = lambda: reads.append(get_lr()) or reads[-1]
+    step = jit.compile_train_step(
+        lambda i, lab: model(i, labels=lab), model, opt)
+    steps = []
+    for _ in range(run["steps"]):
+        want_lr = sched()
+        reads.clear()
+        steps.append(dict(timed_step(step, (ids, labels), tln, tfa),
+                          lr=want_lr, lr_read=sorted(set(reads))))
+        if steps[-1]["lr_read"] != [want_lr]:
+            raise AssertionError(f"arm A: the step read lr {reads}, the "
+                                 f"scheduler's is {want_lr}")
+        check_launches("arm A", steps[-1]["launches"], 8, 4)
+        sched.step()
+    losses = [r["loss"] for r in steps]
+    want_first = near_random(cfg, losses[0], "arm A")
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"arm A: losses {losses}")
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(ids, labels)
+        torch.cuda.synchronize()
+        prof_us = (time.perf_counter() - t0) * 1e6
+    sched.step()
+    tokens = run["batch"] * run["seq"]
+    arm_a = {"losses": losses, "first_loss_want": want_first,
+             "steps": steps, "activation_bytes": act_a,
+             **rates(cfg, n_params, steps[-1], tokens),
+             "profile": device_busy(prof, prof_us)}
+    log(f"  [arm A] recompute, [{run['batch']}, {run['seq']}]: losses "
+        f"{losses} (first near {want_first:.3f}), lr "
+        f"{[r['lr'] for r in steps]}, step ms "
+        f"{[round(r['ms'], 2) for r in steps]}, launches a step "
+        f"{steps[-1]['launches']}; {arm_a['tokens_per_s']:.1f} tokens/s, MFU "
+        f"{arm_a['mfu']:.4f}, HFU {arm_a['hfu']:.4f} (bench.py's 6N + 12 L h "
+        f"s a token; HFU adds the recompute's rerun, 2N of the layers + 4 L "
+        f"h s); training forward holds {gib(act_a)}, peak over a step "
+        f"{gib(steps[-1]['peak_bytes'])}")
+    by_path["llama_training"] = steps[-1]["launches"]
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    # get_lr is bound to opt: dropping it too frees the moments
+    del model, opt, step, prof, get_lr
+    torch.cuda.empty_cache()
+
+    # -- the held step, on a fresh batch: arm A's own it has memorised --------
+    stats["held"] = held_step(
+        dev, cfg, state, *batch(cfg, run["held_batch"]), tln, tfa,
+        LlamaForCausalLM, fault_module=lambda m: m.llama.layers[0].self_attn)
+    del state
+    torch.cuda.empty_cache()
+
+    # -- arm B: no recompute --------------------------------------------------
+    cfg_b = LlamaConfig(**dict(LLAMA_TRAIN, use_recompute=False))
+    model, _ = build(cfg_b)
+    act_b = activation_memory(model, ids, labels)
+    opt, _ = llama_optimizer(model)
+    step = jit.compile_train_step(
+        lambda i, lab: model(i, labels=lab), model, opt)
+    rec_b = timed_step(step, (ids, labels), tln, tfa)
+    check_launches("arm B", rec_b["launches"], 4, 4)
+    near_random(cfg_b, rec_b["loss"], "arm B")
+    by_path["llama_training_no_recompute"] = rec_b["launches"]
+    freed = act_b - act_a
+    arm_b = {"loss": rec_b["loss"], "ms": rec_b["ms"],
+             "activation_bytes": act_b, "freed_by_recompute": freed,
+             "freed_by_reckoning": acts["freed"],
+             "peak_bytes": rec_b["peak_bytes"]}
+    log(f"  [arm B] no recompute: loss {rec_b['loss']:.4f}, step "
+        f"{rec_b['ms']:.2f} ms (first step), launches {rec_b['launches']}; "
+        f"training forward holds {gib(act_b)} against arm A's {gib(act_a)}: "
+        f"recompute frees {gib(freed)}, by reckoning {gib(acts['freed'])} "
+        f"(gate: at least half); peak over the step "
+        f"{gib(rec_b['peak_bytes'])}")
+    if not freed >= acts["freed"] / 2:
+        raise AssertionError("recompute did not free the saved activations")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # -- arm C: gradient merge ------------------------------------------------
+    model, _ = build(cfg)
+    opt, _ = llama_optimizer(model)
+    step = jit.compile_train_step(
+        lambda i, lab: model(i, labels=lab), model, opt,
+        accumulate_steps=run["accumulate"])
+    merged = batch(cfg, run["merge_batch"])
+    rec_c = timed_step(step, merged, tln, tfa)
+    micro = [x.item() for x in step.micro_losses]
+    check_launches("arm C", rec_c["launches"], 16, 8)
+    if len(micro) != run["accumulate"] or \
+            rec_c["loss"] != torch.stack(step.micro_losses).mean().item():
+        raise AssertionError(f"arm C: loss {rec_c['loss']} is not the mean "
+                             f"of {micro}")
+    near_random(cfg, rec_c["loss"], "arm C")
+    by_path["llama_training_accumulate"] = rec_c["launches"]
+    arm_c = {"loss": rec_c["loss"], "micro_losses": micro,
+             "ms": rec_c["ms"], "peak_bytes": rec_c["peak_bytes"],
+             **rates(cfg, n_params, rec_c, run["merge_batch"] * run["seq"])}
+    log(f"  [arm C] accumulate_steps={run['accumulate']} on "
+        f"[{run['merge_batch']}, {run['seq']}]: loss {rec_c['loss']:.4f} = "
+        f"mean of {micro}, step {rec_c['ms']:.2f} ms (first step), "
+        f"{arm_c['tokens_per_s']:.1f} tokens/s, MFU {arm_c['mfu']:.4f}, "
+        f"launches {rec_c['launches']}, peak {gib(rec_c['peak_bytes'])}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+
+    # -- the GQA arm ----------------------------------------------------------
+    cfg_g = LlamaConfig(**LLAMA3_GQA_TRAIN)
+    model, n_g = build(cfg_g)
+    g_ids, g_labels = batch(cfg_g, 1)
+    loss = model(g_ids, labels=g_labels)
+    loss.backward()
+    kv = {n: p.grad.float().abs().max().item()
+          for n, p in model.named_parameters()
+          if ".k_proj.weight" in n or ".v_proj.weight" in n}
+    model.zero_grad(set_to_none=True)
+    del loss
+    if not all(math.isfinite(g) and g > 0 for g in kv.values()):
+        raise AssertionError(f"GQA arm: K/V gradients {kv}")
+    opt, _ = llama_optimizer(model)
+    step = jit.compile_train_step(
+        lambda i, lab: model(i, labels=lab), model, opt)
+    rec_g = timed_step(step, (g_ids, g_labels), tln, tfa)
+    check_launches("GQA arm", rec_g["launches"], 4, 2)
+    want_g = near_random(cfg_g, rec_g["loss"], "GQA arm")
+    by_path["llama3_gqa_training"] = rec_g["launches"]
+    gqa = {"parameters": n_g, "loss": rec_g["loss"],
+           "first_loss_want": want_g, "ms": rec_g["ms"],
+           "peak_bytes": rec_g["peak_bytes"],
+           "kv_grad_max_abs": kv, "state_bytes": state_bytes(n_g)}
+    log(f"  [GQA arm] Llama-3-8B widths, 2 layers, rep "
+        f"{cfg_g.num_attention_heads // cfg_g.num_key_value_heads}, {n_g} "
+        f"parameters, [1, {run['seq']}]: loss {rec_g['loss']:.4f} (near "
+        f"{want_g:.3f}), step {rec_g['ms']:.2f} ms (first step), launches "
+        f"{rec_g['launches']}, peak {gib(rec_g['peak_bytes'])}; K/V "
+        f"gradients' max |g| {min(kv.values()):.3e}-{max(kv.values()):.3e}")
+    del model, opt, step
+    torch.cuda.empty_cache()
+    stats.update(arm_a=arm_a, arm_b=arm_b, arm_c=arm_c, gqa=gqa,
+                 state_bytes=mem, saved_activations=acts,
+                 phase_s=time.perf_counter() - t_phase)
+    log(f"  phase 9: {stats['phase_s']:.1f} s")
+    return by_path, stats
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -3748,13 +4160,17 @@ def main() -> int:
         dev, tln, timer)
     kernels.update(zip(("K3", "K4", "K5"),
                        check_flash_attention(dev, tfa, timer)))
-    # head dim 256: the shapes of phase 6's GPT step
-    for key, rec in zip(("K3", "K4", "K5"), check_flash_attention(
-            dev, tfa, timer, shape=D256_FLASH)):
-        kernels[key]["head_dim_256"] = {
-            k: rec[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                "bound_by", "library_ms", "backward_sum")
-            if k in rec}
+    # head dim 256: the shapes of phase 6's GPT step; one row of phase
+    # 9's Llama step
+    for tag, shape in (("head_dim_256", D256_FLASH),
+                       ("llama_training", LLAMA_TRAIN_FLASH)):
+        for key, rec in zip(("K3", "K4", "K5"), check_flash_attention(
+                dev, tfa, timer, shape=shape)):
+            kernels[key][tag] = {
+                k: rec[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "backward_sum") if k in rec}
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     for lane in ("fp", "fp8", "q8"):
         kernels[WALKS["K6", lane][0]] = check_paged_attention(
@@ -3843,6 +4259,13 @@ def main() -> int:
     llama_paths, llama = llama_phase(dev, tln, tpa)
     by_path.update(llama_paths)
     log(f"  llama: {json.dumps(llama)}")
+    torch.cuda.empty_cache()
+
+    log("phase 9 train Llama at Llama-7B's widths (4 layers, recompute) and "
+        "a Llama-3-8B-width GQA arm (bf16, random weights):")
+    train_paths, llama_train = llama_train_phase(dev, tln, tfa)
+    by_path.update(train_paths)
+    log(f"  llama training: {json.dumps(llama_train)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at
@@ -3850,6 +4273,9 @@ def main() -> int:
         rec["launches_by_path"] = {path: counts.get(name, 0)
                                    for path, counts in by_path.items()}
         rec["launches"] = rec["launches_by_path"][rec["path"]]
+        if "llama_training" in rec:
+            rec["llama_training"]["launches"] = \
+                by_path["llama_training"][name]
 
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
         f"build included")

@@ -41,9 +41,15 @@ cache:
   int8 cache); `use_compiled=False` runs the same loop as the JAX eager
   debug loop (gpt.py:398-423) does, which never stops at eos.
 
+- `use_recompute=True` recomputes each decoder layer's body in the
+  backward of a training forward (`distributed.fleet.utils.recompute`,
+  gpt.py:189-205), replaying its dropout draws from the model's
+  generator.
+
 Linear layers are `torch.nn.Linear` ([out, in] weights; `convert.py`
-transposes the JAX package's [in, out]). Recompute and tensor and
-sequence parallelism are not ported yet.
+transposes the JAX package's [in, out]). `fuse_attention_qkv` is
+stored, as the JAX package stores it (the projection is always fused);
+tensor and sequence parallelism raise (ROADMAP.md, queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -54,6 +60,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core.device import DeviceLike, make_generator, resolve_device
+from ..distributed.fleet.utils import recompute
 from ..nn import LayerNorm
 from ..nn import functional as PF
 from ..ops.cuda.paged_attention import lora_delta, lora_delta_paged
@@ -67,7 +74,9 @@ class GPTConfig:
                  num_hidden_layers=12, num_attention_heads=12,
                  intermediate_size=None, max_position_embeddings=1024,
                  hidden_dropout_prob=0.1, attention_probs_dropout_prob=0.1,
-                 initializer_range=0.02, layer_norm_epsilon=1e-5):
+                 initializer_range=0.02, layer_norm_epsilon=1e-5,
+                 use_recompute=False, tensor_parallel=None,
+                 sequence_parallel=False, fuse_attention_qkv=True):
         self.vocab_size = vocab_size
         self.hidden_size = hidden_size
         self.num_hidden_layers = num_hidden_layers
@@ -78,6 +87,10 @@ class GPTConfig:
         self.attention_probs_dropout_prob = attention_probs_dropout_prob
         self.initializer_range = initializer_range
         self.layer_norm_epsilon = layer_norm_epsilon
+        self.use_recompute = use_recompute
+        self.tensor_parallel = tensor_parallel
+        self.sequence_parallel = sequence_parallel
+        self.fuse_attention_qkv = fuse_attention_qkv
 
 
 def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -160,10 +173,16 @@ class GPTDecoderLayer(nn.Module):
         self.ln2 = LayerNorm(config.hidden_size, epsilon=eps, **factory)
         self.mlp = GPTMLP(config, **factory)
         self.hidden_dropout = config.hidden_dropout_prob
+        self.use_recompute = config.use_recompute
 
     def _dropout(self, x, generator):
         return PF.dropout(x, self.hidden_dropout, self.training,
                           generator=generator)
+
+    def _body(self, x, generator=None):
+        x = x + self._dropout(self.attn(self.ln1(x), generator=generator),
+                              generator)
+        return x + self._dropout(self.mlp(self.ln2(x)), generator)
 
     def forward(self, x: torch.Tensor, cache: Optional[DecodeCache] = None,
                 generator: Optional[torch.Generator] = None):
@@ -171,9 +190,9 @@ class GPTDecoderLayer(nn.Module):
             h, cache = self.attn(self.ln1(x), cache)
             x = x + h
             return x + self.mlp(self.ln2(x)), cache
-        x = x + self._dropout(self.attn(self.ln1(x), generator=generator),
-                              generator)
-        return x + self._dropout(self.mlp(self.ln2(x)), generator)
+        if self.use_recompute and self.training and torch.is_grad_enabled():
+            return recompute(self._body, x, generator=generator)
+        return self._body(x, generator)
 
 
 class GPTEmbeddings(nn.Module):
@@ -217,6 +236,11 @@ class GPTEmbeddings(nn.Module):
 class GPTModel(nn.Module):
     def __init__(self, config: GPTConfig, **factory):
         super().__init__()
+        if config.tensor_parallel or config.sequence_parallel:
+            raise NotImplementedError(
+                "GPTConfig(tensor_parallel=..., sequence_parallel=True): "
+                "the distributed paths are not ported (ROADMAP.md, queue "
+                "1, item 13)")
         self.config = config
         self.embeddings = GPTEmbeddings(config, **factory)
         self.layers = nn.ModuleList(

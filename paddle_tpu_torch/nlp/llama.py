@@ -1,8 +1,9 @@
 """Llama: RMSNorm, rotary embeddings, SwiGLU and GQA, as `nn.Module`s.
 
 Counterpart of `paddle_tpu/nlp/llama.py` (LlamaConfig, LlamaModel,
-LlamaForCausalLM), for inference: the cache-free forward (with labels,
-the loss), the eager (k, v) tuple cache and the decode caches of
+LlamaForCausalLM), for training and inference: the cache-free forward
+(with labels, the loss; in training mode the graph of the backward),
+the eager (k, v) tuple cache and the decode caches of
 `nlp/generation.py` (the dense cache of `generate()`, the serving
 engine's paged and ragged steps).
 
@@ -28,13 +29,17 @@ engine's paged and ragged steps).
   op runs without its LoRA prologue;
 - every Linear has a bias (the JAX `_make_linear` is `nn.Linear` with
   its default bias), the LM head is untied, and mixed dtypes follow
-  jnp's promotion (`Linear`), as in `nlp/gpt.py`.
+  jnp's promotion (`Linear`), as in `nlp/gpt.py`;
+- training: the backward flows by torch autograd through rope, RMSNorm,
+  SwiGLU and GQA's `repeat_interleave`, and through flash attention's
+  K4 and K5 on the card; with `use_recompute=True` each decoder layer's
+  `_body` runs again in the backward (`distributed.fleet.utils.
+  recompute`, llama.py:226-241): K3 twice a layer, K4 and K5 once. The
+  loss and the head are not recomputed.
 
-Training (the backward and the train step), recompute and sequence
-parallelism are not ported: a forward that would record a graph for the
-backward raises, and so do `use_recompute` and `sequence_parallel`. The
-tensor-parallel layers of the JAX package's `mp` mesh axis and its ring
-attention have no counterpart yet (ROADMAP.md, queue 1).
+`sequence_parallel` raises: the tensor-parallel layers of the JAX
+package's `mp` mesh axis and its ring attention have no counterpart yet
+(ROADMAP.md, queue 1, item 13).
 """
 from __future__ import annotations
 
@@ -44,6 +49,7 @@ import torch
 from torch import nn
 
 from ..core.device import DeviceLike, make_generator, resolve_device
+from ..distributed.fleet.utils import recompute
 from ..nn import RMSNorm
 from ..nn import functional as PF
 from ..ops.cuda.paged_attention import lora_delta, lora_delta_paged
@@ -52,10 +58,6 @@ from .gpt import _linear
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "apply_rotary",
            "rope_tables"]
-
-_TRAINING = ("training Llama (the backward and the train step) is not "
-             "ported (ROADMAP.md, queue 1, item 5): call model.eval() or "
-             "run under torch.no_grad()")
 
 
 class LlamaConfig:
@@ -187,7 +189,7 @@ class LlamaAttention(nn.Module):
             k = k.repeat_interleave(rep, dim=2)
             v = v.repeat_interleave(rep, dim=2)
         out = PF.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                              training=False)
+                                              training=self.training)
         out = self.o_proj(out.reshape(b, l, self.n_heads * self.head_dim))
         return out if cache is None else (out, cache)
 
@@ -211,10 +213,6 @@ class LlamaDecoderLayer(nn.Module):
 
     def __init__(self, config: LlamaConfig, **factory):
         super().__init__()
-        if config.use_recompute:
-            raise NotImplementedError(
-                "LlamaConfig(use_recompute=True): recompute is not ported "
-                "(ROADMAP.md, queue 1, item 11)")
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, epsilon=eps,
                                        **factory)
@@ -222,14 +220,20 @@ class LlamaDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 epsilon=eps, **factory)
         self.mlp = LlamaMLP(config, **factory)
+        self.use_recompute = config.use_recompute
+
+    def _body(self, x: torch.Tensor, rope: RopeTables) -> torch.Tensor:
+        x = x + self.self_attn(self.input_layernorm(x), rope)
+        return x + self.mlp(self.post_attention_layernorm(x))
 
     def forward(self, x: torch.Tensor, rope: RopeTables, cache=None):
         if cache is not None:
             h, cache = self.self_attn(self.input_layernorm(x), rope, cache)
             x = x + h
             return x + self.mlp(self.post_attention_layernorm(x)), cache
-        x = x + self.self_attn(self.input_layernorm(x), rope)
-        return x + self.mlp(self.post_attention_layernorm(x))
+        if self.use_recompute and self.training and torch.is_grad_enabled():
+            return recompute(self._body, x, rope)
+        return self._body(x, rope)
 
 
 class LlamaModel(nn.Module):
@@ -329,8 +333,6 @@ class LlamaForCausalLM(nn.Module):
         """input_ids [b, l] -> logits [b, l, V]; with `labels` [b, l],
         the mean cross entropy instead (labels aligned with logits, no
         shift); with `caches`, (logits, advanced caches)."""
-        if self.training and torch.is_grad_enabled():
-            raise NotImplementedError(_TRAINING)
         if caches is not None:
             h, caches = self.llama(input_ids, caches=caches)
             return self.lm_head(h), caches

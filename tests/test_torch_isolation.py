@@ -39,7 +39,9 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch.serving, paddle_tpu_torch.nlp\n"
         "import paddle_tpu_torch.ops.cuda._build\n"
         "import paddle_tpu_torch.nn.functional, paddle_tpu_torch.jit\n"
-        "import paddle_tpu_torch.optimizer\n"
+        "import paddle_tpu_torch.optimizer, paddle_tpu_torch.optimizer.lr\n"
+        "import paddle_tpu_torch.regularizer, paddle_tpu_torch.nn.clip\n"
+        "import paddle_tpu_torch.distributed.fleet.utils\n"
         "import paddle_tpu_torch.ops.cuda.flash_attention\n"
         "import paddle_tpu_torch.ops.cuda.paged_attention\n"
         "import paddle_tpu_torch.nlp.generation\n"

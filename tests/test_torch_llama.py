@@ -8,8 +8,9 @@ kv heads) and its MHA variant, with the JAX model's weights moved by
 `convert.py` (the RMSNorm weights and the biases perturbed first, so
 that neither is the identity): logits, the loss and the eager (k, v)
 tuple-cache path against JAX, the convert round trip (the embedding
-table is not transposed), greedy `generate` tokens exactly equal, and
-the options that are not ported raising.
+table is not transposed), greedy `generate` tokens exactly equal,
+sequence parallelism raising, and training and recompute running
+(tests/test_torch_llama_train.py holds them against JAX).
 """
 import jax.numpy as jnp
 import ml_dtypes
@@ -221,21 +222,30 @@ def test_greedy_generate_matches_jax(models):
 
 
 def test_unported_options_raise(models):
-    """Training, recompute and sequence parallelism name ROADMAP.md; the
-    model is built on the card by default."""
+    """Sequence parallelism names ROADMAP.md; training and recompute,
+    which raised before Llama's training was ported, run: a training
+    forward records the graph and every parameter gets a finite
+    gradient. The model is built on the card by default."""
     tm = models[1]
     ids = torch.from_numpy(_ids())
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        LlamaForCausalLM(LlamaConfig(**GQA, sequence_parallel=True),
+                         device="cpu")
     tm.train()
     try:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tm(ids, labels=ids)
+        tm(ids, labels=ids).backward()
+        assert all(p.grad is not None and torch.isfinite(p.grad).all()
+                   for p in tm.parameters())
         with torch.no_grad():           # no graph: the forward runs
             assert tm(ids).shape == (2, 9, 89)
     finally:
         tm.eval()
-    for kw in (dict(use_recompute=True), dict(sequence_parallel=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            LlamaForCausalLM(LlamaConfig(**GQA, **kw), device="cpu")
+        tm.zero_grad(set_to_none=True)
+    rec = LlamaForCausalLM(LlamaConfig(**GQA, use_recompute=True),
+                           device="cpu").train()
+    loss = rec(ids, labels=ids)
+    loss.backward()
+    assert torch.isfinite(loss) and rec.lm_head.weight.grad is not None
 
 
 def test_defaults_are_llama_7b_and_built_on_the_card(monkeypatch):
