@@ -102,7 +102,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    into 4096 and 1024 columns, rank 8); its launch (`lora_plan`), K6's
    (`ragged_plan`) and K9's (`decode_plan`: the feeder) recorded; K12 (a
    row split over a cluster of up to 8 blocks) on f32 logits at [16|1|128,
-   50304], [16, 50257] and [16, 128256], and on a view whose rows start off
+   50304], [16, 50257], [16, 128256] and phase 10's verify logits [512,
+   50304] and [512, 32000], and on a view whose rows start off
    a 16-byte boundary, with ties (one across a cluster slice border), NaNs
    in two slices, +-0, an all -inf row and an all-equal row, equal to
    torch.argmax bit for bit over 20 repeats and timed at each shape beside
@@ -204,7 +205,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    each a step, in their wide lanes; K3-K5 once), then the held step on
    [1, 1024] in f32, kernel path against plain path;
 8. Llama-7B (`LlamaConfig()`'s defaults, bf16, random weights from the
-   seed, 32 layers of 32 heads of 128) serves phase 3's traffic in six
+   seed, 32 layers of 32 heads of 128; its arms and its `generate()`
+   run on a weight copy of its first 8 layers, a cut for time, and
+   phase 10 serves all 32) serves phase 3's traffic in six
    arms: the defaults, grouped=False, int8 pools, the legacy step, the
    megakernel on, and the LORA adapters with the megakernel on. The
    defaults, int8, legacy (a decode step) and adapter arms each record
@@ -214,14 +217,15 @@ Phases, each reported on its own line; any failure exits non-zero:
    the f32 model through the kernels against the plain f32 rerun
    (0.01), and a planted fault (the plain bf16 rerun with every query's
    window one key short) is read against both and reported; exact
-   launches per step (K10a and K10b 32 each, K1 0; K8-q8 32 over int8;
-   K8's float lane 32 and K12 1 with the megakernel; K11 128 with
-   adapters: Llama's four standalone deltas a layer), the tokens of the
+   launches per step (K10a and K10b one each a layer, K1 0; K8-q8 one a
+   layer over int8; K8's float lane one a layer and K12 1 with the
+   megakernel; K11 four a layer with adapters: Llama's four standalone
+   deltas), the tokens of the
    defaults, grouped=False and megakernel arms identical, a profile of
    each arm. Then its `generate()` as phase 5 (greedy twice, beam, the
-   int8 cache; K3 32 a forward) with the prefill, a decode step and the
-   cache-free forward (K3) held as the steps are, against the plain f32
-   and bf16 forwards on the card.
+   int8 cache; K3 one a layer a forward) with the prefill, a decode step
+   and the cache-free forward (K3) held as the steps are, against the
+   plain f32 and bf16 forwards on the card.
    Then a GQA model at Meta-Llama-3-8B's widths (vocab 128256, 8 kv
    heads: rep 4; 4 of its 32 layers) serves the same traffic with the
    defaults, grouped=False and the megakernel (K12 over 128256 columns),
@@ -243,7 +247,23 @@ Phases, each reported on its own line; any failure exits non-zero:
    widths (2 layers, one recompute step on [1, 2048]: K3 4, K4 2, K5 2).
    Prints the memory reckoning (weights, gradients, moments, Adam's f32
    gradient copy, master weights), each arm's peak, step time,
-   tokens/s, MFU and the device's busy share of the profiled step.
+   tokens/s, MFU and the device's busy share of the profiled step;
+10. speculative serving (`ServingEngine(spec=...)`), `ngram:4` and
+   `model:4` (the draft model at half the target's depth): GPT-124M at
+   full width and depth on phase 3's traffic and on a templated one (16
+   requests, a 2-token head and a 24-token block repeated 4 times, 64
+   new tokens) in the defaults, int8, megakernel and adapter arms, and
+   Llama-7B on phase 8's weights (run inside phase 8) at the defaults.
+   Each spec run against the spec-off run of its arm and traffic: a
+   token may differ only where the spec-off run's top-two logit margin
+   lies within 0.1 (GPT-124M) or 0.5 (Llama-7B), each such token
+   logged; exact launches per target step (the walk and the write per
+   layer as in phase 3, K12 twice under the megakernel: the sampling
+   argmax and `spec_verify_accept`) and per draft micro-step (K1 2L + 1
+   for GPT, K6 once a layer); acceptance above 0 on the templated
+   traffic; the page pool and the draft pool quiesced after `drain()`.
+   Prints tokens/s, step p50/p90, acceptance, tokens a decode row a
+   step and the device's busy share of each spec arm.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -261,7 +281,9 @@ generate_beam and generate_int8, and phase 8's llama_serving[_ungrouped|
 _int8|_legacy|_megakernel|_adapters_megakernel], llama_generate[_beam|
 _int8] and llama3_gqa_serving[_ungrouped|_megakernel], and phase 9's
 llama_training[_no_recompute|_accumulate] and llama3_gqa_training (a
-step's launches each). The last line
+step's launches each), and phase 10's spec_{phase3|templated}_{defaults|
+int8|megakernel|adapters}_{ngram|model} and llama_spec_defaults_{ngram|
+model}. The last line
 is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
@@ -378,18 +400,29 @@ LLAMA_FLASH_CASES = ("legacy prefill Lq 8", "legacy prefill Lq 16",
                      "generate decode")
 # phase 8: Llama-7B, the `LlamaConfig()` defaults (BASELINE.md config
 # #5: vocab 32000, hidden 4096, 32 layers of 32 heads, intermediate
-# 11008), at full depth; and a GQA arm at Meta-Llama-3-8B's published
-# widths (its config.json: vocab 128256, 32 heads over 8 kv heads,
-# intermediate 14336, 8192 positions, eps 1e-5, theta 500000), cut to 4
-# of its 32 layers
+# 11008), built at full depth, which phase 10's speculative arms serve;
+# its six serving arms and `generate()` run on a weight copy of its
+# first LLAMA7B_ARM_LAYERS layers (cut so that the script, phase 10
+# included, keeps well inside its time); and a GQA arm at
+# Meta-Llama-3-8B's published widths (its config.json: vocab 128256, 32
+# heads over 8 kv heads, intermediate 14336, 8192 positions, eps 1e-5,
+# theta 500000), cut to 4 of its 32 layers
 LLAMA7B = dict()
+LLAMA7B_ARM_LAYERS = 8
 LLAMA3_GQA = dict(vocab_size=128256, hidden_size=4096, num_hidden_layers=4,
                   num_attention_heads=32, num_key_value_heads=8,
                   intermediate_size=14336, max_position_embeddings=8192,
                   rms_norm_eps=1e-5, rope_theta=500000.0)
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str):
+    """Print a line; a phase's heading carries the seconds since the
+    script started."""
+    if msg.startswith("phase "):
+        msg = f"{msg} [at {time.perf_counter() - _T0:.1f} s]"
     print(msg, flush=True)
 
 
@@ -1912,9 +1945,11 @@ def lora_within_rule(tpa, tag, out, x, A, B, apage, ascale) -> float:
 
 # K12's shapes in phase 2, the first the record's: a megakernel step's
 # 16 slots, one row, 16 slots x a verify width of 8, GPT-2's vocabulary
-# (rows off a 16-byte boundary) and Llama 3's
+# (rows off a 16-byte boundary) and Llama 3's, and `spec_verify_accept`'s
+# [16 slots x 32 columns, V] at GPT-124M's and Llama-7B's vocabularies
+# (phase 10's megakernel arm)
 ARGMAX_SHAPES = ((16, 50304), (1, 50304), (128, 50304), (16, 50257),
-                 (16, 128256))
+                 (16, 128256), (512, 50304), (512, 32000))
 
 
 def argmax_rows(logits, tpa):
@@ -3260,9 +3295,11 @@ def same_share(got, want) -> float:
 
 
 def llama_phase(dev, tln, tpa) -> tuple:
-    """Phase 8: Llama-7B (bf16, random weights from SEED) serves phase
-    3's traffic in six arms (the defaults, grouped=False, int8 pools, the
-    legacy step, the megakernel on, LORA adapters with the megakernel on;
+    """Phase 8: Llama-7B (bf16, random weights from SEED; the arms and
+    `generate()` on its first LLAMA7B_ARM_LAYERS layers, phase 10's
+    Llama-7B part on all 32) serves phase 3's traffic in six arms (the
+    defaults, grouped=False, int8 pools, the legacy step, the megakernel
+    on, LORA adapters with the megakernel on;
     the defaults, int8, legacy and adapter arms each with a recorded
     step held on the card by `held_on_card`), each with its exact
     launches per step and a profile; the defaults,
@@ -3274,6 +3311,7 @@ def llama_phase(dev, tln, tpa) -> tuple:
     columns), tokens identical. Returns the launches of each run (its
     path) and the stats."""
     from paddle_tpu_torch.nlp import LlamaConfig, LlamaForCausalLM
+    from paddle_tpu_torch.serving import make_draft_model
     by_path, stats, tokens = {}, {}, {}
 
     def arms(model, label, runs):
@@ -3286,13 +3324,16 @@ def llama_phase(dev, tln, tpa) -> tuple:
             log(f"  [{path}] {time.perf_counter() - t_arm:.1f} s in all")
 
     t0 = time.perf_counter()
-    model = LlamaForCausalLM(LlamaConfig(**LLAMA7B), device=dev,
-                             dtype=torch.bfloat16, seed=SEED).eval()
+    full = LlamaForCausalLM(LlamaConfig(**LLAMA7B), device=dev,
+                            dtype=torch.bfloat16, seed=SEED).eval()
+    model = make_draft_model(full, LLAMA7B_ARM_LAYERS)
     torch.cuda.synchronize()
-    n_params = sum(p.numel() for p in model.parameters())
+    n_params = sum(p.numel() for p in full.parameters())
     log(f"  Llama-7B: {n_params} parameters, built in "
-        f"{time.perf_counter() - t0:.2f} s")
-    arms(model, "llama-7b", (
+        f"{time.perf_counter() - t0:.2f} s; the arms and generate() run on "
+        f"its first {LLAMA7B_ARM_LAYERS} layers "
+        f"({sum(p.numel() for p in model.parameters())} parameters)")
+    arms(model, f"llama-7b, {LLAMA7B_ARM_LAYERS} layers", (
         ("llama_serving", dict(record=True)),
         ("llama_serving_ungrouped", dict(grouped=False)),
         ("llama_serving_int8", dict(kv_dtype="int8", record=True)),
@@ -3320,6 +3361,14 @@ def llama_phase(dev, tln, tpa) -> tuple:
     by_path.update(gen_paths)
     del model
     torch.cuda.empty_cache()
+    log("phase 10 speculative serving, its Llama-7B part (phase 8's "
+        "weights, all 32 layers):")
+    t_spec = time.perf_counter()
+    spec_paths, stats["spec"] = spec_phase_llama(dev, tln, tpa, full)
+    by_path.update(spec_paths)
+    log(f"  phase 10, Llama-7B part: {time.perf_counter() - t_spec:.1f} s")
+    del full
+    torch.cuda.empty_cache()
 
     model = LlamaForCausalLM(LlamaConfig(**LLAMA3_GQA), device=dev,
                              dtype=torch.bfloat16, seed=SEED).eval()
@@ -3337,6 +3386,290 @@ def llama_phase(dev, tln, tpa) -> tuple:
                              "changed the tokens")
     del model
     torch.cuda.empty_cache()
+    return by_path, stats
+
+
+# -- phase 10: speculative serving -------------------------------------------
+# the templated arm: 16 requests, each a 2-token head and a 24-token block
+# repeated 4 times (tests/test_serving_spec.py's `templated_prompt` at the
+# step's width), 64 new tokens, greedy
+SPEC_TEMPLATED = dict(requests=16, head=2, block=24, reps=4)
+SPEC_TIERS = ("ngram:4", "model:4")
+# each spec arm's profiled run: the traffic's four shortest prompts,
+# SPEC_PROFILE_NEW tokens each, traced over SPEC_PROFILE_STEPS steps once
+# every row decodes (a trace's processing grows with its kernel events,
+# and a draft micro-step adds a draft model's worth)
+SPEC_PROFILE_NEW, SPEC_PROFILE_STEPS = 12, 3
+# the target engine's arms: (name, engine options)
+SPEC_ARMS = (("defaults", {}), ("int8", dict(kv_dtype="int8")),
+             ("megakernel", dict(megakernel=True)),
+             ("adapters", dict(adapters=True, adapter_pages=8)))
+
+
+def templated_traffic(vocab: int):
+    rs = np.random.RandomState(SEED)
+    t = SPEC_TEMPLATED
+    return [np.concatenate([rs.randint(0, vocab, size=t["head"]),
+                            np.tile(rs.randint(0, vocab, size=t["block"]),
+                                    t["reps"])]).astype(np.int64)
+            for _ in range(t["requests"])]
+
+
+def spec_launches(tpa, model, eng) -> tuple:
+    """A speculative engine's launches per target step and per draft
+    micro-step. The target step is phase 3's (`per_step_launches`: K1 2L
+    + 1 for GPT, the walk per layer in the pools' lane, the lane's write)
+    with K12 twice under the megakernel (the sampling argmax and
+    `spec_verify_accept` over every verify column). The draft step runs
+    the draft model ungrouped over float pools without the megakernel,
+    as the JAX draft program: K1 2L_d + 1 for GPT, K6 once a layer, its
+    write `index_copy_`."""
+    cfg = model.config
+    target = per_step_launches(
+        tpa, eng.grouped, eng.kv_dtype, eng.attn_impl, eng.megakernel,
+        eng.adapters is not None, cfg.num_hidden_layers,
+        norm_launches(model))
+    if eng.megakernel and eng.spec is not None:
+        target["K12"] = 2
+    draft = _no_launches(tpa)
+    if eng._draft is not None:
+        dm = eng._draft.model
+        draft["K1"] = norm_launches(dm)
+        draft["K6"] = dm.config.num_hidden_layers
+    return target, draft
+
+
+def spec_serve(dev, tln, tpa, model, prompts, spec, arm, opts, label,
+               tenants=None, profile=False) -> dict:
+    """One run of `prompts` (64 new tokens each, greedy) on a fresh engine
+    with `spec` ("ngram:4", "model:4" or None) and the arm's options,
+    counting launches from 0: exact against `spec_launches` times the
+    target steps and the draft micro-steps. A spec-off run keeps, for
+    every token, the top-two margin of the held logits it was sampled
+    from. Then, with `profile`, `profile_decode_steps` on the same
+    engine for the device's busy share; then `drain()`, with the page
+    pool and the draft pool quiesced. Returns the tokens, margins and
+    stats."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+
+    class MarginEngine(ServingEngine):
+        """Keeps each step's top-two held logits (on the card, read after
+        the run) and, per emitted token, the step and slot it came from."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.tops, self.where = [], []
+
+        def _sample_next(self):
+            if self.spec is None:
+                self.tops.append(torch.topk(self._last_logits, 2,
+                                            dim=-1).values)
+            return super()._sample_next()
+
+        def _emit_tokens(self, slots, nxt, finished, accept=None,
+                         drafts=None):
+            if self.spec is None:
+                for s in slots:
+                    req = self.scheduler.running.get(int(s))
+                    if req is not None and req.state.name == "DECODE":
+                        self.where.append((req.request_id,
+                                           len(self.tops) - 1, int(s)))
+            super()._emit_tokens(slots, nxt, finished, accept, drafts)
+
+    tag = f"{label} {arm} spec={spec or 'off'}"
+    eng = MarginEngine(model, device=dev, seed=SEED, spec=spec, **ENGINE,
+                       **opts)
+    cfg = model.config
+    if eng.adapters is not None:
+        loras, all_tenants = adapter_traffic(cfg)
+        for i, w in enumerate(loras):
+            eng.adapters.register(f"tenant{i}", w)
+        tenants = all_tenants[:len(prompts)]
+    tenants = tenants or [0] * len(prompts)
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS,
+                                              adapter_id=a))
+            for p, a in zip(prompts, tenants)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts_serving(tln, tpa, tfa)
+    snap = eng.metrics.snapshot()
+    steps = snap["unified_steps"]
+    micro = 0 if eng._draft is None else eng._draft.micro_steps
+    per_step, per_micro = spec_launches(tpa, model, eng)
+    want = {k: per_step[k] * steps + per_micro[k] * micro
+            for k in per_step}
+    if launches != want:
+        raise AssertionError(f"[{tag}] kernel launches {launches} != {want}")
+    if any(r.finish_reason != "length" or len(r.output_tokens) != NEW_TOKENS
+           or not all(0 <= t < cfg.vocab_size for t in r.output_tokens)
+           for r in reqs):
+        raise AssertionError(f"[{tag}] a request did not finish with "
+                             f"{NEW_TOKENS} tokens in the vocabulary")
+    drafted, accepted = snap["spec_drafted_tokens"], \
+        snap["spec_accepted_tokens"]
+    if sum(r.accepted_draft_tokens for r in reqs) != accepted:
+        raise AssertionError(f"[{tag}] accepted_draft_tokens disagree")
+    margins = None
+    if spec is None:
+        tops = torch.stack(eng.tops).cpu() if eng.tops else None
+        by_req = {}
+        for rid, step, slot in eng.where:
+            by_req.setdefault(rid, []).append(
+                float(tops[step, slot, 0] - tops[step, slot, 1]))
+        margins = [by_req[r.request_id] for r in reqs]
+    step_s = snap["step_s"]
+    stats = {"tokens_per_s": snap["tokens_per_sec"],
+             "step_ms_p50": step_s["p50"] * 1e3,
+             "step_ms_p90": step_s["p90"] * 1e3, "steps": steps,
+             "wall_s": wall, "drafted": drafted, "accepted": accepted,
+             "acceptance": accepted / drafted if drafted else None,
+             "tokens_per_step":
+                 snap["spec_tokens_per_step"]["mean"],
+             "draft_micro_steps": micro,
+             "launches_per_target_step": {k: n for k, n in per_step.items()
+                                          if n},
+             "launches_per_draft_micro_step": {
+                 k: n for k, n in per_micro.items() if n}}
+    log(f"  [{tag}] {len(reqs)} requests in {steps} steps "
+        f"({micro} draft micro-steps), {wall:.3f} s: "
+        f"{snap['tokens_generated']} tokens, "
+        f"{snap['tokens_per_sec']:.1f} tokens/s; step p50 "
+        f"{stats['step_ms_p50']:.3f} ms, p90 {stats['step_ms_p90']:.3f} ms;"
+        f" drafted {drafted}, accepted {accepted} "
+        f"(acceptance {stats['acceptance']}), tokens a decode row a step "
+        f"{stats['tokens_per_step']}; launches "
+        f"{ {k: n for k, n in launches.items() if n} }"
+        f" = per target step {stats['launches_per_target_step']} x {steps}"
+        f" + per draft micro-step {stats['launches_per_draft_micro_step']}"
+        f" x {micro}")
+    if profile:
+        stats["profile"] = profile_decode_steps(
+            eng, sorted(prompts, key=len)[:4])
+        stats["device_busy_share"] = stats["profile"]["device_busy_share"]
+    if eng._draft is not None:
+        stats["draft_pool"] = eng._draft.stats()
+    eng.drain()
+    eng.pool.assert_quiesced()
+    if eng._draft is not None:
+        eng._draft.assert_quiesced()
+    del eng
+    torch.cuda.empty_cache()
+    return dict(tokens=[list(r.output_tokens) for r in reqs],
+                margins=margins, stats=stats, launches=launches)
+
+
+def profile_decode_steps(eng, prompts) -> dict:
+    """The device's busy share of speculative decode steps: `prompts`
+    (SPEC_PROFILE_NEW new tokens each) run until every row decodes, then
+    SPEC_PROFILE_STEPS steps are traced (the device only), then the rest
+    runs untraced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import SamplingParams
+    reqs = [eng.add_request(p, SamplingParams(
+        max_new_tokens=SPEC_PROFILE_NEW)) for p in prompts]
+    while any(r.state.name in ("QUEUED", "PREFILL") for r in reqs):
+        eng.step()
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(SPEC_PROFILE_STEPS):
+            eng.step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    eng.run()
+    out = dict(steps=SPEC_PROFILE_STEPS, **device_busy(prof, wall_us))
+    log(f"  profile of {SPEC_PROFILE_STEPS} decode steps: "
+        f"{time.perf_counter() - t_all:.1f} s with the trace's processing")
+    return out
+
+
+def spec_identity(tag, on, off, tol) -> dict:
+    """Spec on against spec off, request by request: equal, or the first
+    differing token is one whose spec-off top-two margin lies within
+    `tol` (a near tie: the GEMMs' row counts differ between the runs, so
+    bf16 results may differ by a rounding there); any other difference
+    fails. Returns the share of equal positions and the near ties."""
+    ties = []
+    for i, (a, b) in enumerate(zip(on["tokens"], off["tokens"])):
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            continue
+        margin = off["margins"][i][j]
+        ties.append({"request": i, "position": j, "spec_on": a[j],
+                     "spec_off": b[j], "margin": margin})
+        log(f"  [{tag}] request {i} differs first at token {j}: spec on "
+            f"{a[j]}, off {b[j]}, spec-off top-two margin {margin:.5f} "
+            f"(tolerance {tol})")
+        if not margin <= tol:
+            raise AssertionError(f"[{tag}] request {i} token {j} differs "
+                                 f"with a margin of {margin} > {tol}")
+    share = same_share(on["tokens"], off["tokens"])
+    log(f"  [{tag}] spec on vs off: {len(on['tokens']) - len(ties)} of "
+        f"{len(on['tokens'])} requests identical, {share:.4f} of positions;"
+        f" {len(ties)} near ties")
+    return {"same_share": share, "near_ties": ties}
+
+
+def spec_phase_gpt(dev, tln, tpa, model) -> tuple:
+    """Phase 10, GPT-124M: `ngram:4` and `model:4` (the half-depth draft
+    model) on phase 3's traffic and on the templated traffic, each in
+    the defaults, int8, megakernel and adapter arms, each against the
+    spec-off run of the same arm and traffic (`spec_identity`, tolerance
+    HELD_LOGITS_TOL). Acceptance must be above 0 on the templated
+    traffic. Returns the launches of each spec run (its path) and the
+    stats."""
+    by_path, stats = {}, {}
+    vocab = model.config.vocab_size
+    for traffic, prompts in (("phase3", make_traffic(vocab)),
+                             ("templated", templated_traffic(vocab))):
+        for arm, opts in SPEC_ARMS:
+            off = spec_serve(dev, tln, tpa, model, prompts, None, arm, opts,
+                             f"gpt-124m {traffic}")
+            stats[f"{traffic}_{arm}_off"] = off["stats"]
+            for spec in SPEC_TIERS:
+                on = spec_serve(dev, tln, tpa, model, prompts, spec, arm,
+                                opts, f"gpt-124m {traffic}", profile=True)
+                key = f"{traffic}_{arm}_{spec.split(':')[0]}"
+                on["stats"]["identity"] = spec_identity(
+                    f"gpt-124m {traffic} {arm} {spec}", on, off,
+                    HELD_LOGITS_TOL)
+                on["stats"]["speedup_tokens_per_s"] = (
+                    on["stats"]["tokens_per_s"]
+                    / off["stats"]["tokens_per_s"])
+                stats[key] = on["stats"]
+                by_path[f"spec_{key}"] = on["launches"]
+                if traffic == "templated" and not on["stats"]["accepted"]:
+                    raise AssertionError(f"[{key}] accepted no draft")
+    return by_path, stats
+
+
+def spec_phase_llama(dev, tln, tpa, model) -> tuple:
+    """Phase 10, Llama-7B on phase 8's weights: `ngram:4` and `model:4`
+    (the draft model at its default half depth, 16 layers) on phase 3's
+    traffic at the defaults, against the spec-off run (`spec_identity`,
+    tolerance LLAMA_HELD_LOGITS_TOL)."""
+    by_path, stats = {}, {}
+    prompts = make_traffic(model.config.vocab_size)
+    off = spec_serve(dev, tln, tpa, model, prompts, None, "defaults", {},
+                     "llama-7b")
+    stats["defaults_off"] = off["stats"]
+    for spec in SPEC_TIERS:
+        on = spec_serve(dev, tln, tpa, model, prompts, spec, "defaults", {},
+                        "llama-7b", profile=True)
+        key = f"defaults_{spec.split(':')[0]}"
+        on["stats"]["identity"] = spec_identity(
+            f"llama-7b {spec}", on, off, LLAMA_HELD_LOGITS_TOL)
+        on["stats"]["speedup_tokens_per_s"] = (
+            on["stats"]["tokens_per_s"] / off["stats"]["tokens_per_s"])
+        stats[key] = on["stats"]
+        by_path[f"llama_spec_{key}"] = on["launches"]
     return by_path, stats
 
 
@@ -4098,10 +4431,14 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}")
 
     t0 = time.perf_counter()
-    build_logs = _build.build()
+    build_times = {}
+    build_logs = _build.build(times=build_times)
     ptxas = {}    # K6's, K9's, K10's and K11's instantiations, by `parse`
     log(f"phase 1 build: {time.perf_counter() - t0:.2f} s for "
         f"{sorted(build_logs)}; card: {smi}")
+    log("  each compile, seconds from the start to its end: " + ", ".join(
+        f"{job} {secs:.1f}" for job, secs in sorted(build_times.items(),
+                                                     key=lambda x: x[1])))
     for name, text in build_logs.items():
         regs = [int(r) for r in re.findall(r"Used (\d+) registers", text)]
         spills = re.findall(r"(\d+) bytes spill stores", text)
@@ -4266,6 +4603,20 @@ def main() -> int:
     train_paths, llama_train = llama_train_phase(dev, tln, tfa)
     by_path.update(train_paths)
     log(f"  llama training: {json.dumps(llama_train)}")
+    torch.cuda.empty_cache()
+
+    log("phase 10 speculative serving on GPT-124M (bf16, random weights; "
+        "the Llama-7B part ran in phase 8):")
+    t_spec = time.perf_counter()
+    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                           dtype=torch.bfloat16, seed=SEED).eval()
+    spec_paths, spec_gpt = spec_phase_gpt(dev, tln, tpa, model)
+    by_path.update(spec_paths)
+    del model
+    torch.cuda.empty_cache()
+    log(f"  phase 10, GPT-124M part: {time.perf_counter() - t_spec:.1f} s")
+    log(f"  speculative serving: {json.dumps(spec_gpt)}")
+    log(f"  speculative serving, Llama-7B: {json.dumps(llama['spec'])}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

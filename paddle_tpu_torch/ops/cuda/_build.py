@@ -7,7 +7,14 @@ No PyTorch header is included, so a build takes seconds. Libraries land
 in `build/paddle_tpu_torch/` beside the package (listed in
 `.gitignore`), named by a hash of their sources and flags: an edited
 kernel rebuilds, an unchanged one loads from disk. `build()` starts one
-`nvcc` per source, all at once, and waits for every one of them.
+`nvcc` per source, all at once, and waits for every one of them. The
+three walk libraries (K6/K7, K9, K10: `WALK_PARTS`) are the exception:
+most of their compile time is their ring walk's, so each library's
+file is compiled with PTT_WALK_EXTERN beside one `nvcc -c` per
+instantiation of the walk's dispatch it calls (`csrc/walk_instance.cu`
+under the library's PTT_WALK_* settings; libraries of equal settings
+share one), all at once, and linked; the build's longest job is then
+one instantiation, about half a walk library.
 
 Pointers and the stream cross as `ctypes.c_void_p`, integers as
 `ctypes.c_int`; a library may hold several C entries (`KERNELS`
@@ -20,8 +27,11 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
 
@@ -36,6 +46,15 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "paddle_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# a walk library's objects: compiled with these, linked with LINK_FLAGS
+COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+              "-Xcompiler", "-fPIC")
+# walk library -> the (phase 1, masked) instantiations of `ring_dispatch`
+# it calls, each built from csrc/walk_instance.cu
+WALK_PARTS = {"ragged_paged_attention": ((0, 0), (0, 1)),
+              "paged_decode_attention": ((0, 0), (0, 1)),
+              "grouped_paged_attention": ((1, 0), (0, 0))}
 # kernel library -> {C entry: its argument types} (restype is c_int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the flash entries take a pointer to their Params struct, the dtype,
@@ -99,45 +118,127 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def _target(name: str) -> Path:
+def _hash(srcs, flags) -> str:
     h = hashlib.sha256()
-    h.update(" ".join(NVCC_FLAGS).encode())
-    for src in [CSRC / f"{name}.cu"] + sorted(CSRC.glob("*.cuh")):
+    h.update(" ".join(flags).encode())
+    for src in srcs:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return h.hexdigest()[:16]
 
 
-def build(names: Iterable[str] = tuple(KERNELS)) -> Dict[str, str]:
+def _sources(csrc: Path, name: str) -> list:
+    """The files kernel library `name`'s build reads in `csrc`."""
+    srcs = [csrc / f"{name}.cu"] + sorted(csrc.glob("*.cuh"))
+    if _walk_split(csrc, name):
+        srcs.append(csrc / "walk_instance.cu")
+    return srcs
+
+
+def _walk_split(csrc: Path, name: str) -> bool:
+    """Whether library `name` of the sources in `csrc` builds from parts
+    (a checkout from before the split has no walk_instance.cu)."""
+    return name in WALK_PARTS and (csrc / "walk_instance.cu").exists()
+
+
+def _target(name: str) -> Path:
+    key = _hash(_sources(CSRC, name), NVCC_FLAGS)
+    return BUILD_DIR / f"lib{name}-{key}.so"
+
+
+def _plan(csrc: Path, name: str, out: Path, part_dir: Path) -> tuple:
+    """How library `name` builds from the sources in `csrc` into `out`:
+    ({object or library path: its nvcc command}, the link command or
+    None). A walk library's instantiations land in `part_dir`, named by
+    their sources' and settings' hash, so libraries built together with
+    the same walk settings share them."""
+    src = csrc / f"{name}.cu"
+    if not _walk_split(csrc, name):
+        return {out: [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(src)]}, None
+    inst = csrc / "walk_instance.cu"
+    # the walk's settings the library's file makes before it includes
+    # paged_walk.cuh (K9's PTT_WALK_Q_REGS 0) hold for its instantiations
+    defs = re.findall(r"^#define PTT_WALK_(\w+) (\S+)", src.read_text(),
+                      re.M)
+    own_defs = [f"-DPTT_WALK_{k}={v}" for k, v in defs]
+    tag = "".join(f"_{k.lower()}{v}" for k, v in defs)
+    key = _hash([inst] + sorted(csrc.glob("*.cuh")), COMPILE_FLAGS)
+    own = out.with_name(out.name + ".o")
+    jobs = {own: [_nvcc(), *COMPILE_FLAGS, "-DPTT_WALK_EXTERN", "-o",
+                  str(own), str(src)]}
+    for p, m in WALK_PARTS[name]:
+        obj = part_dir / f"walk{p}{m}{tag}-{key}.o"
+        jobs[obj] = [_nvcc(), *COMPILE_FLAGS, *own_defs,
+                     f"-DPTT_WALK_PHASE1={p}", f"-DPTT_WALK_MASKED={m}",
+                     "-o", str(obj), str(inst)]
+    return jobs, [_nvcc(), *LINK_FLAGS, "-o", str(out), *map(str, jobs)]
+
+
+def _run_plans(plans: dict, what: str,
+               times: Optional[dict] = None) -> Dict[str, str]:
+    """Run {key: (jobs, link)} plans: every compile at once (a job shared
+    by two plans once), then each plan's link. Returns {key: compiler
+    output of its jobs}, and fills `times` with {job: seconds from the
+    start to its end} (a job by its file's stem: a library, or walkPM
+    for instantiation (P, M), with the library's walk settings after it);
+    raises RuntimeError naming a failed command."""
+    cmds = {}
+    for jobs, _ in plans.values():
+        cmds.update(jobs)
+    t0 = time.perf_counter()
+
+    def run(cmd):
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return res, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(cmds))) as pool:
+        results = dict(zip(cmds, pool.map(run, cmds.values())))
+    done, failed = {}, []
+    for out, (res, secs) in results.items():
+        done[out] = res.stdout
+        if times is not None:
+            times[out.name.split("-")[0].split(".")[0]
+                  .removeprefix("lib")] = secs
+        if res.returncode != 0:
+            failed.append(f"{out.name} (nvcc exit {res.returncode}):\n"
+                          f"{done[out]}")
+    for key, (_, link) in plans.items():
+        if link is not None and not failed:
+            res = subprocess.run(link, capture_output=True, text=True)
+            if res.returncode != 0:
+                failed.append(f"{key} link (nvcc exit {res.returncode}):\n"
+                              f"{res.stdout}{res.stderr}")
+    if failed:
+        raise RuntimeError(f"{what} failed: " + "\n".join(failed))
+    return {key: "".join(done[out] for out in jobs)
+            for key, (jobs, _) in plans.items()}
+
+
+def build(names: Iterable[str] = tuple(KERNELS),
+          times: Optional[dict] = None) -> Dict[str, str]:
     """Compile every named kernel library whose hashed target is
-    missing, one `nvcc` process per source, all started together.
-    Returns {name: compiler output} (the `-Xptxas -v` register and
-    shared-memory report; empty for a library that was already built).
-    Raises RuntimeError naming the source if any compile fails."""
+    missing, all `nvcc` processes started together (`_plan`). Returns
+    {name: compiler output} (the `-Xptxas -v` register and shared-memory
+    report of its sources; empty for a library that was already built);
+    `times`, when given, gets each compile's seconds from the start to
+    its end. Raises RuntimeError naming the source if any compile
+    fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
     logs: Dict[str, str] = {}
+    plans, targets = {}, {}
     for name in names:
         out = _target(name)
         if out.exists():
             logs[name] = ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT,
-                                        text=True), tmp, out)
-    failed: List[str] = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            continue
+        plans[name] = _plan(CSRC, name, tmp, BUILD_DIR)
+        targets[name] = (tmp, out)
+    logs.update(_run_plans(plans, "kernel build", times))
+    for tmp, out in targets.values():
         os.replace(tmp, out)   # atomic: a reader never sees half a file
-    if failed:
-        raise RuntimeError("kernel build failed: " + "\n".join(failed))
+        tmp.with_name(tmp.name + ".o").unlink(missing_ok=True)
     return logs
 
 
@@ -199,25 +300,20 @@ def checkout_source(root, name: str) -> Path:
 
 def build_checkouts(roots, names, tag: str) -> dict:
     """Compile kernel libraries `names` from each checkout in `roots`
-    with this build's flags into `BUILD_DIR/<tag>/<i>/`, one `nvcc` per
-    source, all started together. Returns {(root, name): (path, compiler
-    output)}; raises RuntimeError naming a source that failed."""
-    procs = {}
+    with this build's flags into `BUILD_DIR/<tag>/<i>/`, all `nvcc`
+    processes started together (`_plan`). Returns {(root, name): (path,
+    compiler output)}; raises RuntimeError naming a source that
+    failed."""
+    plans, outs = {}, {}
     for i, root in enumerate(roots):
         for name in names:
             out = BUILD_DIR / tag / str(i) / f"lib{name}.so"
             out.parent.mkdir(parents=True, exist_ok=True)
-            procs[root, name] = (out, subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(out),
-                 str(checkout_source(root, name))], stdout=subprocess.PIPE,
-                stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for key, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise RuntimeError(f"{tag}: {key} failed:\n{log}")
-        built[key] = (out, log)
-    return built
+            csrc = checkout_source(root, name).parent
+            plans[root, name] = _plan(csrc, name, out, out.parent)
+            outs[root, name] = out
+    logs = _run_plans(plans, tag)
+    return {key: (outs[key], logs[key]) for key in plans}
 
 
 def load_path(path, name: str,

@@ -74,6 +74,10 @@ __device__ __forceinline__ float warp_max(float v) {
 }  // namespace ptt
 
 // Human-readable text of a CUDA error code, for the wrappers' messages.
+// Defined once a library: the files compiled beside a library's own
+// (walk_instance.cu) define PTT_WALK_INSTANCE and leave it out.
+#ifndef PTT_WALK_INSTANCE
 extern "C" const char* ptt_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+#endif

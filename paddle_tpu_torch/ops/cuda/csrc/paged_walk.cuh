@@ -1106,6 +1106,22 @@ int ring_dispatch(int dtype, const Args& a, cudaStream_t s) {
   }
 }
 
+// `_build.build()` compiles each walk library's own file with
+// PTT_WALK_EXTERN and the dispatch instantiations it calls (48 kernels
+// each, most of a walk library's ptxas time) apart, one nvcc each, from
+// walk_instance.cu with the library's PTT_WALK_* settings, then links
+// them: libraries of the same settings share them, and they build in
+// parallel. Compiled alone, without the macro, a file
+// instantiates what it calls, as before.
+#ifdef PTT_WALK_EXTERN
+extern template int ring_dispatch<false, false>(int, const Args&,
+                                                cudaStream_t);
+extern template int ring_dispatch<false, true>(int, const Args&,
+                                               cudaStream_t);
+extern template int ring_dispatch<true, false>(int, const Args&,
+                                               cudaStream_t);
+#endif
+
 // Entries of a walk's launch report (`walk_plan`).
 constexpr int kPlanLen = 10;
 

@@ -10,14 +10,19 @@ same gates (`PADDLE_TPU_GROUPED_ATTN`, `PADDLE_TPU_PREEMPT`). See
 model's dtype, int8 codes with scales or float8 e4m3 (`kv_dtype`, gate
 `PADDLE_TPU_KV_DTYPE`, `resolve_kv_dtype`). Multi-tenant LoRA adapters
 (`serving.adapters`, gate `PADDLE_TPU_ADAPTERS`) and the decode
-megakernel (gate `PADDLE_TPU_MEGAKERNEL`) run on the unified step.
+megakernel (gate `PADDLE_TPU_MEGAKERNEL`) run on the unified step, and
+so does speculative decoding (`serving.spec`, gate
+`PADDLE_TPU_SPEC_DECODE=off|ngram[:k]|model[:k]`): n-gram prompt lookup
+or a resident draft model (`serving.draft`) drafts, greedy acceptance
+verifies.
 """
 from .adapters import (ADAPTER_PROJS, BASE_ADAPTER, AdapterStore,
                        LoRAWeights, make_random_lora, resolve_adapters_flag)
+from .draft import DraftConfig, DraftEngine, make_draft_model
 from .engine import (KV_DTYPE_MODES, ServingEngine, legacy_forward,
                      resolve_grouped_flag, resolve_kv_dtype,
                      resolve_preempt_flag, resolve_unified_flag,
-                     unified_forward)
+                     unified_forward, verify_forward)
 from .errors import DeadlineExceeded, EngineClosed, QueueFull, ServingError
 from .metrics import ServingMetrics
 from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
@@ -26,8 +31,11 @@ from .prefix import (PrefixGrant, RadixPrefixCache,
                      resolve_prefix_cache_flag, shared_prefix_groups)
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
+from .spec import (SPEC_DECODE_ENV, SPEC_MODES, Drafter, ModelDrafter,
+                   NgramDrafter, SpecConfig, resolve_spec_config)
 
-__all__ = ["ServingEngine", "unified_forward", "legacy_forward",
+__all__ = ["ServingEngine", "unified_forward", "verify_forward",
+           "legacy_forward",
            "resolve_grouped_flag", "resolve_preempt_flag",
            "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
            "resolve_prefix_cache_flag",
@@ -37,4 +45,7 @@ __all__ = ["ServingEngine", "unified_forward", "legacy_forward",
            "ServingMetrics", "PagePool", "HostPagePool", "TRASH_PAGE",
            "pages_needed", "chunk_bucket", "PrefixGrant", "RadixPrefixCache",
            "shared_prefix_groups", "Request", "RequestOutput",
-           "RequestState", "SamplingParams", "Scheduler"]
+           "RequestState", "SamplingParams", "Scheduler",
+           "SpecConfig", "NgramDrafter", "ModelDrafter", "Drafter",
+           "resolve_spec_config", "SPEC_DECODE_ENV", "SPEC_MODES",
+           "DraftEngine", "DraftConfig", "make_draft_model"]

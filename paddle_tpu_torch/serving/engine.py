@@ -108,21 +108,39 @@ layer's write and walk (and, with adapters, the q/k/v deltas) go through
 `megakernel_decode[_q8]` — K11, then K8 (K8-q8), then K6/K7/K10 — and
 the greedy argmax of the sampling epilogue is K12. Tokens are the same
 with the gate on or off: K8's float write equals `index_copy_` and K12
-equals `torch.argmax` bit for bit. The spec-decode acceptance epilogue
-(`spec_verify_accept`) waits for speculative decoding: without it the
-JAX step's acceptance is 0 for every row, and the port computes the LM
-head for each row's last column only.
+equals `torch.argmax` bit for bit. With speculative decoding on, the
+acceptance epilogue is `spec_verify_accept`, K12 over every verify
+column.
+
+Speculative decoding (`spec=`, gate PADDLE_TPU_SPEC_DECODE=off|ngram[:k]|
+model[:k], default off; `serving.spec`; the unified step only): each
+greedy request gets a drafter at admission, an n-gram prompt lookup or,
+in the model tier, the engine's resident draft model (`serving.draft`,
+its own float page pool of `draft_pages` pages). Each step a decoding
+row carries up to `k` drafted tokens behind its sampled one, at q_len
+1 + drafts (capped by the step width and the request's remaining
+budget, so every transient write stays in its reserved pages; drafts
+take only the budget decode and prefill leave). The verify forward runs
+the LM head over the columns the step reads (a decode row's live
+columns, a prefill row's last); `accept`, the longest prefix of drafts
+equal to the model's own argmax chain, comes back in the sync that
+brings the sampled tokens, the row's position advances by 1 + accept
+(rejected drafts' K/V stays past it, overwritten before it is read) and
+its held logits come from column `accept`. The host emits each burst
+token by token, so EOS or max_new_tokens ends it where one-at-a-time
+decoding would; greedy tokens are those of a spec-off engine. Sampled
+rows never draft.
 
 Gates are resolved at construction as the JAX engine resolves them
 (`prefix_cache=None` follows PADDLE_TPU_PREFIX_CACHE, default on). The
-gates of features not ported yet — `mesh` (PADDLE_TPU_MESH), `spec`
-(PADDLE_TPU_SPEC_DECODE), `grammar` (PADDLE_TPU_GRAMMAR), `obs`
-(PADDLE_TPU_OBS), `slo` (PADDLE_TPU_SLO) and `cost_census`
-(PADDLE_TPU_COST_CENSUS) — are parsed with the JAX package's rules (a
-bad spelling raises ValueError) and raise NotImplementedError, naming
-the ROADMAP item, when a keyword or an environment variable turns one
-on. Left unset, the observability, SLO and census layers (on by default
-in the JAX engine) are simply absent here. The JAX engine's poison
+gates of features not ported yet — `mesh` (PADDLE_TPU_MESH), `grammar`
+(PADDLE_TPU_GRAMMAR), `obs` (PADDLE_TPU_OBS), `slo` (PADDLE_TPU_SLO) and
+`cost_census` (PADDLE_TPU_COST_CENSUS) — are parsed with the JAX
+package's rules (a bad spelling raises ValueError) and raise
+NotImplementedError, naming the ROADMAP item, when a keyword or an
+environment variable turns one on. Left unset, the observability, SLO
+and census layers (on by default in the JAX engine) are simply absent
+here. The JAX engine's poison
 quarantine (`suppress`) belongs to the faults item.
 """
 from __future__ import annotations
@@ -143,8 +161,10 @@ from ..nlp.generation import (_categorical, _top_p_filter, _unpack_caches,
 from ..ops.cuda.paged_attention import (FP8_DTYPE, _as_bytes,
                                         count_page_block_reads,
                                         decode_greedy_argmax,
-                                        resolve_megakernel_flag)
+                                        resolve_megakernel_flag,
+                                        spec_verify_accept)
 from .adapters import BASE_ADAPTER, AdapterStore, resolve_adapters_flag
+from .draft import DraftConfig, DraftEngine, make_draft_model
 from .errors import DeadlineExceeded, EngineClosed
 from .metrics import ServingMetrics
 from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
@@ -153,8 +173,10 @@ from .prefix import (RadixPrefixCache, resolve_prefix_cache_flag,
                      shared_prefix_groups)
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
+from .spec import Drafter, ModelDrafter, resolve_spec_config
 
-__all__ = ["ServingEngine", "unified_forward", "legacy_forward",
+__all__ = ["ServingEngine", "unified_forward", "verify_forward",
+           "legacy_forward",
            "resolve_grouped_flag", "resolve_preempt_flag",
            "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
            "resolve_unported_gates"]
@@ -162,7 +184,6 @@ __all__ = ["ServingEngine", "unified_forward", "legacy_forward",
 KV_DTYPE_MODES = ("fp", "int8", "fp8")
 _ROADMAP_SERVING = "ROADMAP.md, queue 1, item 6"
 _MESH_RE = re.compile(r"^dp(\d+)x?mp(\d+)$")
-_SPEC_MODES = ("off", "ngram", "model")
 _SLO_KEYS = ("ttft_p99", "itl_p99", "goodput", "fast", "slow", "warn",
              "page", "min_events")
 _COST_CENSUS_MODES = ("off", "model", "lowered", "xla")
@@ -200,31 +221,6 @@ def _mesh_on(override) -> bool:
         raise ValueError(f"mesh spec must look like 'dp2mp4' "
                          f"(PADDLE_TPU_MESH / ServingEngine(mesh=...)), got "
                          f"{spec!r}")
-    return True
-
-
-def _spec_on(override) -> bool:
-    """PADDLE_TPU_SPEC_DECODE / spec= (the JAX `resolve_spec_config`):
-    off | ngram[:k] | model[:k], default off; True is ngram."""
-    if isinstance(override, bool):
-        return override
-    if override is not None and not isinstance(override, str):
-        return True         # a SpecConfig
-    spec = override if override is not None else \
-        os.environ.get("PADDLE_TPU_SPEC_DECODE", "off")
-    mode, sep, knob = spec.partition(":")
-    legal = "legal forms: off, ngram, ngram:K, model, model:K (K >= 1)"
-    if mode not in _SPEC_MODES:
-        raise ValueError(f"invalid PADDLE_TPU_SPEC_DECODE spec {spec!r}: "
-                         f"unknown mode {mode!r}; {legal}")
-    if mode == "off":
-        if sep:
-            raise ValueError(f"invalid PADDLE_TPU_SPEC_DECODE spec {spec!r}: "
-                             f"'off' takes no ':k' suffix; {legal}")
-        return False
-    if sep and not (knob.isdigit() and int(knob) >= 1):
-        raise ValueError(f"invalid PADDLE_TPU_SPEC_DECODE spec {spec!r}: the "
-                         f"':k' suffix must be an integer >= 1; {legal}")
     return True
 
 
@@ -288,7 +284,6 @@ def _cost_census_on(override) -> bool:
 # gate -> (its resolver, what it serves)
 _UNPORTED_GATES = {
     "mesh": (_mesh_on, "tensor-parallel serving (PADDLE_TPU_MESH)"),
-    "spec": (_spec_on, "speculative decoding (PADDLE_TPU_SPEC_DECODE)"),
     "grammar": (_grammar_on,
                 "grammar-constrained decoding (PADDLE_TPU_GRAMMAR)"),
     "obs": (_obs_on, "the flight recorder and request tracer "
@@ -301,7 +296,7 @@ _UNPORTED_GATES = {
 
 def resolve_unported_gates(**overrides):
     """Resolve the JAX engine's gates of features the port lacks (mesh,
-    spec, grammar, obs, slo, cost_census), each from its keyword or,
+    grammar, obs, slo, cost_census), each from its keyword or,
     when that is None, its environment variable, by the JAX rules: a bad
     spelling raises ValueError, and a gate that comes out on raises
     NotImplementedError naming the ROADMAP item."""
@@ -417,6 +412,26 @@ def model_backbone(model):
     return model
 
 
+def _backbone(model, pools, tokens, pos, page_table, q_len, group,
+              attn_impl, lora, megakernel) -> torch.Tensor:
+    """The unified step's trunk: tokens [S, W] through the model's
+    backbone over the per-layer pools (written in place); the hidden
+    states [S, W, h]. See `unified_forward` for the operands."""
+    lora_layers = lora_paged = None
+    if lora is not None:
+        apools, apage, ascale = lora
+        if megakernel:
+            lora_paged = [tuple(layer) + (apage, ascale) for layer in apools]
+        else:
+            idx = apage.long()
+            lora_layers = [tuple(t[idx] for t in layer) + (ascale,)
+                           for layer in apools]
+    caches = _unpack_caches(pools, pos, page_table, q_len, group, attn_impl,
+                            lora_layers, lora_paged, megakernel)
+    h, _ = model_backbone(model)(tokens, caches=caches)
+    return h
+
+
 def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                     page_table: torch.Tensor, q_len: torch.Tensor,
                     is_decode: torch.Tensor, last_logits: torch.Tensor,
@@ -433,23 +448,53 @@ def unified_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     [S] f32), adds the rows' LoRA deltas: each layer's pairs gathered
     per row, or with `megakernel` the whole pools handed to the fused op
     (K11); `megakernel` routes every layer's write and walk through it."""
-    lora_layers = lora_paged = None
-    if lora is not None:
-        apools, apage, ascale = lora
-        if megakernel:
-            lora_paged = [tuple(layer) + (apage, ascale) for layer in apools]
-        else:
-            idx = apage.long()
-            lora_layers = [tuple(t[idx] for t in layer) + (ascale,)
-                           for layer in apools]
-    caches = _unpack_caches(pools, pos, page_table, q_len, group, attn_impl,
-                            lora_layers, lora_paged, megakernel)
-    h, _ = model_backbone(model)(tokens, caches=caches)
+    h = _backbone(model, pools, tokens, pos, page_table, q_len, group,
+                  attn_impl, lora, megakernel)
     rows = torch.arange(tokens.shape[0], device=tokens.device)
     last = torch.where(is_decode, torch.zeros_like(q_len),
                        torch.clamp(q_len - 1, min=0)).to(torch.int64)
     row_last = model.lm_head(h[rows, last]).float()
     return torch.where((q_len > 0)[:, None], row_last, last_logits)
+
+
+def verify_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
+                   page_table: torch.Tensor, q_len: torch.Tensor,
+                   is_decode: torch.Tensor, last_logits: torch.Tensor,
+                   head: tuple, group=None, attn_impl: Optional[str] = None,
+                   lora=None, megakernel: bool = False) -> tuple:
+    """The model half of a speculative unified step (the JAX step's
+    verify epilogue): `unified_forward`'s trunk, then the LM head over
+    the columns the step reads, `head` = (rows [n], cols [n], first [S])
+    int64: each decode row's live columns (its sampled token and its
+    drafts), each prefill row's last column, and each row's first entry
+    among them. Greedy acceptance: draft column i + 1 is accepted while
+    it equals the argmax of column i, and `accept` [S] int32 is the
+    length of that prefix (0 for rows that do not decode) — by the plain
+    expressions, or under `megakernel` by `spec_verify_accept`, K12 over
+    every column of the [S, W, V] verify logits. Returns (held logits
+    [S, V] f32: a decode row's from column `accept`, a prefill row's
+    from its last, a dead row's unchanged; accept)."""
+    h = _backbone(model, pools, tokens, pos, page_table, q_len, group,
+                  attn_impl, lora, megakernel)
+    rows, cols, first = head
+    logits = model.lm_head(h[rows, cols]).float()            # [n, V]
+    s, w = tokens.shape
+    if megakernel:
+        verify = logits.new_zeros((s, w, logits.shape[-1]))
+        verify[rows, cols] = logits
+        accept = spec_verify_accept(verify, tokens, q_len, is_decode)
+    else:
+        preds = torch.zeros_like(tokens)
+        preds[rows, cols] = torch.argmax(logits, dim=-1).to(tokens.dtype)
+        match = tokens[:, 1:] == preds[:, :-1]
+        dcol = torch.arange(w - 1, device=tokens.device)[None, :]
+        valid = dcol < (q_len.to(torch.int64) - 1)[:, None]
+        accept = torch.cumprod((match & valid).to(torch.int32), dim=1).sum(
+            dim=1).to(torch.int32)
+        accept = torch.where(is_decode, accept, torch.zeros_like(accept))
+    sel = first + torch.where(is_decode, accept.to(torch.int64), 0)
+    held = torch.where((q_len > 0)[:, None], logits[sel], last_logits)
+    return held, accept
 
 
 def legacy_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
@@ -500,9 +545,9 @@ class ServingEngine:
                  adapter_pages: Optional[int] = None,
                  adapter_ranks: Optional[Sequence[int]] = None,
                  mesh=None, megakernel=None, obs=None, slo=None,
-                 cost_census=None):
-        resolve_unported_gates(mesh=mesh, spec=spec, grammar=grammar,
-                               obs=obs, slo=slo, cost_census=cost_census)
+                 cost_census=None, draft_pages: Optional[int] = None):
+        resolve_unported_gates(mesh=mesh, grammar=grammar, obs=obs, slo=slo,
+                               cost_census=cost_census)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -535,6 +580,18 @@ class ServingEngine:
             raise ValueError(f"chunk_len must be >= {self.MIN_CHUNK}")
         self.unified = resolve_unified_flag(unified)
         self.attn_impl = resolve_paged_attn_impl(attn_impl)
+        # speculative decoding: a SpecConfig, or None when off. The verify
+        # row is a unified-step row, so the legacy step refuses it
+        self.spec = resolve_spec_config(spec)
+        if self.spec is not None and not self.unified:
+            raise ValueError(
+                "speculative decoding requires the unified ragged "
+                "step: the verify pass rides the per-row q_len>1 "
+                "path (set unified=True / PADDLE_TPU_UNIFIED_STEP=on "
+                "or turn PADDLE_TPU_SPEC_DECODE off)")
+        # per-request drafters, made at admission for greedy requests and
+        # dropped at retirement and preemption (request_id -> Drafter)
+        self._drafters: Dict[str, Drafter] = {}
         # the tokens one unified step packs: decode rows always get
         # theirs, prefill grants share what is left. The default is the
         # full [num_slots, chunk_len] shape
@@ -559,6 +616,7 @@ class ServingEngine:
         self.metrics.grouped = self.grouped
         self.metrics.megakernel = self.megakernel
         self.metrics.unified = self.unified
+        self.metrics.spec = None if self.spec is None else self.spec.mode
         self.metrics.attn_impl = self.attn_impl
         # the distinct prefill buckets the legacy step has run
         self.prefill_buckets = set()
@@ -643,6 +701,26 @@ class ServingEngine:
                                             self._host_drop_page)
         self._slot_pages: Dict[int, List[int]] = {}
         self._prefill_cursor: Dict[str, int] = {}
+        # the draft-model tier: the draft model resident beside the target
+        # with its own float page pool (`draft_pages` pages with the trash
+        # page, default the target pool's count)
+        self._draft: Optional[DraftEngine] = None
+        if self.spec is not None and self.spec.mode == "model":
+            dm = self.spec.draft_model
+            if dm is None:
+                dm = make_draft_model(model)
+            if dm.device != self.device:
+                raise ValueError(f"draft model is on {dm.device}, engine "
+                                 f"on {self.device}")
+            self._draft = DraftEngine(dm, DraftConfig(
+                num_slots=self.num_slots, chunk_len=self.chunk_len,
+                page_size=self.page_size,
+                num_pages=(self.num_pages if draft_pages is None
+                           else int(draft_pages)),
+                max_pages=self.max_pages, attn_impl=self.attn_impl))
+        self.metrics.spec_draft_model = self._draft is not None
+        if self._draft is not None:
+            self.metrics.draft_pool_pages_total = self._draft.num_pages - 1
         self._pt_host = np.full((self.num_slots, self.max_pages),
                                 TRASH_PAGE, np.int32)
         self._pt_dev: Optional[torch.Tensor] = None   # None = re-upload
@@ -733,6 +811,10 @@ class ServingEngine:
     # -- step boundary: retire / admit -------------------------------------
     def _free_slot(self, slot: int):
         self.scheduler.retire(slot)
+        if self._draft is not None:
+            # draft K/V is recomputable: every slot-freeing path drops
+            # its pages outright (no host tier, no prefix cache)
+            self._draft.release(slot)
         self._vec_dev = None
         self._pt_host[slot, :] = TRASH_PAGE
         self._pt_dev = None
@@ -760,6 +842,7 @@ class ServingEngine:
         self._release_adapter(req)
         self._release_swap(req)   # preempted and never resumed
         self._prefill_cursor.pop(req.request_id, None)
+        self._drafters.pop(req.request_id, None)
         self._requests.pop(req.request_id, None)
         req._finish(reason, now)
         self.metrics.on_finish(req, now)
@@ -952,6 +1035,17 @@ class ServingEngine:
                 self._copy_page(grant.cow_src, grant.cow_dst)
                 self.prefix_cache.cow_done(grant)
             self._prefill_cursor[req.request_id] = req.cached_tokens
+            # one drafter a greedy request, made anew at each admission (a
+            # resumed request's history already holds its banked tokens);
+            # the model tier reserves the slot's draft pages, and under
+            # draft-pool pressure the slot just drafts later
+            if self.spec is not None and req.sampling.greedy:
+                drafter = self.spec.make_drafter()
+                self._drafters[req.request_id] = drafter
+                if (self._draft is not None
+                        and isinstance(drafter, ModelDrafter)):
+                    self._draft.admit(slot, int(req.prompt_ids.size),
+                                      req.sampling.max_new_tokens)
             self.metrics.on_admit(req, self._clock())
 
     # -- preemption --------------------------------------------------------
@@ -972,6 +1066,9 @@ class ServingEngine:
         else:
             kv_len = int(self._prefill_cursor.get(req.request_id, 0))
         self._prefill_cursor.pop(req.request_id, None)
+        # the drafter goes and the draft pages went with the slot: resume
+        # makes a new drafter and re-seeds the draft K/V from the history
+        self._drafters.pop(req.request_id, None)
         grant = req._prefix_grant
         base = grant.matched_full_pages if grant is not None else 0
         shared, private = pages[:base], pages[base:]
@@ -1144,6 +1241,13 @@ class ServingEngine:
                                self._last_logits, group, self.attn_impl,
                                lora, self.megakernel)
 
+    def _verify(self, tokens, pos, page_table, q_len, is_decode, head,
+                group=None, lora=None):
+        return verify_forward(self.model, self._pools, tokens, pos,
+                              page_table, q_len, is_decode,
+                              self._last_logits, head, group, self.attn_impl,
+                              lora, self.megakernel)
+
     def _sample_next(self) -> torch.Tensor:
         """Every slot's next token from its held logits: argmax when all
         residents decode greedily, else per-slot sampling. Under the
@@ -1159,29 +1263,204 @@ class ServingEngine:
                             topp, greedy, argmax=g)
 
     def _emit_tokens(self, slots, nxt: np.ndarray,
-                     finished: List[RequestOutput]):
+                     finished: List[RequestOutput], accept=None,
+                     drafts: Optional[Dict[int, np.ndarray]] = None):
         """Emit slot s's sampled token nxt[s] for every slot of `slots`
         still in DECODE, and retire the rows that hit EOS or their
-        budget."""
+        budget. With speculation, `accept` [S] and `drafts` (slot -> the
+        drafts its verify row carried): each slot emits its burst, the
+        sampled token then its accepted drafts, token by token, so EOS
+        or max_new_tokens ends the burst where one-at-a-time decoding
+        would; the step gap is spread over the burst's tokens, and the
+        drafted and accepted counts go to the request and
+        `metrics.on_spec`."""
         running = self.scheduler.running
         now = self._clock()
+        drafted = accepted = 0
+        bursts: List[int] = []
         for slot in slots:
             req = running.get(slot)
             if req is None or req.state is not RequestState.DECODE:
                 continue
-            tok = int(nxt[slot])
+            burst = [int(nxt[slot])]
+            m = 0 if drafts is None else len(drafts.get(slot, ()))
+            if m:
+                acc = min(int(accept[slot]), m)
+                burst.extend(int(t) for t in drafts[slot][:acc])
             prev_t = req._last_token_t
-            req._emit(tok, now)
-            self.metrics.on_token(req, now)
             sp = req.sampling
+            emitted, reason = 0, None
+            for tok in burst:
+                req._emit(tok, now)
+                emitted += 1
+                self.metrics.on_token(req, now)
+                if sp.eos_token_id is not None and tok == sp.eos_token_id:
+                    reason = "stop"
+                    break
+                if len(req.output_tokens) >= sp.max_new_tokens:
+                    reason = "length"
+                    break
             if prev_t is not None:
-                self.metrics.on_inter_token(
-                    now - prev_t, priority=sp.priority,
-                    adapter_id=sp.adapter_id, now=now)
-            if sp.eos_token_id is not None and tok == sp.eos_token_id:
-                self._finish_and_free(req, "stop", now, finished)
-            elif len(req.output_tokens) >= sp.max_new_tokens:
-                self._finish_and_free(req, "length", now, finished)
+                dt = (now - prev_t) / emitted
+                for _ in range(emitted):
+                    self.metrics.on_inter_token(
+                        dt, priority=sp.priority, adapter_id=sp.adapter_id,
+                        now=now)
+            if m:
+                drafted += m
+                accepted += emitted - 1
+                req.accepted_draft_tokens += emitted - 1
+            bursts.append(emitted)
+            if reason is not None:
+                self._finish_and_free(req, reason, now, finished)
+        if accept is not None and bursts:
+            self.metrics.on_spec(drafted, accepted, bursts)
+
+    # -- speculative decoding ----------------------------------------------
+    @staticmethod
+    def _history(req: Request) -> np.ndarray:
+        """A request's committed stream: prompt + emitted tokens."""
+        return np.concatenate([req.prompt_ids.astype(np.int64),
+                               np.asarray(req.output_tokens, np.int64)])
+
+    def _propose_drafts(self, running) -> Dict[int, np.ndarray]:
+        """Ask each greedy DECODE slot's drafter for up to
+        min(k, chunk_len - 1, max_new - emitted - 1) drafts over its
+        committed history. The cap keeps every transient K/V write in
+        the request's own pages: the deepest draft lands at position
+        prompt + max_new - 1, the last one admission reserved. The
+        model tier's rows draft together (`_propose_model_rows`).
+        Returns {slot: proposed token ids}."""
+        proposals: Dict[int, np.ndarray] = {}
+        model_rows: Dict[int, tuple] = {}
+        for slot, req in sorted(running.items()):
+            if req.state is not RequestState.DECODE or not req.sampling.greedy:
+                continue
+            drafter = self._drafters.get(req.request_id)
+            if drafter is None:
+                continue
+            budget = req.sampling.max_new_tokens - len(req.output_tokens) - 1
+            cap = min(self.spec.k, self.chunk_len - 1, budget)
+            if cap <= 0:
+                continue
+            if isinstance(drafter, ModelDrafter):
+                model_rows[slot] = (req, cap)
+                continue
+            hist = self._history(req)
+            try:
+                prop = np.asarray(drafter.propose(hist, cap, budget=budget))
+            except TypeError:
+                # a drafter without the optional budget: the engine's cap
+                # still bounds the grant
+                prop = np.asarray(drafter.propose(hist, cap))
+            prop = prop.reshape(-1)
+            if prop.size:
+                proposals[slot] = prop[:cap].astype(np.int64)
+        if model_rows:
+            proposals.update(self._propose_model_rows(model_rows))
+        return proposals
+
+    def _propose_model_rows(self, rows) -> Dict[int, np.ndarray]:
+        """Model-tier drafting, every drafting slot in one batched
+        `propose_batch`. Per slot: clamp the draft position to the
+        committed stream (the rollback of the last step's rejected
+        drafts), take this step's t0 on the host, `np.argmax` over the
+        held f32 logits (the device's greedy pick: K12 equals
+        torch.argmax, and both take the first of equal values), and feed
+        the catch-up `committed[dpos:] + [t0]`. Slots lagging more than
+        a chunk wait for `_draft_seed_step`; a slot whose t0 is EOS
+        finishes this step and does not draft."""
+        d = self._draft
+        proposals: Dict[int, np.ndarray] = {}
+        if d is None:
+            return proposals
+        held = None
+        entries: Dict[int, tuple] = {}
+        for slot, (req, cap) in sorted(rows.items()):
+            if not d.resident(slot) and not d.admit(
+                    slot, int(req.prompt_ids.size),
+                    req.sampling.max_new_tokens):
+                continue            # draft-pool pressure: retry later
+            hist = self._history(req)
+            dpos = d.committed(slot, int(hist.size))
+            if (hist.size - dpos) + 1 > self.chunk_len:
+                continue            # too cold: seeding catches it up
+            if held is None:
+                held = self._last_logits.cpu().numpy()
+            t0 = int(np.argmax(held[slot]))
+            eos = req.sampling.eos_token_id
+            if eos is not None and t0 == eos:
+                continue            # the row finishes this step
+            entries[slot] = (np.concatenate([hist[dpos:], [t0]]), cap)
+        for slot, p in d.propose_batch(entries).items():
+            p = np.asarray(p, np.int64).reshape(-1)[:entries[slot][1]]
+            if p.size:
+                proposals[slot] = p
+        return proposals
+
+    def _draft_seed_step(self, running, decode_slots, grants, draft_grants,
+                         proposals):
+        """Warm lagging slots' draft K/V from the step's spare token
+        budget (what decode, prefill and drafts left:
+        `Scheduler.pack_draft_seed`), every seeding slot in one ragged
+        draft forward. PREFILL rows seed from `prefill_ids` (a resumed
+        request's banked history is its tail), DECODE rows from prompt +
+        emitted. Slots that drafted this step are skipped: their draft
+        position is ahead of the committed stream, not behind it."""
+        d = self._draft
+        spare = (self.token_budget - len(decode_slots)
+                 - sum(grants.values()) - sum(draft_grants.values()))
+        if spare <= 0:
+            return
+        wanted: Dict[int, int] = {}
+        src: Dict[int, np.ndarray] = {}
+        for slot, req in sorted(running.items()):
+            if slot in proposals or not isinstance(
+                    self._drafters.get(req.request_id), ModelDrafter):
+                continue
+            if req.state is RequestState.PREFILL:
+                committed = np.asarray(req.prefill_ids, np.int64)
+            elif req.state is RequestState.DECODE:
+                committed = self._history(req)
+            else:
+                continue
+            if not d.resident(slot) and not d.admit(
+                    slot, int(req.prompt_ids.size),
+                    req.sampling.max_new_tokens):
+                continue            # draft-pool pressure
+            dpos = d.committed(slot, int(committed.size))
+            lag = int(committed.size) - dpos
+            if lag <= 1:
+                continue    # the catch-up of `propose_batch` absorbs it
+            wanted[slot] = lag
+            src[slot] = committed[dpos:]
+        if not wanted:
+            return
+        seeds = self.scheduler.pack_draft_seed(spare, self.chunk_len, wanted)
+        d.seed({slot: src[slot][:take] for slot, take in seeds.items()
+                if take > 0})
+
+    @staticmethod
+    def _head_columns(q_len: np.ndarray, is_decode: np.ndarray
+                      ) -> np.ndarray:
+        """The columns a speculative step's LM head reads, as one int64
+        array [rows (n), cols (n), first (S)]: each decode row's q_len
+        live columns, each prefill row's last; `first[s]` is row s's
+        first entry (0 for a dead row)."""
+        rows: List[int] = []
+        cols: List[int] = []
+        first = np.zeros((q_len.size,), np.int64)
+        for s in np.nonzero(q_len)[0]:
+            n = int(q_len[s])
+            first[s] = len(rows)
+            if is_decode[s]:
+                rows.extend([int(s)] * n)
+                cols.extend(range(n))
+            else:
+                rows.append(int(s))
+                cols.append(n - 1)
+        return np.concatenate([np.asarray(rows, np.int64),
+                               np.asarray(cols, np.int64), first])
 
     @torch.no_grad()
     def _unified_step(self, finished: List[RequestOutput]):
@@ -1194,15 +1473,31 @@ class ServingEngine:
             - self._prefill_cursor[req.request_id]
             for slot, req in running.items()
             if req.state is RequestState.PREFILL}
-        decode_slots, grants = self.scheduler.pack_tokens(
-            self.token_budget, W, remaining)
+        proposals: Dict[int, np.ndarray] = {}
+        draft_grants: Dict[int, int] = {}
+        if self.spec is None:
+            decode_slots, grants = self.scheduler.pack_tokens(
+                self.token_budget, W, remaining)
+        else:
+            proposals = self._propose_drafts(running)
+            decode_slots, grants, draft_grants = self.scheduler.pack_tokens(
+                self.token_budget, W, remaining,
+                draft_wanted={s: int(p.size) for s, p in proposals.items()})
         if not decode_slots and not grants:
             return
+        if self._draft is not None:
+            # the draft cache's warming rides the leftover budget, a draft
+            # forward of its own before the target step
+            self._draft_seed_step(running, decode_slots, grants,
+                                  draft_grants, proposals)
         tokens = np.zeros((self.num_slots, W), np.int64)
         q_len = np.zeros((self.num_slots,), np.int32)
         is_decode = np.zeros((self.num_slots,), bool)
         q_len[decode_slots] = 1
         is_decode[decode_slots] = True
+        for slot, m in draft_grants.items():
+            tokens[slot, 1:1 + m] = proposals[slot][:m]
+            q_len[slot] = 1 + m
         for slot, take in grants.items():
             req = running[slot]
             cur = self._prefill_cursor[req.request_id]
@@ -1222,6 +1517,8 @@ class ServingEngine:
         self.metrics.on_grouped_step(flat, reads, sizes)
         self._sampling_vectors()     # host-to-device rebuilds, untimed
         lora = self._adapter_operands()
+        head = (None if self.spec is None
+                else self._head_columns(q_len, is_decode))
         t0 = time.perf_counter()
         with record_function("serving::unified_step"):
             dev = self.device
@@ -1232,14 +1529,30 @@ class ServingEngine:
             nxt = self._sample_next()
             toks = torch.from_numpy(tokens).to(dev)
             toks[:, 0] = torch.where(isd, nxt, toks[:, 0])
-            self._last_logits = self._forward(
-                toks, torch.from_numpy(self._pos).to(dev),
-                self._page_table(), ql, isd, group, lora)
-            nxt = nxt.cpu().numpy()      # sync: the host sees the tokens
+            pos = torch.from_numpy(self._pos).to(dev)
+            if head is None:
+                self._last_logits = self._forward(
+                    toks, pos, self._page_table(), ql, isd, group, lora)
+                nxt = nxt.cpu().numpy()      # sync: the host sees the tokens
+            else:
+                n = (head.size - self.num_slots) // 2
+                idx = torch.from_numpy(head).to(dev)
+                self._last_logits, accept = self._verify(
+                    toks, pos, self._page_table(), ql, isd,
+                    (idx[:n], idx[n:2 * n], idx[2 * n:]), group, lora)
+                # one sync brings the sampled tokens and the acceptance
+                nxt, accept = torch.stack(
+                    (nxt.to(torch.int64), accept.to(torch.int64))
+                ).cpu().numpy()
         wall = time.perf_counter() - t0
-        self._pos += q_len
+        if head is None:
+            self._pos += q_len
+        else:
+            self._pos += np.where(is_decode, 1 + accept, q_len).astype(
+                np.int32)
         n_prefill = int(sum(grants.values()))
-        self.metrics.on_unified_step(n_prefill, len(decode_slots), wall)
+        self.metrics.on_unified_step(n_prefill, len(decode_slots), wall,
+                                     draft_tokens=sum(draft_grants.values()))
         for slot, take in grants.items():
             req = running[slot]
             cur = self._prefill_cursor[req.request_id] + take
@@ -1250,7 +1563,12 @@ class ServingEngine:
                 # samples its next token next step
                 self._prefill_cursor.pop(req.request_id, None)
                 req.state = RequestState.DECODE
-        self._emit_tokens(decode_slots, nxt, finished)
+        if head is None:
+            self._emit_tokens(decode_slots, nxt, finished)
+        else:
+            self._emit_tokens(decode_slots, nxt, finished, accept,
+                              {s: proposals[s][:m]
+                               for s, m in draft_grants.items()})
 
     # -- the legacy alternating step -----------------------------------------
     def _prefill_forward(self, tokens, pos, page_table, last):
@@ -1371,6 +1689,12 @@ class ServingEngine:
                              pages_swapped=self.pool.swapped_pages,
                              host_pages_used=self.host_pool.used_pages,
                              host_pages_total=self.host_pages,
+                             draft_pages_used=(
+                                 0 if self._draft is None
+                                 else self._draft.pool.used_pages),
+                             draft_pages_total=(
+                                 0 if self._draft is None
+                                 else self._draft.num_pages - 1),
                              prefix_stats=(None if self.prefix_cache is None
                                            else self.prefix_cache.stats()),
                              adapter_stats=(None if self.adapters is None
@@ -1401,9 +1725,7 @@ class ServingEngine:
         for req in resume:
             self.scheduler.requeue(req)
         finished.extend(self.run())
-        self.pool.assert_quiesced()
-        if self.adapters is not None:
-            self.adapters.assert_quiesced()
+        self._assert_quiesced()
         return finished
 
     def abort_all(self, reason: str = "aborted") -> List[RequestOutput]:
@@ -1420,10 +1742,17 @@ class ServingEngine:
         for slot in sorted(self.scheduler.running):
             self._finish_and_free(self.scheduler.running[slot], reason, now,
                                   finished)
+        self._assert_quiesced()
+        return finished
+
+    def _assert_quiesced(self):
+        """Every page pool the engine owns is free or cache-resident:
+        the KV pool, the adapter pool and the draft pool."""
         self.pool.assert_quiesced()
         if self.adapters is not None:
             self.adapters.assert_quiesced()
-        return finished
+        if self._draft is not None:
+            self._draft.assert_quiesced()
 
     # -- debug introspection -------------------------------------------------
     def debug_state(self) -> dict:
@@ -1431,8 +1760,8 @@ class ServingEngine:
         the queue's summary, the pools, the prefix cache's and the
         adapters' stats and the engine's A/B flags. Pure reads of host
         state, never of the device. Features the port has not ported
-        read as the JAX engine reads them with their gates off (no draft
-        pool, obs, SLO tracker, cost census or mesh; mp = dp = 1)."""
+        read as the JAX engine reads them with their gates off (no obs,
+        SLO tracker, cost census or mesh; mp = dp = 1)."""
         sched = self.scheduler
         residents = []
         for slot, req in sorted(sched.running.items()):
@@ -1459,7 +1788,8 @@ class ServingEngine:
                      "bytes_per_page": self.page_bytes},
             "host_pool": {"pages_used": self.host_pool.used_pages,
                           "pages_total": self.host_pages},
-            "draft_pool": None,
+            "draft_pool": (None if self._draft is None
+                           else self._draft.stats()),
             "prefix_cache": (None if self.prefix_cache is None
                              else self.prefix_cache.stats()),
             "adapters": (None if self.adapters is None else {
@@ -1471,8 +1801,9 @@ class ServingEngine:
                        "kv_dtype": self.kv_dtype,
                        "mesh": None, "mp": 1, "dp": 1,
                        "preempt": self.preempt,
-                       "spec": None,
-                       "spec_draft_model": False,
+                       "spec": (None if self.spec is None
+                                else self.spec.mode),
+                       "spec_draft_model": self._draft is not None,
                        "grammar": False,
                        "num_pages": self.num_pages,
                        "page_size": self.page_size,

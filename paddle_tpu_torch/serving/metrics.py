@@ -4,10 +4,11 @@ counters, gauges and histograms the engine records, read three ways.
 - `ServingMetrics.snapshot()`: a plain dict for dashboards and benches
   (queue depth, TTFT, inter-token latency, `tokens_per_sec`, slot
   occupancy, the pool and host-tier gauges, per-priority latency
-  classes), with the JAX engine's keys. Keys of features the port has
-  not ported (speculative decoding, grammar, the KV fabric, the mesh, the
-  SLO tracker, the cost census, the draft pool) carry the values the JAX
-  engine gives with those gates off.
+  classes, speculative decoding's drafted and accepted tokens and the
+  draft pool), with the JAX engine's keys. Keys of features the port has
+  not ported (grammar, the KV fabric, the mesh, the SLO tracker, the
+  cost census) carry the values the JAX engine gives with those gates
+  off.
 - `prometheus_render(...)`: the same snapshots as Prometheus text
   exposition, fixed-bucket `_bucket` series for TTFT and inter-token
   latency included; `engine_info` carries the A/B tags (`kv_dtype`,
@@ -138,21 +139,15 @@ class Histogram:
 def _unported_off() -> dict:
     """The snapshot keys of features the port has not ported (ROADMAP.md,
     queue 1, item 6) at the values the JAX engine gives with those gates
-    off: speculative decoding and its draft-model tier, grammar-
-    constrained decoding, the KV fabric, the tensor-parallel mesh, the
-    compiled-step cost census, the SLO tracker and the JAX engine's
-    traced dispatch count. A new dict each call, so no snapshot shares
-    its subtrees with another."""
+    off: grammar-constrained decoding, the KV fabric, the tensor-parallel
+    mesh, the compiled-step cost census, the SLO tracker and the JAX
+    engine's traced dispatch count. A new dict each call, so no snapshot
+    shares its subtrees with another."""
     return {
         "mesh": None, "mp": 1, "dp": 1,
-        "packed_draft_tokens": 0,
-        "spec": None, "spec_drafted_tokens": 0, "spec_accepted_tokens": 0,
-        "spec_tokens_per_step":
-            Histogram(buckets=SPEC_TOKEN_BUCKETS).snapshot(),
         "grammar_requests": 0, "grammar_masked_steps": 0,
         "grammar_masked_rows": 0, "grammar_rejected_drafts": 0,
         "unified_dispatch_ops": None,
-        "spec_draft_model": False, "draft_pool": None,
         "fabric": {"pages_sent": 0, "bytes_sent": 0, "pages_recv": 0,
                    "bytes_recv": 0, "restored_pages": 0},
         "cost_census": None, "slo": None,
@@ -242,6 +237,19 @@ class ServingMetrics:
         self.unified_steps = 0
         self.packed_prefill_tokens = 0
         self.packed_decode_tokens = 0
+        self.packed_draft_tokens = 0
+        # speculative decoding: the drafter mode tag (None = off), every
+        # draft packed into a verify row, and the subset the model
+        # confirmed and the engine committed (acceptance = accepted /
+        # drafted)
+        self.spec: Optional[str] = None
+        self.spec_drafted_tokens = 0
+        self.spec_accepted_tokens = 0
+        # the draft-model tier: whether a draft model is resident (the
+        # `spec_draft_model` tag) and its page pool's gauges
+        self.spec_draft_model = False
+        self.draft_pool_pages_used = 0
+        self.draft_pool_pages_total = 0
         # prefix-sharing grouped walk (the fifth A/B tag): whether the
         # engine runs it, the modeled page-block reads the step's walk
         # issues (CPU-reference count, one (layer, kv-head) sweep per
@@ -275,6 +283,9 @@ class ServingMetrics:
         # draft together — the "how full is the budget" histogram)
         self.packed_tokens_hist = Histogram(
             buckets=PACKED_TOKEN_BUCKETS)
+        # tokens one decode row emitted in one step with speculation on
+        # (1 + its accepted drafts)
+        self.spec_tokens_per_step = Histogram(buckets=SPEC_TOKEN_BUCKETS)
         # members per sharing group per unified step (only groups that
         # actually deduplicated >= 1 shared page read)
         self.group_size_hist = Histogram(buckets=GROUP_SIZE_BUCKETS)
@@ -486,16 +497,19 @@ class ServingMetrics:
                 self.swap_in_s.record(wall_s)
 
     def on_unified_step(self, prefill_tokens: int, decode_tokens: int,
-                        wall_s: float):
+                        wall_s: float, draft_tokens: int = 0):
         """One unified ragged step ran, packing `prefill_tokens` prompt
-        tokens next to `decode_tokens` sampled tokens. The wall time
-        lands in the same decode_step_s histogram the alternating path
-        records, so the on/off A/B compares like for like."""
+        tokens and `draft_tokens` speculative drafts next to
+        `decode_tokens` sampled tokens. The wall time lands in the same
+        decode_step_s histogram the alternating path records, so the
+        on/off A/B compares like for like."""
         with self._lock:
             self.unified_steps += 1
             self.packed_prefill_tokens += int(prefill_tokens)
             self.packed_decode_tokens += int(decode_tokens)
-            packed = int(prefill_tokens) + int(decode_tokens)
+            self.packed_draft_tokens += int(draft_tokens)
+            packed = (int(prefill_tokens) + int(decode_tokens)
+                      + int(draft_tokens))
             self.packed_tokens_hist.record(packed)
             if self.step_capacity_tokens:
                 util = packed / self.step_capacity_tokens
@@ -518,6 +532,18 @@ class ServingMetrics:
             for n in group_sizes:
                 self.group_size_hist.record(int(n))
 
+    def on_spec(self, drafted: int, accepted: int,
+                burst_sizes: Sequence[int]):
+        """One unified step's speculative outcome: `drafted` draft
+        tokens rode verify rows, `accepted` of them were confirmed and
+        committed, and each decode row emitted `burst_sizes[i]` tokens
+        (1 + its accepted drafts, cut by EOS or the budget)."""
+        with self._lock:
+            self.spec_drafted_tokens += int(drafted)
+            self.spec_accepted_tokens += int(accepted)
+            for n in burst_sizes:
+                self.spec_tokens_per_step.record(int(n))
+
     def on_prefill_chunk(self, n_tokens: int,
                          wall_s: Optional[float] = None):
         """A prefill chunk of `n_tokens` prompt tokens ran: a legacy
@@ -535,6 +561,8 @@ class ServingMetrics:
                 stall_chunks: int = 0, pages_cached: int = 0,
                 pages_swapped: int = 0, host_pages_used: int = 0,
                 host_pages_total: int = 0,
+                draft_pages_used: int = 0,
+                draft_pages_total: int = 0,
                 prefix_stats: Optional[dict] = None,
                 adapter_stats: Optional[dict] = None):
         with self._lock:
@@ -552,6 +580,9 @@ class ServingMetrics:
             self.pool_pages_swapped = pages_swapped
             self.host_pages_used = host_pages_used
             self.host_pages_total = host_pages_total
+            self.draft_pool_pages_used = draft_pages_used
+            if draft_pages_total:
+                self.draft_pool_pages_total = draft_pages_total
             if prefix_stats is not None:
                 self.prefix = dict(prefix_stats)
             self.prefill_stall = stall_chunks
@@ -614,7 +645,12 @@ class ServingMetrics:
             "unified_steps": self.unified_steps,
             "packed_prefill_tokens": self.packed_prefill_tokens,
             "packed_decode_tokens": self.packed_decode_tokens,
+            "packed_draft_tokens": self.packed_draft_tokens,
             "packed_tokens_per_step": self.packed_tokens_hist.snapshot(),
+            "spec": self.spec,
+            "spec_drafted_tokens": self.spec_drafted_tokens,
+            "spec_accepted_tokens": self.spec_accepted_tokens,
+            "spec_tokens_per_step": self.spec_tokens_per_step.snapshot(),
             "grammar": self.grammar,
             "grouped": self.grouped,
             "page_block_reads_total": self.page_block_reads,
@@ -645,6 +681,11 @@ class ServingMetrics:
                 "bytes_total": (self.host_pages_total
                                 * self.pool_bytes_per_page),
             },
+            "spec_draft_model": self.spec_draft_model,
+            "draft_pool": (None if not self.spec_draft_model else {
+                "pages_used": self.draft_pool_pages_used,
+                "pages_total": self.draft_pool_pages_total,
+            }),
             "prefix": (None if self.prefix is None else {
                 **self.prefix,
                 "cached_tokens_per_request":

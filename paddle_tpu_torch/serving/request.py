@@ -110,6 +110,9 @@ class Request:
         # prompt tokens served from cached prefix pages (0 on a miss)
         self.cached_tokens: int = 0
         self._prefix_grant = None
+        # emitted tokens that arrived as verified speculative drafts (0
+        # with speculation off)
+        self.accepted_draft_tokens: int = 0
         # times this request was preempted (banked, swapped, resumed)
         self.preemptions: int = 0
         # the adapter claim (engine-owned): the (pool page, LoRA scale)
@@ -179,6 +182,7 @@ class Request:
             token_ids=list(self.output_tokens),
             finish_reason=self.finish_reason,
             cached_tokens=self.cached_tokens,
+            accepted_draft_tokens=self.accepted_draft_tokens,
             preemptions=self.preemptions,
             ttft_s=(None if self.first_token_t is None
                     else self.first_token_t - self.arrival_t),
@@ -202,6 +206,8 @@ class RequestOutput:
     token_ids: List[int]
     finish_reason: Optional[str]
     cached_tokens: int = 0
+    # emitted tokens that arrived as verified speculative drafts
+    accepted_draft_tokens: int = 0
     # times the request was preempted under overload and resumed
     preemptions: int = 0
     ttft_s: Optional[float] = None

@@ -12,9 +12,10 @@ fit nothing behind it is admitted either (head-of-line backpressure). A
 blocked head may then PREEMPT the least important resident of a
 strictly lower class (`preemption_victim`); the engine banks it, swaps
 its KV to the host tier and `requeue`s it by its original key, past
-max_queue. Draft packing is not ported yet (ROADMAP.md, queue 1, item
-6). `queue_summary()` is the queue's view for the engine's
-`debug_state()`.
+max_queue. `pack_tokens` packs a unified step's decode, prefill and
+speculative draft tokens under the token budget, and `pack_draft_seed`
+the draft model's warming from what is left. `queue_summary()` is the
+queue's view for the engine's `debug_state()`.
 """
 from __future__ import annotations
 
@@ -153,15 +154,21 @@ class Scheduler:
         return None if victim is None else (victim[0], victim[1])
 
     def pack_tokens(self, budget: int, width: int,
-                    prefill_remaining: Dict[int, int]
-                    ) -> Tuple[List[int], Dict[int, int]]:
+                    prefill_remaining: Dict[int, int],
+                    draft_wanted: Optional[Dict[int, int]] = None):
         """Unified-step token packing: every DECODE slot gets its one
         token (a resident decoder is never stalled by prefill), then
         mid-PREFILL slots split the spare budget in slot order, each at
-        most `width` prompt tokens. `prefill_remaining` maps mid-prefill
-        slots to their unprefilled prompt token counts. Returns
-        (decode_slots, {slot: prefill tokens}); a prefill slot with no
-        grant idles this step at q_len 0."""
+        most `width` prompt tokens, and last the speculative drafts
+        (`draft_wanted` maps decode slots to proposed draft counts) take
+        what is left, at most `width - 1` a slot so that the verify row's
+        `1 + drafts` fits the step; slots that do not decode are ignored.
+        Prefill outranks drafts: a prompt token is sure work, a draft a
+        bet. `prefill_remaining` maps mid-prefill slots to their
+        unprefilled prompt token counts. Returns (decode_slots,
+        {slot: prefill tokens}), and with `draft_wanted` given also
+        {slot: draft tokens}; a prefill slot with no grant idles this
+        step at q_len 0."""
         decode_slots = [s for s, r in sorted(self.running.items())
                         if r.state is RequestState.DECODE]
         spare = max(0, budget - len(decode_slots))
@@ -173,7 +180,39 @@ class Scheduler:
             if take > 0:
                 grants[slot] = take
                 spare -= take
-        return decode_slots, grants
+        if draft_wanted is None:
+            return decode_slots, grants
+        draft_grants: Dict[int, int] = {}
+        decode = set(decode_slots)
+        for slot in sorted(draft_wanted):
+            if spare <= 0:
+                break
+            if slot not in decode:
+                continue
+            take = min(draft_wanted[slot], width - 1, spare)
+            if take > 0:
+                draft_grants[slot] = take
+                spare -= take
+        return decode_slots, grants, draft_grants
+
+    def pack_draft_seed(self, spare: int, width: int,
+                        seed_wanted: Dict[int, int]) -> Dict[int, int]:
+        """Draft-cache warming grants (the draft-model tier's chunked
+        draft prefill): split what `pack_tokens` left over, after decode,
+        prefill and drafts, across lagging draft slots in slot order, at
+        most `width` tokens each. Spare budget only: warming never
+        displaces sure work. `seed_wanted` maps slots to their committed
+        token lag. Returns {slot: seed tokens granted}."""
+        grants: Dict[int, int] = {}
+        spare = int(spare)
+        for slot in sorted(seed_wanted):
+            if spare <= 0:
+                break
+            take = min(int(seed_wanted[slot]), int(width), spare)
+            if take > 0:
+                grants[slot] = take
+                spare -= take
+        return grants
 
     def retire(self, slot: int) -> Optional[Request]:
         req = self.running.pop(slot, None)

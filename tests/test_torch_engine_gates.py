@@ -2,11 +2,12 @@
 resolves them.
 
 `ServingEngine` reads the JAX engine's gates at construction: the
-ported ones (prefix cache, megakernel, adapters) resolve for real —
-`prefix_cache="off"` or PADDLE_TPU_PREFIX_CACHE=off builds no cache —
-and the gates of features not ported yet (mesh, spec decode, grammar,
-obs, SLO, cost census) raise NotImplementedError naming ROADMAP.md when
-a keyword or an environment variable turns one on. A spelling the JAX
+ported ones (prefix cache, megakernel, adapters, speculative decoding)
+resolve for real — `prefix_cache="off"` or PADDLE_TPU_PREFIX_CACHE=off
+builds no cache, `spec="ngram"` or PADDLE_TPU_SPEC_DECODE=ngram a spec
+engine — and the gates of features not ported yet (mesh, grammar, obs,
+SLO, cost census) raise NotImplementedError naming ROADMAP.md when a
+keyword or an environment variable turns one on. A spelling the JAX
 resolver refuses raises ValueError here too. `chunk_len` below
 `MIN_CHUNK` (8) raises on both steps, as in the JAX engine.
 """
@@ -24,7 +25,8 @@ from paddle_tpu.serving import spec as jspec
 from paddle_tpu.serving import tp as jtp
 from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
-from paddle_tpu_torch.serving import (ServingEngine, resolve_adapters_flag,
+from paddle_tpu_torch.serving import (ServingEngine, SpecConfig,
+                                      resolve_adapters_flag,
                                       resolve_prefix_cache_flag)
 
 SMALL = dict(vocab_size=64, hidden_size=32, num_hidden_layers=1,
@@ -50,16 +52,28 @@ def model():
 
 
 def test_roadmap_input_raises(clean_env, model):
-    """ROADMAP queue 3's F1 input: spec decode on by its env var raises
-    (the JAX engine turns it on); the megakernel and no prefix cache are
-    what the JAX engine builds."""
+    """ROADMAP queue 3's F1 input: spec decode on by its env var builds
+    the spec engine the JAX engine builds, with the megakernel and no
+    prefix cache; the gates still unported (mesh, grammar, obs, SLO,
+    cost census) raise beside it."""
     clean_env.setenv("PADDLE_TPU_SPEC_DECODE", "ngram")
     clean_env.setenv("PADDLE_TPU_MEGAKERNEL", "on")
     clean_env.setenv("PADDLE_TPU_PREFIX_CACHE", "off")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(model, **ENGINE)
+    eng = ServingEngine(model, **ENGINE)
+    assert eng.spec.mode == "ngram" and eng.spec.k == 4
+    assert eng.megakernel and eng.prefix_cache is None
+    assert eng.metrics.snapshot()["spec"] == "ngram"
+    for env, value in (("PADDLE_TPU_MESH", "dp1mp2"),
+                       ("PADDLE_TPU_GRAMMAR", "on"),
+                       ("PADDLE_TPU_OBS", "on"), ("PADDLE_TPU_SLO", "on"),
+                       ("PADDLE_TPU_COST_CENSUS", "model")):
+        clean_env.setenv(env, value)
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ServingEngine(model, **ENGINE)
+        clean_env.delenv(env)
     clean_env.delenv("PADDLE_TPU_SPEC_DECODE")
     eng = ServingEngine(model, **ENGINE)
+    assert eng.spec is None
     assert eng.megakernel and eng.prefix_cache is None
 
 
@@ -83,7 +97,8 @@ def test_prefix_cache_env(clean_env, model, env, want):
 
 
 # gate env var -> (spellings that turn it on, spellings it accepts as off,
-# spellings its JAX resolver refuses, the JAX resolver)
+# spellings its JAX resolver refuses, the JAX resolver). Speculative
+# decoding is ported: its "on" spellings build a spec engine
 UNPORTED = {
     "PADDLE_TPU_MESH": (["dp1mp2", "dp2xmp1"], ["off", ""], ["tp4", "dp0mp2"],
                         lambda: jtp.resolve_serving_mesh()),
@@ -107,11 +122,16 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
     on, off, bad, jax_resolve = UNPORTED[env]
     for v in on:
         clean_env.setenv(env, v)
+        if env == "PADDLE_TPU_SPEC_DECODE":
+            want = jax_resolve()
+            eng = ServingEngine(model, **ENGINE)
+            assert (eng.spec.mode, eng.spec.k) == (want.mode, want.k)
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(model, **ENGINE)
     for v in off:
         clean_env.setenv(env, v)
-        ServingEngine(model, **ENGINE)
+        assert getattr(ServingEngine(model, **ENGINE), "spec", None) is None
     for v in bad:
         clean_env.setenv(env, v)
         with pytest.raises(ValueError):
@@ -121,12 +141,33 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
 
 
 @pytest.mark.parametrize("option,value", [
-    ("mesh", "dp1mp2"), ("mesh", (1, 2)), ("spec", "ngram"), ("spec", True),
-    ("grammar", True), ("grammar", "on"), ("obs", True), ("slo", True),
-    ("slo", "on"), ("cost_census", "model")])
+    ("mesh", "dp1mp2"), ("mesh", (1, 2)), ("grammar", True),
+    ("grammar", "on"), ("obs", True), ("slo", True), ("slo", "on"),
+    ("cost_census", "model")])
 def test_unported_keywords_raise(clean_env, model, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         ServingEngine(model, **{option: value}, **ENGINE)
+
+
+@pytest.mark.parametrize("value,mode,k", [
+    ("ngram", "ngram", 4), (True, "ngram", 4), ("ngram:2", "ngram", 2),
+    ("model", "model", 4), ("model:3", "model", 3),
+    (SpecConfig(k=5), "ngram", 5)])
+def test_spec_keyword_builds_a_spec_engine(clean_env, model, value, mode,
+                                           k):
+    """spec= builds the engine the JAX resolver describes and serves; the
+    model tier makes the half-depth draft model resident."""
+    eng = ServingEngine(model, spec=value, **ENGINE)
+    assert (eng.spec.mode, eng.spec.k) == (mode, k)
+    assert eng.metrics.spec == mode
+    assert (eng._draft is not None) is (mode == "model")
+    assert eng.debug_state()["config"]["spec_draft_model"] is (mode ==
+                                                                "model")
+    out = eng.generate([np.arange(1, 12)])
+    assert len(out[0].token_ids) == 16
+    eng.drain()
+    with pytest.raises(ValueError, match="unified ragged step"):
+        ServingEngine(model, spec=value, unified=False, **ENGINE)
 
 
 @pytest.mark.parametrize("option,value", [

@@ -137,7 +137,8 @@ def test_training_defaults_to_cuda_and_raises_without_it(no_cuda):
 _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
            ("kv_dtype", "fp8"): (tpa.FP8_DTYPE, None),
            ("unified", False): (torch.float32, None),
-           ("megakernel", True): (torch.float32, None)}
+           ("megakernel", True): (torch.float32, None),
+           ("spec", "ngram"): (torch.float32, None)}
 
 
 @pytest.mark.parametrize("option,value", [
@@ -146,13 +147,15 @@ _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
 def test_unported_engine_options_raise(option, value):
     """An option not ported yet raises at construction, naming its
     ROADMAP item; a ported one (int8 and fp8 KV, the legacy step, the
-    megakernel) builds its pools."""
+    megakernel, speculative decoding) builds its pools."""
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
     if (option, value) in _PORTED:
         pool_dtype, scale_dtype = _PORTED[option, value]
         eng = ServingEngine(model, device="cpu", max_len=16, page_size=4,
                             chunk_len=8, **{option: value})
-        assert getattr(eng, option) == value and len(eng._pools) == 1
+        got = getattr(eng, option)
+        assert (got.mode if option == "spec" else got) == value
+        assert len(eng._pools) == 1
         for k, v, ks, vs in eng._pools:
             assert k.dtype == v.dtype == pool_dtype
             assert k.shape == (eng.num_pages, eng.page_size, eng.n_kv,
