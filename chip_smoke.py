@@ -205,9 +205,9 @@ Phases, each reported on its own line; any failure exits non-zero:
    each a step, in their wide lanes; K3-K5 once), then the held step on
    [1, 1024] in f32, kernel path against plain path;
 8. Llama-7B (`LlamaConfig()`'s defaults, bf16, random weights from the
-   seed, 32 layers of 32 heads of 128; its arms and its `generate()`
-   run on a weight copy of its first 8 layers, a cut for time, and
-   phase 10 serves all 32) serves phase 3's traffic in six
+   seed, 32 layers of 32 heads of 128; its arms, its `generate()` and
+   phases 10 and 11 run on a weight copy of its first 8 layers, a cut
+   for time) serves phase 3's traffic in six
    arms: the defaults, grouped=False, int8 pools, the legacy step, the
    megakernel on, and the LORA adapters with the megakernel on. The
    defaults, int8, legacy (a decode step) and adapter arms each record
@@ -250,10 +250,12 @@ Phases, each reported on its own line; any failure exits non-zero:
    tokens/s, MFU and the device's busy share of the profiled step;
 10. speculative serving (`ServingEngine(spec=...)`), `ngram:4` and
    `model:4` (the draft model at half the target's depth): GPT-124M at
-   full width and depth on phase 3's traffic and on a templated one (16
+   full width, a weight copy of its first 6 layers (a cut for time), on
+   phase 3's traffic and on a templated one (16
    requests, a 2-token head and a 24-token block repeated 4 times, 64
    new tokens) in the defaults, int8, megakernel and adapter arms, and
-   Llama-7B on phase 8's weights (run inside phase 8) at the defaults.
+   Llama-7B on phase 8's 8-layer copy (run inside phase 8) at the
+   defaults.
    Each spec run against the spec-off run of its arm and traffic: a
    token may differ only where the spec-off run's top-two logit margin
    lies within 0.1 (GPT-124M) or 0.5 (Llama-7B), each such token
@@ -264,6 +266,31 @@ Phases, each reported on its own line; any failure exits non-zero:
    traffic; the page pool and the draft pool quiesced after `drain()`.
    Prints tokens/s, step p50/p90, acceptance, tokens a decode row a
    step and the device's busy share of each spec arm.
+11. the serving engine's host layers (obs, the SLO tracker and the cost
+   census, on by default as in the JAX engine) and its fault paths, on
+   GPT-124M (and Llama-7B's 8-layer copy inside phase 8). Obs on
+   against off: phase 3's traffic in the defaults and megakernel arms,
+   three alternating runs a side — tokens and every kernel's launches
+   equal in all six, the device-to-host copies in 3 traced decode steps
+   equal, the flight ring's records equal to the metrics snapshot
+   (packed tokens, queue depth, residents); step p50 and tokens/s the
+   median of a side. Poison quarantine in the defaults, legacy and
+   `spec="ngram:4"` arms (and Llama-7B's defaults): 8 requests of phase
+   3's traffic, one poisoned at admission and, in two more runs, after 5
+   steps (mid-prefill) and after its fifth token — it ends "poisoned" with `PoisonedRequest` and a timeline
+   ending in "poison", the innocents' tokens equal a run without it
+   (at most two near ties an arm, phase 10's rule), launches = the
+   arm's launches a step x the rounds that launched (probe rounds
+   printed), one "poison_quarantine" incident holding the steps before
+   it, the pool quiesced after `drain()`; a hook raising every round
+   propagates and poisons nobody. The census: "model" and "lowered"
+   (one counted forward of the step), each source the mode asked for,
+   the "lowered" record equal to the same geometry counted on the CPU;
+   FLOPs, bytes and their ratio to "model" printed. The driver
+   (`serving.http.EngineDriver`): 8 streamed requests with a direct
+   run's tokens, `kill_at_step(20)` retiring the residents as
+   "replica_failure" with a "replica_death" incident and `ReplicaDead`
+   after, `fail_add_request(3)` refusing the third admission only.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -283,7 +310,9 @@ _int8] and llama3_gqa_serving[_ungrouped|_megakernel], and phase 9's
 llama_training[_no_recompute|_accumulate] and llama3_gqa_training (a
 step's launches each), and phase 10's spec_{phase3|templated}_{defaults|
 int8|megakernel|adapters}_{ngram|model} and llama_spec_defaults_{ngram|
-model}. The last line
+model}, and phase 11's obs_{defaults|megakernel} (the layers on),
+quarantine[_legacy|_spec_ngram] and llama_quarantine (a run poisoned
+after 5 steps, probe rounds included). The last line
 is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
@@ -294,6 +323,7 @@ import gc
 import json
 import math
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -400,10 +430,11 @@ LLAMA_FLASH_CASES = ("legacy prefill Lq 8", "legacy prefill Lq 16",
                      "generate decode")
 # phase 8: Llama-7B, the `LlamaConfig()` defaults (BASELINE.md config
 # #5: vocab 32000, hidden 4096, 32 layers of 32 heads, intermediate
-# 11008), built at full depth, which phase 10's speculative arms serve;
-# its six serving arms and `generate()` run on a weight copy of its
-# first LLAMA7B_ARM_LAYERS layers (cut so that the script, phase 10
-# included, keeps well inside its time); and a GQA arm at
+# 11008), built at full depth; its six serving arms, `generate()`,
+# phase 10's speculative arms and phase 11's quarantine arm run on a
+# weight copy of its first LLAMA7B_ARM_LAYERS layers (cut so that the
+# script keeps inside its time: phase 10's arms at 32 layers took 97 s);
+# and a GQA arm at
 # Meta-Llama-3-8B's published widths (its config.json: vocab 128256, 32
 # heads over 8 kv heads, intermediate 14336, 8192 positions, eps 1e-5,
 # theta 500000), cut to 4 of its 32 layers
@@ -3295,9 +3326,9 @@ def same_share(got, want) -> float:
 
 
 def llama_phase(dev, tln, tpa) -> tuple:
-    """Phase 8: Llama-7B (bf16, random weights from SEED; the arms and
-    `generate()` on its first LLAMA7B_ARM_LAYERS layers, phase 10's
-    Llama-7B part on all 32) serves phase 3's traffic in six arms (the
+    """Phase 8: Llama-7B (bf16, random weights from SEED; the arms,
+    `generate()` and phases 10's and 11's Llama-7B parts on its first
+    LLAMA7B_ARM_LAYERS layers) serves phase 3's traffic in six arms (the
     defaults, grouped=False, int8 pools, the legacy step, the megakernel
     on, LORA adapters with the megakernel on;
     the defaults, int8, legacy and adapter arms each with a recorded
@@ -3329,10 +3360,13 @@ def llama_phase(dev, tln, tpa) -> tuple:
     model = make_draft_model(full, LLAMA7B_ARM_LAYERS)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in full.parameters())
+    del full
+    torch.cuda.empty_cache()
     log(f"  Llama-7B: {n_params} parameters, built in "
-        f"{time.perf_counter() - t0:.2f} s; the arms and generate() run on "
-        f"its first {LLAMA7B_ARM_LAYERS} layers "
-        f"({sum(p.numel() for p in model.parameters())} parameters)")
+        f"{time.perf_counter() - t0:.2f} s; the arms, generate(), phase "
+        f"10's and phase 11's arms run on its first {LLAMA7B_ARM_LAYERS} "
+        f"layers ({sum(p.numel() for p in model.parameters())} "
+        "parameters)")
     arms(model, f"llama-7b, {LLAMA7B_ARM_LAYERS} layers", (
         ("llama_serving", dict(record=True)),
         ("llama_serving_ungrouped", dict(grouped=False)),
@@ -3359,15 +3393,21 @@ def llama_phase(dev, tln, tpa) -> tuple:
     gen_paths, stats["generate"] = generate_phase(
         dev, tln, tpa, model, label="llama_", sampling=False)
     by_path.update(gen_paths)
-    del model
-    torch.cuda.empty_cache()
+    log("phase 11 quarantine, its Llama-7B part (the defaults arm on "
+        f"phase 8's {LLAMA7B_ARM_LAYERS}-layer copy):")
+    t_q = time.perf_counter()
+    by_path["llama_quarantine"], stats["quarantine"] = quarantine_arm(
+        dev, tln, tpa, model, "llama_quarantine", {},
+        LLAMA_HELD_LOGITS_TOL)
+    stats["quarantine"]["seconds"] = time.perf_counter() - t_q
+    log(f"  phase 11, Llama-7B part: {stats['quarantine']['seconds']:.1f} s")
     log("phase 10 speculative serving, its Llama-7B part (phase 8's "
-        "weights, all 32 layers):")
+        f"{LLAMA7B_ARM_LAYERS}-layer copy):")
     t_spec = time.perf_counter()
-    spec_paths, stats["spec"] = spec_phase_llama(dev, tln, tpa, full)
+    spec_paths, stats["spec"] = spec_phase_llama(dev, tln, tpa, model)
     by_path.update(spec_paths)
     log(f"  phase 10, Llama-7B part: {time.perf_counter() - t_spec:.1f} s")
-    del full
+    del model
     torch.cuda.empty_cache()
 
     model = LlamaForCausalLM(LlamaConfig(**LLAMA3_GQA), device=dev,
@@ -3394,6 +3434,9 @@ def llama_phase(dev, tln, tpa) -> tuple:
 # repeated 4 times (tests/test_serving_spec.py's `templated_prompt` at the
 # step's width), 64 new tokens, greedy
 SPEC_TEMPLATED = dict(requests=16, head=2, block=24, reps=4)
+# phase 10's GPT-124M runs a weight copy of its first SPEC_GPT_LAYERS
+# layers, a cut for time (at 12 layers the part took 52-145 s)
+SPEC_GPT_LAYERS = 6
 SPEC_TIERS = ("ngram:4", "model:4")
 # each spec arm's profiled run: the traffic's four shortest prompts,
 # SPEC_PROFILE_NEW tokens each, traced over SPEC_PROFILE_STEPS steps once
@@ -3618,8 +3661,8 @@ def spec_identity(tag, on, off, tol) -> dict:
 
 
 def spec_phase_gpt(dev, tln, tpa, model) -> tuple:
-    """Phase 10, GPT-124M: `ngram:4` and `model:4` (the half-depth draft
-    model) on phase 3's traffic and on the templated traffic, each in
+    """Phase 10, GPT-124M's first SPEC_GPT_LAYERS layers: `ngram:4` and
+    `model:4` (the half-depth draft model) on phase 3's traffic and on the templated traffic, each in
     the defaults, int8, megakernel and adapter arms, each against the
     spec-off run of the same arm and traffic (`spec_identity`, tolerance
     HELD_LOGITS_TOL). Acceptance must be above 0 on the templated
@@ -3651,8 +3694,8 @@ def spec_phase_gpt(dev, tln, tpa, model) -> tuple:
 
 
 def spec_phase_llama(dev, tln, tpa, model) -> tuple:
-    """Phase 10, Llama-7B on phase 8's weights: `ngram:4` and `model:4`
-    (the draft model at its default half depth, 16 layers) on phase 3's
+    """Phase 10, Llama-7B on phase 8's 8-layer copy: `ngram:4` and
+    `model:4` (the draft model at its default half depth) on phase 3's
     traffic at the defaults, against the spec-off run (`spec_identity`,
     tolerance LLAMA_HELD_LOGITS_TOL)."""
     by_path, stats = {}, {}
@@ -3670,6 +3713,606 @@ def spec_phase_llama(dev, tln, tpa, model) -> tuple:
             on["stats"]["tokens_per_s"] / off["stats"]["tokens_per_s"])
         stats[key] = on["stats"]
         by_path[f"llama_spec_{key}"] = on["launches"]
+    return by_path, stats
+
+
+# -- phase 11: observability, quarantine, the census and the driver ---------
+# obs on against off: OBS_RUNS alternating runs a side of phase 3's
+# traffic, then OBS_TRACED_STEPS decode steps traced for the device-to-host
+# copies, after one warm-up step and a pause of OBS_TRACE_GAP_S seconds
+OBS_RUNS, OBS_TRACED_STEPS = 3, 3
+OBS_TRACE_GAP_S = 0.05
+LAYERS_OFF = dict(obs=False, slo=False, cost_census=False)
+# the quarantine arms: the first QUARANTINE["requests"] prompts of phase 3's
+# traffic, QUARANTINE["new"] greedy tokens each; request `victim` poisoned at
+# admission, after `after` steps (mid-prefill: a prompt of phase 3's
+# traffic takes 9-22 steps at 32 tokens a step), and once it has streamed
+# `tokens` tokens; at most QUARANTINE_NEAR_TIES near ties an arm
+# (`spec_identity`'s rule)
+QUARANTINE = dict(requests=8, new=24, victim=3, after=5, tokens=5)
+QUARANTINE_NEAR_TIES = 2
+QUARANTINE_ARMS = (("quarantine", {}),
+                   ("quarantine_legacy", dict(unified=False)),
+                   ("quarantine_spec_ngram", dict(spec="ngram:4")))
+# the driver: 8 streamed requests, then a kill at step 20 and a failed
+# third admission
+DRIVER = dict(requests=8, new=32, kill_step=20, join_s=120.0)
+
+
+def obs_run(dev, tln, tpa, model, on: bool, opts: dict) -> dict:
+    """One run of phase 3's traffic (64 greedy tokens each) on a fresh
+    engine with obs, the SLO tracker and the "model" census at their
+    defaults (`on`) or all three off, launches counted from 0 and held to
+    phase 3's per-step launches. With the layers on, the flight ring's
+    records must agree with the metrics snapshot: the packed tokens of
+    every step, and the last step's queue depth and residents."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    eng = ServingEngine(model, device=dev, seed=SEED, **ENGINE, **opts,
+                        **({} if on else LAYERS_OFF))
+    layers = (eng.obs is not None, eng.slo is not None, eng.census_mode)
+    if layers != ((True, True, "model") if on else (False, False, "off")):
+        raise AssertionError(f"obs={on}: the engine built {layers}")
+    prompts = make_traffic(model.config.vocab_size)
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
+            for p in prompts]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts_serving(tln, tpa, tfa)
+    snap = eng.metrics.snapshot()
+    steps = snap["unified_steps"]
+    per_step = per_step_launches(tpa, eng.grouped, eng.kv_dtype,
+                                 eng.attn_impl, eng.megakernel)
+    if launches != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"obs={on} {opts}: launches {launches}, "
+                             f"{steps} steps of {per_step}")
+    if any(r.finish_reason != "length" or len(r.output_tokens) != NEW_TOKENS
+           for r in reqs):
+        raise AssertionError(f"obs={on} {opts}: a request did not finish")
+    out = dict(tokens=[list(r.output_tokens) for r in reqs],
+               launches=launches, steps=steps, wall_s=wall,
+               tokens_per_s=snap["tokens_per_sec"],
+               step_ms_p50=snap["step_s"]["p50"] * 1e3)
+    if on:
+        flight = eng.obs.flight.snapshot()
+        recs = [r for r in flight["steps"] if "note" not in r]
+        packed = sum(r["prefill_tokens"] + r["decode_tokens"]
+                     + r["draft_tokens"] for r in recs)
+        want = (snap["packed_prefill_tokens"] + snap["packed_decode_tokens"]
+                + snap["packed_draft_tokens"])
+        last = recs[-1]
+        residents = round(snap["slot_occupancy"] * snap["num_slots"])
+        got = (len(recs), packed, last["queue_depth"], last["residents"])
+        if got != (flight["steps_recorded"], want, snap["queue_depth"],
+                   residents):
+            raise AssertionError(f"flight ring {got} against the snapshot "
+                                 f"{(flight['steps_recorded'], want)}, "
+                                 f"queue {snap['queue_depth']}, residents "
+                                 f"{residents}")
+        census = eng.cost_census()
+        if census["source"] != "model" or eng._census_captures != 1:
+            raise AssertionError(f"census {census}")
+        out.update(flight_steps=len(recs), packed_tokens=packed,
+                   slo_worst=snap["slo"]["worst"],
+                   tracer=eng.obs.tracer.stats())
+    eng.pool.assert_quiesced()
+    return out
+
+
+def device_copies(dev, model, opts: dict, on: bool) -> dict:
+    """The copies and kernels the device ran in OBS_TRACED_STEPS traced
+    steps once every resident decodes (the first 16 prompts of phase 3's
+    traffic), with the layers on or off. The tracer warms up on one step
+    it discards, and the traced window opens OBS_TRACE_GAP_S seconds
+    before the first traced step: a window that opened right before a
+    step lost the first of its copies and kernels in some traces, on
+    either side. Only the device's own events count (no runtime call, no
+    mirror of a serving:: span)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    eng = ServingEngine(model, device=dev, seed=SEED, **ENGINE, **opts,
+                        **({} if on else LAYERS_OFF))
+    for p in make_traffic(model.config.vocab_size)[:ENGINE["num_slots"]]:
+        eng.add_request(p, SamplingParams(max_new_tokens=NEW_TOKENS))
+    for _ in range(NEW_TOKENS):
+        eng.step()
+        if all(r.state.name == "DECODE"
+               for r in eng.scheduler.running.values()):
+            break
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1,
+                                   active=OBS_TRACED_STEPS,
+                                   repeat=1)) as prof:
+        for _ in range(OBS_TRACED_STEPS + 1):
+            eng.step()
+            torch.cuda.synchronize()
+            prof.step()
+            time.sleep(OBS_TRACE_GAP_S)
+    names = [e.name for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and not e.name.startswith("serving::")]
+    eng.abort_all()
+    out = {"d2h": sum("DtoH" in n for n in names),
+           "h2d": sum("HtoD" in n for n in names),
+           "kernels": sum("Memcpy" not in n and "Memset" not in n
+                          for n in names)}
+    if out["d2h"] < OBS_TRACED_STEPS:
+        raise AssertionError(
+            f"the trace shows {out['d2h']} device-to-host copies in "
+            f"{OBS_TRACED_STEPS} steps: "
+            f"{sorted({n for n in names if 'Memcpy' in n})}")
+    return out
+
+
+def obs_phase(dev, tln, tpa, model) -> tuple:
+    """Phase 11, obs on against off: GPT-124M's defaults and megakernel
+    arms, OBS_RUNS alternating runs a side (off, on, on, off, off, on):
+    the same tokens and launches in every run, the same device-to-host
+    copies in the traced steps; step p50 and tokens/s the median of a
+    side's runs."""
+    by_path, stats = {}, {}
+    for arm, opts in (("defaults", {}), ("megakernel",
+                                         dict(megakernel=True))):
+        runs = {False: [], True: []}
+        for i in range(OBS_RUNS):
+            for on in ((False, True) if i % 2 == 0 else (True, False)):
+                runs[on].append(obs_run(dev, tln, tpa, model, on, opts))
+        first = runs[False][0]
+        for r in runs[False] + runs[True]:
+            if r["tokens"] != first["tokens"]:
+                raise AssertionError(f"[obs {arm}] tokens differ")
+            if r["launches"] != first["launches"]:
+                raise AssertionError(f"[obs {arm}] launches differ: "
+                                     f"{r['launches']} {first['launches']}")
+        copies = {on: device_copies(dev, model, opts, on)
+                  for on in (False, True)}
+        if copies[False] != copies[True]:
+            raise AssertionError(f"[obs {arm}] traced steps differ: "
+                                 f"{copies}")
+        side = {on: {"step_ms_p50": statistics.median(
+                         r["step_ms_p50"] for r in runs[on]),
+                     "tokens_per_s": statistics.median(
+                         r["tokens_per_s"] for r in runs[on]),
+                     "step_ms_p50_runs": [r["step_ms_p50"]
+                                          for r in runs[on]],
+                     "tokens_per_s_runs": [r["tokens_per_s"]
+                                           for r in runs[on]]}
+                for on in (False, True)}
+        on_run = runs[True][0]
+        stats[arm] = {
+            "off": side[False], "on": side[True],
+            "step_ms_p50_on_minus_off": (side[True]["step_ms_p50"]
+                                         - side[False]["step_ms_p50"]),
+            "tokens_per_s_on_over_off": (side[True]["tokens_per_s"]
+                                         / side[False]["tokens_per_s"]),
+            "steps": first["steps"], "traced_steps": copies[True],
+            "flight_steps": on_run["flight_steps"],
+            "packed_tokens": on_run["packed_tokens"],
+            "slo_worst": on_run["slo_worst"], "tracer": on_run["tracer"]}
+        by_path[f"obs_{arm}"] = on_run["launches"]
+        log(f"  [obs {arm}] tokens and launches equal in {2 * OBS_RUNS} "
+            f"runs ({first['steps']} steps each); traced "
+            f"{OBS_TRACED_STEPS} steps, off {copies[False]}, on "
+            f"{copies[True]}; step p50 off {side[False]['step_ms_p50']:.3f}"
+            f" ms, on {side[True]['step_ms_p50']:.3f} ms; tokens/s off "
+            f"{side[False]['tokens_per_s']:.1f}, on "
+            f"{side[True]['tokens_per_s']:.1f}; flight ring "
+            f"{on_run['flight_steps']} records, {on_run['packed_tokens']} "
+            f"packed tokens = the snapshot's, SLO {on_run['slo_worst']}")
+    return by_path, stats
+
+
+def quarantine_serve(dev, tln, tpa, model, opts, prompts, poison=None,
+                     hook=None, margins=False) -> dict:
+    """One quarantine run of `prompts` on a fresh engine with the arm's
+    options: `poison` = (request index, steps before the poison, tokens
+    it streams before the poison; 0 and 0 at admission), through a
+    `FaultInjector`; or `hook`, a step fault hook of
+    its own. Counts the rounds that launched (normal and probe) and holds
+    the launches to the arm's launches a step (a legacy arm's: a decode
+    step's and a prefill chunk's). With `margins`, the top-two margin of
+    the held logits behind every emitted token."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import (FaultInjector, SamplingParams,
+                                          ServingEngine)
+
+    class RoundEngine(ServingEngine):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.rounds = {"normal": 0, "probe": 0}
+            self.tops, self.where = [], []
+
+        def _launched(self):
+            m = self.metrics
+            return m.unified_steps + m.decode_step_s.count + m.prefill_chunks
+
+        def _run_round(self, finished, suppress=frozenset()):
+            before = self._launched()
+            out = super()._run_round(finished, suppress)
+            if self._launched() > before:
+                self.rounds["probe" if suppress else "normal"] += 1
+            return out
+
+        def _sample_next(self):
+            if margins:
+                self.tops.append(torch.topk(self._last_logits, 2,
+                                            dim=-1).values)
+            return super()._sample_next()
+
+        def _emit_tokens(self, slots, nxt, finished, accept=None,
+                         drafts=None):
+            if margins:
+                for s in slots:
+                    req = self.scheduler.running.get(int(s))
+                    if req is not None and req.state.name == "DECODE":
+                        self.where.append((req.request_id,
+                                           len(self.tops) - 1, int(s)))
+            super()._emit_tokens(slots, nxt, finished, accept, drafts)
+
+    eng = RoundEngine(model, device=dev, seed=SEED, **ENGINE, **opts)
+    inj = FaultInjector()
+    if hook is not None:
+        eng.step_fault_hook = hook
+    elif poison is not None:
+        eng.step_fault_hook = lambda ids: inj.on_engine_step("r0", ids)
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    reqs = [eng.add_request(p, SamplingParams(
+        max_new_tokens=QUARANTINE["new"])) for p in prompts]
+    steps_before = 0
+    if poison is not None:
+        victim, after, streamed = poison
+        while steps_before < after or (
+                len(reqs[victim].output_tokens) < streamed
+                and steps_before < 200):
+            eng.step()
+            steps_before += 1
+        inj.poison(reqs[victim].request_id)
+    error = None
+    try:
+        eng.run()
+    except RuntimeError as exc:
+        if hook is None:
+            raise
+        error = exc
+    torch.cuda.synchronize()
+    launches = launch_counts_serving(tln, tpa, tfa)
+    snap = eng.metrics.snapshot()
+    if eng.unified:
+        per_step, _ = spec_launches(tpa, model, eng)
+        want = {k: n * snap["unified_steps"] for k, n in per_step.items()}
+        launched = snap["unified_steps"]
+    else:
+        per_step, per_chunk = legacy_launches(
+            tpa, eng.kv_dtype, model.config.num_hidden_layers,
+            norm_launches(model))
+        want = {k: n * snap["decode_step_s"]["count"]
+                + per_chunk[k] * snap["prefill_chunks"]
+                for k, n in per_step.items()}
+        launched = snap["decode_step_s"]["count"]
+    if launches != want:
+        raise AssertionError(f"quarantine {opts}: launches {launches} != "
+                             f"{want}")
+    if eng.unified and launched != sum(eng.rounds.values()):
+        raise AssertionError(f"quarantine {opts}: {launched} launched "
+                             f"steps, rounds {eng.rounds}")
+    out = dict(tokens=[list(r.output_tokens) for r in reqs],
+               reasons=[r.finish_reason for r in reqs],
+               errors=[type(r.error).__name__ if r.error else None
+                       for r in reqs],
+               rounds=dict(eng.rounds), launches=launches,
+               steps=snap["decode_steps"], steps_before=steps_before,
+               error=error,
+               poisoned=snap["requests"]["poisoned"],
+               incidents=[(i["kind"], len(i["steps"]))
+                          for i in eng.obs.flight.snapshot()["incidents"]],
+               timelines={r.request_id: [e["kind"] for e in
+                                         eng.obs.tracer.timeline(
+                                             r.request_id)]
+                          for r in reqs}, per_step=per_step)
+    if margins:
+        tops = torch.stack(eng.tops).cpu() if eng.tops else None
+        by_req = {}
+        for rid, step, slot in eng.where:
+            by_req.setdefault(rid, []).append(
+                float(tops[step, slot, 0] - tops[step, slot, 1]))
+        out["margins"] = [by_req.get(r.request_id, []) for r in reqs]
+    if error is not None:
+        eng.abort_all()
+    else:
+        eng.drain()
+    eng.pool.assert_quiesced()
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def quarantine_arm(dev, tln, tpa, model, path, opts, tol) -> tuple:
+    """Phase 11, one quarantine arm: QUARANTINE["requests"] prompts of
+    phase 3's traffic served without the victim, then with the victim
+    poisoned at admission, after QUARANTINE["after"] steps and after its
+    QUARANTINE["tokens"]-th token: the victim
+    ends "poisoned" with `PoisonedRequest` and a timeline that ends in
+    "poison", every innocent's tokens equal its tokens without the victim
+    (near ties by `spec_identity`'s rule at `tol`, at most
+    QUARANTINE_NEAR_TIES an arm), one "poison_quarantine" incident (after
+    the step fault's, holding the steps before it), launches = the arm's
+    launches a step x the rounds that launched; then a hook that raises
+    for every round propagates and poisons nobody."""
+    prompts = make_traffic(model.config.vocab_size)[:QUARANTINE["requests"]]
+    v = QUARANTINE["victim"]
+    innocent = [i for i in range(len(prompts)) if i != v]
+    spec = "spec" in opts
+    base = quarantine_serve(dev, tln, tpa, model, opts,
+                            [prompts[i] for i in innocent],
+                            margins=not spec)
+    if spec:
+        # a burst's tokens come from several verify columns: the margins
+        # are the spec-off run's, as phase 10 reads them
+        base["margins"] = quarantine_serve(
+            dev, tln, tpa, model,
+            {k: o for k, o in opts.items() if k != "spec"},
+            [prompts[i] for i in innocent], margins=True)["margins"]
+    stats, ties = {}, []
+    for when, after, streamed in (
+            ("at admission", 0, 0),
+            (f"after {QUARANTINE['after']} steps", QUARANTINE["after"], 0),
+            (f"after {QUARANTINE['tokens']} tokens", 0,
+             QUARANTINE["tokens"])):
+        got = quarantine_serve(dev, tln, tpa, model, opts, prompts,
+                               poison=(v, after, streamed))
+        before = got["steps_before"]
+        tag = f"{path} poisoned {when}"
+        want_reasons = ["length"] * len(prompts)
+        want_reasons[v] = "poisoned"
+        rid = f"req-{v}"
+        kinds = [k for k, _ in got["incidents"]]
+        if (got["reasons"] != want_reasons
+                or got["errors"][v] != "PoisonedRequest"
+                or got["poisoned"] != 1
+                or got["timelines"][rid][-1] != "poison"
+                or kinds != ["step_fault", "poison_quarantine"]
+                or got["incidents"][-1][1] < before):
+            raise AssertionError(f"[{tag}] reasons {got['reasons']}, "
+                                 f"errors {got['errors']}, incidents "
+                                 f"{got['incidents']}, victim's timeline "
+                                 f"{got['timelines'][rid]}")
+        if len(got["tokens"][v]) < streamed:
+            raise AssertionError(f"[{tag}] the victim streamed "
+                                 f"{len(got['tokens'][v])} tokens")
+        on = {"tokens": [got["tokens"][i] for i in innocent]}
+        arm_ties = spec_identity(tag, on, base, tol)["near_ties"]
+        ties += arm_ties
+        stats[when] = {"rounds": got["rounds"], "steps": got["steps"],
+                       "steps_before_poison": before,
+                       "victim_tokens": len(got["tokens"][v]),
+                       "probe_rounds": got["rounds"]["probe"],
+                       "incidents": got["incidents"],
+                       "near_ties": arm_ties,
+                       "launches_per_step": {k: n for k, n in
+                                             got["per_step"].items() if n}}
+        log(f"  [{tag}] victim req-{v} poisoned after {before} steps and "
+            f"{len(got['tokens'][v])} tokens, {len(innocent)} "
+            f"innocents equal to the run without it "
+            f"({len(arm_ties)} near ties); rounds that launched "
+            f"{got['rounds']}, probe rounds {got['rounds']['probe']}; "
+            f"launches { {k: n for k, n in got['launches'].items() if n} } "
+            f"= per step "
+            f"{stats[when]['launches_per_step']} x the rounds; incidents "
+            f"{got['incidents']}")
+        launches = got["launches"]
+    if len(ties) > QUARANTINE_NEAR_TIES:
+        raise AssertionError(f"[{path}] {len(ties)} near ties")
+    boom = RuntimeError("a fault that tracks no request")
+
+    def hook(ids):
+        raise boom
+
+    glob = quarantine_serve(dev, tln, tpa, model, opts, prompts[:2],
+                            hook=hook)
+    if (glob["error"] is not boom or glob["poisoned"] != 0
+            or [k for k, _ in glob["incidents"]]
+            != ["step_fault", "replica_death"]
+            or any(glob["launches"].values())):
+        raise AssertionError(f"[{path}] a global fault: {glob['error']!r}, "
+                             f"poisoned {glob['poisoned']}, incidents "
+                             f"{glob['incidents']}, launches "
+                             f"{glob['launches']}")
+    stats["global_fault"] = {"propagated": True, "poisoned": 0}
+    log(f"  [{path}] a hook raising every round propagated, poisoned "
+        "nobody, launched nothing")
+    return launches, stats
+
+
+def quarantine_phase(dev, tln, tpa, model) -> tuple:
+    """Phase 11, quarantine on GPT-124M: the defaults, legacy and
+    `spec="ngram:4"` arms (Llama-7B's runs inside phase 8)."""
+    by_path, stats = {}, {}
+    for path, opts in QUARANTINE_ARMS:
+        by_path[path], stats[path] = quarantine_arm(
+            dev, tln, tpa, model, path, dict(opts), HELD_LOGITS_TOL)
+    return by_path, stats
+
+
+def census_phase(dev, model) -> dict:
+    """Phase 11, the cost census of GPT-124M's defaults engine: "model"
+    and "lowered" (one forward of the step at [16, 32] counted on the
+    card), each source the mode asked for; the "lowered" record must
+    equal the same geometry counted on the CPU (a bf16 GPT-124M built
+    here with device="cpu": shape arithmetic)."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import ServingEngine
+    records, secs = {}, {}
+    for mode in ("model", "lowered"):
+        eng = ServingEngine(model, device=dev, seed=SEED, **ENGINE,
+                            cost_census=mode)
+        t0 = time.perf_counter()
+        records[mode] = dict(eng.cost_census())
+        torch.cuda.synchronize()
+        secs[mode] = time.perf_counter() - t0
+        if records[mode]["source"] != mode:
+            raise AssertionError(f"census {mode}: source "
+                                 f"{records[mode]['source']}")
+        del eng
+    t0 = time.perf_counter()
+    cpu_model = GPTForCausalLM(GPTConfig(**GPT124M), device="cpu",
+                               dtype=torch.bfloat16, seed=SEED).eval()
+    cpu = ServingEngine(cpu_model, device="cpu", seed=SEED, **ENGINE,
+                        cost_census="lowered").cost_census()
+    secs["cpu"] = time.perf_counter() - t0
+    keys = ("source", "flops", "bytes_accessed", "kernels",
+            "capacity_tokens")
+    low = records["lowered"]
+    if {k: low[k] for k in keys} != {k: cpu[k] for k in keys}:
+        raise AssertionError(f"census on the card { {k: low[k] for k in keys} }"
+                             f" != on the CPU { {k: cpu[k] for k in keys} }")
+    del cpu_model
+    gc.collect()
+    model_rec = records["model"]
+    out = {mode: {k: rec[k] for k in ("source", "flops", "bytes_accessed",
+                                      "capacity_tokens")}
+           for mode, rec in records.items()}
+    out["lowered"]["kernels"] = low["kernels"]
+    out.update(flops_lowered_over_model=low["flops"] / model_rec["flops"],
+               bytes_lowered_over_model=(low["bytes_accessed"]
+                                         / model_rec["bytes_accessed"]),
+               seconds=secs, cpu_equal=True)
+    log(f"  [census] model: {model_rec['flops']:.6g} FLOPs, "
+        f"{model_rec['bytes_accessed']:.6g} bytes; lowered: "
+        f"{low['flops']:.6g} FLOPs ({out['flops_lowered_over_model']:.4f}x"
+        f"), {low['bytes_accessed']:.6g} bytes "
+        f"({out['bytes_lowered_over_model']:.4f}x), kernels "
+        f"{low['kernels']}; equal to the CPU's count; capture "
+        f"{secs['lowered']:.2f} s on the card, {secs['cpu']:.2f} s on the "
+        "CPU (with its model)")
+    return out
+
+
+def driver_phase(dev, model) -> dict:
+    """Phase 11, the engine driver over GPT-124M: 8 streamed requests
+    (read as they grow, from the main thread) with the tokens of the same
+    requests on an engine stepped directly; then `kill_at_step` at step
+    20 (requests queued before the pump starts): the residents retire as
+    "replica_failure", a submission after the death raises `ReplicaDead`,
+    the flight ring holds a "replica_death" incident; then
+    `fail_add_request(3)` refuses the third admission only. Every pump
+    thread is joined."""
+    from paddle_tpu_torch.serving import (FaultInjector, InjectedFault,
+                                          SamplingParams, ServingEngine)
+    from paddle_tpu_torch.serving.http import EngineDriver, ReplicaDead
+    prompts = make_traffic(model.config.vocab_size)[:DRIVER["requests"]]
+    sampling = SamplingParams(max_new_tokens=DRIVER["new"])
+    join = DRIVER["join_s"]
+    stats = {}
+
+    def engine():
+        return ServingEngine(model, device=dev, seed=SEED, **ENGINE)
+
+    want = [list(r.token_ids) for r in engine().generate(prompts, sampling)]
+    drv = EngineDriver(engine(), "replica-0").start()
+    t0 = time.perf_counter()
+    reqs = [drv.submit(p, sampling) for p in prompts]
+    reads, seen = 0, [0] * len(reqs)
+    while not all(r.finished for r in reqs):
+        if time.perf_counter() - t0 > join:
+            raise AssertionError("the driver did not finish its requests")
+        for i, r in enumerate(reqs):
+            n = len(r.output_tokens)
+            reads += n > seen[i]
+            seen[i] = n
+        time.sleep(0.001)
+    wall = time.perf_counter() - t0
+    if not drv.drain(join):
+        raise AssertionError("the driver's pump did not stop")
+    got = [list(r.output_tokens) for r in reqs]
+    if got != want or any(r.finish_reason != "length" for r in reqs):
+        raise AssertionError("the driver's tokens differ from a direct run")
+    stats["serve"] = {"requests": len(reqs), "reads": reads, "wall_s": wall,
+                      "steps": drv.steps}
+
+    eng = engine()
+    inj = FaultInjector().kill_at_step("replica-0", DRIVER["kill_step"])
+    drv = EngineDriver(eng, "replica-0", faults=inj)
+    queued = [eng.add_request(p, sampling) for p in prompts]
+    drv.start()
+    drv._thread.join(join)
+    try:
+        drv.submit(prompts[0], sampling)
+        late = None
+    except ReplicaDead as exc:
+        late = type(exc).__name__
+    incidents = [i["kind"] for i in eng.obs.flight.snapshot()["incidents"]]
+    if (drv._thread.is_alive() or not drv.dead
+            or not isinstance(drv.death_exc, InjectedFault)
+            or drv.steps != DRIVER["kill_step"] or late != "ReplicaDead"
+            or {r.finish_reason for r in queued} != {"replica_failure"}
+            or incidents != ["replica_death"]):
+        raise AssertionError(f"kill at step {DRIVER['kill_step']}: steps "
+                             f"{drv.steps}, death {drv.death_exc!r}, late "
+                             f"submission {late}, reasons "
+                             f"{[r.finish_reason for r in queued]}, "
+                             f"incidents {incidents}")
+    eng.pool.assert_quiesced()
+    stats["kill"] = {"step": drv.steps, "streamed_before": sum(
+        len(r.output_tokens) for r in queued), "incidents": incidents}
+
+    inj = FaultInjector().fail_add_request(3)
+    drv = EngineDriver(engine(), "replica-0", faults=inj).start()
+    outcomes = []
+    for p in prompts[:5]:
+        try:
+            outcomes.append(drv.submit(p, sampling))
+        except InjectedFault as exc:
+            outcomes.append(exc.kind)
+    if not drv.drain(join):
+        raise AssertionError("the driver's pump did not stop")
+    reasons = [o if isinstance(o, str) else o.finish_reason
+               for o in outcomes]
+    if reasons != ["length", "length", "add_request", "length", "length"] \
+            or inj.add_fails_fired != 1:
+        raise AssertionError(f"fail_add_request(3): {reasons}")
+    stats["fail_add"] = {"outcomes": reasons}
+    log(f"  [driver] {len(reqs)} streamed requests ({reads} reads of new "
+        f"tokens, {wall:.3f} s) with a direct run's tokens; killed at step "
+        f"{stats['kill']['step']} after {stats['kill']['streamed_before']} "
+        f"tokens: residents retired as replica_failure, a late submission "
+        f"raised ReplicaDead, incidents {incidents}; fail_add_request(3): "
+        f"{reasons}")
+    return stats
+
+
+def phase11(dev, tln, tpa) -> tuple:
+    """Phase 11 on a fresh GPT-124M (bf16, random weights from SEED)."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    t0 = time.perf_counter()
+    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                           dtype=torch.bfloat16, seed=SEED).eval()
+    by_path, stats = {}, {}
+    obs_paths, stats["obs"] = obs_phase(dev, tln, tpa, model)
+    by_path.update(obs_paths)
+    t1 = time.perf_counter()
+    q_paths, stats["quarantine"] = quarantine_phase(dev, tln, tpa, model)
+    by_path.update(q_paths)
+    t2 = time.perf_counter()
+    stats["census"] = census_phase(dev, model)
+    t3 = time.perf_counter()
+    stats["driver"] = driver_phase(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    stats["seconds"] = {"obs": t1 - t0, "quarantine": t2 - t1,
+                        "census": t3 - t2,
+                        "driver": time.perf_counter() - t3,
+                        "all": time.perf_counter() - t0}
+    log(f"  phase 11: {stats['seconds']['all']:.1f} s (obs "
+        f"{t1 - t0:.1f}, quarantine {t2 - t1:.1f}, census {t3 - t2:.1f}, "
+        f"driver {stats['seconds']['driver']:.1f})")
     return by_path, stats
 
 
@@ -4608,8 +5251,11 @@ def main() -> int:
     log("phase 10 speculative serving on GPT-124M (bf16, random weights; "
         "the Llama-7B part ran in phase 8):")
     t_spec = time.perf_counter()
-    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
-                           dtype=torch.bfloat16, seed=SEED).eval()
+    from paddle_tpu_torch.serving import make_draft_model
+    full = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                          dtype=torch.bfloat16, seed=SEED).eval()
+    model = make_draft_model(full, SPEC_GPT_LAYERS)
+    del full
     spec_paths, spec_gpt = spec_phase_gpt(dev, tln, tpa, model)
     by_path.update(spec_paths)
     del model
@@ -4617,6 +5263,14 @@ def main() -> int:
     log(f"  phase 10, GPT-124M part: {time.perf_counter() - t_spec:.1f} s")
     log(f"  speculative serving: {json.dumps(spec_gpt)}")
     log(f"  speculative serving, Llama-7B: {json.dumps(llama['spec'])}")
+
+    log("phase 11 obs on against off, poison quarantine, the cost census "
+        "and the engine driver on GPT-124M (bf16, random weights; the "
+        "Llama-7B quarantine arm ran in phase 8):")
+    obs_paths, serving_obs = phase11(dev, tln, tpa)
+    by_path.update(obs_paths)
+    log(f"  phase 11: {json.dumps(serving_obs)}")
+    log(f"  phase 11, Llama-7B quarantine: {json.dumps(llama['quarantine'])}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

@@ -11,10 +11,11 @@ kernel rebuilds, an unchanged one loads from disk. `build()` starts one
 three walk libraries (K6/K7, K9, K10: `WALK_PARTS`) are the exception:
 most of their compile time is their ring walk's, so each library's
 file is compiled with PTT_WALK_EXTERN beside one `nvcc -c` per
-instantiation of the walk's dispatch it calls (`csrc/walk_instance.cu`
-under the library's PTT_WALK_* settings; libraries of equal settings
-share one), all at once, and linked; the build's longest job is then
-one instantiation, about half a walk library.
+instantiation of the walk's dispatch it calls and dtype of q's
+(`csrc/walk_instance.cu` under the library's PTT_WALK_* settings;
+libraries of equal settings share one), all at once, and linked; the
+build's longest job is then one instantiation at one dtype, a sixth of
+a walk library, so the build's jobs fill the host's cores.
 
 Pointers and the stream cross as `ctypes.c_void_p`, integers as
 `ctypes.c_int`; a library may hold several C entries (`KERNELS`
@@ -51,10 +52,12 @@ COMPILE_FLAGS = tuple(f for f in NVCC_FLAGS if f != "-shared") + ("-c",)
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared",
               "-Xcompiler", "-fPIC")
 # walk library -> the (phase 1, masked) instantiations of `ring_dispatch`
-# it calls, each built from csrc/walk_instance.cu
+# it calls, each built from csrc/walk_instance.cu, one object for each
+# dtype code of q's in WALK_DTYPES (`ring_dispatch_t`)
 WALK_PARTS = {"ragged_paged_attention": ((0, 0), (0, 1)),
               "paged_decode_attention": ((0, 0), (0, 1)),
               "grouped_paged_attention": ((1, 0), (0, 0))}
+WALK_DTYPES = (0, 1, 2)
 # kernel library -> {C entry: its argument types} (restype is c_int)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the flash entries take a pointer to their Params struct, the dtype,
@@ -166,11 +169,18 @@ def _plan(csrc: Path, name: str, out: Path, part_dir: Path) -> tuple:
     own = out.with_name(out.name + ".o")
     jobs = {own: [_nvcc(), *COMPILE_FLAGS, "-DPTT_WALK_EXTERN", "-o",
                   str(own), str(src)]}
+    # a checkout from before the dtype split instantiates every dtype in
+    # one object
+    dtypes = (WALK_DTYPES if "PTT_WALK_DTYPE" in inst.read_text()
+              else (None,))
     for p, m in WALK_PARTS[name]:
-        obj = part_dir / f"walk{p}{m}{tag}-{key}.o"
-        jobs[obj] = [_nvcc(), *COMPILE_FLAGS, *own_defs,
-                     f"-DPTT_WALK_PHASE1={p}", f"-DPTT_WALK_MASKED={m}",
-                     "-o", str(obj), str(inst)]
+        for d in dtypes:
+            part = "" if d is None else f"_t{d}"
+            obj = part_dir / f"walk{p}{m}{part}{tag}-{key}.o"
+            jobs[obj] = [_nvcc(), *COMPILE_FLAGS, *own_defs,
+                         f"-DPTT_WALK_PHASE1={p}", f"-DPTT_WALK_MASKED={m}",
+                         *(() if d is None else (f"-DPTT_WALK_DTYPE={d}",)),
+                         "-o", str(obj), str(inst)]
     return jobs, [_nvcc(), *LINK_FLAGS, "-o", str(out), *map(str, jobs)]
 
 
@@ -179,8 +189,9 @@ def _run_plans(plans: dict, what: str,
     """Run {key: (jobs, link)} plans: every compile at once (a job shared
     by two plans once), then each plan's link. Returns {key: compiler
     output of its jobs}, and fills `times` with {job: seconds from the
-    start to its end} (a job by its file's stem: a library, or walkPM
-    for instantiation (P, M), with the library's walk settings after it);
+    start to its end} (a job by its file's stem: a library, or walkPM_tD
+    for instantiation (P, M) at dtype code D, with the library's walk
+    settings after it);
     raises RuntimeError naming a failed command."""
     cmds = {}
     for jobs, _ in plans.values():

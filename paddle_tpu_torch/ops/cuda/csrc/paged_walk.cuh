@@ -1055,71 +1055,67 @@ int dispatch_dv(const Args& a, cudaStream_t s) {
   return dispatch_pj<L, T, 8>(a, s);  // over 256: columns in pieces
 }
 
-template <class L, int DV>
-int dispatch_exact(int dtype, const Args& a, cudaStream_t s) {
-  switch (dtype) {
-    case kF32:
-      return L::template run<float, DV, 1>(a, s);
-    case kBF16:
-      return L::template run<__nv_bfloat16, DV, 1>(a, s);
-    case kF16:
-      return L::template run<__half, DV, 1>(a, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // Page size 16 at head dims 32-256: the compile-time instantiations, two
-// rows a warp; any other shape: run-time D and ps, a row a warp.
-template <bool kPhase1, bool kMasked>
-int ring_dispatch(int dtype, const Args& a, cudaStream_t s) {
-  if (!pools_valid(a) || a.D < 1 || a.ps < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+// rows a warp; any other shape: run-time D and ps, a row a warp. One
+// dtype of q's: 16 of the walk's kernels.
+template <bool kPhase1, bool kMasked, typename T>
+int ring_dispatch_t(const Args& a, cudaStream_t s) {
   if (ring_paired(a.D, a.ps)) {
     switch (a.D) {
       case 32:
-        return dispatch_exact<RingWalk<kPhase1, kMasked, 32, 16>, 1>(dtype,
-                                                                    a, s);
+        return RingWalk<kPhase1, kMasked, 32, 16>::template run<T, 1, 1>(a,
+                                                                       s);
       case 64:
-        return dispatch_exact<RingWalk<kPhase1, kMasked, 64, 16>, 2>(dtype,
-                                                                    a, s);
+        return RingWalk<kPhase1, kMasked, 64, 16>::template run<T, 2, 1>(a,
+                                                                       s);
       case 128:
-        return dispatch_exact<RingWalk<kPhase1, kMasked, 128, 16>, 4>(
-            dtype, a, s);
+        return RingWalk<kPhase1, kMasked, 128, 16>::template run<T, 4, 1>(a,
+                                                                        s);
       case 256:
-        return dispatch_exact<RingWalk<kPhase1, kMasked, 256, 16>, 8>(
-            dtype, a, s);
+        return RingWalk<kPhase1, kMasked, 256, 16>::template run<T, 8, 1>(a,
+                                                                        s);
       default:
         break;
     }
   }
+  return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, T>(a, s);
+}
+
+template <bool kPhase1, bool kMasked>
+int ring_dispatch(int dtype, const Args& a, cudaStream_t s) {
+  if (!pools_valid(a) || a.D < 1 || a.ps < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
     case kF32:
-      return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, float>(a, s);
+      return ring_dispatch_t<kPhase1, kMasked, float>(a, s);
     case kBF16:
-      return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, __nv_bfloat16>(
-          a, s);
+      return ring_dispatch_t<kPhase1, kMasked, __nv_bfloat16>(a, s);
     case kF16:
-      return dispatch_dv<RingWalk<kPhase1, kMasked, 0, 0>, __half>(a, s);
+      return ring_dispatch_t<kPhase1, kMasked, __half>(a, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // `_build.build()` compiles each walk library's own file with
-// PTT_WALK_EXTERN and the dispatch instantiations it calls (48 kernels
-// each, most of a walk library's ptxas time) apart, one nvcc each, from
-// walk_instance.cu with the library's PTT_WALK_* settings, then links
-// them: libraries of the same settings share them, and they build in
-// parallel. Compiled alone, without the macro, a file
-// instantiates what it calls, as before.
+// PTT_WALK_EXTERN and the dispatch instantiations it calls, one for each
+// dtype of q's (16 kernels each, most of a walk library's ptxas time),
+// apart, one nvcc each, from walk_instance.cu with the library's
+// PTT_WALK_* settings, then links them: libraries of the same settings
+// share them, and they build in parallel. Compiled alone, without the
+// macro, a file instantiates what it calls, as before.
 #ifdef PTT_WALK_EXTERN
-extern template int ring_dispatch<false, false>(int, const Args&,
-                                                cudaStream_t);
-extern template int ring_dispatch<false, true>(int, const Args&,
-                                               cudaStream_t);
-extern template int ring_dispatch<true, false>(int, const Args&,
-                                               cudaStream_t);
+#define PTT_WALK_EXTERN_T(P, M)                                             \
+  extern template int ring_dispatch_t<P, M, float>(const Args&,             \
+                                                   cudaStream_t);           \
+  extern template int ring_dispatch_t<P, M, __nv_bfloat16>(const Args&,     \
+                                                           cudaStream_t);   \
+  extern template int ring_dispatch_t<P, M, __half>(const Args&,            \
+                                                    cudaStream_t);
+PTT_WALK_EXTERN_T(false, false)
+PTT_WALK_EXTERN_T(false, true)
+PTT_WALK_EXTERN_T(true, false)
+#undef PTT_WALK_EXTERN_T
 #endif
 
 // Entries of a walk's launch report (`walk_plan`).

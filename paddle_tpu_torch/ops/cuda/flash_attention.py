@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import _build
+from .cost import kernel_cost, nbytes
 
 __all__ = ["flash_attention_blhd", "FlashAttentionBLHD",
            "flash_attention_fwd", "flash_attention_dq", "flash_attention_dkv",
@@ -417,6 +418,18 @@ def _no_kernel(q):
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
 
 
+def _fwd_work(q, k, v, bias=None, kvec=None, seeds=None, causal=False,
+              scale=None, dropout_p=0.0):
+    """K3: QK and AV over every (query, key) pair (half of them under
+    the causal mask); q, k, v and the bias read once, o and lse written
+    once."""
+    b, lq, h, d = q.shape
+    pairs = b * h * lq * k.shape[1]
+    return ("K3", 4 * d * pairs // (2 if causal else 1),
+            2 * nbytes(q) + nbytes(k, v, bias, kvec) + 4 * b * h * lq)
+
+
+@kernel_cost(_fwd_work)
 def flash_attention_fwd(q, k, v, bias=None, kvec=None, seeds=None,
                         causal=False, scale=None, dropout_p=0.0):
     """K3: (o, lse). Not differentiable: use `flash_attention_blhd`."""

@@ -34,6 +34,7 @@ import ctypes
 import torch
 
 from . import _build
+from .cost import kernel_cost, nbytes
 
 __all__ = ["layer_norm", "layer_norm_reference", "layer_norm_bwd",
            "layer_norm_bwd_reference", "layer_norm_plan",
@@ -204,6 +205,13 @@ def layer_norm_plan(rows: int, cols: int, dtype: torch.dtype, device,
                  wdtype, device)
 
 
+def _ln_work(x, w, b, eps=1e-5):
+    """K1: x read and y written once, w and b read once; 8 FLOPs an
+    element (the two statistics passes and the affine)."""
+    return ("K1", 8 * x.numel(), 2 * nbytes(x) + nbytes(w, b))
+
+
+@kernel_cost(_ln_work)
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float = 1e-5) -> torch.Tensor:
     """K1. Not differentiable on CUDA: use `LayerNormFunction`."""

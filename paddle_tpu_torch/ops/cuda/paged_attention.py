@@ -114,6 +114,7 @@ import numpy as np
 import torch
 
 from . import _build
+from .cost import kernel_cost, nbytes
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_q8",
            "ragged_attention_reference", "ragged_attention_reference_q8",
@@ -164,6 +165,99 @@ _LANE_KERNEL = {("K6", "fp8"): "K6-fp8", ("K6", "q8"): "K7",
                 ("K10a", "q8"): "K10a-q8", ("K10b", "q8"): "K10b-q8"}
 _POOL_CODE = {"fp": _build.POOL_CODES["q"], "fp8": _build.POOL_CODES["e4m3"],
               "q8": _build.POOL_CODES["int8"]}
+
+
+# -- the cost census's reckoning of each kernel (`cost.kernel_cost`) ----------
+def _walk_work(kernel, q, k_pool, page_table, k_scale=None):
+    """A paged walk at its table's full capacity: every query row against
+    mp * ps keys, QK and AV (4 FLOPs a key a head element); q read and
+    the output written once, each row's pages (and scales) read once."""
+    b, w, h, d = q.shape
+    keys = page_table.shape[1] * k_pool.shape[1]
+    hkv = k_pool.shape[2]
+    lane = _lane(k_pool)
+    name = kernel if lane == "fp" else f"{kernel}-{lane}"
+    pages = 2 * b * keys * hkv * (d * k_pool.element_size()
+                                  + (4 if k_scale is not None else 0))
+    return (name, 4 * b * w * h * d * keys,
+            2 * nbytes(q) + pages + nbytes(page_table) + 8 * b)
+
+
+def _ragged_work(q, k_pool, v_pool, page_table, *rest, **kw):
+    return _walk_work("K6", q, k_pool, page_table)
+
+
+def _ragged_q8_work(q, k_pool, v_pool, k_scale, v_scale, page_table, *rest,
+                    **kw):
+    return _walk_work("K6", q, k_pool, page_table, k_scale)
+
+
+def _grouped_work(q, k_pool, v_pool, page_table, *rest, **kw):
+    return _walk_work("K10", q, k_pool, page_table)
+
+
+def _grouped_q8_work(q, k_pool, v_pool, k_scale, v_scale, page_table, *rest,
+                     **kw):
+    return _walk_work("K10", q, k_pool, page_table, k_scale)
+
+
+def _decode_work(q, k_pool, v_pool, page_table, *rest, **kw):
+    return _walk_work("K9", q, k_pool, page_table)
+
+
+def _write_work(name, pools, upds, flops_each, scales=False):
+    """A paged write: each update read once and written once in the
+    pool's element size (plus an f32 scale a (token, head) row)."""
+    n = sum(u.numel() for u in upds)
+    rows = sum(u.numel() // u.shape[-1] for u in upds)
+    return (name, flops_each * n,
+            nbytes(*upds) + n * pools[0].element_size()
+            + (4 * rows if scales else 0))
+
+
+def _scatter_work(pool, upd, pos, page_table):
+    return (None if pool.dtype != FP8_DTYPE
+            else _write_work("K8", [pool], [upd], 4))
+
+
+def _scatter_pair_work(k_pool, v_pool, k_upd, v_upd, pos, page_table):
+    return (None if k_pool.dtype != FP8_DTYPE
+            else _write_work("K8", [k_pool], [k_upd, v_upd], 4))
+
+
+def _scatter_kernel_work(pool, upd, pos, page_table):
+    return _write_work("K8", [pool], [upd],
+                       4 if pool.dtype == FP8_DTYPE else 1)
+
+
+def _scatter_kernel_pair_work(k_pool, v_pool, k_upd, v_upd, pos,
+                              page_table):
+    return _write_work("K8", [k_pool], [k_upd, v_upd],
+                       4 if k_pool.dtype == FP8_DTYPE else 1)
+
+
+def _scatter_q8_work(pool, scale_pool, upd, pos, page_table):
+    return _write_work("K8-q8", [pool], [upd], 6, scales=True)
+
+
+def _scatter_q8_pair_work(k_pool, v_pool, k_scale_pool, v_scale_pool, k_upd,
+                          v_upd, pos, page_table):
+    return _write_work("K8-q8", [k_pool], [k_upd, v_upd], 6, scales=True)
+
+
+def _lora_work(x, a_pool, b_pool, apage, ascale):
+    """K11: each row's A then B product over its W tokens; x read, the
+    delta written, each row's adapter pair read once."""
+    b, w, hid = x.shape
+    r, out = b_pool.shape[1], b_pool.shape[2]
+    return ("K11", 2 * b * w * r * (hid + out),
+            nbytes(x) + b * w * out * x.element_size()
+            + b * (hid * r + r * out) * a_pool.element_size()
+            + nbytes(apage, ascale))
+
+
+def _argmax_work(logits):
+    return ("K12", logits.numel(), nbytes(logits) + 4 * logits.shape[0])
 
 
 def reset_launches():
@@ -338,6 +432,7 @@ def _k8(name, writes, pos, page_table):
         MEGA_LAUNCHES["K8-float"] += 1
 
 
+@kernel_cost(_scatter_work)
 def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
                   page_table: torch.Tensor) -> torch.Tensor:
     """The paged KV write, IN PLACE, returning the pool (see
@@ -353,6 +448,7 @@ def paged_scatter(pool: torch.Tensor, upd: torch.Tensor, pos: torch.Tensor,
     return pool
 
 
+@kernel_cost(_scatter_pair_work)
 def paged_scatter_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
                        k_upd: torch.Tensor, v_upd: torch.Tensor,
                        pos: torch.Tensor, page_table: torch.Tensor):
@@ -372,6 +468,7 @@ def paged_scatter_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
     return k_pool, v_pool
 
 
+@kernel_cost(_scatter_kernel_work)
 def paged_scatter_kernel(pool: torch.Tensor, upd: torch.Tensor,
                          pos: torch.Tensor, page_table: torch.Tensor
                          ) -> torch.Tensor:
@@ -390,6 +487,7 @@ def paged_scatter_kernel(pool: torch.Tensor, upd: torch.Tensor,
     return pool
 
 
+@kernel_cost(_scatter_kernel_pair_work)
 def paged_scatter_kernel_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
                               k_upd: torch.Tensor, v_upd: torch.Tensor,
                               pos: torch.Tensor, page_table: torch.Tensor):
@@ -442,6 +540,7 @@ def _k8q8(name, writes, pos, page_table):
     QUANT_LAUNCHES["K8-q8"] += 1
 
 
+@kernel_cost(_scatter_q8_work)
 def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
                      upd: torch.Tensor, pos: torch.Tensor,
                      page_table: torch.Tensor):
@@ -458,6 +557,7 @@ def paged_scatter_q8(pool: torch.Tensor, scale_pool: torch.Tensor,
     return pool, scale_pool
 
 
+@kernel_cost(_scatter_q8_pair_work)
 def paged_scatter_q8_pair(k_pool: torch.Tensor, v_pool: torch.Tensor,
                           k_scale_pool: torch.Tensor,
                           v_scale_pool: torch.Tensor, k_upd: torch.Tensor,
@@ -707,6 +807,7 @@ def _ragged(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len,
     return out
 
 
+@kernel_cost(_ragged_work)
 def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            pos: torch.Tensor, q_len: torch.Tensor,
@@ -722,6 +823,7 @@ def ragged_paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                    mask)
 
 
+@kernel_cost(_ragged_q8_work)
 def ragged_paged_attention_q8(q: torch.Tensor, k_pool: torch.Tensor,
                               v_pool: torch.Tensor, k_scale: torch.Tensor,
                               v_scale: torch.Tensor,
@@ -777,6 +879,7 @@ def paged_attention_reference(q: torch.Tensor, k_pool: torch.Tensor,
                                                                  lmax))
 
 
+@kernel_cost(_decode_work)
 def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
                            v_pool: torch.Tensor, page_table: torch.Tensor,
                            pos: torch.Tensor,
@@ -913,7 +1016,7 @@ def ragged_plan(q: torch.Tensor, k_pool: torch.Tensor) -> dict:
 
 # -- K10: the grouped walk ----------------------------------------------------
 def count_page_block_reads(page_table, pos, q_len, group_id=None,
-                           group_cnt=None, *, page_size):
+                           group_cnt=None, *, page_size, fused=None):
     """Host-side (numpy) model of the page-block reads of ONE
     (kv head, layer) walk: the number the serving metrics report. Per
     live row (q_len > 0) the per-row walk reads its pages
@@ -921,9 +1024,20 @@ def count_page_block_reads(page_table, pos, q_len, group_id=None,
     group's shared span once plus each member's private tail. Returns
     (flat_reads, grouped_reads, group_sizes), group_sizes listing the
     member count of every group that shares (>= 2 live members); without
-    group operands grouped_reads == flat_reads. (The JAX function's
-    `n_kv`/`mp`/`fused=` arguments belong to tensor parallelism and the
-    megakernel, which are not ported.)"""
+    group operands grouped_reads == flat_reads.
+
+    `fused=` (the megakernel's referee, the cost census's page-walk
+    record): {"head_dim": D, "kv_elt": bytes a KV element, "scale_elt":
+    bytes of a (token, head) scale (4 with int8 scales, else 0),
+    "lora_bytes": one projection's adapter-page bytes for the step}, and
+    a fourth value comes back: the walk's modeled bytes under both
+    pipelines, {"unfused": ..., "fused": ...}. Both pay the grouped
+    walk's K and V stream and the new tokens' write; the unfused one
+    also pays their f32 K/V staged between the projection and the
+    scatter, and gathers the adapter page per projection (3 x
+    lora_bytes) where the fused prologue streams it once. (The JAX
+    function's `n_kv`/`mp` arguments belong to tensor parallelism,
+    which is not ported: one chip, every head.)"""
     pos = np.asarray(pos, np.int64)
     q_len = np.asarray(q_len, np.int64)
     ps = int(page_size)
@@ -931,23 +1045,35 @@ def count_page_block_reads(page_table, pos, q_len, group_id=None,
     row_pages = np.where(live, (pos + np.maximum(q_len, 1) - 1) // ps + 1,
                          0)
     flat = int(row_pages.sum())
-    if group_id is None or group_cnt is None:
-        return flat, flat, []
-    group_id = np.asarray(group_id, np.int64)
-    group_cnt = np.asarray(group_cnt, np.int64)
-    grouped = 0
+    grouped = flat
     sizes = []
-    for g in np.unique(group_id[live]):
-        members = np.nonzero(live & (group_id == g))[0]
-        cnt = int(group_cnt[g])
-        shared = min(cnt, int(row_pages[members].min())) \
-            if members.size else 0
-        # the shared span streams once; each member walks its tail
-        grouped += shared
-        grouped += int((row_pages[members] - shared).sum())
-        if members.size >= 2 and shared > 0:
-            sizes.append(int(members.size))
-    return flat, grouped, sizes
+    if group_id is not None and group_cnt is not None:
+        group_id = np.asarray(group_id, np.int64)
+        group_cnt = np.asarray(group_cnt, np.int64)
+        grouped = 0
+        for g in np.unique(group_id[live]):
+            members = np.nonzero(live & (group_id == g))[0]
+            cnt = int(group_cnt[g])
+            shared = min(cnt, int(row_pages[members].min())) \
+                if members.size else 0
+            # the shared span streams once; each member walks its tail
+            grouped += shared
+            grouped += int((row_pages[members] - shared).sum())
+            if members.size >= 2 and shared > 0:
+                sizes.append(int(members.size))
+    if fused is None:
+        return flat, grouped, sizes
+    d = int(fused["head_dim"])
+    kv_elt = int(fused.get("kv_elt", 4))
+    scale_elt = int(fused.get("scale_elt", 0))
+    lora_bytes = int(fused.get("lora_bytes", 0))
+    attn = grouped * ps * (d * kv_elt + scale_elt) * 2
+    new_tokens = int(q_len[live].sum())
+    write = new_tokens * (d * kv_elt + scale_elt) * 2
+    stage = new_tokens * d * 4 * 2
+    return flat, grouped, sizes, {
+        "unfused": attn + write + stage + 3 * lora_bytes,
+        "fused": attn + write + lora_bytes}
 
 
 def _grouped_operands(b: int, pos, q_len, group_id, group_leader,
@@ -1089,6 +1215,7 @@ def _grouped(q, k_pool, v_pool, k_scale, v_scale, page_table, pos, q_len,
     return grouped_phase2(*ops, grouped_phase1(*ops, **scales), **scales)
 
 
+@kernel_cost(_grouped_work)
 def ragged_paged_attention_grouped(q: torch.Tensor, k_pool: torch.Tensor,
                                    v_pool: torch.Tensor,
                                    page_table: torch.Tensor,
@@ -1118,6 +1245,7 @@ def ragged_paged_attention_grouped(q: torch.Tensor, k_pool: torch.Tensor,
                     group_id, group_leader, group_cnt)
 
 
+@kernel_cost(_grouped_q8_work)
 def ragged_paged_attention_grouped_q8(q: torch.Tensor, k_pool: torch.Tensor,
                                       v_pool: torch.Tensor,
                                       k_scale: torch.Tensor,
@@ -1309,6 +1437,7 @@ def lora_plan(x: torch.Tensor, a_pool: torch.Tensor,
                      "rank_group"), (int(v) for v in out)))
 
 
+@kernel_cost(_lora_work)
 def lora_delta_paged(x: torch.Tensor, a_pool: torch.Tensor,
                      b_pool: torch.Tensor, apage: torch.Tensor,
                      ascale: torch.Tensor) -> torch.Tensor:
@@ -1406,6 +1535,7 @@ def _argmax_slices(v: int, s: int, offset: int = 0) -> list:
     return out
 
 
+@kernel_cost(_argmax_work)
 def decode_greedy_argmax(logits: torch.Tensor) -> torch.Tensor:
     """Greedy sampling over logits [B, V] -> int32 [B], the first-
     occurrence argmax of each row (a NaN counts as the largest value, as

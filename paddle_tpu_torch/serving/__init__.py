@@ -14,7 +14,13 @@ megakernel (gate `PADDLE_TPU_MEGAKERNEL`) run on the unified step, and
 so does speculative decoding (`serving.spec`, gate
 `PADDLE_TPU_SPEC_DECODE=off|ngram[:k]|model[:k]`): n-gram prompt lookup
 or a resident draft model (`serving.draft`) drafts, greedy acceptance
-verifies.
+verifies. The request tracer and flight recorder (`serving.obs`, gate
+`PADDLE_TPU_OBS`), the SLO tracker and the cost census (`serving.slo`,
+gates `PADDLE_TPU_SLO` and `PADDLE_TPU_COST_CENSUS`) are on by default, as
+in the JAX engine; the engine quarantines a request that deterministically
+kills its step (`PoisonedRequest`), and `serving.faults` injects such
+faults. `serving.http.EngineDriver` runs an engine on a pump thread of
+its own.
 """
 from .adapters import (ADAPTER_PROJS, BASE_ADAPTER, AdapterStore,
                        LoRAWeights, make_random_lora, resolve_adapters_flag)
@@ -23,14 +29,21 @@ from .engine import (KV_DTYPE_MODES, ServingEngine, legacy_forward,
                      resolve_grouped_flag, resolve_kv_dtype,
                      resolve_preempt_flag, resolve_unified_flag,
                      unified_forward, verify_forward)
-from .errors import DeadlineExceeded, EngineClosed, QueueFull, ServingError
-from .metrics import ServingMetrics
+from .errors import (DeadlineExceeded, EngineClosed, PoisonedRequest,
+                     QueueFull, RateLimited, ServingError)
+from .faults import FaultInjector, InjectedFault, resolve_faults
+from .metrics import Histogram, ServingMetrics, prometheus_render
+from .obs import (EngineObs, FlightRecorder, RequestTracer,
+                  resolve_debug_flag, resolve_flight_steps, resolve_obs_flag,
+                  timeline_to_chrome)
 from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
                      pages_needed)
 from .prefix import (PrefixGrant, RadixPrefixCache,
                      resolve_prefix_cache_flag, shared_prefix_groups)
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
+from .slo import (SLOConfig, SLOTracker, model_cost_census,
+                  resolve_cost_census, resolve_slo_config)
 from .spec import (SPEC_DECODE_ENV, SPEC_MODES, Drafter, ModelDrafter,
                    NgramDrafter, SpecConfig, resolve_spec_config)
 
@@ -42,7 +55,13 @@ __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "AdapterStore", "LoRAWeights", "make_random_lora",
            "resolve_adapters_flag", "BASE_ADAPTER", "ADAPTER_PROJS",
            "QueueFull", "ServingError", "EngineClosed", "DeadlineExceeded",
-           "ServingMetrics", "PagePool", "HostPagePool", "TRASH_PAGE",
+           "RateLimited", "PoisonedRequest", "FaultInjector",
+           "InjectedFault", "resolve_faults",
+           "EngineObs", "FlightRecorder", "RequestTracer",
+           "resolve_obs_flag", "resolve_debug_flag", "resolve_flight_steps",
+           "timeline_to_chrome", "SLOConfig", "SLOTracker",
+           "resolve_slo_config", "resolve_cost_census", "model_cost_census",
+           "ServingMetrics", "Histogram", "prometheus_render", "PagePool", "HostPagePool", "TRASH_PAGE",
            "pages_needed", "chunk_bucket", "PrefixGrant", "RadixPrefixCache",
            "shared_prefix_groups", "Request", "RequestOutput",
            "RequestState", "SamplingParams", "Scheduler",

@@ -131,29 +131,71 @@ token by token, so EOS or max_new_tokens ends it where one-at-a-time
 decoding would; greedy tokens are those of a spec-off engine. Sampled
 rows never draft.
 
+Observability (`serving.obs`, `obs=None`/on, gate PADDLE_TPU_OBS=on|off,
+default on): a request tracer records each request's timeline (submit,
+admit, swap_in, prefill_chunk, decode, first_token, preempt and its
+terminal event, each with the step index, slot, pages and cause) and a
+flight recorder keeps one record a step (`flight_steps=`, gate
+PADDLE_TPU_FLIGHT_STEPS, default 1024) and freezes its ring into an
+incident on a raising round, a poison quarantine, a deadline fail-fast
+or replica death. The SLO tracker (`serving.slo`, `slo=None`/on, gate
+PADDLE_TPU_SLO, default on with the generous defaults) rides the
+metrics' TTFT, inter-token and goodput observations and notes its
+state transitions in the flight ring. The cost census (`cost_census=`,
+gate PADDLE_TPU_COST_CENSUS=off|model|lowered|xla, default "model") is
+captured once: "model" after the first round, "lowered"/"xla" at the
+first `cost_census()` read, by counting one forward of the unified step
+at its full shape aimed at the trash page (see `serving.slo`; that one
+forward is the only launch the layers make). Otherwise all three are
+host bookkeeping built from values a step already holds on the host: no
+launch, no device read and no synchronisation, and the tokens are the
+same with them on or off. Each request also
+holds a host span (`profiler.RecordEvent`, begun at admission and ended
+at retirement or preemption, also when teardown raises); the step's,
+chunks' and page copies' spans enter `torch.profiler.record_function`.
+
+Poison quarantine: `step_fault_hook`, when set (the fault injector's
+`on_engine_step`), is called with a round's participant request ids
+before the round's first launch and before any pool write, position
+move or held-logit write (a legacy round calls it per prefill chunk and
+before its decode step). A round that raises goes through
+`_quarantine_poison`: the resident slots are bisected by probe rounds
+that run with half the candidates suppressed (at q_len 0 on the unified
+step, with no drafts proposed or granted; skipped by the legacy
+prefill chunks and inactive in its decode step), a probe that raises
+exonerating the suppressed half and one that succeeds convicting it
+while the innocents it ran make progress. A verdict that a round
+without the suspect succeeds fails that request alone ("poisoned",
+`PoisonedRequest`); a fault that tracks no single request propagates as
+replica death. Quarantine covers faults raised on the host before a
+launch, the shape `FaultInjector.poison` injects: a CUDA error leaves
+the context unusable, so one propagates as replica death without a
+probe. (The model tier's draft proposals run before the hook, as in
+the JAX engine; their draft-pool writes lie past the committed stream
+and the next round's clamp rolls them back.) `heartbeat_hook`, when set
+(the driver's), is called at every step boundary and around each
+round's launches, with `step_tokens_inflight` the tokens of the launch
+in flight.
+
 Gates are resolved at construction as the JAX engine resolves them
 (`prefix_cache=None` follows PADDLE_TPU_PREFIX_CACHE, default on). The
-gates of features not ported yet — `mesh` (PADDLE_TPU_MESH), `grammar`
-(PADDLE_TPU_GRAMMAR), `obs` (PADDLE_TPU_OBS), `slo` (PADDLE_TPU_SLO) and
-`cost_census` (PADDLE_TPU_COST_CENSUS) — are parsed with the JAX
-package's rules (a bad spelling raises ValueError) and raise
-NotImplementedError, naming the ROADMAP item, when a keyword or an
-environment variable turns one on. Left unset, the observability, SLO
-and census layers (on by default in the JAX engine) are simply absent
-here. The JAX engine's poison
-quarantine (`suppress`) belongs to the faults item.
+gates of features not ported yet — `mesh` (PADDLE_TPU_MESH) and
+`grammar` (PADDLE_TPU_GRAMMAR) — are parsed with the JAX package's rules
+(a bad spelling raises ValueError) and raise NotImplementedError, naming
+the ROADMAP item, when a keyword or an environment variable turns one
+on.
 """
 from __future__ import annotations
 
 import itertools
 import os
 import re
+import threading
 import time
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..core.device import DeviceLike, make_generator, resolve_device
 from ..nlp.generation import (_categorical, _top_p_filter, _unpack_caches,
@@ -165,14 +207,18 @@ from ..ops.cuda.paged_attention import (FP8_DTYPE, _as_bytes,
                                         spec_verify_accept)
 from .adapters import BASE_ADAPTER, AdapterStore, resolve_adapters_flag
 from .draft import DraftConfig, DraftEngine, make_draft_model
-from .errors import DeadlineExceeded, EngineClosed
+from ..profiler import RecordEvent
+from .errors import DeadlineExceeded, EngineClosed, PoisonedRequest
 from .metrics import ServingMetrics
+from .obs import EngineObs, resolve_obs_flag
 from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
                      pages_needed)
 from .prefix import (RadixPrefixCache, resolve_prefix_cache_flag,
                      shared_prefix_groups)
 from .request import Request, RequestOutput, RequestState, SamplingParams
 from .scheduler import Scheduler
+from .slo import (SLOTracker, capture_cost_census, model_cost_census,
+                  resolve_cost_census, resolve_slo_config)
 from .spec import Drafter, ModelDrafter, resolve_spec_config
 
 __all__ = ["ServingEngine", "unified_forward", "verify_forward",
@@ -182,11 +228,12 @@ __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "resolve_unported_gates"]
 
 KV_DTYPE_MODES = ("fp", "int8", "fp8")
+# finish reason -> the terminal timeline event (the rest keep their name)
+_TERMINAL_EVENT = {"stop": "finish", "length": "finish",
+                   "deadline": "deadline", "poisoned": "poison",
+                   "replica_failure": "replica_death"}
 _ROADMAP_SERVING = "ROADMAP.md, queue 1, item 6"
 _MESH_RE = re.compile(r"^dp(\d+)x?mp(\d+)$")
-_SLO_KEYS = ("ttft_p99", "itl_p99", "goodput", "fast", "slow", "warn",
-             "page", "min_events")
-_COST_CENSUS_MODES = ("off", "model", "lowered", "xla")
 
 
 def _grammar_on(override) -> bool:
@@ -224,79 +271,17 @@ def _mesh_on(override) -> bool:
     return True
 
 
-def _obs_on(override) -> bool:
-    """PADDLE_TPU_OBS / obs= (the JAX `resolve_obs_flag`): on|off."""
-    if override is not None:
-        return bool(override)
-    v = os.environ.get("PADDLE_TPU_OBS")
-    if v is None:
-        return False        # the JAX default (on) is absent here
-    if v not in ("on", "off"):
-        raise ValueError(f"PADDLE_TPU_OBS must be one of ('on', 'off'), "
-                         f"got {v!r}")
-    return v == "on"
-
-
-def _slo_on(override) -> bool:
-    """PADDLE_TPU_SLO / slo= (the JAX `resolve_slo_config`): "off", or
-    "on" / "" / a comma-separated k=v list over the SLO keys."""
-    if override is False:
-        return False
-    if override is not None and not isinstance(override, str):
-        return True         # True or an SLOConfig
-    spec = override if override is not None else \
-        os.environ.get("PADDLE_TPU_SLO")
-    if spec is None:
-        return False        # the JAX default (on) is absent here
-    spec = spec.strip()
-    if spec == "off":
-        return False
-    if spec not in ("", "on"):
-        for part in spec.split(","):
-            k, eq, v = part.partition("=")
-            if not eq:
-                raise ValueError(f"PADDLE_TPU_SLO: expected k=v, got "
-                                 f"{part!r} in {spec!r}")
-            if k.strip() not in _SLO_KEYS:
-                raise ValueError(f"PADDLE_TPU_SLO: unknown key {k!r} "
-                                 f"(known: {', '.join(_SLO_KEYS)})")
-            float(v)
-    return True
-
-
-def _cost_census_on(override) -> bool:
-    """PADDLE_TPU_COST_CENSUS / cost_census= (the JAX
-    `resolve_cost_census`): off|model|lowered|xla."""
-    if override is False:
-        return False
-    if override is True:
-        return True
-    v = override if override is not None else \
-        os.environ.get("PADDLE_TPU_COST_CENSUS")
-    if v is None:
-        return False        # the JAX default ("model") is absent here
-    if v not in _COST_CENSUS_MODES:
-        raise ValueError(f"PADDLE_TPU_COST_CENSUS must be one of "
-                         f"{_COST_CENSUS_MODES}, got {v!r}")
-    return v != "off"
-
-
 # gate -> (its resolver, what it serves)
 _UNPORTED_GATES = {
     "mesh": (_mesh_on, "tensor-parallel serving (PADDLE_TPU_MESH)"),
     "grammar": (_grammar_on,
                 "grammar-constrained decoding (PADDLE_TPU_GRAMMAR)"),
-    "obs": (_obs_on, "the flight recorder and request tracer "
-                     "(PADDLE_TPU_OBS)"),
-    "slo": (_slo_on, "the SLO tracker (PADDLE_TPU_SLO)"),
-    "cost_census": (_cost_census_on,
-                    "the compiled-step cost census (PADDLE_TPU_COST_CENSUS)"),
 }
 
 
 def resolve_unported_gates(**overrides):
     """Resolve the JAX engine's gates of features the port lacks (mesh,
-    grammar, obs, slo, cost_census), each from its keyword or,
+    grammar), each from its keyword or,
     when that is None, its environment variable, by the JAX rules: a bad
     spelling raises ValueError, and a gate that comes out on raises
     NotImplementedError naming the ROADMAP item."""
@@ -359,6 +344,15 @@ def resolve_kv_dtype(override=None) -> str:
             f"(PADDLE_TPU_KV_DTYPE / ServingEngine(kv_dtype=...)), "
             f"got {v!r}")
     return v
+
+
+def _device_fault(exc: BaseException) -> bool:
+    """A CUDA error (a refused or failed launch, a sticky fault of the
+    context) rather than a fault raised on the host before a launch:
+    never poison, since the context may be unusable."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return ((accel is not None and isinstance(exc, accel))
+            or "CUDA error" in str(exc))
 
 
 class _SwapHandle:
@@ -544,10 +538,10 @@ class ServingEngine:
                  kv_dtype=None, spec=None, grammar=None, adapters=None,
                  adapter_pages: Optional[int] = None,
                  adapter_ranks: Optional[Sequence[int]] = None,
-                 mesh=None, megakernel=None, obs=None, slo=None,
+                 mesh=None, megakernel=None, obs=None,
+                 flight_steps: Optional[int] = None, slo=None,
                  cost_census=None, draft_pages: Optional[int] = None):
-        resolve_unported_gates(mesh=mesh, grammar=grammar, obs=obs, slo=slo,
-                               cost_census=cost_census)
+        resolve_unported_gates(mesh=mesh, grammar=grammar)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -727,7 +721,46 @@ class ServingEngine:
         self._vec_dev: Optional[tuple] = None          # None = re-upload
         self._all_greedy = True
         self._closed = False     # drain() flips it; add_request refuses
+        # liveness hook (the driver's): called at every step boundary and
+        # around each round's launches, with the tokens of the launch in
+        # flight in `step_tokens_inflight` (0 between launches)
+        self.heartbeat_hook = None
+        self.step_tokens_inflight = 0
+        # fault hook: called with a round's participant request ids before
+        # the round's first launch; a raise aborts the round with nothing
+        # mutated, and a hook that raises for one request id is a
+        # poisoned request (see the module doc)
+        self.step_fault_hook = None
+        # per-request host spans, begun at admission (request id -> span)
+        self._spans: Dict[str, RecordEvent] = {}
+        # the request tracer and flight recorder (None with the gate off)
+        self.obs = (EngineObs(flight_steps=flight_steps, clock=self._clock)
+                    if resolve_obs_flag(obs) else None)
+        slo_cfg = resolve_slo_config(slo)
+        self.slo = (SLOTracker(slo_cfg, clock=self._clock,
+                               on_transition=self._on_slo_transition,
+                               track_adapters=self.adapters is not None)
+                    if slo_cfg is not None else None)
+        self.metrics.slo = self.slo
+        # the cost census: captured at most once (`cost_census()`)
+        self.census_mode = resolve_cost_census(cost_census)
+        self._census: Optional[dict] = None
+        self._census_captures = 0
+        self._census_lock = threading.Lock()
+        # the last unified step's modeled page-walk bytes (the census's
+        # "page_walk" record) and the adapter bytes one row streams
+        self._last_walk_bytes: Optional[dict] = None
+        self._adapter_row_bytes = 0
+        if self.adapters is not None:
+            ad = self.adapters
+            self._adapter_row_bytes = int(
+                (ad.hidden * ad.rank + ad.rank * ad.q_out)
+                * ad.dtype.itemsize)
+        self.step_capacity_tokens = self.num_slots * self.chunk_len
         self._step_idx = 0       # engine rounds run (debug_state's step)
+        # the running round's token split and wall time, read by the
+        # flight record
+        self._round_stats = self._new_round_stats()
 
     def _new_pools(self) -> tuple:
         """One layer's zeroed (k, v, k_scale | None, v_scale | None)."""
@@ -742,6 +775,131 @@ class ServingEngine:
                     zeros(shape, torch.uint8).view(FP8_DTYPE), None, None)
         return (zeros(shape, self.model.dtype),
                 zeros(shape, self.model.dtype), None, None)
+
+    # -- observability -----------------------------------------------------
+    @staticmethod
+    def _new_round_stats() -> dict:
+        return {"prefill_tokens": 0, "decode_tokens": 0, "draft_tokens": 0,
+                "accepted_tokens": 0, "draft_seed_tokens": 0,
+                "reads_saved": 0, "wall_s": 0.0}
+
+    def _obs_event(self, req: Request, kind: str, **detail):
+        """Record one request-timeline event (a no-op with obs off)."""
+        if self.obs is not None:
+            detail.setdefault("slot", req.slot)
+            self.obs.tracer.record(req.request_id, kind, t=self._clock(),
+                                   step=self._step_idx, **detail)
+
+    def _on_slo_transition(self, tr: dict):
+        """An SLO series changed alert state: a note in the flight ring,
+        so an incident dump shows the SLO burning among the steps."""
+        if self.obs is not None:
+            where = (tr["scope"] if not tr["label"]
+                     else f"{tr['scope']}:{tr['label']}")
+            self.obs.flight.note(
+                f"slo:{tr['to']}",
+                f"{tr['slo']}[{where}] {tr['from']}->{tr['to']} "
+                f"burn fast={tr['fast_burn']} slow={tr['slow_burn']}")
+
+    def _slo_snap(self) -> Optional[dict]:
+        return None if self.slo is None else self.slo.snapshot()
+
+    def _incident(self, kind: str, detail: str):
+        if self.obs is not None:
+            self.obs.flight.incident(kind, detail=detail,
+                                     step=self._step_idx,
+                                     slo=self._slo_snap())
+
+    def _beat(self):
+        hook = self.heartbeat_hook
+        if hook is not None:
+            hook()
+
+    def _end_span(self, req: Request):
+        span = self._spans.pop(req.request_id, None)
+        if span is not None:
+            span.end()
+
+    def cost_census(self) -> Optional[dict]:
+        """The step cost census (None with the gate off): FLOPs and bytes
+        of the unified step's program capacity, captured at most once
+        ("model" right after the first round; "lowered"/"xla" here, at
+        the first read). The record also carries the KV fabric's wire
+        counters (zero: the fabric is not ported) and the last unified
+        step's modeled page-walk bytes, refreshed on each read, and is
+        pushed into the metrics snapshot."""
+        if self.census_mode == "off":
+            return None
+        with self._census_lock:
+            if self._census is None:
+                self._capture_census()
+            self._census["fabric"] = {"pages_sent": 0, "bytes_sent": 0,
+                                      "pages_recv": 0, "bytes_recv": 0}
+            if self._last_walk_bytes is not None:
+                wb = self._last_walk_bytes
+                tok = max(1, int(wb["tokens"]))
+                self._census["page_walk"] = {
+                    "megakernel": self.megakernel,
+                    "modeled_step_bytes": {"unfused": wb["unfused"],
+                                           "fused": wb["fused"]},
+                    "modeled_bytes_per_token": {
+                        "unfused": wb["unfused"] / tok,
+                        "fused": wb["fused"] / tok},
+                }
+        self.metrics.cost_census = self._census
+        return self._census
+
+    def _capture_census(self):
+        """Build the census record (callers hold _census_lock). Only the
+        unified step has a counted forward; a legacy engine's record is
+        the model's, as in the JAX engine."""
+        tensors = list(self.model.parameters()) + list(self.model.buffers())
+        n_params = sum(t.numel() for t in tensors)
+        param_bytes = sum(t.numel() * t.element_size() for t in tensors)
+        cfg = getattr(self.model, "config", None)
+        fallback = model_cost_census(
+            n_params=n_params, param_bytes=param_bytes,
+            num_slots=self.num_slots, chunk_len=self.chunk_len,
+            max_pages=self.max_pages, page_bytes=self.page_bytes,
+            n_heads=int(getattr(cfg, "num_attention_heads", self.n_kv)),
+            head_dim=self.head_dim, page_size=self.page_size)
+        counted = self.unified and self.census_mode in ("lowered", "xla")
+        self._census = capture_cost_census(
+            self.census_mode, self._census_forward if counted else None,
+            self._census_operands() if counted else None,
+            capacity_tokens=self.step_capacity_tokens, fallback=fallback)
+        self._census_captures += 1
+
+    def _census_operands(self) -> tuple:
+        """The unified step's operands at its full shape, every row
+        prefilling chunk_len tokens at position 0 through a page table of
+        trash pages, so the counted forward writes the trash page only."""
+        S, W, dev = self.num_slots, self.chunk_len, self.device
+        q_len = np.full((S,), W, np.int32)
+        table = np.full((S, self.max_pages), TRASH_PAGE, np.int32)
+        group = (None if not self.grouped else tuple(
+            torch.from_numpy(np.stack(shared_prefix_groups(table, q_len)))
+            .to(dev).unbind(0)))
+        lora = None
+        if self.adapters is not None:
+            zero = torch.zeros((S,), dtype=torch.int32, device=dev)
+            lora = (self.adapters.pools, zero, zero.float())
+        return (torch.zeros((S, W), dtype=torch.int64, device=dev),
+                torch.zeros((S,), dtype=torch.int32, device=dev),
+                torch.from_numpy(table).to(dev),
+                torch.from_numpy(q_len).to(dev),
+                torch.zeros((S,), dtype=torch.bool, device=dev),
+                group, lora)
+
+    @torch.no_grad()
+    def _census_forward(self, tokens, pos, page_table, q_len, is_decode,
+                        group, lora):
+        """One forward of the unified step for the census: its held
+        logits are dropped, and no position, cursor or held logit
+        moves."""
+        unified_forward(self.model, self._pools, tokens, pos, page_table,
+                        q_len, is_decode, self._last_logits, group,
+                        self.attn_impl, lora, self.megakernel)
 
     # -- request intake ----------------------------------------------------
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams]
@@ -792,6 +950,9 @@ class ServingEngine:
         self.metrics.on_submit(req)
         if self.adapters is not None:
             self.metrics.on_adapter_request(aid)
+        self._obs_event(req, "submit", prompt_len=int(prompt.size),
+                        priority=int(sampling.priority),
+                        queue_depth=self.scheduler.queue_depth)
         return req
 
     def cancel(self, request_id: str) -> bool:
@@ -831,6 +992,8 @@ class ServingEngine:
 
     def _finish_and_free(self, req: Request, reason: str, now: float,
                          finished: List[RequestOutput]):
+        self._obs_event(req, _TERMINAL_EVENT.get(reason, reason),
+                        cause=reason, tokens=len(req.output_tokens))
         if req.slot is not None:
             slot = req.slot
             self._free_slot(slot)
@@ -843,6 +1006,7 @@ class ServingEngine:
         self._release_swap(req)   # preempted and never resumed
         self._prefill_cursor.pop(req.request_id, None)
         self._drafters.pop(req.request_id, None)
+        self._end_span(req)
         self._requests.pop(req.request_id, None)
         req._finish(reason, now)
         self.metrics.on_finish(req, now)
@@ -872,6 +1036,9 @@ class ServingEngine:
                 f"request {req.request_id} missed its placement deadline "
                 f"({req.sampling.deadline_s}s) while queued")
             self._finish_and_free(req, "deadline", now, finished)
+            # the 504 fail-fast freezes the ring: the postmortem shows
+            # what the engine was doing while the request starved
+            self._incident("deadline", req.request_id)
         for req in self.scheduler.expired(now):
             if req.state in (RequestState.QUEUED, RequestState.PREEMPTED):
                 self.scheduler.drop_queued(req)
@@ -1015,6 +1182,9 @@ class ServingEngine:
         for slot, req in self.scheduler.assign(reserve=self._reserve):
             req.state = RequestState.PREFILL
             req.admitted_t = now
+            span = RecordEvent(f"serving::request[{req.request_id}]")
+            span.begin()
+            self._spans[req.request_id] = span
             self._slot_pages[slot] = req.pages
             self._pt_host[slot, :] = TRASH_PAGE
             self._pt_host[slot, :len(req.pages)] = req.pages
@@ -1024,10 +1194,15 @@ class ServingEngine:
                 # the page is stable while the slot holds its reference
                 self._apage[slot], self._ascale[slot] = req._adapter_binding
                 self._adp_dev = None
+            self._obs_event(req, "admit", pages=len(req.pages or ()),
+                            cached_tokens=int(req.cached_tokens),
+                            resumed=req._swap is not None)
             # a resumed request's banked KV comes back from the host
             # tier before any prefill touches the slot
             if req._swap is not None:
+                n_restore = len(req._swap.restores)
                 self._apply_swap_in(req)
+                self._obs_event(req, "swap_in", pages=n_restore)
             # prefill starts at the first uncached token
             self._pos[slot] = req.cached_tokens
             grant = req._prefix_grant
@@ -1069,6 +1244,7 @@ class ServingEngine:
         # the drafter goes and the draft pages went with the slot: resume
         # makes a new drafter and re-seeds the draft K/V from the history
         self._drafters.pop(req.request_id, None)
+        self._end_span(req)
         grant = req._prefix_grant
         base = grant.matched_full_pages if grant is not None else 0
         shared, private = pages[:base], pages[base:]
@@ -1097,6 +1273,9 @@ class ServingEngine:
         req.preemptions += 1
         self.scheduler.requeue(req)
         self.metrics.on_preempt(len(kept))
+        self._obs_event(req, "preempt", slot=slot, cause="overload",
+                        pages=len(kept), kv_len=kv_len,
+                        tokens=len(req.output_tokens))
 
     def _preempt_for_overload(self, now: float):
         """After admission, a still-queued head means backpressure —
@@ -1119,7 +1298,7 @@ class ServingEngine:
     def _copy_page(self, src: int, dst: int):
         """Copy-on-write: one page of every layer's K and V pool (and,
         for int8, of its scale pools)."""
-        with record_function(f"serving::cow_copy[{src}->{dst}]"):
+        with RecordEvent(f"serving::cow_copy[{src}->{dst}]"):
             for plane in self._planes:
                 for k, v in plane:
                     k[dst].copy_(k[src])
@@ -1136,7 +1315,7 @@ class ServingEngine:
         them."""
         if not pages:
             return []
-        with record_function(f"serving::swap_out[{len(pages)}]"):
+        with RecordEvent(f"serving::swap_out[{len(pages)}]"):
             idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
             blocks = [torch.stack([torch.stack((k.index_select(0, idx),
                                                 v.index_select(0, idx)), 1)
@@ -1148,7 +1327,7 @@ class ServingEngine:
     def _restore_pages(self, payloads: List[tuple], dsts: List[int]):
         """Host -> device: write payloads of `_extract_pages` into device
         pages `dsts` of every layer's pools, one index_copy_ per pool."""
-        with record_function(f"serving::swap_in[{len(dsts)}]"):
+        with RecordEvent(f"serving::swap_in[{len(dsts)}]"):
             idx = torch.tensor(dsts, dtype=torch.int64, device=self.device)
             for p, plane in enumerate(self._planes):
                 block = torch.stack([data[p].to(self.device,
@@ -1306,6 +1485,8 @@ class ServingEngine:
                     self.metrics.on_inter_token(
                         dt, priority=sp.priority, adapter_id=sp.adapter_id,
                         now=now)
+            else:
+                self._obs_event(req, "first_token")
             if m:
                 drafted += m
                 accepted += emitted - 1
@@ -1315,6 +1496,7 @@ class ServingEngine:
                 self._finish_and_free(req, reason, now, finished)
         if accept is not None and bursts:
             self.metrics.on_spec(drafted, accepted, bursts)
+            self._round_stats["accepted_tokens"] += accepted
 
     # -- speculative decoding ----------------------------------------------
     @staticmethod
@@ -1323,18 +1505,21 @@ class ServingEngine:
         return np.concatenate([req.prompt_ids.astype(np.int64),
                                np.asarray(req.output_tokens, np.int64)])
 
-    def _propose_drafts(self, running) -> Dict[int, np.ndarray]:
+    def _propose_drafts(self, running, suppress=frozenset()
+                        ) -> Dict[int, np.ndarray]:
         """Ask each greedy DECODE slot's drafter for up to
         min(k, chunk_len - 1, max_new - emitted - 1) drafts over its
         committed history. The cap keeps every transient K/V write in
         the request's own pages: the deepest draft lands at position
         prompt + max_new - 1, the last one admission reserved. The
         model tier's rows draft together (`_propose_model_rows`).
-        Returns {slot: proposed token ids}."""
+        Slots in `suppress` do not draft. Returns {slot: proposed token
+        ids}."""
         proposals: Dict[int, np.ndarray] = {}
         model_rows: Dict[int, tuple] = {}
         for slot, req in sorted(running.items()):
-            if req.state is not RequestState.DECODE or not req.sampling.greedy:
+            if (req.state is not RequestState.DECODE or slot in suppress
+                    or not req.sampling.greedy):
                 continue
             drafter = self._drafters.get(req.request_id)
             if drafter is None:
@@ -1398,15 +1583,16 @@ class ServingEngine:
                 proposals[slot] = p
         return proposals
 
-    def _draft_seed_step(self, running, decode_slots, grants, draft_grants,
-                         proposals):
+    def _draft_seed_step(self, running, suppress, decode_slots, grants,
+                         draft_grants, proposals):
         """Warm lagging slots' draft K/V from the step's spare token
         budget (what decode, prefill and drafts left:
         `Scheduler.pack_draft_seed`), every seeding slot in one ragged
         draft forward. PREFILL rows seed from `prefill_ids` (a resumed
         request's banked history is its tail), DECODE rows from prompt +
-        emitted. Slots that drafted this step are skipped: their draft
-        position is ahead of the committed stream, not behind it."""
+        emitted. Slots that drafted this step are skipped (their draft
+        position is ahead of the committed stream, not behind it), and so
+        are slots in `suppress`."""
         d = self._draft
         spare = (self.token_budget - len(decode_slots)
                  - sum(grants.values()) - sum(draft_grants.values()))
@@ -1415,7 +1601,7 @@ class ServingEngine:
         wanted: Dict[int, int] = {}
         src: Dict[int, np.ndarray] = {}
         for slot, req in sorted(running.items()):
-            if slot in proposals or not isinstance(
+            if slot in suppress or slot in proposals or not isinstance(
                     self._drafters.get(req.request_id), ModelDrafter):
                 continue
             if req.state is RequestState.PREFILL:
@@ -1437,8 +1623,11 @@ class ServingEngine:
         if not wanted:
             return
         seeds = self.scheduler.pack_draft_seed(spare, self.chunk_len, wanted)
-        d.seed({slot: src[slot][:take] for slot, take in seeds.items()
-                if take > 0})
+        entries = {slot: src[slot][:take] for slot, take in seeds.items()
+                   if take > 0}
+        d.seed(entries)
+        self._round_stats["draft_seed_tokens"] += sum(
+            int(v.size) for v in entries.values())
 
     @staticmethod
     def _head_columns(q_len: np.ndarray, is_decode: np.ndarray
@@ -1463,7 +1652,11 @@ class ServingEngine:
                                np.asarray(cols, np.int64), first])
 
     @torch.no_grad()
-    def _unified_step(self, finished: List[RequestOutput]):
+    def _unified_step(self, finished: List[RequestOutput],
+                      suppress=frozenset()):
+        """One unified step (see the module doc). Slots in `suppress`
+        ride at q_len 0 with no drafts (quarantine probes): their
+        positions, cursors, held logits and pages stay as they were."""
         running = self.scheduler.running
         if not running:
             return
@@ -1472,23 +1665,31 @@ class ServingEngine:
             slot: int(req.prefill_ids.size)
             - self._prefill_cursor[req.request_id]
             for slot, req in running.items()
-            if req.state is RequestState.PREFILL}
+            if req.state is RequestState.PREFILL and slot not in suppress}
         proposals: Dict[int, np.ndarray] = {}
         draft_grants: Dict[int, int] = {}
         if self.spec is None:
             decode_slots, grants = self.scheduler.pack_tokens(
                 self.token_budget, W, remaining)
         else:
-            proposals = self._propose_drafts(running)
+            proposals = self._propose_drafts(running, suppress)
             decode_slots, grants, draft_grants = self.scheduler.pack_tokens(
                 self.token_budget, W, remaining,
                 draft_wanted={s: int(p.size) for s, p in proposals.items()})
+        if suppress:
+            decode_slots = [s for s in decode_slots if s not in suppress]
+            draft_grants = {s: n for s, n in draft_grants.items()
+                            if s not in suppress}
         if not decode_slots and not grants:
             return
+        if self.step_fault_hook is not None:
+            self.step_fault_hook(
+                [running[s].request_id for s in decode_slots]
+                + [running[s].request_id for s in sorted(grants)])
         if self._draft is not None:
             # the draft cache's warming rides the leftover budget, a draft
             # forward of its own before the target step
-            self._draft_seed_step(running, decode_slots, grants,
+            self._draft_seed_step(running, suppress, decode_slots, grants,
                                   draft_grants, proposals)
         tokens = np.zeros((self.num_slots, W), np.int64)
         q_len = np.zeros((self.num_slots,), np.int32)
@@ -1505,22 +1706,39 @@ class ServingEngine:
             q_len[slot] = take
         # prefix-sharing groups of this step's walk, and the page-block
         # reads both walks would issue (per kv head and layer)
+        # the fused-byte model's inputs (the census's page-walk record):
+        # the pools' element widths and the adapter rows' stream bytes
+        kv_elt = (1 if self.kv_dtype in ("int8", "fp8")
+                  else self.model.dtype.itemsize)
+        lora_rows = (int(np.count_nonzero(self._apage[q_len > 0]))
+                     if self.adapters is not None else 0)
+        fused = dict(head_dim=self.head_dim, kv_elt=kv_elt,
+                     scale_elt=4 if self.kv_dtype == "int8" else 0,
+                     lora_bytes=lora_rows * self._adapter_row_bytes)
         groups = None
         if self.grouped:
             groups = shared_prefix_groups(self._pt_host, q_len)
-            flat, reads, sizes = count_page_block_reads(
+            flat, reads, sizes, walk = count_page_block_reads(
                 self._pt_host, self._pos, q_len, groups[0], groups[2],
-                page_size=self.page_size)
+                page_size=self.page_size, fused=fused)
         else:
-            flat, reads, sizes = count_page_block_reads(
-                self._pt_host, self._pos, q_len, page_size=self.page_size)
+            flat, reads, sizes, walk = count_page_block_reads(
+                self._pt_host, self._pos, q_len, page_size=self.page_size,
+                fused=fused)
         self.metrics.on_grouped_step(flat, reads, sizes)
+        self._last_walk_bytes = {
+            "unfused": int(walk["unfused"]) * self.n_layers,
+            "fused": int(walk["fused"]) * self.n_layers,
+            "tokens": int(q_len.sum())}
+        self._round_stats["reads_saved"] += int(flat) - int(reads)
         self._sampling_vectors()     # host-to-device rebuilds, untimed
         lora = self._adapter_operands()
         head = (None if self.spec is None
                 else self._head_columns(q_len, is_decode))
+        self.step_tokens_inflight = int(q_len.sum())
+        self._beat()
         t0 = time.perf_counter()
-        with record_function("serving::unified_step"):
+        with RecordEvent("serving::unified_step"):
             dev = self.device
             isd = torch.from_numpy(is_decode).to(dev)
             ql = torch.from_numpy(q_len).to(dev)
@@ -1545,24 +1763,34 @@ class ServingEngine:
                     (nxt.to(torch.int64), accept.to(torch.int64))
                 ).cpu().numpy()
         wall = time.perf_counter() - t0
+        self.step_tokens_inflight = 0
+        self._beat()
         if head is None:
             self._pos += q_len
         else:
             self._pos += np.where(is_decode, 1 + accept, q_len).astype(
                 np.int32)
         n_prefill = int(sum(grants.values()))
+        n_drafts = int(sum(draft_grants.values()))
         self.metrics.on_unified_step(n_prefill, len(decode_slots), wall,
-                                     draft_tokens=sum(draft_grants.values()))
+                                     draft_tokens=n_drafts)
+        rs = self._round_stats
+        rs["prefill_tokens"] += n_prefill
+        rs["decode_tokens"] += len(decode_slots)
+        rs["draft_tokens"] += n_drafts
+        rs["wall_s"] += wall
         for slot, take in grants.items():
             req = running[slot]
             cur = self._prefill_cursor[req.request_id] + take
             self._prefill_cursor[req.request_id] = cur
             self.metrics.on_prefill_chunk(take)
+            self._obs_event(req, "prefill_chunk", tokens=take, cursor=cur)
             if cur >= req.prefill_ids.size:
                 # the last prefilled token's logits are held: the row
                 # samples its next token next step
                 self._prefill_cursor.pop(req.request_id, None)
                 req.state = RequestState.DECODE
+                self._obs_event(req, "decode")
         if head is None:
             self._emit_tokens(decode_slots, nxt, finished)
         else:
@@ -1597,50 +1825,71 @@ class ServingEngine:
         tokens[0, :real] = req.prefill_ids[cursor:cursor + real]
         self.prefill_buckets.add(bucket)
         dev = self.device
+        self.step_tokens_inflight = int(bucket)
+        self._beat()
         t0 = time.perf_counter()
-        with record_function(f"serving::prefill[{req.request_id}"
-                             f"@{cursor}+{bucket}]"):
+        with RecordEvent(f"serving::prefill[{req.request_id}"
+                         f"@{cursor}+{bucket}]"):
             row = self._prefill_forward(
                 torch.from_numpy(tokens).to(dev),
                 torch.tensor([cursor], dtype=torch.int32, device=dev),
                 self._page_table()[slot:slot + 1],
                 torch.tensor([real - 1], device=dev))
             self._last_logits[slot] = row[0]
+        wall = time.perf_counter() - t0
+        self.step_tokens_inflight = 0
+        self._beat()
         self._pos[slot] = cursor + real
         self._prefill_cursor[req.request_id] = cursor + real
-        self.metrics.on_prefill_chunk(real, wall_s=time.perf_counter() - t0)
+        self.metrics.on_prefill_chunk(real, wall_s=wall)
+        self._round_stats["prefill_tokens"] += real
+        self._obs_event(req, "prefill_chunk", tokens=real,
+                        cursor=cursor + real)
 
-    def _advance_prefills(self) -> int:
-        """One chunk for EACH mid-prefill slot, in slot order; a slot
-        whose prompt is done turns to DECODE. Returns the chunks run."""
+    def _advance_prefills(self, suppress=frozenset()) -> int:
+        """One chunk for EACH mid-prefill slot not in `suppress`, in slot
+        order, each after the fault hook with its request; a slot whose
+        prompt is done turns to DECODE. Returns the chunks run."""
         chunks = 0
         for slot, req in sorted(self.scheduler.running.items()):
-            if req.state is not RequestState.PREFILL:
+            if req.state is not RequestState.PREFILL or slot in suppress:
                 continue
+            if self.step_fault_hook is not None:
+                self.step_fault_hook([req.request_id])
             self._prefill_chunk(slot, req)
             chunks += 1
             if self._prefill_cursor[req.request_id] >= req.prefill_ids.size:
                 self._prefill_cursor.pop(req.request_id, None)
                 req.state = RequestState.DECODE
+                self._obs_event(req, "decode")
         return chunks
 
     @torch.no_grad()
-    def _decode(self, finished: List[RequestOutput]):
+    def _decode(self, finished: List[RequestOutput], suppress=frozenset()):
         """The fixed-shape decode step over every slot: sample each
         slot's token from its held logits (token 0 for rows not in
         DECODE), forward all slots one position through a page table
         that points every non-DECODE row at the trash page, keep the new
-        logits of DECODE rows and advance only their positions."""
+        logits of DECODE rows and advance only their positions. Slots in
+        `suppress` are inactive for this call (quarantine probes): their
+        writes go to the trash page and their held logits and positions
+        stay."""
         running = self.scheduler.running
         active = np.zeros((self.num_slots,), bool)
         for slot, req in running.items():
-            active[slot] = req.state is RequestState.DECODE
+            active[slot] = (req.state is RequestState.DECODE
+                            and slot not in suppress)
         if not active.any():
             return
+        if self.step_fault_hook is not None:
+            self.step_fault_hook([r.request_id for s, r in sorted(
+                running.items()) if active[s]])
         dev = self.device
         self._sampling_vectors()     # host-to-device rebuild, untimed
+        self.step_tokens_inflight = int(active.sum())
+        self._beat()
         t0 = time.perf_counter()
-        with record_function("serving::decode_step"):
+        with RecordEvent("serving::decode_step"):
             act = torch.from_numpy(active).to(dev)
             table = torch.from_numpy(np.where(
                 active[:, None], self._pt_host, TRASH_PAGE).astype(
@@ -1652,34 +1901,104 @@ class ServingEngine:
                                             self._last_logits)
             nxt = nxt.cpu().numpy()      # sync: the host sees the tokens
         wall = time.perf_counter() - t0
+        self.step_tokens_inflight = 0
+        self._beat()
         self._pos += active.astype(np.int32)
         self.metrics.on_decode_step(wall)
+        self._round_stats["decode_tokens"] += int(active.sum())
+        self._round_stats["wall_s"] += wall
         self._emit_tokens(np.nonzero(active)[0], nxt, finished)
 
-    def _run_round(self, finished: List[RequestOutput]) -> int:
+    def _run_round(self, finished: List[RequestOutput],
+                   suppress=frozenset()) -> int:
         """One round's model work: the unified step, or the legacy
-        prefill chunks then the decode step. Returns the prefill chunks
-        run ahead of the decode (legacy only)."""
+        prefill chunks then the decode step, with the slots in
+        `suppress` idle (positions, held logits and prefill cursors
+        untouched): `_quarantine_poison`'s probes. Returns the prefill
+        chunks run ahead of the decode (legacy only)."""
         if self.unified:
-            self._unified_step(finished)
+            self._unified_step(finished, suppress)
             return 0
-        chunks = self._advance_prefills()
-        self._decode(finished)
+        chunks = self._advance_prefills(suppress)
+        self._decode(finished, suppress)
         return chunks
+
+    def _quarantine_poison(self, finished: List[RequestOutput]) -> bool:
+        """A round raised: find the one resident request that
+        deterministically kills the step, fail it alone (finish reason
+        "poisoned", `PoisonedRequest`) and keep serving everyone else.
+        Group-testing bisection over the resident slots: each probe
+        re-runs the round with half the candidates suppressed; a probe
+        that raises exonerates the suppressed half, one that succeeds
+        convicts it (and the innocents it ran made progress). The
+        verdict is checked (a round without the suspect must succeed);
+        an empty batch or a fault that tracks no single request returns
+        False, and the original exception propagates. A CUDA error in a
+        probe propagates at once. Assumes deterministic faults, the
+        shape `FaultInjector.poison` injects."""
+        candidates = sorted(self.scheduler.running)
+        if not candidates:
+            return False
+        while len(candidates) > 1:
+            half = frozenset(candidates[:len(candidates) // 2])
+            try:
+                self._run_round(finished, suppress=half)
+            except Exception as exc:
+                if _device_fault(exc):
+                    raise
+                survivors = [s for s in candidates if s not in half]
+            else:
+                survivors = list(half)
+            candidates = [s for s in survivors
+                          if s in self.scheduler.running]
+            if not candidates:
+                return False
+        slot = candidates[0]
+        req = self.scheduler.running.get(slot)
+        if req is None:
+            return False
+        try:     # the verdict: the round must succeed without it
+            self._run_round(finished, suppress=frozenset([slot]))
+        except Exception as exc:
+            if _device_fault(exc):
+                raise
+            return False
+        req.error = PoisonedRequest(
+            f"request {req.request_id} deterministically kills the "
+            "serving step; quarantined")
+        self._finish_and_free(req, "poisoned", self._clock(), finished)
+        return True
 
     def step(self) -> List[RequestOutput]:
         """One scheduler round: evict (timeout / cancel / expired
         placement deadline), admit queued requests whose pages fit,
         preempt for a strictly more important blocked head, then run the
-        round's model work (`_run_round`). Returns the requests that
+        round's model work (`_run_round`). A round that raises freezes
+        the flight ring and goes through poison quarantine: if exactly
+        one resident deterministically kills the step, it alone fails
+        and the engine keeps serving; otherwise (or on a CUDA error) the
+        exception propagates as replica death. Then the metrics, the
+        census (once) and the flight record. Returns the requests that
         finished this round."""
         finished: List[RequestOutput] = []
+        self._beat()
         self._step_idx += 1
+        self._round_stats = self._new_round_stats()
         now = self._clock()
         self._evict(now, finished)
         self._admit(now)
         self._preempt_for_overload(now)
-        chunks = self._run_round(finished)
+        chunks = 0
+        try:
+            chunks = self._run_round(finished)
+        except Exception as exc:
+            # the ring freezes before recovery runs: whatever quarantine
+            # decides, the postmortem keeps the steps that led here
+            self._incident("step_fault", repr(exc))
+            if _device_fault(exc) or not self._quarantine_poison(finished):
+                self._incident("replica_death", repr(exc))
+                raise
+            self._incident("poison_quarantine", repr(exc))
         self.metrics.on_step(self.scheduler.queue_depth,
                              self.scheduler.occupancy, self.num_slots,
                              pages_used=self.pool.used_pages,
@@ -1699,7 +2018,56 @@ class ServingEngine:
                                            else self.prefix_cache.stats()),
                              adapter_stats=(None if self.adapters is None
                                             else self.adapters.stats()))
+        # the analytical census is taken right after the first round (the
+        # counted sources wait for the first `cost_census()` read)
+        if self._census is None and self.census_mode == "model":
+            self.cost_census()
+        if self.obs is not None:
+            self.obs.flight.on_step(self._flight_record())
         return finished
+
+    def _flight_record(self) -> dict:
+        """This step's flight record, the JAX engine's keys, from host
+        values the step already holds (no device read)."""
+        rs = self._round_stats
+        running = self.scheduler.running
+        packed = (rs["prefill_tokens"] + rs["decode_tokens"]
+                  + rs["draft_tokens"])
+        rec = {
+            "step": self._step_idx, "t": self._clock(),
+            "queue_depth": self.scheduler.queue_depth,
+            "residents": len(running),
+            "slots": [[s, r.request_id, r.state.name]
+                      for s, r in sorted(running.items())],
+            "prefill_tokens": rs["prefill_tokens"],
+            "decode_tokens": rs["decode_tokens"],
+            "draft_tokens": rs["draft_tokens"],
+            "accepted_tokens": rs["accepted_tokens"],
+            # packed tokens over the step's capacity (the census's
+            # live numerator)
+            "achieved_util": round(packed / self.step_capacity_tokens, 4)}
+        if self.slo is not None:
+            rec["slo"] = self.slo.worst_state()
+        rec.update({
+            "reads_saved": rs["reads_saved"],
+            "pages_used": self.pool.used_pages,
+            "pages_total": self.num_pages - 1,
+            "pages_cached": self.pool.cached_pages,
+            "pages_swapped": self.pool.swapped_pages,
+            "host_pages_used": self.host_pool.used_pages})
+        if self._draft is not None:
+            rec.update({"draft_pages_used": self._draft.pool.used_pages,
+                        "draft_pages_total": self._draft.num_pages - 1,
+                        "draft_seed_tokens": rs["draft_seed_tokens"]})
+        rec["collectives"] = 0          # one device: no mesh collectives
+        rec["step_wall_ms"] = round(rs["wall_s"] * 1e3, 4)
+        if self.adapters is not None:
+            rec["slot_adapters"] = sorted(
+                [s, int(r.sampling.adapter_id)] for s, r in running.items()
+                if r.sampling.adapter_id != BASE_ADAPTER)
+            rec["adapters_resident"] = (self.adapters.pool.used_pages
+                                        + self.adapters.pool.cached_pages)
+        return rec
 
     # -- shutdown ----------------------------------------------------------
     @property
@@ -1737,11 +2105,18 @@ class ServingEngine:
         self._closed = True
         finished: List[RequestOutput] = []
         now = self._clock()
-        for req in self.scheduler.pop_queued():
-            self._finish_and_free(req, reason, now, finished)
-        for slot in sorted(self.scheduler.running):
-            self._finish_and_free(self.scheduler.running[slot], reason, now,
-                                  finished)
+        try:
+            for req in self.scheduler.pop_queued():
+                self._finish_and_free(req, reason, now, finished)
+            for slot in sorted(self.scheduler.running):
+                self._finish_and_free(self.scheduler.running[slot], reason,
+                                      now, finished)
+        finally:
+            # a teardown that raises midway (a torn pool after a mid-step
+            # fault) still closes every request's span
+            for span in self._spans.values():
+                span.end()
+            self._spans.clear()
         self._assert_quiesced()
         return finished
 
@@ -1758,10 +2133,11 @@ class ServingEngine:
     def debug_state(self) -> dict:
         """Host-side live state, with the JAX engine's keys: residents,
         the queue's summary, the pools, the prefix cache's and the
-        adapters' stats and the engine's A/B flags. Pure reads of host
-        state, never of the device. Features the port has not ported
-        read as the JAX engine reads them with their gates off (no obs,
-        SLO tracker, cost census or mesh; mp = dp = 1)."""
+        adapters' stats, the engine's A/B flags, the obs layer's stats,
+        the SLO snapshot and the cost census (whose first read captures
+        a counted census). Reads of host state, never of the device.
+        Features the port has not ported read as the JAX engine reads
+        them with their gates off (no mesh: mp = dp = 1)."""
         sched = self.scheduler
         residents = []
         for slot, req in sorted(sched.running.items()):
@@ -1810,9 +2186,9 @@ class ServingEngine:
                        "chunk_len": self.chunk_len,
                        "max_len": self.max_len,
                        "token_budget": self.token_budget},
-            "obs": None,
-            "slo": None,
-            "cost_census": None,
+            "obs": None if self.obs is None else self.obs.stats(),
+            "slo": self._slo_snap(),
+            "cost_census": self.cost_census(),
         }
 
     # -- conveniences ------------------------------------------------------

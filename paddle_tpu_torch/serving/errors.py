@@ -3,16 +3,19 @@
 codes is not ported yet).
 
 - `QueueFull` — admission queue at max_queue: shed load, retry later.
-- `EngineClosed` — the engine is draining (`drain()`): no new requests.
+- `RateLimited` — one client exceeded its token bucket: back off.
+- `EngineClosed` — the engine is draining or aborted: no new requests.
+- `PoisonedRequest` — this one request deterministically kills the
+  serving step; the engine's quarantine failed it alone.
 - `DeadlineExceeded` — a request's placement deadline (`deadline_s`)
   passed while it was still queued; it never started.
 
-All subclass `ServingError(RuntimeError)`; the engine's other typed
-errors come with the features that raise them.
+All subclass `ServingError(RuntimeError)`.
 """
 from __future__ import annotations
 
-__all__ = ["ServingError", "QueueFull", "EngineClosed", "DeadlineExceeded"]
+__all__ = ["ServingError", "QueueFull", "EngineClosed", "RateLimited",
+           "PoisonedRequest", "DeadlineExceeded"]
 
 
 class ServingError(RuntimeError):
@@ -28,9 +31,27 @@ class QueueFull(ServingError):
         self.retry_after_s = float(retry_after_s)
 
 
+class RateLimited(ServingError):
+    """This client (API key or remote address) exceeded its token
+    bucket: back off for `retry_after_s`. Unlike QueueFull, which sheds
+    load globally, other clients are still admitted."""
+
+    def __init__(self, message: str, retry_after_s: float = 1.0):
+        super().__init__(message)
+        self.retry_after_s = float(retry_after_s)
+
+
 class EngineClosed(ServingError):
-    """The engine began shutdown (`drain()`): no new requests are
-    admitted; residents and preempted requests run to completion."""
+    """The engine began shutdown (`drain()` or `abort_all()`): no new
+    requests are admitted."""
+
+
+class PoisonedRequest(ServingError):
+    """This one request deterministically kills the serving step. The
+    engine's quarantine isolated it by bisecting the resident batch,
+    failed it alone (finish reason "poisoned") and kept serving its
+    co-residents. Never retried or migrated: replaying it would kill the
+    next replica too."""
 
 
 class DeadlineExceeded(ServingError):

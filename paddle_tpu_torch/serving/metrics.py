@@ -5,18 +5,21 @@ counters, gauges and histograms the engine records, read three ways.
   (queue depth, TTFT, inter-token latency, `tokens_per_sec`, slot
   occupancy, the pool and host-tier gauges, per-priority latency
   classes, speculative decoding's drafted and accepted tokens and the
-  draft pool), with the JAX engine's keys. Keys of features the port has
-  not ported (grammar, the KV fabric, the mesh, the SLO tracker, the
-  cost census) carry the values the JAX engine gives with those gates
-  off.
+  draft pool, the SLO tracker's snapshot and the cost census), with the
+  JAX engine's keys. Keys of features the port has not ported (grammar,
+  the KV fabric, the mesh, the JAX engine's traced dispatch count) carry
+  the values the JAX engine gives with those gates off.
 - `prometheus_render(...)`: the same snapshots as Prometheus text
   exposition, fixed-bucket `_bucket` series for TTFT and inter-token
   latency included; `engine_info` carries the A/B tags (`kv_dtype`,
   `unified`, `grouped`, `megakernel`, ...) as labels.
-- `torch.profiler.record_function` spans the engine opens around each
-  step, prefill chunk and page copy, so a trace of a serving run shows
+- The host spans the engine opens around each step, prefill chunk and
+  page copy (`profiler.RecordEvent`, which enters
+  `torch.profiler.record_function`), so a trace of a serving run shows
   them next to the kernels.
 
+The SLO tracker (`serving/slo.py`, `self.slo`) rides the TTFT,
+inter-token and deadline-goodput observations, as in the JAX package.
 Two histograms are the port's own: `step_s` (host wall time of a unified
 step that ends in a device synchronisation) and `prefill_chunk_s` (host
 time to issue one legacy prefill chunk). Times are seconds on the
@@ -32,6 +35,8 @@ import math
 import threading
 from collections import deque
 from typing import Optional, Sequence
+
+from .slo import SLO_STATE_CODES
 
 __all__ = ["Histogram", "ServingMetrics", "prometheus_render",
            "TTFT_BUCKETS", "LATENCY_BUCKETS", "PACKED_TOKEN_BUCKETS",
@@ -140,9 +145,8 @@ def _unported_off() -> dict:
     """The snapshot keys of features the port has not ported (ROADMAP.md,
     queue 1, item 6) at the values the JAX engine gives with those gates
     off: grammar-constrained decoding, the KV fabric, the tensor-parallel
-    mesh, the compiled-step cost census, the SLO tracker and the JAX
-    engine's traced dispatch count. A new dict each call, so no snapshot
-    shares its subtrees with another."""
+    mesh and the JAX engine's traced dispatch count. A new dict each
+    call, so no snapshot shares its subtrees with another."""
     return {
         "mesh": None, "mp": 1, "dp": 1,
         "grammar_requests": 0, "grammar_masked_steps": 0,
@@ -150,7 +154,6 @@ def _unported_off() -> dict:
         "unified_dispatch_ops": None,
         "fabric": {"pages_sent": 0, "bytes_sent": 0, "pages_recv": 0,
                    "bytes_recv": 0, "restored_pages": 0},
-        "cost_census": None, "slo": None,
     }
 
 
@@ -175,6 +178,9 @@ class ServingMetrics:
         # were failed fast ("deadline", HTTP 504) — the overload
         # fail-fast path, distinct from the runtime timeout above
         self.requests_deadline = 0
+        # requests quarantined by the engine's poison bisection (they
+        # deterministically killed the step; finish reason "poisoned")
+        self.requests_poisoned = 0
         # deadline goodput: of the requests that CARRIED a placement
         # deadline, how many finished normally (met) vs deadline-
         # failed 504 (missed = requests_deadline). The pair is the
@@ -333,6 +339,11 @@ class ServingMetrics:
         # per-admission prefix-cache hit size (tokens served from
         # shared pages; 0 on a cold miss)
         self.prefix_cached_tokens_hist = Histogram()
+        # the SLO tracker riding the latency and goodput hooks (set by
+        # the engine; None with the gate off) and the cost census record
+        # the engine pushes once captured
+        self.slo = None
+        self.cost_census: Optional[dict] = None
         # busy window for throughput
         self._first_admit_t: Optional[float] = None
         self._last_token_t: Optional[float] = None
@@ -427,6 +438,9 @@ class ServingMetrics:
                 self._priority_class(pr)["ttft_s"].record(ttft)
                 if self.adapters_enabled:
                     self._adapter_class(aid)["ttft_s"].record(ttft)
+                if self.slo is not None:
+                    self.slo.on_ttft(ttft, priority=pr,
+                                     adapter_id=aid, t=now)
 
     def on_inter_token(self, dt: float, priority: int = 0,
                        adapter_id: int = 0,
@@ -437,6 +451,9 @@ class ServingMetrics:
             if self.adapters_enabled:
                 self._adapter_class(adapter_id)[
                     "inter_token_s"].record(dt)
+            if self.slo is not None:
+                self.slo.on_inter_token(dt, priority=priority,
+                                        adapter_id=adapter_id, t=now)
 
     def on_finish(self, req, now: float):
         with self._lock:
@@ -454,9 +471,13 @@ class ServingMetrics:
                     met = False
                 else:
                     met = None
-                if met is not None and self.adapters_enabled:
-                    self._adapter_class(aid)["goodput"][
-                        "met" if met else "missed"] += 1
+                if met is not None:
+                    if self.adapters_enabled:
+                        self._adapter_class(aid)["goodput"][
+                            "met" if met else "missed"] += 1
+                    if self.slo is not None:
+                        self.slo.on_goodput(met, priority=pr,
+                                            adapter_id=aid, t=now)
             if sampling is not None \
                     and sampling.deadline_s is not None \
                     and req.finish_reason in ("stop", "length"):
@@ -469,6 +490,8 @@ class ServingMetrics:
                 self.requests_deadline += 1
             elif req.finish_reason in ("stop", "length"):
                 self.requests_completed += 1
+            elif req.finish_reason == "poisoned":
+                self.requests_poisoned += 1
             else:                 # "aborted", "replica_failure", ...
                 self.requests_aborted += 1
             e2e = now - req.arrival_t
@@ -627,7 +650,7 @@ class ServingMetrics:
                 "timeout": self.requests_timeout,
                 "deadline": self.requests_deadline,
                 "aborted": self.requests_aborted,
-                "poisoned": 0,      # poison bisection is not ported
+                "poisoned": self.requests_poisoned,
             },
             "preemptions": self.preemptions,
             "swapped_out_pages": self.swapped_out_pages,
@@ -720,6 +743,10 @@ class ServingMetrics:
                       "deadline_goodput": dict(cls["goodput"])}
                 for lbl, cls in sorted(self._by_adapter_lat.items())},
             "achieved_util": self.achieved_util_hist.snapshot(),
+            "cost_census": (None if self.cost_census is None
+                            else dict(self.cost_census)),
+            "slo": (None if self.slo is None
+                    else self.slo.snapshot()),
         }
 
 
@@ -752,8 +779,6 @@ def _hist_lines(name: str, snap: dict, labels: dict, lines: list):
 
 
 BREAKER_STATE_CODES = {"closed": 0, "half_open": 1, "open": 2}
-# an SLO series' alert state (the JAX package's `serving/slo.py`)
-SLO_STATE_CODES = {"ok": 0, "warn": 1, "page": 2}
 
 
 def prometheus_render(snapshots: dict, namespace: str = "paddle_serving",

@@ -2,12 +2,14 @@
 resolves them.
 
 `ServingEngine` reads the JAX engine's gates at construction: the
-ported ones (prefix cache, megakernel, adapters, speculative decoding)
-resolve for real — `prefix_cache="off"` or PADDLE_TPU_PREFIX_CACHE=off
-builds no cache, `spec="ngram"` or PADDLE_TPU_SPEC_DECODE=ngram a spec
-engine — and the gates of features not ported yet (mesh, grammar, obs,
-SLO, cost census) raise NotImplementedError naming ROADMAP.md when a
-keyword or an environment variable turns one on. A spelling the JAX
+ported ones (prefix cache, megakernel, adapters, speculative decoding,
+obs, the SLO tracker, the cost census) resolve for real —
+`prefix_cache="off"` or PADDLE_TPU_PREFIX_CACHE=off builds no cache,
+`spec="ngram"` or PADDLE_TPU_SPEC_DECODE=ngram a spec engine, obs, SLO
+and the "model" census are on by default and their keywords and
+variables give the modes the JAX resolvers give — and the gates of
+features not ported yet (mesh, grammar) raise NotImplementedError naming
+ROADMAP.md when a keyword or an environment variable turns one on. A spelling the JAX
 resolver refuses raises ValueError here too. `chunk_len` below
 `MIN_CHUNK` (8) raises on both steps, as in the JAX engine.
 """
@@ -51,11 +53,25 @@ def model():
     return GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
 
 
+def _layer_modes(eng):
+    """(obs on, SLO config or None, census mode) of an engine."""
+    return (eng.obs is not None,
+            None if eng.slo is None else vars(eng.slo.config),
+            eng.census_mode)
+
+
+def _jax_layer_modes(obs=None, slo=None, cost_census=None):
+    cfg = jslo.resolve_slo_config(slo)
+    return (jobs.resolve_obs_flag(obs), None if cfg is None else vars(cfg),
+            jslo.resolve_cost_census(cost_census))
+
+
 def test_roadmap_input_raises(clean_env, model):
     """ROADMAP queue 3's F1 input: spec decode on by its env var builds
     the spec engine the JAX engine builds, with the megakernel and no
-    prefix cache; the gates still unported (mesh, grammar, obs, SLO,
-    cost census) raise beside it."""
+    prefix cache; the gates still unported (mesh, grammar) raise beside
+    it, and obs, SLO and the census, ported, build with the JAX
+    resolvers' modes."""
     clean_env.setenv("PADDLE_TPU_SPEC_DECODE", "ngram")
     clean_env.setenv("PADDLE_TPU_MEGAKERNEL", "on")
     clean_env.setenv("PADDLE_TPU_PREFIX_CACHE", "off")
@@ -63,13 +79,18 @@ def test_roadmap_input_raises(clean_env, model):
     assert eng.spec.mode == "ngram" and eng.spec.k == 4
     assert eng.megakernel and eng.prefix_cache is None
     assert eng.metrics.snapshot()["spec"] == "ngram"
+    assert _layer_modes(eng) == _jax_layer_modes()
     for env, value in (("PADDLE_TPU_MESH", "dp1mp2"),
                        ("PADDLE_TPU_GRAMMAR", "on"),
                        ("PADDLE_TPU_OBS", "on"), ("PADDLE_TPU_SLO", "on"),
                        ("PADDLE_TPU_COST_CENSUS", "model")):
         clean_env.setenv(env, value)
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(model, **ENGINE)
+        if env in ("PADDLE_TPU_MESH", "PADDLE_TPU_GRAMMAR"):
+            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+                ServingEngine(model, **ENGINE)
+        else:
+            assert _layer_modes(ServingEngine(model, **ENGINE)) == \
+                _jax_layer_modes()
         clean_env.delenv(env)
     clean_env.delenv("PADDLE_TPU_SPEC_DECODE")
     eng = ServingEngine(model, **ENGINE)
@@ -98,7 +119,8 @@ def test_prefix_cache_env(clean_env, model, env, want):
 
 # gate env var -> (spellings that turn it on, spellings it accepts as off,
 # spellings its JAX resolver refuses, the JAX resolver). Speculative
-# decoding is ported: its "on" spellings build a spec engine
+# decoding, obs, the SLO tracker and the cost census are ported: their
+# "on" spellings build an engine with the JAX resolver's mode
 UNPORTED = {
     "PADDLE_TPU_MESH": (["dp1mp2", "dp2xmp1"], ["off", ""], ["tp4", "dp0mp2"],
                         lambda: jtp.resolve_serving_mesh()),
@@ -116,6 +138,11 @@ UNPORTED = {
 }
 
 
+# the ported observability gates -> their place in `_layer_modes`
+_LAYERS = {"PADDLE_TPU_OBS": 0, "PADDLE_TPU_SLO": 1,
+           "PADDLE_TPU_COST_CENSUS": 2}
+
+
 @pytest.mark.parametrize("env", list(UNPORTED))
 def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
                                                            env):
@@ -127,11 +154,21 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
             eng = ServingEngine(model, **ENGINE)
             assert (eng.spec.mode, eng.spec.k) == (want.mode, want.k)
             continue
+        if env in _LAYERS:
+            eng = ServingEngine(model, **ENGINE)
+            assert _layer_modes(eng) == _jax_layer_modes()
+            assert _layer_modes(eng)[_LAYERS[env]] not in (False, None,
+                                                             "off")
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(model, **ENGINE)
     for v in off:
         clean_env.setenv(env, v)
-        assert getattr(ServingEngine(model, **ENGINE), "spec", None) is None
+        eng = ServingEngine(model, **ENGINE)
+        assert getattr(eng, "spec", None) is None
+        if env in _LAYERS:
+            assert _layer_modes(eng) == _jax_layer_modes()
+            assert _layer_modes(eng)[_LAYERS[env]] in (False, None, "off")
     for v in bad:
         clean_env.setenv(env, v)
         with pytest.raises(ValueError):
@@ -145,8 +182,21 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
     ("grammar", "on"), ("obs", True), ("slo", True), ("slo", "on"),
     ("cost_census", "model")])
 def test_unported_keywords_raise(clean_env, model, option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ServingEngine(model, **{option: value}, **ENGINE)
+    """mesh and grammar raise; obs, slo and cost_census, ported, build
+    the JAX resolvers' modes and serve."""
+    if option in ("mesh", "grammar"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            ServingEngine(model, **{option: value}, **ENGINE)
+        return
+    eng = ServingEngine(model, **{option: value}, **ENGINE)
+    assert _layer_modes(eng) == _jax_layer_modes(**{option: value})
+    out = eng.generate([np.arange(1, 12)])
+    assert len(out[0].token_ids) == 16
+    snap = eng.metrics.snapshot()
+    assert (snap["slo"] is not None) is (eng.slo is not None)
+    assert snap["cost_census"]["source"] == "model"
+    assert eng.obs.flight.steps_recorded > 0
+    eng.drain()
 
 
 @pytest.mark.parametrize("value,mode,k", [

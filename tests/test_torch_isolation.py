@@ -20,7 +20,7 @@ from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
 from paddle_tpu_torch.ops.cuda import flash_attention as tfa
 from paddle_tpu_torch.ops.cuda import layer_norm as tln
 from paddle_tpu_torch.ops.cuda import paged_attention as tpa
-from paddle_tpu_torch.serving import ServingEngine
+from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "paddle_tpu_torch"
@@ -49,6 +49,10 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch.serving.engine\n"
         "import paddle_tpu_torch.serving.adapters\n"
         "import paddle_tpu_torch.serving.prefix\n"
+        "import paddle_tpu_torch.serving.obs, paddle_tpu_torch.serving.slo\n"
+        "import paddle_tpu_torch.serving.faults, paddle_tpu_torch.profiler\n"
+        "import paddle_tpu_torch.serving.http.driver\n"
+        "import paddle_tpu_torch.ops.cuda.cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
         "assert not bad, bad\n")
@@ -138,23 +142,42 @@ _PORTED = {("kv_dtype", "int8"): (torch.int8, torch.float32),
            ("kv_dtype", "fp8"): (tpa.FP8_DTYPE, None),
            ("unified", False): (torch.float32, None),
            ("megakernel", True): (torch.float32, None),
-           ("spec", "ngram"): (torch.float32, None)}
+           ("spec", "ngram"): (torch.float32, None),
+           ("obs", True): (torch.float32, None),
+           ("slo", "on"): (torch.float32, None),
+           ("cost_census", "lowered"): (torch.float32, None)}
+# the observability options: the engine attribute each builds and the mode
+# it must hold
+_LAYER = {"obs": lambda e: e.obs is not None,
+          "slo": lambda e: e.slo is not None and "on",
+          "cost_census": lambda e: e.census_mode}
 
 
 @pytest.mark.parametrize("option,value", [
     ("kv_dtype", "int8"), ("kv_dtype", "fp8"), ("unified", False), ("mesh", "dp1mp2"),
-    ("spec", "ngram"), ("megakernel", True)])
+    ("spec", "ngram"), ("megakernel", True), ("obs", True), ("slo", "on"),
+    ("cost_census", "lowered")])
 def test_unported_engine_options_raise(option, value):
     """An option not ported yet raises at construction, naming its
     ROADMAP item; a ported one (int8 and fp8 KV, the legacy step, the
-    megakernel, speculative decoding) builds its pools."""
+    megakernel, speculative decoding, obs, the SLO tracker, the cost
+    census) builds its pools, and the observability options serve with
+    their mode on."""
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
     if (option, value) in _PORTED:
         pool_dtype, scale_dtype = _PORTED[option, value]
         eng = ServingEngine(model, device="cpu", max_len=16, page_size=4,
                             chunk_len=8, **{option: value})
-        got = getattr(eng, option)
-        assert (got.mode if option == "spec" else got) == value
+        if option in _LAYER:
+            assert _LAYER[option](eng) == value
+            out = eng.generate([torch.arange(1, 6)],
+                               SamplingParams(max_new_tokens=6))
+            assert len(out[0].token_ids) == 6
+            assert eng.cost_census()["source"] == (
+                value if option == "cost_census" else "model")
+        else:
+            got = getattr(eng, option)
+            assert (got.mode if option == "spec" else got) == value
         assert len(eng._pools) == 1
         for k, v, ks, vs in eng._pools:
             assert k.dtype == v.dtype == pool_dtype

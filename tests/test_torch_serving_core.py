@@ -6,10 +6,13 @@
 Both engines serve the same traffic on the same weights (the geometry of
 tests/test_torch_serving_defaults.py, `grouped=False`) under one manual
 clock that only the test moves, between steps, so every time the engines
-record is the same number. The JAX engines run with obs, the SLO tracker
-and the cost census off: the port has none of them, and their keys
-carry the values the JAX engine gives with those gates off.
+record is the same number. The budget engines run at their defaults,
+obs, the SLO tracker and the "model" cost census on in both packages, so
+the snapshot's `slo` and `cost_census` are live on both sides (the JAX
+census's count of traced dispatches has no eager counterpart); the
+abort engines run the JAX layers off.
 """
+import copy
 import sys
 
 import jax
@@ -43,6 +46,7 @@ ABORT = dict(num_slots=2, max_len=32, page_size=8, grouped=False)
 JAX_GATES = dict(obs=False, slo=False, cost_census=False)
 # the JAX engine counts its traced dispatches; an eager step has no trace
 JAX_ONLY_SERIES = ("unified_dispatch_ops",)
+JAX_ONLY_CENSUS = ("unified_dispatch",)
 PORT_ONLY_KEYS = {"step_s", "prefill_chunk_s"}
 
 
@@ -112,14 +116,15 @@ def _drive(eng, sampling, clock):
         eng.step()
         steps += 1
         if steps == 3:
-            state = eng.debug_state()
+            # a copy: the live census record is refreshed on later reads
+            state = copy.deepcopy(eng.debug_state())
     return [list(r.output_tokens) for r in reqs], state, steps
 
 
 @pytest.fixture(scope="module")
 def jax_budget(models):
     clock = Clock()
-    eng = JaxEngine(models[0], clock=clock, **BUDGET, **JAX_GATES)
+    eng = JaxEngine(models[0], clock=clock, **BUDGET)
     tokens, state, steps = _drive(
         eng, lambda n, p: JaxSampling(max_new_tokens=n, priority=p), clock)
     m = eng.metrics
@@ -185,8 +190,18 @@ def _key_tree(d):
             for k, v in d.items()}
 
 
+def _no_jax_only(d):
+    """A snapshot or debug state without the JAX census's traced-dispatch
+    record."""
+    census = d.get("cost_census")
+    return d if census is None else {**d, "cost_census": {
+        k: v for k, v in census.items() if k not in JAX_ONLY_CENSUS}}
+
+
 def test_snapshot_has_the_jax_keys_and_values(port_budget, jax_budget):
-    snap, want = port_budget[0].metrics.snapshot(), jax_budget["snap"]
+    snap = port_budget[0].metrics.snapshot()
+    want = _no_jax_only(jax_budget["snap"])
+    assert snap["slo"] is not None and snap["cost_census"] is not None
     assert set(snap) == set(want) | PORT_ONLY_KEYS
     ours = _key_tree({k: v for k, v in snap.items()
                       if k not in PORT_ONLY_KEYS})
@@ -221,8 +236,8 @@ def test_debug_state_equals_the_jax_engine(port_budget, jax_budget):
     and config included."""
     eng, run = port_budget
     assert run["state"]["queue"]["depth"] > 0 and run["state"]["residents"]
-    assert run["state"] == jax_budget["state"]
-    assert eng.debug_state() == jax_budget["final_state"]
+    assert run["state"] == _no_jax_only(jax_budget["state"])
+    assert eng.debug_state() == _no_jax_only(jax_budget["final_state"])
     assert eng.debug_state()["config"]["token_budget"] == 4
 
 

@@ -58,6 +58,17 @@ class _PallasMustNotRun:
         return False
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: its engines step tiny
+    tensors op by op, and beside the other test workers a pool of
+    threads a process only waits for cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """The JAX GPT and its port with the same weights, as in
@@ -117,11 +128,11 @@ class _Watched(ServingEngine):
         self.margins = []
         self.committed = np.zeros((self.num_pages, self.page_size), bool)
 
-    def _unified_step(self, finished):
+    def _unified_step(self, finished, suppress=frozenset()):
         held = self._last_logits.clone()
         before = {slot: (req, len(req.output_tokens))
                   for slot, req in self.scheduler.running.items()}
-        super()._unified_step(finished)
+        super()._unified_step(finished, suppress)
         top2 = torch.topk(held, 2, dim=-1).values
         for slot, (req, n) in before.items():
             if len(req.output_tokens) > n:
