@@ -291,6 +291,33 @@ Phases, each reported on its own line; any failure exits non-zero:
    run's tokens, `kill_at_step(20)` retiring the residents as
    "replica_failure" with a "replica_death" incident and `ReplicaDead`
    after, `fail_add_request(3)` refusing the third admission only.
+12. grammar-constrained decoding, the embeddings lane, session pins and
+   the KV fabric on GPT-124M's first 6 layers (Llama-7B's parts on
+   phase 8's 8-layer copy, inside phase 8). Phase 2 first holds K12 on
+   grammar-biased logits ([16, 50304] and [512, 50304]: rows with one
+   allowed token, three tied, EOS alone) to `torch.argmax` bit for bit.
+   Grammar: phase 3's prompts, 48 tokens each, 16 rows constrained
+   (6 choice, 5 regex, 5 JSON over `default_token_strings`), 8 free, in
+   the defaults, megakernel and megakernel + `ngram:4` arms: each
+   constrained output follows its automaton and validates (or ends by
+   length); the free rows equal the gate-off run (near ties aside,
+   phase 10's rule, teacher-forced margins); the gate on with nothing
+   constrained equals the gate off in tokens and launches; launches
+   exact (K12 once a step under the megakernel, twice with spec);
+   counters, bias bytes a step, tokens/s and p50 with the gate on and
+   off (3 alternating runs a side at the defaults). Embeddings: 8 embed
+   requests beside 8 generating ones (GPT-124M bf16 and int8, Llama-7B
+   bf16): every byte of the embed rows' pages kept by the epilogue, its
+   launches exact (the walk and the write once a layer, K1 2L + 1), the
+   generating rows equal a run without the embed rows (near ties
+   aside), the f32 copy's embeddings within 0.01 of the plain epilogue
+   and, over float pools, of the plain f32 backbone over the prompt;
+   the epilogue's milliseconds. Sessions: a pinned turn 2 hits every
+   full page of turn 1 under pressure that evicts them, and none past
+   the TTL (TTFT printed). Fabric (bf16, int8, fp8; Llama-7B int8): B
+   continues A's exported chain with A's own tokens from a full hit;
+   frame bytes the header's accounting; a page-32 engine refuses it
+   whole; A's snapshot restores warm; export and import milliseconds.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -312,7 +339,9 @@ step's launches each), and phase 10's spec_{phase3|templated}_{defaults|
 int8|megakernel|adapters}_{ngram|model} and llama_spec_defaults_{ngram|
 model}, and phase 11's obs_{defaults|megakernel} (the layers on),
 quarantine[_legacy|_spec_ngram] and llama_quarantine (a run poisoned
-after 5 steps, probe rounds included). The last line
+after 5 steps, probe rounds included), and phase 12's
+grammar_{defaults|megakernel|spec_ngram} (the constrained run),
+embed_gpt[_int8] and llama_embed (the bf16 run with its epilogues). The last line
 is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
@@ -3407,6 +3436,10 @@ def llama_phase(dev, tln, tpa) -> tuple:
     spec_paths, stats["spec"] = spec_phase_llama(dev, tln, tpa, model)
     by_path.update(spec_paths)
     log(f"  phase 10, Llama-7B part: {time.perf_counter() - t_spec:.1f} s")
+    log("phase 12 embeddings and the KV fabric, their Llama-7B part (phase "
+        f"8's {LLAMA7B_ARM_LAYERS}-layer copy):")
+    p12_paths, stats["phase12"] = phase12_llama(dev, tln, tpa, model)
+    by_path.update(p12_paths)
     del model
     torch.cuda.empty_cache()
 
@@ -4316,6 +4349,651 @@ def phase11(dev, tln, tpa) -> tuple:
     return by_path, stats
 
 
+# -- phase 12: grammar, embeddings, sessions and the KV fabric --------------
+# phase 12's GPT-124M runs a weight copy of its first GRAMMAR_GPT_LAYERS
+# layers (phase 10's cut); its constrained traffic is phase 3's prompts
+# with GRAMMAR_NEW greedy tokens each, EOS token 0 (chr(0): no built-in
+# grammar's character outside a regex's "." and negated classes, and
+# allowed only where the automaton accepts)
+GRAMMAR_GPT_LAYERS = 6
+GRAMMAR_NEW, GRAMMAR_EOS = 48, 0
+# request i of phase 3's 24 -> its grammar: 6 choice, 5 regex and 5 JSON
+# rows, 8 unconstrained (None)
+GRAMMAR_SPECS = (
+    [dict(kind="choice", choices=c) for c in (
+        ("yes", "no"), ("red", "green", "blue"),
+        ("alpha", "beta", "gamma", "delta"), ("true", "false"),
+        ("north", "south", "east", "west"), ("accept", "reject", "defer"))]
+    + [dict(kind="regex", pattern=p) for p in (
+        "[a-z]+@[a-z]+\\.(com|org)", "[0-9][0-9][0-9]-[0-9][0-9][0-9][0-9]",
+        "(ab|cd)+x?", "[A-Z][a-z]*( [A-Z][a-z]*)*", "-?[0-9]+(\\.[0-9]+)?")]
+    + [dict(kind="json_object")] * 5)
+GRAMMAR_ROWS = [None] * 24
+for _i, _spec in zip([i for i in range(24) if i % 3 != 2], GRAMMAR_SPECS):
+    GRAMMAR_ROWS[_i] = _spec
+# the arms (K12 once a step under the megakernel, twice with spec) and
+# the runs a side of the defaults arm's gate-on/off timing
+GRAMMAR_ARMS = (("defaults", {}), ("megakernel", dict(megakernel=True)),
+                ("spec_ngram", dict(megakernel=True, spec="ngram:4")))
+GRAMMAR_RUNS = 3
+# K12 in phase 2 on grammar-biased logits: the f32 logits plus a bias of
+# 0 / -1e30 (rows with one allowed token, with three allowed tied at one
+# value, with EOS alone allowed, with about half allowed)
+BIASED_ARGMAX_SHAPES = ((16, 50304), (512, 50304))
+# embeddings: the first EMBED_REQUESTS * 2 prompts of phase 3's traffic,
+# the even ones embed requests, the odd ones generating GRAMMAR_NEW tokens
+EMBED_REQUESTS = 8
+# sessions: turn 1 (SESSION["prompt"] tokens, SESSION["new"] new) pinned,
+# then SESSION["others"] requests of SESSION["other_prompt"] tokens through
+# a pool of SESSION["pages"] pages that holds turn 1 beside four of them
+# at a time but not beside all twelve, no host tier; then turn 2 (turn 1,
+# its output and SESSION["follow"] tokens)
+SESSION = dict(prompt=512, new=16, others=12, other_prompt=256, follow=8,
+               pages=120, slots=4, ttl_s=30.0)
+# the fabric: a FABRIC_PROMPT-token prompt (31 pages of 16), prefilled on
+# engine A to its first token t1, exported; engine B imports and continues
+# prompt + [t1] for FABRIC_NEW tokens. Both A's own continuation and B's
+# then match the 31 pages and prefill t1 alone: one computation
+FABRIC_PROMPT, FABRIC_NEW = 496, 32
+
+
+def check_greedy_argmax_biased(dev, tpa) -> dict:
+    """K12 on grammar-biased logits (`BIASED_ARGMAX_SHAPES`): equal to
+    `torch.argmax` of the same tensor bit for bit, 20 reruns identical;
+    the tied rows pick their first allowed token, the EOS rows EOS."""
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    out = {}
+    for b, v in BIASED_ARGMAX_SHAPES:
+        logits = torch.randn(b, v, generator=g, device=dev)
+        bias = torch.where(torch.rand(b, v, generator=g, device=dev) < 0.5,
+                           0.0, -1e30)
+        allowed = torch.randint(1, v, (b, 3), generator=g, device=dev)
+        rows = torch.arange(b, device=dev)
+        one, tied, eos = rows[rows % 4 == 0], rows[rows % 4 == 1], \
+            rows[rows % 4 == 2]
+        bias[one] = -1e30
+        bias[one, allowed[one, 0]] = 0.0
+        bias[tied] = -1e30
+        for j in range(3):
+            bias[tied, allowed[tied, j]] = 0.0
+            logits[tied, allowed[tied, j]] = 0.25
+        bias[eos] = -1e30
+        bias[eos, GRAMMAR_EOS] = 0.0
+        x = logits + bias
+        got = tpa.decode_greedy_argmax(x)
+        torch.cuda.synchronize()
+        want = torch.argmax(x, dim=-1)
+        same = torch.equal(got.long(), want)
+        repeat = all(torch.equal(tpa.decode_greedy_argmax(x), got)
+                     for _ in range(20))
+        first = torch.equal(got[tied].long(),
+                            allowed[tied].min(dim=-1).values)
+        only = bool((got[one].long() == allowed[one, 0]).all()
+                    and (got[eos] == GRAMMAR_EOS).all())
+        log(f"  K12 decode_greedy_argmax [{b}, {v}] on grammar-biased f32 "
+            f"logits (one allowed, three tied, EOS alone, half allowed): "
+            f"equal to torch.argmax bit for bit {same}; 20 repeats "
+            f"identical {repeat}; tied rows their first allowed {first}; "
+            f"single-token rows their token {only}")
+        if not (same and repeat and first and only):
+            raise AssertionError(f"K12 on biased logits [{b}, {v}]")
+        out[f"[{b}, {v}]"] = dict(equal=same, repeats_identical=repeat)
+    return out
+
+
+def grammar_spec(i: int):
+    from paddle_tpu_torch.serving import GrammarSpec
+    kw = GRAMMAR_ROWS[i]
+    return None if kw is None else GrammarSpec(**kw)
+
+
+def grammar_check(tag, vocab, i, toks, reason):
+    """Request i's output under its grammar: every token its automaton
+    allowed (EOS only where it accepts, and last); ended by EOS with text
+    the grammar validates, or by length in a live state."""
+    spec = grammar_spec(i)
+    g = spec.make(vocab)
+    for j, t in enumerate(toks):
+        if t == GRAMMAR_EOS:
+            if not g.accepting() or j != len(toks) - 1:
+                raise AssertionError(f"[{tag}] request {i}: EOS at {j} in "
+                                     "a state that does not accept")
+            break
+        g.advance(t)            # raises on a token the grammar forbids
+    text = "".join(chr(t) for t in toks if t != GRAMMAR_EOS)
+    valid = spec.validates(text)
+    if not (valid if reason == "stop" else reason == "length"):
+        raise AssertionError(f"[{tag}] request {i} ended {reason!r} with "
+                             f"{text!r}")
+    return valid
+
+
+def near_ties(tag, model, prompts, got, want, rows, tol) -> list:
+    """Rows `rows` of two runs: equal, or the first differing token one
+    whose top-two margin in `want`'s run, teacher-forced through `model`,
+    lies within `tol` (a near tie: the runs pack their steps differently,
+    so bf16 GEMMs may round a row differently); any other difference
+    fails. Returns the near ties."""
+    ties = []
+    for i in rows:
+        a, b = got[i], want[i]
+        j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None and len(a) == len(b):
+            continue
+        if j is None:
+            raise AssertionError(f"[{tag}] request {i}: {len(a)} tokens "
+                                 f"against {len(b)}")
+        seq = np.concatenate([prompts[i], np.asarray(b[:j], np.int64)])
+        with torch.no_grad():
+            lg = model(torch.from_numpy(seq).to(model.device)[None])[0, -1]
+        top = torch.topk(lg.float(), 2).values
+        margin = float(top[0] - top[1])
+        ties.append({"request": i, "position": j, "got": a[j], "want": b[j],
+                     "margin": margin})
+        log(f"  [{tag}] request {i} differs first at token {j}: {a[j]} "
+            f"against {b[j]}, top-two margin {margin:.5f} (tolerance {tol})")
+        if not margin <= tol:
+            raise AssertionError(f"[{tag}] request {i} token {j} differs "
+                                 f"with a margin of {margin} > {tol}")
+    return ties
+
+
+def grammar_serve(dev, tln, tpa, model, arm, opts, gate: bool,
+                  constrained: bool) -> dict:
+    """One run of phase 3's prompts (GRAMMAR_NEW greedy tokens each) on a
+    fresh engine with the grammar gate `gate`, the GRAMMAR_ROWS
+    constrained when `constrained`; launches counted from 0 and held to
+    `spec_launches` per step (the bias adds no launch); each constrained
+    output held to its grammar (`grammar_check`)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+
+    class BiasBytes(ServingEngine):
+        """Sums the bytes of the grammar biases each step uploads."""
+        bias_bytes = 0
+
+        def _grammar_operands(self, *a, **kw):
+            out = super()._grammar_operands(*a, **kw)
+            self.bias_bytes += self.grammar_bias_bytes
+            return out
+
+    tag = f"grammar {arm} gate={'on' if gate else 'off'}" + (
+        " constrained" if constrained else "")
+    vocab = model.config.vocab_size
+    eng = BiasBytes(model, device=dev, seed=SEED, grammar=gate, **ENGINE,
+                    **opts)
+    prompts = make_traffic(vocab)
+    sps = [SamplingParams(max_new_tokens=GRAMMAR_NEW)
+           if not constrained or grammar_spec(i) is None else
+           SamplingParams(max_new_tokens=GRAMMAR_NEW,
+                          eos_token_id=GRAMMAR_EOS, grammar=grammar_spec(i))
+           for i in range(len(prompts))]
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    t0 = time.perf_counter()
+    reqs = [eng.add_request(p, sp) for p, sp in zip(prompts, sps)]
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts_serving(tln, tpa, tfa)
+    snap = eng.metrics.snapshot()
+    steps = snap["unified_steps"]
+    per_step, _ = spec_launches(tpa, model, eng)
+    if launches != {k: n * steps for k, n in per_step.items()}:
+        raise AssertionError(f"[{tag}] launches {launches}, {steps} steps "
+                             f"of {per_step}")
+    valid = 0
+    for i, r in enumerate(reqs):
+        if sps[i].grammar is not None:
+            valid += grammar_check(tag, vocab, i, r.output_tokens,
+                                   r.finish_reason)
+        elif r.finish_reason != "length" or \
+                len(r.output_tokens) != GRAMMAR_NEW:
+            raise AssertionError(f"[{tag}] request {i} did not finish")
+    stats = {"tokens_per_s": snap["tokens_per_sec"],
+             "step_ms_p50": snap["step_s"]["p50"] * 1e3, "steps": steps,
+             "wall_s": wall, "tokens": snap["tokens_generated"],
+             **{k: snap[k] for k in ("grammar_requests",
+                                     "grammar_masked_steps",
+                                     "grammar_masked_rows",
+                                     "grammar_rejected_drafts",
+                                     "spec_drafted_tokens",
+                                     "spec_accepted_tokens")},
+             "bias_bytes_per_step": eng.bias_bytes / steps,
+             "k12_per_step": launches["K12"] / steps,
+             "validated": valid,
+             "finish": {r: sum(q.finish_reason == r for q in reqs)
+                        for r in ("stop", "length")}}
+    log(f"  [{tag}] {len(reqs)} requests in {steps} steps, {wall:.3f} s: "
+        f"{stats['tokens']} tokens, {stats['tokens_per_s']:.1f} tokens/s, "
+        f"step p50 {stats['step_ms_p50']:.3f} ms; grammar rows "
+        f"{stats['grammar_masked_rows']} over {stats['grammar_masked_steps']}"
+        f" steps, rejected drafts {stats['grammar_rejected_drafts']}, "
+        f"{valid} outputs valid, finish {stats['finish']}; bias bytes a "
+        f"step {stats['bias_bytes_per_step']:.0f}; K12 a step "
+        f"{stats['k12_per_step']}")
+    eng.drain()
+    eng.pool.assert_quiesced()
+    del eng
+    torch.cuda.empty_cache()
+    return dict(tokens=[list(r.output_tokens) for r in reqs], stats=stats,
+                launches=launches)
+
+
+def grammar_phase(dev, tln, tpa, model) -> tuple:
+    """Phase 12's grammar part: each arm's constrained run against the
+    gate-off run of the same traffic (the unconstrained rows equal, or
+    near ties, `near_ties` at HELD_LOGITS_TOL); in the defaults arm
+    GRAMMAR_RUNS alternating runs a side (off, on, on, off, off, on; the
+    medians of tokens/s and step p50) and the gate on with no constrained
+    request, equal to the gate off in tokens and launches."""
+    by_path, stats = {}, {}
+    prompts = make_traffic(model.config.vocab_size)
+    free = [i for i in range(len(prompts)) if GRAMMAR_ROWS[i] is None]
+    for arm, opts in GRAMMAR_ARMS:
+        sides = {True: [], False: []}
+        order = ((False, True, True, False, False, True)
+                 if arm == "defaults" else (True, False))
+        for gate in order:
+            sides[gate].append(grammar_serve(dev, tln, tpa, model, arm, opts,
+                                             gate, constrained=gate))
+        on, off = sides[True][0], sides[False][0]
+        for runs in sides.values():
+            if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+                raise AssertionError(f"grammar {arm}: runs of one side "
+                                     "differ")
+        rec = dict(on["stats"])
+        rec["unconstrained_near_ties"] = near_ties(
+            f"grammar {arm}", model, prompts, on["tokens"], off["tokens"],
+            free, HELD_LOGITS_TOL)
+        med = lambda side, key: statistics.median(
+            r["stats"][key] for r in sides[side])
+        rec["gate_on_off"] = {
+            side: {"tokens_per_s": med(gate, "tokens_per_s"),
+                   "step_ms_p50": med(gate, "step_ms_p50"),
+                   "runs": len(sides[gate])}
+            for side, gate in (("on", True), ("off", False))}
+        if arm == "defaults":
+            bare = grammar_serve(dev, tln, tpa, model, arm, opts, True,
+                                 constrained=False)
+            same = (bare["tokens"] == off["tokens"]
+                    and bare["launches"] == off["launches"])
+            log(f"  [grammar {arm}] the gate on with no constrained request"
+                f" equals the gate off in tokens and launches: {same}")
+            if not same or bare["stats"]["grammar_masked_steps"]:
+                raise AssertionError("the grammar gate on changed an "
+                                     "unconstrained run")
+            rec["gate_on_unconstrained_equal"] = same
+        log(f"  [grammar {arm}] gate on {rec['gate_on_off']['on']}, off "
+            f"{rec['gate_on_off']['off']}")
+        stats[arm] = rec
+        by_path[f"grammar_{arm}"] = on["launches"]
+    return by_path, stats
+
+
+def embed_serve(dev, tln, tpa, model, opts, tag, embed=True,
+                plain=False) -> dict:
+    """The first 2 x EMBED_REQUESTS prompts of phase 3's traffic on a
+    fresh engine: the even ones embed requests (when `embed`, else left
+    out), the odd ones generating GRAMMAR_NEW greedy tokens. Each epilogue
+    keeps every byte of its rows' pages (all of them, read before and
+    after) and launches exactly the walk and the write once a layer (K9
+    or K7; K8-q8 over int8 pools) and K1 2L + 1 (GPT); the run's launches
+    are its steps' plus its epilogues'. With `plain`, each epilogue runs
+    a second time under `plain_serving` (no launch) over the same pools,
+    the embedding of the plain versions kept beside the kernels'."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    cfg = model.config
+    n_layers = cfg.num_hidden_layers
+
+    class Epilogue(ServingEngine):
+        """Checks and times each embed epilogue."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.epilogues, self.rows, self.ms = [], 0, []
+
+        def _embed_rows(self, rows):
+            pages = torch.tensor(sorted({p for s, _ in rows
+                                         for p in self._slot_pages[s]}),
+                                 device=self.device)
+            before = [[(k[pages].clone(), v[pages].clone())
+                       for k, v in plane] for plane in self._planes]
+            torch.cuda.synchronize()
+            counts = launch_counts_serving(tln, tpa, tfa)
+            t0 = time.perf_counter()
+            super()._embed_rows(rows)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            after = launch_counts_serving(tln, tpa, tfa)
+            self.epilogues.append({k: after[k] - counts[k] for k in after})
+            self.rows += len(rows)
+            for plane, copies in zip(self._planes, before):
+                for (k, v), (k0, v0) in zip(plane, copies):
+                    if not (torch.equal(k[pages], k0)
+                            and torch.equal(v[pages], v0)):
+                        raise AssertionError(f"[{tag}] the epilogue "
+                                             "changed a page")
+            if plain:
+                kernel = [req.embedding for _, req in rows]
+                with plain_serving():
+                    super()._embed_rows(rows)
+                if launch_counts_serving(tln, tpa, tfa) != after:
+                    raise AssertionError(f"[{tag}] the plain epilogue "
+                                         "launched a kernel")
+                for (_, req), vec in zip(rows, kernel):
+                    req.plain_embedding = req.embedding
+                    req.embedding = vec
+
+    eng = Epilogue(model, device=dev, seed=SEED, **ENGINE, **opts)
+    prompts = make_traffic(cfg.vocab_size)[:2 * EMBED_REQUESTS]
+    picks = [i for i in range(len(prompts)) if embed or i % 2]
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    t0 = time.perf_counter()
+    reqs = {i: eng.add_request(prompts[i], SamplingParams(embed=True)
+                               if i % 2 == 0 else
+                               SamplingParams(max_new_tokens=GRAMMAR_NEW))
+            for i in picks}
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts_serving(tln, tpa, tfa)
+    steps = eng.metrics.snapshot()["unified_steps"]
+    per_step = per_step_launches(tpa, eng.grouped, eng.kv_dtype,
+                                 eng.attn_impl, eng.megakernel, False,
+                                 n_layers, norm_launches(model))
+    per_epilogue = _no_launches(tpa)
+    per_epilogue["K1"] = norm_launches(model)
+    per_epilogue[DECODE_WALK_OF[eng.kv_dtype]] = n_layers
+    if WRITE_OF[eng.kv_dtype]:
+        per_epilogue[WRITE_OF[eng.kv_dtype]] = n_layers
+    if any(e != per_epilogue for e in eng.epilogues):
+        raise AssertionError(f"[{tag}] epilogue launches {eng.epilogues} "
+                             f"!= {per_epilogue}")
+    want = {k: per_step[k] * steps + per_epilogue[k] * len(eng.epilogues)
+            for k in per_step}
+    if launches != want:
+        raise AssertionError(f"[{tag}] launches {launches} != {want}")
+    if eng.rows != (EMBED_REQUESTS if embed else 0):
+        raise AssertionError(f"[{tag}] {eng.rows} embed rows retired")
+    for i, r in reqs.items():
+        if i % 2 == 0 and (r.finish_reason != "stop" or r.output_tokens
+                           or r.embedding is None
+                           or r.embedding.shape != (cfg.hidden_size,)
+                           or not np.isfinite(r.embedding).all()):
+            raise AssertionError(f"[{tag}] embed request {i}: "
+                                 f"{r.finish_reason}")
+        if i % 2 and len(r.output_tokens) != GRAMMAR_NEW:
+            raise AssertionError(f"[{tag}] request {i} did not finish")
+    eng.drain()
+    eng.pool.assert_quiesced()
+    out = dict(prompts=prompts, launches=launches, steps=steps, wall_s=wall,
+               epilogues=len(eng.epilogues), epilogue_ms=eng.ms,
+               per_epilogue={k: n for k, n in per_epilogue.items() if n},
+               tokens={i: list(r.output_tokens) for i, r in reqs.items()},
+               embeddings={i: r.embedding for i, r in reqs.items()
+                           if i % 2 == 0},
+               plain={i: getattr(r, "plain_embedding", None)
+                      for i, r in reqs.items() if i % 2 == 0})
+    del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def embed_arm(dev, tln, tpa, model, opts, tag) -> tuple:
+    """One embed arm: the bf16 run (its launches the path's; the
+    generating rows against a run without the embed rows, `near_ties`),
+    then the f32 copy's run, each embedding through the kernels held to
+    its epilogue's plain versions over the same pools and, over float
+    pools, to the plain f32 backbone's last hidden state over the prompt
+    (`plain_path`), both within LLAMA_F32_HELD_TOL (phase 8's 0.01)."""
+    from paddle_tpu_torch.serving.engine import model_backbone
+    run = embed_serve(dev, tln, tpa, model, opts, tag)
+    alone = embed_serve(dev, tln, tpa, model, opts, tag + " no embed rows",
+                        embed=False)
+    gen = sorted(alone["tokens"])
+    ties = near_ties(tag, model, run["prompts"],
+                     {i: run["tokens"][i] for i in gen},
+                     {i: alone["tokens"][i] for i in gen}, gen,
+                     LLAMA_HELD_LOGITS_TOL if hasattr(model, "llama")
+                     else HELD_LOGITS_TOL)
+    f32 = f32_copy_on_card(model)
+    ref = embed_serve(dev, tln, tpa, f32, opts, tag + " f32 copy",
+                      plain=True)
+    err_plain = max(float(np.abs(ref["embeddings"][i] - ref["plain"][i])
+                          .max()) for i in ref["embeddings"])
+    err_prompt = []
+    with torch.no_grad(), plain_path():
+        for i, vec in ref["embeddings"].items():
+            p = torch.from_numpy(run["prompts"][i]).to(dev)[None]
+            want = model_backbone(f32)(p)[0, -1].float().cpu().numpy()
+            err_prompt.append(float(np.abs(vec - want).max()))
+            if i == 0:
+                bf16_err = float(np.abs(run["embeddings"][i] - want).max())
+    del f32
+    torch.cuda.empty_cache()
+    stats = dict(steps=run["steps"], wall_s=run["wall_s"],
+                 epilogues=run["epilogues"],
+                 epilogue_ms=run["epilogue_ms"],
+                 epilogue_ms_median=statistics.median(run["epilogue_ms"]),
+                 launches_per_epilogue=run["per_epilogue"],
+                 f32_kernels_vs_plain_epilogue=err_plain,
+                 f32_vs_plain_backbone=max(err_prompt),
+                 bf16_vs_plain_f32_backbone_request0=bf16_err,
+                 near_ties=ties)
+    log(f"  [{tag}] {EMBED_REQUESTS} embed rows beside "
+        f"{EMBED_REQUESTS} generating ones in {run['steps']} steps, "
+        f"{run['epilogues']} epilogues ({run['per_epilogue']} each), "
+        f"epilogue ms {[round(m, 3) for m in run['epilogue_ms']]}; every "
+        f"byte of the rows' pages kept; the f32 copy's embeddings through "
+        f"the kernels vs the plain epilogue {err_plain:.2e}, vs the plain "
+        f"f32 backbone over the prompt {max(err_prompt):.2e} (tolerance "
+        f"{LLAMA_F32_HELD_TOL}); bf16 request 0 vs the plain f32 backbone "
+        f"{bf16_err:.4f}; generating rows against a run without the embed "
+        f"rows: {len(ties)} near ties")
+    gated = err_plain if opts.get("kv_dtype") == "int8" else \
+        max(err_plain, max(err_prompt))
+    if not gated <= LLAMA_F32_HELD_TOL:
+        raise AssertionError(f"[{tag}] embeddings off by {gated}")
+    return run["launches"], stats
+
+
+def session_phase(dev, model) -> dict:
+    """Session pins on GPT-124M (`SESSION`), the engine's clock the
+    host's plus an offset this phase moves: with the pin held, turn 2
+    hits every full page of turn 1 under pressure that evicts them; with
+    the clock moved past the TTL, the same pressure leaves turn 2 cold.
+    TTFT of both turns printed."""
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    s = SESSION
+    rs = np.random.RandomState(SEED + 12)
+    vocab = model.config.vocab_size
+    turn1 = rs.randint(0, vocab, size=s["prompt"]).astype(np.int64)
+    others = [rs.randint(0, vocab, size=s["other_prompt"]).astype(np.int64)
+              for _ in range(s["others"])]
+    out = {}
+    for case, skew_s in (("pinned", 0.0), ("expired", s["ttl_s"] + 1.0)):
+        skew = [0.0]
+        eng = ServingEngine(model, device=dev, seed=SEED,
+                            clock=lambda: time.monotonic() + skew[0],
+                            num_slots=s["slots"], page_size=16,
+                            chunk_len=32, max_len=992, num_pages=s["pages"],
+                            host_pages=0, session_ttl_s=s["ttl_s"])
+        one = eng.generate([turn1], SamplingParams(
+            max_new_tokens=s["new"], session="chat"))[0]
+        pinned = eng.prefix_cache.stats()["pinned_pages"]
+        skew[0] = skew_s
+        eng.generate(others, SamplingParams(max_new_tokens=s["new"]))
+        evicted = eng.prefix_cache.stats()["evicted_pages"]
+        turn2 = np.concatenate([turn1, one.token_ids,
+                                rs.randint(0, vocab, size=s["follow"])])
+        two = eng.generate([turn2], SamplingParams(max_new_tokens=s["new"],
+                                                   session="chat"))[0]
+        full = (s["prompt"] + s["new"]) // 16 * 16
+        out[case] = dict(pinned_pages=pinned, evicted_pages=evicted,
+                         turn2_cached_tokens=two.cached_tokens,
+                         full_page_tokens=full,
+                         ttft_turn1_ms=one.ttft_s * 1e3,
+                         ttft_turn2_ms=two.ttft_s * 1e3)
+        log(f"  [session {case}] turn 1 pinned {pinned} pages; the other "
+            f"{s['others']} requests evicted {evicted} pages; turn 2 hit "
+            f"{two.cached_tokens} of turn 1's {full} full-page tokens; TTFT"
+            f" turn 1 {one.ttft_s * 1e3:.2f} ms, turn 2 "
+            f"{two.ttft_s * 1e3:.2f} ms")
+        want = full if case == "pinned" else 0
+        if two.cached_tokens != want or pinned != full // 16 or not evicted:
+            raise AssertionError(f"[session {case}] turn 2 hit "
+                                 f"{two.cached_tokens}, want {want}")
+        eng.drain()
+        eng.pool.assert_quiesced()
+        del eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def fabric_arm(dev, model, kv_dtype, tag) -> dict:
+    """Engine A prefills a FABRIC_PROMPT-token prompt to its first token
+    and exports the chain of prompt + [t1]; engine B imports it and
+    continues prompt + [t1] for FABRIC_NEW tokens, equal to A's own
+    continuation, with every full page a hit. The frame's bytes are the
+    header's accounting; a page-32 engine refuses it whole and quiesces;
+    A's snapshot after `drain()` restores into a fresh engine, which
+    continues with the same tokens from a warm hit."""
+    from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
+                                          frame_header)
+    ps = ENGINE["page_size"]
+    rs = np.random.RandomState(SEED + 13)
+    prompt = rs.randint(0, model.config.vocab_size,
+                        size=FABRIC_PROMPT).astype(np.int64)
+    make = lambda **kw: ServingEngine(model, device=dev, seed=SEED,
+                                      kv_dtype=kv_dtype,
+                                      **{**ENGINE, **kw})
+    a = make()
+    t1 = a.generate([prompt], SamplingParams(max_new_tokens=1))[0].token_ids
+    seq = np.concatenate([prompt, t1])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    frame = a.export_prefix_frame(seq)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    hdr = frame_header(frame)
+    hlen = int.from_bytes(frame[4:8], "little")
+    full = seq.size // ps * ps
+    if (len(frame) != 8 + hlen + 8 * hdr["n_tokens"] + hdr["payload_bytes"]
+            or hdr["payload_bytes"] != hdr["n_pages"] * a.page_bytes
+            or hdr["valid"] != full):
+        raise AssertionError(f"[{tag}] frame accounting {hdr}")
+    want = a.generate([seq], SamplingParams(
+        max_new_tokens=FABRIC_NEW))[0].token_ids
+    b = make()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grafted = b.import_prefix_frame(frame)
+    torch.cuda.synchronize()
+    import_ms = (time.perf_counter() - t0) * 1e3
+    got = b.generate([seq], SamplingParams(max_new_tokens=FABRIC_NEW))[0]
+    if grafted != hdr["n_pages"] or got.token_ids != want or \
+            got.cached_tokens != full:
+        raise AssertionError(f"[{tag}] B grafted {grafted}, hit "
+                             f"{got.cached_tokens} of {full}; tokens equal "
+                             f"{got.token_ids == want}")
+    c = make(page_size=32)
+    try:
+        c.import_prefix_frame(frame)
+        raise AssertionError(f"[{tag}] a page-32 engine took the frame")
+    except ValueError as e:
+        refused = str(e)
+    if c.prefix_cache.tree_pages:
+        raise AssertionError(f"[{tag}] the refused frame grafted pages")
+    c.drain()
+    c.pool.assert_quiesced()
+    a.drain()
+    a.pool.assert_quiesced()
+    snap = a.export_prefix_state()
+    d = make()
+    restored = d.import_prefix_state(snap)
+    warm = d.generate([seq], SamplingParams(max_new_tokens=FABRIC_NEW))[0]
+    if warm.token_ids != want or warm.cached_tokens != full:
+        raise AssertionError(f"[{tag}] the restored engine hit "
+                             f"{warm.cached_tokens}, tokens equal "
+                             f"{warm.token_ids == want}")
+    for eng in (b, d):
+        eng.drain()
+        eng.pool.assert_quiesced()
+    out = dict(frame_bytes=len(frame), pages=hdr["n_pages"],
+               payload_bytes=hdr["payload_bytes"], export_ms=export_ms,
+               import_ms=import_ms, refused=refused,
+               snapshot_nodes=len(snap["nodes"]), restored_pages=restored)
+    log(f"  [{tag}] frame of {hdr['n_pages']} pages, {len(frame)} bytes "
+        f"({hdr['payload_bytes']} of pages); export {export_ms:.3f} ms, "
+        f"import {import_ms:.3f} ms; B continued {FABRIC_NEW} tokens equal "
+        f"to A's from a {got.cached_tokens}-token hit; page 32 refused "
+        f"({refused}); snapshot of {len(snap['nodes'])} nodes restored "
+        f"{restored} pages, warm hit {warm.cached_tokens}, tokens equal")
+    del a, b, c, d
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase12(dev, tln, tpa) -> tuple:
+    """Phase 12 on GPT-124M's first GRAMMAR_GPT_LAYERS layers (bf16,
+    random weights from SEED): grammar, embeddings (defaults, int8),
+    sessions and the fabric (bf16, int8, fp8)."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import make_draft_model
+    t0 = time.perf_counter()
+    full = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                          dtype=torch.bfloat16, seed=SEED).eval()
+    model = make_draft_model(full, GRAMMAR_GPT_LAYERS)
+    del full
+    torch.cuda.empty_cache()
+    by_path, stats = {}, {}
+    gram_paths, stats["grammar"] = grammar_phase(dev, tln, tpa, model)
+    by_path.update(gram_paths)
+    t1 = time.perf_counter()
+    stats["embed"] = {}
+    for path, opts in (("embed_gpt", {}),
+                       ("embed_gpt_int8", dict(kv_dtype="int8"))):
+        by_path[path], stats["embed"][path] = embed_arm(
+            dev, tln, tpa, model, opts, f"gpt-124m {path}")
+    t2 = time.perf_counter()
+    stats["session"] = session_phase(dev, model)
+    t3 = time.perf_counter()
+    stats["fabric"] = {kv: fabric_arm(dev, model, kv, f"gpt-124m fabric {kv}")
+                       for kv in ("fp", "int8", "fp8")}
+    bf16 = stats["fabric"]["fp"]["payload_bytes"]
+    for rec in stats["fabric"].values():
+        rec["wire_bytes_vs_bf16"] = rec["payload_bytes"] / bf16
+    del model
+    torch.cuda.empty_cache()
+    stats["seconds"] = {"grammar": t1 - t0, "embed": t2 - t1,
+                        "session": t3 - t2,
+                        "fabric": time.perf_counter() - t3,
+                        "all": time.perf_counter() - t0}
+    log(f"  phase 12: {stats['seconds']['all']:.1f} s (grammar "
+        f"{t1 - t0:.1f}, embeddings {t2 - t1:.1f}, sessions {t3 - t2:.1f}, "
+        f"fabric {stats['seconds']['fabric']:.1f}); fabric wire bytes "
+        f"against bf16: " + ", ".join(
+            f"{kv} {rec['wire_bytes_vs_bf16']:.4f}"
+            for kv, rec in stats["fabric"].items()))
+    return by_path, stats
+
+
+def phase12_llama(dev, tln, tpa, model) -> tuple:
+    """Phase 12's Llama-7B part, on phase 8's 8-layer copy: the embed arm
+    at the defaults and the fabric over int8 pools."""
+    by_path, stats = {}, {}
+    t0 = time.perf_counter()
+    by_path["llama_embed"], stats["embed"] = embed_arm(
+        dev, tln, tpa, model, {}, "llama-7b llama_embed")
+    stats["fabric_int8"] = fabric_arm(dev, model, "int8",
+                                      "llama-7b fabric int8")
+    stats["seconds"] = time.perf_counter() - t0
+    log(f"  phase 12, Llama-7B part: {stats['seconds']:.1f} s")
+    return by_path, stats
+
+
 # -- phase 4: train GPT-124M -------------------------------------------------
 def launch_counts(tln, tfa) -> dict:
     return {"K1": tln.LAUNCHES, "K2": tln.BWD_LAUNCHES,
@@ -5181,6 +5859,7 @@ def main() -> int:
                      ("K7", "K6 ring"), ("K1", "K1/K2"), ("K2", "K1/K2")):
         kernels[key]["ptxas"] = ptxas.get(lib)
     kernels["K12"] = check_greedy_argmax(dev, tpa, timer)
+    kernels["K12"]["grammar_biased"] = check_greedy_argmax_biased(dev, tpa)
     torch.cuda.empty_cache()
 
     log("phase 3 serve GPT-124M (bf16, random weights):")
@@ -5271,6 +5950,14 @@ def main() -> int:
     by_path.update(obs_paths)
     log(f"  phase 11: {json.dumps(serving_obs)}")
     log(f"  phase 11, Llama-7B quarantine: {json.dumps(llama['quarantine'])}")
+
+    log("phase 12 grammar-constrained decoding, embeddings, session pins and"
+        " the KV fabric on GPT-124M (bf16, random weights; the Llama-7B part"
+        " ran in phase 8):")
+    p12_paths, phase12_stats = phase12(dev, tln, tpa)
+    by_path.update(p12_paths)
+    log(f"  phase 12: {json.dumps(phase12_stats)}")
+    log(f"  phase 12, Llama-7B: {json.dumps(llama['phase12'])}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

@@ -19,19 +19,27 @@ verifies. The request tracer and flight recorder (`serving.obs`, gate
 gates `PADDLE_TPU_SLO` and `PADDLE_TPU_COST_CENSUS`) are on by default, as
 in the JAX engine; the engine quarantines a request that deterministically
 kills its step (`PoisonedRequest`), and `serving.faults` injects such
-faults. `serving.http.EngineDriver` runs an engine on a pump thread of
-its own.
+faults. Grammar-constrained decoding (`serving.grammar`, gate
+`PADDLE_TPU_GRAMMAR`), the embeddings lane (`SamplingParams(embed=True)`),
+session pins (`SamplingParams(session=...)`) and the KV fabric's engine
+side (`serving.fabric`: PKVF frames, prefix fingerprints, tree snapshots)
+run on the unified step. `serving.http.EngineDriver` runs an engine on a
+pump thread of its own.
 """
 from .adapters import (ADAPTER_PROJS, BASE_ADAPTER, AdapterStore,
                        LoRAWeights, make_random_lora, resolve_adapters_flag)
 from .draft import DraftConfig, DraftEngine, make_draft_model
-from .engine import (KV_DTYPE_MODES, ServingEngine, legacy_forward,
-                     resolve_grouped_flag, resolve_kv_dtype,
+from .engine import (KV_DTYPE_MODES, ServingEngine, embed_forward,
+                     legacy_forward, resolve_grouped_flag, resolve_kv_dtype,
                      resolve_preempt_flag, resolve_unified_flag,
                      unified_forward, verify_forward)
 from .errors import (DeadlineExceeded, EngineClosed, PoisonedRequest,
                      QueueFull, RateLimited, ServingError)
+from .fabric import (FabricConfig, decode_frame, encode_frame, frame_header,
+                     parse_fabric_spec, prompt_fingerprints, resolve_fabric)
 from .faults import FaultInjector, InjectedFault, resolve_faults
+from .grammar import (ChoiceGrammar, GrammarSpec, JsonGrammar, RegexGrammar,
+                      TokenGrammar, resolve_grammar_flag)
 from .metrics import Histogram, ServingMetrics, prometheus_render
 from .obs import (EngineObs, FlightRecorder, RequestTracer,
                   resolve_debug_flag, resolve_flight_steps, resolve_obs_flag,
@@ -48,7 +56,7 @@ from .spec import (SPEC_DECODE_ENV, SPEC_MODES, Drafter, ModelDrafter,
                    NgramDrafter, SpecConfig, resolve_spec_config)
 
 __all__ = ["ServingEngine", "unified_forward", "verify_forward",
-           "legacy_forward",
+           "legacy_forward", "embed_forward",
            "resolve_grouped_flag", "resolve_preempt_flag",
            "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
            "resolve_prefix_cache_flag",
@@ -67,4 +75,9 @@ __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "RequestState", "SamplingParams", "Scheduler",
            "SpecConfig", "NgramDrafter", "ModelDrafter", "Drafter",
            "resolve_spec_config", "SPEC_DECODE_ENV", "SPEC_MODES",
-           "DraftEngine", "DraftConfig", "make_draft_model"]
+           "DraftEngine", "DraftConfig", "make_draft_model",
+           "FabricConfig", "resolve_fabric", "parse_fabric_spec",
+           "encode_frame", "decode_frame", "frame_header",
+           "prompt_fingerprints", "TokenGrammar", "JsonGrammar",
+           "ChoiceGrammar", "RegexGrammar", "GrammarSpec",
+           "resolve_grammar_flag"]

@@ -177,13 +177,51 @@ and the next round's clamp rolls them back.) `heartbeat_hook`, when set
 round's launches, with `step_tokens_inflight` the tokens of the launch
 in flight.
 
+Grammar-constrained decoding (`grammar=`, gate PADDLE_TPU_GRAMMAR=on|off,
+default off; `serving.grammar`; the unified step only): a request whose
+`SamplingParams.grammar` is set gets an automaton at admission (it
+replays `grammar_prefix` prompt tokens and the emitted ones, so a
+preempted stream resumes constrained). Each step every constrained
+decode row's allow-set becomes one [V] f32 bias row (0 or -1e30;
+budget-aware, EOS allowed in accepting states only and forced when
+nothing else is), added to that row's held logits before the sample: the
+argmax (K12 under the megakernel) and the sampled chain see the biased
+logits, the held logits stay the model's. Only constrained rows are
+uploaded, and a step without one adds nothing (x + 0.0 changes no
+argmax). With speculative decoding a fork of the automaton walks each
+row's drafts, each verify column gets its own bias row, and a draft the
+grammar forbids loses the argmax match and is rejected.
+
+The embeddings lane (`SamplingParams.embed`, the unified step only): an
+embed request prefills its prompt like any other, reserving no output
+pages, and at the end of its prompt retires with the pooled last hidden
+state: its last prompt token is fed again at position plen - 1 through
+the model's backbone over its own pages, a q_len-1 read (K9, K7 over
+int8 pools; its write `index_copy_` over float pools, the K8 pair over
+e4m3 ones, the K8-q8 pair over int8 ones). The pools are
+written in place, so the page that write lands in is saved before the
+read and restored after it: the epilogue leaves every byte of the pool
+as it found it.
+
+Sessions (`SamplingParams.session`): a normally finished session
+request's inserted chain is pinned in the prefix cache for
+`session_ttl_s` seconds of the engine's clock (default 30), so the next
+turn hits warm pages under eviction pressure.
+
+The KV fabric's engine side (`serving.fabric`): `export_prefix_frame`
+reads the committed chain covering a token span (device pages through
+the swap-out copy, spilled pages from the host tier) into a PKVF frame,
+byte for byte the JAX engine's for the same pages; `import_prefix_frame`
+checks the frame's geometry whole, then grafts it into the tree (pages
+allocated by spilling, never evicting); `export_prefix_state` and
+`import_prefix_state` carry the whole tree for a warm restart.
+
 Gates are resolved at construction as the JAX engine resolves them
 (`prefix_cache=None` follows PADDLE_TPU_PREFIX_CACHE, default on). The
-gates of features not ported yet — `mesh` (PADDLE_TPU_MESH) and
-`grammar` (PADDLE_TPU_GRAMMAR) — are parsed with the JAX package's rules
-(a bad spelling raises ValueError) and raise NotImplementedError, naming
-the ROADMAP item, when a keyword or an environment variable turns one
-on.
+gate of the feature not ported yet — `mesh` (PADDLE_TPU_MESH) — is
+parsed with the JAX package's rules (a bad spelling raises ValueError)
+and raises NotImplementedError, naming the ROADMAP item, when a keyword
+or an environment variable turns it on.
 """
 from __future__ import annotations
 
@@ -209,6 +247,8 @@ from .adapters import BASE_ADAPTER, AdapterStore, resolve_adapters_flag
 from .draft import DraftConfig, DraftEngine, make_draft_model
 from ..profiler import RecordEvent
 from .errors import DeadlineExceeded, EngineClosed, PoisonedRequest
+from .fabric import decode_frame, encode_frame, frame_header
+from .grammar import NEG_BIAS, TokenGrammar, resolve_grammar_flag
 from .metrics import ServingMetrics
 from .obs import EngineObs, resolve_obs_flag
 from .paging import (HostPagePool, PagePool, TRASH_PAGE, chunk_bucket,
@@ -222,7 +262,7 @@ from .slo import (SLOTracker, capture_cost_census, model_cost_census,
 from .spec import Drafter, ModelDrafter, resolve_spec_config
 
 __all__ = ["ServingEngine", "unified_forward", "verify_forward",
-           "legacy_forward",
+           "legacy_forward", "embed_forward",
            "resolve_grouped_flag", "resolve_preempt_flag",
            "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
            "resolve_unported_gates"]
@@ -234,20 +274,6 @@ _TERMINAL_EVENT = {"stop": "finish", "length": "finish",
                    "replica_failure": "replica_death"}
 _ROADMAP_SERVING = "ROADMAP.md, queue 1, item 6"
 _MESH_RE = re.compile(r"^dp(\d+)x?mp(\d+)$")
-
-
-def _grammar_on(override) -> bool:
-    """PADDLE_TPU_GRAMMAR / grammar= (the JAX `resolve_grammar_flag`):
-    on|off and their spellings, default off."""
-    flag = override if override is not None else \
-        os.environ.get("PADDLE_TPU_GRAMMAR", "off")
-    low = str(flag).strip().lower()
-    if low in ("on", "1", "true", "yes"):
-        return True
-    if low in ("off", "0", "false", "no"):
-        return False
-    raise ValueError(f"PADDLE_TPU_GRAMMAR / grammar must be on|off, got "
-                     f"{flag!r}")
 
 
 def _mesh_on(override) -> bool:
@@ -274,14 +300,12 @@ def _mesh_on(override) -> bool:
 # gate -> (its resolver, what it serves)
 _UNPORTED_GATES = {
     "mesh": (_mesh_on, "tensor-parallel serving (PADDLE_TPU_MESH)"),
-    "grammar": (_grammar_on,
-                "grammar-constrained decoding (PADDLE_TPU_GRAMMAR)"),
 }
 
 
 def resolve_unported_gates(**overrides):
-    """Resolve the JAX engine's gates of features the port lacks (mesh,
-    grammar), each from its keyword or,
+    """Resolve the JAX engine's gates of features the port lacks (mesh),
+    each from its keyword or,
     when that is None, its environment variable, by the JAX rules: a bad
     spelling raises ValueError, and a gate that comes out on raises
     NotImplementedError naming the ROADMAP item."""
@@ -455,7 +479,8 @@ def verify_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
                    page_table: torch.Tensor, q_len: torch.Tensor,
                    is_decode: torch.Tensor, last_logits: torch.Tensor,
                    head: tuple, group=None, attn_impl: Optional[str] = None,
-                   lora=None, megakernel: bool = False) -> tuple:
+                   lora=None, megakernel: bool = False,
+                   vbias: Optional[tuple] = None) -> tuple:
     """The model half of a speculative unified step (the JAX step's
     verify epilogue): `unified_forward`'s trunk, then the LM head over
     the columns the step reads, `head` = (rows [n], cols [n], first [S])
@@ -465,21 +490,29 @@ def verify_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     it equals the argmax of column i, and `accept` [S] int32 is the
     length of that prefix (0 for rows that do not decode) — by the plain
     expressions, or under `megakernel` by `spec_verify_accept`, K12 over
-    every column of the [S, W, V] verify logits. Returns (held logits
-    [S, V] f32: a decode row's from column `accept`, a prefill row's
-    from its last, a dead row's unchanged; accept)."""
+    every column of the [S, W, V] verify logits. `vbias`, (entries [k]
+    int64 into the head's columns, bias [k, V] f32), is the grammar's:
+    added to those columns' logits before the argmax and the acceptance
+    (a draft the grammar forbids cannot match), never to the held
+    logits. Returns (held logits [S, V] f32: a decode row's from column
+    `accept`, a prefill row's from its last, a dead row's unchanged;
+    accept)."""
     h = _backbone(model, pools, tokens, pos, page_table, q_len, group,
                   attn_impl, lora, megakernel)
     rows, cols, first = head
     logits = model.lm_head(h[rows, cols]).float()            # [n, V]
+    biased = logits
+    if vbias is not None:
+        biased = logits.clone()
+        biased[vbias[0]] += vbias[1]
     s, w = tokens.shape
     if megakernel:
         verify = logits.new_zeros((s, w, logits.shape[-1]))
-        verify[rows, cols] = logits
+        verify[rows, cols] = biased
         accept = spec_verify_accept(verify, tokens, q_len, is_decode)
     else:
         preds = torch.zeros_like(tokens)
-        preds[rows, cols] = torch.argmax(logits, dim=-1).to(tokens.dtype)
+        preds[rows, cols] = torch.argmax(biased, dim=-1).to(tokens.dtype)
         match = tokens[:, 1:] == preds[:, :-1]
         dcol = torch.arange(w - 1, device=tokens.device)[None, :]
         valid = dcol < (q_len.to(torch.int64) - 1)[:, None]
@@ -489,6 +522,19 @@ def verify_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
     sel = first + torch.where(is_decode, accept.to(torch.int64), 0)
     held = torch.where((q_len > 0)[:, None], logits[sel], last_logits)
     return held, accept
+
+
+def embed_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
+                  page_table: torch.Tensor,
+                  attn_impl: Optional[str] = None) -> torch.Tensor:
+    """The embeddings lane's epilogue: tokens [B, 1], each row's last
+    prompt token, at positions pos [B] int32 through the model's backbone
+    over the per-layer pools (its K/V written in place at pos, then read
+    with the row's prefix: K9, or K7 over int8 pools) via page_table
+    [B, mp]; the f32 final hidden states [B, h]."""
+    caches = _unpack_caches(pools, pos, page_table, attn_impl=attn_impl)
+    h, _ = model_backbone(model)(tokens, caches=caches)
+    return h[:, -1].float()
 
 
 def legacy_forward(model, pools, tokens: torch.Tensor, pos: torch.Tensor,
@@ -540,8 +586,9 @@ class ServingEngine:
                  adapter_ranks: Optional[Sequence[int]] = None,
                  mesh=None, megakernel=None, obs=None,
                  flight_steps: Optional[int] = None, slo=None,
-                 cost_census=None, draft_pages: Optional[int] = None):
-        resolve_unported_gates(mesh=mesh, grammar=grammar)
+                 cost_census=None, draft_pages: Optional[int] = None,
+                 session_ttl_s: float = 30.0):
+        resolve_unported_gates(mesh=mesh)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -586,6 +633,25 @@ class ServingEngine:
         # per-request drafters, made at admission for greedy requests and
         # dropped at retirement and preemption (request_id -> Drafter)
         self._drafters: Dict[str, Drafter] = {}
+        # grammar-constrained decoding: the per-row bias rides the unified
+        # step's sample, so the legacy step refuses the gate
+        self.grammar_on = resolve_grammar_flag(grammar)
+        if self.grammar_on and not self.unified:
+            raise ValueError(
+                "grammar-constrained decoding requires the unified "
+                "ragged step: the mask operand rides the ONE compiled "
+                "program (set unified=True / PADDLE_TPU_UNIFIED_STEP=on "
+                "or turn PADDLE_TPU_GRAMMAR off)")
+        # per-request automata, made at admission for constrained
+        # requests and dropped at retirement and preemption
+        self._grammars: Dict[str, TokenGrammar] = {}
+        # host-to-device bytes of the last step's grammar biases, and the
+        # sample's bias operand of the step in flight (None: no row)
+        self.grammar_bias_bytes = 0
+        self._gsamp: Optional[tuple] = None
+        # how long a finished `session=` request's prefix pages stay
+        # pinned above LRU (seconds of the engine's clock)
+        self.session_ttl_s = float(session_ttl_s)
         # the tokens one unified step packs: decode rows always get
         # theirs, prefill grants share what is left. The default is the
         # full [num_slots, chunk_len] shape
@@ -642,7 +708,7 @@ class ServingEngine:
         self.metrics.pool_bytes_per_page = self.page_bytes
         # one device: the JAX engine's values at mp = dp = 1
         self.metrics.pool_shard_bytes_per_page = self.page_bytes
-        self.metrics.grammar = False
+        self.metrics.grammar = self.grammar_on
         self.metrics.step_capacity_tokens = self.num_slots * self.chunk_len
         self._last_logits = torch.zeros(
             (self.num_slots, model.config.vocab_size), dtype=torch.float32,
@@ -681,7 +747,8 @@ class ServingEngine:
         if self.adapters is not None:
             self.metrics.adapter_stats = self.adapters.stats()
         self.pool = PagePool(self.num_pages)
-        self.prefix_cache = (RadixPrefixCache(self.pool, self.page_size)
+        self.prefix_cache = (RadixPrefixCache(self.pool, self.page_size,
+                                              clock=clock)
                              if resolve_prefix_cache_flag(prefix_cache)
                              else None)
         # the host tier: preempted residents' KV and spilled prefix pages
@@ -757,6 +824,11 @@ class ServingEngine:
                 (ad.hidden * ad.rank + ad.rank * ad.q_out)
                 * ad.dtype.itemsize)
         self.step_capacity_tokens = self.num_slots * self.chunk_len
+        # the KV fabric's wire counters (the census's "fabric" record)
+        self._fabric_pages_sent = 0
+        self._fabric_bytes_sent = 0
+        self._fabric_pages_recv = 0
+        self._fabric_bytes_recv = 0
         self._step_idx = 0       # engine rounds run (debug_state's step)
         # the running round's token split and wall time, read by the
         # flight record
@@ -781,7 +853,8 @@ class ServingEngine:
     def _new_round_stats() -> dict:
         return {"prefill_tokens": 0, "decode_tokens": 0, "draft_tokens": 0,
                 "accepted_tokens": 0, "draft_seed_tokens": 0,
-                "reads_saved": 0, "wall_s": 0.0}
+                "reads_saved": 0, "constrained_rows": 0,
+                "grammar_rejected": 0, "wall_s": 0.0}
 
     def _obs_event(self, req: Request, kind: str, **detail):
         """Record one request-timeline event (a no-op with obs off)."""
@@ -804,6 +877,11 @@ class ServingEngine:
     def _slo_snap(self) -> Optional[dict]:
         return None if self.slo is None else self.slo.snapshot()
 
+    def _note(self, kind: str, detail: str):
+        """A note in the flight ring (a no-op with obs off)."""
+        if self.obs is not None:
+            self.obs.flight.note(kind, detail)
+
     def _incident(self, kind: str, detail: str):
         if self.obs is not None:
             self.obs.flight.incident(kind, detail=detail,
@@ -825,16 +903,19 @@ class ServingEngine:
         of the unified step's program capacity, captured at most once
         ("model" right after the first round; "lowered"/"xla" here, at
         the first read). The record also carries the KV fabric's wire
-        counters (zero: the fabric is not ported) and the last unified
-        step's modeled page-walk bytes, refreshed on each read, and is
-        pushed into the metrics snapshot."""
+        counters and the last unified step's modeled page-walk bytes,
+        refreshed on each read, and is pushed into the metrics
+        snapshot."""
         if self.census_mode == "off":
             return None
         with self._census_lock:
             if self._census is None:
                 self._capture_census()
-            self._census["fabric"] = {"pages_sent": 0, "bytes_sent": 0,
-                                      "pages_recv": 0, "bytes_recv": 0}
+            self._census["fabric"] = {
+                "pages_sent": self._fabric_pages_sent,
+                "bytes_sent": self._fabric_bytes_sent,
+                "pages_recv": self._fabric_pages_recv,
+                "bytes_recv": self._fabric_bytes_recv}
             if self._last_walk_bytes is not None:
                 wb = self._last_walk_bytes
                 tok = max(1, int(wb["tokens"]))
@@ -902,6 +983,13 @@ class ServingEngine:
                         self.attn_impl, lora, self.megakernel)
 
     # -- request intake ----------------------------------------------------
+    @staticmethod
+    def _budget_new(sampling: SamplingParams) -> int:
+        """The output tokens a request reserves KV for: an embed request
+        runs prefill only and retires at the end of its prompt, so it
+        reserves none (max_new_tokens is ignored)."""
+        return 0 if sampling.embed else sampling.max_new_tokens
+
     def add_request(self, prompt_ids, sampling: Optional[SamplingParams]
                     = None, request_id: Optional[str] = None,
                     on_token=None) -> Request:
@@ -915,12 +1003,22 @@ class ServingEngine:
         if prompt.size >= self.max_len:
             raise ValueError(f"prompt length {prompt.size} >= engine "
                              f"max_len {self.max_len}")
-        if prompt.size + sampling.max_new_tokens > self.max_len:
+        if prompt.size + self._budget_new(sampling) > self.max_len:
             raise ValueError(
                 f"prompt_len {prompt.size} + max_new_tokens "
                 f"{sampling.max_new_tokens} exceeds engine max_len "
                 f"{self.max_len}")
-        need = pages_needed(prompt.size, sampling.max_new_tokens,
+        if sampling.grammar is not None and not self.grammar_on:
+            raise ValueError(
+                "request carries a grammar constraint but this "
+                "engine's grammar gate is off (enable it via "
+                "ServingEngine(grammar=True) / PADDLE_TPU_GRAMMAR=on)")
+        if sampling.embed and not self.unified:
+            raise ValueError(
+                "the embeddings lane rides the unified ragged step's "
+                "prefill packing (set unified=True / "
+                "PADDLE_TPU_UNIFIED_STEP=on)")
+        need = pages_needed(prompt.size, self._budget_new(sampling),
                             self.page_size)
         if need > self.num_pages - 1:
             raise ValueError(
@@ -950,6 +1048,8 @@ class ServingEngine:
         self.metrics.on_submit(req)
         if self.adapters is not None:
             self.metrics.on_adapter_request(aid)
+        if sampling.grammar is not None:
+            self.metrics.on_grammar_request()
         self._obs_event(req, "submit", prompt_len=int(prompt.size),
                         priority=int(sampling.priority),
                         queue_depth=self.scheduler.queue_depth)
@@ -1006,6 +1106,7 @@ class ServingEngine:
         self._release_swap(req)   # preempted and never resumed
         self._prefill_cursor.pop(req.request_id, None)
         self._drafters.pop(req.request_id, None)
+        self._grammars.pop(req.request_id, None)
         self._end_span(req)
         self._requests.pop(req.request_id, None)
         req._finish(reason, now)
@@ -1025,6 +1126,11 @@ class ServingEngine:
                                   np.asarray(req.output_tokens, np.int64)])
             self.prefix_cache.insert(seq, pages, seq.size,
                                      adapter_id=req.sampling.adapter_id)
+            # a session's chain is pinned above LRU for the TTL: its
+            # next turn hits warm pages by contract
+            if req.sampling.session:
+                self.prefix_cache.pin(seq, self.session_ttl_s,
+                                      adapter_id=req.sampling.adapter_id)
         else:
             self.prefix_cache.release(pages)
 
@@ -1071,14 +1177,14 @@ class ServingEngine:
         """The KV-page half of `_reserve` (fresh admission)."""
         if self.prefix_cache is None:
             pages = self.pool.alloc(pages_needed(
-                req.prompt_ids.size, req.sampling.max_new_tokens,
+                req.prompt_ids.size, self._budget_new(req.sampling),
                 self.page_size))
             if pages is None:
                 return False
             req.pages = pages
             return True
         grant = self.prefix_cache.acquire(req.prompt_ids,
-                                          req.sampling.max_new_tokens,
+                                          self._budget_new(req.sampling),
                                           adapter_id=req.sampling.adapter_id)
         if grant is None:
             return False
@@ -1097,7 +1203,7 @@ class ServingEngine:
         were."""
         swap = req._swap
         seq = req.prefill_ids
-        remaining = req.sampling.max_new_tokens - len(req.output_tokens)
+        remaining = self._budget_new(req.sampling) - len(req.output_tokens)
         ps = self.page_size
         if self.prefix_cache is not None:
             grant = self.prefix_cache.acquire(
@@ -1220,7 +1326,22 @@ class ServingEngine:
                 if (self._draft is not None
                         and isinstance(drafter, ModelDrafter)):
                     self._draft.admit(slot, int(req.prompt_ids.size),
-                                      req.sampling.max_new_tokens)
+                                      self._budget_new(req.sampling))
+            # one automaton a constrained request, made anew at each
+            # admission: it replays the `grammar_prefix` prompt tokens
+            # that are already output, then the emitted tokens (EOS, a
+            # terminator, never reaches it), so a resumed stream goes on
+            # constrained
+            if self.grammar_on and req.sampling.grammar is not None:
+                g = req.sampling.grammar.make(int(self._last_logits.shape[-1]))
+                eos = req.sampling.eos_token_id
+                k = int(req.sampling.grammar_prefix or 0)
+                replay = list(req.prompt_ids[-k:]) if k else []
+                replay.extend(req.output_tokens)
+                for t in replay:
+                    if eos is None or int(t) != eos:
+                        g.advance(int(t))
+                self._grammars[req.request_id] = g
             self.metrics.on_admit(req, self._clock())
 
     # -- preemption --------------------------------------------------------
@@ -1244,6 +1365,7 @@ class ServingEngine:
         # the drafter goes and the draft pages went with the slot: resume
         # makes a new drafter and re-seeds the draft K/V from the history
         self._drafters.pop(req.request_id, None)
+        self._grammars.pop(req.request_id, None)
         self._end_span(req)
         grant = req._prefix_grant
         base = grant.matched_full_pages if grant is not None else 0
@@ -1377,6 +1499,142 @@ class ServingEngine:
         self.host_pool.free(host_slot)
         self.pool.drop_swapped(1, spill=True)
 
+    # -- the KV fabric (serving.fabric) ------------------------------------
+    @property
+    def fabric_geometry(self) -> dict:
+        """The page geometry a transfer frame must match to be graftable
+        here: pages are raw pool blocks, so every axis must agree."""
+        return {"kv_dtype": self.kv_dtype, "page_size": self.page_size,
+                "n_layers": self.n_layers, "n_kv": self.n_kv,
+                "head_dim": self.head_dim}
+
+    def _fabric_fp_dtype(self) -> torch.dtype:
+        """The element dtype a float or e4m3 frame's blob reads as here:
+        the pool's own (e4m3 pools move as their bytes)."""
+        return torch.uint8 if self.kv_dtype == "fp8" else self.model.dtype
+
+    def _fabric_alloc_restore(self, payload) -> Optional[int]:
+        """graft/load callback: one device page (spilling a parked LRU
+        page to the host tier under pressure, never evicting, which could
+        tear down the chain being grafted) with the payload written into
+        it, handed back PARKED; None when no page can be had, which ends
+        the graft at that depth."""
+        pages = self.pool.alloc(1)
+        if pages is None and self.prefix_cache is not None \
+                and self.prefix_cache.spill(1) >= 1:
+            pages = self.pool.alloc(1)
+        if pages is None:
+            return None
+        self._restore_page(payload, pages[0])
+        self.pool.release(pages)
+        self.pool.park(pages)
+        return pages[0]
+
+    def _host_copies_landed(self):
+        """Wait for the device-to-host page copies in flight:
+        `_extract_pages` copies into pinned memory without blocking, and
+        bytes read from those tensors before the stream reaches them are
+        garbage."""
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+
+    def _chain_payloads(self, refs) -> list:
+        """The payloads of a `collect_chain` chain: device pages read in
+        one swap-out copy, spilled pages straight from the host tier."""
+        dev = [ref for kind, ref in refs if kind == "page"]
+        read = iter(self._extract_pages(dev))
+        return [next(read) if kind == "page" else self.host_pool.load(ref)
+                for kind, ref in refs]
+
+    def export_prefix_frame(self, tokens, adapter_id: int = 0
+                            ) -> Optional[bytes]:
+        """Serialise the committed page chain covering `tokens` into one
+        transfer frame (None without the prefix cache, or when the tree
+        holds no full page of it). Called between steps, like every
+        page-table touch."""
+        if self.prefix_cache is None:
+            return None
+        depth, refs = self.prefix_cache.collect_chain(tokens, adapter_id)
+        if depth <= 0:
+            return None
+        payloads = self._chain_payloads(refs)
+        self._host_copies_landed()
+        tok = np.ascontiguousarray(
+            np.asarray(tokens).reshape(-1)[:depth], dtype=np.int64)
+        frame = encode_frame(
+            kv_dtype=self.kv_dtype, page_size=self.page_size,
+            n_layers=self.n_layers, n_kv=self.n_kv,
+            head_dim=self.head_dim, tokens=tok, payloads=payloads,
+            valid=depth, adapter_id=adapter_id,
+            fp_itemsize=(1 if self.kv_dtype in ("int8", "fp8")
+                         else self.model.dtype.itemsize))
+        self._fabric_pages_sent += len(payloads)
+        self._fabric_bytes_sent += len(frame)
+        self.metrics.on_fabric(sent_pages=len(payloads),
+                               sent_bytes=len(frame))
+        self._note("fabric:send",
+                   f"{len(payloads)}p/{depth}tok/{len(frame)}B "
+                   f"adapter={adapter_id} dtype={self.kv_dtype}")
+        return frame
+
+    def import_prefix_frame(self, frame: bytes) -> int:
+        """Graft a transfer frame from another engine into this tree, so
+        the next admission hits it. The header's geometry must equal
+        `fabric_geometry` key for key: a mismatched frame is refused
+        whole, before any page is touched. Returns the pages grafted
+        (spans already cached cost nothing)."""
+        if self.prefix_cache is None:
+            return 0
+        header = frame_header(frame)
+        for key, want in self.fabric_geometry.items():
+            if header.get(key) != want:
+                raise ValueError(
+                    f"fabric frame geometry mismatch: {key}="
+                    f"{header.get(key)!r}, this engine has {want!r}")
+        _, tokens, payloads = decode_frame(
+            frame, fp_dtype=self._fabric_fp_dtype())
+        grafted = self.prefix_cache.graft(
+            tokens, payloads, int(header["valid"]),
+            int(header["adapter_id"]),
+            alloc_restore=self._fabric_alloc_restore)
+        self._fabric_pages_recv += grafted
+        self._fabric_bytes_recv += len(frame)
+        self.metrics.on_fabric(recv_pages=grafted, recv_bytes=len(frame))
+        self._note("fabric:recv",
+                   f"{grafted}/{header['n_pages']}p grafted "
+                   f"{len(frame)}B adapter={header['adapter_id']}")
+        return grafted
+
+    def export_prefix_state(self) -> Optional[dict]:
+        """The whole radix tree, structure and page payloads (device and
+        host tier), as one host-side record for a warm restart."""
+        if self.prefix_cache is None:
+            return None
+        snap = self.prefix_cache.snapshot(self._extract_page,
+                                          self.host_pool.load)
+        self._host_copies_landed()
+        snap["geometry"] = self.fabric_geometry
+        self._note("fabric:snapshot", f"{len(snap['nodes'])} nodes")
+        return snap
+
+    def import_prefix_state(self, snap: Optional[dict]) -> int:
+        """Warm-start this engine from an `export_prefix_state` record
+        (the geometry must match; pages that no longer fit drop with
+        their subtrees). Returns the pages restored."""
+        if snap is None or self.prefix_cache is None:
+            return 0
+        geo = snap.get("geometry")
+        if geo is not None and dict(geo) != self.fabric_geometry:
+            raise ValueError(
+                f"prefix snapshot geometry {geo} does not match "
+                f"this engine ({self.fabric_geometry})")
+        restored = self.prefix_cache.load(
+            snap, alloc_restore=self._fabric_alloc_restore)
+        self.metrics.on_fabric(restored_pages=restored)
+        self._note("fabric:restore",
+                   f"{restored}/{len(snap['nodes'])} pages warm")
+        return restored
+
     # -- the unified step --------------------------------------------------
     def _page_table(self) -> torch.Tensor:
         if self._pt_dev is None:
@@ -1421,25 +1679,31 @@ class ServingEngine:
                                lora, self.megakernel)
 
     def _verify(self, tokens, pos, page_table, q_len, is_decode, head,
-                group=None, lora=None):
+                group=None, lora=None, vbias=None):
         return verify_forward(self.model, self._pools, tokens, pos,
                               page_table, q_len, is_decode,
                               self._last_logits, head, group, self.attn_impl,
-                              lora, self.megakernel)
+                              lora, self.megakernel, vbias)
 
     def _sample_next(self) -> torch.Tensor:
         """Every slot's next token from its held logits: argmax when all
         residents decode greedily, else per-slot sampling. Under the
         megakernel the argmax is K12 (`decode_greedy_argmax`), one launch
-        a step, handed to the sampler for its greedy rows."""
+        a step, handed to the sampler for its greedy rows. The step's
+        grammar bias `_gsamp`, (rows [k] int64, bias [k, V] f32) or None,
+        is added to those rows of a copy of the held logits before
+        anything samples."""
         temps, topk, topp, greedy = self._sampling_vectors()
-        g = (decode_greedy_argmax(self._last_logits) if self.megakernel
-             else None)
+        logits = self._last_logits
+        gsamp = self._gsamp
+        if gsamp is not None:
+            logits = logits.clone()
+            logits[gsamp[0]] += gsamp[1]
+        g = decode_greedy_argmax(logits) if self.megakernel else None
         if self._all_greedy:
-            return (torch.argmax(self._last_logits, dim=-1) if g is None
-                    else g.long())
-        return _sample_rows(self._last_logits, self._generator, temps, topk,
-                            topp, greedy, argmax=g)
+            return torch.argmax(logits, dim=-1) if g is None else g.long()
+        return _sample_rows(logits, self._generator, temps, topk, topp,
+                            greedy, argmax=g)
 
     def _emit_tokens(self, slots, nxt: np.ndarray,
                      finished: List[RequestOutput], accept=None,
@@ -1468,6 +1732,7 @@ class ServingEngine:
                 burst.extend(int(t) for t in drafts[slot][:acc])
             prev_t = req._last_token_t
             sp = req.sampling
+            gram = self._grammars.get(req.request_id)
             emitted, reason = 0, None
             for tok in burst:
                 req._emit(tok, now)
@@ -1476,6 +1741,10 @@ class ServingEngine:
                 if sp.eos_token_id is not None and tok == sp.eos_token_id:
                     reason = "stop"
                     break
+                if gram is not None:
+                    # the automaton commits along the burst (EOS ended it
+                    # above: a terminator, never a grammar character)
+                    gram.advance(tok)
                 if len(req.output_tokens) >= sp.max_new_tokens:
                     reason = "length"
                     break
@@ -1554,7 +1823,9 @@ class ServingEngine:
         torch.argmax, and both take the first of equal values), and feed
         the catch-up `committed[dpos:] + [t0]`. Slots lagging more than
         a chunk wait for `_draft_seed_step`; a slot whose t0 is EOS
-        finishes this step and does not draft."""
+        finishes this step and does not draft. A constrained slot's t0 is
+        the argmax of its grammar-biased held logits (the same f32 add
+        the device's sample makes)."""
         d = self._draft
         proposals: Dict[int, np.ndarray] = {}
         if d is None:
@@ -1564,7 +1835,7 @@ class ServingEngine:
         for slot, (req, cap) in sorted(rows.items()):
             if not d.resident(slot) and not d.admit(
                     slot, int(req.prompt_ids.size),
-                    req.sampling.max_new_tokens):
+                    self._budget_new(req.sampling)):
                 continue            # draft-pool pressure: retry later
             hist = self._history(req)
             dpos = d.committed(slot, int(hist.size))
@@ -1572,8 +1843,14 @@ class ServingEngine:
                 continue            # too cold: seeding catches it up
             if held is None:
                 held = self._last_logits.cpu().numpy()
-            t0 = int(np.argmax(held[slot]))
             eos = req.sampling.eos_token_id
+            g = self._grammars.get(req.request_id)
+            if g is None:
+                t0 = int(np.argmax(held[slot]))
+            else:       # the grammar-biased pick, the device's bit for bit
+                left = req.sampling.max_new_tokens - len(req.output_tokens)
+                t0 = int(np.argmax(held[slot] + self._grammar_bias(
+                    g, left, eos, held.shape[-1])))
             if eos is not None and t0 == eos:
                 continue            # the row finishes this step
             entries[slot] = (np.concatenate([hist[dpos:], [t0]]), cap)
@@ -1612,7 +1889,7 @@ class ServingEngine:
                 continue
             if not d.resident(slot) and not d.admit(
                     slot, int(req.prompt_ids.size),
-                    req.sampling.max_new_tokens):
+                    self._budget_new(req.sampling)):
                 continue            # draft-pool pressure
             dpos = d.committed(slot, int(committed.size))
             lag = int(committed.size) - dpos
@@ -1628,6 +1905,132 @@ class ServingEngine:
         d.seed(entries)
         self._round_stats["draft_seed_tokens"] += sum(
             int(v.size) for v in entries.values())
+
+    # -- grammar-constrained decoding --------------------------------------
+    @staticmethod
+    def _grammar_bias(g, left, eos, V) -> np.ndarray:
+        """One [V] f32 bias row from an automaton's state: 0.0 where the
+        grammar allows a token, NEG_BIAS where it forbids one. Budget-
+        aware: with `left` emissions to go, one is kept for EOS, so the
+        tokens are those from which acceptance stays reachable within
+        left - 1 (the automaton falls back to its whole allow-set when
+        acceptance is out of reach). EOS is allowed iff the automaton
+        accepts, and is the only token left when the grammar allows
+        nothing else: a complete, budget-spent stream ends."""
+        allow = g.budget_allowed(max(0, left - 1))
+        bias = np.where(allow, np.float32(0.0),
+                        np.float32(NEG_BIAS)).astype(np.float32)
+        if eos is not None and 0 <= eos < V:
+            bias[eos] = 0.0 if g.accepting() else NEG_BIAS
+        if not (bias == 0.0).any():
+            if eos is not None and 0 <= eos < V:
+                bias[eos] = 0.0
+            else:           # unreachable: SamplingParams requires EOS
+                bias[:] = 0.0
+        return bias
+
+    def _grammar_operands(self, running, decode_slots, draft_grants,
+                          proposals, head) -> tuple:
+        """The step's grammar biases, as device operands: (rows, bias
+        [k, V]) for the sample, one row a constrained decode slot, and,
+        with drafts, (head entries, bias) for the verify columns — a fork
+        of the row's automaton walks [t0, drafts...] and each column gets
+        the bias of the state it verifies from (t0 is the biased argmax
+        of the held logits, recomputed on the host: the device's pick
+        bit for bit). A draft the grammar forbids is counted rejected:
+        its column's biased argmax cannot match it, and the columns past
+        it stay unbiased (the acceptance already stops there). Either is
+        None when no row needs it; the counts go to the round stats and
+        `metrics.on_grammar_step`."""
+        V = int(self._last_logits.shape[-1])
+        rows, biases, ver_idx, ver_bias = [], [], [], []
+        ll_host = None
+        n_rej = 0
+        for slot in decode_slots:
+            req = running.get(slot)
+            g = None if req is None else self._grammars.get(req.request_id)
+            if g is None:
+                continue
+            sp = req.sampling
+            eos = sp.eos_token_id
+            left = sp.max_new_tokens - len(req.output_tokens)
+            bias0 = self._grammar_bias(g, left, eos, V)
+            rows.append(slot)
+            biases.append(bias0)
+            m = draft_grants.get(slot, 0)
+            if not m:
+                continue
+            if ll_host is None:
+                ll_host = self._last_logits.cpu().numpy()
+            t0 = int(np.argmax(ll_host[slot] + bias0))
+            walk = g.fork()
+            alive = eos is None or t0 != eos
+            if alive:
+                walk.advance(t0)
+            first = int(head[2 * ((head.size - self.num_slots) // 2)
+                             + slot])
+            for j in range(m):
+                if not alive:
+                    break
+                bias_j = self._grammar_bias(walk, left - 1 - j, eos, V)
+                ver_idx.append(first + j)
+                ver_bias.append(bias_j)
+                p = int(proposals[slot][j])
+                if eos is not None and p == eos:
+                    alive = False
+                elif bias_j[p] < 0.0:
+                    n_rej += 1
+                    alive = False
+                else:
+                    walk.advance(p)
+        rs = self._round_stats
+        rs["constrained_rows"] += len(rows)
+        rs["grammar_rejected"] += n_rej
+        if rows:
+            self.metrics.on_grammar_step(len(rows), n_rej)
+        dev = self.device
+        up = lambda idx, b: (torch.tensor(idx, dtype=torch.int64,
+                                          device=dev),
+                             torch.from_numpy(np.stack(b)).to(dev))
+        self.grammar_bias_bytes = 4 * V * (len(rows) + len(ver_idx))
+        return (up(rows, biases) if rows else None,
+                up(ver_idx, ver_bias) if ver_idx else None)
+
+    # -- the embeddings lane -----------------------------------------------
+    def _embed_rows(self, rows):
+        """Pooled last-hidden-state embeddings for the embed rows
+        [(slot, req)] at the end of their prompts, one batched epilogue
+        (`embed_forward`) over their still-attached pages; each request
+        keeps its f32 vector. The epilogue writes its recomputed K/V into
+        the page of position plen - 1 (a private page: a prefix match
+        always leaves the prompt's last token to prefill), so that page
+        of every pool is saved first and restored after: the pool's
+        bytes are those the prefill wrote."""
+        dev = self.device
+        slots = [slot for slot, _ in rows]
+        plens = [int(req.prefill_ids.size) for _, req in rows]
+        tok = torch.tensor([[int(req.prefill_ids[-1])] for _, req in rows],
+                           dtype=torch.int64, device=dev)
+        pos = torch.tensor([n - 1 for n in plens], dtype=torch.int32,
+                           device=dev)
+        table = torch.from_numpy(self._pt_host[slots]).to(dev)
+        written = torch.tensor(
+            [int(self._pt_host[slot, (n - 1) // self.page_size])
+             for slot, n in zip(slots, plens)], dtype=torch.int64,
+            device=dev)
+        with RecordEvent("serving::embed_epilogue"):
+            saved = [[(k.index_select(0, written), v.index_select(0, written))
+                      for k, v in plane] for plane in self._planes]
+            h = embed_forward(self.model, self._pools, tok, pos, table,
+                              self.attn_impl)
+            for plane, copies in zip(self._planes, saved):
+                for (k, v), (k0, v0) in zip(plane, copies):
+                    k.index_copy_(0, written, k0)
+                    v.index_copy_(0, written, v0)
+            h = h.cpu().numpy()
+        for (slot, req), row in zip(rows, h):
+            req.embedding = row.copy()
+            self._obs_event(req, "embed", hidden=int(h.shape[-1]))
 
     @staticmethod
     def _head_columns(q_len: np.ndarray, is_decode: np.ndarray
@@ -1738,6 +2141,10 @@ class ServingEngine:
         self.step_tokens_inflight = int(q_len.sum())
         self._beat()
         t0 = time.perf_counter()
+        self._gsamp = gver = None
+        if self.grammar_on:
+            self._gsamp, gver = self._grammar_operands(
+                running, decode_slots, draft_grants, proposals, head)
         with RecordEvent("serving::unified_step"):
             dev = self.device
             isd = torch.from_numpy(is_decode).to(dev)
@@ -1757,7 +2164,8 @@ class ServingEngine:
                 idx = torch.from_numpy(head).to(dev)
                 self._last_logits, accept = self._verify(
                     toks, pos, self._page_table(), ql, isd,
-                    (idx[:n], idx[n:2 * n], idx[2 * n:]), group, lora)
+                    (idx[:n], idx[n:2 * n], idx[2 * n:]), group, lora,
+                    gver)
                 # one sync brings the sampled tokens and the acceptance
                 nxt, accept = torch.stack(
                     (nxt.to(torch.int64), accept.to(torch.int64))
@@ -1779,6 +2187,7 @@ class ServingEngine:
         rs["decode_tokens"] += len(decode_slots)
         rs["draft_tokens"] += n_drafts
         rs["wall_s"] += wall
+        embed_rows = []
         for slot, take in grants.items():
             req = running[slot]
             cur = self._prefill_cursor[req.request_id] + take
@@ -1786,11 +2195,22 @@ class ServingEngine:
             self.metrics.on_prefill_chunk(take)
             self._obs_event(req, "prefill_chunk", tokens=take, cursor=cur)
             if cur >= req.prefill_ids.size:
+                self._prefill_cursor.pop(req.request_id, None)
+                if req.sampling.embed:
+                    # prefill only: the embedding, then retirement
+                    embed_rows.append((slot, req))
+                    continue
                 # the last prefilled token's logits are held: the row
                 # samples its next token next step
-                self._prefill_cursor.pop(req.request_id, None)
                 req.state = RequestState.DECODE
                 self._obs_event(req, "decode")
+        if embed_rows:
+            # before retirement: the epilogue reads the rows' pages, which
+            # `_finish_and_free` then hands to the prefix cache
+            self._embed_rows(embed_rows)
+            now = self._clock()
+            for slot, req in embed_rows:
+                self._finish_and_free(req, "stop", now, finished)
         if head is None:
             self._emit_tokens(decode_slots, nxt, finished)
         else:
@@ -2048,8 +2468,12 @@ class ServingEngine:
             "achieved_util": round(packed / self.step_capacity_tokens, 4)}
         if self.slo is not None:
             rec["slo"] = self.slo.worst_state()
+        rec["reads_saved"] = rs["reads_saved"]
+        if self.grammar_on:
+            # constrained rows and grammar-rejected drafts this step
+            rec["constrained_rows"] = rs["constrained_rows"]
+            rec["grammar_rejected"] = rs["grammar_rejected"]
         rec.update({
-            "reads_saved": rs["reads_saved"],
             "pages_used": self.pool.used_pages,
             "pages_total": self.num_pages - 1,
             "pages_cached": self.pool.cached_pages,
@@ -2180,7 +2604,7 @@ class ServingEngine:
                        "spec": (None if self.spec is None
                                 else self.spec.mode),
                        "spec_draft_model": self._draft is not None,
-                       "grammar": False,
+                       "grammar": self.grammar_on,
                        "num_pages": self.num_pages,
                        "page_size": self.page_size,
                        "chunk_len": self.chunk_len,

@@ -16,9 +16,9 @@ thread-safe inbox, the replica-death path (`ReplicaDead`,
 
 The HTTP front-end itself — the completion protocol, the per-client rate
 limiter, the router with its watchdog and circuit breaker, the server
-and `serve()` — is not ported yet (ROADMAP.md, queue 1, item 6: the HTTP
-bullet): its modules import the grammar, the control plane and the KV
-fabric, which come first.
+and `serve()` — is not ported yet (ROADMAP.md, queue 1, item 6): of what
+its modules import, the grammar and the KV fabric's engine side are
+ported, and the control plane, the router and the server remain.
 """
 from ..faults import FaultInjector, InjectedFault, resolve_faults
 from .driver import EngineDriver, ReplicaDead, ReplicaHung

@@ -5,10 +5,11 @@ counters, gauges and histograms the engine records, read three ways.
   (queue depth, TTFT, inter-token latency, `tokens_per_sec`, slot
   occupancy, the pool and host-tier gauges, per-priority latency
   classes, speculative decoding's drafted and accepted tokens and the
-  draft pool, the SLO tracker's snapshot and the cost census), with the
-  JAX engine's keys. Keys of features the port has not ported (grammar,
-  the KV fabric, the mesh, the JAX engine's traced dispatch count) carry
-  the values the JAX engine gives with those gates off.
+  draft pool, grammar-constrained decoding's masked rows and rejected
+  drafts, the KV fabric's wire traffic, the SLO tracker's snapshot and the
+  cost census), with the JAX engine's keys. Keys of features the port has
+  not ported (the mesh, the JAX engine's traced dispatch count) carry the
+  values the JAX engine gives with those gates off.
 - `prometheus_render(...)`: the same snapshots as Prometheus text
   exposition, fixed-bucket `_bucket` series for TTFT and inter-token
   latency included; `engine_info` carries the A/B tags (`kv_dtype`,
@@ -144,17 +145,9 @@ class Histogram:
 def _unported_off() -> dict:
     """The snapshot keys of features the port has not ported (ROADMAP.md,
     queue 1, item 6) at the values the JAX engine gives with those gates
-    off: grammar-constrained decoding, the KV fabric, the tensor-parallel
-    mesh and the JAX engine's traced dispatch count. A new dict each
-    call, so no snapshot shares its subtrees with another."""
-    return {
-        "mesh": None, "mp": 1, "dp": 1,
-        "grammar_requests": 0, "grammar_masked_steps": 0,
-        "grammar_masked_rows": 0, "grammar_rejected_drafts": 0,
-        "unified_dispatch_ops": None,
-        "fabric": {"pages_sent": 0, "bytes_sent": 0, "pages_recv": 0,
-                   "bytes_recv": 0, "restored_pages": 0},
-    }
+    off: the tensor-parallel mesh and the JAX engine's traced dispatch
+    count."""
+    return {"mesh": None, "mp": 1, "dp": 1, "unified_dispatch_ops": None}
 
 
 class ServingMetrics:
@@ -266,9 +259,22 @@ class ServingMetrics:
         self.shared_page_reads_saved = 0
         # the decode megakernel gate (the A/B tag)
         self.megakernel: Optional[bool] = None
-        # the grammar gate's tag: None until an engine sets it (False,
-        # grammar-constrained decoding not being ported)
+        # grammar-constrained decoding: the gate's tag (None until an
+        # engine sets it), constrained requests submitted, steps and rows
+        # that carried a grammar bias, and drafts the host walk found the
+        # grammar forbids
         self.grammar: Optional[bool] = None
+        self.grammar_requests = 0
+        self.grammar_masked_steps = 0
+        self.grammar_masked_rows = 0
+        self.grammar_rejected_drafts = 0
+        # the KV fabric: pages and wire bytes of frames exported (sent)
+        # and grafted (recv), and pages a warm restart restored
+        self.fabric_pages_sent = 0
+        self.fabric_bytes_sent = 0
+        self.fabric_pages_recv = 0
+        self.fabric_bytes_recv = 0
+        self.fabric_restored_pages = 0
         # off-path counter: engine steps where prefill chunk programs
         # ran ahead of the decode step, stalling every resident decoder
         # (the TTFT spike the unified step exists to kill; stays 0 with
@@ -415,6 +421,33 @@ class ServingMetrics:
         with self._lock:
             lbl = self._adapter_label(adapter_id)
             self._by_adapter[lbl] = self._by_adapter.get(lbl, 0) + 1
+
+    def on_grammar_request(self):
+        """One request submitted with a grammar constraint."""
+        with self._lock:
+            self.grammar_requests += 1
+
+    def on_grammar_step(self, rows: int, rejected: int = 0):
+        """One unified step biased `rows` decode rows with their grammar;
+        the host walk found `rejected` drafts the grammar forbids."""
+        with self._lock:
+            if rows > 0:
+                self.grammar_masked_steps += 1
+            self.grammar_masked_rows += int(rows)
+            self.grammar_rejected_drafts += int(rejected)
+
+    def on_fabric(self, sent_pages: int = 0, sent_bytes: int = 0,
+                  recv_pages: int = 0, recv_bytes: int = 0,
+                  restored_pages: int = 0):
+        """KV fabric traffic: a frame left (sent) or was grafted into
+        (recv) this engine's tree, or a warm restart restored
+        `restored_pages` from a predecessor's snapshot."""
+        with self._lock:
+            self.fabric_pages_sent += int(sent_pages)
+            self.fabric_bytes_sent += int(sent_bytes)
+            self.fabric_pages_recv += int(recv_pages)
+            self.fabric_bytes_recv += int(recv_bytes)
+            self.fabric_restored_pages += int(restored_pages)
 
     def on_admit(self, req, now: float):
         with self._lock:
@@ -675,6 +708,17 @@ class ServingMetrics:
             "spec_accepted_tokens": self.spec_accepted_tokens,
             "spec_tokens_per_step": self.spec_tokens_per_step.snapshot(),
             "grammar": self.grammar,
+            "grammar_requests": self.grammar_requests,
+            "grammar_masked_steps": self.grammar_masked_steps,
+            "grammar_masked_rows": self.grammar_masked_rows,
+            "grammar_rejected_drafts": self.grammar_rejected_drafts,
+            "fabric": {
+                "pages_sent": self.fabric_pages_sent,
+                "bytes_sent": self.fabric_bytes_sent,
+                "pages_recv": self.fabric_pages_recv,
+                "bytes_recv": self.fabric_bytes_recv,
+                "restored_pages": self.fabric_restored_pages,
+            },
             "grouped": self.grouped,
             "page_block_reads_total": self.page_block_reads,
             "shared_page_reads_saved_total":

@@ -3,7 +3,8 @@ of `paddle_tpu/serving/obs.py`).
 
 - **RequestTracer**: every request gets an ordered event timeline
   (`submit -> admit -> prefill_chunk x N -> decode -> first_token ->
-  preempt/swap_in -> finish|deadline|poison|replica_death`), each event
+  preempt/swap_in -> finish|deadline|poison|replica_death`; an embed
+  request's `prefill_chunk x N -> embed -> finish`), each event
   carrying the engine step index, slot, page counts and cause, recorded
   by the engine at the call sites that drive `ServingMetrics.on_*`.
   `timeline_to_chrome` renders one timeline as a Chrome trace through

@@ -1,7 +1,7 @@
 """Automatic prefix cache: a token-id radix tree over the paged KV pool,
-its host spill tier, and the grouped walk's prefix groups (counterpart
-of `paddle_tpu/serving/prefix.py`; session pins and the fleet-fabric
-transfers are not ported yet).
+its host spill tier, session pins, the KV fabric's tree side and the
+grouped walk's prefix groups (counterpart of
+`paddle_tpu/serving/prefix.py`).
 
 The KV written for position p is a function of tokens[0..p] alone (and
 of the request's LoRA adapter), so two requests of one adapter whose
@@ -35,6 +35,19 @@ written through.
   without it spill is a no-op.
 - `evict(need)` — leaf-to-root LRU over unreferenced pages only (a
   spilled leaf drops its host copy).
+- `pin(tokens, ttl_s)` — session pins: the full-page chain of a
+  finished conversation turn sits in a TTL tier between "referenced" and
+  "evictable" — neither spill nor eviction takes it until the deadline
+  on the tree's injectable clock passes (re-pinning extends, never
+  shortens; `clear()` drops pins with everything else).
+- The KV fabric: `collect_chain` (the resident chain covering a token
+  span, device pages and host slots, for export), `graft` (insert's twin
+  for pages from another engine: dedup, a partial tail, and a clean stop
+  where allocation fails), `snapshot`/`load` (the whole tree with its
+  payloads, spilled nodes included, for warm restarts), `fingerprints`
+  (the CRC chain of every page-aligned prefix, as
+  `fabric.prompt_fingerprints` computes it for a prompt) and `lookup`
+  (a side-effect-free match probe).
 
 `shared_prefix_groups` partitions one step's rows into the groups whose
 page tables share a physical-page prefix: the grouped walk's operands.
@@ -44,11 +57,14 @@ from __future__ import annotations
 import heapq
 import itertools
 import os
+import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
+from .fabric import fp_seed, fp_step
 from .paging import TRASH_PAGE, PagePool, pages_needed
 
 __all__ = ["RadixPrefixCache", "PrefixGrant", "shared_prefix_groups",
@@ -167,7 +183,7 @@ class _Node:
     until a match restores it."""
 
     __slots__ = ("tokens", "page", "parent", "children", "partials",
-                 "last_used", "host")
+                 "last_used", "host", "pin_until")
 
     def __init__(self, tokens: Optional[np.ndarray], page: Optional[int],
                  parent: Optional["_Node"]):
@@ -178,6 +194,7 @@ class _Node:
         self.partials: List["_Partial"] = []
         self.last_used = 0
         self.host = None              # host-tier slot id when spilled
+        self.pin_until = 0.0          # session-pin deadline (tree clock)
 
 
 class _Partial:
@@ -225,9 +242,12 @@ class RadixPrefixCache:
     """Radix-tree prefix cache over one engine's `PagePool`. Called
     only between engine steps, from the engine's thread."""
 
-    def __init__(self, pool: PagePool, page_size: int):
+    def __init__(self, pool: PagePool, page_size: int, clock=None):
         self.pool = pool
         self.page_size = int(page_size)
+        # the session pins' clock (the engine passes its own; tests
+        # drive expiry with theirs)
+        self._clock = clock if clock is not None else time.monotonic
         # one namespace root per adapter id: KV written under adapter i is
         # a function of its weights too, so the same prompt under adapter
         # j must miss it. Adapter 0 (the base model) is `root`
@@ -272,6 +292,20 @@ class RadixPrefixCache:
         self._host_load = load
         self._host_drop = drop
 
+    @property
+    def pinned_pages(self) -> int:
+        """Device-resident tree pages under an unexpired session pin (the
+        `prefix_pinned_pages` gauge)."""
+        now = self._clock()
+        count = 0
+        stack = list(self._roots.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            if node.page is not None and node.pin_until > now:
+                count += 1
+        return count
+
     def stats(self) -> dict:
         return {
             "lookups": self.lookups,
@@ -283,8 +317,7 @@ class RadixPrefixCache:
             "spilled_pages": self.spilled_pages_total,
             "restored_pages": self.restored_pages_total,
             "spilled_nodes": self._n_spilled,
-            # sessions (the JAX cache's pins) are not ported: none pinned
-            "pinned_pages": 0,
+            "pinned_pages": self.pinned_pages,
             "tree_pages": self.tree_pages,
             "resident_pages": self.pool.cached_pages,
             "hit_rate": (self.hits / self.lookups) if self.lookups
@@ -302,25 +335,33 @@ class RadixPrefixCache:
         return root
 
     # -- matching ----------------------------------------------------------
-    def _match_full(self, tok: np.ndarray, limit: int, root: _Node
-                    ) -> Tuple[_Node, List[int], int]:
+    def _match_full(self, tok: np.ndarray, limit: int, root: _Node,
+                    acquire: bool = True) -> Tuple[_Node, List[int], int]:
         """Walk full-page edges: (last node, matched page ids, matched
         token count), capped at `limit` so at least one prompt token
-        always prefills (its logits start decoding). Each matched page
-        is retained as it is walked, so the restore and spill below can
-        never touch the match in progress; a spilled node on the path is
-        restored from the host tier, and where that fails the walk stops
-        and the tail prefills."""
+        always prefills (its logits start decoding). With `acquire` (the
+        reservation) each matched page is retained as it is walked, so
+        the restore and spill below can never touch the match in
+        progress; a spilled node on the path is restored from the host
+        tier, and where that fails the walk stops and the tail prefills.
+        Without it (`lookup`'s probe) a spilled node counts as matched
+        and nothing is retained or restored."""
         ps = self.page_size
         node, pages, depth = root, [], 0
         while depth + ps <= limit:
             child = node.children.get(tok[depth:depth + ps].tobytes())
             if child is None:
                 break
-            if child.page is None and not self._restore(child):
-                break
+            if child.page is None:
+                if not acquire:
+                    node = child
+                    depth += ps
+                    continue
+                if not self._restore(child):
+                    break
             node = child
-            self.pool.retain([child.page])
+            if acquire:
+                self.pool.retain([child.page])
             pages.append(child.page)
             depth += ps
             self._touch(child)
@@ -360,6 +401,17 @@ class RadixPrefixCache:
         if best_obj is not None:
             self._touch(best_obj)
         return best_k, best_page
+
+    def lookup(self, prompt, adapter_id: int = 0) -> int:
+        """Side-effect-free probe: how many tokens of `prompt` the cache
+        could serve now (full pages, device or spilled, plus the best
+        copy-on-write tail) within `adapter_id`'s namespace."""
+        tok = _tok(prompt)
+        limit = max(0, tok.size - 1)
+        node, _, depth = self._match_full(
+            tok, limit, self._root_for(adapter_id), acquire=False)
+        k, _ = self._best_tail(node, tok[depth:limit])
+        return depth + k
 
     # -- admission ---------------------------------------------------------
     def acquire(self, prompt, max_new_tokens: int, adapter_id: int = 0
@@ -486,6 +538,33 @@ class RadixPrefixCache:
                 return False
         return True
 
+    # -- session pins ------------------------------------------------------
+    def _pinned(self, node: _Node) -> bool:
+        return node.pin_until > self._clock()
+
+    def pin(self, tokens, ttl_s: float, adapter_id: int = 0) -> int:
+        """Hold the full-page chain covering `tokens` above LRU until
+        `ttl_s` from now on the tree's clock: neither spill nor eviction
+        takes a pinned node, so a conversation's next turn hits its warm
+        KV. Re-pinning extends the deadline (max, never shortens); an
+        expired pin needs no sweep. Returns the pages pinned."""
+        if ttl_s <= 0:
+            return 0
+        deadline = self._clock() + float(ttl_s)
+        tok = _tok(tokens)
+        ps = self.page_size
+        node = self._root_for(adapter_id)
+        pinned = 0
+        for i in range(tok.size // ps):
+            child = node.children.get(tok[i * ps:(i + 1) * ps].tobytes())
+            if child is None:
+                break
+            child.pin_until = max(child.pin_until, deadline)
+            self._touch(child)
+            pinned += 1
+            node = child
+        return pinned
+
     # -- spill (host tier) -------------------------------------------------
     def spill(self, need: int) -> int:
         """Move up to `need` unreferenced parked FULL pages to the host
@@ -501,7 +580,8 @@ class RadixPrefixCache:
             node = stack.pop()
             stack.extend(node.children.values())
             if (node.tokens is not None and node.page is not None
-                    and self.pool.refcount(node.page) == 0):
+                    and self.pool.refcount(node.page) == 0
+                    and not self._pinned(node)):
                 heapq.heappush(heap, (node.last_used, id(node), node))
         spilled = 0
         while spilled < need and heap:
@@ -526,6 +606,8 @@ class RadixPrefixCache:
             return self.pool.refcount(obj.page) == 0
         if obj.children or obj.partials:
             return False
+        if self._pinned(obj):
+            return False      # session-pinned: the TTL tier, not LRU
         if obj.page is None:
             return True       # spilled leaf: only a host copy to drop
         return self.pool.refcount(obj.page) == 0
@@ -576,3 +658,204 @@ class RadixPrefixCache:
                 heapq.heappush(heap, (parent.last_used, id(parent),
                                       parent, parent.parent))
         return freed
+
+    def clear(self) -> int:
+        """Drop every unreferenced cached page, device-resident and
+        spilled (a forced cold cache). Session pins do not survive it;
+        referenced nodes do. Returns the device pages freed."""
+        stack = list(self._roots.values())
+        while stack:
+            node = stack.pop()
+            stack.extend(node.children.values())
+            node.pin_until = 0.0
+        return self.evict(self.tree_pages + self._n_spilled)
+
+    # -- the KV fabric (serving.fabric) ------------------------------------
+    def fingerprints(self, limit: int = 4096) -> set:
+        """The CRC chain of every page-aligned prefix this tree can
+        serve, seeded by the adapter id (`fabric.fp_seed`/`fp_step`, as
+        `fabric.prompt_fingerprints` walks a prompt). Spilled nodes
+        count: a match restores them. Breadth first, so a `limit` keeps
+        the shallow prefixes most prompts share."""
+        out: set = set()
+        queue = deque((root, fp_seed(aid))
+                      for aid, root in self._roots.items())
+        while queue and len(out) < limit:
+            node, fp = queue.popleft()
+            for child in node.children.values():
+                cfp = fp_step(fp, child.tokens)
+                out.add(cfp)
+                if len(out) >= limit:
+                    break
+                queue.append((child, cfp))
+        return out
+
+    def collect_chain(self, tokens, adapter_id: int = 0
+                      ) -> Tuple[int, List[Tuple[str, int]]]:
+        """The resident page chain covering `tokens`' full pages, for
+        export: (covered token count, [("page", id) | ("host", slot),
+        ...]), walked without acquiring or restoring, stopping at the
+        first miss. The engine reads device pages with its swap-out copy
+        and host slots straight from the host tier. The chain stays
+        valid until the next engine step."""
+        ps = self.page_size
+        tok = _tok(tokens)
+        node = self._root_for(adapter_id)
+        refs: List[Tuple[str, int]] = []
+        depth = 0
+        while depth + ps <= tok.size:
+            child = node.children.get(tok[depth:depth + ps].tobytes())
+            if child is None:
+                break
+            if child.page is not None:
+                refs.append(("page", child.page))
+            elif child.host is not None:
+                refs.append(("host", child.host))
+            else:
+                break
+            node = child
+            depth += ps
+            self._touch(child)
+        return depth, refs
+
+    def graft(self, tokens, payloads: List, valid: int,
+              adapter_id: int = 0, *, alloc_restore) -> int:
+        """`insert`'s twin for pages from ANOTHER engine: index a
+        transferred chain so the next `acquire` hits it. `payloads` hold
+        one page payload per page of `tokens[:valid]`;
+        `alloc_restore(payload)` allocates a device page, writes the
+        payload into it and hands it back PARKED, or returns None, which
+        ends the graft at that depth (a shorter prefix is still a
+        prefix: grafting runs root-first). Spans the tree already holds
+        cost no page. Returns the pages grafted."""
+        ps = self.page_size
+        tok = _tok(tokens)
+        valid = int(valid)
+        if valid > tok.size or valid > len(payloads) * ps:
+            raise ValueError(
+                f"valid={valid} exceeds tokens ({tok.size}) or "
+                f"payload capacity ({len(payloads) * ps})")
+        node = self._root_for(adapter_id)
+        n_full = valid // ps
+        grafted = 0
+        for i in range(n_full):
+            span = tok[i * ps:(i + 1) * ps]
+            key = span.tobytes()
+            child = node.children.get(key)
+            if child is None:
+                page = alloc_restore(payloads[i])
+                if page is None:
+                    return grafted
+                child = _Node(np.array(span), page, node)
+                node.children[key] = child
+                self._owner[page] = child
+                self.inserted_pages_total += 1
+                grafted += 1
+            node = child
+            self._touch(node)
+        rem = valid - n_full * ps
+        if rem > 0 and n_full < len(payloads) and \
+                self._tail_is_new(node, tok[n_full * ps:valid]):
+            page = alloc_restore(payloads[n_full])
+            if page is not None:
+                part = _Partial(np.array(tok[n_full * ps:valid]), page)
+                node.partials.append(part)
+                self._owner[page] = part
+                self.inserted_pages_total += 1
+                self._touch(part)
+                grafted += 1
+        return grafted
+
+    def snapshot(self, extract_page, host_payload=None) -> dict:
+        """The whole tree, structure and page contents, as a host-side
+        record for warm restarts: one entry {adapter, parent index, token
+        span, payload, partial} a node (device pages through
+        `extract_page(page)`, spilled ones through `host_payload(slot)`),
+        parents before children. A node whose payload is unreachable is
+        skipped with its subtree (a chain with a hole is no prefix).
+        Meant for a quiesced engine; a live one only reads pages."""
+        nodes: List[dict] = []
+        for aid, root in sorted(self._roots.items()):
+            stack: List[Tuple[object, int]] = [(root, -1)]
+            while stack:
+                node, pidx = stack.pop()
+                if node.tokens is None:
+                    midx = -1
+                else:
+                    if node.page is not None:
+                        payload = extract_page(node.page)
+                    elif node.host is not None and \
+                            host_payload is not None:
+                        payload = host_payload(node.host)
+                    else:
+                        continue
+                    if payload is None:
+                        continue
+                    midx = len(nodes)
+                    nodes.append({"adapter": aid, "parent": pidx,
+                                  "tokens": np.array(node.tokens),
+                                  "payload": payload,
+                                  "partial": False})
+                for part in node.partials:
+                    pay = extract_page(part.page)
+                    if pay is not None:
+                        nodes.append({"adapter": aid, "parent": midx,
+                                      "tokens": np.array(part.tokens),
+                                      "payload": pay, "partial": True})
+                for child in node.children.values():
+                    stack.append((child, midx))
+        return {"version": 1, "page_size": self.page_size,
+                "nodes": nodes}
+
+    def load(self, snap: dict, *, alloc_restore) -> int:
+        """Rebuild a `snapshot` into this tree (usually a fresh engine's),
+        parent first, with `graft`'s `alloc_restore` contract and dedup.
+        An entry whose page cannot be allocated drops with its
+        descendants; everything restored parks cache-resident. Returns
+        the pages restored."""
+        if snap.get("version") != 1:
+            raise ValueError(
+                f"prefix snapshot version {snap.get('version')!r} "
+                "not supported")
+        if int(snap.get("page_size", -1)) != self.page_size:
+            raise ValueError(
+                f"prefix snapshot page_size {snap.get('page_size')} "
+                f"!= cache page_size {self.page_size}")
+        restored = 0
+        placed: Dict[int, _Node] = {}
+        for i, ent in enumerate(snap["nodes"]):
+            pidx = int(ent["parent"])
+            if pidx < 0:
+                parent = self._root_for(int(ent["adapter"]))
+            else:
+                parent = placed.get(pidx)
+                if parent is None:
+                    continue
+            toks = _tok(ent["tokens"])
+            if ent.get("partial"):
+                if not self._tail_is_new(parent, toks):
+                    continue
+                page = alloc_restore(ent["payload"])
+                if page is None:
+                    continue
+                part = _Partial(np.array(toks), page)
+                parent.partials.append(part)
+                self._owner[page] = part
+                self.inserted_pages_total += 1
+                self._touch(part)
+                restored += 1
+            else:
+                key = toks.tobytes()
+                child = parent.children.get(key)
+                if child is None:
+                    page = alloc_restore(ent["payload"])
+                    if page is None:
+                        continue
+                    child = _Node(np.array(toks), page, parent)
+                    parent.children[key] = child
+                    self._owner[page] = child
+                    self.inserted_pages_total += 1
+                    restored += 1
+                placed[i] = child
+                self._touch(child)
+        return restored

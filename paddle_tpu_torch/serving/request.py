@@ -10,9 +10,12 @@ A `Request` moves through
 
 PREFILL spans as many engine steps as the prompt needs chunks; states
 advance only at step boundaries. A request names its LoRA adapter by
-`SamplingParams.adapter_id` (0, the default, is the base model).
-Grammar, embeddings and sessions are not ported yet (ROADMAP.md, queue
-1, item 6).
+`SamplingParams.adapter_id` (0, the default, is the base model). A
+request may carry a grammar (`grammar`, a `serving.grammar.GrammarSpec`,
+with `grammar_prefix` prompt tokens that already belong to its output),
+ask for an embedding instead of tokens (`embed`: prefill only, the pooled
+last hidden state in `RequestOutput.embedding`), or name a conversation
+(`session`: its cached pages stay pinned for the engine's session TTL).
 """
 from __future__ import annotations
 
@@ -50,7 +53,15 @@ class SamplingParams:
     the whole request. `adapter_id` names the registered LoRA adapter
     the request decodes under (0: the base model); riding on the
     sampling parameters, it stays with the request through preemption
-    and resume."""
+    and resume. `grammar` constrains the output (the engine's grammar
+    gate must be on, and `eos_token_id` set: EOS is how a complete
+    stream ends); `grammar_prefix` counts the trailing prompt tokens that
+    are already constrained output, which the automaton replays.
+    `embed` makes the request prefill-only: it retires at the end of its
+    prompt with the pooled last hidden state (max_new_tokens and EOS are
+    ignored). `session` names a conversation: a normally finished
+    request's cached pages are pinned for the engine's `session_ttl_s`,
+    so the next turn finds them."""
 
     max_new_tokens: int = 16
     temperature: float = 1.0
@@ -62,6 +73,10 @@ class SamplingParams:
     priority: int = 0
     deadline_s: Optional[float] = None
     adapter_id: int = 0
+    grammar: Optional[object] = None
+    grammar_prefix: int = 0
+    embed: bool = False
+    session: Optional[str] = None
 
     def __post_init__(self):
         if self.max_new_tokens < 1:
@@ -78,7 +93,16 @@ class SamplingParams:
             raise ValueError("top_p must be in (0, 1]")
         if self.top_k is not None or self.top_p is not None:
             self.greedy = False
-
+        if self.grammar_prefix < 0:
+            raise ValueError("grammar_prefix must be >= 0")
+        if self.grammar is not None:
+            if self.embed:
+                raise ValueError(
+                    "grammar and embed are mutually exclusive")
+            if self.eos_token_id is None:
+                raise ValueError(
+                    "grammar requires eos_token_id — EOS is the only "
+                    "way a structurally complete stream terminates")
 
 
 class Request:
@@ -127,6 +151,9 @@ class Request:
         # committed sequence (prompt + emitted tokens) frozen at the last
         # preemption: what the resume prefills; None until preempted
         self._resume_ids: Optional[np.ndarray] = None
+        # the embeddings lane: the pooled last hidden state (f32
+        # [hidden]) an embed request retires with; None otherwise
+        self.embedding: Optional[np.ndarray] = None
         self.arrival_t = time.monotonic() if arrival_t is None else arrival_t
         self.admitted_t: Optional[float] = None
         self.first_token_t: Optional[float] = None
@@ -184,6 +211,8 @@ class Request:
             cached_tokens=self.cached_tokens,
             accepted_draft_tokens=self.accepted_draft_tokens,
             preemptions=self.preemptions,
+            embedding=(None if self.embedding is None
+                       else np.asarray(self.embedding)),
             ttft_s=(None if self.first_token_t is None
                     else self.first_token_t - self.arrival_t),
             queue_wait_s=(None if self.admitted_t is None
@@ -213,3 +242,6 @@ class RequestOutput:
     ttft_s: Optional[float] = None
     queue_wait_s: Optional[float] = None
     e2e_s: Optional[float] = None
+    # the embeddings lane: the pooled last hidden state (f32 [hidden]) of
+    # an embed request; None for generation requests
+    embedding: Optional[np.ndarray] = None

@@ -168,7 +168,10 @@ class Scheduler:
         unprefilled prompt token counts. Returns (decode_slots,
         {slot: prefill tokens}), and with `draft_wanted` given also
         {slot: draft tokens}; a prefill slot with no grant idles this
-        step at q_len 0."""
+        step at q_len 0. Embed requests and grammar-constrained ones need
+        no change here: an embed row is a PREFILL slot that never reaches
+        DECODE (the engine retires it at the end of its prompt), and a
+        constrained row is a decode row whose bias is step data."""
         decode_slots = [s for s, r in sorted(self.running.items())
                         if r.state is RequestState.DECODE]
         spare = max(0, budget - len(decode_slots))

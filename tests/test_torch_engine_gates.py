@@ -3,13 +3,15 @@ resolves them.
 
 `ServingEngine` reads the JAX engine's gates at construction: the
 ported ones (prefix cache, megakernel, adapters, speculative decoding,
-obs, the SLO tracker, the cost census) resolve for real —
+grammar, obs, the SLO tracker, the cost census) resolve for real —
 `prefix_cache="off"` or PADDLE_TPU_PREFIX_CACHE=off builds no cache,
-`spec="ngram"` or PADDLE_TPU_SPEC_DECODE=ngram a spec engine, obs, SLO
-and the "model" census are on by default and their keywords and
-variables give the modes the JAX resolvers give — and the gates of
-features not ported yet (mesh, grammar) raise NotImplementedError naming
-ROADMAP.md when a keyword or an environment variable turns one on. A spelling the JAX
+`spec="ngram"` or PADDLE_TPU_SPEC_DECODE=ngram a spec engine,
+`grammar=True` or PADDLE_TPU_GRAMMAR=on an engine that takes constrained
+requests (and the legacy step refuses it), obs, SLO and the "model"
+census are on by default and their keywords and variables give the modes
+the JAX resolvers give — and the gate of the feature not ported yet
+(mesh) raises NotImplementedError naming ROADMAP.md when a keyword or an
+environment variable turns it on. A spelling the JAX
 resolver refuses raises ValueError here too. `chunk_len` below
 `MIN_CHUNK` (8) raises on both steps, as in the JAX engine.
 """
@@ -69,9 +71,9 @@ def _jax_layer_modes(obs=None, slo=None, cost_census=None):
 def test_roadmap_input_raises(clean_env, model):
     """ROADMAP queue 3's F1 input: spec decode on by its env var builds
     the spec engine the JAX engine builds, with the megakernel and no
-    prefix cache; the gates still unported (mesh, grammar) raise beside
-    it, and obs, SLO and the census, ported, build with the JAX
-    resolvers' modes."""
+    prefix cache; the gate still unported (mesh) raises beside it, the
+    grammar gate builds an engine whose `grammar` tag is on, and obs,
+    SLO and the census, ported, build with the JAX resolvers' modes."""
     clean_env.setenv("PADDLE_TPU_SPEC_DECODE", "ngram")
     clean_env.setenv("PADDLE_TPU_MEGAKERNEL", "on")
     clean_env.setenv("PADDLE_TPU_PREFIX_CACHE", "off")
@@ -85,9 +87,13 @@ def test_roadmap_input_raises(clean_env, model):
                        ("PADDLE_TPU_OBS", "on"), ("PADDLE_TPU_SLO", "on"),
                        ("PADDLE_TPU_COST_CENSUS", "model")):
         clean_env.setenv(env, value)
-        if env in ("PADDLE_TPU_MESH", "PADDLE_TPU_GRAMMAR"):
+        if env == "PADDLE_TPU_MESH":
             with pytest.raises(NotImplementedError, match="ROADMAP.md"):
                 ServingEngine(model, **ENGINE)
+        elif env == "PADDLE_TPU_GRAMMAR":
+            eng = ServingEngine(model, **ENGINE)
+            assert eng.grammar_on is jgrammar.resolve_grammar_flag() is True
+            assert eng.metrics.snapshot()["grammar"] is True
         else:
             assert _layer_modes(ServingEngine(model, **ENGINE)) == \
                 _jax_layer_modes()
@@ -119,8 +125,8 @@ def test_prefix_cache_env(clean_env, model, env, want):
 
 # gate env var -> (spellings that turn it on, spellings it accepts as off,
 # spellings its JAX resolver refuses, the JAX resolver). Speculative
-# decoding, obs, the SLO tracker and the cost census are ported: their
-# "on" spellings build an engine with the JAX resolver's mode
+# decoding, grammar, obs, the SLO tracker and the cost census are ported:
+# their "on" spellings build an engine with the JAX resolver's mode
 UNPORTED = {
     "PADDLE_TPU_MESH": (["dp1mp2", "dp2xmp1"], ["off", ""], ["tp4", "dp0mp2"],
                         lambda: jtp.resolve_serving_mesh()),
@@ -160,6 +166,11 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
             assert _layer_modes(eng)[_LAYERS[env]] not in (False, None,
                                                              "off")
             continue
+        if env == "PADDLE_TPU_GRAMMAR":
+            eng = ServingEngine(model, **ENGINE)
+            assert eng.grammar_on is jax_resolve() is True
+            assert eng.debug_state()["config"]["grammar"] is True
+            continue
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(model, **ENGINE)
     for v in off:
@@ -169,6 +180,7 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
         if env in _LAYERS:
             assert _layer_modes(eng) == _jax_layer_modes()
             assert _layer_modes(eng)[_LAYERS[env]] in (False, None, "off")
+        assert eng.grammar_on is False
     for v in bad:
         clean_env.setenv(env, v)
         with pytest.raises(ValueError):
@@ -182,11 +194,24 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
     ("grammar", "on"), ("obs", True), ("slo", True), ("slo", "on"),
     ("cost_census", "model")])
 def test_unported_keywords_raise(clean_env, model, option, value):
-    """mesh and grammar raise; obs, slo and cost_census, ported, build
-    the JAX resolvers' modes and serve."""
-    if option in ("mesh", "grammar"):
+    """mesh raises; grammar builds an engine with its tag on, which the
+    legacy step refuses with the JAX text; obs, slo and cost_census,
+    ported, build the JAX resolvers' modes and serve."""
+    if option == "mesh":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             ServingEngine(model, **{option: value}, **ENGINE)
+        return
+    if option == "grammar":
+        eng = ServingEngine(model, **{option: value}, **ENGINE)
+        assert eng.grammar_on is jgrammar.resolve_grammar_flag(value)
+        assert eng.metrics.grammar is True
+        assert eng.debug_state()["config"]["grammar"] is True
+        out = eng.generate([np.arange(1, 12)])
+        assert len(out[0].token_ids) == 16
+        eng.drain()
+        with pytest.raises(ValueError, match="unified ragged step"):
+            ServingEngine(model, **{option: value}, unified=False,
+                          **ENGINE)
         return
     eng = ServingEngine(model, **{option: value}, **ENGINE)
     assert _layer_modes(eng) == _jax_layer_modes(**{option: value})

@@ -78,6 +78,17 @@ class _PallasMustNotRun:
         return False
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """One intra-op thread while this module runs: its engines step tiny
+    tensors op by op, and beside the other test workers a pool of
+    threads a process only waits for cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def models():
     """The JAX GPT and its port with the same weights (the JAX side on
