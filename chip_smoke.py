@@ -270,8 +270,8 @@ Phases, each reported on its own line; any failure exits non-zero:
    census, on by default as in the JAX engine) and its fault paths, on
    GPT-124M (and Llama-7B's 8-layer copy inside phase 8). Obs on
    against off: phase 3's traffic in the defaults and megakernel arms,
-   three alternating runs a side — tokens and every kernel's launches
-   equal in all six, the device-to-host copies in 3 traced decode steps
+   two alternating runs a side — tokens and every kernel's launches
+   equal in all four, the device-to-host copies in 3 traced decode steps
    equal, the flight ring's records equal to the metrics snapshot
    (packed tokens, queue depth, residents); step p50 and tokens/s the
    median of a side. Poison quarantine in the defaults, legacy and
@@ -318,6 +318,32 @@ Phases, each reported on its own line; any failure exits non-zero:
    continues A's exported chain with A's own tokens from a full hit;
    frame bytes the header's accounting; a page-32 engine refuses it
    whole; A's snapshot restores warm; export and import milliseconds.
+13. the HTTP front end on GPT-124M's first 6 layers (bf16),
+   engines at their defaults behind `serve()` on 127.0.0.1, clients on
+   `http.client` with socket timeouts, every server drained and every
+   client thread joined. A: two replicas; 8 blocking JSON requests, 6
+   SSE streams, 2 `response_format` requests (choice, json_object) and 2
+   `/v1/embeddings` requests at once, each against the same request
+   served alone in-process (tokens equal or near ties, phase 12's
+   rule; embeddings equal bit for bit); launches exactly each
+   replica's steps x a step's plus its embed epilogues x an epilogue's;
+   /metrics parses, /healthz and /readyz 200; TTFT p50/p90 (SSE client,
+   engine stamp, the same requests in-process all at once) and tokens/s.
+   B: replica-0 killed (`FaultInjector.kill_at_step`) with at least 4
+   of its 8 streams mid-decode, then hung under a 2 s watchdog with 2
+   of 4: every stream ends with its 48 tokens, each moved one reports
+   `usage.migrations`, tokens as in A; the hang condemned as
+   ReplicaHung within the timeout and a scan. C: `Router(fabric=
+   FabricConfig(roles=...))` behind a `ServingHTTPServer`, bf16 and int8
+   pools: 4 prompts hand off (hand-offs 4, pages moved their full
+   pages), tokens as in A, launches exact, each frame's bytes and
+   export/import ms. D: under PADDLE_TPU_KV_FABRIC=on, a replica that
+   served a prompt is removed and a new one added: it restores pages
+   and serves the prompt with the warm replica's cached tokens. E: one
+   replica of one slot and a queue of one with the rate limiter and the
+   control plane on: 429 (limiter, Retry-After), 504 (deadline), 429
+   (`deadline_infeasible`), 429 (queue), then `drain()`: /readyz 503
+   at once and the resident finishes.
 
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
@@ -341,7 +367,9 @@ model}, and phase 11's obs_{defaults|megakernel} (the layers on),
 quarantine[_legacy|_spec_ngram] and llama_quarantine (a run poisoned
 after 5 steps, probe rounds included), and phase 12's
 grammar_{defaults|megakernel|spec_ngram} (the constrained run),
-embed_gpt[_int8] and llama_embed (the bf16 run with its epilogues). The last line
+embed_gpt[_int8] and llama_embed (the bf16 run with its epilogues), and
+phase 13's http_mixed (arm A, both replicas) and http_handoff_{fp|int8}
+(arm C, both replicas). The last line
 is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
@@ -356,6 +384,7 @@ import statistics
 import subprocess
 import sys
 import time
+import weakref
 
 import numpy as np
 import torch
@@ -421,6 +450,8 @@ LLAMA_F32_HELD_TOL = 1e-2
 BF16_FLOOR_RATIO = 1.0
 # held steps rerun on the card past this many parameters (`reference_on_card`)
 CPU_RERUN_MAX_PARAMS = 1e9
+# a served model's f32 copy on the CPU, made once for all its held reruns
+_F32_CPU = weakref.WeakKeyDictionary()
 # phase 4: bench.py's train step
 TRAIN = dict(batch=16, seq=1024, lr=1e-4, weight_decay=0.01, warmup=2,
              steps=5, held_batch=2)
@@ -2660,6 +2691,15 @@ def bf16_floor_check(tag, got: dict, bf16, ref, controls=None) -> dict:
     return out
 
 
+def f32_cpu_copy(model):
+    """The model's f32 copy on the CPU, made at its first held rerun and
+    kept while the model lives (phase 3's arms rerun the same model)."""
+    plain = _F32_CPU.get(model)
+    if plain is None:
+        plain = _F32_CPU[model] = copy.deepcopy(model).float().cpu()
+    return plain
+
+
 def rerun_recorded(eng, model, unified_forward) -> dict:
     """Rerun the recorded step through the plain versions in f32 and hold
     its logits against the card's: on the CPU, or past
@@ -2668,7 +2708,10 @@ def rerun_recorded(eng, model, unified_forward) -> dict:
     version whatever the engine's `attn_impl`, and the adapters' gathered
     pairs (the unfused path) whatever its megakernel gate, so the gather
     arm's step (K3 over the gathered view), the grouped walk's and the
-    megakernel's are held against an independent reference."""
+    megakernel's are held against an independent reference. On the CPU
+    the rerun walks the pages ungrouped: the grouped plain version, a
+    Python loop over pages, gives the same logits up to f32 rounding in
+    more than twice the time."""
     if eng.recorded is None:
         raise AssertionError(f"step {RECORD_STEP} never ran")
     (toks, pos, table, q_len, is_decode, group, lora), pools, last, held = \
@@ -2697,17 +2740,20 @@ def rerun_recorded(eng, model, unified_forward) -> dict:
         return held_on_card(tag, model, held, live, pools, run)
     move = lambda t: (None if t is None else t.float()
                       if t.dtype == torch.bfloat16 else t)
+    t0 = time.perf_counter()
     with torch.no_grad():
-        plain = run(copy.deepcopy(model).float().cpu(), move,
-                    [tuple(map(move, layer)) for layer in pools], True)
+        plain = run(f32_cpu_copy(model), move,
+                    [tuple(map(move, layer)) for layer in pools], False)
+    secs = time.perf_counter() - t0
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
-    log(f"  {tag}: held logits vs plain f32 rerun on the CPU max_abs_err="
-        f"{err:.4f} (tolerance {HELD_LOGITS_TOL}), argmax agreement "
-        f"{agree.item():.3f}")
+    log(f"  {tag}: held logits vs plain f32 rerun on the CPU (pages walked "
+        f"ungrouped) max_abs_err={err:.4f} (tolerance {HELD_LOGITS_TOL}), "
+        f"argmax agreement {agree.item():.3f}; {secs:.2f} s")
     if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
         raise AssertionError("held logits disagree with the plain rerun")
-    return {"max_abs_err": err, "argmax_agreement": agree.item()}
+    return {"max_abs_err": err, "argmax_agreement": agree.item(),
+            "seconds": secs}
 
 
 def rerun_recorded_legacy(eng, model, legacy_forward) -> dict:
@@ -2734,18 +2780,21 @@ def rerun_recorded_legacy(eng, model, legacy_forward) -> dict:
         return held_on_card(tag, model, held, live, pools, run)
     move = lambda t: (None if t is None else t.float()
                       if t.dtype == torch.bfloat16 else t)
+    t0 = time.perf_counter()
     with torch.no_grad():
-        plain = run(copy.deepcopy(model).float().cpu(), move,
+        plain = run(f32_cpu_copy(model), move,
                     [tuple(map(move, layer)) for layer in pools], False)
+    secs = time.perf_counter() - t0
     err = (held[live] - plain[live]).abs().max().item()
     agree = (held[live].argmax(-1) == plain[live].argmax(-1)).float().mean()
     log(f"  {tag}: held logits vs plain f32 rerun max_abs_err={err:.4f} "
         f"(tolerance {HELD_LOGITS_TOL}), argmax agreement "
-        f"{agree.item():.3f}")
+        f"{agree.item():.3f}; {secs:.2f} s")
     if not torch.isfinite(held).all() or err > HELD_LOGITS_TOL:
         raise AssertionError("legacy held logits disagree with the plain "
                              "rerun")
-    return {"max_abs_err": err, "argmax_agreement": agree.item()}
+    return {"max_abs_err": err, "argmax_agreement": agree.item(),
+            "seconds": secs}
 
 
 def abort_loaded(dev, model) -> dict:
@@ -2936,7 +2985,7 @@ def serving_megakernel(dev, tln, tpa, model, fp_tokens, int8_tokens) -> tuple:
             ("serving_int8_megakernel_again", "int8", int8_tokens,
              dict(megakernel=True, kv_dtype="int8")),
             ("serving_adapters", "fp", None,
-             dict(adapter_pages=8, record=True, profile=True)),
+             dict(adapter_pages=8, record=True)),
             ("serving_adapters_megakernel", "fp", None,
              dict(adapter_pages=8, megakernel=True, record=True,
                   profile=True)),
@@ -3753,7 +3802,7 @@ def spec_phase_llama(dev, tln, tpa, model) -> tuple:
 # obs on against off: OBS_RUNS alternating runs a side of phase 3's
 # traffic, then OBS_TRACED_STEPS decode steps traced for the device-to-host
 # copies, after one warm-up step and a pause of OBS_TRACE_GAP_S seconds
-OBS_RUNS, OBS_TRACED_STEPS = 3, 3
+OBS_RUNS, OBS_TRACED_STEPS = 2, 3
 OBS_TRACE_GAP_S = 0.05
 LAYERS_OFF = dict(obs=False, slo=False, cost_census=False)
 # the quarantine arms: the first QUARANTINE["requests"] prompts of phase 3's
@@ -3886,7 +3935,7 @@ def device_copies(dev, model, opts: dict, on: bool) -> dict:
 
 def obs_phase(dev, tln, tpa, model) -> tuple:
     """Phase 11, obs on against off: GPT-124M's defaults and megakernel
-    arms, OBS_RUNS alternating runs a side (off, on, on, off, off, on):
+    arms, OBS_RUNS alternating runs a side (off, on, on, off):
     the same tokens and launches in every run, the same device-to-host
     copies in the traced steps; step p50 and tokens/s the median of a
     side's runs."""
@@ -4994,6 +5043,752 @@ def phase12_llama(dev, tln, tpa, model) -> tuple:
     return by_path, stats
 
 
+# -- phase 13: the HTTP front end, the router and the control plane ---------
+P13_NEW = 48
+# phase 3's prompts by index (0 and 17-23 behind the shared 256-token
+# prefix, 1-15 of 300-700 tokens): arm A's blocking JSON, SSE,
+# response_format and embeddings requests
+P13_JSON = (0, 1, 2, 3, 17, 18, 19, 20)
+P13_SSE = (4, 5, 6, 21, 22, 23)
+P13_FORMAT = (7, 8)
+P13_EMBED = (9, 10)
+P13_FORMATS = ({"type": "choice", "choices": ["yes", "no", "maybe"]},
+               {"type": "json_object"})
+# arm B: eight SSE streams, replica-0 killed once four of its streams
+# have tokens; then four streams, replica-0 hung, under a watchdog of
+# P13_WATCHDOG_S (the kernels were built in phase 1: no first-use build)
+P13_MIGRATE = (4, 5, 6, 21, 22, 23, 0, 1)
+P13_HANG = (2, 3, 17, 18)
+P13_WATCHDOG_S = 2.0
+# arm C: distinct prompts of 300-700 tokens (19-43 full pages; arm A's,
+# so their bf16 runs alone are shared), each prefilled on replica-0
+# (prefill) and continued on replica-1 (decode)
+P13_HANDOFF = (1, 2, 3, 4)
+# arm D: the warm restart's prompt; arm E: the resident that the drain
+# lets finish, and the rate limit (requests a second per client key)
+P13_RESTART = 15
+P13_BLOCKER = dict(prompt=16, new=300)
+P13_RATE = dict(rate_limit=0.5, rate_limit_burst=1)
+# a stream's token against the in-process run: equal, or a near tie
+# (phase 12's rule); an embedding equal to the in-process one bit for bit
+P13_SOCKET_S = 120.0
+P13_JOIN_S = 120.0
+
+
+def http_post(addr, body, path="/v1/completions", key=None):
+    """(status, headers, body, seconds) of one blocking request."""
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=P13_SOCKET_S)
+    t0 = time.perf_counter()
+    try:
+        hdr = {"Content-Type": "application/json"}
+        if key is not None:
+            hdr["Authorization"] = f"Bearer {key}"
+        conn.request("POST", path, json.dumps(body), hdr)
+        resp = conn.getresponse()
+        out = json.loads(resp.read())
+        return (resp.status, dict(resp.getheaders()), out,
+                time.perf_counter() - t0)
+    finally:
+        conn.close()
+
+
+def http_get(addr, path):
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=P13_SOCKET_S)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        return resp.status, resp.read().decode()
+    finally:
+        conn.close()
+
+
+def http_sse(addr, body, key=None):
+    """One streamed completion read to [DONE]: status, tokens, the final
+    frame, the ticket id and the client-observed TTFT in seconds."""
+    import http.client
+    conn = http.client.HTTPConnection(*addr, timeout=P13_SOCKET_S)
+    t0 = time.perf_counter()
+    ttft, tokens, final, rid = None, [], None, None
+    try:
+        hdr = {"Content-Type": "application/json"}
+        if key is not None:
+            hdr["Authorization"] = f"Bearer {key}"
+        conn.request("POST", "/v1/completions",
+                     json.dumps({**body, "stream": True}), hdr)
+        resp = conn.getresponse()
+        while True:
+            line = resp.readline()
+            if not line or line.strip() == b"data: [DONE]":
+                break
+            if not line.startswith(b"data: "):
+                continue
+            frame = json.loads(line[6:])
+            rid = frame.get("id", rid)
+            ch = (frame.get("choices") or [{}])[0]
+            if ch.get("token") is not None:
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                tokens.append(ch["token"])
+            if ch.get("finish_reason") or "error" in frame:
+                final = frame
+        return dict(status=resp.status, tokens=tokens, final=final, id=rid,
+                    ttft_s=ttft)
+    finally:
+        conn.close()
+
+
+def run_clients(jobs) -> list:
+    """Run each zero-argument job on its own thread at once; their
+    results in order. Every thread is joined within P13_JOIN_S."""
+    import threading
+    out = [None] * len(jobs)
+    errs = []
+
+    def run(i, job):
+        try:
+            out[i] = job()
+        except BaseException as e:      # noqa: BLE001 - re-raised below
+            errs.append(e)
+
+    threads = [threading.Thread(target=run, args=(i, j), daemon=True)
+               for i, j in enumerate(jobs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(P13_JOIN_S)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("an HTTP client did not finish in "
+                             f"{P13_JOIN_S} s")
+    if errs:
+        raise errs[0]
+    return out
+
+
+def pct(xs, q):
+    return float(np.percentile(np.asarray(xs, np.float64), q))
+
+
+def mid_decode(eng) -> list:
+    """Ids of the engine's residents that have emitted tokens (read from
+    another thread: a torn read is retried)."""
+    for _ in range(10):
+        try:
+            return [r.request_id for r in list(eng.scheduler.running.values())
+                    if r.output_tokens and not r.finished]
+        except RuntimeError:
+            continue
+    return []
+
+
+def wait_for(pred, timeout=P13_JOIN_S, what="condition"):
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        if pred():
+            return time.monotonic() - t0
+        time.sleep(0.002)
+    raise AssertionError(f"phase 13: {what} not reached in {timeout} s")
+
+
+class P13Engine:
+    """Mixes into ServingEngine: counts its embed epilogues and times its
+    fabric exports and imports (on the pump thread that runs them)."""
+
+    def _p13_init(self):
+        self.epilogues, self.exports, self.imports = 0, [], []
+
+    def _embed_rows(self, rows):
+        self.epilogues += 1
+        return super()._embed_rows(rows)
+
+    def export_prefix_frame(self, *a, **kw):
+        t0 = time.perf_counter()
+        frame = super().export_prefix_frame(*a, **kw)
+        self.exports.append(((time.perf_counter() - t0) * 1e3,
+                             0 if frame is None else len(frame)))
+        return frame
+
+    def import_prefix_frame(self, frame):
+        t0 = time.perf_counter()
+        n = super().import_prefix_frame(frame)
+        self.imports.append(((time.perf_counter() - t0) * 1e3, n))
+        return n
+
+
+def p13_engine(model, dev, **kw):
+    from paddle_tpu_torch.serving import ServingEngine
+
+    class Engine(P13Engine, ServingEngine):
+        pass
+
+    eng = Engine(model, device=dev, seed=SEED, **{**ENGINE, **kw})
+    eng._p13_init()
+    return eng
+
+
+def p13_sampling(i, new=P13_NEW):
+    """Request i's sampling in arm A (the same in-process and over HTTP)."""
+    from paddle_tpu_torch.serving import GrammarSpec, SamplingParams
+    if i in P13_EMBED:
+        return SamplingParams(embed=True)
+    if i in P13_FORMAT:
+        rf = P13_FORMATS[P13_FORMAT.index(i)]
+        return SamplingParams(
+            max_new_tokens=new, eos_token_id=GRAMMAR_EOS,
+            grammar=GrammarSpec(kind=rf["type"],
+                                choices=tuple(rf.get("choices") or ())
+                                or None))
+    return SamplingParams(max_new_tokens=new)
+
+
+def p13_body(prompt, i, new=P13_NEW):
+    if i in P13_EMBED:
+        return {"input": prompt.tolist()}
+    body = {"prompt": prompt.tolist(), "max_tokens": new}
+    if i in P13_FORMAT:
+        body.update(eos_token_id=GRAMMAR_EOS,
+                    response_format=P13_FORMATS[P13_FORMAT.index(i)])
+    return body
+
+
+def p13_solo(model, dev, prompts, idx, cache, kv="fp") -> dict:
+    """Each request of `idx` served alone in-process by one engine on the
+    same weights over `kv` pools (its tokens, or its embedding), memoised
+    in `cache`. The engine has the grammar gate on, as arm A's replicas:
+    with nothing constrained it gives the gate-off tokens and launches."""
+    todo = [i for i in idx if (i, kv) not in cache]
+    if todo:
+        eng = p13_engine(model, dev, grammar=True,
+                         **({} if kv == "fp" else dict(kv_dtype=kv)))
+        for i in todo:
+            out = eng.generate([prompts[i]], p13_sampling(i))[0]
+            cache[i, kv] = (out.embedding if i in P13_EMBED
+                            else list(out.token_ids))
+        eng.drain()
+        eng.pool.assert_quiesced()
+        del eng
+    return {i: cache[i, kv] for i in idx}
+
+
+def p13_launches(tln, tpa, model, engines) -> dict:
+    """The launches a set of engines owes: each one's unified steps times
+    the step's launches plus its embed epilogues times an epilogue's."""
+    cfg = model.config
+    want = _no_launches(tpa)
+    for eng in engines:
+        per_step = per_step_launches(
+            tpa, eng.grouped, eng.kv_dtype, eng.attn_impl, eng.megakernel,
+            False, cfg.num_hidden_layers, norm_launches(model))
+        per_epi = _no_launches(tpa)
+        per_epi["K1"] = norm_launches(model)
+        per_epi[DECODE_WALK_OF[eng.kv_dtype]] = cfg.num_hidden_layers
+        if WRITE_OF[eng.kv_dtype]:
+            per_epi[WRITE_OF[eng.kv_dtype]] = cfg.num_hidden_layers
+        steps = eng.metrics.snapshot()["unified_steps"]
+        for k in want:
+            want[k] += per_step[k] * steps + per_epi[k] * eng.epilogues
+    return want
+
+
+def p13_series_ok(line: str) -> bool:
+    """One exposition line: a metric name, optional labels, a number."""
+    cut = line.rindex("}") + 1 if "}" in line else line.index(" ")
+    name, value = line[:cut], line[cut:].strip()
+    if not re.match(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{([a-zA-Z_][a-zA-Z0-9_]*='
+                    r'"(?:[^"\\]|\\.)*",?)*\})?$', name):
+        return False
+    try:
+        float(value)
+    except ValueError:
+        return False
+    return True
+
+
+def p13_hold(tag, model, prompts, got, want, ties):
+    """Streams against the in-process runs (`near_ties`: equal, or the
+    first differing token a near tie within HELD_LOGITS_TOL)."""
+    ties.extend(dict(arm=tag, **t) for t in near_ties(
+        tag, model, prompts, got, {i: want[i] for i in got}, sorted(got),
+        HELD_LOGITS_TOL))
+
+
+def p13_mixed(dev, tln, tpa, model, prompts, solo, ties) -> tuple:
+    """Arm A: two replicas behind `serve()`; 8 blocking JSON requests, 6
+    SSE streams, 2 response_format requests and 2 embeddings requests at
+    once, against the same requests in-process (one engine, all at once)
+    and each alone; launches exact; /metrics parses; probes 200."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import GrammarSpec
+    from paddle_tpu_torch.serving.http import serve
+    idx = P13_JSON + P13_SSE + P13_FORMAT + P13_EMBED
+    gen = [i for i in idx if i not in P13_EMBED]
+    # in-process, all at once on one engine (TTFT and tokens/s)
+    eng = p13_engine(model, dev, grammar=True)
+    t0 = time.perf_counter()
+    outs = eng.generate([prompts[i] for i in idx],
+                        [p13_sampling(i) for i in idx])
+    torch.cuda.synchronize()
+    inproc_wall = time.perf_counter() - t0
+    inproc = {i: o for i, o in zip(idx, outs)}
+    eng.drain()
+    del eng
+    engines = [p13_engine(model, dev, grammar=True) for _ in range(2)]
+    server = serve(engines)
+    addr = server.server_address[:2]
+    try:
+        torch.cuda.synchronize()
+        reset_counts(tln, tfa, tpa)
+        jobs = []
+        for i in idx:
+            if i in P13_SSE:
+                jobs.append(lambda i=i: http_sse(addr, p13_body(prompts[i],
+                                                                i)))
+            else:
+                path = "/v1/embeddings" if i in P13_EMBED else \
+                    "/v1/completions"
+                jobs.append(lambda i=i, path=path: http_post(
+                    addr, p13_body(prompts[i], i), path=path))
+        t0 = time.perf_counter()
+        res = dict(zip(idx, run_clients(jobs)))
+        wall = time.perf_counter() - t0
+        metrics_st, text = http_get(addr, "/metrics")
+        probes = (http_get(addr, "/healthz")[0], http_get(addr, "/readyz")[0])
+    finally:
+        server.drain(P13_JOIN_S)
+    torch.cuda.synchronize()
+    launches = launch_counts_serving(tln, tpa, tfa)
+    want = p13_launches(tln, tpa, model, engines)
+    if launches != want:
+        raise AssertionError(f"[http mixed] launches {launches} != {want}")
+    got, client_ttft, engine_ttft, emb_err = {}, [], [], []
+    for i in idx:
+        r = res[i]
+        if i in P13_SSE:
+            if r["status"] != 200 or r["final"] is None or \
+                    r["final"]["choices"][0]["finish_reason"] != "length":
+                raise AssertionError(f"[http mixed] stream {i}: {r}")
+            got[i] = r["tokens"]
+            client_ttft.append(r["ttft_s"])
+            continue
+        st, _, body, _ = r
+        if st != 200:
+            raise AssertionError(f"[http mixed] request {i}: {st} {body}")
+        if i in P13_EMBED:
+            vec = np.asarray(body["data"][0]["embedding"], np.float32)
+            ref = np.asarray(solo[i], np.float32)
+            if vec.shape != (model.config.hidden_size,) or \
+                    not np.isfinite(vec).all():
+                raise AssertionError(f"[http mixed] embedding {i}")
+            emb_err.append(float(np.abs(vec - ref).max()))
+            if not np.array_equal(vec, ref):
+                raise AssertionError(f"[http mixed] embedding {i} differs "
+                                     f"from the request alone by "
+                                     f"{emb_err[-1]}")
+            continue
+        ch = body["choices"][0]
+        got[i] = ch["token_ids"]
+        engine_ttft.append(body["timing"]["ttft_s"])
+        if i in P13_FORMAT:
+            rf = P13_FORMATS[P13_FORMAT.index(i)]
+            spec = GrammarSpec(kind=rf["type"],
+                               choices=tuple(rf.get("choices") or ()) or None)
+            text_out = "".join(chr(t) for t in got[i] if t != GRAMMAR_EOS)
+            ok = (spec.validates(text_out) if ch["finish_reason"] == "stop"
+                  else ch["finish_reason"] == "length")
+            if not ok:
+                raise AssertionError(f"[http mixed] response_format {i}: "
+                                     f"{ch['finish_reason']} {text_out!r}")
+        elif ch["finish_reason"] != "length" or len(got[i]) != P13_NEW:
+            raise AssertionError(f"[http mixed] request {i}: {ch}")
+    p13_hold("http mixed", model, prompts, got, solo, ties)
+    series = [ln for ln in text.splitlines()
+              if ln and not ln.startswith("#")]
+    bad = [ln for ln in series if not p13_series_ok(ln)]
+    if metrics_st != 200 or bad or probes != (200, 200) or \
+            "paddle_serving_replicas_healthy 2" not in text:
+        raise AssertionError(f"[http mixed] /metrics {metrics_st}, "
+                             f"{bad[:3]}, probes {probes}")
+    steps = [e.metrics.snapshot()["unified_steps"] for e in engines]
+    tokens = sum(len(t) for t in got.values())
+    in_ttft = [inproc[i].ttft_s for i in gen]
+    stats = dict(
+        requests=len(idx), steps=steps,
+        epilogues=[e.epilogues for e in engines],
+        wall_s=wall, tokens=tokens, tokens_per_s=tokens / wall,
+        inprocess_wall_s=inproc_wall,
+        inprocess_tokens_per_s=sum(len(inproc[i].token_ids) for i in gen)
+        / inproc_wall,
+        http_client_ttft_ms={"p50": pct(client_ttft, 50) * 1e3,
+                             "p90": pct(client_ttft, 90) * 1e3,
+                             "n": len(client_ttft)},
+        http_engine_ttft_ms={"p50": pct(engine_ttft, 50) * 1e3,
+                             "p90": pct(engine_ttft, 90) * 1e3,
+                             "n": len(engine_ttft)},
+        inprocess_ttft_ms={"p50": pct(in_ttft, 50) * 1e3,
+                           "p90": pct(in_ttft, 90) * 1e3, "n": len(in_ttft)},
+        embed_max_abs_err=emb_err, metrics_series=len(series),
+        served={e: n for e, n in zip(("replica-0", "replica-1"), [
+            e.metrics.requests_completed for e in engines])})
+    log(f"  [http mixed] {len(idx)} requests over 2 replicas in {wall:.3f} s"
+        f" ({stats['tokens_per_s']:.1f} tokens/s; in-process "
+        f"{stats['inprocess_tokens_per_s']:.1f}); steps {steps}, epilogues "
+        f"{stats['epilogues']}; launches = steps x per-step + epilogues x "
+        f"per-epilogue; TTFT ms p50/p90 SSE client "
+        f"{stats['http_client_ttft_ms']['p50']:.2f}/"
+        f"{stats['http_client_ttft_ms']['p90']:.2f}, engine "
+        f"{stats['http_engine_ttft_ms']['p50']:.2f}/"
+        f"{stats['http_engine_ttft_ms']['p90']:.2f}, in-process "
+        f"{stats['inprocess_ttft_ms']['p50']:.2f}/"
+        f"{stats['inprocess_ttft_ms']['p90']:.2f}; embeddings within "
+        f"{max(emb_err):.2e} of the in-process ones (bit for bit); /metrics "
+        f"{len(series)} series")
+    for e in engines:
+        e.pool.assert_quiesced()
+    del engines
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+def p13_streams(addr, prompts, idx, on_start=None) -> dict:
+    """SSE streams of `idx` at once; `on_start` runs beside them."""
+    jobs = [lambda i=i: http_sse(addr, p13_body(prompts[i], i)) for i in idx]
+    if on_start is not None:
+        jobs.append(on_start)
+    res = run_clients(jobs)
+    return dict(zip(idx, res[:len(idx)]))
+
+
+def p13_check_streams(tag, res, moved):
+    """Each stream ended "length" with its budget; those on the lost
+    replica report usage.migrations >= 1."""
+    for i, r in res.items():
+        fin = r["final"]
+        if r["status"] != 200 or fin is None or \
+                fin["choices"][0]["finish_reason"] != "length" or \
+                len(r["tokens"]) != P13_NEW or \
+                fin["usage"]["completion_tokens"] != P13_NEW:
+            raise AssertionError(f"[{tag}] stream {i}: {r}")
+        if r["id"] in moved and fin["usage"]["migrations"] < 1:
+            raise AssertionError(f"[{tag}] stream {i} moved without "
+                                 "usage.migrations")
+    return sum(r["final"]["usage"]["migrations"] for r in res.values())
+
+
+def p13_migration(dev, model, prompts, solo, ties) -> dict:
+    """Arm B: a kill of replica-0 with at least four of its streams
+    mid-decode, then a hang of replica-0 under the watchdog."""
+    from paddle_tpu_torch.serving import FaultInjector
+    from paddle_tpu_torch.serving.http import ReplicaHung, serve
+    out = {}
+    for fault in ("kill", "hang"):
+        idx = P13_MIGRATE if fault == "kill" else P13_HANG
+        need = 4 if fault == "kill" else 2
+        inj = FaultInjector()
+        engines = [p13_engine(model, dev) for _ in range(2)]
+        server = serve(engines, faults=inj,
+                       watchdog_timeout_s=P13_WATCHDOG_S)
+        addr = server.server_address[:2]
+        d0 = server.router.drivers[0]
+        moved, fired = [], {}
+
+        def trigger():
+            wait_for(lambda: len(mid_decode(engines[0])) >= need,
+                     what=f"{need} streams mid-decode on replica-0")
+            moved.extend(mid_decode(engines[0]))
+            fired["t"] = time.monotonic()
+            fired["step"] = d0.steps
+            if fault == "kill":
+                inj.kill_at_step("replica-0", 0)
+            else:
+                inj.hang_at_step("replica-0", 0, 10 * P13_JOIN_S)
+            fired["detect_s"] = wait_for(lambda: d0.dead,
+                                         what=f"replica-0 {fault} seen")
+
+        try:
+            t0 = time.perf_counter()
+            res = p13_streams(addr, prompts, idx, on_start=trigger)
+            wall = time.perf_counter() - t0
+            migrations = p13_check_streams(f"http {fault}", res, moved)
+            death = type(d0.death_exc).__name__
+            if fault == "hang":
+                if not isinstance(d0.death_exc, ReplicaHung):
+                    raise AssertionError(f"[http hang] death {death}")
+                wd = server.router._watchdog_interval_s
+                if fired["detect_s"] > P13_WATCHDOG_S + wd + 0.5:
+                    raise AssertionError(
+                        f"[http hang] condemned after {fired['detect_s']} s")
+            stats = dict(streams=len(idx), on_lost_replica=len(moved),
+                         migrations=migrations,
+                         migrations_total=server.router.migrations_total,
+                         retries_total=server.router.retries_total,
+                         watchdog_kills=server.router.watchdog_kills_total,
+                         death=death, fired_at_step=fired["step"],
+                         detect_s=fired["detect_s"], wall_s=wall)
+        finally:
+            inj.release_hangs()
+            server.drain(P13_JOIN_S)
+        p13_hold(f"http {fault}", model, prompts,
+                 {i: r["tokens"] for i, r in res.items()}, solo, ties)
+        log(f"  [http {fault}] {len(idx)} SSE streams, {len(moved)} "
+            f"mid-decode on replica-0 at its {fault} (step "
+            f"{fired['step']}): every stream ended with its {P13_NEW} tokens,"
+            f" {migrations} migrations reported ({death} seen after "
+            f"{fired['detect_s']:.3f} s; watchdog {P13_WATCHDOG_S} s)")
+        out[fault] = stats
+        engines[1].pool.assert_quiesced()
+        del engines
+        torch.cuda.empty_cache()
+    return out
+
+
+def p13_handoff(dev, tln, tpa, model, prompts, solo_cache, ties) -> tuple:
+    """Arm C: `Router(fabric=FabricConfig(roles=...))` behind a
+    `ServingHTTPServer`: each prompt prefills on replica-0 at a one-token
+    budget, its pages move as a frame, replica-1 continues; in bf16 and
+    int8 pools."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import FabricConfig
+    from paddle_tpu_torch.serving.http import (EngineDriver, Router,
+                                               ServingHTTPServer)
+    by_path, out = {}, {}
+    ps = ENGINE["page_size"]
+    for kv in ("fp", "int8"):
+        kw = {} if kv == "fp" else dict(kv_dtype=kv)
+        want = p13_solo(model, dev, prompts, P13_HANDOFF, solo_cache, kv)
+        engines = [p13_engine(model, dev, **kw) for _ in range(2)]
+        router = Router(
+            [EngineDriver(e, name=f"replica-{n}")
+             for n, e in enumerate(engines)],
+            fabric=FabricConfig(roles={"replica-0": "prefill",
+                                       "replica-1": "decode"}))
+        server = ServingHTTPServer(router, "127.0.0.1", 0).start()
+        addr = server.server_address[:2]
+        try:
+            torch.cuda.synchronize()
+            reset_counts(tln, tfa, tpa)
+            res = dict(zip(P13_HANDOFF, run_clients([
+                lambda i=i: http_post(addr, p13_body(prompts[i], i))
+                for i in P13_HANDOFF])))
+            fab = router.stats()["fabric"]
+        finally:
+            server.drain(P13_JOIN_S)
+        torch.cuda.synchronize()
+        launches = launch_counts_serving(tln, tpa, tfa)
+        if launches != p13_launches(tln, tpa, model, engines):
+            raise AssertionError(f"[http handoff {kv}] launches {launches}")
+        pages = sum(prompts[i].size // ps for i in P13_HANDOFF)
+        got = {}
+        for i, (st, _, body, _) in res.items():
+            ch = body["choices"][0] if st == 200 else None
+            if ch is None or ch["finish_reason"] != "length" or \
+                    len(ch["token_ids"]) != P13_NEW:
+                raise AssertionError(f"[http handoff {kv}] {i}: {body}")
+            got[i] = ch["token_ids"]
+        if (fab["handoffs_total"], fab["pages_moved_total"],
+                fab["transfer_failures_total"]) != (len(P13_HANDOFF), pages,
+                                                    0):
+            raise AssertionError(f"[http handoff {kv}] fabric {fab}, "
+                                 f"{pages} full pages")
+        p13_hold(f"http handoff {kv}", model, prompts, got, want, ties)
+        exports, imports = engines[0].exports, engines[1].imports
+        out[kv] = dict(handoffs=fab["handoffs_total"],
+                       pages_moved=fab["pages_moved_total"],
+                       frame_bytes=[b for _, b in exports],
+                       export_ms=[ms for ms, _ in exports],
+                       import_ms=[ms for ms, _ in imports],
+                       steps=[e.metrics.snapshot()["unified_steps"]
+                              for e in engines])
+        log(f"  [http handoff {kv}] {fab['handoffs_total']} hand-offs, "
+            f"{fab['pages_moved_total']} pages moved (the prompts' full "
+            f"pages); frames {out[kv]['frame_bytes']} B, export ms "
+            f"{[round(x, 3) for x in out[kv]['export_ms']]}, import ms "
+            f"{[round(x, 3) for x in out[kv]['import_ms']]}; launches = "
+            f"steps {out[kv]['steps']} x per-step")
+        by_path[f"http_handoff_{kv}"] = launches
+        for e in engines:
+            e.pool.assert_quiesced()
+        del engines
+        torch.cuda.empty_cache()
+    return by_path, out
+
+
+def p13_restart(dev, model, prompts) -> dict:
+    """Arm D: `serve()` under PADDLE_TPU_KV_FABRIC=on. A prompt is served,
+    then served again where affinity places it (the replica that holds
+    it: its cached tokens are the warm figure); that replica is removed
+    (its tree stashed), a new one added (restored), the other removed:
+    the prompt on the new replica reports the warm figure's cached
+    tokens, at least its full pages, with the first answer's tokens."""
+    import os
+    from paddle_tpu_torch.serving.http import serve
+    prompt = prompts[P13_RESTART]
+    full = prompt.size // ENGINE["page_size"] * ENGINE["page_size"]
+    old = os.environ.get("PADDLE_TPU_KV_FABRIC")
+    os.environ["PADDLE_TPU_KV_FABRIC"] = "on"
+    try:
+        server = serve([p13_engine(model, dev) for _ in range(2)])
+    finally:
+        if old is None:
+            os.environ.pop("PADDLE_TPU_KV_FABRIC")
+        else:
+            os.environ["PADDLE_TPU_KV_FABRIC"] = old
+    addr = server.server_address[:2]
+    router = server.router
+    try:
+        body = {"prompt": prompt.tolist(), "max_tokens": 8}
+        answers = [http_post(addr, body)]
+        router.refresh_fabric_summaries()
+        answers.append(http_post(addr, body))
+        served = [d for d in router.drivers
+                  if d.engine.metrics.requests_completed]
+        router.remove_replica(served[0].name, wait=True)
+        new = router.add_replica(p13_engine(model, dev))
+        restored = new.engine.metrics.fabric_restored_pages
+        other = next(d for d in router.drivers if d is not new)
+        router.remove_replica(other.name, wait=True)
+        answers.append(http_post(addr, body))
+    finally:
+        server.drain(P13_JOIN_S)
+    cached = [a[2]["usage"]["cached_tokens"] for a in answers]
+    same = all(a[2]["choices"][0]["token_ids"]
+               == answers[0][2]["choices"][0]["token_ids"] for a in answers)
+    if [a[0] for a in answers] != [200] * 3 or len(served) != 1 or \
+            restored <= 0 or cached[0] != 0 or cached[2] != cached[1] or \
+            cached[2] < full or not same:
+        raise AssertionError(f"[http restart] statuses "
+                             f"{[a[0] for a in answers]}, served by "
+                             f"{[d.name for d in served]}, restored "
+                             f"{restored}, cached {cached} (full pages "
+                             f"{full}), tokens equal {same}")
+    log(f"  [http restart] {served[0].name} served the prompt of "
+        f"{prompt.size} tokens twice (cached {cached[0]}, then {cached[1]} "
+        f"where affinity placed it), was removed and its tree stashed; "
+        f"{new.name} restored {restored} pages; the prompt there: cached "
+        f"{cached[2]} ({full} in full pages), tokens equal {same}")
+    return dict(restored_pages=restored, cached_tokens=cached,
+                full_page_tokens=full, tokens_equal=same)
+
+
+def p13_overload(dev, model, prompts) -> dict:
+    """Arm E on one replica of one slot and a queue of one, with the rate
+    limiter and the control plane on: the limiter's 429, a deadline's
+    504, an infeasible deadline's 429, a full queue's 429, then `drain()`
+    (/readyz 503 at once, the resident finishes)."""
+    from paddle_tpu_torch.serving import SamplingParams
+    from paddle_tpu_torch.serving.http import serve
+    eng = p13_engine(model, dev, num_slots=1, max_queue=1)
+    server = serve([eng], controller=True, **P13_RATE)
+    addr = server.server_address[:2]
+    drv = server.router.drivers[0]
+    small = {"prompt": prompts[P13_BLOCKER["prompt"]][:16].tolist(),
+             "max_tokens": 4}
+    codes, blocker, filler = {}, {}, None
+    try:
+        codes["first"] = http_post(addr, small, key="flood")
+        codes["rate_limited"] = http_post(addr, small, key="flood")
+        import threading
+        bt = threading.Thread(target=lambda: blocker.setdefault(
+            "r", http_sse(addr, {
+                "prompt": prompts[P13_BLOCKER["prompt"]].tolist(),
+                "max_tokens": P13_BLOCKER["new"]}, key="blocker")),
+            daemon=True)
+        bt.start()
+        wait_for(lambda: len(mid_decode(eng)) == 1, what="the resident")
+        codes["deadline"] = http_post(addr, {**small, "deadline": 0.05},
+                                      key="d504")
+        filler = drv.submit(prompts[1][:32], SamplingParams(max_new_tokens=4))
+        wait_for(lambda: drv.stats()["queue_depth"] == 1,
+                 what="a queued request")
+        codes["infeasible"] = http_post(addr, {**small, "deadline": 0.01},
+                                        key="dinf")
+        codes["queue_full"] = http_post(addr, small, key="full")
+        dt = threading.Thread(target=server.drain, args=(P13_JOIN_S,),
+                              daemon=True)
+        t0 = time.monotonic()
+        dt.start()
+        wait_for(lambda: not server.accepting, timeout=5.0, what="draining")
+        readyz = http_get(addr, "/readyz")[0]
+        readyz_s = time.monotonic() - t0
+        dt.join(P13_JOIN_S)
+        bt.join(P13_JOIN_S)
+        if dt.is_alive() or bt.is_alive():
+            raise AssertionError("[http overload] drain did not end")
+    finally:
+        server.drain(P13_JOIN_S)
+    want = {"first": (200, None), "rate_limited": (429, "rate_limit_exceeded"),
+            "deadline": (504, "deadline_exceeded"),
+            "infeasible": (429, "deadline_infeasible"),
+            "queue_full": (429, "rate_limit_exceeded")}
+    got = {k: (v[0], v[2].get("error", {}).get("type")) for k, v in
+           codes.items()}
+    retry = {k: codes[k][1].get("Retry-After") for k in
+             ("rate_limited", "infeasible", "queue_full")}
+    fin = blocker["r"]["final"]
+    if got != want or not all(int(r or 0) >= 1 for r in retry.values()) or \
+            readyz != 503 or fin is None or \
+            fin["choices"][0]["finish_reason"] != "length" or \
+            len(blocker["r"]["tokens"]) != P13_BLOCKER["new"] or \
+            not filler.wait(P13_JOIN_S):
+        raise AssertionError(f"[http overload] {got}, Retry-After {retry}, "
+                             f"readyz {readyz}, resident {fin}")
+    eng.pool.assert_quiesced()
+    ctrl = server.router.controller.stats()
+    log(f"  [http overload] statuses {got}; Retry-After {retry}; the "
+        f"controller shed {ctrl['admission_shed_total']}; drain: /readyz "
+        f"503 after {readyz_s:.3f} s, the resident finished its "
+        f"{P13_BLOCKER['new']} tokens, the queued request "
+        f"{filler.finish_reason}")
+    return dict(statuses={k: v[0] for k, v in got.items()},
+                retry_after=retry, readyz_503_s=readyz_s,
+                shed=ctrl["admission_shed_total"],
+                queued_finish=filler.finish_reason)
+
+
+def phase13(dev, tln, tpa) -> tuple:
+    """Phase 13 on GPT-124M's first GRAMMAR_GPT_LAYERS layers (bf16,
+    random weights from SEED) behind the port's HTTP front end: arms A-E."""
+    from paddle_tpu_torch.nlp import GPTConfig, GPTForCausalLM
+    from paddle_tpu_torch.serving import make_draft_model
+    t0 = time.perf_counter()
+    full = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                          dtype=torch.bfloat16, seed=SEED).eval()
+    model = make_draft_model(full, GRAMMAR_GPT_LAYERS)
+    del full
+    torch.cuda.empty_cache()
+    prompts = make_traffic(model.config.vocab_size)
+    cache, ties, stats, secs = {}, [], {}, {}
+    idx = P13_JSON + P13_SSE + P13_FORMAT + P13_EMBED + P13_HANG
+    solo = p13_solo(model, dev, prompts, sorted(set(idx + P13_MIGRATE
+                                                    + P13_HANDOFF)), cache)
+    secs["solo"] = time.perf_counter() - t0
+    t = time.perf_counter()
+    launches, stats["mixed"] = p13_mixed(dev, tln, tpa, model, prompts, solo,
+                                         ties)
+    by_path = {"http_mixed": launches}
+    secs["mixed"] = time.perf_counter() - t
+    t = time.perf_counter()
+    stats["migration"] = p13_migration(dev, model, prompts, solo, ties)
+    secs["migration"] = time.perf_counter() - t
+    t = time.perf_counter()
+    hand_paths, stats["handoff"] = p13_handoff(dev, tln, tpa, model, prompts,
+                                               cache, ties)
+    by_path.update(hand_paths)
+    secs["handoff"] = time.perf_counter() - t
+    t = time.perf_counter()
+    stats["restart"] = p13_restart(dev, model, prompts)
+    stats["overload"] = p13_overload(dev, model, prompts)
+    secs["restart_overload"] = time.perf_counter() - t
+    secs["all"] = time.perf_counter() - t0
+    stats["near_ties"] = ties
+    stats["seconds"] = secs
+    del model
+    torch.cuda.empty_cache()
+    log(f"  phase 13: {secs['all']:.1f} s ({', '.join(f'{k} {v:.1f}' for k, v in secs.items() if k != 'all')}); "
+        f"near ties {len(ties)}")
+    return by_path, stats
+
+
 # -- phase 4: train GPT-124M -------------------------------------------------
 def launch_counts(tln, tfa) -> dict:
     return {"K1": tln.LAUNCHES, "K2": tln.BWD_LAUNCHES,
@@ -5958,6 +6753,13 @@ def main() -> int:
     by_path.update(p12_paths)
     log(f"  phase 12: {json.dumps(phase12_stats)}")
     log(f"  phase 12, Llama-7B: {json.dumps(llama['phase12'])}")
+
+    log("phase 13 the HTTP front end, the router and the control plane in "
+        "front of GPT-124M engines (bf16, random weights; two replicas "
+        "behind serve() on 127.0.0.1):")
+    p13_paths, phase13_stats = phase13(dev, tln, tpa)
+    by_path.update(p13_paths)
+    log(f"  phase 13: {json.dumps(phase13_stats)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

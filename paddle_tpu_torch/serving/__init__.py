@@ -24,10 +24,19 @@ faults. Grammar-constrained decoding (`serving.grammar`, gate
 session pins (`SamplingParams(session=...)`) and the KV fabric's engine
 side (`serving.fabric`: PKVF frames, prefix fingerprints, tree snapshots)
 run on the unified step. `serving.http.EngineDriver` runs an engine on a
-pump thread of its own.
+pump thread of its own, and `serving.http` fronts engines with the router
+(placement, failover, mid-stream migration, the breaker and the watchdog,
+the KV fabric's hand-off and warm restart) and the HTTP server (`serve`);
+the fleet control plane (`serving.controlplane`, gate
+`PADDLE_TPU_CONTROLPLANE`) makes placement SLO-aware, sheds
+deadline-infeasible requests and resizes the fleet.
 """
 from .adapters import (ADAPTER_PROJS, BASE_ADAPTER, AdapterStore,
                        LoRAWeights, make_random_lora, resolve_adapters_flag)
+from .controlplane import (ControlPlaneConfig, DeadlineInfeasible, Decision,
+                           FleetController, FleetSignals,
+                           parse_controlplane_spec, resolve_controlplane,
+                           slo_placement_rank)
 from .draft import DraftConfig, DraftEngine, make_draft_model
 from .engine import (KV_DTYPE_MODES, ServingEngine, embed_forward,
                      legacy_forward, resolve_grouped_flag, resolve_kv_dtype,
@@ -80,4 +89,7 @@ __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "encode_frame", "decode_frame", "frame_header",
            "prompt_fingerprints", "TokenGrammar", "JsonGrammar",
            "ChoiceGrammar", "RegexGrammar", "GrammarSpec",
-           "resolve_grammar_flag"]
+           "resolve_grammar_flag", "ControlPlaneConfig", "FleetController",
+           "FleetSignals", "Decision", "DeadlineInfeasible",
+           "resolve_controlplane", "parse_controlplane_spec",
+           "slo_placement_rank"]

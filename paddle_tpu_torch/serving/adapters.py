@@ -254,6 +254,20 @@ class AdapterStore:
     def known(self, adapter_id: int) -> bool:
         return adapter_id == BASE_ADAPTER or adapter_id in self._recs
 
+    def id_for(self, name: str) -> Optional[int]:
+        """The adapter_id registered under `name`; None if unknown (the
+        router maps an HTTP `model` name through it)."""
+        with self._lock:
+            return self._by_name.get(name)
+
+    def is_hot(self, adapter_id: int) -> bool:
+        """Whether the adapter's page is on the device (the router's
+        placement affinity: hot beats cold)."""
+        if adapter_id == BASE_ADAPTER:
+            return True
+        rec = self._recs.get(adapter_id)
+        return rec is not None and rec.page is not None
+
     # -- device upload ------------------------------------------------------
     def _upload(self, rec: _Adapter, page: int):
         """Write the adapter's payload into page `page` of every pool

@@ -146,7 +146,9 @@ gate PADDLE_TPU_COST_CENSUS=off|model|lowered|xla, default "model") is
 captured once: "model" after the first round, "lowered"/"xla" at the
 first `cost_census()` read, by counting one forward of the unified step
 at its full shape aimed at the trash page (see `serving.slo`; that one
-forward is the only launch the layers make). Otherwise all three are
+forward is the only launch the layers make). An EngineDriver captures
+that forward on its pump thread before its first step, so no other
+thread's read runs it. Otherwise all three are
 host bookkeeping built from values a step already holds on the host: no
 launch, no device read and no synchronisation, and the tokens are the
 same with them on or off. Each request also
@@ -930,6 +932,12 @@ class ServingEngine:
         self.metrics.cost_census = self._census
         return self._census
 
+    @property
+    def _census_counted(self) -> bool:
+        """Whether the census is counted from a forward on the device
+        ("lowered"/"xla" on the unified step) rather than modeled."""
+        return self.unified and self.census_mode in ("lowered", "xla")
+
     def _capture_census(self):
         """Build the census record (callers hold _census_lock). Only the
         unified step has a counted forward; a legacy engine's record is
@@ -944,7 +952,7 @@ class ServingEngine:
             max_pages=self.max_pages, page_bytes=self.page_bytes,
             n_heads=int(getattr(cfg, "num_attention_heads", self.n_kv)),
             head_dim=self.head_dim, page_size=self.page_size)
-        counted = self.unified and self.census_mode in ("lowered", "xla")
+        counted = self._census_counted
         self._census = capture_cost_census(
             self.census_mode, self._census_forward if counted else None,
             self._census_operands() if counted else None,

@@ -1,14 +1,17 @@
 """Typed errors of the serving engine (counterpart of
-`paddle_tpu/serving/errors.py`; the HTTP layer that maps them to status
-codes is not ported yet).
+`paddle_tpu/serving/errors.py`). The HTTP layer (`serving/http/`) maps
+them to status codes without matching exception text:
 
-- `QueueFull` — admission queue at max_queue: shed load, retry later.
-- `RateLimited` — one client exceeded its token bucket: back off.
-- `EngineClosed` — the engine is draining or aborted: no new requests.
+- `QueueFull` — admission queue at max_queue: shed load, retry later
+  (429 + Retry-After).
+- `RateLimited` — one client exceeded its token bucket: back off (429 +
+  Retry-After, per client).
+- `EngineClosed` — the engine is draining or aborted: no new requests
+  (503).
 - `PoisonedRequest` — this one request deterministically kills the
-  serving step; the engine's quarantine failed it alone.
+  serving step; the engine's quarantine failed it alone (422).
 - `DeadlineExceeded` — a request's placement deadline (`deadline_s`)
-  passed while it was still queued; it never started.
+  passed while it was still queued; it never started (504).
 
 All subclass `ServingError(RuntimeError)`.
 """

@@ -106,6 +106,7 @@ class EngineDriver:
         self._inbox: "queue.Queue" = queue.Queue()
         self._wake = threading.Event()
         self._stopped = threading.Event()
+        self._ready = threading.Event()
         self._started = False
         self._draining = False
         self._dead = False
@@ -147,6 +148,10 @@ class EngineDriver:
         if not self._started:
             self._started = True
             self._thread.start()
+            # a counted census is a forward on the device: the pump
+            # captures it before its first step, and start() returns only
+            # then, so no other thread's census read ever runs it
+            self._ready.wait()
         return self
 
     @property
@@ -335,6 +340,10 @@ class EngineDriver:
             if device is not None and device.type == "cuda":
                 # the current device is per thread: this one owns the card
                 torch.cuda.set_device(device)
+            if getattr(self.engine, "_census_counted", False):
+                with self._mutate_lock:
+                    self.engine.cost_census()
+            self._ready.set()
             while True:
                 if self._fault is not None:
                     raise self._fault
@@ -375,6 +384,7 @@ class EngineDriver:
         except BaseException as exc:   # replica death path
             self._do_die(exc)
         finally:
+            self._ready.set()
             self._stopped.set()
 
     def _inject_spike(self, n: int):

@@ -19,6 +19,8 @@ last hidden state in `RequestOutput.embedding`), or name a conversation
 """
 from __future__ import annotations
 
+import queue
+import threading
 import time
 from dataclasses import dataclass
 from enum import Enum
@@ -85,8 +87,6 @@ class SamplingParams:
             raise ValueError("adapter_id must be >= 0")
         if self.deadline_s is not None and self.deadline_s <= 0:
             raise ValueError("deadline_s must be > 0")
-        if self.temperature <= 0:
-            raise ValueError("temperature must be > 0")
         if self.top_k is not None and self.top_k < 1:
             raise ValueError("top_k must be >= 1")
         if self.top_p is not None and not (0.0 < self.top_p <= 1.0):
@@ -105,11 +105,15 @@ class SamplingParams:
                     "way a structurally complete stream terminates")
 
 
+_FINISH_SENTINEL = object()
+
+
 class Request:
     """One queued/running generation job, created by
     `ServingEngine.add_request`. Its tokens arrive through the
-    `on_token(request, token)` callback and in the final `output()`;
-    the blocking stream API comes with the HTTP layer."""
+    `on_token(request, token)` callback, through the blocking stream
+    (`stream()`, `next_event(timeout)`, `wait(timeout)`) when another
+    thread pumps the engine, and in the final `output()`."""
 
     def __init__(self, request_id: str, prompt_ids,
                  sampling: SamplingParams,
@@ -159,6 +163,10 @@ class Request:
         self.first_token_t: Optional[float] = None
         self.finished_t: Optional[float] = None
         self._last_token_t: Optional[float] = None
+        # the blocking stream: each token is queued before the finish
+        # sentinel, so a reader that saw "finish" has every token
+        self._stream_q: "queue.Queue" = queue.Queue()
+        self._done = threading.Event()
 
     # -- engine-side transitions ------------------------------------------
     def _emit(self, token: int, now: float):
@@ -168,12 +176,15 @@ class Request:
         self._last_token_t = now
         if self.on_token is not None:
             self.on_token(self, token)
+        self._stream_q.put(token)
 
     def _finish(self, reason: str, now: float):
         self.finish_reason = reason
         self.finished_t = now
         self.state = (RequestState.CANCELLED if reason == "cancelled"
                       else RequestState.FINISHED)
+        self._stream_q.put(_FINISH_SENTINEL)
+        self._done.set()
 
     @property
     def deadline(self) -> Optional[float]:
@@ -201,6 +212,32 @@ class Request:
     @property
     def finished(self) -> bool:
         return self.state in (RequestState.FINISHED, RequestState.CANCELLED)
+
+    def stream(self):
+        """Blocking token iterator, for an engine pumped on another
+        thread: yields tokens as they decode, returns at the finish."""
+        while True:
+            tok = self._stream_q.get()
+            if tok is _FINISH_SENTINEL:
+                return
+            yield tok
+
+    def next_event(self, timeout: Optional[float] = None):
+        """Poll-able stream read for front ends that interleave token
+        delivery with liveness checks: ("token", id), ("finish",
+        reason), or ("idle", None) when `timeout` passes with nothing
+        queued."""
+        try:
+            tok = self._stream_q.get(timeout=timeout)
+        except queue.Empty:
+            return ("idle", None)
+        if tok is _FINISH_SENTINEL:
+            return ("finish", self.finish_reason)
+        return ("token", tok)
+
+    def wait(self, timeout: Optional[float] = None) -> bool:
+        """Block until the request finishes; False if `timeout` passed."""
+        return self._done.wait(timeout)
 
     def output(self) -> "RequestOutput":
         return RequestOutput(
@@ -237,6 +274,9 @@ class RequestOutput:
     cached_tokens: int = 0
     # emitted tokens that arrived as verified speculative drafts
     accepted_draft_tokens: int = 0
+    # times a router migrated the request mid-stream to another replica
+    # after its host died (only a router's merged view sets it)
+    migrations: int = 0
     # times the request was preempted under overload and resumed
     preemptions: int = 0
     ttft_s: Optional[float] = None

@@ -54,6 +54,12 @@ def test_import_leaves_jax_and_the_jax_package_out():
         "import paddle_tpu_torch.serving.obs, paddle_tpu_torch.serving.slo\n"
         "import paddle_tpu_torch.serving.faults, paddle_tpu_torch.profiler\n"
         "import paddle_tpu_torch.serving.http.driver\n"
+        "import paddle_tpu_torch.serving.controlplane\n"
+        "import paddle_tpu_torch.serving.http.protocol\n"
+        "import paddle_tpu_torch.serving.http.ratelimit\n"
+        "import paddle_tpu_torch.serving.http.router\n"
+        "import paddle_tpu_torch.serving.http.server\n"
+        "from paddle_tpu_torch.serving.http import serve\n"
         "import paddle_tpu_torch.ops.cuda.cost\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'paddle_tpu'))\n"
@@ -68,9 +74,13 @@ def test_import_leaves_jax_and_the_jax_package_out():
 def test_sources_import_no_jax():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
-    # the serving modules ported last (grammar, the KV fabric) are scanned
-    assert {PKG / "serving" / "grammar.py",
-            PKG / "serving" / "fabric.py"} <= set(files)
+    # the serving modules ported last (grammar, the KV fabric, the control
+    # plane and the HTTP front end) are scanned
+    http = PKG / "serving" / "http"
+    assert {PKG / "serving" / "grammar.py", PKG / "serving" / "fabric.py",
+            PKG / "serving" / "controlplane.py", http / "__init__.py",
+            http / "protocol.py", http / "ratelimit.py", http / "router.py",
+            http / "server.py"} <= set(files)
     for f in files:
         hits = _FORBIDDEN.findall(f.read_text())
         assert not hits, f"{f.relative_to(REPO)} imports {hits}"
