@@ -345,6 +345,26 @@ Phases, each reported on its own line; any failure exits non-zero:
    (`deadline_infeasible`), 429 (queue), then `drain()`: /readyz 503
    at once and the resident finishes.
 
+14. tensor-parallel serving: engines whose mesh lays mp shards
+   on the one card (`ServingTP(1, mp, devices=[cuda:0] * mp)`): GPT-124M
+   at full width and depth on phase 3's prompts (16 tokens each) at the
+   defaults, grouped=False, int8 and fp8 at mp 2 and 4, speculative
+   decoding (`ngram:4`), the legacy step, LoRA adapters and a preemption
+   burst at mp 2; Llama-7B's widths at 4 layers at mp 2 and 4 and the
+   GQA arm (Llama-3-8B's widths, 4 layers) at mp 4. Each arm against the
+   same run's mp 1 engine: every request's tokens equal (or the first
+   difference a near tie within the held-logit tolerance), the held
+   logits bit-equal or their max abs difference (with whether cuBLAS
+   gives a shard's run of a projection's columns the whole product's
+   bits at those shapes, the cause to name), launches exact (each walk
+   and write mp times a layer a step, K1 once, K12 never),
+   `collective_counts()` no all-reduce and one all-gather and one
+   broadcast a layer, the flight record's collectives, the page bytes a
+   shard (1/mp), the fabric frame of the first prompt's chain equal to
+   mp 1's bytes, and tokens/s beside mp 1's with the card's name and
+   power limit. Phase 2 holds each kernel of this path at a per-shard
+   shape (`per_shard` in its record).
+
 The second-to-last line is a JSON object with one record per kernel:
 `launches` counts the launches on the path (`path`: serving, the
 default engine's run; serving_ungrouped, the grouped=False run;
@@ -369,7 +389,9 @@ after 5 steps, probe rounds included), and phase 12's
 grammar_{defaults|megakernel|spec_ngram} (the constrained run),
 embed_gpt[_int8] and llama_embed (the bf16 run with its epilogues), and
 phase 13's http_mixed (arm A, both replicas) and http_handoff_{fp|int8}
-(arm C, both replicas). The last line
+(arm C, both replicas), and phase 14's tp_gpt_{defaults|ungrouped|int8|
+fp8}_mp{2|4}, tp_gpt_{spec|legacy|adapters|preempt}_mp2,
+tp_llama7b_mp{2|4} and tp_llama3_gqa_mp4 (a mesh run each). The last line
 is `{"ok": true, "device": {...}}`. Without CUDA
 the script prints no result and exits 1.
 """
@@ -6525,6 +6547,381 @@ def llama_train_phase(dev, tln, tfa) -> tuple:
     return by_path, stats
 
 
+# -- phase 2 at the per-shard shapes of phase 14 -----------------------------
+# (h, h_kv, d) a shard walks: GPT-124M at mp 4 (3 heads of 64, odd), the
+# GQA arm at mp 4 (8 query heads over 2 kv heads of 128, rep 4), and
+# GPT-124M at mp 2 for the legacy step's K9 and K3 (6 heads of 64)
+SHARD_WALK = (3, 3, 64)
+SHARD_GQA = (8, 2, 128)
+SHARD_LEGACY = (6, 6, 64)
+
+
+def check_shard_shapes(dev, tpa, tfa) -> dict:
+    """Every kernel the mesh path launches, against its plain version at
+    a per-shard shape phase 14 gives it (bf16 by the 2-ulp rule; the
+    writes bit for bit outside page 0): K6, K6-fp8, K7, K10a/K10b in
+    each lane at SHARD_WALK (K10's output also equal to K6's in the same
+    lane bit for bit) and K10 at SHARD_GQA; K9 and K9-fp8 on the legacy
+    decode batch and K3 on a legacy prefill chunk at SHARD_LEGACY; the
+    K8 and K8-q8 pairs at [16, 32, 3, 64]. Returns {kernel: {"shape",
+    "max_abs_err"}}."""
+    from paddle_tpu_torch.nn import functional as PF
+    from paddle_tpu_torch.nn.functional.attention import (
+        _mask_to_kernel_operands)
+    from paddle_tpu_torch.ops.cuda.launch_check import (
+        decode, decode_batch, flash_serving_batch, grouped, grouped_batch,
+        lane_batch, ragged, ragged_reference)
+    out = {}
+    bf = torch.bfloat16
+    for h, hkv, d in (SHARD_WALK, SHARD_GQA):
+        for lane in (("fp", "fp8", "q8") if (h, hkv, d) == SHARD_WALK
+                     else ("fp",)):
+            ops, grp = grouped_batch(dev, bf, h, hkv, d, SEED)
+            ops, scales = lane_batch(ops, lane)
+            live = (torch.arange(ops[0].shape[1], device=dev)[None, :]
+                    < ops[5][:, None])
+            got6 = ragged(ops, scales)
+            got10 = grouped(ops, grp, scales)
+            torch.cuda.synchronize()
+            tag = f"[16, 32, {h}, {d}] over {hkv} kv heads, {lane} lane"
+            k6, k10a, k10b = (WALKS["K6", lane][0], WALKS["K10a", lane][0],
+                              WALKS["K10b", lane][0])
+            err6 = check_close(f"{k6} per shard {tag}", got6,
+                               ragged_reference(ops, scales), mask=live)
+            ref10 = tpa.grouped_attention_reference(*ops, *grp, **scales)
+            err10 = check_close(f"{k10b} per shard {tag}", got10, ref10,
+                                mask=live)
+            if not torch.equal(got10[live], got6[live]):
+                raise AssertionError(f"K10 per shard {tag} differs from "
+                                     f"{k6}")
+            shape = [16, 32, h, hkv, d]
+            if (h, hkv, d) == SHARD_WALK:
+                out[k6] = {"shape": shape, "max_abs_err": err6}
+            for key in (k10a, k10b):
+                out.setdefault(key, {"shape": [], "max_abs_err": 0.0})
+                out[key]["shape"].append(shape)
+                out[key]["max_abs_err"] = max(out[key]["max_abs_err"], err10)
+    h, hkv, d = SHARD_LEGACY
+    for lane, key in (("fp", "K9"), ("fp8", "K9-fp8")):
+        ops, _ = lane_batch(decode_batch(dev, bf, h, hkv, d, SEED), lane)
+        got = decode(ops)
+        torch.cuda.synchronize()
+        out[key] = {"shape": [16, 1, h, hkv, d], "max_abs_err": check_close(
+            f"{key} per shard [16, 1, {h}, {d}]", got,
+            tpa.paged_attention_reference(*ops[:5]))}
+    q, k, v, mask = flash_serving_batch(dev, bf, "legacy prefill Lq 32",
+                                        SEED, h=h, d=d)
+    b, lq, lk = q.shape[0], q.shape[1], k.shape[1]
+    form, operand = _mask_to_kernel_operands(mask, b, h, lq, lk)
+    before = tfa.LAUNCHES["fwd"]
+    got = PF.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                          training=False)
+    torch.cuda.synchronize()
+    if tfa.LAUNCHES["fwd"] != before + 1:
+        raise AssertionError("K3 per shard: the SDPA did not launch K3")
+    out["K3"] = {"shape": [b, lq, h, d, lk], "max_abs_err": check_close(
+        f"K3 per shard legacy prefill [1, 32, {h}, {d}] over {lk} keys", got,
+        tfa.flash_attention_reference(q, k, v, **{form: operand})[0],
+        extra=tfa.fwd_rounding_allowance(q, k, v, **{form: operand}),
+        extra_rule=ROUNDING_RULE.format("P_eff", "P_eff . V / l"))}
+    h, _, d = SHARD_WALK
+    q, k_pool, _, table, pos, _ = ragged_batch(dev, bf, h, h, SEED, d=d)
+    v_upd = ragged_batch(dev, bf, h, h, SEED + 1, d=d)[0]
+    shape = k_pool.shape
+    fp8 = lambda: torch.zeros(shape, dtype=torch.uint8,
+                              device=dev).view(tpa.FP8_DTYPE)
+    q8 = lambda: (torch.zeros(shape, dtype=torch.int8, device=dev),
+                  torch.zeros(shape[:3], device=dev))
+    kp, vp = fp8(), fp8()
+    tpa.paged_scatter_pair(kp, vp, q, v_upd, pos, table)
+    (kc, ks), (vc, vs) = q8(), q8()
+    tpa.paged_scatter_q8_pair(kc, vc, ks, vs, q, v_upd, pos, table)
+    torch.cuda.synchronize()
+    same8 = all(torch.equal(
+        got.view(torch.uint8)[1:],
+        tpa.paged_scatter_reference(fp8(), upd, pos, table)
+        .view(torch.uint8)[1:]) for got, upd in ((kp, q), (vp, v_upd)))
+    same_q8 = True
+    for (codes, scales), upd in (((kc, ks), q), ((vc, vs), v_upd)):
+        wc, ws = tpa.paged_scatter_q8_reference(*q8(), upd, pos, table)
+        same_q8 &= torch.equal(codes[1:], wc[1:]) and torch.equal(
+            scales[1:].view(torch.int32), ws[1:].view(torch.int32))
+    log(f"  K8 pair (e4m3) and K8-q8 pair per shard [16, 32, {h}, {d}]: "
+        f"equal to their plain versions outside page 0: {same8}, "
+        f"{same_q8}")
+    if not (same8 and same_q8):
+        raise AssertionError("a per-shard write differs from its plain "
+                             "version")
+    for key in ("K8", "K8-q8"):
+        out[key] = {"shape": [16, 32, h, d], "max_abs_err": 0.0}
+    return out
+
+
+# -- phase 14: tensor-parallel serving -----------------------------------------
+P14_NEW = 16           # tokens a request in phase 14 (phase 3's prompts)
+P14_MP = (2, 4)
+P14_GPT_ARMS = (("defaults", {}), ("grouped=False", {"grouped": False}),
+                ("int8", {"kv_dtype": "int8"}), ("fp8", {"kv_dtype": "fp8"}))
+P14_LEGACY_REQUESTS = 8
+P14_LLAMA_LAYERS = 4
+P14_LLAMA_REQUESTS = 16
+# x [512, in] through a projection's whole weight and through each
+# shard's run of its output features (GPT-124M's qkv at mp 2 and 4,
+# Llama-7B's q at mp 2 and 4, the GQA arm's k at mp 4)
+P14_GEMMS = (("GPT-124M qkv_proj", 768, 2304, (2, 4)),
+             ("Llama-7B q_proj", 4096, 4096, (2, 4)),
+             ("Llama-3-8B-width k_proj", 4096, 1024, (4,)))
+
+
+def p14_gemm_columns(dev) -> dict:
+    """Whether cuBLAS gives a shard's run of output features the bits of
+    the same columns of the whole product (bf16, the serving step's
+    [512, in]); the cause to name when a mesh arm's held logits are not
+    bit-equal to mp 1's."""
+    rs = np.random.RandomState(SEED)
+    out = {}
+    for name, cin, cout, mps in P14_GEMMS:
+        x = torch.from_numpy(rs.randn(512, cin).astype(np.float32)).to(
+            dev, torch.bfloat16)
+        w = (torch.from_numpy(rs.randn(cout, cin).astype(np.float32))
+             * 0.02).to(dev, torch.bfloat16)
+        b = torch.zeros(cout, device=dev, dtype=torch.bfloat16)
+        whole = torch.nn.functional.linear(x, w, b)
+        for mp in mps:
+            n = cout // mp
+            diff = max((torch.nn.functional.linear(
+                x, w[s * n:(s + 1) * n], b[s * n:(s + 1) * n]).float()
+                - whole[:, s * n:(s + 1) * n].float()).abs().max().item()
+                for s in range(mp))
+            out[f"{name} mp {mp}"] = diff
+            log(f"  [{name}] x [512, {cin}] -> {cout}: a shard's {n} "
+                f"columns at mp {mp} {'equal' if diff == 0 else 'differ from'}"
+                f" the whole product's bit for bit (max abs diff {diff:.3e})")
+    return out
+
+
+def p14_launches(tpa, model, opts: dict, mp: int, steps: int,
+                 chunks: int = 0) -> dict:
+    """The launches a run of `steps` steps (or legacy decode steps and
+    `chunks` prefill chunks) over mp shards makes: each walk and each
+    write mp times a layer, K1 once (replicated), K12 never."""
+    n, k1 = model.config.num_hidden_layers * mp, norm_launches(model)
+    kv = opts.get("kv_dtype", "fp")
+    if opts.get("unified", True):
+        per = per_step_launches(tpa, opts.get("grouped", True), kv,
+                                n_layers=n, k1=k1)
+        return {k: v * steps for k, v in per.items()}
+    per, per_chunk = legacy_launches(tpa, kv, n_layers=n, k1=k1)
+    return {k: v * steps + per_chunk[k] * chunks for k, v in per.items()}
+
+
+def p14_run(dev, tln, tpa, model, mp: int, opts: dict, prompts,
+            tenants=None, loras=None, drive=None) -> dict:
+    """One run over mp shards laid on `dev` (mp 1: the single-device
+    engine): every request's tokens, the held logits, launches checked
+    exactly, the collectives, the page costs, tokens/s and a fabric frame
+    of prompts[0]'s cached chain."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as tfa
+    from paddle_tpu_torch.serving import (SamplingParams, ServingEngine,
+                                          ServingTP)
+    mesh = None if mp == 1 else ServingTP(1, mp, devices=[dev] * mp)
+    eng = ServingEngine(model, device=dev, seed=SEED, mesh=mesh,
+                        **{**ENGINE, **opts})
+    if eng.megakernel or (mp > 1 and len(eng._pools.pools) != mp):
+        raise AssertionError(f"mesh engine mp {mp}: megakernel "
+                             f"{eng.megakernel}")
+    for i, w in enumerate(loras or ()):
+        eng.adapters.register(f"tenant{i}", w)
+    tenants = tenants or [0] * len(prompts)
+    torch.cuda.synchronize()
+    reset_counts(tln, tfa, tpa)
+    t0 = time.perf_counter()
+    if drive is None:
+        reqs = [eng.add_request(p, SamplingParams(max_new_tokens=P14_NEW,
+                                                  adapter_id=a))
+                for p, a in zip(prompts, tenants)]
+        eng.run()
+    else:
+        reqs = drive(eng)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts_serving(tln, tpa, tfa)
+    snap = eng.metrics.snapshot()
+    steps = (eng.metrics.unified_steps if eng.unified
+             else snap["decode_step_s"]["count"])
+    want = p14_launches(tpa, model, opts, mp, steps, snap["prefill_chunks"])
+    if launches != want or steps == 0:
+        raise AssertionError(f"mp {mp} {opts}: launches {launches} != "
+                             f"{want}")
+    if any(r.finish_reason != "length" for r in reqs):
+        raise AssertionError(f"mp {mp} {opts}: a request did not finish")
+    frame = None
+    if eng.prefix_cache is not None and not loras:
+        frame = eng.export_prefix_frame(prompts[0])
+    res = {"tokens": [list(r.output_tokens) for r in reqs],
+           "logits": eng._last_logits.clone(), "launches": launches,
+           "steps": steps, "wall_s": wall,
+           "tokens_per_s": snap["tokens_per_sec"],
+           "page_bytes": snap["pool"]["bytes_per_page"],
+           "shard_bytes": snap["pool"]["shard_bytes_per_page"],
+           "collectives": (eng.collective_counts() if mp > 1 and eng.unified
+                           else None),
+           "flight_collectives": sorted({
+               r["collectives"] for r in eng.obs.flight.snapshot()["steps"]
+               if "collectives" in r}),
+           "preemptions": snap["preemptions"],
+           "swapped_in_pages": snap["swapped_in_pages"], "frame": frame}
+    eng.drain()
+    del eng
+    torch.cuda.empty_cache()
+    return res
+
+
+def p14_arm(dev, tln, tpa, model, tag, opts, prompts, tol, mps=P14_MP,
+            path=None, by_path=None, **kw) -> dict:
+    """mp 1 and then each mp of `mps` on the same traffic: tokens equal
+    mp 1's (or a near tie within `tol`), held logits bit-equal or their
+    max abs difference, exact launches, `collective_counts()` (all_reduce
+    0, all_gather n_layers), the flight record's count, page bytes over
+    mp, the fabric frame equal to mp 1's bytes, tokens/s beside mp 1's."""
+    n_layers = model.config.num_hidden_layers
+    base = p14_run(dev, tln, tpa, model, 1, opts, prompts, **kw)
+    rec = {"mp1": {"tokens_per_s": base["tokens_per_s"],
+                   "wall_s": base["wall_s"], "steps": base["steps"]}}
+    for mp in mps:
+        got = p14_run(dev, tln, tpa, model, mp, opts, prompts, **kw)
+        name = f"{tag} mp {mp}"
+        ties = near_ties(name, model, prompts, got["tokens"],
+                         base["tokens"], range(len(prompts)), tol)
+        same_bits = torch.equal(got["logits"], base["logits"])
+        diff = (got["logits"] - base["logits"]).abs().max().item()
+        coll = got["collectives"]
+        if coll is not None and (coll["all_reduce"] != 0
+                                 or coll["all_gather"] != n_layers
+                                 or coll["broadcast"] != n_layers):
+            raise AssertionError(f"[{name}] collectives {coll}")
+        if got["flight_collectives"] != [n_layers] and opts.get("unified",
+                                                                True):
+            raise AssertionError(f"[{name}] flight record collectives "
+                                 f"{got['flight_collectives']}")
+        if got["shard_bytes"] * mp != got["page_bytes"]:
+            raise AssertionError(f"[{name}] {got['shard_bytes']} bytes a "
+                                 f"page a shard of {got['page_bytes']}")
+        frame_same = (None if base["frame"] is None
+                      else got["frame"] == base["frame"])
+        if frame_same is False:
+            raise AssertionError(f"[{name}] the fabric frame differs from "
+                                 "mp 1's")
+        walks = {k: n for k, n in got["launches"].items() if n}
+        frame_len = None if base["frame"] is None else len(base["frame"])
+        log(f"  [{name}] {len(prompts)} requests in {got['steps']} "
+            f"{'steps' if opts.get('unified', True) else 'decode steps'}: "
+            f"tokens equal mp 1's in {len(prompts) - len(ties)} of "
+            f"{len(prompts)} requests ({len(ties)} near ties); held logits "
+            f"bit-equal to mp 1's: {same_bits} (max abs diff {diff:.3e}); "
+            f"launches {walks}; collectives {coll}; page bytes "
+            f"{got['page_bytes']} whole, {got['shard_bytes']} a shard; "
+            f"fabric frame equal to mp 1's: {frame_same} ({frame_len} "
+            f"bytes); "
+            f"{got['tokens_per_s']:.1f} tokens/s against mp 1's "
+            f"{base['tokens_per_s']:.1f} ({got['wall_s']:.2f} s against "
+            f"{base['wall_s']:.2f} s)")
+        rec[f"mp{mp}"] = {
+            "tokens_per_s": got["tokens_per_s"], "wall_s": got["wall_s"],
+            "steps": got["steps"], "near_ties": ties,
+            "logits_bit_equal": same_bits, "logits_max_abs_diff": diff,
+            "collectives": coll, "page_bytes": got["page_bytes"],
+            "shard_bytes": got["shard_bytes"], "frame_equal": frame_same,
+            "launches": walks, "preemptions": got["preemptions"],
+            "swapped_in_pages": got["swapped_in_pages"]}
+        if by_path is not None:
+            by_path[f"{path}_mp{mp}"] = got["launches"]
+    return rec
+
+
+def phase14(dev, tln, tpa, smi: str) -> tuple:
+    """Tensor-parallel serving with mp shards laid on `dev`: GPT-124M at
+    full width and depth on phase 3's prompts (P14_NEW tokens each) at
+    the defaults, grouped=False, int8 and fp8 at mp 2 and 4; speculative
+    decoding (`ngram:4`), the legacy step (the first P14_LEGACY_REQUESTS
+    prompts), LoRA adapters and a preemption burst at mp 2; Llama-7B's
+    widths at P14_LLAMA_LAYERS layers at mp 2 and 4, and the GQA arm
+    (Llama-3-8B's widths) at mp 4, on the first P14_LLAMA_REQUESTS
+    prompts. Each against the same run's mp 1 engine (`p14_arm`).
+    Returns (launches by path, the records)."""
+    from paddle_tpu_torch.nlp import (GPTConfig, GPTForCausalLM, LlamaConfig,
+                                      LlamaForCausalLM)
+    from paddle_tpu_torch.serving import RequestState, SamplingParams
+
+    t0 = time.perf_counter()
+    by_path, out = {}, {"card": smi}
+    out["gemm_columns"] = p14_gemm_columns(dev)
+    model = GPTForCausalLM(GPTConfig(**GPT124M), device=dev,
+                           dtype=torch.bfloat16, seed=SEED).eval()
+    prompts = make_traffic(GPT124M["vocab_size"])
+    arm = lambda tag, opts, ps, path, **kw: p14_arm(
+        dev, tln, tpa, model, f"GPT-124M {tag}", opts, ps, HELD_LOGITS_TOL,
+        path=path, by_path=by_path, **kw)
+    for tag, opts in P14_GPT_ARMS:
+        out[f"gpt {tag}"] = arm(tag, opts, prompts, "tp_gpt_" + tag.replace(
+            "grouped=False", "ungrouped"))
+    out["gpt spec ngram:4"] = arm("spec ngram:4", {"spec": "ngram:4"},
+                                  prompts, "tp_gpt_spec", mps=(2,))
+    out["gpt legacy"] = arm("legacy", {"unified": False},
+                            prompts[:P14_LEGACY_REQUESTS], "tp_gpt_legacy",
+                            mps=(2,))
+    loras, tenants = adapter_traffic(model.config)
+    out["gpt adapters"] = arm(
+        "adapters", {"adapters": True, "adapter_pages": LORA["adapters"]},
+        prompts, "tp_gpt_adapters", mps=(2,), tenants=tenants, loras=loras)
+    rs = np.random.RandomState(SEED + 1)
+    vocab = GPT124M["vocab_size"]
+    low = [rs.randint(0, vocab, size=PREEMPT_PROMPT) for _ in range(ENGINE["num_slots"])]
+    burst = [rs.randint(0, vocab, size=PREEMPT_PROMPT)
+             for _ in range(PREEMPT_BURST)]
+
+    def drive(eng):
+        lo = [eng.add_request(p, SamplingParams(max_new_tokens=P14_NEW,
+                                                priority=5)) for p in low]
+        while not all(r.state is RequestState.DECODE and r.output_tokens
+                      for r in lo):
+            eng.step()
+        hi = [eng.add_request(p, SamplingParams(max_new_tokens=P14_NEW,
+                                                priority=0)) for p in burst]
+        eng.run()
+        return lo + hi
+
+    rec = arm("preempt", {"num_pages": PREEMPT_PAGES}, low + burst,
+              "tp_gpt_preempt", mps=(2,), drive=drive)
+    if rec["mp2"]["preemptions"] < 1 or rec["mp2"]["swapped_in_pages"] < 1:
+        raise AssertionError(f"the mp 2 burst did not preempt and swap: "
+                             f"{rec['mp2']}")
+    out["gpt preempt"] = rec
+    del model
+    torch.cuda.empty_cache()
+    t_gpt = time.perf_counter() - t0
+    for key, cfg_kw, mps in (
+            ("llama7b", {**LLAMA7B, "num_hidden_layers": P14_LLAMA_LAYERS},
+             P14_MP),
+            ("llama3_gqa", LLAMA3_GQA, (4,))):
+        cfg = LlamaConfig(**cfg_kw)
+        model = LlamaForCausalLM(cfg, device=dev, dtype=torch.bfloat16,
+                                 seed=SEED).eval()
+        name = ("Llama-7B" if key == "llama7b" else "Llama-3-8B-width GQA")
+        out[key] = p14_arm(
+            dev, tln, tpa, model,
+            f"{name}, {cfg.num_hidden_layers} layers", {},
+            make_traffic(cfg.vocab_size)[:P14_LLAMA_REQUESTS],
+            LLAMA_HELD_LOGITS_TOL, mps=mps, path=f"tp_{key}",
+            by_path=by_path)
+        del model
+        torch.cuda.empty_cache()
+    out["seconds"] = {"gpt": t_gpt, "all": time.perf_counter() - t0}
+    log(f"  phase 14: {out['seconds']['all']:.1f} s ({t_gpt:.1f} s "
+        f"GPT-124M); card: {smi}")
+    return by_path, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run",
@@ -6655,6 +7052,9 @@ def main() -> int:
         kernels[key]["ptxas"] = ptxas.get(lib)
     kernels["K12"] = check_greedy_argmax(dev, tpa, timer)
     kernels["K12"]["grammar_biased"] = check_greedy_argmax_biased(dev, tpa)
+    # each mesh-path kernel at a per-shard shape of phase 14
+    for key, rec in check_shard_shapes(dev, tpa, tfa).items():
+        kernels[key]["per_shard"] = rec
     torch.cuda.empty_cache()
 
     log("phase 3 serve GPT-124M (bf16, random weights):")
@@ -6760,6 +7160,14 @@ def main() -> int:
     p13_paths, phase13_stats = phase13(dev, tln, tpa)
     by_path.update(p13_paths)
     log(f"  phase 13: {json.dumps(phase13_stats)}")
+    torch.cuda.empty_cache()
+
+    log("phase 14 tensor-parallel serving: mp 2 and mp 4 shards on the "
+        "card, GPT-124M, Llama-7B's widths (4 layers) and the GQA arm "
+        "(bf16, random weights), each against the same run's mp 1 engine:")
+    p14_paths, phase14_stats = phase14(dev, tln, tpa, smi)
+    by_path.update(p14_paths)
+    log(f"  phase 14: {json.dumps(phase14_stats)}")
     # each kernel's launches on each path, counted from 0 just before the
     # path ran; `launches` is those of the path whose shapes the record
     # was measured at

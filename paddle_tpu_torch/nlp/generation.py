@@ -37,6 +37,14 @@ mask operand, into the mask lane of K6/K7 (the ragged branch and the
 int8 single-token branch; the grouped walk falls back to K6/K7 under a
 mask, as the JAX op does), or into the gather branch's additive mask.
 
+Tensor-parallel serving (serving/tp.py): with `DecodeCache.shards` set
+(a `ShardRoute`, built each step by `ShardedPools.caches`) the model's
+paged branch runs per shard through `attend_shards`: the layer's input
+goes to each shard's device, the shard's heads are projected, written
+and walked over the shard's own pools with the step's operands on its
+device, and the outputs are concatenated over the head axis on the lead
+device before the replicated output projection.
+
 The unified step's megakernel (`DecodeCache.megakernel`, the engine's
 PADDLE_TPU_MEGAKERNEL gate): with q_len set, the kernel impl and no user
 mask, the write and the walk go through `megakernel_decode[_q8]` (K8 or
@@ -82,6 +90,7 @@ from ..ops.cuda.paged_attention import (FP8_DTYPE, NEG_INF,
                                         ragged_paged_attention_q8)
 
 __all__ = ["DecodeCache", "init_decode_caches", "update_and_attend",
+           "ShardRoute", "ShardedPools", "attend_shards",
            "kv_cache_update", "kv_cache_update_q8", "kv8_attend",
            "paged_kv_gather", "paged_kv_gather_q8", "generate",
            "window_causal_mask", "decode_merge_mask", "gqa_decode_attend",
@@ -134,10 +143,14 @@ class DecodeCache:
     and scales ascale [B] f32, gathered inside the fused op (K11). A row
     at page 0 / scale 0 sees an exactly-zero delta. `megakernel` routes
     the unified step's write and walk through `megakernel_decode[_q8]`
-    (see the module doc)."""
+    (see the module doc).
 
-    k: torch.Tensor
-    v: torch.Tensor
+    Tensor-parallel serving: `shards`, a `ShardRoute`, carries each
+    shard's own cache and projection runs; the model's paged branch then
+    runs `attend_shards`, and this (lead) cache's k and v are None."""
+
+    k: Optional[torch.Tensor]
+    v: Optional[torch.Tensor]
     pos: Union[int, torch.Tensor]
     page_table: Optional[torch.Tensor] = None
     q_len: Optional[torch.Tensor] = None
@@ -148,6 +161,7 @@ class DecodeCache:
     lora: Optional[tuple] = None
     lora_paged: Optional[tuple] = None
     megakernel: bool = False
+    shards: Optional["ShardRoute"] = None
 
 
 def init_decode_caches(n_layers: int, batch_size: int, max_len: int,
@@ -509,12 +523,118 @@ def _unpack_caches(pools, pos, page_table: Optional[torch.Tensor] = None,
     every layer's pool). `lora` / `lora_paged`, one entry per layer (see
     DecodeCache), attach the layers' adapter operands; `megakernel`
     routes every layer's unified attend through the fused op."""
+    if isinstance(pools, ShardedPools):
+        return pools.caches(pos, page_table, q_len, group, attn_impl)
     n = len(pools)
     lora = [None] * n if lora is None else list(lora)
     lora_paged = [None] * n if lora_paged is None else list(lora_paged)
     return [DecodeCache(k, v, pos, page_table, q_len, group, ks, vs,
                         attn_impl, lo, lp, megakernel)
             for (k, v, ks, vs), lo, lp in zip(pools, lora, lora_paged)]
+
+
+@dataclass
+class ShardRoute:
+    """One layer's tensor-parallel route (serving/tp.py). `caches[s]` is
+    shard s's own cache: its pools [num_pages, page_size, H_kv / mp, D]
+    (and scale pools) on its device, the step's operands sent there, and
+    with adapters its rows' LoRA pairs (Aq, Bq, Ak, Bk, Av, Bv, None,
+    None, scale) holding its columns of each B. `weights[s]` are its runs
+    of the attention input projections, {projection name: (weight rows,
+    bias)}. `counts` is the step's transfer record, shared by every layer
+    (`serving.tp.new_transfer_counts`)."""
+
+    caches: tuple
+    weights: tuple
+    counts: dict
+
+
+def attend_shards(x: torch.Tensor, cache: DecodeCache, project
+                  ) -> Tuple[torch.Tensor, DecodeCache]:
+    """The paged branch over a sharded cache: for each shard, send x
+    [b, l, h] to its device, take (q, k, v) of its heads from
+    `project(xs, weights, shard_cache)`, write and walk its pools through
+    `update_and_attend`; then concatenate the outputs over the head axis
+    on x's device (the layer's one all-gather). Returns (out [b, l, H, D],
+    the cache with pos advanced as `update_and_attend` advances it)."""
+    route = cache.shards
+    outs = []
+    for c, w in zip(route.caches, route.weights):
+        q, k, v = project(x.to(c.k.device), w, c)
+        outs.append(update_and_attend(q, k, v, c)[0])
+    route.counts["broadcast"] += 1
+    route.counts["all_gather"] += 1
+    out = torch.cat([o.to(x.device) for o in outs], dim=2)
+    step = cache.q_len if cache.q_len is not None else x.shape[1]
+    return out, dataclasses.replace(cache, pos=cache.pos + step)
+
+
+def _to(t, dev):
+    """A step operand on `dev` (None and Python scalars pass through)."""
+    return t.to(dev) if torch.is_tensor(t) else t
+
+
+class ShardedPools:
+    """A tensor-parallel engine's per-layer pools and projection runs
+    (serving/tp.py), in place of the (k, v, k_scale, v_scale) list:
+    `pools[s][i]` is layer i's tuple of shard s, on `devices[s]`;
+    `weights[s][i]` shard s's {projection name: (weight rows, bias)} of
+    layer i; `adapter_cols[s][i]`, with adapters, shard s's (Aq, Bq, Ak,
+    Bk, Av, Bv) of layer i (A replicated, B its columns); `counts` the
+    step's transfer record."""
+
+    def __init__(self, devices, pools, weights, counts: dict,
+                 adapter_cols=None):
+        self.devices = list(devices)
+        self.pools = pools
+        self.weights = weights
+        self.counts = counts
+        self.adapter_cols = adapter_cols
+
+    def __len__(self) -> int:
+        return len(self.pools[0])
+
+    def caches(self, pos, page_table: Optional[torch.Tensor] = None,
+               q_len: Optional[torch.Tensor] = None, group=None,
+               attn_impl: Optional[str] = None, lora=None
+               ) -> List[DecodeCache]:
+        """The step's per-layer lead caches, each carrying its
+        `ShardRoute`; the operands (positions, page table, query counts,
+        group triple) are sent to each shard's device once for every
+        layer. `lora`, (the lead's adapter pools, apage [S] int32, ascale
+        [S] f32), gathers each layer's o-projection pair on the lead and
+        each shard's q/k/v pairs on its device."""
+        n = len(self)
+        lead_lora = [None] * n
+        shard_ops = []
+        for s, dev in enumerate(self.devices):
+            ops = [_to(pos, dev), _to(page_table, dev), _to(q_len, dev),
+                   None if group is None else tuple(_to(g, dev)
+                                                    for g in group)]
+            lo = [None] * n
+            if lora is not None:
+                idx = _to(lora[1].to(torch.int64), dev)
+                sc = _to(lora[2], dev)
+                lo = [tuple(t[idx] for t in cols) + (None, None, sc)
+                      for cols in self.adapter_cols[s]]
+            shard_ops.append((ops, lo))
+        if lora is not None:
+            idx = lora[1].to(torch.int64)
+            lead_lora = [(None,) * 6 + (layer[6][idx], layer[7][idx],
+                                        lora[2])
+                         for layer in lora[0]]
+        out = []
+        for i in range(n):
+            route = ShardRoute(
+                tuple(DecodeCache(k, v, ops[0], ops[1], ops[2], ops[3], ks,
+                                  vs, attn_impl, lo[i])
+                      for (k, v, ks, vs), (ops, lo) in zip(
+                          (p[i] for p in self.pools), shard_ops)),
+                tuple(w[i] for w in self.weights), self.counts)
+            out.append(DecodeCache(None, None, pos, page_table, q_len,
+                                   group, None, None, attn_impl,
+                                   lead_lora[i], shards=route))
+        return out
 
 
 def decode_model_step(model, tokens: torch.Tensor, caches):

@@ -64,7 +64,8 @@ from ..distributed.fleet.utils import recompute
 from ..nn import LayerNorm
 from ..nn import functional as PF
 from ..ops.cuda.paged_attention import lora_delta, lora_delta_paged
-from .generation import DecodeCache, generate, update_and_attend
+from .generation import (DecodeCache, attend_shards, generate,
+                         update_and_attend)
 
 __all__ = ["GPTConfig", "GPTModel", "GPTForCausalLM"]
 
@@ -96,12 +97,17 @@ class GPTConfig:
 def _linear(mod: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     """mod(x), in the promoted dtype of x and the weights when they
     differ (jnp's promotion: the weights upcast exactly)."""
-    w = mod.weight
+    return linear_wb(x, mod.weight, mod.bias)
+
+
+def linear_wb(x: torch.Tensor, w: torch.Tensor,
+              b: Optional[torch.Tensor]) -> torch.Tensor:
+    """F.linear(x, w, b) with `_linear`'s promotion: also a shard's run
+    of a projection's output features (serving/tp.py)."""
     if x.dtype == w.dtype:
-        return F.linear(x, w, mod.bias)
+        return F.linear(x, w, b)
     ct = torch.promote_types(x.dtype, w.dtype)
-    return F.linear(x.to(ct), w.to(ct),
-                    None if mod.bias is None else mod.bias.to(ct))
+    return F.linear(x.to(ct), w.to(ct), None if b is None else b.to(ct))
 
 
 class GPTAttention(nn.Module):
@@ -122,6 +128,8 @@ class GPTAttention(nn.Module):
         one: (output, advanced cache) through the paged step, with the
         cache's LoRA deltas (module doc)."""
         b, l, h = x.shape
+        if cache is not None and cache.shards is not None:
+            return self._forward_shards(x, cache)
         qkv = _linear(self.qkv_proj, x).view(b, l, self.num_heads,
                                              3 * self.head_dim)
         q, k, v = qkv.split(self.head_dim, dim=-1)
@@ -146,6 +154,35 @@ class GPTAttention(nn.Module):
             q, k, v, dropout_p=self.dropout, is_causal=True,
             training=self.training, generator=generator)
         return self.out_proj(out.reshape(b, l, h))
+
+    def _shard_qkv(self, x: torch.Tensor, weights: dict,
+                   cache: DecodeCache) -> tuple:
+        """A shard's (q, k, v) [b, l, H / mp, D]: its run of qkv_proj's
+        columns (q, k and v interleaved per head, so a run of whole
+        heads) plus its rows' LoRA deltas over its columns of B."""
+        b, l, _ = x.shape
+        qkv = linear_wb(x, *weights["qkv_proj"])
+        heads = qkv.shape[-1] // (3 * self.head_dim)
+        q, k, v = qkv.view(b, l, heads, 3 * self.head_dim).split(
+            self.head_dim, dim=-1)
+        if cache.lora is not None:
+            aq, bq, ak, bk, av, bv, _, _, sc = cache.lora
+            q = q + lora_delta(x, aq, bq, sc).reshape(q.shape)
+            k = k + lora_delta(x, ak, bk, sc).reshape(k.shape)
+            v = v + lora_delta(x, av, bv, sc).reshape(v.shape)
+        return q, k, v
+
+    def _forward_shards(self, x: torch.Tensor, cache: DecodeCache):
+        """The paged step over a sharded cache (serving/tp.py): the
+        shards' heads through `attend_shards`, then the replicated output
+        projection and its LoRA delta on the lead device."""
+        b, l, h = x.shape
+        out, cache = attend_shards(x, cache, self._shard_qkv)
+        out = out.reshape(b, l, h)
+        o = _linear(self.out_proj, out)
+        if cache.lora is not None:
+            o = o + lora_delta(out, *cache.lora[6:])
+        return o, cache
 
 
 class GPTMLP(nn.Module):

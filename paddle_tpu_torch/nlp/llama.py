@@ -53,8 +53,9 @@ from ..distributed.fleet.utils import recompute
 from ..nn import RMSNorm
 from ..nn import functional as PF
 from ..ops.cuda.paged_attention import lora_delta, lora_delta_paged
-from .generation import DecodeCache, generate, update_and_attend
-from .gpt import _linear
+from .generation import (DecodeCache, attend_shards, generate,
+                         update_and_attend)
+from .gpt import _linear, linear_wb
 
 __all__ = ["LlamaConfig", "LlamaModel", "LlamaForCausalLM", "apply_rotary",
            "rope_tables"]
@@ -154,8 +155,10 @@ class LlamaAttention(nn.Module):
         `DecodeCache`, or an eager (k, v) tuple [b, L, H_kv, D]: (output,
         advanced cache)."""
         b, l, _ = x.shape
-        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         decode = isinstance(cache, DecodeCache)
+        if decode and cache.shards is not None:
+            return self._forward_shards(x, rope, cache)
+        q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         lora = cache.lora if decode else None
         lora_paged = cache.lora_paged if decode else None
         if lora is not None:
@@ -192,6 +195,38 @@ class LlamaAttention(nn.Module):
                                               training=self.training)
         out = self.o_proj(out.reshape(b, l, self.n_heads * self.head_dim))
         return out if cache is None else (out, cache)
+
+    def _forward_shards(self, x: torch.Tensor, rope: RopeTables,
+                        cache: DecodeCache):
+        """The paged step over a sharded cache (serving/tp.py): each
+        shard projects its H / mp query and H_kv / mp kv heads (with its
+        rows' LoRA deltas over its columns of B) and rotates them with
+        the rope tables sent along with x; `attend_shards` writes, walks
+        and gathers; the output projection and its delta run on the lead
+        device."""
+        b, l, _ = x.shape
+        d = self.head_dim
+
+        def project(xs, weights, c):
+            q = linear_wb(xs, *weights["q_proj"])
+            k = linear_wb(xs, *weights["k_proj"])
+            v = linear_wb(xs, *weights["v_proj"])
+            if c.lora is not None:
+                aq, bq, ak, bk, av, bv, _, _, sc = c.lora
+                q = q + lora_delta(xs, aq, bq, sc)
+                k = k + lora_delta(xs, ak, bk, sc)
+                v = v + lora_delta(xs, av, bv, sc)
+            tables = tuple(t.to(xs.device) for t in rope)
+            q = _rotate(q.view(b, l, -1, d), tables)
+            k = _rotate(k.view(b, l, -1, d), tables)
+            return q, k, v.view(b, l, -1, d)
+
+        out, cache = attend_shards(x, cache, project)
+        out = out.reshape(b, l, self.n_heads * d)
+        o = self.o_proj(out)
+        if cache.lora is not None:
+            o = o + lora_delta(out, *cache.lora[6:])
+        return o, cache
 
 
 class LlamaMLP(nn.Module):

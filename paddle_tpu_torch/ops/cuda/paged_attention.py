@@ -1016,7 +1016,8 @@ def ragged_plan(q: torch.Tensor, k_pool: torch.Tensor) -> dict:
 
 # -- K10: the grouped walk ----------------------------------------------------
 def count_page_block_reads(page_table, pos, q_len, group_id=None,
-                           group_cnt=None, *, page_size, fused=None):
+                           group_cnt=None, *, page_size, n_kv=1, mp=1,
+                           fused=None):
     """Host-side (numpy) model of the page-block reads of ONE
     (kv head, layer) walk: the number the serving metrics report. Per
     live row (q_len > 0) the per-row walk reads its pages
@@ -1025,6 +1026,12 @@ def count_page_block_reads(page_table, pos, q_len, group_id=None,
     (flat_reads, grouped_reads, group_sizes), group_sizes listing the
     member count of every group that shares (>= 2 live members); without
     group operands grouped_reads == flat_reads.
+
+    Tensor-parallel serving (serving/tp.py): with the model's `n_kv` and
+    the mesh's `mp` the counts are what ONE shard issues a layer — its
+    n_kv / mp local heads' walks, each block a 1/mp slice of a page — so
+    a shard's reads, and the reads the grouped walk saves it, drop by mp.
+    The defaults (n_kv 1, mp 1) give the single walk's numbers.
 
     `fused=` (the megakernel's referee, the cost census's page-walk
     record): {"head_dim": D, "kv_elt": bytes a KV element, "scale_elt":
@@ -1035,15 +1042,14 @@ def count_page_block_reads(page_table, pos, q_len, group_id=None,
     walk's K and V stream and the new tokens' write; the unfused one
     also pays their f32 K/V staged between the projection and the
     scatter, and gathers the adapter page per projection (3 x
-    lora_bytes) where the fused prologue streams it once. (The JAX
-    function's `n_kv`/`mp` arguments belong to tensor parallelism,
-    which is not ported: one chip, every head.)"""
+    lora_bytes) where the fused prologue streams it once."""
     pos = np.asarray(pos, np.int64)
     q_len = np.asarray(q_len, np.int64)
     ps = int(page_size)
     live = q_len > 0
     row_pages = np.where(live, (pos + np.maximum(q_len, 1) - 1) // ps + 1,
                          0)
+    local_heads = max(1, int(n_kv) // max(1, int(mp)))
     flat = int(row_pages.sum())
     grouped = flat
     sizes = []
@@ -1061,6 +1067,8 @@ def count_page_block_reads(page_table, pos, q_len, group_id=None,
             grouped += int((row_pages[members] - shared).sum())
             if members.size >= 2 and shared > 0:
                 sizes.append(int(members.size))
+    flat *= local_heads
+    grouped *= local_heads
     if fused is None:
         return flat, grouped, sizes
     d = int(fused["head_dim"])
@@ -1069,8 +1077,8 @@ def count_page_block_reads(page_table, pos, q_len, group_id=None,
     lora_bytes = int(fused.get("lora_bytes", 0))
     attn = grouped * ps * (d * kv_elt + scale_elt) * 2
     new_tokens = int(q_len[live].sum())
-    write = new_tokens * (d * kv_elt + scale_elt) * 2
-    stage = new_tokens * d * 4 * 2
+    write = new_tokens * local_heads * (d * kv_elt + scale_elt) * 2
+    stage = new_tokens * local_heads * d * 4 * 2
     return flat, grouped, sizes, {
         "unfused": attn + write + stage + 3 * lora_bytes,
         "fused": attn + write + lora_bytes}

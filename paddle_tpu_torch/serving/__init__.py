@@ -6,7 +6,7 @@ paged KV pool (counterpart of `paddle_tpu.serving`).
 prefill-chunk and decode step) with the JAX engine's defaults: the radix prefix cache, the grouped walk (K10),
 overload preemption and a host tier of `num_pages - 1` pages, under the
 same gates (`PADDLE_TPU_GROUPED_ATTN`, `PADDLE_TPU_PREEMPT`). See
-`serving/engine.py` for what is not ported yet. The pools hold the
+`serving/engine.py`. The pools hold the
 model's dtype, int8 codes with scales or float8 e4m3 (`kv_dtype`, gate
 `PADDLE_TPU_KV_DTYPE`, `resolve_kv_dtype`). Multi-tenant LoRA adapters
 (`serving.adapters`, gate `PADDLE_TPU_ADAPTERS`) and the decode
@@ -29,7 +29,9 @@ pump thread of its own, and `serving.http` fronts engines with the router
 the KV fabric's hand-off and warm restart) and the HTTP server (`serve`);
 the fleet control plane (`serving.controlplane`, gate
 `PADDLE_TPU_CONTROLPLANE`) makes placement SLO-aware, sheds
-deadline-infeasible requests and resizes the fleet.
+deadline-infeasible requests and resizes the fleet. Tensor-parallel
+serving (`serving.tp`, gate `PADDLE_TPU_MESH=dpXmpY`) splits one engine's
+pools and attention heads over mp shards.
 """
 from .adapters import (ADAPTER_PROJS, BASE_ADAPTER, AdapterStore,
                        LoRAWeights, make_random_lora, resolve_adapters_flag)
@@ -63,6 +65,8 @@ from .slo import (SLOConfig, SLOTracker, model_cost_census,
                   resolve_cost_census, resolve_slo_config)
 from .spec import (SPEC_DECODE_ENV, SPEC_MODES, Drafter, ModelDrafter,
                    NgramDrafter, SpecConfig, resolve_spec_config)
+from .tp import (ServingTP, collective_counts, parse_mesh_spec,
+                 resolve_serving_mesh)
 
 __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "legacy_forward", "embed_forward",
@@ -92,4 +96,5 @@ __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "resolve_grammar_flag", "ControlPlaneConfig", "FleetController",
            "FleetSignals", "Decision", "DeadlineInfeasible",
            "resolve_controlplane", "parse_controlplane_spec",
-           "slo_placement_rank"]
+           "slo_placement_rank", "ServingTP", "collective_counts",
+           "parse_mesh_spec", "resolve_serving_mesh"]

@@ -27,6 +27,14 @@ engine serves them as operand data, not as weight swaps:
   `lora_delta`, or whole pools for the megakernel's `lora_delta_paged`,
   K11), so a batch mixing tenants and base rows is one step.
 
+Tensor-parallel serving (`tp=`, the engine's `ServingTP`): each shard
+also holds its own (Aq, Bq, Ak, Bk, Av, Bv) per layer (`shard_cols`):
+the A pools replicated on its device (the lead's own tensors where the
+shard shares it) and its columns of each B pool, the output features of
+its heads, so the q/k/v deltas add shard-locally (the JAX
+`place_adapter_col`); the lead's `pools` then hold no q/k/v B pool (None
+there), and the o-projection's pair stays on the lead.
+
 An upload writes a page of every pool tensor with in-place copies.
 `LoRAWeights` holds numpy arrays, as in the JAX package, so one adapter
 registers the same arrays in both. The pools hold the engine's dtype:
@@ -154,7 +162,7 @@ class AdapterStore:
                  *, num_pages: int = 9,
                  rank_buckets: Sequence[int] = (2, 4, 8),
                  dtype: torch.dtype = torch.float32, device=None,
-                 host_pages: Optional[int] = None):
+                 host_pages: Optional[int] = None, tp=None):
         self.n_layers = int(n_layers)
         self.hidden = int(hidden)
         self.q_out = int(q_out)
@@ -183,12 +191,26 @@ class AdapterStore:
         P, R = self.num_pages, self.rank
         zeros = lambda *shape: torch.zeros(shape, dtype=dtype,
                                            device=self.device)
-        self.pools = tuple(
-            (zeros(P, self.hidden, R), zeros(P, R, self.q_out),
-             zeros(P, self.hidden, R), zeros(P, R, self.kv_out),
-             zeros(P, self.hidden, R), zeros(P, R, self.kv_out),
-             zeros(P, self.q_out, R), zeros(P, R, self.hidden))
-            for _ in range(self.n_layers))
+        pools = [(zeros(P, self.hidden, R), zeros(P, R, self.q_out),
+                  zeros(P, self.hidden, R), zeros(P, R, self.kv_out),
+                  zeros(P, self.hidden, R), zeros(P, R, self.kv_out),
+                  zeros(P, self.q_out, R), zeros(P, R, self.hidden))
+                 for _ in range(self.n_layers)]
+        self.tp = tp
+        self.shard_cols = None
+        if tp is not None:
+            # per shard, per layer (Aq, Bq, Ak, Bk, Av, Bv): A replicated,
+            # B split over its output columns (whole heads)
+            self.shard_cols = [[] for _ in tp.devices]
+            for layer in pools:
+                split = [tp.replicate(t) if i % 2 == 0
+                         else tp.place_adapter_col(t)
+                         for i, t in enumerate(layer[:6])]
+                for s in range(tp.mp):
+                    self.shard_cols[s].append(tuple(p[s] for p in split))
+            pools = [(aq, None, ak, None, av, None, ao, bo)
+                     for aq, _, ak, _, av, _, ao, bo in pools]
+        self.pools = tuple(pools)
 
     # -- registry ----------------------------------------------------------
     def bucket_for(self, rank: int) -> int:
@@ -272,11 +294,19 @@ class AdapterStore:
     def _upload(self, rec: _Adapter, page: int):
         """Write the adapter's payload into page `page` of every pool
         tensor, in place."""
-        i = 0
-        for layer in self.pools:
-            for t in layer:
-                t[page].copy_(torch.from_numpy(rec.payload[i]).to(t.dtype))
-                i += 1
+        for li, layer in enumerate(self.pools):
+            for j, t in enumerate(layer):
+                src = torch.from_numpy(rec.payload[8 * li + j])
+                if t is not None:
+                    t[page].copy_(src.to(t.dtype))
+                if self.shard_cols is None or j >= 6:
+                    continue
+                parts = ([src] * self.tp.mp if j % 2 == 0
+                         else src.chunk(self.tp.mp, dim=1))
+                for cols, part in zip(self.shard_cols, parts):
+                    dst = cols[li][j]
+                    if dst is not t:
+                        dst[page].copy_(part.to(dst.dtype))
 
     # -- residency (the paged-pool lifecycle) -------------------------------
     def _free_one_page(self) -> bool:

@@ -218,12 +218,21 @@ checks the frame's geometry whole, then grafts it into the tree (pages
 allocated by spilling, never evicting); `export_prefix_state` and
 `import_prefix_state` carry the whole tree for a warm restart.
 
+Tensor-parallel serving (`mesh=`, gate PADDLE_TPU_MESH=dpXmpY, default
+off; `serving.tp`): every layer's pools split over their kv-head axis into
+one contiguous pool per shard, the attention input projections into runs
+of whole heads, and the paged branch runs per shard
+(`nlp.generation.attend_shards`) with the step's operands sent once to
+each shard's device; the rest of the model and every host layer stay
+single copies on the engine's device. Whole-page moves (COW, swap,
+spill, the embed lane's save and restore, the KV fabric's frames) carry
+every shard's head slice: a payload is laid out as the mp = 1 engine's.
+The megakernel is off under a mesh (the JAX rule) and the draft model
+stays unsharded. `collective_counts()` reads the last unified step's
+counted transfers: one all-gather a layer, no all-reduce.
+
 Gates are resolved at construction as the JAX engine resolves them
-(`prefix_cache=None` follows PADDLE_TPU_PREFIX_CACHE, default on). The
-gate of the feature not ported yet — `mesh` (PADDLE_TPU_MESH) — is
-parsed with the JAX package's rules (a bad spelling raises ValueError)
-and raises NotImplementedError, naming the ROADMAP item, when a keyword
-or an environment variable turns it on.
+(`prefix_cache=None` follows PADDLE_TPU_PREFIX_CACHE, default on).
 """
 from __future__ import annotations
 
@@ -238,8 +247,8 @@ import numpy as np
 import torch
 
 from ..core.device import DeviceLike, make_generator, resolve_device
-from ..nlp.generation import (_categorical, _top_p_filter, _unpack_caches,
-                              resolve_paged_attn_impl)
+from ..nlp.generation import (ShardedPools, _categorical, _top_p_filter,
+                              _unpack_caches, resolve_paged_attn_impl)
 from ..ops.cuda.paged_attention import (FP8_DTYPE, _as_bytes,
                                         count_page_block_reads,
                                         decode_greedy_argmax,
@@ -262,65 +271,18 @@ from .scheduler import Scheduler
 from .slo import (SLOTracker, capture_cost_census, model_cost_census,
                   resolve_cost_census, resolve_slo_config)
 from .spec import Drafter, ModelDrafter, resolve_spec_config
+from .tp import collective_counts, new_transfer_counts, resolve_serving_mesh
 
 __all__ = ["ServingEngine", "unified_forward", "verify_forward",
            "legacy_forward", "embed_forward",
            "resolve_grouped_flag", "resolve_preempt_flag",
-           "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES",
-           "resolve_unported_gates"]
+           "resolve_unified_flag", "resolve_kv_dtype", "KV_DTYPE_MODES"]
 
 KV_DTYPE_MODES = ("fp", "int8", "fp8")
 # finish reason -> the terminal timeline event (the rest keep their name)
 _TERMINAL_EVENT = {"stop": "finish", "length": "finish",
                    "deadline": "deadline", "poisoned": "poison",
                    "replica_failure": "replica_death"}
-_ROADMAP_SERVING = "ROADMAP.md, queue 1, item 6"
-_MESH_RE = re.compile(r"^dp(\d+)x?mp(\d+)$")
-
-
-def _mesh_on(override) -> bool:
-    """PADDLE_TPU_MESH / mesh= (the JAX `resolve_serving_mesh`): '' or
-    'off' (the default) or False is single-device; a 'dpXmpY' spec, a
-    (dp, mp) pair or a mesh object turns tensor parallelism on."""
-    if override is False:
-        return False
-    spec = override if override is not None else \
-        os.environ.get("PADDLE_TPU_MESH", "off")
-    if not isinstance(spec, str):
-        return True
-    spec = spec.strip()
-    if override is None and spec in ("", "off"):
-        return False
-    m = _MESH_RE.match(spec.lower())
-    if m is None or int(m.group(1)) < 1 or int(m.group(2)) < 1:
-        raise ValueError(f"mesh spec must look like 'dp2mp4' "
-                         f"(PADDLE_TPU_MESH / ServingEngine(mesh=...)), got "
-                         f"{spec!r}")
-    return True
-
-
-# gate -> (its resolver, what it serves)
-_UNPORTED_GATES = {
-    "mesh": (_mesh_on, "tensor-parallel serving (PADDLE_TPU_MESH)"),
-}
-
-
-def resolve_unported_gates(**overrides):
-    """Resolve the JAX engine's gates of features the port lacks (mesh),
-    each from its keyword or,
-    when that is None, its environment variable, by the JAX rules: a bad
-    spelling raises ValueError, and a gate that comes out on raises
-    NotImplementedError naming the ROADMAP item."""
-    for name, (resolve, what) in _UNPORTED_GATES.items():
-        value = overrides.get(name)
-        if resolve(value):
-            source = (f"ServingEngine({name}={value!r})" if value is not None
-                      else "its environment variable")
-            raise NotImplementedError(
-                f"{what} is not ported yet ({_ROADMAP_SERVING}); "
-                f"{source} turns it on")
-
-
 def _resolve_on_off(override, env: str) -> bool:
     if override is not None:
         return bool(override)
@@ -437,6 +399,10 @@ def _backbone(model, pools, tokens, pos, page_table, q_len, group,
     """The unified step's trunk: tokens [S, W] through the model's
     backbone over the per-layer pools (written in place); the hidden
     states [S, W, h]. See `unified_forward` for the operands."""
+    if isinstance(pools, ShardedPools):
+        caches = pools.caches(pos, page_table, q_len, group, attn_impl, lora)
+        h, _ = model_backbone(model)(tokens, caches=caches)
+        return h
     lora_layers = lora_paged = None
     if lora is not None:
         apools, apage, ascale = lora
@@ -590,7 +556,6 @@ class ServingEngine:
                  flight_steps: Optional[int] = None, slo=None,
                  cost_census=None, draft_pages: Optional[int] = None,
                  session_ttl_s: float = 30.0):
-        resolve_unported_gates(mesh=mesh)
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model is on {model.device}, engine on "
@@ -604,6 +569,28 @@ class ServingEngine:
             cache_spec = model._decode_cache_spec()
         self.model = model
         self.n_layers, self.n_kv, self.head_dim = cache_spec
+        # tensor parallelism (serving.tp): None, or the mesh whose mp
+        # shards split every pool's kv heads and the q/k/v projections'
+        # heads; checked against the model before anything is placed
+        self.tp = resolve_serving_mesh(mesh)
+        self.mp = self.tp.mp if self.tp is not None else 1
+        self.dp = self.tp.dp if self.tp is not None else 1
+        if self.tp is not None:
+            cfgm = getattr(model, "config", None)
+            self.tp.validate_geometry(
+                n_kv=self.n_kv,
+                n_heads=int(getattr(cfgm, "num_attention_heads",
+                                    self.n_kv)),
+                hidden=int(getattr(cfgm, "hidden_size",
+                                   self.n_kv * self.head_dim)))
+            off = [d for d in self.tp.devices if d.type != self.device.type]
+            if off:
+                raise ValueError(
+                    f"serving mesh {self.tp.shape} lies on {off[0]}, the "
+                    f"engine on {self.device}; pass ServingTP(dp, mp, "
+                    f"devices=[...]) on the engine's device type")
+        # mp 1 runs the single-device path: there is nothing to gather
+        self._sharded = self.mp > 1
         self.num_slots = int(num_slots)
         self.max_len = int(max_len)
         max_pos = getattr(getattr(model, "config", None),
@@ -670,10 +657,11 @@ class ServingEngine:
         self.grouped = (resolve_grouped_flag(grouped) and self.unified
                         and self.attn_impl == "kernel")
         self.preempt = resolve_preempt_flag(preempt)
-        # the decode megakernel: the unified kernel step only, dropped
-        # silently elsewhere (the JAX engine's rule)
+        # the decode megakernel: the unified kernel step off a mesh only,
+        # dropped silently elsewhere (the JAX engine's rule)
         self.megakernel = (resolve_megakernel_flag(megakernel)
-                           and self.unified and self.attn_impl == "kernel")
+                           and self.unified and self.attn_impl == "kernel"
+                           and self.tp is None)
         self.metrics = metrics or ServingMetrics()
         self.metrics.grouped = self.grouped
         self.metrics.megakernel = self.megakernel
@@ -690,14 +678,41 @@ class ServingEngine:
         # pools, per-slot held logits. Every pool is zero-initialised,
         # scale pools too: the trash page dequantizes to exactly 0
         self.kv_dtype = resolve_kv_dtype(kv_dtype)
-        self._pools = [self._new_pools() for _ in range(self.n_layers)]
-        # the tensors a whole-page move carries, as per-layer (k, v)
-        # pairs of one shape: the pools (e4m3 ones as their bytes) and,
-        # for int8, the scale pools — a page and its scales are one unit
-        self._planes = [[(_as_bytes(k), _as_bytes(v))
-                         for k, v, _, _ in self._pools]]
-        if self.kv_dtype == "int8":
-            self._planes.append([(ks, vs) for _, _, ks, vs in self._pools])
+        # the step's cross-shard transfers, counted by the shard route,
+        # and those of the last unified step (`collective_counts()`)
+        self._transfers = new_transfer_counts()
+        self._step_transfers: Optional[dict] = None
+        layers = [self._new_pools() for _ in range(self.n_layers)]
+        if self._sharded:
+            # one contiguous pool per shard and layer, H_kv / mp heads
+            # each (the walks and scatters take contiguous pools only)
+            shard_pools = [[] for _ in range(self.mp)]
+            for k, v, ks, vs in layers:
+                split = [self.tp.place_pool(k), self.tp.place_pool(v),
+                         *(self.tp.place_scale(t) if t is not None
+                           else [None] * self.mp for t in (ks, vs))]
+                for s in range(self.mp):
+                    shard_pools[s].append(tuple(part[s] for part in split))
+            del layers
+            self._pools = ShardedPools(
+                self.tp.devices, shard_pools,
+                self._shard_weights(model), self._transfers)
+        else:
+            shard_pools = [layers]
+            self._pools = layers
+        # the tensors a whole-page move carries, per shard: per-layer
+        # (k, v) pairs of one shape, the pools (e4m3 ones as their bytes)
+        # and, for int8, the scale pools — a page and its scales are one
+        # unit. A shard's planes hold its kv-head slice of every page
+        self._shard_planes = []
+        for pools in shard_pools:
+            planes = [[(_as_bytes(k), _as_bytes(v)) for k, v, _, _ in pools]]
+            if self.kv_dtype == "int8":
+                planes.append([(ks, vs) for _, _, ks, vs in pools])
+            self._shard_planes.append(planes)
+        # every shard's planes in one list (COW, the embed lane)
+        self._planes = [plane for planes in self._shard_planes
+                        for plane in planes]
         # device bytes one page costs across all layers, K and V (codes
         # and scales for int8; fp8 one byte an element): the JAX engine's
         # formula, the unit of the byte gauges
@@ -708,8 +723,13 @@ class ServingEngine:
                            * (self.head_dim * kv_item + scale_bytes))
         self.metrics.kv_dtype = self.kv_dtype
         self.metrics.pool_bytes_per_page = self.page_bytes
-        # one device: the JAX engine's values at mp = dp = 1
-        self.metrics.pool_shard_bytes_per_page = self.page_bytes
+        # per-shard page cost: each of the mp shards holds a 1/mp kv-head
+        # slice of every page
+        self.page_bytes_per_chip = self.page_bytes // self.mp
+        self.metrics.mesh = None if self.tp is None else self.tp.shape
+        self.metrics.mp = self.mp
+        self.metrics.dp = self.dp
+        self.metrics.pool_shard_bytes_per_page = self.page_bytes_per_chip
         self.metrics.grammar = self.grammar_on
         self.metrics.step_capacity_tokens = self.num_slots * self.chunk_len
         self._last_logits = torch.zeros(
@@ -737,9 +757,15 @@ class ServingEngine:
                 num_pages=(8 if adapter_pages is None
                            else int(adapter_pages)) + 1,
                 rank_buckets=adapter_ranks or (2, 4, 8), dtype=model.dtype,
-                device=self.device)
+                device=self.device, tp=self.tp if self._sharded else None)
         else:
             self.adapters = None
+        if self._sharded and self.adapters is not None:
+            if self.adapters.shard_cols is None:
+                raise ValueError(
+                    "a mesh engine's AdapterStore must be built with "
+                    "tp= (its q/k/v B pools split over the shards)")
+            self._pools.adapter_cols = self.adapters.shard_cols
         # per-slot adapter operands: pool page and LoRA scale (page 0 and
         # scale 0 for base-model and idle rows)
         self._apage = np.zeros((self.num_slots,), np.int32)
@@ -836,6 +862,23 @@ class ServingEngine:
         # flight record
         self._round_stats = self._new_round_stats()
 
+    def _shard_weights(self, model) -> list:
+        """Per shard, per layer, {projection name: (weight rows, bias)}:
+        the engine's copies of the shard's runs of the attention input
+        projections (`ServingTP.place_state`)."""
+        out = []
+        for placed in self.tp.place_state(model):
+            layers = [dict() for _ in range(self.n_layers)]
+            for name, t in placed.items():
+                m = re.search(r"layers\.(\d+)\..*?(\w+_proj)\.(weight|bias)$",
+                              name)
+                proj = layers[int(m.group(1))].setdefault(m.group(2),
+                                                          [None, None])
+                proj[0 if m.group(3) == "weight" else 1] = t
+            out.append([{k: tuple(v) for k, v in layer.items()}
+                        for layer in layers])
+        return out
+
     def _new_pools(self) -> tuple:
         """One layer's zeroed (k, v, k_scale | None, v_scale | None)."""
         shape = (self.num_pages, self.page_size, self.n_kv, self.head_dim)
@@ -856,7 +899,7 @@ class ServingEngine:
         return {"prefill_tokens": 0, "decode_tokens": 0, "draft_tokens": 0,
                 "accepted_tokens": 0, "draft_seed_tokens": 0,
                 "reads_saved": 0, "constrained_rows": 0,
-                "grammar_rejected": 0, "wall_s": 0.0}
+                "grammar_rejected": 0, "collectives": 0, "wall_s": 0.0}
 
     def _obs_event(self, req: Request, kind: str, **detail):
         """Record one request-timeline event (a no-op with obs off)."""
@@ -951,7 +994,7 @@ class ServingEngine:
             num_slots=self.num_slots, chunk_len=self.chunk_len,
             max_pages=self.max_pages, page_bytes=self.page_bytes,
             n_heads=int(getattr(cfg, "num_attention_heads", self.n_kv)),
-            head_dim=self.head_dim, page_size=self.page_size)
+            head_dim=self.head_dim, page_size=self.page_size, mp=self.mp)
         counted = self._census_counted
         self._census = capture_cost_census(
             self.census_mode, self._census_forward if counted else None,
@@ -1439,33 +1482,49 @@ class ServingEngine:
         of CPU tensors (views of tensors allocated here): the codes
         [n_layers, 2, page_size, H_kv, D] (e4m3 ones as bytes) and, for
         int8, the scales [n_layers, 2, page_size, H_kv], gathered with
-        one index_select per pool. From the card the copy lands in pinned
-        memory without blocking the host; the stream orders it before any
-        later write of the pages and before the copies that restore
-        them."""
+        one index_select per pool; on a mesh each shard's head slice is
+        gathered to the engine's device and concatenated over the head
+        axis, so a payload is the mp = 1 engine's. From the card the copy
+        lands in pinned memory without blocking the host; the stream
+        orders it before any later write of the pages and before the
+        copies that restore them."""
         if not pages:
             return []
         with RecordEvent(f"serving::swap_out[{len(pages)}]"):
-            idx = torch.tensor(pages, dtype=torch.int64, device=self.device)
-            blocks = [torch.stack([torch.stack((k.index_select(0, idx),
-                                                v.index_select(0, idx)), 1)
-                                   for k, v in plane], 1)
+            per_shard = []
+            for planes in self._shard_planes:
+                dev = planes[0][0][0].device
+                idx = torch.tensor(pages, dtype=torch.int64, device=dev)
+                per_shard.append([
+                    torch.stack([torch.stack((k.index_select(0, idx),
+                                              v.index_select(0, idx)), 1)
+                                 for k, v in plane], 1).to(self.device)
+                    for plane in planes])
+            blocks = [(parts[0] if len(parts) == 1
+                       else torch.cat(parts, dim=4))
                       .to("cpu", non_blocking=True).unbind(0)
-                      for plane in self._planes]
+                      for parts in zip(*per_shard)]
             return list(zip(*blocks))
 
     def _restore_pages(self, payloads: List[tuple], dsts: List[int]):
         """Host -> device: write payloads of `_extract_pages` into device
         pages `dsts` of every layer's pools, one index_copy_ per pool."""
         with RecordEvent(f"serving::swap_in[{len(dsts)}]"):
-            idx = torch.tensor(dsts, dtype=torch.int64, device=self.device)
-            for p, plane in enumerate(self._planes):
+            for p in range(len(self._shard_planes[0])):
                 block = torch.stack([data[p].to(self.device,
                                                 non_blocking=True)
                                      for data in payloads])
-                for i, (k, v) in enumerate(plane):
-                    k.index_copy_(0, idx, block[:, i, 0])
-                    v.index_copy_(0, idx, block[:, i, 1])
+                # [n, n_layers, 2, page_size, H_kv(, D)]: a shard's
+                # slice of the head axis goes to its pools
+                parts = block.chunk(len(self._shard_planes), dim=4)
+                for planes, part in zip(self._shard_planes, parts):
+                    plane = planes[p]
+                    dev = plane[0][0].device
+                    part = part.to(dev).contiguous()
+                    idx = torch.tensor(dsts, dtype=torch.int64, device=dev)
+                    for i, (k, v) in enumerate(plane):
+                        k.index_copy_(0, idx, part[:, i, 0])
+                        v.index_copy_(0, idx, part[:, i, 1])
 
     def _extract_page(self, src: int) -> tuple:
         """One page of `_extract_pages`."""
@@ -2026,15 +2085,17 @@ class ServingEngine:
             [int(self._pt_host[slot, (n - 1) // self.page_size])
              for slot, n in zip(slots, plens)], dtype=torch.int64,
             device=dev)
+        planes = [(plane, written.to(plane[0][0].device))
+                  for plane in self._planes]
         with RecordEvent("serving::embed_epilogue"):
-            saved = [[(k.index_select(0, written), v.index_select(0, written))
-                      for k, v in plane] for plane in self._planes]
+            saved = [[(k.index_select(0, idx), v.index_select(0, idx))
+                      for k, v in plane] for plane, idx in planes]
             h = embed_forward(self.model, self._pools, tok, pos, table,
                               self.attn_impl)
-            for plane, copies in zip(self._planes, saved):
+            for (plane, idx), copies in zip(planes, saved):
                 for (k, v), (k0, v0) in zip(plane, copies):
-                    k.index_copy_(0, written, k0)
-                    v.index_copy_(0, written, v0)
+                    k.index_copy_(0, idx, k0)
+                    v.index_copy_(0, idx, v0)
             h = h.cpu().numpy()
         for (slot, req), row in zip(rows, h):
             req.embedding = row.copy()
@@ -2126,16 +2187,20 @@ class ServingEngine:
         fused = dict(head_dim=self.head_dim, kv_elt=kv_elt,
                      scale_elt=4 if self.kv_dtype == "int8" else 0,
                      lora_bytes=lora_rows * self._adapter_row_bytes)
+        # on a mesh the model counts what one shard issues a layer: its
+        # n_kv / mp heads' walks over its slices of the pages
+        shard = (dict(n_kv=self.n_kv, mp=self.mp) if self.tp is not None
+                 else {})
         groups = None
         if self.grouped:
             groups = shared_prefix_groups(self._pt_host, q_len)
             flat, reads, sizes, walk = count_page_block_reads(
                 self._pt_host, self._pos, q_len, groups[0], groups[2],
-                page_size=self.page_size, fused=fused)
+                page_size=self.page_size, fused=fused, **shard)
         else:
             flat, reads, sizes, walk = count_page_block_reads(
                 self._pt_host, self._pos, q_len, page_size=self.page_size,
-                fused=fused)
+                fused=fused, **shard)
         self.metrics.on_grouped_step(flat, reads, sizes)
         self._last_walk_bytes = {
             "unfused": int(walk["unfused"]) * self.n_layers,
@@ -2163,6 +2228,7 @@ class ServingEngine:
             toks = torch.from_numpy(tokens).to(dev)
             toks[:, 0] = torch.where(isd, nxt, toks[:, 0])
             pos = torch.from_numpy(self._pos).to(dev)
+            self._transfers.update(new_transfer_counts())
             if head is None:
                 self._last_logits = self._forward(
                     toks, pos, self._page_table(), ql, isd, group, lora)
@@ -2179,6 +2245,7 @@ class ServingEngine:
                     (nxt.to(torch.int64), accept.to(torch.int64))
                 ).cpu().numpy()
         wall = time.perf_counter() - t0
+        self._step_transfers = dict(self._transfers)
         self.step_tokens_inflight = 0
         self._beat()
         if head is None:
@@ -2195,6 +2262,7 @@ class ServingEngine:
         rs["decode_tokens"] += len(decode_slots)
         rs["draft_tokens"] += n_drafts
         rs["wall_s"] += wall
+        rs["collectives"] += self._step_collectives()
         embed_rows = []
         for slot, take in grants.items():
             req = running[slot]
@@ -2271,6 +2339,7 @@ class ServingEngine:
         self._prefill_cursor[req.request_id] = cursor + real
         self.metrics.on_prefill_chunk(real, wall_s=wall)
         self._round_stats["prefill_tokens"] += real
+        self._round_stats["collectives"] += self._step_collectives()
         self._obs_event(req, "prefill_chunk", tokens=real,
                         cursor=cursor + real)
 
@@ -2335,6 +2404,7 @@ class ServingEngine:
         self.metrics.on_decode_step(wall)
         self._round_stats["decode_tokens"] += int(active.sum())
         self._round_stats["wall_s"] += wall
+        self._round_stats["collectives"] += self._step_collectives()
         self._emit_tokens(np.nonzero(active)[0], nxt, finished)
 
     def _run_round(self, finished: List[RequestOutput],
@@ -2491,7 +2561,9 @@ class ServingEngine:
             rec.update({"draft_pages_used": self._draft.pool.used_pages,
                         "draft_pages_total": self._draft.num_pages - 1,
                         "draft_seed_tokens": rs["draft_seed_tokens"]})
-        rec["collectives"] = 0          # one device: no mesh collectives
+        # the modeled collectives of the round's launches (one output
+        # all-gather a layer a launch on a mesh)
+        rec["collectives"] = rs["collectives"]
         rec["step_wall_ms"] = round(rs["wall_s"] * 1e3, 4)
         if self.adapters is not None:
             rec["slot_adapters"] = sorted(
@@ -2567,9 +2639,7 @@ class ServingEngine:
         the queue's summary, the pools, the prefix cache's and the
         adapters' stats, the engine's A/B flags, the obs layer's stats,
         the SLO snapshot and the cost census (whose first read captures
-        a counted census). Reads of host state, never of the device.
-        Features the port has not ported read as the JAX engine reads
-        them with their gates off (no mesh: mp = dp = 1)."""
+        a counted census). Reads of host state, never of the device."""
         sched = self.scheduler
         residents = []
         for slot, req in sorted(sched.running.items()):
@@ -2607,7 +2677,8 @@ class ServingEngine:
                        "grouped": self.grouped,
                        "attn_impl": self.attn_impl,
                        "kv_dtype": self.kv_dtype,
-                       "mesh": None, "mp": 1, "dp": 1,
+                       "mesh": None if self.tp is None else self.tp.shape,
+                       "mp": self.mp, "dp": self.dp,
                        "preempt": self.preempt,
                        "spec": (None if self.spec is None
                                 else self.spec.mode),
@@ -2622,6 +2693,28 @@ class ServingEngine:
             "slo": self._slo_snap(),
             "cost_census": self.cost_census(),
         }
+
+    def _step_collectives(self) -> int:
+        """The modeled collectives of one launch of the model (the
+        flight record's number): `ServingTP.step_collectives`."""
+        return 0 if self.tp is None else \
+            self.tp.step_collectives(self.n_layers)
+
+    def collective_counts(self) -> dict:
+        """The cross-shard transfers of the last unified step, counted
+        where the shard route makes them (`serving.tp.collective_counts`:
+        the JAX keys plus `broadcast`). The contract: no all-reduce and
+        one output all-gather a layer. Needs a mesh engine that has run a
+        unified step."""
+        if self.tp is None:
+            raise ValueError(
+                "collective_counts() needs a mesh engine "
+                "(ServingEngine(mesh=...) / PADDLE_TPU_MESH)")
+        if self._step_transfers is None:
+            raise ValueError(
+                "collective_counts(): no unified step has run yet — "
+                "serve at least one request first")
+        return collective_counts(self._step_transfers)
 
     # -- conveniences ------------------------------------------------------
     @property

@@ -7,9 +7,9 @@ counters, gauges and histograms the engine records, read three ways.
   classes, speculative decoding's drafted and accepted tokens and the
   draft pool, grammar-constrained decoding's masked rows and rejected
   drafts, the KV fabric's wire traffic, the SLO tracker's snapshot and the
-  cost census), with the JAX engine's keys. Keys of features the port has
-  not ported (the mesh, the JAX engine's traced dispatch count) carry the
-  values the JAX engine gives with those gates off.
+  cost census), with the JAX engine's keys. The JAX engine's count of
+  traced XLA ops in its unified program has no counterpart in an eager
+  step: that key is None, as the JAX engine gives it before a trace.
 - `prometheus_render(...)`: the same snapshots as Prometheus text
   exposition, fixed-bucket `_bucket` series for TTFT and inter-token
   latency included; `engine_info` carries the A/B tags (`kv_dtype`,
@@ -143,11 +143,10 @@ class Histogram:
 
 
 def _unported_off() -> dict:
-    """The snapshot keys of features the port has not ported (ROADMAP.md,
-    queue 1, item 6) at the values the JAX engine gives with those gates
-    off: the tensor-parallel mesh and the JAX engine's traced dispatch
-    count."""
-    return {"mesh": None, "mp": 1, "dp": 1, "unified_dispatch_ops": None}
+    """The snapshot key the port has no counterpart of: the JAX engine's
+    count of traced ops in its unified program (None, as the JAX engine
+    gives it before its first trace)."""
+    return {"unified_dispatch_ops": None}
 
 
 class ServingMetrics:
@@ -224,8 +223,13 @@ class ServingMetrics:
         # residents per HBM byte)
         self.kv_dtype: Optional[str] = None
         self.pool_bytes_per_page = 0
-        # the per-chip page cost (the engine sets it to the page cost, as
-        # the JAX engine does on one device)
+        # tensor-parallel serving (serving/tp.py): the mesh's tag
+        # ("dp1xmp2", None on one device) and degrees, engine_info
+        # labels; and the per-shard page cost (each of the mp shards
+        # holds a 1/mp kv-head slice of every page)
+        self.mesh: Optional[str] = None
+        self.mp = 1
+        self.dp = 1
         self.pool_shard_bytes_per_page = 0
         # whether the engine runs the unified ragged prefill+decode
         # step (True) or the legacy alternating program families
@@ -697,6 +701,9 @@ class ServingMetrics:
             "decode_steps": self.decode_steps,
             "attn_impl": self.attn_impl,
             "kv_dtype": self.kv_dtype,
+            "mesh": self.mesh,
+            "mp": self.mp,
+            "dp": self.dp,
             "unified": self.unified,
             "unified_steps": self.unified_steps,
             "packed_prefill_tokens": self.packed_prefill_tokens,

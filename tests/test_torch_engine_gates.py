@@ -3,15 +3,15 @@ resolves them.
 
 `ServingEngine` reads the JAX engine's gates at construction: the
 ported ones (prefix cache, megakernel, adapters, speculative decoding,
-grammar, obs, the SLO tracker, the cost census) resolve for real —
+grammar, obs, the SLO tracker, the cost census, the mesh) resolve for real —
 `prefix_cache="off"` or PADDLE_TPU_PREFIX_CACHE=off builds no cache,
 `spec="ngram"` or PADDLE_TPU_SPEC_DECODE=ngram a spec engine,
 `grammar=True` or PADDLE_TPU_GRAMMAR=on an engine that takes constrained
 requests (and the legacy step refuses it), obs, SLO and the "model"
 census are on by default and their keywords and variables give the modes
-the JAX resolvers give — and the gate of the feature not ported yet
-(mesh) raises NotImplementedError naming ROADMAP.md when a keyword or an
-environment variable turns it on. A spelling the JAX
+the JAX resolvers give, and `mesh="dp1mp2"` or PADDLE_TPU_MESH=dp1mp2
+builds a tensor-parallel engine of the JAX resolver's shape over virtual
+CPU shards (PADDLE_TPU_FORCE_CPU_DEVICES). A spelling the JAX
 resolver refuses raises ValueError here too. `chunk_len` below
 `MIN_CHUNK` (8) raises on both steps, as in the JAX engine.
 """
@@ -47,7 +47,22 @@ GATES = ("PADDLE_TPU_MESH", "PADDLE_TPU_SPEC_DECODE", "PADDLE_TPU_GRAMMAR",
 def clean_env(monkeypatch):
     for g in GATES:
         monkeypatch.delenv(g, raising=False)
+    # the port's virtual CPU devices for a mesh, as many as the JAX
+    # package's (tests/conftest.py: 8)
+    monkeypatch.setenv("PADDLE_TPU_FORCE_CPU_DEVICES", "8")
     return monkeypatch
+
+
+def _assert_jax_mesh(eng, override=None):
+    """A mesh engine's shape is the JAX resolver's for the same input;
+    its megakernel is off (the JAX rule) and it serves."""
+    want = jtp.resolve_serving_mesh(override)
+    assert eng.tp.shape == want.shape
+    assert (eng.dp, eng.mp) == (want.dp, want.mp)
+    assert eng.metrics.snapshot()["mesh"] == want.shape
+    assert not eng.megakernel
+    out = eng.generate([np.arange(1, 12)])
+    assert len(out[0].token_ids) == 16
 
 
 @pytest.fixture(scope="module")
@@ -71,9 +86,10 @@ def _jax_layer_modes(obs=None, slo=None, cost_census=None):
 def test_roadmap_input_raises(clean_env, model):
     """ROADMAP queue 3's F1 input: spec decode on by its env var builds
     the spec engine the JAX engine builds, with the megakernel and no
-    prefix cache; the gate still unported (mesh) raises beside it, the
-    grammar gate builds an engine whose `grammar` tag is on, and obs,
-    SLO and the census, ported, build with the JAX resolvers' modes."""
+    prefix cache; the mesh gate beside it builds a mesh spec engine of
+    the JAX resolver's shape (its megakernel off), the grammar gate
+    builds an engine whose `grammar` tag is on, and obs, SLO and the
+    census build with the JAX resolvers' modes."""
     clean_env.setenv("PADDLE_TPU_SPEC_DECODE", "ngram")
     clean_env.setenv("PADDLE_TPU_MEGAKERNEL", "on")
     clean_env.setenv("PADDLE_TPU_PREFIX_CACHE", "off")
@@ -88,8 +104,9 @@ def test_roadmap_input_raises(clean_env, model):
                        ("PADDLE_TPU_COST_CENSUS", "model")):
         clean_env.setenv(env, value)
         if env == "PADDLE_TPU_MESH":
-            with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-                ServingEngine(model, **ENGINE)
+            eng = ServingEngine(model, **ENGINE)
+            assert eng.spec.mode == "ngram"
+            _assert_jax_mesh(eng)
         elif env == "PADDLE_TPU_GRAMMAR":
             eng = ServingEngine(model, **ENGINE)
             assert eng.grammar_on is jgrammar.resolve_grammar_flag() is True
@@ -124,9 +141,8 @@ def test_prefix_cache_env(clean_env, model, env, want):
 
 
 # gate env var -> (spellings that turn it on, spellings it accepts as off,
-# spellings its JAX resolver refuses, the JAX resolver). Speculative
-# decoding, grammar, obs, the SLO tracker and the cost census are ported:
-# their "on" spellings build an engine with the JAX resolver's mode
+# spellings its JAX resolver refuses, the JAX resolver). Every gate is
+# ported: its "on" spellings build an engine with the JAX resolver's mode
 UNPORTED = {
     "PADDLE_TPU_MESH": (["dp1mp2", "dp2xmp1"], ["off", ""], ["tp4", "dp0mp2"],
                         lambda: jtp.resolve_serving_mesh()),
@@ -171,8 +187,7 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
             assert eng.grammar_on is jax_resolve() is True
             assert eng.debug_state()["config"]["grammar"] is True
             continue
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(model, **ENGINE)
+        _assert_jax_mesh(ServingEngine(model, **ENGINE))
     for v in off:
         clean_env.setenv(env, v)
         eng = ServingEngine(model, **ENGINE)
@@ -181,6 +196,7 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
             assert _layer_modes(eng) == _jax_layer_modes()
             assert _layer_modes(eng)[_LAYERS[env]] in (False, None, "off")
         assert eng.grammar_on is False
+        assert eng.tp is None and eng.metrics.snapshot()["mesh"] is None
     for v in bad:
         clean_env.setenv(env, v)
         with pytest.raises(ValueError):
@@ -194,12 +210,13 @@ def test_unported_gates_raise_when_their_env_turns_them_on(clean_env, model,
     ("grammar", "on"), ("obs", True), ("slo", True), ("slo", "on"),
     ("cost_census", "model")])
 def test_unported_keywords_raise(clean_env, model, option, value):
-    """mesh raises; grammar builds an engine with its tag on, which the
-    legacy step refuses with the JAX text; obs, slo and cost_census,
-    ported, build the JAX resolvers' modes and serve."""
+    """mesh builds a mesh engine of the JAX resolver's shape; grammar
+    builds an engine with its tag on, which the legacy step refuses with
+    the JAX text; obs, slo and cost_census build the JAX resolvers' modes
+    and serve."""
     if option == "mesh":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            ServingEngine(model, **{option: value}, **ENGINE)
+        _assert_jax_mesh(ServingEngine(model, **{option: value}, **ENGINE),
+                         value)
         return
     if option == "grammar":
         eng = ServingEngine(model, **{option: value}, **ENGINE)

@@ -172,13 +172,25 @@ _LAYER = {"obs": lambda e: e.obs is not None,
     ("kv_dtype", "int8"), ("kv_dtype", "fp8"), ("unified", False), ("mesh", "dp1mp2"),
     ("spec", "ngram"), ("megakernel", True), ("obs", True), ("slo", "on"),
     ("cost_census", "lowered")])
-def test_unported_engine_options_raise(option, value):
-    """An option not ported yet raises at construction, naming its
-    ROADMAP item; a ported one (int8 and fp8 KV, the legacy step, the
-    megakernel, speculative decoding, obs, the SLO tracker, the cost
-    census) builds its pools, and the observability options serve with
+def test_unported_engine_options_raise(option, value, monkeypatch):
+    """Every option is ported now: each (int8 and fp8 KV, the legacy
+    step, the mesh, the megakernel, speculative decoding, obs, the SLO
+    tracker, the cost census) builds its pools — the mesh one per shard,
+    over the shard's kv heads — and the observability options serve with
     their mode on."""
     model = GPTForCausalLM(GPTConfig(**SMALL), device="cpu")
+    if option == "mesh":
+        monkeypatch.setenv("PADDLE_TPU_FORCE_CPU_DEVICES", "2")
+        eng = ServingEngine(model, device="cpu", max_len=16, page_size=4,
+                            chunk_len=8, mesh=value)
+        assert eng.tp.shape == "dp1xmp2" and len(eng._pools) == 1
+        for shard in eng._pools.pools:
+            for k, v, ks, vs in shard:
+                assert k.dtype == v.dtype == torch.float32
+                assert k.shape == (eng.num_pages, eng.page_size,
+                                   eng.n_kv // 2, eng.head_dim)
+                assert ks is None and vs is None
+        return
     if (option, value) in _PORTED:
         pool_dtype, scale_dtype = _PORTED[option, value]
         eng = ServingEngine(model, device="cpu", max_len=16, page_size=4,
